@@ -1,0 +1,575 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``src/repro_torch/csrc`` (at first
+use, into ``build/repro_torch/``) and runs these phases, each printing
+one JSON line:
+
+1. ``device``  — the card's name and power limit (nvidia-smi);
+2. ``build``   — compile and load the kernel library, with its seconds;
+3. ``kernels`` — every kernel against its plain PyTorch version on the
+   card at the main path's shapes, in float32 (tolerance 2e-5) and
+   bfloat16 (2e-2, and every element within two bf16 rounding steps of
+   its own value: both sides compute in f32 and round once), with the kernel's, the plain version's and one
+   PyTorch library call's device time (torch.profiler), the kernel's
+   time per back-to-back call (CUDA events, launch cost included), and
+   the least time the card could take;
+4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
+   through the paged engine on the card (kernels) and on the CPU (plain
+   versions); the token streams must be equal;
+5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
+   random weights from a seed: 16 requests through
+   ``PagedServingEngine``, every request must finish with 64 in-vocab
+   tokens and every kernel must have been launched the number of times
+   the main path's shapes imply; then ``profile``: two steady decode
+   macro-steps timed without the profiler, then the same window again
+   under torch.profiler for the device's busy time; the idle share is
+   one minus busy over the unprofiled wall time.
+
+It then prints the kernel list, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``.  Any failure raises
+and the exit code is non-zero.  Without a CUDA device it exits with
+code 2 before printing anything.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+SEED = 0
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5   # two bf16 rounding steps
+HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 80 GB HBM3
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
+REPLACES = {
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
+    "paged_prefill_attention": "src/repro/kernels/flash_attention.py:72",
+}
+SOURCES = {
+    "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
+    "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def call_ms(fn, n: int = 50, warmup: int = 5) -> float:
+    """Mean time per call of ``fn`` over ``n`` back-to-back calls (CUDA
+    events): the device time, or the host's launch time when that is
+    longer, as it is for kernels of a few microseconds."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: the summed durations of the
+    kernels it launches, from torch.profiler, over ``n`` calls (inputs
+    warm in L2).  Host launch gaps are not counted."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return us / 1e3 / n
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops):
+    import torch
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    # bf16: how far the worst element lies beyond two rounding steps
+    excess = ((diff - BF16_RTOL * ref.float().abs()).max().item()
+              if dtype == "bfloat16" else None)
+    ok = (bool(np.isfinite(err)) and err <= TOL[dtype]
+          and (excess is None or excess <= BF16_ATOL))
+    b_ms, b_by = bound(nbytes, flops, dtype)
+    case = {"kernel": name, "dtype": dtype, "shape": shape,
+            "max_abs_err": err, "tol": TOL[dtype],
+            "bf16_step_excess": excess, "ok": ok,
+            "ms": device_ms(fn), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library) if library else None,
+            "call_ms": call_ms(fn),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops}
+    emit({"phase": "kernels", **case})
+    if not ok:
+        raise AssertionError(f"{name} {dtype} {shape}: kernel disagrees "
+                             f"with its plain version (max abs err {err}, "
+                             f"limit {TOL[dtype]}; bf16 step excess "
+                             f"{excess}, limit {BF16_ATOL})")
+    return case
+
+
+def kernel_cases(dev) -> list:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.flash_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    rng = np.random.default_rng(SEED)
+    cases = []
+    H, KV, HD, BS, MAX_LEN, D = 15, 5, 64, 16, 1024, 960
+    nb = MAX_LEN // BS
+
+    def t(a, dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+
+        # rmsnorm: 8 decode rows, 128 prefill rows of d_model
+        for rows in (8, 128):
+            x = t(rng.standard_normal((rows, D)), dtype)
+            sc = t(1 + 0.1 * rng.standard_normal(D), dtype)
+            cases.append(_case(
+                "rmsnorm", dname, [rows, D], rmsnorm(x, sc, 1e-5),
+                rmsnorm_plain(x, sc, 1e-5), lambda: rmsnorm(x, sc, 1e-5),
+                lambda: rmsnorm_plain(x, sc, 1e-5),
+                lambda: F.rms_norm(x, (D,), sc, 1e-5),
+                2 * rows * D * es + D * es, 4 * rows * D))
+
+        # paged decode: B = 8 rows, positions up to ~600, one masked row
+        # (frozen pos, all-zero table -> the scratch block 0)
+        B = 8
+        nbp = B * nb + 1
+        kp = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+        vp = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+        tables_np = (rng.permutation(nbp - 1)[:B * nb].reshape(B, nb) + 1)
+        pos_np = rng.integers(64, 640, size=B)
+        tables_np[B - 1] = 0
+        pos_np[B - 1] = 5
+        tables = torch.from_numpy(tables_np.astype(np.int32)).to(dev)
+        pos = torch.from_numpy(pos_np.astype(np.int32)).to(dev)
+        q = t(rng.standard_normal((B, H, HD)), dtype)
+        kg = paged_gather(kp, tables).permute(0, 2, 1, 3).contiguous()
+        vg = paged_gather(vp, tables).permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        n_keys = int(np.minimum(pos_np, MAX_LEN - 1).sum() + B)
+        cases.append(_case(
+            "paged_decode_attention", dname,
+            {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS,
+             "pos": pos_np.tolist()},
+            paged_decode_attention(q, kp, vp, tables, pos),
+            paged_decode_attention_plain(q, kp, vp, tables, pos),
+            lambda: paged_decode_attention(q, kp, vp, tables, pos),
+            lambda: paged_decode_attention_plain(q, kp, vp, tables, pos),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
+            2 * B * H * HD * es + 2 * n_keys * KV * HD * es
+            + 4 * (n_keys // BS + B) + 4 * B,
+            4 * H * HD * n_keys))
+
+        # paged prefill: a chunk of C = 128 at pos 0 (identity table over
+        # contiguous K/V) and at pos 256 (shuffled table)
+        C = 128
+        for p0 in (0, 256):
+            nbp = nb + 1
+            kp = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+            vp = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+            if p0 == 0:
+                table_np = np.arange(nb)
+            else:
+                table_np = rng.permutation(nbp - 1)[:nb] + 1
+            table = torch.from_numpy(table_np.astype(np.int32)).to(dev)
+            q = t(rng.standard_normal((C, H, HD)), dtype)
+            n_slots = p0 + C
+            kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
+            vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
+            kc, vc = kc[None].contiguous(), vc[None].contiguous()
+            qs = q.permute(1, 0, 2)[None].contiguous()
+            cmask = (torch.arange(n_slots, device=dev)[None, :]
+                     <= p0 + torch.arange(C, device=dev)[:, None])
+            out = paged_prefill_attention(q, kp, vp, table, p0)
+            if p0 == 0:
+                # what flash_attention_pallas(causal=True) computes for
+                # contiguous K/V, written out in f32
+                g = H // KV
+                s = torch.einsum("nghd,nkd->nghk",
+                                 qs[0].float().reshape(KV, g, C, HD),
+                                 kc[0].float()) * HD ** -0.5
+                s = s.masked_fill(~cmask, -1e30)
+                ref = torch.einsum("nghk,nkd->nghd", torch.softmax(s, -1),
+                                   vc[0].float()).reshape(H, C, HD)
+                flash_err = (out.float().permute(1, 0, 2) - ref).abs().max().item()
+                emit({"phase": "kernels", "kernel": "paged_prefill_attention",
+                      "check": "identity table vs contiguous causal attention",
+                      "dtype": dname, "max_abs_err": flash_err,
+                      "tol": TOL[dname]})
+                if not flash_err <= TOL[dname]:
+                    raise AssertionError(
+                        f"prefill at pos 0 disagrees with contiguous causal "
+                        f"attention ({flash_err})")
+            n_pairs = sum(p0 + i + 1 for i in range(C))
+            cases.append(_case(
+                "paged_prefill_attention", dname,
+                {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
+                out, paged_prefill_attention_plain(q, kp, vp, table, p0),
+                lambda: paged_prefill_attention(q, kp, vp, table, p0),
+                lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
+                (lambda: F.scaled_dot_product_attention(
+                    qs, kc, vc, is_causal=True, enable_gqa=True))
+                if p0 == 0 else
+                (lambda: F.scaled_dot_product_attention(
+                    qs, kc, vc, attn_mask=cmask, enable_gqa=True)),
+                2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                + 4 * (-(-n_slots // BS)),
+                4 * H * HD * n_pairs))
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: the engine
+# ---------------------------------------------------------------------------
+def _to(params, dev):
+    if isinstance(params, dict):
+        return {k: _to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to(v, dev) for v in params]
+    return params if params is None else params.to(dev)
+
+
+def _trace(rng, n, lo, hi, vocab):
+    return [rng.integers(1, vocab, int(m)).tolist()
+            for m in rng.integers(lo, hi + 1, n)]
+
+
+def _top2_gap(model, params, tokens, dev):
+    """Top-2 logit gap of the next token after ``tokens`` (plain path)."""
+    import torch
+    from repro_torch.models.kvcache import PagedCache
+    pc = PagedCache(model.cfg, max_rows=1, max_len=1024, device=dev)
+    caches = pc.struct(model.dtype)
+    pc.admit(0, len(tokens))
+    prompt = torch.tensor([tokens[:-1]], dtype=torch.int32, device=dev)
+    if len(tokens) > 1:
+        model.paged_prefill_chunk(params, caches, prompt, 0, 0, pc.meta(row=0))
+    logits, _ = model.paged_decode_step(
+        params, caches,
+        {"token": torch.tensor([[tokens[-1]]], dtype=torch.int32, device=dev),
+         "pos": torch.tensor([len(tokens) - 1], dtype=torch.int32,
+                             device=dev)}, pc.meta())
+    top = torch.topk(logits[0, -1, :model.cfg.vocab_size].float(), 2)
+    return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+
+
+def parity(dev) -> dict:
+    import torch
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
+                              block_pattern=uniform("attn", 2),
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    params_cpu = Model(cfg, device=cpu).init(
+        torch.Generator().manual_seed(SEED))
+    params_gpu = _to(params_cpu, dev)
+    prompts = _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
+                     cfg.vocab_size)
+    streams = {}
+    t0 = time.perf_counter()
+    for name, d, p in (("cuda", dev, params_gpu), ("cpu", cpu, params_cpu)):
+        eng = PagedServingEngine(cfg, p, max_rows=4, max_len=256,
+                                 block_size=16, prefill_chunk=128,
+                                 decode_steps=4, device=d)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(i, list(pr), max_new_tokens=16))
+        done = eng.run()
+        streams[name] = {r.id: r.out_tokens for r in done}
+    equal = streams["cuda"] == streams["cpu"]
+    res = {"phase": "parity", "config": "smollm-360m, 2 layers, float32",
+           "requests": len(prompts), "equal": equal,
+           "tokens": sum(len(s) for s in streams["cpu"].values()),
+           "seconds": time.perf_counter() - t0}
+    if not equal:
+        for rid, ref in sorted(streams["cpu"].items()):
+            got = streams["cuda"].get(rid, [])
+            if got != ref:
+                i = next((j for j, (a, b) in enumerate(zip(got, ref))
+                          if a != b), min(len(got), len(ref)))
+                gap, top = _top2_gap(Model(cfg, device=cpu), params_cpu,
+                                     prompts[rid] + ref[:i], cpu)
+                res["first_divergence"] = {"request": rid, "index": i,
+                                           "cuda": got[i:i + 4],
+                                           "cpu": ref[i:i + 4],
+                                           "plain_top2_gap": gap,
+                                           "plain_top2": top}
+                break
+    emit(res)
+    if not equal:
+        raise AssertionError("card and CPU token streams differ")
+    return res
+
+
+def serve(dev) -> dict:
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import PagedServingEngine, Request
+
+    class TimedEngine(PagedServingEngine):
+        """Splits wall time between prefill chunks and macro-steps."""
+        prefill_s = decode_s = 0.0
+        macro_steps = decode_iters = prefill_calls = 0
+
+        def _prefill_row(self, row, toks, pos0):
+            t0 = time.perf_counter()
+            super()._prefill_row(row, toks, pos0)
+            torch.cuda.synchronize()
+            self.prefill_s += time.perf_counter() - t0
+            self.prefill_calls += 1
+
+        def _forward_steps(self, tokens, pos, budgets, k):
+            t0 = time.perf_counter()
+            out = super()._forward_steps(tokens, pos, budgets, k)
+            self.decode_s += time.perf_counter() - t0
+            self.macro_steps += 1
+            self.decode_iters += k
+            return out
+
+    cfg = get_config("smollm-360m")
+    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    eng = TimedEngine(cfg, **kw)
+    # warm-up: cuBLAS handles and allocator pools, outside the counts
+    eng.submit(Request(-1, list(range(1, 40)), max_new_tokens=4))
+    eng.run()
+    eng = TimedEngine(cfg, eng.params, **kw)
+    prompts = _trace(np.random.default_rng(SEED + 2), 16, 32, 512,
+                     cfg.vocab_size)
+    for i, pr in enumerate(prompts):
+        eng.submit(Request(i, pr, max_new_tokens=64))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    expect = {"rmsnorm": 65 * eng.decode_iters + 64 * eng.prefill_calls,
+              "paged_decode_attention": 32 * eng.decode_iters,
+              "paged_prefill_attention": 32 * eng.prefill_calls}
+    res = {"phase": "serve", "config": "smollm-360m, 32 layers, bfloat16",
+           "requests": len(prompts), "finished": len(done),
+           "prompt_tokens": sum(len(p) for p in prompts),
+           "prefill_tokens": eng.prefill_tokens,
+           "generated_tokens": eng.tokens_generated,
+           "wall_s": wall, "prefill_s": eng.prefill_s,
+           "decode_s": eng.decode_s,
+           "prefill_tok_per_s": eng.prefill_tokens / eng.prefill_s,
+           "decode_tok_per_s": eng.tokens_generated / eng.decode_s,
+           "macro_steps": eng.macro_steps, "decode_iters": eng.decode_iters,
+           "ms_per_macro_step": eng.decode_s / eng.macro_steps * 1e3,
+           "prefill_calls": eng.prefill_calls,
+           "n_host_syncs": eng.n_host_syncs,
+           "n_preemptions": eng.n_preemptions,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "launches": launches, "launches_expected": expect}
+    emit(res)
+    bad = [r.id for r in done
+           if len(r.out_tokens) != 64
+           or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)]
+    if len(done) != len(prompts) or bad or eng.rejected:
+        raise AssertionError(f"serve: {len(done)}/{len(prompts)} finished, "
+                             f"bad streams {bad}, rejected "
+                             f"{[r.id for r in eng.rejected]}")
+    if any(n == 0 for n in launches.values()) or launches != expect:
+        raise AssertionError(f"serve: kernel launches {launches}, "
+                             f"expected {expect}")
+    profile_decode(cfg, eng.params, kw, dev)
+    return res
+
+
+def profile_decode(cfg, params, kw, dev) -> dict:
+    """Where decode time goes in two steady macro-steps of 8 rows
+    (admission, prefill and the first macro-step happen before the
+    window).  The window runs twice on identical engines: once timed
+    without the profiler (the wall time), once under torch.profiler
+    (the device's busy time and the kernels by time).  The idle share is
+    one minus busy over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    prompts = _trace(np.random.default_rng(SEED + 3), 8, 256, 256,
+                     cfg.vocab_size)
+
+    def warm_engine():
+        eng = PagedServingEngine(cfg, params, **kw)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(i, pr, max_new_tokens=48))
+        eng.step()               # admit + prefill all 8, first macro-step
+        torch.cuda.synchronize()
+        return eng
+
+    def window(eng):
+        t0 = time.perf_counter()
+        while eng.active_rows or eng.queue:
+            eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    eng = warm_engine()
+    t_before, pos0 = eng.t, int(eng.pos.min())
+    wall = window(eng)
+    iters = eng.t - t_before
+    eng = warm_engine()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_profiled = window(eng)
+    if eng.t - t_before != iters:
+        raise AssertionError("the profiled window ran another number of "
+                             "decode iterations")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    n_launch = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"phase": "profile",
+           "window": f"decode, 8 rows, pos {pos0}-{pos0 + iters - 1}",
+           "decode_iters": iters, "wall_ms": wall * 1e3,
+           "wall_profiled_ms": wall_profiled * 1e3,
+           "ms_per_decode_iter": wall * 1e3 / iters,
+           "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+           "device_launches": n_launch,
+           "device_launches_per_decode_iter": n_launch / iters,
+           "top_kernels": [{"name": e.key[:70], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top]}
+    emit(res)
+    return res
+
+
+def kernel_line(cases, launches) -> dict:
+    """One entry per kernel, at its main-path shape in bfloat16 (decode
+    rows for rmsnorm, pos 256 for prefill); every case in ``cases``."""
+    main = {"rmsnorm": lambda c: c["shape"] == [8, 960],
+            "paged_decode_attention": lambda c: True,
+            "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256}
+    out = []
+    for name in ("rmsnorm", "paged_decode_attention",
+                 "paged_prefill_attention"):
+        mine = [c for c in cases if c["kernel"] == name]
+        c = next(c for c in mine
+                 if c["dtype"] == "bfloat16" and main[name](c))
+        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name],
+                    "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                    "call_ms": c["call_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                    "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                    "dtype": c["dtype"], "shape": c["shape"],
+                    "cases": [{k: x[k] for k in ("dtype", "shape", "ms",
+                                                 "call_ms", "plain_ms",
+                                                 "library_ms",
+                                                 "bound_ms", "bound_by",
+                                                 "max_abs_err")}
+                              for x in mine]})
+    return {"kernels": out}
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda is not available; this test needs "
+              "an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    _build.library()
+    report = [ln.strip() for ln in _build.ptxas_report().splitlines()
+              if "Used" in ln or "Compiling entry" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": _build.build_seconds, "key": _build.build_key(),
+          "ptxas": report})
+
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    cases = timed("kernels", lambda: kernel_cases(dev))
+    timed("parity", lambda: parity(dev))
+    launches = timed("serve", lambda: serve(dev))["launches"]
+    emit({"phase": "timing", "seconds": seconds,
+          "total": time.perf_counter() - t_start})
+    emit(kernel_line(cases, launches))
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

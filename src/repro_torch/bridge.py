@@ -1,0 +1,56 @@
+"""Carry the JAX package's parameters into the port.
+
+The reference model's parameters are a pytree: ``embed.w`` (the padded
+vocab table, also the tied head), ``blocks.segments[i]`` with
+``ln1.scale``, ``attn.{wq,wk,wv,wo}``, ``ln2.scale`` and
+``mlp.{w_gate,w_up,w_down}`` stacked ``(n_layers, ...)`` per segment
+(a one-layer segment is stored unstacked), ``blocks.shared`` (None for
+these models) and ``final_norm.scale``.  :func:`params_from_numpy`
+takes that tree as nested dicts and lists of numpy arrays (a caller
+holding JAX arrays maps ``np.asarray`` over it first) and returns the
+port's parameters: the same tree of torch tensors, in the same
+``(in, out)`` orientation, so the bridge copies and never transposes.
+It imports no JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import build_segments
+
+
+def _to_torch(a, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
+    """The reference's parameter tree (numpy leaves) as port params."""
+    segs = build_segments(cfg)
+    if tree["blocks"].get("shared") is not None:
+        raise NotImplementedError("weight-shared blocks are not ported yet")
+    if len(tree["blocks"]["segments"]) != len(segs):
+        raise ValueError(f"{len(tree['blocks']['segments'])} segments in the "
+                         f"tree, {len(segs)} in {cfg.name}")
+    if "lm_head" in tree:
+        raise NotImplementedError("untied LM heads are not ported yet")
+
+    def leaf(a):
+        return _to_torch(a, device, dtype)
+
+    segments = []
+    for seg, p in zip(segs, tree["blocks"]["segments"]):
+        # a one-layer segment is unstacked in the reference: add the
+        # layer dim so every segment indexes the same way
+        stacked = p if seg.length > 1 else _map(p, lambda a: np.asarray(a)[None])
+        segments.append(_map(stacked, leaf))
+    return {"embed": {"w": leaf(tree["embed"]["w"])},
+            "blocks": {"segments": segments, "shared": None},
+            "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}

@@ -1,0 +1,143 @@
+"""Model configuration for the port (the port's copy of ``repro.config``).
+
+:class:`ModelConfig` keeps every field and ``__post_init__`` check of
+the reference, so a config built here describes the same model as its
+JAX twin and the two packages can be held against each other field by
+field.  :func:`reduce_config` shrinks a production config to the CPU
+smoke size exactly as the reference does.  Configs are frozen
+dataclasses, so they hash.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+# Block kinds understood by the reference model (the port runs "attn")
+BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
+MLP_KINDS = ("dense", "moe", "none")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Unified architecture description.
+
+    ``block_pattern`` has one entry per decoder layer; encoder layers (for
+    enc-dec models) are always full bidirectional attention.
+    """
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+    block_pattern: Tuple[str, ...]
+    mlp_kind: str = "dense"
+
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim (0 -> use d_ff)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # --- SSM (mamba) ---
+    ssm_state: int = 0
+    d_inner: int = 0  # 0 -> 2 * d_model
+    conv_width: int = 4
+    mamba2_headdim: int = 64
+
+    # --- attention details ---
+    window: int = 0  # sliding-window size for "swa" blocks
+    shared_block_kind: str = ""
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # --- enc-dec (audio) ---
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0
+
+    # --- VLM ---
+    n_image_tokens: int = 0
+
+    # provenance
+    source: str = ""
+
+    # dtype of params/activations in the production configs
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if len(self.block_pattern) != self.n_layers:
+            raise ValueError(f"{self.name}: pattern len "
+                             f"{len(self.block_pattern)} != n_layers "
+                             f"{self.n_layers}")
+        for b in self.block_pattern:
+            if b not in BLOCK_KINDS:
+                raise ValueError(f"unknown block kind {b!r}")
+        if self.mlp_kind not in MLP_KINDS:
+            raise ValueError(f"unknown mlp kind {self.mlp_kind!r}")
+
+    @property
+    def d_inner_eff(self) -> int:
+        return self.d_inner if self.d_inner else 2 * self.d_model
+
+    @property
+    def vocab_padded(self) -> int:
+        """Embedding rows: the vocab padded up to a multiple of 256,
+        as the reference's ``layers.embed_init`` lays the table out."""
+        return -(-self.vocab_size // 256) * 256
+
+
+def uniform(kind: str, n: int) -> Tuple[str, ...]:
+    return tuple([kind] * n)
+
+
+def reduce_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,
+                  n_experts: int = 4, vocab: int = 512,
+                  seq_cap: int = 64) -> ModelConfig:
+    """Shrink a production config to a CPU-smokeable variant of the same
+    family (the reference's rules, unchanged).
+
+    Keeps the block-kind mix: the reduced pattern samples one layer of each
+    distinct kind present (up to ``n_layers``).
+    """
+    kinds = []
+    for b in cfg.block_pattern:
+        if b not in kinds:
+            kinds.append(b)
+    pattern = tuple((kinds * n_layers)[:n_layers])
+    n_heads = max(2, min(4, cfg.n_heads))
+    n_kv = max(1, min(n_heads, cfg.n_kv_heads))
+    while n_heads % n_kv:
+        n_kv -= 1
+    head_dim = max(16, d_model // n_heads)
+    ne = min(n_experts, cfg.n_experts) if cfg.n_experts else 0
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        n_layers=n_layers,
+        block_pattern=pattern,
+        d_model=d_model,
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=head_dim,
+        d_ff=max(32, d_model * 2),
+        moe_d_ff=max(32, d_model) if cfg.mlp_kind == "moe" else 0,
+        vocab_size=vocab,
+        n_experts=ne,
+        experts_per_token=min(cfg.experts_per_token, max(1, ne // 2)) if ne else 0,
+        d_inner=2 * d_model if cfg.ssm_state else 0,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        window=min(cfg.window, seq_cap // 2) if cfg.window else 0,
+        n_encoder_layers=min(cfg.n_encoder_layers, 2),
+        encoder_seq=min(cfg.encoder_seq, 16) if cfg.encoder_seq else 0,
+        n_image_tokens=min(cfg.n_image_tokens, 16) if cfg.n_image_tokens else 0,
+        dtype="float32",
+    )

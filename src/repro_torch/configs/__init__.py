@@ -1,0 +1,31 @@
+"""Architecture config registry of the port.
+
+It holds the architectures the port can serve so far: ``smollm-360m``.
+Other architectures join with their families.  ``get_config(arch_id)``
+returns the production :class:`~repro_torch.config.ModelConfig`,
+``get_smoke_config`` the reduced CPU-testable variant.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.config import ModelConfig, reduce_config
+
+_ARCH_MODULES = {
+    "smollm-360m": "smollm_360m",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; "
+                       f"known: {sorted(_ARCH_MODULES)}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
+    return mod.CONFIG
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return reduce_config(get_config(arch_id))

@@ -1,0 +1,97 @@
+"""Paged flash-decode: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/decode_attention.py::paged_decode_attention_pallas``
+as the reference model runs it: one query token per row against the
+model's paged pools ``(NB, bs, KV, hd)`` of one layer, reached through
+block tables ``(B, nb)``, GQA, slots masked above ``pos``.  The kernel
+is ``csrc/paged_decode_attention.cu``.  The dense-cache kernel
+(``decode_attention_pallas``) serves the slot engines and is not ported
+yet.
+
+The wrapper runs the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+
+def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """pool (NB, bs, KV, hd) gathered through tables (B, nb) into the
+    logical view (B, nb*bs, KV, hd) (``attention.py::_paged_gather``)."""
+    g = pool[tables.long()]
+    b, nb, bs = g.shape[:3]
+    return g.reshape(b, nb * bs, *g.shape[3:])
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, tables: torch.Tensor,
+                                 pos: torch.Tensor,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """Gather + f32 scores + mask + softmax, as
+    ``repro/models/attention.py::paged_decode_self_attention`` computes
+    them.  q (B,H,hd); pools (NB,bs,KV,hd); tables (B,nb); pos (B,).
+    Returns (B,H,hd) in q.dtype."""
+    b, h, hd = q.shape
+    kv = k_pool.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    kg = paged_gather(k_pool, tables).float()
+    vg = paged_gather(v_pool, tables).float()
+    s = kg.shape[1]
+    qg = q.reshape(b, kv, g, hd).float()
+    scores = torch.einsum("bngh,bsnh->bngs", qg, kg) * scale
+    kpos = torch.arange(s, device=q.device)
+    valid = kpos[None, :] <= pos.long()[:, None]                  # (B,S)
+    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(scores + mask[:, None, None, :], dim=-1)
+    out = torch.einsum("bngs,bsnh->bngh", probs, vg)
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           pos: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Paged decode attention; see :func:`paged_decode_attention_plain`
+    for the contract.  Pools are read in place, never transposed."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
+                                            scale)
+    b, h, hd = q.shape
+    nbp, bs, kv, hd_k = k_pool.shape
+    nb = tables.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_pool, v_pool, tables, pos)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_decode_attention: all tensors must lie on "
+                         "one CUDA device")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv
+            or tables.shape != (b, nb) or pos.shape != (b,)):
+        raise ValueError(
+            f"paged_decode_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+            f"{tuple(tables.shape)}, pos {tuple(pos.shape)} do not fit")
+    if (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or tables.dtype != torch.int32 or pos.dtype != torch.int32):
+        raise TypeError("paged_decode_attention: q and pools must share a "
+                        "dtype; tables and pos must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_decode_attention: the kernel takes "
+                         "contiguous tensors")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    _build.launches["paged_decode_attention"] += 1
+    _build.check(lib.rt_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, h, kv, hd, bs, nb, float(scale), _build.dtype_code(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "paged_decode_attention")
+    return out

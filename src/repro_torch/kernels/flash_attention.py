@@ -1,0 +1,92 @@
+"""Paged causal prefill attention: the CUDA kernel's wrapper and its
+plain version.
+
+Port of ``repro/kernels/flash_attention.py::flash_attention_pallas`` in
+the form the reference model's chunked prefill runs it (the linear
+branch of ``repro/models/attention.py::paged_chunk_self_attention``):
+C query tokens of one request, at positions ``pos .. pos + C - 1``,
+attend causally to the logical slots ``[0, pos + C)`` of the model's
+paged pools ``(NB, bs, KV, hd)`` through the request's block table.
+With ``pos = 0`` and an identity table this is causal flash attention
+over contiguous K/V.  The sliding window is not on this path and is not
+ported yet.  The kernel is ``csrc/paged_prefill_attention.cu``.
+
+The wrapper runs the plain version for CPU tensors only; for CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import NEG_INF, paged_gather
+
+
+def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor, table: torch.Tensor,
+                                  pos: int,
+                                  scale: Optional[float] = None) -> torch.Tensor:
+    """Gather + f32 scores + causal mask + softmax, as the reference's
+    paged chunk path computes them.  q (C,H,hd); pools (NB,bs,KV,hd);
+    table (nb,); pos the absolute position of q's first token.
+    Returns (C,H,hd) in q.dtype."""
+    c, h, hd = q.shape
+    kv = k_pool.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    kg = paged_gather(k_pool, table[None])[0].float()
+    vg = paged_gather(v_pool, table[None])[0].float()
+    s = kg.shape[0]
+    qg = q.reshape(c, kv, g, hd).float()
+    scores = torch.einsum("qngh,snh->ngqs", qg, kg) * scale     # (KV,G,C,S)
+    qpos = int(pos) + torch.arange(c, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = torch.where(kpos <= qpos, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(scores + mask, dim=-1)
+    out = torch.einsum("ngqs,snh->qngh", probs, vg)
+    return out.reshape(c, h, hd).to(q.dtype)
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                            v_pool: torch.Tensor, table: torch.Tensor,
+                            pos: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Paged causal prefill attention; see
+    :func:`paged_prefill_attention_plain` for the contract."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_pool, v_pool, table, pos,
+                                             scale)
+    c, h, hd = q.shape
+    nbp, bs, kv, hd_k = k_pool.shape
+    nb = table.shape[0]
+    pos = int(pos)
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_pool, v_pool, table)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_prefill_attention: all tensors must lie on "
+                         "one CUDA device")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv
+            or table.dim() != 1 or pos < 0):
+        raise ValueError(
+            f"paged_prefill_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
+            f"{tuple(table.shape)}, pos {pos} do not fit")
+    if (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or table.dtype != torch.int32):
+        raise TypeError("paged_prefill_attention: q and pools must share a "
+                        "dtype; the table must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_prefill_attention: the kernel takes "
+                         "contiguous tensors")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    _build.launches["paged_prefill_attention"] += 1
+    _build.check(lib.rt_paged_prefill_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        out.data_ptr(), c, h, kv, hd, bs, nb, pos, float(scale),
+        _build.dtype_code(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "paged_prefill_attention")
+    return out

@@ -1,0 +1,424 @@
+"""Paged KV cache: the block ledger and its torch pools.
+
+Port of the paged half of ``repro/models/kvcache.py`` for the attn-only
+decoders the port runs.  The host-side ledger :class:`PagedCache` is the
+reference's attn group (free list, refcounts, the copy-on-write prefix
+index, ``check()``, and the versioned ``meta()`` snapshot, which here
+returns int32 tensors on the ledger's device).  The reference's SWA
+ring, cross-KV blocks and SSM state rows are per-request state of block
+kinds the port does not run yet; they join with those families.
+:meth:`PagedCache.struct` builds torch pools
+``(n_layers, num_blocks + 1, block_size, kv_heads, hd)`` per segment.
+
+The pools are **updated in place** — by the model's KV writes and by
+:func:`paged_copy_blocks` — which replaces the reference's functional
+updates under buffer donation.
+
+Cache layout invariants (as in the reference):
+
+* physical block 0 of every paged pool is the **scratch block**: never
+  allocated, it absorbs the writes of inactive decode rows; block-table
+  entries of unallocated logical blocks point at scratch, and every
+  read through them is masked by position;
+* stale attn KV needs no zeroing on block reuse — attention masks
+  slots above ``pos``;
+* attn-pool blocks may be **shared** between requests under
+  copy-on-write prefix sharing: a block's content is a pure function of
+  the token-id prefix it caches, a per-block refcount tracks its owners,
+  and any write to a block with refcount > 1 first copies it.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import build_segments, check_supported
+
+
+class PagedCache:
+    """Host-side paged-cache ledger: a free list + per-request block tables.
+
+    The attn pool is the shared contention pool — ``num_blocks`` usable
+    blocks of ``block_size`` tokens; one block id covers the same
+    logical token range in *every* layer's pool.  Logical slot ==
+    absolute position; a request holds ``ceil(tokens / block_size)``
+    blocks and grows block-by-block as it decodes (:meth:`ensure`).
+    Token-level admission and preemption arbitrate over this pool.
+
+    The ledger is pure numpy/python — a deterministic LIFO free list,
+    no device state.  Pool tensors are built separately by
+    :meth:`struct`; :meth:`meta` uploads the tables to ``device``.
+
+    ``watermark_blocks`` holds back free blocks at admission time: a new
+    request is admitted only if its prompt fits *and* the pool stays
+    above the watermark, reserving headroom for the decode growth of
+    already-running requests (fewer preemptions at high load).
+
+    **Prefix sharing** (``share_prefixes=True``, SERVING.md §Prefix
+    sharing).  Blocks become *shared* resources under a per-block
+    refcount: a host-side prefix index maps the token ids of every
+    fully-prefilled block (keyed by the request's whole token prefix up
+    to and including that block, so a match is exact by construction —
+    attention KV at position ``p`` is a pure function of tokens
+    ``[0, p]``) to the physical block caching it.  :meth:`admit` with
+    ``tokens=`` matches the longest indexed full-block prefix and maps
+    those blocks into the new request's table with a refcount bump
+    instead of allocating + re-prefilling them; :meth:`release` (and
+    preemption, which uses the same path) decrements refcounts, and a
+    block returns to the free list only at refcount zero.  A write into
+    a block with refcount > 1 (:meth:`ensure`) triggers
+    **copy-on-write**: a fresh block replaces it in the writer's table
+    and the pending device-side pool copy is queued in
+    :attr:`pending_copies` for the engine to apply before its next
+    forward.
+    """
+
+    def __init__(self, cfg, *, max_rows: int, max_len: int,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 watermark_blocks: int = 0, share_prefixes: bool = False,
+                 device="cuda"):
+        if max_len % block_size:
+            raise ValueError(f"max_len {max_len} is not a multiple of "
+                             f"block_size {block_size}")
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = device
+        self.max_rows = max_rows
+        self.max_len = max_len
+        self.block_size = block_size
+        self.nb_logical = max_len // block_size
+        self.watermark_blocks = watermark_blocks
+        self.num_blocks = (max_rows * self.nb_logical
+                           if num_blocks is None else num_blocks)
+        self.share_prefixes = bool(share_prefixes)
+        # per-block owner count; a block is free iff refcount 0
+        self._ref = np.zeros(self.num_blocks + 1, np.int32)
+        # token-prefix bytes -> physical block caching that full block,
+        # plus the reverse map for de-indexing at refcount zero
+        self._prefix_index: Dict[bytes, int] = {}
+        self._block_key: Dict[int, bytes] = {}
+        # COW pool copies (src, dst) awaiting device application —
+        # engines drain via take_pending_copies() before each forward
+        self.pending_copies: List[Tuple[int, int]] = []
+        self._hit_tokens_row = np.zeros(max_rows, np.int32)
+        self.n_prefix_hits = 0      # admissions that matched >= 1 block
+        self.prefix_tokens_hit = 0  # prefill tokens skipped, cumulative
+        self.blocks_saved = 0       # allocations avoided by sharing
+        self.n_cow_copies = 0
+        # LIFO free list; block id 0 is the scratch block
+        self._free = list(range(self.num_blocks, 0, -1))
+        self._held: List[List[int]] = [[] for _ in range(max_rows)]
+        self.tables = np.zeros((max_rows, self.nb_logical), np.int32)
+        # incremental device snapshot: the ledger version bumps on every
+        # table mutation (admit/growth/release/preempt); meta() re-uploads
+        # only when the version moved, so steady-state decode reuses one
+        # immutable device copy instead of copying every table per forward
+        self._version = 0
+        self._meta_version = -1
+        self._meta_cache: Optional[dict] = None
+        self.n_meta_uploads = 0
+
+    # -------------------------------------------------------------- pools
+    def struct(self, dtype, device=None) -> list:
+        """Block-pool tensors, one ``{"k","v"}`` dict per segment.
+
+        Mirrors the reference's ``struct`` segment-for-segment: leaves
+        are ``(n_layers, num_blocks + 1, block_size, kv_heads, hd)``
+        torch tensors (+1 for the scratch block), zero-filled.  The model
+        writes them in place.  ``device`` defaults to the ledger's own
+        (``"cuda"`` unless given).
+        """
+        cfg = self.cfg
+        dev = resolve_device(self.device if device is None else device)
+        shape = (self.num_blocks + 1, self.block_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return [{"k": torch.zeros((seg.length, *shape), dtype=dtype,
+                                  device=dev),
+                 "v": torch.zeros((seg.length, *shape), dtype=dtype,
+                                  device=dev)}
+                for seg in build_segments(cfg)]
+
+    # ---------------------------------------------------------- metadata
+    def meta(self, row: Optional[int] = None) -> dict:
+        """Block-table metadata for a forward call, as int32 tensors on
+        the ledger's device.
+
+        Snapshot copies (the device copy runs asynchronously and the
+        ledger must stay mutable on the host side).  ``row`` restricts
+        tables to one request (the chunked-prefill path).
+
+        The full-table snapshot (``row=None``, the per-decode path) is
+        cached against :attr:`_version`: it is rebuilt only when the
+        ledger actually changed since the last upload — during steady-
+        state decode the same device tensors are handed to every
+        macro-step.  (:attr:`n_meta_uploads` counts rebuilds.)
+        """
+        if row is None:
+            if self._meta_version == self._version:
+                return self._meta_cache
+            self._meta_cache = self._build_meta(slice(None))
+            self._meta_version = self._version
+            self.n_meta_uploads += 1
+            return self._meta_cache
+        return self._build_meta(slice(row, row + 1))
+
+    def _build_meta(self, sel) -> dict:
+        return {"tables": torch.from_numpy(self.tables[sel].copy()).to(
+            self.device)}
+
+    # -------------------------------------------------------- accounting
+    def blocks_needed(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.block_size)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - self.free_blocks
+
+    def utilization(self) -> float:
+        return (self.used_blocks / self.num_blocks) if self.num_blocks else 0.0
+
+    def fits(self, total_tokens: int) -> bool:
+        """Can a request ever run: worst-case footprint vs pool size."""
+        return self.blocks_needed(total_tokens) <= self.num_blocks
+
+    # ---------------------------------------------------- prefix index
+    def _prefix_key(self, tokens, logical: int) -> bytes:
+        """Index key of logical block ``logical`` for a request whose
+        prefilled token ids are ``tokens``: the *whole* prefix through
+        that block, so equal keys imply bitwise-equal cached KV."""
+        end = (logical + 1) * self.block_size
+        return np.asarray(tokens[:end], np.int32).tobytes()
+
+    def _match_blocks(self, tokens) -> List[int]:
+        """Longest indexed full-block prefix of ``tokens`` (the
+        request's to-be-prefilled ids), as physical block ids.  Only
+        blocks *fully covered* by ``tokens`` can match — the block
+        holding a request's first decode write is never shared."""
+        if not self.share_prefixes or tokens is None:
+            return []
+        out: List[int] = []
+        for j in range(len(tokens) // self.block_size):
+            blk = self._prefix_index.get(self._prefix_key(tokens, j))
+            if blk is None:
+                break
+            out.append(blk)
+        return out
+
+    def probe_hit(self, tokens) -> int:
+        """Blocks an admission with ``tokens`` would share rather than
+        allocate — what a capacity-aware admission test subtracts from
+        the modeled block demand."""
+        return len(self._match_blocks(tokens))
+
+    def hit_tokens(self, row: int) -> int:
+        """Prefill tokens row ``row``'s last :meth:`admit` matched (a
+        multiple of ``block_size``) — the span the engine skips."""
+        return int(self._hit_tokens_row[row])
+
+    def _register_prefixes(self, row: int, tokens) -> None:
+        """Index every fully-prefilled block of ``tokens`` that is not
+        indexed yet (matched blocks are already present under the same
+        keys).  Called at admit time: the row's prefill writes the
+        claimed content before any matcher can read it."""
+        for j in range(len(tokens) // self.block_size):
+            key = self._prefix_key(tokens, j)
+            if key not in self._prefix_index:
+                blk = int(self.tables[row, j])
+                self._prefix_index[key] = blk
+                self._block_key[blk] = key
+
+    def _deindex(self, blk: int) -> None:
+        key = self._block_key.pop(blk, None)
+        if key is not None and self._prefix_index.get(key) == blk:
+            del self._prefix_index[key]
+
+    def can_admit(self, n_tokens: int, watermark: Optional[int] = None,
+                  tokens=None) -> bool:
+        """``watermark`` overrides the configured headroom — the
+        scheduler drops it to 0 when nothing is running (headroom only
+        exists to protect active requests' decode growth; holding an
+        idle pool back would deadlock a lone large request).
+        ``tokens`` (the to-be-prefilled ids) lets a prefix hit shrink
+        the fresh-block demand."""
+        wm = self.watermark_blocks if watermark is None else watermark
+        need = self.blocks_needed(n_tokens) - len(self._match_blocks(tokens))
+        return len(self._free) - wm >= need
+
+    def _alloc(self, row: int, logical: int) -> bool:
+        if not self._free:
+            return False
+        blk = self._free.pop()
+        self._held[row].append(blk)
+        self.tables[row, logical] = blk
+        self._ref[blk] = 1
+        self._version += 1
+        return True
+
+    def admit(self, row: int, n_tokens: int,
+              watermark: Optional[int] = None, tokens=None) -> bool:
+        """Allocate row ``row``'s blocks for logical slots [0, n_tokens).
+        All-or-nothing.
+
+        With sharing enabled and ``tokens`` (the ids the engine is
+        about to prefill, i.e. ``(prompt + out)[:-1]``), the longest
+        indexed full-block prefix is *mapped* instead of allocated:
+        matched blocks enter the row's table with a refcount bump, and
+        :meth:`hit_tokens` reports the span whose prefill the engine
+        skips.  Fresh fully-prefilled blocks are registered in the
+        prefix index for later arrivals to match."""
+        if self._held[row]:
+            raise RuntimeError(f"admit: row {row} still holds blocks")
+        matched = self._match_blocks(tokens)
+        if not self.can_admit(n_tokens, watermark=watermark,
+                              tokens=tokens):
+            return False
+        for j, blk in enumerate(matched):
+            self._ref[blk] += 1
+            self._held[row].append(blk)
+            self.tables[row, j] = blk
+        if matched:
+            self._version += 1
+        for j in range(len(matched), self.blocks_needed(n_tokens)):
+            # can_admit guaranteed the blocks; a failure here is ledger
+            # corruption, and must raise even under ``python -O``
+            if not self._alloc(row, j):
+                raise RuntimeError(
+                    f"pool exhausted mid-admit (row {row}, logical {j}) "
+                    f"despite can_admit — ledger corrupted")
+        if self.share_prefixes and tokens is not None:
+            self._register_prefixes(row, tokens)
+        hit = len(matched) * self.block_size
+        self._hit_tokens_row[row] = hit
+        if matched:
+            self.n_prefix_hits += 1
+            self.prefix_tokens_hit += hit
+            self.blocks_saved += len(matched)
+        return True
+
+    def _cow(self, row: int, logical: int, src: int) -> bool:
+        """Copy-on-write: give ``row`` a private copy of shared block
+        ``src`` before it writes into logical slot ``logical``.  The
+        device-side pool copy is queued in :attr:`pending_copies`
+        (engines apply it before their next forward); the ledger side —
+        table entry, held list, refcounts — swaps immediately.  Returns
+        False when no free block exists (the scheduler must preempt);
+        the shared mapping is left untouched in that case."""
+        if not self._free:
+            return False
+        dst = self._free.pop()
+        self._ref[dst] = 1
+        self._ref[src] -= 1
+        held = self._held[row]
+        held[held.index(src)] = dst
+        self.tables[row, logical] = dst
+        self.pending_copies.append((src, dst))
+        self.n_cow_copies += 1
+        self._version += 1
+        return True
+
+    def ensure(self, row: int, pos: int) -> bool:
+        """Grow row ``row`` to cover a *write* at absolute position
+        ``pos`` (decode step).  A covered position whose block is
+        shared (refcount > 1) triggers copy-on-write; a covered block
+        this row owns exclusively but that is still in the prefix index
+        is de-indexed (its content is about to diverge from the indexed
+        token prefix).  Returns False when the pool is exhausted — the
+        scheduler must preempt."""
+        logical = min(pos, self.max_len - 1) // self.block_size
+        held = len(self._held[row])
+        if logical < held:
+            blk = int(self.tables[row, logical])
+            if self._ref[blk] > 1:
+                return self._cow(row, logical, blk)
+            if blk in self._block_key:
+                self._deindex(blk)
+            return True
+        if logical != held:  # growth is 1 block/step by construction
+            raise RuntimeError(
+                f"ensure: row {row} skipped to logical block {logical} "
+                f"with only {held} held")
+        return self._alloc(row, logical)
+
+    def take_pending_copies(self) -> List[Tuple[int, int]]:
+        """Drain the queued COW ``(src, dst)`` pool copies.  The caller
+        must apply them to every pool leaf (device side) before the next
+        forward reads or writes the ``dst`` blocks."""
+        out, self.pending_copies = self.pending_copies, []
+        return out
+
+    def release(self, row: int):
+        """Drop every block reference row ``row`` holds (completion or
+        preemption).  Blocks are refcounted: a block returns to the free
+        list (and leaves the prefix index) only when its last owner
+        releases it — a preempted request's shared prefix blocks stay
+        resident for their surviving sharers."""
+        blocks = self._held[row]
+        for b in reversed(blocks):  # LIFO order matches the old ledger
+            if self._ref[b] <= 0:  # guard must survive ``python -O``
+                raise RuntimeError(f"double free of block {b}")
+            self._ref[b] -= 1
+            if self._ref[b] == 0:
+                self._deindex(b)
+                self._free.append(b)
+        blocks.clear()
+        self.tables[row] = 0
+        self._hit_tokens_row[row] = 0
+        self._version += 1
+
+    def check(self):
+        """Ledger invariants: every block is exactly one of
+        {free, scratch, referenced}; refcounts equal both the held-list
+        multiplicity and the table occupancy (sharing maps a block into
+        several rows' tables, once each); no leak, no double-book; index
+        entries only on live blocks."""
+        free = self._free
+        held = [b for row in self._held for b in row]
+        assert len(set(free)) == len(free), "dup in free list"
+        assert 0 not in free and 0 not in held, "scratch booked"
+        held_n = Counter(held)
+        occupancy = Counter(b for row in range(self.max_rows)
+                            for b in self.tables[row].tolist() if b != 0)
+        free_set = set(free)
+        for b in range(1, self.num_blocks + 1):
+            r = int(self._ref[b])
+            assert r == held_n.get(b, 0), \
+                f"block {b} refcount {r} != held {held_n.get(b, 0)}"
+            assert r == occupancy.get(b, 0), \
+                f"block {b} refcount {r} != table occupancy " \
+                f"{occupancy.get(b, 0)}"
+            assert (b in free_set) == (r == 0), \
+                (f"block {b} ref {r} "
+                 f"{'in' if b in free_set else 'not in'} free list")
+        assert len(free) + len(set(held)) == self.num_blocks, \
+            f"leak ({len(free)} free + {len(set(held))} held)"
+        for blk, key in self._block_key.items():
+            assert self._prefix_index.get(key) == blk, \
+                f"index: block {blk} reverse-mapped to a stale key"
+            assert self._ref[blk] >= 1, f"index: freed block {blk} indexed"
+        assert len(self._prefix_index) == len(self._block_key), \
+            "index: forward/reverse maps out of sync"
+        for row in range(self.max_rows):
+            ids = set(self.tables[row].tolist()) - {0}
+            assert ids <= set(self._held[row]), \
+                f"row {row} maps unheld blocks"
+
+
+def paged_copy_blocks(caches, src, dst):
+    """Apply queued copy-on-write pool copies in place.
+
+    ``src``/``dst`` are equal-length int tensors of physical pool block
+    ids (from :meth:`PagedCache.take_pending_copies`); each dst block
+    becomes a copy of its src block across every k/v leaf."""
+    for c in caches:
+        for name in ("k", "v"):
+            a = c[name]
+            a[:, dst] = a[:, src]
+    return caches

@@ -1,0 +1,64 @@
+"""Shared building blocks: norms, embeddings, rotary, MLPs.
+
+Port of ``repro/models/layers.py``.  Functions take parameter dicts of
+tensors in the reference's layout (projection weights ``(in, out)``, so
+``x @ w``); inits take an explicit :class:`torch.Generator`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+
+
+def _dense_init(generator: torch.Generator, shape, dtype, device,
+                scale=None) -> torch.Tensor:
+    """Normal draws times ``fan_in ** -0.5`` (``shape[-2]``: the input
+    dim of an ``(..., in, out)`` weight, stacked layers included)."""
+    fan_in = shape[-2]
+    scale = scale if scale is not None else fan_in ** -0.5
+    w = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``layers.rmsnorm`` through the RMSNorm kernel's wrapper."""
+    return rmsnorm_kernel(x, params["scale"], eps)
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["w"][tokens.long()]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: logits over the padded vocab (``x @ w.T``)."""
+    return x @ params["w"].T
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor,
+           theta: float) -> torch.Tensor:
+    """Rotary embedding, computed in f32 and cast back to x.dtype.
+
+    x: (..., seq, n_heads, head_dim); positions broadcastable to
+    (..., seq).
+    """
+    head_dim = x.shape[-1]
+    half = head_dim // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freq
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:2 * half]
+    rot1 = x1 * cos - x2 * sin
+    rot2 = x2 * cos + x1 * sin
+    out = torch.cat([rot1, rot2, x[..., 2 * half:]], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    return (torch.nn.functional.silu(g) * u) @ params["w_down"]

@@ -1,0 +1,117 @@
+"""Blocks and segment stacking.
+
+Port of ``repro/models/transformer.py`` for ``attn`` blocks in the
+``decode`` and ``chunk`` modes over paged pools.  A model is a
+``block_pattern``; contiguous runs of one kind are *segments*, whose
+parameters are stacked along a leading layer dim as in the reference.
+Where the reference scans a segment with ``lax.scan``, the port runs a
+Python loop over its layers, handing each layer views of its weights
+and of its slice of the (in-place updated) KV pools.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import _dense_init, mlp, rmsnorm
+
+MODES = ("decode", "chunk")
+
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str
+    length: int
+    shared: bool
+
+
+def build_segments(cfg) -> List[Segment]:
+    segs: List[Segment] = []
+    for b in cfg.block_pattern:
+        shared = b == cfg.shared_block_kind
+        if segs and segs[-1].kind == b and not shared and not segs[-1].shared:
+            segs[-1] = Segment(b, segs[-1].length + 1, False)
+        else:
+            segs.append(Segment(b, 1, shared))
+    return segs
+
+
+def check_supported(cfg) -> None:
+    """Raise for configurations whose blocks the port cannot run yet."""
+    for seg in build_segments(cfg):
+        if seg.kind != "attn" or seg.shared:
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {seg.kind!r}"
+                f"{' (weight-shared)' if seg.shared else ''} is not "
+                f"ported yet; the port serves attn-only decoders")
+    if cfg.mlp_kind != "dense" or cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: mlp {cfg.mlp_kind!r} / encoder-decoder is not "
+            f"ported yet")
+
+
+def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
+    """``n`` stacked layers of one block kind (the reference's
+    ``block_init`` vmapped over a segment)."""
+    if kind != "attn":
+        raise NotImplementedError(kind)
+    d = cfg.d_model
+    return {
+        "ln1": {"scale": torch.ones((n, d), dtype=dtype, device=device)},
+        "attn": attn_mod.attention_init(generator, cfg, dtype, device, n),
+        "ln2": {"scale": torch.ones((n, d), dtype=dtype, device=device)},
+        "mlp": {
+            "w_gate": _dense_init(generator, (n, d, cfg.d_ff), dtype, device),
+            "w_up": _dense_init(generator, (n, d, cfg.d_ff), dtype, device),
+            "w_down": _dense_init(generator, (n, cfg.d_ff, d), dtype, device),
+        },
+    }
+
+
+def init_segments(generator, cfg, dtype, device) -> dict:
+    return {"segments": [block_init(generator, seg.kind, cfg, dtype, device,
+                                    seg.length)
+                         for seg in build_segments(cfg)],
+            "shared": None}
+
+
+def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
+                cache: dict, paged: dict):
+    """Apply one ``attn`` block.  ``cache`` holds this layer's pools,
+    written in place.  Returns x."""
+    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if mode == "decode":
+        a, _ = attn_mod.paged_decode_self_attention(
+            params["attn"], h, cache, paged, pos, cfg, kind)
+    elif mode == "chunk":
+        a, _ = attn_mod.paged_chunk_self_attention(
+            params["attn"], h, cache, paged, pos, cfg, kind)
+    else:
+        raise ValueError(f"mode {mode!r} is not ported yet; "
+                         f"ported: {MODES}")
+    x = x + a
+    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    return x + mlp(params["mlp"], h2)
+
+
+def _layer(tree, j: int):
+    """Layer ``j`` of a stacked parameter/pool tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, j) for k, v in tree.items()}
+    return tree[j]
+
+
+def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos,
+                   caches: list, paged: dict):
+    """Run every layer in order.  ``caches`` is the per-segment list of
+    ``{"k","v"}`` pools with a leading layer dim; each layer writes its
+    slice in place, so the list needs no rebuilding.  Returns x."""
+    for seg, params, cache in zip(segs, blocks["segments"], caches):
+        for j in range(seg.length):
+            x = block_apply(_layer(params, j), x, kind=seg.kind, cfg=cfg,
+                            mode=mode, pos=pos, cache=_layer(cache, j),
+                            paged=paged)
+    return x

@@ -1,0 +1,458 @@
+"""Paged continuous-batching serving engine.
+
+Port of the paged half of ``repro/serving/engine.py``: the request
+model, the queue and step-clock machinery (:class:`_EngineBase`), the
+continuous scheduler over the block ledger (:class:`_PagedEngine`), and
+:class:`PagedServingEngine`, which runs it on the port's model.  The
+host-side logic is the reference's, line for line, so admission,
+block growth, preemption-by-recompute, copy-on-write prefix sharing,
+macro-step sizing and the ``t_*`` stamps match it exactly; speculative
+decoding and weight quantization are not ported yet.
+
+The decode hot loop is device-resident: every engine iteration runs one
+macro-step of up to ``decode_steps`` (K) greedy decode iterations
+(``Model.decode_steps``) with argmax, token feedback, ``pos`` bumps and
+done masking on the device, and synchronises with the host **once** per
+macro-step, when it reads the ``(rows, K)`` token ids back.  The KV
+pools are updated in place by every call (the reference donates them
+instead).
+
+Engine time is a **step counter** (one decode iteration), as in the
+reference: ``Request.t_submit`` / ``t_admit`` / ``t_first`` / ``t_done``
+are stamped in those units.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.kvcache import PagedCache, paged_copy_blocks
+from repro_torch.models.model import Model
+from repro_torch.serving.scheduler import (DEFER, REJECT, CapacityView,
+                                           make_policy)
+
+
+def chunk_sizes(n: int, chunk: int) -> List[int]:
+    """Split a prefill of n tokens into full ``chunk``-sized pieces,
+    then a power-of-two decomposition of the remainder (the reference's
+    chunking, kept so both engines prefill in the same pieces)."""
+    out = [chunk] * (n // chunk)
+    rem, bit = n % chunk, 1
+    tail: List[int] = []
+    while rem:
+        if rem & 1:
+            tail.append(bit)
+        bit <<= 1
+        rem >>= 1
+    return out + tail[::-1]
+
+
+@dataclass
+class Request:
+    """One generation request.  ``t_*`` are engine step-counter stamps:
+    ``t_submit`` on submit (kept on resubmission), ``t_admit`` on first
+    admission, ``t_first`` at the device step that produced the first
+    output token, ``t_done`` on completion or rejection.  ``error`` is
+    set instead of raising when the request can never fit."""
+    id: int
+    prompt: List[int]
+    max_new_tokens: int = 16
+    qos: str = "standard"
+    out_tokens: List[int] = field(default_factory=list)
+    t_submit: Optional[int] = None
+    t_admit: Optional[int] = None
+    t_first: Optional[int] = None
+    t_done: Optional[int] = None
+    n_preempted: int = 0
+    error: Optional[str] = None
+
+    @property
+    def done(self) -> bool:
+        return len(self.out_tokens) >= self.max_new_tokens
+
+
+class _EngineBase:
+    """Queue + step-clock machinery: submission/rejection bookkeeping,
+    macro-step sizing, and the run loop.  Subclasses own admission and
+    the request store and implement ``step`` / ``_idle`` /
+    ``_in_flight`` and the forward hooks."""
+
+    MAX_STEPS = 512
+
+    def __init__(self, cfg, *, prefill_chunk: int, decode_steps: int = 1,
+                 policy=None):
+        self.cfg = cfg
+        self.prefill_chunk = max(1, prefill_chunk)
+        self.decode_k = max(1, decode_steps)  # macro-step K
+        self.policy = make_policy(policy)
+        self.queue: List[Request] = []
+        self.rejected: List[Request] = []
+        self.unfinished: List[Request] = []  # in flight at last run() exit
+        self.tokens_generated = 0
+        self.t = 0  # step counter (the engine clock for Request.t_*)
+        self.n_host_syncs = 0      # device->host materializations (decode)
+        self.max_macro_tokens = 0  # most tokens emitted by one macro-step
+        self.prefill_tokens = 0    # tokens actually prefilled
+
+    def submit(self, req: Request):
+        if req.t_submit is None:  # resubmission keeps the original stamp
+            req.t_submit = self.t
+        self.queue.append(req)
+        self.policy.on_submit(req, self.t)
+
+    def _reject(self, req: Request, msg: str):
+        """Fail one request without killing the engine."""
+        req.error = msg
+        req.t_done = self.t
+        self.rejected.append(req)
+
+    def _prefill_chunks(self, row: int, toks: List[int], pos0: int = 0):
+        """Chunked prefill of one admitted request through the
+        ``_prefill_row`` hook; ``pos0`` skips a prefix-cache hit."""
+        i = 0
+        for c in chunk_sizes(len(toks), self.prefill_chunk):
+            self._prefill_row(row, np.asarray(toks[i:i + c],
+                                              dtype=np.int32), pos0 + i)
+            i += c
+        self.prefill_tokens += len(toks)
+
+    def _next_tokens(self, width: int, active: List[int],
+                     store: List[Optional[Request]]) -> np.ndarray:
+        """Next decode input per active request: last prompt token
+        before any generation, else its latest output token."""
+        tokens = np.zeros((width, 1), dtype=np.int32)
+        for i in active:
+            req = store[i]
+            tokens[i, 0] = (req.prompt[-1] if not req.out_tokens
+                            else req.out_tokens[-1])
+        return tokens
+
+    def _k_eff(self, kmax: int) -> int:
+        """Scan length for this macro-step: the smallest power of two
+        >= the largest row budget, capped at ``decode_k`` (the
+        reference's sizing, which decides the engine clock)."""
+        k = 1
+        while k < kmax and k * 2 <= self.decode_k:
+            k *= 2
+        return k if k >= kmax else self.decode_k
+
+    def _macro_tail(self, store, budgets: np.ndarray, active: List[int],
+                    max_len: int, t0: int,
+                    k_cap: Optional[int] = None) -> List[tuple]:
+        """Run one fused macro-step and do the host-side bookkeeping:
+        slice each row's valid token prefix (its budget), bump ``pos``,
+        stamp finishers at the device step they actually completed.
+        Returns finished ``(row, request)`` pairs."""
+        k_eff = self._k_eff(int(budgets.max()))
+        if k_cap is not None and k_eff > k_cap:
+            k_eff = 1 << (k_cap.bit_length() - 1)  # largest pow2 <= cap
+            budgets = np.minimum(budgets, k_eff)
+        tokens = self._next_tokens(len(store), active, store)
+        out = self._forward_steps(tokens, self.pos.copy(), budgets, k_eff)
+        self.n_host_syncs += 1
+        self.max_macro_tokens = max(self.max_macro_tokens,
+                                    int(budgets.sum()))
+        finished = []
+        for i in active:
+            req = store[i]
+            v = int(budgets[i])
+            if v > 0 and req.t_first is None and not req.out_tokens:
+                req.t_first = t0 + 1  # first token lands on device step 1
+            req.out_tokens += [int(t) for t in out[i, :v]]
+            self.tokens_generated += v
+            self.pos[i] += v
+            if req.done or self.pos[i] >= max_len - 1:
+                req.t_done = t0 + v
+                finished.append((i, req))
+                self.policy.on_done(req, t0 + v)
+        self.t = t0 + k_eff
+        return finished
+
+    def step(self, k_cap: Optional[int] = None) -> List[Request]:
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def _idle(self) -> bool:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def _in_flight(self) -> List[Request]:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def run(self, max_steps: Optional[int] = None) -> List[Request]:
+        """Drive the engine until drained or ``max_steps`` decode steps
+        have executed.  Requests still in flight when the budget runs
+        out are surfaced in :attr:`unfinished` and resume on a further
+        ``run()``."""
+        max_steps = self.MAX_STEPS if max_steps is None else max_steps
+        done = []
+        t_end = self.t + max_steps
+        while self.t < t_end:
+            done += self.step(k_cap=t_end - self.t)
+            if not self.queue and self._idle():
+                break
+        self.unfinished = self._in_flight() + list(self.queue)
+        return done
+
+    def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
+        raise NotImplementedError  # pragma: no cover - interface
+
+    def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
+                       budgets: np.ndarray, k: int) -> np.ndarray:
+        """One fused macro-step of ``k`` device decode iterations.
+        Returns (rows, k) int32 token ids (row r valid to budgets[r])."""
+        raise NotImplementedError  # pragma: no cover - interface
+
+
+class _PagedEngine(_EngineBase):
+    """Continuous-batching scheduler over a paged KV cache: every step
+    admits queued requests while the block pool has room (token-level
+    admission), grows running requests block by block, and resolves
+    pool exhaustion by preempting the most recently admitted request
+    (recompute on re-admission keeps greedy outputs token-identical).
+    Subclasses supply ``_prefill_row`` / ``_forward_steps`` /
+    ``_apply_cow``.  Attn pools need no reset on admission (stale KV is
+    position-masked), so the reference's ``_reset_row`` of per-request
+    SSM and cross-KV state joins with those families."""
+
+    MAX_STEPS = 4096  # preemption churn can stretch a busy run
+
+    def __init__(self, cfg, *, max_rows: int, max_len: int,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_chunk: int = 16, watermark_blocks: int = 0,
+                 decode_steps: int = 1, policy=None,
+                 prefix_sharing: bool = True, device="cuda"):
+        super().__init__(cfg, prefill_chunk=prefill_chunk,
+                         decode_steps=decode_steps, policy=policy)
+        self.max_rows = max_rows
+        self.max_len = max_len
+        self.pc = PagedCache(cfg, max_rows=max_rows, max_len=max_len,
+                             block_size=block_size, num_blocks=num_blocks,
+                             watermark_blocks=watermark_blocks,
+                             share_prefixes=prefix_sharing, device=device)
+        self.pos = np.zeros(max_rows, dtype=np.int32)
+        self.rows: List[Optional[Request]] = [None] * max_rows
+        self._admit_order: List[int] = []   # rows, oldest admission first
+        self.n_preemptions = 0
+
+    def _free_rows(self) -> List[int]:
+        return [i for i, r in enumerate(self.rows) if r is None]
+
+    def _idle(self) -> bool:
+        return all(r is None for r in self.rows)
+
+    def _in_flight(self) -> List[Request]:
+        return [r for r in self.rows if r is not None]
+
+    def _capacity_view(self) -> CapacityView:
+        bs = self.pc.block_size
+        return CapacityView(free_tokens=self.pc.free_blocks * bs,
+                            total_tokens=self.pc.num_blocks * bs,
+                            granule=bs,
+                            shared_blocks=self.pc.probe_hit)
+
+    def _admit(self):
+        """Token-level admission in the policy's head-of-line order: a
+        request is admitted whenever a decode row is free and the pool
+        holds its blocks (prompt + already-decoded prefix after a
+        preemption); a blocked or deferred choice waits."""
+        free = self._free_rows()
+        while free and self.queue:
+            req = self.policy.next_admission(self.queue, self.t)
+            if req is None:
+                break
+            if (len(req.prompt) + req.max_new_tokens > self.max_len
+                    or not self.pc.fits(
+                        len(req.prompt) + req.max_new_tokens)):
+                self.queue.remove(req)
+                self._reject(
+                    req, f"prompt of {len(req.prompt)} + max_new_tokens "
+                         f"{req.max_new_tokens} exceeds capacity "
+                         f"(max_len {self.max_len}, "
+                         f"{self.pc.num_blocks} blocks)")
+                continue
+            verdict, msg = self.policy.admission_test(
+                req, self.t, self._capacity_view())
+            if verdict == REJECT:
+                self.queue.remove(req)
+                self._reject(req, msg or "rejected by admission test")
+                continue
+            total = len(req.prompt) + len(req.out_tokens)
+            toks = (req.prompt + req.out_tokens)[:-1]
+            wm = (None if any(r is not None for r in self.rows) else 0)
+            if verdict == DEFER or not self.pc.can_admit(total,
+                                                         watermark=wm,
+                                                         tokens=toks):
+                break
+            self.queue.remove(req)
+            row = free.pop(0)
+            if not self.pc.admit(row, total, watermark=wm, tokens=toks):
+                raise RuntimeError(
+                    f"ledger refused admission it just approved "
+                    f"(row {row}, {total} tokens)")
+            if req.t_admit is None:
+                req.t_admit = self.t
+            self.rows[row] = req
+            self._admit_order.append(row)
+            # a prefix hit maps the matched span's blocks into the
+            # table already filled — prefill only the tail beyond it
+            hit = self.pc.hit_tokens(row)
+            self._prefill_chunks(row, toks[hit:], pos0=hit)
+            self.pos[row] = len(toks)
+
+    def _preempt(self, row: int):
+        """Preempt-by-recompute: free the row's blocks and put the
+        request back at the head of the queue carrying its generated
+        prefix (evicted instead after ``policy.max_preemptions``)."""
+        req = self.rows[row]
+        self.pc.release(row)
+        self.rows[row] = None
+        self._admit_order.remove(row)
+        self.n_preemptions += 1
+        req.n_preempted += 1
+        cap = self.policy.max_preemptions
+        if cap is not None and req.n_preempted >= cap:
+            self._reject(
+                req, f"{req.qos}: evicted after {req.n_preempted} "
+                     f"preemptions (max_preemptions={cap})")
+            return
+        self.queue.insert(0, req)
+        self.policy.on_preempt(req, self.t)
+
+    def _grow(self, k: int) -> tuple:
+        """Block-budgeted macro-step sizing: guarantee every active
+        row's next write (preempting newest-admitted rows on pool
+        exhaustion), then grow opportunistically up to ``k`` steps of
+        coverage.  Returns ``(budgets, clip)``: per-row step budgets and
+        the smallest block-clipped budget (None if no row was clipped)."""
+        budgets = np.zeros(self.max_rows, dtype=np.int32)
+        clip: Optional[int] = None
+        for row in list(self._admit_order):
+            req = self.rows[row]
+            if req is None:
+                continue
+            pos = int(self.pos[row])
+            while not self.pc.ensure(row, pos):
+                cands = [(r, self.rows[r]) for r in self._admit_order
+                         if self.rows[r] is not None]
+                victim = self.policy.select_victim(cands, self.t,
+                                                   needy=row)
+                if victim is None:
+                    victim = row
+                self._preempt(victim)
+                if victim == row:
+                    break
+            if self.rows[row] is None:  # preempted itself
+                continue
+            want = max(1, min(k, req.max_new_tokens - len(req.out_tokens),
+                              self.max_len - 1 - pos))
+            steps = 1
+            while steps < want and self.pc.ensure(row, pos + steps):
+                steps += 1
+            if steps < want:  # pool-limited: this row must resume
+                clip = steps if clip is None else min(clip, steps)
+            budgets[row] = steps
+        return budgets, clip
+
+    def step(self, k_cap: Optional[int] = None) -> List[Request]:
+        """One scheduler iteration: admit + grow/preempt + one fused
+        macro-step of up to ``decode_k`` decode iterations (``k_cap``
+        further bounds the device steps).  Returns finished requests."""
+        t0 = self.t
+        self.t += 1  # admission/rejection stamps land on the first step
+        self.policy.on_step(self.t, self.queue, self._in_flight())
+        self._admit()
+        k = (self.decode_k if k_cap is None
+             else max(1, min(self.decode_k, k_cap)))
+        budgets, clip = self._grow(k)
+        # copy-on-write pool copies must hit the device pools before the
+        # macro-step reads or writes the fresh copies
+        pairs = self.pc.take_pending_copies()
+        if pairs:
+            self._apply_cow(pairs)
+        active = [i for i, r in enumerate(self.rows) if r is not None]
+        if not active:
+            return []
+        caps = [c for c in (clip, k_cap) if c is not None]
+        cap = min(caps) if caps else None
+        finished = self._macro_tail(self.rows, budgets, active,
+                                    self.max_len, t0, k_cap=cap)
+        done = []
+        for i, req in finished:
+            self.rows[i] = None
+            self._admit_order.remove(i)
+            fb0 = self.pc.free_blocks
+            self.pc.release(i)
+            self.policy.on_free(self.pc.free_blocks - fb0, self.t)
+            done.append(req)
+        return done
+
+    def _apply_cow(self, pairs: List[tuple]):
+        """Apply queued COW pool copies ``[(src, dst), ...]`` to the
+        device pools (a no-op for ledgers without pools)."""
+
+    @property
+    def active_rows(self) -> int:
+        return sum(1 for r in self.rows if r is not None)
+
+
+class PagedServingEngine(_PagedEngine):
+    """The continuous scheduler over the port's paged model
+    (``Model.decode_steps`` / ``Model.paged_prefill_chunk``).  Block
+    tables reach the device through ``PagedCache.meta``'s versioned
+    snapshot, re-uploaded only when the ledger changed.
+
+    ``params`` are the model's parameters (``bridge.params_from_numpy``
+    for the reference's weights); without them the model draws its own
+    from a :class:`torch.Generator` seeded with ``seed``.  ``device``
+    defaults to ``"cuda"`` and raises without a card; ``device="cpu"``
+    runs the kernels' plain versions.
+    """
+
+    def __init__(self, cfg, params=None, *, max_rows: int = 8,
+                 max_len: int = 128, block_size: int = 16,
+                 num_blocks: Optional[int] = None, seed: int = 0,
+                 prefill_chunk: int = 16, watermark_blocks: int = 0,
+                 decode_steps: int = 1, policy=None,
+                 prefix_sharing: bool = True, device="cuda"):
+        self.device = resolve_device(device)
+        super().__init__(cfg, max_rows=max_rows, max_len=max_len,
+                         block_size=block_size, num_blocks=num_blocks,
+                         prefill_chunk=prefill_chunk,
+                         watermark_blocks=watermark_blocks,
+                         decode_steps=decode_steps, policy=policy,
+                         prefix_sharing=prefix_sharing, device=self.device)
+        self.model = Model(cfg, device=self.device)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.model.init(gen)
+        self.params = params
+        self.caches = self.pc.struct(self.model.dtype)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _apply_cow(self, pairs):
+        src = torch.tensor([s for s, _ in pairs], dtype=torch.long,
+                           device=self.device)
+        dst = torch.tensor([d for _, d in pairs], dtype=torch.long,
+                           device=self.device)
+        paged_copy_blocks(self.caches, src, dst)
+
+    def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
+        self.model.paged_prefill_chunk(
+            self.params, self.caches, self._to_device(toks[None]), pos0,
+            row, self.pc.meta(row=row))
+
+    def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
+                       budgets: np.ndarray, k: int) -> np.ndarray:
+        batch = {"token": self._to_device(tokens),
+                 "pos": self._to_device(pos),
+                 "budget": self._to_device(budgets)}
+        toks, _ = self.model.decode_steps(self.params, self.caches, batch,
+                                          self.pc.meta(), k=k)
+        # reprolint: disable-next=host-sync -- the ONE deliberate sync
+        # per macro-step (counted in n_host_syncs; <= 1/K per token)
+        return np.asarray(toks.cpu())

@@ -16,3 +16,8 @@ def pytest_configure(config):
         "markers",
         "tier2: slow parity sweep — excluded from tier-1 (`make test`), "
         "run by `make test-full`")
+    # card-only tests of the PyTorch/CUDA port (tests/test_torch_*.py):
+    # they skip, with a reason, where torch.cuda finds no device
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc — skipped without a card")

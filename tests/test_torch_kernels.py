@@ -1,0 +1,292 @@
+"""The port's kernels against the JAX package's.
+
+On the CPU each kernel's plain PyTorch version is held against the
+``repro.kernels.ref`` oracle and the Pallas kernel in interpret mode (as
+tests/test_kernels.py runs them), on the same numpy inputs.  Tolerance:
+test_kernels.py's float32 bound, 2e-5 (sums run in another order).
+
+The ``cuda``-marked tests hold each CUDA kernel against its plain
+version on the card; they skip without a card.  float32: 2e-5.
+bfloat16: both sides compute in f32 from the same bf16 inputs and round
+once at the end, so an element may differ by one bf16 rounding step of
+its own value (at most 2**-7 of it).  Each element must lie within two
+such steps (2**-6 * |plain| + 1e-5 for values near zero), and the
+largest difference within 2e-2.  A lost key tile or a wrong lane moves
+an output by a sizeable share of its value and fails the first bound.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    paged_prefill_attention, paged_prefill_attention_plain)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+
+TOL = 2e-5                                   # float32, as test_kernels.py
+CARD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5        # two bf16 rounding steps
+
+
+@pytest.fixture(scope="module")
+def J():
+    """The JAX side (skipped where JAX is absent, as on the card's
+    machine, which runs only the ``cuda`` tests of this file)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ref
+    from repro.kernels.decode_attention import paged_decode_attention_pallas
+    from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.kernels.rmsnorm import rmsnorm_pallas
+    from repro.models import attention
+    return SimpleNamespace(
+        jax=jax, jnp=jnp, ref=ref, attention=attention,
+        rmsnorm_pallas=rmsnorm_pallas,
+        paged_decode_attention_pallas=paged_decode_attention_pallas,
+        flash_attention_pallas=flash_attention_pallas)
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip with the reason (decided at run time, never
+    at import, so every xdist worker collects the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda is not available")
+    return torch.device("cuda", 0)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _err(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
+
+
+def _card_close(got, want, dtype) -> None:
+    """``got`` (kernel) against ``want`` (plain), both on the card."""
+    got, want = got.float().cpu(), want.float().cpu()
+    assert _err(got, want) <= CARD_TOL[dtype]
+    if dtype == "bfloat16":
+        diff = (got - want).abs()
+        worst = (diff - BF16_RTOL * want.abs()).max().item()
+        assert worst <= BF16_ATOL, (
+            f"an element is off by more than two bf16 rounding steps "
+            f"(excess {worst})")
+
+
+def _paged_inputs(rng, b, h, kv, nb, bs, d):
+    """q (B,H,D), pools in the model layout (NB,bs,KV,D), distinct
+    tables over blocks 1.. (block 0 is scratch) and positions."""
+    nbp = b * nb + 3
+    q = rng.standard_normal((b, h, d), dtype=np.float32)
+    kp = rng.standard_normal((nbp, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nbp, bs, kv, d), dtype=np.float32)
+    tables = (rng.permutation(nbp - 1)[:b * nb].reshape(b, nb) + 1
+              ).astype(np.int32)
+    pos = rng.integers(0, nb * bs, size=b).astype(np.int32)
+    return q, kp, vp, tables, pos
+
+
+# ----------------------------------------------------------------------
+# rmsnorm
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(8, 128), (3, 37, 256), (2, 5, 7, 96)])
+def test_rmsnorm_plain_matches_jax(J, shape):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape, dtype=np.float32)
+    scale = rng.standard_normal(shape[-1:], dtype=np.float32)
+    got = rmsnorm_plain(t(x), t(scale), 1e-5).numpy()
+    xj, sj = J.jnp.asarray(x), J.jnp.asarray(scale)
+    assert _err(got, J.ref.rmsnorm_ref(xj, sj)) < TOL
+    pallas = J.rmsnorm_pallas(xj, sj, interpret=True)
+    assert _err(got, pallas) < TOL
+    # the wrapper takes the plain version for CPU tensors
+    assert torch.equal(rmsnorm(t(x), t(scale)), t(got))
+
+
+# ----------------------------------------------------------------------
+# paged decode
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,h,kv,nb,bs,d", [
+    (3, 6, 2, 3, 8, 32),      # GQA, odd pool
+    (2, 15, 5, 4, 16, 64),    # smollm-360m's heads
+])
+def test_paged_decode_plain_matches_jax(J, b, h, kv, nb, bs, d):
+    rng = np.random.default_rng(4)
+    q, kp, vp, tables, pos = _paged_inputs(rng, b, h, kv, nb, bs, d)
+    got = paged_decode_attention_plain(t(q), t(kp), t(vp), t(tables),
+                                       t(pos)).numpy()
+    # the JAX kernel and oracle take (KV, NB, bs, D): transpose there only
+    kj = J.jnp.asarray(np.transpose(kp, (2, 0, 1, 3)))
+    vj = J.jnp.asarray(np.transpose(vp, (2, 0, 1, 3)))
+    args = (J.jnp.asarray(q), kj, vj, J.jnp.asarray(tables),
+            J.jnp.asarray(pos))
+    assert _err(got, J.ref.paged_decode_attention_ref(*args)) < TOL
+    assert _err(got, J.paged_decode_attention_pallas(
+        *args, interpret=True)) < TOL
+    assert torch.equal(paged_decode_attention(t(q), t(kp), t(vp), t(tables),
+                                              t(pos)), t(got))
+
+
+def test_paged_decode_plain_masked_row_reads_scratch_only():
+    """A masked row (frozen pos, all-zero table) attends to the scratch
+    block 0 alone: the result depends on nothing else in the pool."""
+    rng = np.random.default_rng(5)
+    q, kp, vp, tables, pos = _paged_inputs(rng, 2, 4, 2, 4, 8, 32)
+    tables[1] = 0
+    pos[1] = 3
+    a = paged_decode_attention_plain(t(q), t(kp), t(vp), t(tables), t(pos))
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[1:] = 0.0
+    vp2[1:] = 0.0
+    b = paged_decode_attention_plain(t(q), t(kp2), t(vp2), t(tables), t(pos))
+    assert torch.equal(a[1], b[1])
+
+
+# ----------------------------------------------------------------------
+# paged prefill (the flash kernel's paged-chunk form)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("c,h,kv,d,bs", [(32, 4, 4, 32, 8),
+                                         (48, 15, 5, 64, 16)])
+def test_paged_prefill_at_pos0_is_flash_attention(J, c, h, kv, d, bs):
+    """pos = 0 with an identity table over contiguous K/V computes what
+    flash_attention_pallas(causal=True, window=0) computes."""
+    rng = np.random.default_rng(6)
+    nb = -(-c // bs) + 1
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    k = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    v = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    table = np.arange(nb, dtype=np.int32)
+    got = paged_prefill_attention_plain(
+        t(q), t(k.reshape(nb, bs, kv, d)), t(v.reshape(nb, bs, kv, d)),
+        t(table), 0).numpy()
+    qj = J.jnp.asarray(np.transpose(q, (1, 0, 2))[None])            # (1,H,C,D)
+    kj = J.jnp.asarray(np.transpose(k[:c], (1, 0, 2))[None])        # (1,KV,C,D)
+    vj = J.jnp.asarray(np.transpose(v[:c], (1, 0, 2))[None])
+    want = np.transpose(np.asarray(
+        J.flash_attention_pallas(qj, kj, vj, causal=True, window=0,
+                                 block_q=16, block_k=16, interpret=True))[0],
+        (1, 0, 2))
+    assert _err(got, want) < TOL
+    oracle = np.transpose(np.asarray(
+        J.ref.flash_attention_ref(qj, kj, vj, causal=True))[0], (1, 0, 2))
+    assert _err(got, oracle) < TOL
+
+
+@pytest.mark.parametrize("pos,h,kv", [(5, 6, 2), (16, 4, 4), (40, 6, 2)])
+def test_paged_prefill_at_pos_matches_chunk_path(J, pos, h, kv):
+    """pos > 0: the plain version against the reference's jnp paged
+    chunk attention (the gather, _gqa_scores, kpos <= qpos mask, softmax
+    and _gqa_out lines of paged_chunk_self_attention; an identity wo
+    leaves _gqa_out's projection exact)."""
+    c, d, bs, nb = 12, 32, 8, 8
+    rng = np.random.default_rng(7 + pos)
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    kp = rng.standard_normal((nb + 2, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nb + 2, bs, kv, d), dtype=np.float32)
+    table = (rng.permutation(nb + 1)[:nb] + 1).astype(np.int32)
+    got = paged_prefill_attention_plain(t(q), t(kp), t(vp), t(table),
+                                        pos).numpy()
+
+    class Cfg:
+        n_heads, n_kv_heads, head_dim = h, kv, d
+    tables = J.jnp.asarray(table[None])
+    kg = J.attention._paged_gather(J.jnp.asarray(kp), tables)
+    vg = J.attention._paged_gather(J.jnp.asarray(vp), tables)
+    scores = J.attention._gqa_scores(J.jnp.asarray(q[None]), kg, Cfg)
+    qpos = (pos + J.jnp.arange(c))[None, None, :, None]
+    kpos = J.jnp.arange(nb * bs)[None, None, None, :]
+    mask = J.jnp.where(kpos <= qpos, 0.0, J.attention.NEG_INF)
+    scores = scores + mask.astype(J.jnp.float32)[:, :, None]
+    probs = J.jax.nn.softmax(scores, axis=-1)
+    want = J.attention._gqa_out(probs, vg, {"wo": J.jnp.eye(h * d)}, Cfg,
+                                J.jnp.float32)
+    assert _err(got, np.asarray(want).reshape(c, h, d)) < TOL
+
+
+# ----------------------------------------------------------------------
+# wrappers: plain only for CPU tensors, a launch or an error otherwise
+# ----------------------------------------------------------------------
+def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
+    _build.reset_launches()
+    x = torch.zeros((2, 8))
+    rmsnorm(x, torch.ones(8))
+    assert all(n == 0 for n in _build.launches.values())
+    meta = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError):
+        rmsnorm(meta, torch.ones(8, device="meta"))
+    q = torch.empty((1, 2, 8), device="meta")
+    pool = torch.empty((3, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError):
+        paged_decode_attention(q, pool, pool,
+                               torch.empty((1, 2), dtype=torch.int32,
+                                           device="meta"),
+                               torch.empty((1,), dtype=torch.int32,
+                                           device="meta"))
+    with pytest.raises(ValueError):
+        paged_prefill_attention(q[0], pool, pool,
+                                torch.empty((2,), dtype=torch.int32,
+                                            device="meta"), 0)
+
+
+# ----------------------------------------------------------------------
+# on the card: each CUDA kernel against its plain version
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
+    rng = np.random.default_rng(8)
+    dt = getattr(torch, dtype)
+    for rows, d in ((8, 960), (128, 960), (5, 100)):
+        x = t(rng.standard_normal((rows, d), dtype=np.float32)).to(cuda_device, dt)
+        s = t(rng.standard_normal(d, dtype=np.float32)).to(cuda_device, dt)
+        n0 = _build.launches["rmsnorm"]
+        got = rmsnorm(x, s, 1e-5)
+        assert _build.launches["rmsnorm"] == n0 + 1
+        assert got.dtype == dt
+        _card_close(got, rmsnorm_plain(x, s, 1e-5), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,nb,bs,d", [
+    (8, 15, 5, 64, 16, 64),   # smollm-360m decode
+    (3, 6, 2, 3, 8, 32),
+    (2, 16, 2, 4, 16, 128),   # G = 8, hd 128: over 48 KB of shared memory
+])
+def test_cuda_paged_decode_matches_plain(cuda_device, dtype, b, h, kv, nb,
+                                         bs, d):
+    rng = np.random.default_rng(9)
+    q, kp, vp, tables, pos = _paged_inputs(rng, b, h, kv, nb, bs, d)
+    tables[-1] = 0          # a masked row against the scratch block
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
+        t(a).to(cuda_device) for a in (tables, pos)]
+    _card_close(paged_decode_attention(*args),
+                paged_decode_attention_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,pos,d", [(128, 0, 64), (128, 256, 64),
+                                     (7, 3, 64), (33, 40, 64),
+                                     (40, 9, 128)])   # hd 128: > 48 KB smem
+def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
+    rng = np.random.default_rng(10)
+    h, kv, bs, nb = 15, 5, 16, 32
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    kp = rng.standard_normal((nb + 1, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nb + 1, bs, kv, d), dtype=np.float32)
+    table = (rng.permutation(nb) + 1).astype(np.int32)
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
+        t(table).to(cuda_device)]
+    _card_close(paged_prefill_attention(*args, pos),
+                paged_prefill_attention_plain(*args, pos), dtype)

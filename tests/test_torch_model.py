@@ -1,0 +1,197 @@
+"""The port's model against the live JAX model, on bridged weights.
+
+Both packages get the same numpy inputs (``np.random.default_rng``) and
+the JAX model's parameters, carried into the port by
+``repro_torch.bridge``.  Everything runs in float32 on the CPU, where the
+port's kernel wrappers take their plain versions.  Tolerances: 1e-5 for
+attention outputs and pools, 1e-4 for hidden states and logits (a few
+layers of float32 matmuls summed in another order); greedy tokens must
+be equal.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from _torch_ref import bridged, config_pair, jax_params, t  # noqa: E402
+from repro.models import attention as jattn  # noqa: E402
+from repro.models import build_model  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models.model import Model  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+ATTN_TOL, LOGIT_TOL = 1e-5, 1e-4
+NB, BS = 6, 8                 # logical blocks per row, block size
+
+
+def _err(a, b) -> float:
+    return float(np.max(np.abs(np.asarray(a, np.float32)
+                               - np.asarray(b, np.float32))))
+
+
+@pytest.fixture(scope="module", params=["mha", "gqa"])
+def setup(request):
+    jc, tc = config_pair(request.param)
+    npp = jax_params(jc, seed=1)
+    return jc, tc, npp, bridged(npp, tc)
+
+
+def _pools(rng, cfg, n_layers, n_phys):
+    shape = (n_layers, n_phys, BS, cfg.n_kv_heads, cfg.head_dim)
+    return (rng.standard_normal(shape, dtype=np.float32),
+            rng.standard_normal(shape, dtype=np.float32))
+
+
+def _layer0(tree):
+    return {k: v[0] for k, v in tree.items()}
+
+
+def test_configs_match_the_reference():
+    from repro.configs import get_config as jget
+    for name in ("mha", "gqa"):
+        jc, tc = config_pair(name)
+        assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    assert dataclasses.asdict(jget("smollm-360m")) == dataclasses.asdict(
+        get_config("smollm-360m"))
+
+
+def test_bridge_copies_without_transposing(setup):
+    jc, tc, npp, tp = setup
+    seg = npp["blocks"]["segments"][0]
+    for name, w in seg["attn"].items():
+        assert torch.equal(tp["blocks"]["segments"][0]["attn"][name], t(w))
+    assert torch.equal(tp["embed"]["w"], t(npp["embed"]["w"]))
+    # a one-layer segment is unstacked in the reference; the bridge
+    # stacks it so every segment indexes the same way
+    one = dataclasses.replace(jc, n_layers=1, block_pattern=("attn",))
+    npp1 = jax_params(one)
+    tp1 = params_from_numpy(npp1, dataclasses.replace(
+        tc, n_layers=1, block_pattern=("attn",)), "cpu", torch.float32)
+    assert torch.equal(tp1["blocks"]["segments"][0]["mlp"]["w_up"][0],
+                       t(npp1["blocks"]["segments"][0]["mlp"]["w_up"]))
+
+
+def test_paged_decode_self_attention(setup):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(11)
+    b = 4
+    kp, vp = _pools(rng, jc, 1, b * NB + 1)
+    kp, vp = kp[0], vp[0]
+    tables = (rng.permutation(b * NB)[:b * NB].reshape(b, NB) + 1
+              ).astype(np.int32)
+    tables[3] = 0                                   # a masked row
+    pos = np.array([0, 7, 30, 2], np.int32)
+    x = rng.standard_normal((b, 1, jc.d_model), dtype=np.float32)
+    jp = {k: jnp.asarray(v) for k, v in
+          _layer0(npp["blocks"]["segments"][0]["attn"]).items()}
+    jout, jkv = jattn.paged_decode_self_attention(
+        jp, jnp.asarray(x), {"k": jnp.asarray(kp), "v": jnp.asarray(vp)},
+        {"tables": jnp.asarray(tables)}, jnp.asarray(pos), jc, "attn")
+    cache = {"k": t(kp.copy()), "v": t(vp.copy())}
+    tout, _ = tattn.paged_decode_self_attention(
+        _layer0(tp["blocks"]["segments"][0]["attn"]), t(x), cache,
+        {"tables": t(tables)}, t(pos), tc, "attn")
+    assert _err(tout, jout) < ATTN_TOL
+    assert _err(cache["k"], jkv["k"]) < ATTN_TOL     # the in-place write
+    assert _err(cache["v"], jkv["v"]) < ATTN_TOL
+
+
+@pytest.mark.parametrize("pos0", [0, 16])
+def test_paged_chunk_self_attention(setup, pos0):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(12 + pos0)
+    c = 9
+    kp, vp = _pools(rng, jc, 1, NB + 2)
+    kp, vp = kp[0], vp[0]
+    table = (rng.permutation(NB + 1)[:NB] + 1).astype(np.int32)[None]
+    x = rng.standard_normal((1, c, jc.d_model), dtype=np.float32)
+    jp = {k: jnp.asarray(v) for k, v in
+          _layer0(npp["blocks"]["segments"][0]["attn"]).items()}
+    jout, jkv = jattn.paged_chunk_self_attention(
+        jp, jnp.asarray(x), {"k": jnp.asarray(kp), "v": jnp.asarray(vp)},
+        {"tables": jnp.asarray(table)}, jnp.asarray([pos0], jnp.int32),
+        jc, "attn")
+    cache = {"k": t(kp.copy()), "v": t(vp.copy())}
+    tout, _ = tattn.paged_chunk_self_attention(
+        _layer0(tp["blocks"]["segments"][0]["attn"]), t(x), cache,
+        {"tables": t(table)}, pos0, tc, "attn")
+    assert _err(tout, jout) < ATTN_TOL
+    assert _err(cache["k"], jkv["k"]) < ATTN_TOL
+    assert _err(cache["v"], jkv["v"]) < ATTN_TOL
+
+
+def _model_inputs(rng, jc, b):
+    kp, vp = _pools(rng, jc, jc.n_layers, b * NB + 1)
+    tables = (rng.permutation(b * NB)[:b * NB].reshape(b, NB) + 1
+              ).astype(np.int32)
+    return kp, vp, tables
+
+
+def test_paged_decode_step_logits(setup):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(13)
+    b = 3
+    kp, vp, tables = _model_inputs(rng, jc, b)
+    tok = rng.integers(0, jc.vocab_size, (b, 1)).astype(np.int32)
+    pos = np.array([4, 0, 41], np.int32)
+    jl, _ = build_model(jc).paged_decode_step(
+        npp, [{"k": jnp.asarray(kp), "v": jnp.asarray(vp)}],
+        {"token": jnp.asarray(tok), "pos": jnp.asarray(pos)},
+        {"tables": jnp.asarray(tables)})
+    caches = [{"k": t(kp.copy()), "v": t(vp.copy())}]
+    tl, _ = Model(tc, device="cpu").paged_decode_step(
+        tp, caches, {"token": t(tok), "pos": t(pos)},
+        {"tables": t(tables)})
+    assert tl.shape == jl.shape
+    assert _err(tl, jl) < LOGIT_TOL
+
+
+@pytest.mark.parametrize("pos0", [0, 11])
+def test_paged_prefill_chunk_hidden(setup, pos0):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(14 + pos0)
+    kp, vp, tables = _model_inputs(rng, jc, 2)
+    row, c = 1, 13
+    toks = rng.integers(0, jc.vocab_size, (1, c)).astype(np.int32)
+    jh, jcaches = build_model(jc).paged_prefill_chunk(
+        npp, [{"k": jnp.asarray(kp), "v": jnp.asarray(vp)}],
+        jnp.asarray(toks), jnp.int32(pos0), row,
+        {"tables": jnp.asarray(tables[row:row + 1])})
+    caches = [{"k": t(kp.copy()), "v": t(vp.copy())}]
+    th, _ = Model(tc, device="cpu").paged_prefill_chunk(
+        tp, caches, t(toks), pos0, row, {"tables": t(tables[row:row + 1])})
+    assert _err(th, jh) < LOGIT_TOL
+    assert _err(caches[0]["k"], jcaches[0]["k"]) < ATTN_TOL
+
+
+def test_decode_steps_tokens_with_masked_rows(setup):
+    """K = 4 fused steps: row 0 runs all four, row 1 finishes after two,
+    row 2 is masked from the start (budget 0, all-zero table), row 3
+    takes one step.  Tokens (-1 past each budget) must be equal."""
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(15)
+    b = 4
+    kp, vp, tables = _model_inputs(rng, jc, b)
+    tables[2] = 0
+    batch = {"token": rng.integers(0, jc.vocab_size, (b, 1)).astype(np.int32),
+             "pos": np.array([3, 17, 9, 30], np.int32),
+             "budget": np.array([4, 2, 0, 1], np.int32)}
+    jt, jcaches = build_model(jc).decode_steps(
+        npp, [{"k": jnp.asarray(kp), "v": jnp.asarray(vp)}],
+        {k: jnp.asarray(v) for k, v in batch.items()},
+        {"tables": jnp.asarray(tables)}, k=4)
+    caches = [{"k": t(kp.copy()), "v": t(vp.copy())}]
+    tt, _ = Model(tc, device="cpu").decode_steps(
+        tp, caches, {k: t(v) for k, v in batch.items()},
+        {"tables": t(tables)}, k=4)
+    assert tt.dtype == torch.int32
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    assert (tt[2] == -1).all() and (tt[1, 2:] == -1).all()
+    # every block but the shared scratch block 0 holds the same KV
+    assert _err(caches[0]["k"][:, 1:], jcaches[0]["k"][:, 1:]) < ATTN_TOL
