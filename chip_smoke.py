@@ -12,23 +12,34 @@ one JSON line:
 1. ``device``  — the card's name and power limit (nvidia-smi);
 2. ``build``   — compile and load the kernel library, with its seconds;
 3. ``kernels`` — every kernel against its plain PyTorch version on the
-   card at the main path's shapes, in float32 (tolerance 2e-5) and
-   bfloat16 (2e-2, and every element within two bf16 rounding steps of
-   its own value: both sides compute in f32 and round once), with the kernel's, the plain version's and one
-   PyTorch library call's device time (torch.profiler), the kernel's
-   time per back-to-back call (CUDA events, launch cost included), and
-   the least time the card could take;
+   card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
+   the quant matmuls, whose sums over K up to 2560 run in another order)
+   and bfloat16 (2e-2, and every element within two bf16 rounding steps
+   of its own value: both sides compute in f32 and round once), with
+   the kernel's, the plain version's and one PyTorch library call's
+   device time (torch.profiler), the kernel's time per back-to-back call
+   (CUDA events, launch cost included), and the least time the card
+   could take;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
-   through the paged engine on the card (kernels) and on the CPU (plain
-   versions); the token streams must be equal;
+   through the paged engine (unquantized, int8, int4) and the slot
+   engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
+   and on the CPU (plain versions); each pair of streams must be equal,
+   and on the card the slot engine's streams must equal the paged
+   engine's;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
-   ``PagedServingEngine``, every request must finish with 64 in-vocab
-   tokens and every kernel must have been launched the number of times
-   the main path's shapes imply; then ``profile``: two steady decode
-   macro-steps timed without the profiler, then the same window again
-   under torch.profiler for the device's busy time; the idle share is
-   one minus busy over the unprofiled wall time.
+   ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
+   through ``PagedServingEngine`` with int8 and with int4 weights; every
+   request must finish with 64 in-vocab tokens and every kernel must
+   have been launched the number of times each run's shapes imply (the
+   counts are reset before and read after each run); each quantized or
+   slot run prints the share of its tokens equal to the bf16 paged
+   run's on the same requests (not gated: random 32-layer weights);
+   the last run repeats the bf16 paged engine on the same 8 requests.
+   ``profile`` (after the bf16 and the int8 paged runs): two steady
+   decode macro-steps timed without the profiler, then the same window
+   again under torch.profiler for the device's busy time; the idle
+   share is one minus busy over the unprofiled wall time.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -54,16 +65,29 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5   # two bf16 rounding steps
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 80 GB HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
+QMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sums over K <= 2560
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
     "paged_prefill_attention": "src/repro/kernels/flash_attention.py:72",
+    "dense_decode_attention": "src/repro/kernels/decode_attention.py:76",
+    "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
+    "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
+    "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
+    "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
 }
+#: the serve run whose launches each kernel's line reports
+LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
+              "paged_prefill_attention": "paged_bf16",
+              "dense_decode_attention": "dense_bf16",
+              "quant_matmul_int8": "paged_int8",
+              "quant_matmul_int4": "paged_int4"}
 
 
 def emit(obj) -> None:
@@ -88,24 +112,28 @@ def call_ms(fn, n: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, n: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     """Device time per call of ``fn``: the summed durations of the
     kernels it launches, from torch.profiler, over ``n`` calls (inputs
-    warm in L2).  Host launch gaps are not counted."""
+    warm in L2).  Host launch gaps are not counted.  A profile that
+    recorded no device activity at all (torch.profiler drops a window
+    now and then) is taken again, up to ``attempts`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / n
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / n
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{attempts} profiles")
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -117,7 +145,8 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops):
+def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
+          tol=TOL):
     import torch
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
@@ -125,11 +154,11 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops):
     # bf16: how far the worst element lies beyond two rounding steps
     excess = ((diff - BF16_RTOL * ref.float().abs()).max().item()
               if dtype == "bfloat16" else None)
-    ok = (bool(np.isfinite(err)) and err <= TOL[dtype]
+    ok = (bool(np.isfinite(err)) and err <= tol[dtype]
           and (excess is None or excess <= BF16_ATOL))
     b_ms, b_by = bound(nbytes, flops, dtype)
     case = {"kernel": name, "dtype": dtype, "shape": shape,
-            "max_abs_err": err, "tol": TOL[dtype],
+            "max_abs_err": err, "tol": tol[dtype],
             "bf16_step_excess": excess, "ok": ok,
             "ms": device_ms(fn), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library) if library else None,
@@ -140,7 +169,7 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops):
     if not ok:
         raise AssertionError(f"{name} {dtype} {shape}: kernel disagrees "
                              f"with its plain version (max abs err {err}, "
-                             f"limit {TOL[dtype]}; bf16 step excess "
+                             f"limit {tol[dtype]}; bf16 step excess "
                              f"{excess}, limit {BF16_ATOL})")
     return case
 
@@ -149,7 +178,13 @@ def kernel_cases(dev) -> list:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.quant_matmul import (
+        quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
+        quant_matmul_int8_plain)
+    from repro_torch.models.quantize import (dequantize, quantize_int4,
+                                             quantize_int8)
     from repro_torch.kernels.flash_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
@@ -264,6 +299,60 @@ def kernel_cases(dev) -> list:
                 2 * C * H * HD * es + 2 * n_slots * KV * HD * es
                 + 4 * (-(-n_slots // BS)),
                 4 * H * HD * n_pairs))
+
+    # the kernels of the quantized and slot-engine paths
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+
+        # quant matmul at a decode site (8 rows, w_gate / w_up) and a
+        # prefill one (a chunk of 128 rows, w_down); the library call is
+        # the dense matmul the unquantized model runs there
+        for m, k, n in ((8, 960, 2560), (128, 2560, 960)):
+            w = t(rng.standard_normal((k, n)) * k ** -0.5, torch.float32)
+            x = t(rng.standard_normal((m, k)), dtype)
+            for fmt in ("int8", "int4"):
+                packed = (quantize_int8 if fmt == "int8"
+                          else quantize_int4)(w)
+                q, s = packed["q"], packed["s"]
+                w_dense = dequantize(packed).to(dtype)
+                kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
+                                 if fmt == "int8" else
+                                 (quant_matmul_int4, quant_matmul_int4_plain))
+                cases.append(_case(
+                    f"quant_matmul_{fmt}", dname, [m, k, n],
+                    kernel(x, q, s), plain(x, q, s),
+                    lambda: kernel(x, q, s), lambda: plain(x, q, s),
+                    lambda: torch.matmul(x, w_dense),
+                    m * k * es + q.numel() + 4 * s.numel() + m * n * es,
+                    2 * m * k * n, tol=QMM_TOL))
+
+        # dense decode: the slot engine's 8 rows of S = 1024 slots,
+        # positions up to ~600, one row frozen at pos 5 (budget run out)
+        B, S = 8, 1024
+        kc = t(rng.standard_normal((B, S, KV, HD)), dtype)
+        vc = t(rng.standard_normal((B, S, KV, HD)), dtype)
+        pos_np = rng.integers(64, 640, size=B)
+        pos_np[B - 1] = 5
+        pos = torch.from_numpy(pos_np.astype(np.int32)).to(dev)
+        q = t(rng.standard_normal((B, H, HD)), dtype)
+        kt = kc.permute(0, 2, 1, 3).contiguous()
+        vt = vc.permute(0, 2, 1, 3).contiguous()
+        mask = (torch.arange(S, device=dev)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        n_keys = int(np.minimum(pos_np, S - 1).sum() + B)
+        cases.append(_case(
+            "dense_decode_attention", dname,
+            {"B": B, "H": H, "KV": KV, "hd": HD, "S": S,
+             "pos": pos_np.tolist()},
+            dense_decode_attention(q, kc, vc, pos),
+            dense_decode_attention_plain(q, kc, vc, pos),
+            lambda: dense_decode_attention(q, kc, vc, pos),
+            lambda: dense_decode_attention_plain(q, kc, vc, pos),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+            2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B,
+            4 * H * HD * n_keys))
     return cases
 
 
@@ -302,12 +391,37 @@ def _top2_gap(model, params, tokens, dev):
     return (top.values[0] - top.values[1]).item(), top.indices.tolist()
 
 
+def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
+    """Where the card's stream first leaves the CPU's, with the plain
+    path's top-2 logit gap there."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.models.quantize import quantize_params
+    cpu = torch.device("cpu")
+    for rid, ref in sorted(ref_all.items()):
+        got = got_all.get(rid, [])
+        if got != ref:
+            i = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+                     min(len(got), len(ref)))
+            gap, top = _top2_gap(Model(cfg, qformat=fmt, device=cpu),
+                                 quantize_params(params_cpu, fmt),
+                                 prompts[rid] + ref[:i], cpu)
+            return {"request": rid, "index": i, "cuda": got[i:i + 4],
+                    "cpu": ref[i:i + 4], "plain_top2_gap": gap,
+                    "plain_top2": top}
+    return None
+
+
 def parity(dev) -> dict:
+    """One trace through both engines, unquantized and quantized, on the
+    card and on the CPU, from the same f32 weights (each engine packs its
+    own)."""
     import torch
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    from repro_torch.serving.engine import PagedServingEngine, Request
+    from repro_torch.serving.engine import (PagedServingEngine, Request,
+                                            ServingEngine)
     cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
                               block_pattern=uniform("attn", 2),
                               dtype="float32")
@@ -317,49 +431,53 @@ def parity(dev) -> dict:
     params_gpu = _to(params_cpu, dev)
     prompts = _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
                      cfg.vocab_size)
-    streams = {}
+    engines = {
+        "paged": lambda p, d, fmt: PagedServingEngine(
+            cfg, p, max_rows=4, max_len=256, block_size=16,
+            prefill_chunk=128, decode_steps=4, quantization=fmt, device=d),
+        "slot": lambda p, d, fmt: ServingEngine(
+            cfg, p, max_batch=4, cache_len=256, prefill_chunk=128,
+            decode_steps=4, quantization=fmt, device=d)}
+    runs = (("paged", None), ("paged", "int8"), ("paged", "int4"),
+            ("slot", None), ("slot", "int8"))
+    streams, results = {}, []
     t0 = time.perf_counter()
-    for name, d, p in (("cuda", dev, params_gpu), ("cpu", cpu, params_cpu)):
-        eng = PagedServingEngine(cfg, p, max_rows=4, max_len=256,
-                                 block_size=16, prefill_chunk=128,
-                                 decode_steps=4, device=d)
-        for i, pr in enumerate(prompts):
-            eng.submit(Request(i, list(pr), max_new_tokens=16))
-        done = eng.run()
-        streams[name] = {r.id: r.out_tokens for r in done}
-    equal = streams["cuda"] == streams["cpu"]
+    for engine, fmt in runs:
+        for name, d, p in (("cuda", dev, params_gpu),
+                           ("cpu", cpu, params_cpu)):
+            eng = engines[engine](p, d, fmt)
+            for i, pr in enumerate(prompts):
+                eng.submit(Request(i, list(pr), max_new_tokens=16))
+            streams[engine, fmt, name] = {r.id: r.out_tokens
+                                          for r in eng.run()}
+        got, ref = streams[engine, fmt, "cuda"], streams[engine, fmt, "cpu"]
+        run = {"engine": engine, "quantization": fmt, "equal": got == ref,
+               "tokens": sum(len(x) for x in ref.values())}
+        if got != ref:
+            run["first_divergence"] = _first_divergence(
+                cfg, params_cpu, fmt, prompts, got, ref)
+        results.append(run)
+    slot_is_paged = {str(fmt): streams["slot", fmt, "cuda"]
+                     == streams["paged", fmt, "cuda"] for fmt in (None, "int8")}
     res = {"phase": "parity", "config": "smollm-360m, 2 layers, float32",
-           "requests": len(prompts), "equal": equal,
-           "tokens": sum(len(s) for s in streams["cpu"].values()),
+           "requests": len(prompts), "runs": results,
+           "card_slot_equals_paged": slot_is_paged,
+           "equal": all(r["equal"] for r in results)
+           and all(slot_is_paged.values()),
            "seconds": time.perf_counter() - t0}
-    if not equal:
-        for rid, ref in sorted(streams["cpu"].items()):
-            got = streams["cuda"].get(rid, [])
-            if got != ref:
-                i = next((j for j, (a, b) in enumerate(zip(got, ref))
-                          if a != b), min(len(got), len(ref)))
-                gap, top = _top2_gap(Model(cfg, device=cpu), params_cpu,
-                                     prompts[rid] + ref[:i], cpu)
-                res["first_divergence"] = {"request": rid, "index": i,
-                                           "cuda": got[i:i + 4],
-                                           "cpu": ref[i:i + 4],
-                                           "plain_top2_gap": gap,
-                                           "plain_top2": top}
-                break
     emit(res)
-    if not equal:
-        raise AssertionError("card and CPU token streams differ")
+    if not res["equal"]:
+        raise AssertionError("token streams differ: card against CPU, or "
+                             "slot against paged engine on the card")
     return res
 
 
-def serve(dev) -> dict:
+def _timed(base):
+    """``base`` engine class that splits wall time between prefill
+    chunks and macro-steps."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
-    from repro_torch.serving.engine import PagedServingEngine, Request
 
-    class TimedEngine(PagedServingEngine):
-        """Splits wall time between prefill chunks and macro-steps."""
+    class Timed(base):
         prefill_s = decode_s = 0.0
         macro_steps = decode_iters = prefill_calls = 0
 
@@ -378,18 +496,47 @@ def serve(dev) -> dict:
             self.decode_iters += k
             return out
 
-    cfg = get_config("smollm-360m")
-    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
-              decode_steps=16, seed=SEED, device=dev)
-    eng = TimedEngine(cfg, **kw)
-    # warm-up: cuBLAS handles and allocator pools, outside the counts
-    eng.submit(Request(-1, list(range(1, 40)), max_new_tokens=4))
-    eng.run()
-    eng = TimedEngine(cfg, eng.params, **kw)
-    prompts = _trace(np.random.default_rng(SEED + 2), 16, 32, 512,
-                     cfg.vocab_size)
+    return Timed
+
+
+def projection_bytes(params) -> int:
+    """Bytes of the projection weights (``QUANT_KEYS``), packed or not."""
+    from repro_torch.models.quantize import QUANT_KEYS, is_quantized
+    if isinstance(params, list):
+        return sum(projection_bytes(v) for v in params)
+    if not isinstance(params, dict):
+        return 0
+    total = 0
+    for key, val in params.items():
+        if key in QUANT_KEYS:
+            leaves = val.values() if is_quantized(val) else [val]
+            total += sum(a.numel() * a.element_size() for a in leaves)
+        else:
+            total += projection_bytes(val)
+    return total
+
+
+def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64) -> tuple:
+    """One serve run at full width and depth: a warm-up engine (cuBLAS
+    handles, allocator pools; its launches are not counted), then the
+    measured engine on the same parameters.  Launch counts are reset
+    just before the run and read just after, and must equal what the
+    run's decode iterations and prefill chunks imply.  ``ref``: the bf16
+    paged run's streams, for the share of equal tokens."""
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import Request, ServingEngine
+    timed_cls = _timed(cls)
+    warm = timed_cls(cfg, **kw)
+    warm.submit(Request(-1, list(range(1, 40)), max_new_tokens=4))
+    warm.run()
+    eng = timed_cls(cfg, warm.params, **kw)
+    del warm
+    gc.collect()
+    torch.cuda.empty_cache()
     for i, pr in enumerate(prompts):
-        eng.submit(Request(i, pr, max_new_tokens=64))
+        eng.submit(Request(i, pr, max_new_tokens=n_new))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launches()
@@ -398,10 +545,20 @@ def serve(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
-    expect = {"rmsnorm": 65 * eng.decode_iters + 64 * eng.prefill_calls,
-              "paged_decode_attention": 32 * eng.decode_iters,
-              "paged_prefill_attention": 32 * eng.prefill_calls}
-    res = {"phase": "serve", "config": "smollm-360m, 32 layers, bfloat16",
+    n_layers, iters, chunks = cfg.n_layers, eng.decode_iters, eng.prefill_calls
+    slot = issubclass(cls, ServingEngine)
+    expect = dict.fromkeys(launches, 0)
+    expect["rmsnorm"] = (2 * n_layers + 1) * iters + 2 * n_layers * chunks
+    expect["paged_prefill_attention"] = n_layers * chunks
+    expect["dense_decode_attention" if slot
+           else "paged_decode_attention"] = n_layers * iters
+    if eng.quantization:
+        expect[f"quant_matmul_{eng.quantization}"] = 7 * n_layers * (
+            iters + chunks)
+    streams = {r.id: r.out_tokens for r in done}
+    res = {"phase": "serve", "run": name,
+           "engine": cls.__name__, "quantization": eng.quantization,
+           "config": f"smollm-360m, {n_layers} layers, bfloat16",
            "requests": len(prompts), "finished": len(done),
            "prompt_tokens": sum(len(p) for p in prompts),
            "prefill_tokens": eng.prefill_tokens,
@@ -410,29 +567,74 @@ def serve(dev) -> dict:
            "decode_s": eng.decode_s,
            "prefill_tok_per_s": eng.prefill_tokens / eng.prefill_s,
            "decode_tok_per_s": eng.tokens_generated / eng.decode_s,
-           "macro_steps": eng.macro_steps, "decode_iters": eng.decode_iters,
+           "macro_steps": eng.macro_steps, "decode_iters": iters,
            "ms_per_macro_step": eng.decode_s / eng.macro_steps * 1e3,
-           "prefill_calls": eng.prefill_calls,
+           "prefill_calls": chunks,
            "n_host_syncs": eng.n_host_syncs,
-           "n_preemptions": eng.n_preemptions,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "projection_weight_bytes": projection_bytes(eng.params),
+           "n_preemptions": getattr(eng, "n_preemptions", None),
            "launches": launches, "launches_expected": expect}
+    if ref is not None:
+        pairs = [(a, b) for rid, toks in streams.items()
+                 for a, b in zip(toks, ref[rid])]
+        res["share_equal_to_bf16_paged"] = (
+            sum(a == b for a, b in pairs) / len(pairs))
     emit(res)
     bad = [r.id for r in done
-           if len(r.out_tokens) != 64
+           if len(r.out_tokens) != n_new
            or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)]
     if len(done) != len(prompts) or bad or eng.rejected:
-        raise AssertionError(f"serve: {len(done)}/{len(prompts)} finished, "
-                             f"bad streams {bad}, rejected "
+        raise AssertionError(f"serve {name}: {len(done)}/{len(prompts)} "
+                             f"finished, bad streams {bad}, rejected "
                              f"{[r.id for r in eng.rejected]}")
-    if any(n == 0 for n in launches.values()) or launches != expect:
-        raise AssertionError(f"serve: kernel launches {launches}, "
+    if launches != expect or any(launches[k] == 0
+                                 for k, v in expect.items() if v):
+        raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
-    profile_decode(cfg, eng.params, kw, dev)
-    return res
+    return res, streams, eng
 
 
-def profile_decode(cfg, params, kw, dev) -> dict:
+def serve(dev) -> dict:
+    """The bf16 paged run of 16 requests and its decode profile, then the
+    slot engine and the int8 / int4 paged engine on its first 8 requests.
+    Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = get_config("smollm-360m")
+    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 2), 16, 32, 512,
+                     cfg.vocab_size)
+    res, ref, eng = serve_run("paged_bf16", PagedServingEngine, cfg, kw,
+                              prompts, dev)
+    launches = {"paged_bf16": res["launches"]}
+    profile_decode(cfg, eng.params, kw, dev, label="paged_bf16")
+    del eng
+    slot_kw = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
+                   decode_steps=16, seed=SEED, device=dev)
+    # the last run repeats the bf16 paged engine on the same 8 requests,
+    # so each quantized or slot run has an equal-sized bf16 neighbour in
+    # this process
+    for name, cls, run_kw in (
+            ("dense_bf16", ServingEngine, slot_kw),
+            ("paged_int8", PagedServingEngine, dict(kw, quantization="int8")),
+            ("paged_int4", PagedServingEngine, dict(kw, quantization="int4")),
+            ("paged_bf16_8", PagedServingEngine, kw)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res, _, eng = serve_run(name, cls, cfg, run_kw, prompts[:8], dev,
+                                ref=ref)
+        launches[name] = res["launches"]
+        if name == "paged_int8":
+            profile_decode(cfg, eng.params, run_kw, dev, label=name)
+        del eng
+    return launches
+
+
+def profile_decode(cfg, params, kw, dev, label: str) -> dict:
     """Where decode time goes in two steady macro-steps of 8 rows
     (admission, prefill and the first macro-step happen before the
     window).  The window runs twice on identical engines: once timed
@@ -477,7 +679,7 @@ def profile_decode(cfg, params, kw, dev) -> dict:
         raise RuntimeError("torch.profiler recorded no device time")
     n_launch = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    res = {"phase": "profile",
+    res = {"phase": "profile", "run": label,
            "window": f"decode, 8 rows, pos {pos0}-{pos0 + iters - 1}",
            "decode_iters": iters, "wall_ms": wall * 1e3,
            "wall_profiled_ms": wall_profiled * 1e3,
@@ -493,24 +695,32 @@ def profile_decode(cfg, params, kw, dev) -> dict:
     return res
 
 
-def kernel_line(cases, launches) -> dict:
+def kernel_line(cases, launches_by_run) -> dict:
     """One entry per kernel, at its main-path shape in bfloat16 (decode
-    rows for rmsnorm, pos 256 for prefill); every case in ``cases``."""
+    rows for rmsnorm and the quant matmuls, pos 256 for prefill), with
+    the launches of the serve run that drives it (``LAUNCH_RUN``); every
+    case in ``cases``."""
     main = {"rmsnorm": lambda c: c["shape"] == [8, 960],
             "paged_decode_attention": lambda c: True,
-            "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256}
+            "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
+            "dense_decode_attention": lambda c: True,
+            "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
+            "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560]}
     out = []
-    for name in ("rmsnorm", "paged_decode_attention",
-                 "paged_prefill_attention"):
+    for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
         c = next(c for c in mine
                  if c["dtype"] == "bfloat16" and main[name](c))
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name],
-                    "launches": launches[name],
+                    "launches": launches_by_run[LAUNCH_RUN[name]][name],
+                    "launch_run": LAUNCH_RUN[name],
+                    "launches_by_run": {run: n[name] for run, n
+                                        in launches_by_run.items()},
                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
-                    "call_ms": c["call_ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                    "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+                    "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
+                    "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                    "library_ms": c["library_ms"],
                     "dtype": c["dtype"], "shape": c["shape"],
                     "cases": [{k: x[k] for k in ("dtype", "shape", "ms",
                                                  "call_ms", "plain_ms",
@@ -561,7 +771,7 @@ def main() -> int:
 
     cases = timed("kernels", lambda: kernel_cases(dev))
     timed("parity", lambda: parity(dev))
-    launches = timed("serve", lambda: serve(dev))["launches"]
+    launches = timed("serve", lambda: serve(dev))
     emit({"phase": "timing", "seconds": seconds,
           "total": time.perf_counter() - t_start})
     emit(kernel_line(cases, launches))

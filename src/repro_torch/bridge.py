@@ -10,13 +10,17 @@ takes that tree as nested dicts and lists of numpy arrays (a caller
 holding JAX arrays maps ``np.asarray`` over it first) and returns the
 port's parameters: the same tree of torch tensors, in the same
 ``(in, out)`` orientation, so the bridge copies and never transposes.
-It imports no JAX.
+Projection weights the reference packed (``quantize_params``) arrive as
+``{"q", "s"}`` dicts and stay packed: ``q`` keeps its int8 / uint8
+integers and ``s`` its f32 scales, whatever the model dtype.  It
+imports no JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.models.quantize import is_quantized
 from repro_torch.models.transformer import build_segments
 
 
@@ -25,8 +29,18 @@ def _to_torch(a, device, dtype) -> torch.Tensor:
         device=device, dtype=dtype)
 
 
+def _packed_to_torch(w: dict, device) -> dict:
+    q = np.asarray(w["q"])
+    if q.dtype not in (np.int8, np.uint8):
+        raise TypeError(f"packed weight with q of dtype {q.dtype}")
+    return {"q": torch.from_numpy(np.array(q)).to(device),
+            "s": torch.from_numpy(np.array(w["s"], dtype=np.float32)).to(
+                device)}
+
+
 def _map(tree, fn):
-    if isinstance(tree, dict):
+    """Apply ``fn`` to every leaf; a packed ``{"q","s"}`` dict is one leaf."""
+    if isinstance(tree, dict) and not is_quantized(tree):
         return {k: _map(v, fn) for k, v in tree.items()}
     return fn(tree)
 
@@ -43,13 +57,20 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
         raise NotImplementedError("untied LM heads are not ported yet")
 
     def leaf(a):
+        if is_quantized(a):
+            return _packed_to_torch(a, device)
         return _to_torch(a, device, dtype)
+
+    def unsqueeze(a):
+        if is_quantized(a):
+            return {k: np.asarray(v)[None] for k, v in a.items()}
+        return np.asarray(a)[None]
 
     segments = []
     for seg, p in zip(segs, tree["blocks"]["segments"]):
         # a one-layer segment is unstacked in the reference: add the
         # layer dim so every segment indexes the same way
-        stacked = p if seg.length > 1 else _map(p, lambda a: np.asarray(a)[None])
+        stacked = p if seg.length > 1 else _map(p, unsqueeze)
         segments.append(_map(stacked, leaf))
     return {"embed": {"w": leaf(tree["embed"]["w"])},
             "blocks": {"segments": segments, "shared": None},

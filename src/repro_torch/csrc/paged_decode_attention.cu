@@ -15,7 +15,8 @@
 // Grid (B, KV): a block owns every query head of one KV head of one row
 // (G = H / KV heads), so each K/V element it reads serves G queries.  It
 // walks its row's logical slots [0, min(pos, nb * bs - 1)] in tiles of
-// kTile slots, looking each slot's physical block up in the table itself;
+// 64 slots (decode_attention.cuh, shared with the dense decode kernel),
+// looking each slot's physical block up in the table itself;
 // slots past pos are neither read nor scored.  Rows the scheduler has
 // masked run at a frozen pos against an all-zero table (the scratch
 // block 0), which this kernel reads like any other block and never
@@ -29,15 +30,12 @@
 // CUDA cores; with B * KV = 40 blocks at the main path's shapes it fills
 // only a third of the 132 SMs, which splitting the slot range across
 // blocks (split-K flash decoding) would fix in a later change.
-#include "common.cuh"
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;   // logical KV slots per tile
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rt::kDecodeThreads)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp, const int* __restrict__ tables,
                     const int* __restrict__ pos, T* __restrict__ out, int H,
@@ -46,88 +44,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int kvh = blockIdx.y;
   const int G = H / KV;
   extern __shared__ float smem[];
-  float* qs = smem;                        // G * hd
-  float* ks = qs + G * hd;                 // kTile * (hd + 1)
-  float* vs = ks + kTile * (hd + 1);       // kTile * hd
-  float* sc = vs + kTile * hd;             // G * kTile
-  float* acc = sc + G * kTile;             // G * hd
-  float* m = acc + G * hd;                 // G
-  float* l = m + G;                        // G
-  float* alpha = l + G;                    // G
-
   const int p = pos[b];
   const int max_len = nb * bs;
   const int klast = p < max_len - 1 ? p : max_len - 1;
-  const int* table = tables + static_cast<size_t>(b) * nb;
   const size_t qoff = (static_cast<size_t>(b) * H + kvh * G) * hd;
-
-  rt::load_row_f32<T>(qs, q + qoff, G * hd);
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) acc[e] = 0.f;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m[g] = rt::kNegInf;
-    l[g] = 0.f;
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int k0 = 0; k0 <= klast; k0 += kTile) {
-    rt::load_kv_tile<T>(ks, vs, kp, vp, table, k0, kTile, klast, bs, KV, kvh, hd);
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < G * kTile; e += blockDim.x) {
-      const int g = e / kTile;
-      const int ki = e - g * kTile;
-      float s = rt::kNegInf;
-      if (k0 + ki <= klast) {
-        const float* qr = qs + g * hd;
-        const float* kr = ks + ki * (hd + 1);
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot += qr[d] * kr[d];
-        s = dot * scale;
-      }
-      sc[e] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += nwarps) {
-      float* row = sc + g * kTile;
-      float mx = rt::kNegInf;
-      for (int i = lane; i < kTile; i += 32) mx = fmaxf(mx, row[i]);
-      mx = rt::warp_max(mx);
-      const float m_new = fmaxf(m[g], mx);
-      float sum = 0.f;
-      for (int i = lane; i < kTile; i += 32) {
-        const float pv = expf(row[i] - m_new);
-        row[i] = pv;
-        sum += pv;
-      }
-      sum = rt::warp_sum(sum);
-      if (lane == 0) {
-        const float a = expf(m[g] - m_new);
-        alpha[g] = a;
-        l[g] = a * l[g] + sum;
-        m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-      const int g = e / hd;
-      const int d = e - g * hd;
-      const float* pr = sc + g * kTile;
-      float a = acc[e] * alpha[g];
-      for (int i = 0; i < kTile; ++i) a += pr[i] * vs[i * hd + d];
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
-
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    const int g = e / hd;
-    out[qoff + e] = rt::from_f32<T>(acc[e] / fmaxf(l[g], 1e-30f));
-  }
+  rt::decode_row<T>(q + qoff, kp, vp, tables + static_cast<size_t>(b) * nb,
+                    klast, bs, KV, kvh, hd, G, scale, out + qoff, smem);
 }
 
 template <typename T>
@@ -135,15 +57,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* tables, const void* pos, void* out, int B,
                    int H, int KV, int hd, int bs, int nb, float scale,
                    cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t floats = static_cast<size_t>(G) * hd * 2 +
-                        static_cast<size_t>(kTile) * (hd + 1) +
-                        static_cast<size_t>(kTile) * hd +
-                        static_cast<size_t>(G) * kTile + 3 * G;
-  const size_t bytes = floats * sizeof(float);
+  const size_t bytes = rt::decode_smem_floats(H / KV, hd) * sizeof(float);
   cudaError_t err = rt::allow_smem(paged_decode_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<T><<<dim3(B, KV), kThreads, bytes, stream>>>(
+  paged_decode_kernel<T><<<dim3(B, KV), rt::kDecodeThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(tables),
       static_cast<const int*>(pos), static_cast<T*>(out), H, KV, hd, bs, nb,

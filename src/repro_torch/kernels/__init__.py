@@ -1,3 +1,4 @@
 """Hand-written Hopper kernels of the port, each beside its plain
-PyTorch version (``rmsnorm``, ``decode_attention``, ``flash_attention``;
-sources in ``csrc/``, built and loaded by ``_build``)."""
+PyTorch version (``rmsnorm``, ``decode_attention`` (paged and dense),
+``flash_attention``, ``quant_matmul`` (int8 and int4); sources in
+``csrc/``, built and loaded by ``_build``)."""

@@ -39,7 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last reset (see reset_launches)
 launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
-                            "paged_prefill_attention": 0}
+                            "paged_prefill_attention": 0,
+                            "dense_decode_attention": 0,
+                            "quant_matmul_int8": 0, "quant_matmul_int4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -136,6 +138,12 @@ _SIGNATURES = {
     # dtype, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _P),
+    # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, stream
+    "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _P),
+    # x, q, s, out, M, K, N, group (int4 only), dtype, stream
+    "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

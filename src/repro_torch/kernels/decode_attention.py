@@ -1,15 +1,22 @@
-"""Paged flash-decode: the CUDA kernel's wrapper and its plain version.
+"""Flash-decode, paged and dense: the CUDA kernels' wrappers and their
+plain versions.
 
-Port of ``repro/kernels/decode_attention.py::paged_decode_attention_pallas``
-as the reference model runs it: one query token per row against the
-model's paged pools ``(NB, bs, KV, hd)`` of one layer, reached through
-block tables ``(B, nb)``, GQA, slots masked above ``pos``.  The kernel
-is ``csrc/paged_decode_attention.cu``.  The dense-cache kernel
-(``decode_attention_pallas``) serves the slot engines and is not ported
-yet.
+Ports of the two kernels of ``repro/kernels/decode_attention.py`` as the
+reference model runs them, one query token per row, GQA, slots masked
+above ``pos``:
 
-The wrapper runs the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+* ``paged_decode_attention_pallas`` -> :func:`paged_decode_attention`,
+  against the model's paged pools ``(NB, bs, KV, hd)`` of one layer,
+  reached through block tables ``(B, nb)``
+  (``csrc/paged_decode_attention.cu``);
+* ``decode_attention_pallas`` -> :func:`dense_decode_attention`, against
+  the slot engines' dense caches ``(B, S, KV, hd)`` of one layer, read
+  in place (``csrc/dense_decode_attention.cu``).
+
+Both kernels share one body (``csrc/decode_attention.cuh``), so on the
+card a dense row and a paged row with the same KV give the same bits.
+The wrappers run the plain version for CPU tensors only; for CUDA
+tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -94,4 +101,64 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         b, h, kv, hd, bs, nb, float(scale), _build.dtype_code(q.dtype),
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_decode_attention")
+    return out
+
+
+def dense_decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor, pos: torch.Tensor,
+                                 scale: Optional[float] = None) -> torch.Tensor:
+    """f32 scores + mask + softmax over dense caches, as
+    ``repro/models/attention.py::decode_self_attention`` computes them
+    (linear cache: slot s is valid for s <= pos).  q (B,H,hd); caches
+    (B,S,KV,hd); pos (B,).  Returns (B,H,hd) in q.dtype."""
+    b, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(b, kv, g, hd).float()
+    scores = torch.einsum("bngh,bsnh->bngs", qg, k_cache.float()) * scale
+    kpos = torch.arange(s, device=q.device)
+    valid = kpos[None, :] <= pos.long()[:, None]                  # (B,S)
+    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(scores + mask[:, None, None, :], dim=-1)
+    out = torch.einsum("bngs,bsnh->bngh", probs, v_cache.float())
+    return out.reshape(b, h, hd).to(q.dtype)
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Dense decode attention; see :func:`dense_decode_attention_plain`
+    for the contract.  Caches are read in place, never transposed."""
+    if q.device.type == "cpu":
+        return dense_decode_attention_plain(q, k_cache, v_cache, pos, scale)
+    b, h, hd = q.shape
+    bc, s, kv, hd_k = k_cache.shape
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_cache, v_cache, pos)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("dense_decode_attention: all tensors must lie on "
+                         "one CUDA device")
+    if (hd_k != hd or bc != b or v_cache.shape != k_cache.shape or h % kv
+            or pos.shape != (b,)):
+        raise ValueError(
+            f"dense_decode_attention: shapes q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, pos "
+            f"{tuple(pos.shape)} do not fit")
+    if (k_cache.dtype != q.dtype or v_cache.dtype != q.dtype
+            or pos.dtype != torch.int32):
+        raise TypeError("dense_decode_attention: q and caches must share a "
+                        "dtype; pos must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("dense_decode_attention: the kernel takes "
+                         "contiguous tensors")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    _build.launches["dense_decode_attention"] += 1
+    _build.check(lib.rt_dense_decode_attention(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, h, kv, hd, s, float(scale),
+        _build.dtype_code(q.dtype),
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "dense_decode_attention")
     return out

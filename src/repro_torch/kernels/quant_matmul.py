@@ -1,0 +1,136 @@
+"""Weight-only int8 / int4 dequantize-matmul: the CUDA kernels' wrappers
+and their plain PyTorch versions.
+
+Port of ``repro/kernels/quant_matmul.py::quant_matmul_pallas`` (bodies
+``_qmm_int8_kernel`` and ``_qmm_int4_kernel``): ``x (..., K) @
+dequant(q, s) -> (..., N)`` in x's dtype, accumulated in f32.  The
+kernels are ``csrc/quant_matmul.cu``.
+
+* int8: ``q`` (K, N) int8, ``s`` (1, N) f32; ``(x @ q) * s`` with the
+  scale applied once, after the sum over K.
+* int4: ``q`` (K//2, N) uint8 (packed row r: k = 2r in the low nibble,
+  k = 2r+1 in the high, both biased by +8), ``s`` (K//G, N) f32;
+  ``x @ ((nibble - 8) * s[k // G])`` with the scale inside the sum.
+
+The plain versions follow the reference model's ``_qdot_int8`` /
+``_qdot_int4`` (``repro/models/quantize.py``) including their K-chunked
+f32 accumulation (``_chunk_len``), so the port's float32 streams sum
+in the reference's order.  The wrappers run the plain version for CPU
+tensors only; for CUDA tensors they launch the kernel or raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def chunk_len(k: int, multiple: int = 1, cap: int = 256) -> int:
+    """Largest divisor of K that is <= cap and a multiple of
+    ``multiple`` (the int4 group, so one chunk's scales are whole rows);
+    the reference's ``_chunk_len``."""
+    best = multiple
+    c = multiple
+    while c <= cap:
+        if k % c == 0:
+            best = c
+        c += multiple
+    return best
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(…, K//2, N) uint8 -> (…, K, N) int8 in [-8, 7] (the layout of
+    the module docstring)."""
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    return torch.stack([lo, hi], dim=-2).reshape(
+        *packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+
+
+def quant_matmul_int8_plain(x: torch.Tensor, q: torch.Tensor,
+                            s: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ dequant(q (K, N) int8, s (1, N)): f32 partial sums
+    over K-chunks, then the scale (``_qdot_int8``)."""
+    k, n = q.shape
+    c = chunk_len(k)
+    xf = x.reshape(-1, k).to(torch.float32)
+    acc = torch.zeros((xf.shape[0], n), dtype=torch.float32,
+                      device=x.device)
+    for i in range(0, k, c):
+        acc = acc + xf[:, i:i + c] @ q[i:i + c].to(torch.float32)
+    out = acc * s
+    return out.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def quant_matmul_int4_plain(x: torch.Tensor, q: torch.Tensor,
+                            s: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ dequant(q (K//2, N) packed, s (K//G, N)), K-chunked
+    with chunks aligned to whole scale groups (``_qdot_int4``)."""
+    k2, n = q.shape
+    k = 2 * k2
+    g = k // s.shape[-2]
+    c = chunk_len(k, multiple=g)
+    xf = x.reshape(-1, k).to(torch.float32)
+    acc = torch.zeros((xf.shape[0], n), dtype=torch.float32,
+                      device=x.device)
+    for i in range(0, k, c):
+        w = (unpack_int4(q[i // 2:(i + c) // 2]).to(torch.float32)
+             * torch.repeat_interleave(s[i // g:(i + c) // g], g, dim=0))
+        acc = acc + xf[:, i:i + c] @ w
+    return acc.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def _launch(kind: str, x: torch.Tensor, q: torch.Tensor,
+            s: torch.Tensor) -> torch.Tensor:
+    name = f"quant_matmul_{kind}"
+    k = x.shape[-1]
+    n = q.shape[-1]
+    tensors = (x, q, s)
+    if x.device.type != "cuda" or any(a.device != x.device for a in tensors):
+        raise ValueError(f"{name}: all tensors must lie on one CUDA device")
+    want_q = torch.int8 if kind == "int8" else torch.uint8
+    if q.dtype != want_q or s.dtype != torch.float32:
+        raise TypeError(f"{name}: q must be {want_q} and s float32, got "
+                        f"{q.dtype} / {s.dtype}")
+    if q.dim() != 2 or s.dim() != 2 or s.shape[1] != n:
+        raise ValueError(f"{name}: q {tuple(q.shape)} / s {tuple(s.shape)} "
+                         f"are not a (K, N) weight")
+    if kind == "int8":
+        if q.shape[0] != k or s.shape[0] != 1:
+            raise ValueError(f"{name}: x (..., {k}) against q "
+                             f"{tuple(q.shape)}, s {tuple(s.shape)}")
+        group = 0
+    else:
+        if 2 * q.shape[0] != k or s.shape[0] == 0 or k % s.shape[0]:
+            raise ValueError(f"{name}: x (..., {k}) against packed q "
+                             f"{tuple(q.shape)}, s {tuple(s.shape)}")
+        group = k // s.shape[0]
+    if not all(a.is_contiguous() for a in tensors):
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    m = x.numel() // k if k else 0
+    out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    _build.launches[name] += 1
+    fn = (lib.rt_quant_matmul_int8 if kind == "int8"
+          else lib.rt_quant_matmul_int4)
+    _build.check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+                    m, k, n, group, _build.dtype_code(x.dtype),
+                    torch.cuda.current_stream(x.device).cuda_stream), name)
+    return out
+
+
+def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ dequant(q, s) for an int8 leaf; see the module
+    docstring for the layout."""
+    if x.device.type == "cpu":
+        return quant_matmul_int8_plain(x, q, s)
+    return _launch("int8", x, q, s)
+
+
+def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ dequant(q, s) for a packed int4 leaf."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_plain(x, q, s)
+    return _launch("int4", x, q, s)

@@ -1,17 +1,22 @@
-"""Grouped-query attention over paged KV pools: decode and chunked prefill.
+"""Grouped-query attention over the KV caches: decode and chunked
+prefill, against paged pools or dense slot caches.
 
-Port of the paged paths of ``repro/models/attention.py`` for linear
-(``attn``) segments.  Rotary is applied to K at write time and score
-math is f32, as in the reference.
+Port of the decode/chunk paths of ``repro/models/attention.py`` for
+linear (``attn``) segments.  Rotary is applied to K at write time and
+score math is f32, as in the reference.  The projections go through
+``models/quantize.py::qdot``, so packed weights take the quant-matmul
+kernel and plain ones run ``x @ w`` as before.
 
-The pools are updated **in place**: the new tokens' K/V are written
-with an index assignment into the ``(NB, bs, KV, hd)`` pool tensors the
-caller passes, which replaces the reference's functional
-``.at[].set`` under buffer donation.  The scores, softmax and value sum
-then run in a kernel that reads the pools through the block tables
-(``kernels/decode_attention.py``, ``kernels/flash_attention.py``).  The
-plain versions beside those kernels repeat the reference's
-``_gqa_scores`` / ``_gqa_out`` math on the gathered logical view.
+The caches are updated **in place**: the new tokens' K/V are written
+with an index assignment into the tensors the caller passes — paged
+pools ``(NB, bs, KV, hd)`` or a dense cache ``(B, S, KV, hd)`` of one
+layer — which replaces the reference's functional ``.at[].set`` under
+buffer donation.  The scores, softmax and value sum then run in a kernel
+that reads the caches in place (``kernels/decode_attention.py``,
+``kernels/flash_attention.py``).  A dense chunk reuses the paged
+prefill kernel on a one-block view of the row's cache (block size S,
+table ``[0]``).  The plain versions beside those kernels repeat the
+reference's ``_gqa_scores`` / ``_gqa_out`` math.
 
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
@@ -23,9 +28,11 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (dense_decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import paged_prefill_attention
 from repro_torch.models.layers import _dense_init, rotary
+from repro_torch.models.quantize import qdot
 
 
 def attention_init(generator, cfg, dtype, device, n: int) -> dict:
@@ -45,15 +52,15 @@ def attention_init(generator, cfg, dtype, device, n: int) -> dict:
 
 
 def _proj_q(params, x, cfg):
-    q = x @ params["wq"]
+    q = qdot(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
 
 
 def _proj_kv(params, x, cfg):
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = qdot(x, params["wk"])
+    v = qdot(x, params["wv"])
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
@@ -62,11 +69,26 @@ def _proj_kv(params, x, cfg):
     return k, v
 
 
+def _qkv(params, x, positions, cfg):
+    """Projections of x (B,T,D) with rotary at ``positions`` (B|1, T)
+    on q and the new k; returns (q, k_new, v_new), each (B,T,heads,hd)."""
+    q = _proj_q(params, x, cfg)
+    k_new, v_new = _proj_kv(params, x, cfg)
+    return (rotary(q, positions, cfg.rope_theta),
+            rotary(k_new, positions, cfg.rope_theta), v_new)
+
+
+def _out(params, o, cfg):
+    """The attention output (B,T,H,hd) through ``wo`` (``_gqa_out``)."""
+    b, t = o.shape[:2]
+    return qdot(o.reshape(b, t, cfg.n_heads * cfg.head_dim), params["wo"])
+
+
 def _check_linear(kind, cfg):
     if kind != "attn" and not (kind == "swa" and not cfg.window):
         raise NotImplementedError(
-            f"paged attention for block kind {kind!r} (window "
-            f"{cfg.window}) is not ported yet")
+            f"attention for block kind {kind!r} (window {cfg.window}) is "
+            f"not ported yet")
 
 
 def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
@@ -84,10 +106,7 @@ def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
     bs = k_pool.shape[1]
     tables = paged["tables"]
     max_len = tables.shape[1] * bs
-    q = _proj_q(params, x, cfg)
-    k_new, v_new = _proj_kv(params, x, cfg)
-    q = rotary(q, pos[:, None], cfg.rope_theta)
-    k_new = rotary(k_new, pos[:, None], cfg.rope_theta)
+    q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
 
     slot = torch.clamp(pos.long(), max=max_len - 1)
     bidx = torch.arange(b, device=x.device)
@@ -99,8 +118,7 @@ def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
     v_pool[phys, off] = v_new[:, 0]
 
     o = paged_decode_attention(q[:, 0], k_pool, v_pool, tables, pos)
-    out = o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ params["wo"]
-    return out, cache
+    return _out(params, o[:, None], cfg), cache
 
 
 def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos: int,
@@ -122,10 +140,7 @@ def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos: int,
     max_len = table.shape[0] * bs
     pos = int(pos)
     positions = pos + torch.arange(c, device=x.device)
-    q = _proj_q(params, x, cfg)
-    k_new, v_new = _proj_kv(params, x, cfg)
-    q = rotary(q, positions[None, :], cfg.rope_theta)
-    k_new = rotary(k_new, positions[None, :], cfg.rope_theta)
+    q, k_new, v_new = _qkv(params, x, positions[None, :], cfg)
 
     slots = torch.clamp(positions, max=max_len - 1)
     phys = table[slots // bs].long()
@@ -134,5 +149,52 @@ def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos: int,
     v_pool[phys, off] = v_new[0]
 
     o = paged_prefill_attention(q[0], k_pool, v_pool, table, pos)
-    out = o.reshape(1, c, cfg.n_heads * cfg.head_dim) @ params["wo"]
-    return out, cache
+    return _out(params, o[None], cfg), cache
+
+
+def decode_self_attention(params, x, cache: dict, pos, cfg,
+                          kind: str) -> Tuple[torch.Tensor, dict]:
+    """One-token decode against dense slot caches.
+
+    x: (B,1,D); cache {"k","v"}: (B, S, KV, hd) of one layer, updated in
+    place; pos (B,) int32 absolute position of the new token.  The new
+    K/V lands at slot ``min(pos, S - 1)``, as in the reference's linear
+    cache.  Returns (out (B,1,D), cache).
+    """
+    _check_linear(kind, cfg)
+    b = x.shape[0]
+    k_cache, v_cache = cache["k"], cache["v"]
+    q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
+    slot = torch.clamp(pos.long(), max=k_cache.shape[1] - 1)
+    bidx = torch.arange(b, device=x.device)
+    k_cache[bidx, slot] = k_new[:, 0]
+    v_cache[bidx, slot] = v_new[:, 0]
+    o = dense_decode_attention(q[:, 0], k_cache, v_cache, pos)
+    return _out(params, o[:, None], cfg), cache
+
+
+def chunk_self_attention(params, x, cache: dict, pos: int, cfg,
+                         kind: str) -> Tuple[torch.Tensor, dict]:
+    """C-token cache-resuming attention against one dense cache row
+    (chunked prefill of ONE slot: x (1,C,D), cache {"k","v"} the slot's
+    (1, S, KV, hd) views of one layer, written in place).  The linear
+    branch of the reference's ``chunk_self_attention``: write the chunk
+    at slots ``min(pos + i, S - 1)``, then attend causally over
+    ``[0, pos + C)`` — here with the paged prefill kernel on the row as
+    one block of S slots.  Returns (out (1,C,D), cache).
+    """
+    _check_linear(kind, cfg)
+    b, c, _ = x.shape
+    if b != 1:
+        raise ValueError(f"dense chunk attention prefills one slot, got a "
+                         f"batch of {b}")
+    k_cache, v_cache = cache["k"], cache["v"]
+    pos = int(pos)
+    positions = pos + torch.arange(c, device=x.device)
+    q, k_new, v_new = _qkv(params, x, positions[None, :], cfg)
+    slots = torch.clamp(positions, max=k_cache.shape[1] - 1)
+    k_cache[0, slots] = k_new[0]
+    v_cache[0, slots] = v_new[0]
+    table = torch.zeros(1, dtype=torch.int32, device=x.device)
+    o = paged_prefill_attention(q[0], k_cache, v_cache, table, pos)
+    return _out(params, o[None], cfg), cache

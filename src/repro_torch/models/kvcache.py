@@ -1,18 +1,21 @@
-"""Paged KV cache: the block ledger and its torch pools.
+"""KV caches: dense slot caches, and the paged block ledger with its
+torch pools.
 
-Port of the paged half of ``repro/models/kvcache.py`` for the attn-only
-decoders the port runs.  The host-side ledger :class:`PagedCache` is the
-reference's attn group (free list, refcounts, the copy-on-write prefix
-index, ``check()``, and the versioned ``meta()`` snapshot, which here
-returns int32 tensors on the ledger's device).  The reference's SWA
+Port of ``repro/models/kvcache.py`` for the attn-only decoders the port
+runs.  :func:`cache_struct` builds the slot engines' dense caches
+``(n_layers, batch, seq_len, kv_heads, hd)`` per segment.  The
+host-side ledger :class:`PagedCache` is the reference's attn group
+(free list, refcounts, the copy-on-write prefix index, ``check()``, and
+the versioned ``meta()`` snapshot, which here returns int32 tensors on
+the ledger's device).  The reference's SWA
 ring, cross-KV blocks and SSM state rows are per-request state of block
 kinds the port does not run yet; they join with those families.
 :meth:`PagedCache.struct` builds torch pools
 ``(n_layers, num_blocks + 1, block_size, kv_heads, hd)`` per segment.
 
-The pools are **updated in place** — by the model's KV writes and by
-:func:`paged_copy_blocks` — which replaces the reference's functional
-updates under buffer donation.
+Caches and pools are **updated in place** — by the model's KV writes,
+by :func:`paged_copy_blocks` and by the slot engine's row reset — which
+replaces the reference's functional updates under buffer donation.
 
 Cache layout invariants (as in the reference):
 
@@ -37,6 +40,27 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_segments, check_supported
+
+
+def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda") -> list:
+    """Dense slot caches, one ``{"k","v"}`` dict per segment, leaves
+    ``(n_layers, batch, seq_len, kv_heads, hd)`` zero-filled on
+    ``device`` (the reference's ``cache_struct`` for attn segments).
+    The model writes them in place."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [{name: torch.zeros((seg.length, batch, seq_len, cfg.n_kv_heads,
+                                cfg.head_dim), dtype=dtype, device=dev)
+             for name in ("k", "v")}
+            for seg in build_segments(cfg)]
+
+
+def cache_bytes(cfg, batch: int, seq_len: int, bytes_per_el: int = 2) -> int:
+    """Bytes of :func:`cache_struct` at ``bytes_per_el`` per element,
+    computed from the shapes (nothing is allocated)."""
+    check_supported(cfg)
+    return sum(2 * seg.length * batch * seq_len * cfg.n_kv_heads
+               * cfg.head_dim * bytes_per_el for seg in build_segments(cfg))
 
 
 class PagedCache:

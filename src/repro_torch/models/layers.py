@@ -2,13 +2,15 @@
 
 Port of ``repro/models/layers.py``.  Functions take parameter dicts of
 tensors in the reference's layout (projection weights ``(in, out)``, so
-``x @ w``); inits take an explicit :class:`torch.Generator`.
+``x @ w``, or packed quant leaves, see ``models/quantize.py``); inits
+take an explicit :class:`torch.Generator`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
+from repro_torch.models.quantize import qdot
 
 
 def _dense_init(generator: torch.Generator, shape, dtype, device,
@@ -58,7 +60,8 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
 
 
 def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    return (torch.nn.functional.silu(g) * u) @ params["w_down"]
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``, each product
+    through ``qdot`` (packed weights take the quant-matmul kernel)."""
+    g = qdot(x, params["w_gate"])
+    u = qdot(x, params["w_up"])
+    return qdot(torch.nn.functional.silu(g) * u, params["w_down"])

@@ -1,37 +1,51 @@
-"""Unified model over paged KV pools: embedding + segments + tied head.
+"""Unified model over dense or paged KV caches: embedding + segments +
+tied head.
 
-Port of the paged-serving API of ``repro/models/model.py`` for dense
-attention decoders::
+Port of the serving API of ``repro/models/model.py`` for dense attention
+decoders::
 
-    m = Model(cfg, device="cuda")
+    m = Model(cfg, qformat=None, device="cuda")
     params = m.init(generator)                                  # or bridge
-    hidden, caches = m.paged_prefill_chunk(params, caches, toks, pos0, row, meta)
-    logits, caches = m.paged_decode_step(params, caches, batch, meta)
-    toks, caches = m.decode_steps(params, caches, batch, meta, k=K)
+    caches = m.init_cache(batch, cache_len)                     # dense slots
+    hidden, caches = m.prefill_chunk(params, caches, toks, pos0, slot)
+    logits, caches = m.decode_step(params, caches, batch)
+    hidden, caches = m.paged_prefill_chunk(params, pools, toks, pos0, row, meta)
+    logits, caches = m.paged_decode_step(params, pools, batch, meta)
+    toks, caches = m.decode_steps(params, caches, batch, meta_or_None, k=K)
 
-``caches`` are the pools of :meth:`repro_torch.models.kvcache.PagedCache.
-struct`, written **in place** (the returned list is the one passed in);
-``meta`` is :meth:`PagedCache.meta`.  Parameters are nested dicts of
-tensors in the reference's pytree layout, per-layer weights stacked
-along a leading layer dim (``bridge.params_from_numpy`` builds them
-from the JAX package's parameters).
+Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools of
+:meth:`repro_torch.models.kvcache.PagedCache.struct` with ``meta`` from
+:meth:`PagedCache.meta`; both are written **in place** (the returned
+list is the one passed in).  Parameters are nested dicts of tensors in
+the reference's pytree layout, per-layer weights stacked along a
+leading layer dim (``bridge.params_from_numpy`` builds them from the
+JAX package's parameters); ``qformat`` tags the format their projection
+weights were packed to (``models/quantize.py::quantize_params``, which
+the engines call), and the model never packs them itself.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tfm
+from repro_torch.models.kvcache import cache_struct
 from repro_torch.models.layers import _dense_init, embed, rmsnorm, unembed
+from repro_torch.models.quantize import normalize_format
 
 
 class Model:
-    def __init__(self, cfg, *, device="cuda"):
+    def __init__(self, cfg, *, qformat: Optional[str] = None, device="cuda"):
         tfm.check_supported(cfg)
         if not cfg.tie_embeddings:
             raise NotImplementedError(f"{cfg.name}: untied LM heads are "
                                       f"not ported yet")
         self.cfg = cfg
+        # weight format tag ("int8"/"int4", None for the unquantized
+        # baseline; "bf16" means None)
+        self.qformat = normalize_format(qformat)
         self.device = resolve_device(device)
         self.dtype = torch_dtype(cfg.dtype)
         self.segments = tfm.build_segments(cfg)
@@ -63,7 +77,37 @@ class Model:
         x = embed(params["embed"], tokens).to(self.dtype)
         return tfm.apply_segments(params["blocks"], x, cfg=self.cfg,
                                   mode=mode, segs=self.segments, pos=pos,
-                                  caches=caches, paged=paged)
+                                  caches=caches, paged=paged,
+                                  qformat=self.qformat)
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
+        """Dense slot caches on the model's device
+        (``kvcache.cache_struct``), in the model dtype unless given."""
+        return cache_struct(self.cfg, batch, cache_len, dtype or self.dtype,
+                            device=self.device)
+
+    def prefill_chunk(self, params, caches, tokens, pos0: int, slot: int):
+        """Chunked prefill of one slot against the dense caches.
+
+        tokens: (1, C) at absolute positions pos0..; only batch row
+        ``slot`` is read and written: each layer sees a view of that row
+        (``caches[...][:, slot:slot + 1]``, the reference's
+        ``row_isolated``), which the KV write updates in place, so every
+        other row stays bit-untouched.  Returns (hidden (1,C,D), caches)
+        — no LM head: admission discards prompt logits.
+        """
+        rows = [{name: a[:, slot:slot + 1] for name, a in c.items()}
+                for c in caches]
+        x = self._run(params, rows, tokens, int(pos0), None, "chunk")
+        return x, caches
+
+    def decode_step(self, params, caches, batch):
+        """One decode step against the dense caches: batch {"token"
+        (B,1), "pos" (B,) int32}.  Returns (logits (B,1,V_pad), caches)."""
+        x = self._run(params, caches, batch["token"], batch["pos"], None,
+                      "decode")
+        return self._head(params, x), caches
 
     # ------------------------------------------------------------------
     def paged_prefill_chunk(self, params, caches, tokens, pos0: int, row: int,
@@ -87,24 +131,24 @@ class Model:
                       "decode")
         return self._head(params, x), caches
 
-    def decode_steps(self, params, caches, batch, paged, *, k: int):
+    def decode_steps(self, params, caches, batch, paged=None, *, k: int):
         """K fused greedy decode steps on the device (the serving hot
         loop): a Python loop of ``k`` iterations in which argmax over the
         logical vocab, token feedback, per-row ``pos`` bumps and done
         masking all stay on the device — nothing here synchronises with
-        the host.  batch: ``token`` (B,1), ``pos`` (B,) and ``budget``
-        (B,) int32, as in the reference.  Returns (tokens (B,k) int32,
-        caches); row r's valid prefix is its first ``budget[r]`` entries,
-        the rest are -1.
+        the host.  ``paged`` (the ledger's meta) selects the paged pools;
+        ``None`` the dense caches.  batch: ``token`` (B,1), ``pos`` (B,)
+        and ``budget`` (B,) int32, as in the reference.  Returns (tokens
+        (B,k) int32, caches); row r's valid prefix is its first
+        ``budget[r]`` entries, the rest are -1.
         """
         vocab = self.cfg.vocab_size
         tok, pos, budget = batch["token"], batch["pos"], batch["budget"]
         emits = []
         for _ in range(k):
-            logits, caches = self.paged_decode_step(
-                params, caches, {"token": tok, "pos": pos}, paged)
-            tok, pos, budget, emit = greedy_scan_update(logits, pos, budget,
-                                                        vocab)
+            x = self._run(params, caches, tok, pos, paged, "decode")
+            tok, pos, budget, emit = greedy_scan_update(
+                self._head(params, x), pos, budget, vocab)
             emits.append(emit)
         return torch.stack(emits, dim=1), caches
 

@@ -1,17 +1,19 @@
 """Blocks and segment stacking.
 
 Port of ``repro/models/transformer.py`` for ``attn`` blocks in the
-``decode`` and ``chunk`` modes over paged pools.  A model is a
-``block_pattern``; contiguous runs of one kind are *segments*, whose
-parameters are stacked along a leading layer dim as in the reference.
-Where the reference scans a segment with ``lax.scan``, the port runs a
-Python loop over its layers, handing each layer views of its weights
-and of its slice of the (in-place updated) KV pools.
+``decode`` and ``chunk`` modes, over paged pools (``paged`` given) or
+dense slot caches (``paged=None``).  A model is a ``block_pattern``;
+contiguous runs of one kind are *segments*, whose parameters are
+stacked along a leading layer dim as in the reference.  Where the
+reference scans a segment with ``lax.scan``, the port runs a Python
+loop over its layers, handing each layer views of its weights (packed
+quant leaves included: ``_layer`` recurses into their ``{"q","s"}``
+dicts) and of its slice of the in-place updated caches.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -79,16 +81,29 @@ def init_segments(generator, cfg, dtype, device) -> dict:
 
 
 def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
-                cache: dict, paged: dict):
-    """Apply one ``attn`` block.  ``cache`` holds this layer's pools,
-    written in place.  Returns x."""
+                cache: dict, paged: Optional[dict] = None,
+                qformat: Optional[str] = None):
+    """Apply one ``attn`` block.  ``cache`` holds this layer's pools
+    (``paged`` given: the block tables) or dense cache rows
+    (``paged=None``), written in place.  ``qformat`` tags the weight
+    format the params were packed to; dispatch is structural (``qdot``
+    routes on packed leaf or tensor), so the tag only travels with the
+    call, as in the reference.  Returns x."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     if mode == "decode":
-        a, _ = attn_mod.paged_decode_self_attention(
-            params["attn"], h, cache, paged, pos, cfg, kind)
+        if paged is None:
+            a, _ = attn_mod.decode_self_attention(
+                params["attn"], h, cache, pos, cfg, kind)
+        else:
+            a, _ = attn_mod.paged_decode_self_attention(
+                params["attn"], h, cache, paged, pos, cfg, kind)
     elif mode == "chunk":
-        a, _ = attn_mod.paged_chunk_self_attention(
-            params["attn"], h, cache, paged, pos, cfg, kind)
+        if paged is None:
+            a, _ = attn_mod.chunk_self_attention(
+                params["attn"], h, cache, pos, cfg, kind)
+        else:
+            a, _ = attn_mod.paged_chunk_self_attention(
+                params["attn"], h, cache, paged, pos, cfg, kind)
     else:
         raise ValueError(f"mode {mode!r} is not ported yet; "
                          f"ported: {MODES}")
@@ -98,20 +113,23 @@ def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
 
 
 def _layer(tree, j: int):
-    """Layer ``j`` of a stacked parameter/pool tree (views, no copies)."""
+    """Layer ``j`` of a stacked parameter/cache tree (views, no copies);
+    a packed quant leaf ``{"q","s"}`` is a dict and slices leaf by leaf."""
     if isinstance(tree, dict):
         return {k: _layer(v, j) for k, v in tree.items()}
     return tree[j]
 
 
 def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos,
-                   caches: list, paged: dict):
+                   caches: list, paged: Optional[dict] = None,
+                   qformat: Optional[str] = None):
     """Run every layer in order.  ``caches`` is the per-segment list of
-    ``{"k","v"}`` pools with a leading layer dim; each layer writes its
-    slice in place, so the list needs no rebuilding.  Returns x."""
+    ``{"k","v"}`` pools or dense caches with a leading layer dim; each
+    layer writes its slice in place, so the list needs no rebuilding.
+    Returns x."""
     for seg, params, cache in zip(segs, blocks["segments"], caches):
         for j in range(seg.length):
             x = block_apply(_layer(params, j), x, kind=seg.kind, cfg=cfg,
                             mode=mode, pos=pos, cache=_layer(cache, j),
-                            paged=paged)
+                            paged=paged, qformat=qformat)
     return x

@@ -1,13 +1,17 @@
-"""Paged continuous-batching serving engine.
+"""Serving engines: dense slot-based and paged continuous batching.
 
-Port of the paged half of ``repro/serving/engine.py``: the request
+Port of ``repro/serving/engine.py``'s monolithic engines: the request
 model, the queue and step-clock machinery (:class:`_EngineBase`), the
-continuous scheduler over the block ledger (:class:`_PagedEngine`), and
-:class:`PagedServingEngine`, which runs it on the port's model.  The
-host-side logic is the reference's, line for line, so admission,
-block growth, preemption-by-recompute, copy-on-write prefix sharing,
-macro-step sizing and the ``t_*`` stamps match it exactly; speculative
-decoding and weight quantization are not ported yet.
+slot state machine (:class:`_SlotEngine`) and :class:`ServingEngine`
+over dense caches, and the continuous scheduler over the block ledger
+(:class:`_PagedEngine`) and :class:`PagedServingEngine` over paged
+pools.  The host-side logic is the reference's, line for line, so
+admission (the slot engine's cache-headroom rejection included), block
+growth, preemption-by-recompute, copy-on-write prefix sharing,
+macro-step sizing and the ``t_*`` stamps match it exactly.  Both engines
+take ``quantization=`` ("int8" / "int4", see ``models/quantize.py``) and
+pack the projection weights once at construction; speculative decoding
+is not ported yet.
 
 The decode hot loop is device-resident: every engine iteration runs one
 macro-step of up to ``decode_steps`` (K) greedy decode iterations
@@ -32,6 +36,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.kvcache import PagedCache, paged_copy_blocks
 from repro_torch.models.model import Model
+from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.scheduler import (DEFER, REJECT, CapacityView,
                                            make_policy)
 
@@ -49,6 +54,15 @@ def chunk_sizes(n: int, chunk: int) -> List[int]:
         bit <<= 1
         rem >>= 1
     return out + tail[::-1]
+
+
+def reset_cache_row(caches, slot: int):
+    """Zero batch row ``slot`` of every dense cache leaf (leaves are
+    (n_layers, batch, ...)), in place."""
+    for c in caches:
+        for a in c.values():
+            a[:, slot] = 0
+    return caches
 
 
 @dataclass
@@ -204,6 +218,109 @@ class _EngineBase:
         """One fused macro-step of ``k`` device decode iterations.
         Returns (rows, k) int32 token ids (row r valid to budgets[r])."""
         raise NotImplementedError  # pragma: no cover - interface
+
+
+class _SlotEngine(_EngineBase):
+    """Slot state machine: admission (chunked prefill), fused macro-step
+    greedy decode, finish bookkeeping.  A request is admitted only when a
+    whole slot (one ``cache_len`` cache row) is free.  Forward passes are
+    delegated to the subclass hooks ``_reset_row(slot)``,
+    ``_prefill_row(slot, toks, pos0)`` and ``_forward_steps``."""
+
+    def __init__(self, cfg, *, max_batch: int, cache_len: int,
+                 prefill_chunk: int, decode_steps: int = 1, policy=None):
+        super().__init__(cfg, prefill_chunk=prefill_chunk,
+                         decode_steps=decode_steps, policy=policy)
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.pos = np.zeros(max_batch, dtype=np.int32)
+        self.slots: List[Optional[Request]] = [None] * max_batch
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _idle(self) -> bool:
+        return all(s is None for s in self.slots)
+
+    def _in_flight(self) -> List[Request]:
+        return [s for s in self.slots if s is not None]
+
+    def _capacity_view(self, free_slots: int) -> CapacityView:
+        """Dense capacity in policy units: one slot = one full
+        ``cache_len`` granule."""
+        return CapacityView(free_tokens=free_slots * self.cache_len,
+                            total_tokens=self.max_batch * self.cache_len,
+                            granule=self.cache_len)
+
+    def _admit(self):
+        """Prefill queued requests into free slots, ``prefill_chunk``
+        prompt tokens per call (the final prompt token is the first
+        decode input).  The policy chooses which queued request is tried
+        next and may reject it; a deferred choice blocks admission."""
+        free = self._free_slots()
+        while free and self.queue:
+            req = self.policy.next_admission(self.queue, self.t)
+            if req is None:
+                break
+            # admission must leave max_new_tokens of cache headroom: the
+            # decode loop stops a slot at pos >= cache_len - 1
+            if len(req.prompt) + req.max_new_tokens > self.cache_len:
+                self.queue.remove(req)
+                self._reject(
+                    req, f"prompt of {len(req.prompt)} + max_new_tokens "
+                         f"{req.max_new_tokens} exceeds cache_len "
+                         f"{self.cache_len}")
+                continue
+            verdict, msg = self.policy.admission_test(
+                req, self.t, self._capacity_view(len(free)))
+            if verdict == REJECT:
+                self.queue.remove(req)
+                self._reject(req, msg or "rejected by admission test")
+                continue
+            if verdict == DEFER:
+                break
+            slot = free.pop(0)
+            self.queue.remove(req)
+            if req.t_admit is None:
+                req.t_admit = self.t
+            self.slots[slot] = req
+            self._reset_row(slot)
+            toks = req.prompt[:-1]
+            self._prefill_chunks(slot, toks)
+            self.pos[slot] = len(toks)
+
+    def step(self, k_cap: Optional[int] = None) -> List[Request]:
+        """One engine iteration: admit + one fused macro-step of up to
+        ``decode_k`` batched decode iterations (``k_cap`` further bounds
+        the device steps).  Returns finished requests."""
+        t0 = self.t
+        self.t += 1  # admission/rejection stamps land on the first step
+        self.policy.on_step(self.t, self.queue, self._in_flight())
+        self._admit()
+        active = [i for i, s in enumerate(self.slots) if s is not None]
+        if not active:
+            return []
+        k = (self.decode_k if k_cap is None
+             else max(1, min(self.decode_k, k_cap)))
+        # per-row step budget: never decode past max_new_tokens or the
+        # cache-headroom stop (pos >= cache_len - 1) inside the macro-step
+        budgets = np.zeros(self.max_batch, dtype=np.int32)
+        for i in active:
+            req = self.slots[i]
+            budgets[i] = max(1, min(
+                k, req.max_new_tokens - len(req.out_tokens),
+                self.cache_len - 1 - int(self.pos[i])))
+        finished = self._macro_tail(self.slots, budgets, active,
+                                    self.cache_len, t0, k_cap=k_cap)
+        done = []
+        for i, req in finished:
+            self.slots[i] = None
+            self.policy.on_free(1, self.t)  # one slot granule returned
+            done.append(req)
+        return done
+
+    def _reset_row(self, slot: int):  # pragma: no cover - interface
+        raise NotImplementedError
 
 
 class _PagedEngine(_EngineBase):
@@ -398,17 +515,79 @@ class _PagedEngine(_EngineBase):
         return sum(1 for r in self.rows if r is not None)
 
 
+def _build_model(engine, cfg, params, seed: int, speculative,
+                 quantization) -> None:
+    """The monolithic engines' shared set-up: the model, its parameters
+    (drawn from a generator seeded with ``seed`` unless given) and their
+    projection weights packed once to ``quantization``."""
+    if speculative is not None:
+        raise NotImplementedError("speculative decoding is not ported yet")
+    engine.model = Model(cfg, qformat=quantization, device=engine.device)
+    engine.quantization = engine.model.qformat
+    if params is None:
+        gen = torch.Generator(device=engine.device).manual_seed(seed)
+        params = engine.model.init(gen)
+    engine.params = quantize_params(params, engine.quantization)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class ServingEngine(_SlotEngine):
+    """The slot engine over the port's model with dense caches
+    (``Model.decode_steps(paged=None)`` / ``Model.prefill_chunk``).
+
+    ``params`` are the model's parameters (``bridge.params_from_numpy``
+    for the reference's weights); without them the model draws its own
+    from a :class:`torch.Generator` seeded with ``seed``.
+    ``quantization`` ("int8" / "int4"; None or "bf16" for none) packs
+    the projection weights once here.  ``device`` defaults to ``"cuda"``
+    and raises without a card; ``device="cpu"`` runs the kernels' plain
+    versions.
+    """
+
+    def __init__(self, cfg, params=None, *, max_batch: int = 4,
+                 cache_len: int = 128, seed: int = 0,
+                 prefill_chunk: int = 16, decode_steps: int = 1,
+                 policy=None, speculative=None, quantization=None,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        super().__init__(cfg, max_batch=max_batch, cache_len=cache_len,
+                         prefill_chunk=prefill_chunk,
+                         decode_steps=decode_steps, policy=policy)
+        _build_model(self, cfg, params, seed, speculative, quantization)
+        self.caches = self.model.init_cache(max_batch, cache_len)
+
+    def _reset_row(self, slot: int):
+        reset_cache_row(self.caches, slot)
+
+    def _prefill_row(self, slot: int, toks: np.ndarray, pos0: int):
+        self.model.prefill_chunk(self.params, self.caches,
+                                 _to_device(toks[None], self.device), pos0,
+                                 slot)
+
+    def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
+                       budgets: np.ndarray, k: int) -> np.ndarray:
+        batch = {"token": _to_device(tokens, self.device),
+                 "pos": _to_device(pos, self.device),
+                 "budget": _to_device(budgets, self.device)}
+        toks, _ = self.model.decode_steps(self.params, self.caches, batch,
+                                          k=k)
+        # reprolint: disable-next=host-sync -- the ONE deliberate sync
+        # per macro-step (counted in n_host_syncs; <= 1/K per token)
+        return np.asarray(toks.cpu())
+
+
 class PagedServingEngine(_PagedEngine):
     """The continuous scheduler over the port's paged model
     (``Model.decode_steps`` / ``Model.paged_prefill_chunk``).  Block
     tables reach the device through ``PagedCache.meta``'s versioned
-    snapshot, re-uploaded only when the ledger changed.
+    snapshot, re-uploaded only when the ledger changed.  Greedy streams
+    equal :class:`ServingEngine`'s at equal ``max_len`` / ``cache_len``.
 
-    ``params`` are the model's parameters (``bridge.params_from_numpy``
-    for the reference's weights); without them the model draws its own
-    from a :class:`torch.Generator` seeded with ``seed``.  ``device``
-    defaults to ``"cuda"`` and raises without a card; ``device="cpu"``
-    runs the kernels' plain versions.
+    ``params``, ``seed``, ``quantization`` and ``device`` as for
+    :class:`ServingEngine`.
     """
 
     def __init__(self, cfg, params=None, *, max_rows: int = 8,
@@ -416,7 +595,8 @@ class PagedServingEngine(_PagedEngine):
                  num_blocks: Optional[int] = None, seed: int = 0,
                  prefill_chunk: int = 16, watermark_blocks: int = 0,
                  decode_steps: int = 1, policy=None,
-                 prefix_sharing: bool = True, device="cuda"):
+                 prefix_sharing: bool = True, speculative=None,
+                 quantization=None, device="cuda"):
         self.device = resolve_device(device)
         super().__init__(cfg, max_rows=max_rows, max_len=max_len,
                          block_size=block_size, num_blocks=num_blocks,
@@ -424,15 +604,8 @@ class PagedServingEngine(_PagedEngine):
                          watermark_blocks=watermark_blocks,
                          decode_steps=decode_steps, policy=policy,
                          prefix_sharing=prefix_sharing, device=self.device)
-        self.model = Model(cfg, device=self.device)
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.model.init(gen)
-        self.params = params
+        _build_model(self, cfg, params, seed, speculative, quantization)
         self.caches = self.pc.struct(self.model.dtype)
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _apply_cow(self, pairs):
         src = torch.tensor([s for s, _ in pairs], dtype=torch.long,
@@ -443,14 +616,14 @@ class PagedServingEngine(_PagedEngine):
 
     def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
         self.model.paged_prefill_chunk(
-            self.params, self.caches, self._to_device(toks[None]), pos0,
-            row, self.pc.meta(row=row))
+            self.params, self.caches, _to_device(toks[None], self.device),
+            pos0, row, self.pc.meta(row=row))
 
     def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
                        budgets: np.ndarray, k: int) -> np.ndarray:
-        batch = {"token": self._to_device(tokens),
-                 "pos": self._to_device(pos),
-                 "budget": self._to_device(budgets)}
+        batch = {"token": _to_device(tokens, self.device),
+                 "pos": _to_device(pos, self.device),
+                 "budget": _to_device(budgets, self.device)}
         toks, _ = self.model.decode_steps(self.params, self.caches, batch,
                                           self.pc.meta(), k=k)
         # reprolint: disable-next=host-sync -- the ONE deliberate sync

@@ -1,12 +1,15 @@
-"""The port's PagedServingEngine against the live JAX engine.
+"""The port's engines against the live JAX engines.
 
-Both engines run in one test, on the JAX model's weights (bridged into
-the port) and one trace: prompts that share a full-block prefix (so the
-copy-on-write prefix index maps blocks), and a pool small enough to
-force preemption by recompute.  Token streams, the ``t_admit`` /
+Both packages' engines run in one test, on the JAX model's weights
+(bridged into the port) and one trace.  For ``PagedServingEngine``:
+prompts that share a full-block prefix (so the copy-on-write prefix
+index maps blocks), and a pool small enough to force preemption by
+recompute.  For ``ServingEngine``: more requests than slots, so
+admission waits for whole slots.  Token streams, the ``t_admit`` /
 ``t_first`` / ``t_done`` stamps and the scheduler counters must be
-equal — the host-side scheduler is the reference's, and the float32
+equal — the host-side schedulers are the reference's, and the float32
 model agrees with the JAX one to 1e-4 (tests/test_torch_model.py).
+With ``quantization`` each side packs the same dense weights itself.
 The committed golden streams are not used.
 """
 import numpy as np
@@ -19,14 +22,17 @@ from _torch_ref import bridged, config_pair, jax_params  # noqa: E402
 from repro.models.kvcache import PagedCache as JPagedCache  # noqa: E402
 from repro.serving.engine import PagedServingEngine as JEngine  # noqa: E402
 from repro.serving.engine import Request as JRequest  # noqa: E402
+from repro.serving.engine import ServingEngine as JSlotEngine  # noqa: E402
 from repro_torch.models.kvcache import PagedCache as TPagedCache  # noqa: E402
 from repro_torch.serving.engine import PagedServingEngine as TEngine  # noqa: E402
+from repro_torch.serving.engine import ServingEngine as TSlotEngine  # noqa: E402
 from repro_torch.serving.engine import Request as TRequest  # noqa: E402
 from repro_torch.serving.engine import chunk_sizes  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 ENGINE_KW = dict(max_rows=4, max_len=64, block_size=8, num_blocks=14,
                  prefill_chunk=8)
+SLOT_KW = dict(max_batch=3, cache_len=64, prefill_chunk=8)
 
 
 def _trace(vocab: int):
@@ -34,6 +40,20 @@ def _trace(vocab: int):
     stem = rng.integers(1, vocab, 16).tolist()      # two full blocks
     return [stem + rng.integers(1, vocab, int(n)).tolist()
             for n in rng.integers(2, 20, 6)]
+
+
+def _drive_slots(eng, req_cls, prompts):
+    for i, p in enumerate(prompts):
+        eng.submit(req_cls(i, list(p), max_new_tokens=12))
+    done = sorted(eng.run(), key=lambda r: r.id)
+    return {"streams": [r.out_tokens for r in done],
+            "stamps": [(r.t_submit, r.t_admit, r.t_first, r.t_done)
+                       for r in done],
+            "n_host_syncs": eng.n_host_syncs,
+            "prefill_tokens": eng.prefill_tokens,
+            "tokens_generated": eng.tokens_generated,
+            "max_macro_tokens": eng.max_macro_tokens,
+            "rejected": [(r.id, r.t_done) for r in eng.rejected]}
 
 
 def _drive(eng, req_cls, prompts):
@@ -66,6 +86,78 @@ def test_engine_matches_live_jax_engine(name, k):
     # the trace really exercised preemption and prefix sharing
     assert want["n_preemptions"] > 0 and want["prefix_hits"] > 0
     assert want["used_blocks"] == 0
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name", ["mha", "gqa"])
+def test_slot_engine_matches_live_jax_engine(name, k):
+    """ServingEngine: six requests through three slots, one of them too
+    long for its slot (prompt + max_new_tokens > cache_len) and
+    rejected at admission, as the reference rejects it."""
+    jc, tc = config_pair(name)
+    npp = jax_params(jc, seed=2)
+    prompts = _trace(jc.vocab_size)
+    prompts[2] = prompts[2] + list(range(1, 40))    # 53+ tokens + 12 > 64
+    want = _drive_slots(JSlotEngine(jc, npp, decode_steps=k, **SLOT_KW),
+                        JRequest, prompts)
+    got = _drive_slots(TSlotEngine(tc, bridged(npp, tc), decode_steps=k,
+                                   device="cpu", **SLOT_KW), TRequest,
+                       prompts)
+    assert got == want
+    assert [rid for rid, _ in want["rejected"]] == [2]
+    assert len(want["streams"]) == 5
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("engine", ["paged", "slot"])
+def test_quantized_engines_match_live_jax_engines(engine, fmt):
+    """quantization= on both engines: the same dense weights go to both
+    packages, each packs its own, and streams, stamps and counters are
+    equal."""
+    jc, tc = config_pair("gqa")
+    npp = jax_params(jc, seed=4)
+    prompts = _trace(jc.vocab_size)
+    if engine == "paged":
+        jcls, tcls, kw, drive = JEngine, TEngine, ENGINE_KW, _drive
+    else:
+        jcls, tcls, kw, drive = JSlotEngine, TSlotEngine, SLOT_KW, \
+            _drive_slots
+    want = drive(jcls(jc, npp, decode_steps=4, quantization=fmt, **kw),
+                 JRequest, prompts)
+    eng = tcls(tc, bridged(npp, tc), decode_steps=4, quantization=fmt,
+               device="cpu", **kw)
+    assert eng.quantization == fmt
+    assert eng.params["blocks"]["segments"][0]["mlp"]["w_up"]["q"].dtype == (
+        torch.int8 if fmt == "int8" else torch.uint8)
+    assert drive(eng, TRequest, prompts) == want
+
+
+@pytest.mark.parametrize("fmt", [None, "int8"])
+def test_dense_and_paged_streams_equal(fmt):
+    """In the port alone, as tests/test_paged.py and test_quant.py claim
+    for the reference: the slot engine and the paged engine give the
+    same greedy streams at equal cache_len / max_len."""
+    _, tc = config_pair("gqa")
+    prompts = _trace(tc.vocab_size)
+    streams = []
+    for cls, kw in ((TSlotEngine, dict(max_batch=3, cache_len=64)),
+                    (TEngine, dict(max_rows=3, max_len=64, block_size=8))):
+        eng = cls(tc, seed=7, prefill_chunk=8, decode_steps=4,
+                  quantization=fmt, device="cpu", **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(TRequest(i, list(p), max_new_tokens=12))
+        streams.append({r.id: r.out_tokens for r in eng.run()})
+    assert streams[0] == streams[1] and len(streams[0]) == len(prompts)
+
+
+def test_engines_refuse_speculation_and_unknown_formats():
+    _, tc = config_pair("mha")
+    for cls in (TSlotEngine, TEngine):
+        with pytest.raises(NotImplementedError):
+            cls(tc, device="cpu", speculative={"k": 2})
+        with pytest.raises(ValueError):
+            cls(tc, device="cpu", quantization="int3")
+        assert cls(tc, device="cpu", quantization="bf16").quantization is None
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -49,19 +49,25 @@ def test_engine_imports_without_jax():
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models.kvcache import PagedCache
+    from repro_torch.models.kvcache import PagedCache, cache_struct
     from repro_torch.models.model import Model
-    from repro_torch.serving.engine import PagedServingEngine
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("smollm-360m")
     with pytest.raises(RuntimeError, match="cuda"):
         PagedServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(cfg, quantization="int8")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cache_struct(cfg, 2, 16, torch.float32)
     with pytest.raises(RuntimeError, match="cuda"):
         Model(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         PagedCache(cfg, max_rows=2, max_len=32).struct(torch.float32)
     # asked for the CPU, the same entry point builds
     eng = PagedServingEngine(cfg, device="cpu", max_rows=2, max_len=32)
+    assert eng.caches[0]["k"].device.type == "cpu"
+    eng = ServingEngine(cfg, device="cpu", max_batch=2, cache_len=32)
     assert eng.caches[0]["k"].device.type == "cpu"
 
 

@@ -6,13 +6,16 @@ tests/test_kernels.py runs them), on the same numpy inputs.  Tolerance:
 test_kernels.py's float32 bound, 2e-5 (sums run in another order).
 
 The ``cuda``-marked tests hold each CUDA kernel against its plain
-version on the card; they skip without a card.  float32: 2e-5.
-bfloat16: both sides compute in f32 from the same bf16 inputs and round
-once at the end, so an element may differ by one bf16 rounding step of
-its own value (at most 2**-7 of it).  Each element must lie within two
-such steps (2**-6 * |plain| + 1e-5 for values near zero), and the
-largest difference within 2e-2.  A lost key tile or a wrong lane moves
-an output by a sizeable share of its value and fails the first bound.
+version on the card; they skip without a card.  float32: 2e-5, except
+the quant matmuls at 1e-4: their sums run over K up to 2560 in another
+order than the plain version's K-chunked one, and an output of unit
+size then differs by a few 1e-6 per thousand terms.  bfloat16: both
+sides compute in f32 from the same bf16 inputs and round once at the
+end, so an element may differ by one bf16 rounding step of its own
+value (at most 2**-7 of it).  Each element must lie within two such
+steps (2**-6 * |plain| + 1e-5 for values near zero), and the largest
+difference within 2e-2.  A lost key tile or a wrong lane moves an
+output by a sizeable share of its value and fails the first bound.
 """
 from types import SimpleNamespace
 
@@ -23,13 +26,19 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    dense_decode_attention, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     paged_prefill_attention, paged_prefill_attention_plain)
+from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
+    quant_matmul_int8_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.models.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 TOL = 2e-5                                   # float32, as test_kernels.py
 CARD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+QMM_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sums over K <= 2560
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5        # two bf16 rounding steps
 
 
@@ -40,7 +49,8 @@ def J():
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels import ref
-    from repro.kernels.decode_attention import paged_decode_attention_pallas
+    from repro.kernels.decode_attention import (decode_attention_pallas,
+                                                paged_decode_attention_pallas)
     from repro.kernels.flash_attention import flash_attention_pallas
     from repro.kernels.rmsnorm import rmsnorm_pallas
     from repro.models import attention
@@ -48,6 +58,7 @@ def J():
         jax=jax, jnp=jnp, ref=ref, attention=attention,
         rmsnorm_pallas=rmsnorm_pallas,
         paged_decode_attention_pallas=paged_decode_attention_pallas,
+        decode_attention_pallas=decode_attention_pallas,
         flash_attention_pallas=flash_attention_pallas)
 
 
@@ -69,10 +80,10 @@ def _err(a, b) -> float:
                                - np.asarray(b, np.float32))))
 
 
-def _card_close(got, want, dtype) -> None:
+def _card_close(got, want, dtype, tol=CARD_TOL) -> None:
     """``got`` (kernel) against ``want`` (plain), both on the card."""
     got, want = got.float().cpu(), want.float().cpu()
-    assert _err(got, want) <= CARD_TOL[dtype]
+    assert _err(got, want) <= tol[dtype]
     if dtype == "bfloat16":
         diff = (got - want).abs()
         worst = (diff - BF16_RTOL * want.abs()).max().item()
@@ -148,6 +159,52 @@ def test_paged_decode_plain_masked_row_reads_scratch_only():
     vp2[1:] = 0.0
     b = paged_decode_attention_plain(t(q), t(kp2), t(vp2), t(tables), t(pos))
     assert torch.equal(a[1], b[1])
+
+
+# ----------------------------------------------------------------------
+# dense decode
+# ----------------------------------------------------------------------
+def _dense_inputs(rng, b, h, kv, s, d):
+    """q (B,H,D), caches in the model layout (B,S,KV,D), positions with
+    a row at 0, one at S - 1 and one frozen past the cache (a row whose
+    budget ran out keeps its last pos; every slot is then valid)."""
+    q = rng.standard_normal((b, h, d), dtype=np.float32)
+    kc = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    vc = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    pos = rng.integers(0, s, size=b).astype(np.int32)
+    pos[0], pos[1], pos[-1] = 0, s - 1, s + 5
+    return q, kc, vc, pos
+
+
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (4, 6, 2, 24, 32),        # GQA
+    (3, 15, 5, 80, 64),       # smollm-360m's heads, S past one tile
+])
+def test_dense_decode_plain_matches_jax(J, b, h, kv, s, d):
+    rng = np.random.default_rng(14)
+    q, kc, vc, pos = _dense_inputs(rng, b, h, kv, s, d)
+    got = dense_decode_attention_plain(t(q), t(kc), t(vc), t(pos)).numpy()
+    # the JAX kernel and oracle take (B, KV, S, D): transpose there only
+    kj = J.jnp.asarray(np.transpose(kc, (0, 2, 1, 3)))
+    vj = J.jnp.asarray(np.transpose(vc, (0, 2, 1, 3)))
+    args = (J.jnp.asarray(q), kj, vj, J.jnp.asarray(pos))
+    assert _err(got, J.ref.decode_attention_ref(*args)) < TOL
+    assert _err(got, J.decode_attention_pallas(
+        *args, block_s=8, interpret=True)) < TOL
+    assert torch.equal(dense_decode_attention(t(q), t(kc), t(vc), t(pos)),
+                       t(got))
+
+
+def test_dense_decode_plain_is_paged_on_one_block_per_row():
+    """A dense cache is a paged pool of one S-slot block per row: the
+    plain versions agree exactly there, as the kernels' shared body
+    makes the CUDA kernels agree."""
+    rng = np.random.default_rng(15)
+    q, kc, vc, pos = _dense_inputs(rng, 3, 6, 2, 40, 32)
+    tables = np.arange(3, dtype=np.int32)[:, None]
+    assert torch.equal(
+        dense_decode_attention_plain(t(q), t(kc), t(vc), t(pos)),
+        paged_decode_attention_plain(t(q), t(kc), t(vc), t(tables), t(pos)))
 
 
 # ----------------------------------------------------------------------
@@ -234,6 +291,19 @@ def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
         paged_prefill_attention(q[0], pool, pool,
                                 torch.empty((2,), dtype=torch.int32,
                                             device="meta"), 0)
+    with pytest.raises(ValueError):
+        dense_decode_attention(q, pool[:1], pool[:1],
+                               torch.empty((1,), dtype=torch.int32,
+                                           device="meta"))
+    xm = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError):
+        quant_matmul_int8(xm, torch.empty((8, 4), dtype=torch.int8,
+                                          device="meta"),
+                          torch.empty((1, 4), device="meta"))
+    with pytest.raises(ValueError):
+        quant_matmul_int4(xm, torch.empty((4, 4), dtype=torch.uint8,
+                                          device="meta"),
+                          torch.empty((1, 4), device="meta"))
 
 
 # ----------------------------------------------------------------------
@@ -290,3 +360,53 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
         t(table).to(cuda_device)]
     _card_close(paged_prefill_attention(*args, pos),
                 paged_prefill_attention_plain(*args, pos), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (8, 15, 5, 1024, 64),     # smollm-360m's slot engine
+    (4, 6, 2, 24, 32),
+    (2, 16, 2, 100, 128),     # G = 8, hd 128: over 48 KB of shared memory
+])
+def test_cuda_dense_decode_matches_plain(cuda_device, dtype, b, h, kv, s, d):
+    rng = np.random.default_rng(11)
+    q, kc, vc, pos = _dense_inputs(rng, b, h, kv, s, d)
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (q, kc, vc)] + [
+        t(pos).to(cuda_device)]
+    n0 = _build.launches["dense_decode_attention"]
+    got = dense_decode_attention(*args)
+    assert _build.launches["dense_decode_attention"] == n0 + 1
+    _card_close(got, dense_decode_attention_plain(*args), dtype)
+    # the same rows as one-block paged rows: the shared body gives the
+    # same bits
+    tables = torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None]
+    assert torch.equal(got, paged_decode_attention(
+        args[0], args[1], args[2], tables, args[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", [
+    (8, 960, 960), (8, 960, 320), (8, 960, 2560), (8, 2560, 960),
+    (128, 960, 2560), (128, 2560, 960),      # smollm-360m's sites
+    (3, 96, 48), (5, 128, 300), (1, 66, 7),  # group 32, odd N, group 2
+])
+def test_cuda_quant_matmul_matches_plain(cuda_device, dtype, fmt, m, k, n):
+    rng = np.random.default_rng(12)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda_device, getattr(torch, dtype))
+    kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
+                     if fmt == "int8" else
+                     (quant_matmul_int4, quant_matmul_int4_plain))
+    name = f"quant_matmul_{fmt}"
+    n0 = _build.launches[name]
+    got = kernel(x, q, s)
+    assert _build.launches[name] == n0 + 1
+    assert got.shape == (m, n) and got.dtype == x.dtype
+    _card_close(got, plain(x, q, s), dtype, QMM_CARD_TOL)

@@ -195,3 +195,152 @@ def test_decode_steps_tokens_with_masked_rows(setup):
     assert (tt[2] == -1).all() and (tt[1, 2:] == -1).all()
     # every block but the shared scratch block 0 holds the same KV
     assert _err(caches[0]["k"][:, 1:], jcaches[0]["k"][:, 1:]) < ATTN_TOL
+
+
+# ----------------------------------------------------------------------
+# dense slot caches (the ServingEngine's path)
+# ----------------------------------------------------------------------
+S_DENSE = 40                  # dense cache length
+
+
+def _dense_caches(rng, cfg, n_layers, b):
+    shape = (n_layers, b, S_DENSE, cfg.n_kv_heads, cfg.head_dim)
+    return (rng.standard_normal(shape, dtype=np.float32),
+            rng.standard_normal(shape, dtype=np.float32))
+
+
+def test_dense_decode_self_attention(setup):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(21)
+    b = 4
+    kc, vc = _dense_caches(rng, jc, 1, b)
+    kc, vc = kc[0], vc[0]
+    pos = np.array([0, 9, S_DENSE - 1, S_DENSE + 3], np.int32)  # last: frozen
+    x = rng.standard_normal((b, 1, jc.d_model), dtype=np.float32)
+    jp = {k: jnp.asarray(v) for k, v in
+          _layer0(npp["blocks"]["segments"][0]["attn"]).items()}
+    jout, jkv = jattn.decode_self_attention(
+        jp, jnp.asarray(x), {"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        jnp.asarray(pos), jc, "attn")
+    cache = {"k": t(kc.copy()), "v": t(vc.copy())}
+    tout, _ = tattn.decode_self_attention(
+        _layer0(tp["blocks"]["segments"][0]["attn"]), t(x), cache, t(pos),
+        tc, "attn")
+    assert _err(tout, jout) < ATTN_TOL
+    assert _err(cache["k"], jkv["k"]) < ATTN_TOL     # the in-place write
+    assert _err(cache["v"], jkv["v"]) < ATTN_TOL
+
+
+@pytest.mark.parametrize("pos0", [0, 11])
+def test_dense_chunk_self_attention(setup, pos0):
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(22 + pos0)
+    c = 9
+    kc, vc = _dense_caches(rng, jc, 1, 1)
+    kc, vc = kc[0], vc[0]
+    x = rng.standard_normal((1, c, jc.d_model), dtype=np.float32)
+    jp = {k: jnp.asarray(v) for k, v in
+          _layer0(npp["blocks"]["segments"][0]["attn"]).items()}
+    jout, jkv = jattn.chunk_self_attention(
+        jp, jnp.asarray(x), {"k": jnp.asarray(kc), "v": jnp.asarray(vc)},
+        jnp.asarray([pos0], jnp.int32), jc, "attn")
+    cache = {"k": t(kc.copy()), "v": t(vc.copy())}
+    tout, _ = tattn.chunk_self_attention(
+        _layer0(tp["blocks"]["segments"][0]["attn"]), t(x), cache, pos0, tc,
+        "attn")
+    assert _err(tout, jout) < ATTN_TOL
+    assert _err(cache["k"], jkv["k"]) < ATTN_TOL
+    assert _err(cache["v"], jkv["v"]) < ATTN_TOL
+
+
+@pytest.mark.parametrize("pos0", [0, 11])
+def test_dense_prefill_chunk_touches_one_row(setup, pos0):
+    """``Model.prefill_chunk`` against the reference's: the hidden state
+    and the slot's cache row agree, and every other row is bit-equal to
+    what it was (the reference's ``row_isolated``)."""
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(23 + pos0)
+    b, slot, c = 3, 1, 13
+    kc, vc = _dense_caches(rng, jc, jc.n_layers, b)
+    toks = rng.integers(0, jc.vocab_size, (1, c)).astype(np.int32)
+    jh, jcaches = build_model(jc).prefill_chunk(
+        npp, [{"k": jnp.asarray(kc), "v": jnp.asarray(vc)}],
+        jnp.asarray(toks), jnp.int32(pos0), jnp.int32(slot))
+    caches = [{"k": t(kc.copy()), "v": t(vc.copy())}]
+    th, out = Model(tc, device="cpu").prefill_chunk(tp, caches, t(toks), pos0,
+                                                    slot)
+    assert out is caches
+    assert _err(th, jh) < LOGIT_TOL
+    assert _err(caches[0]["k"], jcaches[0]["k"]) < ATTN_TOL
+    for name, a in (("k", kc), ("v", vc)):
+        others = [r for r in range(b) if r != slot]
+        assert torch.equal(caches[0][name][:, others], t(a[:, others]))
+
+
+def test_dense_decode_steps_tokens_with_masked_rows(setup):
+    """K = 4 fused dense steps: row 0 runs all four, row 1 finishes after
+    two, row 2 is masked from the start (budget 0, frozen pos), row 3
+    takes one step.  Tokens (-1 past each budget) and caches agree."""
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(24)
+    b = 4
+    kc, vc = _dense_caches(rng, jc, jc.n_layers, b)
+    batch = {"token": rng.integers(0, jc.vocab_size, (b, 1)).astype(np.int32),
+             "pos": np.array([3, 17, 9, 30], np.int32),
+             "budget": np.array([4, 2, 0, 1], np.int32)}
+    jt, jcaches = build_model(jc).decode_steps(
+        npp, [{"k": jnp.asarray(kc), "v": jnp.asarray(vc)}],
+        {k: jnp.asarray(v) for k, v in batch.items()}, k=4)
+    caches = [{"k": t(kc.copy()), "v": t(vc.copy())}]
+    tt, _ = Model(tc, device="cpu").decode_steps(
+        tp, caches, {k: t(v) for k, v in batch.items()}, k=4)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    assert (tt[2] == -1).all() and (tt[1, 2:] == -1).all()
+    assert _err(caches[0]["k"], jcaches[0]["k"]) < ATTN_TOL
+    assert _err(caches[0]["v"], jcaches[0]["v"]) < ATTN_TOL
+
+
+def test_cache_struct_matches_reference(setup):
+    from repro.models.kvcache import cache_bytes as jbytes
+    from repro.models.kvcache import cache_struct as jstruct
+    from repro_torch.models.kvcache import cache_bytes, cache_struct
+    jc, tc, _, _ = setup
+    want = jstruct(jc, 3, 24, jnp.float32)
+    got = cache_struct(tc, 3, 24, torch.float32, device="cpu")
+    assert [sorted(c) for c in got] == [sorted(c) for c in want]
+    for g, w in zip(got, want):
+        for name in ("k", "v"):
+            assert tuple(g[name].shape) == w[name].shape
+            assert not g[name].any()
+    assert cache_bytes(tc, 3, 24) == jbytes(jc, 3, 24)
+
+
+# ----------------------------------------------------------------------
+# packed weights at the projection sites
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_projections_with_packed_weights(setup, fmt):
+    """``_proj_q`` and ``mlp`` on packed int8 / int4 leaves against the
+    reference's ``qdot`` sites, each side packing its own weights."""
+    from repro.models import layers as jlayers
+    from repro.models.quantize import quantize_params as jpack
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models.quantize import is_quantized, quantize_params
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((2, 5, jc.d_model), dtype=np.float32)
+    jseg = jpack(jax.tree_util.tree_map(jnp.asarray,
+                                        npp["blocks"]["segments"][0]), fmt)
+    tseg = quantize_params(tp["blocks"]["segments"][0], fmt)
+    assert is_quantized(tseg["attn"]["wq"]) and is_quantized(
+        tseg["mlp"]["w_down"])
+    jl = jax.tree_util.tree_map(lambda a: a[0], jseg)
+    tl = {g: {k: ({"q": v["q"][0], "s": v["s"][0]} if is_quantized(v)
+                  else v[0]) for k, v in d.items()}
+          for g, d in tseg.items()}
+    jq_ = jattn._proj_q(jl["attn"], jnp.asarray(x), jc)
+    tq_ = tattn._proj_q(tl["attn"], t(x), tc)
+    assert tq_.shape == jq_.shape
+    assert _err(tq_, jq_) < LOGIT_TOL
+    assert _err(tlayers.mlp(tl["mlp"], t(x)),
+                jlayers.mlp(jl["mlp"], jnp.asarray(x))) < LOGIT_TOL
