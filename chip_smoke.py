@@ -13,19 +13,23 @@ one JSON line:
 2. ``build``   — compile and load the kernel library, with its seconds;
 3. ``kernels`` — every kernel against its plain PyTorch version on the
    card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
-   the quant matmuls, whose sums over K up to 2560 run in another order)
-   and bfloat16 (2e-2, and every element within two bf16 rounding steps
-   of its own value: both sides compute in f32 and round once), with
-   the kernel's, the plain version's and one PyTorch library call's
-   device time (torch.profiler), the kernel's time per back-to-back call
+   the quant matmuls, whose sums over K up to 2560 run in another order;
+   2e-5 of max(1, |plain|) for the selective scan, whose outputs reach
+   tens, in float32 only, the dtype the model feeds it) and bfloat16
+   (2e-2, and every element within two bf16 rounding steps of its own
+   value: both sides compute in f32 and round once), with the kernel's,
+   the plain version's and one PyTorch library call's device time
+   (torch.profiler; no single PyTorch call computes the scan's
+   recurrence, so it has none), the kernel's time per back-to-back call
    (CUDA events, launch cost included), and the least time the card
    could take;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
-   and on the CPU (plain versions); each pair of streams must be equal,
-   and on the card the slot engine's streams must equal the paged
-   engine's;
+   and on the CPU (plain versions); then falcon-mamba-7b at full width,
+   2 layers, float32, through the paged and the slot engine.  Each pair
+   of streams must be equal, and on the card the slot engine's streams
+   must equal the paged engine's;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -36,10 +40,15 @@ one JSON line:
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
    the last run repeats the bf16 paged engine on the same 8 requests.
-   ``profile`` (after the bf16 and the int8 paged runs): two steady
-   decode macro-steps timed without the profiler, then the same window
-   again under torch.profiler for the device's busy time; the idle
-   share is one minus busy over the unprofiled wall time.
+   Then falcon-mamba-7b at full width and depth (64 Mamba1 layers) in
+   bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
+   through ``ServingEngine``, with the same checks (the slot run's share
+   of tokens equal to the paged run's printed).
+   ``profile`` (after the bf16 and the int8 smollm paged runs and the
+   falcon-mamba paged run): two steady decode macro-steps timed without
+   the profiler, then the same window again under torch.profiler for
+   the device's busy time; the idle share is one minus busy over the
+   unprofiled wall time.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -73,6 +82,7 @@ REPLACES = {
     "dense_decode_attention": "src/repro/kernels/decode_attention.py:76",
     "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
+    "selective_scan": "src/repro/kernels/selective_scan.py:61",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -81,13 +91,17 @@ SOURCES = {
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
     "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
+    "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
 }
 #: the serve run whose launches each kernel's line reports
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "paged_prefill_attention": "paged_bf16",
               "dense_decode_attention": "dense_bf16",
               "quant_matmul_int8": "paged_int8",
-              "quant_matmul_int4": "paged_int4"}
+              "quant_matmul_int4": "paged_int4",
+              "selective_scan": "mamba_paged_bf16"}
+#: the dtype of each kernel's main-path case in the kernels line
+MAIN_DTYPE = {"selective_scan": "float32"}
 
 
 def emit(obj) -> None:
@@ -146,30 +160,40 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
-          tol=TOL):
+          tol=TOL, relative=False, library_note=None):
+    """One kernel case: ``out`` (kernel) against ``ref`` (plain) on the
+    card, then the timings.  ``relative`` gates the error relative to
+    max(1, |ref|) instead of the absolute one."""
     import torch
     torch.cuda.synchronize()
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
+    rel = (diff / ref.float().abs().clamp(min=1.0)).max().item()
+    gated = rel if relative else err
     # bf16: how far the worst element lies beyond two rounding steps
     excess = ((diff - BF16_RTOL * ref.float().abs()).max().item()
               if dtype == "bfloat16" else None)
-    ok = (bool(np.isfinite(err)) and err <= tol[dtype]
+    ok = (bool(np.isfinite(gated)) and gated <= tol[dtype]
           and (excess is None or excess <= BF16_ATOL))
     b_ms, b_by = bound(nbytes, flops, dtype)
     case = {"kernel": name, "dtype": dtype, "shape": shape,
-            "max_abs_err": err, "tol": tol[dtype],
+            "max_abs_err": err, "max_rel_err": rel,
+            "tol": tol[dtype], "tol_on": "relative" if relative else "abs",
             "bf16_step_excess": excess, "ok": ok,
             "ms": device_ms(fn), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library) if library else None,
             "call_ms": call_ms(fn),
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "flops": flops}
+    if library_note:
+        case["library_note"] = library_note
     emit({"phase": "kernels", **case})
     if not ok:
         raise AssertionError(f"{name} {dtype} {shape}: kernel disagrees "
                              f"with its plain version (max abs err {err}, "
-                             f"limit {tol[dtype]}; bf16 step excess "
+                             f"max err relative to max(1, |plain|) {rel}, "
+                             f"limit {tol[dtype]} on the "
+                             f"{case['tol_on']} one; bf16 step excess "
                              f"{excess}, limit {BF16_ATOL})")
     return case
 
@@ -353,6 +377,64 @@ def kernel_cases(dev) -> list:
                 q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
             2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B,
             4 * H * HD * n_keys))
+    return cases + scan_cases(dev)
+
+
+def scan_cases(dev) -> list:
+    """The selective scan in float32 at falcon-mamba-7b's shapes: a decode
+    step of 8 rows and a prefill chunk of 128 steps, both with the state
+    updated in place as the model runs them, and a ragged case (DI and T
+    off the kernel's tiles, B and C as strided column slices)."""
+    import torch
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_plain)
+    rng = np.random.default_rng(SEED + 4)
+    cases = []
+    for b, t, di, ds, aliased, strided in ((8, 1, 8192, 16, True, False),
+                                           (1, 128, 8192, 16, True, False),
+                                           (2, 100, 300, 8, False, True)):
+        def f32(shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        dt = torch.nn.functional.softplus(f32((b, t, di)))
+        x, h0 = f32((b, t, di)), f32((b, di, ds))
+        bm, cm = f32((b, t, ds)), f32((b, t, ds))
+        a_neg = -f32((di, ds)).abs()
+        if strided:       # x_proj's output layout: [dt_r | B | C]
+            proj = torch.cat([f32((b, t, 5)), bm, cm], dim=-1)
+            bm, cm = proj[..., 5:5 + ds], proj[..., 5 + ds:]
+        want_y, want_h = selective_scan_plain(dt, bm, cm, x, a_neg, h0)
+        h = h0.clone()
+        got_y, got_h = selective_scan(dt, bm, cm, x, a_neg, h,
+                                      h_out=h if aliased else None)
+        if aliased and got_h is not h:
+            raise AssertionError("selective_scan: h_out=h0 did not update "
+                                 "the state in place")
+        hs = h.clone()    # the timed calls carry this state on, in place
+
+        def kernel(hs=hs, args=(dt, bm, cm, x, a_neg)):
+            return selective_scan(*args, hs, h_out=hs if aliased else None)
+
+        def plain(hs=hs, args=(dt, bm, cm, x, a_neg)):
+            return selective_scan_plain(*args, hs,
+                                        h_out=hs if aliased else None)
+        cases.append(_case(
+            "selective_scan", "float32",
+            {"B": b, "T": t, "DI": di, "DS": ds, "h_in_place": aliased,
+             "strided_bc": strided},
+            torch.cat([got_y.flatten(), got_h.flatten()]),
+            torch.cat([want_y.flatten(), want_h.flatten()]),
+            kernel, plain, None,
+            # dt, x, y once per (b, t, d); B, C per (b, t); A once; h read
+            # and written
+            4 * (3 * b * t * di + 2 * b * t * ds + di * ds + 2 * b * di * ds),
+            # per (b, t, d): dt*x, then per state element a multiply, an
+            # exp, three more multiplies and two adds (an exp counted as
+            # one f32 operation)
+            b * t * di * (1 + 7 * ds),
+            relative=True,
+            library_note="none: no single PyTorch call computes the "
+                         "recurrence"))
     return cases
 
 
@@ -412,34 +494,24 @@ def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
     return None
 
 
-def parity(dev) -> dict:
-    """One trace through both engines, unquantized and quantized, on the
-    card and on the CPU, from the same f32 weights (each engine packs its
-    own)."""
+def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
+    """One trace through each (engine, format) of ``runs`` on the card and
+    on the CPU, from the same f32 weights (each engine packs its own)."""
     import torch
-    from repro_torch.config import uniform
-    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             ServingEngine)
-    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
-                              block_pattern=uniform("attn", 2),
-                              dtype="float32")
     cpu = torch.device("cpu")
     params_cpu = Model(cfg, device=cpu).init(
         torch.Generator().manual_seed(SEED))
     params_gpu = _to(params_cpu, dev)
-    prompts = _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
-                     cfg.vocab_size)
     engines = {
         "paged": lambda p, d, fmt: PagedServingEngine(
-            cfg, p, max_rows=4, max_len=256, block_size=16,
+            cfg, p, max_rows=4, max_len=max_len, block_size=16,
             prefill_chunk=128, decode_steps=4, quantization=fmt, device=d),
         "slot": lambda p, d, fmt: ServingEngine(
-            cfg, p, max_batch=4, cache_len=256, prefill_chunk=128,
+            cfg, p, max_batch=4, cache_len=max_len, prefill_chunk=128,
             decode_steps=4, quantization=fmt, device=d)}
-    runs = (("paged", None), ("paged", "int8"), ("paged", "int4"),
-            ("slot", None), ("slot", "int8"))
     streams, results = {}, []
     t0 = time.perf_counter()
     for engine, fmt in runs:
@@ -458,8 +530,9 @@ def parity(dev) -> dict:
                 cfg, params_cpu, fmt, prompts, got, ref)
         results.append(run)
     slot_is_paged = {str(fmt): streams["slot", fmt, "cuda"]
-                     == streams["paged", fmt, "cuda"] for fmt in (None, "int8")}
-    res = {"phase": "parity", "config": "smollm-360m, 2 layers, float32",
+                     == streams["paged", fmt, "cuda"]
+                     for engine, fmt in runs if engine == "slot"}
+    res = {"phase": "parity", "config": label,
            "requests": len(prompts), "runs": results,
            "card_slot_equals_paged": slot_is_paged,
            "equal": all(r["equal"] for r in results)
@@ -467,9 +540,37 @@ def parity(dev) -> dict:
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not res["equal"]:
-        raise AssertionError("token streams differ: card against CPU, or "
-                             "slot against paged engine on the card")
+        raise AssertionError(f"{label}: token streams differ: card against "
+                             f"CPU, or slot against paged engine on the "
+                             f"card")
     return res
+
+
+def parity(dev) -> list:
+    """smollm-360m through both engines, unquantized and quantized, then
+    falcon-mamba-7b through both engines, each at full width and 2
+    layers in float32, on the card and on the CPU."""
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
+    smollm = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
+                                 block_pattern=uniform("attn", 2),
+                                 dtype="float32")
+    mamba = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2,
+                                block_pattern=uniform("mamba1", 2),
+                                dtype="float32")
+    return [
+        _parity_config(
+            dev, smollm, "smollm-360m, 2 layers, float32",
+            (("paged", None), ("paged", "int8"), ("paged", "int4"),
+             ("slot", None), ("slot", "int8")),
+            _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
+                   smollm.vocab_size), 256),
+        # prompts of at most 64 tokens keep the CPU's side short
+        _parity_config(
+            dev, mamba, "falcon-mamba-7b, 2 layers, float32",
+            (("paged", None), ("slot", None)),
+            _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
+                   mamba.vocab_size), 128)]
 
 
 def _timed(base):
@@ -516,19 +617,44 @@ def projection_bytes(params) -> int:
     return total
 
 
-def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64) -> tuple:
+def expected_launches(cfg, slot: bool, qformat, iters: int,
+                      chunks: int, names) -> dict:
+    """Kernel launches a run of ``iters`` decode iterations and ``chunks``
+    prefill chunks implies: per attn layer two rmsnorms (one without an
+    MLP), one decode or prefill attention and, packed, 7 quant matmuls
+    (4 attention, 3 MLP); per Mamba1 layer one rmsnorm and one scan; one
+    final rmsnorm per decode iteration."""
+    n_attn = cfg.block_pattern.count("attn")
+    n_mamba = cfg.block_pattern.count("mamba1")
+    n_mlp = n_attn if cfg.mlp_kind != "none" else 0
+    expect = dict.fromkeys(names, 0)
+    norms = n_attn + n_mamba + n_mlp
+    expect["rmsnorm"] = (norms + 1) * iters + norms * chunks
+    expect["paged_prefill_attention"] = n_attn * chunks
+    expect["dense_decode_attention" if slot
+           else "paged_decode_attention"] = n_attn * iters
+    expect["selective_scan"] = n_mamba * (iters + chunks)
+    if qformat:
+        expect[f"quant_matmul_{qformat}"] = (4 * n_attn + 3 * n_mlp) * (
+            iters + chunks)
+    return expect
+
+
+def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
+              params=None) -> tuple:
     """One serve run at full width and depth: a warm-up engine (cuBLAS
     handles, allocator pools; its launches are not counted), then the
-    measured engine on the same parameters.  Launch counts are reset
-    just before the run and read just after, and must equal what the
-    run's decode iterations and prefill chunks imply.  ``ref``: the bf16
-    paged run's streams, for the share of equal tokens."""
+    measured engine on the same parameters (``params``, or the warm-up
+    engine's own draw).  Launch counts are reset just before the run and
+    read just after, and must equal what the run's decode iterations and
+    prefill chunks imply.  ``ref``: a reference run's streams on the same
+    requests, for the share of equal tokens."""
     import gc
     import torch
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import Request, ServingEngine
     timed_cls = _timed(cls)
-    warm = timed_cls(cfg, **kw)
+    warm = timed_cls(cfg, params, **kw)
     warm.submit(Request(-1, list(range(1, 40)), max_new_tokens=4))
     warm.run()
     eng = timed_cls(cfg, warm.params, **kw)
@@ -545,20 +671,13 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
-    n_layers, iters, chunks = cfg.n_layers, eng.decode_iters, eng.prefill_calls
-    slot = issubclass(cls, ServingEngine)
-    expect = dict.fromkeys(launches, 0)
-    expect["rmsnorm"] = (2 * n_layers + 1) * iters + 2 * n_layers * chunks
-    expect["paged_prefill_attention"] = n_layers * chunks
-    expect["dense_decode_attention" if slot
-           else "paged_decode_attention"] = n_layers * iters
-    if eng.quantization:
-        expect[f"quant_matmul_{eng.quantization}"] = 7 * n_layers * (
-            iters + chunks)
+    iters, chunks = eng.decode_iters, eng.prefill_calls
+    expect = expected_launches(cfg, issubclass(cls, ServingEngine),
+                               eng.quantization, iters, chunks, launches)
     streams = {r.id: r.out_tokens for r in done}
     res = {"phase": "serve", "run": name,
            "engine": cls.__name__, "quantization": eng.quantization,
-           "config": f"smollm-360m, {n_layers} layers, bfloat16",
+           "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}",
            "requests": len(prompts), "finished": len(done),
            "prompt_tokens": sum(len(p) for p in prompts),
            "prefill_tokens": eng.prefill_tokens,
@@ -596,9 +715,10 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64) -> tuple:
 
 
 def serve(dev) -> dict:
-    """The bf16 paged run of 16 requests and its decode profile, then the
-    slot engine and the int8 / int4 paged engine on its first 8 requests.
-    Returns each run's launch counts."""
+    """smollm-360m: the bf16 paged run of 16 requests and its decode
+    profile, then the slot engine and the int8 / int4 paged engine on its
+    first 8 requests; then falcon-mamba-7b (``serve_mamba``).  Returns
+    each run's launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -631,6 +751,41 @@ def serve(dev) -> dict:
         if name == "paged_int8":
             profile_decode(cfg, eng.params, run_kw, dev, label=name)
         del eng
+    del res, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_mamba(dev))
+    return launches
+
+
+def serve_mamba(dev) -> dict:
+    """falcon-mamba-7b at full width and depth (64 Mamba1 layers, about
+    14.5 GB of bf16 weights drawn from the seed): 8 requests through
+    ``PagedServingEngine`` and its decode profile, then the same 8
+    through ``ServingEngine`` on the same weights, with its share of
+    tokens equal to the paged run's.  Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = get_config("falcon-mamba-7b")
+    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 2), 8, 32, 512,
+                     cfg.vocab_size)
+    res, ref, eng = serve_run("mamba_paged_bf16", PagedServingEngine, cfg,
+                              kw, prompts, dev)
+    launches = {"mamba_paged_bf16": res["launches"]}
+    profile_decode(cfg, eng.params, kw, dev, label="mamba_paged_bf16")
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "mamba_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=1024, prefill_chunk=128, decode_steps=16,
+             seed=SEED, device=dev), prompts, dev, ref=ref, params=params)
+    launches["mamba_dense_bf16"] = res["launches"]
     return launches
 
 
@@ -696,21 +851,24 @@ def profile_decode(cfg, params, kw, dev, label: str) -> dict:
 
 
 def kernel_line(cases, launches_by_run) -> dict:
-    """One entry per kernel, at its main-path shape in bfloat16 (decode
-    rows for rmsnorm and the quant matmuls, pos 256 for prefill), with
-    the launches of the serve run that drives it (``LAUNCH_RUN``); every
-    case in ``cases``."""
+    """One entry per kernel, at its main-path shape in its main dtype
+    (``MAIN_DTYPE``, else bfloat16: decode rows for rmsnorm and the quant
+    matmuls, pos 256 for prefill, the decode step for the scan), with the
+    launches of the serve run that drives it (``LAUNCH_RUN``); every case
+    in ``cases``."""
     main = {"rmsnorm": lambda c: c["shape"] == [8, 960],
             "paged_decode_attention": lambda c: True,
             "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
             "dense_decode_attention": lambda c: True,
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
-            "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560]}
+            "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],
+            "selective_scan": lambda c: c["shape"]["T"] == 1}
     out = []
     for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
         c = next(c for c in mine
-                 if c["dtype"] == "bfloat16" and main[name](c))
+                 if c["dtype"] == MAIN_DTYPE.get(name, "bfloat16")
+                 and main[name](c))
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name],
                     "launches": launches_by_run[LAUNCH_RUN[name]][name],
@@ -726,7 +884,7 @@ def kernel_line(cases, launches_by_run) -> dict:
                                                  "call_ms", "plain_ms",
                                                  "library_ms",
                                                  "bound_ms", "bound_by",
-                                                 "max_abs_err")}
+                                                 "max_abs_err", "max_rel_err")}
                               for x in mine]})
     return {"kernels": out}
 

@@ -1,19 +1,24 @@
 """Carry the JAX package's parameters into the port.
 
 The reference model's parameters are a pytree: ``embed.w`` (the padded
-vocab table, also the tied head), ``blocks.segments[i]`` with
-``ln1.scale``, ``attn.{wq,wk,wv,wo}``, ``ln2.scale`` and
-``mlp.{w_gate,w_up,w_down}`` stacked ``(n_layers, ...)`` per segment
-(a one-layer segment is stored unstacked), ``blocks.shared`` (None for
-these models) and ``final_norm.scale``.  :func:`params_from_numpy`
-takes that tree as nested dicts and lists of numpy arrays (a caller
-holding JAX arrays maps ``np.asarray`` over it first) and returns the
-port's parameters: the same tree of torch tensors, in the same
-``(in, out)`` orientation, so the bridge copies and never transposes.
-Projection weights the reference packed (``quantize_params``) arrive as
-``{"q", "s"}`` dicts and stay packed: ``q`` keeps its int8 / uint8
-integers and ``s`` its f32 scales, whatever the model dtype.  It
-imports no JAX.
+vocab table, also the head when embeddings are tied), ``lm_head.w`` (an
+untied head of the same layout), ``blocks.segments[i]`` stacked
+``(n_layers, ...)`` per segment (a one-layer segment is stored
+unstacked) — attn blocks with ``ln1.scale``, ``attn.{wq,wk,wv,wo}``,
+``ln2.scale`` and ``mlp.{w_gate,w_up,w_down}``, Mamba1 blocks with
+``ln1.scale`` and ``mamba.{in_proj,conv_w,conv_b,x_proj,dt_proj,
+dt_bias,A_log,D,out_proj}`` — ``blocks.shared`` (None for these
+models) and ``final_norm.scale``.  :func:`params_from_numpy` takes that
+tree as nested dicts and lists of numpy arrays (a caller holding JAX
+arrays maps ``np.asarray`` over it first) and returns the port's
+parameters: the same tree of torch tensors, in the same ``(in, out)``
+orientation, so the bridge copies and never transposes.  Float leaves
+take the model dtype, except those the reference keeps in float32
+whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``),
+which stay float32.  Projection weights the reference packed
+(``quantize_params``) arrive as ``{"q", "s"}`` dicts and stay packed:
+``q`` keeps its int8 / uint8 integers and ``s`` its f32 scales,
+whatever the model dtype.  It imports no JAX.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.quantize import is_quantized
+from repro_torch.models.ssm import F32_LEAVES
 from repro_torch.models.transformer import build_segments
 
 
@@ -38,11 +44,12 @@ def _packed_to_torch(w: dict, device) -> dict:
                 device)}
 
 
-def _map(tree, fn):
-    """Apply ``fn`` to every leaf; a packed ``{"q","s"}`` dict is one leaf."""
+def _map(tree, fn, key=None):
+    """Apply ``fn(leaf, key)`` to every leaf, ``key`` being the leaf's
+    own name; a packed ``{"q","s"}`` dict is one leaf."""
     if isinstance(tree, dict) and not is_quantized(tree):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+        return {k: _map(v, fn, k) for k, v in tree.items()}
+    return fn(tree, key)
 
 
 def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
@@ -53,15 +60,14 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
     if len(tree["blocks"]["segments"]) != len(segs):
         raise ValueError(f"{len(tree['blocks']['segments'])} segments in the "
                          f"tree, {len(segs)} in {cfg.name}")
-    if "lm_head" in tree:
-        raise NotImplementedError("untied LM heads are not ported yet")
 
-    def leaf(a):
+    def leaf(a, key=None):
         if is_quantized(a):
             return _packed_to_torch(a, device)
-        return _to_torch(a, device, dtype)
+        return _to_torch(a, device,
+                         torch.float32 if key in F32_LEAVES else dtype)
 
-    def unsqueeze(a):
+    def unsqueeze(a, key=None):
         if is_quantized(a):
             return {k: np.asarray(v)[None] for k, v in a.items()}
         return np.asarray(a)[None]
@@ -72,6 +78,9 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
         # layer dim so every segment indexes the same way
         stacked = p if seg.length > 1 else _map(p, unsqueeze)
         segments.append(_map(stacked, leaf))
-    return {"embed": {"w": leaf(tree["embed"]["w"])},
-            "blocks": {"segments": segments, "shared": None},
-            "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
+    out = {"embed": {"w": leaf(tree["embed"]["w"])},
+           "blocks": {"segments": segments, "shared": None},
+           "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
+    if "lm_head" in tree:
+        out["lm_head"] = {"w": leaf(tree["lm_head"]["w"])}
+    return out

@@ -13,7 +13,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds understood by the reference model (the port runs "attn")
+# Block kinds understood by the reference model (the port runs "attn" and
+# "mamba1")
 BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
 MLP_KINDS = ("dense", "moe", "none")
 

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
                             "dense_decode_attention": 0,
-                            "quant_matmul_int8": 0, "quant_matmul_int4": 0}
+                            "quant_matmul_int8": 0, "quant_matmul_int4": 0,
+                            "selective_scan": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -127,6 +128,7 @@ def ptxas_report() -> str:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
@@ -144,6 +146,10 @@ _SIGNATURES = {
     # x, q, s, out, M, K, N, group (int4 only), dtype, stream
     "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, B, T, DI, DS, B/C batch
+    # and time strides, stream
+    "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _L, _L, _P),
 }
 
 

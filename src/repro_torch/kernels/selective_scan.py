@@ -1,0 +1,102 @@
+"""Mamba1 selective scan: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Port of ``repro/kernels/selective_scan.py::selective_scan_pallas``: the
+recurrence ``h = exp(dt·A)·h + (dt·x)⊗B``, ``y_t = Σ_s h·C_t`` over T
+steps in float32, the reference model's ``_mamba1_scan_step`` scanned
+over a prefill chunk (``models/ssm.py::mamba1_seq``) or taken once for
+a decode step (``mamba1_step``, T = 1).  The kernel is
+``csrc/selective_scan.cu`` (one thread per (row, channel), the state in
+registers across the T steps).
+
+The state is **updated in place** when the caller passes ``h_out=h0``
+(the model hands in its cache row): the kernel reads each channel's
+state before the first step and writes it after the last.  ``b_mat``
+and ``c_mat`` may be column slices of a wider tensor (the model's
+``x_proj`` output in a float32 model): the kernel takes their batch and
+time strides and needs only a unit stride along d_state.  The wrapper
+runs the plain version for CPU tensors only; for a CUDA tensor it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_STATE = 16          # d_state the kernel keeps in registers
+
+
+def selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0,
+                         h_out: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt, x: (B,T,DI); b_mat, c_mat: (B,T,DS); a_neg: (DI,DS);
+    h0: (B,DI,DS).  Returns (y (B,T,DI), h_T (B,DI,DS) f32), stepping
+    ``_mamba1_scan_step``'s ops in its order; ``h_T`` is written into
+    ``h_out`` when given (which may be ``h0``)."""
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t, x_t = dt[:, t], x[:, t]
+        decay = torch.exp(dt_t[..., None] * a_neg[None])
+        incr = (dt_t * x_t)[..., None] * b_mat[:, t, None, :]
+        h = decay * h + incr
+        ys.append(torch.einsum("bds,bs->bd", h, c_mat[:, t]))
+    y = torch.stack(ys, dim=1) if ys else dt.new_zeros(dt.shape)
+    if h_out is None:
+        return y, h
+    h_out.copy_(h)
+    return y, h_out
+
+
+def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
+                   h_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan of ``selective_scan_plain``'s signature; on the
+    card every tensor is float32, ``dt``, ``x``, ``a_neg``, ``h0`` and
+    ``h_out`` contiguous, and d_state at most 16."""
+    if dt.device.type == "cpu":
+        return selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0, h_out)
+    bsz, t, di = dt.shape
+    ds = a_neg.shape[-1]
+    if h_out is None:
+        h_out = torch.empty_like(h0)
+    named = {"dt": dt, "b_mat": b_mat, "c_mat": c_mat, "x": x,
+             "a_neg": a_neg, "h0": h0, "h_out": h_out}
+    if dt.device.type != "cuda" or any(v.device != dt.device
+                                       for v in named.values()):
+        raise ValueError(f"selective_scan: tensors on "
+                         f"{sorted({str(v.device) for v in named.values()})};"
+                         f" the kernel needs them on one CUDA device")
+    if any(v.dtype != torch.float32 for v in named.values()):
+        raise ValueError(f"selective_scan: the kernel takes float32, got "
+                         f"{ {k: str(v.dtype) for k, v in named.items()} }")
+    if (x.shape != dt.shape or b_mat.shape != (bsz, t, ds)
+            or c_mat.shape != b_mat.shape or a_neg.shape != (di, ds)
+            or h0.shape != (bsz, di, ds) or h_out.shape != h0.shape):
+        raise ValueError(f"selective_scan: shapes "
+                         f"{ {k: tuple(v.shape) for k, v in named.items()} }"
+                         f" do not fit dt (B, T, DI) = {(bsz, t, di)}, "
+                         f"d_state {ds}")
+    if not 1 <= ds <= MAX_STATE:
+        raise ValueError(f"selective_scan: d_state {ds} outside "
+                         f"1..{MAX_STATE}")
+    if not all(v.is_contiguous() for v in (dt, x, a_neg, h0, h_out)):
+        raise ValueError("selective_scan: dt, x, a_neg, h0 and h_out must "
+                         "be contiguous")
+    if (b_mat.stride() != c_mat.stride()
+            or (ds > 1 and b_mat.stride(2) != 1)):
+        raise ValueError(f"selective_scan: b_mat / c_mat strides "
+                         f"{b_mat.stride()} / {c_mat.stride()}; the kernel "
+                         f"needs equal strides and a unit d_state stride")
+    y = torch.empty_like(dt)
+    lib = _build.library()
+    _build.launches["selective_scan"] += 1
+    _build.check(lib.rt_selective_scan(
+        dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), x.data_ptr(),
+        a_neg.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+        bsz, t, di, ds, b_mat.stride(0), b_mat.stride(1),
+        torch.cuda.current_stream(dt.device).cuda_stream), "selective_scan")
+    return y, h_out

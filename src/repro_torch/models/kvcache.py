@@ -1,21 +1,25 @@
-"""KV caches: dense slot caches, and the paged block ledger with its
-torch pools.
+"""KV caches and SSM state: dense slot caches, and the paged block
+ledger with its torch pools.
 
-Port of ``repro/models/kvcache.py`` for the attn-only decoders the port
-runs.  :func:`cache_struct` builds the slot engines' dense caches
-``(n_layers, batch, seq_len, kv_heads, hd)`` per segment.  The
-host-side ledger :class:`PagedCache` is the reference's attn group
-(free list, refcounts, the copy-on-write prefix index, ``check()``, and
-the versioned ``meta()`` snapshot, which here returns int32 tensors on
-the ledger's device).  The reference's SWA
-ring, cross-KV blocks and SSM state rows are per-request state of block
-kinds the port does not run yet; they join with those families.
-:meth:`PagedCache.struct` builds torch pools
-``(n_layers, num_blocks + 1, block_size, kv_heads, hd)`` per segment.
+Port of ``repro/models/kvcache.py`` for the block kinds the port runs
+(``attn`` and ``mamba1``).  :func:`cache_struct` builds the slot
+engines' dense caches per segment: ``{"k","v"}`` of ``(n_layers, batch,
+seq_len, kv_heads, hd)`` for attn, ``{"h","conv"}`` of ``(n_layers,
+batch, d_inner, d_state)`` f32 and ``(n_layers, batch, W-1, d_inner)``
+for Mamba1.  The host-side ledger :class:`PagedCache` is the
+reference's attn group (free list, refcounts, the copy-on-write prefix
+index, ``check()``, and the versioned ``meta()`` snapshot, which here
+returns int32 tensors on the ledger's device).  The reference's SWA
+ring and cross-KV blocks are per-request state of block kinds the port
+does not run yet; they join with those families.
+:meth:`PagedCache.struct` builds torch pools ``(n_layers, num_blocks +
+1, block_size, kv_heads, hd)`` per attn segment and ``max_rows`` state
+rows per Mamba1 segment.
 
-Caches and pools are **updated in place** — by the model's KV writes,
-by :func:`paged_copy_blocks` and by the slot engine's row reset — which
-replaces the reference's functional updates under buffer donation.
+Caches and pools are **updated in place** — by the model's KV and
+state writes, by :func:`paged_copy_blocks`, :func:`paged_reset_row` and
+the slot engine's row reset — which replaces the reference's functional
+updates under buffer donation.
 
 Cache layout invariants (as in the reference):
 
@@ -24,11 +28,14 @@ Cache layout invariants (as in the reference):
   entries of unallocated logical blocks point at scratch, and every
   read through them is masked by position;
 * stale attn KV needs no zeroing on block reuse — attention masks
-  slots above ``pos``;
+  slots above ``pos``; SSM state rows carry no position, so a row is
+  zeroed when a request is admitted to it (:func:`paged_reset_row`);
 * attn-pool blocks may be **shared** between requests under
   copy-on-write prefix sharing: a block's content is a pure function of
   the token-id prefix it caches, a per-block refcount tracks its owners,
-  and any write to a block with refcount > 1 first copies it.
+  and any write to a block with refcount > 1 first copies it.  Sharing
+  is gated off for SSM models, whose per-request state a skipped
+  prefill would not rebuild.
 """
 from __future__ import annotations
 
@@ -42,25 +49,41 @@ from repro_torch.device import resolve_device
 from repro_torch.models.transformer import build_segments, check_supported
 
 
+def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
+    """One segment's dense cache leaves for ``rows`` rows: name ->
+    (shape, dtype).  A Mamba1 layer's ``h`` is float32 whatever the
+    model dtype."""
+    if seg.kind == "mamba1":
+        di, ds = cfg.d_inner_eff, cfg.ssm_state
+        return {"h": ((seg.length, rows, di, ds), torch.float32),
+                "conv": ((seg.length, rows, cfg.conv_width - 1, di), dtype)}
+    shape = (seg.length, rows, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
 def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda") -> list:
-    """Dense slot caches, one ``{"k","v"}`` dict per segment, leaves
-    ``(n_layers, batch, seq_len, kv_heads, hd)`` zero-filled on
-    ``device`` (the reference's ``cache_struct`` for attn segments).
-    The model writes them in place."""
+    """Dense slot caches, one dict per segment (the reference's
+    ``cache_struct``): ``{"k","v"}`` leaves ``(n_layers, batch,
+    seq_len, kv_heads, hd)`` for attn, ``{"h","conv"}`` for Mamba1
+    (``h`` in float32), zero-filled on ``device``.  The model writes
+    them in place."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [{name: torch.zeros((seg.length, batch, seq_len, cfg.n_kv_heads,
-                                cfg.head_dim), dtype=dtype, device=dev)
-             for name in ("k", "v")}
+    return [{name: torch.zeros(shape, dtype=dt, device=dev)
+             for name, (shape, dt)
+             in _leaves(cfg, seg, batch, seq_len, dtype).items()}
             for seg in build_segments(cfg)]
 
 
 def cache_bytes(cfg, batch: int, seq_len: int, bytes_per_el: int = 2) -> int:
-    """Bytes of :func:`cache_struct` at ``bytes_per_el`` per element,
-    computed from the shapes (nothing is allocated)."""
+    """Bytes of :func:`cache_struct` at ``bytes_per_el`` per element
+    (every leaf alike, as the reference counts), computed from the
+    shapes (nothing is allocated)."""
     check_supported(cfg)
-    return sum(2 * seg.length * batch * seq_len * cfg.n_kv_heads
-               * cfg.head_dim * bytes_per_el for seg in build_segments(cfg))
+    return sum(int(np.prod(shape)) * bytes_per_el
+               for seg in build_segments(cfg)
+               for shape, _ in _leaves(cfg, seg, batch, seq_len,
+                                       None).values())
 
 
 class PagedCache:
@@ -118,7 +141,11 @@ class PagedCache:
         self.watermark_blocks = watermark_blocks
         self.num_blocks = (max_rows * self.nb_logical
                            if num_blocks is None else num_blocks)
-        self.share_prefixes = bool(share_prefixes)
+        # prefix sharing: only the attn pool is content-addressed (SSM
+        # state is per-request state a skipped prefill would not rebuild)
+        self.sharing_supported = not any(
+            seg.kind == "mamba1" for seg in build_segments(cfg))
+        self.share_prefixes = bool(share_prefixes) and self.sharing_supported
         # per-block owner count; a block is free iff refcount 0
         self._ref = np.zeros(self.num_blocks + 1, np.int32)
         # token-prefix bytes -> physical block caching that full block,
@@ -148,23 +175,31 @@ class PagedCache:
 
     # -------------------------------------------------------------- pools
     def struct(self, dtype, device=None) -> list:
-        """Block-pool tensors, one ``{"k","v"}`` dict per segment.
+        """Block pools and state rows, one dict per segment.
 
-        Mirrors the reference's ``struct`` segment-for-segment: leaves
-        are ``(n_layers, num_blocks + 1, block_size, kv_heads, hd)``
-        torch tensors (+1 for the scratch block), zero-filled.  The model
-        writes them in place.  ``device`` defaults to the ledger's own
-        (``"cuda"`` unless given).
+        Mirrors the reference's ``struct`` segment-for-segment: attn
+        leaves ``{"k","v"}`` are ``(n_layers, num_blocks + 1,
+        block_size, kv_heads, hd)`` pools (+1 for the scratch block),
+        Mamba1 leaves ``{"h","conv"}`` keep ``max_rows`` state rows;
+        zero-filled torch tensors, written in place by the model.
+        ``device`` defaults to the ledger's own (``"cuda"`` unless
+        given).
         """
         cfg = self.cfg
         dev = resolve_device(self.device if device is None else device)
-        shape = (self.num_blocks + 1, self.block_size, cfg.n_kv_heads,
-                 cfg.head_dim)
-        return [{"k": torch.zeros((seg.length, *shape), dtype=dtype,
-                                  device=dev),
-                 "v": torch.zeros((seg.length, *shape), dtype=dtype,
-                                  device=dev)}
-                for seg in build_segments(cfg)]
+        pool = (self.num_blocks + 1, self.block_size, cfg.n_kv_heads,
+                cfg.head_dim)
+        caches = []
+        for seg in build_segments(cfg):
+            if seg.kind == "mamba1":
+                c = {name: torch.zeros(shape, dtype=dt, device=dev)
+                     for name, (shape, dt)
+                     in _leaves(cfg, seg, self.max_rows, 0, dtype).items()}
+            else:
+                c = {name: torch.zeros((seg.length, *pool), dtype=dtype,
+                                       device=dev) for name in ("k", "v")}
+            caches.append(c)
+        return caches
 
     # ---------------------------------------------------------- metadata
     def meta(self, row: Optional[int] = None) -> dict:
@@ -435,14 +470,27 @@ class PagedCache:
                 f"row {row} maps unheld blocks"
 
 
+def paged_reset_row(caches, segs, row: int):
+    """Zero decode row ``row``'s SSM state rows in place (the
+    reference's ``paged_reset_row``; its cross-KV blocks join with that
+    family).  Attn pools are untouched: stale KV is position-masked."""
+    for seg, c in zip(segs, caches):
+        if seg.kind == "mamba1":
+            for a in c.values():
+                a[:, row] = 0
+    return caches
+
+
 def paged_copy_blocks(caches, src, dst):
     """Apply queued copy-on-write pool copies in place.
 
     ``src``/``dst`` are equal-length int tensors of physical pool block
     ids (from :meth:`PagedCache.take_pending_copies`); each dst block
-    becomes a copy of its src block across every k/v leaf."""
+    becomes a copy of its src block across every attn k/v leaf (sharing
+    is gated off for SSM models, so their state never needs copying)."""
     for c in caches:
         for name in ("k", "v"):
-            a = c[name]
-            a[:, dst] = a[:, src]
+            if name in c:
+                a = c[name]
+                a[:, dst] = a[:, src]
     return caches

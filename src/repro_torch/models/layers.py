@@ -20,7 +20,7 @@ def _dense_init(generator: torch.Generator, shape, dtype, device,
     fan_in = shape[-2]
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=generator, device=generator.device,
-                    dtype=torch.float32) * scale
+                    dtype=torch.float32).mul_(scale)
     return w.to(device=device, dtype=dtype)
 
 
@@ -34,7 +34,8 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied head: logits over the padded vocab (``x @ w.T``)."""
+    """LM head (the tied embedding table or an untied ``lm_head`` of the
+    same layout): logits over the padded vocab (``x @ w.T``)."""
     return x @ params["w"].T
 
 

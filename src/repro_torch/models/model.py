@@ -1,8 +1,8 @@
-"""Unified model over dense or paged KV caches: embedding + segments +
-tied head.
+"""Unified model over dense or paged caches: embedding + segments +
+head (tied, or an untied ``lm_head``).
 
-Port of the serving API of ``repro/models/model.py`` for dense attention
-decoders::
+Port of the serving API of ``repro/models/model.py`` for attention
+decoders and Mamba1 models::
 
     m = Model(cfg, qformat=None, device="cuda")
     params = m.init(generator)                                  # or bridge
@@ -13,10 +13,10 @@ decoders::
     logits, caches = m.paged_decode_step(params, pools, batch, meta)
     toks, caches = m.decode_steps(params, caches, batch, meta_or_None, k=K)
 
-Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools of
-:meth:`repro_torch.models.kvcache.PagedCache.struct` with ``meta`` from
-:meth:`PagedCache.meta`; both are written **in place** (the returned
-list is the one passed in).  Parameters are nested dicts of tensors in
+Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools and
+SSM state rows of :meth:`repro_torch.models.kvcache.PagedCache.struct`
+with ``meta`` from :meth:`PagedCache.meta`; both are written **in
+place** (the returned list is the one passed in).  Parameters are nested dicts of tensors in
 the reference's pytree layout, per-layer weights stacked along a
 leading layer dim (``bridge.params_from_numpy`` builds them from the
 JAX package's parameters); ``qformat`` tags the format their projection
@@ -39,9 +39,6 @@ from repro_torch.models.quantize import normalize_format
 class Model:
     def __init__(self, cfg, *, qformat: Optional[str] = None, device="cuda"):
         tfm.check_supported(cfg)
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(f"{cfg.name}: untied LM heads are "
-                                      f"not ported yet")
         self.cfg = cfg
         # weight format tag ("int8"/"int4", None for the unquantized
         # baseline; "bf16" means None)
@@ -54,24 +51,32 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random parameters drawn from ``generator`` (normal times
         fan_in ** -0.5, norms at one, the padded embedding table at
-        d_model ** -0.5), in the reference's layout.  The draws differ
-        from ``jax.random``'s; to run the reference's weights, bridge
-        them instead."""
+        d_model ** -0.5, an untied ``lm_head`` like it), in the
+        reference's layout.  The draws differ from ``jax.random``'s; to
+        run the reference's weights, bridge them instead."""
         cfg = self.cfg
-        return {
-            "embed": {"w": _dense_init(generator,
-                                       (cfg.vocab_padded, cfg.d_model),
-                                       self.dtype, self.device,
-                                       scale=cfg.d_model ** -0.5)},
+
+        def table():
+            return {"w": _dense_init(generator,
+                                     (cfg.vocab_padded, cfg.d_model),
+                                     self.dtype, self.device,
+                                     scale=cfg.d_model ** -0.5)}
+        params = {
+            "embed": table(),
             "blocks": tfm.init_segments(generator, cfg, self.dtype,
                                         self.device),
             "final_norm": {"scale": torch.ones(cfg.d_model, dtype=self.dtype,
                                                device=self.device)},
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = table()
+        return params
 
     def _head(self, params, x):
         x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        return unembed(params["embed"], x)  # vocab dim is padded
+        head = (params["embed"] if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return unembed(head, x)  # vocab dim is padded
 
     def _run(self, params, caches, tokens, pos, paged, mode):
         x = embed(params["embed"], tokens).to(self.dtype)
@@ -93,9 +98,10 @@ class Model:
         tokens: (1, C) at absolute positions pos0..; only batch row
         ``slot`` is read and written: each layer sees a view of that row
         (``caches[...][:, slot:slot + 1]``, the reference's
-        ``row_isolated``), which the KV write updates in place, so every
-        other row stays bit-untouched.  Returns (hidden (1,C,D), caches)
-        — no LM head: admission discards prompt logits.
+        ``row_isolated``), which the KV and SSM state writes update in
+        place, so every other row stays bit-untouched.  Returns
+        (hidden (1,C,D), caches) — no LM head: admission discards prompt
+        logits.
         """
         rows = [{name: a[:, slot:slot + 1] for name, a in c.items()}
                 for c in caches]
@@ -116,12 +122,16 @@ class Model:
 
         tokens: (1, C) at absolute positions pos0..; ``paged`` holds the
         request's row-sliced block tables (``meta(row=row)``), so KV
-        writes land only in blocks the row owns (``row`` itself selects
-        nothing: attn-only models keep no per-row state).  Returns
-        (hidden (1,C,D), caches) — no LM head: admission discards prompt
-        logits.
+        writes land only in blocks the row owns.  SSM segments see row
+        ``row`` of their state (``[:, row:row + 1]`` views, the
+        reference's ``ssm_row_isolated``), written in place, so every
+        other row stays bit-untouched.  Returns (hidden (1,C,D), caches)
+        — no LM head: admission discards prompt logits.
         """
-        x = self._run(params, caches, tokens, int(pos0), paged, "chunk")
+        rows = [{name: a[:, row:row + 1] for name, a in c.items()}
+                if seg.kind == "mamba1" else c
+                for seg, c in zip(self.segments, caches)]
+        x = self._run(params, rows, tokens, int(pos0), paged, "chunk")
         return x, caches
 
     def paged_decode_step(self, params, caches, batch, paged):

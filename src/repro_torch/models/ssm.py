@@ -1,0 +1,147 @@
+"""Mamba1 blocks.
+
+Port of the Mamba1 half of ``repro/models/ssm.py`` for the serving
+modes: ``mamba1_seq`` runs a prefill chunk (resuming from a carried
+state), ``mamba1_step`` one decode step.  Both run their recurrence
+through the selective-scan kernel's wrapper
+(``kernels/selective_scan.py``); a decode step is the scan at T = 1,
+which computes exactly the reference's ``_mamba1_scan_step``.  Where
+the reference returns new states, the port writes them **in place**
+into the caller's ``h`` and ``conv`` tensors (the model's cache rows)
+and returns those.  Mamba2 is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.layers import _dense_init
+
+#: leaves the reference keeps in float32 whatever the model dtype
+F32_LEAVES = frozenset({"A_log", "D"})
+
+
+def _causal_conv(x, conv_w, conv_b, conv_state=None):
+    """Depthwise causal conv. x: (B,T,C), conv_w: (W,C) -> (B,T,C).
+    ``conv_state`` (B, W-1, C) carries the last inputs of a previous
+    chunk; None is zeros (start of sequence).  The taps are summed as
+    the reference sums them: a Python ``sum`` over W, then ``+ conv_b``."""
+    w = conv_w.shape[0]
+    if conv_state is None:
+        pad = F.pad(x, (0, 0, w - 1, 0))
+    else:
+        pad = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    out = sum(pad[:, i:i + x.shape[1], :] * conv_w[i] for i in range(w))
+    return out + conv_b
+
+
+def _conv_step(conv_state, x_t, conv_w, conv_b):
+    """conv_state: (B, W-1, C) past inputs; x_t: (B, C).  Returns
+    (out (B, C), the next state (B, W-1, C)).  ``out`` is laid out
+    row-major: on the card the einsum's batched product over C returns
+    it transposed, and the scan kernel takes x contiguous."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B,W,C)
+    out = torch.einsum("bwc,wc->bc", window, conv_w).contiguous() + conv_b
+    return out, window[:, 1:, :]
+
+
+def mamba1_init(generator, cfg, dtype, device, n: int) -> dict:
+    """``n`` stacked Mamba1 layers (the reference's ``mamba1_init`` with
+    a leading layer dim): ``A_log`` and ``D`` in float32, ``dt_bias`` at
+    -2 in the model dtype."""
+    d, di, ds = cfg.d_model, cfg.d_inner_eff, cfg.ssm_state
+    dt_rank = max(1, d // 16)
+    a_log = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                                   device=device)).expand(n, di, ds)
+    return {
+        "in_proj": _dense_init(generator, (n, d, 2 * di), dtype, device),
+        "conv_w": _dense_init(generator, (n, cfg.conv_width, di), dtype,
+                              device, scale=0.5),
+        "conv_b": torch.zeros((n, di), dtype=dtype, device=device),
+        "x_proj": _dense_init(generator, (n, di, dt_rank + 2 * ds), dtype,
+                              device),
+        "dt_proj": _dense_init(generator, (n, dt_rank, di), dtype, device),
+        "dt_bias": torch.full((n, di), -2.0, dtype=dtype, device=device),
+        "A_log": a_log.contiguous(),
+        "D": torch.ones((n, di), dtype=torch.float32, device=device),
+        "out_proj": _dense_init(generator, (n, di, d), dtype, device),
+    }
+
+
+def _mamba1_inner(params, x_c, cfg):
+    """Per-step SSM inputs from the conv output x_c (B,T,di): dt (the
+    softplus in the model dtype, then float32), B and C (float32)."""
+    ds = cfg.ssm_state
+    dt_rank = max(1, cfg.d_model // 16)
+    proj = x_c @ params["x_proj"]
+    dt_r = proj[..., :dt_rank]
+    b_mat = proj[..., dt_rank:dt_rank + ds].to(torch.float32)
+    c_mat = proj[..., dt_rank + ds:].to(torch.float32)
+    dt = F.softplus(dt_r @ params["dt_proj"]
+                    + params["dt_bias"]).to(torch.float32)
+    return dt, b_mat, c_mat
+
+
+def _gate_out(params, y, x32, z, dtype):
+    """``(y + D·x) · silu(z)`` in float32, cast to the model dtype, then
+    the output projection."""
+    y = y + params["D"] * x32
+    y = (y * F.silu(z.to(torch.float32))).to(dtype)
+    return y @ params["out_proj"]
+
+
+def mamba1_seq(params, x, cfg, h0=None, conv_state=None):
+    """A chunk. x: (B,T,D) -> (out, (h_T, conv_state_T)).
+
+    ``h0`` (B,di,ds) f32 and ``conv_state`` (B,W-1,di) resume the
+    recurrence from a previous chunk and are updated in place; None
+    means start-of-sequence zeros (fresh tensors are then returned)."""
+    b = x.shape[0]
+    di, ds = cfg.d_inner_eff, cfg.ssm_state
+    xz = x @ params["in_proj"]
+    x_i, z = torch.split(xz, di, dim=-1)
+    x_c = F.silu(_causal_conv(x_i, params["conv_w"], params["conv_b"],
+                              conv_state))
+    dt, b_mat, c_mat = _mamba1_inner(params, x_c, cfg)
+    a_neg = -torch.exp(params["A_log"])
+    x32 = x_c.to(torch.float32)
+    if h0 is None:
+        h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    y, h_t = selective_scan(dt, b_mat, c_mat, x32, a_neg, h0, h_out=h0)
+    out = _gate_out(params, y, x32, z, x.dtype)
+    return out, (h_t, _next_conv_state(x_i, conv_state, cfg))
+
+
+def _next_conv_state(x_i, conv_state, cfg):
+    """Last W-1 SSM inputs after a chunk (the carried state prepended,
+    so chunks shorter than the conv window still roll forward), written
+    into ``conv_state`` when given."""
+    w1 = cfg.conv_width - 1
+    prev = (torch.zeros((x_i.shape[0], w1, x_i.shape[-1]), dtype=x_i.dtype,
+                        device=x_i.device)
+            if conv_state is None else conv_state.to(x_i.dtype))
+    nxt = torch.cat([prev, x_i], dim=1)[:, -w1:, :]
+    if conv_state is None:
+        return nxt
+    conv_state.copy_(nxt)
+    return conv_state
+
+
+def mamba1_step(params, x, state, cfg):
+    """A decode step. x: (B,1,D); state = (h (B,di,ds) f32, conv
+    (B,W-1,di)), both updated in place.  Returns (out (B,1,D), state)."""
+    h, conv_state = state
+    di = cfg.d_inner_eff
+    xz = (x @ params["in_proj"])[:, 0]
+    x_i, z = torch.split(xz, di, dim=-1)                   # (B, di)
+    x_c, nxt = _conv_step(conv_state, x_i, params["conv_w"],
+                          params["conv_b"])
+    conv_state.copy_(nxt)
+    x_c = F.silu(x_c)[:, None, :]                          # (B, 1, di)
+    dt, b_mat, c_mat = _mamba1_inner(params, x_c, cfg)
+    a_neg = -torch.exp(params["A_log"])
+    x32 = x_c.to(torch.float32)
+    y, h = selective_scan(dt, b_mat, c_mat, x32, a_neg, h, h_out=h)
+    out = _gate_out(params, y, x32, z[:, None, :], x.dtype)
+    return out, (h, conv_state)

@@ -1,14 +1,15 @@
 """Blocks and segment stacking.
 
-Port of ``repro/models/transformer.py`` for ``attn`` blocks in the
-``decode`` and ``chunk`` modes, over paged pools (``paged`` given) or
-dense slot caches (``paged=None``).  A model is a ``block_pattern``;
-contiguous runs of one kind are *segments*, whose parameters are
-stacked along a leading layer dim as in the reference.  Where the
-reference scans a segment with ``lax.scan``, the port runs a Python
-loop over its layers, handing each layer views of its weights (packed
-quant leaves included: ``_layer`` recurses into their ``{"q","s"}``
-dicts) and of its slice of the in-place updated caches.
+Port of ``repro/models/transformer.py`` for ``attn`` and ``mamba1``
+blocks in the ``decode`` and ``chunk`` modes, over paged pools
+(``paged`` given) or dense slot caches (``paged=None``).  A model is a
+``block_pattern``; contiguous runs of one kind are *segments*, whose
+parameters are stacked along a leading layer dim as in the reference.
+Where the reference scans a segment with ``lax.scan``, the port runs a
+Python loop over its layers, handing each layer views of its weights
+(packed quant leaves included: ``_layer`` recurses into their
+``{"q","s"}`` dicts) and of its slice of the in-place updated caches
+(KV pools or rows, or a Mamba1 layer's ``h`` / ``conv`` state).
 """
 from __future__ import annotations
 
@@ -18,9 +19,11 @@ from typing import List, Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, mlp, rmsnorm
 
 MODES = ("decode", "chunk")
+KINDS = ("attn", "mamba1")          # block kinds the port runs
 
 
 @dataclass(frozen=True)
@@ -41,15 +44,19 @@ def build_segments(cfg) -> List[Segment]:
     return segs
 
 
+def _has_mlp(kind: str, cfg) -> bool:
+    return kind in ("attn", "swa", "cross") and cfg.mlp_kind != "none"
+
+
 def check_supported(cfg) -> None:
     """Raise for configurations whose blocks the port cannot run yet."""
     for seg in build_segments(cfg):
-        if seg.kind != "attn" or seg.shared:
+        if seg.kind not in KINDS or seg.shared:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {seg.kind!r}"
                 f"{' (weight-shared)' if seg.shared else ''} is not "
-                f"ported yet; the port serves attn-only decoders")
-    if cfg.mlp_kind != "dense" or cfg.is_encoder_decoder:
+                f"ported yet; the port runs {KINDS} blocks")
+    if cfg.mlp_kind not in ("dense", "none") or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: mlp {cfg.mlp_kind!r} / encoder-decoder is not "
             f"ported yet")
@@ -58,19 +65,22 @@ def check_supported(cfg) -> None:
 def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
     """``n`` stacked layers of one block kind (the reference's
     ``block_init`` vmapped over a segment)."""
-    if kind != "attn":
-        raise NotImplementedError(kind)
     d = cfg.d_model
-    return {
-        "ln1": {"scale": torch.ones((n, d), dtype=dtype, device=device)},
-        "attn": attn_mod.attention_init(generator, cfg, dtype, device, n),
-        "ln2": {"scale": torch.ones((n, d), dtype=dtype, device=device)},
-        "mlp": {
+    p = {"ln1": {"scale": torch.ones((n, d), dtype=dtype, device=device)}}
+    if kind == "attn":
+        p["attn"] = attn_mod.attention_init(generator, cfg, dtype, device, n)
+    elif kind == "mamba1":
+        p["mamba"] = ssm_mod.mamba1_init(generator, cfg, dtype, device, n)
+    else:
+        raise NotImplementedError(kind)
+    if _has_mlp(kind, cfg):
+        p["ln2"] = {"scale": torch.ones((n, d), dtype=dtype, device=device)}
+        p["mlp"] = {
             "w_gate": _dense_init(generator, (n, d, cfg.d_ff), dtype, device),
             "w_up": _dense_init(generator, (n, d, cfg.d_ff), dtype, device),
             "w_down": _dense_init(generator, (n, cfg.d_ff, d), dtype, device),
-        },
-    }
+        }
+    return p
 
 
 def init_segments(generator, cfg, dtype, device) -> dict:
@@ -83,31 +93,42 @@ def init_segments(generator, cfg, dtype, device) -> dict:
 def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
                 cache: dict, paged: Optional[dict] = None,
                 qformat: Optional[str] = None):
-    """Apply one ``attn`` block.  ``cache`` holds this layer's pools
-    (``paged`` given: the block tables) or dense cache rows
-    (``paged=None``), written in place.  ``qformat`` tags the weight
-    format the params were packed to; dispatch is structural (``qdot``
-    routes on packed leaf or tensor), so the tag only travels with the
-    call, as in the reference.  Returns x."""
+    """Apply one ``attn`` or ``mamba1`` block.  ``cache`` holds this
+    layer's pools (``paged`` given: the block tables) or dense cache
+    rows (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state
+    rows; each is written in place.  ``qformat`` tags the weight format
+    the params were packed to; dispatch is structural (``qdot`` routes
+    on packed leaf or tensor, and Mamba1 weights are never packed), so
+    the tag only travels with the call, as in the reference.  Returns
+    x."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not ported yet; "
+                         f"ported: {MODES}")
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
+    if kind == "mamba1":
+        if mode == "decode":
+            a, _ = ssm_mod.mamba1_step(params["mamba"], h,
+                                       (cache["h"], cache["conv"]), cfg)
+        else:
+            a, _ = ssm_mod.mamba1_seq(params["mamba"], h, cfg,
+                                      h0=cache["h"],
+                                      conv_state=cache["conv"])
+    elif mode == "decode":
         if paged is None:
             a, _ = attn_mod.decode_self_attention(
                 params["attn"], h, cache, pos, cfg, kind)
         else:
             a, _ = attn_mod.paged_decode_self_attention(
                 params["attn"], h, cache, paged, pos, cfg, kind)
-    elif mode == "chunk":
-        if paged is None:
-            a, _ = attn_mod.chunk_self_attention(
-                params["attn"], h, cache, pos, cfg, kind)
-        else:
-            a, _ = attn_mod.paged_chunk_self_attention(
-                params["attn"], h, cache, paged, pos, cfg, kind)
+    elif paged is None:
+        a, _ = attn_mod.chunk_self_attention(
+            params["attn"], h, cache, pos, cfg, kind)
     else:
-        raise ValueError(f"mode {mode!r} is not ported yet; "
-                         f"ported: {MODES}")
+        a, _ = attn_mod.paged_chunk_self_attention(
+            params["attn"], h, cache, paged, pos, cfg, kind)
     x = x + a
+    if not _has_mlp(kind, cfg):
+        return x
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + mlp(params["mlp"], h2)
 
@@ -124,8 +145,9 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos,
                    caches: list, paged: Optional[dict] = None,
                    qformat: Optional[str] = None):
     """Run every layer in order.  ``caches`` is the per-segment list of
-    ``{"k","v"}`` pools or dense caches with a leading layer dim; each
-    layer writes its slice in place, so the list needs no rebuilding.
+    ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
+    with a leading layer dim; each layer writes its slice in place, so
+    the list needs no rebuilding.
     Returns x."""
     for seg, params, cache in zip(segs, blocks["segments"], caches):
         for j in range(seg.length):

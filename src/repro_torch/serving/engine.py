@@ -18,8 +18,8 @@ macro-step of up to ``decode_steps`` (K) greedy decode iterations
 (``Model.decode_steps``) with argmax, token feedback, ``pos`` bumps and
 done masking on the device, and synchronises with the host **once** per
 macro-step, when it reads the ``(rows, K)`` token ids back.  The KV
-pools are updated in place by every call (the reference donates them
-instead).
+pools and SSM state rows are updated in place by every call (the
+reference donates them instead).
 
 Engine time is a **step counter** (one decode iteration), as in the
 reference: ``Request.t_submit`` / ``t_admit`` / ``t_first`` / ``t_done``
@@ -34,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.kvcache import PagedCache, paged_copy_blocks
+from repro_torch.models.kvcache import (PagedCache, paged_copy_blocks,
+                                        paged_reset_row)
 from repro_torch.models.model import Model
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.scheduler import (DEFER, REJECT, CapacityView,
@@ -329,10 +330,10 @@ class _PagedEngine(_EngineBase):
     admission), grows running requests block by block, and resolves
     pool exhaustion by preempting the most recently admitted request
     (recompute on re-admission keeps greedy outputs token-identical).
-    Subclasses supply ``_prefill_row`` / ``_forward_steps`` /
-    ``_apply_cow``.  Attn pools need no reset on admission (stale KV is
-    position-masked), so the reference's ``_reset_row`` of per-request
-    SSM and cross-KV state joins with those families."""
+    Subclasses supply ``_reset_row`` (zero a row's per-request state at
+    admission: SSM state; attn pools need none, stale KV is
+    position-masked), ``_prefill_row``, ``_forward_steps`` and
+    ``_apply_cow``."""
 
     MAX_STEPS = 4096  # preemption churn can stretch a busy run
 
@@ -413,6 +414,7 @@ class _PagedEngine(_EngineBase):
                 req.t_admit = self.t
             self.rows[row] = req
             self._admit_order.append(row)
+            self._reset_row(row)
             # a prefix hit maps the matched span's blocks into the
             # table already filled — prefill only the tail beyond it
             hit = self.pc.hit_tokens(row)
@@ -505,6 +507,9 @@ class _PagedEngine(_EngineBase):
             self.policy.on_free(self.pc.free_blocks - fb0, self.t)
             done.append(req)
         return done
+
+    def _reset_row(self, row: int):  # pragma: no cover - interface
+        raise NotImplementedError
 
     def _apply_cow(self, pairs: List[tuple]):
         """Apply queued COW pool copies ``[(src, dst), ...]`` to the
@@ -613,6 +618,9 @@ class PagedServingEngine(_PagedEngine):
         dst = torch.tensor([d for _, d in pairs], dtype=torch.long,
                            device=self.device)
         paged_copy_blocks(self.caches, src, dst)
+
+    def _reset_row(self, row: int):
+        paged_reset_row(self.caches, self.model.segments, row)
 
     def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
         self.model.paged_prefill_chunk(

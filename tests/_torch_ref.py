@@ -15,13 +15,21 @@ from repro_torch.configs import get_smoke_config as torch_smoke
 #: the smoke reduction makes smollm MHA (4 heads over 4 KV heads); the
 #: GQA variant keeps G = 3 query heads per KV head, as the full model has
 GQA = dict(n_heads=6, n_kv_heads=2, head_dim=32)
-CONFIGS = {"mha": {}, "gqa": GQA}
+#: the falcon-mamba smoke model (2 Mamba1 layers, untied head), and a
+#: hybrid of Mamba1 and attn blocks (with SwiGLU MLPs after attn) on its
+#: widths
+HYBRID = dict(n_layers=3, block_pattern=("mamba1", "attn", "mamba1"),
+              mlp_kind="dense")
+CONFIGS = {"mha": ("smollm-360m", {}), "gqa": ("smollm-360m", GQA),
+           "mamba": ("falcon-mamba-7b", {}),
+           "hybrid": ("falcon-mamba-7b", HYBRID)}
 
 
 def config_pair(name: str):
     """(JAX config, port config) of one smoke variant."""
-    jc = dataclasses.replace(jax_smoke("smollm-360m"), **CONFIGS[name])
-    tc = dataclasses.replace(torch_smoke("smollm-360m"), **CONFIGS[name])
+    arch, over = CONFIGS[name]
+    jc = dataclasses.replace(jax_smoke(arch), **over)
+    tc = dataclasses.replace(torch_smoke(arch), **over)
     return jc, tc
 
 

@@ -4,8 +4,10 @@ Both packages' engines run in one test, on the JAX model's weights
 (bridged into the port) and one trace.  For ``PagedServingEngine``:
 prompts that share a full-block prefix (so the copy-on-write prefix
 index maps blocks), and a pool small enough to force preemption by
-recompute.  For ``ServingEngine``: more requests than slots, so
-admission waits for whole slots.  Token streams, the ``t_admit`` /
+recompute; on the falcon-mamba smoke model and a Mamba1/attn hybrid,
+rows reused after a finished request and block-clipped macro-steps.
+For ``ServingEngine``: more requests than slots, so admission waits
+for whole slots.  Token streams, the ``t_admit`` /
 ``t_first`` / ``t_done`` stamps and the scheduler counters must be
 equal — the host-side schedulers are the reference's, and the float32
 model agrees with the JAX one to 1e-4 (tests/test_torch_model.py).
@@ -33,6 +35,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 ENGINE_KW = dict(max_rows=4, max_len=64, block_size=8, num_blocks=14,
                  prefill_chunk=8)
 SLOT_KW = dict(max_batch=3, cache_len=64, prefill_chunk=8)
+SSM_KW = dict(max_rows=3, max_len=32, block_size=8, num_blocks=6,
+              prefill_chunk=8)
 
 
 def _trace(vocab: int):
@@ -40,6 +44,15 @@ def _trace(vocab: int):
     stem = rng.integers(1, vocab, 16).tolist()      # two full blocks
     return [stem + rng.integers(1, vocab, int(n)).tolist()
             for n in rng.integers(2, 20, 6)]
+
+
+def _short_trace(vocab: int):
+    """Six prompts of 10-18 tokens behind a one-block shared stem: three
+    co-run in a pool of 6 blocks until their decode growth exhausts it."""
+    rng = np.random.default_rng(21)
+    stem = rng.integers(1, vocab, 8).tolist()
+    return [stem + rng.integers(1, vocab, int(n)).tolist()
+            for n in rng.integers(2, 11, 6)]
 
 
 def _drive_slots(eng, req_cls, prompts):
@@ -88,8 +101,52 @@ def test_engine_matches_live_jax_engine(name, k):
     assert want["used_blocks"] == 0
 
 
+class _SpyEngine(TEngine):
+    """The port's paged engine, recording each macro-step's block clip
+    and each row reset at admission."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.clips, self.resets = [], []
+
+    def _grow(self, k):
+        budgets, clip = super()._grow(k)
+        self.clips.append(clip)
+        return budgets, clip
+
+    def _reset_row(self, row):
+        self.resets.append(row)
+        super()._reset_row(row)
+
+
 @pytest.mark.parametrize("k", [1, 4])
-@pytest.mark.parametrize("name", ["mha", "gqa"])
+@pytest.mark.parametrize("name", ["mamba", "hybrid"])
+def test_ssm_engine_matches_live_jax_engine(name, k):
+    """Mamba1 state rows in the paged engine: six requests through three
+    rows (so rows are reused after a request finishes, and each reuse
+    must start from zeroed state), a pool of 6 blocks that forces
+    preemption and, at K = 4, block-clipped macro-steps (the scan length
+    is capped so no row's state runs past its budget), and prefix
+    sharing requested on a trace with a shared stem (gated off for SSM
+    models, as in the reference)."""
+    jc, tc = config_pair(name)
+    npp = jax_params(jc, seed=2)
+    prompts = _short_trace(jc.vocab_size)
+    want = _drive(JEngine(jc, npp, decode_steps=k, prefix_sharing=True,
+                          **SSM_KW), JRequest, prompts)
+    eng = _SpyEngine(tc, bridged(npp, tc), decode_steps=k,
+                     prefix_sharing=True, device="cpu", **SSM_KW)
+    got = _drive(eng, TRequest, prompts)
+    assert got == want
+    assert want["n_preemptions"] > 0 and want["prefix_hits"] == 0
+    assert not eng.pc.share_prefixes
+    assert len(eng.resets) > len(set(eng.resets))      # a row was reused
+    if k > 1:
+        assert any(c is not None for c in eng.clips)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("name", ["mha", "gqa", "mamba", "hybrid"])
 def test_slot_engine_matches_live_jax_engine(name, k):
     """ServingEngine: six requests through three slots, one of them too
     long for its slot (prompt + max_new_tokens > cache_len) and

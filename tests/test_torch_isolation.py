@@ -72,10 +72,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_architectures_refuse():
+    """Kinds the port does not run yet refuse at construction: a Mamba2
+    block (beside a Mamba1 one) and MoE MLPs."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import Model
-    cfg = get_smoke_config("smollm-360m")
-    ssm = dataclasses.replace(cfg, block_pattern=("attn", "mamba1"))
-    with pytest.raises(NotImplementedError):
-        Model(ssm, device="cpu")
+    mamba = get_smoke_config("falcon-mamba-7b")
+    for cfg in (dataclasses.replace(mamba, block_pattern=("mamba1", "mamba2")),
+                dataclasses.replace(get_smoke_config("smollm-360m"),
+                                    mlp_kind="moe")):
+        with pytest.raises(NotImplementedError):
+            Model(cfg, device="cpu")

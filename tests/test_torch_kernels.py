@@ -3,10 +3,12 @@
 On the CPU each kernel's plain PyTorch version is held against the
 ``repro.kernels.ref`` oracle and the Pallas kernel in interpret mode (as
 tests/test_kernels.py runs them), on the same numpy inputs.  Tolerance:
-test_kernels.py's float32 bound, 2e-5 (sums run in another order).
+test_kernels.py's float32 bound, 2e-5 (sums run in another order); for
+the selective scan, whose outputs reach tens, 2e-5 of max(1, |value|).
 
 The ``cuda``-marked tests hold each CUDA kernel against its plain
-version on the card; they skip without a card.  float32: 2e-5, except
+version on the card; they skip without a card.  float32: 2e-5 (the
+scan: of max(1, |plain|)), except
 the quant matmuls at 1e-4: their sums run over K up to 2560 in another
 order than the plain version's K-chunked one, and an output of unit
 size then differs by a few 1e-6 per thousand terms.  bfloat16: both
@@ -34,6 +36,8 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
     quant_matmul_int8_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels.selective_scan import (  # noqa: E402
+    selective_scan, selective_scan_plain)
 from repro_torch.models.quantize import quantize_int4, quantize_int8  # noqa: E402
 
 TOL = 2e-5                                   # float32, as test_kernels.py
@@ -53,10 +57,12 @@ def J():
                                                 paged_decode_attention_pallas)
     from repro.kernels.flash_attention import flash_attention_pallas
     from repro.kernels.rmsnorm import rmsnorm_pallas
+    from repro.kernels.selective_scan import selective_scan_pallas
     from repro.models import attention
     return SimpleNamespace(
         jax=jax, jnp=jnp, ref=ref, attention=attention,
         rmsnorm_pallas=rmsnorm_pallas,
+        selective_scan_pallas=selective_scan_pallas,
         paged_decode_attention_pallas=paged_decode_attention_pallas,
         decode_attention_pallas=decode_attention_pallas,
         flash_attention_pallas=flash_attention_pallas)
@@ -269,6 +275,70 @@ def test_paged_prefill_at_pos_matches_chunk_path(J, pos, h, kv):
 
 
 # ----------------------------------------------------------------------
+# selective scan
+# ----------------------------------------------------------------------
+def _scan_inputs(rng, b, t_, di, ds):
+    """dt = softplus(N(0,1)), B, C, x and h0 N(0,1), A = -|N(0,1)|, as
+    tests/test_kernels.py draws them."""
+    dt = np.log1p(np.exp(rng.standard_normal((b, t_, di), dtype=np.float32)))
+    bm = rng.standard_normal((b, t_, ds), dtype=np.float32)
+    cm = rng.standard_normal((b, t_, ds), dtype=np.float32)
+    x = rng.standard_normal((b, t_, di), dtype=np.float32)
+    a_neg = -np.abs(rng.standard_normal((di, ds), dtype=np.float32))
+    h0 = rng.standard_normal((b, di, ds), dtype=np.float32)
+    return dt, bm, cm, x, a_neg, h0
+
+
+def _rel_err(a, b) -> float:
+    """Largest difference relative to max(1, |b|): the scan's outputs
+    reach tens, so the f32 bound is taken against their size."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+
+
+@pytest.mark.parametrize("b,t_,di,ds", [
+    (1, 64, 128, 16),
+    (2, 100, 256, 16),     # t not a multiple of the Pallas chunk
+    (2, 128, 512, 8),
+    (3, 1, 256, 16),       # a decode step
+])
+def test_selective_scan_plain_matches_jax(J, b, t_, di, ds):
+    """The plain scan, h0 aliased with h_T as the model calls it,
+    against the oracle and the Pallas kernel in interpret mode (within
+    2e-5 of max(1, |value|))."""
+    rng = np.random.default_rng(16)
+    dt, bm, cm, x, a_neg, h0 = _scan_inputs(rng, b, t_, di, ds)
+    h = t(h0)
+    y, h_t = selective_scan_plain(t(dt), t(bm), t(cm), t(x), t(a_neg), h,
+                                  h_out=h)
+    assert h_t is h and y.shape == (b, t_, di)
+    args = [J.jnp.asarray(a) for a in (dt, bm, cm, x, a_neg, h0)]
+    for want_y, want_h in (
+            J.ref.selective_scan_ref(*args),
+            J.selective_scan_pallas(*args, block_di=128, chunk_t=64,
+                                    interpret=True)):
+        assert _rel_err(y, want_y) < TOL
+        assert _rel_err(h, want_h) < TOL
+    # the wrapper takes the plain version for CPU tensors, h_T fresh
+    y2, h2 = selective_scan(t(dt), t(bm), t(cm), t(x), t(a_neg), t(h0))
+    assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+def test_selective_scan_plain_reads_strided_b_and_c():
+    """B and C as column slices of one wider tensor (x_proj's output in
+    a float32 model) give what their contiguous copies give."""
+    rng = np.random.default_rng(17)
+    dt, bm, cm, x, a_neg, h0 = _scan_inputs(rng, 2, 9, 40, 8)
+    proj = t(np.concatenate([rng.standard_normal((2, 9, 3), dtype=np.float32),
+                             bm, cm], axis=-1))
+    bs, cs = proj[..., 3:11], proj[..., 11:]
+    assert not bs.is_contiguous()
+    strided = selective_scan_plain(t(dt), bs, cs, t(x), t(a_neg), t(h0))
+    dense = selective_scan_plain(t(dt), t(bm), t(cm), t(x), t(a_neg), t(h0))
+    assert all(torch.equal(a, b) for a, b in zip(strided, dense))
+
+
+# ----------------------------------------------------------------------
 # wrappers: plain only for CPU tensors, a launch or an error otherwise
 # ----------------------------------------------------------------------
 def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
@@ -304,6 +374,12 @@ def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
         quant_matmul_int4(xm, torch.empty((4, 4), dtype=torch.uint8,
                                           device="meta"),
                           torch.empty((1, 4), device="meta"))
+    seq, st = torch.empty((1, 3, 8), device="meta"), torch.empty(
+        (1, 3, 4), device="meta")
+    with pytest.raises(ValueError):
+        selective_scan(seq, st, st, seq, torch.empty((8, 4), device="meta"),
+                       torch.empty((1, 8, 4), device="meta"))
+    assert all(n == 0 for n in _build.launches.values())
 
 
 # ----------------------------------------------------------------------
@@ -410,3 +486,33 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, dtype, fmt, m, k, n):
     assert _build.launches[name] == n0 + 1
     assert got.shape == (m, n) and got.dtype == x.dtype
     _card_close(got, plain(x, q, s), dtype, QMM_CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_,di,ds,aliased,strided", [
+    (8, 1, 8192, 16, True, False),       # falcon-mamba-7b decode
+    (1, 128, 8192, 16, True, False),     # falcon-mamba-7b prefill chunk
+    (2, 100, 300, 8, False, True),       # ragged DI and T, strided B / C
+    (3, 37, 256, 5, True, True),
+])
+def test_cuda_selective_scan_matches_plain(cuda_device, b, t_, di, ds,
+                                           aliased, strided):
+    """float32 only, the dtype the model feeds the scan; within 2e-5 of
+    max(1, |plain|) (the kernel sums y over d_state in its own order)."""
+    rng = np.random.default_rng(18)
+    dt, bm, cm, x, a_neg, h0 = [
+        t(a).to(cuda_device) for a in _scan_inputs(rng, b, t_, di, ds)]
+    if strided:
+        proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
+        bm, cm = proj[..., 3:3 + ds], proj[..., 3 + ds:]
+    want_y, want_h = selective_scan_plain(dt, bm, cm, x, a_neg, h0)
+    h = h0.clone()
+    n0 = _build.launches["selective_scan"]
+    y, h_t = selective_scan(dt, bm, cm, x, a_neg, h,
+                            h_out=h if aliased else None)
+    assert _build.launches["selective_scan"] == n0 + 1
+    assert (h_t is h) == aliased
+    if not aliased:
+        assert torch.equal(h, h0)
+    assert _rel_err(y.cpu(), want_y.cpu()) <= CARD_TOL["float32"]
+    assert _rel_err(h_t.cpu(), want_h.cpu()) <= CARD_TOL["float32"]
