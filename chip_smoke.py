@@ -22,7 +22,10 @@ one JSON line:
    (torch.profiler; no single PyTorch call computes the scan's
    recurrence, so it has none), the kernel's time per back-to-back call
    (CUDA events, launch cost included), and the least time the card
-   could take;
+   could take.  For the two kernels with a tensor-core body (paged
+   prefill, int4 quant matmul) the bf16 cases also time the previous
+   CUDA-core body on the same inputs, in turns with the new one (new,
+   old, old, new), as ``prev_ms``, and gate its output too;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -36,7 +39,9 @@ one JSON line:
    through ``PagedServingEngine`` with int8 and with int4 weights; every
    request must finish with 64 in-vocab tokens and every kernel must
    have been launched the number of times each run's shapes imply (the
-   counts are reset before and read after each run); each quantized or
+   counts are reset before and read after each run), and every launch
+   of the paged prefill and the int4 quant matmul must have taken its
+   tensor-core body (all serve runs are bf16); each quantized or
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
    the last run repeats the bf16 paged engine on the same 8 requests.
@@ -44,11 +49,16 @@ one JSON line:
    bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
    through ``ServingEngine``, with the same checks (the slot run's share
    of tokens equal to the paged run's printed).
-   ``profile`` (after the bf16 and the int8 smollm paged runs and the
+   ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba paged run): two steady decode macro-steps timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time; the idle share is one minus busy over the
-   unprofiled wall time.
+   unprofiled wall time.  After the bf16 smollm paged run, the same for
+   a prefill window: 8 requests of 385 tokens admitted at once, 24
+   chunks of 128, with the device busy time per chunk.  The prefill
+   window and the int4 decode window run again with the previous
+   (CUDA-core) body of the paged prefill or the int4 quant matmul, for
+   the busy time each redesign saves.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -57,7 +67,9 @@ code 2 before printing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -159,13 +171,9 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
-          tol=TOL, relative=False, library_note=None):
-    """One kernel case: ``out`` (kernel) against ``ref`` (plain) on the
-    card, then the timings.  ``relative`` gates the error relative to
-    max(1, |ref|) instead of the absolute one."""
-    import torch
-    torch.cuda.synchronize()
+def _errors(out, ref, dtype, tol, relative) -> tuple:
+    """(max abs error, max error relative to max(1, |ref|), bf16 step
+    excess, within the gate)."""
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     rel = (diff / ref.float().abs().clamp(min=1.0)).max().item()
@@ -175,12 +183,37 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
               if dtype == "bfloat16" else None)
     ok = (bool(np.isfinite(gated)) and gated <= tol[dtype]
           and (excess is None or excess <= BF16_ATOL))
+    return err, rel, excess, ok
+
+
+def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
+          tol=TOL, relative=False, library_note=None, prev=None):
+    """One kernel case: ``out`` (kernel) against ``ref`` (plain) on the
+    card, then the timings.  ``relative`` gates the error relative to
+    max(1, |ref|) instead of the absolute one.  ``prev``: the kernel's
+    previous (CUDA-core) body on the same inputs, gated the same way and
+    timed in turns with the kernel (kernel, prev, prev, kernel)."""
+    import torch
+    torch.cuda.synchronize()
+    err, rel, excess, ok = _errors(out, ref, dtype, tol, relative)
     b_ms, b_by = bound(nbytes, flops, dtype)
+    prev_case = {}
+    if prev is None:
+        ms = device_ms(fn)
+    else:
+        p_err, _, p_excess, p_ok = _errors(prev(), ref, dtype, tol, relative)
+        turns = [device_ms(f) for f in (fn, prev, prev, fn)]
+        ms = (turns[0] + turns[3]) / 2
+        prev_case = {"prev_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                     "prev_max_abs_err": p_err,
+                     "prev_bf16_step_excess": p_excess}
+        ok = ok and p_ok
     case = {"kernel": name, "dtype": dtype, "shape": shape,
             "max_abs_err": err, "max_rel_err": rel,
             "tol": tol[dtype], "tol_on": "relative" if relative else "abs",
             "bf16_step_excess": excess, "ok": ok,
-            "ms": device_ms(fn), "plain_ms": device_ms(plain),
+            "ms": ms, "prev_ms": None, **prev_case,
+            "plain_ms": device_ms(plain),
             "library_ms": device_ms(library) if library else None,
             "call_ms": call_ms(fn),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -194,7 +227,8 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
                              f"max err relative to max(1, |plain|) {rel}, "
                              f"limit {tol[dtype]} on the "
                              f"{case['tol_on']} one; bf16 step excess "
-                             f"{excess}, limit {BF16_ATOL})")
+                             f"{excess}, limit {BF16_ATOL}; previous body "
+                             f"{prev_case})")
     return case
 
 
@@ -322,7 +356,10 @@ def kernel_cases(dev) -> list:
                     qs, kc, vc, attn_mask=cmask, enable_gqa=True)),
                 2 * C * H * HD * es + 2 * n_slots * KV * HD * es
                 + 4 * (-(-n_slots // BS)),
-                4 * H * HD * n_pairs))
+                4 * H * HD * n_pairs,
+                prev=(lambda: paged_prefill_attention(
+                    q, kp, vp, table, p0, _body="cuda_core"))
+                if dname == "bfloat16" else None))
 
     # the kernels of the quantized and slot-engine paths
     for dname in ("float32", "bfloat16"):
@@ -349,7 +386,10 @@ def kernel_cases(dev) -> list:
                     lambda: kernel(x, q, s), lambda: plain(x, q, s),
                     lambda: torch.matmul(x, w_dense),
                     m * k * es + q.numel() + 4 * s.numel() + m * n * es,
-                    2 * m * k * n, tol=QMM_TOL))
+                    2 * m * k * n, tol=QMM_TOL,
+                    prev=(lambda: quant_matmul_int4(x, q, s,
+                                                    _body="cuda_core"))
+                    if fmt == "int4" and dname == "bfloat16" else None))
 
         # dense decode: the slot engine's 8 rows of S = 1024 slots,
         # positions up to ~600, one row frozen at pos 5 (budget run out)
@@ -671,6 +711,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launches)
+    bodies = {k: dict(v) for k, v in _build.bodies.items()}
     iters, chunks = eng.decode_iters, eng.prefill_calls
     expect = expected_launches(cfg, issubclass(cls, ServingEngine),
                                eng.quantization, iters, chunks, launches)
@@ -693,7 +734,8 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
            "projection_weight_bytes": projection_bytes(eng.params),
            "n_preemptions": getattr(eng, "n_preemptions", None),
-           "launches": launches, "launches_expected": expect}
+           "launches": launches, "launches_expected": expect,
+           "bodies": bodies}
     if ref is not None:
         pairs = [(a, b) for rid, toks in streams.items()
                  for a, b in zip(toks, ref[rid])]
@@ -711,6 +753,12 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
                                  for k, v in expect.items() if v):
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
+    # every serve run is bf16: each launch of a two-body kernel must have
+    # taken its tensor-core body
+    if any(b["cuda_core"] or b["mma"] != launches[k]
+           for k, b in bodies.items()):
+        raise AssertionError(f"serve {name}: launches by body {bodies}, "
+                             f"expected every launch on the mma body")
     return res, streams, eng
 
 
@@ -732,6 +780,10 @@ def serve(dev) -> dict:
                               prompts, dev)
     launches = {"paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="paged_bf16")
+    profile_prefill(cfg, eng.params, kw, dev, label="paged_bf16")
+    with previous_body("paged_prefill_attention"):
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="paged_bf16, previous prefill body")
     del eng
     slot_kw = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
                    decode_steps=16, seed=SEED, device=dev)
@@ -748,8 +800,12 @@ def serve(dev) -> dict:
         res, _, eng = serve_run(name, cls, cfg, run_kw, prompts[:8], dev,
                                 ref=ref)
         launches[name] = res["launches"]
-        if name == "paged_int8":
+        if name in ("paged_int8", "paged_int4"):
             profile_decode(cfg, eng.params, run_kw, dev, label=name)
+        if name == "paged_int4":
+            with previous_body("quant_matmul_int4"):
+                profile_decode(cfg, eng.params, run_kw, dev,
+                               label="paged_int4, previous int4 body")
         del eng
     del res, ref
     gc.collect()
@@ -787,6 +843,22 @@ def serve_mamba(dev) -> dict:
              seed=SEED, device=dev), prompts, dev, ref=ref, params=params)
     launches["mamba_dense_bf16"] = res["launches"]
     return launches
+
+
+@contextlib.contextmanager
+def previous_body(kernel: str):
+    """Within the block, the model's calls of ``kernel`` take its previous
+    (CUDA-core) body, through the wrapper's private ``_body`` argument:
+    the profile windows compare the two bodies in one call."""
+    from repro_torch.models import attention, quantize
+    module = {"paged_prefill_attention": attention,
+              "quant_matmul_int4": quantize}[kernel]
+    wrapper = getattr(module, kernel)
+    setattr(module, kernel, functools.partial(wrapper, _body="cuda_core"))
+    try:
+        yield
+    finally:
+        setattr(module, kernel, wrapper)
 
 
 def profile_decode(cfg, params, kw, dev, label: str) -> dict:
@@ -850,6 +922,63 @@ def profile_decode(cfg, params, kw, dev, label: str) -> dict:
     return res
 
 
+def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
+    """Where prefill time goes: admission of 8 requests of 385-token
+    prompts, i.e. 24 chunks of 128 at pos 0, 128 and 256, with no decode.
+    As in ``profile_decode``, the window runs once timed without the
+    profiler and once under it on an identical engine; the idle share is
+    one minus busy over the unprofiled wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import (PagedServingEngine, Request,
+                                            chunk_sizes)
+    prompts = _trace(np.random.default_rng(SEED + 6), 8, 385, 385,
+                     cfg.vocab_size)
+    # a row prefills all of its prompt but the last token
+    chunks = sum(len(chunk_sizes(len(p) - 1, kw["prefill_chunk"]))
+                 for p in prompts)
+
+    def window():
+        eng = PagedServingEngine(cfg, params, **kw)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(i, pr, max_new_tokens=8))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._admit()             # the prefill of all 8 rows, no decode
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    window()                     # warm: allocator pools, first launches
+    eng, wall = window()
+    if eng.prefill_tokens != sum(len(p) - 1 for p in prompts):
+        raise AssertionError("the prefill window did not admit every "
+                             "request")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall_profiled = window()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"phase": "profile", "run": label,
+           "window": f"prefill, {len(prompts)} requests of "
+                     f"{len(prompts[0])} tokens, chunks of "
+                     f"{kw['prefill_chunk']}",
+           "prefill_chunks": chunks, "wall_ms": wall * 1e3,
+           "wall_profiled_ms": wall_profiled * 1e3,
+           "ms_per_chunk": wall * 1e3 / chunks,
+           "device_busy_ms": busy_us / 1e3,
+           "device_busy_ms_per_chunk": busy_us / 1e3 / chunks,
+           "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+           "device_launches_per_chunk": sum(e.count for e in kernels) / chunks,
+           "top_kernels": [{"name": e.key[:70], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top]}
+    emit(res)
+    return res
+
+
 def kernel_line(cases, launches_by_run) -> dict:
     """One entry per kernel, at its main-path shape in its main dtype
     (``MAIN_DTYPE``, else bfloat16: decode rows for rmsnorm and the quant
@@ -876,11 +1005,13 @@ def kernel_line(cases, launches_by_run) -> dict:
                     "launches_by_run": {run: n[name] for run, n
                                         in launches_by_run.items()},
                     "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                    "prev_ms": c["prev_ms"],
                     "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                     "library_ms": c["library_ms"],
                     "dtype": c["dtype"], "shape": c["shape"],
                     "cases": [{k: x[k] for k in ("dtype", "shape", "ms",
+                                                 "prev_ms",
                                                  "call_ms", "plain_ms",
                                                  "library_ms",
                                                  "bound_ms", "bound_by",

@@ -1,6 +1,7 @@
 // Shared helpers of the port's Hopper kernels: element conversion to
 // and from f32, warp reductions, and the dtype codes of the C interface
-// (0 = float32, 1 = bfloat16; kernels/_build.py::DTYPE_CODES).
+// (0 = float32, 1 = bfloat16; kernels/_build.py::DTYPE_CODES) and its
+// body codes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,6 +10,11 @@
 namespace rt {
 
 constexpr float kNegInf = -1e30f;   // the reference's NEG_INF mask value
+
+// Body codes of the entry points of kernels with two bodies
+// (kernels/_build.py::BODY_CODES).
+constexpr int kBodyCudaCore = 0;   // f32 on the CUDA cores
+constexpr int kBodyMma = 1;        // bf16 on the tensor cores
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

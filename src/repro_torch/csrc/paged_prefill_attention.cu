@@ -1,29 +1,60 @@
 // Paged causal flash attention for chunked prefill: C query tokens of one
 // request at positions pos .. pos + C - 1 attend causally to the logical
 // slots [0, pos + C) of a paged KV pool, through the request's block
-// table, with an online softmax in f32.
+// table, with an online softmax in f32.  Keys are clamped at
+// max_len - 1 = nb * bs - 1.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _flash_kernel) in the form the reference model's prefill runs it: the
-// linear branch of src/repro/models/attention.py::paged_chunk_self_attention,
-// computed after the caller's in-place write of the chunk's K/V.  Called
-// with pos = 0 and an identity table it computes what
+// Replaces the TPU kernel flash_attention_pallas
+// (src/repro/kernels/flash_attention.py:72, body _flash_kernel) in the
+// form the reference model's prefill runs it: the linear branch of
+// src/repro/models/attention.py::paged_chunk_self_attention, computed
+// after the caller's in-place write of the chunk's K/V.  Called with
+// pos = 0 and an identity table it computes what
 // flash_attention_pallas(causal=True, window=0) computes for contiguous
-// K/V.  The sliding window is not on this path.
+// K/V.  The sliding window is not on this path.  The slot engine runs it
+// too, on a dense cache row seen as one block of S slots.
 //
-// Grid (ceil(C / kTileQ), H): a block owns kTileQ queries of one head and
-// walks key tiles of kTileK logical slots, looking each slot's physical
-// block up in the table itself.  Key tiles past the query tile's last
-// position are skipped, so causal prefill reads about half the slots a
-// full square would.
+// Bound on the H100: bytes at the main path's chunks (C = 128 against a
+// prefix of a few hundred keys: 4 * H * hd flops per query-key pair, far
+// below the bf16 tensor cores' 295 flops per byte); in practice latency
+// and SM fill, since a chunk is a few tens of CTAs.
 //
-// Bound on the H100: operations once the prefix is long (4 * H * hd flops
-// per query-key pair against 2 * KV * hd elements per key), bytes for
-// short prefixes.  This first version runs the products on the f32 CUDA
-// cores out of shared memory; moving them onto the tensor cores (mma /
-// wgmma on bf16 tiles) is the change that would approach the bound.
+// Two bodies; the wrapper names one by its rule
+// (kernels/flash_attention.py::prefill_body) and this entry point
+// launches it, refusing a body the shape cannot take:
+//
+// * mma (bf16, hd % 16 == 0, hd <= 128, 16-byte aligned q / pools /
+//   out).  A CTA owns one KV head and 64 rows, a row being a (query,
+//   head-in-group) pair of that KV head's G query heads, so each K/V tile
+//   is read once for all G heads.  Its 8 warps are 4 row warps of 16 rows
+//   (one m16 fragment each) times 2 key groups: each step brings 128
+//   logical slots, key group g takes the 64 at offset 64 g, and at the
+//   end group 1 hands its (m, l, O) to group 0, which merges them in a
+//   fixed order; this halves the serial chain of key tiles a long prefix
+//   puts on each warp.  C = 128, H = 15, KV = 5 gives 6 x 5 = 30 CTAs,
+//   240 warps.  Each slot row's physical block comes from the table, and
+//   its hd * 2 bytes are copied with 16-byte cp.async into a padded
+//   shared tile (row stride hd + 8, so ldmatrix has no bank conflicts),
+//   the next step loading while the current one computes.  S = Q K^T
+//   runs on mma.sync m16n8k16 with f32 accumulators (products of bf16
+//   are exact); the online softmax keeps (m, l) per row in registers
+//   across an mma quad, in the log2 domain with exp2f.  P is split into
+//   P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both go through the PV
+//   mma against the same bf16 V into the f32 accumulators: P keeps about
+//   16 bits, so the output stays within one final bf16 rounding of the
+//   f32 plain version (rounding P once to bf16 would add about 2^-9 of
+//   sum |P V|, past the gate for small outputs).  Tiles past a warp's
+//   last query are skipped, and the causal mask is applied only on tiles
+//   that reach past a warp's first query.  Tiles are cut by logical
+//   slot, never by block, so the output bits do not depend on bs or on
+//   the table.
+// * cuda_core (float32 at every shape, bf16 at the others): the f32
+//   CUDA-core body of the first port, grid (ceil(C / 32), H), products in
+//   scalar loops out of shared memory.  float32 stays here because the
+//   card's float32 streams must equal the CPU's: TF32 tensor cores would
+//   round the inputs.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -146,6 +177,302 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// mma body (bf16)
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int kRowWarps = 4;         // warps along the rows
+constexpr int kKeyGroups = 2;        // warp groups along the keys
+constexpr int kThreads = 32 * kRowWarps * kKeyGroups;
+constexpr int kRows = 16 * kRowWarps;   // (query, head-in-group) rows per CTA
+constexpr int kTileK = 64;           // logical slots per key tile of a group
+constexpr int kSpan = kTileK * kKeyGroups;   // slots per CTA step
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+constexpr size_t smem_bytes() {      // Q, then K and V, double-buffered
+  return static_cast<size_t>(kRows + 4 * kSpan) * (HD + 8) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+prefill_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ kp,
+               const __nv_bfloat16* __restrict__ vp,
+               const int* __restrict__ table, __nv_bfloat16* __restrict__ out,
+               int C, int H, int KV, int bs, int nb, int pos,
+               float scale_log2) {
+  constexpr int kStride = HD + 8;    // smem row, in bf16
+  constexpr int kChunks = HD / 8;    // 16-byte chunks per row
+  constexpr int kKSteps = HD / 16;   // k16 steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kRows * kStride;        // [2][kSpan][kStride]
+  __nv_bfloat16* vs = ks + 2 * kSpan * kStride;    // [2][kSpan][kStride]
+
+  const int G = H / KV;
+  const int kvh = blockIdx.y;
+  const int rows = C * G;
+  const int r0 = blockIdx.x * kRows;
+  const int rlast = min(r0 + kRows, rows) - 1;
+  const int klast = min(pos + rlast / G, nb * bs - 1);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = (tid >> 5) % kRowWarps;   // this warp's 16 rows
+  const int kgroup = (tid >> 5) / kRowWarps;  // and its half of each step
+
+  // Q rows of this CTA (zero past the last row)
+  for (int e = tid; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = e - r * kChunks;
+    const int rho = r0 + r;
+    const __nv_bfloat16* src = q;
+    int n = 0;
+    if (rho < rows) {
+      src = q + (static_cast<size_t>(rho / G) * H + kvh * G + rho % G) * HD +
+            c * 8;
+      n = 16;
+    }
+    rt::cp_async16(qs + r * kStride + c * 8, src, n);
+  }
+  // slots [k0, k0 + kSpan) into buffer buf (zero past klast)
+  auto load_tile = [&](int k0, int buf) {
+    __nv_bfloat16* kd = ks + buf * kSpan * kStride;
+    __nv_bfloat16* vd = vs + buf * kSpan * kStride;
+    for (int e = tid; e < kSpan * kChunks; e += kThreads) {
+      const int ki = e / kChunks;
+      const int c = e - ki * kChunks;
+      const int s = k0 + ki;
+      size_t off = 0;
+      int n = 0;
+      if (s <= klast) {
+        const int blk = s / bs;
+        off = ((static_cast<size_t>(table[blk]) * bs + (s - blk * bs)) * KV +
+               kvh) * HD + c * 8;
+        n = 16;
+      }
+      rt::cp_async16(kd + ki * kStride + c * 8, kp + off, n);
+      rt::cp_async16(vd + ki * kStride + c * 8, vp + off, n);
+    }
+  };
+  load_tile(0, 0);
+  rt::cp_async_commit();
+
+  // this warp's rows: wr0 .. wr0 + 15; this lane's two, ra and ra + 8
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int wr0 = r0 + warp * 16;
+  const bool live = wr0 <= rlast;
+  const int wq_first = pos + wr0 / G;
+  const int wq_last = pos + min(wr0 + 15, rlast) / G;
+  const int ra = wr0 + grp;
+  const int qpa = min(pos + ra / G, klast);        // last key of row ra
+  const int qpb = min(pos + (ra + 8) / G, klast);  // and of row ra + 8
+
+  uint32_t qf[kKSteps][4];
+  float o[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
+  float m_a = rt::kNegInf, m_b = rt::kNegInf, l_a = 0.f, l_b = 0.f;
+
+  // Step it holds slots [it * kSpan, (it + 1) * kSpan); key group g
+  // takes the tile of kTileK slots at it * kSpan + g * kTileK.
+  const int ntiles = klast / kSpan + 1;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kSpan + kgroup * kTileK;
+    if (it + 1 < ntiles) load_tile((it + 1) * kSpan, (it + 1) & 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+        rt::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kStride +
+                                    kk * 16 + (lane >> 4) * 8);
+    }
+    if (live && k0 <= wq_last) {
+      const __nv_bfloat16* kt =
+          ks + ((it & 1) * kSpan + kgroup * kTileK) * kStride;
+      const __nv_bfloat16* vt =
+          vs + ((it & 1) * kSpan + kgroup * kTileK) * kStride;
+      // S = Q K^T: 8 n-tiles of 8 keys
+      float sc[kTileK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk)
+#pragma unroll
+        for (int j2 = 0; j2 < kTileK / 16; ++j2) {
+          uint32_t b[4];
+          rt::ldmatrix_x4(b, kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                                      kStride +
+                                  kk * 16 + ((lane >> 3) & 1) * 8);
+          rt::mma_bf16(sc[2 * j2], qf[kk], b[0], b[1]);
+          rt::mma_bf16(sc[2 * j2 + 1], qf[kk], b[2], b[3]);
+        }
+      // scale into the log2 domain; mask where the tile reaches past the
+      // warp's first query or the clamp
+      const bool masked = k0 + kTileK - 1 > min(wq_first, klast);
+      float mx_a = rt::kNegInf, mx_b = rt::kNegInf;
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tig + (e & 1);
+          float v = sc[j][e] * scale_log2;
+          if (masked && key > (e < 2 ? qpa : qpb)) v = rt::kNegInf;
+          sc[j][e] = v;
+          if (e < 2) mx_a = fmaxf(mx_a, v); else mx_b = fmaxf(mx_b, v);
+        }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float al_a = exp2f(m_a - mn_a);
+      const float al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTileK / 8; ++j) {
+        sc[j][0] = exp2f(sc[j][0] - mn_a);
+        sc[j][1] = exp2f(sc[j][1] - mn_a);
+        sc[j][2] = exp2f(sc[j][2] - mn_b);
+        sc[j][3] = exp2f(sc[j][3] - mn_b);
+        sum_a += sc[j][0] + sc[j][1];
+        sum_b += sc[j][2] + sc[j][3];
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o2);
+        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o2);
+      }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d) {
+        o[d][0] *= al_a;
+        o[d][1] *= al_a;
+        o[d][2] *= al_b;
+        o[d][3] *= al_b;
+      }
+      // O += P V with P = P_hi + P_lo, 16 keys per step
+#pragma unroll
+      for (int s2 = 0; s2 < kTileK / 16; ++s2) {
+        uint32_t ph[4], pl[4];
+        rt::split_bf16(sc[2 * s2][0], sc[2 * s2][1], ph[0], pl[0]);
+        rt::split_bf16(sc[2 * s2][2], sc[2 * s2][3], ph[1], pl[1]);
+        rt::split_bf16(sc[2 * s2 + 1][0], sc[2 * s2 + 1][1], ph[2], pl[2]);
+        rt::split_bf16(sc[2 * s2 + 1][2], sc[2 * s2 + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int d2 = 0; d2 < HD / 16; ++d2) {
+          uint32_t b[4];
+          rt::ldmatrix_x4_trans(
+              b, vt + (s2 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
+                     d2 * 16 + (lane >> 4) * 8);
+          rt::mma_bf16(o[2 * d2], ph, b[0], b[1]);
+          rt::mma_bf16(o[2 * d2], pl, b[0], b[1]);
+          rt::mma_bf16(o[2 * d2 + 1], ph, b[2], b[3]);
+          rt::mma_bf16(o[2 * d2 + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // Key group 1 hands its (m, l, o) to group 0 through shared memory
+  // (the K/V buffers are free now), which merges the two in a fixed
+  // order.  A row group 1 never reached has m = kNegInf, l = 0, o = 0.
+  constexpr int kXch = HD / 2 + 4;    // floats per thread
+  rt::cp_async_wait<0>();
+  __syncthreads();
+  float* xch = reinterpret_cast<float*>(ks) + (warp * 32 + lane) * kXch;
+  if (kgroup == 1) {
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xch[4 * d + e] = o[d][e];
+    xch[HD / 2] = m_a;
+    xch[HD / 2 + 1] = m_b;
+    xch[HD / 2 + 2] = l_a;
+    xch[HD / 2 + 3] = l_b;
+  }
+  __syncthreads();
+  if (kgroup == 1) return;
+  {
+    const float m1a = xch[HD / 2], m1b = xch[HD / 2 + 1];
+    const float mn_a = fmaxf(m_a, m1a), mn_b = fmaxf(m_b, m1b);
+    const float a0 = exp2f(m_a - mn_a), a1 = exp2f(m1a - mn_a);
+    const float b0 = exp2f(m_b - mn_b), b1 = exp2f(m1b - mn_b);
+    l_a = l_a * a0 + xch[HD / 2 + 2] * a1;
+    l_b = l_b * b0 + xch[HD / 2 + 3] * b1;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      o[d][0] = o[d][0] * a0 + xch[4 * d] * a1;
+      o[d][1] = o[d][1] * a0 + xch[4 * d + 1] * a1;
+      o[d][2] = o[d][2] * b0 + xch[4 * d + 2] * b1;
+      o[d][3] = o[d][3] * b0 + xch[4 * d + 3] * b1;
+    }
+  }
+
+  // divide by l in f32, round once, store pairs
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rho = ra + 8 * half;
+    if (!live || rho > rlast) continue;
+    const float l = fmaxf(half ? l_b : l_a, 1e-30f);
+    __nv_bfloat16* dst =
+        out + (static_cast<size_t>(rho / G) * H + kvh * G + rho % G) * HD +
+        2 * tig;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) = __floats2bfloat162_rn(
+          o[d][2 * half] / l, o[d][2 * half + 1] / l);
+  }
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const void* table, void* out, int C, int H, int KV, int bs,
+                   int nb, int pos, float scale, cudaStream_t stream) {
+  const size_t bytes = smem_bytes<HD>();
+  cudaError_t err = rt::allow_smem(prefill_kernel<HD>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C * (H / KV) + kRows - 1) / kRows, KV);
+  prefill_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
+      static_cast<__nv_bfloat16*>(out), C, H, KV, bs, nb, pos,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
+template <int HD>
+cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
+                     const void* table, void* out, int C, int H, int KV,
+                     int bs, int nb, int pos, float scale, cudaStream_t s) {
+  if (hd == HD)
+    return launch<HD>(q, kp, vp, table, out, C, H, KV, bs, nb, pos, scale, s);
+  if constexpr (HD > 16)
+    return dispatch<HD - 16>(hd, q, kp, vp, table, out, C, H, KV, bs, nb, pos,
+                             scale, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mma
+
 }  // namespace
 
 extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
@@ -153,11 +480,24 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           const void* table, void* out, int C,
                                           int H, int KV, int hd, int bs,
                                           int nb, int pos, float scale,
-                                          int dtype, void* stream) {
+                                          int dtype, int body, void* stream) {
   if (C <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == rt::kBodyMma) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                           reinterpret_cast<uintptr_t>(k_pool) |
+                           reinterpret_cast<uintptr_t>(v_pool) |
+                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    if (dtype != 1 || hd % 16 != 0 || hd > 128 || !aligned)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(mma::dispatch<128>(hd, q, k_pool, v_pool, table,
+                                               out, C, H, KV, bs, nb, pos,
+                                               scale, s));
+  }
+  if (body != rt::kBodyCudaCore)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch<float>(q, k_pool, v_pool, table, out, C, H,
                                           KV, hd, bs, nb, pos, scale, s));

@@ -14,7 +14,9 @@ together, and the objects are linked into ``libreprotorch.so``.
 
 Each kernel wrapper counts its launches in :data:`launches` (a plain
 integer per kernel) where it calls into the library, and nowhere else,
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels; a
+kernel with two bodies also counts each launch under its body in
+:data:`bodies`.
 """
 from __future__ import annotations
 
@@ -44,6 +46,14 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
                             "selective_scan": 0}
 
+#: kernel name -> body -> launches since the last reset, for the kernels
+#: with two bodies (the body names of csrc/*.cu: "mma", the bf16
+#: tensor-core body; "cuda_core", the f32 CUDA-core body)
+bodies: Dict[str, Dict[str, int]] = {
+    "paged_prefill_attention": {"mma": 0, "cuda_core": 0},
+    "quant_matmul_int4": {"mma": 0, "cuda_core": 0}}
+BODY_CODES = {"cuda_core": 0, "mma": 1}   # csrc/common.cuh
+
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
 
@@ -51,6 +61,9 @@ build_seconds: Optional[float] = None   # wall time of this process's build
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    for counts in bodies.values():
+        for body in counts:
+            counts[body] = 0
 
 
 def sources() -> list:
@@ -137,15 +150,17 @@ _SIGNATURES = {
     "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _P),
     # q, k_pool, v_pool, table, out, C, H, KV, hd, bs, nb, pos, scale,
-    # dtype, stream
+    # dtype, body, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _P),
+                                   _I, _I, _F, _I, _I, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P),
-    # x, q, s, out, M, K, N, group (int4 only), dtype, stream
+    # x, q, s, out, M, K, N, group (unused), dtype, stream
     "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, q, s, out, M, K, N, group, dtype, body, splits, stream
+    "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
     # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, B, T, DI, DS, B/C batch
     # and time strides, stream
     "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

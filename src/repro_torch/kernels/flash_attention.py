@@ -9,10 +9,27 @@ attend causally to the logical slots ``[0, pos + C)`` of the model's
 paged pools ``(NB, bs, KV, hd)`` through the request's block table.
 With ``pos = 0`` and an identity table this is causal flash attention
 over contiguous K/V.  The sliding window is not on this path and is not
-ported yet.  The kernel is ``csrc/paged_prefill_attention.cu``.
+ported yet.  The kernel is ``csrc/paged_prefill_attention.cu``; the TPU
+kernel it replaces is ``src/repro/kernels/flash_attention.py:72``.
+
+Bound on the H100: bytes at the main path's chunks (C = 128 against a
+prefix of a few hundred keys), and in practice latency and SM fill.
+The kernel has two bodies, named by :func:`prefill_body`:
+
+* ``"mma"`` (bfloat16, ``hd % 16 == 0``, ``hd <= 128``, 16-byte aligned
+  tensors; every bf16 launch the served models make): Q K^T and P V on
+  the tensor cores (``mma.sync`` m16n8k16, f32 accumulators), one CTA
+  per KV head and 64 (query, head) rows, so the G heads of a group
+  share each K/V tile; P enters the PV product as two bf16 parts
+  (``P_hi + P_lo``, about 16 bits), so the output stays within one
+  final bf16 rounding of the f32 plain version.
+* ``"cuda_core"`` (float32 at every shape, bfloat16 at the others):
+  the f32 CUDA-core body.  float32 stays there because the card's f32
+  streams must equal the CPU's, and TF32 tensor cores would round the
+  inputs.
 
 The wrapper runs the plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises.
+tensors it launches the body its rule names, or raises.
 """
 from __future__ import annotations
 
@@ -22,6 +39,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import NEG_INF, paged_gather
+
+
+def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The kernel body a launch takes: ``"mma"`` for bfloat16 with a head
+    dim the tensor-core tiles take and 16-byte aligned tensors, else
+    ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128 and aligned:
+        return "mma"
+    return "cuda_core"
 
 
 def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -51,10 +77,12 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             v_pool: torch.Tensor, table: torch.Tensor,
-                            pos: int,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            pos: int, scale: Optional[float] = None,
+                            _body: Optional[str] = None) -> torch.Tensor:
     """Paged causal prefill attention; see
-    :func:`paged_prefill_attention_plain` for the contract."""
+    :func:`paged_prefill_attention_plain` for the contract.  ``_body``
+    forces a kernel body over :func:`prefill_body`'s choice, for timing
+    the bodies against each other; the model never passes it."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, table, pos,
                                              scale)
@@ -81,12 +109,15 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_prefill_attention: the kernel takes "
                          "contiguous tensors")
     out = torch.empty_like(q)
+    body = _body or prefill_body(
+        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
     lib = _build.library()
     _build.launches["paged_prefill_attention"] += 1
+    _build.bodies["paged_prefill_attention"][body] += 1
     _build.check(lib.rt_paged_prefill_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         out.data_ptr(), c, h, kv, hd, bs, nb, pos, float(scale),
-        _build.dtype_code(q.dtype),
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body],
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_prefill_attention")
     return out

@@ -2,9 +2,12 @@
 and their plain PyTorch versions.
 
 Port of ``repro/kernels/quant_matmul.py::quant_matmul_pallas`` (bodies
-``_qmm_int8_kernel`` and ``_qmm_int4_kernel``): ``x (..., K) @
-dequant(q, s) -> (..., N)`` in x's dtype, accumulated in f32.  The
-kernels are ``csrc/quant_matmul.cu``.
+``_qmm_int8_kernel`` and ``_qmm_int4_kernel``,
+``src/repro/kernels/quant_matmul.py:54``): ``x (..., K) @ dequant(q, s)
+-> (..., N)`` in x's dtype, accumulated in f32.  The kernels are
+``csrc/quant_matmul.cu``.  Bound on the H100: bytes (each weight byte is
+used M times, far below the tensor cores' 295 flops per byte), and in
+practice latency and SM fill at decode.
 
 * int8: ``q`` (K, N) int8, ``s`` (1, N) f32; ``(x @ q) * s`` with the
   scale applied once, after the sum over K.
@@ -17,12 +20,62 @@ The plain versions follow the reference model's ``_qdot_int8`` /
 f32 accumulation (``_chunk_len``), so the port's float32 streams sum
 in the reference's order.  The wrappers run the plain version for CPU
 tensors only; for CUDA tensors they launch the kernel or raise.
+
+The int4 kernel has two bodies, named by :func:`int4_body`:
+
+* ``"mma"`` (bfloat16, ``G % 16 == 0``, ``N % 16 == 0``, 16-byte aligned
+  x and q; every bf16 launch the served models make): the transposed
+  product ``out^T = W^T x^T`` on the tensor cores (``mma.sync``
+  m16n8k16, f32 accumulators), N on the m16 side and M on the n8 side,
+  nibbles turned into exact bf16 integers, each scale group's partial
+  sum scaled in f32; K is split across the CTAs of a cluster
+  (:func:`int4_splits`), whose partials are summed in a fixed order
+  through distributed shared memory, so results do not depend on
+  timing.
+* ``"cuda_core"`` (float32 at every shape, bfloat16 at the others): the
+  f32 CUDA-core body, which int8 always takes.  float32 stays there
+  because the card's f32 streams must equal the CPU's, and TF32 tensor
+  cores would round x.
 """
 from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from repro_torch.kernels import _build
+
+SM_COUNT = 132            # H100 SXM
+INT4_TILE_N = 64          # csrc/quant_matmul.cu: mma::kTileN
+INT4_STAGE_K = 64         # mma::kTileK
+INT4_MAX_SPLITS = 8       # mma::kMaxSplits, a portable cluster
+
+
+def int4_body(dtype: torch.dtype, n: int, group: int,
+              aligned: bool = True) -> str:
+    """The int4 kernel body a launch takes: ``"mma"`` for bfloat16 with
+    scale groups and N that the tensor-core tiles take and 16-byte
+    aligned x and q, else ``"cuda_core"``."""
+    if (dtype == torch.bfloat16 and group % 16 == 0 and n % 16 == 0
+            and aligned):
+        return "mma"
+    return "cuda_core"
+
+
+def int4_splits(m: int, k: int, n: int) -> int:
+    """Slices of K for the mma body (one cluster of up to 8 CTAs per
+    output tile), each whole K stages of 64.  A decode product (M <= 16)
+    asks for two CTAs per SM over its ``ceil(N / 64)`` output tiles, one
+    stage per slice at least; a chunk's CTAs carry 4 to 8 times the mma
+    work, so larger M asks for one CTA per SM with at least 2 (M <= 64)
+    or 3 stages per slice.  The split, and so the f32 summation order,
+    depends on M, K and N only, never on timing."""
+    stages = -(-k // INT4_STAGE_K)
+    ctas, least = ((2 * SM_COUNT, 1) if m <= 16 else
+                   (SM_COUNT, 2) if m <= 64 else (SM_COUNT, 3))
+    want = -(-ctas // -(-n // INT4_TILE_N))
+    per = max(least, -(-stages // want))
+    return min(INT4_MAX_SPLITS, -(-stages // per))
 
 
 def chunk_len(k: int, multiple: int = 1, cap: int = 256) -> int:
@@ -80,8 +133,8 @@ def quant_matmul_int4_plain(x: torch.Tensor, q: torch.Tensor,
     return acc.to(x.dtype).reshape(*x.shape[:-1], n)
 
 
-def _launch(kind: str, x: torch.Tensor, q: torch.Tensor,
-            s: torch.Tensor) -> torch.Tensor:
+def _launch(kind: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+            body: Optional[str] = None) -> torch.Tensor:
     name = f"quant_matmul_{kind}"
     k = x.shape[-1]
     n = q.shape[-1]
@@ -110,12 +163,22 @@ def _launch(kind: str, x: torch.Tensor, q: torch.Tensor,
     m = x.numel() // k if k else 0
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
     lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if kind == "int8":
+        _build.launches[name] += 1
+        _build.check(lib.rt_quant_matmul_int8(
+            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
+            group, _build.dtype_code(x.dtype), stream), name)
+        return out
+    body = body or int4_body(x.dtype, n, group,
+                             x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    splits = int4_splits(m, k, n) if body == "mma" else 1
     _build.launches[name] += 1
-    fn = (lib.rt_quant_matmul_int8 if kind == "int8"
-          else lib.rt_quant_matmul_int4)
-    _build.check(fn(x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-                    m, k, n, group, _build.dtype_code(x.dtype),
-                    torch.cuda.current_stream(x.device).cuda_stream), name)
+    _build.bodies[name][body] += 1
+    _build.check(lib.rt_quant_matmul_int4(
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
+        group, _build.dtype_code(x.dtype), _build.BODY_CODES[body], splits,
+        stream), name)
     return out
 
 
@@ -128,9 +191,11 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor,
     return _launch("int8", x, q, s)
 
 
-def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor,
-                      s: torch.Tensor) -> torch.Tensor:
-    """x (..., K) @ dequant(q, s) for a packed int4 leaf."""
+def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      _body: Optional[str] = None) -> torch.Tensor:
+    """x (..., K) @ dequant(q, s) for a packed int4 leaf.  ``_body``
+    forces a kernel body over :func:`int4_body`'s choice, for timing the
+    bodies against each other; the model never passes it."""
     if x.device.type == "cpu":
         return quant_matmul_int4_plain(x, q, s)
-    return _launch("int4", x, q, s)
+    return _launch("int4", x, q, s, _body)

@@ -31,15 +31,21 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    paged_prefill_attention, paged_prefill_attention_plain)
+    paged_prefill_attention, paged_prefill_attention_plain, prefill_body)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
+    INT4_MAX_SPLITS, INT4_STAGE_K, INT4_TILE_N, SM_COUNT, int4_body,
+    int4_splits,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
     quant_matmul_int8_plain)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan, selective_scan_plain)
-from repro_torch.models.quantize import quantize_int4, quantize_int8  # noqa: E402
+from repro_torch.models.quantize import (  # noqa: E402
+    int4_group, quantize_int4, quantize_int8)
 
+# smollm-360m's projection sites (K, N): wq / wo, wk / wv, w_gate /
+# w_up, w_down
+SMOLLM_SITES = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 TOL = 2e-5                                   # float32, as test_kernels.py
 CARD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 QMM_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sums over K <= 2560
@@ -383,6 +389,52 @@ def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
 
 
 # ----------------------------------------------------------------------
+# the rule that names a two-body kernel's body
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"),
+                                        ("float32", "cuda_core")])
+def test_body_rule_on_the_main_path(dtype, want):
+    """Every launch smollm-360m makes takes the tensor-core body in
+    bfloat16 (hd 64; int4 groups of 64 at every projection site) and the
+    CUDA-core body in float32."""
+    dt = getattr(torch, dtype)
+    assert prefill_body(dt, 64) == want
+    for k, n in SMOLLM_SITES:
+        assert int4_body(dt, n, int4_group(k)) == want
+
+
+def test_body_rule_off_the_tiles():
+    """Shapes the tensor-core tiles do not take keep the CUDA-core body
+    in bfloat16 too."""
+    bf = torch.bfloat16
+    assert prefill_body(bf, 128) == "mma"
+    assert prefill_body(bf, 32) == "mma"
+    for hd in (8, 72, 100, 256):
+        assert prefill_body(bf, hd) == "cuda_core"
+    assert prefill_body(bf, 64, aligned=False) == "cuda_core"
+    assert int4_body(bf, 48, 32) == "mma"
+    for n, g in ((7, 2), (300, 64), (320, 8), (320, 24)):
+        assert int4_body(bf, n, g) == "cuda_core"
+    assert int4_body(bf, 320, 64, aligned=False) == "cuda_core"
+
+
+@pytest.mark.parametrize("m", [1, 8, 37, 128])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (66, 7), (64, 16)])
+def test_int4_splits_cover_k_and_fill_the_card(m, k, n):
+    """Every slice of K holds at least one stage, a tile's slices fit one
+    portable cluster, and a decode-sized product has at least one CTA per
+    SM unless K ran out of stages or the cluster out of room."""
+    stages = -(-k // INT4_STAGE_K)
+    splits = int4_splits(m, k, n)
+    per = -(-stages // splits)
+    assert 1 <= splits <= min(stages, INT4_MAX_SPLITS)
+    assert (splits - 1) * per < stages
+    if m <= 16:
+        assert (-(-n // INT4_TILE_N) * splits >= SM_COUNT
+                or splits == min(stages, INT4_MAX_SPLITS))
+
+
+# ----------------------------------------------------------------------
 # on the card: each CUDA kernel against its plain version
 # ----------------------------------------------------------------------
 @pytest.mark.cuda
@@ -423,7 +475,11 @@ def test_cuda_paged_decode_matches_plain(cuda_device, dtype, b, h, kv, nb,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c,pos,d", [(128, 0, 64), (128, 256, 64),
                                      (7, 3, 64), (33, 40, 64),
-                                     (40, 9, 128)])   # hd 128: > 48 KB smem
+                                     (40, 9, 128),    # hd 128: > 48 KB smem
+                                     (1, 0, 64), (1, 200, 64),   # ragged C
+                                     (77, 0, 64), (77, 300, 64),
+                                     (100, 450, 64),  # pos + C > max_len
+                                     (5, 7, 72)])     # hd off the mma tiles
 def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
     rng = np.random.default_rng(10)
     h, kv, bs, nb = 15, 5, 16, 32
@@ -434,8 +490,62 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
     dt = getattr(torch, dtype)
     args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
         t(table).to(cuda_device)]
-    _card_close(paged_prefill_attention(*args, pos),
-                paged_prefill_attention_plain(*args, pos), dtype)
+    body = prefill_body(dt, d)
+    n0 = _build.bodies["paged_prefill_attention"][body]
+    got = paged_prefill_attention(*args, pos)
+    assert _build.bodies["paged_prefill_attention"][body] == n0 + 1
+    _card_close(got, paged_prefill_attention_plain(*args, pos), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,pos", [(128, 0), (128, 256), (77, 300)])
+def test_cuda_paged_prefill_cuda_core_body_in_bf16(cuda_device, c, pos):
+    """The CUDA-core body, forced on a bf16 main-path shape (as
+    chip_smoke.py times it against the mma body), agrees with the plain
+    version too."""
+    rng = np.random.default_rng(19)
+    h, kv, bs, nb, d = 15, 5, 16, 32, 64
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    kp = rng.standard_normal((nb + 1, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nb + 1, bs, kv, d), dtype=np.float32)
+    table = (rng.permutation(nb) + 1).astype(np.int32)
+    args = [t(a).to(cuda_device, torch.bfloat16) for a in (q, kp, vp)] + [
+        t(table).to(cuda_device)]
+    n0 = _build.bodies["paged_prefill_attention"]["cuda_core"]
+    got = paged_prefill_attention(*args, pos, _body="cuda_core")
+    assert _build.bodies["paged_prefill_attention"]["cuda_core"] == n0 + 1
+    _card_close(got, paged_prefill_attention_plain(*args, pos), "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c,pos", [(128, 0), (128, 256), (77, 300),
+                                   (100, 450)])
+def test_cuda_paged_prefill_bits_do_not_depend_on_blocks(cuda_device, dtype,
+                                                         c, pos):
+    """The same logical K/V as a shuffled table of 16-slot blocks and as
+    one block of all the slots (the slot engine's dense row) gives the
+    same bits."""
+    rng = np.random.default_rng(20)
+    h, kv, bs, nb, d = 15, 5, 16, 32, 64
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    k = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    v = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    table = rng.permutation(nb).astype(np.int32) + 1
+    kp = np.zeros((nb + 1, bs, kv, d), np.float32)
+    vp = np.zeros((nb + 1, bs, kv, d), np.float32)
+    kp[table] = k.reshape(nb, bs, kv, d)
+    vp[table] = v.reshape(nb, bs, kv, d)
+    dt = getattr(torch, dtype)
+
+    def card(a):
+        return t(a).to(cuda_device, dt)
+    paged = paged_prefill_attention(card(q), card(kp), card(vp),
+                                    t(table).to(cuda_device), pos)
+    dense = paged_prefill_attention(
+        card(q), card(k[None]), card(v[None]),
+        torch.zeros(1, dtype=torch.int32, device=cuda_device), pos)
+    assert torch.equal(paged, dense)
 
 
 @pytest.mark.cuda
@@ -486,6 +596,54 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, dtype, fmt, m, k, n):
     assert _build.launches[name] == n0 + 1
     assert got.shape == (m, n) and got.dtype == x.dtype
     _card_close(got, plain(x, q, s), dtype, QMM_CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [32, 64])
+@pytest.mark.parametrize("m", [1, 8, 37, 128])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES)
+def test_cuda_quant_matmul_int4_mma_body(cuda_device, k, n, m, group):
+    """The int4 tensor-core body at every smollm-360m site, decode and
+    chunk row counts and two group sizes: within the bf16 gate of the
+    plain version, and bit-equal over repeated calls (the split-K
+    partials are summed in a fixed order)."""
+    rng = np.random.default_rng(21)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    # reprolint: disable-next=quant-static-weights -- a kernel test packs
+    # one leaf at a chosen group; quantize_params picks the group from K
+    packed = quantize_int4(w, group=group)
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    assert k // s.shape[0] == group
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    n0 = _build.bodies["quant_matmul_int4"]["mma"]
+    got = quant_matmul_int4(x, q, s)
+    assert _build.bodies["quant_matmul_int4"]["mma"] == n0 + 1
+    _card_close(got, quant_matmul_int4_plain(x, q, s), "bfloat16",
+                QMM_CARD_TOL)
+    for _ in range(3):
+        assert torch.equal(quant_matmul_int4(x, q, s), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 960, 2560), (128, 2560, 960)])
+def test_cuda_quant_matmul_int4_cuda_core_body_in_bf16(cuda_device, m, k, n):
+    """The CUDA-core body, forced on a bf16 main-path shape (as
+    chip_smoke.py times it against the mma body), agrees with the plain
+    version too."""
+    rng = np.random.default_rng(22)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    # reprolint: disable-next=quant-static-weights -- a kernel test packs
+    # one leaf, as the other quant matmul cases here do
+    packed = quantize_int4(w)
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    n0 = _build.bodies["quant_matmul_int4"]["cuda_core"]
+    got = quant_matmul_int4(x, q, s, _body="cuda_core")
+    assert _build.bodies["quant_matmul_int4"]["cuda_core"] == n0 + 1
+    _card_close(got, quant_matmul_int4_plain(x, q, s), "bfloat16",
+                QMM_CARD_TOL)
 
 
 @pytest.mark.cuda
