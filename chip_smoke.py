@@ -22,10 +22,11 @@ one JSON line:
    (torch.profiler; no single PyTorch call computes the scan's
    recurrence, so it has none), the kernel's time per back-to-back call
    (CUDA events, launch cost included), and the least time the card
-   could take.  For the two kernels with a tensor-core body (paged
-   prefill, int4 quant matmul) the bf16 cases also time the previous
-   CUDA-core body on the same inputs, in turns with the new one (new,
-   old, old, new), as ``prev_ms``, and gate its output too;
+   could take.  For the five kernels with a tensor-core body (paged
+   prefill, int8 and int4 quant matmul, paged and dense decode) the
+   bf16 cases also time the previous CUDA-core body on the same inputs,
+   in turns with the new one (new, old, old, new), as ``prev_ms``, and
+   gate its output too;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -40,8 +41,8 @@ one JSON line:
    request must finish with 64 in-vocab tokens and every kernel must
    have been launched the number of times each run's shapes imply (the
    counts are reset before and read after each run), and every launch
-   of the paged prefill and the int4 quant matmul must have taken its
-   tensor-core body (all serve runs are bf16); each quantized or
+   of the five two-body kernels must have taken its tensor-core body
+   (all serve runs are bf16); each quantized or
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
    the last run repeats the bf16 paged engine on the same 8 requests.
@@ -55,10 +56,11 @@ one JSON line:
    the device's busy time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run, the same for
    a prefill window: 8 requests of 385 tokens admitted at once, 24
-   chunks of 128, with the device busy time per chunk.  The prefill
-   window and the int4 decode window run again with the previous
-   (CUDA-core) body of the paged prefill or the int4 quant matmul, for
-   the busy time each redesign saves.
+   chunks of 128, with the device busy time per chunk.  The bf16
+   decode and prefill windows and the int8 and int4 decode windows run
+   again with the previous (CUDA-core) body of the paged decode, the
+   paged prefill, or the int8 or int4 quant matmul, for the busy time
+   each redesign saves.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -300,7 +302,10 @@ def kernel_cases(dev) -> list:
                 q[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
             2 * B * H * HD * es + 2 * n_keys * KV * HD * es
             + 4 * (n_keys // BS + B) + 4 * B,
-            4 * H * HD * n_keys))
+            4 * H * HD * n_keys,
+            prev=(lambda: paged_decode_attention(q, kp, vp, tables, pos,
+                                                 _body="cuda_core"))
+            if dname == "bfloat16" else None))
 
         # paged prefill: a chunk of C = 128 at pos 0 (identity table over
         # contiguous K/V) and at pos 256 (shuffled table)
@@ -387,9 +392,8 @@ def kernel_cases(dev) -> list:
                     lambda: torch.matmul(x, w_dense),
                     m * k * es + q.numel() + 4 * s.numel() + m * n * es,
                     2 * m * k * n, tol=QMM_TOL,
-                    prev=(lambda: quant_matmul_int4(x, q, s,
-                                                    _body="cuda_core"))
-                    if fmt == "int4" and dname == "bfloat16" else None))
+                    prev=(lambda: kernel(x, q, s, _body="cuda_core"))
+                    if dname == "bfloat16" else None))
 
         # dense decode: the slot engine's 8 rows of S = 1024 slots,
         # positions up to ~600, one row frozen at pos 5 (budget run out)
@@ -416,7 +420,10 @@ def kernel_cases(dev) -> list:
             lambda: F.scaled_dot_product_attention(
                 q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
             2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B,
-            4 * H * HD * n_keys))
+            4 * H * HD * n_keys,
+            prev=(lambda: dense_decode_attention(q, kc, vc, pos,
+                                                 _body="cuda_core"))
+            if dname == "bfloat16" else None))
     return cases + scan_cases(dev)
 
 
@@ -780,6 +787,9 @@ def serve(dev) -> dict:
                               prompts, dev)
     launches = {"paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="paged_bf16")
+    with previous_body("paged_decode_attention"):
+        profile_decode(cfg, eng.params, kw, dev,
+                       label="paged_bf16, previous decode body")
     profile_prefill(cfg, eng.params, kw, dev, label="paged_bf16")
     with previous_body("paged_prefill_attention"):
         profile_prefill(cfg, eng.params, kw, dev,
@@ -801,11 +811,11 @@ def serve(dev) -> dict:
                                 ref=ref)
         launches[name] = res["launches"]
         if name in ("paged_int8", "paged_int4"):
+            fmt = run_kw["quantization"]
             profile_decode(cfg, eng.params, run_kw, dev, label=name)
-        if name == "paged_int4":
-            with previous_body("quant_matmul_int4"):
+            with previous_body(f"quant_matmul_{fmt}"):
                 profile_decode(cfg, eng.params, run_kw, dev,
-                               label="paged_int4, previous int4 body")
+                               label=f"{name}, previous {fmt} body")
         del eng
     del res, ref
     gc.collect()
@@ -851,7 +861,9 @@ def previous_body(kernel: str):
     (CUDA-core) body, through the wrapper's private ``_body`` argument:
     the profile windows compare the two bodies in one call."""
     from repro_torch.models import attention, quantize
-    module = {"paged_prefill_attention": attention,
+    module = {"paged_decode_attention": attention,
+              "paged_prefill_attention": attention,
+              "quant_matmul_int8": quantize,
               "quant_matmul_int4": quantize}[kernel]
     wrapper = getattr(module, kernel)
     setattr(module, kernel, functools.partial(wrapper, _body="cuda_core"))

@@ -13,18 +13,18 @@
 // (models/kvcache.py::cache_struct), read in place; the TPU kernel's
 // (B, KV, S, D) layout is never built.
 //
-// Grid (B, KV): a block owns the G = H / KV query heads of one KV head of
-// one row and walks slots [0, min(pos, S - 1)] in tiles of 64.  The body
-// is the paged kernel's (decode_attention.cuh): the row's cache is one
-// block of S slots whose table holds the row's index, so the dense and
-// paged kernels sum the same slots in the same order.  Rows whose budget
-// ran out decode token 0 at a frozen pos and are computed like any other
-// row.
+// Both bodies are the paged kernel's (decode_attention.cuh), named by the
+// same rule (decode_body) and, for the mma body, split by the same rule
+// (decode_splits over the row capacity S): the row's cache is one block of
+// S slots whose table holds the row's index, so the dense and paged
+// kernels sum the same slots in the same order and give the same bits.
+// Rows whose budget ran out decode token 0 at a frozen pos and are
+// computed like any other row.
 //
 // Bound on the H100: bytes, as for the paged kernel (4 flops per K/V
-// element and query head against 2 or 4 bytes per element).  Like it,
-// this first version fills B * KV = 40 of the 132 SMs at the main path's
-// shapes; splitting the slot range across blocks is the next change.
+// element and query head against 2 or 4 bytes per element); in practice
+// latency and SM fill, which the mma body's split across a cluster
+// addresses (paged_decode_attention.cu).
 #include "decode_attention.cuh"
 
 namespace {
@@ -63,17 +63,68 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   return cudaGetLastError();
 }
 
+template <int HD>
+__global__ void __launch_bounds__(rt::kSplitThreads)
+dense_split_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ kc,
+                   const __nv_bfloat16* __restrict__ vc,
+                   const int* __restrict__ pos,
+                   __nv_bfloat16* __restrict__ out, int H, int KV, int S,
+                   float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int table[1];          // row b's cache is block b of S slots
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int G = H / KV;
+  if (threadIdx.x == 0) table[0] = b;
+  __syncthreads();
+  const int klast = min(pos[b], S - 1);
+  const size_t qoff = (static_cast<size_t>(b) * H + kvh * G) * HD;
+  rt::decode_split<HD>(q + qoff, kc, vc, table, klast, S, KV, kvh, G,
+                       scale_log2, out + qoff, smem_raw);
+}
+
+// The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
+template <int HD>
+cudaError_t launch_split(int hd, const void* q, const void* kc,
+                         const void* vc, const void* pos, void* out, int B,
+                         int H, int KV, int S, float scale, int splits,
+                         cudaStream_t s) {
+  if (hd == HD)
+    return rt::launch_split(
+        dense_split_kernel<HD>, B, KV, splits,
+        rt::split_smem_bytes(HD, H / KV), s,
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(kc),
+        static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(pos),
+        static_cast<__nv_bfloat16*>(out), H, KV, S, scale * rt::kLog2e);
+  if constexpr (HD > 16)
+    return launch_split<HD - 16>(hd, q, kc, vc, pos, out, B, H, KV, S, scale,
+                                 splits, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// body and splits as for rt_paged_decode_attention.
 extern "C" int rt_dense_decode_attention(const void* q, const void* k_cache,
                                          const void* v_cache, const void* pos,
                                          void* out, int B, int H, int KV,
                                          int hd, int S, float scale, int dtype,
-                                         void* stream) {
+                                         int body, int splits, void* stream) {
   if (B <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S <= 0 || hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == rt::kBodyMma) {
+    if (!rt::split_takes(dtype, hd, H / KV, splits, q, k_cache, v_cache, out))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_split<128>(hd, q, k_cache, v_cache, pos,
+                                              out, B, H, KV, S, scale, splits,
+                                              s));
+  }
+  if (body != rt::kBodyCudaCore)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch<float>(q, k_cache, v_cache, pos, out, B, H,
                                           KV, hd, S, scale, s));

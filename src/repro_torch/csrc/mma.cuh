@@ -1,6 +1,7 @@
 // Warp-level tensor-core helpers of the port's bf16 bodies (sm_90a):
 // 16-byte cp.async copies into shared memory, ldmatrix fragment loads,
-// and mma.sync.aligned.m16n8k16 on bf16 with f32 accumulators.
+// mma.sync.aligned.m16n8k16 on bf16 with f32 accumulators, and the
+// splitting of f32 values into bf16 parts for an exact-enough operand.
 //
 // Fragment layout of m16n8k16 (lane = 4 * grp + tig):
 //   A (16 x 16, row-major), 4 regs of two bf16: a0 (row grp, cols 2tig,
@@ -81,6 +82,20 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   hi = bf162_bits(h);
   lo = bf162_bits(__floats2bfloat162_rn(x - __low2float(h),
                                         y - __high2float(h)));
+}
+
+// The same in three parts: hi + mid + lo carries x and y to within about
+// 2^-24 of their size, which is f32's own precision.
+__device__ __forceinline__ void split3_bf16(float x, float y, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float rx = x - __low2float(h);
+  const float ry = y - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  hi = bf162_bits(h);
+  mid = bf162_bits(m);
+  lo = bf162_bits(__floats2bfloat162_rn(rx - __low2float(m),
+                                        ry - __high2float(m)));
 }
 
 }  // namespace rt

@@ -19,46 +19,63 @@
 // prefill chunk (M = 128); in practice latency and SM fill, since a
 // decode-sized product is 5 to 40 output tiles.
 //
-// Bodies (int4: the wrapper names one by its rule,
-// kernels/quant_matmul.py::int4_body, and rt_quant_matmul_int4 launches
-// it, refusing a body the shape cannot take):
+// Bodies (the wrapper names one by its rule,
+// kernels/quant_matmul.py::int8_body / int4_body, and the entry point
+// launches it, refusing a body the shape cannot take):
 //
-// * cuda_core (int8 always; int4 in float32 at every shape, and in bf16
-//   where G % 16 != 0 or N % 16 != 0).  Grid (ceil(N / 128),
-//   ceil(M / 8)): a block owns 8 rows of x and 128 output columns, 4
-//   consecutive columns per lane, so one 32-bit load brings a lane its 4
-//   weight bytes of one (packed) row.  The 8 warps split each K stage of
-//   128 between them, with x staged in shared memory as f32, FMAs on the
-//   f32 CUDA cores; the 8 per-warp partial sums of every output are
-//   added in warp order, so the result does not depend on timing.
-//   float32 stays here because the card's float32 streams must equal the
-//   CPU's: TF32 tensor cores would round x.
-// * mma (int4, bf16, G % 16 == 0, N % 16 == 0, 16-byte aligned x and q).
-//   The transposed product out^T (N x M) = W^T (N x K) . x^T (K x M) on
-//   mma.sync m16n8k16 with f32 accumulators: the weight's N fills the m16
-//   side and x's M the n8 side, so a decode step's M = 8 is one n8 tile
-//   and a chunk of M <= 128 is up to 16, ragged M masked.  A CTA of 4
-//   warps owns 64 output columns (16 per warp) and up to 64 rows of x
-//   (8 n8 tiles; 128 rows in one CTA measured slower, at 255 registers).  A thread's A-fragment register holds the pair
-//   k = 2r, 2r + 1 of one n: exactly one packed byte, turned into the
-//   bf16 integers -8..7 (exact) by OR-ing the nibbles into the mantissa
-//   of 128.0 and subtracting 136; a stage's four A fragments are built
-//   before its mma chain, and B comes from x by ldmatrix.  Each scale
-//   group's partial sum runs in its own f32 fragment and is added to the
-//   output fragment times s[g, n] in f32; products of integers and bf16
-//   x are exact, so only the f32 summation order differs from the plain
-//   version.  Packed weight rows, x and the stage's scale rows are
-//   copied with 16-byte cp.async into a ring of 4 K stages of 64 in
-//   shared memory; every weight byte is read once.  Split-K fills the
-//   card: the wrapper's int4_splits(M, K, N) cuts the K stages into up
-//   to 8 slices, launched as one thread-block cluster per output tile
+// * cuda_core (float32 at every shape, as the card's float32 streams
+//   must equal the CPU's and TF32 tensor cores would round x; bf16 where
+//   N % 16 != 0, K % 16 != 0, int4's G % 16 != 0 or x / q are not 16-byte
+//   aligned).  Grid (ceil(N / 128), ceil(M / 8)): a block owns 8 rows of
+//   x and 128 output columns, 4 consecutive columns per lane, so one
+//   32-bit load brings a lane its 4 weight bytes of one (packed) row.
+//   The 8 warps split each K stage of 128 between them, with x staged in
+//   shared memory as f32, FMAs on the f32 CUDA cores; the 8 per-warp
+//   partial sums of every output are added in warp order, so the result
+//   does not depend on timing.
+// * mma (bf16, both formats; one body templated on the weight format).
+//   Replaces _qmm_int8_kernel (src/repro/kernels/quant_matmul.py:38) and
+//   _qmm_int4_kernel.  The transposed product out^T (N x M) = W^T (N x K)
+//   . x^T (K x M) on mma.sync m16n8k16 with f32 accumulators: the
+//   weight's N fills the m16 side and x's M the n8 side, so a decode
+//   step's M = 8 is one n8 tile and a chunk of M <= 128 is up to 16,
+//   ragged M masked.  A CTA of 4 warps owns 64 output columns (16 per
+//   warp) and up to 64 rows of x (8 n8 tiles; 128 rows in one CTA
+//   measured slower, at 255 registers).  Row grp of a warp's m16 tile is
+//   output column 2 grp and row grp + 8 column 2 grp + 1, so one 16-bit
+//   shared load brings a thread both of its columns' bytes of one
+//   (packed) weight row, and its two outputs of a row of x are
+//   neighbours (one bf16x2 store).  A thread's A-register pair is
+//   k = 2r, 2r + 1 of one column:
+//     int4: one packed byte, turned into the bf16 integers -8..7 (exact)
+//       by OR-ing the nibbles into the mantissa of 128.0 and subtracting
+//       136;
+//     int8: two bytes N apart (rows k and k + 1 of q (K, N)), paired by
+//       __byte_perm and converted exactly through f32 (the byte OR-ed
+//       into the mantissa of 2^23; -128..127 needs 8 significant bits, so
+//       bf16 holds it), since the 128.0 trick holds only 7 bits.
+//   A stage's A fragments are built before its mma chain, and B comes
+//   from x by ldmatrix.  Products of integers and bf16 x are exact in
+//   f32, so only the f32 summation order differs from the plain version.
+//   int4 sums each scale group in its own f32 fragment and adds it to the
+//   output fragment times s[g, n]; int8 applies its per-column scale once,
+//   after the sum over K, as the reference does.  Weight rows, x and
+//   (int4) the stage's scale rows are copied with 16-byte cp.async into
+//   a ring of 4 K stages of 64 in shared memory (int8: 4 KB of weights a
+//   stage, twice int4's); every weight byte is read once.  Split-K fills
+//   the card: the wrapper's quant_splits(M, K, N) cuts the K stages into
+//   up to 8 slices, launched as one thread-block cluster per output tile
 //   (at decode 5 to 40 tiles become 40 to 200 CTAs on the main path's
 //   shapes).  Each slice keeps its f32 partial tile in its own shared
 //   memory, and after a cluster barrier the slices sum the tile's
 //   partials in slice order through distributed shared memory, each a
-//   share of the tile: no workspace, no atomics, no second launch.  The
-//   split depends on M, K and N alone and the sum's order is fixed, so
-//   the result does not depend on timing.
+//   share of the tile (int8 then scales): no workspace, no atomics, no
+//   second launch.  The split depends on M, K and N alone and the sum's
+//   order is fixed, so the result does not depend on timing.
+//   Bound at the main path's shapes: bytes (int8 reads 2 bytes of weight
+//   per 2 * M flops), and in practice the latency of one K slice's loads
+//   plus the cluster barrier; the split and the ring keep every slice's
+//   weight loads in flight at once.
 #include <cstdint>
 
 #include "common.cuh"
@@ -234,30 +251,33 @@ int dispatch(const void* x, const void* q, const void* s, void* out, int M,
 
 
 // ---------------------------------------------------------------------------
-// mma body (int4, bf16)
+// mma body (int8 and int4, bf16)
 // ---------------------------------------------------------------------------
 namespace mma {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileN = 16 * kWarps;   // output columns per CTA
-constexpr int kTileK = 64;            // K per stage (32 packed rows)
-constexpr int kWRow = kTileN + 16;    // bytes per packed row in smem
+constexpr int kTileK = 64;            // K per stage
+constexpr int kWRow = kTileN + 16;    // bytes per weight row in smem
 constexpr int kXRow = kTileK + 8;     // bf16 per row of x in smem
 constexpr int kSteps = kTileK / 16;   // k16 steps per stage
 constexpr int kStages = 4;            // K stages in flight
 constexpr int kMaxSplits = 8;         // slices of K: a portable cluster
 
-// One stage of the shared ring: packed weight rows, rows of x, scales.
-template <int MT>
+// One stage of the shared ring: weight rows (int8: 64 rows of 64 bytes;
+// int4: 32 packed rows), rows of x, and for int4 the scale row of the
+// group each k16 step lies in (int8's scale is applied after the sum).
+template <int MT, bool kInt4>
 struct Stage {
-  uint8_t w[kTileK / 2][kWRow];
+  static constexpr int kWRows = kInt4 ? kTileK / 2 : kTileK;
+  uint8_t w[kWRows][kWRow];
   __nv_bfloat16 x[8 * MT][kXRow];
-  float s[kSteps][kTileN];   // per k16 step: its group's scales
+  float s[kInt4 ? kSteps : 1][kTileN];
 };
 
-// The bf16 pair (low nibble - 8, high nibble - 8) of one packed byte:
-// 0x4300 | v is the bf16 of 128 + v, and 128 + v - 136 is exact.
+// int4: the bf16 pair (low nibble - 8, high nibble - 8) of one packed
+// byte: 0x4300 | v is the bf16 of 128 + v, and 128 + v - 136 is exact.
 __device__ __forceinline__ uint32_t nibbles(uint32_t b) {
   const uint32_t v = (b & 0xFu) | ((b & 0xF0u) << 12) | 0x43004300u;
   const __nv_bfloat162 r =
@@ -266,14 +286,58 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t b) {
   return rt::bf162_bits(r);
 }
 
-template <int MT>   // n8 tiles of x rows per CTA
+// int8: the bf16 pair of the two signed bytes in bits 0-15 of v.  Each
+// byte, offset to u = b + 128 by flipping its sign bit, is OR-ed into
+// the mantissa of the f32 2^23 (giving 2^23 + u, exact), and 2^23 + 128
+// is subtracted: b exactly, in f32.  -128..127 needs at most 8
+// significant bits, so the pair rounds to bf16 exactly.
+__device__ __forceinline__ uint32_t bytes2(uint32_t v) {
+  const uint32_t u = v ^ 0x8080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) -
+                   8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) -
+                   8388736.f;
+  return rt::bf162_bits(__floats2bfloat162_rn(lo, hi));
+}
+
+// The 16-bit word at p: the weight bytes of columns 2 grp, 2 grp + 1.
+__device__ __forceinline__ uint32_t lds16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// d[mt] += a * x^T over the n8 tiles of x rows, at k16 step kk of a stage.
+template <int MT>
+__device__ __forceinline__ void mma_x(float (&d)[MT][4],
+                                      const uint32_t (&a)[4],
+                                      const __nv_bfloat16 (*xs)[kXRow],
+                                      int kk, int lane) {
+  if constexpr (MT == 1) {
+    const __nv_bfloat16* xr = &xs[lane >> 2][kk * 16 + 2 * (lane & 3)];
+    rt::mma_bf16(d[0], a, *reinterpret_cast<const uint32_t*>(xr),
+                 *reinterpret_cast<const uint32_t*>(xr + 8));
+  } else {
+#pragma unroll
+    for (int mt = 0; mt < MT; mt += 2) {
+      // B fragments of n8 tiles mt and mt + 1 in one ldmatrix
+      uint32_t b[4];
+      rt::ldmatrix_x4(b, &xs[mt * 8 + (lane & 7) + ((lane >> 4) << 3)]
+                            [kk * 16 + ((lane >> 3) & 1) * 8]);
+      rt::mma_bf16(d[mt], a, b[0], b[1]);
+      rt::mma_bf16(d[mt + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int MT, bool kInt4>   // n8 tiles of x rows per CTA
 __global__ void __launch_bounds__(kThreads)
-int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-            const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
-            int M, int K, int N, int G, int per_split) {
+mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+           const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
+           int M, int K, int N, int G, int per_split) {
+  using StageT = Stage<MT, kInt4>;
   constexpr int kRowsM = 8 * MT;
+  constexpr int kWRows = StageT::kWRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Stage<MT>* ring = reinterpret_cast<Stage<MT>*>(smem_raw);
+  StageT* ring = reinterpret_cast<StageT*>(smem_raw);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -288,13 +352,17 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   const int st1 = min(st0 + per_split, stages);
   const int kend = min(st1 * kTileK, K);
 
-  auto load = [&](int st, Stage<MT>& dst) {
+  auto load = [&](int st, StageT& dst) {
     const int k0 = st * kTileK;
-    {   // 32 packed rows of 64 bytes: one 16-byte chunk per thread
-      const int r = tid >> 2;
-      const int c = (tid & 3) * 16;
-      const int gr = k0 / 2 + r;
-      const bool ok = 2 * gr < K && n0 + c < N;
+    // weight rows of 64 bytes, 16-byte chunks (int8: 2 per thread), in a
+    // loop of a known trip count (the strided form measured slower)
+#pragma unroll
+    for (int i = 0; i < kWRows * (kTileN / 16) / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e >> 2;
+      const int c = (e & 3) * 16;
+      const int gr = (kInt4 ? k0 / 2 : k0) + r;
+      const bool ok = (kInt4 ? 2 * gr : gr) < K && n0 + c < N;
       rt::cp_async16(&dst.w[r][c],
                      ok ? q + static_cast<size_t>(gr) * N + n0 + c : q,
                      ok ? 16 : 0);
@@ -308,28 +376,34 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
       rt::cp_async16(&dst.x[r][c],
                      ok ? x + static_cast<size_t>(m) * K + k : x, ok ? 16 : 0);
     }
-    if (tid < kSteps * (kTileN / 4)) {
-      // slot j: the scale row of the group that k16 step j lies in
-      const int j = tid / (kTileN / 4);
-      const int c = (tid - j * (kTileN / 4)) * 4;
-      const int k = k0 + 16 * j;
-      const bool ok = k < K && n0 + c < N;
-      rt::cp_async16(&dst.s[j][c],
-                     ok ? s + static_cast<size_t>(k / G) * N + n0 + c : s,
-                     ok ? 16 : 0);
+    if constexpr (kInt4) {
+      if (tid < kSteps * (kTileN / 4)) {
+        // slot j: the scale row of the group that k16 step j lies in
+        const int j = tid / (kTileN / 4);
+        const int c = (tid - j * (kTileN / 4)) * 4;
+        const int k = k0 + 16 * j;
+        const bool ok = k < K && n0 + c < N;
+        rt::cp_async16(&dst.s[j][c],
+                       ok ? s + static_cast<size_t>(k / G) * N + n0 + c : s,
+                       ok ? 16 : 0);
+      }
     }
   };
 
+  // acc: the output fragments; int4 sums each scale group in part first
   float acc[MT][4], part[MT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[mt][e] = part[mt][e] = 0.f;
   const int nw = warp * 16;
-  const int na = n0 + nw + grp;        // this lane's columns na, na + 8
-  // k16 steps left in the current scale group
-  const int group_steps = G / 16;
-  int left = group_steps - (st0 * kTileK % G) / 16;
+  // Row grp of the warp's m16 tile is output column ca (within the
+  // CTA's tile), row grp + 8 the next column, so one 16-bit shared load
+  // brings both of a thread's weight bytes of a (packed) row.
+  const int ca = nw + 2 * grp;
+  // k16 steps left in the current scale group (int4)
+  const int group_steps = kInt4 ? G / 16 : 0;
+  int left = kInt4 ? group_steps - (st0 * kTileK % G) / 16 : 0;
 
   // a ring of kStages stages: kStages - 1 in flight while one computes;
   // one commit group per stage, empty past the slice
@@ -344,66 +418,83 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     const int nxt = st + kStages - 1;
     if (nxt < st1) load(nxt, ring[(nxt - st0) % kStages]);
     rt::cp_async_commit();
-    const Stage<MT>& cur = ring[(st - st0) % kStages];
+    const StageT& cur = ring[(st - st0) % kStages];
     const int steps = min(kSteps, (kend - st * kTileK) / 16);
     // all of the stage's A fragments first, off the mma chain
     uint32_t a[kSteps][4];
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
-      const uint8_t* wr = &cur.w[kk * 8 + tig][nw + grp];
-      a[kk][0] = nibbles(wr[0]);
-      a[kk][1] = nibbles(wr[8]);
-      a[kk][2] = nibbles(wr[4 * kWRow]);
-      a[kk][3] = nibbles(wr[4 * kWRow + 8]);
+      if constexpr (kInt4) {
+        // packed row 8 kk + tig holds k = 16 kk + 2 tig, + 1; four rows
+        // on, k + 8, + 9
+        const uint8_t* wr = &cur.w[kk * 8 + tig][ca];
+        const uint32_t lo = lds16(wr);
+        const uint32_t hi = lds16(wr + 4 * kWRow);
+        a[kk][0] = nibbles(lo & 0xFFu);
+        a[kk][1] = nibbles(lo >> 8);
+        a[kk][2] = nibbles(hi & 0xFFu);
+        a[kk][3] = nibbles(hi >> 8);
+      } else {
+        // rows k = 16 kk + 2 tig, + 1, + 8, + 9: each register pairs the
+        // bytes of one column from two rows
+        const uint8_t* wr = &cur.w[kk * 16 + 2 * tig][ca];
+        const uint32_t p01 = __byte_perm(lds16(wr), lds16(wr + kWRow), 0x5140);
+        const uint32_t p89 =
+            __byte_perm(lds16(wr + 8 * kWRow), lds16(wr + 9 * kWRow), 0x5140);
+        a[kk][0] = bytes2(p01 & 0xFFFFu);
+        a[kk][1] = bytes2(p01 >> 16);
+        a[kk][2] = bytes2(p89 & 0xFFFFu);
+        a[kk][3] = bytes2(p89 >> 16);
+      }
     }
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
       if (kk < steps) {
-        if constexpr (MT == 1) {
-          const __nv_bfloat16* xr = &cur.x[grp][kk * 16 + 2 * tig];
-          rt::mma_bf16(part[0], a[kk], *reinterpret_cast<const uint32_t*>(xr),
-                       *reinterpret_cast<const uint32_t*>(xr + 8));
+        if constexpr (kInt4) {
+          mma_x<MT>(part, a[kk], cur.x, kk, lane);
+          // the group ends here (or the slice does): fold it in, scaled
+          if (--left == 0 || st * kTileK + 16 * (kk + 1) == kend) {
+            left = group_steps;
+            const float2 sc =
+                *reinterpret_cast<const float2*>(&cur.s[kk][ca]);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              acc[mt][0] = fmaf(sc.x, part[mt][0], acc[mt][0]);
+              acc[mt][1] = fmaf(sc.x, part[mt][1], acc[mt][1]);
+              acc[mt][2] = fmaf(sc.y, part[mt][2], acc[mt][2]);
+              acc[mt][3] = fmaf(sc.y, part[mt][3], acc[mt][3]);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+            }
+          }
         } else {
-#pragma unroll
-          for (int mt = 0; mt < MT; mt += 2) {
-            // B fragments of n8 tiles mt and mt + 1 in one ldmatrix
-            uint32_t b[4];
-            rt::ldmatrix_x4(b, &cur.x[mt * 8 + (lane & 7) + ((lane >> 4) << 3)]
-                                     [kk * 16 + ((lane >> 3) & 1) * 8]);
-            rt::mma_bf16(part[mt], a[kk], b[0], b[1]);
-            rt::mma_bf16(part[mt + 1], a[kk], b[2], b[3]);
-          }
-        }
-        // the group ends here (or the slice does): fold it in, scaled
-        if (--left == 0 || st * kTileK + 16 * (kk + 1) == kend) {
-          left = group_steps;
-          const float sa = cur.s[kk][nw + grp];
-          const float sb = cur.s[kk][nw + grp + 8];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            acc[mt][0] = fmaf(sa, part[mt][0], acc[mt][0]);
-            acc[mt][1] = fmaf(sa, part[mt][1], acc[mt][1]);
-            acc[mt][2] = fmaf(sb, part[mt][2], acc[mt][2]);
-            acc[mt][3] = fmaf(sb, part[mt][3], acc[mt][3]);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
-          }
+          mma_x<MT>(acc, a[kk], cur.x, kk, lane);
         }
       }
     }
   }
 
-  // fragment element e of n8 tile mt: row m0 + 8 mt + 2 tig + (e & 1) of
-  // x, output column na + 8 (e >> 1)
+  // Fragment element e of n8 tile mt: row m0 + 8 mt + 2 tig + (e & 1) of
+  // x, output column n0 + ca + (e >> 1), so elements e and e + 2 are the
+  // two neighbouring columns of one row.
+  const int nc = n0 + ca;
   if (splits == 1) {
+    float s0 = 1.f, s1 = 1.f;     // int8: the scale, after the sum
+    if constexpr (!kInt4) {
+      if (nc < N) {
+        s0 = s[nc];
+        s1 = s[nc + 1];
+      }
+    }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = m0 + mt * 8 + 2 * tig + (e & 1);
-        const int n = na + 8 * (e >> 1);
-        if (m < M && n < N)
-          out[static_cast<size_t>(m) * N + n] = __float2bfloat16(acc[mt][e]);
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + mt * 8 + 2 * tig + h;
+        if (m < M && nc < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(m) * N +
+                                             nc) =
+              __floats2bfloat162_rn(acc[mt][h] * s0, acc[mt][h + 2] * s1);
       }
     return;
   }
@@ -411,8 +502,8 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   // partial tile into its own shared memory (the ring is free now), and
   // after a cluster barrier every slice sums a share of the tile's float4
   // granules over all slices' partials, read through distributed shared
-  // memory in slice order.  The second barrier keeps each partial alive
-  // until all its readers are done.
+  // memory in slice order (int8 then scales the sum).  The second
+  // barrier keeps each partial alive until all its readers are done.
   constexpr int kPRow = kTileN + 4;    // partial row, in floats
   constexpr int kQuads = kTileN / 4;   // float4 granules per row
   rt::cp_async_wait<0>();
@@ -421,9 +512,9 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      partial[(mt * 8 + 2 * tig + (e & 1)) * kPRow + nw + grp + 8 * (e >> 1)] =
-          acc[mt][e];
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(partial + (mt * 8 + 2 * tig + h) * kPRow +
+                                 ca) = make_float2(acc[mt][h], acc[mt][h + 2]);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
   for (int gi = split * kThreads + tid; gi < kRowsM * kQuads;
@@ -448,6 +539,12 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
     const int m = m0 + r;
     const int n = n0 + c;
     if (m < M && n < N) {
+      if constexpr (!kInt4) {
+        v.x *= s[n];
+        v.y *= s[n + 1];
+        v.z *= s[n + 2];
+        v.w *= s[n + 3];
+      }
       uint2 pair;
       pair.x = rt::bf162_bits(__floats2bfloat162_rn(v.x, v.y));
       pair.y = rt::bf162_bits(__floats2bfloat162_rn(v.z, v.w));
@@ -457,14 +554,14 @@ int4_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
   cluster.sync();
 }
 
-template <int MT>
+template <int MT, bool kInt4>
 cudaError_t launch(const void* x, const void* q, const void* s, void* out,
                    int M, int K, int N, int G, int splits,
                    cudaStream_t stream) {
   const int stages = (K + kTileK - 1) / kTileK;
   const int per_split = (stages + splits - 1) / splits;
-  const size_t bytes = kStages * sizeof(Stage<MT>);
-  cudaError_t err = rt::allow_smem(int4_kernel<MT>, bytes);
+  const size_t bytes = kStages * sizeof(Stage<MT, kInt4>);
+  cudaError_t err = rt::allow_smem(mma_kernel<MT, kInt4>, bytes);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((N + kTileN - 1) / kTileN, (M + 8 * MT - 1) / (8 * MT),
@@ -479,7 +576,7 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out,
   cluster.val.clusterDim.z = splits;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, int4_kernel<MT>,
+  err = cudaLaunchKernelEx(&cfg, mma_kernel<MT, kInt4>,
                            static_cast<const __nv_bfloat16*>(x),
                            static_cast<const uint8_t*>(q),
                            static_cast<const float*>(s),
@@ -489,29 +586,51 @@ cudaError_t launch(const void* x, const void* q, const void* s, void* out,
   return cudaGetLastError();
 }
 
+template <bool kInt4>
 cudaError_t dispatch(const void* x, const void* q, const void* s, void* out,
                      int M, int K, int N, int G, int splits,
                      cudaStream_t st) {
-  if (M <= 8) return launch<1>(x, q, s, out, M, K, N, G, splits, st);
-  if (M <= 16) return launch<2>(x, q, s, out, M, K, N, G, splits, st);
-  if (M <= 32) return launch<4>(x, q, s, out, M, K, N, G, splits, st);
-  return launch<8>(x, q, s, out, M, K, N, G, splits, st);
+  if (M <= 8) return launch<1, kInt4>(x, q, s, out, M, K, N, G, splits, st);
+  if (M <= 16) return launch<2, kInt4>(x, q, s, out, M, K, N, G, splits, st);
+  if (M <= 32) return launch<4, kInt4>(x, q, s, out, M, K, N, G, splits, st);
+  return launch<8, kInt4>(x, q, s, out, M, K, N, G, splits, st);
+}
+
+// The checks both formats' mma entry shares: bf16, K of whole k16 steps,
+// N on the tiles, 16-byte aligned x and q, and a split of whole stages
+// within one portable cluster.
+bool takes(const void* x, const void* q, int M, int K, int N, int dtype,
+           int splits) {
+  const int stages = (K + kTileK - 1) / kTileK;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(q)) & 15u) == 0;
+  return dtype == 1 && K > 0 && K % 16 == 0 && N % 16 == 0 && aligned &&
+         splits >= 1 && splits <= stages && splits <= kMaxSplits &&
+         (M + 7) / 8 <= 65535;
 }
 
 }  // namespace mma
 
 }  // namespace
 
+// body: kBodyCudaCore or kBodyMma; splits (1 to kMaxSplits) is read by
+// the mma body only; group is unused (int8 scales are per column).
 extern "C" int rt_quant_matmul_int8(const void* x, const void* q,
                                     const void* s, void* out, int M, int K,
-                                    int N, int group, int dtype,
-                                    void* stream) {
+                                    int N, int group, int dtype, int body,
+                                    int splits, void* stream) {
   (void)group;
-  return dispatch<false>(x, q, s, out, M, K, N, 0, dtype, stream);
+  if (body == rt::kBodyCudaCore)
+    return dispatch<false>(x, q, s, out, M, K, N, 0, dtype, stream);
+  if (body != rt::kBodyMma) return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0) return 0;
+  if (!mma::takes(x, q, M, K, N, dtype, splits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mma::dispatch<false>(
+      x, q, s, out, M, K, N, 0, splits, static_cast<cudaStream_t>(stream)));
 }
 
-// body: kBodyCudaCore or kBodyMma; splits (1 to kMaxSplits) is read by
-// the mma body only.
+// body and splits as for int8.
 extern "C" int rt_quant_matmul_int4(const void* x, const void* q,
                                     const void* s, void* out, int M, int K,
                                     int N, int group, int dtype, int body,
@@ -520,13 +639,10 @@ extern "C" int rt_quant_matmul_int4(const void* x, const void* q,
     return dispatch<true>(x, q, s, out, M, K, N, group, dtype, stream);
   if (body != rt::kBodyMma) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
-  const int stages = (K + mma::kTileK - 1) / mma::kTileK;
-  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
-                         reinterpret_cast<uintptr_t>(q)) & 15u) == 0;
-  if (dtype != 1 || K <= 0 || group <= 0 || group % 16 != 0 ||
-      K % group != 0 || N % 16 != 0 || !aligned || splits < 1 ||
-      splits > stages || splits > mma::kMaxSplits || (M + 7) / 8 > 65535)
+  if (group <= 0 || group % 16 != 0 || K % group != 0 ||
+      !mma::takes(x, q, M, K, N, dtype, splits))
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(mma::dispatch(x, q, s, out, M, K, N, group, splits,
-                                        static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(mma::dispatch<true>(
+      x, q, s, out, M, K, N, group, splits,
+      static_cast<cudaStream_t>(stream)));
 }

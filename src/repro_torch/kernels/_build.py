@@ -50,8 +50,10 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 #: with two bodies (the body names of csrc/*.cu: "mma", the bf16
 #: tensor-core body; "cuda_core", the f32 CUDA-core body)
 bodies: Dict[str, Dict[str, int]] = {
-    "paged_prefill_attention": {"mma": 0, "cuda_core": 0},
-    "quant_matmul_int4": {"mma": 0, "cuda_core": 0}}
+    name: {"mma": 0, "cuda_core": 0}
+    for name in ("paged_decode_attention", "paged_prefill_attention",
+                 "dense_decode_attention", "quant_matmul_int8",
+                 "quant_matmul_int4")}
 BODY_CODES = {"cuda_core": 0, "mma": 1}   # csrc/common.cuh
 
 _lib: Optional[ctypes.CDLL] = None
@@ -146,18 +148,20 @@ _SIGNATURES = {
     # x, scale, out, rows, d, eps, dtype, stream
     "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
     # q, k_pool, v_pool, tables, pos, out, B, H, KV, hd, bs, nb, scale,
-    # dtype, stream
+    # dtype, body, splits, stream
     "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _F, _I, _P),
+                                  _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, out, C, H, KV, hd, bs, nb, pos, scale,
     # dtype, body, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _P),
-    # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, stream
+    # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
+    # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _F, _I, _P),
-    # x, q, s, out, M, K, N, group (unused), dtype, stream
-    "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+                                  _F, _I, _I, _I, _P),
+    # x, q, s, out, M, K, N, group (unused), dtype, body, splits, stream
+    "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _P),
     # x, q, s, out, M, K, N, group, dtype, body, splits, stream
     "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),

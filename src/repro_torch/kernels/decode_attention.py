@@ -13,10 +13,23 @@ above ``pos``:
   the slot engines' dense caches ``(B, S, KV, hd)`` of one layer, read
   in place (``csrc/dense_decode_attention.cu``).
 
-Both kernels share one body (``csrc/decode_attention.cuh``), so on the
-card a dense row and a paged row with the same KV give the same bits.
+Both kernels share their bodies (``csrc/decode_attention.cuh``), named
+by one rule, :func:`decode_body`, so on the card a dense row and a paged
+row with the same KV give the same bits:
+
+* ``"mma"`` (bfloat16, ``hd % 16 == 0``, ``hd <= 128``, at most 16 query
+  heads per KV head, 16-byte aligned tensors; every bf16 launch the
+  served models make): each (row, KV head) is a thread-block cluster of
+  :func:`decode_splits` CTAs that cut the row's live slot range by
+  logical slot (reading ``pos`` on the device), compute both products
+  on the tensor cores in f32 arithmetic, and merge their softmax
+  partials in split order through distributed shared memory.
+* ``"cuda_core"`` (float32 at every shape, bfloat16 at the others): one
+  block per (row, KV head) on the f32 CUDA cores.  float32 stays there
+  because the card's f32 streams must equal the CPU's.
+
 The wrappers run the plain version for CPU tensors only; for CUDA
-tensors they launch the kernel or raise.
+tensors they launch the body the rule names, or raise.
 """
 from __future__ import annotations
 
@@ -27,6 +40,44 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+SM_COUNT = 132            # H100 SXM
+DECODE_CHUNK = 16         # csrc/decode_attention.cuh: kSplitChunk
+DECODE_MAX_SPLITS = 8     # kMaxDecodeSplits, a portable cluster
+DECODE_MAX_HEADS = 16     # kMaxSplitHeads: G on the m16 side
+
+
+def decode_body(dtype: torch.dtype, hd: int, g: int,
+                aligned: bool = True) -> str:
+    """The decode kernel body a launch takes (paged and dense alike):
+    ``"mma"`` for bfloat16 with a head dim of whole k16 steps up to 128,
+    at most 16 query heads per KV head and 16-byte aligned tensors, else
+    ``"cuda_core"``."""
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and 16 <= hd <= 128
+            and g <= DECODE_MAX_HEADS and aligned):
+        return "mma"
+    return "cuda_core"
+
+
+def decode_splits(b: int, kv: int, capacity: int) -> int:
+    """CTAs per (row, KV head) for the mma body: about two CTAs per SM
+    over the ``b * kv`` pairs, at most one portable cluster of 8 and no
+    more than the row capacity's 16-slot chunks (``capacity`` = nb * bs
+    paged, S dense).  Shapes only: the slots each CTA takes are cut from
+    ``pos`` on the device, so the host never reads it, and the same
+    shapes give the same split and so the same bits."""
+    want = -(-2 * SM_COUNT // max(1, b * kv))
+    return max(1, min(DECODE_MAX_SPLITS, want,
+                      -(-capacity // DECODE_CHUNK)))
+
+
+def _body_and_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, kv: int, capacity: int,
+                     body: Optional[str]) -> tuple:
+    b, h, hd = q.shape
+    body = body or decode_body(
+        q.dtype, hd, h // kv,
+        all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    return body, decode_splits(b, kv, capacity) if body == "mma" else 1
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -64,10 +115,12 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
-                           pos: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           pos: torch.Tensor, scale: Optional[float] = None,
+                           _body: Optional[str] = None) -> torch.Tensor:
     """Paged decode attention; see :func:`paged_decode_attention_plain`
-    for the contract.  Pools are read in place, never transposed."""
+    for the contract.  Pools are read in place, never transposed.
+    ``_body`` forces a kernel body over :func:`decode_body`'s choice, for
+    timing the bodies against each other; the model never passes it."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             scale)
@@ -93,12 +146,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_decode_attention: the kernel takes "
                          "contiguous tensors")
     out = torch.empty_like(q)
+    body, splits = _body_and_splits(q, k_pool, v_pool, out, kv, nb * bs,
+                                    _body)
     lib = _build.library()
     _build.launches["paged_decode_attention"] += 1
+    _build.bodies["paged_decode_attention"][body] += 1
     _build.check(lib.rt_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, h, kv, hd, bs, nb, float(scale), _build.dtype_code(q.dtype),
+        _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_decode_attention")
     return out
@@ -127,9 +184,11 @@ def dense_decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, pos: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           _body: Optional[str] = None) -> torch.Tensor:
     """Dense decode attention; see :func:`dense_decode_attention_plain`
-    for the contract.  Caches are read in place, never transposed."""
+    for the contract.  Caches are read in place, never transposed.
+    ``_body`` as for :func:`paged_decode_attention`."""
     if q.device.type == "cpu":
         return dense_decode_attention_plain(q, k_cache, v_cache, pos, scale)
     b, h, hd = q.shape
@@ -153,12 +212,14 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("dense_decode_attention: the kernel takes "
                          "contiguous tensors")
     out = torch.empty_like(q)
+    body, splits = _body_and_splits(q, k_cache, v_cache, out, kv, s, _body)
     lib = _build.library()
     _build.launches["dense_decode_attention"] += 1
+    _build.bodies["dense_decode_attention"][body] += 1
     _build.check(lib.rt_dense_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         out.data_ptr(), b, h, kv, hd, s, float(scale),
-        _build.dtype_code(q.dtype),
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "dense_decode_attention")
     return out

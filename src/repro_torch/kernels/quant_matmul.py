@@ -21,21 +21,23 @@ f32 accumulation (``_chunk_len``), so the port's float32 streams sum
 in the reference's order.  The wrappers run the plain version for CPU
 tensors only; for CUDA tensors they launch the kernel or raise.
 
-The int4 kernel has two bodies, named by :func:`int4_body`:
+Each format's kernel has two bodies, named by :func:`int8_body` and
+:func:`int4_body`:
 
-* ``"mma"`` (bfloat16, ``G % 16 == 0``, ``N % 16 == 0``, 16-byte aligned
-  x and q; every bf16 launch the served models make): the transposed
-  product ``out^T = W^T x^T`` on the tensor cores (``mma.sync``
-  m16n8k16, f32 accumulators), N on the m16 side and M on the n8 side,
-  nibbles turned into exact bf16 integers, each scale group's partial
-  sum scaled in f32; K is split across the CTAs of a cluster
-  (:func:`int4_splits`), whose partials are summed in a fixed order
-  through distributed shared memory, so results do not depend on
+* ``"mma"`` (bfloat16, ``N % 16 == 0``, ``K % 16 == 0``, 16-byte aligned
+  x and q, and for int4 ``G % 16 == 0``; every bf16 launch the served
+  models make): the transposed product ``out^T = W^T x^T`` on the
+  tensor cores (``mma.sync`` m16n8k16, f32 accumulators), N on the m16
+  side and M on the n8 side, weights turned into exact bf16 integers
+  (int4 nibbles; int8 bytes paired across two rows of q), int4's scale
+  groups summed apart and scaled in f32, int8's scale applied after the
+  sum; K is split across the CTAs of a cluster (:func:`quant_splits`,
+  one rule for both formats), whose partials are summed in a fixed
+  order through distributed shared memory, so results do not depend on
   timing.
 * ``"cuda_core"`` (float32 at every shape, bfloat16 at the others): the
-  f32 CUDA-core body, which int8 always takes.  float32 stays there
-  because the card's f32 streams must equal the CPU's, and TF32 tensor
-  cores would round x.
+  f32 CUDA-core body.  float32 stays there because the card's f32
+  streams must equal the CPU's, and TF32 tensor cores would round x.
 """
 from __future__ import annotations
 
@@ -46,9 +48,19 @@ from typing import Optional
 from repro_torch.kernels import _build
 
 SM_COUNT = 132            # H100 SXM
-INT4_TILE_N = 64          # csrc/quant_matmul.cu: mma::kTileN
-INT4_STAGE_K = 64         # mma::kTileK
-INT4_MAX_SPLITS = 8       # mma::kMaxSplits, a portable cluster
+MMA_TILE_N = 64           # csrc/quant_matmul.cu: mma::kTileN
+MMA_STAGE_K = 64          # mma::kTileK
+MMA_MAX_SPLITS = 8        # mma::kMaxSplits, a portable cluster
+
+
+def int8_body(dtype: torch.dtype, k: int, n: int,
+              aligned: bool = True) -> str:
+    """The int8 kernel body a launch takes: ``"mma"`` for bfloat16 with K
+    and N on the tensor-core tiles (whole k16 steps, whole m16 tiles) and
+    16-byte aligned x and q, else ``"cuda_core"``."""
+    if dtype == torch.bfloat16 and n % 16 == 0 and k % 16 == 0 and aligned:
+        return "mma"
+    return "cuda_core"
 
 
 def int4_body(dtype: torch.dtype, n: int, group: int,
@@ -62,20 +74,30 @@ def int4_body(dtype: torch.dtype, n: int, group: int,
     return "cuda_core"
 
 
-def int4_splits(m: int, k: int, n: int) -> int:
-    """Slices of K for the mma body (one cluster of up to 8 CTAs per
-    output tile), each whole K stages of 64.  A decode product (M <= 16)
-    asks for two CTAs per SM over its ``ceil(N / 64)`` output tiles, one
-    stage per slice at least; a chunk's CTAs carry 4 to 8 times the mma
-    work, so larger M asks for one CTA per SM with at least 2 (M <= 64)
-    or 3 stages per slice.  The split, and so the f32 summation order,
-    depends on M, K and N only, never on timing."""
-    stages = -(-k // INT4_STAGE_K)
-    ctas, least = ((2 * SM_COUNT, 1) if m <= 16 else
-                   (SM_COUNT, 2) if m <= 64 else (SM_COUNT, 3))
-    want = -(-ctas // -(-n // INT4_TILE_N))
-    per = max(least, -(-stages // want))
-    return min(INT4_MAX_SPLITS, -(-stages // per))
+def mma_rows(m: int) -> int:
+    """Rows of x per CTA of the mma body (``mma::dispatch``: 1, 2, 4 or
+    8 n8 tiles)."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def quant_splits(m: int, k: int, n: int) -> int:
+    """Slices of K for the mma body of either format (one cluster of up
+    to 8 CTAs per output tile of 64 columns by ``mma_rows(M)`` rows),
+    each whole K stages of 64: 2 KB of int4 or 4 KB of int8 weights, of
+    which a slice's ring of 4 stages keeps 3 in flight.  Asks for two
+    CTAs per SM over the output tiles, with at least one stage per slice
+    at decode (M <= 16: every slice then starts all or most of its loads
+    up front) and two for a chunk, whose CTAs carry up to 8 n8 tiles of
+    mma work per weight fragment.  On the H100 it picks the fastest of
+    1 to 8 slices for int8 at the main path's decode and chunk shapes,
+    and for int4 one within 5% of it (``tools/torch_split_sweep.py``).
+    The split, and so the f32 summation order, depends on M, K and N
+    only, never on timing or the format."""
+    stages = -(-k // MMA_STAGE_K)
+    tiles = -(-n // MMA_TILE_N) * -(-m // mma_rows(m))
+    want = -(-2 * SM_COUNT // tiles)
+    per = max(1 if m <= 16 else 2, -(-stages // want))
+    return min(MMA_MAX_SPLITS, -(-stages // per))
 
 
 def chunk_len(k: int, multiple: int = 1, cap: int = 256) -> int:
@@ -162,40 +184,38 @@ def _launch(kind: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
     m = x.numel() // k if k else 0
     out = torch.empty((*x.shape[:-1], n), dtype=x.dtype, device=x.device)
+    aligned = x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    body = body or (int8_body(x.dtype, k, n, aligned) if kind == "int8"
+                    else int4_body(x.dtype, n, group, aligned))
+    splits = quant_splits(m, k, n) if body == "mma" else 1
     lib = _build.library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if kind == "int8":
-        _build.launches[name] += 1
-        _build.check(lib.rt_quant_matmul_int8(
-            x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
-            group, _build.dtype_code(x.dtype), stream), name)
-        return out
-    body = body or int4_body(x.dtype, n, group,
-                             x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
-    splits = int4_splits(m, k, n) if body == "mma" else 1
+    entry = (lib.rt_quant_matmul_int8 if kind == "int8"
+             else lib.rt_quant_matmul_int4)
     _build.launches[name] += 1
     _build.bodies[name][body] += 1
-    _build.check(lib.rt_quant_matmul_int4(
+    _build.check(entry(
         x.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), m, k, n,
         group, _build.dtype_code(x.dtype), _build.BODY_CODES[body], splits,
-        stream), name)
+        torch.cuda.current_stream(x.device).cuda_stream), name)
     return out
 
 
-def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor,
-                      s: torch.Tensor) -> torch.Tensor:
+def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      _body: Optional[str] = None) -> torch.Tensor:
     """x (..., K) @ dequant(q, s) for an int8 leaf; see the module
-    docstring for the layout."""
+    docstring for the layout.  ``_body`` forces a kernel body over
+    :func:`int8_body`'s choice, for timing the bodies against each other;
+    the model never passes it."""
     if x.device.type == "cpu":
         return quant_matmul_int8_plain(x, q, s)
-    return _launch("int8", x, q, s)
+    return _launch("int8", x, q, s, _body)
 
 
 def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                       _body: Optional[str] = None) -> torch.Tensor:
     """x (..., K) @ dequant(q, s) for a packed int4 leaf.  ``_body``
-    forces a kernel body over :func:`int4_body`'s choice, for timing the
-    bodies against each other; the model never passes it."""
+    forces a kernel body over :func:`int4_body`'s choice, as for int8;
+    the model never passes it."""
     if x.device.type == "cpu":
         return quant_matmul_int4_plain(x, q, s)
     return _launch("int4", x, q, s, _body)

@@ -28,15 +28,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    DECODE_CHUNK, DECODE_MAX_SPLITS, decode_body, decode_splits,
     dense_decode_attention, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     paged_prefill_attention, paged_prefill_attention_plain, prefill_body)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
-    INT4_MAX_SPLITS, INT4_STAGE_K, INT4_TILE_N, SM_COUNT, int4_body,
-    int4_splits,
+    MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
-    quant_matmul_int8_plain)
+    quant_matmul_int8_plain, quant_splits)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     selective_scan, selective_scan_plain)
@@ -424,14 +424,76 @@ def test_int4_splits_cover_k_and_fill_the_card(m, k, n):
     """Every slice of K holds at least one stage, a tile's slices fit one
     portable cluster, and a decode-sized product has at least one CTA per
     SM unless K ran out of stages or the cluster out of room."""
-    stages = -(-k // INT4_STAGE_K)
-    splits = int4_splits(m, k, n)
+    stages = -(-k // MMA_STAGE_K)
+    splits = quant_splits(m, k, n)
     per = -(-stages // splits)
-    assert 1 <= splits <= min(stages, INT4_MAX_SPLITS)
+    assert 1 <= splits <= min(stages, MMA_MAX_SPLITS)
     assert (splits - 1) * per < stages
     if m <= 16:
-        assert (-(-n // INT4_TILE_N) * splits >= SM_COUNT
-                or splits == min(stages, INT4_MAX_SPLITS))
+        assert (-(-n // MMA_TILE_N) * splits >= SM_COUNT
+                or splits == min(stages, MMA_MAX_SPLITS))
+
+
+@pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"),
+                                        ("float32", "cuda_core")])
+def test_int8_and_decode_body_rules_on_the_main_path(dtype, want):
+    """Every int8 projection and every decode attention smollm-360m runs
+    takes the tensor-core body in bfloat16 (hd 64, G = 3) and the
+    CUDA-core body in float32, paged and dense alike."""
+    dt = getattr(torch, dtype)
+    for k, n in SMOLLM_SITES:
+        assert int8_body(dt, k, n) == want
+    assert decode_body(dt, 64, 3) == want
+
+
+def test_int8_and_decode_body_rules_off_the_tiles():
+    """Shapes the tensor-core tiles do not take keep the CUDA-core body
+    in bfloat16 too."""
+    bf = torch.bfloat16
+    assert int8_body(bf, 96, 48) == "mma"
+    assert int8_body(bf, 48, 16) == "mma"
+    for k, n in ((128, 300), (66, 7), (960, 8), (962, 960), (40, 32)):
+        assert int8_body(bf, k, n) == "cuda_core"
+    assert int8_body(bf, 960, 960, aligned=False) == "cuda_core"
+    for hd, g in ((16, 1), (32, 3), (128, 8), (64, 16)):
+        assert decode_body(bf, hd, g) == "mma"
+    for hd, g in ((8, 3), (72, 3), (100, 2), (256, 4), (64, 17)):
+        assert decode_body(bf, hd, g) == "cuda_core"
+    assert decode_body(bf, 64, 3, aligned=False) == "cuda_core"
+
+
+def _decode_shares(klast: int, splits: int) -> list:
+    """The 16-slot chunks [c0, c1) each CTA of a cluster takes for a row
+    whose last live slot is ``klast`` (csrc/decode_attention.cuh::
+    decode_split)."""
+    nch = klast // DECODE_CHUNK + 1 if klast >= 0 else 0
+    per = -(-nch // splits)
+    return [(r * per, min(r * per + per, nch)) for r in range(splits)]
+
+
+@pytest.mark.parametrize("b,kv,capacity", [
+    (8, 5, 1024),        # smollm-360m's paged and slot decode
+    (1, 5, 1024), (4, 5, 256), (16, 5, 1024), (64, 8, 4096),
+    (3, 2, 24), (2, 2, 16), (1, 1, 8),
+])
+def test_decode_splits_cover_the_slots_and_fill_the_card(b, kv, capacity):
+    """The split fits one portable cluster, asks for no more CTAs than
+    the row has 16-slot chunks, fills the card with about two CTAs per
+    SM where it can, and its shares cover every live slot exactly once
+    at every pos (a share past klast is empty)."""
+    splits = decode_splits(b, kv, capacity)
+    chunks = -(-capacity // DECODE_CHUNK)
+    assert 1 <= splits <= min(DECODE_MAX_SPLITS, chunks)
+    assert (b * kv * splits >= 2 * SM_COUNT
+            or splits == min(DECODE_MAX_SPLITS, chunks))
+    for klast in range(-1, capacity):
+        shares = _decode_shares(klast, splits)
+        covered = [c for c0, c1 in shares for c in range(c0, c1)]
+        assert covered == list(range(klast // DECODE_CHUNK + 1
+                                     if klast >= 0 else 0))
+    # the main path's shape: 40 (row, KV head) pairs, 280 CTAs
+    if (b, kv, capacity) == (8, 5, 1024):
+        assert splits == 7
 
 
 # ----------------------------------------------------------------------
@@ -674,3 +736,184 @@ def test_cuda_selective_scan_matches_plain(cuda_device, b, t_, di, ds,
         assert torch.equal(h, h0)
     assert _rel_err(y.cpu(), want_y.cpu()) <= CARD_TOL["float32"]
     assert _rel_err(h_t.cpu(), want_h.cpu()) <= CARD_TOL["float32"]
+
+
+# ----------------------------------------------------------------------
+# on the card: the int8 tensor-core body
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 37, 128])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (48, 16)])
+def test_cuda_quant_matmul_int8_mma_body(cuda_device, k, n, m):
+    """The int8 tensor-core body at every smollm-360m site (wq / wo,
+    wk / wv, w_gate / w_up, w_down), decode and chunk row counts, and
+    two K that end inside a stage (96, and 48 with a single warp's N):
+    within the bf16 gate of the plain version, and bit-equal over
+    repeated calls (the split-K partials are summed in a fixed order)."""
+    rng = np.random.default_rng(23)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    # reprolint: disable-next=quant-static-weights -- a kernel test packs
+    # one leaf, as the int4 kernel tests here do
+    packed = quantize_int8(w)
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    n0 = _build.bodies["quant_matmul_int8"]["mma"]
+    got = quant_matmul_int8(x, q, s)
+    assert _build.bodies["quant_matmul_int8"]["mma"] == n0 + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _card_close(got, quant_matmul_int8_plain(x, q, s), "bfloat16",
+                QMM_CARD_TOL)
+    for _ in range(3):
+        assert torch.equal(quant_matmul_int8(x, q, s), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 960, 2560), (128, 2560, 960)])
+def test_cuda_quant_matmul_int8_cuda_core_body_in_bf16(cuda_device, m, k, n):
+    """The CUDA-core body, forced on a bf16 main-path shape (as
+    chip_smoke.py times it against the mma body), agrees with the plain
+    version too."""
+    rng = np.random.default_rng(24)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    # reprolint: disable-next=quant-static-weights -- a kernel test packs
+    # one leaf, as the int4 kernel tests here do
+    packed = quantize_int8(w)
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    n0 = _build.bodies["quant_matmul_int8"]["cuda_core"]
+    got = quant_matmul_int8(x, q, s, _body="cuda_core")
+    assert _build.bodies["quant_matmul_int8"]["cuda_core"] == n0 + 1
+    _card_close(got, quant_matmul_int8_plain(x, q, s), "bfloat16",
+                QMM_CARD_TOL)
+
+
+# ----------------------------------------------------------------------
+# on the card: the split-slot decode body
+# ----------------------------------------------------------------------
+SPLIT_NB, SPLIT_BS = 64, 16          # smollm-360m's pool: 1024 slots a row
+
+
+def _split_inputs(rng, pos_list, h=15, kv=5, d=64):
+    """Paged decode inputs at smollm-360m's heads for rows at the given
+    positions; the last row is masked (frozen pos, all-zero table)."""
+    b = len(pos_list) + 1
+    q, kp, vp, tables, _ = _paged_inputs(rng, b, h, kv, SPLIT_NB, SPLIT_BS, d)
+    pos = np.array(list(pos_list) + [5], np.int32)
+    tables[-1] = 0
+    return q, kp, vp, tables, pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [0, 63, 64, 127, 616, SPLIT_NB * SPLIT_BS - 1])
+def test_cuda_split_decode_matches_plain(cuda_device, pos):
+    """The split body at a row's first slot, tile edges, the main path's
+    longest row and a full row, beside rows at other positions and a
+    masked row on the scratch block: within the bf16 gate of the plain
+    version, paged and dense, and bit-equal over repeated calls."""
+    rng = np.random.default_rng(25 + pos)
+    q, kp, vp, tables, pos_np = _split_inputs(
+        rng, [pos, 1, 300, 1000, 17, 511, pos])
+    args = [t(a).to(cuda_device, torch.bfloat16) for a in (q, kp, vp)] + [
+        t(a).to(cuda_device) for a in (tables, pos_np)]
+    n0 = _build.bodies["paged_decode_attention"]["mma"]
+    got = paged_decode_attention(*args)
+    assert _build.bodies["paged_decode_attention"]["mma"] == n0 + 1
+    _card_close(got, paged_decode_attention_plain(*args), "bfloat16")
+    for _ in range(3):
+        assert torch.equal(paged_decode_attention(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 64, 616, SPLIT_NB * SPLIT_BS - 1])
+def test_cuda_split_decode_bits_do_not_depend_on_blocks(cuda_device, dtype,
+                                                        pos):
+    """The same logical K/V as a shuffled table of 16-slot blocks, as
+    one paged block of all the slots, and as the slot engine's dense
+    rows gives the same bits (the bf16 split body and the f32 body
+    alike)."""
+    rng = np.random.default_rng(26)
+    b, h, kv, d = 4, 15, 5, 64
+    cap = SPLIT_NB * SPLIT_BS
+    q = rng.standard_normal((b, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, cap, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, cap, kv, d), dtype=np.float32)
+    tables = (rng.permutation(b * SPLIT_NB).reshape(b, SPLIT_NB) + 1
+              ).astype(np.int32)
+    kp = np.zeros((b * SPLIT_NB + 1, SPLIT_BS, kv, d), np.float32)
+    vp = np.zeros_like(kp)
+    kp[tables] = k.reshape(b, SPLIT_NB, SPLIT_BS, kv, d)
+    vp[tables] = v.reshape(b, SPLIT_NB, SPLIT_BS, kv, d)
+    pos_np = np.array([pos, 3, 700, cap - 1], np.int32)
+    dt = getattr(torch, dtype)
+
+    def card(a):
+        return t(a).to(cuda_device, dt)
+    pos_t = t(pos_np).to(cuda_device)
+    paged = paged_decode_attention(card(q), card(kp), card(vp),
+                                   t(tables).to(cuda_device), pos_t)
+    one_block = paged_decode_attention(
+        card(q), card(k), card(v),
+        torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None],
+        pos_t)
+    dense = dense_decode_attention(card(q), card(k), card(v), pos_t)
+    assert torch.equal(paged, one_block)
+    assert torch.equal(paged, dense)
+    _card_close(paged, paged_decode_attention_plain(
+        card(q), card(kp), card(vp), t(tables).to(cuda_device), pos_t),
+        dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (8, 15, 5, 1024, 64),     # smollm-360m's slot engine
+    (3, 6, 2, 40, 32),        # S not a multiple of 16
+    (2, 16, 2, 100, 128),     # G = 8, hd 128
+    (1, 16, 1, 64, 16),       # G = 16 fills the m16 side
+])
+def test_cuda_split_dense_decode_matches_plain(cuda_device, b, h, kv, s, d):
+    """The dense kernel's split body against its plain version, with a
+    row at pos 0, one at S - 1 and one frozen past the cache; bit-equal
+    to the paged kernel on one-block rows and over repeated calls."""
+    rng = np.random.default_rng(27)
+    q, kc, vc, pos = _dense_inputs(rng, max(b, 3), h, kv, s, d)
+    q, kc, vc, pos = q[:b], kc[:b], vc[:b], pos[-b:]
+    args = [t(a).to(cuda_device, torch.bfloat16) for a in (q, kc, vc)] + [
+        t(np.ascontiguousarray(pos)).to(cuda_device)]
+    n0 = _build.bodies["dense_decode_attention"]["mma"]
+    got = dense_decode_attention(*args)
+    assert _build.bodies["dense_decode_attention"]["mma"] == n0 + 1
+    _card_close(got, dense_decode_attention_plain(*args), "bfloat16")
+    tables = torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None]
+    assert torch.equal(got, paged_decode_attention(
+        args[0], args[1], args[2], tables, args[3]))
+    for _ in range(3):
+        assert torch.equal(dense_decode_attention(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_cuda_decode_cuda_core_body_in_bf16(cuda_device, kernel):
+    """The one-CTA CUDA-core body, forced on the bf16 main-path shape (as
+    chip_smoke.py times it against the split body), agrees with the
+    plain version too."""
+    rng = np.random.default_rng(28)
+    q, kp, vp, tables, pos = _split_inputs(rng, [616, 64, 300, 5, 1, 450, 90])
+    bf = torch.bfloat16
+    if kernel == "paged":
+        args = [t(a).to(cuda_device, bf) for a in (q, kp, vp)] + [
+            t(a).to(cuda_device) for a in (tables, pos)]
+        fn, plain = paged_decode_attention, paged_decode_attention_plain
+    else:
+        kc = rng.standard_normal((len(pos), 1024, 5, 64), dtype=np.float32)
+        vc = rng.standard_normal((len(pos), 1024, 5, 64), dtype=np.float32)
+        args = [t(a).to(cuda_device, bf) for a in (q, kc, vc)] + [
+            t(pos).to(cuda_device)]
+        fn, plain = dense_decode_attention, dense_decode_attention_plain
+    name = f"{kernel}_decode_attention"
+    n0 = _build.bodies[name]["cuda_core"]
+    got = fn(*args, _body="cuda_core")
+    assert _build.bodies[name]["cuda_core"] == n0 + 1
+    _card_close(got, plain(*args), "bfloat16")

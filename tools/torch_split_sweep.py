@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Time the port's split kernels at every split count, on the card.
+
+Run from the repository root on a machine with one NVIDIA GPU::
+
+    python3 tools/torch_split_sweep.py
+
+For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
+projection shapes (8 decode rows and a 128-row prefill chunk), and for
+the split decode attention at 1, 4 and 8 rows, it forces each split
+count in turn (through the wrappers' split rules) and prints one JSON
+line per shape: the device time per call in ms for each count
+(torch.profiler, as ``chip_smoke.py`` measures kernels) beside the count
+the rule picks.  The first line is the card's name and power limit.
+Without a CUDA device it exits with code 2.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+
+QMM_SHAPES = [(8, 960, 2560), (8, 960, 960), (8, 960, 320), (8, 2560, 960),
+              (128, 2560, 960), (128, 960, 2560), (128, 960, 960),
+              (128, 960, 320)]
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_split_sweep: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    from chip_smoke import device_ms
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.quantize import quantize_int4, quantize_int8
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    _build.library()
+    rng = np.random.default_rng(0)
+    qmm_rule = qm.quant_splits
+    for m, k, n in QMM_SHAPES:
+        w = torch.from_numpy(
+            rng.standard_normal((k, n)).astype(np.float32) * k ** -0.5)
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        for fmt, pack, fn in (("int8", quantize_int8, qm.quant_matmul_int8),
+                              ("int4", quantize_int4, qm.quant_matmul_int4)):
+            packed = pack(w)
+            q, s = packed["q"].to(dev), packed["s"].to(dev)
+            row = {"kernel": f"quant_matmul_{fmt}", "shape": [m, k, n],
+                   "rule": qmm_rule(m, k, n), "ms": {}}
+            for sp in range(1, min(8, -(-k // 64)) + 1):
+                qm.quant_splits = lambda *a, sp=sp: sp
+                row["ms"][sp] = device_ms(lambda: fn(x, q, s))
+            qm.quant_splits = qmm_rule
+            print(json.dumps(row), flush=True)
+
+    h, kv, hd, bs, nb = 15, 5, 64, 16, 64          # smollm-360m's pool
+    decode_rule = da.decode_splits
+    for b in (8, 4, 1):
+        nbp = b * nb + 1
+        kp = torch.randn(nbp, bs, kv, hd, device=dev, dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        tables = torch.from_numpy((rng.permutation(nbp - 1)[:b * nb].reshape(
+            b, nb) + 1).astype(np.int32)).to(dev)
+        pos = torch.from_numpy(rng.integers(64, 640, size=b).astype(
+            np.int32)).to(dev)
+        q = torch.randn(b, h, hd, device=dev, dtype=torch.bfloat16)
+        row = {"kernel": "paged_decode_attention", "B": b,
+               "rule": decode_rule(b, kv, nb * bs), "ms": {}}
+        for sp in range(1, 9):
+            da.decode_splits = lambda *a, sp=sp: sp
+            row["ms"][sp] = device_ms(
+                lambda: da.paged_decode_attention(q, kp, vp, tables, pos))
+        da.decode_splits = decode_rule
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
