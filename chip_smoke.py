@@ -26,7 +26,14 @@ one JSON line:
    prefill, int8 and int4 quant matmul, paged and dense decode) the
    bf16 cases also time the previous CUDA-core body on the same inputs,
    in turns with the new one (new, old, old, new), as ``prev_ms``, and
-   gate its output too;
+   gate its output too; so do the selective scan's cases for its
+   previous body (``cuda_core``, against ``state_lanes``), whose
+   ``h_T`` must also equal the new body's bit for bit, and which print
+   the scan's instruction-issue bound beside the bytes bound.  rmsnorm
+   is also timed at falcon-mamba-7b's width (8 and 128 rows of 4096,
+   bf16), and an empty kernel (``csrc/launch_floor.cu``; not a port of
+   any TPU kernel, so not in the kernel list) gives the floor one launch
+   costs, at 1 block and at the decode scan's grid;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -49,18 +56,20 @@ one JSON line:
    Then falcon-mamba-7b at full width and depth (64 Mamba1 layers) in
    bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
    through ``ServingEngine``, with the same checks (the slot run's share
-   of tokens equal to the paged run's printed).
+   of tokens equal to the paged run's printed, and every scan launch on
+   the ``state_lanes`` body).
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba paged run): two steady decode macro-steps timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time; the idle share is one minus busy over the
-   unprofiled wall time.  After the bf16 smollm paged run, the same for
-   a prefill window: 8 requests of 385 tokens admitted at once, 24
-   chunks of 128, with the device busy time per chunk.  The bf16
-   decode and prefill windows and the int8 and int4 decode windows run
-   again with the previous (CUDA-core) body of the paged decode, the
-   paged prefill, or the int8 or int4 quant matmul, for the busy time
-   each redesign saves.
+   unprofiled wall time.  After the bf16 smollm paged run and the
+   falcon-mamba paged run, the same for a prefill window: 8 requests of
+   385 tokens admitted at once, 24 chunks of 128, with the device busy
+   time per chunk.  The bf16 decode and prefill windows, the int8 and
+   int4 decode windows and both falcon-mamba windows run again with the
+   previous (CUDA-core) body of the paged decode, the paged prefill,
+   the int8 or int4 quant matmul, or the selective scan, for the busy
+   time each redesign saves.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -116,6 +125,16 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "selective_scan": "mamba_paged_bf16"}
 #: the dtype of each kernel's main-path case in the kernels line
 MAIN_DTYPE = {"selective_scan": "float32"}
+#: the body every serve-run launch of a two-body kernel must take
+MAIN_BODY = {"selective_scan": "state_lanes"}   # the others: "mma"
+#: the scan's issue bound: the thread instructions one state update
+#: takes as the card compiles it (cuobjdump of csrc/selective_scan.cu:
+#: dt*a, the accurate expf's eight, decay*h, dx*B, their sum, h*C and
+#: its add to y), with no loads, over the card's issue rate (132 SMs x 4
+#: schedulers x one 32-thread instruction a clock at the H100 SXM's
+#: 1.98 GHz boost clock)
+SCAN_INSTR_PER_UPDATE = 14
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -189,12 +208,15 @@ def _errors(out, ref, dtype, tol, relative) -> tuple:
 
 
 def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
-          tol=TOL, relative=False, library_note=None, prev=None):
+          tol=TOL, relative=False, library_note=None, prev=None,
+          prev_out=None, extra=None):
     """One kernel case: ``out`` (kernel) against ``ref`` (plain) on the
     card, then the timings.  ``relative`` gates the error relative to
     max(1, |ref|) instead of the absolute one.  ``prev``: the kernel's
-    previous (CUDA-core) body on the same inputs, gated the same way and
-    timed in turns with the kernel (kernel, prev, prev, kernel)."""
+    previous (CUDA-core) body on the same inputs, gated the same way
+    (on ``prev_out`` where given, else on what ``prev()`` returns) and
+    timed in turns with the kernel (kernel, prev, prev, kernel).
+    ``extra``: more keys for the case's line."""
     import torch
     torch.cuda.synchronize()
     err, rel, excess, ok = _errors(out, ref, dtype, tol, relative)
@@ -203,7 +225,9 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
     if prev is None:
         ms = device_ms(fn)
     else:
-        p_err, _, p_excess, p_ok = _errors(prev(), ref, dtype, tol, relative)
+        p_err, _, p_excess, p_ok = _errors(
+            prev() if prev_out is None else prev_out, ref, dtype, tol,
+            relative)
         turns = [device_ms(f) for f in (fn, prev, prev, fn)]
         ms = (turns[0] + turns[3]) / 2
         prev_case = {"prev_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
@@ -219,7 +243,7 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
             "library_ms": device_ms(library) if library else None,
             "call_ms": call_ms(fn),
             "bound_ms": b_ms, "bound_by": b_by,
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops, **(extra or {})}
     if library_note:
         case["library_note"] = library_note
     emit({"phase": "kernels", **case})
@@ -271,6 +295,18 @@ def kernel_cases(dev) -> list:
                 lambda: rmsnorm_plain(x, sc, 1e-5),
                 lambda: F.rms_norm(x, (D,), sc, 1e-5),
                 2 * rows * D * es + D * es, 4 * rows * D))
+        # and at falcon-mamba-7b's d_model, the width its 65 norms an
+        # iteration run at
+        DM = 4096
+        for rows in ((8, 128) if dname == "bfloat16" else ()):
+            x = t(rng.standard_normal((rows, DM)), dtype)
+            sc = t(1 + 0.1 * rng.standard_normal(DM), dtype)
+            cases.append(_case(
+                "rmsnorm", dname, [rows, DM], rmsnorm(x, sc, 1e-5),
+                rmsnorm_plain(x, sc, 1e-5), lambda: rmsnorm(x, sc, 1e-5),
+                lambda: rmsnorm_plain(x, sc, 1e-5),
+                lambda: F.rms_norm(x, (DM,), sc, 1e-5),
+                2 * rows * DM * es + DM * es, 4 * rows * DM))
 
         # paged decode: B = 8 rows, positions up to ~600, one masked row
         # (frozen pos, all-zero table -> the scratch block 0)
@@ -424,14 +460,38 @@ def kernel_cases(dev) -> list:
             prev=(lambda: dense_decode_attention(q, kc, vc, pos,
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
+    launch_floor(dev)
     return cases + scan_cases(dev)
+
+
+def launch_floor(dev) -> list:
+    """The empty kernel's device time and time per back-to-back call, at
+    one block and at the grid of the decode scan (8 rows of
+    falcon-mamba-7b), in blocks of 128 threads: the least any launch of
+    such a grid costs, beside which the kernels of a few microseconds
+    are judged."""
+    from repro_torch.kernels.launch_floor import empty
+    from repro_torch.kernels.selective_scan import scan_blocks, scan_lanes
+    rows = []
+    for blocks in (1, scan_blocks(8, 8192, scan_lanes(8, 8192, 16))):
+        empty(dev, blocks)
+        row = {"phase": "kernels", "kernel": "empty",
+               "check": "launch floor (no TPU kernel; not listed)",
+               "blocks": blocks, "threads": 128,
+               "ms": device_ms(lambda: empty(dev, blocks)),
+               "call_ms": call_ms(lambda: empty(dev, blocks))}
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 def scan_cases(dev) -> list:
     """The selective scan in float32 at falcon-mamba-7b's shapes: a decode
     step of 8 rows and a prefill chunk of 128 steps, both with the state
     updated in place as the model runs them, and a ragged case (DI and T
-    off the kernel's tiles, B and C as strided column slices)."""
+    off the kernel's tiles, B and C as strided column slices).  The
+    model's body (``state_lanes``) is timed in turns with the previous
+    one (``cuda_core``), whose ``h_T`` it must equal bit for bit."""
     import torch
     from repro_torch.kernels.selective_scan import (selective_scan,
                                                     selective_scan_plain)
@@ -451,24 +511,41 @@ def scan_cases(dev) -> list:
             proj = torch.cat([f32((b, t, 5)), bm, cm], dim=-1)
             bm, cm = proj[..., 5:5 + ds], proj[..., 5 + ds:]
         want_y, want_h = selective_scan_plain(dt, bm, cm, x, a_neg, h0)
-        h = h0.clone()
+        h, hp = h0.clone(), h0.clone()
         got_y, got_h = selective_scan(dt, bm, cm, x, a_neg, h,
                                       h_out=h if aliased else None)
         if aliased and got_h is not h:
             raise AssertionError("selective_scan: h_out=h0 did not update "
                                  "the state in place")
+        prev_y, prev_h = selective_scan(dt, bm, cm, x, a_neg, hp,
+                                        h_out=hp if aliased else None,
+                                        _body="cuda_core")
+        shape = {"B": b, "T": t, "DI": di, "DS": ds, "h_in_place": aliased,
+                 "strided_bc": strided}
+        h_equal = torch.equal(got_h, prev_h)
+        emit({"phase": "kernels", "kernel": "selective_scan",
+              "check": "h_T of state_lanes bit-equal to cuda_core's",
+              "shape": shape, "equal": h_equal,
+              "y_max_abs_diff": (got_y - prev_y).abs().max().item()})
+        if not h_equal:
+            raise AssertionError(f"selective_scan {shape}: state_lanes' h_T "
+                                 f"differs from the previous body's")
         hs = h.clone()    # the timed calls carry this state on, in place
 
         def kernel(hs=hs, args=(dt, bm, cm, x, a_neg)):
             return selective_scan(*args, hs, h_out=hs if aliased else None)
 
+        def prev(hs=hs, args=(dt, bm, cm, x, a_neg)):
+            return selective_scan(*args, hs, h_out=hs if aliased else None,
+                                  _body="cuda_core")
+
         def plain(hs=hs, args=(dt, bm, cm, x, a_neg)):
             return selective_scan_plain(*args, hs,
                                         h_out=hs if aliased else None)
+        issue_ms = (b * t * di * ds * SCAN_INSTR_PER_UPDATE
+                    / ISSUE_PER_S * 1e3)
         cases.append(_case(
-            "selective_scan", "float32",
-            {"B": b, "T": t, "DI": di, "DS": ds, "h_in_place": aliased,
-             "strided_bc": strided},
+            "selective_scan", "float32", shape,
             torch.cat([got_y.flatten(), got_h.flatten()]),
             torch.cat([want_y.flatten(), want_h.flatten()]),
             kernel, plain, None,
@@ -481,7 +558,11 @@ def scan_cases(dev) -> list:
             b * t * di * (1 + 7 * ds),
             relative=True,
             library_note="none: no single PyTorch call computes the "
-                         "recurrence"))
+                         "recurrence",
+            prev=prev, prev_out=torch.cat([prev_y.flatten(),
+                                           prev_h.flatten()]),
+            extra={"issue_bound_ms": issue_ms,
+                   "instr_per_update": SCAN_INSTR_PER_UPDATE}))
     return cases
 
 
@@ -761,11 +842,12 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
     # every serve run is bf16: each launch of a two-body kernel must have
-    # taken its tensor-core body
-    if any(b["cuda_core"] or b["mma"] != launches[k]
-           for k, b in bodies.items()):
+    # taken its tensor-core body, and each scan launch state_lanes
+    if any(n != (launches[k] if body == MAIN_BODY.get(k, "mma") else 0)
+           for k, b in bodies.items() for body, n in b.items()):
         raise AssertionError(f"serve {name}: launches by body {bodies}, "
-                             f"expected every launch on the mma body")
+                             f"expected every launch on the body of "
+                             f"{MAIN_BODY} (else mma)")
     return res, streams, eng
 
 
@@ -827,9 +909,10 @@ def serve(dev) -> dict:
 def serve_mamba(dev) -> dict:
     """falcon-mamba-7b at full width and depth (64 Mamba1 layers, about
     14.5 GB of bf16 weights drawn from the seed): 8 requests through
-    ``PagedServingEngine`` and its decode profile, then the same 8
-    through ``ServingEngine`` on the same weights, with its share of
-    tokens equal to the paged run's.  Returns each run's launch counts."""
+    ``PagedServingEngine`` and its decode and prefill-chunk profiles,
+    both again under the previous scan body, then the same 8 through
+    ``ServingEngine`` on the same weights, with its share of tokens equal
+    to the paged run's.  Returns each run's launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -843,6 +926,12 @@ def serve_mamba(dev) -> dict:
                               kw, prompts, dev)
     launches = {"mamba_paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="mamba_paged_bf16")
+    profile_prefill(cfg, eng.params, kw, dev, label="mamba_paged_bf16")
+    with previous_body("selective_scan"):
+        profile_decode(cfg, eng.params, kw, dev,
+                       label="mamba_paged_bf16, previous scan body")
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="mamba_paged_bf16, previous scan body")
     params = eng.params
     del eng
     gc.collect()
@@ -860,11 +949,12 @@ def previous_body(kernel: str):
     """Within the block, the model's calls of ``kernel`` take its previous
     (CUDA-core) body, through the wrapper's private ``_body`` argument:
     the profile windows compare the two bodies in one call."""
-    from repro_torch.models import attention, quantize
+    from repro_torch.models import attention, quantize, ssm
     module = {"paged_decode_attention": attention,
               "paged_prefill_attention": attention,
               "quant_matmul_int8": quantize,
-              "quant_matmul_int4": quantize}[kernel]
+              "quant_matmul_int4": quantize,
+              "selective_scan": ssm}[kernel]
     wrapper = getattr(module, kernel)
     setattr(module, kernel, functools.partial(wrapper, _body="cuda_core"))
     try:

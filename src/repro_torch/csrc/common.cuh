@@ -13,8 +13,9 @@ constexpr float kNegInf = -1e30f;   // the reference's NEG_INF mask value
 
 // Body codes of the entry points of kernels with two bodies
 // (kernels/_build.py::BODY_CODES).
-constexpr int kBodyCudaCore = 0;   // f32 on the CUDA cores
-constexpr int kBodyMma = 1;        // bf16 on the tensor cores
+constexpr int kBodyCudaCore = 0;     // f32 on the CUDA cores
+constexpr int kBodyMma = 1;          // bf16 on the tensor cores
+constexpr int kBodyStateLanes = 2;   // the scan, d_state across lanes
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

@@ -3,30 +3,48 @@
 //   y[t] = sum_s h[s] * C[t, s]
 // in f32, with h read from h0 before the first step and written to h_out
 // after the last (h0 and h_out may be the same buffer: each thread reads
-// and writes only its own channel's state, so the update is in place).
+// and writes only the state elements it owns, so the update is in place).
 //
 // Replaces the TPU kernel src/repro/kernels/selective_scan.py::
 // selective_scan_pallas (body _scan_kernel), i.e. the lax.scan of
 // _mamba1_scan_step that the reference model runs in mamba1_seq (a prefill
 // chunk, T = C) and mamba1_step (a decode step, T = 1).
 //
-// Bound on the H100: bytes.  dt and x are read and y written once per
-// (b, t, d), B and C once per (b, t), h twice per (b, d); the arithmetic is
-// d_state multiply-adds and exps per element.  The Pallas kernel tiles a
-// sequential grid axis over T chunks with h in VMEM scratch; here the
-// recurrence runs in one thread per (b, d) channel instead, its d_state
-// values of h and a in registers across all T steps, so h never leaves
-// the chip between steps.  Threads of a block are consecutive channels,
-// so the per-step loads of dt and x and the store of y are coalesced
-// along d; B and C, shared by every channel of a batch row, are staged a
-// tile of steps at a time in shared memory.  The grid is (ceil(DI/128), B):
-// at a prefill chunk of one row (B = 1, DI = 8192) that is 64 blocks on
-// 132 SMs; splitting d_state across lanes would fill more of the card.
+// Two bodies (kernels/selective_scan.py::scan_body names the one a launch
+// takes):
+//
+// * state_lanes (every launch the model makes).  Each (b, d) channel's
+//   d_state values are split across G consecutive lanes of a warp
+//   (G = 4, 8 or 16, kernels/selective_scan.py::scan_lanes), each lane
+//   holding S = ceil(DS / G) consecutive states of h and a in registers
+//   across all T steps.  Lanes run in (b, d, s) order, so a warp's loads
+//   of h0 and a_neg and its store of h_out are whole contiguous segments
+//   (16- or 8-byte vectors when G * S = DS).  The grid covers B * DI * G
+//   threads in blocks of 128: a one-row prefill chunk (B 1, DI 8192) at
+//   G 4 is 256 blocks, where the previous body had 64.  A decode step (T = 1) reads dt, x, B and C straight
+//   from global memory with no barrier and sums y across the G lanes by
+//   a __shfl_xor_sync tree.  A chunk stages dt and x for the block's
+//   channels, and B and C for its row, a tile of 32 steps at a time,
+//   coalesced along d, and fetches the next tile into registers while it
+//   computes this one; each lane writes its share of y (its S products
+//   summed in s order) to shared memory, and after the tile y is summed
+//   over the lanes in lane order and stored coalesced along d, so the
+//   step loop holds no shuffle chain.  Bound: bytes at a decode step (h
+//   read and written is most of them); instruction issue over a chunk
+//   (an accurate expf and five rounded products and adds per state
+//   element and step, and the staged loads).
+// * cuda_core (the previous body).  One thread per (b, d) channel with
+//   all d_state values of h and a in its registers; B and C staged a tile
+//   of 32 steps at a time in shared memory, with two barriers a tile.  A
+//   warp's state loads lie 64 bytes apart, and a one-row prefill chunk is
+//   64 blocks of 128 threads on 132 SMs.
 //
 // The h update rounds each product and the sum separately (__fmul_rn,
 // __fadd_rn, no fused multiply-add), as the plain PyTorch version and the
 // reference do, and exp is the accurate expf, not __expf: the card's f32
-// token streams must equal the CPU's.
+// token streams must equal the CPU's.  Both bodies apply the same
+// operations in the same order to each state element, so their h_T are
+// bit-equal; only y's summation order over d_state differs.
 #include "common.cuh"
 
 namespace {
@@ -110,20 +128,310 @@ cudaError_t launch(const void* dt, const void* bm, const void* cm,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// state_lanes body
+// ---------------------------------------------------------------------------
+constexpr int kLanesThreads = 128;   // threads per block: 128 / G channels
+constexpr int kLanesTileT = 32;      // steps of dt, x, B, C and y staged
+constexpr int kMaxState = 16;
+
+// A lane's S consecutive states from p (n of them live, n <= S): one
+// 16- or 8-byte vector when the caller found the rows whole and aligned.
+template <int S>
+__device__ __forceinline__ void load_lane(float (&v)[S], const float* p,
+                                          int n, bool vec) {
+  if constexpr (S == 4) {
+    if (vec) {
+      const float4 q = *reinterpret_cast<const float4*>(p);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+      return;
+    }
+  } else if constexpr (S == 2) {
+    if (vec) {
+      const float2 q = *reinterpret_cast<const float2*>(p);
+      v[0] = q.x; v[1] = q.y;
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) v[j] = j < n ? p[j] : 0.f;
+}
+
+template <int S>
+__device__ __forceinline__ void store_lane(float* p, const float (&v)[S],
+                                           int n, bool vec) {
+  if constexpr (S == 4) {
+    if (vec) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  } else if constexpr (S == 2) {
+    if (vec) {
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+    if (j < n) p[j] = v[j];
+}
+
+// One step of a lane's S states; returns the lane's share of y, its
+// products summed in s order (states past DS hold h = a = 0, b = c = 0).
+template <int S>
+__device__ __forceinline__ float lane_step(float (&h)[S], const float (&a)[S],
+                                           float dt_t, float dx,
+                                           const float (&bv)[S],
+                                           const float (&cv)[S]) {
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const float decay = expf(__fmul_rn(dt_t, a[j]));
+    h[j] = __fadd_rn(__fmul_rn(decay, h[j]), __fmul_rn(dx, bv[j]));
+    part = __fadd_rn(part, __fmul_rn(h[j], cv[j]));
+  }
+  return part;
+}
+
+// y over the G lanes of a channel (consecutive lanes of one warp): every
+// lane of the warp takes part, live or not.
+template <int G>
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A lane's S staged values of B or C at step tt (the staged rows are
+// zero past DS, and G * S <= 16, so every lane reads inside the row).
+template <int S>
+__device__ __forceinline__ void lane_row(float (&v)[S], const float* row) {
+  if constexpr (S == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (S == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(row);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < S; ++j) v[j] = row[j];
+  }
+}
+
+// The steps of one staged tile: each lane's share of y per step into
+// sp[tt][thread].  A full tile (kFull) is unrolled whole with the shares
+// held in registers and stored after the last step, so no shared store
+// sits between one step's loads and the next and the compiler can
+// overlap the exps of several steps with the h chain.  A partial tile
+// (the end of a chunk of another length) runs step by step: unrolled
+// whole as well, with a guard on each step, it doubles the kernel's code,
+// and full 128-step chunks then ran slower between the model's other
+// kernels on the H100, though as fast alone.
+template <int G, int S, bool kFull>
+__device__ __forceinline__ void tile_steps(
+    float (&h)[S], const float (&a)[S], int nt, int c, int s0,
+    const float (*sb)[kMaxState], const float (*sc)[kMaxState],
+    const float (*sdt)[kLanesThreads / G], const float (*sx)[kLanesThreads / G],
+    float (*sp)[kLanesThreads]) {
+  if constexpr (kFull) {
+    float part[kLanesTileT];
+#pragma unroll
+    for (int tt = 0; tt < kLanesTileT; ++tt) {
+      float bv[S], cv[S];
+      lane_row<S>(bv, &sb[tt][s0]);
+      lane_row<S>(cv, &sc[tt][s0]);
+      const float dt_t = sdt[tt][c];
+      const float dx = __fmul_rn(dt_t, sx[tt][c]);
+      part[tt] = lane_step<S>(h, a, dt_t, dx, bv, cv);
+    }
+#pragma unroll
+    for (int tt = 0; tt < kLanesTileT; ++tt) sp[tt][threadIdx.x] = part[tt];
+  } else {
+#pragma unroll 4
+    for (int tt = 0; tt < nt; ++tt) {
+      float bv[S], cv[S];
+      lane_row<S>(bv, &sb[tt][s0]);
+      lane_row<S>(cv, &sc[tt][s0]);
+      const float dt_t = sdt[tt][c];
+      const float dx = __fmul_rn(dt_t, sx[tt][c]);
+      sp[tt][threadIdx.x] = lane_step<S>(h, a, dt_t, dx, bv, cv);
+    }
+  }
+}
+
+// Grid (ceil(DI / (128 / G)), B): a block is 128 / G consecutive channels
+// of one batch row; thread = channel * G + lane.
+template <int G, int S, bool kOneStep>
+__global__ void __launch_bounds__(kLanesThreads)
+scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
+                  const float* __restrict__ cm, const float* __restrict__ x,
+                  const float* __restrict__ a_neg, const float* h0,
+                  float* __restrict__ y, float* h_out, int T, int DI, int DS,
+                  long long bc_sb, long long bc_st, bool vec) {
+  constexpr int kChannels = kLanesThreads / G;
+  const int b = blockIdx.y;
+  const int c = threadIdx.x / G;            // channel within the block
+  const int lane = threadIdx.x - c * G;
+  const int d0 = blockIdx.x * kChannels;
+  const int d = d0 + c;
+  const bool live = d < DI;
+  const int s0 = lane * S;                  // this lane's first state
+  const int n = live ? max(0, min(S, DS - s0)) : 0;   // live states
+
+  const long long hrow = (static_cast<long long>(b) * DI + d) * DS + s0;
+  float h[S], a[S];
+  load_lane<S>(h, h0 + hrow, n, vec && n == S);
+  load_lane<S>(a, a_neg + static_cast<long long>(d) * DS + s0, n,
+               vec && n == S);
+  const float* bb = bm + b * bc_sb;
+  const float* cb = cm + b * bc_sb;
+  const long long row0 = static_cast<long long>(b) * T;
+
+  if constexpr (kOneStep) {
+    // a decode step: no staging, no barrier; y by a shuffle tree
+    float bv[S], cv[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      bv[j] = j < n ? bb[s0 + j] : 0.f;
+      cv[j] = j < n ? cb[s0 + j] : 0.f;
+    }
+    const long long off = row0 * DI + d;
+    const float dt_t = live ? dt[off] : 0.f;
+    const float dx = __fmul_rn(dt_t, live ? x[off] : 0.f);
+    const float yv = lane_sum<G>(lane_step<S>(h, a, dt_t, dx, bv, cv));
+    if (live && lane == 0) y[off] = yv;
+  } else {
+    // a chunk: tiles of 32 steps staged in shared memory, the next tile
+    // fetched into registers while this one is computed; each lane's
+    // share of y goes to shared memory and is summed in lane order (so
+    // in s order) after the tile, with no shuffle chain in the step loop
+    constexpr int kDX = kLanesTileT * kChannels / kLanesThreads;  // dt, x
+    constexpr int kBC = kLanesTileT * kMaxState / kLanesThreads;  // B, C
+    __shared__ __align__(16) float sb[kLanesTileT][kMaxState];
+    __shared__ __align__(16) float sc[kLanesTileT][kMaxState];
+    __shared__ float sdt[kLanesTileT][kChannels];
+    __shared__ float sx[kLanesTileT][kChannels];
+    __shared__ __align__(16) float sp[kLanesTileT][kLanesThreads];
+    const int nd = min(kChannels, DI - d0);   // live channels of the block
+    float pdt[kDX], px[kDX], pb[kBC], pc[kBC];
+    auto fetch = [&](int t0) {
+      const int nt = min(kLanesTileT, T - t0);
+#pragma unroll
+      for (int k = 0; k < kDX; ++k) {
+        const int i = threadIdx.x + k * kLanesThreads;
+        const int tt = i / kChannels, cc = i - tt * kChannels;
+        const long long off = (row0 + t0 + tt) * DI + d0 + cc;
+        const bool ok = tt < nt && cc < nd;
+        pdt[k] = ok ? dt[off] : 0.f;
+        px[k] = ok ? x[off] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBC; ++k) {
+        const int i = threadIdx.x + k * kLanesThreads;
+        const int tt = i / kMaxState, s = i - tt * kMaxState;
+        const bool ok = tt < nt && s < DS;
+        pb[k] = ok ? bb[(t0 + tt) * bc_st + s] : 0.f;
+        pc[k] = ok ? cb[(t0 + tt) * bc_st + s] : 0.f;
+      }
+    };
+    fetch(0);
+    for (int t0 = 0; t0 < T; t0 += kLanesTileT) {
+      const int nt = min(kLanesTileT, T - t0);
+      // the previous tile's compute ended at a barrier, so its staged
+      // inputs are free; its sp was summed before the barrier below
+#pragma unroll
+      for (int k = 0; k < kDX; ++k) {
+        const int i = threadIdx.x + k * kLanesThreads;
+        sdt[i / kChannels][i % kChannels] = pdt[k];
+        sx[i / kChannels][i % kChannels] = px[k];
+      }
+#pragma unroll
+      for (int k = 0; k < kBC; ++k) {
+        const int i = threadIdx.x + k * kLanesThreads;
+        sb[i / kMaxState][i % kMaxState] = pb[k];
+        sc[i / kMaxState][i % kMaxState] = pc[k];
+      }
+      __syncthreads();
+      if (t0 + kLanesTileT < T) fetch(t0 + kLanesTileT);
+      if (nt == kLanesTileT)
+        tile_steps<G, S, true>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
+      else
+        tile_steps<G, S, false>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
+      __syncthreads();
+      for (int i = threadIdx.x; i < nt * kChannels; i += kLanesThreads) {
+        const int tt = i / kChannels, cc = i - tt * kChannels;
+        const float4* p = reinterpret_cast<const float4*>(&sp[tt][cc * G]);
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < G / 4; ++q) {   // lanes in order: 4 at a time
+          const float4 v = p[q];
+          acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, v.x), v.y), v.z),
+                          v.w);
+        }
+        if (cc < nd) y[(row0 + t0 + tt) * DI + d0 + cc] = acc;
+      }
+    }
+  }
+  store_lane<S>(h_out + hrow, h, n, vec && n == S);
+}
+
+template <int G, int S>
+cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
+                         const void* x, const void* a_neg, const void* h0,
+                         void* y, void* h_out, int B, int T, int DI, int DS,
+                         long long bc_sb, long long bc_st,
+                         cudaStream_t stream) {
+  constexpr int kChannels = kLanesThreads / G;
+  // whole rows of G * S states and S-vector-aligned bases: vector loads
+  const size_t bits = reinterpret_cast<size_t>(h0) |
+                      reinterpret_cast<size_t>(h_out) |
+                      reinterpret_cast<size_t>(a_neg);
+  const bool vec = (S == 2 || S == 4) && DS == G * S &&
+                   (bits & (4 * S - 1)) == 0;
+  const dim3 grid((DI + kChannels - 1) / kChannels, B);
+  auto kernel = T == 1 ? scan_lanes_kernel<G, S, true>
+                       : scan_lanes_kernel<G, S, false>;
+  kernel<<<grid, kLanesThreads, 0, stream>>>(
+      static_cast<const float*>(dt), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(x),
+      static_cast<const float*>(a_neg), static_cast<const float*>(h0),
+      static_cast<float*>(y), static_cast<float*>(h_out), T, DI, DS, bc_sb,
+      bc_st, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dt, x, y: (B, T, DI) contiguous f32; B and C: (B, T, DS) f32 with unit
 // stride along DS and element strides bc_sb (batch) and bc_st (time), as a
 // column slice of x_proj's output has; a_neg: (DI, DS); h0, h_out:
-// (B, DI, DS), possibly the same buffer.  DS from 1 to 16.
+// (B, DI, DS), possibly the same buffer.  DS from 1 to 16.  body:
+// rt::kBodyStateLanes with lanes G = 4, 8 or 16, or rt::kBodyCudaCore
+// (lanes unused).
 extern "C" int rt_selective_scan(const void* dt, const void* bm,
                                  const void* cm, const void* x,
                                  const void* a_neg, const void* h0, void* y,
                                  void* h_out, int B, int T, int DI, int DS,
-                                 long long bc_sb, long long bc_st,
-                                 void* stream) {
+                                 long long bc_sb, long long bc_st, int body,
+                                 int lanes, void* stream) {
+  if (DS < 1 || DS > kMaxState) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || DI <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == rt::kBodyStateLanes) {
+    const int per = (DS + lanes - 1) / lanes;   // states per lane
+#define RT_LANES_CASE(G, S)                                                  \
+  if (lanes == G && per == S)                                                \
+    return static_cast<int>(launch_lanes<G, S>(dt, bm, cm, x, a_neg, h0, y,  \
+                                               h_out, B, T, DI, DS, bc_sb,   \
+                                               bc_st, s));
+    RT_LANES_CASE(4, 1) RT_LANES_CASE(4, 2) RT_LANES_CASE(4, 3)
+    RT_LANES_CASE(4, 4) RT_LANES_CASE(8, 1) RT_LANES_CASE(8, 2)
+    RT_LANES_CASE(16, 1)
+#undef RT_LANES_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (body != rt::kBodyCudaCore) return static_cast<int>(cudaErrorInvalidValue);
 #define RT_SCAN_CASE(N)                                                      \
   case N:                                                                    \
     return static_cast<int>(launch<N>(dt, bm, cm, x, a_neg, h0, y, h_out, B, \

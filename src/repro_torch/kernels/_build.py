@@ -44,17 +44,20 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
                             "dense_decode_attention": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
-                            "selective_scan": 0}
+                            "selective_scan": 0,
+                            "empty": 0}   # launch_floor.py's yardstick
 
 #: kernel name -> body -> launches since the last reset, for the kernels
 #: with two bodies (the body names of csrc/*.cu: "mma", the bf16
-#: tensor-core body; "cuda_core", the f32 CUDA-core body)
+#: tensor-core body; "state_lanes", the scan with d_state split across
+#: lanes; "cuda_core", the previous f32 CUDA-core body)
 bodies: Dict[str, Dict[str, int]] = {
-    name: {"mma": 0, "cuda_core": 0}
-    for name in ("paged_decode_attention", "paged_prefill_attention",
-                 "dense_decode_attention", "quant_matmul_int8",
-                 "quant_matmul_int4")}
-BODY_CODES = {"cuda_core": 0, "mma": 1}   # csrc/common.cuh
+    **{name: {"mma": 0, "cuda_core": 0}
+       for name in ("paged_decode_attention", "paged_prefill_attention",
+                    "dense_decode_attention", "quant_matmul_int8",
+                    "quant_matmul_int4")},
+    "selective_scan": {"state_lanes": 0, "cuda_core": 0}}
+BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2}   # csrc/common.cuh
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -166,9 +169,11 @@ _SIGNATURES = {
     "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
     # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, B, T, DI, DS, B/C batch
-    # and time strides, stream
+    # and time strides, body, lanes, stream
     "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _L, _L, _P),
+                          _L, _L, _I, _I, _P),
+    # blocks, threads, stream
+    "rt_empty": (_I, _I, _P),
 }
 
 

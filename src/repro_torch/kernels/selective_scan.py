@@ -6,8 +6,20 @@ recurrence ``h = exp(dt·A)·h + (dt·x)⊗B``, ``y_t = Σ_s h·C_t`` over T
 steps in float32, the reference model's ``_mamba1_scan_step`` scanned
 over a prefill chunk (``models/ssm.py::mamba1_seq``) or taken once for
 a decode step (``mamba1_step``, T = 1).  The kernel is
-``csrc/selective_scan.cu`` (one thread per (row, channel), the state in
-registers across the T steps).
+``csrc/selective_scan.cu``, with two bodies:
+
+* ``"state_lanes"`` (every launch the model makes; :func:`scan_body`):
+  each (row, channel)'s d_state values split across G lanes of a warp
+  (:func:`scan_lanes` picks G from 4, 8 and 16 so every SM has a
+  block), the
+  state in registers across the T steps, its loads and stores whole
+  contiguous segments, y summed across the lanes by warp shuffles.
+* ``"cuda_core"`` (the previous body, kept to be timed against it): one
+  thread per (row, channel) with all its d_state values.
+
+Both update each state element with the same operations in the same
+order, so their ``h_T`` are bit-equal; y may differ in its last bits
+(the sum over d_state runs in another order).
 
 The state is **updated in place** when the caller passes ``h_out=h0``
 (the model hands in its cache row): the kernel reads each channel's
@@ -27,6 +39,39 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_STATE = 16          # d_state the kernel keeps in registers
+SM_COUNT = 132          # H100 SXM
+SCAN_LANES = (4, 8, 16)   # csrc/selective_scan.cu: G
+SCAN_THREADS = 128        # kLanesThreads: 128 / G channels a block
+
+
+def scan_body(ds: int) -> str:
+    """The scan body a launch takes: ``"state_lanes"`` for every d_state
+    the kernel holds (1..16); any other d_state is refused."""
+    if not 1 <= ds <= MAX_STATE:
+        raise ValueError(f"selective_scan: d_state {ds} outside "
+                         f"1..{MAX_STATE}")
+    return "state_lanes"
+
+
+def scan_blocks(b: int, di: int, g: int) -> int:
+    """Blocks of the ``state_lanes`` grid at G lanes a channel."""
+    return b * -(-di // (SCAN_THREADS // g))
+
+
+def scan_lanes(b: int, di: int, ds: int) -> int:
+    """Lanes G per (row, channel) for the ``state_lanes`` body: the
+    fewest of 4, 8 and 16 that still give every SM a block, else the
+    most; G never exceeds d_state rounded up to a power of two, so no
+    lane group sits wholly idle.  Fewer lanes hold more states each,
+    which takes fewer instructions per state (dt, x, B and C loaded once
+    for S states, one y share per lane) and wider state loads: at
+    falcon-mamba-7b's shapes G 4 is the fastest at decode (1, 4 and 8
+    rows) and over a chunk (tools/torch_scan_sweep.py).  Shapes only,
+    so the same shapes give the same bits."""
+    cap = max(SCAN_LANES[0], 1 << (max(ds, 1) - 1).bit_length())
+    fits = [g for g in SCAN_LANES if g <= cap]
+    return next((g for g in fits if scan_blocks(b, di, g) >= SM_COUNT),
+                fits[-1])
 
 
 def selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0,
@@ -52,15 +97,23 @@ def selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0,
 
 
 def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
-                   h_out: Optional[torch.Tensor] = None
+                   h_out: Optional[torch.Tensor] = None,
+                   _body: Optional[str] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan of ``selective_scan_plain``'s signature; on the
     card every tensor is float32, ``dt``, ``x``, ``a_neg``, ``h0`` and
-    ``h_out`` contiguous, and d_state at most 16."""
+    ``h_out`` contiguous, and d_state at most 16.  ``_body`` forces a
+    kernel body over :func:`scan_body`'s choice, for timing the bodies
+    against each other; the model never passes it."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0, h_out)
     bsz, t, di = dt.shape
     ds = a_neg.shape[-1]
+    default = scan_body(ds)       # refuses a d_state outside 1..16
+    body = _body or default
+    if body not in _build.bodies["selective_scan"]:
+        raise ValueError(f"selective_scan: no kernel body {body!r}; the "
+                         f"bodies are {sorted(_build.bodies['selective_scan'])}")
     if h_out is None:
         h_out = torch.empty_like(h0)
     named = {"dt": dt, "b_mat": b_mat, "c_mat": c_mat, "x": x,
@@ -80,9 +133,7 @@ def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
                          f"{ {k: tuple(v.shape) for k, v in named.items()} }"
                          f" do not fit dt (B, T, DI) = {(bsz, t, di)}, "
                          f"d_state {ds}")
-    if not 1 <= ds <= MAX_STATE:
-        raise ValueError(f"selective_scan: d_state {ds} outside "
-                         f"1..{MAX_STATE}")
+    lanes = scan_lanes(bsz, di, ds) if body == "state_lanes" else 1
     if not all(v.is_contiguous() for v in (dt, x, a_neg, h0, h_out)):
         raise ValueError("selective_scan: dt, x, a_neg, h0 and h_out must "
                          "be contiguous")
@@ -94,9 +145,11 @@ def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
     y = torch.empty_like(dt)
     lib = _build.library()
     _build.launches["selective_scan"] += 1
+    _build.bodies["selective_scan"][body] += 1
     _build.check(lib.rt_selective_scan(
         dt.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), x.data_ptr(),
         a_neg.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
         bsz, t, di, ds, b_mat.stride(0), b_mat.stride(1),
+        _build.BODY_CODES[body], lanes,
         torch.cuda.current_stream(dt.device).cuda_stream), "selective_scan")
     return y, h_out

@@ -38,7 +38,9 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
     quant_matmul_int8_plain, quant_splits)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
+    MAX_STATE, SCAN_LANES, scan_blocks, scan_body, scan_lanes,
     selective_scan, selective_scan_plain)
 from repro_torch.models.quantize import (  # noqa: E402
     int4_group, quantize_int4, quantize_int8)
@@ -342,6 +344,52 @@ def test_selective_scan_plain_reads_strided_b_and_c():
     strided = selective_scan_plain(t(dt), bs, cs, t(x), t(a_neg), t(h0))
     dense = selective_scan_plain(t(dt), t(bm), t(cm), t(x), t(a_neg), t(h0))
     assert all(torch.equal(a, b) for a, b in zip(strided, dense))
+
+
+@pytest.mark.parametrize("b,di,ds", [
+    (8, 8192, 16),        # falcon-mamba-7b decode, 8 rows
+    (1, 8192, 16),        # falcon-mamba-7b prefill chunk (and 1-row decode)
+    (4, 8192, 16),
+    (2, 300, 5), (2, 300, 8), (2, 300, 16),   # ragged d_inner and d_state
+    (3, 256, 1), (1, 40, 3),
+])
+def test_scan_body_and_lanes_fill_the_card(b, di, ds):
+    """Every d_state of 1..16 takes the state_lanes body.  Its lane count
+    is one the kernel holds (at most 4 states a lane), no larger than
+    d_state rounded up to a power of two, and the smallest that gives
+    every SM a block, else the largest allowed."""
+    assert scan_body(ds) == "state_lanes"
+    g = scan_lanes(b, di, ds)
+    cap = max(SCAN_LANES[0], 1 << (ds - 1).bit_length())
+    allowed = [x for x in SCAN_LANES if x <= cap]
+    assert g in allowed and -(-ds // g) <= 4
+    assert scan_blocks(b, di, g) >= SM_COUNT or g == allowed[-1]
+    assert all(scan_blocks(b, di, x) < SM_COUNT for x in allowed if x < g)
+    if di == 8192 and ds == 16:   # falcon-mamba-7b: 256 blocks a row
+        assert g == 4 and scan_blocks(b, di, g) == 256 * b
+
+
+@pytest.mark.parametrize("ds,body,match", [
+    (0, None, "d_state"), (17, None, "d_state"), (32, "cuda_core", "d_state"),
+    (16, "mma", "body"), (16, "lanes", "body"),
+])
+def test_scan_refuses_d_state_and_unknown_body_without_a_launch(ds, body,
+                                                               match):
+    """A d_state outside 1..16, or a body the kernel does not have, is
+    refused before any launch, whatever the device."""
+    _build.reset_launches()
+    seq = torch.empty((2, 3, 64), device="meta")
+    st = torch.empty((2, 3, ds), device="meta")
+    with pytest.raises(ValueError, match=match):
+        selective_scan(seq, st, st, seq,
+                       torch.empty((64, ds), device="meta"),
+                       torch.empty((2, 64, ds), device="meta"),
+                       _body=body)
+    if not 1 <= ds <= MAX_STATE:
+        with pytest.raises(ValueError, match="d_state"):
+            scan_body(ds)
+    assert all(n == 0 for n in _build.launches.values())
+    assert all(n == 0 for n in _build.bodies["selective_scan"].values())
 
 
 # ----------------------------------------------------------------------
@@ -708,34 +756,72 @@ def test_cuda_quant_matmul_int4_cuda_core_body_in_bf16(cuda_device, m, k, n):
                 QMM_CARD_TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,t_,di,ds,aliased,strided", [
+SCAN_CARD_CASES = [
     (8, 1, 8192, 16, True, False),       # falcon-mamba-7b decode
     (1, 128, 8192, 16, True, False),     # falcon-mamba-7b prefill chunk
     (2, 100, 300, 8, False, True),       # ragged DI and T, strided B / C
     (3, 37, 256, 5, True, True),
-])
-def test_cuda_selective_scan_matches_plain(cuda_device, b, t_, di, ds,
-                                           aliased, strided):
-    """float32 only, the dtype the model feeds the scan; within 2e-5 of
-    max(1, |plain|) (the kernel sums y over d_state in its own order)."""
-    rng = np.random.default_rng(18)
+]
+# every body, and for state_lanes every lane count the rule can pick
+SCAN_BODIES = [("cuda_core", None)] + [("state_lanes", g) for g in SCAN_LANES]
+
+
+def _card_scan_inputs(cuda_device, seed, b, t_, di, ds, strided):
+    rng = np.random.default_rng(seed)
     dt, bm, cm, x, a_neg, h0 = [
         t(a).to(cuda_device) for a in _scan_inputs(rng, b, t_, di, ds)]
     if strided:
         proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
         bm, cm = proj[..., 3:3 + ds], proj[..., 3 + ds:]
+    return dt, bm, cm, x, a_neg, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body,lanes", SCAN_BODIES)
+@pytest.mark.parametrize("b,t_,di,ds,aliased,strided", SCAN_CARD_CASES)
+def test_cuda_selective_scan_matches_plain(cuda_device, monkeypatch, body,
+                                           lanes, b, t_, di, ds, aliased,
+                                           strided):
+    """float32 only, the dtype the model feeds the scan; within 2e-5 of
+    max(1, |plain|) (the kernel sums y over d_state in its own order).
+    Each launch counts once, under its body."""
+    dt, bm, cm, x, a_neg, h0 = _card_scan_inputs(cuda_device, 18, b, t_, di,
+                                                 ds, strided)
+    if lanes is not None:
+        monkeypatch.setattr(scan_mod, "scan_lanes", lambda *a: lanes)
     want_y, want_h = selective_scan_plain(dt, bm, cm, x, a_neg, h0)
     h = h0.clone()
     n0 = _build.launches["selective_scan"]
+    by0 = dict(_build.bodies["selective_scan"])
     y, h_t = selective_scan(dt, bm, cm, x, a_neg, h,
-                            h_out=h if aliased else None)
+                            h_out=h if aliased else None,
+                            _body=None if body == "state_lanes" else body)
     assert _build.launches["selective_scan"] == n0 + 1
+    assert _build.bodies["selective_scan"] == {
+        k: v + (k == body) for k, v in by0.items()}
     assert (h_t is h) == aliased
     if not aliased:
         assert torch.equal(h, h0)
     assert _rel_err(y.cpu(), want_y.cpu()) <= CARD_TOL["float32"]
     assert _rel_err(h_t.cpu(), want_h.cpu()) <= CARD_TOL["float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", SCAN_LANES)
+@pytest.mark.parametrize("b,t_,di,ds,aliased,strided", SCAN_CARD_CASES)
+def test_cuda_selective_scan_state_lanes_h_equals_previous_body(
+        cuda_device, monkeypatch, lanes, b, t_, di, ds, aliased, strided):
+    """state_lanes applies the previous body's operations to each state
+    element in its order, so h_T is bit-equal to cuda_core's on the same
+    inputs, at every lane count; repeated calls give the same bits."""
+    args = _card_scan_inputs(cuda_device, 19, b, t_, di, ds, strided)
+    monkeypatch.setattr(scan_mod, "scan_lanes", lambda *a: lanes)
+    _, h_core = selective_scan(*args, _body="cuda_core")
+    y, h = selective_scan(*args)
+    assert torch.equal(h, h_core)
+    for _ in range(3):
+        y2, h2 = selective_scan(*args)
+        assert torch.equal(y2, y) and torch.equal(h2, h)
 
 
 # ----------------------------------------------------------------------
