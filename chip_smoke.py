@@ -30,10 +30,18 @@ one JSON line:
    previous body (``cuda_core``, against ``state_lanes``), whose
    ``h_T`` must also equal the new body's bit for bit, and which print
    the scan's instruction-issue bound beside the bytes bound.  rmsnorm
-   is also timed at falcon-mamba-7b's width (8 and 128 rows of 4096,
-   bf16), and an empty kernel (``csrc/launch_floor.cu``; not a port of
-   any TPU kernel, so not in the kernel list) gives the floor one launch
-   costs, at 1 block and at the decode scan's grid;
+   runs on its ``norm`` body (against ``F.rms_norm``; bf16 also against
+   its previous ``cuda_core`` body) and fused with the residual add on
+   its ``add_norm`` body, whose ``r`` must equal torch's ``x + delta``
+   bit for bit and whose ``out`` is gated like any output; the fused
+   case's previous composition (torch's add, then the ``cuda_core``
+   norm) is its ``prev_ms``, and torch's add then ``F.rms_norm`` its
+   ``library_pair_ms`` (no single PyTorch call computes it, so its
+   ``library_ms`` is null).  rmsnorm is also timed at falcon-mamba-7b's
+   width (8 and 128 rows of 4096, bf16), and an empty kernel
+   (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
+   the kernel list) gives the floor one launch costs, at 1 block and at
+   the decode scan's grid;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -47,9 +55,11 @@ one JSON line:
    through ``PagedServingEngine`` with int8 and with int4 weights; every
    request must finish with 64 in-vocab tokens and every kernel must
    have been launched the number of times each run's shapes imply (the
-   counts are reset before and read after each run), and every launch
+   counts are reset before and read after each run), every launch
    of the five two-body kernels must have taken its tensor-core body
-   (all serve runs are bf16); each quantized or
+   (all serve runs are bf16), and rmsnorm's launches must split between
+   its ``add_norm`` and ``norm`` bodies as the run implies; each
+   quantized or
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
    the last run repeats the bf16 paged engine on the same 8 requests.
@@ -68,8 +78,10 @@ one JSON line:
    time per chunk.  The bf16 decode and prefill windows, the int8 and
    int4 decode windows and both falcon-mamba windows run again with the
    previous (CUDA-core) body of the paged decode, the paged prefill,
-   the int8 or int4 quant matmul, or the selective scan, for the busy
-   time each redesign saves.
+   the int8 or int4 quant matmul, or the selective scan, and the bf16
+   smollm and falcon-mamba decode and prefill windows with the previous
+   rmsnorm (torch's residual add, then the ``cuda_core`` norm), for the
+   busy time and the launches each redesign saves.
 
 It then prints the kernel list, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -125,8 +137,10 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "selective_scan": "mamba_paged_bf16"}
 #: the dtype of each kernel's main-path case in the kernels line
 MAIN_DTYPE = {"selective_scan": "float32"}
-#: the body every serve-run launch of a two-body kernel must take
-MAIN_BODY = {"selective_scan": "state_lanes"}   # the others: "mma"
+#: the bodies every serve-run launch of a kernel with more than one body
+#: must take (rmsnorm: split as expected_launches says)
+MAIN_BODY = {"selective_scan": ("state_lanes",),
+             "rmsnorm": ("add_norm", "norm")}   # the others: ("mma",)
 #: the scan's issue bound: the thread instructions one state update
 #: takes as the card compiles it (cuobjdump of csrc/selective_scan.cu:
 #: dt*a, the accurate expf's eight, decay*h, dx*B, their sum, h*C and
@@ -271,7 +285,8 @@ def kernel_cases(dev) -> list:
                                              quantize_int8)
     from repro_torch.kernels.flash_attention import (
         paged_prefill_attention, paged_prefill_attention_plain)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_plain,
+                                             rmsnorm, rmsnorm_plain)
 
     rng = np.random.default_rng(SEED)
     cases = []
@@ -285,28 +300,52 @@ def kernel_cases(dev) -> list:
         dtype = getattr(torch, dname)
         es = torch.finfo(dtype).bits // 8
 
-        # rmsnorm: 8 decode rows, 128 prefill rows of d_model
-        for rows in (8, 128):
-            x = t(rng.standard_normal((rows, D)), dtype)
-            sc = t(1 + 0.1 * rng.standard_normal(D), dtype)
-            cases.append(_case(
-                "rmsnorm", dname, [rows, D], rmsnorm(x, sc, 1e-5),
-                rmsnorm_plain(x, sc, 1e-5), lambda: rmsnorm(x, sc, 1e-5),
-                lambda: rmsnorm_plain(x, sc, 1e-5),
-                lambda: F.rms_norm(x, (D,), sc, 1e-5),
-                2 * rows * D * es + D * es, 4 * rows * D))
-        # and at falcon-mamba-7b's d_model, the width its 65 norms an
+        # rmsnorm: 8 decode rows, 128 prefill rows of d_model, and in
+        # bf16 at falcon-mamba-7b's d_model, the width its 65 norms an
         # iteration run at
-        DM = 4096
-        for rows in ((8, 128) if dname == "bfloat16" else ()):
-            x = t(rng.standard_normal((rows, DM)), dtype)
-            sc = t(1 + 0.1 * rng.standard_normal(DM), dtype)
+        widths = [(D, 8), (D, 128)] + ([(4096, 8), (4096, 128)]
+                                       if dname == "bfloat16" else [])
+        for d, rows in widths:
+            x = t(rng.standard_normal((rows, d)), dtype)
+            sc = t(1 + 0.1 * rng.standard_normal(d), dtype)
             cases.append(_case(
-                "rmsnorm", dname, [rows, DM], rmsnorm(x, sc, 1e-5),
+                "rmsnorm", dname, [rows, d], rmsnorm(x, sc, 1e-5),
                 rmsnorm_plain(x, sc, 1e-5), lambda: rmsnorm(x, sc, 1e-5),
                 lambda: rmsnorm_plain(x, sc, 1e-5),
-                lambda: F.rms_norm(x, (DM,), sc, 1e-5),
-                2 * rows * DM * es + DM * es, 4 * rows * DM))
+                lambda: F.rms_norm(x, (d,), sc, 1e-5),
+                2 * rows * d * es + d * es, 4 * rows * d,
+                prev=(lambda: rmsnorm(x, sc, 1e-5, _body="cuda_core"))
+                if dname == "bfloat16" else None,
+                extra={"body": "norm"}))
+        # fused with the residual add before it: the add_norm body of 64
+        # of those 65 norms
+        for d, rows in widths:
+            x = t(rng.standard_normal((rows, d)), dtype)
+            dl = t(rng.standard_normal((rows, d)), dtype)
+            sc = t(1 + 0.1 * rng.standard_normal(d), dtype)
+            r, out = add_rmsnorm(x, dl, sc, 1e-5)
+            r_equal = torch.equal(r, x + dl)
+            emit({"phase": "kernels", "kernel": "rmsnorm",
+                  "check": "add_norm's r bit-equal to torch's x + delta",
+                  "dtype": dname, "shape": [rows, d], "equal": r_equal})
+            if not r_equal:
+                raise AssertionError(f"add_rmsnorm {dname} {[rows, d]}: r "
+                                     f"differs from torch's x + delta")
+            cases.append(_case(
+                "rmsnorm", dname, [rows, d], out,
+                add_rmsnorm_plain(x, dl, sc, 1e-5)[1],
+                lambda: add_rmsnorm(x, dl, sc, 1e-5),
+                lambda: add_rmsnorm_plain(x, dl, sc, 1e-5), None,
+                # x, delta read, r, out written; scale once; per element
+                # the add, the square, its sum and two products
+                (4 * rows * d + d) * es, 5 * rows * d,
+                library_note="none: no single PyTorch call computes the "
+                             "add and the norm; library_pair_ms is the "
+                             "two-call pair torch.add, F.rms_norm",
+                prev=lambda: add_rmsnorm(x, dl, sc, 1e-5,
+                                         _body="cuda_core")[1],
+                extra={"body": "add_norm", "library_pair_ms": device_ms(
+                    lambda: F.rms_norm(x + dl, (d,), sc, 1e-5))}))
 
         # paged decode: B = 8 rows, positions up to ~600, one masked row
         # (frozen pos, all-zero table -> the scratch block 0)
@@ -746,18 +785,23 @@ def projection_bytes(params) -> int:
 
 
 def expected_launches(cfg, slot: bool, qformat, iters: int,
-                      chunks: int, names) -> dict:
+                      chunks: int, names) -> tuple:
     """Kernel launches a run of ``iters`` decode iterations and ``chunks``
     prefill chunks implies: per attn layer two rmsnorms (one without an
     MLP), one decode or prefill attention and, packed, 7 quant matmuls
     (4 attention, 3 MLP); per Mamba1 layer one rmsnorm and one scan; one
-    final rmsnorm per decode iteration."""
+    final rmsnorm per decode iteration.  Every rmsnorm but the first of
+    a stack takes its residual add as a delta (``add_norm``); the final
+    norm takes the last block's.  Returns (launches by kernel, rmsnorm's
+    launches by body)."""
     n_attn = cfg.block_pattern.count("attn")
     n_mamba = cfg.block_pattern.count("mamba1")
     n_mlp = n_attn if cfg.mlp_kind != "none" else 0
     expect = dict.fromkeys(names, 0)
     norms = n_attn + n_mamba + n_mlp
     expect["rmsnorm"] = (norms + 1) * iters + norms * chunks
+    norm_bodies = {"add_norm": norms * iters + (norms - 1) * chunks,
+                   "norm": iters + chunks, "cuda_core": 0}
     expect["paged_prefill_attention"] = n_attn * chunks
     expect["dense_decode_attention" if slot
            else "paged_decode_attention"] = n_attn * iters
@@ -765,7 +809,7 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     if qformat:
         expect[f"quant_matmul_{qformat}"] = (4 * n_attn + 3 * n_mlp) * (
             iters + chunks)
-    return expect
+    return expect, {"rmsnorm": norm_bodies}
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
@@ -801,8 +845,9 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     launches = dict(_build.launches)
     bodies = {k: dict(v) for k, v in _build.bodies.items()}
     iters, chunks = eng.decode_iters, eng.prefill_calls
-    expect = expected_launches(cfg, issubclass(cls, ServingEngine),
-                               eng.quantization, iters, chunks, launches)
+    expect, expect_bodies = expected_launches(
+        cfg, issubclass(cls, ServingEngine), eng.quantization, iters, chunks,
+        launches)
     streams = {r.id: r.out_tokens for r in done}
     res = {"phase": "serve", "run": name,
            "engine": cls.__name__, "quantization": eng.quantization,
@@ -823,7 +868,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "projection_weight_bytes": projection_bytes(eng.params),
            "n_preemptions": getattr(eng, "n_preemptions", None),
            "launches": launches, "launches_expected": expect,
-           "bodies": bodies}
+           "bodies": bodies, "bodies_expected": expect_bodies}
     if ref is not None:
         pairs = [(a, b) for rid, toks in streams.items()
                  for a, b in zip(toks, ref[rid])]
@@ -841,13 +886,19 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
                                  for k, v in expect.items() if v):
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
-    # every serve run is bf16: each launch of a two-body kernel must have
-    # taken its tensor-core body, and each scan launch state_lanes
-    if any(n != (launches[k] if body == MAIN_BODY.get(k, "mma") else 0)
-           for k, b in bodies.items() for body, n in b.items()):
+    # every serve run is bf16: each launch of a kernel with more than one
+    # body must have taken its main body (the tensor-core one, the scan's
+    # state_lanes, rmsnorm's add_norm or norm), and rmsnorm's must split
+    # between those two as the run implies
+    def on_main(k, b):
+        main = MAIN_BODY.get(k, ("mma",))
+        return (sum(b[x] for x in main) == launches[k]
+                and all(n == 0 for x, n in b.items() if x not in main))
+    if not all(on_main(k, b) for k, b in bodies.items()) or any(
+            bodies[k] != v for k, v in expect_bodies.items()):
         raise AssertionError(f"serve {name}: launches by body {bodies}, "
-                             f"expected every launch on the body of "
-                             f"{MAIN_BODY} (else mma)")
+                             f"expected every launch on a body of "
+                             f"{MAIN_BODY} (else mma), and {expect_bodies}")
     return res, streams, eng
 
 
@@ -872,10 +923,16 @@ def serve(dev) -> dict:
     with previous_body("paged_decode_attention"):
         profile_decode(cfg, eng.params, kw, dev,
                        label="paged_bf16, previous decode body")
+    with previous_body("rmsnorm"):
+        profile_decode(cfg, eng.params, kw, dev,
+                       label="paged_bf16, previous rmsnorm")
     profile_prefill(cfg, eng.params, kw, dev, label="paged_bf16")
     with previous_body("paged_prefill_attention"):
         profile_prefill(cfg, eng.params, kw, dev,
                         label="paged_bf16, previous prefill body")
+    with previous_body("rmsnorm"):
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="paged_bf16, previous rmsnorm")
     del eng
     slot_kw = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
                    decode_steps=16, seed=SEED, device=dev)
@@ -910,7 +967,8 @@ def serve_mamba(dev) -> dict:
     """falcon-mamba-7b at full width and depth (64 Mamba1 layers, about
     14.5 GB of bf16 weights drawn from the seed): 8 requests through
     ``PagedServingEngine`` and its decode and prefill-chunk profiles,
-    both again under the previous scan body, then the same 8 through
+    both again under the previous scan body and under the previous
+    rmsnorm, then the same 8 through
     ``ServingEngine`` on the same weights, with its share of tokens equal
     to the paged run's.  Returns each run's launch counts."""
     import gc
@@ -932,6 +990,11 @@ def serve_mamba(dev) -> dict:
                        label="mamba_paged_bf16, previous scan body")
         profile_prefill(cfg, eng.params, kw, dev,
                         label="mamba_paged_bf16, previous scan body")
+    with previous_body("rmsnorm"):
+        profile_decode(cfg, eng.params, kw, dev,
+                       label="mamba_paged_bf16, previous rmsnorm")
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="mamba_paged_bf16, previous rmsnorm")
     params = eng.params
     del eng
     gc.collect()
@@ -948,19 +1011,25 @@ def serve_mamba(dev) -> dict:
 def previous_body(kernel: str):
     """Within the block, the model's calls of ``kernel`` take its previous
     (CUDA-core) body, through the wrapper's private ``_body`` argument:
-    the profile windows compare the two bodies in one call."""
-    from repro_torch.models import attention, quantize, ssm
-    module = {"paged_decode_attention": attention,
-              "paged_prefill_attention": attention,
-              "quant_matmul_int8": quantize,
-              "quant_matmul_int4": quantize,
-              "selective_scan": ssm}[kernel]
-    wrapper = getattr(module, kernel)
-    setattr(module, kernel, functools.partial(wrapper, _body="cuda_core"))
+    the profile windows compare the two bodies in one call.  For rmsnorm
+    both of the model's wrappers switch: the fused add + norm becomes
+    torch's add and then the previous norm."""
+    from repro_torch.models import attention, layers, quantize, ssm
+    sites = {"paged_decode_attention": [(attention, kernel)],
+             "paged_prefill_attention": [(attention, kernel)],
+             "quant_matmul_int8": [(quantize, kernel)],
+             "quant_matmul_int4": [(quantize, kernel)],
+             "selective_scan": [(ssm, kernel)],
+             "rmsnorm": [(layers, "rmsnorm_kernel"),
+                         (layers, "add_rmsnorm_kernel")]}[kernel]
+    saved = [(module, name, getattr(module, name)) for module, name in sites]
+    for module, name, wrapper in saved:
+        setattr(module, name, functools.partial(wrapper, _body="cuda_core"))
     try:
         yield
     finally:
-        setattr(module, kernel, wrapper)
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
 
 
 def profile_decode(cfg, params, kw, dev, label: str) -> dict:
@@ -1083,11 +1152,12 @@ def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
 
 def kernel_line(cases, launches_by_run) -> dict:
     """One entry per kernel, at its main-path shape in its main dtype
-    (``MAIN_DTYPE``, else bfloat16: decode rows for rmsnorm and the quant
-    matmuls, pos 256 for prefill, the decode step for the scan), with the
-    launches of the serve run that drives it (``LAUNCH_RUN``); every case
-    in ``cases``."""
-    main = {"rmsnorm": lambda c: c["shape"] == [8, 960],
+    (``MAIN_DTYPE``, else bfloat16: decode rows for the quant matmuls and
+    for rmsnorm, on its add_norm body, pos 256 for prefill, the decode
+    step for the scan), with the launches of the serve run that drives it
+    (``LAUNCH_RUN``); every case in ``cases``."""
+    main = {"rmsnorm": lambda c: (c["shape"] == [8, 960]
+                                  and c["body"] == "add_norm"),
             "paged_decode_attention": lambda c: True,
             "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
             "dense_decode_attention": lambda c: True,
@@ -1111,13 +1181,17 @@ def kernel_line(cases, launches_by_run) -> dict:
                     "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                     "library_ms": c["library_ms"],
+                    **{k: c[k] for k in ("body", "library_pair_ms")
+                       if k in c},
                     "dtype": c["dtype"], "shape": c["shape"],
-                    "cases": [{k: x[k] for k in ("dtype", "shape", "ms",
-                                                 "prev_ms",
+                    "cases": [{k: x[k] for k in ("dtype", "shape", "body",
+                                                 "ms", "prev_ms",
                                                  "call_ms", "plain_ms",
                                                  "library_ms",
+                                                 "library_pair_ms",
                                                  "bound_ms", "bound_by",
-                                                 "max_abs_err", "max_rel_err")}
+                                                 "max_abs_err", "max_rel_err")
+                               if k in x}
                               for x in mine]})
     return {"kernels": out}
 

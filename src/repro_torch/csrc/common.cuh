@@ -16,6 +16,8 @@ constexpr float kNegInf = -1e30f;   // the reference's NEG_INF mask value
 constexpr int kBodyCudaCore = 0;     // f32 on the CUDA cores
 constexpr int kBodyMma = 1;          // bf16 on the tensor cores
 constexpr int kBodyStateLanes = 2;   // the scan, d_state across lanes
+constexpr int kBodyAddNorm = 3;      // rmsnorm fused with the residual add
+constexpr int kBodyNorm = 4;         // rmsnorm, the row in registers
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

@@ -15,8 +15,8 @@ together, and the objects are linked into ``libreprotorch.so``.
 Each kernel wrapper counts its launches in :data:`launches` (a plain
 integer per kernel) where it calls into the library, and nowhere else,
 so a run can show that its main path went through the kernels; a
-kernel with two bodies also counts each launch under its body in
-:data:`bodies`.
+kernel with more than one body also counts each launch under its body
+in :data:`bodies`.
 """
 from __future__ import annotations
 
@@ -48,16 +48,19 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "empty": 0}   # launch_floor.py's yardstick
 
 #: kernel name -> body -> launches since the last reset, for the kernels
-#: with two bodies (the body names of csrc/*.cu: "mma", the bf16
+#: with more than one body (the body names of csrc/*.cu: "mma", the bf16
 #: tensor-core body; "state_lanes", the scan with d_state split across
-#: lanes; "cuda_core", the previous f32 CUDA-core body)
+#: lanes; "add_norm" and "norm", rmsnorm with and without the residual
+#: add, the row in registers; "cuda_core", the previous body)
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
                     "dense_decode_attention", "quant_matmul_int8",
                     "quant_matmul_int4")},
-    "selective_scan": {"state_lanes": 0, "cuda_core": 0}}
-BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2}   # csrc/common.cuh
+    "selective_scan": {"state_lanes": 0, "cuda_core": 0},
+    "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
+BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
+              "add_norm": 3, "norm": 4}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -148,8 +151,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # x, scale, out, rows, d, eps, dtype, stream
-    "rt_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    # x, delta, scale, r_out, out, rows, d, eps, dtype, body, vec, lanes,
+    # rows per block, accesses a lane, stream
+    "rt_rmsnorm": (_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                   _P),
     # q, k_pool, v_pool, tables, pos, out, B, H, KV, hd, bs, nb, scale,
     # dtype, body, splits, stream
     "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models.quantize import qdot
 
@@ -27,6 +28,14 @@ def _dense_init(generator: torch.Generator, shape, dtype, device,
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``layers.rmsnorm`` through the RMSNorm kernel's wrapper."""
     return rmsnorm_kernel(x, params["scale"], eps)
+
+
+def add_rmsnorm(params: dict, x: torch.Tensor, delta: torch.Tensor,
+                eps: float = 1e-5):
+    """The residual add ``x + delta`` and ``layers.rmsnorm`` of its
+    result, in one launch of the RMSNorm kernel.  Returns (x + delta,
+    the normed row)."""
+    return add_rmsnorm_kernel(x, delta, params["scale"], eps)
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

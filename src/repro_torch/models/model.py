@@ -32,7 +32,8 @@ import torch
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as tfm
 from repro_torch.models.kvcache import cache_struct
-from repro_torch.models.layers import _dense_init, embed, rmsnorm, unembed
+from repro_torch.models.layers import (_dense_init, add_rmsnorm, embed,
+                                      rmsnorm, unembed)
 from repro_torch.models.quantize import normalize_format
 
 
@@ -72,18 +73,33 @@ class Model:
             params["lm_head"] = table()
         return params
 
-    def _head(self, params, x):
-        x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+    def _head(self, params, stream):
+        """Logits from ``_run``'s (x, delta): the last block's pending
+        residual add fused into the final norm."""
+        x, delta = stream
+        if delta is None:
+            x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        else:
+            _, x = add_rmsnorm(params["final_norm"], x, delta,
+                               self.cfg.norm_eps)
         head = (params["embed"] if self.cfg.tie_embeddings
                 else params["lm_head"])
         return unembed(head, x)  # vocab dim is padded
 
     def _run(self, params, caches, tokens, pos, paged, mode):
+        """The stacks over the embedded tokens: (x, delta), the residual
+        stream and the last block's output not yet added to it."""
         x = embed(params["embed"], tokens).to(self.dtype)
         return tfm.apply_segments(params["blocks"], x, cfg=self.cfg,
                                   mode=mode, segs=self.segments, pos=pos,
                                   caches=caches, paged=paged,
                                   qformat=self.qformat)
+
+    def _hidden(self, params, caches, tokens, pos, paged):
+        """A chunk's hidden state: it has no head, so the last pending
+        residual add is one plain add."""
+        x, delta = self._run(params, caches, tokens, pos, paged, "chunk")
+        return x if delta is None else x + delta
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
@@ -105,15 +121,14 @@ class Model:
         """
         rows = [{name: a[:, slot:slot + 1] for name, a in c.items()}
                 for c in caches]
-        x = self._run(params, rows, tokens, int(pos0), None, "chunk")
-        return x, caches
+        return self._hidden(params, rows, tokens, int(pos0), None), caches
 
     def decode_step(self, params, caches, batch):
         """One decode step against the dense caches: batch {"token"
         (B,1), "pos" (B,) int32}.  Returns (logits (B,1,V_pad), caches)."""
-        x = self._run(params, caches, batch["token"], batch["pos"], None,
-                      "decode")
-        return self._head(params, x), caches
+        stream = self._run(params, caches, batch["token"], batch["pos"],
+                           None, "decode")
+        return self._head(params, stream), caches
 
     # ------------------------------------------------------------------
     def paged_prefill_chunk(self, params, caches, tokens, pos0: int, row: int,
@@ -131,15 +146,14 @@ class Model:
         rows = [{name: a[:, row:row + 1] for name, a in c.items()}
                 if seg.kind == "mamba1" else c
                 for seg, c in zip(self.segments, caches)]
-        x = self._run(params, rows, tokens, int(pos0), paged, "chunk")
-        return x, caches
+        return self._hidden(params, rows, tokens, int(pos0), paged), caches
 
     def paged_decode_step(self, params, caches, batch, paged):
         """One decode step: batch {"token" (B,1), "pos" (B,) int32}.
         Returns (logits (B,1,V_pad), caches)."""
-        x = self._run(params, caches, batch["token"], batch["pos"], paged,
-                      "decode")
-        return self._head(params, x), caches
+        stream = self._run(params, caches, batch["token"], batch["pos"],
+                           paged, "decode")
+        return self._head(params, stream), caches
 
     def decode_steps(self, params, caches, batch, paged=None, *, k: int):
         """K fused greedy decode steps on the device (the serving hot
@@ -156,9 +170,9 @@ class Model:
         tok, pos, budget = batch["token"], batch["pos"], batch["budget"]
         emits = []
         for _ in range(k):
-            x = self._run(params, caches, tok, pos, paged, "decode")
+            stream = self._run(params, caches, tok, pos, paged, "decode")
             tok, pos, budget, emit = greedy_scan_update(
-                self._head(params, x), pos, budget, vocab)
+                self._head(params, stream), pos, budget, vocab)
             emits.append(emit)
         return torch.stack(emits, dim=1), caches
 

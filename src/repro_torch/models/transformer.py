@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import _dense_init, mlp, rmsnorm
+from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
 MODES = ("decode", "chunk")
 KINDS = ("attn", "mamba1")          # block kinds the port runs
@@ -90,21 +90,30 @@ def init_segments(generator, cfg, dtype, device) -> dict:
             "shared": None}
 
 
-def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
-                cache: dict, paged: Optional[dict] = None,
+def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
+                pos, cache: dict, paged: Optional[dict] = None,
                 qformat: Optional[str] = None):
-    """Apply one ``attn`` or ``mamba1`` block.  ``cache`` holds this
-    layer's pools (``paged`` given: the block tables) or dense cache
-    rows (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state
-    rows; each is written in place.  ``qformat`` tags the weight format
-    the params were packed to; dispatch is structural (``qdot`` routes
-    on packed leaf or tensor, and Mamba1 weights are never packed), so
-    the tag only travels with the call, as in the reference.  Returns
-    x."""
+    """Apply one ``attn`` or ``mamba1`` block to the residual stream
+    ``x`` plus ``delta``, the previous block's output not yet added to
+    it (None before the first block).  ``cache`` holds this layer's
+    pools (``paged`` given: the block tables) or dense cache rows
+    (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state rows;
+    each is written in place.  ``qformat`` tags the weight format the
+    params were packed to; dispatch is structural (``qdot`` routes on
+    packed leaf or tensor, and Mamba1 weights are never packed), so the
+    tag only travels with the call, as in the reference.
+
+    Each residual add the reference makes (``x + a``) is fused into the
+    norm that reads its result: ``add_rmsnorm`` returns both, in one
+    kernel launch.  The block's own output is not added here; it is
+    returned as the next pending delta.  Returns (x, delta)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported yet; "
                          f"ported: {MODES}")
-    h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    if delta is None:
+        h = rmsnorm(params["ln1"], x, cfg.norm_eps)
+    else:
+        x, h = add_rmsnorm(params["ln1"], x, delta, cfg.norm_eps)
     if kind == "mamba1":
         if mode == "decode":
             a, _ = ssm_mod.mamba1_step(params["mamba"], h,
@@ -126,11 +135,10 @@ def block_apply(params: dict, x, *, kind: str, cfg, mode: str, pos,
     else:
         a, _ = attn_mod.paged_chunk_self_attention(
             params["attn"], h, cache, paged, pos, cfg, kind)
-    x = x + a
     if not _has_mlp(kind, cfg):
-        return x
-    h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["mlp"], h2)
+        return x, a
+    x, h2 = add_rmsnorm(params["ln2"], x, a, cfg.norm_eps)
+    return x, mlp(params["mlp"], h2)
 
 
 def _layer(tree, j: int):
@@ -148,10 +156,14 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos,
     ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
     with a leading layer dim; each layer writes its slice in place, so
     the list needs no rebuilding.
-    Returns x."""
+    Returns (x, delta): the residual stream and the last block's output,
+    not yet added to it (the caller fuses that add into the final norm,
+    or adds it)."""
+    delta = None
     for seg, params, cache in zip(segs, blocks["segments"], caches):
         for j in range(seg.length):
-            x = block_apply(_layer(params, j), x, kind=seg.kind, cfg=cfg,
-                            mode=mode, pos=pos, cache=_layer(cache, j),
-                            paged=paged, qformat=qformat)
-    return x
+            x, delta = block_apply(_layer(params, j), x, delta,
+                                   kind=seg.kind, cfg=cfg, mode=mode,
+                                   pos=pos, cache=_layer(cache, j),
+                                   paged=paged, qformat=qformat)
+    return x, delta

@@ -1,7 +1,12 @@
 """Shared fixtures of the PyTorch port's tests (tests/test_torch_*.py):
-matching smoke configs for the JAX package and the port, and the JAX
-model's parameters carried into the port through numpy."""
+matching smoke configs for the JAX package and the port, the JAX
+model's parameters carried into the port through numpy, and the pieces
+the wiring tests of the fused residual add need (a count of the model's
+norm calls, the block composed as it was before the fusion, and
+``chip_smoke.py``'s launch formula)."""
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -46,3 +51,74 @@ def bridged(np_params, tcfg):
 def t(a):
     """numpy -> CPU torch tensor (a copy), keeping the dtype."""
     return torch.from_numpy(np.array(a))
+
+
+def count_norm_calls(monkeypatch) -> dict:
+    """Count the model's calls of the RMSNorm wrappers from now on: with
+    a residual delta (``add_norm``) and without (``norm``)."""
+    from repro_torch.models import layers
+    calls = {"add_norm": 0, "norm": 0}
+
+    def counted(body, fn):
+        def wrapper(*args, **kwargs):
+            calls[body] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    monkeypatch.setattr(layers, "rmsnorm_kernel",
+                        counted("norm", layers.rmsnorm_kernel))
+    monkeypatch.setattr(layers, "add_rmsnorm_kernel",
+                        counted("add_norm", layers.add_rmsnorm_kernel))
+    return calls
+
+
+def unfused_block_apply(params, x, delta=None, *, kind, cfg, mode, pos,
+                        cache, paged=None, qformat=None):
+    """``transformer.block_apply`` as it composed a block before the
+    residual adds were fused into the norms: the plain norm before each
+    branch, and each branch's output added to x at once.  Returns (x,
+    None): nothing is left pending."""
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.layers import mlp
+    assert delta is None
+    h = rmsnorm_plain(x, params["ln1"]["scale"], cfg.norm_eps)
+    if kind == "mamba1" and mode == "decode":
+        a, _ = ssm_mod.mamba1_step(params["mamba"], h,
+                                   (cache["h"], cache["conv"]), cfg)
+    elif kind == "mamba1":
+        a, _ = ssm_mod.mamba1_seq(params["mamba"], h, cfg, h0=cache["h"],
+                                  conv_state=cache["conv"])
+    elif mode == "decode" and paged is None:
+        a, _ = attn_mod.decode_self_attention(params["attn"], h, cache, pos,
+                                              cfg, kind)
+    elif mode == "decode":
+        a, _ = attn_mod.paged_decode_self_attention(params["attn"], h, cache,
+                                                    paged, pos, cfg, kind)
+    elif paged is None:
+        a, _ = attn_mod.chunk_self_attention(params["attn"], h, cache, pos,
+                                             cfg, kind)
+    else:
+        a, _ = attn_mod.paged_chunk_self_attention(params["attn"], h, cache,
+                                                   paged, pos, cfg, kind)
+    x = x + a
+    if "mlp" not in params:
+        return x, None
+    h2 = rmsnorm_plain(x, params["ln2"]["scale"], cfg.norm_eps)
+    return x + mlp(params["mlp"], h2), None
+
+
+def expected_norm_calls(cfg, iters: int, chunks: int) -> dict:
+    """The model's norm calls with and without a delta that
+    ``chip_smoke.py``'s launch formula implies for ``iters`` decode
+    iterations and ``chunks`` prefill chunks."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from repro_torch.kernels import _build
+    launches, bodies = chip_smoke.expected_launches(
+        cfg, False, None, iters, chunks, _build.launches)
+    norms = bodies["rmsnorm"]
+    assert launches["rmsnorm"] == sum(norms.values())
+    return {"add_norm": norms["add_norm"], "norm": norms["norm"]}

@@ -6,6 +6,10 @@ tests/test_kernels.py runs them), on the same numpy inputs.  Tolerance:
 test_kernels.py's float32 bound, 2e-5 (sums run in another order); for
 the selective scan, whose outputs reach tens, 2e-5 of max(1, |value|).
 
+rmsnorm fused with the residual add is held the same way in float32,
+and in bfloat16 under the card's bf16 gate below: the residual ``r``
+must equal the JAX package's ``x + a`` bit for bit.
+
 The ``cuda``-marked tests hold each CUDA kernel against its plain
 version on the card; they skip without a card.  float32: 2e-5 (the
 scan: of max(1, |plain|)), except
@@ -37,7 +41,10 @@ from repro_torch.kernels.quant_matmul import (  # noqa: E402
     MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
     quant_matmul_int8_plain, quant_splits)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain  # noqa: E402
+from repro_torch.kernels import rmsnorm as norm_mod  # noqa: E402
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    NORM_MAX_WARPS, NORM_VECS, add_rmsnorm, add_rmsnorm_plain,
+    norm_lanes, norm_pack, rmsnorm, rmsnorm_plain)
 from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
     MAX_STATE, SCAN_LANES, scan_blocks, scan_body, scan_lanes,
@@ -134,6 +141,127 @@ def test_rmsnorm_plain_matches_jax(J, shape):
     assert _err(got, pallas) < TOL
     # the wrapper takes the plain version for CPU tensors
     assert torch.equal(rmsnorm(t(x), t(scale)), t(got))
+
+
+NORM_SHAPES = [(8, 960), (128, 960), (5, 100)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_add_rmsnorm_plain_matches_jax(J, dtype, shape):
+    """The residual add and the norm after it: ``r`` bit-equal to jnp's
+    ``x + a`` in the same dtype, ``out`` against rmsnorm_ref and the
+    Pallas kernel (interpret mode) on that r."""
+    rng = np.random.default_rng(5)
+    x, a = (rng.standard_normal(shape, dtype=np.float32) for _ in range(2))
+    scale = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    dt = getattr(torch, dtype)
+    tx, ta, ts = (t(v).to(dt) for v in (x, a, scale))
+    r, out = add_rmsnorm_plain(tx, ta, ts, 1e-5)
+    jx, ja, js = (J.jnp.asarray(v).astype(getattr(J.jnp, dtype))
+                  for v in (x, a, scale))
+    jr = jx + ja
+    assert np.array_equal(r.float().numpy(), np.asarray(jr, np.float32))
+    for want in (J.ref.rmsnorm_ref(jr, js),
+                 J.rmsnorm_pallas(jr, js, interpret=True)):
+        _card_close(out, t(np.asarray(want, np.float32)), dtype)
+    # the wrapper takes the plain version for CPU tensors
+    r2, out2 = add_rmsnorm(tx, ta, ts, 1e-5)
+    assert torch.equal(r2, r) and torch.equal(out2, out)
+
+
+@pytest.mark.parametrize("case", ["delta_shape", "delta_dtype",
+                                  "delta_device", "x_strided",
+                                  "delta_strided", "scale", "body",
+                                  "norm_body", "add_norm_body"])
+def test_rmsnorm_wrappers_refuse_without_a_launch(case):
+    """A delta of another shape, dtype or device, a non-contiguous
+    input, a scale that does not match, a body the kernel does not have
+    or one that does not fit the call is refused before any launch."""
+    _build.reset_launches()
+    x = torch.empty((4, 64), device="meta")
+    delta = torch.empty((4, 64), device="meta")
+    scale = torch.empty(64, device="meta")
+    kw, fn, match = {}, add_rmsnorm, "does not match"
+    if case == "delta_shape":
+        delta = torch.empty((4, 32), device="meta")
+    elif case == "delta_dtype":
+        delta = delta.to(torch.bfloat16)
+    elif case == "delta_device":
+        delta = torch.empty((4, 64))
+    elif case == "x_strided":
+        x, match = torch.empty((64, 4), device="meta").t(), "contiguous"
+    elif case == "delta_strided":
+        delta, match = torch.empty((64, 4), device="meta").t(), "contiguous"
+    elif case == "scale":
+        scale = torch.empty(32, device="meta")
+    elif case == "body":
+        kw, match = {"_body": "mma"}, "no kernel body"
+    elif case == "norm_body":
+        kw, match = {"_body": "norm"}, "takes no delta"
+    else:
+        kw, fn, match = {"_body": "add_norm"}, None, "needs a delta"
+    with pytest.raises(ValueError, match=match):
+        if fn is None:
+            rmsnorm(x, scale, **kw)
+        else:
+            fn(x, delta, scale, **kw)
+    assert all(n == 0 for n in _build.launches.values())
+    assert all(n == 0 for n in _build.bodies["rmsnorm"].values())
+
+
+@pytest.mark.parametrize("rows,d,dtype,want", [
+    (8, 960, "bfloat16", (128, 1, 1)),      # smollm-360m decode
+    (128, 960, "bfloat16", (128, 1, 1)),    # smollm-360m prefill chunk
+    (8, 4096, "bfloat16", (256, 1, 2)),     # falcon-mamba-7b decode
+    (128, 4096, "bfloat16", (256, 1, 2)),   # falcon-mamba-7b chunk
+    (8, 960, "float32", (256, 1, 1)),       # the f32 parity runs
+    (128, 960, "float32", (256, 1, 1)),
+    (8, 4096, "float32", (256, 1, 4)),
+    (128, 4096, "float32", (256, 1, 4)),
+    (8, 100, "bfloat16", (128, 1, 1)),      # one element an access
+    (1024, 128, "bfloat16", (32, 4, 1)),    # one warp a row, 4 a block
+])
+def test_norm_lanes_on_the_main_path(rows, d, dtype, want):
+    """One 16-byte access a lane where up to 8 warps hold the row (every
+    bf16 norm of both models), two at falcon-mamba-7b's bf16 width; one
+    row a block unless a row fits one warp and there are rows enough to
+    give every SM a block of more."""
+    assert norm_lanes(rows, d, norm_pack(getattr(torch, dtype), d)) == want
+
+
+@pytest.mark.parametrize("rows", [1, 5, 131, 132, 1055, 1056, 8192])
+@pytest.mark.parametrize("d,pack", [(100, 1), (100, 4), (960, 1), (960, 8),
+                                    (4096, 1), (4096, 8), (16384, 4),
+                                    (32768, 8), (5, 1), (256, 8)])
+def test_norm_lanes_hold_the_row_and_fill_the_card(rows, d, pack):
+    """Every access of a row has a lane: one a lane in the fewest warps
+    (a power of two) up to 8, then the fewest accesses a lane (a power
+    of two, at most 16); one row a block when a row takes more than one
+    warp, else the largest block of up to 8 rows that still gives every
+    SM a block."""
+    lanes, rpb, vecs = norm_lanes(rows, d, pack)
+    n_acc = -(-d // pack)
+    warps = lanes // 32
+    assert lanes % 32 == 0 and warps & (warps - 1) == 0
+    assert n_acc <= lanes * vecs and vecs in NORM_VECS
+    assert vecs == 1 or n_acc > lanes * (vecs // 2)
+    assert warps == 1 or n_acc > lanes // 2
+    assert vecs == 1 or warps == NORM_MAX_WARPS
+    assert warps * rpb <= NORM_MAX_WARPS and (warps == 1 or rpb == 1)
+    assert rpb == 1 or -(-rows // rpb) >= SM_COUNT
+    assert rpb == 8 or -(-rows // (2 * rpb)) < SM_COUNT or warps > 1
+
+
+def test_norm_pack_and_width_refusal():
+    bf, f32 = torch.bfloat16, torch.float32
+    assert norm_pack(bf, 960) == 8 and norm_pack(f32, 960) == 4
+    assert norm_pack(bf, 100) == 1 and norm_pack(f32, 100) == 4
+    assert norm_pack(bf, 960, aligned=False) == 1
+    with pytest.raises(ValueError, match="wider"):
+        norm_lanes(1, 32768 + 8, 8)
+    with pytest.raises(ValueError, match="wider"):
+        norm_lanes(1, 4097, 1)
 
 
 # ----------------------------------------------------------------------
@@ -550,16 +678,105 @@ def test_decode_splits_cover_the_slots_and_fill_the_card(b, kv, capacity):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
+    """The norm body (every norm without a delta), and the previous
+    cuda_core body forced, each counted once under its body."""
     rng = np.random.default_rng(8)
     dt = getattr(torch, dtype)
     for rows, d in ((8, 960), (128, 960), (5, 100)):
         x = t(rng.standard_normal((rows, d), dtype=np.float32)).to(cuda_device, dt)
         s = t(rng.standard_normal(d, dtype=np.float32)).to(cuda_device, dt)
         n0 = _build.launches["rmsnorm"]
+        by0 = dict(_build.bodies["rmsnorm"])
         got = rmsnorm(x, s, 1e-5)
         assert _build.launches["rmsnorm"] == n0 + 1
+        assert _build.bodies["rmsnorm"] == {
+            k: v + (k == "norm") for k, v in by0.items()}
+        _card_close(rmsnorm(x, s, 1e-5, _body="cuda_core"),
+                    rmsnorm_plain(x, s, 1e-5), dtype)
+        assert _build.bodies["rmsnorm"]["cuda_core"] == by0["cuda_core"] + 1
         assert got.dtype == dt
         _card_close(got, rmsnorm_plain(x, s, 1e-5), dtype)
+
+
+# the kernels phase's shapes, ragged widths, and one-warp rows 4 a block
+ADD_NORM_CARD_SHAPES = [(8, 960), (128, 960), (8, 4096), (128, 4096),
+                        (5, 100), (3, 3000), (1000, 128)]
+
+
+def _card_norm_inputs(cuda_device, rng, rows, d, dt, offset):
+    """x, delta, scale on the card; ``offset`` 1 puts each one element
+    into its buffer, off 16-byte alignment, which takes the kernel's
+    one-element accesses."""
+    def card(a):
+        buf = torch.empty(a.size + offset, dtype=dt, device=cuda_device)
+        view = buf[offset:].view(a.shape)
+        view.copy_(t(a).to(cuda_device))
+        return view
+    return (card(rng.standard_normal((rows, d), dtype=np.float32)),
+            card(rng.standard_normal((rows, d), dtype=np.float32)),
+            card((1 + 0.1 * rng.standard_normal(d)).astype(np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", ADD_NORM_CARD_SHAPES)
+def test_cuda_add_rmsnorm_matches_plain(cuda_device, rows, d, dtype,
+                                        offset):
+    """The add_norm body: ``r`` bit-equal to torch's ``x + delta``,
+    ``out`` within the card gate of the plain version, repeated calls
+    bit-equal, one launch counted under add_norm; the previous
+    composition (torch's add, then the cuda_core norm) under the same
+    gate, counted under cuda_core."""
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    x, dl, sc = _card_norm_inputs(cuda_device, rng, rows, d, dt, offset)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    n0 = _build.launches["rmsnorm"]
+    by0 = dict(_build.bodies["rmsnorm"])
+    r, out = add_rmsnorm(x, dl, sc, 1e-5)
+    assert _build.launches["rmsnorm"] == n0 + 1
+    assert _build.bodies["rmsnorm"] == {
+        k: v + (k == "add_norm") for k, v in by0.items()}
+    assert r.dtype == out.dtype == dt
+    assert torch.equal(r, x + dl)
+    want = add_rmsnorm_plain(x, dl, sc, 1e-5)[1]
+    _card_close(out, want, dtype)
+    for _ in range(3):
+        r2, out2 = add_rmsnorm(x, dl, sc, 1e-5)
+        assert torch.equal(r2, r) and torch.equal(out2, out)
+    rp, outp = add_rmsnorm(x, dl, sc, 1e-5, _body="cuda_core")
+    assert _build.bodies["rmsnorm"]["cuda_core"] == by0["cuda_core"] + 1
+    assert torch.equal(rp, r)
+    _card_close(outp, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,rpb", [(32, 1), (32, 2), (32, 8), (64, 1),
+                                       (128, 1), (256, 1)])
+@pytest.mark.parametrize("rows,d,dtype", [(8, 960, "float32"),
+                                          (8, 960, "bfloat16"),
+                                          (128, 4096, "bfloat16")])
+def test_cuda_add_rmsnorm_any_launch_shape(cuda_device, monkeypatch, rows,
+                                           d, dtype, lanes, rpb):
+    """Every launch shape the kernel takes (one warp a row with up to 16
+    accesses a lane, 1 to 8 rows a block, shuffles only; or 2 to 8 warps
+    a row with the shared-memory exchange and its barrier) gives the
+    same r and, within the gate, the same out as the rule's; norm and
+    add_norm alike."""
+    rng = np.random.default_rng(10)
+    dt = getattr(torch, dtype)
+    x, dl, sc = _card_norm_inputs(cuda_device, rng, rows, d, dt, 0)
+    r1, out1 = add_rmsnorm(x, dl, sc, 1e-5)
+    n1 = rmsnorm(x, sc, 1e-5)
+    n_acc = d // norm_pack(dt, d)
+    vecs = next(v for v in NORM_VECS if v * lanes >= n_acc)
+    monkeypatch.setattr(norm_mod, "norm_lanes",
+                        lambda *a: (lanes, rpb, vecs))
+    r, out = add_rmsnorm(x, dl, sc, 1e-5)
+    assert torch.equal(r, r1)
+    _card_close(out, out1, dtype)
+    _card_close(rmsnorm(x, sc, 1e-5), n1, dtype)
 
 
 @pytest.mark.cuda

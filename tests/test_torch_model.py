@@ -17,12 +17,15 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_ref import bridged, config_pair, jax_params, t  # noqa: E402
+from _torch_ref import (bridged, config_pair, count_norm_calls,  # noqa: E402
+                        expected_norm_calls, jax_params, t,
+                        unfused_block_apply)
 from repro.models import attention as jattn  # noqa: E402
 from repro.models import build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,6 +171,45 @@ def test_paged_prefill_chunk_hidden(setup, pos0):
         tp, caches, t(toks), pos0, row, {"tables": t(tables[row:row + 1])})
     assert _err(th, jh) < LOGIT_TOL
     assert _err(caches[0]["k"], jcaches[0]["k"]) < ATTN_TOL
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+def test_fused_residual_adds_keep_the_unfused_bits(setup, monkeypatch, mode):
+    """A paged decode step of 3 rows and a paged prefill chunk of the
+    2-layer smoke model call the norm wrappers with and without a delta
+    exactly as often as chip_smoke.py's launch formula says (a decode
+    iteration: every norm but the first takes a delta, the final one
+    too; a chunk: no final norm), and their logits, hidden state and
+    pools are bit-identical to the blocks composed as before the fusion
+    (the plain norm, then each add at once)."""
+    jc, tc, npp, tp = setup
+    rng = np.random.default_rng(16)
+    kp, vp, tables = _model_inputs(rng, jc, 3)
+    tok = rng.integers(0, jc.vocab_size, (3, 1)).astype(np.int32)
+    toks = rng.integers(0, jc.vocab_size, (1, 13)).astype(np.int32)
+    model = Model(tc, device="cpu")
+
+    def run():
+        caches = [{"k": t(kp.copy()), "v": t(vp.copy())}]
+        if mode == "decode":
+            out, _ = model.paged_decode_step(
+                tp, caches, {"token": t(tok), "pos": t(np.array(
+                    [4, 0, 41], np.int32))}, {"tables": t(tables)})
+        else:
+            out, _ = model.paged_prefill_chunk(
+                tp, caches, t(toks), 11, 1, {"tables": t(tables[1:2])})
+        return out, caches
+
+    calls = count_norm_calls(monkeypatch)
+    got, got_caches = run()
+    assert calls == expected_norm_calls(
+        tc, *((1, 0) if mode == "decode" else (0, 1)))
+    assert calls["norm"] == 1
+    monkeypatch.setattr(ttfm, "block_apply", unfused_block_apply)
+    want, want_caches = run()
+    assert torch.equal(got, want)
+    for name in ("k", "v"):
+        assert torch.equal(got_caches[0][name], want_caches[0][name])
 
 
 def test_decode_steps_tokens_with_masked_rows(setup):

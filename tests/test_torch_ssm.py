@@ -19,7 +19,9 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_ref import bridged, config_pair, jax_params, t  # noqa: E402
+from _torch_ref import (bridged, config_pair, count_norm_calls,  # noqa: E402
+                        expected_norm_calls, jax_params, t,
+                        unfused_block_apply)
 from repro.models import build_model  # noqa: E402
 from repro.models import kvcache as jkv  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
@@ -27,6 +29,7 @@ from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.models import kvcache as tkv  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 
 TOL = 2e-5
@@ -311,6 +314,51 @@ def test_prefill_then_decode_matches_jax(setup, paged):
     for jcache, tcache in zip(jcaches, tcaches):
         for name in tcache:
             assert _rel(tcache[name], jcache[name]) < TOL
+
+
+@pytest.mark.parametrize("mode", ["decode", "chunk"])
+@pytest.mark.parametrize("name", ["mamba", "hybrid"])
+def test_fused_residual_adds_keep_the_unfused_bits(monkeypatch, name, mode):
+    """A paged decode step of 3 rows and a paged prefill chunk of the
+    falcon-mamba smoke model (2 Mamba1 layers) and of the hybrid (Mamba1,
+    attn with an MLP, Mamba1) call the norm wrappers with and without a
+    delta exactly as often as chip_smoke.py's launch formula says, and
+    their logits, hidden state and state rows are bit-identical to the
+    blocks composed as before the fusion (the plain norm, then each add
+    at once)."""
+    jc, tc = config_pair(name)
+    tp = bridged(jax_params(jc, seed=2), tc)
+    model = Model(tc, device="cpu")
+    rng = np.random.default_rng(17)
+    _, ledger = _paged_pair(jc, tc, 3)
+    ledger.admit(1, 12)
+    init = [{k: rng.standard_normal(tuple(a.shape), dtype=np.float32)
+             for k, a in c.items()} for c in ledger.struct(torch.float32)]
+    tok = np.array([[3], [7], [0]], np.int32)
+    toks = rng.integers(1, jc.vocab_size, (1, 11)).astype(np.int32)
+
+    def run():
+        caches = [{k: t(a.copy()) for k, a in c.items()} for c in init]
+        if mode == "decode":
+            out, _ = model.paged_decode_step(
+                tp, caches, {"token": t(tok), "pos": t(np.array(
+                    [4, 11, 0], np.int32))}, ledger.meta())
+        else:
+            out, _ = model.paged_prefill_chunk(tp, caches, t(toks), 0, 1,
+                                               ledger.meta(row=1))
+        return out, caches
+
+    calls = count_norm_calls(monkeypatch)
+    got, got_caches = run()
+    assert calls == expected_norm_calls(
+        tc, *((1, 0) if mode == "decode" else (0, 1)))
+    assert calls["norm"] == 1
+    monkeypatch.setattr(ttfm, "block_apply", unfused_block_apply)
+    want, want_caches = run()
+    assert torch.equal(got, want)
+    for got_c, want_c in zip(got_caches, want_caches):
+        for k in got_c:
+            assert torch.equal(got_c[k], want_c[k])
 
 
 def test_untied_head_and_refusals():
