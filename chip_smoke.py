@@ -38,17 +38,28 @@ one JSON line:
    norm) is its ``prev_ms``, and torch's add then ``F.rms_norm`` its
    ``library_pair_ms`` (no single PyTorch call computes it, so its
    ``library_ms`` is null).  rmsnorm is also timed at falcon-mamba-7b's
-   width (8 and 128 rows of 4096, bf16), and an empty kernel
+   width (8 and 128 rows of 4096, bf16).  The batched paged-chunk form
+   of the flash kernel (``paged_chunk_attention``, a verify round's B 8
+   rows of C = K + 1 = 5 tokens, each row's pos read on the device) must
+   also give each row the bits of a one-row call at its pos, and the
+   same bits in blocks of 32 as in blocks of 16; its library call is
+   ``F.scaled_dot_product_attention`` over the gathered KV with a per-row
+   mask.  An empty kernel
    (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
    the kernel list) gives the floor one launch costs, at 1 block and at
    the decode scan's grid;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
-   and on the CPU (plain versions); then falcon-mamba-7b at full width,
-   2 layers, float32, through the paged and the slot engine.  Each pair
-   of streams must be equal, and on the card the slot engine's streams
-   must equal the paged engine's;
+   and on the CPU (plain versions), and with ``speculative=4``: n-gram
+   drafts through the paged engine (unquantized and int8) and the slot
+   engine, and a model draft (2-layer smollm-360m on its own seed)
+   through the paged engine; then falcon-mamba-7b at full width, 2
+   layers, float32, through the paged and the slot engine, and with
+   ``speculative=4``, which it must gate off.  Each pair of streams must
+   be equal, on the card the slot engine's streams must equal the paged
+   engine's, and each speculative stream the same engine's and format's
+   non-speculative one;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -56,20 +67,26 @@ one JSON line:
    request must finish with 64 in-vocab tokens and every kernel must
    have been launched the number of times each run's shapes imply (the
    counts are reset before and read after each run), every launch
-   of the five two-body kernels must have taken its tensor-core body
+   of the six two-body kernels must have taken its tensor-core body
    (all serve runs are bf16), and rmsnorm's launches must split between
    its ``add_norm`` and ``norm`` bodies as the run implies; each
    quantized or
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
    the last run repeats the bf16 paged engine on the same 8 requests.
+   Then ``speculative=4`` (n-gram drafts) through the paged and the slot
+   engine on those 8 requests (``paged_spec``, ``dense_spec``): rounds,
+   acceptance, host syncs per token, the share of tokens equal to the
+   repeated bf16 paged run's (not gated), and exactly one batched chunk
+   attention a layer a round, every launch on ``mma``.
    Then falcon-mamba-7b at full width and depth (64 Mamba1 layers) in
    bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
    through ``ServingEngine``, with the same checks (the slot run's share
    of tokens equal to the paged run's printed, and every scan launch on
    the ``state_lanes`` body).
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
-   falcon-mamba paged run): two steady decode macro-steps timed without
+   falcon-mamba paged run; two steady verify rounds after ``paged_spec``):
+   two steady decode macro-steps timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run and the
@@ -114,6 +131,7 @@ REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
     "paged_prefill_attention": "src/repro/kernels/flash_attention.py:72",
+    "paged_chunk_attention": "src/repro/kernels/flash_attention.py:72",
     "dense_decode_attention": "src/repro/kernels/decode_attention.py:76",
     "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
@@ -123,6 +141,7 @@ SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "paged_chunk_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
     "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
@@ -131,6 +150,7 @@ SOURCES = {
 #: the serve run whose launches each kernel's line reports
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "paged_prefill_attention": "paged_bf16",
+              "paged_chunk_attention": "paged_spec",
               "dense_decode_attention": "dense_bf16",
               "quant_matmul_int8": "paged_int8",
               "quant_matmul_int4": "paged_int4",
@@ -441,6 +461,8 @@ def kernel_cases(dev) -> list:
                     q, kp, vp, table, p0, _body="cuda_core"))
                 if dname == "bfloat16" else None))
 
+        cases.append(chunk_case(dev, dname))
+
     # the kernels of the quantized and slot-engine paths
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
@@ -501,6 +523,88 @@ def kernel_cases(dev) -> list:
             if dname == "bfloat16" else None))
     launch_floor(dev)
     return cases + scan_cases(dev)
+
+
+#: the verify round's rows: smollm-360m's 8 rows at positions 32-600
+VERIFY_POS = [32, 600, 117, 256, 75, 413, 519, 188]
+
+
+def chunk_case(dev, dname) -> dict:
+    """The batched paged-chunk form at a verify round's shapes (B 8, C = K
+    + 1 = 5, H 15, KV 5, hd 64, blocks of 16 of 1024-slot rows, each
+    row's pos on the device): against its plain version under the gates,
+    each row bit-equal to a one-row call at its pos, and the same data in
+    blocks of 32 bit-equal; then timed (in bf16 against the ``cuda_core``
+    body too), with ``F.scaled_dot_product_attention`` over the gathered
+    KV and a per-row mask as the library call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import paged_gather
+    from repro_torch.kernels.flash_attention import (
+        paged_chunk_attention, paged_chunk_attention_plain,
+        paged_prefill_attention)
+    rng = np.random.default_rng(SEED + 8)
+    dtype = getattr(torch, dname)
+    es = torch.finfo(dtype).bits // 8
+    B, C, H, KV, HD, S = 8, 5, 15, 5, 64, 1024
+    pos_np = np.asarray(VERIFY_POS, np.int32)
+    k = rng.standard_normal((B, S, KV, HD)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, HD)).astype(np.float32)
+    q = torch.from_numpy(rng.standard_normal((B, C, H, HD)).astype(
+        np.float32)).to(dev, dtype)
+    pos = torch.from_numpy(pos_np).to(dev)
+    pools = {}
+    for bs in (16, 32):
+        nb = S // bs
+        tables_np = (rng.permutation(B * nb).reshape(B, nb) + 1).astype(
+            np.int32)
+        kp = np.zeros((B * nb + 1, bs, KV, HD), np.float32)
+        vp = np.zeros((B * nb + 1, bs, KV, HD), np.float32)
+        kp[tables_np] = k.reshape(B, nb, bs, KV, HD)
+        vp[tables_np] = v.reshape(B, nb, bs, KV, HD)
+        pools[bs] = [torch.from_numpy(a).to(dev, dtype) for a in (kp, vp)] + [
+            torch.from_numpy(tables_np).to(dev)]
+    kp, vp, tables = pools[16]
+    out = paged_chunk_attention(q, kp, vp, tables, pos)
+    rows_equal = all(torch.equal(out[b], paged_prefill_attention(
+        q[b].contiguous(), kp, vp, tables[b].contiguous(), int(pos_np[b])))
+        for b in range(B))
+    blocks_equal = torch.equal(out, paged_chunk_attention(q, *pools[32][:2],
+                                                          pools[32][2], pos))
+    emit({"phase": "kernels", "kernel": "paged_chunk_attention",
+          "check": "rows bit-equal to one-row calls; blocks of 32 bit-equal "
+                   "to blocks of 16", "dtype": dname,
+          "rows_equal": rows_equal, "blocks_equal": blocks_equal})
+    if not (rows_equal and blocks_equal):
+        raise AssertionError(f"paged_chunk_attention {dname}: rows equal to "
+                             f"one-row calls {rows_equal}, blocks of 32 "
+                             f"equal {blocks_equal}")
+    kg = paged_gather(kp, tables).permute(0, 2, 1, 3).contiguous()
+    vg = paged_gather(vp, tables).permute(0, 2, 1, 3).contiguous()
+    qs = q.permute(0, 2, 1, 3).contiguous()                  # (B,H,C,hd)
+    mask = (torch.arange(S, device=dev)[None, None, :]
+            <= pos.long()[:, None, None]
+            + torch.arange(C, device=dev)[None, :, None])[:, None]
+    n_slots = int((pos_np + C).sum())
+    n_entries = sum(-(-(int(p) + C) // 16) for p in pos_np)
+    n_pairs = int(sum(p + i + 1 for p in pos_np for i in range(C)))
+    return _case(
+        "paged_chunk_attention", dname,
+        {"B": B, "C": C, "H": H, "KV": KV, "hd": HD, "bs": 16,
+         "pos": pos_np.tolist()},
+        out, paged_chunk_attention_plain(q, kp, vp, tables, pos),
+        lambda: paged_chunk_attention(q, kp, vp, tables, pos),
+        lambda: paged_chunk_attention_plain(q, kp, vp, tables, pos),
+        lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
+                                               enable_gqa=True),
+        # q read, out written; each row's pos + C slots of K and V; its
+        # table entries and pos
+        2 * B * C * H * HD * es + 2 * n_slots * KV * HD * es
+        + 4 * n_entries + 4 * B,
+        4 * H * HD * n_pairs,
+        prev=(lambda: paged_chunk_attention(q, kp, vp, tables, pos,
+                                            _body="cuda_core"))
+        if dname == "bfloat16" else None)
 
 
 def launch_floor(dev) -> list:
@@ -662,43 +766,74 @@ def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
 
 
 def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
-    """One trace through each (engine, format) of ``runs`` on the card and
-    on the CPU, from the same f32 weights (each engine packs its own)."""
+    """One trace through each (engine, format, speculation) of ``runs`` on
+    the card and on the CPU, from the same f32 weights (each engine packs
+    its own).  Speculation is None, an int K (n-gram drafts) or
+    ``"model"`` (a 2-layer smollm-360m draft at full width, float32, with
+    weights from its own seed, drawn on the CPU so both devices hold the
+    same).  A speculative run's card stream must also equal the card's
+    non-speculative stream of the same engine and format, which ``runs``
+    must hold before it."""
     import torch
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             ServingEngine)
+    from repro_torch.serving.speculative import ModelDraft
     cpu = torch.device("cpu")
     params_cpu = Model(cfg, device=cpu).init(
         torch.Generator().manual_seed(SEED))
     params_gpu = _to(params_cpu, dev)
+    draft_cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
+                                    block_pattern=uniform("attn", 2),
+                                    dtype="float32")
+
+    def speculative(spec, d):
+        if spec == "model":
+            return {"k": 4, "provider": ModelDraft(draft_cfg, seed=SEED + 7,
+                                                   device=d)}
+        return spec
     engines = {
-        "paged": lambda p, d, fmt: PagedServingEngine(
+        "paged": lambda p, d, fmt, spec: PagedServingEngine(
             cfg, p, max_rows=4, max_len=max_len, block_size=16,
-            prefill_chunk=128, decode_steps=4, quantization=fmt, device=d),
-        "slot": lambda p, d, fmt: ServingEngine(
+            prefill_chunk=128, decode_steps=4, quantization=fmt,
+            speculative=speculative(spec, d), device=d),
+        "slot": lambda p, d, fmt, spec: ServingEngine(
             cfg, p, max_batch=4, cache_len=max_len, prefill_chunk=128,
-            decode_steps=4, quantization=fmt, device=d)}
+            decode_steps=4, quantization=fmt,
+            speculative=speculative(spec, d), device=d)}
     streams, results = {}, []
     t0 = time.perf_counter()
-    for engine, fmt in runs:
+    for engine, fmt, spec in runs:
         for name, d, p in (("cuda", dev, params_gpu),
                            ("cpu", cpu, params_cpu)):
-            eng = engines[engine](p, d, fmt)
+            eng = engines[engine](p, d, fmt, spec)
             for i, pr in enumerate(prompts):
                 eng.submit(Request(i, list(pr), max_new_tokens=16))
-            streams[engine, fmt, name] = {r.id: r.out_tokens
-                                          for r in eng.run()}
-        got, ref = streams[engine, fmt, "cuda"], streams[engine, fmt, "cpu"]
-        run = {"engine": engine, "quantization": fmt, "equal": got == ref,
+            streams[engine, fmt, spec, name] = {r.id: r.out_tokens
+                                                for r in eng.run()}
+        got = streams[engine, fmt, spec, "cuda"]
+        ref = streams[engine, fmt, spec, "cpu"]
+        run = {"engine": engine, "quantization": fmt, "speculative": spec,
+               "equal": got == ref,
                "tokens": sum(len(x) for x in ref.values())}
+        if spec is not None:
+            run.update(
+                equal_to_plain=got == streams[engine, fmt, None, "cuda"],
+                spec_gated_off=eng.spec_gated_off,
+                spec_rounds=eng.spec_rounds,
+                acceptance_rate=eng.acceptance_rate,
+                spec_accept_mean=eng.spec_accept_mean())
+            run["equal"] = run["equal"] and run["equal_to_plain"]
         if got != ref:
             run["first_divergence"] = _first_divergence(
                 cfg, params_cpu, fmt, prompts, got, ref)
         results.append(run)
-    slot_is_paged = {str(fmt): streams["slot", fmt, "cuda"]
-                     == streams["paged", fmt, "cuda"]
-                     for engine, fmt in runs if engine == "slot"}
+    slot_is_paged = {str(fmt): streams["slot", fmt, None, "cuda"]
+                     == streams["paged", fmt, None, "cuda"]
+                     for engine, fmt, spec in runs
+                     if engine == "slot" and spec is None}
     res = {"phase": "parity", "config": label,
            "requests": len(prompts), "runs": results,
            "card_slot_equals_paged": slot_is_paged,
@@ -708,15 +843,19 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
     emit(res)
     if not res["equal"]:
         raise AssertionError(f"{label}: token streams differ: card against "
-                             f"CPU, or slot against paged engine on the "
+                             f"CPU, slot against paged engine on the card, "
+                             f"or speculative against plain decode on the "
                              f"card")
     return res
 
 
 def parity(dev) -> list:
-    """smollm-360m through both engines, unquantized and quantized, then
-    falcon-mamba-7b through both engines, each at full width and 2
-    layers in float32, on the card and on the CPU."""
+    """smollm-360m through both engines, unquantized and quantized, and
+    with speculation (n-gram drafts on both engines and with int8 weights,
+    a model draft on the paged engine; K = 4), then falcon-mamba-7b
+    through both engines and once with ``speculative=4``, which it must
+    gate off; each at full width and 2 layers in float32, on the card and
+    on the CPU."""
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     smollm = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
@@ -725,29 +864,41 @@ def parity(dev) -> list:
     mamba = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2,
                                 block_pattern=uniform("mamba1", 2),
                                 dtype="float32")
-    return [
-        _parity_config(
-            dev, smollm, "smollm-360m, 2 layers, float32",
-            (("paged", None), ("paged", "int8"), ("paged", "int4"),
-             ("slot", None), ("slot", "int8")),
-            _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
-                   smollm.vocab_size), 256),
-        # prompts of at most 64 tokens keep the CPU's side short
-        _parity_config(
-            dev, mamba, "falcon-mamba-7b, 2 layers, float32",
-            (("paged", None), ("slot", None)),
-            _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
-                   mamba.vocab_size), 128)]
+    smollm_res = _parity_config(
+        dev, smollm, "smollm-360m, 2 layers, float32",
+        (("paged", None, None), ("paged", "int8", None),
+         ("paged", "int4", None), ("slot", None, None),
+         ("slot", "int8", None), ("paged", None, 4), ("slot", None, 4),
+         ("paged", "int8", 4), ("paged", None, "model")),
+        _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
+               smollm.vocab_size), 256)
+    # prompts of at most 64 tokens keep the CPU's side short
+    mamba_res = _parity_config(
+        dev, mamba, "falcon-mamba-7b, 2 layers, float32",
+        (("paged", None, None), ("slot", None, None), ("paged", None, 4)),
+        _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
+               mamba.vocab_size), 128)
+    spec_runs = [r for r in smollm_res["runs"] if r["speculative"]]
+    gated = [r for r in mamba_res["runs"] if r["speculative"]]
+    if (any(r["spec_gated_off"] or r["spec_rounds"] == 0 for r in spec_runs)
+            or not all(r["spec_gated_off"] and r["spec_rounds"] == 0
+                       for r in gated)):
+        raise AssertionError(f"speculation: smollm runs {spec_runs} must "
+                             f"speculate, falcon-mamba runs {gated} must "
+                             f"gate it off")
+    return [smollm_res, mamba_res]
 
 
 def _timed(base):
     """``base`` engine class that splits wall time between prefill
-    chunks and macro-steps."""
+    chunks and macro-steps or verify rounds (``decode_s`` holds the
+    device forward and its host sync; ``round_s`` a whole verify round,
+    the drafting included)."""
     import torch
 
     class Timed(base):
-        prefill_s = decode_s = 0.0
-        macro_steps = decode_iters = prefill_calls = 0
+        prefill_s = decode_s = round_s = 0.0
+        macro_steps = decode_iters = prefill_calls = verify_rounds = 0
 
         def _prefill_row(self, row, toks, pos0):
             t0 = time.perf_counter()
@@ -762,6 +913,19 @@ def _timed(base):
             self.decode_s += time.perf_counter() - t0
             self.macro_steps += 1
             self.decode_iters += k
+            return out
+
+        def _forward_verify(self, tokens, pos, budgets):
+            t0 = time.perf_counter()
+            out = super()._forward_verify(tokens, pos, budgets)
+            self.decode_s += time.perf_counter() - t0
+            self.verify_rounds += 1
+            return out
+
+        def _spec_tail(self, *args):
+            t0 = time.perf_counter()
+            out = super()._spec_tail(*args)
+            self.round_s += time.perf_counter() - t0
             return out
 
     return Timed
@@ -785,42 +949,46 @@ def projection_bytes(params) -> int:
 
 
 def expected_launches(cfg, slot: bool, qformat, iters: int,
-                      chunks: int, names) -> tuple:
-    """Kernel launches a run of ``iters`` decode iterations and ``chunks``
-    prefill chunks implies: per attn layer two rmsnorms (one without an
-    MLP), one decode or prefill attention and, packed, 7 quant matmuls
-    (4 attention, 3 MLP); per Mamba1 layer one rmsnorm and one scan; one
-    final rmsnorm per decode iteration.  Every rmsnorm but the first of
-    a stack takes its residual add as a delta (``add_norm``); the final
-    norm takes the last block's.  Returns (launches by kernel, rmsnorm's
-    launches by body)."""
+                      chunks: int, names, rounds: int = 0) -> tuple:
+    """Kernel launches a run of ``iters`` decode iterations, ``chunks``
+    prefill chunks and ``rounds`` verify rounds implies: per attn layer
+    two rmsnorms (one without an MLP), one decode, prefill or batched
+    chunk attention (a verify round) and, packed, 7 quant matmuls (4
+    attention, 3 MLP); per Mamba1 layer one rmsnorm and one scan; one
+    final rmsnorm per decode iteration and per verify round.  Every
+    rmsnorm but the first of a stack takes its residual add as a delta
+    (``add_norm``); the final norm takes the last block's.  Returns
+    (launches by kernel, rmsnorm's launches by body)."""
     n_attn = cfg.block_pattern.count("attn")
     n_mamba = cfg.block_pattern.count("mamba1")
     n_mlp = n_attn if cfg.mlp_kind != "none" else 0
     expect = dict.fromkeys(names, 0)
     norms = n_attn + n_mamba + n_mlp
-    expect["rmsnorm"] = (norms + 1) * iters + norms * chunks
-    norm_bodies = {"add_norm": norms * iters + (norms - 1) * chunks,
-                   "norm": iters + chunks, "cuda_core": 0}
+    heads = iters + rounds        # forwards that end in the final norm
+    expect["rmsnorm"] = (norms + 1) * heads + norms * chunks
+    norm_bodies = {"add_norm": norms * heads + (norms - 1) * chunks,
+                   "norm": heads + chunks, "cuda_core": 0}
     expect["paged_prefill_attention"] = n_attn * chunks
+    expect["paged_chunk_attention"] = n_attn * rounds
     expect["dense_decode_attention" if slot
            else "paged_decode_attention"] = n_attn * iters
     expect["selective_scan"] = n_mamba * (iters + chunks)
     if qformat:
         expect[f"quant_matmul_{qformat}"] = (4 * n_attn + 3 * n_mlp) * (
-            iters + chunks)
+            heads + chunks)
     return expect, {"rmsnorm": norm_bodies}
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
-              params=None) -> tuple:
+              params=None, ref_key="share_equal_to_bf16_paged") -> tuple:
     """One serve run at full width and depth: a warm-up engine (cuBLAS
     handles, allocator pools; its launches are not counted), then the
     measured engine on the same parameters (``params``, or the warm-up
     engine's own draw).  Launch counts are reset just before the run and
     read just after, and must equal what the run's decode iterations and
-    prefill chunks imply.  ``ref``: a reference run's streams on the same
-    requests, for the share of equal tokens."""
+    prefill chunks (and verify rounds) imply.  ``ref``: a reference run's
+    streams on the same requests, for the share of equal tokens, printed
+    under ``ref_key``."""
     import gc
     import torch
     from repro_torch.kernels import _build
@@ -845,9 +1013,10 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     launches = dict(_build.launches)
     bodies = {k: dict(v) for k, v in _build.bodies.items()}
     iters, chunks = eng.decode_iters, eng.prefill_calls
+    rounds = eng.verify_rounds
     expect, expect_bodies = expected_launches(
         cfg, issubclass(cls, ServingEngine), eng.quantization, iters, chunks,
-        launches)
+        launches, rounds)
     streams = {r.id: r.out_tokens for r in done}
     res = {"phase": "serve", "run": name,
            "engine": cls.__name__, "quantization": eng.quantization,
@@ -861,7 +1030,8 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "prefill_tok_per_s": eng.prefill_tokens / eng.prefill_s,
            "decode_tok_per_s": eng.tokens_generated / eng.decode_s,
            "macro_steps": eng.macro_steps, "decode_iters": iters,
-           "ms_per_macro_step": eng.decode_s / eng.macro_steps * 1e3,
+           "ms_per_macro_step": (eng.decode_s / eng.macro_steps * 1e3
+                                 if eng.macro_steps else None),
            "prefill_calls": chunks,
            "n_host_syncs": eng.n_host_syncs,
            "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
@@ -869,11 +1039,19 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "n_preemptions": getattr(eng, "n_preemptions", None),
            "launches": launches, "launches_expected": expect,
            "bodies": bodies, "bodies_expected": expect_bodies}
+    if eng.spec is not None:
+        res.update(
+            speculative_k=eng.spec.k, verify_rounds=rounds,
+            acceptance_rate=eng.acceptance_rate,
+            spec_accept_mean=eng.spec_accept_mean(),
+            host_syncs_per_token=eng.n_host_syncs / eng.tokens_generated,
+            ms_per_verify_round=eng.decode_s / rounds * 1e3,
+            round_s=eng.round_s,
+            round_tok_per_s=eng.tokens_generated / eng.round_s)
     if ref is not None:
         pairs = [(a, b) for rid, toks in streams.items()
                  for a, b in zip(toks, ref[rid])]
-        res["share_equal_to_bf16_paged"] = (
-            sum(a == b for a, b in pairs) / len(pairs))
+        res[ref_key] = sum(a == b for a, b in pairs) / len(pairs)
     emit(res)
     bad = [r.id for r in done
            if len(r.out_tokens) != n_new
@@ -946,9 +1124,11 @@ def serve(dev) -> dict:
             ("paged_bf16_8", PagedServingEngine, kw)):
         gc.collect()
         torch.cuda.empty_cache()
-        res, _, eng = serve_run(name, cls, cfg, run_kw, prompts[:8], dev,
-                                ref=ref)
+        res, streams, eng = serve_run(name, cls, cfg, run_kw, prompts[:8],
+                                      dev, ref=ref)
         launches[name] = res["launches"]
+        if name == "paged_bf16_8":
+            streams_8 = streams
         if name in ("paged_int8", "paged_int4"):
             fmt = run_kw["quantization"]
             profile_decode(cfg, eng.params, run_kw, dev, label=name)
@@ -956,7 +1136,29 @@ def serve(dev) -> dict:
                 profile_decode(cfg, eng.params, run_kw, dev,
                                label=f"{name}, previous {fmt} body")
         del eng
-    del res, ref
+    # draft-verify speculation (K = 4, n-gram drafts) on the same 8
+    # requests, with the share of tokens equal to paged_bf16_8's (not
+    # gated: in bf16 the chunk kernel and the decode kernel round
+    # differently, and random 32-layer weights amplify that)
+    for name, cls, run_kw in (
+            ("paged_spec", PagedServingEngine, dict(kw, speculative=4)),
+            ("dense_spec", ServingEngine, dict(slot_kw, speculative=4))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res, _, eng = serve_run(name, cls, cfg, run_kw, prompts[:8], dev,
+                                ref=streams_8,
+                                ref_key="share_equal_to_paged_bf16_8")
+        launches[name] = res["launches"]
+        # one batched chunk attention a layer a round (32 on smollm)
+        if res["launches"]["paged_chunk_attention"] != cfg.n_layers * res[
+                "verify_rounds"] or res["verify_rounds"] == 0:
+            raise AssertionError(f"serve {name}: {res['verify_rounds']} "
+                                 f"verify rounds, batched chunk attention "
+                                 f"launched {res['launches']}")
+        if name == "paged_spec":
+            profile_verify(cfg, eng.params, run_kw, dev, label=name)
+        del eng
+    del res, ref, streams, streams_8
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_mamba(dev))
@@ -1093,6 +1295,67 @@ def profile_decode(cfg, params, kw, dev, label: str) -> dict:
     return res
 
 
+def profile_verify(cfg, params, kw, dev, label: str) -> dict:
+    """Where a verify round's time goes: two steady rounds of 8 rows
+    (admission, prefill and the first round happen before the window),
+    timed without the profiler, then again under it on an identical
+    engine, as ``profile_decode`` does for macro-steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    prompts = _trace(np.random.default_rng(SEED + 3), 8, 256, 256,
+                     cfg.vocab_size)
+    rounds = 2
+
+    def warm_engine():
+        eng = PagedServingEngine(cfg, params, **kw)
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(i, pr, max_new_tokens=48))
+        eng.step()               # admit + prefill all 8, first round
+        torch.cuda.synchronize()
+        return eng
+
+    def window(eng):
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    eng = warm_engine()
+    wall = window(eng)
+    emitted = eng.tokens_generated
+    eng = warm_engine()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_profiled = window(eng)
+    if eng.spec_rounds != rounds + 1 or eng.active_rows != 8:
+        raise AssertionError("the verify window ran another number of "
+                             "rounds or lost a row")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    n_launch = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    res = {"phase": "profile", "run": label,
+           "window": f"verify, 8 rows, K {eng.spec.k}, {rounds} rounds",
+           "verify_rounds": rounds, "wall_ms": wall * 1e3,
+           "wall_profiled_ms": wall_profiled * 1e3,
+           "ms_per_round": wall * 1e3 / rounds,
+           "tokens_emitted_in_3_rounds": emitted,
+           "device_busy_ms": busy_us / 1e3,
+           "device_busy_ms_per_round": busy_us / 1e3 / rounds,
+           "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+           "device_launches": n_launch,
+           "device_launches_per_round": n_launch / rounds,
+           "top_kernels": [{"name": e.key[:70], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top]}
+    emit(res)
+    return res
+
+
 def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
     """Where prefill time goes: admission of 8 requests of 385-token
     prompts, i.e. 24 chunks of 128 at pos 0, 128 and 256, with no decode.
@@ -1160,6 +1423,7 @@ def kernel_line(cases, launches_by_run) -> dict:
                                   and c["body"] == "add_norm"),
             "paged_decode_attention": lambda c: True,
             "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
+            "paged_chunk_attention": lambda c: True,
             "dense_decode_attention": lambda c: True,
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
             "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],

@@ -1,8 +1,22 @@
-// Paged causal flash attention for chunked prefill: C query tokens of one
-// request at positions pos .. pos + C - 1 attend causally to the logical
-// slots [0, pos + C) of a paged KV pool, through the request's block
-// table, with an online softmax in f32.  Keys are clamped at
+// Paged causal flash attention over chunks: C query tokens of each of B
+// rows, row b's at positions pos[b] .. pos[b] + C - 1, attend causally to
+// the logical slots [0, pos[b] + C) of a paged KV pool, through the row's
+// block table, with an online softmax in f32.  Keys are clamped at
 // max_len - 1 = nb * bs - 1.
+//
+// Two entry points share the bodies below:
+// * rt_paged_prefill_attention: one request's prefill chunk (B = 1), its
+//   pos a host int;
+// * rt_paged_chunk_attention: the batched form the draft-verify round
+//   runs (B rows of C = K + 1 tokens, Model.verify_steps), each row's pos
+//   read from a (B,) int32 device array by the CTAs themselves.  The grid
+//   is (tiles of one row, heads or KV heads, B): sized from B, C, H and
+//   KV only, so the host never reads pos and a verify round launches
+//   the same grid whatever the rows' positions (a CUDA graph can
+//   capture it).  Each CTA derives its key range and early exits from
+//   its row's pos, as the one-row launch does from the host's.  Row b of
+//   a batched launch runs exactly the instructions a one-row launch at
+//   pos[b] runs, so its output is bit-equal to that launch's.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:72, body _flash_kernel) in the
@@ -32,8 +46,10 @@
 //   end group 1 hands its (m, l, O) to group 0, which merges them in a
 //   fixed order; this halves the serial chain of key tiles a long prefix
 //   puts on each warp.  C = 128, H = 15, KV = 5 gives 6 x 5 = 30 CTAs,
-//   240 warps.  Each slot row's physical block comes from the table, and
-//   its hd * 2 bytes are copied with 16-byte cp.async into a padded
+//   240 warps; a verify round's batched launch (B 8, C = K + 1 = 5) gives
+//   1 x 5 x 8 = 40 CTAs whose 64-row tiles hold 15 live rows each (filling
+//   them is later work).  Each slot row's physical block comes from the
+//   table, and its hd * 2 bytes are copied with 16-byte cp.async into a padded
 //   shared tile (row stride hd + 8, so ldmatrix has no bank conflicts),
 //   the next step loading while the current one computes.  S = Q K^T
 //   runs on mma.sync m16n8k16 with f32 accumulators (products of bf16
@@ -49,7 +65,7 @@
 //   slot, never by block, so the output bits do not depend on bs or on
 //   the table.
 // * cuda_core (float32 at every shape, bf16 at the others): the f32
-//   CUDA-core body of the first port, grid (ceil(C / 32), H), products in
+//   CUDA-core body of the first port, grid (ceil(C / 32), H, B), products in
 //   scalar loops out of shared memory.  float32 stays here because the
 //   card's float32 streams must equal the CPU's: TF32 tensor cores would
 //   round the inputs.
@@ -66,8 +82,15 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      const T* __restrict__ vp, const int* __restrict__ table,
-                     T* __restrict__ out, int C, int H, int KV, int hd, int bs,
-                     int nb, int pos, float scale) {
+                     const int* __restrict__ pos_dev, T* __restrict__ out,
+                     int C, int H, int KV, int hd, int bs, int nb,
+                     int pos_host, float scale) {
+  // row b of the batch: its queries, outputs, table and position
+  const int b = blockIdx.z;
+  const int pos = pos_dev != nullptr ? pos_dev[b] : pos_host;
+  q += static_cast<size_t>(b) * C * H * hd;
+  out += static_cast<size_t>(b) * C * H * hd;
+  table += static_cast<size_t>(b) * nb;
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
   const int kvh = h / (H / KV);
@@ -160,8 +183,9 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* table, void* out, int C, int H, int KV, int hd,
-                   int bs, int nb, int pos, float scale, cudaStream_t stream) {
+                   const void* table, const void* pos_dev, void* out, int B,
+                   int C, int H, int KV, int hd, int bs, int nb, int pos,
+                   float scale, cudaStream_t stream) {
   const size_t floats = static_cast<size_t>(kTileQ) * hd * 2 +
                         static_cast<size_t>(kTileK) * (hd + 1) +
                         static_cast<size_t>(kTileK) * hd +
@@ -169,11 +193,12 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
   const size_t bytes = floats * sizeof(float);
   cudaError_t err = rt::allow_smem(paged_prefill_kernel<T>, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + kTileQ - 1) / kTileQ, H);
+  const dim3 grid((C + kTileQ - 1) / kTileQ, H, B);
   paged_prefill_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
-      static_cast<T*>(out), C, H, KV, hd, bs, nb, pos, scale);
+      static_cast<const int*>(pos_dev), static_cast<T*>(out), C, H, KV, hd,
+      bs, nb, pos, scale);
   return cudaGetLastError();
 }
 
@@ -202,9 +227,10 @@ __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ kp,
                const __nv_bfloat16* __restrict__ vp,
-               const int* __restrict__ table, __nv_bfloat16* __restrict__ out,
-               int C, int H, int KV, int bs, int nb, int pos,
-               float scale_log2) {
+               const int* __restrict__ table,
+               const int* __restrict__ pos_dev,
+               __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs,
+               int nb, int pos_host, float scale_log2) {
   constexpr int kStride = HD + 8;    // smem row, in bf16
   constexpr int kChunks = HD / 8;    // 16-byte chunks per row
   constexpr int kKSteps = HD / 16;   // k16 steps of Q K^T
@@ -213,6 +239,12 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ks = qs + kRows * kStride;        // [2][kSpan][kStride]
   __nv_bfloat16* vs = ks + 2 * kSpan * kStride;    // [2][kSpan][kStride]
 
+  // row b of the batch: its queries, outputs, table and position
+  const int b = blockIdx.z;
+  const int pos = pos_dev != nullptr ? pos_dev[b] : pos_host;
+  q += static_cast<size_t>(b) * C * H * HD;
+  out += static_cast<size_t>(b) * C * H * HD;
+  table += static_cast<size_t>(b) * nb;
   const int G = H / KV;
   const int kvh = blockIdx.y;
   const int rows = C * G;
@@ -443,35 +475,68 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
-                   const void* table, void* out, int C, int H, int KV, int bs,
-                   int nb, int pos, float scale, cudaStream_t stream) {
+                   const void* table, const void* pos_dev, void* out, int B,
+                   int C, int H, int KV, int bs, int nb, int pos, float scale,
+                   cudaStream_t stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = rt::allow_smem(prefill_kernel<HD>, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C * (H / KV) + kRows - 1) / kRows, KV);
+  const dim3 grid((C * (H / KV) + kRows - 1) / kRows, KV, B);
   prefill_kernel<HD><<<grid, kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
-      static_cast<__nv_bfloat16*>(out), C, H, KV, bs, nb, pos,
-      scale * kLog2e);
+      static_cast<const int*>(pos_dev), static_cast<__nv_bfloat16*>(out), C,
+      H, KV, bs, nb, pos, scale * kLog2e);
   return cudaGetLastError();
 }
 
 // The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
 template <int HD>
 cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
-                     const void* table, void* out, int C, int H, int KV,
-                     int bs, int nb, int pos, float scale, cudaStream_t s) {
+                     const void* table, const void* pos_dev, void* out, int B,
+                     int C, int H, int KV, int bs, int nb, int pos,
+                     float scale, cudaStream_t s) {
   if (hd == HD)
-    return launch<HD>(q, kp, vp, table, out, C, H, KV, bs, nb, pos, scale, s);
+    return launch<HD>(q, kp, vp, table, pos_dev, out, B, C, H, KV, bs, nb,
+                      pos, scale, s);
   if constexpr (HD > 16)
-    return dispatch<HD - 16>(hd, q, kp, vp, table, out, C, H, KV, bs, nb, pos,
-                             scale, s);
+    return dispatch<HD - 16>(hd, q, kp, vp, table, pos_dev, out, B, C, H, KV,
+                             bs, nb, pos, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace mma
+
+// Both entry points: B rows, each row's pos from pos_dev when it is not
+// null, else the host's pos.
+cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
+                const void* tables, const void* pos_dev, void* out, int B,
+                int C, int H, int KV, int hd, int bs, int nb, int pos,
+                float scale, int dtype, int body, cudaStream_t s) {
+  if (B <= 0 || C <= 0) return cudaSuccess;
+  if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0 ||
+      B > 65535)
+    return cudaErrorInvalidValue;
+  if (body == rt::kBodyMma) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                           reinterpret_cast<uintptr_t>(k_pool) |
+                           reinterpret_cast<uintptr_t>(v_pool) |
+                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    if (dtype != 1 || hd % 16 != 0 || hd > 128 || !aligned)
+      return cudaErrorInvalidValue;
+    return mma::dispatch<128>(hd, q, k_pool, v_pool, tables, pos_dev, out, B,
+                              C, H, KV, bs, nb, pos, scale, s);
+  }
+  if (body != rt::kBodyCudaCore) return cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(q, k_pool, v_pool, tables, pos_dev, out, B, C, H, KV,
+                         hd, bs, nb, pos, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, pos_dev, out, B,
+                                 C, H, KV, hd, bs, nb, pos, scale, s);
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
@@ -481,29 +546,20 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           int H, int KV, int hd, int bs,
                                           int nb, int pos, float scale,
                                           int dtype, int body, void* stream) {
-  if (C <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (body == rt::kBodyMma) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
-                           reinterpret_cast<uintptr_t>(k_pool) |
-                           reinterpret_cast<uintptr_t>(v_pool) |
-                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-    if (dtype != 1 || hd % 16 != 0 || hd > 128 || !aligned)
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(mma::dispatch<128>(hd, q, k_pool, v_pool, table,
-                                               out, C, H, KV, bs, nb, pos,
-                                               scale, s));
-  }
-  if (body != rt::kBodyCudaCore)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return static_cast<int>(launch<float>(q, k_pool, v_pool, table, out, C, H,
-                                          KV, hd, bs, nb, pos, scale, s));
-  if (dtype == 1)
-    return static_cast<int>(launch<__nv_bfloat16>(q, k_pool, v_pool, table, out,
-                                                  C, H, KV, hd, bs, nb, pos,
-                                                  scale, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(q, k_pool, v_pool, table, nullptr, out, 1, C, H,
+                              KV, hd, bs, nb, pos, scale, dtype, body,
+                              static_cast<cudaStream_t>(stream)));
+}
+
+// q (B, C, H, hd), tables (B, nb), pos (B,) int32 on the device, out like q.
+extern "C" int rt_paged_chunk_attention(const void* q, const void* k_pool,
+                                        const void* v_pool, const void* tables,
+                                        const void* pos, void* out, int B,
+                                        int C, int H, int KV, int hd, int bs,
+                                        int nb, float scale, int dtype,
+                                        int body, void* stream) {
+  if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(q, k_pool, v_pool, tables, pos, out, B, C, H,
+                              KV, hd, bs, nb, 0, scale, dtype, body,
+                              static_cast<cudaStream_t>(stream)));
 }

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: kernel name -> launches since the last reset (see reset_launches)
 launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
+                            "paged_chunk_attention": 0,
                             "dense_decode_attention": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
                             "selective_scan": 0,
@@ -55,8 +56,8 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
-                    "dense_decode_attention", "quant_matmul_int8",
-                    "quant_matmul_int4")},
+                    "paged_chunk_attention", "dense_decode_attention",
+                    "quant_matmul_int8", "quant_matmul_int4")},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -163,6 +164,10 @@ _SIGNATURES = {
     # dtype, body, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _I, _I, _F, _I, _I, _P),
+    # q, k_pool, v_pool, tables, pos (device), out, B, C, H, KV, hd, bs,
+    # nb, scale, dtype, body, stream
+    "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _I, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

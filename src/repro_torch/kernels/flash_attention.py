@@ -28,8 +28,17 @@ The kernel has two bodies, named by :func:`prefill_body`:
   streams must equal the CPU's, and TF32 tensor cores would round the
   inputs.
 
-The wrapper runs the plain version for CPU tensors only; for CUDA
-tensors it launches the body its rule names, or raises.
+The batched form :func:`paged_chunk_attention` runs the same kernel over
+B rows of C tokens, each row at its own ``pos[b]``, which it reads from a
+``(B,)`` int32 tensor on the device: it is the linear branch of the
+reference's ``paged_chunk_self_attention`` for B rows, the form
+``Model.verify_steps`` runs (B rows of K + 1 tokens a draft-verify
+round).  The host never reads ``pos``, and the grid depends on B, C, H
+and KV only.  Row b's output is bit-equal to a one-row call at
+``pos[b]``, since the kernel runs the same instructions for it.
+
+The wrappers run the plain versions for CPU tensors only; for CUDA
+tensors they launch the body the rule names, or raise.
 """
 from __future__ import annotations
 
@@ -73,6 +82,33 @@ def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     probs = torch.softmax(scores + mask, dim=-1)
     out = torch.einsum("ngqs,snh->qngh", probs, vg)
     return out.reshape(c, h, hd).to(q.dtype)
+
+
+def paged_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, tables: torch.Tensor,
+                                pos: torch.Tensor,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """The batched form: gather + f32 scores + mask ``kpos <= qpos`` +
+    softmax, as the linear branch of the reference's
+    ``paged_chunk_self_attention`` computes them for B rows.  q
+    (B,C,H,hd); pools (NB,bs,KV,hd); tables (B,nb); pos (B,) the absolute
+    position of each row's first query.  Returns (B,C,H,hd) in q.dtype."""
+    b, c, h, hd = q.shape
+    kv = k_pool.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    kg = paged_gather(k_pool, tables).float()
+    vg = paged_gather(v_pool, tables).float()
+    s = kg.shape[1]
+    qg = q.reshape(b, c, kv, g, hd).float()
+    scores = torch.einsum("bqngh,bsnh->bngqs", qg, kg) * scale  # (B,KV,G,C,S)
+    qpos = (pos.long()[:, None, None]
+            + torch.arange(c, device=q.device)[None, :, None])  # (B,C,1)
+    kpos = torch.arange(s, device=q.device)[None, None, :]
+    mask = torch.where(kpos <= qpos, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(scores + mask[:, None, None], dim=-1)
+    out = torch.einsum("bngqs,bsnh->bqngh", probs, vg)
+    return out.reshape(b, c, h, hd).to(q.dtype)
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -120,4 +156,51 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _build.dtype_code(q.dtype), _build.BODY_CODES[body],
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_prefill_attention")
+    return out
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          pos: torch.Tensor, scale: Optional[float] = None,
+                          _body: Optional[str] = None) -> torch.Tensor:
+    """Batched paged causal chunk attention, each row's ``pos`` read on
+    the device; see :func:`paged_chunk_attention_plain` for the contract
+    and :func:`paged_prefill_attention` for ``_body``."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(q, k_pool, v_pool, tables, pos,
+                                           scale)
+    b, c, h, hd = q.shape
+    nbp, bs, kv, hd_k = k_pool.shape
+    nb = tables.shape[-1]
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_pool, v_pool, tables, pos)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_chunk_attention: all tensors must lie on one "
+                         "CUDA device")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv
+            or tables.shape != (b, nb) or pos.shape != (b,) or b > 65535):
+        raise ValueError(
+            f"paged_chunk_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+            f"{tuple(tables.shape)}, pos {tuple(pos.shape)} do not fit")
+    if (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or tables.dtype != torch.int32 or pos.dtype != torch.int32):
+        raise TypeError("paged_chunk_attention: q and pools must share a "
+                        "dtype; tables and pos must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_chunk_attention: the kernel takes contiguous "
+                         "tensors")
+    out = torch.empty_like(q)
+    body = _body or prefill_body(
+        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
+    lib = _build.library()
+    _build.launches["paged_chunk_attention"] += 1
+    _build.bodies["paged_chunk_attention"][body] += 1
+    _build.check(lib.rt_paged_chunk_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, c, h, kv, hd,
+        bs, nb, float(scale), _build.dtype_code(q.dtype),
+        _build.BODY_CODES[body],
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "paged_chunk_attention")
     return out

@@ -15,8 +15,15 @@ buffer donation.  The scores, softmax and value sum then run in a kernel
 that reads the caches in place (``kernels/decode_attention.py``,
 ``kernels/flash_attention.py``).  A dense chunk reuses the paged
 prefill kernel on a one-block view of the row's cache (block size S,
-table ``[0]``).  The plain versions beside those kernels repeat the
-reference's ``_gqa_scores`` / ``_gqa_out`` math.
+table ``[0]``), or, for B rows, on the cache as a pool of B blocks of S
+slots (tables ``arange(B)[:, None]``).  The plain versions beside those
+kernels repeat the reference's ``_gqa_scores`` / ``_gqa_out`` math.
+
+A chunk takes ``pos`` in two forms: a host ``int`` for one request's
+prefill chunk (batch 1, the one-row kernel), or a ``(B,)`` int32 tensor
+for B rows at once, each at its own position (the draft-verify round,
+``Model.verify_steps``; the batched kernel, which reads ``pos`` on the
+device, so nothing here waits for the host).
 
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
@@ -30,7 +37,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import (dense_decode_attention,
                                                   paged_decode_attention)
-from repro_torch.kernels.flash_attention import paged_prefill_attention
+from repro_torch.kernels.flash_attention import (paged_chunk_attention,
+                                                 paged_prefill_attention)
 from repro_torch.models.layers import _dense_init, rotary
 from repro_torch.models.quantize import qdot
 
@@ -121,23 +129,42 @@ def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
     return _out(params, o[:, None], cfg), cache
 
 
-def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos: int,
+def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos,
                                cfg, kind: str) -> Tuple[torch.Tensor, dict]:
-    """C-token cache-resuming attention against paged pools (chunked
-    prefill of ONE request: x (1,C,D), paged["tables"] the row's slice
-    (1, nb)).  Writes the chunk's K/V through the table in place, then
-    attends causally over ``[0, pos + C)``.  ``pos`` is the absolute
-    position of the chunk's first token.  Returns (out (1,C,D), cache).
+    """C-token cache-resuming attention against paged pools.  Writes the
+    chunk's K/V through the tables in place (slots clamped at
+    ``max_len - 1``), then attends causally over ``[0, pos + C)``.
+    ``pos`` is the absolute position of the chunk's first token: an
+    ``int`` for one request's prefill chunk (x (1,C,D), paged["tables"]
+    the row's slice (1, nb)), or a (B,) int32 tensor for B rows (x
+    (B,C,D), tables (B, nb); the linear branch of the reference's
+    ``paged_chunk_self_attention``).  Returns (out (B,C,D), cache).
     """
     _check_linear(kind, cfg)
     b, c, _ = x.shape
-    if b != 1:
-        raise ValueError(f"paged chunk attention prefills one request, "
-                         f"got a batch of {b}")
     k_pool, v_pool = cache["k"], cache["v"]
     bs = k_pool.shape[1]
-    table = paged["tables"][0]
-    max_len = table.shape[0] * bs
+    tables = paged["tables"]
+    max_len = tables.shape[1] * bs
+    if torch.is_tensor(pos):
+        # writes past a row's covered blocks land in the scratch block 0;
+        # duplicate scatter indices can only hit it or a row's clamped
+        # last slot, neither read below a row's accepted length, so which
+        # duplicate wins does not matter (as in the reference)
+        positions = pos.long()[:, None] + torch.arange(c, device=x.device)
+        q, k_new, v_new = _qkv(params, x, positions, cfg)
+        slots = torch.clamp(positions, max=max_len - 1)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        phys = tables[bidx, slots // bs].long()
+        off = slots % bs
+        k_pool[phys, off] = k_new
+        v_pool[phys, off] = v_new
+        o = paged_chunk_attention(q, k_pool, v_pool, tables, pos)
+        return _out(params, o, cfg), cache
+    if b != 1:
+        raise ValueError(f"paged chunk attention at a host pos prefills one "
+                         f"request, got a batch of {b}")
+    table = tables[0]
     pos = int(pos)
     positions = pos + torch.arange(c, device=x.device)
     q, k_new, v_new = _qkv(params, x, positions[None, :], cfg)
@@ -173,22 +200,36 @@ def decode_self_attention(params, x, cache: dict, pos, cfg,
     return _out(params, o[:, None], cfg), cache
 
 
-def chunk_self_attention(params, x, cache: dict, pos: int, cfg,
+def chunk_self_attention(params, x, cache: dict, pos, cfg,
                          kind: str) -> Tuple[torch.Tensor, dict]:
-    """C-token cache-resuming attention against one dense cache row
-    (chunked prefill of ONE slot: x (1,C,D), cache {"k","v"} the slot's
-    (1, S, KV, hd) views of one layer, written in place).  The linear
-    branch of the reference's ``chunk_self_attention``: write the chunk
-    at slots ``min(pos + i, S - 1)``, then attend causally over
-    ``[0, pos + C)`` — here with the paged prefill kernel on the row as
-    one block of S slots.  Returns (out (1,C,D), cache).
+    """C-token cache-resuming attention against dense cache rows: the
+    linear branch of the reference's ``chunk_self_attention``.  Writes
+    the chunk at slots ``min(pos + i, S - 1)``, then attends causally
+    over ``[0, pos + C)``.  ``pos`` is an ``int`` for one slot's prefill
+    chunk (x (1,C,D), cache {"k","v"} the slot's (1, S, KV, hd) views of
+    one layer, written in place; the paged prefill kernel on the row as
+    one block of S slots), or a (B,) int32 tensor for B rows (x (B,C,D),
+    cache (B, S, KV, hd); the batched kernel on the cache as B blocks of
+    S slots).  Returns (out (B,C,D), cache).
     """
     _check_linear(kind, cfg)
     b, c, _ = x.shape
-    if b != 1:
-        raise ValueError(f"dense chunk attention prefills one slot, got a "
-                         f"batch of {b}")
     k_cache, v_cache = cache["k"], cache["v"]
+    if torch.is_tensor(pos):
+        # duplicate scatter indices only at a row's clamped last slot,
+        # never read below its accepted length
+        positions = pos.long()[:, None] + torch.arange(c, device=x.device)
+        q, k_new, v_new = _qkv(params, x, positions, cfg)
+        slots = torch.clamp(positions, max=k_cache.shape[1] - 1)
+        bidx = torch.arange(b, device=x.device)[:, None]
+        k_cache[bidx, slots] = k_new
+        v_cache[bidx, slots] = v_new
+        tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
+        o = paged_chunk_attention(q, k_cache, v_cache, tables, pos)
+        return _out(params, o, cfg), cache
+    if b != 1:
+        raise ValueError(f"dense chunk attention at a host pos prefills one "
+                         f"slot, got a batch of {b}")
     pos = int(pos)
     positions = pos + torch.arange(c, device=x.device)
     q, k_new, v_new = _qkv(params, x, positions[None, :], cfg)

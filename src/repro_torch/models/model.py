@@ -12,6 +12,7 @@ decoders and Mamba1 models::
     hidden, caches = m.paged_prefill_chunk(params, pools, toks, pos0, row, meta)
     logits, caches = m.paged_decode_step(params, pools, batch, meta)
     toks, caches = m.decode_steps(params, caches, batch, meta_or_None, k=K)
+    emit, caches = m.verify_steps(params, caches, batch, meta_or_None)
 
 Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools and
 SSM state rows of :meth:`repro_torch.models.kvcache.PagedCache.struct`
@@ -176,6 +177,32 @@ class Model:
             emits.append(emit)
         return torch.stack(emits, dim=1), caches
 
+    def verify_steps(self, params, caches, batch, paged=None):
+        """Teacher-forced verification of K draft tokens per row in one
+        chunk-mode forward (the reference's ``verify_steps``, op for op):
+        the (B, S) chunk ``[t0, d0..d_{S-2}]`` (each row's next decode
+        input, then its K = S - 1 drafts) runs through the stacks at
+        positions ``pos .. pos + S - 1``, writing KV where sequential
+        decode would, and :func:`greedy_verify_update` turns the logits
+        into each row's emitted tokens.  Nothing here synchronises with
+        the host: ``pos`` stays on the device, where the batched chunk
+        attention reads it.  KV written above a row's accepted length is
+        stale by position (masked, and overwritten by the next round).
+
+        batch: ``token`` (B, S), ``pos`` (B,) (position of
+        ``token[:, 0]``) and ``budget`` (B,) int32 (0 masks the row).
+        ``paged`` (the ledger's meta) selects the paged pools, ``None``
+        the dense caches; writes past a row's covered blocks land in the
+        scratch block.  Returns (emit (B, S) int32, -1 in non-emitted
+        slots; caches).
+        """
+        stream = self._run(params, caches, batch["token"], batch["pos"],
+                           paged, "chunk")
+        emit = greedy_verify_update(self._head(params, stream),
+                                    batch["token"], batch["budget"],
+                                    self.cfg.vocab_size)
+        return emit, caches
+
 
 def greedy_scan_update(logits, pos, budget, vocab: int):
     """One macro-step iteration's greedy bookkeeping (the reference's
@@ -193,3 +220,22 @@ def greedy_scan_update(logits, pos, budget, vocab: int):
     tok = torch.where(budget > 0, nxt, 0)[:, None]
     pos = torch.where(live, pos + 1, pos)
     return tok, pos, budget, emit
+
+
+def greedy_verify_update(logits, tokens, budget, vocab: int):
+    """Greedy draft verification (the reference's ``greedy_verify_update``,
+    op for op).  ``logits`` (B, S, V_pad) score the fed chunk ``tokens``
+    (B, S) = ``[t0, d0..d_{S-2}]``; the greedy target ``g[:, j]``
+    predicts position ``pos + j + 1``.  Draft ``d_j`` is accepted iff
+    every earlier draft matched and ``g[:, j] == d_j``; the row emits its
+    accepted prefix plus ``g`` at the first mismatch (or the bonus token
+    after full acceptance), clamped to ``budget``.  Matched drafts are
+    the greedy targets, so the emitted prefix is ``g[:, :n_emit]``, with
+    -1 in the other slots.  Returns (B, S) int32."""
+    g = torch.argmax(logits[:, :, :vocab], dim=-1).to(torch.int32)
+    match = (g[:, :-1] == tokens[:, 1:]).to(torch.int32)       # (B,S-1)
+    acc = torch.cumprod(match, dim=1).sum(dim=1)                # (B,)
+    n_emit = torch.minimum(acc + 1, budget)                     # (B,)
+    cols = torch.arange(g.shape[1], dtype=torch.int32,
+                        device=g.device)[None, :]
+    return torch.where(cols < n_emit[:, None], g, -1)

@@ -95,7 +95,11 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
                 qformat: Optional[str] = None):
     """Apply one ``attn`` or ``mamba1`` block to the residual stream
     ``x`` plus ``delta``, the previous block's output not yet added to
-    it (None before the first block).  ``cache`` holds this layer's
+    it (None before the first block).  ``pos`` is a (B,) int32 tensor in
+    decode mode; in chunk mode an ``int`` (one request's prefill chunk)
+    or a (B,) tensor (B rows at their own positions, the draft-verify
+    round), which the attention passes on to its kernels without reading
+    it on the host.  ``cache`` holds this layer's
     pools (``paged`` given: the block tables) or dense cache rows
     (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state rows;
     each is written in place.  ``qformat`` tags the weight format the

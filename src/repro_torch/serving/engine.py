@@ -10,14 +10,20 @@ admission (the slot engine's cache-headroom rejection included), block
 growth, preemption-by-recompute, copy-on-write prefix sharing,
 macro-step sizing and the ``t_*`` stamps match it exactly.  Both engines
 take ``quantization=`` ("int8" / "int4", see ``models/quantize.py``) and
-pack the projection weights once at construction; speculative decoding
-is not ported yet.
+pack the projection weights once at construction, and ``speculative=``
+(draft-verify speculative decoding, ``serving/speculative.py``): each
+engine iteration is then one verify round, in which every live row's
+next input and K drafts run through ``Model.verify_steps`` as one chunk
+of K + 1 tokens, and the row advances by its accepted length plus one.
+It is gated off, as in the reference, on models whose state cannot be
+rolled back by position (Mamba1), which then decode as usual.
 
 The decode hot loop is device-resident: every engine iteration runs one
 macro-step of up to ``decode_steps`` (K) greedy decode iterations
 (``Model.decode_steps``) with argmax, token feedback, ``pos`` bumps and
 done masking on the device, and synchronises with the host **once** per
-macro-step, when it reads the ``(rows, K)`` token ids back.  The KV
+macro-step, when it reads the ``(rows, K)`` token ids back (once per
+verify round under speculation).  The KV
 pools and SSM state rows are updated in place by every call (the
 reference donates them instead).
 
@@ -40,6 +46,8 @@ from repro_torch.models.model import Model
 from repro_torch.models.quantize import quantize_params
 from repro_torch.serving.scheduler import (DEFER, REJECT, CapacityView,
                                            make_policy)
+from repro_torch.serving.speculative import (ModelDraft, SpecConfig,
+                                             spec_supported)
 
 
 def chunk_sizes(n: int, chunk: int) -> List[int]:
@@ -99,11 +107,23 @@ class _EngineBase:
     MAX_STEPS = 512
 
     def __init__(self, cfg, *, prefill_chunk: int, decode_steps: int = 1,
-                 policy=None):
+                 policy=None, speculative=None):
         self.cfg = cfg
         self.prefill_chunk = max(1, prefill_chunk)
         self.decode_k = max(1, decode_steps)  # macro-step K
         self.policy = make_policy(policy)
+        # draft-verify speculative decoding, gated off on archs whose
+        # cache cannot roll back by position (SSM), as in the reference
+        self.spec = SpecConfig.make(speculative)
+        self.spec_gated_off = (self.spec is not None
+                               and not spec_supported(cfg))
+        if self.spec_gated_off:
+            self.spec = None
+        self.spec_rounds = 0     # verify rounds run
+        self.spec_drafted = 0    # draft tokens proposed (live rows)
+        self.spec_accepted = 0   # draft tokens emitted as matches
+        self.spec_emitted = 0    # tokens emitted by verify rounds
+        self._spec_row_rounds = 0  # live (row, round) pairs
         self.queue: List[Request] = []
         self.rejected: List[Request] = []
         self.unfinished: List[Request] = []  # in flight at last run() exit
@@ -187,6 +207,70 @@ class _EngineBase:
         self.t = t0 + k_eff
         return finished
 
+    # ------------------------------------------------------------------
+    # draft-verify speculative decoding (serving/speculative.py)
+    # ------------------------------------------------------------------
+    @property
+    def acceptance_rate(self) -> float:
+        """Fraction of proposed draft tokens emitted as exact matches."""
+        return self.spec_accepted / max(1, self.spec_drafted)
+
+    def spec_accept_mean(self) -> float:
+        """Tokens emitted per live row per verify round (accepted length
+        + 1), the speculative speedup an admission test sees
+        (``CapacityView.spec_accept``); 1.0 before any round."""
+        if self._spec_row_rounds == 0:
+            return 1.0
+        return self.spec_emitted / self._spec_row_rounds
+
+    def _spec_tail(self, store, budgets: np.ndarray, active: List[int],
+                   max_len: int, t0: int) -> List[tuple]:
+        """Run one draft-verify round and its host-side bookkeeping (the
+        reference's ``_spec_tail``, line for line): each live row
+        proposes K drafts, ``_forward_verify`` scores them in one chunk
+        forward, and the row advances by its accepted length + 1,
+        clamped to its budget.  Rollback of rejected drafts is purely
+        positional (``self.pos`` advances past emitted tokens only).  One
+        round is one engine clock step and one host sync."""
+        K = self.spec.k
+        width = len(store)
+        tokens = np.zeros((width, K + 1), dtype=np.int32)
+        tokens[:, :1] = self._next_tokens(width, active, store)
+        for i in active:
+            req = store[i]
+            tokens[i, 1:] = self.spec.provider.propose(
+                i, req.prompt + req.out_tokens, K)
+            self.spec_drafted += K
+        out = self._forward_verify(tokens, self.pos.copy(), budgets)
+        self.n_host_syncs += 1
+        self.max_macro_tokens = max(self.max_macro_tokens,
+                                    int(budgets.sum()))
+        self.spec_rounds += 1
+        finished = []
+        for i in active:
+            req = store[i]
+            row = out[i]
+            v = int((row >= 0).sum())  # accepted length + 1, <= budget
+            if v > 0 and req.t_first is None and not req.out_tokens:
+                req.t_first = t0 + 1  # the round is one device step
+            emitted = [int(t) for t in row[:v]]
+            # matched drafts ARE the emitted tokens; the correction token
+            # differs from its draft by construction
+            self.spec_accepted += sum(
+                1 for j in range(min(v, K))
+                if emitted[j] == int(tokens[i, 1 + j]))
+            self.spec_emitted += v
+            self._spec_row_rounds += 1
+            req.out_tokens += emitted
+            self.tokens_generated += v
+            self.pos[i] += v
+            if req.done or self.pos[i] >= max_len - 1:
+                req.t_done = t0 + 1
+                finished.append((i, req))
+                self.policy.on_done(req, t0 + 1)
+        self.t = t0 + 1
+        return finished
+
     def step(self, k_cap: Optional[int] = None) -> List[Request]:
         raise NotImplementedError  # pragma: no cover - interface
 
@@ -220,6 +304,13 @@ class _EngineBase:
         Returns (rows, k) int32 token ids (row r valid to budgets[r])."""
         raise NotImplementedError  # pragma: no cover - interface
 
+    def _forward_verify(self, tokens: np.ndarray, pos: np.ndarray,
+                        budgets: np.ndarray) -> np.ndarray:
+        """One draft-verify round over the (rows, K+1) chunk ``[next
+        input, K drafts]``.  Returns (rows, K+1) int32 emitted tokens, -1
+        in non-emitted slots."""
+        raise NotImplementedError  # pragma: no cover - interface
+
 
 class _SlotEngine(_EngineBase):
     """Slot state machine: admission (chunked prefill), fused macro-step
@@ -229,9 +320,11 @@ class _SlotEngine(_EngineBase):
     ``_prefill_row(slot, toks, pos0)`` and ``_forward_steps``."""
 
     def __init__(self, cfg, *, max_batch: int, cache_len: int,
-                 prefill_chunk: int, decode_steps: int = 1, policy=None):
+                 prefill_chunk: int, decode_steps: int = 1, policy=None,
+                 speculative=None):
         super().__init__(cfg, prefill_chunk=prefill_chunk,
-                         decode_steps=decode_steps, policy=policy)
+                         decode_steps=decode_steps, policy=policy,
+                         speculative=speculative)
         self.max_batch = max_batch
         self.cache_len = cache_len
         self.pos = np.zeros(max_batch, dtype=np.int32)
@@ -251,7 +344,8 @@ class _SlotEngine(_EngineBase):
         ``cache_len`` granule."""
         return CapacityView(free_tokens=free_slots * self.cache_len,
                             total_tokens=self.max_batch * self.cache_len,
-                            granule=self.cache_len)
+                            granule=self.cache_len,
+                            spec_accept=self.spec_accept_mean())
 
     def _admit(self):
         """Prefill queued requests into free slots, ``prefill_chunk``
@@ -301,7 +395,10 @@ class _SlotEngine(_EngineBase):
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:
             return []
-        k = (self.decode_k if k_cap is None
+        # a verify round emits up to K+1 tokens per row in one engine
+        # step, so its budget counts tokens, not scan steps
+        k = (self.spec.k + 1 if self.spec is not None
+             else self.decode_k if k_cap is None
              else max(1, min(self.decode_k, k_cap)))
         # per-row step budget: never decode past max_new_tokens or the
         # cache-headroom stop (pos >= cache_len - 1) inside the macro-step
@@ -311,8 +408,12 @@ class _SlotEngine(_EngineBase):
             budgets[i] = max(1, min(
                 k, req.max_new_tokens - len(req.out_tokens),
                 self.cache_len - 1 - int(self.pos[i])))
-        finished = self._macro_tail(self.slots, budgets, active,
-                                    self.cache_len, t0, k_cap=k_cap)
+        if self.spec is not None:
+            finished = self._spec_tail(self.slots, budgets, active,
+                                       self.cache_len, t0)
+        else:
+            finished = self._macro_tail(self.slots, budgets, active,
+                                        self.cache_len, t0, k_cap=k_cap)
         done = []
         for i, req in finished:
             self.slots[i] = None
@@ -341,9 +442,11 @@ class _PagedEngine(_EngineBase):
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 16, watermark_blocks: int = 0,
                  decode_steps: int = 1, policy=None,
-                 prefix_sharing: bool = True, device="cuda"):
+                 prefix_sharing: bool = True, speculative=None,
+                 device="cuda"):
         super().__init__(cfg, prefill_chunk=prefill_chunk,
-                         decode_steps=decode_steps, policy=policy)
+                         decode_steps=decode_steps, policy=policy,
+                         speculative=speculative)
         self.max_rows = max_rows
         self.max_len = max_len
         self.pc = PagedCache(cfg, max_rows=max_rows, max_len=max_len,
@@ -369,7 +472,8 @@ class _PagedEngine(_EngineBase):
         return CapacityView(free_tokens=self.pc.free_blocks * bs,
                             total_tokens=self.pc.num_blocks * bs,
                             granule=bs,
-                            shared_blocks=self.pc.probe_hit)
+                            shared_blocks=self.pc.probe_hit,
+                            spec_accept=self.spec_accept_mean())
 
     def _admit(self):
         """Token-level admission in the policy's head-of-line order: a
@@ -483,7 +587,10 @@ class _PagedEngine(_EngineBase):
         self.t += 1  # admission/rejection stamps land on the first step
         self.policy.on_step(self.t, self.queue, self._in_flight())
         self._admit()
-        k = (self.decode_k if k_cap is None
+        # a verify round's budget counts tokens: _grow covers up to K+1
+        # writes per row
+        k = (self.spec.k + 1 if self.spec is not None
+             else self.decode_k if k_cap is None
              else max(1, min(self.decode_k, k_cap)))
         budgets, clip = self._grow(k)
         # copy-on-write pool copies must hit the device pools before the
@@ -494,10 +601,19 @@ class _PagedEngine(_EngineBase):
         active = [i for i, r in enumerate(self.rows) if r is not None]
         if not active:
             return []
-        caps = [c for c in (clip, k_cap) if c is not None]
-        cap = min(caps) if caps else None
-        finished = self._macro_tail(self.rows, budgets, active,
-                                    self.max_len, t0, k_cap=cap)
+        if self.spec is not None:
+            # clip needs nothing more: emission clamps to the covered
+            # budget, verify writes beyond it land in the scratch block
+            # (never read below the accepted length), and the SSM-resume
+            # hazard clip guards against cannot occur (speculation is
+            # gated to pure-attention archs)
+            finished = self._spec_tail(self.rows, budgets, active,
+                                       self.max_len, t0)
+        else:
+            caps = [c for c in (clip, k_cap) if c is not None]
+            cap = min(caps) if caps else None
+            finished = self._macro_tail(self.rows, budgets, active,
+                                        self.max_len, t0, k_cap=cap)
         done = []
         for i, req in finished:
             self.rows[i] = None
@@ -520,13 +636,14 @@ class _PagedEngine(_EngineBase):
         return sum(1 for r in self.rows if r is not None)
 
 
-def _build_model(engine, cfg, params, seed: int, speculative,
-                 quantization) -> None:
+def _build_model(engine, cfg, params, seed: int, quantization) -> None:
     """The monolithic engines' shared set-up: the model, its parameters
     (drawn from a generator seeded with ``seed`` unless given) and their
-    projection weights packed once to ``quantization``."""
-    if speculative is not None:
-        raise NotImplementedError("speculative decoding is not ported yet")
+    projection weights packed once to ``quantization``; a model draft
+    that names no device runs on the engine's."""
+    provider = engine.spec.provider if engine.spec is not None else None
+    if isinstance(provider, ModelDraft) and provider.device is None:
+        provider.device = engine.device
     engine.model = Model(cfg, qformat=quantization, device=engine.device)
     engine.quantization = engine.model.qformat
     if params is None:
@@ -539,6 +656,14 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _batch(tokens: np.ndarray, pos: np.ndarray, budgets: np.ndarray,
+           device) -> dict:
+    """A macro-step's or verify round's inputs on the device."""
+    return {"token": _to_device(tokens, device),
+            "pos": _to_device(pos, device),
+            "budget": _to_device(budgets, device)}
+
+
 class ServingEngine(_SlotEngine):
     """The slot engine over the port's model with dense caches
     (``Model.decode_steps(paged=None)`` / ``Model.prefill_chunk``).
@@ -547,9 +672,10 @@ class ServingEngine(_SlotEngine):
     for the reference's weights); without them the model draws its own
     from a :class:`torch.Generator` seeded with ``seed``.
     ``quantization`` ("int8" / "int4"; None or "bf16" for none) packs
-    the projection weights once here.  ``device`` defaults to ``"cuda"``
-    and raises without a card; ``device="cpu"`` runs the kernels' plain
-    versions.
+    the projection weights once here.  ``speculative`` (``SpecConfig.make``'s
+    forms: an int K, a dict, a provider) turns on draft-verify speculative
+    decoding.  ``device`` defaults to ``"cuda"`` and raises without a
+    card; ``device="cpu"`` runs the kernels' plain versions.
     """
 
     def __init__(self, cfg, params=None, *, max_batch: int = 4,
@@ -560,8 +686,9 @@ class ServingEngine(_SlotEngine):
         self.device = resolve_device(device)
         super().__init__(cfg, max_batch=max_batch, cache_len=cache_len,
                          prefill_chunk=prefill_chunk,
-                         decode_steps=decode_steps, policy=policy)
-        _build_model(self, cfg, params, seed, speculative, quantization)
+                         decode_steps=decode_steps, policy=policy,
+                         speculative=speculative)
+        _build_model(self, cfg, params, seed, quantization)
         self.caches = self.model.init_cache(max_batch, cache_len)
 
     def _reset_row(self, slot: int):
@@ -574,14 +701,21 @@ class ServingEngine(_SlotEngine):
 
     def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
                        budgets: np.ndarray, k: int) -> np.ndarray:
-        batch = {"token": _to_device(tokens, self.device),
-                 "pos": _to_device(pos, self.device),
-                 "budget": _to_device(budgets, self.device)}
-        toks, _ = self.model.decode_steps(self.params, self.caches, batch,
-                                          k=k)
+        toks, _ = self.model.decode_steps(
+            self.params, self.caches,
+            _batch(tokens, pos, budgets, self.device), k=k)
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per macro-step (counted in n_host_syncs; <= 1/K per token)
         return np.asarray(toks.cpu())
+
+    def _forward_verify(self, tokens: np.ndarray, pos: np.ndarray,
+                        budgets: np.ndarray) -> np.ndarray:
+        emit, _ = self.model.verify_steps(
+            self.params, self.caches,
+            _batch(tokens, pos, budgets, self.device))
+        # reprolint: disable-next=host-sync -- the ONE deliberate sync
+        # per verify round (counted in n_host_syncs; <= 1 per token)
+        return np.asarray(emit.cpu())
 
 
 class PagedServingEngine(_PagedEngine):
@@ -591,8 +725,8 @@ class PagedServingEngine(_PagedEngine):
     snapshot, re-uploaded only when the ledger changed.  Greedy streams
     equal :class:`ServingEngine`'s at equal ``max_len`` / ``cache_len``.
 
-    ``params``, ``seed``, ``quantization`` and ``device`` as for
-    :class:`ServingEngine`.
+    ``params``, ``seed``, ``quantization``, ``speculative`` and ``device``
+    as for :class:`ServingEngine`.
     """
 
     def __init__(self, cfg, params=None, *, max_rows: int = 8,
@@ -608,8 +742,9 @@ class PagedServingEngine(_PagedEngine):
                          prefill_chunk=prefill_chunk,
                          watermark_blocks=watermark_blocks,
                          decode_steps=decode_steps, policy=policy,
-                         prefix_sharing=prefix_sharing, device=self.device)
-        _build_model(self, cfg, params, seed, speculative, quantization)
+                         prefix_sharing=prefix_sharing,
+                         speculative=speculative, device=self.device)
+        _build_model(self, cfg, params, seed, quantization)
         self.caches = self.pc.struct(self.model.dtype)
 
     def _apply_cow(self, pairs):
@@ -629,11 +764,18 @@ class PagedServingEngine(_PagedEngine):
 
     def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
                        budgets: np.ndarray, k: int) -> np.ndarray:
-        batch = {"token": _to_device(tokens, self.device),
-                 "pos": _to_device(pos, self.device),
-                 "budget": _to_device(budgets, self.device)}
-        toks, _ = self.model.decode_steps(self.params, self.caches, batch,
-                                          self.pc.meta(), k=k)
+        toks, _ = self.model.decode_steps(
+            self.params, self.caches,
+            _batch(tokens, pos, budgets, self.device), self.pc.meta(), k=k)
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per macro-step (counted in n_host_syncs; <= 1/K per token)
         return np.asarray(toks.cpu())
+
+    def _forward_verify(self, tokens: np.ndarray, pos: np.ndarray,
+                        budgets: np.ndarray) -> np.ndarray:
+        emit, _ = self.model.verify_steps(
+            self.params, self.caches,
+            _batch(tokens, pos, budgets, self.device), self.pc.meta())
+        # reprolint: disable-next=host-sync -- the ONE deliberate sync
+        # per verify round (counted in n_host_syncs; <= 1 per token)
+        return np.asarray(emit.cpu())

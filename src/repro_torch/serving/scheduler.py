@@ -33,6 +33,11 @@ class CapacityView:
     # prefix-sharing probe: tokens -> blocks an admission would *share*
     # rather than allocate (PagedCache.probe_hit; None without an index)
     shared_blocks: Optional[Callable[[List[int]], int]] = None
+    # speculative speedup: mean tokens emitted per live row per verify
+    # round (the engine's spec_accept_mean(); 1.0 when off).  FIFO ignores
+    # it; the effective-capacity test of the reference scales its fixed
+    # service-time priors by it.
+    spec_accept: float = 1.0
 
     def blocks(self, n_tokens: int) -> int:
         return -(-n_tokens // self.granule)

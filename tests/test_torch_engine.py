@@ -208,10 +208,16 @@ def test_dense_and_paged_streams_equal(fmt):
 
 
 def test_engines_refuse_speculation_and_unknown_formats():
+    """Speculation is ported (tests/test_torch_spec.py); what the engines
+    still refuse is a speculative setting they cannot take (a draft
+    length below 1, an unknown draft kind or form), and unknown weight
+    formats."""
     _, tc = config_pair("mha")
     for cls in (TSlotEngine, TEngine):
-        with pytest.raises(NotImplementedError):
-            cls(tc, device="cpu", speculative={"k": 2})
+        for spec in ({"k": 0}, {"k": 2, "draft": "oracle"}, "ngram"):
+            with pytest.raises(ValueError):
+                cls(tc, device="cpu", speculative=spec)
+        assert cls(tc, device="cpu", speculative={"k": 2}).spec.k == 2
         with pytest.raises(ValueError):
             cls(tc, device="cpu", quantization="int3")
         assert cls(tc, device="cpu", quantization="bf16").quantization is None

@@ -36,6 +36,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    paged_chunk_attention, paged_chunk_attention_plain,
     paged_prefill_attention, paged_prefill_attention_plain, prefill_body)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
@@ -873,6 +874,105 @@ def test_cuda_paged_prefill_bits_do_not_depend_on_blocks(cuda_device, dtype,
         card(q), card(k[None]), card(v[None]),
         torch.zeros(1, dtype=torch.int32, device=cuda_device), pos)
     assert torch.equal(paged, dense)
+
+
+def _chunk_card_inputs(rng, b, c, h, kv, d, bs, nb, pos):
+    """The batched paged-chunk form's inputs: q (B,C,H,D), pools of
+    ``b * nb + 1`` blocks of ``bs``, distinct shuffled tables over blocks
+    1.., and each row's pos.  Row 0's blocks do not cover its pos + C:
+    from the block of its last query on, its table points at the scratch
+    block 0, which it reads as the reference does."""
+    nbp = b * nb + 1
+    q = rng.standard_normal((b, c, h, d), dtype=np.float32)
+    kp = rng.standard_normal((nbp, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nbp, bs, kv, d), dtype=np.float32)
+    tables = (rng.permutation(nbp - 1)[:b * nb].reshape(b, nb) + 1
+              ).astype(np.int32)
+    tables[0, min(pos[0] + c - 1, nb * bs - 1) // bs:] = 0
+    return q, kp, vp, tables, np.asarray(pos, np.int32)
+
+
+#: the verify round's shapes on smollm-360m (B 8, C = K + 1 = 5, H 15,
+#: KV 5, hd 64, blocks of 16 of a 1024-slot row) with pos spread over
+#: 32-600 (and 1021: pos + C past max_len, clamped), a ragged chunk,
+#: and a head dim off the mma tiles
+CHUNK_CASES = [(8, 5, 15, 5, 64, [32, 600, 117, 256, 5, 1021, 400, 63]),
+               (3, 9, 6, 2, 32, [0, 77, 300]),
+               (2, 5, 15, 5, 72, [40, 500])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,h,kv,d,pos", CHUNK_CASES)
+def test_cuda_paged_chunk_matches_plain_and_one_row_calls(
+        cuda_device, dtype, b, c, h, kv, d, pos):
+    """The batched form against its plain version under the card's gates,
+    and each row bit-equal to a one-row call at its pos (the same
+    instructions run for it); pos stays on the device."""
+    rng = np.random.default_rng(31)
+    q, kp, vp, tables, pos = _chunk_card_inputs(rng, b, c, h, kv, d, 16, 64,
+                                                pos)
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
+        t(a).to(cuda_device) for a in (tables, pos)]
+    body = prefill_body(dt, d)
+    n0 = _build.bodies["paged_chunk_attention"][body]
+    got = paged_chunk_attention(*args)
+    assert _build.bodies["paged_chunk_attention"][body] == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    _card_close(got, paged_chunk_attention_plain(*args), dtype)
+    for row in range(b):
+        one = paged_prefill_attention(args[0][row].contiguous(), args[1],
+                                      args[2], args[3][row].contiguous(),
+                                      int(pos[row]))
+        assert torch.equal(got[row], one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_chunk_bits_do_not_depend_on_blocks(cuda_device, dtype):
+    """The same logical K/V in blocks of 16 and of 32 slots, and as a
+    dense cache (B blocks of S slots, the slot engine's verify round),
+    gives the same bits."""
+    rng = np.random.default_rng(32)
+    b, c, h, kv, d, s = 8, 5, 15, 5, 64, 1024
+    pos = np.array([32, 600, 117, 256, 5, 1021, 400, 63], np.int32)
+    q = rng.standard_normal((b, c, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    dt = getattr(torch, dtype)
+    outs = []
+    for bs in (16, 32):
+        nb = s // bs
+        tables = (rng.permutation(b * nb).reshape(b, nb) + 1).astype(np.int32)
+        kp = np.zeros((b * nb + 1, bs, kv, d), np.float32)
+        vp = np.zeros((b * nb + 1, bs, kv, d), np.float32)
+        kp[tables] = k.reshape(b, nb, bs, kv, d)
+        vp[tables] = v.reshape(b, nb, bs, kv, d)
+        outs.append(paged_chunk_attention(
+            *[t(a).to(cuda_device, dt) for a in (q, kp, vp)],
+            *[t(a).to(cuda_device) for a in (tables, pos)]))
+    outs.append(paged_chunk_attention(
+        *[t(a).to(cuda_device, dt) for a in (q, k, v)],
+        torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None],
+        t(pos).to(cuda_device)))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+def test_cuda_paged_chunk_cuda_core_body_in_bf16(cuda_device):
+    """The CUDA-core body forced on the bf16 verify shape (chip_smoke.py
+    times it against the mma body) agrees with the plain version too."""
+    rng = np.random.default_rng(33)
+    b, c, h, kv, d, pos = CHUNK_CASES[0]
+    q, kp, vp, tables, pos = _chunk_card_inputs(rng, b, c, h, kv, d, 16, 64,
+                                                pos)
+    args = [t(a).to(cuda_device, torch.bfloat16) for a in (q, kp, vp)] + [
+        t(a).to(cuda_device) for a in (tables, pos)]
+    n0 = _build.bodies["paged_chunk_attention"]["cuda_core"]
+    got = paged_chunk_attention(*args, _body="cuda_core")
+    assert _build.bodies["paged_chunk_attention"]["cuda_core"] == n0 + 1
+    _card_close(got, paged_chunk_attention_plain(*args), "bfloat16")
 
 
 @pytest.mark.cuda
