@@ -37,14 +37,25 @@ one JSON line:
    case's previous composition (torch's add, then the ``cuda_core``
    norm) is its ``prev_ms``, and torch's add then ``F.rms_norm`` its
    ``library_pair_ms`` (no single PyTorch call computes it, so its
-   ``library_ms`` is null).  rmsnorm is also timed at falcon-mamba-7b's
-   width (8 and 128 rows of 4096, bf16).  The batched paged-chunk form
+   ``library_ms`` is null).  rmsnorm is also checked and timed at the
+   widths of falcon-mamba-7b and gemma3-12b (8 and 128 rows of 4096 and
+   of 3840, bf16).  The batched paged-chunk form
    of the flash kernel (``paged_chunk_attention``, a verify round's B 8
    rows of C = K + 1 = 5 tokens, each row's pos read on the device) must
    also give each row the bits of a one-row call at its pos, and the
    same bits in blocks of 32 as in blocks of 16; its library call is
    ``F.scaled_dot_product_attention`` over the gathered KV with a per-row
-   mask.  An empty kernel
+   mask.  The window form of the flash kernel
+   (``ring_chunk_attention``: C 128 queries of gemma3-12b's 16 heads of
+   256 over a ring of w = 1024 slots plus the chunk's own keys) runs at
+   pos 0, 512 and 3000 in float32 and bfloat16, must give the same bits
+   in blocks of 32 and as a dense one-block ring as in blocks of 16, and
+   prints both halves of its bound; its library call is
+   ``F.scaled_dot_product_attention`` over ``[gathered ring ; chunk]``
+   with the boolean window mask.  The attention kernels also run, in
+   bfloat16 on their ``cuda_core`` bodies, at gemma3's hd 256: the
+   one-row prefill (C 128 at pos 1024 and 2048) and both decode kernels
+   (B 8, pos 5-2000, over linear rows and over rings).  An empty kernel
    (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
    the kernel list) gives the floor one launch costs, at 1 block and at
    the decode scan's grid;
@@ -54,9 +65,11 @@ one JSON line:
    and on the CPU (plain versions), and with ``speculative=4``: n-gram
    drafts through the paged engine (unquantized and int8) and the slot
    engine, and a model draft (2-layer smollm-360m on its own seed)
-   through the paged engine; then falcon-mamba-7b at full width, 2
+   through the paged engine; then falcon-mamba-7b and gemma3-12b (one
+   ``swa`` layer with the published window of 1024, one ``attn``; 3
+   prompts of 1040-1200 tokens, so every ring wraps) at full width, 2
    layers, float32, through the paged and the slot engine, and with
-   ``speculative=4``, which it must gate off.  Each pair of streams must
+   ``speculative=4``, which both must gate off.  Each pair of streams must
    be equal, on the card the slot engine's streams must equal the paged
    engine's, and each speculative stream the same engine's and format's
    non-speculative one;
@@ -84,8 +97,22 @@ one JSON line:
    through ``ServingEngine``, with the same checks (the slot run's share
    of tokens equal to the paged run's printed, and every scan launch on
    the ``state_lanes`` body).
+   Then gemma3-12b at full width and depth (48 layers, 40 ``swa`` with
+   the 1024-slot ring, 8 ``attn``) in bfloat16, about 23.5 GB of weights
+   drawn on the card: 8 requests of 256-2048 tokens (six past the
+   window), 64 new tokens each, through ``PagedServingEngine``
+   (``gemma_paged_bf16``, profiled in decode and prefill, with prompts
+   past the window) and ``ServingEngine`` (``gemma_dense_bf16``, its
+   share of tokens equal to the paged run's printed); a prefill chunk
+   launches the ring form 40 times and the paged prefill 8 times, a
+   decode iteration the decode kernel 48 times, every one on
+   ``cuda_core`` (hd 256), checked exactly.  Which body each config's
+   attention launches take is fixed in ``ATTN_BODY`` (smollm-360m's on
+   ``mma``, gemma3-12b's on ``cuda_core``), and the wrappers' rules must
+   agree with it.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
-   falcon-mamba paged run; two steady verify rounds after ``paged_spec``):
+   falcon-mamba and gemma3 paged runs; two steady verify rounds after
+   ``paged_spec``):
    two steady decode macro-steps timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time; the idle share is one minus busy over the
@@ -132,6 +159,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
     "paged_prefill_attention": "src/repro/kernels/flash_attention.py:72",
     "paged_chunk_attention": "src/repro/kernels/flash_attention.py:72",
+    "ring_chunk_attention": "src/repro/kernels/flash_attention.py:72",
     "dense_decode_attention": "src/repro/kernels/decode_attention.py:76",
     "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
@@ -142,6 +170,7 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "paged_chunk_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "ring_chunk_attention": "src/repro_torch/csrc/ring_chunk_attention.cu",
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
     "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
@@ -151,6 +180,7 @@ SOURCES = {
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "paged_prefill_attention": "paged_bf16",
               "paged_chunk_attention": "paged_spec",
+              "ring_chunk_attention": "gemma_paged_bf16",
               "dense_decode_attention": "dense_bf16",
               "quant_matmul_int8": "paged_int8",
               "quant_matmul_int4": "paged_int4",
@@ -158,9 +188,18 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
 #: the dtype of each kernel's main-path case in the kernels line
 MAIN_DTYPE = {"selective_scan": "float32"}
 #: the bodies every serve-run launch of a kernel with more than one body
-#: must take (rmsnorm: split as expected_launches says)
+#: must take (rmsnorm: split as expected_launches says; the attention
+#: kernels as ``ATTN_BODY`` names them for the run's config)
 MAIN_BODY = {"selective_scan": ("state_lanes",),
-             "rmsnorm": ("add_norm", "norm")}   # the others: ("mma",)
+             "rmsnorm": ("add_norm", "norm"),
+             "ring_chunk_attention": ("cuda_core",)}   # the others: ("mma",)
+#: the body of every attention launch of each served config, fixed here:
+#: gemma3-12b's hd 256 is past every tensor-core rule, so all its
+#: attention runs on cuda_core; every other served config's attention
+#: takes mma.  ``main_bodies`` checks that the wrappers' rules agree.
+ATTN_BODY = {"gemma3-12b": "cuda_core"}
+ATTN_KERNELS = ("paged_prefill_attention", "paged_chunk_attention",
+                "paged_decode_attention", "dense_decode_attention")
 #: the scan's issue bound: the thread instructions one state update
 #: takes as the card compiles it (cuobjdump of csrc/selective_scan.cu:
 #: dt*a, the accurate expf's eight, decay*h, dx*B, their sum, h*C and
@@ -321,9 +360,13 @@ def kernel_cases(dev) -> list:
         es = torch.finfo(dtype).bits // 8
 
         # rmsnorm: 8 decode rows, 128 prefill rows of d_model, and in
-        # bf16 at falcon-mamba-7b's d_model, the width its 65 norms an
-        # iteration run at
-        widths = [(D, 8), (D, 128)] + ([(4096, 8), (4096, 128)]
+        # bf16 at the served models' own widths: falcon-mamba-7b's 4096
+        # (65 norms an iteration) and gemma3-12b's 3840 (97 norms an
+        # iteration, 96 a chunk; 480 16-byte accesses a row, so 8 warps
+        # with a partial second access a lane, a launch shape no other
+        # width takes)
+        widths = [(D, 8), (D, 128)] + ([(4096, 8), (4096, 128), (3840, 8),
+                                        (3840, 128)]
                                        if dname == "bfloat16" else [])
         for d, rows in widths:
             x = t(rng.standard_normal((rows, d)), dtype)
@@ -522,7 +565,7 @@ def kernel_cases(dev) -> list:
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
     launch_floor(dev)
-    return cases + scan_cases(dev)
+    return cases + scan_cases(dev) + gemma_cases(dev)
 
 
 #: the verify round's rows: smollm-360m's 8 rows at positions 32-600
@@ -605,6 +648,200 @@ def chunk_case(dev, dname) -> dict:
         prev=(lambda: paged_chunk_attention(q, kp, vp, tables, pos,
                                             _body="cuda_core"))
         if dname == "bfloat16" else None)
+
+
+#: gemma3-12b's attention: 16 query heads over 8 KV heads of 256, a ring
+#: of w = 1024 slots, chunks of 128, rows of max_len 2176
+GEMMA = {"H": 16, "KV": 8, "hd": 256, "w": 1024, "C": 128, "max_len": 2176}
+#: a decode batch's positions, 5-2000: before, at and past the ring's wrap
+GEMMA_DECODE_POS = [5, 300, 1022, 1023, 1024, 1500, 1777, 2000]
+
+
+def _bounds(nbytes, flops, dtype) -> dict:
+    """Both halves of the bound, for the cases that print them."""
+    return {"bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "flops_bound_ms": flops / PEAK_FLOPS[dtype] * 1e3}
+
+
+def gemma_cases(dev) -> list:
+    """The attention kernels at gemma3-12b's shapes (hd 256, past the
+    tensor-core bodies' rules, so every launch takes ``cuda_core``).
+
+    ``ring_chunk_attention``, the flash kernel's window form, in float32
+    and bfloat16 at pos 0 (no ring key valid), 512 (ring partly filled)
+    and 3000 (wrapped): against its plain version under the gates, the
+    same ring in blocks of 32 and as a dense one-block ring bit-equal to
+    blocks of 16, and timed, with ``F.scaled_dot_product_attention`` over
+    ``[gathered ring ; chunk]`` and the boolean window mask as the library
+    call.  Then, in bfloat16, the one-row paged prefill (C 128 at pos
+    1024 and 2048) and both decode kernels (B 8, pos 5-2000) over linear
+    rows of 2176 slots and over rings of 1024 (at the pos the model
+    clamps to w - 1), as the gemma3 serve runs launch them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.flash_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain,
+        ring_chunk_attention, ring_chunk_attention_plain, ring_positions)
+    rng = np.random.default_rng(SEED + 9)
+    H, KV, HD, W, C = (GEMMA[k] for k in ("H", "KV", "hd", "w", "C"))
+    BS, cases = 16, []
+
+    def t(a, dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+        for pos in (0, 512, 3000):
+            nb = W // BS
+            ring_k = rng.standard_normal((W, KV, HD)).astype(np.float32)
+            ring_v = rng.standard_normal((W, KV, HD)).astype(np.float32)
+            table_np = (rng.permutation(nb) + 1).astype(np.int32)
+            pools = []
+            for ring in (ring_k, ring_v):
+                pool = np.zeros((nb + 1, BS, KV, HD), np.float32)
+                pool[table_np] = ring.reshape(nb, BS, KV, HD)
+                pools.append(t(pool, dtype))
+            kp, vp = pools
+            table = torch.from_numpy(table_np).to(dev)
+            q = t(rng.standard_normal((C, H, HD)), dtype)
+            kn = t(rng.standard_normal((C, KV, HD)), dtype)
+            vn = t(rng.standard_normal((C, KV, HD)), dtype)
+            out = ring_chunk_attention(q, kp, vp, table, kn, vn, pos, W)
+            # the same ring in blocks of 32 (identity table) and as one
+            # dense block of W slots
+            k32 = t(ring_k, dtype).reshape(W // 32, 32, KV, HD)
+            v32 = t(ring_v, dtype).reshape(W // 32, 32, KV, HD)
+            t32 = torch.arange(W // 32, dtype=torch.int32, device=dev)
+            blocks_equal = torch.equal(out, ring_chunk_attention(
+                q, k32, v32, t32, kn, vn, pos, W))
+            dense_equal = torch.equal(out, ring_chunk_attention(
+                q, k32.reshape(1, W, KV, HD), v32.reshape(1, W, KV, HD),
+                t32[:1], kn, vn, pos, W))
+            emit({"phase": "kernels", "kernel": "ring_chunk_attention",
+                  "check": "blocks of 32 and a dense one-block ring "
+                           "bit-equal to blocks of 16", "dtype": dname,
+                  "pos": pos, "blocks_equal": blocks_equal,
+                  "dense_equal": dense_equal})
+            if not (blocks_equal and dense_equal):
+                raise AssertionError(f"ring_chunk_attention {dname} pos "
+                                     f"{pos}: blocks of 32 equal "
+                                     f"{blocks_equal}, dense ring equal "
+                                     f"{dense_equal}")
+            kpos = ring_positions(pos, W, C, dev)[None, :]
+            qpos = pos + torch.arange(C, device=dev)[:, None]
+            valid = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - W)
+            k_all = torch.cat([paged_gather(kp, table[None])[0], kn])
+            v_all = torch.cat([paged_gather(vp, table[None])[0], vn])
+            k_all = k_all.permute(1, 0, 2)[None].contiguous()
+            v_all = v_all.permute(1, 0, 2)[None].contiguous()
+            qs = q.permute(1, 0, 2)[None].contiguous()
+            n_old = min(pos, W)
+            # q read, out written; the ring slots that hold a position
+            # and the chunk's keys, K and V; their table entries
+            nbytes = (2 * C * H * HD * es + 2 * (n_old + C) * KV * HD * es
+                      + 4 * -(-n_old // BS))
+            flops = 4 * HD * H * int(valid.sum())
+            cases.append(_case(
+                "ring_chunk_attention", dname,
+                {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "w": W,
+                 "pos": pos},
+                out, ring_chunk_attention_plain(q, kp, vp, table, kn, vn,
+                                                pos, W),
+                lambda: ring_chunk_attention(q, kp, vp, table, kn, vn, pos,
+                                             W),
+                lambda: ring_chunk_attention_plain(q, kp, vp, table, kn, vn,
+                                                   pos, W),
+                lambda: F.scaled_dot_product_attention(
+                    qs, k_all, v_all, attn_mask=valid, enable_gqa=True),
+                nbytes, flops, extra={"body": "cuda_core",
+                                      **_bounds(nbytes, flops, dname)}))
+
+    # the bf16 rows gemma3 runs on cuda_core: the attn layers' prefill ...
+    dname, dtype = "bfloat16", torch.bfloat16
+    es = 2
+    max_len = GEMMA["max_len"]
+    nb = max_len // BS
+    kp = t(rng.standard_normal((nb + 1, BS, KV, HD)), dtype)
+    vp = t(rng.standard_normal((nb + 1, BS, KV, HD)), dtype)
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(np.int32)).to(
+        dev)
+    q = t(rng.standard_normal((C, H, HD)), dtype)
+    for p0 in (1024, 2048):
+        n_slots = p0 + C
+        kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
+        vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
+        kc, vc = kc[None].contiguous(), vc[None].contiguous()
+        qs = q.permute(1, 0, 2)[None].contiguous()
+        cmask = (torch.arange(n_slots, device=dev)[None, :]
+                 <= p0 + torch.arange(C, device=dev)[:, None])
+        nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                  + 4 * -(-n_slots // BS))
+        flops = 4 * H * HD * sum(p0 + i + 1 for i in range(C))
+        cases.append(_case(
+            "paged_prefill_attention", dname,
+            {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
+            paged_prefill_attention(q, kp, vp, table, p0),
+            paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=cmask, enable_gqa=True),
+            nbytes, flops, extra={"body": "cuda_core"}))
+
+    # ... and the decode kernels over linear rows and over rings
+    B = len(GEMMA_DECODE_POS)
+    pos_np = np.asarray(GEMMA_DECODE_POS, np.int32)
+    qd = t(rng.standard_normal((B, H, HD)), dtype)
+    for ring in (False, True):
+        s_len = W if ring else max_len
+        kpos_np = np.minimum(pos_np, s_len - 1)   # the model's clamp
+        pos = torch.from_numpy(kpos_np).to(dev)
+        n_keys = int(kpos_np.sum() + B)
+        mask = (torch.arange(s_len, device=dev)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        nbs = s_len // BS
+        nbp = B * nbs + 1
+        kpool = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+        vpool = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+        tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(
+            B, nbs) + 1).astype(np.int32)).to(dev)
+        kg = paged_gather(kpool, tables).permute(0, 2, 1, 3).contiguous()
+        vg = paged_gather(vpool, tables).permute(0, 2, 1, 3).contiguous()
+        shape = {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS,
+                 "slots": s_len, "ring": ring, "pos": pos_np.tolist(),
+                 "kernel_pos": kpos_np.tolist()}
+        cases.append(_case(
+            "paged_decode_attention", dname, shape,
+            paged_decode_attention(qd, kpool, vpool, tables, pos),
+            paged_decode_attention_plain(qd, kpool, vpool, tables, pos),
+            lambda: paged_decode_attention(qd, kpool, vpool, tables, pos),
+            lambda: paged_decode_attention_plain(qd, kpool, vpool, tables,
+                                                 pos),
+            lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
+            2 * B * H * HD * es + 2 * n_keys * KV * HD * es
+            + 4 * (n_keys // BS + B) + 4 * B,
+            4 * H * HD * n_keys, extra={"body": "cuda_core"}))
+        kc = t(rng.standard_normal((B, s_len, KV, HD)), dtype)
+        vc = t(rng.standard_normal((B, s_len, KV, HD)), dtype)
+        kt = kc.permute(0, 2, 1, 3).contiguous()
+        vt = vc.permute(0, 2, 1, 3).contiguous()
+        cases.append(_case(
+            "dense_decode_attention", dname,
+            {**shape, "S": s_len},
+            dense_decode_attention(qd, kc, vc, pos),
+            dense_decode_attention_plain(qd, kc, vc, pos),
+            lambda: dense_decode_attention(qd, kc, vc, pos),
+            lambda: dense_decode_attention_plain(qd, kc, vc, pos),
+            lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+            2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B,
+            4 * H * HD * n_keys, extra={"body": "cuda_core"}))
+    return cases
 
 
 def launch_floor(dev) -> list:
@@ -729,7 +966,8 @@ def _top2_gap(model, params, tokens, dev):
     """Top-2 logit gap of the next token after ``tokens`` (plain path)."""
     import torch
     from repro_torch.models.kvcache import PagedCache
-    pc = PagedCache(model.cfg, max_rows=1, max_len=1024, device=dev)
+    max_len = max(1024, -(-(len(tokens) + 1) // 16) * 16)
+    pc = PagedCache(model.cfg, max_rows=1, max_len=max_len, device=dev)
     caches = pc.struct(model.dtype)
     pc.admit(0, len(tokens))
     prompt = torch.tensor([tokens[:-1]], dtype=torch.int32, device=dev)
@@ -852,10 +1090,12 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
 def parity(dev) -> list:
     """smollm-360m through both engines, unquantized and quantized, and
     with speculation (n-gram drafts on both engines and with int8 weights,
-    a model draft on the paged engine; K = 4), then falcon-mamba-7b
-    through both engines and once with ``speculative=4``, which it must
-    gate off; each at full width and 2 layers in float32, on the card and
-    on the CPU."""
+    a model draft on the paged engine; K = 4), then falcon-mamba-7b and
+    gemma3-12b (one ``swa`` layer with its published window of 1024, one
+    ``attn``) through both engines and once with ``speculative=4``, which
+    they must gate off; each at full width and 2 layers in float32, on
+    the card and on the CPU.  gemma3's prompts (1040-1200 tokens) all
+    wrap the ring before their first decode step."""
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     smollm = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
@@ -863,6 +1103,9 @@ def parity(dev) -> list:
                                  dtype="float32")
     mamba = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2,
                                 block_pattern=uniform("mamba1", 2),
+                                dtype="float32")
+    gemma = dataclasses.replace(get_config("gemma3-12b"), n_layers=2,
+                                block_pattern=("swa", "attn"),
                                 dtype="float32")
     smollm_res = _parity_config(
         dev, smollm, "smollm-360m, 2 layers, float32",
@@ -878,15 +1121,21 @@ def parity(dev) -> list:
         (("paged", None, None), ("slot", None, None), ("paged", None, 4)),
         _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
                mamba.vocab_size), 128)
+    gemma_res = _parity_config(
+        dev, gemma, "gemma3-12b, 2 layers (swa, attn), float32",
+        (("paged", None, None), ("slot", None, None), ("paged", None, 4)),
+        _trace(np.random.default_rng(SEED + 10), 3, 1040, 1200,
+               gemma.vocab_size), 1280)
     spec_runs = [r for r in smollm_res["runs"] if r["speculative"]]
-    gated = [r for r in mamba_res["runs"] if r["speculative"]]
+    gated = [r for res in (mamba_res, gemma_res) for r in res["runs"]
+             if r["speculative"]]
     if (any(r["spec_gated_off"] or r["spec_rounds"] == 0 for r in spec_runs)
             or not all(r["spec_gated_off"] and r["spec_rounds"] == 0
                        for r in gated)):
         raise AssertionError(f"speculation: smollm runs {spec_runs} must "
-                             f"speculate, falcon-mamba runs {gated} must "
-                             f"gate it off")
-    return [smollm_res, mamba_res]
+                             f"speculate, falcon-mamba and gemma3 runs "
+                             f"{gated} must gate it off")
+    return [smollm_res, mamba_res, gemma_res]
 
 
 def _timed(base):
@@ -951,15 +1200,19 @@ def projection_bytes(params) -> int:
 def expected_launches(cfg, slot: bool, qformat, iters: int,
                       chunks: int, names, rounds: int = 0) -> tuple:
     """Kernel launches a run of ``iters`` decode iterations, ``chunks``
-    prefill chunks and ``rounds`` verify rounds implies: per attn layer
-    two rmsnorms (one without an MLP), one decode, prefill or batched
-    chunk attention (a verify round) and, packed, 7 quant matmuls (4
-    attention, 3 MLP); per Mamba1 layer one rmsnorm and one scan; one
-    final rmsnorm per decode iteration and per verify round.  Every
-    rmsnorm but the first of a stack takes its residual add as a delta
-    (``add_norm``); the final norm takes the last block's.  Returns
-    (launches by kernel, rmsnorm's launches by body)."""
-    n_attn = cfg.block_pattern.count("attn")
+    prefill chunks and ``rounds`` verify rounds implies: per attn or swa
+    layer two rmsnorms (one without an MLP), one decode attention, one
+    prefill attention a chunk (the ring form for a windowed swa layer,
+    the paged prefill for the others) or one batched chunk attention a
+    verify round and, packed, 7 quant matmuls (4 attention, 3 MLP); per
+    Mamba1 layer one rmsnorm and one scan; one final rmsnorm per decode
+    iteration and per verify round.  Every rmsnorm but the first of a
+    stack takes its residual add as a delta (``add_norm``); the final
+    norm takes the last block's.  Returns (launches by kernel,
+    rmsnorm's launches by body)."""
+    n_swa = cfg.block_pattern.count("swa")
+    n_ring = n_swa if cfg.window else 0
+    n_attn = cfg.block_pattern.count("attn") + n_swa
     n_mamba = cfg.block_pattern.count("mamba1")
     n_mlp = n_attn if cfg.mlp_kind != "none" else 0
     expect = dict.fromkeys(names, 0)
@@ -968,7 +1221,8 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     expect["rmsnorm"] = (norms + 1) * heads + norms * chunks
     norm_bodies = {"add_norm": norms * heads + (norms - 1) * chunks,
                    "norm": heads + chunks, "cuda_core": 0}
-    expect["paged_prefill_attention"] = n_attn * chunks
+    expect["paged_prefill_attention"] = (n_attn - n_ring) * chunks
+    expect["ring_chunk_attention"] = n_ring * chunks
     expect["paged_chunk_attention"] = n_attn * rounds
     expect["dense_decode_attention" if slot
            else "paged_decode_attention"] = n_attn * iters
@@ -977,6 +1231,25 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
         expect[f"quant_matmul_{qformat}"] = (4 * n_attn + 3 * n_mlp) * (
             heads + chunks)
     return expect, {"rmsnorm": norm_bodies}
+
+
+def main_bodies(cfg) -> dict:
+    """``MAIN_BODY`` with ``cfg``'s attention kernels on the body
+    ``ATTN_BODY`` fixes for it; raises if the wrappers' rules would send
+    the config's launches elsewhere."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.decode_attention import decode_body
+    from repro_torch.kernels.flash_attention import prefill_body
+    if not cfg.n_kv_heads:
+        return MAIN_BODY
+    body = ATTN_BODY.get(cfg.name, "mma")
+    dtype = torch_dtype(cfg.dtype)
+    rules = {prefill_body(dtype, cfg.head_dim),
+             decode_body(dtype, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)}
+    if rules != {body}:
+        raise AssertionError(f"{cfg.name}: the wrappers' rules name the "
+                             f"bodies {sorted(rules)}, expected {body}")
+    return {**MAIN_BODY, **{k: (body,) for k in ATTN_KERNELS}}
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
@@ -1065,18 +1338,21 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
     # every serve run is bf16: each launch of a kernel with more than one
-    # body must have taken its main body (the tensor-core one, the scan's
-    # state_lanes, rmsnorm's add_norm or norm), and rmsnorm's must split
-    # between those two as the run implies
+    # body must have taken its main body (the attention kernels' as
+    # ATTN_BODY fixes it, the scan's state_lanes, rmsnorm's add_norm or norm),
+    # and rmsnorm's must split between those two as the run implies
+    bodies_main = main_bodies(cfg)
+
     def on_main(k, b):
-        main = MAIN_BODY.get(k, ("mma",))
+        main = bodies_main.get(k, ("mma",))
         return (sum(b[x] for x in main) == launches[k]
                 and all(n == 0 for x, n in b.items() if x not in main))
     if not all(on_main(k, b) for k, b in bodies.items()) or any(
             bodies[k] != v for k, v in expect_bodies.items()):
         raise AssertionError(f"serve {name}: launches by body {bodies}, "
                              f"expected every launch on a body of "
-                             f"{MAIN_BODY} (else mma), and {expect_bodies}")
+                             f"{bodies_main} (else mma), and "
+                             f"{expect_bodies}")
     return res, streams, eng
 
 
@@ -1162,6 +1438,52 @@ def serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_mamba(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_gemma(dev))
+    return launches
+
+
+def serve_gemma(dev) -> dict:
+    """gemma3-12b at full width and depth (48 layers, 40 ``swa`` with the
+    1024-slot ring and 8 ``attn``; about 23.5 GB of bf16 weights drawn on
+    the card from the seed): 8 requests of 256-2048 tokens (six past the
+    window) through ``PagedServingEngine`` and its decode and prefill
+    profiles (prompts past the window, so both windows run the wrapped
+    ring), then the same 8 through ``ServingEngine`` on the same weights,
+    with its share of tokens equal to the paged run's.  Every attention
+    launch takes ``cuda_core`` (hd 256).  Returns each run's launch
+    counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = get_config("gemma3-12b")
+    max_len = GEMMA["max_len"]
+    kw = dict(max_rows=8, max_len=max_len, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 1), 8, 256, 2048,
+                     cfg.vocab_size)
+    if sum(len(p) > cfg.window for p in prompts) < 4:
+        raise AssertionError("the gemma3 trace must hold at least four "
+                             "prompts past the window")
+    res, ref, eng = serve_run("gemma_paged_bf16", PagedServingEngine, cfg,
+                              kw, prompts, dev)
+    launches = {"gemma_paged_bf16": res["launches"]}
+    profile_decode(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
+                   prompt_len=1100)
+    profile_prefill(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
+                    prompt_len=1153)
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "gemma_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=max_len, prefill_chunk=128,
+             decode_steps=16, seed=SEED, device=dev), prompts, dev, ref=ref,
+        params=params)
+    launches["gemma_dense_bf16"] = res["launches"]
     return launches
 
 
@@ -1234,18 +1556,19 @@ def previous_body(kernel: str):
             setattr(module, name, wrapper)
 
 
-def profile_decode(cfg, params, kw, dev, label: str) -> dict:
-    """Where decode time goes in two steady macro-steps of 8 rows
-    (admission, prefill and the first macro-step happen before the
-    window).  The window runs twice on identical engines: once timed
+def profile_decode(cfg, params, kw, dev, label: str,
+                   prompt_len: int = 256) -> dict:
+    """Where decode time goes in two steady macro-steps of 8 rows with
+    prompts of ``prompt_len`` tokens (admission, prefill and the first
+    macro-step happen before the window).  The window runs twice on identical engines: once timed
     without the profiler (the wall time), once under torch.profiler
     (the device's busy time and the kernels by time).  The idle share is
     one minus busy over the unprofiled wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import PagedServingEngine, Request
-    prompts = _trace(np.random.default_rng(SEED + 3), 8, 256, 256,
-                     cfg.vocab_size)
+    prompts = _trace(np.random.default_rng(SEED + 3), 8, prompt_len,
+                     prompt_len, cfg.vocab_size)
 
     def warm_engine():
         eng = PagedServingEngine(cfg, params, **kw)
@@ -1356,9 +1679,10 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
     return res
 
 
-def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
-    """Where prefill time goes: admission of 8 requests of 385-token
-    prompts, i.e. 24 chunks of 128 at pos 0, 128 and 256, with no decode.
+def profile_prefill(cfg, params, kw, dev, label: str,
+                    prompt_len: int = 385) -> dict:
+    """Where prefill time goes: admission of 8 requests of ``prompt_len``
+    tokens (385: 24 chunks of 128 at pos 0, 128 and 256), with no decode.
     As in ``profile_decode``, the window runs once timed without the
     profiler and once under it on an identical engine; the idle share is
     one minus busy over the unprofiled wall time."""
@@ -1366,8 +1690,8 @@ def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             chunk_sizes)
-    prompts = _trace(np.random.default_rng(SEED + 6), 8, 385, 385,
-                     cfg.vocab_size)
+    prompts = _trace(np.random.default_rng(SEED + 6), 8, prompt_len,
+                     prompt_len, cfg.vocab_size)
     # a row prefills all of its prompt but the last token
     chunks = sum(len(chunk_sizes(len(p) - 1, kw["prefill_chunk"]))
                  for p in prompts)
@@ -1416,15 +1740,18 @@ def profile_prefill(cfg, params, kw, dev, label: str) -> dict:
 def kernel_line(cases, launches_by_run) -> dict:
     """One entry per kernel, at its main-path shape in its main dtype
     (``MAIN_DTYPE``, else bfloat16: decode rows for the quant matmuls and
-    for rmsnorm, on its add_norm body, pos 256 for prefill, the decode
-    step for the scan), with the launches of the serve run that drives it
-    (``LAUNCH_RUN``); every case in ``cases``."""
+    for rmsnorm, on its add_norm body, smollm-360m's hd 64 for the paged
+    and dense decode, pos 256 for prefill, the wrapped ring (pos 3000) for
+    the ring form, the decode step for the scan), with the launches of the
+    serve run that drives it (``LAUNCH_RUN``); every case in ``cases``,
+    gemma3-12b's hd 256 rows among them."""
     main = {"rmsnorm": lambda c: (c["shape"] == [8, 960]
                                   and c["body"] == "add_norm"),
-            "paged_decode_attention": lambda c: True,
+            "paged_decode_attention": lambda c: c["shape"]["hd"] == 64,
             "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
             "paged_chunk_attention": lambda c: True,
-            "dense_decode_attention": lambda c: True,
+            "ring_chunk_attention": lambda c: c["shape"]["pos"] == 3000,
+            "dense_decode_attention": lambda c: c["shape"]["hd"] == 64,
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
             "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],
             "selective_scan": lambda c: c["shape"]["T"] == 1}
@@ -1445,7 +1772,8 @@ def kernel_line(cases, launches_by_run) -> dict:
                     "call_ms": c["call_ms"], "plain_ms": c["plain_ms"],
                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                     "library_ms": c["library_ms"],
-                    **{k: c[k] for k in ("body", "library_pair_ms")
+                    **{k: c[k] for k in ("body", "library_pair_ms",
+                                         "bytes_bound_ms", "flops_bound_ms")
                        if k in c},
                     "dtype": c["dtype"], "shape": c["shape"],
                     "cases": [{k: x[k] for k in ("dtype", "shape", "body",
@@ -1454,6 +1782,8 @@ def kernel_line(cases, launches_by_run) -> dict:
                                                  "library_ms",
                                                  "library_pair_ms",
                                                  "bound_ms", "bound_by",
+                                                 "bytes_bound_ms",
+                                                 "flops_bound_ms",
                                                  "max_abs_err", "max_rel_err")
                                if k in x}
                               for x in mine]})

@@ -13,8 +13,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds understood by the reference model (the port runs "attn" and
-# "mamba1")
+# Block kinds understood by the reference model (the port runs "attn",
+# "swa" and "mamba1")
 BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
 MLP_KINDS = ("dense", "moe", "none")
 
@@ -98,6 +98,15 @@ class ModelConfig:
 
 def uniform(kind: str, n: int) -> Tuple[str, ...]:
     return tuple([kind] * n)
+
+
+def local_global(n: int, local: int = 5,
+                 window_kind: str = "swa") -> Tuple[str, ...]:
+    """gemma3-style `local:1 global` repeating pattern."""
+    pat = []
+    for i in range(n):
+        pat.append("attn" if (i % (local + 1)) == local else window_kind)
+    return tuple(pat)
 
 
 def reduce_config(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 128,

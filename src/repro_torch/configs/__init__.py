@@ -1,7 +1,8 @@
 """Architecture config registry of the port.
 
 It holds the architectures the port can serve so far: ``smollm-360m``
-(dense attention) and ``falcon-mamba-7b`` (Mamba1).  Other architectures
+(dense attention), ``falcon-mamba-7b`` (Mamba1) and ``gemma3-12b``
+(dense attention, 5 sliding-window layers to 1 global).  Other architectures
 join with their families.  ``get_config(arch_id)``
 returns the production :class:`~repro_torch.config.ModelConfig`,
 ``get_smoke_config`` the reduced CPU-testable variant.
@@ -15,6 +16,7 @@ from repro_torch.config import ModelConfig, reduce_config
 _ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

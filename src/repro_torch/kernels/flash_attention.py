@@ -8,9 +8,8 @@ C query tokens of one request, at positions ``pos .. pos + C - 1``,
 attend causally to the logical slots ``[0, pos + C)`` of the model's
 paged pools ``(NB, bs, KV, hd)`` through the request's block table.
 With ``pos = 0`` and an identity table this is causal flash attention
-over contiguous K/V.  The sliding window is not on this path and is not
-ported yet.  The kernel is ``csrc/paged_prefill_attention.cu``; the TPU
-kernel it replaces is ``src/repro/kernels/flash_attention.py:72``.
+over contiguous K/V.  The kernel is ``csrc/paged_prefill_attention.cu``;
+the TPU kernel it replaces is ``src/repro/kernels/flash_attention.py:72``.
 
 Bound on the H100: bytes at the main path's chunks (C = 128 against a
 prefix of a few hundred keys), and in practice latency and SM fill.
@@ -36,6 +35,14 @@ reference's ``paged_chunk_self_attention`` for B rows, the form
 round).  The host never reads ``pos``, and the grid depends on B, C, H
 and KV only.  Row b's output is bit-equal to a one-row call at
 ``pos[b]``, since the kernel runs the same instructions for it.
+
+The windowed form :func:`ring_chunk_attention` (``window > 0`` in the
+TPU kernel) is the swa branch of the reference's chunk attention: C
+queries of one request attend to the w keys of its sliding-window ring
+(read in place through the ring's block table) followed by the chunk's
+own C keys, under the causal and the window mask
+(``csrc/ring_chunk_attention.cu``, one CUDA-core body for float32 and
+bfloat16 at every head dim up to 256).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA
 tensors they launch the body the rule names, or raise.
@@ -203,4 +210,94 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _build.BODY_CODES[body],
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_chunk_attention")
+    return out
+
+
+def ring_positions(pos: int, w: int, c: int, device) -> torch.Tensor:
+    """Positions of the keys ``[old ring ; chunk]`` of a chunk at ``pos``
+    over a ring of ``w`` slots: ring slot j holds the latest position
+    p < pos with p % w == j, ``pos - w + ((j - pos) mod w)`` (negative
+    where nothing was written yet); chunk key i sits at ``pos + i``."""
+    j = torch.arange(w, device=device)
+    p_old = pos - w + torch.remainder(j - pos, w)
+    return torch.cat([p_old, pos + torch.arange(c, device=device)])
+
+
+def ring_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor, table: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor,
+                               pos: int, w: int,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """The swa branch of the reference's ``paged_chunk_self_attention``,
+    in its order: gather the ring's first ``w`` slots through ``table``,
+    concatenate ``[ring ; chunk]``, f32 scores, the mask ``kpos >= 0 &
+    kpos <= qpos & kpos > qpos - w``, softmax, P V.  q (C,H,hd); pools
+    (NB,bs,KV,hd); table (nb,) with nb * bs >= w; k_new / v_new
+    (C,KV,hd), the chunk's keys and values (not yet in the ring); pos the
+    absolute position of q's first token; w the ring size,
+    ``min(window, max_len)``.  Returns (C,H,hd) in q.dtype."""
+    c, h, hd = q.shape
+    kv = k_pool.shape[2]
+    g = h // kv
+    pos = int(pos)
+    scale = hd ** -0.5 if scale is None else scale
+    k_all = torch.cat([paged_gather(k_pool, table[None])[0, :w], k_new]).float()
+    v_all = torch.cat([paged_gather(v_pool, table[None])[0, :w], v_new]).float()
+    qg = q.reshape(c, kv, g, hd).float()
+    scores = torch.einsum("qngh,snh->ngqs", qg, k_all) * scale  # (KV,G,C,W+C)
+    kpos = ring_positions(pos, w, c, q.device)[None, :]
+    qpos = pos + torch.arange(c, device=q.device)[:, None]
+    valid = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - w)
+    mask = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    probs = torch.softmax(scores + mask, dim=-1)
+    out = torch.einsum("ngqs,snh->qngh", probs, v_all)
+    return out.reshape(c, h, hd).to(q.dtype)
+
+
+def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, table: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
+                         w: int, scale: Optional[float] = None) -> torch.Tensor:
+    """Sliding-window chunk attention over a ring; see
+    :func:`ring_chunk_attention_plain` for the contract.  The ring is
+    read in place and not written: the caller writes the chunk's keys
+    into it afterwards."""
+    if q.device.type == "cpu":
+        return ring_chunk_attention_plain(q, k_pool, v_pool, table, k_new,
+                                          v_new, pos, w, scale)
+    c, h, hd = q.shape
+    nbp, bs, kv, hd_k = k_pool.shape
+    nb = table.shape[0] if table.dim() == 1 else -1
+    pos, w = int(pos), int(w)
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_pool, v_pool, table, k_new, v_new)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("ring_chunk_attention: all tensors must lie on one "
+                         "CUDA device")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv or nb < 0
+            or k_new.shape != (c, kv, hd) or v_new.shape != k_new.shape
+            or pos < 0 or w <= 0 or nb * bs < w or hd > 256):
+        raise ValueError(
+            f"ring_chunk_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
+            f"{tuple(table.shape)}, chunk K/V {tuple(k_new.shape)}/"
+            f"{tuple(v_new.shape)}, pos {pos}, w {w} do not fit")
+    if (any(t.dtype != q.dtype for t in (k_pool, v_pool, k_new, v_new))
+            or table.dtype != torch.int32):
+        raise TypeError("ring_chunk_attention: q, pools and chunk K/V must "
+                        "share a dtype; the table must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ring_chunk_attention: the kernel takes contiguous "
+                         "tensors")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    _build.launches["ring_chunk_attention"] += 1
+    _build.bodies["ring_chunk_attention"]["cuda_core"] += 1
+    _build.check(lib.rt_ring_chunk_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
+        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), c, h, kv, hd, bs,
+        nb, pos, w, float(scale), _build.dtype_code(q.dtype),
+        _build.BODY_CODES["cuda_core"],
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "ring_chunk_attention")
     return out

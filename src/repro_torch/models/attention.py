@@ -2,8 +2,11 @@
 prefill, against paged pools or dense slot caches.
 
 Port of the decode/chunk paths of ``repro/models/attention.py`` for
-linear (``attn``) segments.  Rotary is applied to K at write time and
-score math is f32, as in the reference.  The projections go through
+linear (``attn``) segments and sliding-window (``swa``) ones, whose
+cache is a ring of ``w = min(window, max_len)`` slots: position p lives
+at slot ``p % w``, through the row's ``swa_tables`` on the paged path.
+Rotary is applied to K at write time and score math is f32, as in the
+reference.  The projections go through
 ``models/quantize.py::qdot``, so packed weights take the quant-matmul
 kernel and plain ones run ``x @ w`` as before.
 
@@ -25,6 +28,19 @@ for B rows at once, each at its own position (the draft-verify round,
 ``Model.verify_steps``; the batched kernel, which reads ``pos`` on the
 device, so nothing here waits for the host).
 
+The ring orders its writes as the reference does.  A chunk attends
+first (``kernels/flash_attention.py::ring_chunk_attention``, over the
+old ring plus the chunk's own keys) and then writes its last
+``min(C, w)`` keys into the ring: a write before the scores would
+clobber old slots that earlier queries of the chunk still see.  A
+decode step writes its key at slot ``pos % w`` first and then runs the
+linear decode kernels with ``pos`` clamped at ``w - 1``: the ring's
+valid slots (the reference's ``_decode_valid(ring=True)``) are exactly
+``[0, min(pos, w - 1)]``, which is what those kernels read for the
+clamped pos, so no decode kernel changes.  The batched chunk form (a
+verify round) has no ring branch: speculation is gated off for a
+windowed ``swa`` model, as in the reference.
+
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
 which inactive decode rows may write and nobody reads unmasked.
@@ -38,7 +54,8 @@ import torch
 from repro_torch.kernels.decode_attention import (dense_decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import (paged_chunk_attention,
-                                                 paged_prefill_attention)
+                                                 paged_prefill_attention,
+                                                 ring_chunk_attention)
 from repro_torch.models.layers import _dense_init, rotary
 from repro_torch.models.quantize import qdot
 
@@ -92,11 +109,46 @@ def _out(params, o, cfg):
     return qdot(o.reshape(b, t, cfg.n_heads * cfg.head_dim), params["wo"])
 
 
-def _check_linear(kind, cfg):
-    if kind != "attn" and not (kind == "swa" and not cfg.window):
+def _is_ring(kind, cfg) -> bool:
+    """Does a ``kind`` layer keep a sliding-window ring (``swa`` with a
+    window; a windowless ``swa`` is full attention)?"""
+    if kind not in ("attn", "swa"):
+        raise NotImplementedError(f"attention for block kind {kind!r} is "
+                                  f"not ported yet")
+    return kind == "swa" and bool(cfg.window)
+
+
+def _ring_chunk(params, x, cache: dict, table, pos, w: int, cfg):
+    """The ring branch of a one-request chunk (the swa branch of the
+    reference's ``chunk_self_attention`` / ``paged_chunk_self_attention``):
+    attend over ``[old ring ; chunk]``, then write the chunk's last
+    ``keep = min(C, w)`` keys at ring slots ``positions[-keep:] % w``
+    (only those: an earlier key would be overwritten within the chunk, and
+    the slice has no duplicate scatter indices).  ``cache`` holds pools
+    ``(NB, bs, KV, hd)`` read through ``table`` (nb,); a dense ring row is
+    one block of W slots with table ``[0]``."""
+    b, c, _ = x.shape
+    if torch.is_tensor(pos):
         raise NotImplementedError(
-            f"attention for block kind {kind!r} (window {cfg.window}) is "
-            f"not ported yet")
+            "a batched chunk (B rows at device positions) over a "
+            "sliding-window ring: speculation is gated off for such models")
+    if b != 1:
+        raise ValueError(f"ring chunk attention prefills one request, got "
+                         f"a batch of {b}")
+    k_pool, v_pool = cache["k"], cache["v"]
+    bs = k_pool.shape[1]
+    pos = int(pos)
+    positions = pos + torch.arange(c, device=x.device)
+    q, k_new, v_new = _qkv(params, x, positions[None, :], cfg)
+    o = ring_chunk_attention(q[0], k_pool, v_pool, table, k_new[0],
+                             v_new[0], pos, w)
+    keep = min(c, w)
+    slots = positions[-keep:] % w
+    phys = table[slots // bs].long()
+    off = slots % bs
+    k_pool[phys, off] = k_new[0, -keep:]
+    v_pool[phys, off] = v_new[0, -keep:]
+    return _out(params, o[None], cfg), cache
 
 
 def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
@@ -104,19 +156,24 @@ def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
     """One-token decode against paged block pools.
 
     x: (B,1,D); cache {"k","v"}: (NB_phys, bs, KV, hd) pools of one
-    layer, updated in place; paged["tables"] (B, nb) int32; pos (B,)
-    int32 absolute position of the new token.  Returns (out (B,1,D),
-    cache).
+    layer, updated in place; paged["tables"] (B, nb) int32 (and, for a
+    ring layer, paged["swa_tables"] (B, nb_swa)); pos (B,) int32
+    absolute position of the new token.  Returns (out (B,1,D), cache).
     """
-    _check_linear(kind, cfg)
+    ring = _is_ring(kind, cfg)
     b = x.shape[0]
     k_pool, v_pool = cache["k"], cache["v"]
     bs = k_pool.shape[1]
-    tables = paged["tables"]
-    max_len = tables.shape[1] * bs
+    max_len = paged["tables"].shape[1] * bs
     q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
 
-    slot = torch.clamp(pos.long(), max=max_len - 1)
+    if ring:
+        tables = paged["swa_tables"]
+        w = min(cfg.window, max_len)
+        slot = torch.remainder(pos.long(), w)
+    else:
+        tables = paged["tables"]
+        slot = torch.clamp(pos.long(), max=max_len - 1)
     bidx = torch.arange(b, device=x.device)
     phys = tables[bidx, slot // bs].long()
     off = slot % bs
@@ -125,7 +182,8 @@ def paged_decode_self_attention(params, x, cache: dict, paged: dict, pos,
     k_pool[phys, off] = k_new[:, 0]
     v_pool[phys, off] = v_new[:, 0]
 
-    o = paged_decode_attention(q[:, 0], k_pool, v_pool, tables, pos)
+    kpos = torch.clamp(pos, max=w - 1) if ring else pos
+    o = paged_decode_attention(q[:, 0], k_pool, v_pool, tables, kpos)
     return _out(params, o[:, None], cfg), cache
 
 
@@ -138,14 +196,18 @@ def paged_chunk_self_attention(params, x, cache: dict, paged: dict, pos,
     ``int`` for one request's prefill chunk (x (1,C,D), paged["tables"]
     the row's slice (1, nb)), or a (B,) int32 tensor for B rows (x
     (B,C,D), tables (B, nb); the linear branch of the reference's
-    ``paged_chunk_self_attention``).  Returns (out (B,C,D), cache).
+    ``paged_chunk_self_attention``).  A ring layer takes the row's
+    ``paged["swa_tables"]`` (1, nb_swa) and :func:`_ring_chunk`'s order
+    instead.  Returns (out (B,C,D), cache).
     """
-    _check_linear(kind, cfg)
     b, c, _ = x.shape
     k_pool, v_pool = cache["k"], cache["v"]
     bs = k_pool.shape[1]
     tables = paged["tables"]
     max_len = tables.shape[1] * bs
+    if _is_ring(kind, cfg):
+        return _ring_chunk(params, x, cache, paged["swa_tables"][0], pos,
+                           min(cfg.window, max_len), cfg)
     if torch.is_tensor(pos):
         # writes past a row's covered blocks land in the scratch block 0;
         # duplicate scatter indices can only hit it or a row's clamped
@@ -186,17 +248,21 @@ def decode_self_attention(params, x, cache: dict, pos, cfg,
     x: (B,1,D); cache {"k","v"}: (B, S, KV, hd) of one layer, updated in
     place; pos (B,) int32 absolute position of the new token.  The new
     K/V lands at slot ``min(pos, S - 1)``, as in the reference's linear
-    cache.  Returns (out (B,1,D), cache).
+    cache, or at ``pos % S`` in a ring (S = ``min(window, seq_len)``).
+    Returns (out (B,1,D), cache).
     """
-    _check_linear(kind, cfg)
+    ring = _is_ring(kind, cfg)
     b = x.shape[0]
     k_cache, v_cache = cache["k"], cache["v"]
+    s = k_cache.shape[1]
     q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
-    slot = torch.clamp(pos.long(), max=k_cache.shape[1] - 1)
+    slot = (torch.remainder(pos.long(), s) if ring
+            else torch.clamp(pos.long(), max=s - 1))
     bidx = torch.arange(b, device=x.device)
     k_cache[bidx, slot] = k_new[:, 0]
     v_cache[bidx, slot] = v_new[:, 0]
-    o = dense_decode_attention(q[:, 0], k_cache, v_cache, pos)
+    kpos = torch.clamp(pos, max=s - 1) if ring else pos
+    o = dense_decode_attention(q[:, 0], k_cache, v_cache, kpos)
     return _out(params, o[:, None], cfg), cache
 
 
@@ -210,11 +276,16 @@ def chunk_self_attention(params, x, cache: dict, pos, cfg,
     one layer, written in place; the paged prefill kernel on the row as
     one block of S slots), or a (B,) int32 tensor for B rows (x (B,C,D),
     cache (B, S, KV, hd); the batched kernel on the cache as B blocks of
-    S slots).  Returns (out (B,C,D), cache).
+    S slots).  A ring layer's row (S = ``min(window, seq_len)`` slots) is
+    one block of S slots with table ``[0]`` for :func:`_ring_chunk`.
+    Returns (out (B,C,D), cache).
     """
-    _check_linear(kind, cfg)
     b, c, _ = x.shape
     k_cache, v_cache = cache["k"], cache["v"]
+    if _is_ring(kind, cfg):
+        table = torch.zeros(1, dtype=torch.int32, device=x.device)
+        return _ring_chunk(params, x, cache, table, pos, k_cache.shape[1],
+                           cfg)
     if torch.is_tensor(pos):
         # duplicate scatter indices only at a row's clamped last slot,
         # never read below its accepted length

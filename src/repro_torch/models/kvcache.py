@@ -2,19 +2,21 @@
 ledger with its torch pools.
 
 Port of ``repro/models/kvcache.py`` for the block kinds the port runs
-(``attn`` and ``mamba1``).  :func:`cache_struct` builds the slot
-engines' dense caches per segment: ``{"k","v"}`` of ``(n_layers, batch,
-seq_len, kv_heads, hd)`` for attn, ``{"h","conv"}`` of ``(n_layers,
-batch, d_inner, d_state)`` f32 and ``(n_layers, batch, W-1, d_inner)``
-for Mamba1.  The host-side ledger :class:`PagedCache` is the
-reference's attn group (free list, refcounts, the copy-on-write prefix
-index, ``check()``, and the versioned ``meta()`` snapshot, which here
-returns int32 tensors on the ledger's device).  The reference's SWA
-ring and cross-KV blocks are per-request state of block kinds the port
-does not run yet; they join with those families.
-:meth:`PagedCache.struct` builds torch pools ``(n_layers, num_blocks +
-1, block_size, kv_heads, hd)`` per attn segment and ``max_rows`` state
-rows per Mamba1 segment.
+(``attn``, ``swa`` and ``mamba1``).  :func:`cache_struct` builds the
+slot engines' dense caches per segment: ``{"k","v"}`` of ``(n_layers,
+batch, seq_len, kv_heads, hd)`` for attn, ``min(window, seq_len)``
+slots instead of ``seq_len`` for a sliding-window ring, ``{"h","conv"}``
+of ``(n_layers, batch, d_inner, d_state)`` f32 and ``(n_layers, batch,
+W-1, d_inner)`` for Mamba1.  The host-side ledger :class:`PagedCache`
+is the reference's attn and swa groups (free lists, the attn group's
+refcounts and copy-on-write prefix index, ``check()``, and the
+versioned ``meta()`` snapshot, which here returns int32 tensors on the
+ledger's device); the reference's cross-KV blocks join with the
+families that have them.  :meth:`PagedCache.struct` builds torch pools
+``(n_layers, num_blocks + 1, block_size, kv_heads, hd)`` per attn
+segment, ``(n_layers, max_rows * nb_swa + 1, block_size, kv_heads,
+hd)`` per ring segment and ``max_rows`` state rows per Mamba1
+segment.
 
 Caches and pools are **updated in place** — by the model's KV and
 state writes, by :func:`paged_copy_blocks`, :func:`paged_reset_row` and
@@ -27,15 +29,16 @@ Cache layout invariants (as in the reference):
   allocated, it absorbs the writes of inactive decode rows; block-table
   entries of unallocated logical blocks point at scratch, and every
   read through them is masked by position;
-* stale attn KV needs no zeroing on block reuse — attention masks
-  slots above ``pos``; SSM state rows carry no position, so a row is
-  zeroed when a request is admitted to it (:func:`paged_reset_row`);
+* stale attn/swa KV needs no zeroing on block reuse — attention masks
+  slots above ``pos`` (and ring slots not yet written by the request);
+  SSM state rows carry no position, so a row is zeroed when a request
+  is admitted to it (:func:`paged_reset_row`);
 * attn-pool blocks may be **shared** between requests under
   copy-on-write prefix sharing: a block's content is a pure function of
   the token-id prefix it caches, a per-block refcount tracks its owners,
   and any write to a block with refcount > 1 first copies it.  Sharing
-  is gated off for SSM models, whose per-request state a skipped
-  prefill would not rebuild.
+  is gated off for SSM models and sliding-window rings, whose
+  per-request state a skipped prefill would not rebuild.
 """
 from __future__ import annotations
 
@@ -52,11 +55,14 @@ from repro_torch.models.transformer import build_segments, check_supported
 def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
     """One segment's dense cache leaves for ``rows`` rows: name ->
     (shape, dtype).  A Mamba1 layer's ``h`` is float32 whatever the
-    model dtype."""
+    model dtype; a sliding-window ring keeps ``min(window, seq_len)``
+    slots."""
     if seg.kind == "mamba1":
         di, ds = cfg.d_inner_eff, cfg.ssm_state
         return {"h": ((seg.length, rows, di, ds), torch.float32),
                 "conv": ((seg.length, rows, cfg.conv_width - 1, di), dtype)}
+    if seg.kind == "swa" and cfg.window:
+        seq_len = min(cfg.window, seq_len)
     shape = (seg.length, rows, seq_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": (shape, dtype), "v": (shape, dtype)}
 
@@ -64,8 +70,9 @@ def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
 def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda") -> list:
     """Dense slot caches, one dict per segment (the reference's
     ``cache_struct``): ``{"k","v"}`` leaves ``(n_layers, batch,
-    seq_len, kv_heads, hd)`` for attn, ``{"h","conv"}`` for Mamba1
-    (``h`` in float32), zero-filled on ``device``.  The model writes
+    seq_len, kv_heads, hd)`` for attn (``min(window, seq_len)`` slots
+    for a ring), ``{"h","conv"}`` for Mamba1 (``h`` in float32),
+    zero-filled on ``device``.  The model writes
     them in place."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -87,7 +94,7 @@ def cache_bytes(cfg, batch: int, seq_len: int, bytes_per_el: int = 2) -> int:
 
 
 class PagedCache:
-    """Host-side paged-cache ledger: a free list + per-request block tables.
+    """Host-side paged-cache ledger: free lists + per-request block tables.
 
     The attn pool is the shared contention pool — ``num_blocks`` usable
     blocks of ``block_size`` tokens; one block id covers the same
@@ -96,7 +103,16 @@ class PagedCache:
     blocks and grows block-by-block as it decodes (:meth:`ensure`).
     Token-level admission and preemption arbitrate over this pool.
 
-    The ledger is pure numpy/python — a deterministic LIFO free list,
+    **The sliding-window ring** (configs with windowed ``swa`` layers,
+    :attr:`has_swa`).  Each request also holds its whole ring from
+    admission to release: ``nb_swa = ceil(window_eff / block_size)``
+    blocks of a separate ``swa`` group (``max_rows * nb_swa`` blocks,
+    its own LIFO free list and its own scratch block 0), mapped by
+    :attr:`swa_tables` ``(max_rows, nb_swa)``; ``window_eff = min(window,
+    max_len)`` is the ring's size.  Ring blocks are never shared and
+    never grow.
+
+    The ledger is pure numpy/python — deterministic LIFO free lists,
     no device state.  Pool tensors are built separately by
     :meth:`struct`; :meth:`meta` uploads the tables to ``device``.
 
@@ -139,12 +155,19 @@ class PagedCache:
         self.block_size = block_size
         self.nb_logical = max_len // block_size
         self.watermark_blocks = watermark_blocks
+        kinds = {seg.kind for seg in build_segments(cfg)}
+        self.has_swa = "swa" in kinds and bool(cfg.window)
+        self.window_eff = min(cfg.window, max_len) if self.has_swa else 0
+        self.nb_swa = (-(-self.window_eff // block_size)
+                       if self.has_swa else 0)
         self.num_blocks = (max_rows * self.nb_logical
                            if num_blocks is None else num_blocks)
+        self._groups = {"attn": self.num_blocks,
+                        "swa": max_rows * self.nb_swa}
         # prefix sharing: only the attn pool is content-addressed (SSM
-        # state is per-request state a skipped prefill would not rebuild)
-        self.sharing_supported = not any(
-            seg.kind == "mamba1" for seg in build_segments(cfg))
+        # state and the SWA ring are per-request state a skipped prefill
+        # would not rebuild)
+        self.sharing_supported = not (self.has_swa or "mamba1" in kinds)
         self.share_prefixes = bool(share_prefixes) and self.sharing_supported
         # per-block owner count; a block is free iff refcount 0
         self._ref = np.zeros(self.num_blocks + 1, np.int32)
@@ -160,10 +183,13 @@ class PagedCache:
         self.prefix_tokens_hit = 0  # prefill tokens skipped, cumulative
         self.blocks_saved = 0       # allocations avoided by sharing
         self.n_cow_copies = 0
-        # LIFO free list; block id 0 is the scratch block
-        self._free = list(range(self.num_blocks, 0, -1))
-        self._held: List[List[int]] = [[] for _ in range(max_rows)]
+        # LIFO free lists; block id 0 is the scratch block of each group
+        self._free = {g: list(range(n, 0, -1))
+                      for g, n in self._groups.items()}
+        self._held = {g: [[] for _ in range(max_rows)]
+                      for g in self._groups}
         self.tables = np.zeros((max_rows, self.nb_logical), np.int32)
+        self.swa_tables = np.zeros((max_rows, max(self.nb_swa, 1)), np.int32)
         # incremental device snapshot: the ledger version bumps on every
         # table mutation (admit/growth/release/preempt); meta() re-uploads
         # only when the version moved, so steady-state decode reuses one
@@ -180,6 +206,7 @@ class PagedCache:
         Mirrors the reference's ``struct`` segment-for-segment: attn
         leaves ``{"k","v"}`` are ``(n_layers, num_blocks + 1,
         block_size, kv_heads, hd)`` pools (+1 for the scratch block),
+        ring leaves the same with ``max_rows * nb_swa + 1`` blocks,
         Mamba1 leaves ``{"h","conv"}`` keep ``max_rows`` state rows;
         zero-filled torch tensors, written in place by the model.
         ``device`` defaults to the ledger's own (``"cuda"`` unless
@@ -187,8 +214,7 @@ class PagedCache:
         """
         cfg = self.cfg
         dev = resolve_device(self.device if device is None else device)
-        pool = (self.num_blocks + 1, self.block_size, cfg.n_kv_heads,
-                cfg.head_dim)
+        block = (self.block_size, cfg.n_kv_heads, cfg.head_dim)
         caches = []
         for seg in build_segments(cfg):
             if seg.kind == "mamba1":
@@ -196,8 +222,12 @@ class PagedCache:
                      for name, (shape, dt)
                      in _leaves(cfg, seg, self.max_rows, 0, dtype).items()}
             else:
-                c = {name: torch.zeros((seg.length, *pool), dtype=dtype,
-                                       device=dev) for name in ("k", "v")}
+                group = ("swa" if seg.kind == "swa" and cfg.window
+                         else "attn")
+                nb = self._groups[group] + 1
+                c = {name: torch.zeros((seg.length, nb, *block),
+                                       dtype=dtype, device=dev)
+                     for name in ("k", "v")}
             caches.append(c)
         return caches
 
@@ -226,8 +256,12 @@ class PagedCache:
         return self._build_meta(slice(row, row + 1))
 
     def _build_meta(self, sel) -> dict:
-        return {"tables": torch.from_numpy(self.tables[sel].copy()).to(
+        out = {"tables": torch.from_numpy(self.tables[sel].copy()).to(
             self.device)}
+        if self.has_swa:
+            out["swa_tables"] = torch.from_numpy(
+                self.swa_tables[sel].copy()).to(self.device)
+        return out
 
     # -------------------------------------------------------- accounting
     def blocks_needed(self, n_tokens: int) -> int:
@@ -235,7 +269,7 @@ class PagedCache:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return len(self._free["attn"])
 
     @property
     def used_blocks(self) -> int:
@@ -309,22 +343,35 @@ class PagedCache:
         the fresh-block demand."""
         wm = self.watermark_blocks if watermark is None else watermark
         need = self.blocks_needed(n_tokens) - len(self._match_blocks(tokens))
-        return len(self._free) - wm >= need
+        return (len(self._free["attn"]) - wm >= need
+                and len(self._free["swa"]) >= self.nb_swa)
 
-    def _alloc(self, row: int, logical: int) -> bool:
-        if not self._free:
+    def _alloc(self, group: str, row: int, table: np.ndarray,
+               logical: int) -> bool:
+        free = self._free[group]
+        if not free:
             return False
-        blk = self._free.pop()
-        self._held[row].append(blk)
-        self.tables[row, logical] = blk
-        self._ref[blk] = 1
+        blk = free.pop()
+        self._held[group][row].append(blk)
+        table[row, logical] = blk
+        if group == "attn":
+            self._ref[blk] = 1
         self._version += 1
         return True
 
+    def _alloc_or_die(self, group: str, row: int, table: np.ndarray,
+                      logical: int):
+        # callers hold the can_admit guarantee; a failure here is ledger
+        # corruption, and must raise even under ``python -O``
+        if not self._alloc(group, row, table, logical):
+            raise RuntimeError(
+                f"{group} pool exhausted mid-admit (row {row}, logical "
+                f"{logical}) despite can_admit — ledger corrupted")
+
     def admit(self, row: int, n_tokens: int,
               watermark: Optional[int] = None, tokens=None) -> bool:
-        """Allocate row ``row``'s blocks for logical slots [0, n_tokens).
-        All-or-nothing.
+        """Allocate row ``row``'s blocks for logical slots [0, n_tokens)
+        plus its full SWA ring.  All-or-nothing.
 
         With sharing enabled and ``tokens`` (the ids the engine is
         about to prefill, i.e. ``(prompt + out)[:-1]``), the longest
@@ -333,7 +380,7 @@ class PagedCache:
         :meth:`hit_tokens` reports the span whose prefill the engine
         skips.  Fresh fully-prefilled blocks are registered in the
         prefix index for later arrivals to match."""
-        if self._held[row]:
+        if any(self._held[g][row] for g in self._held):
             raise RuntimeError(f"admit: row {row} still holds blocks")
         matched = self._match_blocks(tokens)
         if not self.can_admit(n_tokens, watermark=watermark,
@@ -341,17 +388,14 @@ class PagedCache:
             return False
         for j, blk in enumerate(matched):
             self._ref[blk] += 1
-            self._held[row].append(blk)
+            self._held["attn"][row].append(blk)
             self.tables[row, j] = blk
         if matched:
             self._version += 1
         for j in range(len(matched), self.blocks_needed(n_tokens)):
-            # can_admit guaranteed the blocks; a failure here is ledger
-            # corruption, and must raise even under ``python -O``
-            if not self._alloc(row, j):
-                raise RuntimeError(
-                    f"pool exhausted mid-admit (row {row}, logical {j}) "
-                    f"despite can_admit — ledger corrupted")
+            self._alloc_or_die("attn", row, self.tables, j)
+        for j in range(self.nb_swa):
+            self._alloc_or_die("swa", row, self.swa_tables, j)
         if self.share_prefixes and tokens is not None:
             self._register_prefixes(row, tokens)
         hit = len(matched) * self.block_size
@@ -370,12 +414,13 @@ class PagedCache:
         table entry, held list, refcounts — swaps immediately.  Returns
         False when no free block exists (the scheduler must preempt);
         the shared mapping is left untouched in that case."""
-        if not self._free:
+        free = self._free["attn"]
+        if not free:
             return False
-        dst = self._free.pop()
+        dst = free.pop()
         self._ref[dst] = 1
         self._ref[src] -= 1
-        held = self._held[row]
+        held = self._held["attn"][row]
         held[held.index(src)] = dst
         self.tables[row, logical] = dst
         self.pending_copies.append((src, dst))
@@ -389,10 +434,10 @@ class PagedCache:
         shared (refcount > 1) triggers copy-on-write; a covered block
         this row owns exclusively but that is still in the prefix index
         is de-indexed (its content is about to diverge from the indexed
-        token prefix).  Returns False when the pool is exhausted — the
-        scheduler must preempt."""
+        token prefix).  Returns False when the attn pool is exhausted —
+        the scheduler must preempt."""
         logical = min(pos, self.max_len - 1) // self.block_size
-        held = len(self._held[row])
+        held = len(self._held["attn"][row])
         if logical < held:
             blk = int(self.tables[row, logical])
             if self._ref[blk] > 1:
@@ -404,7 +449,7 @@ class PagedCache:
             raise RuntimeError(
                 f"ensure: row {row} skipped to logical block {logical} "
                 f"with only {held} held")
-        return self._alloc(row, logical)
+        return self._alloc("attn", row, self.tables, logical)
 
     def take_pending_copies(self) -> List[Tuple[int, int]]:
         """Drain the queued COW ``(src, dst)`` pool copies.  The caller
@@ -415,65 +460,83 @@ class PagedCache:
 
     def release(self, row: int):
         """Drop every block reference row ``row`` holds (completion or
-        preemption).  Blocks are refcounted: a block returns to the free
-        list (and leaves the prefix index) only when its last owner
+        preemption).  Attn blocks are refcounted: a block returns to the
+        free list (and leaves the prefix index) only when its last owner
         releases it — a preempted request's shared prefix blocks stay
-        resident for their surviving sharers."""
-        blocks = self._held[row]
+        resident for their surviving sharers.  The row's ring blocks
+        return to the swa free list."""
+        blocks, free = self._held["attn"][row], self._free["attn"]
         for b in reversed(blocks):  # LIFO order matches the old ledger
             if self._ref[b] <= 0:  # guard must survive ``python -O``
-                raise RuntimeError(f"double free of block {b}")
+                raise RuntimeError(f"double free of attn block {b}")
             self._ref[b] -= 1
             if self._ref[b] == 0:
                 self._deindex(b)
-                self._free.append(b)
+                free.append(b)
+        blocks.clear()
+        blocks, free = self._held["swa"][row], self._free["swa"]
+        dup = set(blocks) & set(free)
+        if dup:  # guard must survive ``python -O``
+            raise RuntimeError(f"double free of swa blocks {sorted(dup)}")
+        free.extend(reversed(blocks))
         blocks.clear()
         self.tables[row] = 0
+        self.swa_tables[row] = 0
         self._hit_tokens_row[row] = 0
         self._version += 1
 
     def check(self):
         """Ledger invariants: every block is exactly one of
-        {free, scratch, referenced}; refcounts equal both the held-list
-        multiplicity and the table occupancy (sharing maps a block into
-        several rows' tables, once each); no leak, no double-book; index
-        entries only on live blocks."""
-        free = self._free
-        held = [b for row in self._held for b in row]
-        assert len(set(free)) == len(free), "dup in free list"
-        assert 0 not in free and 0 not in held, "scratch booked"
-        held_n = Counter(held)
-        occupancy = Counter(b for row in range(self.max_rows)
-                            for b in self.tables[row].tolist() if b != 0)
-        free_set = set(free)
-        for b in range(1, self.num_blocks + 1):
-            r = int(self._ref[b])
-            assert r == held_n.get(b, 0), \
-                f"block {b} refcount {r} != held {held_n.get(b, 0)}"
-            assert r == occupancy.get(b, 0), \
-                f"block {b} refcount {r} != table occupancy " \
-                f"{occupancy.get(b, 0)}"
-            assert (b in free_set) == (r == 0), \
-                (f"block {b} ref {r} "
-                 f"{'in' if b in free_set else 'not in'} free list")
-        assert len(free) + len(set(held)) == self.num_blocks, \
-            f"leak ({len(free)} free + {len(set(held))} held)"
+        {free, scratch, referenced}; attn refcounts equal both the
+        held-list multiplicity and the table occupancy (sharing maps a
+        block into several rows' tables, once each); ring blocks are held
+        once; no leak, no double-book; index entries only on live attn
+        blocks."""
+        for g, n in self._groups.items():
+            free = self._free[g]
+            held = [b for row in self._held[g] for b in row]
+            assert len(set(free)) == len(free), f"{g}: dup in free list"
+            assert 0 not in free and 0 not in held, f"{g}: scratch booked"
+            if g == "attn":
+                held_n = Counter(held)
+                occupancy = Counter(
+                    b for row in range(self.max_rows)
+                    for b in self.tables[row].tolist() if b != 0)
+                free_set = set(free)
+                for b in range(1, n + 1):
+                    r = int(self._ref[b])
+                    assert r == held_n.get(b, 0), \
+                        f"attn: block {b} refcount {r} != held {held_n.get(b, 0)}"
+                    assert r == occupancy.get(b, 0), \
+                        (f"attn: block {b} refcount {r} != table "
+                         f"occupancy {occupancy.get(b, 0)}")
+                    assert (b in free_set) == (r == 0), \
+                        (f"attn: block {b} ref {r} "
+                         f"{'in' if b in free_set else 'not in'} free list")
+                assert len(free) + len(set(held)) == n, \
+                    f"attn: leak ({len(free)} free + {len(set(held))} held)"
+            else:
+                assert len(set(held)) == len(held), f"{g}: block shared"
+                assert sorted(free + held) == list(range(1, n + 1)), \
+                    f"{g}: leak ({len(free)} free + {len(held)} held != {n})"
         for blk, key in self._block_key.items():
             assert self._prefix_index.get(key) == blk, \
                 f"index: block {blk} reverse-mapped to a stale key"
             assert self._ref[blk] >= 1, f"index: freed block {blk} indexed"
         assert len(self._prefix_index) == len(self._block_key), \
             "index: forward/reverse maps out of sync"
-        for row in range(self.max_rows):
-            ids = set(self.tables[row].tolist()) - {0}
-            assert ids <= set(self._held[row]), \
-                f"row {row} maps unheld blocks"
+        for table, g in ((self.tables, "attn"), (self.swa_tables, "swa")):
+            for row in range(self.max_rows):
+                ids = set(table[row].tolist()) - {0}
+                assert ids <= set(self._held[g][row]), \
+                    f"{g}: row {row} maps unheld blocks"
 
 
 def paged_reset_row(caches, segs, row: int):
     """Zero decode row ``row``'s SSM state rows in place (the
     reference's ``paged_reset_row``; its cross-KV blocks join with that
-    family).  Attn pools are untouched: stale KV is position-masked."""
+    family).  Attn and swa pools are untouched: stale KV is
+    position-masked."""
     for seg, c in zip(segs, caches):
         if seg.kind == "mamba1":
             for a in c.values():
@@ -481,13 +544,19 @@ def paged_reset_row(caches, segs, row: int):
     return caches
 
 
-def paged_copy_blocks(caches, src, dst):
+def paged_copy_blocks(caches, src, dst, *, has_swa: bool = False):
     """Apply queued copy-on-write pool copies in place.
 
     ``src``/``dst`` are equal-length int tensors of physical pool block
     ids (from :meth:`PagedCache.take_pending_copies`); each dst block
     becomes a copy of its src block across every attn k/v leaf (sharing
-    is gated off for SSM models, so their state never needs copying)."""
+    is gated off for SSM models, so their state never needs copying).
+    Sharing is gated off for sliding-window models too, whose ring pools
+    hold other block ids: ``has_swa`` (the ledger's) asserts that gate
+    held."""
+    if has_swa:  # guard must survive ``python -O``
+        raise RuntimeError("copy-on-write on a sliding-window model "
+                           "(sharing is gated off)")
     for c in caches:
         for name in ("k", "v"):
             if name in c:

@@ -1,7 +1,8 @@
 """Blocks and segment stacking.
 
-Port of ``repro/models/transformer.py`` for ``attn`` and ``mamba1``
-blocks in the ``decode`` and ``chunk`` modes, over paged pools
+Port of ``repro/models/transformer.py`` for ``attn``, ``swa``
+(sliding-window attention; the same leaves and MLP as ``attn``) and
+``mamba1`` blocks in the ``decode`` and ``chunk`` modes, over paged pools
 (``paged`` given) or dense slot caches (``paged=None``).  A model is a
 ``block_pattern``; contiguous runs of one kind are *segments*, whose
 parameters are stacked along a leading layer dim as in the reference.
@@ -23,7 +24,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
 MODES = ("decode", "chunk")
-KINDS = ("attn", "mamba1")          # block kinds the port runs
+KINDS = ("attn", "swa", "mamba1")   # block kinds the port runs
 
 
 @dataclass(frozen=True)
@@ -67,7 +68,7 @@ def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
     ``block_init`` vmapped over a segment)."""
     d = cfg.d_model
     p = {"ln1": {"scale": torch.ones((n, d), dtype=dtype, device=device)}}
-    if kind == "attn":
+    if kind in ("attn", "swa"):
         p["attn"] = attn_mod.attention_init(generator, cfg, dtype, device, n)
     elif kind == "mamba1":
         p["mamba"] = ssm_mod.mamba1_init(generator, cfg, dtype, device, n)
@@ -93,9 +94,9 @@ def init_segments(generator, cfg, dtype, device) -> dict:
 def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
                 pos, cache: dict, paged: Optional[dict] = None,
                 qformat: Optional[str] = None):
-    """Apply one ``attn`` or ``mamba1`` block to the residual stream
-    ``x`` plus ``delta``, the previous block's output not yet added to
-    it (None before the first block).  ``pos`` is a (B,) int32 tensor in
+    """Apply one ``attn``, ``swa`` or ``mamba1`` block to the residual
+    stream ``x`` plus ``delta``, the previous block's output not yet added
+    to it (None before the first block).  ``pos`` is a (B,) int32 tensor in
     decode mode; in chunk mode an ``int`` (one request's prefill chunk)
     or a (B,) tensor (B rows at their own positions, the draft-verify
     round), which the attention passes on to its kernels without reading

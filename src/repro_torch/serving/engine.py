@@ -752,7 +752,7 @@ class PagedServingEngine(_PagedEngine):
                            device=self.device)
         dst = torch.tensor([d for _, d in pairs], dtype=torch.long,
                            device=self.device)
-        paged_copy_blocks(self.caches, src, dst)
+        paged_copy_blocks(self.caches, src, dst, has_swa=self.pc.has_swa)
 
     def _reset_row(self, row: int):
         paged_reset_row(self.caches, self.model.segments, row)

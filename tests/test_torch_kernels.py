@@ -37,7 +37,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     paged_chunk_attention, paged_chunk_attention_plain,
-    paged_prefill_attention, paged_prefill_attention_plain, prefill_body)
+    paged_prefill_attention, paged_prefill_attention_plain, prefill_body,
+    ring_chunk_attention, ring_chunk_attention_plain, ring_positions)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
@@ -412,6 +413,79 @@ def test_paged_prefill_at_pos_matches_chunk_path(J, pos, h, kv):
 
 
 # ----------------------------------------------------------------------
+# ring chunk (the flash kernel's window form)
+# ----------------------------------------------------------------------
+def _ring_inputs(rng, pos, c, w, h, kv, d, bs):
+    """A sequence of pos + C tokens' q / k / v, the ring of w slots as a
+    request at pos holds it (slot j: the latest position p < pos with
+    p % w == j, stale noise where none was written yet) in shuffled
+    blocks of bs, and the chunk's own keys."""
+    n = pos + c
+    q = rng.standard_normal((n, h, d), dtype=np.float32)
+    k = rng.standard_normal((n, kv, d), dtype=np.float32)
+    v = rng.standard_normal((n, kv, d), dtype=np.float32)
+    nb = -(-w // bs)
+    ring_k = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    ring_v = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    p_old = ring_positions(pos, w, 0, "cpu").numpy()
+    live = p_old >= 0
+    ring_k[:w][live], ring_v[:w][live] = k[p_old[live]], v[p_old[live]]
+    table = (rng.permutation(nb + 1)[:nb] + 1).astype(np.int32)
+    kp = rng.standard_normal((nb + 2, bs, kv, d), dtype=np.float32)
+    vp = rng.standard_normal((nb + 2, bs, kv, d), dtype=np.float32)
+    kp[table], vp[table] = (ring_k.reshape(nb, bs, kv, d),
+                            ring_v.reshape(nb, bs, kv, d))
+    return q, k, v, kp, vp, table
+
+
+@pytest.mark.parametrize("pos,c,h,kv", [(0, 16, 4, 4), (20, 12, 6, 2),
+                                        (31, 17, 4, 4), (70, 26, 6, 2),
+                                        (48, 48, 6, 2)])
+def test_ring_chunk_is_windowed_flash_attention(J, pos, c, h, kv):
+    """The ring form's plain version computes the last C rows of
+    flash_attention_pallas(causal=True, window=w) over the whole
+    sequence [0, pos + C) (a whole number of the Pallas kernel's blocks
+    of 16): the ring holds the w positions before the chunk (stale slots
+    masked), the chunk its own keys; at pos 0 no ring key is valid, and
+    with C > w the chunk's early keys leave the window of its late
+    queries."""
+    w, d, bs = 32, 32, 16
+    rng = np.random.default_rng(9 + pos)
+    q, k, v, kp, vp, table = _ring_inputs(rng, pos, c, w, h, kv, d, bs)
+    got = ring_chunk_attention_plain(
+        t(q[pos:]), t(kp), t(vp), t(table), t(k[pos:]), t(v[pos:]), pos,
+        w).numpy()
+    qj = J.jnp.asarray(np.transpose(q, (1, 0, 2))[None])
+    kj = J.jnp.asarray(np.transpose(k, (1, 0, 2))[None])
+    vj = J.jnp.asarray(np.transpose(v, (1, 0, 2))[None])
+    want = np.transpose(np.asarray(
+        J.flash_attention_pallas(qj, kj, vj, causal=True, window=w,
+                                 block_q=16, block_k=16, interpret=True))[0],
+        (1, 0, 2))[pos:]
+    assert _err(got, want) < TOL
+    oracle = np.transpose(np.asarray(J.ref.flash_attention_ref(
+        qj, kj, vj, causal=True, window=w))[0], (1, 0, 2))[pos:]
+    assert _err(got, oracle) < TOL
+
+
+def test_ring_wrapper_refuses_other_devices_and_counts_no_cpu_launches():
+    _build.reset_launches()
+    rng = np.random.default_rng(10)
+    q, k, v, kp, vp, table = _ring_inputs(rng, 40, 8, 32, 4, 2, 16, 16)
+    ring_chunk_attention(t(q[40:]), t(kp), t(vp), t(table), t(k[40:]),
+                         t(v[40:]), 40, 32)
+    assert _build.launches["ring_chunk_attention"] == 0
+    q = torch.empty((4, 2, 8), device="meta")
+    pool = torch.empty((3, 16, 2, 8), device="meta")
+    kn = torch.empty((4, 2, 8), device="meta")
+    with pytest.raises(ValueError):
+        ring_chunk_attention(q, pool, pool,
+                             torch.empty((2,), dtype=torch.int32,
+                                         device="meta"), kn, kn, 0, 32)
+    assert all(n == 0 for n in _build.launches.values())
+
+
+# ----------------------------------------------------------------------
 # selective scan
 # ----------------------------------------------------------------------
 def _scan_inputs(rng, b, t_, di, ds):
@@ -683,7 +757,7 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
     cuda_core body forced, each counted once under its body."""
     rng = np.random.default_rng(8)
     dt = getattr(torch, dtype)
-    for rows, d in ((8, 960), (128, 960), (5, 100)):
+    for rows, d in ((8, 960), (128, 960), (8, 3840), (5, 100)):
         x = t(rng.standard_normal((rows, d), dtype=np.float32)).to(cuda_device, dt)
         s = t(rng.standard_normal(d, dtype=np.float32)).to(cuda_device, dt)
         n0 = _build.launches["rmsnorm"]
@@ -699,9 +773,11 @@ def test_cuda_rmsnorm_matches_plain(cuda_device, dtype):
         _card_close(got, rmsnorm_plain(x, s, 1e-5), dtype)
 
 
-# the kernels phase's shapes, ragged widths, and one-warp rows 4 a block
+# the kernels phase's shapes (gemma3-12b's 3840: a partial second
+# 16-byte access a lane), ragged widths, and one-warp rows 4 a block
 ADD_NORM_CARD_SHAPES = [(8, 960), (128, 960), (8, 4096), (128, 4096),
-                        (5, 100), (3, 3000), (1000, 128)]
+                        (8, 3840), (128, 3840), (5, 100), (3, 3000),
+                        (1000, 128)]
 
 
 def _card_norm_inputs(cuda_device, rng, rows, d, dt, offset):
@@ -1139,6 +1215,90 @@ def test_cuda_selective_scan_state_lanes_h_equals_previous_body(
     for _ in range(3):
         y2, h2 = selective_scan(*args)
         assert torch.equal(y2, y) and torch.equal(h2, h)
+
+
+# gemma3-12b's shapes (C 128, H 16, KV 8, hd 256, w 1024) at pos 0, 512
+# (ring partly filled) and 3000 (wrapped), mixtral-8x7b's (H 32, KV 8,
+# hd 128, w 4096) wrapped, a chunk longer than the ring, and small ragged
+# shapes (hd off the 4-wide groups, G = 3)
+RING_CASES = [(0, 128, 16, 8, 256, 1024), (512, 128, 16, 8, 256, 1024),
+              (3000, 128, 16, 8, 256, 1024), (5000, 128, 32, 8, 128, 4096),
+              (45, 64, 6, 2, 32, 32), (7, 5, 6, 2, 30, 32),
+              (100, 33, 4, 4, 64, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos,c,h,kv,d,w", RING_CASES)
+def test_cuda_ring_chunk_matches_plain(cuda_device, dtype, pos, c, h, kv, d,
+                                       w):
+    """The ring kernel against its plain version on the card, one launch
+    counted on its body; the same keys in blocks of 32, and as a dense
+    one-block ring of w slots, give the same bits as blocks of 16."""
+    rng = np.random.default_rng(31 + pos)
+    dt = getattr(torch, dtype)
+    q, k, v, kp, vp, table = _ring_inputs(rng, pos, c, w, h, kv, d, 16)
+
+    def card(a):
+        return t(np.ascontiguousarray(a)).to(cuda_device, dt)
+    args = (card(q[pos:]), card(kp), card(vp), t(table).to(cuda_device),
+            card(k[pos:]), card(v[pos:]), pos, w)
+    n0 = _build.bodies["ring_chunk_attention"]["cuda_core"]
+    got = ring_chunk_attention(*args)
+    assert _build.bodies["ring_chunk_attention"]["cuda_core"] == n0 + 1
+    assert torch.isfinite(got.float()).all()
+    _card_close(got, ring_chunk_attention_plain(*args), dtype)
+    ring = [t(a.reshape(-1, kv, d)[np.concatenate(
+        [np.arange(b * 16, b * 16 + 16) for b in table])][:w])
+        for a in (kp, vp)]
+    nb32 = -(-w // 32)
+    pools32 = []
+    for r in ring:
+        pool = torch.zeros((nb32 + 1, 32, kv, d))
+        pool[1:].reshape(-1, kv, d)[:w] = r
+        pools32.append(pool.to(cuda_device, dt))
+    table32 = torch.arange(1, nb32 + 1, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got, ring_chunk_attention(
+        args[0], *pools32, table32, *args[4:]))
+    dense = [r[None].to(cuda_device, dt) for r in ring]
+    assert torch.equal(got, ring_chunk_attention(
+        args[0], *dense, torch.zeros(1, dtype=torch.int32,
+                                     device=cuda_device), *args[4:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["paged", "dense"])
+def test_cuda_ring_decode_at_mixtral_heads(cuda_device, dtype, kernel):
+    """A decode over mixtral-8x7b's ring (H 32, KV 8, hd 128, w 4096 in
+    blocks of 16) as the attention layer makes it: the decode kernels at
+    pos clamped at w - 1, for rows before the wrap, at w - 1 and past it.
+    In bf16 the launch takes the mma body (hd 128, G 4)."""
+    rng = np.random.default_rng(47)
+    b, h, kv, d, w, bs = 4, 32, 8, 128, 4096, 16
+    pos = np.minimum(np.array([100, w - 1, w, 9000], np.int32), w - 1)
+    q = rng.standard_normal((b, h, d), dtype=np.float32)
+    dt = getattr(torch, dtype)
+    if kernel == "paged":
+        nb = w // bs
+        kp = rng.standard_normal((b * nb + 1, bs, kv, d), dtype=np.float32)
+        vp = rng.standard_normal((b * nb + 1, bs, kv, d), dtype=np.float32)
+        tables = (rng.permutation(b * nb).reshape(b, nb) + 1).astype(np.int32)
+        args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
+            t(a).to(cuda_device) for a in (tables, pos)]
+        fn, plain = paged_decode_attention, paged_decode_attention_plain
+    else:
+        kc = rng.standard_normal((b, w, kv, d), dtype=np.float32)
+        vc = rng.standard_normal((b, w, kv, d), dtype=np.float32)
+        args = [t(a).to(cuda_device, dt) for a in (q, kc, vc)] + [
+            t(pos).to(cuda_device)]
+        fn, plain = dense_decode_attention, dense_decode_attention_plain
+    name = f"{kernel}_decode_attention"
+    body = "mma" if dtype == "bfloat16" else "cuda_core"
+    n0 = _build.bodies[name][body]
+    got = fn(*args)
+    assert _build.bodies[name][body] == n0 + 1
+    _card_close(got, plain(*args), dtype)
 
 
 # ----------------------------------------------------------------------
