@@ -52,10 +52,14 @@ one JSON line:
    in blocks of 32 and as a dense one-block ring as in blocks of 16, and
    prints both halves of its bound; its library call is
    ``F.scaled_dot_product_attention`` over ``[gathered ring ; chunk]``
-   with the boolean window mask.  The attention kernels also run, in
-   bfloat16 on their ``cuda_core`` bodies, at gemma3's hd 256: the
-   one-row prefill (C 128 at pos 1024 and 2048) and both decode kernels
-   (B 8, pos 5-2000, over linear rows and over rings).  An empty kernel
+   with the boolean window mask.  The attention kernels also run at
+   gemma3's hd 256: the one-row prefill (C 128 at pos 1024 and 2048)
+   and both decode kernels (B 8, pos 5-2000, over linear rows and over
+   rings) in bfloat16 on their wide ``mma`` bodies, timed in turns
+   against ``cuda_core``, the prefill's bits the same in blocks of 16,
+   32 and one dense block and the dense decode's the paged decode's on
+   the same rows; and in float32 on ``cuda_core`` (prefill at pos 1024,
+   decode over linear rows).  An empty kernel
    (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
    the kernel list) gives the floor one launch costs, at 1 block and at
    the decode scan's grid;
@@ -105,21 +109,24 @@ one JSON line:
    past the window) and ``ServingEngine`` (``gemma_dense_bf16``, its
    share of tokens equal to the paged run's printed); a prefill chunk
    launches the ring form 40 times and the paged prefill 8 times, a
-   decode iteration the decode kernel 48 times, every one on
-   ``cuda_core`` (hd 256), checked exactly.  Which body each config's
-   attention launches take is fixed in ``ATTN_BODY`` (smollm-360m's on
-   ``mma``, gemma3-12b's on ``cuda_core``), and the wrappers' rules must
-   agree with it.
+   decode iteration the decode kernel 48 times, checked exactly: the
+   paged prefill and the decode on the wide ``mma`` bodies (hd 256),
+   the ring form on ``cuda_core``.  Which body each attention kernel's
+   launches take is fixed per config in ``ATTN_BODY`` (``mma`` for all
+   four two-body attention kernels of smollm-360m and gemma3-12b), and
+   the wrappers' rules must agree with it.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba and gemma3 paged runs; two steady verify rounds after
    ``paged_spec``):
    two steady decode macro-steps timed without
    the profiler, then the same window again under torch.profiler for
-   the device's busy time; the idle share is one minus busy over the
+   the device's busy time, the top kernels and the port's own kernels
+   by device time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run and the
    falcon-mamba paged run, the same for a prefill window: 8 requests of
    385 tokens admitted at once, 24 chunks of 128, with the device busy
-   time per chunk.  The bf16 decode and prefill windows, the int8 and
+   time per chunk (gemma3: 8 requests of 1153 tokens, 72 chunks).  The
+   bf16 smollm and gemma3 decode and prefill windows, the int8 and
    int4 decode windows and both falcon-mamba windows run again with the
    previous (CUDA-core) body of the paged decode, the paged prefill,
    the int8 or int4 quant matmul, or the selective scan, and the bf16
@@ -193,13 +200,20 @@ MAIN_DTYPE = {"selective_scan": "float32"}
 MAIN_BODY = {"selective_scan": ("state_lanes",),
              "rmsnorm": ("add_norm", "norm"),
              "ring_chunk_attention": ("cuda_core",)}   # the others: ("mma",)
-#: the body of every attention launch of each served config, fixed here:
-#: gemma3-12b's hd 256 is past every tensor-core rule, so all its
-#: attention runs on cuda_core; every other served config's attention
-#: takes mma.  ``main_bodies`` checks that the wrappers' rules agree.
-ATTN_BODY = {"gemma3-12b": "cuda_core"}
-ATTN_KERNELS = ("paged_prefill_attention", "paged_chunk_attention",
-                "paged_decode_attention", "dense_decode_attention")
+#: the rule that names each two-body attention kernel's body
+ATTN_RULE = {"paged_prefill_attention": "prefill_body",
+             "paged_chunk_attention": "prefill_body",
+             "paged_decode_attention": "decode_body",
+             "dense_decode_attention": "decode_body"}
+#: the body of every launch of each attention kernel, per served config,
+#: fixed here (a config not named takes mma everywhere): gemma3-12b's hd
+#: 256 takes the wide mma bodies of the paged prefill, the batched chunk
+#: and both decodes; its ring form (one body) stays cuda_core in
+#: ``MAIN_BODY``.  ``main_bodies`` checks that the wrappers' rules agree.
+ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
+                            "paged_chunk_attention": "mma",
+                            "paged_decode_attention": "mma",
+                            "dense_decode_attention": "mma"}}
 #: the scan's issue bound: the thread instructions one state update
 #: takes as the card compiles it (cuobjdump of csrc/selective_scan.cu:
 #: dt*a, the accurate expf's eight, decay*h, dx*B, their sum, h*C and
@@ -664,8 +678,9 @@ def _bounds(nbytes, flops, dtype) -> dict:
 
 
 def gemma_cases(dev) -> list:
-    """The attention kernels at gemma3-12b's shapes (hd 256, past the
-    tensor-core bodies' rules, so every launch takes ``cuda_core``).
+    """The attention kernels at gemma3-12b's shapes (hd 256: the ring
+    form on its one ``cuda_core`` body, the others in bf16 on their wide
+    ``mma`` bodies and in float32 on ``cuda_core``).
 
     ``ring_chunk_attention``, the flash kernel's window form, in float32
     and bfloat16 at pos 0 (no ring key valid), 512 (ring partly filled)
@@ -673,10 +688,15 @@ def gemma_cases(dev) -> list:
     same ring in blocks of 32 and as a dense one-block ring bit-equal to
     blocks of 16, and timed, with ``F.scaled_dot_product_attention`` over
     ``[gathered ring ; chunk]`` and the boolean window mask as the library
-    call.  Then, in bfloat16, the one-row paged prefill (C 128 at pos
-    1024 and 2048) and both decode kernels (B 8, pos 5-2000) over linear
-    rows of 2176 slots and over rings of 1024 (at the pos the model
-    clamps to w - 1), as the gemma3 serve runs launch them."""
+    call.  Then the one-row paged prefill (C 128) in bfloat16 at pos
+    1024 and 2048, on ``mma`` against ``cuda_core`` in turns, its bits
+    the same in blocks of 16, 32 and one dense block, and in float32 at
+    pos 1024 on ``cuda_core``; and both decode kernels (B 8, pos 5-2000)
+    in bfloat16 over linear rows of 2176 slots and over rings of 1024 (at
+    the pos the model clamps to w - 1), on ``mma`` against ``cuda_core``
+    in turns, the dense kernel bit-equal to the paged one on the same
+    rows, and in float32 over linear rows on ``cuda_core``: as the gemma3
+    serve runs launch them.  Each launch is checked on its body."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
@@ -760,43 +780,87 @@ def gemma_cases(dev) -> list:
                 nbytes, flops, extra={"body": "cuda_core",
                                       **_bounds(nbytes, flops, dname)}))
 
-    # the bf16 rows gemma3 runs on cuda_core: the attn layers' prefill ...
-    dname, dtype = "bfloat16", torch.bfloat16
-    es = 2
+    # the attn layers' prefill at hd 256: bf16 on the wide mma body, timed
+    # in turns against the previous cuda_core body, its bits the same in
+    # blocks of 16, 32 and one dense block; float32 still on cuda_core
     max_len = GEMMA["max_len"]
-    nb = max_len // BS
-    kp = t(rng.standard_normal((nb + 1, BS, KV, HD)), dtype)
-    vp = t(rng.standard_normal((nb + 1, BS, KV, HD)), dtype)
-    table = torch.from_numpy((rng.permutation(nb) + 1).astype(np.int32)).to(
-        dev)
-    q = t(rng.standard_normal((C, H, HD)), dtype)
-    for p0 in (1024, 2048):
-        n_slots = p0 + C
-        kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
-        vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
-        kc, vc = kc[None].contiguous(), vc[None].contiguous()
-        qs = q.permute(1, 0, 2)[None].contiguous()
-        cmask = (torch.arange(n_slots, device=dev)[None, :]
-                 <= p0 + torch.arange(C, device=dev)[:, None])
-        nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
-                  + 4 * -(-n_slots // BS))
-        flops = 4 * H * HD * sum(p0 + i + 1 for i in range(C))
-        cases.append(_case(
-            "paged_prefill_attention", dname,
-            {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
-            paged_prefill_attention(q, kp, vp, table, p0),
-            paged_prefill_attention_plain(q, kp, vp, table, p0),
-            lambda: paged_prefill_attention(q, kp, vp, table, p0),
-            lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
-            lambda: F.scaled_dot_product_attention(
-                qs, kc, vc, attn_mask=cmask, enable_gqa=True),
-            nbytes, flops, extra={"body": "cuda_core"}))
+    k_rows = rng.standard_normal((max_len, KV, HD)).astype(np.float32)
+    v_rows = rng.standard_normal((max_len, KV, HD)).astype(np.float32)
+    q_np = rng.standard_normal((C, H, HD)).astype(np.float32)
+    layouts = {}
+    for bs in (BS, 32, max_len):
+        nb = max_len // bs
+        table_np = (rng.permutation(nb) + 1).astype(np.int32)
+        pools = []
+        for rows in (k_rows, v_rows):
+            pool = np.zeros((nb + 1, bs, KV, HD), np.float32)
+            pool[table_np] = rows.reshape(nb, bs, KV, HD)
+            pools.append(pool)
+        layouts[bs] = pools + [table_np]
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+        body = "mma" if dname == "bfloat16" else "cuda_core"
+        kp, vp = (t(a, dtype) for a in layouts[BS][:2])
+        table = torch.from_numpy(layouts[BS][2]).to(dev)
+        q = t(q_np, dtype)
+        for p0 in ((1024, 2048) if dname == "bfloat16" else (1024,)):
+            out = _on_body("paged_prefill_attention", body,
+                           lambda: paged_prefill_attention(q, kp, vp, table,
+                                                           p0))
+            if dname == "bfloat16":
+                others = [paged_prefill_attention(
+                    q, t(lay[0], dtype), t(lay[1], dtype),
+                    torch.from_numpy(lay[2]).to(dev), p0)
+                    for lay in (layouts[32], layouts[max_len])]
+                equal = [torch.equal(out, o) for o in others]
+                emit({"phase": "kernels", "kernel": "paged_prefill_attention",
+                      "check": "hd 256: blocks of 32 and one dense block "
+                               "bit-equal to blocks of 16", "dtype": dname,
+                      "pos": p0, "blocks_equal": equal[0],
+                      "dense_equal": equal[1]})
+                if not all(equal):
+                    raise AssertionError(f"paged_prefill_attention hd 256 pos "
+                                         f"{p0}: blocks of 32 equal "
+                                         f"{equal[0]}, one dense block equal "
+                                         f"{equal[1]}")
+            n_slots = p0 + C
+            kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
+            vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
+            kc, vc = kc[None].contiguous(), vc[None].contiguous()
+            qs = q.permute(1, 0, 2)[None].contiguous()
+            cmask = (torch.arange(n_slots, device=dev)[None, :]
+                     <= p0 + torch.arange(C, device=dev)[:, None])
+            nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                      + 4 * -(-n_slots // BS))
+            flops = 4 * H * HD * sum(p0 + i + 1 for i in range(C))
+            cases.append(_case(
+                "paged_prefill_attention", dname,
+                {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
+                out, paged_prefill_attention_plain(q, kp, vp, table, p0),
+                lambda: paged_prefill_attention(q, kp, vp, table, p0),
+                lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
+                lambda: F.scaled_dot_product_attention(
+                    qs, kc, vc, attn_mask=cmask, enable_gqa=True),
+                nbytes, flops,
+                prev=(lambda: paged_prefill_attention(
+                    q, kp, vp, table, p0, _body="cuda_core"))
+                if body == "mma" else None,
+                extra={"body": body, **_bounds(nbytes, flops, dname)}))
 
-    # ... and the decode kernels over linear rows and over rings
+    # ... and the decode kernels over linear rows and over rings (bf16 on
+    # the wide mma body, against cuda_core in turns; the dense cache holds
+    # the paged rows' own K/V, and the two kernels must give the same
+    # bits), and over linear rows in float32 on cuda_core
     B = len(GEMMA_DECODE_POS)
     pos_np = np.asarray(GEMMA_DECODE_POS, np.int32)
-    qd = t(rng.standard_normal((B, H, HD)), dtype)
-    for ring in (False, True):
+    qd_np = rng.standard_normal((B, H, HD)).astype(np.float32)
+    for dname, ring in (("bfloat16", False), ("bfloat16", True),
+                        ("float32", False)):
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+        body = "mma" if dname == "bfloat16" else "cuda_core"
+        qd = t(qd_np, dtype)
         s_len = W if ring else max_len
         kpos_np = np.minimum(pos_np, s_len - 1)   # the model's clamp
         pos = torch.from_numpy(kpos_np).to(dev)
@@ -809,39 +873,67 @@ def gemma_cases(dev) -> list:
         vpool = t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
         tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(
             B, nbs) + 1).astype(np.int32)).to(dev)
-        kg = paged_gather(kpool, tables).permute(0, 2, 1, 3).contiguous()
-        vg = paged_gather(vpool, tables).permute(0, 2, 1, 3).contiguous()
+        kc = paged_gather(kpool, tables).contiguous()     # (B, S, KV, hd)
+        vc = paged_gather(vpool, tables).contiguous()
+        kt = kc.permute(0, 2, 1, 3).contiguous()
+        vt = vc.permute(0, 2, 1, 3).contiguous()
         shape = {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS,
                  "slots": s_len, "ring": ring, "pos": pos_np.tolist(),
                  "kernel_pos": kpos_np.tolist()}
+        paged = _on_body("paged_decode_attention", body,
+                         lambda: paged_decode_attention(qd, kpool, vpool,
+                                                        tables, pos))
+        dense = _on_body("dense_decode_attention", body,
+                         lambda: dense_decode_attention(qd, kc, vc, pos))
+        equal = torch.equal(paged, dense)
+        emit({"phase": "kernels", "kernel": "dense_decode_attention",
+              "check": "hd 256: dense bit-equal to paged on the same rows",
+              "dtype": dname, "ring": ring, "equal": equal})
+        if not equal:
+            raise AssertionError(f"decode hd 256 {dname} ring {ring}: the "
+                                 f"dense kernel's bits differ from the "
+                                 f"paged kernel's")
+        nbytes_paged = (2 * B * H * HD * es + 2 * n_keys * KV * HD * es
+                        + 4 * (n_keys // BS + B) + 4 * B)
+        nbytes_dense = 2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B
+        flops = 4 * H * HD * n_keys
         cases.append(_case(
-            "paged_decode_attention", dname, shape,
-            paged_decode_attention(qd, kpool, vpool, tables, pos),
+            "paged_decode_attention", dname, shape, paged,
             paged_decode_attention_plain(qd, kpool, vpool, tables, pos),
             lambda: paged_decode_attention(qd, kpool, vpool, tables, pos),
             lambda: paged_decode_attention_plain(qd, kpool, vpool, tables,
                                                  pos),
             lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kg, vg, attn_mask=mask, enable_gqa=True),
-            2 * B * H * HD * es + 2 * n_keys * KV * HD * es
-            + 4 * (n_keys // BS + B) + 4 * B,
-            4 * H * HD * n_keys, extra={"body": "cuda_core"}))
-        kc = t(rng.standard_normal((B, s_len, KV, HD)), dtype)
-        vc = t(rng.standard_normal((B, s_len, KV, HD)), dtype)
-        kt = kc.permute(0, 2, 1, 3).contiguous()
-        vt = vc.permute(0, 2, 1, 3).contiguous()
+                qd[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+            nbytes_paged, flops,
+            prev=(lambda: paged_decode_attention(
+                qd, kpool, vpool, tables, pos, _body="cuda_core"))
+            if body == "mma" else None, extra={"body": body}))
         cases.append(_case(
-            "dense_decode_attention", dname,
-            {**shape, "S": s_len},
-            dense_decode_attention(qd, kc, vc, pos),
+            "dense_decode_attention", dname, {**shape, "S": s_len}, dense,
             dense_decode_attention_plain(qd, kc, vc, pos),
             lambda: dense_decode_attention(qd, kc, vc, pos),
             lambda: dense_decode_attention_plain(qd, kc, vc, pos),
             lambda: F.scaled_dot_product_attention(
                 qd[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
-            2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B,
-            4 * H * HD * n_keys, extra={"body": "cuda_core"}))
+            nbytes_dense, flops,
+            prev=(lambda: dense_decode_attention(qd, kc, vc, pos,
+                                                 _body="cuda_core"))
+            if body == "mma" else None, extra={"body": body}))
     return cases
+
+
+def _on_body(kernel: str, body: str, fn):
+    """``fn()``, which must launch ``kernel`` once, on ``body``."""
+    from repro_torch.kernels import _build
+    before = dict(_build.bodies[kernel])
+    out = fn()
+    want = {k: n + (k == body) for k, n in before.items()}
+    if _build.bodies[kernel] != want:
+        raise AssertionError(f"{kernel}: launches by body went from "
+                             f"{before} to {_build.bodies[kernel]}, expected "
+                             f"one on {body}")
+    return out
 
 
 def launch_floor(dev) -> list:
@@ -1234,22 +1326,25 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
 
 
 def main_bodies(cfg) -> dict:
-    """``MAIN_BODY`` with ``cfg``'s attention kernels on the body
-    ``ATTN_BODY`` fixes for it; raises if the wrappers' rules would send
-    the config's launches elsewhere."""
+    """``MAIN_BODY`` with each of ``cfg``'s attention kernels on the body
+    ``ATTN_BODY`` fixes for it; raises if a wrapper's rule would send the
+    config's launches elsewhere."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.decode_attention import decode_body
     from repro_torch.kernels.flash_attention import prefill_body
     if not cfg.n_kv_heads:
         return MAIN_BODY
-    body = ATTN_BODY.get(cfg.name, "mma")
     dtype = torch_dtype(cfg.dtype)
-    rules = {prefill_body(dtype, cfg.head_dim),
-             decode_body(dtype, cfg.head_dim, cfg.n_heads // cfg.n_kv_heads)}
-    if rules != {body}:
+    rules = {"prefill_body": prefill_body(dtype, cfg.head_dim),
+             "decode_body": decode_body(dtype, cfg.head_dim,
+                                        cfg.n_heads // cfg.n_kv_heads)}
+    fixed = ATTN_BODY.get(cfg.name, {})
+    bodies = {k: fixed.get(k, "mma") for k in ATTN_RULE}
+    named = {k: rules[rule] for k, rule in ATTN_RULE.items()}
+    if named != bodies:
         raise AssertionError(f"{cfg.name}: the wrappers' rules name the "
-                             f"bodies {sorted(rules)}, expected {body}")
-    return {**MAIN_BODY, **{k: (body,) for k in ATTN_KERNELS}}
+                             f"bodies {named}, expected {bodies}")
+    return {**MAIN_BODY, **{k: (b,) for k, b in bodies.items()}}
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
@@ -1450,10 +1545,12 @@ def serve_gemma(dev) -> dict:
     the card from the seed): 8 requests of 256-2048 tokens (six past the
     window) through ``PagedServingEngine`` and its decode and prefill
     profiles (prompts past the window, so both windows run the wrapped
-    ring), then the same 8 through ``ServingEngine`` on the same weights,
-    with its share of tokens equal to the paged run's.  Every attention
-    launch takes ``cuda_core`` (hd 256).  Returns each run's launch
-    counts."""
+    ring), both windows again with the previous (``cuda_core``) body of
+    the paged decode or the paged prefill, then the same 8 through
+    ``ServingEngine`` on the same weights, with its share of tokens equal
+    to the paged run's.  Every paged-prefill and decode launch of the
+    serve runs takes the wide ``mma`` body (hd 256), every ring-form
+    launch ``cuda_core``.  Returns each run's launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1474,6 +1571,14 @@ def serve_gemma(dev) -> dict:
                    prompt_len=1100)
     profile_prefill(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
                     prompt_len=1153)
+    with previous_body("paged_decode_attention"):
+        profile_decode(cfg, eng.params, kw, dev,
+                       label="gemma_paged_bf16, previous decode body",
+                       prompt_len=1100)
+    with previous_body("paged_prefill_attention"):
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="gemma_paged_bf16, previous prefill body",
+                        prompt_len=1153)
     params = eng.params
     del eng
     gc.collect()
@@ -1556,6 +1661,16 @@ def previous_body(kernel: str):
             setattr(module, name, wrapper)
 
 
+def _port_kernels(kernels) -> list:
+    """The port's own kernels of a profile (each in an anonymous
+    namespace of ``csrc/``), by device time: the per-kernel split of a
+    window's busy time."""
+    return [{"name": e.key[:70], "count": e.count,
+             "ms": e.self_device_time_total / 1e3}
+            for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+            if "anonymous namespace" in e.key]
+
+
 def profile_decode(cfg, params, kw, dev, label: str,
                    prompt_len: int = 256) -> dict:
     """Where decode time goes in two steady macro-steps of 8 rows with
@@ -1613,7 +1728,8 @@ def profile_decode(cfg, params, kw, dev, label: str,
            "device_launches_per_decode_iter": n_launch / iters,
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
-                           for e in top]}
+                           for e in top],
+           "port_kernels": _port_kernels(kernels)}
     emit(res)
     return res
 
@@ -1674,7 +1790,8 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
            "device_launches_per_round": n_launch / rounds,
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
-                           for e in top]}
+                           for e in top],
+           "port_kernels": _port_kernels(kernels)}
     emit(res)
     return res
 
@@ -1732,7 +1849,8 @@ def profile_prefill(cfg, params, kw, dev, label: str,
            "device_launches_per_chunk": sum(e.count for e in kernels) / chunks,
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
-                           for e in top]}
+                           for e in top],
+           "port_kernels": _port_kernels(kernels)}
     emit(res)
     return res
 

@@ -13,8 +13,8 @@
 //   tiles of kDecodeTile with a running softmax (m, l, acc) in f32 on the
 //   CUDA cores.  float32 stays here because the card's float32 streams
 //   must equal the CPU's, and tensor cores would round f32 inputs.
-// * decode_split, the mma body (bf16, hd % 16 == 0, hd <= 128, G <= 16,
-//   16-byte aligned tensors): below.
+// * decode_split, the mma body (bf16, 16-byte aligned tensors, and hd %
+//   16 == 0 up to 128 with G <= 16, or hd 256 with G <= 8): below.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -142,8 +142,9 @@ __device__ __forceinline__ void decode_row(const T* __restrict__ q,
 // What the design does about it:
 // * Split the slot range across a cluster.  Each (row, KV head) is a
 //   thread-block cluster of `splits` CTAs (<= 8, portable), named by the
-//   wrapper's decode_splits(B, KV, nb * bs) so the card holds about two
-//   CTAs per SM (40 pairs -> 7 x 40 = 280 CTAs).  Each CTA reads pos on
+//   wrapper's decode_splits(B, KV, nb * bs, hd) so the card holds about
+//   two CTAs per SM (40 pairs -> 7 x 40 = 280 CTAs; at hd 256, one CTA
+//   an SM, the most whose clusters all fit at once).  Each CTA reads pos on
 //   the device and takes a share of the row's logical slots [0, klast]
 //   cut at 16-slot chunks: chunks [r * per, (r + 1) * per) of
 //   ceil((klast + 1) / 16), per = ceil(chunks / splits).  Launch
@@ -177,6 +178,23 @@ __device__ __forceinline__ void decode_row(const T* __restrict__ q,
 // Every cut is by logical slot, never by block, and the merge order is
 // fixed, so the bits depend neither on bs, nor on the table, nor on
 // timing.
+//
+// At hd 256 (gemma3-12b: G = 2, rows of up to 2,176 slots, 2 x 8 KV
+// heads x 512 B a slot) heads on the m16 side would cost each warp 128
+// f32 registers of O and 64 of Q, with 14 of the 16 rows zero.  The wide
+// layout puts a warp's 16 slots on m16 and up to 8 heads on n8 instead:
+// S^T = K Q^T (K by ldmatrix as the A operand, Q^T held as B fragments,
+// 32 registers) and O^T += V^T P^T (V^T by ldmatrix.trans as A; P^T's
+// accumulator halves moved into the B layout by movmatrix.trans, in the
+// same three bf16 parts), so O is HD / 16 = 16 m-tiles of 16 dims x 8
+// heads, 64 registers a thread, and each k16 step of either product is
+// one mma where the narrow layout takes two.  A head's max and sum run
+// over the 8 lanes of its column.  The ring stays 3 stages of 64 slots,
+// 3 x 2 x 64 x 264 x 2 = 202,752 B: one CTA an SM, with two steps (128
+// KB) in flight on each SM, past what the SM's share of the card's
+// bandwidth needs to be covered; the split and the merges are the
+// narrow layout's, so paged = dense and the bits' independence of bs
+// hold unchanged.
 constexpr int kSplitWarps = 4;
 constexpr int kSplitThreads = 32 * kSplitWarps;
 constexpr int kSplitChunk = 16;                          // slots a warp takes
@@ -184,6 +202,7 @@ constexpr int kSplitSpan = kSplitChunk * kSplitWarps;    // slots per step
 constexpr int kSplitStages = 3;
 constexpr int kMaxDecodeSplits = 8;                      // portable cluster
 constexpr int kMaxSplitHeads = 16;                       // G on the m16 side
+constexpr int kMaxSplitHeadsWide = 8;                    // G on the n8 side
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Dynamic shared memory of decode_split: the K/V ring, reused after the
@@ -199,12 +218,16 @@ inline size_t split_smem_bytes(int hd, int G) {
 // q: the G * HD query values of this (row, KV head); out likewise.
 // kp / vp: pools laid out (NB, bs, KV, HD); table: the row's block table.
 // Launched as clusters of gridDim.z CTAs, this CTA being split blockIdx.z.
+// HD <= 128: heads on the m16 side (G <= 16).  HD 256 (wide): slots on
+// the m16 side and heads on n8 (G <= 8), S^T = K Q^T and O^T = V^T P^T,
+// so a warp keeps HD / 16 output fragments instead of HD / 8.
 template <int HD>
 __device__ __forceinline__ void decode_split(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ table,
     int klast, int bs, int KV, int kvh, int G, float scale_log2,
     __nv_bfloat16* __restrict__ out, unsigned char* smem_raw) {
+  constexpr bool kWide = HD > 128;   // slots on m16, heads on n8
   constexpr int kStride = HD + 8;    // smem row, in bf16
   constexpr int kRowChunks = HD / 8; // 16-byte chunks per slot row
   constexpr int kKSteps = HD / 16;   // k16 steps of Q K^T
@@ -256,22 +279,29 @@ __device__ __forceinline__ void decode_split(
     cp_async_commit();
   }
 
-  // Q as the A operand: row grp is head grp, row grp + 8 head grp + 8,
-  // zero past G
-  uint32_t qf[kKSteps][4];
+  // Q in registers, zero past G.  Not wide: the A operand, row grp head
+  // grp, row grp + 8 head grp + 8.  Wide: the B operand (Q^T), column
+  // grp head grp.
+  uint32_t qf[kKSteps][kWide ? 2 : 4];
 #pragma unroll
   for (int kk = 0; kk < kKSteps; ++kk)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int g = grp + 8 * (r & 1);
-      const int d = kk * 16 + 2 * tig + 8 * (r >> 1);
+    for (int r = 0; r < (kWide ? 2 : 4); ++r) {
+      const int g = kWide ? grp : grp + 8 * (r & 1);
+      const int d = kWide ? kk * 16 + 2 * tig + 8 * r
+                          : kk * 16 + 2 * tig + 8 * (r >> 1);
       qf[kk][r] = g < G ? *reinterpret_cast<const uint32_t*>(q + g * HD + d)
                         : 0u;
     }
 
-  float o[HD / 8][4];
+  // Not wide: o[HD / 8] n-tiles of (heads grp, grp + 8) x 8 dims; m_a / l_a
+  // are head grp's, m_b / l_b head grp + 8's.  Wide: o[HD / 16] m-tiles of
+  // 16 dims x (heads 2 tig, 2 tig + 1); m_a / l_a are head 2 tig's, m_b /
+  // l_b head 2 tig + 1's.
+  constexpr int kOTiles = kWide ? HD / 16 : HD / 8;
+  float o[kOTiles][4];
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d)
+  for (int d = 0; d < kOTiles; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
@@ -290,81 +320,156 @@ __device__ __forceinline__ void decode_split(
                                        kStride;
     const __nv_bfloat16* vt = vs + (buf * kSplitSpan + warp * kSplitChunk) *
                                        kStride;
-    // S = Q K^T: heads x 16 slots, as two n8 tiles
-    float sc[2][4];
+    if constexpr (kWide) {
+      // S^T = K Q^T: 16 slots x 8 heads; this lane holds slots k0 + grp
+      // (st[0], st[1]) and k0 + grp + 8 (st[2], st[3]) of heads 2 tig,
+      // 2 tig + 1
+      float st[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, kt + (lane & 15) * kStride + kk * 16 + (lane >> 4) * 8);
+        mma_bf16(st, a, qf[kk][0], qf[kk][1]);
+      }
+      // into the log2 domain, slots past klast masked; each head's max
+      // and sum run over the 8 lanes of its column (lane bits 2-4)
+      const bool va = k0 + grp <= klast;
+      const bool vb = k0 + grp + 8 <= klast;
+      const float s0 = va ? st[0] * scale_log2 : kNegInf;
+      const float s1 = va ? st[1] * scale_log2 : kNegInf;
+      const float s2 = vb ? st[2] * scale_log2 : kNegInf;
+      const float s3 = vb ? st[3] * scale_log2 : kNegInf;
+      float mx_a = fmaxf(s0, s2), mx_b = fmaxf(s1, s3);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+      for (int o2 = 4; o2 < 32; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float al_a = exp2f(m_a - mn_a);
+      const float al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      const float p0 = exp2f(s0 - mn_a), p1 = exp2f(s1 - mn_b);
+      const float p2 = exp2f(s2 - mn_a), p3 = exp2f(s3 - mn_b);
+      float sum_a = p0 + p2, sum_b = p1 + p3;
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4(b, kt + ((lane & 7) + ((lane >> 4) << 3)) * kStride +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(sc[0], qf[kk], b[0], b[1]);
-      mma_bf16(sc[1], qf[kk], b[2], b[3]);
-    }
-    // into the log2 domain, slots past klast masked
-    float mx_a = kNegInf, mx_b = kNegInf;
+      for (int o2 = 4; o2 < 32; o2 <<= 1) {
+        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o2);
+        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o2);
+      }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * tig + (e & 1);
-        const float v = key <= klast ? sc[j][e] * scale_log2 : kNegInf;
-        sc[j][e] = v;
-        if (e < 2) mx_a = fmaxf(mx_a, v); else mx_b = fmaxf(mx_b, v);
+      for (int d = 0; d < kOTiles; ++d) {
+        o[d][0] *= al_a;
+        o[d][1] *= al_b;
+        o[d][2] *= al_a;
+        o[d][3] *= al_b;
+      }
+      // O^T += V^T P^T: P^T (16 slots x 8 heads) as the B operand in
+      // three bf16 parts, each 8-slot half transposed from the
+      // accumulator layout by movmatrix; V^T by ldmatrix.trans
+      uint32_t pb[3][2];
+      {
+        uint32_t h0, m0, l0, h1, m1, l1;
+        split3_bf16(p0, p1, h0, m0, l0);     // slot grp
+        split3_bf16(p2, p3, h1, m1, l1);     // slot grp + 8
+        pb[0][0] = movmatrix_trans(h0);
+        pb[1][0] = movmatrix_trans(m0);
+        pb[2][0] = movmatrix_trans(l0);
+        pb[0][1] = movmatrix_trans(h1);
+        pb[1][1] = movmatrix_trans(m1);
+        pb[2][1] = movmatrix_trans(l1);
       }
 #pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
-    }
-    const float mn_a = fmaxf(m_a, mx_a);
-    const float mn_b = fmaxf(m_b, mx_b);
-    const float al_a = exp2f(m_a - mn_a);
-    const float al_b = exp2f(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
+      for (int d = 0; d < kOTiles; ++d) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, vt + ((lane & 7) + ((lane >> 4) << 3)) * kStride +
+                                 d * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      sc[j][0] = exp2f(sc[j][0] - mn_a);
-      sc[j][1] = exp2f(sc[j][1] - mn_a);
-      sc[j][2] = exp2f(sc[j][2] - mn_b);
-      sc[j][3] = exp2f(sc[j][3] - mn_b);
-      sum_a += sc[j][0] + sc[j][1];
-      sum_b += sc[j][2] + sc[j][3];
-    }
+        for (int part = 0; part < 3; ++part)
+          mma_bf16(o[d], a, pb[part][0], pb[part][1]);
+      }
+    } else {
+      // S = Q K^T: heads x 16 slots, as two n8 tiles
+      float sc[2][4];
 #pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o2);
-      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o2);
-    }
-    l_a = l_a * al_a + sum_a;
-    l_b = l_b * al_b + sum_b;
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d) {
-      o[d][0] *= al_a;
-      o[d][1] *= al_a;
-      o[d][2] *= al_b;
-      o[d][3] *= al_b;
-    }
-    // O += P V, P (heads x 16 slots) as three bf16 parts
-    uint32_t p[3][4];
-    split3_bf16(sc[0][0], sc[0][1], p[0][0], p[1][0], p[2][0]);
-    split3_bf16(sc[0][2], sc[0][3], p[0][1], p[1][1], p[2][1]);
-    split3_bf16(sc[1][0], sc[1][1], p[0][2], p[1][2], p[2][2]);
-    split3_bf16(sc[1][2], sc[1][3], p[0][3], p[1][3], p[2][3]);
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-    for (int d2 = 0; d2 < HD / 16; ++d2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * kStride +
-                               d2 * 16 + (lane >> 4) * 8);
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + ((lane & 7) + ((lane >> 4) << 3)) * kStride +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[0], qf[kk], b[0], b[1]);
+        mma_bf16(sc[1], qf[kk], b[2], b[3]);
+      }
+      // into the log2 domain, slots past klast masked
+      float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-      for (int part = 0; part < 3; ++part) {
-        mma_bf16(o[2 * d2], p[part], b[0], b[1]);
-        mma_bf16(o[2 * d2 + 1], p[part], b[2], b[3]);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tig + (e & 1);
+          const float v = key <= klast ? sc[j][e] * scale_log2 : kNegInf;
+          sc[j][e] = v;
+          if (e < 2) mx_a = fmaxf(mx_a, v); else mx_b = fmaxf(mx_b, v);
+        }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      const float al_a = exp2f(m_a - mn_a);
+      const float al_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sc[j][0] = exp2f(sc[j][0] - mn_a);
+        sc[j][1] = exp2f(sc[j][1] - mn_a);
+        sc[j][2] = exp2f(sc[j][2] - mn_b);
+        sc[j][3] = exp2f(sc[j][3] - mn_b);
+        sum_a += sc[j][0] + sc[j][1];
+        sum_b += sc[j][2] + sc[j][3];
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1) {
+        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o2);
+        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o2);
+      }
+      l_a = l_a * al_a + sum_a;
+      l_b = l_b * al_b + sum_b;
+#pragma unroll
+      for (int d = 0; d < kOTiles; ++d) {
+        o[d][0] *= al_a;
+        o[d][1] *= al_a;
+        o[d][2] *= al_b;
+        o[d][3] *= al_b;
+      }
+      // O += P V, P (heads x 16 slots) as three bf16 parts
+      uint32_t p[3][4];
+      split3_bf16(sc[0][0], sc[0][1], p[0][0], p[1][0], p[2][0]);
+      split3_bf16(sc[0][2], sc[0][3], p[0][1], p[1][1], p[2][1]);
+      split3_bf16(sc[1][0], sc[1][1], p[0][2], p[1][2], p[2][2]);
+      split3_bf16(sc[1][2], sc[1][3], p[0][3], p[1][3], p[2][3]);
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) *
+                                      kStride +
+                                  d2 * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int part = 0; part < 3; ++part) {
+          mma_bf16(o[2 * d2], p[part], b[0], b[1]);
+          mma_bf16(o[2 * d2 + 1], p[part], b[2], b[3]);
+        }
       }
     }
   }
@@ -378,14 +483,22 @@ __device__ __forceinline__ void decode_split(
   float* cpart = wpart + kSplitWarps * G * kPRow;       // [G][kPRow]
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int g = grp + 8 * half;
+    const int g = kWide ? 2 * tig + half : grp + 8 * half;
     if (g >= G) continue;
     float* row = wpart + (warp * G + g) * kPRow;
+    if constexpr (kWide) {
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<float2*>(row + 8 * d + 2 * tig) =
-          make_float2(o[d][2 * half], o[d][2 * half + 1]);
-    if (tig == 0) {
+      for (int d = 0; d < kOTiles; ++d) {
+        row[16 * d + grp] = o[d][half];
+        row[16 * d + grp + 8] = o[d][2 + half];
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < kOTiles; ++d)
+        *reinterpret_cast<float2*>(row + 8 * d + 2 * tig) =
+            make_float2(o[d][2 * half], o[d][2 * half + 1]);
+    }
+    if ((kWide ? grp : tig) == 0) {
       row[HD] = half ? m_b : m_a;
       row[HD + 1] = half ? l_b : l_a;
     }
@@ -473,9 +586,10 @@ inline cudaError_t launch_split(Kernel kernel, int B, int KV, int splits,
   return cudaGetLastError();
 }
 
-// Whether decode_split takes a launch: bf16, a head dim of whole k16
-// steps up to 128, at most 16 query heads per KV head, 16-byte aligned
-// tensors, 1 to 8 splits.
+// Whether decode_split takes a launch: bf16, 16-byte aligned tensors,
+// 1 to 8 splits, and either a head dim of whole k16 steps up to 128 with
+// at most 16 query heads per KV head, or head dim 256 (the wide layout)
+// with at most 8.
 inline bool split_takes(int dtype, int hd, int G, int splits,
                         const void* q, const void* kp, const void* vp,
                         const void* out) {
@@ -483,8 +597,10 @@ inline bool split_takes(int dtype, int hd, int G, int splits,
                          reinterpret_cast<uintptr_t>(kp) |
                          reinterpret_cast<uintptr_t>(vp) |
                          reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-  return dtype == 1 && hd % 16 == 0 && hd >= 16 && hd <= 128 &&
-         G <= kMaxSplitHeads && aligned && splits >= 1 &&
+  const bool tiles = (hd % 16 == 0 && hd >= 16 && hd <= 128 &&
+                      G <= kMaxSplitHeads) ||
+                     (hd == 256 && G <= kMaxSplitHeadsWide);
+  return dtype == 1 && tiles && aligned && splits >= 1 &&
          splits <= kMaxDecodeSplits;
 }
 

@@ -84,20 +84,27 @@ dense_split_kernel(const __nv_bfloat16* __restrict__ q,
                        scale_log2, out + qoff, smem_raw);
 }
 
-// The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
+template <int HD>
+cudaError_t split_at(const void* q, const void* kc, const void* vc,
+                     const void* pos, void* out, int B, int H, int KV, int S,
+                     float scale, int splits, cudaStream_t s) {
+  return rt::launch_split(
+      dense_split_kernel<HD>, B, KV, splits, rt::split_smem_bytes(HD, H / KV),
+      s, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), H, KV, S, scale * rt::kLog2e);
+}
+
+// The instantiation for head dim hd, one of HD, HD - 16, ..., 16 (the
+// entry point takes 256, the wide layout, to split_at<256> itself).
 template <int HD>
 cudaError_t launch_split(int hd, const void* q, const void* kc,
                          const void* vc, const void* pos, void* out, int B,
                          int H, int KV, int S, float scale, int splits,
                          cudaStream_t s) {
   if (hd == HD)
-    return rt::launch_split(
-        dense_split_kernel<HD>, B, KV, splits,
-        rt::split_smem_bytes(HD, H / KV), s,
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(kc),
-        static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(pos),
-        static_cast<__nv_bfloat16*>(out), H, KV, S, scale * rt::kLog2e);
+    return split_at<HD>(q, kc, vc, pos, out, B, H, KV, S, scale, splits, s);
   if constexpr (HD > 16)
     return launch_split<HD - 16>(hd, q, kc, vc, pos, out, B, H, KV, S, scale,
                                  splits, s);
@@ -119,9 +126,11 @@ extern "C" int rt_dense_decode_attention(const void* q, const void* k_cache,
   if (body == rt::kBodyMma) {
     if (!rt::split_takes(dtype, hd, H / KV, splits, q, k_cache, v_cache, out))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_split<128>(hd, q, k_cache, v_cache, pos,
-                                              out, B, H, KV, S, scale, splits,
-                                              s));
+    return static_cast<int>(
+        hd == 256 ? split_at<256>(q, k_cache, v_cache, pos, out, B, H, KV, S,
+                                  scale, splits, s)
+                  : launch_split<128>(hd, q, k_cache, v_cache, pos, out, B, H,
+                                      KV, S, scale, splits, s));
   }
   if (body != rt::kBodyCudaCore)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 // Warp-level tensor-core helpers of the port's bf16 bodies (sm_90a):
 // 16-byte cp.async copies into shared memory, ldmatrix fragment loads,
-// mma.sync.aligned.m16n8k16 on bf16 with f32 accumulators, and the
-// splitting of f32 values into bf16 parts for an exact-enough operand.
+// movmatrix transposes of a fragment, mma.sync.aligned.m16n8k16 on bf16
+// with f32 accumulators, and the splitting of f32 values into bf16 parts
+// for an exact-enough operand.
 //
 // Fragment layout of m16n8k16 (lane = 4 * grp + tig):
 //   A (16 x 16, row-major), 4 regs of two bf16: a0 (row grp, cols 2tig,
@@ -57,6 +58,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+
+// One 8x8 b16 matrix in the C/D half layout (lane grp holds row grp,
+// cols 2tig, 2tig+1), transposed in place across the warp: the lane
+// then holds rows 2tig, 2tig+1 of column grp, the B layout of m16n8k16.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d) : "r"(a));
+  return d;
 }
 
 // d += a * b on one m16n8k16 tile.

@@ -90,21 +90,30 @@ paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                        smem_raw);
 }
 
-// The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
+template <int HD>
+cudaError_t split_at(const void* q, const void* kp, const void* vp,
+                     const void* tables, const void* pos, void* out, int B,
+                     int H, int KV, int bs, int nb, float scale, int splits,
+                     cudaStream_t s) {
+  return rt::launch_split(
+      paged_split_kernel<HD>, B, KV, splits, rt::split_smem_bytes(HD, H / KV),
+      s, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(tables),
+      static_cast<const int*>(pos), static_cast<__nv_bfloat16*>(out), H, KV,
+      bs, nb, scale * rt::kLog2e);
+}
+
+// The instantiation for head dim hd, one of HD, HD - 16, ..., 16 (the
+// entry point takes 256, the wide layout, to split_at<256> itself).
 template <int HD>
 cudaError_t launch_split(int hd, const void* q, const void* kp,
                          const void* vp, const void* tables, const void* pos,
                          void* out, int B, int H, int KV, int bs, int nb,
                          float scale, int splits, cudaStream_t s) {
   if (hd == HD)
-    return rt::launch_split(
-        paged_split_kernel<HD>, B, KV, splits,
-        rt::split_smem_bytes(HD, H / KV), s,
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(kp),
-        static_cast<const __nv_bfloat16*>(vp),
-        static_cast<const int*>(tables), static_cast<const int*>(pos),
-        static_cast<__nv_bfloat16*>(out), H, KV, bs, nb, scale * rt::kLog2e);
+    return split_at<HD>(q, kp, vp, tables, pos, out, B, H, KV, bs, nb, scale,
+                        splits, s);
   if constexpr (HD > 16)
     return launch_split<HD - 16>(hd, q, kp, vp, tables, pos, out, B, H, KV,
                                  bs, nb, scale, splits, s);
@@ -129,9 +138,11 @@ extern "C" int rt_paged_decode_attention(const void* q, const void* k_pool,
   if (body == rt::kBodyMma) {
     if (!rt::split_takes(dtype, hd, H / KV, splits, q, k_pool, v_pool, out))
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch_split<128>(hd, q, k_pool, v_pool, tables,
-                                              pos, out, B, H, KV, bs, nb,
-                                              scale, splits, s));
+    return static_cast<int>(
+        hd == 256 ? split_at<256>(q, k_pool, v_pool, tables, pos, out, B, H,
+                                  KV, bs, nb, scale, splits, s)
+                  : launch_split<128>(hd, q, k_pool, v_pool, tables, pos, out,
+                                      B, H, KV, bs, nb, scale, splits, s));
   }
   if (body != rt::kBodyCudaCore)
     return static_cast<int>(cudaErrorInvalidValue);

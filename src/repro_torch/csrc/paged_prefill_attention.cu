@@ -30,15 +30,17 @@
 //
 // Bound on the H100: bytes at the main path's chunks (C = 128 against a
 // prefix of a few hundred keys: 4 * H * hd flops per query-key pair, far
-// below the bf16 tensor cores' 295 flops per byte); in practice latency
-// and SM fill, since a chunk is a few tens of CTAs.
+// below the bf16 tensor cores' 295 flops per byte; at gemma3-12b's hd
+// 256, C = 128 against 1,152-2,176 keys of 8 KV heads, 3.4-5.9 us of
+// bytes); in practice latency and SM fill, since a chunk is a few tens
+// of row tiles.
 //
 // Two bodies; the wrapper names one by its rule
 // (kernels/flash_attention.py::prefill_body) and this entry point
 // launches it, refusing a body the shape cannot take:
 //
-// * mma (bf16, hd % 16 == 0, hd <= 128, 16-byte aligned q / pools /
-//   out).  A CTA owns one KV head and 64 rows, a row being a (query,
+// * mma (bf16, hd % 16 == 0 up to 128 or hd 256, 16-byte aligned q /
+//   pools / out).  A CTA owns one KV head and 64 rows, a row being a (query,
 //   head-in-group) pair of that KV head's G query heads, so each K/V tile
 //   is read once for all G heads.  Its 8 warps are 4 row warps of 16 rows
 //   (one m16 fragment each) times 2 key groups: each step brings 128
@@ -64,11 +66,41 @@
 //   that reach past a warp's first query.  Tiles are cut by logical
 //   slot, never by block, so the output bits do not depend on bs or on
 //   the table.
+//   At hd 256 (gemma3-12b's attn layers) the same body runs wide
+//   (Tiles<256>), for three limits the narrow tiles hit there:
+//   - shared memory: Q and a double-buffered 128-slot step would take
+//     (64 + 512) x 264 x 2 = 304,128 B, past the 232,448 a block may use.
+//     The wide body's key groups take 32 slots each, so a step is 64:
+//     Q 64 x 264 x 2 + K and V 2 x 2 x 64 x 264 x 2 = 168,960 B, one CTA
+//     an SM;
+//   - registers: each warp's 16 x 256 f32 accumulator is 128 registers a
+//     thread, so Q is not held as fragments (64 more) but read from
+//     shared memory by ldmatrix at each k16 step; the score tile of 32
+//     keys is 16 registers;
+//   - fill: a chunk of C = 128 at G = 2 is 4 row tiles x 8 KV heads = 32
+//     CTAs on 132 SMs, each walking 1,152-2,176 keys.  Each row tile's
+//     steps of 64 logical slots are split across a thread-block cluster
+//     of `splits` CTAs along grid x (the wrapper's prefill_splits, shape
+//     only: 3 at gemma3's chunk, 96 CTAs; the card holds 39 clusters of
+//     3 at one CTA an SM, but only 30 of 4, so 4 would take two waves
+//     and measured 1.6x slower, tools/torch_split_sweep.py): CTA r of
+//     the cluster takes
+//     steps [r * per, (r + 1) * per) of klast / 64 + 1, per = ceil(steps
+//     / splits), reading pos on the device as before.  Its key groups
+//     merge as above; then each CTA's rows (O, m, l) go to its V
+//     buffers, and after a cluster barrier each CTA merges a share of
+//     the tile's 64 x 256 outputs over the cluster's partials in split
+//     order, read through distributed shared memory, divides by l and
+//     rounds once.  Cuts by logical slot and a split that depends on
+//     (C, H, KV, hd, nb * bs) alone keep the bits independent of bs, of
+//     the table and of the batch (a batched row = a one-row call).
 // * cuda_core (float32 at every shape, bf16 at the others): the f32
 //   CUDA-core body of the first port, grid (ceil(C / 32), H, B), products in
 //   scalar loops out of shared memory.  float32 stays here because the
 //   card's float32 streams must equal the CPU's: TF32 tensor cores would
 //   round the inputs.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -212,15 +244,26 @@ constexpr int kRowWarps = 4;         // warps along the rows
 constexpr int kKeyGroups = 2;        // warp groups along the keys
 constexpr int kThreads = 32 * kRowWarps * kKeyGroups;
 constexpr int kRows = 16 * kRowWarps;   // (query, head-in-group) rows per CTA
-constexpr int kTileK = 64;           // logical slots per key tile of a group
-constexpr int kSpan = kTileK * kKeyGroups;   // slots per CTA step
+constexpr int kMaxSplits = 8;        // CTAs a key range splits across (wide)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The tiles of head dim HD.  Up to 128: key tiles of 64 slots a key
+// group, Q held in registers, one CTA per row tile.  At 256 (wide): key
+// tiles of 32 slots, Q read from shared memory at each k16 step, and
+// each row tile's key range split across a cluster of CTAs.
+template <int HD>
+struct Tiles {
+  static constexpr bool kWide = HD > 128;
+  static constexpr int kTileK = kWide ? 32 : 64;   // slots a key group takes
+  static constexpr int kSpan = kTileK * kKeyGroups;  // slots per CTA step
+};
 
 template <int HD>
 constexpr size_t smem_bytes() {      // Q, then K and V, double-buffered
-  return static_cast<size_t>(kRows + 4 * kSpan) * (HD + 8) *
+  return static_cast<size_t>(kRows + 4 * Tiles<HD>::kSpan) * (HD + 8) *
          sizeof(__nv_bfloat16);
 }
+static_assert(smem_bytes<256>() == 168960, "wide body: 165 KB a CTA");
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -230,7 +273,10 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const int* __restrict__ table,
                const int* __restrict__ pos_dev,
                __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs,
-               int nb, int pos_host, float scale_log2) {
+               int nb, int pos_host, float scale_log2, int splits) {
+  using T = Tiles<HD>;
+  constexpr int kTileK = T::kTileK;
+  constexpr int kSpan = T::kSpan;
   constexpr int kStride = HD + 8;    // smem row, in bf16
   constexpr int kChunks = HD / 8;    // 16-byte chunks per row
   constexpr int kKSteps = HD / 16;   // k16 steps of Q K^T
@@ -248,13 +294,24 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int G = H / KV;
   const int kvh = blockIdx.y;
   const int rows = C * G;
-  const int r0 = blockIdx.x * kRows;
+  // grid x: row tiles, each split across `splits` CTAs (a cluster); 1
+  // below the wide body, fixed here so those bodies compile as unsplit
+  if constexpr (!T::kWide) splits = 1;
+  const int split = blockIdx.x % splits;
+  const int r0 = blockIdx.x / splits * kRows;
   const int rlast = min(r0 + kRows, rows) - 1;
   const int klast = min(pos + rlast / G, nb * bs - 1);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = (tid >> 5) % kRowWarps;   // this warp's 16 rows
   const int kgroup = (tid >> 5) / kRowWarps;  // and its half of each step
+
+  // this CTA's share of the tile's steps of kSpan logical slots: steps
+  // [st0, st1) of klast / kSpan + 1 (empty past klast)
+  const int nst = klast / kSpan + 1;
+  const int per = (nst + splits - 1) / splits;
+  const int st0 = split * per;
+  const int st1 = min(st0 + per, nst);
 
   // Q rows of this CTA (zero past the last row)
   for (int e = tid; e < kRows * kChunks; e += kThreads) {
@@ -290,7 +347,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
       rt::cp_async16(vd + ki * kStride + c * 8, vp + off, n);
     }
   };
-  load_tile(0, 0);
+  if (st0 < st1) load_tile(st0 * kSpan, 0);
   rt::cp_async_commit();
 
   // this warp's rows: wr0 .. wr0 + 15; this lane's two, ra and ra + 8
@@ -304,7 +361,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int qpa = min(pos + ra / G, klast);        // last key of row ra
   const int qpb = min(pos + (ra + 8) / G, klast);  // and of row ra + 8
 
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[T::kWide ? 1 : kKSteps][4];   // Q in registers (not wide)
   float o[HD / 8][4];
 #pragma unroll
   for (int d = 0; d < HD / 8; ++d)
@@ -314,41 +371,50 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Step it holds slots [it * kSpan, (it + 1) * kSpan); key group g
   // takes the tile of kTileK slots at it * kSpan + g * kTileK.
-  const int ntiles = klast / kSpan + 1;
-  for (int it = 0; it < ntiles; ++it) {
+  for (int it = st0; it < st1; ++it) {
     const int k0 = it * kSpan + kgroup * kTileK;
-    if (it + 1 < ntiles) load_tile((it + 1) * kSpan, (it + 1) & 1);
+    const int buf = (it - st0) & 1;
+    if (it + 1 < st1) load_tile((it + 1) * kSpan, buf ^ 1);
     rt::cp_async_commit();
     rt::cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
+    if constexpr (!T::kWide) {
+      if (it == st0) {
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        rt::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kStride +
-                                    kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < kKSteps; ++kk)
+          rt::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * kStride +
+                                      kk * 16 + (lane >> 4) * 8);
+      }
     }
     if (live && k0 <= wq_last) {
-      const __nv_bfloat16* kt =
-          ks + ((it & 1) * kSpan + kgroup * kTileK) * kStride;
-      const __nv_bfloat16* vt =
-          vs + ((it & 1) * kSpan + kgroup * kTileK) * kStride;
-      // S = Q K^T: 8 n-tiles of 8 keys
+      const __nv_bfloat16* kt = ks + (buf * kSpan + kgroup * kTileK) * kStride;
+      const __nv_bfloat16* vt = vs + (buf * kSpan + kgroup * kTileK) * kStride;
+      // S = Q K^T: kTileK / 8 n-tiles of 8 keys
       float sc[kTileK / 8][4];
 #pragma unroll
       for (int j = 0; j < kTileK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t a[4];
+        if constexpr (T::kWide) {
+          rt::ldmatrix_x4(a, qs + (warp * 16 + (lane & 15)) * kStride +
+                                 kk * 16 + (lane >> 4) * 8);
+        } else {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) a[r] = qf[kk][r];
+        }
 #pragma unroll
         for (int j2 = 0; j2 < kTileK / 16; ++j2) {
           uint32_t b[4];
           rt::ldmatrix_x4(b, kt + (j2 * 16 + (lane & 7) + ((lane >> 4) << 3)) *
                                       kStride +
                                   kk * 16 + ((lane >> 3) & 1) * 8);
-          rt::mma_bf16(sc[2 * j2], qf[kk], b[0], b[1]);
-          rt::mma_bf16(sc[2 * j2 + 1], qf[kk], b[2], b[3]);
+          rt::mma_bf16(sc[2 * j2], a, b[0], b[1]);
+          rt::mma_bf16(sc[2 * j2 + 1], a, b[2], b[3]);
         }
+      }
       // scale into the log2 domain; mask where the tile reaches past the
       // warp's first query or the clamp
       const bool masked = k0 + kTileK - 1 > min(wq_first, klast);
@@ -426,6 +492,9 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   // (the K/V buffers are free now), which merges the two in a fixed
   // order.  A row group 1 never reached has m = kNegInf, l = 0, o = 0.
   constexpr int kXch = HD / 2 + 4;    // floats per thread
+  static_assert(kRowWarps * 32 * kXch * sizeof(float) <=
+                    2 * kSpan * kStride * sizeof(__nv_bfloat16),
+                "the exchange fits the K buffers");
   rt::cp_async_wait<0>();
   __syncthreads();
   float* xch = reinterpret_cast<float*>(ks) + (warp * 32 + lane) * kXch;
@@ -440,12 +509,13 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     xch[HD / 2 + 3] = l_b;
   }
   __syncthreads();
-  if (kgroup == 1) return;
-  {
+  if (kgroup == 0) {
     const float m1a = xch[HD / 2], m1b = xch[HD / 2 + 1];
     const float mn_a = fmaxf(m_a, m1a), mn_b = fmaxf(m_b, m1b);
     const float a0 = exp2f(m_a - mn_a), a1 = exp2f(m1a - mn_a);
     const float b0 = exp2f(m_b - mn_b), b1 = exp2f(m1b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
     l_a = l_a * a0 + xch[HD / 2 + 2] * a1;
     l_b = l_b * b0 + xch[HD / 2 + 3] * b1;
 #pragma unroll
@@ -457,19 +527,81 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // divide by l in f32, round once, store pairs
+  if constexpr (!T::kWide) {
+    if (kgroup == 1) return;
+    // divide by l in f32, round once, store pairs
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int rho = ra + 8 * half;
-    if (!live || rho > rlast) continue;
-    const float l = fmaxf(half ? l_b : l_a, 1e-30f);
-    __nv_bfloat16* dst =
-        out + (static_cast<size_t>(rho / G) * H + kvh * G + rho % G) * HD +
-        2 * tig;
+    for (int half = 0; half < 2; ++half) {
+      const int rho = ra + 8 * half;
+      if (!live || rho > rlast) continue;
+      const float l = fmaxf(half ? l_b : l_a, 1e-30f);
+      __nv_bfloat16* dst =
+          out + (static_cast<size_t>(rho / G) * H + kvh * G + rho % G) * HD +
+          2 * tig;
 #pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) = __floats2bfloat162_rn(
-          o[d][2 * half] / l, o[d][2 * half + 1] / l);
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+            __floats2bfloat162_rn(o[d][2 * half] / l, o[d][2 * half + 1] / l);
+    }
+  } else {
+    // The CTA's partial rows (O, then m and l) into the V buffers; after
+    // a cluster barrier every CTA merges a share of the tile's rows x HD
+    // outputs over the cluster's partials in split order, read through
+    // distributed shared memory, divides by l and rounds once; a second
+    // barrier keeps each partial alive until its readers are done.
+    constexpr int kPRow = HD + 2;
+    static_assert(kRows * kPRow * sizeof(float) <=
+                      2 * kSpan * kStride * sizeof(__nv_bfloat16),
+                  "the partial fits the V buffers");
+    float* cpart = reinterpret_cast<float*>(vs);
+    if (kgroup == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float* row = cpart + (warp * 16 + grp + 8 * half) * kPRow;
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d)
+          *reinterpret_cast<float2*>(row + 8 * d + 2 * tig) =
+              make_float2(o[d][2 * half], o[d][2 * half + 1]);
+        if (tig == 0) {
+          row[HD] = half ? m_b : m_a;
+          row[HD + 1] = half ? l_b : l_a;
+        }
+      }
+    }
+    cooperative_groups::cluster_group cluster =
+        cooperative_groups::this_cluster();
+    cluster.sync();
+    for (int e = split * kThreads + tid; e < kRows * HD;
+         e += splits * kThreads) {
+      const int r = e / HD;
+      const int d = e - r * HD;
+      const int rho = r0 + r;
+      if (rho > rlast) break;       // e only grows
+      float pm[kMaxSplits], pl[kMaxSplits], po[kMaxSplits];
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        if (sp < splits) {
+          const float* row = cluster.map_shared_rank(cpart, sp) + r * kPRow;
+          pm[sp] = row[HD];
+          pl[sp] = row[HD + 1];
+          po[sp] = row[d];
+        }
+      float mx = rt::kNegInf;
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        if (sp < splits) mx = fmaxf(mx, pm[sp]);
+      float l = 0.f, acc = 0.f;
+#pragma unroll
+      for (int sp = 0; sp < kMaxSplits; ++sp)
+        if (sp < splits) {
+          const float a = exp2f(pm[sp] - mx);
+          l += pl[sp] * a;
+          acc += po[sp] * a;
+        }
+      out[(static_cast<size_t>(rho / G) * H + kvh * G + rho % G) * HD + d] =
+          __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    }
+    cluster.sync();
   }
 }
 
@@ -477,17 +609,32 @@ template <int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* pos_dev, void* out, int B,
                    int C, int H, int KV, int bs, int nb, int pos, float scale,
-                   cudaStream_t stream) {
+                   int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = rt::allow_smem(prefill_kernel<HD>, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((C * (H / KV) + kRows - 1) / kRows, KV, B);
-  prefill_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
+  const int tiles = (C * (H / KV) + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * splits, KV, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  if (Tiles<HD>::kWide) {           // the splits of a row tile: one cluster
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = splits;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cfg.attrs = &cluster;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(
+      &cfg, prefill_kernel<HD>, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(pos_dev), static_cast<__nv_bfloat16*>(out), C,
-      H, KV, bs, nb, pos, scale * kLog2e);
+      H, KV, bs, nb, pos, scale * kLog2e, splits);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -499,7 +646,7 @@ cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
                      float scale, cudaStream_t s) {
   if (hd == HD)
     return launch<HD>(q, kp, vp, table, pos_dev, out, B, C, H, KV, bs, nb,
-                      pos, scale, s);
+                      pos, scale, 1, s);
   if constexpr (HD > 16)
     return dispatch<HD - 16>(hd, q, kp, vp, table, pos_dev, out, B, C, H, KV,
                              bs, nb, pos, scale, s);
@@ -509,11 +656,12 @@ cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
 }  // namespace mma
 
 // Both entry points: B rows, each row's pos from pos_dev when it is not
-// null, else the host's pos.
+// null, else the host's pos.  splits (1 to 8) is read by the wide mma
+// body only; the others take 1.
 cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
                 const void* tables, const void* pos_dev, void* out, int B,
                 int C, int H, int KV, int hd, int bs, int nb, int pos,
-                float scale, int dtype, int body, cudaStream_t s) {
+                float scale, int dtype, int body, int splits, cudaStream_t s) {
   if (B <= 0 || C <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0 ||
       B > 65535)
@@ -523,8 +671,13 @@ cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
                            reinterpret_cast<uintptr_t>(k_pool) |
                            reinterpret_cast<uintptr_t>(v_pool) |
                            reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
-    if (dtype != 1 || hd % 16 != 0 || hd > 128 || !aligned)
-      return cudaErrorInvalidValue;
+    if (dtype != 1 || !aligned) return cudaErrorInvalidValue;
+    if (hd == 256) {
+      if (splits < 1 || splits > mma::kMaxSplits) return cudaErrorInvalidValue;
+      return mma::launch<256>(q, k_pool, v_pool, tables, pos_dev, out, B, C,
+                              H, KV, bs, nb, pos, scale, splits, s);
+    }
+    if (hd % 16 != 0 || hd > 128 || splits != 1) return cudaErrorInvalidValue;
     return mma::dispatch<128>(hd, q, k_pool, v_pool, tables, pos_dev, out, B,
                               C, H, KV, bs, nb, pos, scale, s);
   }
@@ -545,9 +698,10 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           const void* table, void* out, int C,
                                           int H, int KV, int hd, int bs,
                                           int nb, int pos, float scale,
-                                          int dtype, int body, void* stream) {
+                                          int dtype, int body, int splits,
+                                          void* stream) {
   return static_cast<int>(run(q, k_pool, v_pool, table, nullptr, out, 1, C, H,
-                              KV, hd, bs, nb, pos, scale, dtype, body,
+                              KV, hd, bs, nb, pos, scale, dtype, body, splits,
                               static_cast<cudaStream_t>(stream)));
 }
 
@@ -557,9 +711,9 @@ extern "C" int rt_paged_chunk_attention(const void* q, const void* k_pool,
                                         const void* pos, void* out, int B,
                                         int C, int H, int KV, int hd, int bs,
                                         int nb, float scale, int dtype,
-                                        int body, void* stream) {
+                                        int body, int splits, void* stream) {
   if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(q, k_pool, v_pool, tables, pos, out, B, C, H,
-                              KV, hd, bs, nb, 0, scale, dtype, body,
+                              KV, hd, bs, nb, 0, scale, dtype, body, splits,
                               static_cast<cudaStream_t>(stream)));
 }

@@ -165,13 +165,13 @@ _SIGNATURES = {
     "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, out, C, H, KV, hd, bs, nb, pos, scale,
-    # dtype, body, stream
+    # dtype, body, splits, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _I, _P),
+                                   _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, pos (device), out, B, C, H, KV, hd, bs,
-    # nb, scale, dtype, body, stream
+    # nb, scale, dtype, body, splits, stream
     "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _I, _P),
+                                 _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, k_new, v_new, out, C, H, KV, hd, bs, nb,
     # pos, w, scale, dtype, body, stream
     "rt_ring_chunk_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -192,6 +192,8 @@ _SIGNATURES = {
                           _L, _L, _I, _I, _P),
     # blocks, threads, stream
     "rt_empty": (_I, _I, _P),
+    # cluster size, threads, dynamic shared memory, out (int*)
+    "rt_max_active_clusters": (_I, _I, _I, _P),
 }
 
 

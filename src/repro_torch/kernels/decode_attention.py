@@ -17,13 +17,22 @@ Both kernels share their bodies (``csrc/decode_attention.cuh``), named
 by one rule, :func:`decode_body`, so on the card a dense row and a paged
 row with the same KV give the same bits:
 
-* ``"mma"`` (bfloat16, ``hd % 16 == 0``, ``hd <= 128``, at most 16 query
-  heads per KV head, 16-byte aligned tensors; every bf16 launch the
-  served models make): each (row, KV head) is a thread-block cluster of
-  :func:`decode_splits` CTAs that cut the row's live slot range by
-  logical slot (reading ``pos`` on the device), compute both products
-  on the tensor cores in f32 arithmetic, and merge their softmax
-  partials in split order through distributed shared memory.
+* ``"mma"`` (bfloat16, 16-byte aligned tensors, and ``hd % 16 == 0``,
+  ``hd <= 128`` with at most 16 query heads per KV head, or ``hd ==
+  256`` with at most 8; every bf16 launch the served models make): each
+  (row, KV head) is a thread-block cluster of :func:`decode_splits` CTAs
+  that cut the row's live slot range by logical slot (reading ``pos``
+  on the device), compute both products on the tensor cores in f32
+  arithmetic, and merge their softmax partials in split order through
+  distributed shared memory.  Up to hd 128 the G heads sit on the m16
+  side of ``mma.sync`` m16n8k16.  At hd 256 (gemma3-12b) the layout is
+  transposed: 16 slots on m16 and the heads on n8, ``S^T = K Q^T`` and
+  ``O^T = V^T P^T``, so a warp holds 16 dims x 8 heads per output
+  fragment, 64 f32 registers of O and 32 of Q instead of 128 and 64;
+  each lane's P^T half-tiles reach the B layout through ``movmatrix``.
+  A CTA keeps 3 ring stages of 64 slots (202,752 B at hd 256: one CTA
+  an SM).  Bound at gemma3's decode: bytes (2 x 8 KV heads x up to 2,176
+  slots x 512 B a row).
 * ``"cuda_core"`` (float32 at every shape, bfloat16 at the others): one
   block per (row, KV head) on the f32 CUDA cores.  float32 stays there
   because the card's f32 streams must equal the CPU's.
@@ -41,33 +50,73 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 SM_COUNT = 132            # H100 SXM
+SMEM_PER_BLOCK = 232448   # dynamic shared memory a block may use (227 KB)
 DECODE_CHUNK = 16         # csrc/decode_attention.cuh: kSplitChunk
+DECODE_WARPS = 4          # kSplitWarps
+DECODE_STAGES = 3         # kSplitStages
 DECODE_MAX_SPLITS = 8     # kMaxDecodeSplits, a portable cluster
-DECODE_MAX_HEADS = 16     # kMaxSplitHeads: G on the m16 side
+DECODE_MAX_HEADS = 16     # kMaxSplitHeads: G on the m16 side (hd <= 128)
+DECODE_WIDE_HD = 256      # the wide layout's head dim
+DECODE_WIDE_MAX_HEADS = 8  # kMaxSplitHeadsWide: G on the n8 side
 
 
 def decode_body(dtype: torch.dtype, hd: int, g: int,
                 aligned: bool = True) -> str:
     """The decode kernel body a launch takes (paged and dense alike):
-    ``"mma"`` for bfloat16 with a head dim of whole k16 steps up to 128,
-    at most 16 query heads per KV head and 16-byte aligned tensors, else
-    ``"cuda_core"``."""
-    if (dtype == torch.bfloat16 and hd % 16 == 0 and 16 <= hd <= 128
-            and g <= DECODE_MAX_HEADS and aligned):
+    ``"mma"`` for bfloat16 with 16-byte aligned tensors and either a
+    head dim of whole k16 steps up to 128 with at most 16 query heads
+    per KV head, or head dim 256 with at most 8; else ``"cuda_core"``."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "cuda_core"
+    if hd % 16 == 0 and 16 <= hd <= 128 and g <= DECODE_MAX_HEADS:
+        return "mma"
+    if hd == DECODE_WIDE_HD and g <= DECODE_WIDE_MAX_HEADS:
         return "mma"
     return "cuda_core"
 
 
-def decode_splits(b: int, kv: int, capacity: int) -> int:
-    """CTAs per (row, KV head) for the mma body: about two CTAs per SM
-    over the ``b * kv`` pairs, at most one portable cluster of 8 and no
-    more than the row capacity's 16-slot chunks (``capacity`` = nb * bs
-    paged, S dense).  Shapes only: the slots each CTA takes are cut from
-    ``pos`` on the device, so the host never reads it, and the same
+def decode_smem_bytes(hd: int, g: int) -> int:
+    """Dynamic shared memory of the mma body (``split_smem_bytes``): the
+    K/V ring of DECODE_STAGES steps of DECODE_WARPS * DECODE_CHUNK slot
+    rows padded to hd + 8 bf16, reused for the warps' and the CTA's f32
+    partials of g heads."""
+    ring = DECODE_STAGES * 2 * DECODE_WARPS * DECODE_CHUNK * (hd + 8) * 2
+    parts = (DECODE_WARPS + 1) * g * (hd + 2) * 4
+    return max(ring, parts)
+
+
+#: clusters of each size (1 to 8) the H100 SXM holds at once when shared
+#: memory allows one CTA an SM, as it does for the wide (hd 256) bodies:
+#: the SMs of a GPC take whole clusters only
+#: (``cudaOccupancyMaxActiveClusters`` at both wide bodies' shared memory,
+#: printed by ``tools/torch_split_sweep.py`` on an H100 80GB HBM3)
+WIDE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+def wide_splits(pairs: int, steps: int) -> int:
+    """CTAs a cluster of a wide body takes for each of ``pairs`` units of
+    work (row tiles or rows, times KV heads): the most, up to a portable
+    cluster of 8 and to ``steps`` (the units' slot steps at capacity),
+    whose clusters the card holds all at once (``WIDE_CLUSTERS``); 1
+    when even single CTAs take more than one wave."""
+    fits = [s for s in range(1, min(DECODE_MAX_SPLITS, steps) + 1)
+            if pairs <= WIDE_CLUSTERS[s]]
+    return max(fits, default=1)
+
+
+def decode_splits(b: int, kv: int, capacity: int, hd: int) -> int:
+    """CTAs per (row, KV head) for the mma body (``capacity`` = nb * bs
+    paged, S dense).  Up to hd 128: about two CTAs per SM over the
+    ``b * kv`` pairs, at most one portable cluster of 8 and no more than
+    the capacity's 16-slot chunks.  At hd 256 (one CTA an SM):
+    :func:`wide_splits`.  Shapes only: the slots each CTA takes are cut
+    from ``pos`` on the device, so the host never reads it, and the same
     shapes give the same split and so the same bits."""
+    chunks = -(-capacity // DECODE_CHUNK)
+    if hd > 128:
+        return wide_splits(b * kv, chunks)
     want = -(-2 * SM_COUNT // max(1, b * kv))
-    return max(1, min(DECODE_MAX_SPLITS, want,
-                      -(-capacity // DECODE_CHUNK)))
+    return max(1, min(DECODE_MAX_SPLITS, want, chunks))
 
 
 def _body_and_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,7 +126,7 @@ def _body_and_splits(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     body = body or decode_body(
         q.dtype, hd, h // kv,
         all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
-    return body, decode_splits(b, kv, capacity) if body == "mma" else 1
+    return body, decode_splits(b, kv, capacity, hd) if body == "mma" else 1
 
 
 def paged_gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

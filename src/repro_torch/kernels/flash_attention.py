@@ -12,16 +12,25 @@ over contiguous K/V.  The kernel is ``csrc/paged_prefill_attention.cu``;
 the TPU kernel it replaces is ``src/repro/kernels/flash_attention.py:72``.
 
 Bound on the H100: bytes at the main path's chunks (C = 128 against a
-prefix of a few hundred keys), and in practice latency and SM fill.
+prefix of a few hundred keys; at gemma3's hd 256, 1,152-2,176 keys of 8
+KV heads), and in practice latency and SM fill.
 The kernel has two bodies, named by :func:`prefill_body`:
 
-* ``"mma"`` (bfloat16, ``hd % 16 == 0``, ``hd <= 128``, 16-byte aligned
-  tensors; every bf16 launch the served models make): Q K^T and P V on
-  the tensor cores (``mma.sync`` m16n8k16, f32 accumulators), one CTA
-  per KV head and 64 (query, head) rows, so the G heads of a group
-  share each K/V tile; P enters the PV product as two bf16 parts
-  (``P_hi + P_lo``, about 16 bits), so the output stays within one
-  final bf16 rounding of the f32 plain version.
+* ``"mma"`` (bfloat16, ``hd % 16 == 0`` up to 128 or ``hd == 256``,
+  16-byte aligned tensors; every bf16 launch the served models make):
+  Q K^T and P V on the tensor cores (``mma.sync`` m16n8k16, f32
+  accumulators), one CTA per KV head and 64 (query, head) rows, so the
+  G heads of a group share each K/V tile; P enters the PV product as
+  two bf16 parts (``P_hi + P_lo``, about 16 bits), so the output stays
+  within one final bf16 rounding of the f32 plain version.  At hd 256
+  (gemma3-12b's ``attn`` layers) the body is wide: key tiles of 32
+  slots a key group, Q read from shared memory at each k16 step rather
+  than held (64 rows x 264 + 2 x 2 x 64 slots x 264 bf16 = 168,960 B,
+  one CTA an SM; 128 f32 registers of O a thread), and each row tile's
+  key range split across a cluster of :func:`prefill_splits` CTAs (3 at
+  gemma3's chunk: 4 tiles x 8 KV heads x 3 = 96 CTAs, the most whose
+  clusters the card holds at once) by logical slot, merged in split
+  order through distributed shared memory.
 * ``"cuda_core"`` (float32 at every shape, bfloat16 at the others):
   the f32 CUDA-core body.  float32 stays there because the card's f32
   streams must equal the CPU's, and TF32 tensor cores would round the
@@ -54,16 +63,48 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import NEG_INF, paged_gather
+from repro_torch.kernels.decode_attention import (NEG_INF, paged_gather,
+                                                  wide_splits)
+
+
+PREFILL_ROWS = 64         # csrc/paged_prefill_attention.cu: mma::kRows
+PREFILL_WIDE_HD = 256     # the wide body's head dim
 
 
 def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     """The kernel body a launch takes: ``"mma"`` for bfloat16 with a head
-    dim the tensor-core tiles take and 16-byte aligned tensors, else
-    ``"cuda_core"``."""
-    if dtype == torch.bfloat16 and hd % 16 == 0 and hd <= 128 and aligned:
+    dim the tensor-core tiles take (whole k16 steps up to 128, or 256)
+    and 16-byte aligned tensors, else ``"cuda_core"``."""
+    if (dtype == torch.bfloat16 and aligned
+            and (hd % 16 == 0 and hd <= 128 or hd == PREFILL_WIDE_HD)):
         return "mma"
     return "cuda_core"
+
+
+def prefill_span(hd: int) -> int:
+    """Logical slots a CTA of the mma body takes per step (``Tiles::kSpan``:
+    two key groups of 64 slots up to hd 128, of 32 at 256)."""
+    return 2 * (32 if hd > 128 else 64)
+
+
+def prefill_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of the mma body (``mma::smem_bytes``): Q's
+    PREFILL_ROWS rows and two K and two V buffers of a step's slots, rows
+    padded to hd + 8 bf16."""
+    return (PREFILL_ROWS + 4 * prefill_span(hd)) * (hd + 8) * 2
+
+
+def prefill_splits(c: int, h: int, kv: int, hd: int, capacity: int) -> int:
+    """CTAs (one cluster) each row tile's key range is split across: 1 up
+    to hd 128; at hd 256 (one CTA an SM), :func:`wide_splits` over the
+    row tiles x KV heads of one row and the capacity's steps
+    (``capacity`` = nb * bs).  Shapes only, and not the batch: the steps
+    each CTA takes are cut from ``pos`` on the device, so a row of a
+    batched launch gets the split of a one-row call and the same bits."""
+    if hd <= 128:
+        return 1
+    tiles = -(-c * (h // kv) // PREFILL_ROWS)
+    return wide_splits(tiles * kv, -(-capacity // prefill_span(hd)))
 
 
 def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -154,13 +195,14 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     body = _body or prefill_body(
         q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
+    splits = prefill_splits(c, h, kv, hd, nb * bs) if body == "mma" else 1
     lib = _build.library()
     _build.launches["paged_prefill_attention"] += 1
     _build.bodies["paged_prefill_attention"][body] += 1
     _build.check(lib.rt_paged_prefill_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         out.data_ptr(), c, h, kv, hd, bs, nb, pos, float(scale),
-        _build.dtype_code(q.dtype), _build.BODY_CODES[body],
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_prefill_attention")
     return out
@@ -200,6 +242,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     body = _body or prefill_body(
         q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
+    splits = prefill_splits(c, h, kv, hd, nb * bs) if body == "mma" else 1
     lib = _build.library()
     _build.launches["paged_chunk_attention"] += 1
     _build.bodies["paged_chunk_attention"][body] += 1
@@ -207,7 +250,7 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, c, h, kv, hd,
         bs, nb, float(scale), _build.dtype_code(q.dtype),
-        _build.BODY_CODES[body],
+        _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_chunk_attention")
     return out

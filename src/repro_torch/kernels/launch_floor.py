@@ -1,12 +1,16 @@
 """The empty kernel (``csrc/launch_floor.cu``): a yardstick for the
 least time one launch takes on the card, timed beside the port's
-kernels.  It replaces no TPU kernel and no model path launches it.
+kernels, and for how many clusters of blocks the card holds at once
+(:func:`max_active_clusters`).  It replaces no TPU kernel and no model
+path launches it.
 
 Like every wrapper it counts its launches, and it launches only for a
 CUDA device; on the CPU it does nothing, which is all its plain version
 would do.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,3 +33,13 @@ def empty(device: torch.device, blocks: int = 1, threads: int = 128) -> None:
     _build.check(lib.rt_empty(blocks, threads,
                               torch.cuda.current_stream(device).cuda_stream),
                  "empty")
+
+
+def max_active_clusters(cluster: int, threads: int, smem: int) -> int:
+    """Clusters of ``cluster`` blocks of ``threads`` threads, each with
+    ``smem`` bytes of dynamic shared memory, that the card runs at once
+    (``cudaOccupancyMaxActiveClusters``; nothing is launched)."""
+    out = ctypes.c_int(0)
+    _build.check(_build.library().rt_max_active_clusters(
+        cluster, threads, smem, ctypes.byref(out)), "max_active_clusters")
+    return out.value

@@ -32,13 +32,16 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    DECODE_CHUNK, DECODE_MAX_SPLITS, decode_body, decode_splits,
-    dense_decode_attention, dense_decode_attention_plain,
-    paged_decode_attention, paged_decode_attention_plain)
+    DECODE_CHUNK, DECODE_MAX_SPLITS, SMEM_PER_BLOCK, WIDE_CLUSTERS,
+    decode_body, decode_smem_bytes, decode_splits, dense_decode_attention,
+    dense_decode_attention_plain, paged_decode_attention,
+    paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    paged_chunk_attention, paged_chunk_attention_plain,
-    paged_prefill_attention, paged_prefill_attention_plain, prefill_body,
-    ring_chunk_attention, ring_chunk_attention_plain, ring_positions)
+    PREFILL_ROWS, paged_chunk_attention,
+    paged_chunk_attention_plain, paged_prefill_attention,
+    paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
+    prefill_span, prefill_splits, ring_chunk_attention,
+    ring_chunk_attention_plain, ring_positions)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
@@ -272,6 +275,7 @@ def test_norm_pack_and_width_refusal():
 @pytest.mark.parametrize("b,h,kv,nb,bs,d", [
     (3, 6, 2, 3, 8, 32),      # GQA, odd pool
     (2, 15, 5, 4, 16, 64),    # smollm-360m's heads
+    (2, 4, 2, 3, 8, 256),     # gemma3-12b's head dim and G = 2
 ])
 def test_paged_decode_plain_matches_jax(J, b, h, kv, nb, bs, d):
     rng = np.random.default_rng(4)
@@ -323,6 +327,7 @@ def _dense_inputs(rng, b, h, kv, s, d):
 @pytest.mark.parametrize("b,h,kv,s,d", [
     (4, 6, 2, 24, 32),        # GQA
     (3, 15, 5, 80, 64),       # smollm-360m's heads, S past one tile
+    (3, 4, 2, 24, 256),       # gemma3-12b's head dim and G = 2
 ])
 def test_dense_decode_plain_matches_jax(J, b, h, kv, s, d):
     rng = np.random.default_rng(14)
@@ -355,7 +360,8 @@ def test_dense_decode_plain_is_paged_on_one_block_per_row():
 # paged prefill (the flash kernel's paged-chunk form)
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("c,h,kv,d,bs", [(32, 4, 4, 32, 8),
-                                         (48, 15, 5, 64, 16)])
+                                         (48, 15, 5, 64, 16),
+                                         (32, 4, 2, 256, 8)])   # gemma3's hd
 def test_paged_prefill_at_pos0_is_flash_attention(J, c, h, kv, d, bs):
     """pos = 0 with an identity table over contiguous K/V computes what
     flash_attention_pallas(causal=True, window=0) computes."""
@@ -658,9 +664,9 @@ def test_body_rule_off_the_tiles():
     """Shapes the tensor-core tiles do not take keep the CUDA-core body
     in bfloat16 too."""
     bf = torch.bfloat16
-    assert prefill_body(bf, 128) == "mma"
-    assert prefill_body(bf, 32) == "mma"
-    for hd in (8, 72, 100, 256):
+    for hd in (128, 32, 256):
+        assert prefill_body(bf, hd) == "mma"
+    for hd in (8, 72, 100, 144, 240, 512):
         assert prefill_body(bf, hd) == "cuda_core"
     assert prefill_body(bf, 64, aligned=False) == "cuda_core"
     assert int4_body(bf, 48, 32) == "mma"
@@ -706,9 +712,11 @@ def test_int8_and_decode_body_rules_off_the_tiles():
     for k, n in ((128, 300), (66, 7), (960, 8), (962, 960), (40, 32)):
         assert int8_body(bf, k, n) == "cuda_core"
     assert int8_body(bf, 960, 960, aligned=False) == "cuda_core"
-    for hd, g in ((16, 1), (32, 3), (128, 8), (64, 16)):
+    for hd, g in ((16, 1), (32, 3), (128, 8), (64, 16), (256, 4), (256, 2),
+                  (256, 8)):
         assert decode_body(bf, hd, g) == "mma"
-    for hd, g in ((8, 3), (72, 3), (100, 2), (256, 4), (64, 17)):
+    for hd, g in ((8, 3), (72, 3), (100, 2), (64, 17), (256, 9), (240, 2),
+                  (144, 2)):
         assert decode_body(bf, hd, g) == "cuda_core"
     assert decode_body(bf, 64, 3, aligned=False) == "cuda_core"
 
@@ -732,7 +740,7 @@ def test_decode_splits_cover_the_slots_and_fill_the_card(b, kv, capacity):
     the row has 16-slot chunks, fills the card with about two CTAs per
     SM where it can, and its shares cover every live slot exactly once
     at every pos (a share past klast is empty)."""
-    splits = decode_splits(b, kv, capacity)
+    splits = decode_splits(b, kv, capacity, 64)
     chunks = -(-capacity // DECODE_CHUNK)
     assert 1 <= splits <= min(DECODE_MAX_SPLITS, chunks)
     assert (b * kv * splits >= 2 * SM_COUNT
@@ -745,6 +753,96 @@ def test_decode_splits_cover_the_slots_and_fill_the_card(b, kv, capacity):
     # the main path's shape: 40 (row, KV head) pairs, 280 CTAs
     if (b, kv, capacity) == (8, 5, 1024):
         assert splits == 7
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mma_bodies_fit_the_shared_memory_a_block_may_use(dtype):
+    """Every (head dim, G) the rules send to a tensor-core attention body
+    fits its shared memory (the bodies' own formulas, mirrored in the
+    wrappers) within the 232,448 bytes a block may use; gemma3-12b's
+    hd 256 at the budgets the sources state."""
+    dt = getattr(torch, dtype)
+    taken = 0
+    for hd in range(8, 520, 8):
+        if prefill_body(dt, hd) == "mma":
+            taken += 1
+            assert prefill_smem_bytes(hd) <= SMEM_PER_BLOCK
+        for g in range(1, 18):
+            if decode_body(dt, hd, g) == "mma":
+                taken += 1
+                assert decode_smem_bytes(hd, g) <= SMEM_PER_BLOCK
+    assert taken == (0 if dtype == "float32" else 9 + 8 * 16 + 8)
+    assert prefill_smem_bytes(256) == 168960
+    assert prefill_smem_bytes(128) == 156672
+    assert decode_smem_bytes(256, 2) == 202752
+
+
+def _prefill_shares(klast: int, span: int, splits: int) -> list:
+    """The steps of ``span`` logical slots [st0, st1) each CTA of a row
+    tile's cluster takes when the tile's last key is ``klast``
+    (csrc/paged_prefill_attention.cu::mma::prefill_kernel)."""
+    nst = klast // span + 1
+    per = -(-nst // splits)
+    return [(r * per, min(r * per + per, nst)) for r in range(splits)]
+
+
+def _one_wave_and_most(pairs: int, splits: int, steps: int) -> None:
+    """A wide split fits one portable cluster and the capacity's steps,
+    its clusters all fit on the card at once (or it is 1), and no larger
+    count would."""
+    top = min(DECODE_MAX_SPLITS, steps)
+    assert 1 <= splits <= top
+    assert pairs <= WIDE_CLUSTERS[splits] or splits == 1
+    assert all(pairs > WIDE_CLUSTERS[s] for s in range(splits + 1, top + 1))
+
+
+@pytest.mark.parametrize("c,h,kv,hd,capacity", [
+    (128, 16, 8, 256, 2176),     # gemma3-12b's prefill chunk
+    (5, 16, 8, 256, 2176),       # a verify round's rows of K + 1 = 5
+    (1, 16, 8, 256, 2176), (77, 16, 8, 256, 2176), (128, 32, 8, 256, 4096),
+    (128, 4, 4, 256, 48),        # a capacity of one step
+    (128, 15, 5, 64, 1024),      # smollm-360m: no split below hd 256
+    (40, 16, 2, 128, 64),
+])
+def test_prefill_splits_cover_the_keys_and_fill_the_card(c, h, kv, hd,
+                                                         capacity):
+    """The split depends on shapes alone (never on pos or the batch, so a
+    batched row matches a one-row call), fills the card in one wave of
+    clusters, asks for no more CTAs than the capacity has steps, and its
+    shares cover every step of a row tile exactly once at every last key
+    (a share past it is empty)."""
+    splits = prefill_splits(c, h, kv, hd, capacity)
+    if hd <= 128:
+        assert splits == 1
+        return
+    span = prefill_span(hd)
+    tiles = -(-c * (h // kv) // PREFILL_ROWS)
+    _one_wave_and_most(tiles * kv, splits, -(-capacity // span))
+    for klast in range(capacity):
+        shares = _prefill_shares(klast, span, splits)
+        covered = [st for st0, st1 in shares for st in range(st0, st1)]
+        assert covered == list(range(klast // span + 1))
+    # gemma3-12b's chunk: 4 row tiles x 8 KV heads x 3 = 96 CTAs
+    if (c, h, kv, hd) == (128, 16, 8, 256):
+        assert splits == 3
+
+
+@pytest.mark.parametrize("b,capacity", [(8, 2176), (8, 1024), (1, 2176),
+                                        (4, 1024), (32, 2176), (2, 16)])
+def test_wide_decode_splits_fill_the_card_in_one_wave(b, capacity):
+    """At hd 256 (gemma3-12b's 8 KV heads) the decode split is the most
+    whose clusters the card holds at once; its shares cover the slots as
+    the narrow split's do."""
+    splits = decode_splits(b, 8, capacity, 256)
+    _one_wave_and_most(b * 8, splits, -(-capacity // DECODE_CHUNK))
+    for klast in range(-1, capacity):
+        covered = [ch for c0, c1 in _decode_shares(klast, splits)
+                   for ch in range(c0, c1)]
+        assert covered == list(range(klast // DECODE_CHUNK + 1
+                                     if klast >= 0 else 0))
+    # the main path's 8 rows: 64 (row, KV head) pairs, clusters of 2
+    if b == 8:
+        assert splits == 2
 
 
 # ----------------------------------------------------------------------
@@ -1476,6 +1574,187 @@ def test_cuda_decode_cuda_core_body_in_bf16(cuda_device, kernel):
             t(pos).to(cuda_device)]
         fn, plain = dense_decode_attention, dense_decode_attention_plain
     name = f"{kernel}_decode_attention"
+    n0 = _build.bodies[name]["cuda_core"]
+    got = fn(*args, _body="cuda_core")
+    assert _build.bodies[name]["cuda_core"] == n0 + 1
+    _card_close(got, plain(*args), "bfloat16")
+
+
+# ----------------------------------------------------------------------
+# on the card: the wide (hd 256) tensor-core bodies, at gemma3-12b's
+# heads (H 16, KV 8, G 2) over rows of 2176 slots in blocks of 16
+# ----------------------------------------------------------------------
+WIDE_H, WIDE_KV, WIDE_D, WIDE_NB, WIDE_BS = 16, 8, 256, 136, 16
+
+
+def _wide_prefill_inputs(rng, c):
+    q = rng.standard_normal((c, WIDE_H, WIDE_D), dtype=np.float32)
+    k = rng.standard_normal((WIDE_NB * WIDE_BS, WIDE_KV, WIDE_D),
+                            dtype=np.float32)
+    v = rng.standard_normal((WIDE_NB * WIDE_BS, WIDE_KV, WIDE_D),
+                            dtype=np.float32)
+    return q, k, v
+
+
+def _paged_from_rows(a, bs, table):
+    """Logical slot rows ``a`` (S, KV, D) as a pool of blocks of ``bs``
+    (block 0 scratch) through ``table``."""
+    nb = a.shape[0] // bs
+    pool = np.zeros((nb + 1, bs) + a.shape[1:], np.float32)
+    pool[table] = a.reshape((nb, bs) + a.shape[1:])
+    return pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos", [0, 1024, 2048])
+@pytest.mark.parametrize("c", [1, 77, 128])
+def test_cuda_wide_prefill_matches_plain(cuda_device, dtype, c, pos):
+    """The paged prefill at hd 256: bf16 takes the wide mma body (its key
+    range split across a cluster), float32 the cuda_core body; within
+    the card's gate of the plain version, one launch counted on the
+    rule's body, and repeated calls bit-equal."""
+    rng = np.random.default_rng(40 + c + pos)
+    q, k, v = _wide_prefill_inputs(rng, c)
+    table = (rng.permutation(WIDE_NB) + 1).astype(np.int32)
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (
+        q, _paged_from_rows(k, WIDE_BS, table),
+        _paged_from_rows(v, WIDE_BS, table))] + [t(table).to(cuda_device)]
+    body = "mma" if dtype == "bfloat16" else "cuda_core"
+    assert prefill_body(dt, WIDE_D) == body
+    n0 = _build.bodies["paged_prefill_attention"][body]
+    got = paged_prefill_attention(*args, pos)
+    assert _build.bodies["paged_prefill_attention"][body] == n0 + 1
+    _card_close(got, paged_prefill_attention_plain(*args, pos), dtype)
+    assert torch.equal(paged_prefill_attention(*args, pos), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,pos", [(128, 1024), (128, 2048), (77, 300),
+                                   (1, 2175)])
+def test_cuda_wide_prefill_bits_do_not_depend_on_blocks(cuda_device, c, pos):
+    """The wide body cuts its tiles and splits by logical slot: the same
+    K/V in shuffled blocks of 16, of 32 and as one dense block gives the
+    same bits."""
+    rng = np.random.default_rng(50 + pos)
+    q, k, v = _wide_prefill_inputs(rng, c)
+    outs = []
+    for bs in (16, 32):
+        table = (rng.permutation(WIDE_NB * WIDE_BS // bs) + 1).astype(np.int32)
+        outs.append(paged_prefill_attention(
+            *[t(a).to(cuda_device, torch.bfloat16) for a in (
+                q, _paged_from_rows(k, bs, table),
+                _paged_from_rows(v, bs, table))],
+            t(table).to(cuda_device), pos))
+    outs.append(paged_prefill_attention(
+        *[t(a).to(cuda_device, torch.bfloat16) for a in (q, k[None], v[None])],
+        torch.zeros(1, dtype=torch.int32, device=cuda_device), pos))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,pos", [(5, [0, 1000, 2100, 17]),
+                                   (9, [300, 2167, 64])])
+def test_cuda_wide_chunk_matches_plain_and_one_row_calls(cuda_device, c, pos):
+    """The batched form at hd 256 on the wide body: within the gate of its
+    plain version, and each row bit-equal to a one-row call at its pos
+    (the split depends on shapes, not on the batch)."""
+    rng = np.random.default_rng(60 + c)
+    b = len(pos)
+    q, kp, vp, tables, pos = _chunk_card_inputs(
+        rng, b, c, WIDE_H, WIDE_KV, WIDE_D, WIDE_BS, WIDE_NB, pos)
+    args = [t(a).to(cuda_device, torch.bfloat16) for a in (q, kp, vp)] + [
+        t(a).to(cuda_device) for a in (tables, pos)]
+    n0 = _build.bodies["paged_chunk_attention"]["mma"]
+    got = paged_chunk_attention(*args)
+    assert _build.bodies["paged_chunk_attention"]["mma"] == n0 + 1
+    _card_close(got, paged_chunk_attention_plain(*args), "bfloat16")
+    for row in range(b):
+        assert torch.equal(got[row], paged_prefill_attention(
+            args[0][row].contiguous(), args[1], args[2],
+            args[3][row].contiguous(), int(pos[row])))
+
+
+#: decode rows of gemma3-12b: positions at and beside the 16-slot chunk
+#: edges the split cuts at, the last slot of a linear row, and (ring) the
+#: pos the model clamps to w - 1
+WIDE_DECODE_POS = {"linear": [0, 15, 16, 79, 80, 1023, 1500, 2175],
+                   "ring": [5, 300, 1022, 1023, 1023, 1023, 16, 1023]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["linear", "ring"])
+def test_cuda_wide_split_decode_paged_equals_dense(cuda_device, rows):
+    """The split decode's wide layout (slots on m16, G = 2 heads on n8)
+    at gemma3-12b's shapes: within the bf16 gate of the plain version;
+    paged (shuffled blocks of 16) and dense give the same bits; repeated
+    calls too."""
+    rng = np.random.default_rng(70)
+    cap = 1024 if rows == "ring" else WIDE_NB * WIDE_BS
+    pos = np.array(WIDE_DECODE_POS[rows], np.int32)
+    b = len(pos)
+    q = rng.standard_normal((b, WIDE_H, WIDE_D), dtype=np.float32)
+    k = rng.standard_normal((b, cap, WIDE_KV, WIDE_D), dtype=np.float32)
+    v = rng.standard_normal((b, cap, WIDE_KV, WIDE_D), dtype=np.float32)
+    nb = cap // WIDE_BS
+    tables = (rng.permutation(b * nb).reshape(b, nb) + 1).astype(np.int32)
+    kp = np.zeros((b * nb + 1, WIDE_BS, WIDE_KV, WIDE_D), np.float32)
+    vp = np.zeros_like(kp)
+    kp[tables] = k.reshape(b, nb, WIDE_BS, WIDE_KV, WIDE_D)
+    vp[tables] = v.reshape(b, nb, WIDE_BS, WIDE_KV, WIDE_D)
+
+    def card(a):
+        return t(a).to(cuda_device, torch.bfloat16)
+    pos_t = t(pos).to(cuda_device)
+    paged_args = (card(q), card(kp), card(vp), t(tables).to(cuda_device),
+                  pos_t)
+    n0 = _build.bodies["paged_decode_attention"]["mma"]
+    paged = paged_decode_attention(*paged_args)
+    assert _build.bodies["paged_decode_attention"]["mma"] == n0 + 1
+    _card_close(paged, paged_decode_attention_plain(*paged_args), "bfloat16")
+    n0 = _build.bodies["dense_decode_attention"]["mma"]
+    dense = dense_decode_attention(card(q), card(k), card(v), pos_t)
+    assert _build.bodies["dense_decode_attention"]["mma"] == n0 + 1
+    assert torch.equal(paged, dense)
+    for _ in range(3):
+        assert torch.equal(paged_decode_attention(*paged_args), paged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["prefill", "paged", "dense"])
+def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
+    """The previous CUDA-core bodies, forced at hd 256 in bf16 (as
+    chip_smoke.py times them against the wide bodies), still agree with
+    the plain versions."""
+    rng = np.random.default_rng(80)
+    bf = torch.bfloat16
+    if kernel == "prefill":
+        q, k, v = _wide_prefill_inputs(rng, 128)
+        table = (rng.permutation(WIDE_NB) + 1).astype(np.int32)
+        args = [t(a).to(cuda_device, bf) for a in (
+            q, _paged_from_rows(k, WIDE_BS, table),
+            _paged_from_rows(v, WIDE_BS, table))] + [
+            t(table).to(cuda_device), 1024]
+        fn, plain, name = (paged_prefill_attention,
+                           paged_prefill_attention_plain,
+                           "paged_prefill_attention")
+    else:
+        pos = np.array(WIDE_DECODE_POS["linear"], np.int32)
+        b, cap = len(pos), WIDE_NB * WIDE_BS
+        q = rng.standard_normal((b, WIDE_H, WIDE_D), dtype=np.float32)
+        k = rng.standard_normal((b, cap, WIDE_KV, WIDE_D), dtype=np.float32)
+        v = rng.standard_normal((b, cap, WIDE_KV, WIDE_D), dtype=np.float32)
+        if kernel == "paged":
+            tables = np.arange(b, dtype=np.int32)[:, None]
+            args = [t(a).to(cuda_device, bf) for a in (q, k, v)] + [
+                t(a).to(cuda_device) for a in (tables, pos)]
+            fn, plain = paged_decode_attention, paged_decode_attention_plain
+        else:
+            args = [t(a).to(cuda_device, bf) for a in (q, k, v)] + [
+                t(pos).to(cuda_device)]
+            fn, plain = dense_decode_attention, dense_decode_attention_plain
+        name = f"{kernel}_decode_attention"
     n0 = _build.bodies[name]["cuda_core"]
     got = fn(*args, _body="cuda_core")
     assert _build.bodies[name]["cuda_core"] == n0 + 1

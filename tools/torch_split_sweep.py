@@ -6,12 +6,18 @@ Run from the repository root on a machine with one NVIDIA GPU::
     python3 tools/torch_split_sweep.py
 
 For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
-projection shapes (8 decode rows and a 128-row prefill chunk), and for
-the split decode attention at 1, 4 and 8 rows, it forces each split
-count in turn (through the wrappers' split rules) and prints one JSON
-line per shape: the device time per call in ms for each count
-(torch.profiler, as ``chip_smoke.py`` measures kernels) beside the count
-the rule picks.  The first line is the card's name and power limit.
+projection shapes (8 decode rows and a 128-row prefill chunk), for the
+split decode attention at 1, 4 and 8 rows of smollm-360m and at
+gemma3-12b's 8 rows of hd 256 (linear rows of 2176 slots and rings of
+1024, the wide layout), and for the paged prefill's wide body at
+gemma3-12b's chunk (C 128 at pos 0, 512, 1024 and 2048), it forces each
+split count in turn (through the wrappers' split rules) and prints one
+JSON line per shape: the device time per call in ms for each count
+(torch.profiler, as ``chip_smoke.py`` measures kernels; the median of
+three at hd 256) beside the count the rule picks.  Before the hd-256
+rows it prints how many clusters of each size the card holds at once at
+the wide bodies' shared memory, the table the wide split rule reads
+(``decode_attention.WIDE_CLUSTERS``).  The first line is the card's name and power limit.
 Without a CUDA device it exits with code 2.
 """
 from __future__ import annotations
@@ -40,8 +46,15 @@ def main() -> int:
     from chip_smoke import device_ms
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.launch_floor import max_active_clusters
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.models.quantize import quantize_int4, quantize_int8
+
+    def median_ms(fn):
+        """The median of three device times: the hd-256 rows' split
+        counts differ by less than calls to the card vary."""
+        return sorted(device_ms(fn) for _ in range(3))[1]
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -79,12 +92,63 @@ def main() -> int:
             np.int32)).to(dev)
         q = torch.randn(b, h, hd, device=dev, dtype=torch.bfloat16)
         row = {"kernel": "paged_decode_attention", "B": b,
-               "rule": decode_rule(b, kv, nb * bs), "ms": {}}
+               "rule": decode_rule(b, kv, nb * bs, hd), "ms": {}}
         for sp in range(1, 9):
             da.decode_splits = lambda *a, sp=sp: sp
             row["ms"][sp] = device_ms(
                 lambda: da.paged_decode_attention(q, kp, vp, tables, pos))
         da.decode_splits = decode_rule
+        print(json.dumps(row), flush=True)
+
+    # how many clusters of each size the card holds at once at the wide
+    # bodies' shared memory (one block an SM): the prefill's and the
+    # decode's
+    for name, threads, smem in (
+            ("paged_prefill_attention", 256, fa.prefill_smem_bytes(256)),
+            ("paged_decode_attention", 128, da.decode_smem_bytes(256, 2))):
+        print(json.dumps({"occupancy": name, "threads": threads,
+                          "smem": smem, "max_active_clusters": {
+                              sp: max_active_clusters(sp, threads, smem)
+                              for sp in range(1, 9)}}), flush=True)
+
+    # gemma3-12b: 16 heads over 8 KV heads of 256, blocks of 16
+    h, kv, hd, bs, b = 16, 8, 256, 16, 8
+    decode_pos = np.array([5, 300, 1022, 1023, 1024, 1500, 1777, 2000])
+    for slots in (2176, 1024):
+        nb = slots // bs
+        nbp = b * nb + 1
+        kp = torch.randn(nbp, bs, kv, hd, device=dev, dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(
+            b, nb) + 1).astype(np.int32)).to(dev)
+        pos = torch.from_numpy(np.minimum(decode_pos, slots - 1).astype(
+            np.int32)).to(dev)
+        q = torch.randn(b, h, hd, device=dev, dtype=torch.bfloat16)
+        row = {"kernel": "paged_decode_attention", "B": b, "hd": hd,
+               "slots": slots, "rule": decode_rule(b, kv, slots, hd),
+               "ms": {}}
+        for sp in range(1, 9):
+            da.decode_splits = lambda *a, sp=sp: sp
+            row["ms"][sp] = median_ms(
+                lambda: da.paged_decode_attention(q, kp, vp, tables, pos))
+        da.decode_splits = decode_rule
+        print(json.dumps(row), flush=True)
+    c, nb = 128, 2176 // bs
+    kp = torch.randn(nb + 1, bs, kv, hd, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(
+        np.int32)).to(dev)
+    q = torch.randn(c, h, hd, device=dev, dtype=torch.bfloat16)
+    prefill_rule = fa.prefill_splits
+    for p0 in (0, 512, 1024, 2048):
+        row = {"kernel": "paged_prefill_attention", "C": c, "hd": hd,
+               "pos": p0, "rule": prefill_rule(c, h, kv, hd, nb * bs),
+               "ms": {}}
+        for sp in range(1, 9):
+            fa.prefill_splits = lambda *a, sp=sp: sp
+            row["ms"][sp] = median_ms(
+                lambda: fa.paged_prefill_attention(q, kp, vp, table, p0))
+        fa.prefill_splits = prefill_rule
         print(json.dumps(row), flush=True)
     return 0
 
