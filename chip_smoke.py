@@ -11,6 +11,12 @@ one JSON line:
 
 1. ``device``  — the card's name and power limit (nvidia-smi);
 2. ``build``   — compile and load the kernel library, with its seconds;
+   then a second ``device`` line: the card's SM count and how many
+   clusters of 1-8 CTAs it holds at once at the wide bodies' shared
+   memory (the paged prefill's, the ring form's and the decode's),
+   against the constants the split rules read (``SM_COUNT`` of four
+   kernel modules, ``WIDE_CLUSTERS``): a mismatch fails by name before
+   any kernel phase;
 3. ``kernels`` — every kernel against its plain PyTorch version on the
    card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
    the quant matmuls, whose sums over K up to 2560 run in another order;
@@ -48,9 +54,11 @@ one JSON line:
    mask.  The window form of the flash kernel
    (``ring_chunk_attention``: C 128 queries of gemma3-12b's 16 heads of
    256 over a ring of w = 1024 slots plus the chunk's own keys) runs at
-   pos 0, 512 and 3000 in float32 and bfloat16, must give the same bits
-   in blocks of 32 and as a dense one-block ring as in blocks of 16, and
-   prints both halves of its bound; its library call is
+   pos 0, 512 and 3000 in float32 (``cuda_core``) and bfloat16 (``mma``,
+   timed in turns against ``cuda_core``), must give the same bits in
+   blocks of 32 and as a dense one-block ring as in blocks of 16, and
+   with pos read on the device as with a host int, and prints both
+   halves of its bound; its library call is
    ``F.scaled_dot_product_attention`` over ``[gathered ring ; chunk]``
    with the boolean window mask.  The attention kernels also run at
    gemma3's hd 256: the one-row prefill (C 128 at pos 1024 and 2048)
@@ -110,11 +118,11 @@ one JSON line:
    share of tokens equal to the paged run's printed); a prefill chunk
    launches the ring form 40 times and the paged prefill 8 times, a
    decode iteration the decode kernel 48 times, checked exactly: the
-   paged prefill and the decode on the wide ``mma`` bodies (hd 256),
-   the ring form on ``cuda_core``.  Which body each attention kernel's
-   launches take is fixed per config in ``ATTN_BODY`` (``mma`` for all
-   four two-body attention kernels of smollm-360m and gemma3-12b), and
-   the wrappers' rules must agree with it.
+   paged prefill, the ring form and the decode on the wide ``mma``
+   bodies (hd 256).  Which body each attention kernel's launches take is
+   fixed per config in ``ATTN_BODY`` (``mma`` for all five two-body
+   attention kernels of smollm-360m and gemma3-12b), and the wrappers'
+   rules must agree with it.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba and gemma3 paged runs; two steady verify rounds after
    ``paged_spec``):
@@ -128,14 +136,17 @@ one JSON line:
    time per chunk (gemma3: 8 requests of 1153 tokens, 72 chunks).  The
    bf16 smollm and gemma3 decode and prefill windows, the int8 and
    int4 decode windows and both falcon-mamba windows run again with the
-   previous (CUDA-core) body of the paged decode, the paged prefill,
-   the int8 or int4 quant matmul, or the selective scan, and the bf16
+   previous (CUDA-core) body of the paged decode, the paged prefill
+   (gemma3: and the ring form), the int8 or int4 quant matmul, or the
+   selective scan, and the bf16
    smollm and falcon-mamba decode and prefill windows with the previous
    rmsnorm (torch's residual add, then the ``cuda_core`` norm), for the
    busy time and the launches each redesign saves.
 
-It then prints the kernel list, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failure raises
+Each phase ends with a line of its wall seconds, as each serve run's and
+each profile's line carries its own.  It then prints the kernel list,
+the card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.  Any failure raises
 and the exit code is non-zero.  Without a CUDA device it exits with
 code 2 before printing anything.
 """
@@ -198,20 +209,21 @@ MAIN_DTYPE = {"selective_scan": "float32"}
 #: must take (rmsnorm: split as expected_launches says; the attention
 #: kernels as ``ATTN_BODY`` names them for the run's config)
 MAIN_BODY = {"selective_scan": ("state_lanes",),
-             "rmsnorm": ("add_norm", "norm"),
-             "ring_chunk_attention": ("cuda_core",)}   # the others: ("mma",)
+             "rmsnorm": ("add_norm", "norm")}   # the others: ("mma",)
 #: the rule that names each two-body attention kernel's body
 ATTN_RULE = {"paged_prefill_attention": "prefill_body",
              "paged_chunk_attention": "prefill_body",
+             "ring_chunk_attention": "ring_body",
              "paged_decode_attention": "decode_body",
              "dense_decode_attention": "decode_body"}
 #: the body of every launch of each attention kernel, per served config,
 #: fixed here (a config not named takes mma everywhere): gemma3-12b's hd
-#: 256 takes the wide mma bodies of the paged prefill, the batched chunk
-#: and both decodes; its ring form (one body) stays cuda_core in
-#: ``MAIN_BODY``.  ``main_bodies`` checks that the wrappers' rules agree.
+#: 256 takes the wide mma bodies of the paged prefill, the batched chunk,
+#: the ring form and both decodes.  ``main_bodies`` checks that the
+#: wrappers' rules agree.
 ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
                             "paged_chunk_attention": "mma",
+                            "ring_chunk_attention": "mma",
                             "paged_decode_attention": "mma",
                             "dense_decode_attention": "mma"}}
 #: the scan's issue bound: the thread instructions one state update
@@ -678,15 +690,16 @@ def _bounds(nbytes, flops, dtype) -> dict:
 
 
 def gemma_cases(dev) -> list:
-    """The attention kernels at gemma3-12b's shapes (hd 256: the ring
-    form on its one ``cuda_core`` body, the others in bf16 on their wide
-    ``mma`` bodies and in float32 on ``cuda_core``).
+    """The attention kernels at gemma3-12b's shapes (hd 256: in bf16 on
+    their wide ``mma`` bodies, in float32 on ``cuda_core``).
 
     ``ring_chunk_attention``, the flash kernel's window form, in float32
     and bfloat16 at pos 0 (no ring key valid), 512 (ring partly filled)
     and 3000 (wrapped): against its plain version under the gates, the
     same ring in blocks of 32 and as a dense one-block ring bit-equal to
-    blocks of 16, and timed, with ``F.scaled_dot_product_attention`` over
+    blocks of 16, pos as a (1,) int32 tensor on the card bit-equal to the
+    host int (in bf16 on both bodies), and timed (bf16 in turns against
+    ``cuda_core``), with ``F.scaled_dot_product_attention`` over
     ``[gathered ring ; chunk]`` and the boolean window mask as the library
     call.  Then the one-row paged prefill (C 128) in bfloat16 at pos
     1024 and 2048, on ``mma`` against ``cuda_core`` in turns, its bits
@@ -715,6 +728,7 @@ def gemma_cases(dev) -> list:
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         es = torch.finfo(dtype).bits // 8
+        body = "mma" if dname == "bfloat16" else "cuda_core"
         for pos in (0, 512, 3000):
             nb = W // BS
             ring_k = rng.standard_normal((W, KV, HD)).astype(np.float32)
@@ -730,7 +744,18 @@ def gemma_cases(dev) -> list:
             q = t(rng.standard_normal((C, H, HD)), dtype)
             kn = t(rng.standard_normal((C, KV, HD)), dtype)
             vn = t(rng.standard_normal((C, KV, HD)), dtype)
-            out = ring_chunk_attention(q, kp, vp, table, kn, vn, pos, W)
+            out = _on_body("ring_chunk_attention", body,
+                           lambda: ring_chunk_attention(q, kp, vp, table, kn,
+                                                        vn, pos, W))
+            # pos read on the device: the host-int call's bits, on both
+            # bodies in bf16
+            pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+            device_pos_equal = {b: torch.equal(
+                out if b == body else ring_chunk_attention(
+                    q, kp, vp, table, kn, vn, pos, W, _body=b),
+                ring_chunk_attention(q, kp, vp, table, kn, vn, pos_t, W,
+                                     _body=b))
+                for b in ((body, "cuda_core") if body == "mma" else (body,))}
             # the same ring in blocks of 32 (identity table) and as one
             # dense block of W slots
             k32 = t(ring_k, dtype).reshape(W // 32, 32, KV, HD)
@@ -743,14 +768,18 @@ def gemma_cases(dev) -> list:
                 t32[:1], kn, vn, pos, W))
             emit({"phase": "kernels", "kernel": "ring_chunk_attention",
                   "check": "blocks of 32 and a dense one-block ring "
-                           "bit-equal to blocks of 16", "dtype": dname,
+                           "bit-equal to blocks of 16; device pos bit-equal "
+                           "to host pos", "dtype": dname, "body": body,
                   "pos": pos, "blocks_equal": blocks_equal,
-                  "dense_equal": dense_equal})
-            if not (blocks_equal and dense_equal):
+                  "dense_equal": dense_equal,
+                  "device_pos_equal": device_pos_equal})
+            if not (blocks_equal and dense_equal
+                    and all(device_pos_equal.values())):
                 raise AssertionError(f"ring_chunk_attention {dname} pos "
                                      f"{pos}: blocks of 32 equal "
                                      f"{blocks_equal}, dense ring equal "
-                                     f"{dense_equal}")
+                                     f"{dense_equal}, device pos equal "
+                                     f"{device_pos_equal}")
             kpos = ring_positions(pos, W, C, dev)[None, :]
             qpos = pos + torch.arange(C, device=dev)[:, None]
             valid = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - W)
@@ -777,8 +806,11 @@ def gemma_cases(dev) -> list:
                                                    pos, W),
                 lambda: F.scaled_dot_product_attention(
                     qs, k_all, v_all, attn_mask=valid, enable_gqa=True),
-                nbytes, flops, extra={"body": "cuda_core",
-                                      **_bounds(nbytes, flops, dname)}))
+                nbytes, flops,
+                prev=(lambda: ring_chunk_attention(
+                    q, kp, vp, table, kn, vn, pos, W, _body="cuda_core"))
+                if body == "mma" else None,
+                extra={"body": body, **_bounds(nbytes, flops, dname)}))
 
     # the attn layers' prefill at hd 256: bf16 on the wide mma body, timed
     # in turns against the previous cuda_core body, its bits the same in
@@ -1331,11 +1363,12 @@ def main_bodies(cfg) -> dict:
     config's launches elsewhere."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.decode_attention import decode_body
-    from repro_torch.kernels.flash_attention import prefill_body
+    from repro_torch.kernels.flash_attention import prefill_body, ring_body
     if not cfg.n_kv_heads:
         return MAIN_BODY
     dtype = torch_dtype(cfg.dtype)
     rules = {"prefill_body": prefill_body(dtype, cfg.head_dim),
+             "ring_body": ring_body(dtype, cfg.head_dim),
              "decode_body": decode_body(dtype, cfg.head_dim,
                                         cfg.n_heads // cfg.n_kv_heads)}
     fixed = ATTN_BODY.get(cfg.name, {})
@@ -1361,6 +1394,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     import torch
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import Request, ServingEngine
+    t_call = time.perf_counter()
     timed_cls = _timed(cls)
     warm = timed_cls(cfg, params, **kw)
     warm.submit(Request(-1, list(range(1, 40)), max_new_tokens=4))
@@ -1420,6 +1454,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
         pairs = [(a, b) for rid, toks in streams.items()
                  for a, b in zip(toks, ref[rid])]
         res[ref_key] = sum(a == b for a, b in pairs) / len(pairs)
+    res["seconds"] = time.perf_counter() - t_call   # warm-up included
     emit(res)
     bad = [r.id for r in done
            if len(r.out_tokens) != n_new
@@ -1546,11 +1581,12 @@ def serve_gemma(dev) -> dict:
     window) through ``PagedServingEngine`` and its decode and prefill
     profiles (prompts past the window, so both windows run the wrapped
     ring), both windows again with the previous (``cuda_core``) body of
-    the paged decode or the paged prefill, then the same 8 through
+    the paged decode or the paged prefill, the prefill window with the
+    previous body of the ring form, then the same 8 through
     ``ServingEngine`` on the same weights, with its share of tokens equal
-    to the paged run's.  Every paged-prefill and decode launch of the
-    serve runs takes the wide ``mma`` body (hd 256), every ring-form
-    launch ``cuda_core``.  Returns each run's launch counts."""
+    to the paged run's.  Every paged-prefill, ring-form and decode launch
+    of the serve runs takes the wide ``mma`` body (hd 256).  Returns each
+    run's launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1578,6 +1614,10 @@ def serve_gemma(dev) -> dict:
     with previous_body("paged_prefill_attention"):
         profile_prefill(cfg, eng.params, kw, dev,
                         label="gemma_paged_bf16, previous prefill body",
+                        prompt_len=1153)
+    with previous_body("ring_chunk_attention"):
+        profile_prefill(cfg, eng.params, kw, dev,
+                        label="gemma_paged_bf16, previous ring body",
                         prompt_len=1153)
     params = eng.params
     del eng
@@ -1646,6 +1686,7 @@ def previous_body(kernel: str):
     from repro_torch.models import attention, layers, quantize, ssm
     sites = {"paged_decode_attention": [(attention, kernel)],
              "paged_prefill_attention": [(attention, kernel)],
+             "ring_chunk_attention": [(attention, kernel)],
              "quant_matmul_int8": [(quantize, kernel)],
              "quant_matmul_int4": [(quantize, kernel)],
              "selective_scan": [(ssm, kernel)],
@@ -1679,6 +1720,7 @@ def profile_decode(cfg, params, kw, dev, label: str,
     without the profiler (the wall time), once under torch.profiler
     (the device's busy time and the kernels by time).  The idle share is
     one minus busy over the unprofiled wall time."""
+    t_call = time.perf_counter()
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import PagedServingEngine, Request
@@ -1729,7 +1771,8 @@ def profile_decode(cfg, params, kw, dev, label: str,
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in top],
-           "port_kernels": _port_kernels(kernels)}
+           "port_kernels": _port_kernels(kernels),
+           "seconds": time.perf_counter() - t_call}
     emit(res)
     return res
 
@@ -1739,6 +1782,7 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
     (admission, prefill and the first round happen before the window),
     timed without the profiler, then again under it on an identical
     engine, as ``profile_decode`` does for macro-steps."""
+    t_call = time.perf_counter()
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import PagedServingEngine, Request
@@ -1791,7 +1835,8 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in top],
-           "port_kernels": _port_kernels(kernels)}
+           "port_kernels": _port_kernels(kernels),
+           "seconds": time.perf_counter() - t_call}
     emit(res)
     return res
 
@@ -1803,6 +1848,7 @@ def profile_prefill(cfg, params, kw, dev, label: str,
     As in ``profile_decode``, the window runs once timed without the
     profiler and once under it on an identical engine; the idle share is
     one minus busy over the unprofiled wall time."""
+    t_call = time.perf_counter()
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import (PagedServingEngine, Request,
@@ -1850,8 +1896,50 @@ def profile_prefill(cfg, params, kw, dev, label: str,
            "top_kernels": [{"name": e.key[:70], "count": e.count,
                             "ms": e.self_device_time_total / 1e3}
                            for e in top],
-           "port_kernels": _port_kernels(kernels)}
+           "port_kernels": _port_kernels(kernels),
+           "seconds": time.perf_counter() - t_call}
     emit(res)
+    return res
+
+
+def device_tables(dev) -> dict:
+    """The card against the constants the split rules read: its SM count
+    against ``SM_COUNT`` (decode attention, quant matmul, rmsnorm,
+    selective scan) and ``cudaOccupancyMaxActiveClusters`` for clusters
+    of 1-8 CTAs at the shared memory of the wide bodies (the paged
+    prefill's, the ring form's, which takes the same tiles, and the
+    decode's at gemma3-12b's G 2) against ``WIDE_CLUSTERS``.  Raises
+    naming each table, size, expected and measured value that differ."""
+    import torch
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     quant_matmul, rmsnorm, selective_scan)
+    from repro_torch.kernels.launch_floor import max_active_clusters
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bad = [f"{m.__name__}.SM_COUNT: expected {m.SM_COUNT}, got {sms}"
+           for m in (decode_attention, quant_matmul, rmsnorm, selective_scan)
+           if m.SM_COUNT != sms]
+    clusters = {}
+    for name, threads, smem in (
+            ("paged_prefill_attention", 256,
+             flash_attention.prefill_smem_bytes(256)),
+            ("ring_chunk_attention", 256,
+             flash_attention.prefill_smem_bytes(256)),
+            ("paged_decode_attention", 128,
+             decode_attention.decode_smem_bytes(256, 2))):
+        got = {sp: max_active_clusters(sp, threads, smem)
+               for sp in range(1, 9)}
+        clusters[name] = {"threads": threads, "smem": smem, "clusters": got}
+        bad += [f"WIDE_CLUSTERS[{sp}] at {name}'s {smem} B: expected "
+                f"{decode_attention.WIDE_CLUSTERS[sp]}, got {n}"
+                for sp, n in got.items()
+                if n != decode_attention.WIDE_CLUSTERS[sp]]
+    res = {"phase": "device", "check": "SM_COUNT and WIDE_CLUSTERS against "
+                                       "this card", "sm_count": sms,
+           "max_active_clusters": clusters, "mismatches": bad}
+    emit(res)
+    if bad:
+        raise AssertionError("the split rules' card tables do not match "
+                             "this card: " + "; ".join(bad))
     return res
 
 
@@ -1933,7 +2021,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     report = [ln.strip() for ln in _build.ptxas_report().splitlines()
-              if "Used" in ln or "Compiling entry" in ln]
+              if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "key": _build.build_key(),
           "ptxas": report})
@@ -1941,10 +2029,14 @@ def main() -> int:
     seconds = {}
 
     def timed(name, fn):
+        """Run phase ``name`` and end it with a line of its wall seconds."""
         t = time.perf_counter()
         out = fn()
         seconds[name] = time.perf_counter() - t
+        emit({"phase": name, "seconds": seconds[name]})
         return out
+
+    timed("device", lambda: device_tables(dev))
 
     cases = timed("kernels", lambda: kernel_cases(dev))
     timed("parity", lambda: parity(dev))

@@ -28,32 +28,73 @@
 // ring) and of chunk_self_attention (a dense ring row, which the wrapper
 // passes as one block of W slots with table [0]).
 //
-// Bound on the H100: operations at gemma3-12b's chunks (C = 128 queries of
-// 16 heads of 256 against up to 1024 + 128 keys: 4 * hd flops per
-// (query head, key) pair over 2 * 8 * 256 bytes per key, some 64 flops a
-// byte), bytes at short prefixes.  This body runs on the CUDA cores in f32
-// for f32 and bf16 alike (a tensor-core body at hd 256 is later work).
+// The position pos is a host int, or an int32 on the device that the
+// CTAs read themselves: the grid and the cluster depend on C, H, KV, hd
+// and w only, so the host never reads pos (a CUDA graph can capture the
+// launch), and a device-pos launch runs the instructions, and gives the
+// bits, of a host-int launch at the same pos.
 //
-// One body, cuda_core.  A CTA owns one KV head and 16 rows, a row being a
-// (query, head-in-group) pair of that KV head's G query heads, so each
-// K/V tile is read once for all G heads.  Its 8 warps are 4 row warps of
-// 4 rows times 2 key groups: the CTA's key tiles (32 keys each, one a
-// lane; ring tiles from slot 0, then chunk tiles from key w) alternate
-// between the groups, each group loading its own tiles behind its own
-// named barrier, so one group's loads overlap the other's arithmetic, and
-// at the end group 1 hands its (m, l, O) to group 0, which merges them
-// in a fixed order.  A tile is converted to f32 in shared memory (K rows
-// padded by 4 floats, so the lanes' 16-byte reads of 32 different keys at
-// one offset fall in distinct banks), each thread issuing 8 16-byte loads
-// before it stores any.  A lane computes its key's 4 scores from 16-byte
-// reads (the warp's 4 query rows are broadcast), the warp's 4 softmax
-// rows run across the lanes with butterfly reductions (m, l in
-// registers), and P goes through a warp-private shared tile into P V,
-// where each lane owns 4 rows times up to two 4-wide column groups of the
-// output in registers.  Tiles are cut by logical key index, never by
-// block, so the output bits do not depend on bs or on the table: a dense
-// one-block ring gives the bits of a paged one.
+// Bound on the H100: bytes at gemma3-12b's chunks (C = 128 queries of 16
+// heads of 256 against up to 1024 + 128 keys of 8 KV heads: 4 * hd flops
+// per (query head, key) pair over 2 * 8 * 256 bytes per key, some 64
+// flops a byte, below the bf16 tensor cores' 295), in practice latency
+// and SM fill: a chunk is 4 row tiles of 64 x 8 KV heads, 32 units of
+// work for 132 SMs.
+//
+// Two bodies; the wrapper names one by its rule
+// (kernels/flash_attention.py::ring_body) and this entry point launches
+// it, refusing a body the shape cannot take:
+//
+// * mma (bf16, hd % 16 == 0 up to 128 or hd 256, 16-byte aligned q /
+//   pools / chunk K/V / out): a copy of the paged prefill's tensor-core
+//   tiles (flash_tiles.cuh) over the ring's key numbering.  A CTA owns one KV
+//   head and 64 (query, head-in-group) rows, 4 row warps of one m16
+//   fragment times 2 key groups; gemma3's chunk is 4 row tiles x 8 KV
+//   heads.  A step is kSpan logical keys of one source, never both: the
+//   ring's steps cover [0, n_old), n_old = min(pos, w), the chunk's
+//   [0, q_last] (the tile's last query); ring slot j is read in place
+//   through table[j / bs], chunk key i from the contiguous K/V, each key
+//   row copied with 16-byte cp.async into a padded shared tile (stride
+//   hd + 8), the next step loading while this one computes.  A key group
+//   skips a tile no row of its warp may see (chunk keys past the warp's
+//   last query or at or below its first query - w; ring slots all with
+//   o <= its first query) and masks, in the log2 domain, only the tiles
+//   that need it.  At hd 256 (wide tiles: 32-slot key tiles, Q from
+//   shared memory, 168,960 B) each row tile's steps are split across a
+//   cluster of `splits` CTAs (the wrapper's ring_splits, shape only: 3
+//   at gemma3's chunk, 96 CTAs, since the card holds 39 clusters of 3 at
+//   one CTA an SM but 30 of 4); CTA r takes steps [r * per, (r + 1) *
+//   per) of the n_old / kSpan (rounded up) + q_last / kSpan + 1 it
+//   derives from pos, and the partials merge in split order through
+//   distributed shared memory.  Below hd 256 the split is 1, as the
+//   prefill's is (a split there spilled registers).
+// * cuda_core (float32 at every shape, bf16 at the others, hd <= 256):
+//   the f32 CUDA-core body of the first port.  float32 stays here
+//   because the card's float32 streams must equal the CPU's: TF32 tensor
+//   cores would round the inputs.  A CTA owns one KV head and 16 rows,
+//   a row being a (query, head-in-group) pair of that KV head's G query
+//   heads, so each K/V tile is read once for all G heads.  Its 8 warps
+//   are 4 row warps of 4 rows times 2 key groups: the CTA's key tiles (32
+//   keys each, one a lane; ring tiles from slot 0, then chunk tiles from
+//   key w) alternate between the groups, each group loading its own
+//   tiles behind its own named barrier, so one group's loads overlap the
+//   other's arithmetic, and at the end group 1 hands its (m, l, O) to
+//   group 0, which merges them in a fixed order.  A tile is converted to
+//   f32 in shared memory (K rows padded by 4 floats, so the lanes'
+//   16-byte reads of 32 different keys at one offset fall in distinct
+//   banks), each thread issuing 8 16-byte loads before it stores any.  A
+//   lane computes its key's 4 scores from 16-byte reads (the warp's 4
+//   query rows are broadcast), the warp's 4 softmax rows run across the
+//   lanes with butterfly reductions (m, l in registers), and P goes
+//   through a warp-private shared tile into P V, where each lane owns 4
+//   rows times up to two 4-wide column groups of the output in
+//   registers.
+//
+// Both bodies cut their tiles by logical key index, never by block, so
+// the output bits do not depend on bs or on the table: a dense one-block
+// ring gives the bits of a paged one.
 #include "common.cuh"
+#include "flash_tiles.cuh"
 
 namespace {
 
@@ -135,8 +176,10 @@ __global__ void __launch_bounds__(kThreads)
 ring_chunk_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                   const T* __restrict__ vp, const int* __restrict__ table,
                   const T* __restrict__ kn, const T* __restrict__ vn,
-                  T* __restrict__ out, int C, int H, int KV, int hd, int bs,
-                  int pos, int w, float scale) {
+                  const int* __restrict__ pos_dev, T* __restrict__ out,
+                  int C, int H, int KV, int hd, int bs, int pos_host, int w,
+                  float scale) {
+  const int pos = pos_dev != nullptr ? *pos_dev : pos_host;
   const int G = H / KV;
   const int kvh = blockIdx.y;
   const int r0 = blockIdx.x * kRows;
@@ -359,8 +402,9 @@ ring_chunk_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* kn, const void* vn,
-                   void* out, int C, int H, int KV, int hd, int bs, int pos,
-                   int w, float scale, cudaStream_t stream) {
+                   const void* pos_dev, void* out, int C, int H, int KV,
+                   int hd, int bs, int pos, int w, float scale,
+                   cudaStream_t stream) {
   const int hd4 = (hd + 3) & ~3;
   // Q, group 0's K / V tiles, then group 1's and the warps' P tiles,
   // which group 1's exchange of (m, l, O) reuses at the end
@@ -378,34 +422,245 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const T*>(kn), static_cast<const T*>(vn),
-      static_cast<T*>(out), C, H, KV, hd, bs, pos, w, scale);
+      static_cast<const int*>(pos_dev), static_cast<T*>(out), C, H, KV, hd,
+      bs, pos, w, scale);
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// mma body (bf16): flash_tiles.cuh's tiles over [old ring ; chunk]
+// ---------------------------------------------------------------------------
+namespace mma {
+
+using flash::kRows;
+using flash::kThreads;
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+ring_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ kp,
+                const __nv_bfloat16* __restrict__ vp,
+                const int* __restrict__ table,
+                const __nv_bfloat16* __restrict__ kn,
+                const __nv_bfloat16* __restrict__ vn,
+                const int* __restrict__ pos_dev,
+                __nv_bfloat16* __restrict__ out, int C, int H, int KV,
+                int bs, int pos_host, int w, float scale_log2, int splits) {
+  using T = flash::Tiles<HD>;
+  constexpr int kTileK = T::kTileK;
+  constexpr int kSpan = T::kSpan;
+  constexpr int kStride = T::kStride;
+  constexpr int kChunks = T::kChunks;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kRows * kStride;        // [2][kSpan][kStride]
+  __nv_bfloat16* vs = ks + 2 * kSpan * kStride;    // [2][kSpan][kStride]
+
+  const int pos = pos_dev != nullptr ? *pos_dev : pos_host;
+  const int G = H / KV;
+  const int kvh = blockIdx.y;
+  const int rows = C * G;
+  // grid x: row tiles, each split across `splits` CTAs (a cluster); 1
+  // below the wide tiles, fixed here so those bodies compile as unsplit
+  if constexpr (!T::kWide) splits = 1;
+  const int split = blockIdx.x % splits;
+  const int r0 = blockIdx.x / splits * kRows;
+  const int rlast = min(r0 + kRows, rows) - 1;
+  const int q_last = rlast / G;                    // the tile's last query
+  const int n_old = min(pos, w);                   // ring slots read
+  const int pos_mod = pos % w;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  // this warp's 16 rows, and its half of each step
+  const int warp = (tid >> 5) % flash::kRowWarps;
+  const int kgroup = (tid >> 5) / flash::kRowWarps;
+
+  // the tile's steps of kSpan logical keys: n_rs over the ring's
+  // [0, n_old), then q_last / kSpan + 1 over the chunk's [0, q_last];
+  // this CTA's share [st0, st1) (empty past the last)
+  const int n_rs = (n_old + kSpan - 1) / kSpan;
+  const int nst = n_rs + q_last / kSpan + 1;
+  const int per = (nst + splits - 1) / splits;
+  const int st0 = split * per;
+  const int st1 = min(st0 + per, nst);
+
+  flash::load_q<HD>(qs, q, r0, rows, G, H, kvh, tid);
+  // step it's keys into buffer buf: ring slots through the table, zero
+  // past n_old; chunk keys from k_new / v_new, zero past q_last
+  auto load_tile = [&](int it, int buf) {
+    __nv_bfloat16* kd = ks + buf * kSpan * kStride;
+    __nv_bfloat16* vd = vs + buf * kSpan * kStride;
+    const bool ring = it < n_rs;
+    const int k0 = (ring ? it : it - n_rs) * kSpan;
+    const int kend = ring ? n_old : q_last + 1;
+    const __nv_bfloat16* kb = ring ? kp : kn;
+    const __nv_bfloat16* vb = ring ? vp : vn;
+    for (int e = tid; e < kSpan * kChunks; e += kThreads) {
+      const int ki = e / kChunks;
+      const int c = e - ki * kChunks;
+      const int s = k0 + ki;
+      size_t off = 0;
+      int n = 0;
+      if (s < kend) {
+        size_t row = s;
+        if (ring) {
+          const int blk = s / bs;
+          row = static_cast<size_t>(table[blk]) * bs + (s - blk * bs);
+        }
+        off = (row * KV + kvh) * HD + c * 8;
+        n = 16;
+      }
+      rt::cp_async16(kd + ki * kStride + c * 8, kb + off, n);
+      rt::cp_async16(vd + ki * kStride + c * 8, vb + off, n);
+    }
+  };
+  if (st0 < st1) load_tile(st0, 0);
+  rt::cp_async_commit();
+
+  // this warp's rows: wr0 .. wr0 + 15, their queries wq_first ..
+  // wq_last; this lane's two rows' queries qa and qb
+  const int grp = lane >> 2;
+  const int wr0 = r0 + warp * 16;
+  const bool live = wr0 <= rlast;
+  const int wq_first = wr0 / G;
+  const int wq_last = min(wr0 + 15, rlast) / G;
+  const int qa = (wr0 + grp) / G;
+  const int qb = (wr0 + grp + 8) / G;
+
+  uint32_t qf[T::kQFrags][4];   // Q in registers (not wide)
+  flash::Rows<HD> st;
+  flash::init_rows(st);
+
+  for (int it = st0; it < st1; ++it) {
+    const int buf = (it - st0) & 1;
+    if (it + 1 < st1) load_tile(it + 1, buf ^ 1);
+    rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    __syncthreads();
+    if (it == st0) flash::load_q_frags<HD>(qf, qs, warp, lane);
+    // this key group's tile: k0 its first logical key.  A ring slot j
+    // (j < n_old) is seen by query qi iff o = (j - pos) mod w > qi; the
+    // tile's o run from d0 up, through w - 1 to 0 where it `wraps`.  A
+    // chunk key i is seen iff qi - w < i <= qi.
+    const bool ring = it < n_rs;
+    const int k0 = (ring ? it : it - n_rs) * kSpan + kgroup * kTileK;
+    bool seen, masked;
+    if (ring) {
+      const int n = min(kTileK, n_old - k0);   // its slots below n_old
+      int d0 = k0 - pos_mod;
+      if (d0 < 0) d0 += w;
+      const bool wraps = d0 + n - 1 >= w;
+      seen = n > 0 && (wraps || d0 + n - 1 > wq_first);
+      masked = n < kTileK || wraps || d0 <= wq_last;
+    } else {
+      seen = k0 <= wq_last && k0 + kTileK - 1 > wq_first - w;
+      masked = k0 + kTileK - 1 > wq_first || k0 <= wq_last - w;
+    }
+    if (live && seen) {
+      flash::attend<HD>(
+          st, qf, qs, ks + (buf * kSpan + kgroup * kTileK) * kStride,
+          vs + (buf * kSpan + kgroup * kTileK) * kStride, k0, warp, lane,
+          scale_log2, masked, [&](int key, bool half) {
+            const int qi = half ? qb : qa;
+            if (!ring) return key > qi || key <= qi - w;
+            int o = key - pos_mod;
+            if (o < 0) o += w;
+            return key >= n_old || o <= qi;
+          });
+    }
+    __syncthreads();
+  }
+
+  flash::merge_key_groups<HD>(st, ks, kgroup, warp, lane);
+  flash::finish<HD>(st, vs, out, r0, rlast, live, G, H, kvh, kgroup, warp,
+                    lane, split, splits);
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* kp, const void* vp,
+                   const void* table, const void* kn, const void* vn,
+                   const void* pos_dev, void* out, int C, int H, int KV,
+                   int bs, int pos, int w, float scale, int splits,
+                   cudaStream_t stream) {
+  const int tiles = (C * (H / KV) + kRows - 1) / kRows;
+  return flash::launch<HD>(
+      ring_mma_kernel<HD>, tiles, splits, KV, 1, stream,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
+      static_cast<const __nv_bfloat16*>(kn),
+      static_cast<const __nv_bfloat16*>(vn), static_cast<const int*>(pos_dev),
+      static_cast<__nv_bfloat16*>(out), C, H, KV, bs, pos, w,
+      scale * flash::kLog2e, splits);
+}
+
+// The instantiation for head dim hd, one of HD, HD - 16, ..., 16.
+template <int HD>
+cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
+                     const void* table, const void* kn, const void* vn,
+                     const void* pos_dev, void* out, int C, int H, int KV,
+                     int bs, int pos, int w, float scale, cudaStream_t s) {
+  if (hd == HD)
+    return launch<HD>(q, kp, vp, table, kn, vn, pos_dev, out, C, H, KV, bs,
+                      pos, w, scale, 1, s);
+  if constexpr (HD > 16)
+    return dispatch<HD - 16>(hd, q, kp, vp, table, kn, vn, pos_dev, out, C,
+                             H, KV, bs, pos, w, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace mma
 }  // namespace
 
 // q (C, H, hd); pools (NB, bs, KV, hd); table (nb,) int32 covering ring
-// slots [0, w); k_new / v_new (C, KV, hd); out like q.  pos >= 0 is the
-// position of the chunk's first query, w the ring size.
+// slots [0, w); k_new / v_new (C, KV, hd); out like q.  The position of
+// the chunk's first query is *pos_dev, an int32 on the device, where
+// pos_dev is not null, else pos (>= 0); w is the ring size.  splits (1
+// to 8) is read by the wide mma body only; the others take 1.
 extern "C" int rt_ring_chunk_attention(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
                                        const void* k_new, const void* v_new,
-                                       void* out, int C, int H, int KV,
-                                       int hd, int bs, int nb, int pos, int w,
-                                       float scale, int dtype, int body,
-                                       void* stream) {
+                                       const void* pos_dev, void* out, int C,
+                                       int H, int KV, int hd, int bs, int nb,
+                                       int pos, int w, float scale, int dtype,
+                                       int body, int splits, void* stream) {
   if (C <= 0) return static_cast<int>(cudaSuccess);
-  if (KV <= 0 || H % KV != 0 || bs <= 0 || hd <= 0 || hd > kMaxHd ||
-      pos < 0 || w <= 0 || nb * bs < w || body != rt::kBodyCudaCore)
+  if (KV <= 0 || H % KV != 0 || bs <= 0 || hd <= 0 ||
+      (pos_dev == nullptr && pos < 0) || w <= 0 || nb * bs < w)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == rt::kBodyMma) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                           reinterpret_cast<uintptr_t>(k_pool) |
+                           reinterpret_cast<uintptr_t>(v_pool) |
+                           reinterpret_cast<uintptr_t>(k_new) |
+                           reinterpret_cast<uintptr_t>(v_new) |
+                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    if (dtype != 1 || !aligned)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (hd == 256) {
+      if (splits < 1 || splits > flash::kMaxSplits)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(mma::launch<256>(
+          q, k_pool, v_pool, table, k_new, v_new, pos_dev, out, C, H, KV, bs,
+          pos, w, scale, splits, s));
+    }
+    if (hd % 16 != 0 || hd > 128 || splits != 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(mma::dispatch<128>(
+        hd, q, k_pool, v_pool, table, k_new, v_new, pos_dev, out, C, H, KV,
+        bs, pos, w, scale, s));
+  }
+  if (body != rt::kBodyCudaCore || hd > kMaxHd || splits != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return static_cast<int>(launch<float>(q, k_pool, v_pool, table, k_new,
-                                          v_new, out, C, H, KV, hd, bs, pos,
-                                          w, scale, s));
+                                          v_new, pos_dev, out, C, H, KV, hd,
+                                          bs, pos, w, scale, s));
   if (dtype == 1)
     return static_cast<int>(launch<__nv_bfloat16>(
-        q, k_pool, v_pool, table, k_new, v_new, out, C, H, KV, hd, bs, pos, w,
-        scale, s));
+        q, k_pool, v_pool, table, k_new, v_new, pos_dev, out, C, H, KV, hd,
+        bs, pos, w, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

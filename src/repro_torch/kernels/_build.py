@@ -16,8 +16,7 @@ Each kernel wrapper counts its launches in :data:`launches` (a plain
 integer per kernel) where it calls into the library, and nowhere else,
 so a run can show that its main path went through the kernels; a
 kernel with more than one body also counts each launch under its body
-in :data:`bodies` (the ring kernel too, whose one body a launch
-names explicitly).
+in :data:`bodies`.
 """
 from __future__ import annotations
 
@@ -51,17 +50,16 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "empty": 0}   # launch_floor.py's yardstick
 
 #: kernel name -> body -> launches since the last reset, for the kernels
-#: with more than one body and the ring kernel (the body names of
-#: csrc/*.cu: "mma", the bf16 tensor-core body; "state_lanes", the scan
-#: with d_state split across lanes; "add_norm" and "norm", rmsnorm with
-#: and without the residual add, the row in registers; "cuda_core", the
-#: previous body, and the ring kernel's only one)
+#: with more than one body (the body names of csrc/*.cu: "mma", the bf16
+#: tensor-core body; "state_lanes", the scan with d_state split across
+#: lanes; "add_norm" and "norm", rmsnorm with and without the residual
+#: add, the row in registers; "cuda_core", the previous body)
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
-                    "paged_chunk_attention", "dense_decode_attention",
-                    "quant_matmul_int8", "quant_matmul_int4")},
-    "ring_chunk_attention": {"cuda_core": 0},
+                    "paged_chunk_attention", "ring_chunk_attention",
+                    "dense_decode_attention", "quant_matmul_int8",
+                    "quant_matmul_int4")},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -172,10 +170,11 @@ _SIGNATURES = {
     # nb, scale, dtype, body, splits, stream
     "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _I, _I, _I, _P),
-    # q, k_pool, v_pool, table, k_new, v_new, out, C, H, KV, hd, bs, nb,
-    # pos, w, scale, dtype, body, stream
-    "rt_ring_chunk_attention": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _I, _I, _P),
+    # q, k_pool, v_pool, table, k_new, v_new, pos (device, or null), out,
+    # C, H, KV, hd, bs, nb, pos (host), w, scale, dtype, body, splits,
+    # stream
+    "rt_ring_chunk_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

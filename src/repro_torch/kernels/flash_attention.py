@@ -50,8 +50,14 @@ TPU kernel) is the swa branch of the reference's chunk attention: C
 queries of one request attend to the w keys of its sliding-window ring
 (read in place through the ring's block table) followed by the chunk's
 own C keys, under the causal and the window mask
-(``csrc/ring_chunk_attention.cu``, one CUDA-core body for float32 and
-bfloat16 at every head dim up to 256).
+(``csrc/ring_chunk_attention.cu``).  Its ``pos`` is a host int or a
+``(1,)`` int32 tensor on the device, which the CTAs read themselves: the
+grid depends on C, H, KV, hd and w only.  Two bodies, named by
+:func:`ring_body` where :func:`prefill_body` names them: ``"mma"``, the
+prefill's tensor-core tiles over the ring's key numbering (at hd 256
+each row tile's steps split across a cluster of :func:`ring_splits`
+CTAs), and ``"cuda_core"``, the f32 CUDA-core body (float32 at every
+shape, bfloat16 at the others, hd up to 256).
 
 The wrappers run the plain versions for CPU tensors only; for CUDA
 tensors they launch the body the rule names, or raise.
@@ -92,6 +98,28 @@ def prefill_smem_bytes(hd: int) -> int:
     PREFILL_ROWS rows and two K and two V buffers of a step's slots, rows
     padded to hd + 8 bf16."""
     return (PREFILL_ROWS + 4 * prefill_span(hd)) * (hd + 8) * 2
+
+
+def ring_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The window form's body: ``"mma"`` exactly where :func:`prefill_body`
+    names it (bfloat16, 16-byte aligned q, pools, chunk K/V and out, hd of
+    whole k16 steps up to 128 or 256), else ``"cuda_core"``, so float32
+    keeps the card's streams equal to the CPU's."""
+    return prefill_body(dtype, hd, aligned)
+
+
+def ring_splits(c: int, h: int, kv: int, hd: int, w: int) -> int:
+    """CTAs (one cluster) each row tile's steps of the window form's
+    ``mma`` body are split across: 1 up to hd 128; at hd 256,
+    :func:`wide_splits` over the row tiles x KV heads and the steps of a
+    full ring plus a whole chunk.  Shapes only: the steps each CTA takes
+    are cut from ``pos`` on the device (3 at gemma3's chunk: 32 units over
+    16 + 2 steps)."""
+    if hd <= 128:
+        return 1
+    span = prefill_span(hd)
+    tiles = -(-c * (h // kv) // PREFILL_ROWS)
+    return wide_splits(tiles * kv, -(-w // span) + -(-c // span))
 
 
 def prefill_splits(c: int, h: int, kv: int, hd: int, capacity: int) -> int:
@@ -269,7 +297,7 @@ def ring_positions(pos: int, w: int, c: int, device) -> torch.Tensor:
 def ring_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor, table: torch.Tensor,
                                k_new: torch.Tensor, v_new: torch.Tensor,
-                               pos: int, w: int,
+                               pos, w: int,
                                scale: Optional[float] = None) -> torch.Tensor:
     """The swa branch of the reference's ``paged_chunk_self_attention``,
     in its order: gather the ring's first ``w`` slots through ``table``,
@@ -277,12 +305,13 @@ def ring_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     kpos <= qpos & kpos > qpos - w``, softmax, P V.  q (C,H,hd); pools
     (NB,bs,KV,hd); table (nb,) with nb * bs >= w; k_new / v_new
     (C,KV,hd), the chunk's keys and values (not yet in the ring); pos the
-    absolute position of q's first token; w the ring size,
-    ``min(window, max_len)``.  Returns (C,H,hd) in q.dtype."""
+    absolute position of q's first token, an int or a ``(1,)`` tensor
+    (whose value is read here); w the ring size, ``min(window,
+    max_len)``.  Returns (C,H,hd) in q.dtype."""
     c, h, hd = q.shape
     kv = k_pool.shape[2]
     g = h // kv
-    pos = int(pos)
+    pos = int(pos.item()) if torch.is_tensor(pos) else int(pos)
     scale = hd ** -0.5 if scale is None else scale
     k_all = torch.cat([paged_gather(k_pool, table[None])[0, :w], k_new]).float()
     v_all = torch.cat([paged_gather(v_pool, table[None])[0, :w], v_new]).float()
@@ -299,48 +328,64 @@ def ring_chunk_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
 
 def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, table: torch.Tensor,
-                         k_new: torch.Tensor, v_new: torch.Tensor, pos: int,
-                         w: int, scale: Optional[float] = None) -> torch.Tensor:
+                         k_new: torch.Tensor, v_new: torch.Tensor, pos,
+                         w: int, scale: Optional[float] = None,
+                         _body: Optional[str] = None) -> torch.Tensor:
     """Sliding-window chunk attention over a ring; see
-    :func:`ring_chunk_attention_plain` for the contract.  The ring is
-    read in place and not written: the caller writes the chunk's keys
-    into it afterwards."""
+    :func:`ring_chunk_attention_plain` for the contract.  ``pos`` is a
+    host int or a ``(1,)`` int32 tensor on q's device, which the kernel
+    reads there (the host never does).  The ring is read in place and
+    not written: the caller writes the chunk's keys into it afterwards.
+    ``_body`` as in :func:`paged_prefill_attention`."""
     if q.device.type == "cpu":
         return ring_chunk_attention_plain(q, k_pool, v_pool, table, k_new,
                                           v_new, pos, w, scale)
     c, h, hd = q.shape
     nbp, bs, kv, hd_k = k_pool.shape
     nb = table.shape[0] if table.dim() == 1 else -1
-    pos, w = int(pos), int(w)
+    pos_dev = pos if torch.is_tensor(pos) else None
+    pos = 0 if pos_dev is not None else int(pos)
+    w = int(w)
     scale = hd ** -0.5 if scale is None else scale
-    tensors = (q, k_pool, v_pool, table, k_new, v_new)
+    tensors = (q, k_pool, v_pool, table, k_new, v_new) + (
+        (pos_dev,) if pos_dev is not None else ())
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("ring_chunk_attention: all tensors must lie on one "
                          "CUDA device")
     if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv or nb < 0
             or k_new.shape != (c, kv, hd) or v_new.shape != k_new.shape
-            or pos < 0 or w <= 0 or nb * bs < w or hd > 256):
+            or pos < 0 or w <= 0 or nb * bs < w or hd > 256
+            or (pos_dev is not None and pos_dev.shape != (1,))):
         raise ValueError(
             f"ring_chunk_attention: shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, table "
             f"{tuple(table.shape)}, chunk K/V {tuple(k_new.shape)}/"
-            f"{tuple(v_new.shape)}, pos {pos}, w {w} do not fit")
+            f"{tuple(v_new.shape)}, pos "
+            f"{tuple(pos_dev.shape) if pos_dev is not None else pos}, w {w} "
+            f"do not fit")
     if (any(t.dtype != q.dtype for t in (k_pool, v_pool, k_new, v_new))
-            or table.dtype != torch.int32):
+            or table.dtype != torch.int32
+            or (pos_dev is not None and pos_dev.dtype != torch.int32)):
         raise TypeError("ring_chunk_attention: q, pools and chunk K/V must "
-                        "share a dtype; the table must be int32")
+                        "share a dtype; the table and a tensor pos must be "
+                        "int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ring_chunk_attention: the kernel takes contiguous "
                          "tensors")
     out = torch.empty_like(q)
+    body = _body or ring_body(q.dtype, hd, all(
+        t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool, k_new, v_new,
+                                         out)))
+    splits = ring_splits(c, h, kv, hd, w) if body == "mma" else 1
     lib = _build.library()
     _build.launches["ring_chunk_attention"] += 1
-    _build.bodies["ring_chunk_attention"]["cuda_core"] += 1
+    _build.bodies["ring_chunk_attention"][body] += 1
     _build.check(lib.rt_ring_chunk_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(), c, h, kv, hd, bs,
-        nb, pos, w, float(scale), _build.dtype_code(q.dtype),
-        _build.BODY_CODES["cuda_core"],
+        k_new.data_ptr(), v_new.data_ptr(),
+        pos_dev.data_ptr() if pos_dev is not None else None, out.data_ptr(),
+        c, h, kv, hd, bs, nb, pos, w, float(scale),
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "ring_chunk_attention")
     return out

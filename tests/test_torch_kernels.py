@@ -23,6 +23,8 @@ steps (2**-6 * |plain| + 1e-5 for values near zero), and the largest
 difference within 2e-2.  A lost key tile or a wrong lane moves an
 output by a sizeable share of its value and fails the first bound.
 """
+import importlib.util
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,8 +42,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     PREFILL_ROWS, paged_chunk_attention,
     paged_chunk_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
-    prefill_span, prefill_splits, ring_chunk_attention,
-    ring_chunk_attention_plain, ring_positions)
+    prefill_span, prefill_splits, ring_body, ring_chunk_attention,
+    ring_chunk_attention_plain, ring_positions, ring_splits)
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
     MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
     quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
@@ -491,6 +493,130 @@ def test_ring_wrapper_refuses_other_devices_and_counts_no_cpu_launches():
     assert all(n == 0 for n in _build.launches.values())
 
 
+@pytest.mark.parametrize("pos,c", [(0, 16), (20, 8), (31, 16), (45, 64),
+                                   (200, 48)])
+def test_ring_plain_takes_a_device_pos_tensor(pos, c):
+    """The plain version given ``pos`` as a (1,) int32 tensor (the
+    kernel's device-pos form) equals the host-int call bit for bit, and
+    the wrapper takes it on the CPU without a launch."""
+    rng = np.random.default_rng(11 + pos)
+    w, h, kv, d = 32, 6, 2, 32
+    q, k, v, kp, vp, table = _ring_inputs(rng, pos, c, w, h, kv, d, 16)
+    args = (t(q[pos:]), t(kp), t(vp), t(table), t(k[pos:]), t(v[pos:]))
+    want = ring_chunk_attention_plain(*args, pos, w)
+    pos_t = torch.tensor([pos], dtype=torch.int32)
+    assert torch.equal(ring_chunk_attention_plain(*args, pos_t, w), want)
+    _build.reset_launches()
+    assert torch.equal(ring_chunk_attention(*args, pos_t, w), want)
+    assert _build.launches["ring_chunk_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    ("bfloat16", 256, True, "mma"),     # gemma3-12b: the wide tiles
+    ("bfloat16", 128, True, "mma"),     # mixtral-8x7b
+    ("bfloat16", 64, True, "mma"), ("bfloat16", 32, True, "mma"),
+    ("bfloat16", 16, True, "mma"),
+    ("bfloat16", 30, True, "cuda_core"), ("bfloat16", 144, True, "cuda_core"),
+    ("bfloat16", 240, True, "cuda_core"), ("bfloat16", 512, True, "cuda_core"),
+    ("bfloat16", 256, False, "cuda_core"), ("bfloat16", 64, False, "cuda_core"),
+    ("float32", 256, True, "cuda_core"), ("float32", 64, True, "cuda_core"),
+])
+def test_ring_body_rule(dtype, hd, aligned, want):
+    """The window form takes the tensor-core body exactly where the paged
+    prefill does (bf16, aligned, whole k16 steps up to 128 or 256), and
+    the CUDA-core body elsewhere: float32 always, so the card's f32
+    streams stay equal to the CPU's."""
+    dt = getattr(torch, dtype)
+    assert ring_body(dt, hd, aligned) == want
+    assert ring_body(dt, hd, aligned) == prefill_body(dt, hd, aligned)
+
+
+def _ring_tiles(pos, w, c, g, r0, hd, splits):
+    """The key tiles each CTA of a row tile's cluster takes in the window
+    form's mma body (csrc/ring_chunk_attention.cu::mma::ring_mma_kernel),
+    for the tile of rows r0 .. r0 + 63: per CTA, a list of (source,
+    first key) of kTileK keys, ring steps then chunk steps."""
+    span = prefill_span(hd)
+    tile_k = span // 2
+    rlast = min(r0 + PREFILL_ROWS, c * g) - 1
+    q_last = rlast // g
+    n_old = min(pos, w)
+    n_rs = -(-n_old // span)
+    nst = n_rs + q_last // span + 1
+    per = -(-nst // splits)
+    steps = [("ring", it * span) if it < n_rs else
+             ("chunk", (it - n_rs) * span) for it in range(nst)]
+    return [[(src, k0 + grp * tile_k) for src, k0 in steps[r * per:
+                                                           r * per + per]
+             for grp in range(2)] for r in range(splits)], q_last, tile_k
+
+
+def _ring_seen_masked(src, k0, tile_k, pos, w, wq_first, wq_last):
+    """A key group's decision on its tile (the kernel's, mirrored): is any
+    key seen by a row of the warp, and does the tile need the mask."""
+    n_old, pos_mod = min(pos, w), pos % w
+    if src == "ring":
+        n = min(tile_k, n_old - k0)
+        d0 = (k0 - pos_mod) % w
+        wraps = d0 + n - 1 >= w
+        return (n > 0 and (wraps or d0 + n - 1 > wq_first),
+                n < tile_k or wraps or d0 <= wq_last)
+    return (k0 <= wq_last and k0 + tile_k - 1 > wq_first - w,
+            k0 + tile_k - 1 > wq_first or k0 <= wq_last - w)
+
+
+@pytest.mark.parametrize("c,h,kv,hd,w", [
+    (128, 16, 8, 256, 1024),     # gemma3-12b's prefill chunk
+    (128, 32, 8, 128, 4096),     # mixtral-8x7b's
+    (160, 16, 8, 256, 128),      # a chunk longer than the ring, wide
+    (64, 6, 2, 32, 32), (33, 4, 4, 64, 48), (5, 6, 2, 32, 32),
+    (1, 16, 8, 256, 1024),
+])
+def test_ring_splits_cover_the_keys_and_fill_the_card(c, h, kv, hd, w):
+    """The window form's split depends on shapes alone, fills the card in
+    one wave of clusters at hd 256 (1 below), and at every pos (0, inside
+    the first lap, w - 1, w and far past it) its steps hand each logical
+    key of ``[ring ; chunk]`` a row tile needs to exactly one key group
+    of exactly one CTA.  A key group skips a tile only where no row of
+    its warp sees a key of it, and leaves the mask off only where every
+    row sees every key (the plain version's mask)."""
+    splits = ring_splits(c, h, kv, hd, w)
+    g = h // kv
+    span = prefill_span(hd)
+    tiles = -(-c * g // PREFILL_ROWS)
+    if hd <= 128:
+        assert splits == 1
+    else:
+        _one_wave_and_most(tiles * kv, splits, -(-w // span) + -(-c // span))
+    if (c, h, kv, hd, w) == (128, 16, 8, 256, 1024):
+        assert splits == 3       # 4 row tiles x 8 KV heads x 3 = 96 CTAs
+    for pos in (0, w // 2, w - 1, w, w + 7, 3 * w + 100):
+        n_old, pos_mod = min(pos, w), pos % w
+        for r0 in range(0, c * g, PREFILL_ROWS):
+            shares, q_last, tile_k = _ring_tiles(pos, w, c, g, r0, hd,
+                                                 splits)
+            keys = [(src, k) for share in shares for src, k0 in share
+                    for k in range(k0, k0 + tile_k)
+                    if k < (n_old if src == "ring" else q_last + 1)]
+            assert sorted(keys) == sorted(
+                [("ring", j) for j in range(n_old)]
+                + [("chunk", i) for i in range(q_last + 1)])
+            rlast = min(r0 + PREFILL_ROWS, c * g) - 1
+            for wr0 in range(r0, rlast + 1, 16):
+                qi = np.arange(wr0, min(wr0 + 16, rlast + 1))[:, None] // g
+                for src, k0 in (tk for share in shares for tk in share):
+                    seen, masked = _ring_seen_masked(
+                        src, k0, tile_k, pos, w, int(qi.min()),
+                        int(qi.max()))
+                    key = np.arange(k0, k0 + tile_k)[None, :]
+                    if src == "ring":
+                        valid = (key < n_old) & ((key - pos_mod) % w > qi)
+                    else:
+                        valid = (key <= qi) & (key > qi - w)
+                    assert seen or not valid.any()
+                    assert masked or valid.all()
+
+
 # ----------------------------------------------------------------------
 # selective scan
 # ----------------------------------------------------------------------
@@ -843,6 +969,46 @@ def test_wide_decode_splits_fill_the_card_in_one_wave(b, capacity):
     # the main path's 8 rows: 64 (row, KV head) pairs, clusters of 2
     if b == 8:
         assert splits == 2
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (at the repository root) as a module."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("sms,clusters,named", [
+    (132, {}, []),                                   # the H100 SXM
+    (114, {}, ["decode_attention.SM_COUNT: expected 132, got 114",
+               "selective_scan.SM_COUNT"]),
+    (132, {3: 33, 8: 16}, [
+        "WIDE_CLUSTERS[3] at paged_prefill_attention's 168960 B: "
+        "expected 39, got 33", "WIDE_CLUSTERS[8] at ring_chunk_attention's",
+        "WIDE_CLUSTERS[3] at paged_decode_attention's 202752 B"]),
+])
+def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
+    """``chip_smoke.py``'s device phase holds the card's SM count and
+    cluster capacity against the constants the split rules read, and on
+    a mismatch fails naming the table, the size, and both values (the
+    card's answers stood in for here)."""
+    cs = _chip_smoke()
+    from repro_torch.kernels import launch_floor
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=sms))
+    monkeypatch.setattr(launch_floor, "max_active_clusters",
+                        lambda sp, threads, smem: clusters.get(
+                            sp, WIDE_CLUSTERS[sp]))
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    if not named:
+        assert cs.device_tables("cpu")["mismatches"] == []
+        return
+    with pytest.raises(AssertionError) as err:
+        cs.device_tables("cpu")
+    for text in named:
+        assert text in str(err.value)
 
 
 # ----------------------------------------------------------------------
@@ -1317,12 +1483,13 @@ def test_cuda_selective_scan_state_lanes_h_equals_previous_body(
 
 # gemma3-12b's shapes (C 128, H 16, KV 8, hd 256, w 1024) at pos 0, 512
 # (ring partly filled) and 3000 (wrapped), mixtral-8x7b's (H 32, KV 8,
-# hd 128, w 4096) wrapped, a chunk longer than the ring, and small ragged
-# shapes (hd off the 4-wide groups, G = 3)
+# hd 128, w 4096) wrapped, chunks longer than the ring (at hd 32, and at
+# hd 256 on 2 splits), and small ragged shapes (hd off the 4-wide groups
+# and the k16 steps, G = 3)
 RING_CASES = [(0, 128, 16, 8, 256, 1024), (512, 128, 16, 8, 256, 1024),
               (3000, 128, 16, 8, 256, 1024), (5000, 128, 32, 8, 128, 4096),
               (45, 64, 6, 2, 32, 32), (7, 5, 6, 2, 30, 32),
-              (100, 33, 4, 4, 64, 48)]
+              (100, 33, 4, 4, 64, 48), (300, 160, 16, 8, 256, 128)]
 
 
 @pytest.mark.cuda
@@ -1331,24 +1498,18 @@ RING_CASES = [(0, 128, 16, 8, 256, 1024), (512, 128, 16, 8, 256, 1024),
 def test_cuda_ring_chunk_matches_plain(cuda_device, dtype, pos, c, h, kv, d,
                                        w):
     """The ring kernel against its plain version on the card, one launch
-    counted on its body; the same keys in blocks of 32, and as a dense
-    one-block ring of w slots, give the same bits as blocks of 16."""
-    rng = np.random.default_rng(31 + pos)
+    counted on the body ``ring_body`` names (``mma`` in bf16 on the
+    tensor-core tiles, ``cuda_core`` elsewhere); the same keys in blocks
+    of 32, and as a dense one-block ring of w slots, give the same bits
+    as blocks of 16."""
     dt = getattr(torch, dtype)
-    q, k, v, kp, vp, table = _ring_inputs(rng, pos, c, w, h, kv, d, 16)
-
-    def card(a):
-        return t(np.ascontiguousarray(a)).to(cuda_device, dt)
-    args = (card(q[pos:]), card(kp), card(vp), t(table).to(cuda_device),
-            card(k[pos:]), card(v[pos:]), pos, w)
-    n0 = _build.bodies["ring_chunk_attention"]["cuda_core"]
+    args, ring = _ring_card_args(cuda_device, dt, pos, c, h, kv, d, w)
+    body = ring_body(dt, d)
+    n0 = _build.bodies["ring_chunk_attention"][body]
     got = ring_chunk_attention(*args)
-    assert _build.bodies["ring_chunk_attention"]["cuda_core"] == n0 + 1
+    assert _build.bodies["ring_chunk_attention"][body] == n0 + 1
     assert torch.isfinite(got.float()).all()
     _card_close(got, ring_chunk_attention_plain(*args), dtype)
-    ring = [t(a.reshape(-1, kv, d)[np.concatenate(
-        [np.arange(b * 16, b * 16 + 16) for b in table])][:w])
-        for a in (kp, vp)]
     nb32 = -(-w // 32)
     pools32 = []
     for r in ring:
@@ -1362,6 +1523,59 @@ def test_cuda_ring_chunk_matches_plain(cuda_device, dtype, pos, c, h, kv, d,
     assert torch.equal(got, ring_chunk_attention(
         args[0], *dense, torch.zeros(1, dtype=torch.int32,
                                      device=cuda_device), *args[4:]))
+
+
+def _ring_card_args(cuda_device, dt, pos, c, h, kv, d, w):
+    """A ring case's wrapper arguments on the card (blocks of 16) and the
+    ring's w slots of K and V in logical order, on the CPU."""
+    rng = np.random.default_rng(31 + pos)
+    q, k, v, kp, vp, table = _ring_inputs(rng, pos, c, w, h, kv, d, 16)
+
+    def card(a):
+        return t(np.ascontiguousarray(a)).to(cuda_device, dt)
+    args = (card(q[pos:]), card(kp), card(vp), t(table).to(cuda_device),
+            card(k[pos:]), card(v[pos:]), pos, w)
+    ring = [t(a.reshape(-1, kv, d)[np.concatenate(
+        [np.arange(b * 16, b * 16 + 16) for b in table])][:w])
+        for a in (kp, vp)]
+    return args, ring
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,c,h,kv,d,w", [
+    case for case in RING_CASES if ring_body(torch.bfloat16, case[4]) == "mma"])
+def test_cuda_ring_mma_within_the_gate_of_cuda_core(cuda_device, pos, c, h,
+                                                    kv, d, w):
+    """In bf16 the tensor-core body and the previous CUDA-core body, on
+    the same inputs, agree within the card's bf16 gate (both compute in
+    f32 and round once)."""
+    args, _ = _ring_card_args(cuda_device, torch.bfloat16, pos, c, h, kv, d,
+                              w)
+    n0 = dict(_build.bodies["ring_chunk_attention"])
+    got = ring_chunk_attention(*args)
+    prev = ring_chunk_attention(*args, _body="cuda_core")
+    assert _build.bodies["ring_chunk_attention"] == {
+        "mma": n0["mma"] + 1, "cuda_core": n0["cuda_core"] + 1}
+    _card_close(got, prev, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["mma", "cuda_core"])
+@pytest.mark.parametrize("pos,c,h,kv,d,w", [
+    RING_CASES[0], RING_CASES[2], RING_CASES[3], RING_CASES[4],
+    RING_CASES[-1]])
+def test_cuda_ring_device_pos_equals_host_pos(cuda_device, body, pos, c, h,
+                                              kv, d, w):
+    """pos as a (1,) int32 tensor on the card, read there by the CTAs,
+    gives the bits of the host-int call at the same pos, on both bodies
+    (bf16)."""
+    args, _ = _ring_card_args(cuda_device, torch.bfloat16, pos, c, h, kv, d,
+                              w)
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+    n0 = _build.bodies["ring_chunk_attention"][body]
+    got = ring_chunk_attention(*args[:6], pos_t, w, _body=body)
+    assert _build.bodies["ring_chunk_attention"][body] == n0 + 1
+    assert torch.equal(got, ring_chunk_attention(*args, _body=body))
 
 
 @pytest.mark.cuda

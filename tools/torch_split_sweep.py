@@ -9,8 +9,10 @@ For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
 projection shapes (8 decode rows and a 128-row prefill chunk), for the
 split decode attention at 1, 4 and 8 rows of smollm-360m and at
 gemma3-12b's 8 rows of hd 256 (linear rows of 2176 slots and rings of
-1024, the wide layout), and for the paged prefill's wide body at
-gemma3-12b's chunk (C 128 at pos 0, 512, 1024 and 2048), it forces each
+1024, the wide layout), for the paged prefill's wide body at
+gemma3-12b's chunk (C 128 at pos 0, 512, 1024 and 2048) and for the
+window form's (``ring_chunk_attention``: C 128 over a ring of w = 1024
+slots at pos 0, 512 and 3000), it forces each
 split count in turn (through the wrappers' split rules) and prints one
 JSON line per shape: the device time per call in ms for each count
 (torch.profiler, as ``chip_smoke.py`` measures kernels; the median of
@@ -101,10 +103,11 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     # how many clusters of each size the card holds at once at the wide
-    # bodies' shared memory (one block an SM): the prefill's and the
-    # decode's
+    # bodies' shared memory (one block an SM): the prefill's (the window
+    # form takes the same tiles) and the decode's
     for name, threads, smem in (
             ("paged_prefill_attention", 256, fa.prefill_smem_bytes(256)),
+            ("ring_chunk_attention", 256, fa.prefill_smem_bytes(256)),
             ("paged_decode_attention", 128, da.decode_smem_bytes(256, 2))):
         print(json.dumps({"occupancy": name, "threads": threads,
                           "smem": smem, "max_active_clusters": {
@@ -149,6 +152,24 @@ def main() -> int:
             row["ms"][sp] = median_ms(
                 lambda: fa.paged_prefill_attention(q, kp, vp, table, p0))
         fa.prefill_splits = prefill_rule
+        print(json.dumps(row), flush=True)
+    w = 1024
+    nb = w // bs
+    kp = torch.randn(nb + 1, bs, kv, hd, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(
+        np.int32)).to(dev)
+    kn = torch.randn(c, kv, hd, device=dev, dtype=torch.bfloat16)
+    vn = torch.randn_like(kn)
+    ring_rule = fa.ring_splits
+    for p0 in (0, 512, 3000):
+        row = {"kernel": "ring_chunk_attention", "C": c, "hd": hd, "w": w,
+               "pos": p0, "rule": ring_rule(c, h, kv, hd, w), "ms": {}}
+        for sp in range(1, 9):
+            fa.ring_splits = lambda *a, sp=sp: sp
+            row["ms"][sp] = median_ms(lambda: fa.ring_chunk_attention(
+                q, kp, vp, table, kn, vn, p0, w))
+        fa.ring_splits = ring_rule
         print(json.dumps(row), flush=True)
     return 0
 
