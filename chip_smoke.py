@@ -44,8 +44,8 @@ one JSON line:
    norm) is its ``prev_ms``, and torch's add then ``F.rms_norm`` its
    ``library_pair_ms`` (no single PyTorch call computes it, so its
    ``library_ms`` is null).  rmsnorm is also checked and timed at the
-   widths of falcon-mamba-7b and gemma3-12b (8 and 128 rows of 4096 and
-   of 3840, bf16).  The batched paged-chunk form
+   train step's 32768 rows of 960 and at the widths of falcon-mamba-7b
+   and gemma3-12b (8 and 128 rows of 4096 and of 3840, bf16).  The batched paged-chunk form
    of the flash kernel (``paged_chunk_attention``, a verify round's B 8
    rows of C = K + 1 = 5 tokens, each row's pos read on the device) must
    also give each row the bits of a one-row call at its pos, and the
@@ -67,7 +67,19 @@ one JSON line:
    against ``cuda_core``, the prefill's bits the same in blocks of 16,
    32 and one dense block and the dense decode's the paged decode's on
    the same rows; and in float32 on ``cuda_core`` (prefill at pos 1024,
-   decode over linear rows).  An empty kernel
+   decode over linear rows).  The contiguous form of the flash kernel
+   (``flash_attention``, the TPU kernel's own signature, the train
+   path's) runs at smollm-360m's train shape (B 8, S 4096, 15 / 5 heads
+   of 64, causal, bf16 on ``mma``), the same heads at S 1024 in float32
+   (``cuda_core``), gemma3-12b's heads with its 1024 window (bf16, the
+   wide tiles) and a non-causal ragged case (B 2, S 1000, with a window
+   it must ignore) in both dtypes, its row log-sum-exp within 2e-5 /
+   1e-2, beside ``F.scaled_dot_product_attention`` (``enable_gqa``;
+   causal, or the boolean window mask), and the torch-op gradient of one
+   layer timed at the train shape; ``FlashAttentionFn``'s dq / dk / dv
+   (B 2, S 512) and the norms' gradients and their Functions' forward
+   (8 and 128 rows of 960, and in bf16 the train step's 32768) are held
+   to autograd through the plain versions.  An empty kernel
    (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
    the kernel list) gives the floor one launch costs, at 1 block and at
    the decode scan's grid;
@@ -143,6 +155,20 @@ one JSON line:
    rmsnorm (torch's residual add, then the ``cuda_core`` norm), for the
    busy time and the launches each redesign saves.
 
+6. ``train``  — smollm-360m at full width, 2 layers, float32, on the
+   card against the CPU from the same weights: the loss (1e-5 relative)
+   and every gradient leaf (1e-5 of max(1, |g|)) of one step, AdamW fed
+   the same gradients on both sides (1e-6), and the loss at each of three
+   ``make_train_step`` steps (1e-5 relative); then smollm-360m at full
+   width and depth in bf16 with f32 AdamW state, 8 steps at B 8, S 4096
+   through ``launch/train.py``'s setup, a line a step (ce, grad norm,
+   lr, wall ms, tokens/s, peak memory): every ce finite and the last
+   below the first, the launches exactly what ``expected_train_launches``
+   implies (the flash kernel twice a layer a step, all on ``mma``:
+   forward and the checkpoint's recompute; 4n + 1 norms), no plain
+   version run; then one more step under torch.profiler (busy ms, idle
+   share, the flash kernel's, the torch-op backward's and cuBLAS's ms).
+
 Each phase ends with a line of its wall seconds, as each serve run's and
 each profile's line carries its own.  It then prints the kernel list,
 the card's name and power limit, and as its last line ``{"ok": true,
@@ -182,6 +208,7 @@ REPLACES = {
     "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
     "selective_scan": "src/repro/kernels/selective_scan.py:61",
+    "flash_attention": "src/repro/kernels/flash_attention.py:72",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -193,6 +220,7 @@ SOURCES = {
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
     "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 #: the serve run whose launches each kernel's line reports
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
@@ -202,7 +230,8 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "dense_decode_attention": "dense_bf16",
               "quant_matmul_int8": "paged_int8",
               "quant_matmul_int4": "paged_int4",
-              "selective_scan": "mamba_paged_bf16"}
+              "selective_scan": "mamba_paged_bf16",
+              "flash_attention": "train_bf16"}
 #: the dtype of each kernel's main-path case in the kernels line
 MAIN_DTYPE = {"selective_scan": "float32"}
 #: the bodies every serve-run launch of a kernel with more than one body
@@ -386,13 +415,14 @@ def kernel_cases(dev) -> list:
         es = torch.finfo(dtype).bits // 8
 
         # rmsnorm: 8 decode rows, 128 prefill rows of d_model, and in
-        # bf16 at the served models' own widths: falcon-mamba-7b's 4096
-        # (65 norms an iteration) and gemma3-12b's 3840 (97 norms an
-        # iteration, 96 a chunk; 480 16-byte accesses a row, so 8 warps
-        # with a partial second access a lane, a launch shape no other
-        # width takes)
-        widths = [(D, 8), (D, 128)] + ([(4096, 8), (4096, 128), (3840, 8),
-                                        (3840, 128)]
+        # bf16 smollm-360m's train step (B 8 x S 4096 = 32768 rows, every
+        # norm of the step and of its recompute) and the served models'
+        # own widths: falcon-mamba-7b's 4096 (65 norms an iteration) and
+        # gemma3-12b's 3840 (97 norms an iteration, 96 a chunk; 480
+        # 16-byte accesses a row, so 8 warps with a partial second access
+        # a lane, a launch shape no other width takes)
+        widths = [(D, 8), (D, 128)] + ([(D, TRAIN_ROWS), (4096, 8),
+                                        (4096, 128), (3840, 8), (3840, 128)]
                                        if dname == "bfloat16" else [])
         for d, rows in widths:
             x = t(rng.standard_normal((rows, d)), dtype)
@@ -591,7 +621,199 @@ def kernel_cases(dev) -> list:
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
     launch_floor(dev)
-    return cases + scan_cases(dev) + gemma_cases(dev)
+    return cases + scan_cases(dev) + gemma_cases(dev) + flash_cases(dev)
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the contiguous flash form and the gradients
+# ---------------------------------------------------------------------------
+#: the contiguous flash form's cases: (label, dtype, B, S, H, KV, hd,
+#: causal, window).  "train": smollm-360m's train shape (the reference's
+#: train_4k sequence on one card's 8 rows), on mma; "train_f32": the same
+#: heads at S 1024 in float32, on cuda_core; "gemma": gemma3-12b's heads
+#: with its window (the wide tiles); "encoder": non-causal and ragged,
+#: with a window the kernel must ignore
+FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
+               ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
+               ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
+               ("encoder", "float32", 2, 1000, 6, 2, 64, False, 100),
+               ("encoder", "bfloat16", 2, 1000, 6, 2, 64, False, 100)]
+FLASH_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+def flash_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs one head of one row computes: S^2 when not
+    causal, S(S + 1)/2 causal, and with a window w < S, w(w + 1)/2 +
+    (S - w) w."""
+    if not causal:
+        return s * s
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def _grad_err(got, want) -> float:
+    """Largest gradient difference relative to max(1, |want|)."""
+    return max(((g.float() - w.float()).abs()
+                / w.float().abs().clamp(min=1.0)).max().item()
+               for g, w in zip(got, want))
+
+
+def flash_cases(dev) -> list:
+    """The contiguous flash form (``flash_attention``, the TPU kernel's
+    own signature) at ``FLASH_CASES``: out against the plain version
+    under the gates, the row log-sum-exp within ``FLASH_LSE_TOL``, each
+    launch on the body ``prefill_body`` names, timed beside its plain
+    version and ``F.scaled_dot_product_attention`` (``enable_gqa``;
+    ``is_causal``, or the boolean window mask where there is a window);
+    at the train shape also the torch-op gradient
+    (``flash_attention_backward``, one layer's).  Then
+    ``FlashAttentionFn``'s dq / dk / dv and the norms' gradients
+    (``rmsnorm``, ``add_rmsnorm`` through their autograd Functions, on
+    the kernels) against autograd through the plain versions on the
+    card, within TOL of max(1, |g|)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention, flash_attention_backward,
+        flash_attention_plain, prefill_body)
+    from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_plain,
+                                             rmsnorm, rmsnorm_plain)
+    rng = np.random.default_rng(SEED + 11)
+    cases = []
+
+    def t(shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+
+    for label, dname, B, S, H, KV, HD, causal, window in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        es = torch.finfo(dtype).bits // 8
+        q, k, v = t((B, H, S, HD), dtype), t((B, KV, S, HD), dtype), t(
+            (B, KV, S, HD), dtype)
+        kw = dict(causal=causal, window=window)
+        body = prefill_body(dtype, HD)
+        out, lse = _on_body("flash_attention", body,
+                            lambda: flash_attention(q, k, v, **kw))
+        ref, ref_lse = flash_attention_plain(q, k, v, **kw)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if causal and window:
+            pos = torch.arange(S, device=dev)
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib_kw = dict(attn_mask=mask)
+        else:
+            lib_kw = dict(is_causal=causal)
+        pairs = flash_pairs(S, causal, window if causal else 0)
+        nbytes = (2 * B * H + 2 * B * KV) * S * HD * es + 4 * B * H * S
+        flops = 4 * HD * B * H * pairs
+        extra = {"body": body, "lse_max_abs_err": lse_err,
+                 "lse_tol": FLASH_LSE_TOL[dname],
+                 **_bounds(nbytes, flops, dname)}
+        if label == "train":
+            dout = t((B, H, S, HD), dtype)
+            extra["backward_ms"] = device_ms(
+                lambda: flash_attention_backward(q, k, v, out, lse, dout,
+                                                 **kw), n=5, warmup=1)
+            extra["backward_note"] = ("flash_attention_backward, torch "
+                                      "ops, one layer's gradient")
+            del dout
+        cases.append(_case(
+            "flash_attention", dname,
+            {"label": label, "B": B, "S": S, "H": H, "KV": KV, "hd": HD,
+             "causal": causal, "window": window}, out, ref,
+            lambda: flash_attention(q, k, v, **kw),
+            lambda: flash_attention_plain(q, k, v, **kw),
+            lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                   **lib_kw),
+            nbytes, flops, extra=extra))
+        if not lse_err <= FLASH_LSE_TOL[dname]:
+            raise AssertionError(f"flash_attention {label} {dname}: row "
+                                 f"log-sum-exp off by {lse_err}")
+        del q, k, v, out, lse, ref, ref_lse, lib_kw
+        torch.cuda.empty_cache()
+
+    # gradients: FlashAttentionFn (the kernel's forward, the torch-op
+    # backward) against autograd through the plain version
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for causal, window in ((True, 0), (True, 128), (False, 0)):
+            x = [t(shape, dtype) for shape in ((2, 15, 512, 64),
+                                               (2, 5, 512, 64),
+                                               (2, 5, 512, 64))]
+            w = t((2, 15, 512, 64), torch.float32)
+            a = [y.clone().requires_grad_(True) for y in x]
+            got = torch.autograd.grad((FlashAttentionFn.apply(
+                *a, causal, window, None).float() * w).sum(), a)
+            p = [y.clone().requires_grad_(True) for y in x]
+            want = torch.autograd.grad((flash_attention_plain(
+                *p, causal=causal, window=window)[0].float() * w).sum(), p)
+            err = _grad_err(got, want)
+            emit({"phase": "kernels", "kernel": "flash_attention",
+                  "check": "FlashAttentionFn dq, dk, dv vs autograd through "
+                           "the plain version", "dtype": dname,
+                  "shape": {"B": 2, "S": 512, "H": 15, "KV": 5, "hd": 64,
+                            "causal": causal, "window": window},
+                  "max_rel_err": err, "tol": TOL[dname]})
+            if not err <= TOL[dname]:
+                raise AssertionError(f"flash_attention gradients {dname}: "
+                                     f"{err} of max(1, |g|)")
+
+    # the norms' gradients: rmsnorm and add_rmsnorm through their
+    # autograd Functions (the norm / add_norm kernels forward, torch ops
+    # backward) against autograd through the plain versions, in bf16
+    # also at the train step's rows; the Functions' forward outputs (the
+    # train path's own calls) held to the kernels' gate
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for rows in (8, 128) + ((TRAIN_ROWS,) if dname == "bfloat16"
+                                else ()):
+            x, dl, dout, dr = (t((rows, 960), dtype) for _ in range(4))
+            sc = (1 + 0.1 * t((960,), torch.float32)).to(dtype)
+            a = [y.clone().requires_grad_(True) for y in (x, sc)]
+            o = rmsnorm(*a, 1e-5)
+            got = torch.autograd.grad((o.float() * dout.float()).sum(), a)
+            p = [y.clone().requires_grad_(True) for y in (x, sc)]
+            o_plain = rmsnorm_plain(*p, 1e-5)
+            want = torch.autograd.grad((o_plain.float()
+                                        * dout.float()).sum(), p)
+            err_norm = _grad_err(got, want)
+            fwd_norm = _errors(o.detach(), o_plain.detach(), dname, TOL,
+                               False)
+            a = [y.clone().requires_grad_(True) for y in (x, dl, sc)]
+            r, o = add_rmsnorm(*a, 1e-5)
+            got = torch.autograd.grad((r.float() * dr.float()).sum()
+                                      + (o.float() * dout.float()).sum(), a)
+            p = [y.clone().requires_grad_(True) for y in (x, dl, sc)]
+            r_plain, o_plain = add_rmsnorm_plain(*p, 1e-5)
+            want = torch.autograd.grad(
+                (r_plain.float() * dr.float()).sum()
+                + (o_plain.float() * dout.float()).sum(), p)
+            err_add = _grad_err(got, want)
+            fwd_add = _errors(o.detach(), o_plain.detach(), dname, TOL,
+                              False)
+            r_equal = torch.equal(r.detach(), r_plain.detach())
+            emit({"phase": "kernels", "kernel": "rmsnorm",
+                  "check": "rmsnorm and add_rmsnorm gradients vs autograd "
+                           "through the plain versions, and the "
+                           "Functions' forward vs the plain forward",
+                  "dtype": dname, "shape": [rows, 960],
+                  "rmsnorm_max_rel_err": err_norm,
+                  "add_rmsnorm_max_rel_err": err_add, "tol": TOL[dname],
+                  "rmsnorm_forward_max_abs_err": fwd_norm[0],
+                  "add_rmsnorm_forward_max_abs_err": fwd_add[0],
+                  "forward_bf16_step_excess": [fwd_norm[2], fwd_add[2]],
+                  "forward_ok": fwd_norm[3] and fwd_add[3],
+                  "add_rmsnorm_r_equal": r_equal})
+            if not max(err_norm, err_add) <= TOL[dname]:
+                raise AssertionError(f"rmsnorm gradients {dname} {rows}: "
+                                     f"{err_norm}, {err_add}")
+            if not (fwd_norm[3] and fwd_add[3] and r_equal):
+                raise AssertionError(f"rmsnorm Functions' forward {dname} "
+                                     f"{rows}: {fwd_norm}, {fwd_add}, r "
+                                     f"equal {r_equal}")
+            del x, dl, dout, dr, a, p, got, want, o, o_plain, r, r_plain
+    return cases
 
 
 #: the verify round's rows: smollm-360m's 8 rows at positions 32-600
@@ -1902,6 +2124,252 @@ def profile_prefill(cfg, params, kw, dev, label: str,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+#: the full train run: smollm-360m at full width and depth in bf16, the
+#: reference's train_4k sequence on one card's 8 rows, launch/train.py's
+#: learning rate (and so its warmup of max(2, steps // 10) = 2)
+TRAIN = {"batch": 8, "seq": 4096, "steps": 8, "lr": 3e-3}
+#: the rows every norm of a train step takes (the kernels phase holds
+#: rmsnorm there)
+TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
+#: card-vs-CPU parity in float32: full width, 2 layers
+TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 256, "steps": 3}
+#: cuBLAS's kernels, by name, in a profile
+CUBLAS_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
+
+
+def expected_train_launches(cfg, steps: int) -> tuple:
+    """Launches a train run of ``steps`` steps implies: each attn or swa
+    layer runs the contiguous flash kernel and its two norms in the
+    forward and again in its checkpoint's recompute in the backward pass,
+    and the final norm runs once (outside the checkpoints): 2n flash
+    launches and 4n + 1 norms a step for n layers.  Every norm but the
+    first of the stack takes its residual add (``add_norm``: 2n in the
+    forward with the final norm, 2n - 1 in the recompute); every flash
+    launch of a bf16 model takes ``mma``.  Returns (launches by kernel,
+    launches by body of the two)."""
+    from repro_torch.kernels import _build
+    n = sum(cfg.block_pattern.count(k) for k in ("attn", "swa"))
+    expect = dict.fromkeys(_build.launches, 0)
+    expect["flash_attention"] = 2 * n * steps
+    expect["rmsnorm"] = (4 * n + 1) * steps
+    return expect, {
+        "flash_attention": {"mma": 2 * n * steps, "cuda_core": 0},
+        "rmsnorm": {"add_norm": (4 * n - 1) * steps, "norm": 2 * steps,
+                    "cuda_core": 0}}
+
+
+@contextlib.contextmanager
+def count_plain_calls():
+    """Count, within the block, the calls of the plain versions the train
+    path's wrappers take for CPU tensors (none may run on the card)."""
+    from repro_torch.kernels import flash_attention, rmsnorm
+    sites = [(flash_attention, "flash_attention_plain"),
+             (rmsnorm, "rmsnorm_plain"), (rmsnorm, "add_rmsnorm_plain")]
+    calls = {name: 0 for _, name in sites}
+    saved = [(module, name, getattr(module, name)) for module, name in sites]
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+    for module, name, fn in saved:
+        setattr(module, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def train_parity(dev) -> dict:
+    """Card against CPU in float32: smollm-360m at full width, 2 layers,
+    B 2, S 256, the same CPU-drawn weights on both (TF32 off).  The loss
+    and every gradient leaf of one ``value_and_grad``, ``adamw_update``
+    fed the same (CPU) gradients on both sides, then three steps of
+    ``make_train_step`` on each, whose loss is held at every step.  The
+    parameters after several steps are not held element-wise: AdamW's
+    first steps move each weight by about lr * sign(g), so a gradient
+    near zero that rounds to the other sign moves its weight by 2 lr."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.optimizer import adamw_init, adamw_update
+    from repro_torch.training.train_step import (make_train_step,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves, tree_map
+    t_call = time.perf_counter()
+    n, b, s = (TRAIN_PARITY[k] for k in ("layers", "batch", "seq"))
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=n,
+                              block_pattern=("attn",) * n, dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    card = Model(cfg, device=dev)
+    p_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    p_dev = tree_map(lambda a: a.to(dev), p_cpu)
+    data = SyntheticLM(cfg.vocab_size, s, b, seed=SEED)
+    batches = [torch.from_numpy(data.batch_at(i)["tokens"])
+               for i in range(TRAIN_PARITY["steps"])]
+    l_cpu, _, g_cpu = value_and_grad(cpu, p_cpu, {"tokens": batches[0]})
+    l_dev, _, g_dev = value_and_grad(card, p_dev,
+                                     {"tokens": batches[0].to(dev)})
+    grad_err = _grad_err([g.cpu() for g in leaves(g_dev)], leaves(g_cpu))
+    loss_rel0 = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    new_cpu = adamw_update(g_cpu, adamw_init(p_cpu), p_cpu, lr=1.5e-3)
+    new_dev = adamw_update(tree_map(lambda a: a.to(dev), g_cpu),
+                           adamw_init(p_dev), p_dev, lr=1.5e-3)
+    upd_err = max((a.cpu().float() - c.float()).abs().max().item()
+                  for a, c in zip(leaves(new_dev[:2]), leaves(new_cpu[:2])))
+    del g_cpu, g_dev, new_cpu, new_dev
+    kw = dict(base_lr=TRAIN["lr"], warmup=2, total_steps=8)
+    step_cpu, step_dev = (make_train_step(m, **kw) for m in (cpu, card))
+    o_cpu, o_dev = adamw_init(p_cpu), adamw_init(p_dev)
+    losses = []
+    for tok in batches:
+        p_cpu, o_cpu, m_cpu = step_cpu(p_cpu, o_cpu, {"tokens": tok})
+        p_dev, o_dev, m_dev = step_dev(p_dev, o_dev, {"tokens": tok.to(dev)})
+        losses.append([float(m_cpu["loss"]), float(m_dev["loss"])])
+    loss_rel = max(abs(d - c) / abs(c) for c, d in losses)
+    res = {"phase": "train", "check": "card vs CPU, float32",
+           "config": f"{cfg.name}, {n} layers, float32, B {b}, S {s}",
+           "loss_rel_err_first": loss_rel0, "grad_max_rel_err": grad_err,
+           "adamw_same_grads_max_abs_err": upd_err,
+           "losses_cpu_card": losses, "loss_max_rel_err": loss_rel,
+           "tol": {"loss": 1e-5, "grad": 1e-5, "adamw": 1e-6},
+           "seconds": time.perf_counter() - t_call}
+    emit(res)
+    if not (loss_rel0 <= 1e-5 and grad_err <= 1e-5 and upd_err <= 1e-6
+            and loss_rel <= 1e-5):
+        raise AssertionError(f"train parity: card and CPU disagree: {res}")
+    return res
+
+
+def train_full(dev) -> dict:
+    """smollm-360m at full width and depth (32 layers) in bf16, f32 AdamW
+    state: ``TRAIN["steps"]`` steps at B 8, S 4096 through
+    ``launch/train.py``'s setup (weights from a card Generator seeded 0,
+    batches from ``SyntheticLM(seed=0)``), one JSON line a step (ce, grad
+    norm, lr, wall ms, tokens/s, peak memory).  Gates: every ce finite,
+    the last below the first; the launches exactly as
+    ``expected_train_launches`` says, every flash launch on ``mma``; no
+    plain version run.  Then one more step under torch.profiler: the
+    device's busy ms (and idle share against the steady steps' median
+    wall time), the flash kernel's ms, the torch-op backward's
+    (``flash_attention_backward``), cuBLAS's and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import device_batch, setup
+    t_call = time.perf_counter()
+    steps, b, s = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    cfg, model, params, opt, step, data = setup(
+        "smollm-360m", smoke=False, steps=steps, batch=b, seq=s,
+        lr=TRAIN["lr"], device=dev)
+    batches = [device_batch(data, i, dev) for i in range(steps + 1)]
+    torch.cuda.synchronize()
+    rows = []
+    _build.reset_launches()
+    with count_plain_calls() as plain_calls:
+        for i in range(steps):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[i])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rows.append({"phase": "train", "run": "train_bf16", "step": i,
+                         "ce": float(m["ce"]),
+                         "grad_norm": float(m["grad_norm"]),
+                         "lr": float(m["lr"]), "wall_ms": wall * 1e3,
+                         "tok_per_s": b * s / wall,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(dev)})
+            emit(rows[-1])
+    launches = dict(_build.launches)
+    bodies = {k: dict(_build.bodies[k]) for k in ("flash_attention",
+                                                  "rmsnorm")}
+    expect, expect_bodies = expected_train_launches(cfg, steps)
+    ces = [r["ce"] for r in rows]
+    walls = sorted(r["wall_ms"] for r in rows[1:])
+    wall_ref = walls[len(walls) // 2]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[steps])
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t0
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda
+               and e.key != "flash_attention_backward"]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+
+    def ms_of(pred):
+        return sum(e.self_device_time_total for e in kernels
+                   if pred(e.key)) / 1e3
+    bwd = [e for e in events if e.key == "flash_attention_backward"]
+    res = {"phase": "train", "run": "train_bf16",
+           "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
+                     f"B {b}, S {s}, f32 AdamW state",
+           "steps": steps, "ce": ces, "wall_ms_median": wall_ref,
+           "tok_per_s_median": b * s / (wall_ref / 1e3),
+           "max_memory_allocated": max(r["max_memory_allocated"]
+                                       for r in rows),
+           "launches": launches, "launches_expected": expect,
+           "bodies": bodies, "bodies_expected": expect_bodies,
+           "plain_calls": plain_calls,
+           "profile": {
+               "wall_profiled_ms": wall_profiled * 1e3,
+               "device_busy_ms": busy_us / 1e3,
+               "device_idle_share": 1 - busy_us / 1e3 / wall_ref,
+               "device_launches": sum(e.count for e in kernels),
+               "flash_kernel_ms": ms_of(lambda k: "flash_mma_kernel" in k
+                                        or "flash_core_kernel" in k),
+               "rmsnorm_kernel_ms": ms_of(lambda k: "add_norm_kernel" in k
+                                          or "rmsnorm" in k),
+               "flash_backward_ms": [e.device_time_total / 1e3
+                                     for e in bwd],
+               "flash_backward_note": "device time of the kernels launched "
+                                      "under the flash_attention_backward "
+                                      "label (torch ops), by event kind",
+               "cublas_ms": ms_of(lambda k: any(
+                   x in k.lower() for x in CUBLAS_KEYS)),
+               "top_kernels": [
+                   {"name": e.key[:70], "count": e.count,
+                    "ms": e.self_device_time_total / 1e3}
+                   for e in sorted(kernels,
+                                   key=lambda e: -e.self_device_time_total
+                                   )[:10]],
+               "port_kernels": _port_kernels(kernels)},
+           "seconds": time.perf_counter() - t_call}
+    emit(res)
+    if not (all(np.isfinite(ces)) and ces[-1] < ces[0]):
+        raise AssertionError(f"train: ce {ces}: not finite, or not falling")
+    if launches != expect or bodies != expect_bodies:
+        raise AssertionError(f"train: launches {launches}, bodies {bodies}; "
+                             f"expected {expect}, {expect_bodies}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"train: plain versions ran on the card: "
+                             f"{plain_calls}")
+    return launches
+
+
+def train(dev) -> dict:
+    """The train phase: ``train_parity``, then ``train_full``.  Returns
+    the full run's launch counts, under ``train_bf16``."""
+    import gc
+    import torch
+    train_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train_bf16": train_full(dev)}
+
+
 def device_tables(dev) -> dict:
     """The card against the constants the split rules read: its SM count
     against ``SM_COUNT`` (decode attention, quant matmul, rmsnorm,
@@ -1960,7 +2428,8 @@ def kernel_line(cases, launches_by_run) -> dict:
             "dense_decode_attention": lambda c: c["shape"]["hd"] == 64,
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
             "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],
-            "selective_scan": lambda c: c["shape"]["T"] == 1}
+            "selective_scan": lambda c: c["shape"]["T"] == 1,
+            "flash_attention": lambda c: c["shape"]["label"] == "train"}
     out = []
     for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
@@ -2041,6 +2510,7 @@ def main() -> int:
     cases = timed("kernels", lambda: kernel_cases(dev))
     timed("parity", lambda: parity(dev))
     launches = timed("serve", lambda: serve(dev))
+    launches.update(timed("train", lambda: train(dev)))
     emit({"phase": "timing", "seconds": seconds,
           "total": time.perf_counter() - t_start})
     emit(kernel_line(cases, launches))

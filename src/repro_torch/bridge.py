@@ -18,7 +18,11 @@ whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``),
 which stay float32.  Projection weights the reference packed
 (``quantize_params``) arrive as ``{"q", "s"}`` dicts and stay packed:
 ``q`` keeps its int8 / uint8 integers and ``s`` its f32 scales,
-whatever the model dtype.  It imports no JAX.
+whatever the model dtype.  :func:`params_to_numpy` is the reverse
+direction: port params as the reference's tree of numpy arrays (float
+leaves as float32, one-layer segments unstacked), which the JAX package
+takes as its parameters or restores a port checkpoint into.  It imports
+no JAX.
 """
 from __future__ import annotations
 
@@ -83,4 +87,33 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
            "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
     if "lm_head" in tree:
         out["lm_head"] = {"w": leaf(tree["lm_head"]["w"])}
+    return out
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """Port params as the reference's parameter tree of numpy arrays:
+    float leaves as float32 (numpy has no bfloat16; the values are
+    exact), packed ``{"q","s"}`` leaves as they are, and a one-layer
+    segment unstacked, as the reference stores it."""
+    segs = build_segments(cfg)
+
+    def leaf(a, key=None):
+        if is_quantized(a):
+            return {k: v.detach().cpu().numpy() for k, v in a.items()}
+        return a.detach().to(torch.float32).cpu().numpy()
+
+    def unstack(a, key=None):
+        if is_quantized(a):
+            return {k: v[0] for k, v in a.items()}
+        return a[0]
+
+    segments = []
+    for seg, p in zip(segs, params["blocks"]["segments"]):
+        tree = _map(p, leaf)
+        segments.append(tree if seg.length > 1 else _map(tree, unstack))
+    out = {"embed": {"w": leaf(params["embed"]["w"])},
+           "blocks": {"segments": segments, "shared": None},
+           "final_norm": {"scale": leaf(params["final_norm"]["scale"])}}
+    if "lm_head" in params:
+        out["lm_head"] = {"w": leaf(params["lm_head"]["w"])}
     return out

@@ -44,6 +44,7 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
                             "paged_chunk_attention": 0,
                             "ring_chunk_attention": 0,
+                            "flash_attention": 0,
                             "dense_decode_attention": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
                             "selective_scan": 0,
@@ -53,13 +54,14 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 #: with more than one body (the body names of csrc/*.cu: "mma", the bf16
 #: tensor-core body; "state_lanes", the scan with d_state split across
 #: lanes; "add_norm" and "norm", rmsnorm with and without the residual
-#: add, the row in registers; "cuda_core", the previous body)
+#: add, the row in registers; "cuda_core", the f32 CUDA-core body, the
+#: previous one where a kernel was redesigned)
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
                     "paged_chunk_attention", "ring_chunk_attention",
-                    "dense_decode_attention", "quant_matmul_int8",
-                    "quant_matmul_int4")},
+                    "flash_attention", "dense_decode_attention",
+                    "quant_matmul_int8", "quant_matmul_int4")},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -175,6 +177,12 @@ _SIGNATURES = {
     # stream
     "rt_ring_chunk_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+    # q, k, v, out, lse, B, H, KV, S, hd, the element strides of q, of
+    # k and v, and of out (batch, head, position), causal, window, scale,
+    # dtype, body, stream
+    "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                           _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I,
+                           _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -59,6 +59,22 @@ each row tile's steps split across a cluster of :func:`ring_splits`
 CTAs), and ``"cuda_core"``, the f32 CUDA-core body (float32 at every
 shape, bfloat16 at the others, hd up to 256).
 
+The contiguous form :func:`flash_attention` is the TPU kernel's own
+signature: Q ``(B, H, S, hd)`` over K / V ``(B, KV, S, hd)`` of the same
+positions, causal or not, with a window (causal only), no cache; it
+also returns the f32 row log-sum-exp ``(B, H, S)``.  The reference
+model's train mode runs it (``self_attention``, through
+:class:`FlashAttentionFn`, whose gradient :func:`flash_attention_backward`
+recomputes P from that log-sum-exp in torch ops, in blocks of
+:data:`FLASH_Q_BLOCK` queries).  The kernel (``csrc/flash_attention.cu``)
+reads every tensor through its strides, so the model's ``(B, S, H, hd)``
+projections go in as transposed views without a copy.  Two bodies,
+named by :func:`prefill_body` (the strides count in ``aligned``):
+``"mma"``, the same tensor-core tiles over contiguous keys, tiles above
+the diagonal (and before the window) skipped, 64 (query, head) rows a
+CTA, no split; and ``"cuda_core"``, the window form's f32 CUDA-core
+body over contiguous keys.
+
 The wrappers run the plain versions for CPU tensors only; for CUDA
 tensors they launch the body the rule names, or raise.
 """
@@ -389,3 +405,179 @@ def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream),
         "ring_chunk_attention")
     return out
+
+
+# ----------------------------------------------------------------------
+# the contiguous form: the TPU kernel's own signature
+# ----------------------------------------------------------------------
+#: queries a block of the plain version and the gradient take at once
+#: (the reference blocks its queries too, ``attention.py::Q_CHUNK``): at
+#: smollm-360m's train shape (B 8, H 15, S 4096) a block's f32 scores
+#: are 512 x 4096 x 120 x 4 bytes, about 1 GB
+FLASH_Q_BLOCK = 512
+
+
+def _block_keys(q0: int, q1: int, s: int, causal: bool, window: int):
+    """The keys ``[k0, k1)`` queries ``q0 .. q1 - 1`` may see (the
+    reference's ``self_attention`` slices its blocks the same way)."""
+    if not causal:
+        return 0, s
+    return (max(0, q0 - window + 1) if window > 0 else 0), q1
+
+
+def _block_scores(q, k, q0, q1, k0, k1, causal, window, scale):
+    """f32 scores ``(B, KV, G, q1 - q0, k1 - k0)`` of queries ``q0 ..
+    q1 - 1`` against keys ``k0 .. k1 - 1``, masked at NEG_INF."""
+    b, h, _, d = q.shape
+    kv = k.shape[1]
+    qb = q[:, :, q0:q1].float().reshape(b, kv, h // kv, q1 - q0, d)
+    sc = torch.einsum("bngqd,bnkd->bngqk", qb, k[:, :, k0:k1].float()) * scale
+    if causal:
+        qpos = torch.arange(q0, q1, device=q.device)[:, None]
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        ok = kpos <= qpos
+        if window > 0:
+            ok = ok & (kpos > qpos - window)
+        sc = sc.masked_fill(~ok, NEG_INF)
+    return sc
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None):
+    """What ``flash_attention_pallas`` computes, in f32, in blocks of
+    :data:`FLASH_Q_BLOCK` queries: scores ``scale * Q K^T`` (scale
+    ``D ** -0.5`` by default), masked at NEG_INF where ``kpos > qpos``
+    and, with ``window > 0``, ``kpos <= qpos - window`` (both only when
+    causal: a non-causal call ignores the window), then ``exp(s - m) V``
+    over the row sum, clamped at 1e-30.  q (B,H,S,D); k / v (B,KV,S,D),
+    head h reading KV head ``h // (H // KV)``.  Returns (out, like q in
+    q.dtype, and the f32 row log-sum-exp ``m + log(l)``, (B,H,S))."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    for q0 in range(0, s, FLASH_Q_BLOCK):
+        q1 = min(q0 + FLASH_Q_BLOCK, s)
+        k0, k1 = _block_keys(q0, q1, s, causal, window)
+        sc = _block_scores(q, k, q0, q1, k0, k1, causal, window, scale)
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l_sum = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+        ob = torch.einsum("bngqk,bnkd->bngqd", p, v[:, :, k0:k1].float())
+        out[:, :, q0:q1] = (ob / l_sum).reshape(b, h, q1 - q0, d).to(q.dtype)
+        lse[:, :, q0:q1] = (m + torch.log(l_sum)).reshape(b, h, q1 - q0)
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None,
+                    _body: Optional[str] = None):
+    """Contiguous flash attention; see :func:`flash_attention_plain` for
+    the contract.  On the card every tensor is read in place through its
+    strides (each head dim contiguous; K and V with equal strides), and
+    out takes q's layout.  ``_body`` as in
+    :func:`paged_prefill_attention`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    b, h, s, hd = q.shape
+    kv = k.shape[1]
+    scale = hd ** -0.5 if scale is None else scale
+    if q.device.type != "cuda" or any(t.device != q.device for t in (k, v)):
+        raise ValueError("flash_attention: all tensors must lie on one CUDA "
+                         "device")
+    if (k.dim() != 4 or k.shape != (b, kv, s, hd) or v.shape != k.shape
+            or h % kv or window < 0):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
+                         f"{window} do not fit")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share a dtype")
+    if any(t.stride(3) != 1 for t in (q, k, v)) or k.stride() != v.stride():
+        raise ValueError(f"flash_attention: the kernel reads a contiguous "
+                         f"head dim and K, V of equal strides, not q "
+                         f"{q.stride()}, k {k.stride()}, v {v.stride()}")
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    pack = 16 // q.element_size()
+    aligned = (all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+               and all(st % pack == 0 for t in (q, k, out)
+                       for st in t.stride()[:3]))
+    body = _body or prefill_body(q.dtype, hd, aligned)
+    lib = _build.library()
+    _build.launches["flash_attention"] += 1
+    _build.bodies["flash_attention"][body] += 1
+    _build.check(lib.rt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, h, kv, s, hd, *q.stride()[:3], *k.stride()[:3],
+        *out.stride()[:3], int(bool(causal)), int(window), float(scale),
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body],
+        torch.cuda.current_stream(q.device).cuda_stream), "flash_attention")
+    return out, lse
+
+
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` in torch ops,
+    recomputed in f32 from the forward's row log-sum-exp, in blocks of
+    :data:`FLASH_Q_BLOCK` queries over the keys each block may see:
+    P = exp(s Q K^T - lse) under the forward's mask, dV = P^T dO,
+    dP = dO V^T, D = rowsum(dO * O), dS = P (dP - D), dQ = s dS K and
+    dK = s dS^T Q, dK and dV summed over the G heads of a group.  Each
+    gradient in its input's dtype and layout."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    scale = d ** -0.5 if scale is None else scale
+    dq = torch.empty_like(q, dtype=torch.float32)
+    dk = torch.zeros_like(k, dtype=torch.float32)
+    dv = torch.zeros_like(v, dtype=torch.float32)
+    for q0 in range(0, s, FLASH_Q_BLOCK):
+        q1 = min(q0 + FLASH_Q_BLOCK, s)
+        n = q1 - q0
+        k0, k1 = _block_keys(q0, q1, s, causal, window)
+        p = _block_scores(q, k, q0, q1, k0, k1, causal, window, scale)
+        p = p.sub_(lse[:, :, q0:q1].reshape(b, kv, g, n, 1)).exp_()
+        dob = dout[:, :, q0:q1].float().reshape(b, kv, g, n, d)
+        dv[:, :, k0:k1] += torch.einsum("bngqk,bngqd->bnkd", p, dob)
+        dp = torch.einsum("bngqd,bnkd->bngqk", dob, v[:, :, k0:k1].float())
+        dd = (dob * out[:, :, q0:q1].float().reshape(b, kv, g, n, d)).sum(
+            dim=-1, keepdim=True)
+        ds = p.mul_(dp.sub_(dd))
+        dq[:, :, q0:q1] = torch.einsum(
+            "bngqk,bnkd->bngqd", ds, k[:, :, k0:k1].float()).reshape(
+                b, h, n, d) * scale
+        qb = q[:, :, q0:q1].float().reshape(b, kv, g, n, d)
+        dk[:, :, k0:k1] += torch.einsum("bngqk,bngqd->bnkd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """:func:`flash_attention` with a gradient: the forward is the kernel
+    on a CUDA tensor and the plain version on a CPU one (the wrapper's
+    rule), and saves q, k, v, out and the row log-sum-exp; the backward
+    is :func:`flash_attention_backward` (torch ops: the TPU package has
+    no backward kernel either, ``jax.value_and_grad`` differentiates its
+    jnp code), under the profiler label ``flash_attention_backward``.
+    ``apply(q, k, v, causal, window, scale)`` returns out."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=0, scale=None):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.mask
+        with torch.profiler.record_function("flash_attention_backward"):
+            dq, dk, dv = flash_attention_backward(
+                q, k, v, out, lse, dout, causal=causal, window=window,
+                scale=scale)
+        return dq, dk, dv, None, None, None

@@ -19,6 +19,12 @@ kernel is ``csrc/rmsnorm.cu``, with three bodies:
 
 The wrapper runs the plain version for CPU tensors only; for a CUDA
 tensor it launches the kernel or raises.
+
+Both wrappers have a gradient (:class:`RmsNormFn`,
+:class:`AddRmsNormFn`: the forward is the same launch, the backward
+torch ops that recompute the row's ``rsqrt`` in f32), taken only when
+grad mode is on and an input requires grad; every other call, the
+serving path's among them, launches as it did, with no autograd node.
 """
 from __future__ import annotations
 
@@ -135,12 +141,22 @@ def _check_body(body: Optional[str], name: str) -> None:
                          f"are {sorted(_build.bodies['rmsnorm'])}")
 
 
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
             _body: Optional[str] = None) -> torch.Tensor:
     """RMSNorm of ``x`` (..., d) with ``scale`` (d,); output in x.dtype.
     ``_body="cuda_core"`` forces the previous body, for timing the bodies
     against each other; the model never passes it."""
     _check_body(_body, "rmsnorm")
+    if _wants_grad(x, scale):
+        return RmsNormFn.apply(x, scale, eps, _body)
+    return _rmsnorm(x, scale, eps, _body)
+
+
+def _rmsnorm(x, scale, eps, _body):
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     body = _body or "norm"
@@ -159,6 +175,12 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     norm body), for timing the two against each other; the model never
     passes it."""
     _check_body(_body, "add_rmsnorm")
+    if _wants_grad(x, delta, scale):
+        return AddRmsNormFn.apply(x, delta, scale, eps, _body)
+    return _add_rmsnorm(x, delta, scale, eps, _body)
+
+
+def _add_rmsnorm(x, delta, scale, eps, _body):
     if x.device.type == "cpu":
         return add_rmsnorm_plain(x, delta, scale, eps)
     body = _body or "add_norm"
@@ -171,5 +193,62 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
                              f"{delta.dtype} does not match x "
                              f"{tuple(x.shape)} {x.dtype}")
         r = x + delta
-        return r, rmsnorm(r, scale, eps, _body="cuda_core")
+        return r, _rmsnorm(r, scale, eps, "cuda_core")
     return _launch(x, delta, scale, eps, body, "add_rmsnorm")
+
+
+def rmsnorm_backward(r: torch.Tensor, scale: torch.Tensor, eps: float,
+                     dout: torch.Tensor):
+    """(dr, dscale) of ``out = rmsnorm(r)`` in f32, the row's ``rsqrt``
+    recomputed from ``r``: with ``n = r * rsqrt(mean(r^2) + eps)``,
+    ``dscale = sum(dout * n)`` over the rows and ``dr = rsqrt(...) *
+    (g - n * mean(g * n))`` with ``g = dout * scale``."""
+    r32 = r.float()
+    inv = torch.rsqrt(torch.mean(r32 * r32, dim=-1, keepdim=True) + eps)
+    n = r32 * inv
+    g32 = dout.float()
+    dscale = (g32 * n).reshape(-1, r.shape[-1]).sum(dim=0)
+    g32 = g32 * scale.float()
+    dr = inv * (g32 - n * torch.mean(g32 * n, dim=-1, keepdim=True))
+    return dr, dscale
+
+
+class RmsNormFn(torch.autograd.Function):
+    """:func:`rmsnorm` with a gradient: the forward is the wrapper's
+    launch (the plain version on a CPU tensor), the backward
+    :func:`rmsnorm_backward`, each gradient in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps=1e-5, body=None):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm(x, scale, eps, body)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, ctx.eps, dout)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None, None
+
+
+class AddRmsNormFn(torch.autograd.Function):
+    """:func:`add_rmsnorm` with a gradient: the forward is the wrapper's
+    one launch, returning ``(r, out)``; the backward adds ``out``'s
+    gradient through the norm (:func:`rmsnorm_backward`, from the saved
+    ``r``) to ``r``'s own, which is then the gradient of both x and
+    delta."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, eps=1e-5, body=None):
+        r, out = _add_rmsnorm(x, delta, scale, eps, body)
+        ctx.save_for_backward(r, scale)
+        ctx.eps = eps
+        return r, out
+
+    @staticmethod
+    def backward(ctx, dr, dout):
+        r, scale = ctx.saved_tensors
+        dnorm, dscale = rmsnorm_backward(r, scale, ctx.eps, dout)
+        dsum = dnorm + dr.float()
+        return (dsum.to(r.dtype), dsum.to(r.dtype), dscale.to(scale.dtype),
+                None, None)

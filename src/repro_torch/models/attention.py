@@ -41,6 +41,12 @@ clamped pos, so no decode kernel changes.  The batched chunk form (a
 verify round) has no ring branch: speculation is gated off for a
 windowed ``swa`` model, as in the reference.
 
+Full-sequence attention (train mode, :func:`self_attention`) runs the
+contiguous form of the flash kernel through
+:class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`, whose
+gradient is torch ops; the kernel reads the model's ``(B, S, heads,
+hd)`` projections in place, as transposed views.
+
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
 which inactive decode rows may write and nobody reads unmasked.
@@ -53,7 +59,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import (dense_decode_attention,
                                                   paged_decode_attention)
-from repro_torch.kernels.flash_attention import (paged_chunk_attention,
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 paged_chunk_attention,
                                                  paged_prefill_attention,
                                                  ring_chunk_attention)
 from repro_torch.models.layers import _dense_init, rotary
@@ -116,6 +123,24 @@ def _is_ring(kind, cfg) -> bool:
         raise NotImplementedError(f"attention for block kind {kind!r} is "
                                   f"not ported yet")
     return kind == "swa" and bool(cfg.window)
+
+
+def self_attention(params, x, positions, cfg, kind: str,
+                   causal: bool = True) -> Tuple[torch.Tensor, dict]:
+    """Full-sequence self-attention (the reference's ``self_attention``,
+    train mode): the Q/K/V projections of x (B,S,D), rotary at
+    ``positions`` (B|1, S), then the contiguous flash kernel with the
+    window ``cfg.window`` for ``swa`` and none for ``attn`` (a causal
+    window only), then the O product.  The kernel reads q (B,S,H,hd) and
+    k / v (B,S,KV,hd) in place, as (B, heads, S, hd) views, and writes
+    its output in q's layout, so the O product reads it without a copy.
+    Returns (out (B,S,D), {"k","v"})."""
+    _is_ring(kind, cfg)              # refuses kinds other than attn / swa
+    q, k, v = _qkv(params, x, positions, cfg)
+    window = cfg.window if kind == "swa" else 0
+    o = FlashAttentionFn.apply(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal, window, None)
+    return _out(params, o.transpose(1, 2), cfg), {"k": k, "v": v}
 
 
 def _ring_chunk(params, x, cache: dict, table, pos, w: int, cfg):

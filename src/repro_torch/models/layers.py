@@ -39,7 +39,10 @@ def add_rmsnorm(params: dict, x: torch.Tensor, delta: torch.Tensor,
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["w"][tokens.long()]
+    """Rows of the table: a gather, whose gradient (train mode) sums each
+    row's contributions in f32 on the card where an indexing gradient
+    would add them into a bf16 table one by one."""
+    return torch.nn.functional.embedding(tokens.long(), params["w"])
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ decoders and Mamba1 models::
     logits, caches = m.paged_decode_step(params, pools, batch, meta)
     toks, caches = m.decode_steps(params, caches, batch, meta_or_None, k=K)
     emit, caches = m.verify_steps(params, caches, batch, meta_or_None)
+    logits, _, aux = m.forward(params, {"tokens": toks}, mode="train")
 
 Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools and
 SSM state rows of :meth:`repro_torch.models.kvcache.PagedCache.struct`
@@ -23,6 +24,8 @@ leading layer dim (``bridge.params_from_numpy`` builds them from the
 JAX package's parameters); ``qformat`` tags the format their projection
 weights were packed to (``models/quantize.py::quantize_params``, which
 the engines call), and the model never packs them itself.
+:meth:`forward` is train mode (``training/train_step.py``): every block
+under a checkpoint, gradients through autograd.
 """
 from __future__ import annotations
 
@@ -74,18 +77,58 @@ class Model:
             params["lm_head"] = table()
         return params
 
-    def _head(self, params, stream):
-        """Logits from ``_run``'s (x, delta): the last block's pending
-        residual add fused into the final norm."""
+    def _final_norm(self, params, stream):
+        """The final norm of ``_run``'s (x, delta): the last block's
+        pending residual add fused into it."""
         x, delta = stream
         if delta is None:
-            x = rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
-        else:
-            _, x = add_rmsnorm(params["final_norm"], x, delta,
-                               self.cfg.norm_eps)
-        head = (params["embed"] if self.cfg.tie_embeddings
+            return rmsnorm(params["final_norm"], x, self.cfg.norm_eps)
+        return add_rmsnorm(params["final_norm"], x, delta,
+                           self.cfg.norm_eps)[1]
+
+    def _head_params(self, params) -> dict:
+        return (params["embed"] if self.cfg.tie_embeddings
                 else params["lm_head"])
-        return unembed(head, x)  # vocab dim is padded
+
+    def _head(self, params, stream):
+        """Logits from ``_run``'s (x, delta) over the padded vocab."""
+        return unembed(self._head_params(params),
+                       self._final_norm(params, stream))
+
+    def head_weight(self, params) -> torch.Tensor:
+        """The LM head's table (V_pad, D): the tied embedding or the
+        untied ``lm_head``."""
+        return self._head_params(params)["w"]
+
+    def forward(self, params, batch, mode: str = "train",
+                return_hidden: bool = False):
+        """Train-mode forward over batch {"tokens" (B,S) int}: the
+        embedding, every block (each under a checkpoint, the residual add
+        fused into the next norm) at positions 0 .. S - 1, the final norm
+        and, unless ``return_hidden``, the head over the padded vocab.
+        Returns (logits (B,S,V_pad) or hidden (B,S,D), None, aux), aux
+        the reference's ``_empty_aux`` for these dense models (zero MoE
+        terms).  The reference's ``mode="prefill"`` (a full prompt into
+        the caches) is not ported: the engines prefill in chunks."""
+        if mode != "train":
+            raise NotImplementedError(
+                f"Model.forward(mode={mode!r}) is not ported yet; the port "
+                f"runs mode='train' (the engines prefill in chunks)")
+        tfm.check_supported(self.cfg, mode)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = embed(params["embed"], tokens).to(self.dtype)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        stream = tfm.apply_segments(params["blocks"], x, cfg=self.cfg,
+                                    mode=mode, segs=self.segments,
+                                    positions=positions,
+                                    qformat=self.qformat)
+        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux = {"moe_aux_loss": zero, "moe_drop_frac": zero}
+        hidden = self._final_norm(params, stream)
+        if return_hidden:
+            return hidden, None, aux
+        return unembed(self._head_params(params), hidden), None, aux
 
     def _run(self, params, caches, tokens, pos, paged, mode):
         """The stacks over the embedded tokens: (x, delta), the residual

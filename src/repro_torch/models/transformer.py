@@ -11,19 +11,27 @@ Python loop over its layers, handing each layer views of its weights
 (packed quant leaves included: ``_layer`` recurses into their
 ``{"q","s"}`` dicts) and of its slice of the in-place updated caches
 (KV pools or rows, or a Mamba1 layer's ``h`` / ``conv`` state).
+
+In ``train`` mode (``attn`` and ``swa`` blocks over a whole sequence, no
+cache) each block runs under ``torch.utils.checkpoint`` (non-reentrant),
+the counterpart of the reference's ``jax.checkpoint``: its activations
+are recomputed in the backward pass, the flash and RMSNorm kernels
+launched again.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
-MODES = ("decode", "chunk")
+MODES = ("decode", "chunk", "train")
 KINDS = ("attn", "swa", "mamba1")   # block kinds the port runs
 
 
@@ -49,8 +57,13 @@ def _has_mlp(kind: str, cfg) -> bool:
     return kind in ("attn", "swa", "cross") and cfg.mlp_kind != "none"
 
 
-def check_supported(cfg) -> None:
-    """Raise for configurations whose blocks the port cannot run yet."""
+def check_supported(cfg, mode: Optional[str] = None) -> None:
+    """Raise for configurations whose blocks the port cannot run yet (in
+    ``mode``, where given)."""
+    if mode == "train" and "mamba1" in cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba1 training is not ported yet (ROADMAP Queue "
+            f"1 item 9: the selective scan's gradient)")
     for seg in build_segments(cfg):
         if seg.kind not in KINDS or seg.shared:
             raise NotImplementedError(
@@ -92,15 +105,18 @@ def init_segments(generator, cfg, dtype, device) -> dict:
 
 
 def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
-                pos, cache: dict, paged: Optional[dict] = None,
-                qformat: Optional[str] = None):
+                pos=None, cache: Optional[dict] = None,
+                paged: Optional[dict] = None,
+                qformat: Optional[str] = None, positions=None):
     """Apply one ``attn``, ``swa`` or ``mamba1`` block to the residual
     stream ``x`` plus ``delta``, the previous block's output not yet added
     to it (None before the first block).  ``pos`` is a (B,) int32 tensor in
     decode mode; in chunk mode an ``int`` (one request's prefill chunk)
     or a (B,) tensor (B rows at their own positions, the draft-verify
     round), which the attention passes on to its kernels without reading
-    it on the host.  ``cache`` holds this layer's
+    it on the host.  In train mode ``positions`` (B|1, S) are the
+    rotary positions of a whole sequence and there is no cache.
+    ``cache`` holds this layer's
     pools (``paged`` given: the block tables) or dense cache rows
     (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state rows;
     each is written in place.  ``qformat`` tags the weight format the
@@ -127,6 +143,9 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
             a, _ = ssm_mod.mamba1_seq(params["mamba"], h, cfg,
                                       h0=cache["h"],
                                       conv_state=cache["conv"])
+    elif mode == "train":
+        a, _ = attn_mod.self_attention(params["attn"], h, positions, cfg,
+                                       kind)
     elif mode == "decode":
         if paged is None:
             a, _ = attn_mod.decode_self_attention(
@@ -154,17 +173,39 @@ def _layer(tree, j: int):
     return tree[j]
 
 
-def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos,
-                   caches: list, paged: Optional[dict] = None,
-                   qformat: Optional[str] = None):
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, each a tree of views
+    (``unbind``: its gradient stacks the layers' gradients in one op)."""
+    if isinstance(tree, dict):
+        per = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[j] for k, v in per.items()} for j in range(n)]
+    return list(tree.unbind(0))
+
+
+def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
+                   caches: Optional[list] = None,
+                   paged: Optional[dict] = None,
+                   qformat: Optional[str] = None, positions=None):
     """Run every layer in order.  ``caches`` is the per-segment list of
     ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
     with a leading layer dim; each layer writes its slice in place, so
-    the list needs no rebuilding.
+    the list needs no rebuilding.  In train mode there are no caches:
+    each block runs under a non-reentrant checkpoint at ``positions``,
+    which carries the (x, delta) pair across its boundary.
     Returns (x, delta): the residual stream and the last block's output,
     not yet added to it (the caller fuses that add into the final norm,
     or adds it)."""
     delta = None
+    if mode == "train":
+        for seg, params in zip(segs, blocks["segments"]):
+            block = functools.partial(block_apply, kind=seg.kind, cfg=cfg,
+                                      mode=mode, positions=positions,
+                                      qformat=qformat)
+            for layer in _unbind(params, seg.length):
+                x, delta = checkpoint(block, layer, x, delta,
+                                      use_reentrant=False,
+                                      preserve_rng_state=False)
+        return x, delta
     for seg, params, cache in zip(segs, blocks["segments"], caches):
         for j in range(seg.length):
             x, delta = block_apply(_layer(params, j), x, delta,

@@ -35,7 +35,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import repro_torch.serving.engine, repro_torch.bridge; "
+            "import repro_torch.serving.engine, repro_torch.bridge, "
+            "repro_torch.training, repro_torch.launch.train; "
             "bad = [m for m in sys.modules "
             "if sys.modules[m] is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "

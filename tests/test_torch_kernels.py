@@ -39,7 +39,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention_plain, paged_decode_attention,
     paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    PREFILL_ROWS, paged_chunk_attention,
+    PREFILL_ROWS, FlashAttentionFn, flash_attention, flash_attention_plain,
+    paged_chunk_attention,
     paged_chunk_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
     prefill_span, prefill_splits, ring_body, ring_chunk_attention,
@@ -1973,3 +1974,116 @@ def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
     got = fn(*args, _body="cuda_core")
     assert _build.bodies[name]["cuda_core"] == n0 + 1
     _card_close(got, plain(*args), "bfloat16")
+
+
+# ----------------------------------------------------------------------
+# the contiguous flash form (csrc/flash_attention.cu)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,hd,aligned,want", [
+    ("bfloat16", 64, True, "mma"), ("bfloat16", 256, True, "mma"),
+    ("bfloat16", 128, True, "mma"), ("bfloat16", 16, True, "mma"),
+    ("bfloat16", 80, True, "mma"), ("bfloat16", 72, True, "cuda_core"),
+    ("bfloat16", 192, True, "cuda_core"), ("bfloat16", 64, False,
+                                           "cuda_core"),
+    ("float32", 64, True, "cuda_core"), ("float32", 256, True, "cuda_core"),
+])
+def test_flash_body_rule(dtype, hd, aligned, want):
+    """The contiguous form's wrapper names its body by ``prefill_body``:
+    the tensor-core body for every bf16 launch of smollm-360m's train
+    step (hd 64, on the model's aligned projections) and gemma3-12b's hd
+    256, the CUDA-core body elsewhere: float32 always."""
+    dt = getattr(torch, dtype)
+    assert prefill_body(dt, hd, aligned) == want
+
+
+# (B, H, KV, S, hd, causal, window): smollm-360m's heads, causal and
+# ragged; the encoder's non-causal form with a window it must ignore;
+# a window shorter than S at G 2; gemma3-12b's hd 256 with its window
+# cut to the shape; hd 32 and 80 (other k16 counts)
+FLASH_CARD_CASES = [(2, 15, 5, 512, 64, True, 0),
+                    (2, 15, 5, 300, 64, True, 0),
+                    (2, 6, 2, 1000, 64, False, 100),
+                    (1, 4, 2, 700, 64, True, 128),
+                    (1, 16, 8, 600, 256, True, 256),
+                    (1, 4, 4, 130, 32, True, 0),
+                    (2, 6, 3, 200, 80, False, 0)]
+FLASH_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+
+
+def _flash_card_inputs(cuda_device, seed, b, h, kv, s, d, dt):
+    rng = np.random.default_rng(seed)
+    return [t(rng.standard_normal(shape, dtype=np.float32)).to(cuda_device,
+                                                                dt)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", FLASH_CARD_CASES)
+def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d,
+                                  causal, window):
+    """The contiguous kernel against its plain version on the card, out
+    and row log-sum-exp, one launch counted on the body ``prefill_body``
+    names; bf16 forced onto ``cuda_core`` too."""
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_card_inputs(cuda_device, 90, b, h, kv, s, d, dt)
+    body = prefill_body(dt, d)
+    n0 = _build.bodies["flash_attention"][body]
+    out, lse = flash_attention(q, k, v, causal=causal, window=window)
+    assert _build.bodies["flash_attention"][body] == n0 + 1
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    assert out.dtype == dt and lse.dtype == torch.float32
+    assert torch.isfinite(out.float()).all()
+    _card_close(out, want, dtype)
+    assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL[dtype]
+    if dtype == "bfloat16":
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   _body="cuda_core")
+        _card_close(out, want, dtype)
+        assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype):
+    """The model's (B, S, heads, hd) projections, passed as transposed
+    views, give the bits of contiguous (B, heads, S, hd) copies, and the
+    output takes q's layout (so the O product reads it without a copy)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(91)
+    b, s, h, kv, d = 2, 333, 15, 5, 64
+    q = t(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(
+        cuda_device, dt)
+    k, v = (t(rng.standard_normal((b, s, kv, d), dtype=np.float32)).to(
+        cuda_device, dt) for _ in range(2))
+    views = [a.transpose(1, 2) for a in (q, k, v)]
+    out, lse = flash_attention(*views)
+    assert out.transpose(1, 2).is_contiguous()
+    ref_out, ref_lse = flash_attention(*[a.contiguous() for a in views])
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0)])
+def test_cuda_flash_fn_gradients(cuda_device, dtype, causal, window):
+    """FlashAttentionFn's dq, dk, dv on the card (the kernel's forward,
+    the torch-op backward) against autograd through the plain version on
+    the card, at B 2, S 512, smollm-360m's heads: float32 within 2e-5 of
+    max(1, |g|), bfloat16 within 2e-2 of it (the two forwards' outputs
+    round once each)."""
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_card_inputs(cuda_device, 92, 2, 15, 5, 512, 64, dt)
+    w = _flash_card_inputs(cuda_device, 93, 2, 15, 5, 512, 64, dt)[0]
+    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad((FlashAttentionFn.apply(
+        *a, causal, window, None).float() * w.float()).sum(), a)
+    p = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad((flash_attention_plain(
+        *p, causal=causal, window=window)[0].float() * w.float()).sum(), p)
+    for g, r in zip(got, want):
+        assert g.dtype == dt
+        diff = (g.float() - r.float()).abs() / r.float().abs().clamp(min=1)
+        assert diff.max().item() <= CARD_TOL[dtype]
