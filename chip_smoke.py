@@ -15,8 +15,12 @@ one JSON line:
    clusters of 1-8 CTAs it holds at once at the wide bodies' shared
    memory (the paged prefill's, the ring form's and the decode's),
    against the constants the split rules read (``SM_COUNT`` of four
-   kernel modules, ``WIDE_CLUSTERS``): a mismatch fails by name before
-   any kernel phase;
+   kernel modules, ``WIDE_CLUSTERS``), and the CTAs an SM holds of the
+   contiguous flash form's ``wgmma`` body at its dynamic shared memory
+   (the occupancy calculator on the kernel itself) against
+   ``WGMMA_CTAS_PER_SM``: a mismatch fails by name before any kernel
+   phase.  The build line also prints ptxas's report of the ``wgmma``
+   body (registers at launch, spills) and fails if it spills;
 3. ``kernels`` — every kernel against its plain PyTorch version on the
    card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
    the quant matmuls, whose sums over K up to 2560 run in another order;
@@ -70,11 +74,15 @@ one JSON line:
    decode over linear rows).  The contiguous form of the flash kernel
    (``flash_attention``, the TPU kernel's own signature, the train
    path's) runs at smollm-360m's train shape (B 8, S 4096, 15 / 5 heads
-   of 64, causal, bf16 on ``mma``), the same heads at S 1024 in float32
-   (``cuda_core``), gemma3-12b's heads with its 1024 window (bf16, the
-   wide tiles) and a non-causal ragged case (B 2, S 1000, with a window
-   it must ignore) in both dtypes, its row log-sum-exp within 2e-5 /
-   1e-2, beside ``F.scaled_dot_product_attention`` (``enable_gqa``;
+   of 64, causal, bf16 on ``wgmma``, timed in turns against ``mma``, which
+   is gated too), the same heads at S 1024 in float32 (``cuda_core``),
+   gemma3-12b's heads with its 1024 window (bf16 on ``mma``, the wide
+   tiles) and a non-causal ragged case (B 2, S 1000, with a window it
+   must ignore) in both dtypes (bf16 on ``wgmma`` against ``mma`` in
+   turns; on ``wgmma`` the model's ``(B, S, heads, hd)`` layout, passed
+   as transposed views, must give the contiguous run's bits), its row
+   log-sum-exp within 2e-5 / 1e-2 (``mma``'s too),
+   beside ``F.scaled_dot_product_attention`` (``enable_gqa``;
    causal, or the boolean window mask), and the torch-op gradient of one
    layer timed at the train shape; ``FlashAttentionFn``'s dq / dk / dv
    (B 2, S 512) and the norms' gradients and their Functions' forward
@@ -164,7 +172,7 @@ one JSON line:
    through ``launch/train.py``'s setup, a line a step (ce, grad norm,
    lr, wall ms, tokens/s, peak memory): every ce finite and the last
    below the first, the launches exactly what ``expected_train_launches``
-   implies (the flash kernel twice a layer a step, all on ``mma``:
+   implies (the flash kernel twice a layer a step, all on ``wgmma``:
    forward and the checkpoint's recompute; 4n + 1 norms), no plain
    version run; then one more step under torch.profiler (busy ms, idle
    share, the flash kernel's, the torch-op backward's and cuBLAS's ms).
@@ -183,6 +191,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -629,10 +638,11 @@ def kernel_cases(dev) -> list:
 # ---------------------------------------------------------------------------
 #: the contiguous flash form's cases: (label, dtype, B, S, H, KV, hd,
 #: causal, window).  "train": smollm-360m's train shape (the reference's
-#: train_4k sequence on one card's 8 rows), on mma; "train_f32": the same
-#: heads at S 1024 in float32, on cuda_core; "gemma": gemma3-12b's heads
-#: with its window (the wide tiles); "encoder": non-causal and ragged,
-#: with a window the kernel must ignore
+#: train_4k sequence on one card's 8 rows), on wgmma, mma in turns;
+#: "train_f32": the same heads at S 1024 in float32, on cuda_core;
+#: "gemma": gemma3-12b's heads with its window (mma, the wide tiles);
+#: "encoder": non-causal and ragged, with a window the kernel must ignore
+#: (bf16: wgmma, mma in turns)
 FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
                ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
@@ -663,8 +673,11 @@ def flash_cases(dev) -> list:
     """The contiguous flash form (``flash_attention``, the TPU kernel's
     own signature) at ``FLASH_CASES``: out against the plain version
     under the gates, the row log-sum-exp within ``FLASH_LSE_TOL``, each
-    launch on the body ``prefill_body`` names, timed beside its plain
-    version and ``F.scaled_dot_product_attention`` (``enable_gqa``;
+    launch on the body ``flash_body`` names (where that is ``wgmma``, the
+    model's ``(B, S, heads, hd)`` layout as transposed views too, bit for
+    bit, and the ``mma`` body, gated the same way, lse included, and timed
+    in turns as ``prev``), timed beside its plain version and
+    ``F.scaled_dot_product_attention`` (``enable_gqa``;
     ``is_causal``, or the boolean window mask where there is a window);
     at the train shape also the torch-op gradient
     (``flash_attention_backward``, one layer's).  Then
@@ -676,7 +689,7 @@ def flash_cases(dev) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         FlashAttentionFn, flash_attention, flash_attention_backward,
-        flash_attention_plain, prefill_body)
+        flash_attention_plain, flash_body)
     from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_plain,
                                              rmsnorm, rmsnorm_plain)
     rng = np.random.default_rng(SEED + 11)
@@ -692,11 +705,39 @@ def flash_cases(dev) -> list:
         q, k, v = t((B, H, S, HD), dtype), t((B, KV, S, HD), dtype), t(
             (B, KV, S, HD), dtype)
         kw = dict(causal=causal, window=window)
-        body = prefill_body(dtype, HD)
+        body = flash_body(dtype, HD)
         out, lse = _on_body("flash_attention", body,
                             lambda: flash_attention(q, k, v, **kw))
         ref, ref_lse = flash_attention_plain(q, k, v, **kw)
         lse_err = (lse - ref_lse).abs().max().item()
+        prev = prev_out = None
+        if body == "wgmma":
+            # the model's layout: (B, S, heads, hd) tensors passed as
+            # transposed views (models/attention.py), which the body reads
+            # through other tensor maps; the bits of the contiguous run
+            views = [a.transpose(1, 2).contiguous().transpose(1, 2)
+                     for a in (q, k, v)]
+            view_out, view_lse = _on_body(
+                "flash_attention", body,
+                lambda: flash_attention(*views, **kw))
+            if not (view_out.transpose(1, 2).is_contiguous()
+                    and torch.equal(view_out, out)
+                    and torch.equal(view_lse, lse)):
+                raise AssertionError(
+                    f"flash_attention {label} {dname}: the model's strided "
+                    f"views give other bits than contiguous tensors (out "
+                    f"off by {(view_out.float() - out.float()).abs().max()}"
+                    f", lse by {(view_lse - lse).abs().max()})")
+            del views, view_out, view_lse
+            # the previous body, in turns
+            prev_out, prev_lse = _on_body(
+                "flash_attention", "mma",
+                lambda: flash_attention(q, k, v, **kw, _body="mma"))
+            lse_err = max(lse_err, (prev_lse - ref_lse).abs().max().item())
+            del prev_lse
+
+            def prev():
+                return flash_attention(q, k, v, **kw, _body="mma")
         if causal and window:
             pos = torch.arange(S, device=dev)
             mask = ((pos[None, :] <= pos[:, None])
@@ -708,6 +749,8 @@ def flash_cases(dev) -> list:
         nbytes = (2 * B * H + 2 * B * KV) * S * HD * es + 4 * B * H * S
         flops = 4 * HD * B * H * pairs
         extra = {"body": body, "lse_max_abs_err": lse_err,
+                 **({"model_layout": "bit-equal to contiguous"}
+                    if body == "wgmma" else {}),
                  "lse_tol": FLASH_LSE_TOL[dname],
                  **_bounds(nbytes, flops, dname)}
         if label == "train":
@@ -726,11 +769,11 @@ def flash_cases(dev) -> list:
             lambda: flash_attention_plain(q, k, v, **kw),
             lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
                                                    **lib_kw),
-            nbytes, flops, extra=extra))
+            nbytes, flops, prev=prev, prev_out=prev_out, extra=extra))
         if not lse_err <= FLASH_LSE_TOL[dname]:
             raise AssertionError(f"flash_attention {label} {dname}: row "
                                  f"log-sum-exp off by {lse_err}")
-        del q, k, v, out, lse, ref, ref_lse, lib_kw
+        del q, k, v, out, lse, ref, ref_lse, lib_kw, prev, prev_out
         torch.cuda.empty_cache()
 
     # gradients: FlashAttentionFn (the kernel's forward, the torch-op
@@ -2148,15 +2191,16 @@ def expected_train_launches(cfg, steps: int) -> tuple:
     launches and 4n + 1 norms a step for n layers.  Every norm but the
     first of the stack takes its residual add (``add_norm``: 2n in the
     forward with the final norm, 2n - 1 in the recompute); every flash
-    launch of a bf16 model takes ``mma``.  Returns (launches by kernel,
-    launches by body of the two)."""
+    launch of a bf16 model at hd 64 takes ``wgmma``.  Returns (launches
+    by kernel, launches by body of the two)."""
     from repro_torch.kernels import _build
     n = sum(cfg.block_pattern.count(k) for k in ("attn", "swa"))
     expect = dict.fromkeys(_build.launches, 0)
     expect["flash_attention"] = 2 * n * steps
     expect["rmsnorm"] = (4 * n + 1) * steps
     return expect, {
-        "flash_attention": {"mma": 2 * n * steps, "cuda_core": 0},
+        "flash_attention": {"wgmma": 2 * n * steps, "mma": 0,
+                            "cuda_core": 0},
         "rmsnorm": {"add_norm": (4 * n - 1) * steps, "norm": 2 * steps,
                     "cuda_core": 0}}
 
@@ -2254,7 +2298,7 @@ def train_full(dev) -> dict:
     batches from ``SyntheticLM(seed=0)``), one JSON line a step (ce, grad
     norm, lr, wall ms, tokens/s, peak memory).  Gates: every ce finite,
     the last below the first; the launches exactly as
-    ``expected_train_launches`` says, every flash launch on ``mma``; no
+    ``expected_train_launches`` says, every flash launch on ``wgmma``; no
     plain version run.  Then one more step under torch.profiler: the
     device's busy ms (and idle share against the steady steps' median
     wall time), the flash kernel's ms, the torch-op backward's
@@ -2328,7 +2372,8 @@ def train_full(dev) -> dict:
                "device_busy_ms": busy_us / 1e3,
                "device_idle_share": 1 - busy_us / 1e3 / wall_ref,
                "device_launches": sum(e.count for e in kernels),
-               "flash_kernel_ms": ms_of(lambda k: "flash_mma_kernel" in k
+               "flash_kernel_ms": ms_of(lambda k: "flash_wgmma_kernel" in k
+                                        or "flash_mma_kernel" in k
                                         or "flash_core_kernel" in k),
                "rmsnorm_kernel_ms": ms_of(lambda k: "add_norm_kernel" in k
                                           or "rmsnorm" in k),
@@ -2370,13 +2415,34 @@ def train(dev) -> dict:
     return {"train_bf16": train_full(dev)}
 
 
+def wgmma_ptxas(report: str) -> list:
+    """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma body:
+    its name, the registers a thread has at launch and the bytes it
+    spills (stores and loads)."""
+    found, entry = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1] if "flash_wgmma_kernel" in ln else None
+        elif entry and "spill stores" in ln:
+            _, stores, loads = (int(x) for x in
+                                re.findall(r"(\d+) bytes", ln)[:3])
+            found.setdefault(entry, {})["spill_bytes"] = stores + loads
+        elif entry and "Used" in ln and "registers" in ln:
+            found.setdefault(entry, {})["registers_at_launch"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return [{"entry": e, **v} for e, v in sorted(found.items())]
+
+
 def device_tables(dev) -> dict:
     """The card against the constants the split rules read: its SM count
     against ``SM_COUNT`` (decode attention, quant matmul, rmsnorm,
     selective scan) and ``cudaOccupancyMaxActiveClusters`` for clusters
     of 1-8 CTAs at the shared memory of the wide bodies (the paged
     prefill's, the ring form's, which takes the same tiles, and the
-    decode's at gemma3-12b's G 2) against ``WIDE_CLUSTERS``.  Raises
+    decode's at gemma3-12b's G 2) against ``WIDE_CLUSTERS``; the CTAs an
+    SM holds of the contiguous flash form's ``wgmma`` body, from the
+    occupancy calculator on the kernel at the dynamic shared memory it
+    launches with, against ``WGMMA_CTAS_PER_SM``.  Raises
     naming each table, size, expected and measured value that differ."""
     import torch
     from repro_torch.kernels import (decode_attention, flash_attention,
@@ -2401,9 +2467,16 @@ def device_tables(dev) -> dict:
                 f"{decode_attention.WIDE_CLUSTERS[sp]}, got {n}"
                 for sp, n in got.items()
                 if n != decode_attention.WIDE_CLUSTERS[sp]]
-    res = {"phase": "device", "check": "SM_COUNT and WIDE_CLUSTERS against "
-                                       "this card", "sm_count": sms,
-           "max_active_clusters": clusters, "mismatches": bad}
+    ctas, smem = flash_attention.wgmma_occupancy()
+    if ctas != flash_attention.WGMMA_CTAS_PER_SM:
+        bad.append(f"WGMMA_CTAS_PER_SM at the wgmma body's {smem} B: "
+                   f"expected {flash_attention.WGMMA_CTAS_PER_SM}, got "
+                   f"{ctas}")
+    res = {"phase": "device", "check": "SM_COUNT, WIDE_CLUSTERS and "
+                                       "WGMMA_CTAS_PER_SM against this card",
+           "sm_count": sms, "max_active_clusters": clusters,
+           "wgmma_ctas_per_sm": {"smem": smem, "ctas": ctas},
+           "mismatches": bad}
     emit(res)
     if bad:
         raise AssertionError("the split rules' card tables do not match "
@@ -2489,11 +2562,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.library()
-    report = [ln.strip() for ln in _build.ptxas_report().splitlines()
+    full_report = _build.ptxas_report()
+    report = [ln.strip() for ln in full_report.splitlines()
               if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds, "key": _build.build_key(),
           "ptxas": report})
+    wgmma = wgmma_ptxas(full_report)
+    emit({"phase": "build", "kernel": "flash_attention, wgmma body",
+          "ptxas": wgmma})
+    if not wgmma or any(e.get("spill_bytes", 1) for e in wgmma):
+        raise AssertionError(f"the wgmma body is missing from the build or "
+                             f"spills: {wgmma}")
 
     seconds = {}
 

@@ -18,6 +18,7 @@ constexpr int kBodyMma = 1;          // bf16 on the tensor cores
 constexpr int kBodyStateLanes = 2;   // the scan, d_state across lanes
 constexpr int kBodyAddNorm = 3;      // rmsnorm fused with the residual add
 constexpr int kBodyNorm = 4;         // rmsnorm, the row in registers
+constexpr int kBodyWgmma = 5;        // bf16, warp-specialised wgmma and TMA
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T v);

@@ -52,20 +52,23 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 
 #: kernel name -> body -> launches since the last reset, for the kernels
 #: with more than one body (the body names of csrc/*.cu: "mma", the bf16
-#: tensor-core body; "state_lanes", the scan with d_state split across
-#: lanes; "add_norm" and "norm", rmsnorm with and without the residual
-#: add, the row in registers; "cuda_core", the f32 CUDA-core body, the
-#: previous one where a kernel was redesigned)
+#: tensor-core body; "wgmma", the contiguous flash form's
+#: warp-specialised bf16 body on Hopper's wgmma, fed by TMA;
+#: "state_lanes", the scan with d_state split across lanes; "add_norm"
+#: and "norm", rmsnorm with and without the residual add, the row in
+#: registers; "cuda_core", the f32 CUDA-core body, the previous one where
+#: a kernel was redesigned)
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
                     "paged_chunk_attention", "ring_chunk_attention",
-                    "flash_attention", "dense_decode_attention",
-                    "quant_matmul_int8", "quant_matmul_int4")},
+                    "dense_decode_attention", "quant_matmul_int8",
+                    "quant_matmul_int4")},
+    "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
-              "add_norm": 3, "norm": 4}
+              "add_norm": 3, "norm": 4, "wgmma": 5}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
@@ -183,6 +186,8 @@ _SIGNATURES = {
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I,
                            _P),
+    # CTAs an SM (int*), dynamic shared memory (int*)
+    "rt_flash_wgmma_occupancy": (_P, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -217,9 +222,18 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+#: csrc/hopper.cuh: hop::kTensorMapError, added to the CUDA driver's CUresult
+#: when a TMA tensor map cannot be encoded
+TENSOR_MAP_ERROR = 10000
+
+
 def check(rc: int, kernel: str) -> None:
     """Raise if a C entry point reported a CUDA error (its return is
-    ``cudaGetLastError()`` right after the launch)."""
+    ``cudaGetLastError()`` right after the launch) or could not encode a
+    TMA tensor map."""
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{kernel}: TMA tensor map encoding failed "
+                           f"(CUresult {rc - TENSOR_MAP_ERROR})")
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 

@@ -68,18 +68,26 @@ model's train mode runs it (``self_attention``, through
 recomputes P from that log-sum-exp in torch ops, in blocks of
 :data:`FLASH_Q_BLOCK` queries).  The kernel (``csrc/flash_attention.cu``)
 reads every tensor through its strides, so the model's ``(B, S, H, hd)``
-projections go in as transposed views without a copy.  Two bodies,
-named by :func:`prefill_body` (the strides count in ``aligned``):
-``"mma"``, the same tensor-core tiles over contiguous keys, tiles above
-the diagonal (and before the window) skipped, 64 (query, head) rows a
-CTA, no split; and ``"cuda_core"``, the window form's f32 CUDA-core
-body over contiguous keys.
+projections go in as transposed views without a copy.  Three bodies,
+named by :func:`flash_body` (the strides count in ``aligned``):
+``"wgmma"`` (bfloat16, hd 64, 16-byte aligned: every launch of
+smollm-360m's train step), a warp-specialised body for Hopper: one
+producer warp loads Q once and K / V tiles of 128 keys into a ring
+through TMA tensor maps over the tensors' own strides, and consumer
+warpgroups of 64 (query, head-in-group) rows run S = Q K^T and
+O += (P_hi + P_lo) V on ``wgmma`` (f32 accumulators), row tiles with the
+most keys launched first; ``"mma"``, the paged prefill's tensor-core
+tiles over contiguous keys (bf16 at the other head dims
+:func:`prefill_body` takes), 64 rows a CTA; and ``"cuda_core"``, the
+window form's f32 CUDA-core body over contiguous keys.  Tiles above the
+diagonal (and before the window) are skipped on every body.
 
 The wrappers run the plain versions for CPU tensors only; for CUDA
 tensors they launch the body the rule names, or raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -101,6 +109,40 @@ def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
             and (hd % 16 == 0 and hd <= 128 or hd == PREFILL_WIDE_HD)):
         return "mma"
     return "cuda_core"
+
+
+#: the contiguous form's wgmma body (csrc/flash_attention.cu, wg::): its
+#: head dim and (query, head-in-group) rows a CTA (two consumer
+#: warpgroups of 64)
+WGMMA_HD = 64
+WGMMA_ROWS = 128
+
+
+def flash_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The contiguous form's body: ``"wgmma"`` for bfloat16 at hd 64 with
+    16-byte aligned tensors and strides (every launch of smollm-360m's
+    train step), else :func:`prefill_body`'s choice (``"mma"`` at the
+    other bf16 head dims it takes, hd 128 and 256 among them;
+    ``"cuda_core"`` for float32).  A group of more than WGMMA_ROWS heads
+    is refused by the kernel."""
+    if dtype == torch.bfloat16 and aligned and hd == WGMMA_HD:
+        return "wgmma"
+    return prefill_body(dtype, hd, aligned)
+
+
+#: CTAs of the wgmma body an SM holds: one (its registers: 168 a thread
+#: at launch, 384 threads); chip_smoke.py checks it against the card
+WGMMA_CTAS_PER_SM = 1
+
+
+def wgmma_occupancy() -> tuple:
+    """(CTAs an SM of this card holds, dynamic shared memory) of the wgmma
+    body, from the card's occupancy calculator on the kernel itself (card
+    only)."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().rt_flash_wgmma_occupancy(
+        ctypes.byref(ctas), ctypes.byref(smem)), "flash_attention")
+    return ctas.value, smem.value
 
 
 def prefill_span(hd: int) -> int:
@@ -478,8 +520,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Contiguous flash attention; see :func:`flash_attention_plain` for
     the contract.  On the card every tensor is read in place through its
     strides (each head dim contiguous; K and V with equal strides), and
-    out takes q's layout.  ``_body`` as in
-    :func:`paged_prefill_attention`."""
+    out takes q's layout; the body is :func:`flash_body`'s.  ``_body`` as
+    in :func:`paged_prefill_attention`; a shape the body cannot take
+    raises."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
@@ -506,7 +549,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     aligned = (all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
                and all(st % pack == 0 for t in (q, k, out)
                        for st in t.stride()[:3]))
-    body = _body or prefill_body(q.dtype, hd, aligned)
+    body = _body or flash_body(q.dtype, hd, aligned)
     lib = _build.library()
     _build.launches["flash_attention"] += 1
     _build.bodies["flash_attention"][body] += 1
@@ -562,12 +605,15 @@ class FlashAttentionFn(torch.autograd.Function):
     is :func:`flash_attention_backward` (torch ops: the TPU package has
     no backward kernel either, ``jax.value_and_grad`` differentiates its
     jnp code), under the profiler label ``flash_attention_backward``.
-    ``apply(q, k, v, causal, window, scale)`` returns out."""
+    ``apply(q, k, v, causal, window, scale)`` returns out; a seventh
+    argument forces the forward's body (``_body`` of
+    :func:`flash_attention`; the model never passes it)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal=True, window=0, scale=None):
+    def forward(ctx, q, k, v, causal=True, window=0, scale=None,
+                _body=None):
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, _body=_body)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, window, scale)
         return out
@@ -580,4 +626,4 @@ class FlashAttentionFn(torch.autograd.Function):
             dq, dk, dv = flash_attention_backward(
                 q, k, v, out, lse, dout, causal=causal, window=window,
                 scale=scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None

@@ -39,8 +39,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention_plain, paged_decode_attention,
     paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    PREFILL_ROWS, FlashAttentionFn, flash_attention, flash_attention_plain,
-    paged_chunk_attention,
+    PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
+    flash_attention, flash_attention_plain, flash_body, paged_chunk_attention,
     paged_chunk_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
     prefill_span, prefill_splits, ring_body, ring_chunk_attention,
@@ -996,12 +996,15 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
     a mismatch fails naming the table, the size, and both values (the
     card's answers stood in for here)."""
     cs = _chip_smoke()
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import launch_floor
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: SimpleNamespace(multi_processor_count=sms))
     monkeypatch.setattr(launch_floor, "max_active_clusters",
                         lambda sp, threads, smem: clusters.get(
                             sp, WIDE_CLUSTERS[sp]))
+    monkeypatch.setattr(flash_mod, "wgmma_occupancy", lambda: (
+        flash_mod.WGMMA_CTAS_PER_SM, 115968))
     monkeypatch.setattr(cs, "emit", lambda obj: None)
     if not named:
         assert cs.device_tables("cpu")["mismatches"] == []
@@ -1010,6 +1013,56 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
         cs.device_tables("cpu")
     for text in named:
         assert text in str(err.value)
+
+
+@pytest.mark.parametrize("ctas,smem,named", [
+    (0, 115968, ["WGMMA_CTAS_PER_SM at the wgmma body's 115968 B: "
+                 "expected 1, got 0"]),
+    (2, 99328, ["WGMMA_CTAS_PER_SM at the wgmma body's 99328 B: "
+                "expected 1, got 2"]),
+])
+def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, named):
+    """The device phase holds the wgmma body's CTAs an SM (the occupancy
+    calculator on the kernel, at the shared memory the kernel reports)
+    against ``WGMMA_CTAS_PER_SM``, and fails naming the shared memory and
+    both values."""
+    cs = _chip_smoke()
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import launch_floor
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(launch_floor, "max_active_clusters",
+                        lambda sp, threads, smem: WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "wgmma_occupancy", lambda: (ctas, smem))
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    with pytest.raises(AssertionError) as err:
+        cs.device_tables("cpu")
+    for text in named:
+        assert text in str(err.value)
+
+
+@pytest.mark.parametrize("stores,loads", [(0, 0), (68, 100)])
+def test_wgmma_ptxas_reads_each_instantiation(stores, loads):
+    """The build line's reading of ptxas's report: the wgmma body's entry
+    with its launch registers and spilled bytes (stores and loads), other
+    kernels (which may spill) left out."""
+    cs = _chip_smoke()
+    report = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelE14CUtensorMap_st' "
+        "for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN2wg18flash_wgmma",
+        f"    48 bytes stack frame, {stores} bytes spill stores, {loads} "
+        f"bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN3mma16flash_mma_kernel'"
+        " for 'sm_90a'",
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 136 registers"])
+    got = cs.wgmma_ptxas(report)
+    assert got == [
+        {"entry": "_ZN12_GLOBAL__N_12wg18flash_wgmma_kernelE14CUtensorMap_st",
+         "spill_bytes": stores + loads, "registers_at_launch": 168}]
 
 
 # ----------------------------------------------------------------------
@@ -1980,20 +2033,36 @@ def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
 # the contiguous flash form (csrc/flash_attention.cu)
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
-    ("bfloat16", 64, True, "mma"), ("bfloat16", 256, True, "mma"),
+    ("bfloat16", 64, True, "wgmma"), ("bfloat16", 256, True, "mma"),
     ("bfloat16", 128, True, "mma"), ("bfloat16", 16, True, "mma"),
     ("bfloat16", 80, True, "mma"), ("bfloat16", 72, True, "cuda_core"),
     ("bfloat16", 192, True, "cuda_core"), ("bfloat16", 64, False,
                                            "cuda_core"),
     ("float32", 64, True, "cuda_core"), ("float32", 256, True, "cuda_core"),
+    ("bfloat16", 32, True, "mma"), ("bfloat16", 256, False, "cuda_core"),
+    ("float32", 64, False, "cuda_core"), ("float32", 128, True, "cuda_core"),
 ])
 def test_flash_body_rule(dtype, hd, aligned, want):
-    """The contiguous form's wrapper names its body by ``prefill_body``:
-    the tensor-core body for every bf16 launch of smollm-360m's train
-    step (hd 64, on the model's aligned projections) and gemma3-12b's hd
-    256, the CUDA-core body elsewhere: float32 always."""
+    """The contiguous form's wrapper names its body by ``flash_body``:
+    the warp-specialised wgmma body for every bf16 launch of smollm-360m's
+    train step (hd 64, on the model's aligned projections), the
+    tensor-core ``mma`` tiles at the other bf16 head dims they take
+    (hd 128 and gemma3-12b's 256 among them), the CUDA-core body
+    elsewhere: float32 always, and unaligned tensors."""
     dt = getattr(torch, dtype)
-    assert prefill_body(dt, hd, aligned) == want
+    assert flash_body(dt, hd, aligned) == want
+    assert WGMMA_HD == 64
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_serving_forms_keep_their_bodies(hd):
+    """The wgmma body is the contiguous form's alone: the paged-chunk,
+    batched and window forms' rules still name ``mma`` in bf16 (hd 64,
+    smollm-360m's serving heads, among them) and ``cuda_core`` in f32."""
+    assert prefill_body(torch.bfloat16, hd) == "mma"
+    assert ring_body(torch.bfloat16, hd) == "mma"
+    assert prefill_body(torch.float32, hd) == "cuda_core"
+    assert ring_body(torch.float32, hd) == "cuda_core"
 
 
 # (B, H, KV, S, hd, causal, window): smollm-360m's heads, causal and
@@ -2023,11 +2092,12 @@ def _flash_card_inputs(cuda_device, seed, b, h, kv, s, d, dt):
 def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d,
                                   causal, window):
     """The contiguous kernel against its plain version on the card, out
-    and row log-sum-exp, one launch counted on the body ``prefill_body``
-    names; bf16 forced onto ``cuda_core`` too."""
+    and row log-sum-exp, one launch counted on the body ``flash_body``
+    names; bf16 forced onto ``cuda_core`` too, and onto ``mma`` where the
+    rule names ``wgmma``."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_card_inputs(cuda_device, 90, b, h, kv, s, d, dt)
-    body = prefill_body(dt, d)
+    body = flash_body(dt, d)
     n0 = _build.bodies["flash_attention"][body]
     out, lse = flash_attention(q, k, v, causal=causal, window=window)
     assert _build.bodies["flash_attention"][body] == n0 + 1
@@ -2038,10 +2108,66 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d,
     _card_close(out, want, dtype)
     assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL[dtype]
     if dtype == "bfloat16":
+        for other in ("cuda_core",) + (("mma",) if body == "wgmma" else ()):
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       _body=other)
+            _card_close(out, want, dtype)
+            assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL[dtype]
+
+
+# (B, H, KV, S, causal, window) at hd 64, the wgmma body's edges: S of 1,
+# 127, 129 and 4095 (a key tile and a row tile cut short, one past);
+# G 1, 3, 4, 8 and 16 (whole queries a CTA: 128, 42, 32, 16, 8); a
+# window shorter than a key tile; B 8; non-causal and ragged
+WGMMA_CARD_CASES = [(1, 3, 1, 1, True, 0), (1, 3, 1, 1, False, 0),
+                    (2, 4, 4, 127, True, 0), (2, 12, 3, 129, True, 0),
+                    (1, 8, 1, 4095, True, 0), (8, 15, 5, 256, True, 0),
+                    (1, 6, 2, 700, True, 40), (2, 6, 2, 333, False, 0),
+                    (1, 16, 1, 300, True, 0), (2, 15, 5, 1000, True, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,causal,window", WGMMA_CARD_CASES)
+def test_cuda_flash_wgmma_matches_plain(cuda_device, b, h, kv, s, causal,
+                                        window):
+    """The wgmma body (the rule's at bf16 hd 64) and the ``mma`` body
+    forced through ``_body``, each against the plain version on the
+    card, out under the bf16 gate and the row log-sum-exp within
+    FLASH_LSE_TOL, each launch counted on its body."""
+    q, k, v = _flash_card_inputs(cuda_device, 94, b, h, kv, s, 64,
+                                 torch.bfloat16)
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    assert flash_body(torch.bfloat16, 64) == "wgmma"
+    for body in ("wgmma", "mma"):
+        n0 = _build.bodies["flash_attention"][body]
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
-                                   _body="cuda_core")
-        _card_close(out, want, dtype)
-        assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL[dtype]
+                                   _body=None if body == "wgmma" else body)
+        assert _build.bodies["flash_attention"][body] == n0 + 1
+        assert torch.isfinite(out.float()).all()
+        _card_close(out, want, "bfloat16")
+        assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wgmma_refuses_what_it_cannot_take(cuda_device):
+    """Forced onto a shape the wgmma body does not take (hd 128, float32,
+    more heads a group than its rows), the launch raises; nothing runs
+    on another body."""
+    q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, 128,
+                                 torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        flash_attention(q, k, v, _body="wgmma")
+    q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, 64,
+                                 torch.float32)
+    with pytest.raises(RuntimeError):
+        flash_attention(q, k, v, _body="wgmma")
+    g = WGMMA_ROWS + 1
+    q, k, v = _flash_card_inputs(cuda_device, 95, 1, g, 1, 8, 64,
+                                 torch.bfloat16)
+    with pytest.raises(RuntimeError):
+        flash_attention(q, k, v)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -2049,7 +2175,8 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, b, h, kv, s, d,
 def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype):
     """The model's (B, S, heads, hd) projections, passed as transposed
     views, give the bits of contiguous (B, heads, S, hd) copies, and the
-    output takes q's layout (so the O product reads it without a copy)."""
+    output takes q's layout (so the O product reads it without a copy):
+    on the rule's body (bf16: wgmma) and, in bf16, on ``mma`` too."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(91)
     b, s, h, kv, d = 2, 333, 15, 5, 64
@@ -2058,10 +2185,12 @@ def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype):
     k, v = (t(rng.standard_normal((b, s, kv, d), dtype=np.float32)).to(
         cuda_device, dt) for _ in range(2))
     views = [a.transpose(1, 2) for a in (q, k, v)]
-    out, lse = flash_attention(*views)
-    assert out.transpose(1, 2).is_contiguous()
-    ref_out, ref_lse = flash_attention(*[a.contiguous() for a in views])
-    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    for body in ((None, "mma") if dtype == "bfloat16" else (None,)):
+        out, lse = flash_attention(*views, _body=body)
+        assert out.transpose(1, 2).is_contiguous()
+        ref_out, ref_lse = flash_attention(*[a.contiguous() for a in views],
+                                           _body=body)
+        assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
 
 
 @pytest.mark.cuda
@@ -2073,17 +2202,23 @@ def test_cuda_flash_fn_gradients(cuda_device, dtype, causal, window):
     the torch-op backward) against autograd through the plain version on
     the card, at B 2, S 512, smollm-360m's heads: float32 within 2e-5 of
     max(1, |g|), bfloat16 within 2e-2 of it (the two forwards' outputs
-    round once each)."""
+    round once each): on the rule's body (bf16: wgmma) and, in bf16, on
+    ``mma`` too."""
     dt = getattr(torch, dtype)
     q, k, v = _flash_card_inputs(cuda_device, 92, 2, 15, 5, 512, 64, dt)
     w = _flash_card_inputs(cuda_device, 93, 2, 15, 5, 512, 64, dt)[0]
-    a = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    got = torch.autograd.grad((FlashAttentionFn.apply(
-        *a, causal, window, None).float() * w.float()).sum(), a)
     p = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad((flash_attention_plain(
         *p, causal=causal, window=window)[0].float() * w.float()).sum(), p)
-    for g, r in zip(got, want):
-        assert g.dtype == dt
-        diff = (g.float() - r.float()).abs() / r.float().abs().clamp(min=1)
-        assert diff.max().item() <= CARD_TOL[dtype]
+    for body in ((None, "mma") if dtype == "bfloat16" else (None,)):
+        n0 = _build.bodies["flash_attention"][body or flash_body(dt, 64)]
+        a = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        got = torch.autograd.grad((FlashAttentionFn.apply(
+            *a, causal, window, None, body).float() * w.float()).sum(), a)
+        assert _build.bodies["flash_attention"][
+            body or flash_body(dt, 64)] == n0 + 1
+        for g, r in zip(got, want):
+            assert g.dtype == dt
+            diff = (g.float() - r.float()).abs() / r.float().abs().clamp(
+                min=1)
+            assert diff.max().item() <= CARD_TOL[dtype]
