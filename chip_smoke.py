@@ -101,10 +101,18 @@ one JSON line:
    ``swa`` layer with the published window of 1024, one ``attn``; 3
    prompts of 1040-1200 tokens, so every ring wraps) at full width, 2
    layers, float32, through the paged and the slot engine, and with
-   ``speculative=4``, which both must gate off.  Each pair of streams must
-   be equal, on the card the slot engine's streams must equal the paged
-   engine's, and each speculative stream the same engine's and format's
-   non-speculative one;
+   ``speculative=4``, which both must gate off.  The pipelined engines
+   (``PagedPipelinedEngine`` and ``PipelinedEngine``, 2 stages) run the
+   same traces for all three models, and for smollm-360m with int8
+   weights and with ``speculative=4`` too.  Each pair of streams and
+   ``t_*`` stamps must be equal, on the card the slot engine's streams
+   must equal the paged engine's, each speculative stream the same
+   engine's and format's non-speculative one, and each pipelined run's
+   streams and stamps the monolithic engine's.  Last, the overload trace
+   of tests/test_paged.py (two batch hogs ahead of four interactive
+   requests) through smollm's paged engine under FIFO, ``edf`` and
+   ``edf_ec``: streams, stamps, goodput, per-class stats and rejections
+   equal the CPU's, and every policy's streams FIFO's;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -124,6 +132,22 @@ one JSON line:
    acceptance, host syncs per token, the share of tokens equal to the
    repeated bf16 paged run's (not gated), and exactly one batched chunk
    attention a layer a round, every launch on ``mma``.
+   Then the paper's static tier: ``pipe_paged_bf16``
+   (``PagedPipelinedEngine``) and ``pipe_dense_bf16``
+   (``PipelinedEngine``), smollm-360m in 2 core stages over a seeded
+   edge network (``make_network``), on the same 8 requests: each stage's
+   decode step is timed by CUDA events (``profile``), the executed
+   pipeline becomes the paper's application (``to_application``), the
+   integer program places its stages (``place_stages(..., "static_ip")``)
+   and the engine serves on that placement; each must emit
+   ``paged_bf16_8``'s / ``dense_bf16``'s tokens with the same launches by
+   kernel and body and a peak memory within 5% of theirs, and prints its
+   stage times, placement, simulated transfer a token, tok/s, peak
+   memory and launches beside them.  Then the online tier:
+   ``fifo_paged`` and ``edf_ec_paged``, the 16 requests with QoS classes
+   round-robin in a pool of 96 blocks, printing goodput, per-class
+   stats, rejections and preemptions, and for requests finished under
+   both the share of tokens equal to ``paged_bf16``'s (not gated).
    Then falcon-mamba-7b at full width and depth (64 Mamba1 layers) in
    bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
    through ``ServingEngine``, with the same checks (the slot run's share
@@ -146,14 +170,14 @@ one JSON line:
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba and gemma3 paged runs; two steady verify rounds after
    ``paged_spec``):
-   two steady decode macro-steps timed without
+   one steady decode macro-step (16 iterations) timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time, the top kernels and the port's own kernels
    by device time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run and the
-   falcon-mamba paged run, the same for a prefill window: 8 requests of
-   385 tokens admitted at once, 24 chunks of 128, with the device busy
-   time per chunk (gemma3: 8 requests of 1153 tokens, 72 chunks).  The
+   falcon-mamba paged run, the same for a prefill window: 4 requests of
+   385 tokens admitted at once, 12 chunks of 128, with the device busy
+   time per chunk (gemma3: 4 requests of 1153 tokens, 36 chunks).  The
    bf16 smollm and gemma3 decode and prefill windows, the int8 and
    int4 decode windows and both falcon-mamba windows run again with the
    previous (CUDA-core) body of the paged decode, the paged prefill
@@ -1392,23 +1416,40 @@ def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
     return None
 
 
+#: the monolithic engine each pipelined engine of the parity phase is
+#: held to on the card
+PIPE_OF = {"pipe_paged": "paged", "pipe_slot": "slot"}
+
+
 def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
     """One trace through each (engine, format, speculation) of ``runs`` on
     the card and on the CPU, from the same f32 weights (each engine packs
-    its own).  Speculation is None, an int K (n-gram drafts) or
-    ``"model"`` (a 2-layer smollm-360m draft at full width, float32, with
-    weights from its own seed, drawn on the CPU so both devices hold the
-    same).  A speculative run's card stream must also equal the card's
-    non-speculative stream of the same engine and format, which ``runs``
-    must hold before it."""
+    its own).  Engines: ``paged`` / ``slot`` (the monolithic engines) and
+    ``pipe_paged`` / ``pipe_slot`` (``PagedPipelinedEngine`` /
+    ``PipelinedEngine``, 2 stages).  Speculation is None, an int K (n-gram
+    drafts) or ``"model"`` (a 2-layer smollm-360m draft at full width,
+    float32, with weights from its own seed, drawn on the CPU so both
+    devices hold the same).  Streams and ``t_*`` stamps must be equal.  A
+    speculative run's card stream must also equal the card's
+    non-speculative stream of the same engine and format, and a
+    pipelined run's card streams and stamps the card's monolithic ones
+    (``PIPE_OF``), which ``runs`` must hold before it.  A pipelined
+    engine's stages are placed round-robin over a seeded edge network
+    (``make_network``), so every stage boundary is a hop between two
+    nodes: its simulated ``transfer_ms``, ``transfer_mb`` and hops must
+    be equal on both devices and not empty."""
     import torch
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             ServingEngine)
+    from repro_torch.core.network import make_network
+    from repro_torch.serving.pipeline import (PagedPipelinedEngine,
+                                              PipelinedEngine, place_stages)
     from repro_torch.serving.speculative import ModelDraft
     cpu = torch.device("cpu")
+    net = make_network(np.random.default_rng(SEED))
     params_cpu = Model(cfg, device=cpu).init(
         torch.Generator().manual_seed(SEED))
     params_gpu = _to(params_cpu, dev)
@@ -1429,21 +1470,43 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
         "slot": lambda p, d, fmt, spec: ServingEngine(
             cfg, p, max_batch=4, cache_len=max_len, prefill_chunk=128,
             decode_steps=4, quantization=fmt,
+            speculative=speculative(spec, d), device=d),
+        "pipe_paged": lambda p, d, fmt, spec: PagedPipelinedEngine(
+            cfg, p, n_stages=2, max_rows=4, max_len=max_len, block_size=16,
+            prefill_chunk=128, decode_steps=4, quantization=fmt, net=net,
+            speculative=speculative(spec, d), device=d),
+        "pipe_slot": lambda p, d, fmt, spec: PipelinedEngine(
+            cfg, p, n_stages=2, max_batch=4, cache_len=max_len,
+            prefill_chunk=128, decode_steps=4, quantization=fmt, net=net,
             speculative=speculative(spec, d), device=d)}
-    streams, results = {}, []
+    streams, stamps, transfer, results = {}, {}, {}, []
     t0 = time.perf_counter()
     for engine, fmt, spec in runs:
         for name, d, p in (("cuda", dev, params_gpu),
                            ("cpu", cpu, params_cpu)):
             eng = engines[engine](p, d, fmt, spec)
+            if engine in PIPE_OF:
+                eng.set_placement(place_stages(
+                    eng.to_application(np.random.default_rng(SEED)), net,
+                    "round_robin"))
             for i, pr in enumerate(prompts):
                 eng.submit(Request(i, list(pr), max_new_tokens=16))
+            done = eng.run()
+            if engine in PIPE_OF:
+                transfer[name] = (eng.transfer_ms, eng.transfer_mb,
+                                  {f"{a}->{b}": h
+                                   for (a, b), h in eng.hops.items()})
             streams[engine, fmt, spec, name] = {r.id: r.out_tokens
-                                                for r in eng.run()}
+                                                for r in done}
+            stamps[engine, fmt, spec, name] = {
+                r.id: (r.t_submit, r.t_admit, r.t_first, r.t_done)
+                for r in done}
         got = streams[engine, fmt, spec, "cuda"]
         ref = streams[engine, fmt, spec, "cpu"]
+        got_t = stamps[engine, fmt, spec, "cuda"]
         run = {"engine": engine, "quantization": fmt, "speculative": spec,
-               "equal": got == ref,
+               "equal": got == ref and got_t == stamps[engine, fmt, spec,
+                                                       "cpu"],
                "tokens": sum(len(x) for x in ref.values())}
         if spec is not None:
             run.update(
@@ -1453,6 +1516,21 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
                 acceptance_rate=eng.acceptance_rate,
                 spec_accept_mean=eng.spec_accept_mean())
             run["equal"] = run["equal"] and run["equal_to_plain"]
+        if engine in PIPE_OF:
+            mono = (PIPE_OF[engine], fmt, spec, "cuda")
+            run.update(stages=[(st.lo, st.hi) for st in eng.stages],
+                       placement=eng.placement,
+                       transfer_ms=transfer["cuda"][0],
+                       transfer_mb=transfer["cuda"][1],
+                       hops=transfer["cuda"][2],
+                       transfer_equal=(transfer["cuda"] == transfer["cpu"]
+                                       and len(transfer["cuda"][2]) > 0
+                                       and len(set(eng.placement.values()))
+                                       == len(eng.stages)),
+                       equal_to_monolithic=(got == streams[mono]
+                                            and got_t == stamps[mono]))
+            run["equal"] = (run["equal"] and run["equal_to_monolithic"]
+                            and run["transfer_equal"])
         if got != ref:
             run["first_divergence"] = _first_divergence(
                 cfg, params_cpu, fmt, prompts, got, ref)
@@ -1469,10 +1547,12 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
            "seconds": time.perf_counter() - t0}
     emit(res)
     if not res["equal"]:
-        raise AssertionError(f"{label}: token streams differ: card against "
-                             f"CPU, slot against paged engine on the card, "
-                             f"or speculative against plain decode on the "
-                             f"card")
+        raise AssertionError(f"{label}: token streams or stamps differ: "
+                             f"card against CPU, slot against paged engine "
+                             f"on the card, speculative against plain "
+                             f"decode on the card, or pipelined against "
+                             f"monolithic on the card (or its simulated "
+                             f"transfers against the CPU's)")
     return res
 
 
@@ -1501,18 +1581,23 @@ def parity(dev) -> list:
         (("paged", None, None), ("paged", "int8", None),
          ("paged", "int4", None), ("slot", None, None),
          ("slot", "int8", None), ("paged", None, 4), ("slot", None, 4),
-         ("paged", "int8", 4), ("paged", None, "model")),
+         ("paged", "int8", 4), ("paged", None, "model"),
+         ("pipe_paged", None, None), ("pipe_slot", None, None),
+         ("pipe_paged", "int8", None), ("pipe_slot", "int8", None),
+         ("pipe_paged", None, 4), ("pipe_slot", None, 4)),
         _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
                smollm.vocab_size), 256)
     # prompts of at most 64 tokens keep the CPU's side short
     mamba_res = _parity_config(
         dev, mamba, "falcon-mamba-7b, 2 layers, float32",
-        (("paged", None, None), ("slot", None, None), ("paged", None, 4)),
+        (("paged", None, None), ("slot", None, None), ("paged", None, 4),
+         ("pipe_paged", None, None), ("pipe_slot", None, None)),
         _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
                mamba.vocab_size), 128)
     gemma_res = _parity_config(
         dev, gemma, "gemma3-12b, 2 layers (swa, attn), float32",
-        (("paged", None, None), ("slot", None, None), ("paged", None, 4)),
+        (("paged", None, None), ("slot", None, None), ("paged", None, 4),
+         ("pipe_paged", None, None), ("pipe_slot", None, None)),
         _trace(np.random.default_rng(SEED + 10), 3, 1040, 1200,
                gemma.vocab_size), 1280)
     spec_runs = [r for r in smollm_res["runs"] if r["speculative"]]
@@ -1524,7 +1609,74 @@ def parity(dev) -> list:
         raise AssertionError(f"speculation: smollm runs {spec_runs} must "
                              f"speculate, falcon-mamba and gemma3 runs "
                              f"{gated} must gate it off")
-    return [smollm_res, mamba_res, gemma_res]
+    return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm)]
+
+
+#: tests/test_paged.py's GOODPUT_TRACE: two batch hogs ahead of four
+#: interactive requests (qos, prompt, max_new_tokens)
+GOODPUT_TRACE = [
+    ("batch", [5, 6, 7], 20),
+    ("batch", [9, 10, 4], 20),
+    ("interactive", [11, 3, 5], 4),
+    ("interactive", [2, 8], 4),
+    ("interactive", [7, 7, 1], 4),
+    ("interactive", [4, 9, 9, 2], 4),
+]
+
+
+def policy_parity(dev, cfg) -> dict:
+    """The overload trace through the paged engine (2 rows of 32 tokens,
+    K = 8) under FIFO, ``edf`` and ``edf_ec`` on the card and on the CPU
+    (``cfg``: smollm-360m, 2 layers, float32): streams, stamps, goodput,
+    per-class stats and rejections must be equal across devices, and
+    each deadline policy's streams FIFO's (a policy reorders which rows
+    run, never what they compute)."""
+    import torch
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    from repro_torch.serving.scheduler import goodput, per_class_stats
+    cpu = torch.device("cpu")
+    params_cpu = Model(cfg, device=cpu).init(
+        torch.Generator().manual_seed(SEED))
+    params = {"cuda": _to(params_cpu, dev), "cpu": params_cpu}
+    t0 = time.perf_counter()
+    out = {}
+    for policy in ("fifo", "edf", "edf_ec"):
+        for name, d in (("cuda", dev), ("cpu", cpu)):
+            eng = PagedServingEngine(cfg, params[name], max_rows=2,
+                                     max_len=32, block_size=8,
+                                     prefill_chunk=4, decode_steps=8,
+                                     policy=policy, device=d)
+            reqs = [Request(i, list(p), max_new_tokens=n, qos=q)
+                    for i, (q, p, n) in enumerate(GOODPUT_TRACE)]
+            for r in reqs:
+                eng.submit(r)
+            eng.run()
+            out[policy, name] = {
+                "streams": {r.id: r.out_tokens for r in reqs},
+                "stamps": {r.id: (r.t_submit, r.t_admit, r.t_first,
+                                  r.t_done) for r in reqs},
+                "goodput": goodput(reqs), "per_class": per_class_stats(reqs),
+                "rejected": [(r.id, r.error) for r in eng.rejected],
+                "n_preemptions": eng.n_preemptions}
+    runs = [{"policy": policy, "goodput": out[policy, "cuda"]["goodput"],
+             "per_class": out[policy, "cuda"]["per_class"],
+             "rejected": out[policy, "cuda"]["rejected"],
+             "equal": out[policy, "cuda"] == out[policy, "cpu"],
+             "streams_equal_fifo": out[policy, "cuda"]["streams"]
+             == out["fifo", "cuda"]["streams"]}
+            for policy in ("fifo", "edf", "edf_ec")]
+    res = {"phase": "parity", "config": "smollm-360m, 2 layers, float32, "
+           "the overload trace under each policy", "runs": runs,
+           "equal": all(r["equal"] and r["streams_equal_fifo"]
+                        for r in runs),
+           "seconds": time.perf_counter() - t0}
+    emit(res)
+    if not res["equal"]:
+        raise AssertionError("policies: the card's runs differ from the "
+                             "CPU's, or a deadline policy's streams from "
+                             "FIFO's")
+    return res
 
 
 def _timed(base):
@@ -1646,19 +1798,22 @@ def main_bodies(cfg) -> dict:
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
-              params=None, ref_key="share_equal_to_bf16_paged") -> tuple:
+              params=None, ref_key="share_equal_to_bf16_paged",
+              setup=None) -> tuple:
     """One serve run at full width and depth: a warm-up engine (cuBLAS
     handles, allocator pools; its launches are not counted), then the
     measured engine on the same parameters (``params``, or the warm-up
-    engine's own draw).  Launch counts are reset just before the run and
-    read just after, and must equal what the run's decode iterations and
-    prefill chunks (and verify rounds) imply.  ``ref``: a reference run's
-    streams on the same requests, for the share of equal tokens, printed
-    under ``ref_key``."""
+    engine's own draw).  ``setup(engine)``, if given, runs on the
+    measured engine before any request is submitted (a pipelined run's
+    profile -> place step) and returns fields for the run's line.  Launch
+    counts are reset just before the run and read just after, and must
+    equal what the run's decode iterations and prefill chunks (and
+    verify rounds) imply.  ``ref``: a reference run's streams on the same
+    requests, for the share of equal tokens, printed under ``ref_key``."""
     import gc
     import torch
     from repro_torch.kernels import _build
-    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.serving.engine import Request
     t_call = time.perf_counter()
     timed_cls = _timed(cls)
     warm = timed_cls(cfg, params, **kw)
@@ -1668,6 +1823,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     del warm
     gc.collect()
     torch.cuda.empty_cache()
+    extra = setup(eng) if setup is not None else {}
     for i, pr in enumerate(prompts):
         eng.submit(Request(i, pr, max_new_tokens=n_new))
     torch.cuda.synchronize()
@@ -1682,7 +1838,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     iters, chunks = eng.decode_iters, eng.prefill_calls
     rounds = eng.verify_rounds
     expect, expect_bodies = expected_launches(
-        cfg, issubclass(cls, ServingEngine), eng.quantization, iters, chunks,
+        cfg, not hasattr(eng, "pc"), eng.quantization, iters, chunks,
         launches, rounds)
     streams = {r.id: r.out_tokens for r in done}
     res = {"phase": "serve", "run": name,
@@ -1705,7 +1861,15 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "projection_weight_bytes": projection_bytes(eng.params),
            "n_preemptions": getattr(eng, "n_preemptions", None),
            "launches": launches, "launches_expected": expect,
-           "bodies": bodies, "bodies_expected": expect_bodies}
+           "bodies": bodies, "bodies_expected": expect_bodies, **extra}
+    if hasattr(eng, "stages"):
+        res.update(
+            stages=[(st.lo, st.hi) for st in eng.stages],
+            placement=eng.placement, transfer_ms=eng.transfer_ms,
+            transfer_mb=eng.transfer_mb,
+            transfer_ms_per_token=eng.transfer_ms / eng.tokens_generated,
+            transfer_mb_per_token=eng.transfer_mb / eng.tokens_generated,
+            hops={f"{a}->{b}": h for (a, b), h in eng.hops.items()})
     if eng.spec is not None:
         res.update(
             speculative_k=eng.spec.k, verify_rounds=rounds,
@@ -1728,14 +1892,20 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
         raise AssertionError(f"serve {name}: {len(done)}/{len(prompts)} "
                              f"finished, bad streams {bad}, rejected "
                              f"{[r.id for r in eng.rejected]}")
+    check_launches(name, cfg, launches, expect, bodies, expect_bodies)
+    return res, streams, eng
+
+
+def check_launches(name, cfg, launches, expect, bodies, expect_bodies):
+    """A bf16 serve run's launches against ``expected_launches``: every
+    kernel's count, and each launch of a kernel with more than one body
+    on its main body (the attention kernels' as ATTN_BODY fixes it, the
+    scan's state_lanes, rmsnorm's add_norm or norm), rmsnorm's split
+    between those two as the run implies."""
     if launches != expect or any(launches[k] == 0
                                  for k, v in expect.items() if v):
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
-    # every serve run is bf16: each launch of a kernel with more than one
-    # body must have taken its main body (the attention kernels' as
-    # ATTN_BODY fixes it, the scan's state_lanes, rmsnorm's add_norm or norm),
-    # and rmsnorm's must split between those two as the run implies
     bodies_main = main_bodies(cfg)
 
     def on_main(k, b):
@@ -1748,7 +1918,6 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
                              f"expected every launch on a body of "
                              f"{bodies_main} (else mma), and "
                              f"{expect_bodies}")
-    return res, streams, eng
 
 
 def serve(dev) -> dict:
@@ -1785,6 +1954,7 @@ def serve(dev) -> dict:
     del eng
     slot_kw = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
                    decode_steps=16, seed=SEED, device=dev)
+    mono = {}
     # the last run repeats the bf16 paged engine on the same 8 requests,
     # so each quantized or slot run has an equal-sized bf16 neighbour in
     # this process
@@ -1798,6 +1968,8 @@ def serve(dev) -> dict:
         res, streams, eng = serve_run(name, cls, cfg, run_kw, prompts[:8],
                                       dev, ref=ref)
         launches[name] = res["launches"]
+        if name in ("dense_bf16", "paged_bf16_8"):
+            mono[name] = (res, streams)
         if name == "paged_bf16_8":
             streams_8 = streams
         if name in ("paged_int8", "paged_int4"):
@@ -1829,13 +2001,189 @@ def serve(dev) -> dict:
         if name == "paged_spec":
             profile_verify(cfg, eng.params, run_kw, dev, label=name)
         del eng
-    del res, ref, streams, streams_8
+    del res, streams, streams_8
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_pipelined(cfg, kw, slot_kw, prompts[:8], dev,
+                                    mono))
+    del mono
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_policy(cfg, kw, prompts, dev, ref))
+    del ref
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_mamba(dev))
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_gemma(dev))
+    return launches
+
+
+#: the pipelined serve runs, each beside the monolithic run it must equal
+PIPE_RUNS = (("pipe_paged_bf16", "paged_bf16_8"),
+             ("pipe_dense_bf16", "dense_bf16"))
+#: peak memory of a pipelined run over its monolithic run's, at most
+PIPE_PEAK_RATIO = 1.05
+#: the edf_ec run's pool: 96 blocks of 16 (1536 tokens) against 16
+#: requests of 96-576 tokens through 8 rows, so admissions wait
+EDF_POOL_BLOCKS = 96
+
+
+def _profile_and_place(eng) -> dict:
+    """The static tier on the card: each stage's decode step timed by
+    CUDA events (``profile``), the executed pipeline turned into the
+    paper's application (``to_application``), its core stages placed by
+    the integer program (``place_stages(..., "static_ip")``) over the
+    engine's seeded edge network, and the placement set."""
+    from repro_torch.models.quantize import bytes_per_param
+    from repro_torch.serving.pipeline import place_stages
+    t0 = time.perf_counter()
+    stage_ms = eng.profile()
+    app = eng.to_application(np.random.default_rng(SEED),
+                             measured_ms=stage_ms)
+    placement = place_stages(app, eng.net, "static_ip",
+                             bytes_per_param=bytes_per_param(
+                                 eng.quantization))
+    eng.set_placement(placement)
+    return {"stage_ms": stage_ms, "static_ip_placement": placement,
+            "entry_node": eng.entry_node,
+            "profile_place_s": time.perf_counter() - t0}
+
+
+def serve_pipelined(cfg, kw, slot_kw, prompts, dev, mono) -> dict:
+    """smollm-360m at full width and depth, bf16, split in 2 core stages
+    over a seeded edge network (``make_network``): ``pipe_paged_bf16``
+    (``PagedPipelinedEngine``) and ``pipe_dense_bf16``
+    (``PipelinedEngine``) on the 8 requests of ``paged_bf16_8`` /
+    ``dense_bf16`` (``mono``: their lines and streams), each after the
+    profile -> place step (``_profile_and_place``).  Each must emit its
+    monolithic run's tokens, launch every kernel as often a decode
+    iteration and a prefill chunk as the monolithic engine does (the
+    formula ``serve_run`` checks, by kernel and body) and peak within 5%
+    of its memory.  Prints each run's stage times, placement, simulated
+    transfer a token, tok/s, peak memory and launches beside the
+    monolithic run's.  Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.core.network import make_network
+    from repro_torch.serving.pipeline import (PagedPipelinedEngine,
+                                              PipelinedEngine)
+    net = make_network(np.random.default_rng(SEED))
+    launches = {}
+    for (name, mono_name), cls, run_kw in zip(
+            PIPE_RUNS, (PagedPipelinedEngine, PipelinedEngine),
+            (kw, slot_kw)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res, streams, eng = serve_run(
+            name, cls, cfg, dict(run_kw, n_stages=2, net=net), prompts, dev,
+            setup=_profile_and_place)
+        del eng
+        launches[name] = res["launches"]
+        mres, mstreams = mono[mono_name]
+        keys = ("decode_tok_per_s", "prefill_tok_per_s", "wall_s",
+                "max_memory_allocated", "decode_iters", "prefill_calls",
+                "launches", "bodies")
+        cmp = {"phase": "serve", "run": name, "beside": mono_name,
+               "tokens_equal": streams == mstreams,
+               "peak_ratio": (res["max_memory_allocated"]
+                              / mres["max_memory_allocated"]),
+               name: {k: res[k] for k in keys}, mono_name: {
+                   k: mres[k] for k in keys}}
+        emit(cmp)
+        # equal streams mean equal scheduling: the same decode iterations
+        # and prefill chunks, so every kernel's launches, body by body,
+        # must be the monolithic run's exactly
+        same = (cmp["tokens_equal"]
+                and (res["decode_iters"], res["prefill_calls"]) == (
+                    mres["decode_iters"], mres["prefill_calls"])
+                and res["launches"] == mres["launches"]
+                and res["bodies"] == mres["bodies"])
+        if not same or cmp["peak_ratio"] > PIPE_PEAK_RATIO:
+            raise AssertionError(f"serve {name}: tokens, decode iterations, "
+                                 f"prefill chunks or launches by body differ "
+                                 f"from {mono_name}'s ({cmp}), or peak memory "
+                                 f"ratio {cmp['peak_ratio']} over "
+                                 f"{PIPE_PEAK_RATIO}")
+    return launches
+
+
+def serve_policy(cfg, kw, prompts, dev, ref) -> dict:
+    """``edf_ec_paged``: the 16 requests of ``paged_bf16`` with QoS
+    classes assigned round-robin from ``QOS_CLASSES``, through the paged
+    engine in a pool of ``EDF_POOL_BLOCKS`` blocks (requests wait for
+    blocks), under FIFO and then under ``edf_ec``, on the same weights.
+    Every kernel's launches, by kernel and body, are checked as in
+    ``serve_run`` (``check_launches``).  Prints each
+    run's goodput, per-class stats, rejections and preemptions, and, for
+    the requests finished under both, the share of tokens equal to
+    ``paged_bf16``'s (``ref``; not gated: bf16 rows can round
+    differently in other co-batches).  Returns each run's launches."""
+    import gc
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import PagedServingEngine, Request
+    from repro_torch.serving.scheduler import (QOS_CLASSES, goodput,
+                                               per_class_stats)
+    classes = list(QOS_CLASSES)
+    timed_cls = _timed(PagedServingEngine)
+    params, out, launches = None, {}, {}
+    for name, policy in (("fifo_paged", "fifo"), ("edf_ec_paged", "edf_ec")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_call = time.perf_counter()
+        eng = timed_cls(cfg, params, num_blocks=EDF_POOL_BLOCKS,
+                        policy=policy, **kw)
+        params = eng.params
+        reqs = [Request(i, pr, max_new_tokens=64,
+                        qos=classes[i % len(classes)])
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        bodies = {k: dict(v) for k, v in _build.bodies.items()}
+        expect, expect_bodies = expected_launches(
+            cfg, False, None, eng.decode_iters, eng.prefill_calls, counts)
+        finished = {r.id: r.out_tokens for r in done}
+        out[name] = finished
+        res = {"phase": "serve", "run": name, "policy": policy,
+               "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}",
+               "num_blocks": EDF_POOL_BLOCKS, "requests": len(reqs),
+               "finished": len(done), "goodput": goodput(reqs),
+               "per_class": per_class_stats(reqs),
+               "rejected": [(r.id, r.qos, r.error) for r in eng.rejected],
+               "unfinished": [r.id for r in eng.unfinished],
+               "n_preemptions": eng.n_preemptions, "wall_s": wall,
+               "decode_iters": eng.decode_iters,
+               "prefill_calls": eng.prefill_calls,
+               "generated_tokens": eng.tokens_generated,
+               "launches": counts, "launches_expected": expect,
+               "bodies": bodies, "bodies_expected": expect_bodies,
+               "seconds": time.perf_counter() - t_call}
+        emit(res)
+        launches[name] = counts
+        if eng.unfinished:
+            raise AssertionError(f"serve {name}: unfinished "
+                                 f"{res['unfinished']}")
+        check_launches(name, cfg, counts, expect, bodies, expect_bodies)
+        del eng
+    both = sorted(set(out["fifo_paged"]) & set(out["edf_ec_paged"]))
+
+    def share(streams):
+        pairs = [(a, b) for rid in both
+                 for a, b in zip(streams[rid], ref[rid])]
+        return sum(a == b for a, b in pairs) / max(1, len(pairs))
+    emit({"phase": "serve", "run": "edf_ec_paged", "beside": "fifo_paged",
+          "finished_under_both": len(both),
+          "share_equal_to_paged_bf16": {
+              k: share(v) for k, v in out.items()}})
     return launches
 
 
@@ -1979,7 +2327,7 @@ def _port_kernels(kernels) -> list:
 
 def profile_decode(cfg, params, kw, dev, label: str,
                    prompt_len: int = 256) -> dict:
-    """Where decode time goes in two steady macro-steps of 8 rows with
+    """Where decode time goes in one steady macro-step of 8 rows with
     prompts of ``prompt_len`` tokens (admission, prefill and the first
     macro-step happen before the window).  The window runs twice on identical engines: once timed
     without the profiler (the wall time), once under torch.profiler
@@ -1995,7 +2343,7 @@ def profile_decode(cfg, params, kw, dev, label: str,
     def warm_engine():
         eng = PagedServingEngine(cfg, params, **kw)
         for i, pr in enumerate(prompts):
-            eng.submit(Request(i, pr, max_new_tokens=48))
+            eng.submit(Request(i, pr, max_new_tokens=32))
         eng.step()               # admit + prefill all 8, first macro-step
         torch.cuda.synchronize()
         return eng
@@ -2108,8 +2456,8 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
 
 def profile_prefill(cfg, params, kw, dev, label: str,
                     prompt_len: int = 385) -> dict:
-    """Where prefill time goes: admission of 8 requests of ``prompt_len``
-    tokens (385: 24 chunks of 128 at pos 0, 128 and 256), with no decode.
+    """Where prefill time goes: admission of 4 requests of ``prompt_len``
+    tokens (385: 12 chunks of 128 at pos 0, 128 and 256), with no decode.
     As in ``profile_decode``, the window runs once timed without the
     profiler and once under it on an identical engine; the idle share is
     one minus busy over the unprofiled wall time."""
@@ -2118,7 +2466,7 @@ def profile_prefill(cfg, params, kw, dev, label: str,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             chunk_sizes)
-    prompts = _trace(np.random.default_rng(SEED + 6), 8, prompt_len,
+    prompts = _trace(np.random.default_rng(SEED + 6), 4, prompt_len,
                      prompt_len, cfg.vocab_size)
     # a row prefills all of its prompt but the last token
     chunks = sum(len(chunk_sizes(len(p) - 1, kw["prefill_chunk"]))
@@ -2130,7 +2478,7 @@ def profile_prefill(cfg, params, kw, dev, label: str,
             eng.submit(Request(i, pr, max_new_tokens=8))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eng._admit()             # the prefill of all 8 rows, no decode
+        eng._admit()             # the prefill of every row, no decode
         torch.cuda.synchronize()
         return eng, time.perf_counter() - t0
 

@@ -95,6 +95,52 @@ class ModelConfig:
         as the reference's ``layers.embed_init`` lays the table out."""
         return -(-self.vocab_size // 256) * 256
 
+    # --- parameter counting (what microservice.partition.decompose reads;
+    # the reference's counters for the block and MLP kinds the port runs)
+    def _attn_params(self, kind: str) -> int:
+        d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        p = d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k, v, o
+        if self.qkv_bias:
+            p += h * hd + 2 * kv * hd
+        return p + 2 * d  # norms
+
+    def _mlp_params(self) -> int:
+        if self.mlp_kind == "none":
+            return 0
+        if self.mlp_kind != "dense":
+            raise NotImplementedError(
+                f"{self.name}: mlp {self.mlp_kind!r} is not ported yet")
+        return 3 * self.d_model * self.d_ff
+
+    def _mlp_active_params(self) -> int:
+        # a dense MLP is active whole (the reference differs for MoE only)
+        return self._mlp_params()
+
+    def _mamba_params(self, kind: str) -> int:
+        if kind != "mamba1":
+            raise NotImplementedError(
+                f"{self.name}: block kind {kind!r} is not ported yet")
+        d, di, ds = self.d_model, self.d_inner_eff, self.ssm_state
+        p = d * 2 * di  # in_proj (x, z)
+        p += self.conv_width * di  # depthwise conv
+        dt_rank = max(1, d // 16)
+        p += di * (dt_rank + 2 * ds)  # x_proj -> (dt, B, C)
+        p += dt_rank * di  # dt_proj
+        p += di * ds  # A_log
+        p += di  # D skip
+        p += di * d  # out_proj
+        return p + 2 * d  # norms
+
+    def layer_params(self, kind: str) -> int:
+        if kind in ("attn", "swa"):
+            return self._attn_params(kind) + self._mlp_params()
+        return self._mamba_params(kind)
+
+    def layer_active_params(self, kind: str) -> int:
+        if kind in ("attn", "swa"):
+            return self._attn_params(kind) + self._mlp_active_params()
+        return self._mamba_params(kind)
+
 
 def uniform(kind: str, n: int) -> Tuple[str, ...]:
     return tuple([kind] * n)

@@ -49,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import build_segments, check_supported
+from repro_torch.models.transformer import (build_segments, check_supported,
+                                            segment_range)
 
 
 def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
@@ -67,19 +68,28 @@ def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
     return {"k": (shape, dtype), "v": (shape, dtype)}
 
 
-def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda") -> list:
+def _segments(cfg, layers) -> list:
+    """The segments of decoder layers ``layers`` = (lo, hi), all of them
+    for None."""
+    return (build_segments(cfg) if layers is None
+            else segment_range(cfg, *layers))
+
+
+def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda",
+                 layers=None) -> list:
     """Dense slot caches, one dict per segment (the reference's
     ``cache_struct``): ``{"k","v"}`` leaves ``(n_layers, batch,
     seq_len, kv_heads, hd)`` for attn (``min(window, seq_len)`` slots
     for a ring), ``{"h","conv"}`` for Mamba1 (``h`` in float32),
-    zero-filled on ``device``.  The model writes
-    them in place."""
+    zero-filled on ``device``.  ``layers=(lo, hi)`` restricts them to
+    that decoder layer range (a pipeline stage's slice, aligned with
+    ``transformer.segment_range``).  The model writes them in place."""
     check_supported(cfg)
     dev = resolve_device(device)
     return [{name: torch.zeros(shape, dtype=dt, device=dev)
              for name, (shape, dt)
              in _leaves(cfg, seg, batch, seq_len, dtype).items()}
-            for seg in build_segments(cfg)]
+            for seg in _segments(cfg, layers)]
 
 
 def cache_bytes(cfg, batch: int, seq_len: int, bytes_per_el: int = 2) -> int:
@@ -200,8 +210,11 @@ class PagedCache:
         self.n_meta_uploads = 0
 
     # -------------------------------------------------------------- pools
-    def struct(self, dtype, device=None) -> list:
-        """Block pools and state rows, one dict per segment.
+    def struct(self, dtype, device=None, layers=None) -> list:
+        """Block pools and state rows, one dict per segment of decoder
+        layers ``layers`` = (lo, hi) (all of them by default: a pipeline
+        stage builds its slice; one ledger governs every slice, so block
+        id ``b`` holds the same tokens in each).
 
         Mirrors the reference's ``struct`` segment-for-segment: attn
         leaves ``{"k","v"}`` are ``(n_layers, num_blocks + 1,
@@ -216,7 +229,7 @@ class PagedCache:
         dev = resolve_device(self.device if device is None else device)
         block = (self.block_size, cfg.n_kv_heads, cfg.head_dim)
         caches = []
-        for seg in build_segments(cfg):
+        for seg in _segments(cfg, layers):
             if seg.kind == "mamba1":
                 c = {name: torch.zeros(shape, dtype=dt, device=dev)
                      for name, (shape, dt)

@@ -11,8 +11,11 @@ decoders and Mamba1 models::
     logits, caches = m.decode_step(params, caches, batch)
     hidden, caches = m.paged_prefill_chunk(params, pools, toks, pos0, row, meta)
     logits, caches = m.paged_decode_step(params, pools, batch, meta)
-    toks, caches = m.decode_steps(params, caches, batch, meta_or_None, k=K)
-    emit, caches = m.verify_steps(params, caches, batch, meta_or_None)
+    toks = m.decode_steps(m.one_stage(params, caches), batch, meta_or_None,
+                          k=K)
+    emit = m.verify_steps(m.one_stage(params, caches), batch, meta_or_None)
+    p = m.stage_params(params, lo, hi, entry=..., exit_head=...)  # stages
+    out = m.run_stages(p, x, lo, hi, mode=..., pos=..., caches=...)
     logits, _, aux = m.forward(params, {"tokens": toks}, mode="train")
 
 Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools and
@@ -78,7 +81,7 @@ class Model:
         return params
 
     def _final_norm(self, params, stream):
-        """The final norm of ``_run``'s (x, delta): the last block's
+        """The final norm of the stream's (x, delta): the last block's
         pending residual add fused into it."""
         x, delta = stream
         if delta is None:
@@ -91,7 +94,7 @@ class Model:
                 else params["lm_head"])
 
     def _head(self, params, stream):
-        """Logits from ``_run``'s (x, delta) over the padded vocab."""
+        """Logits from the stream's (x, delta) over the padded vocab."""
         return unembed(self._head_params(params),
                        self._final_norm(params, stream))
 
@@ -130,27 +133,86 @@ class Model:
             return hidden, None, aux
         return unembed(self._head_params(params), hidden), None, aux
 
-    def _run(self, params, caches, tokens, pos, paged, mode):
-        """The stacks over the embedded tokens: (x, delta), the residual
-        stream and the last block's output not yet added to it."""
-        x = embed(params["embed"], tokens).to(self.dtype)
-        return tfm.apply_segments(params["blocks"], x, cfg=self.cfg,
-                                  mode=mode, segs=self.segments, pos=pos,
-                                  caches=caches, paged=paged,
-                                  qformat=self.qformat)
-
     def _hidden(self, params, caches, tokens, pos, paged):
         """A chunk's hidden state: it has no head, so the last pending
         residual add is one plain add."""
-        x, delta = self._run(params, caches, tokens, pos, paged, "chunk")
+        x, delta = self.run_stages(
+            {"embed": params["embed"], "blocks": params["blocks"]}, tokens,
+            0, self.cfg.n_layers, mode="chunk", pos=pos, caches=caches,
+            paged=paged)
         return x if delta is None else x + delta
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int, dtype=None) -> list:
+    def init_cache(self, batch: int, cache_len: int, dtype=None,
+                   layers=None) -> list:
         """Dense slot caches on the model's device
-        (``kvcache.cache_struct``), in the model dtype unless given."""
+        (``kvcache.cache_struct``), in the model dtype unless given;
+        ``layers=(lo, hi)`` restricts them to that decoder layer range (a
+        pipeline stage's slice)."""
         return cache_struct(self.cfg, batch, cache_len, dtype or self.dtype,
-                            device=self.device)
+                            device=self.device, layers=layers)
+
+    # ------------------------------------------------------------------
+    # Pipeline-parallel stage API (serving/pipeline.py)
+    # ------------------------------------------------------------------
+    def one_stage(self, params, caches) -> list:
+        """The stage chain of a monolithic engine: one stage over every
+        layer, for :meth:`decode_steps` and :meth:`verify_steps`."""
+        return [(params, 0, self.cfg.n_layers, caches)]
+
+    def stage_params(self, params, lo: int, hi: int, *, entry: bool = False,
+                     exit_head: bool = False) -> dict:
+        """Parameter subtree owned by a stage running layers [lo, hi):
+        views of the stacked tensors (``transformer.slice_blocks``), so
+        the stages of one model hold no second copy of any weight.  The
+        entry stage also owns the embedding, the exit stage the final
+        norm and the LM head (the embedding table itself when tied)."""
+        p = {"blocks": tfm.slice_blocks(params["blocks"], self.cfg, lo, hi)}
+        if entry:
+            p["embed"] = params["embed"]
+        if exit_head:
+            p["final_norm"] = params["final_norm"]
+            p["embed" if self.cfg.tie_embeddings
+              else "lm_head"] = self._head_params(params)
+        return p
+
+    def run_stages(self, stage_p, x, lo: int, hi: int, *, mode: str,
+                   pos=None, caches=None, paged=None):
+        """Run decoder layers [lo, hi) from :meth:`stage_params` output
+        (or the whole parameter tree over [0, n_layers)), in ``decode``
+        or ``chunk`` mode.
+
+        ``x`` is token ids (B, T) for the stage at layer 0; for any
+        other, the previous stage's ``(x, delta)`` pair (the residual
+        stream and its last block's output, not yet added).  A stage
+        whose params hold ``final_norm`` returns logits (B, T, V_pad),
+        the pending add fused into the final norm; any other returns its
+        ``(x, delta)`` pair.  Carrying the pair across a stage boundary
+        keeps every norm launch and every bit of the monolithic forward.
+        ``caches`` is the stage's slice (``init_cache(layers=)`` or
+        ``PagedCache.struct(layers=)``), written in place; ``paged`` the
+        ledger's meta."""
+        if lo == 0:
+            x, delta = embed(stage_p["embed"], x).to(self.dtype), None
+        else:
+            x, delta = x
+        stream = tfm.apply_segments(
+            stage_p["blocks"], x, cfg=self.cfg, mode=mode,
+            segs=tfm.segment_range(self.cfg, lo, hi), pos=pos,
+            caches=caches, paged=paged, qformat=self.qformat, delta=delta)
+        if "final_norm" in stage_p:
+            return self._head(stage_p, stream)
+        return stream
+
+    def _chain(self, stages, tokens, pos, paged, mode):
+        """Logits of ``tokens`` through the stage chain ``stages``, a list
+        of (params, lo, hi, caches) covering [0, n_layers) in order: each
+        stage's :meth:`run_stages`, its ``(x, delta)`` pair handed on."""
+        x = tokens
+        for params, lo, hi, caches in stages:
+            x = self.run_stages(params, x, lo, hi, mode=mode, pos=pos,
+                                caches=caches, paged=paged)
+        return x
 
     def prefill_chunk(self, params, caches, tokens, pos0: int, slot: int):
         """Chunked prefill of one slot against the dense caches.
@@ -163,16 +225,14 @@ class Model:
         (hidden (1,C,D), caches) — no LM head: admission discards prompt
         logits.
         """
-        rows = [{name: a[:, slot:slot + 1] for name, a in c.items()}
-                for c in caches]
+        rows = row_views(caches, self.segments, slot, paged=False)
         return self._hidden(params, rows, tokens, int(pos0), None), caches
 
     def decode_step(self, params, caches, batch):
         """One decode step against the dense caches: batch {"token"
         (B,1), "pos" (B,) int32}.  Returns (logits (B,1,V_pad), caches)."""
-        stream = self._run(params, caches, batch["token"], batch["pos"],
-                           None, "decode")
-        return self._head(params, stream), caches
+        return self._chain(self.one_stage(params, caches), batch["token"],
+                           batch["pos"], None, "decode"), caches
 
     # ------------------------------------------------------------------
     def paged_prefill_chunk(self, params, caches, tokens, pos0: int, row: int,
@@ -187,64 +247,74 @@ class Model:
         other row stays bit-untouched.  Returns (hidden (1,C,D), caches)
         — no LM head: admission discards prompt logits.
         """
-        rows = [{name: a[:, row:row + 1] for name, a in c.items()}
-                if seg.kind == "mamba1" else c
-                for seg, c in zip(self.segments, caches)]
+        rows = row_views(caches, self.segments, row, paged=True)
         return self._hidden(params, rows, tokens, int(pos0), paged), caches
 
     def paged_decode_step(self, params, caches, batch, paged):
         """One decode step: batch {"token" (B,1), "pos" (B,) int32}.
         Returns (logits (B,1,V_pad), caches)."""
-        stream = self._run(params, caches, batch["token"], batch["pos"],
-                           paged, "decode")
-        return self._head(params, stream), caches
+        return self._chain(self.one_stage(params, caches), batch["token"],
+                           batch["pos"], paged, "decode"), caches
 
-    def decode_steps(self, params, caches, batch, paged=None, *, k: int):
+    def decode_steps(self, stages, batch, paged=None, *, k: int):
         """K fused greedy decode steps on the device (the serving hot
-        loop): a Python loop of ``k`` iterations in which argmax over the
-        logical vocab, token feedback, per-row ``pos`` bumps and done
-        masking all stay on the device — nothing here synchronises with
-        the host.  ``paged`` (the ledger's meta) selects the paged pools;
-        ``None`` the dense caches.  batch: ``token`` (B,1), ``pos`` (B,)
-        and ``budget`` (B,) int32, as in the reference.  Returns (tokens
-        (B,k) int32, caches); row r's valid prefix is its first
-        ``budget[r]`` entries, the rest are -1.
+        loop) through the stage chain ``stages`` (:meth:`one_stage` for a
+        monolithic engine, a pipelined engine's core stages otherwise): a
+        Python loop of ``k`` iterations in which argmax over the logical
+        vocab, token feedback, per-row ``pos`` bumps and done masking all
+        stay on the device — nothing here synchronises with the host.
+        ``paged`` (the ledger's meta) selects the paged pools; ``None``
+        the dense caches.  batch: ``token`` (B,1), ``pos`` (B,) and
+        ``budget`` (B,) int32, as in the reference.  Returns tokens
+        (B,k) int32, the caches written in place; row r's valid prefix
+        is its first ``budget[r]`` entries, the rest are -1.
         """
         vocab = self.cfg.vocab_size
         tok, pos, budget = batch["token"], batch["pos"], batch["budget"]
         emits = []
         for _ in range(k):
-            stream = self._run(params, caches, tok, pos, paged, "decode")
             tok, pos, budget, emit = greedy_scan_update(
-                self._head(params, stream), pos, budget, vocab)
+                self._chain(stages, tok, pos, paged, "decode"), pos, budget,
+                vocab)
             emits.append(emit)
-        return torch.stack(emits, dim=1), caches
+        return torch.stack(emits, dim=1)
 
-    def verify_steps(self, params, caches, batch, paged=None):
+    def verify_steps(self, stages, batch, paged=None):
         """Teacher-forced verification of K draft tokens per row in one
-        chunk-mode forward (the reference's ``verify_steps``, op for op):
-        the (B, S) chunk ``[t0, d0..d_{S-2}]`` (each row's next decode
-        input, then its K = S - 1 drafts) runs through the stacks at
-        positions ``pos .. pos + S - 1``, writing KV where sequential
-        decode would, and :func:`greedy_verify_update` turns the logits
-        into each row's emitted tokens.  Nothing here synchronises with
-        the host: ``pos`` stays on the device, where the batched chunk
-        attention reads it.  KV written above a row's accepted length is
-        stale by position (masked, and overwritten by the next round).
+        chunk-mode forward through the stage chain ``stages`` (the
+        reference's ``verify_steps``, op for op): the (B, S) chunk
+        ``[t0, d0..d_{S-2}]`` (each row's next decode input, then its
+        K = S - 1 drafts) runs through the stacks at positions
+        ``pos .. pos + S - 1``, writing KV where sequential decode would,
+        and :func:`greedy_verify_update` turns the logits into each row's
+        emitted tokens.  Nothing here synchronises with the host: ``pos``
+        stays on the device, where the batched chunk attention reads it.
+        KV written above a row's accepted length is stale by position
+        (masked, and overwritten by the next round).
 
         batch: ``token`` (B, S), ``pos`` (B,) (position of
         ``token[:, 0]``) and ``budget`` (B,) int32 (0 masks the row).
         ``paged`` (the ledger's meta) selects the paged pools, ``None``
         the dense caches; writes past a row's covered blocks land in the
-        scratch block.  Returns (emit (B, S) int32, -1 in non-emitted
-        slots; caches).
+        scratch block.  Returns emit (B, S) int32, -1 in non-emitted
+        slots, the caches written in place.
         """
-        stream = self._run(params, caches, batch["token"], batch["pos"],
-                           paged, "chunk")
-        emit = greedy_verify_update(self._head(params, stream),
-                                    batch["token"], batch["budget"],
+        logits = self._chain(stages, batch["token"], batch["pos"], paged,
+                             "chunk")
+        return greedy_verify_update(logits, batch["token"], batch["budget"],
                                     self.cfg.vocab_size)
-        return emit, caches
+
+
+def row_views(caches, segs, row: int, *, paged: bool) -> list:
+    """The caches one request's prefill chunk reads and writes: views of
+    batch row ``row`` of every dense cache leaf (the reference's
+    ``row_isolated``), or, over paged pools (``paged``), of the Mamba1
+    state rows only (``ssm_row_isolated``; the pools are reached through
+    the request's block tables).  Written in place, so every other row
+    stays bit-untouched."""
+    return [{name: a[:, row:row + 1] for name, a in c.items()}
+            if not paged or seg.kind == "mamba1" else c
+            for seg, c in zip(segs, caches)]
 
 
 def greedy_scan_update(logits, pos, budget, vocab: int):

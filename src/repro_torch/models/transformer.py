@@ -76,6 +76,49 @@ def check_supported(cfg, mode: Optional[str] = None) -> None:
             f"ported yet")
 
 
+def segment_slices(cfg, lo: int, hi: int):
+    """Map decoder layers [lo, hi) onto the segment list.
+
+    Returns [(seg_index, a, b)]: full-model segment ``seg_index``
+    contributes its local layers [a, b).  Stage boundaries may fall
+    inside a segment (inside gemma3's group of five ``swa`` layers, say),
+    in which case the stacked params/caches are sliced along their
+    leading layer dim.
+    """
+    if not 0 <= lo < hi <= cfg.n_layers:
+        raise ValueError(f"layer range [{lo}, {hi}) outside "
+                         f"[0, {cfg.n_layers})")
+    out = []
+    base = 0
+    for i, seg in enumerate(build_segments(cfg)):
+        a, b = max(lo, base), min(hi, base + seg.length)
+        if a < b:
+            out.append((i, a - base, b - base))
+        base += seg.length
+    return out
+
+
+def segment_range(cfg, lo: int, hi: int) -> List[Segment]:
+    """Segment list restricted to decoder layers [lo, hi)."""
+    segs = build_segments(cfg)
+    return [Segment(segs[i].kind, b - a, segs[i].shared)
+            for i, a, b in segment_slices(cfg, lo, hi)]
+
+
+def slice_blocks(blocks: dict, cfg, lo: int, hi: int) -> dict:
+    """Restrict a ``{"segments", "shared"}`` param tree to layers [lo, hi).
+
+    The result aligns with :func:`segment_range` and holds *only* the
+    stage's parameters, as views of the stacked tensors (a one-layer
+    slice keeps its leading layer dim, as every segment of the port
+    does): a pipeline stage sliced this way owns nothing outside its
+    layer range, and the stages together hold no second copy of any
+    weight."""
+    return {"segments": [_layer(blocks["segments"][i], slice(a, b))
+                         for i, a, b in segment_slices(cfg, lo, hi)],
+            "shared": blocks["shared"]}
+
+
 def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
     """``n`` stacked layers of one block kind (the reference's
     ``block_init`` vmapped over a segment)."""
@@ -165,9 +208,10 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
     return x, mlp(params["mlp"], h2)
 
 
-def _layer(tree, j: int):
-    """Layer ``j`` of a stacked parameter/cache tree (views, no copies);
-    a packed quant leaf ``{"q","s"}`` is a dict and slices leaf by leaf."""
+def _layer(tree, j):
+    """Layer ``j`` (an index, or a slice of layers) of a stacked
+    parameter/cache tree (views, no copies); a packed quant leaf
+    ``{"q","s"}`` is a dict and slices leaf by leaf."""
     if isinstance(tree, dict):
         return {k: _layer(v, j) for k, v in tree.items()}
     return tree[j]
@@ -185,17 +229,19 @@ def _unbind(tree, n: int) -> list:
 def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
                    caches: Optional[list] = None,
                    paged: Optional[dict] = None,
-                   qformat: Optional[str] = None, positions=None):
+                   qformat: Optional[str] = None, positions=None,
+                   delta=None):
     """Run every layer in order.  ``caches`` is the per-segment list of
     ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
     with a leading layer dim; each layer writes its slice in place, so
     the list needs no rebuilding.  In train mode there are no caches:
     each block runs under a non-reentrant checkpoint at ``positions``,
-    which carries the (x, delta) pair across its boundary.
+    which carries the (x, delta) pair across its boundary.  ``delta``
+    is the pending output of the block before the first one run here
+    (a pipeline stage's input pair; None at the model's first block).
     Returns (x, delta): the residual stream and the last block's output,
     not yet added to it (the caller fuses that add into the final norm,
-    or adds it)."""
-    delta = None
+    or adds it, or hands the pair to the next stage)."""
     if mode == "train":
         for seg, params in zip(segs, blocks["segments"]):
             block = functools.partial(block_apply, kind=seg.kind, cfg=cfg,

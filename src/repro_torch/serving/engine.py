@@ -701,8 +701,8 @@ class ServingEngine(_SlotEngine):
 
     def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
                        budgets: np.ndarray, k: int) -> np.ndarray:
-        toks, _ = self.model.decode_steps(
-            self.params, self.caches,
+        toks = self.model.decode_steps(
+            self.model.one_stage(self.params, self.caches),
             _batch(tokens, pos, budgets, self.device), k=k)
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per macro-step (counted in n_host_syncs; <= 1/K per token)
@@ -710,8 +710,8 @@ class ServingEngine(_SlotEngine):
 
     def _forward_verify(self, tokens: np.ndarray, pos: np.ndarray,
                         budgets: np.ndarray) -> np.ndarray:
-        emit, _ = self.model.verify_steps(
-            self.params, self.caches,
+        emit = self.model.verify_steps(
+            self.model.one_stage(self.params, self.caches),
             _batch(tokens, pos, budgets, self.device))
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per verify round (counted in n_host_syncs; <= 1 per token)
@@ -764,8 +764,8 @@ class PagedServingEngine(_PagedEngine):
 
     def _forward_steps(self, tokens: np.ndarray, pos: np.ndarray,
                        budgets: np.ndarray, k: int) -> np.ndarray:
-        toks, _ = self.model.decode_steps(
-            self.params, self.caches,
+        toks = self.model.decode_steps(
+            self.model.one_stage(self.params, self.caches),
             _batch(tokens, pos, budgets, self.device), self.pc.meta(), k=k)
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per macro-step (counted in n_host_syncs; <= 1/K per token)
@@ -773,8 +773,8 @@ class PagedServingEngine(_PagedEngine):
 
     def _forward_verify(self, tokens: np.ndarray, pos: np.ndarray,
                         budgets: np.ndarray) -> np.ndarray:
-        emit, _ = self.model.verify_steps(
-            self.params, self.caches,
+        emit = self.model.verify_steps(
+            self.model.one_stage(self.params, self.caches),
             _batch(tokens, pos, budgets, self.device), self.pc.meta())
         # reprolint: disable-next=host-sync -- the ONE deliberate sync
         # per verify round (counted in n_host_syncs; <= 1 per token)

@@ -186,8 +186,8 @@ class ModelDraft:
         batch = {name: torch.from_numpy(a.copy()).to(dev)
                  for name, a in (("token", tokens), ("pos", pos),
                                  ("budget", budgets))}
-        toks, _ = self.model.decode_steps(self.params, self.caches, batch,
-                                          k=k)
+        toks = self.model.decode_steps(
+            self.model.one_stage(self.params, self.caches), batch, k=k)
         # the draft's one host sync a round (counted in n_host_syncs)
         out = [int(t) for t in toks[row].cpu().tolist()]
         self.n_host_syncs += 1

@@ -229,9 +229,10 @@ def test_decode_steps_tokens_with_masked_rows(setup):
         {k: jnp.asarray(v) for k, v in batch.items()},
         {"tables": jnp.asarray(tables)}, k=4)
     caches = [{"k": t(kp.copy()), "v": t(vp.copy())}]
-    tt, _ = Model(tc, device="cpu").decode_steps(
-        tp, caches, {k: t(v) for k, v in batch.items()},
-        {"tables": t(tables)}, k=4)
+    m = Model(tc, device="cpu")
+    tt = m.decode_steps(m.one_stage(tp, caches),
+                        {k: t(v) for k, v in batch.items()},
+                        {"tables": t(tables)}, k=4)
     assert tt.dtype == torch.int32
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     assert (tt[2] == -1).all() and (tt[1, 2:] == -1).all()
@@ -334,8 +335,9 @@ def test_dense_decode_steps_tokens_with_masked_rows(setup):
         npp, [{"k": jnp.asarray(kc), "v": jnp.asarray(vc)}],
         {k: jnp.asarray(v) for k, v in batch.items()}, k=4)
     caches = [{"k": t(kc.copy()), "v": t(vc.copy())}]
-    tt, _ = Model(tc, device="cpu").decode_steps(
-        tp, caches, {k: t(v) for k, v in batch.items()}, k=4)
+    m = Model(tc, device="cpu")
+    tt = m.decode_steps(m.one_stage(tp, caches),
+                        {k: t(v) for k, v in batch.items()}, k=4)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     assert (tt[2] == -1).all() and (tt[1, 2:] == -1).all()
     assert _err(caches[0]["k"], jcaches[0]["k"]) < ATTN_TOL

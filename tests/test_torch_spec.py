@@ -277,7 +277,7 @@ def test_verify_steps_matches_reference(gqa, paged):
         tokens[[0, 3], j] = g[[0, 3], j - 1]
     want, jcaches = run_j(tokens, budget)
     caches = [{"k": t(kc.copy()), "v": t(vc.copy())}]
-    got, _ = tmodel.verify_steps(tp, caches, {
+    got = tmodel.verify_steps(tmodel.one_stage(tp, caches), {
         "token": t(tokens), "pos": t(pos), "budget": t(budget)}, meta_t)
     want = np.asarray(want)
     np.testing.assert_array_equal(got.numpy(), want)
