@@ -71,8 +71,13 @@ one JSON line:
    against ``cuda_core``, the prefill's bits the same in blocks of 16,
    32 and one dense block and the dense decode's the paged decode's on
    the same rows; and in float32 on ``cuda_core`` (prefill at pos 1024,
-   decode over linear rows).  The contiguous form of the flash kernel
-   (``flash_attention``, the TPU kernel's own signature, the train
+   decode over linear rows).  At mixtral-8x7b's attention (32 heads over
+   8 of 128, a ring of 4096 slots) the window form (C 128 at pos 0, 2048
+   and 4300) and both decode kernels over rings (B 8, pos 5-4470,
+   clamped to w - 1; the dense kernel's bits the paged one's) run in
+   bfloat16 on ``mma`` beside plain, SDPA and the bound.  The
+   contiguous form of the flash kernel (``flash_attention``, the TPU
+   kernel's own signature, the train
    path's) runs at smollm-360m's train shape (B 8, S 4096, 15 / 5 heads
    of 64, causal, bf16 on ``wgmma``, timed in turns against ``mma``, which
    is gated too), the same heads at S 1024 in float32 (``cuda_core``),
@@ -112,7 +117,15 @@ one JSON line:
    of tests/test_paged.py (two batch hogs ahead of four interactive
    requests) through smollm's paged engine under FIFO, ``edf`` and
    ``edf_ec``: streams, stamps, goodput, per-class stats and rejections
-   equal the CPU's, and every policy's streams FIFO's;
+   equal the CPU's, and every policy's streams FIFO's.  Then
+   mixtral-8x7b at full width (d_model 4096, 32/8 heads of 128, 8
+   experts, top-2), 2 layers, float32, each expert's d_ff cut to 1024
+   and the window to 256: 3 prompts of 300-400 tokens (the ring wraps), 8
+   new tokens each, through the paged engine (unquantized, int8), the
+   slot engine and the paged pipeline, held as above; and the
+   capacity-pressure trace of tests/test_paged.py (12 rows, staggered
+   budgets) through the slot engine at K 8 and K 1: card = CPU at each
+   K, K 8 = K 1 on each side, and some claim of a decode step dropped;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -167,6 +180,17 @@ one JSON line:
    fixed per config in ``ATTN_BODY`` (``mma`` for all five two-body
    attention kernels of smollm-360m and gemma3-12b), and the wrappers'
    rules must agree with it.
+   Then mixtral-8x7b at full width and 16 of its 32 layers (32 would
+   need about 93 GB of bf16 weights; the experts are never packed) in
+   bfloat16, about 47 GB drawn on the card: 8 requests (6 of 256-2048
+   tokens, 2 of 4160-4400, past the 4096 window), 64 new tokens each,
+   through ``PagedServingEngine`` (``mixtral_paged_bf16``, profiled in
+   decode and prefill) and ``ServingEngine`` (``mixtral_dense_bf16``),
+   launches by kernel and body checked exactly (the experts launch no
+   port kernel); the share of claims dropped in the paged run's first
+   decode step, first full chunk and over the run is printed, not
+   gated; then ``moe_apply`` at full width at a decode step's and a
+   chunk's shape under ``torch.cuda.set_sync_debug_mode("error")``.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba and gemma3 paged runs; two steady verify rounds after
    ``paged_spec``):
@@ -177,15 +201,9 @@ one JSON line:
    unprofiled wall time.  After the bf16 smollm paged run and the
    falcon-mamba paged run, the same for a prefill window: 4 requests of
    385 tokens admitted at once, 12 chunks of 128, with the device busy
-   time per chunk (gemma3: 4 requests of 1153 tokens, 36 chunks).  The
-   bf16 smollm and gemma3 decode and prefill windows, the int8 and
-   int4 decode windows and both falcon-mamba windows run again with the
-   previous (CUDA-core) body of the paged decode, the paged prefill
-   (gemma3: and the ring form), the int8 or int4 quant matmul, or the
-   selective scan, and the bf16
-   smollm and falcon-mamba decode and prefill windows with the previous
-   rmsnorm (torch's residual add, then the ``cuda_core`` norm), for the
-   busy time and the launches each redesign saves.
+   time per chunk (gemma3 and mixtral-8x7b: 4 requests of 1153 tokens,
+   36 chunks).  No window reruns on a previous body: the kernels phase
+   times each redesigned kernel against its previous body in turns.
 
 6. ``train``  — smollm-360m at full width, 2 layers, float32, on the
    card against the CPU from the same weights: the loss (1e-5 relative)
@@ -654,7 +672,8 @@ def kernel_cases(dev) -> list:
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
     launch_floor(dev)
-    return cases + scan_cases(dev) + gemma_cases(dev) + flash_cases(dev)
+    return (cases + scan_cases(dev) + gemma_cases(dev) + mixtral_cases(dev)
+            + flash_cases(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1244,6 +1263,123 @@ def gemma_cases(dev) -> list:
     return cases
 
 
+#: mixtral-8x7b's attention: 32 query heads over 8 KV heads of 128, a
+#: ring of w = 4096 slots (every layer ``swa``), chunks of 128, rows of
+#: max_len 4480 (prompts up to 4400 and 64 new tokens)
+MIXTRAL = {"H": 32, "KV": 8, "hd": 128, "w": 4096, "C": 128, "max_len": 4480}
+#: a decode batch's positions, 5-4470: before, at and past the ring's wrap
+MIXTRAL_DECODE_POS = [5, 1000, 2047, 4094, 4095, 4096, 4300, 4470]
+
+
+def mixtral_cases(dev) -> list:
+    """The attention kernels at mixtral-8x7b's shapes, bf16 on ``mma``, as
+    its serve runs launch them: the window form (C 128 queries over the
+    ring of 4096 slots plus the chunk's keys) at pos 0, 2048 and 4300
+    (wrapped), and the paged and dense decode over rings of 4096 slots
+    (B 8, pos 5-4470, at the pos the model clamps to w - 1; the dense
+    kernel bit-equal to the paged one on the same rows), each against
+    its plain version, SDPA and the bound.  rmsnorm's 8 and 128 rows of
+    4096 are falcon-mamba-7b's cases in ``kernel_cases``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.flash_attention import (
+        ring_chunk_attention, ring_chunk_attention_plain, ring_positions)
+    rng = np.random.default_rng(SEED + 13)
+    H, KV, HD, W, C = (MIXTRAL[k] for k in ("H", "KV", "hd", "w", "C"))
+    BS, dtype, es, cases = 16, torch.bfloat16, 2, []
+    model = {"model": "mixtral-8x7b", "body": "mma"}
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    nb = W // BS
+    for pos in (0, 2048, 4300):
+        table_np = (rng.permutation(nb) + 1).astype(np.int32)
+        kp, vp = (t(rng.standard_normal((nb + 1, BS, KV, HD)))
+                  for _ in range(2))
+        table = torch.from_numpy(table_np).to(dev)
+        q = t(rng.standard_normal((C, H, HD)))
+        kn, vn = (t(rng.standard_normal((C, KV, HD))) for _ in range(2))
+        out = _on_body("ring_chunk_attention", "mma",
+                       lambda: ring_chunk_attention(q, kp, vp, table, kn, vn,
+                                                    pos, W))
+        kpos = ring_positions(pos, W, C, dev)[None, :]
+        qpos = pos + torch.arange(C, device=dev)[:, None]
+        valid = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - W)
+        k_all = torch.cat([paged_gather(kp, table[None])[0], kn])
+        v_all = torch.cat([paged_gather(vp, table[None])[0], vn])
+        k_all = k_all.permute(1, 0, 2)[None].contiguous()
+        v_all = v_all.permute(1, 0, 2)[None].contiguous()
+        qs = q.permute(1, 0, 2)[None].contiguous()
+        n_old = min(pos, W)
+        nbytes = (2 * C * H * HD * es + 2 * (n_old + C) * KV * HD * es
+                  + 4 * -(-n_old // BS))
+        flops = 4 * HD * H * int(valid.sum())
+        cases.append(_case(
+            "ring_chunk_attention", "bfloat16",
+            {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "w": W,
+             "pos": pos},
+            out, ring_chunk_attention_plain(q, kp, vp, table, kn, vn, pos, W),
+            lambda: ring_chunk_attention(q, kp, vp, table, kn, vn, pos, W),
+            lambda: ring_chunk_attention_plain(q, kp, vp, table, kn, vn, pos,
+                                               W),
+            lambda: F.scaled_dot_product_attention(
+                qs, k_all, v_all, attn_mask=valid, enable_gqa=True),
+            nbytes, flops, extra={**model, **_bounds(nbytes, flops,
+                                                     "bfloat16")}))
+
+    B = len(MIXTRAL_DECODE_POS)
+    pos_np = np.minimum(np.asarray(MIXTRAL_DECODE_POS, np.int32), W - 1)
+    pos = torch.from_numpy(pos_np).to(dev)
+    qd = t(rng.standard_normal((B, H, HD)))
+    nbp = B * nb + 1
+    kpool, vpool = (t(rng.standard_normal((nbp, BS, KV, HD)))
+                    for _ in range(2))
+    tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(B, nb) + 1
+                               ).astype(np.int32)).to(dev)
+    kc = paged_gather(kpool, tables).contiguous()          # (B, W, KV, hd)
+    vc = paged_gather(vpool, tables).contiguous()
+    kt = kc.permute(0, 2, 1, 3).contiguous()
+    vt = vc.permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(W, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    paged = _on_body("paged_decode_attention", "mma",
+                     lambda: paged_decode_attention(qd, kpool, vpool, tables,
+                                                    pos))
+    dense = _on_body("dense_decode_attention", "mma",
+                     lambda: dense_decode_attention(qd, kc, vc, pos))
+    equal = torch.equal(paged, dense)
+    emit({"phase": "kernels", "kernel": "dense_decode_attention",
+          "check": "mixtral ring: dense bit-equal to paged on the same rows",
+          "dtype": "bfloat16", "equal": equal})
+    if not equal:
+        raise AssertionError("decode over mixtral's ring: the dense "
+                             "kernel's bits differ from the paged kernel's")
+    n_keys = int(pos_np.sum() + B)
+    shape = {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS, "slots": W,
+             "ring": True, "pos": MIXTRAL_DECODE_POS,
+             "kernel_pos": pos_np.tolist()}
+    flops = 4 * H * HD * n_keys
+    for name, out, kernel, plain, args, nbytes in (
+            ("paged_decode_attention", paged, paged_decode_attention,
+             paged_decode_attention_plain, (qd, kpool, vpool, tables, pos),
+             2 * B * H * HD * es + 2 * n_keys * KV * HD * es
+             + 4 * (n_keys // BS + B) + 4 * B),
+            ("dense_decode_attention", dense, dense_decode_attention,
+             dense_decode_attention_plain, (qd, kc, vc, pos),
+             2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B)):
+        cases.append(_case(
+            name, "bfloat16", shape, out, plain(*args),
+            functools.partial(kernel, *args), functools.partial(plain, *args),
+            lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True),
+            nbytes, flops, extra=dict(model)))
+    return cases
+
+
 def _on_body(kernel: str, body: str, fn):
     """``fn()``, which must launch ``kernel`` once, on ``body``."""
     from repro_torch.kernels import _build
@@ -1421,10 +1557,12 @@ def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
 PIPE_OF = {"pipe_paged": "paged", "pipe_slot": "slot"}
 
 
-def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
-    """One trace through each (engine, format, speculation) of ``runs`` on
-    the card and on the CPU, from the same f32 weights (each engine packs
-    its own).  Engines: ``paged`` / ``slot`` (the monolithic engines) and
+def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
+                   params_cpu=None) -> dict:
+    """One trace (``n_new`` new tokens a request) through each (engine,
+    format, speculation) of ``runs`` on the card and on the CPU, from the
+    same f32 weights (``params_cpu``, else drawn from the seed on the
+    CPU; each engine packs its own).  Engines: ``paged`` / ``slot`` (the monolithic engines) and
     ``pipe_paged`` / ``pipe_slot`` (``PagedPipelinedEngine`` /
     ``PipelinedEngine``, 2 stages).  Speculation is None, an int K (n-gram
     drafts) or ``"model"`` (a 2-layer smollm-360m draft at full width,
@@ -1450,8 +1588,9 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
     from repro_torch.serving.speculative import ModelDraft
     cpu = torch.device("cpu")
     net = make_network(np.random.default_rng(SEED))
-    params_cpu = Model(cfg, device=cpu).init(
-        torch.Generator().manual_seed(SEED))
+    if params_cpu is None:
+        params_cpu = Model(cfg, device=cpu).init(
+            torch.Generator().manual_seed(SEED))
     params_gpu = _to(params_cpu, dev)
     draft_cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
                                     block_pattern=uniform("attn", 2),
@@ -1490,7 +1629,7 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len) -> dict:
                     eng.to_application(np.random.default_rng(SEED)), net,
                     "round_robin"))
             for i, pr in enumerate(prompts):
-                eng.submit(Request(i, list(pr), max_new_tokens=16))
+                eng.submit(Request(i, list(pr), max_new_tokens=n_new))
             done = eng.run()
             if engine in PIPE_OF:
                 transfer[name] = (eng.transfer_ms, eng.transfer_mb,
@@ -1564,7 +1703,8 @@ def parity(dev) -> list:
     ``attn``) through both engines and once with ``speculative=4``, which
     they must gate off; each at full width and 2 layers in float32, on
     the card and on the CPU.  gemma3's prompts (1040-1200 tokens) all
-    wrap the ring before their first decode step."""
+    wrap the ring before their first decode step.  Then mixtral-8x7b
+    (``mixtral_parity``)."""
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     smollm = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
@@ -1609,7 +1749,123 @@ def parity(dev) -> list:
         raise AssertionError(f"speculation: smollm runs {spec_runs} must "
                              f"speculate, falcon-mamba and gemma3 runs "
                              f"{gated} must gate it off")
-    return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm)]
+    return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm),
+            *mixtral_parity(dev)]
+
+
+#: mixtral-8x7b's parity cell: full width (d_model 4096, 32/8 heads of
+#: 128, 8 experts, top-2), 2 layers, float32, with each expert's d_ff cut
+#: from 14336 to 1024 and the window from 4096 to 256 so the CPU's side
+#: stays short; prompts of 300-400 tokens wrap the ring
+MIXTRAL_PARITY = {"n_layers": 2, "moe_d_ff": 1024, "window": 256}
+
+
+def mixtral_parity(dev) -> list:
+    """mixtral-8x7b at ``MIXTRAL_PARITY``'s cut, card against CPU on the
+    same CPU-drawn weights: 3 requests of 300-400 tokens, 8 new tokens
+    each, through the paged engine (unquantized and int8: the attention
+    projections packed, router and experts dense), the slot engine and
+    the paged pipeline (2 stages, round-robin), as ``_parity_config``
+    holds them; then the capacity-pressure trace (``moe_pressure``)."""
+    import torch
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x7b"), dtype="float32",
+        block_pattern=uniform("swa", MIXTRAL_PARITY["n_layers"]),
+        **MIXTRAL_PARITY)
+    params = Model(cfg, device=torch.device("cpu")).init(
+        torch.Generator().manual_seed(SEED))
+    res = _parity_config(
+        dev, cfg, "mixtral-8x7b, 2 layers, moe_d_ff 1024, window 256, "
+                  "float32",
+        (("paged", None, None), ("slot", None, None),
+         ("paged", "int8", None), ("pipe_paged", None, None)),
+        _trace(np.random.default_rng(SEED + 11), 3, 300, 400,
+               cfg.vocab_size), 512, n_new=8, params_cpu=params)
+    return [res, moe_pressure(dev, cfg, params)]
+
+
+@contextlib.contextmanager
+def record_moe():
+    """Within the block, each ``moe_apply`` call of the model appends
+    (x's shape but its last dim: (B, 1) a decode step, (1, C) a prefill
+    chunk; its ``moe_drop_frac`` tensor) to the yielded list; nothing is
+    read on the host until the caller reads it."""
+    from repro_torch.models import moe
+    apply, calls = moe.moe_apply, []
+
+    def recorded(params, x, cfg):
+        y, aux = apply(params, x, cfg)
+        calls.append((tuple(x.shape[:-1]), aux["moe_drop_frac"]))
+        return y, aux
+    moe.moe_apply = recorded
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = apply
+
+
+def _drops(calls, shape) -> list:
+    """The drop fractions of the recorded calls on x of ``shape`` (its
+    last dim left out)."""
+    return [float(d) for s, d in calls if s == shape]
+
+
+def moe_pressure(dev, cfg, params_cpu) -> dict:
+    """tests/test_paged.py's capacity-coupled trace on ``cfg``: 12 rows of
+    3-token prompts with staggered budgets (3-7 new tokens) through the
+    slot engine (32 slots a row, chunks of 4), at K 8 and at K 1, on the
+    card and on the CPU.  A decode step of 12 rows gives each expert
+    ``_capacity(12)`` = 8 places for 24 claims, and a row whose budget
+    ran out keeps feeding token 0 at a frozen pos, its claims ranked with
+    the live rows'.  Streams and stamps must be equal card = CPU at each
+    K and K 8 = K 1 on each side, and some claim of a decode step must
+    have been dropped on the card; the drop fractions are printed."""
+    import torch
+    from repro_torch.serving.engine import Request, ServingEngine
+    cpu = torch.device("cpu")
+    params = {"cuda": _to(params_cpu, dev), "cpu": params_cpu}
+    t0 = time.perf_counter()
+    out, drops = {}, {}
+    for name, d in (("cuda", dev), ("cpu", cpu)):
+        for k in (8, 1):
+            eng = ServingEngine(cfg, params[name], max_batch=12,
+                                cache_len=32, prefill_chunk=4,
+                                decode_steps=k, device=d)
+            reqs = [Request(i, [3 + i, 1, 4], max_new_tokens=3 + (i % 5))
+                    for i in range(12)]
+            for r in reqs:
+                eng.submit(r)
+            with record_moe() as calls:
+                eng.run()
+            out[name, k] = {"streams": {r.id: r.out_tokens for r in reqs},
+                            "stamps": {r.id: (r.t_submit, r.t_admit,
+                                              r.t_first, r.t_done)
+                                       for r in reqs}}
+            drops[f"{name}_k{k}"] = _drops(calls, (12, 1))
+    card = drops["cuda_k8"]
+    res = {"phase": "parity", "config": "mixtral-8x7b, 2 layers, the "
+           "capacity-pressure trace (12 rows, K 8 and K 1)",
+           "card_equals_cpu": {k: out["cuda", k] == out["cpu", k]
+                               for k in (8, 1)},
+           "k8_equals_k1": {n: out[n, 8] == out[n, 1]
+                            for n in ("cuda", "cpu")},
+           "decode_drop_frac_max": max(card),
+           "decode_drop_frac_mean": sum(card) / len(card),
+           "decode_moe_calls": len(card),
+           "drops_equal": drops["cuda_k8"] == drops["cpu_k8"],
+           "seconds": time.perf_counter() - t0}
+    res["equal"] = (all(res["card_equals_cpu"].values())
+                    and all(res["k8_equals_k1"].values()))
+    emit(res)
+    if not res["equal"] or not max(card) > 0:
+        raise AssertionError(f"capacity-pressure trace: card against CPU "
+                             f"{res['card_equals_cpu']}, K 8 against K 1 "
+                             f"{res['k8_equals_k1']}, decode drop fraction "
+                             f"up to {max(card)} (must be above 0)")
+    return res
 
 
 #: tests/test_paged.py's GOODPUT_TRACE: two batch hogs ahead of four
@@ -1745,17 +2001,22 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     layer two rmsnorms (one without an MLP), one decode attention, one
     prefill attention a chunk (the ring form for a windowed swa layer,
     the paged prefill for the others) or one batched chunk attention a
-    verify round and, packed, 7 quant matmuls (4 attention, 3 MLP); per
-    Mamba1 layer one rmsnorm and one scan; one final rmsnorm per decode
-    iteration and per verify round.  Every rmsnorm but the first of a
-    stack takes its residual add as a delta (``add_norm``); the final
-    norm takes the last block's.  Returns (launches by kernel,
-    rmsnorm's launches by body)."""
+    verify round and, packed, 7 quant matmuls (4 attention, 3 MLP; a
+    mixture of experts packs only the 4 attention projections: its
+    router and experts stay dense); per Mamba1 layer one rmsnorm and one
+    scan; one final rmsnorm per decode iteration and per verify round.
+    Every rmsnorm but the first of a stack takes its residual add as a
+    delta (``add_norm``); the final norm takes the last block's.  The
+    mixture of experts launches no kernel of the port (routing,
+    dispatch, the expert products and the combine are torch ops, as the
+    reference computes them outside any Pallas kernel); its norm is the
+    MLP's.  Returns (launches by kernel, rmsnorm's launches by body)."""
     n_swa = cfg.block_pattern.count("swa")
     n_ring = n_swa if cfg.window else 0
     n_attn = cfg.block_pattern.count("attn") + n_swa
     n_mamba = cfg.block_pattern.count("mamba1")
     n_mlp = n_attn if cfg.mlp_kind != "none" else 0
+    n_packed_mlp = n_mlp if cfg.mlp_kind == "dense" else 0
     expect = dict.fromkeys(names, 0)
     norms = n_attn + n_mamba + n_mlp
     heads = iters + rounds        # forwards that end in the final norm
@@ -1769,8 +2030,8 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
            else "paged_decode_attention"] = n_attn * iters
     expect["selective_scan"] = n_mamba * (iters + chunks)
     if qformat:
-        expect[f"quant_matmul_{qformat}"] = (4 * n_attn + 3 * n_mlp) * (
-            heads + chunks)
+        expect[f"quant_matmul_{qformat}"] = (
+            (4 * n_attn + 3 * n_packed_mlp) * (heads + chunks))
     return expect, {"rmsnorm": norm_bodies}
 
 
@@ -1923,8 +2184,10 @@ def check_launches(name, cfg, launches, expect, bodies, expect_bodies):
 def serve(dev) -> dict:
     """smollm-360m: the bf16 paged run of 16 requests and its decode
     profile, then the slot engine and the int8 / int4 paged engine on its
-    first 8 requests; then falcon-mamba-7b (``serve_mamba``).  Returns
-    each run's launch counts."""
+    first 8 requests, speculation, the pipelined engines and the
+    policies; then falcon-mamba-7b (``serve_mamba``), gemma3-12b
+    (``serve_gemma``) and mixtral-8x7b (``serve_mixtral``).  Returns each
+    run's launch counts."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1938,19 +2201,7 @@ def serve(dev) -> dict:
                               prompts, dev)
     launches = {"paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="paged_bf16")
-    with previous_body("paged_decode_attention"):
-        profile_decode(cfg, eng.params, kw, dev,
-                       label="paged_bf16, previous decode body")
-    with previous_body("rmsnorm"):
-        profile_decode(cfg, eng.params, kw, dev,
-                       label="paged_bf16, previous rmsnorm")
     profile_prefill(cfg, eng.params, kw, dev, label="paged_bf16")
-    with previous_body("paged_prefill_attention"):
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="paged_bf16, previous prefill body")
-    with previous_body("rmsnorm"):
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="paged_bf16, previous rmsnorm")
     del eng
     slot_kw = dict(max_batch=8, cache_len=1024, prefill_chunk=128,
                    decode_steps=16, seed=SEED, device=dev)
@@ -1973,11 +2224,7 @@ def serve(dev) -> dict:
         if name == "paged_bf16_8":
             streams_8 = streams
         if name in ("paged_int8", "paged_int4"):
-            fmt = run_kw["quantization"]
             profile_decode(cfg, eng.params, run_kw, dev, label=name)
-            with previous_body(f"quant_matmul_{fmt}"):
-                profile_decode(cfg, eng.params, run_kw, dev,
-                               label=f"{name}, previous {fmt} body")
         del eng
     # draft-verify speculation (K = 4, n-gram drafts) on the same 8
     # requests, with the share of tokens equal to paged_bf16_8's (not
@@ -2017,6 +2264,9 @@ def serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_gemma(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_mixtral(dev))
     return launches
 
 
@@ -2193,9 +2443,7 @@ def serve_gemma(dev) -> dict:
     the card from the seed): 8 requests of 256-2048 tokens (six past the
     window) through ``PagedServingEngine`` and its decode and prefill
     profiles (prompts past the window, so both windows run the wrapped
-    ring), both windows again with the previous (``cuda_core``) body of
-    the paged decode or the paged prefill, the prefill window with the
-    previous body of the ring form, then the same 8 through
+    ring), then the same 8 through
     ``ServingEngine`` on the same weights, with its share of tokens equal
     to the paged run's.  Every paged-prefill, ring-form and decode launch
     of the serve runs takes the wide ``mma`` body (hd 256).  Returns each
@@ -2220,18 +2468,6 @@ def serve_gemma(dev) -> dict:
                    prompt_len=1100)
     profile_prefill(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
                     prompt_len=1153)
-    with previous_body("paged_decode_attention"):
-        profile_decode(cfg, eng.params, kw, dev,
-                       label="gemma_paged_bf16, previous decode body",
-                       prompt_len=1100)
-    with previous_body("paged_prefill_attention"):
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="gemma_paged_bf16, previous prefill body",
-                        prompt_len=1153)
-    with previous_body("ring_chunk_attention"):
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="gemma_paged_bf16, previous ring body",
-                        prompt_len=1153)
     params = eng.params
     del eng
     gc.collect()
@@ -2245,12 +2481,135 @@ def serve_gemma(dev) -> dict:
     return launches
 
 
+#: mixtral-8x7b on one card: full width, 16 of its 32 layers.  All 32
+#: would hold about 93 GB of bf16 weights (a layer's experts are 3 x 8 x
+#: 4096 x 14336 x 2 B = 2.82 GB, its attention 84 MB) against the card's
+#: 80 GB, and the reference never packs expert weights, so quantization
+#: cannot close the gap; 16 layers are about 46.4 GB of blocks plus 0.52
+#: GB of embedding and untied head
+MIXTRAL_LAYERS = 16
+
+
+def _moe_bytes(params) -> int:
+    """Bytes of the MoE leaves (router and experts)."""
+    return sum(v.numel() * v.element_size()
+               for seg in params["blocks"]["segments"]
+               for v in seg.get("moe", {}).values())
+
+
+def _drop_stats(calls, rows: int, chunk: int, n_layers: int) -> dict:
+    """The drop fractions a serve run's ``moe_apply`` calls recorded: the
+    mean over the layers of its first decode step (``rows`` tokens) and
+    of its first full prefill chunk (``chunk`` tokens), and the mean and
+    largest over every such call."""
+    out = {}
+    for label, shape in (("decode", (rows, 1)), ("chunk", (1, chunk))):
+        d = _drops(calls, shape)
+        out[label] = {"first_step_mean": sum(d[:n_layers]) / n_layers,
+                      "mean": sum(d) / len(d), "max": max(d),
+                      "calls": len(d)}
+    return out
+
+
+def moe_sync_check(cfg, params, dev) -> dict:
+    """``moe_apply`` at full width on the served model's first layer, at a
+    decode step's shape (8, 1, 4096) and a prefill chunk's (1, 128,
+    4096), bf16, under ``torch.cuda.set_sync_debug_mode("error")``: any
+    operation that makes the host wait on the card raises.  Each shape
+    runs once before, outside the mode (cuBLAS handles, allocator
+    pools)."""
+    import torch
+    from repro_torch.models.moe import moe_apply
+    layer = {k: v[0] for k, v in params["blocks"]["segments"][0]["moe"].items()}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    res = {"phase": "serve", "check": "moe_apply with no host sync",
+           "config": f"{cfg.name}, layer 0, bfloat16", "shapes": {}}
+    for shape in ((8, 1, cfg.d_model), (1, MIXTRAL["C"], cfg.d_model)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        moe_apply(layer, x, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_apply(layer, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        res["shapes"][str(list(shape))] = {
+            "finite": bool(torch.isfinite(y).all()),
+            "moe_drop_frac": float(aux["moe_drop_frac"])}
+    emit(res)
+    if not all(v["finite"] for v in res["shapes"].values()):
+        raise AssertionError(f"moe_apply: non-finite output {res}")
+    return res
+
+
+def serve_mixtral(dev) -> dict:
+    """mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` of its 32 layers
+    (every layer ``swa`` on a ring of 4096 slots with 8 experts, top-2;
+    about 47 GB of bf16 weights drawn on the card from the seed): 8
+    requests, 6 of 256-2048 tokens and 2 of 4160-4400 (past the window),
+    64 new tokens each, through ``PagedServingEngine``
+    (``mixtral_paged_bf16``, profiled in decode and prefill) and
+    ``ServingEngine`` on the same weights (``mixtral_dense_bf16``, its
+    share of tokens equal to the paged run's printed).  Launches by
+    kernel and body are checked exactly as in every serve run (a prefill
+    chunk launches the ring form 16 times, a decode iteration the decode
+    kernel 16 times, all on ``mma``; the experts launch no port kernel).
+    Printed, not gated: the share of claims dropped in the paged run's
+    first decode step and first full prefill chunk and over the run
+    (capacity ranks claims over the co-batch, so the slot run may
+    differ, SERVING.md).  Then ``moe_sync_check``.  Returns each run's
+    launch counts."""
+    import gc
+    import torch
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              n_layers=MIXTRAL_LAYERS,
+                              block_pattern=uniform("swa", MIXTRAL_LAYERS))
+    max_len = MIXTRAL["max_len"]
+    kw = dict(max_rows=8, max_len=max_len, block_size=16,
+              prefill_chunk=MIXTRAL["C"], decode_steps=16, seed=SEED,
+              device=dev)
+    rng = np.random.default_rng(SEED + 12)
+    prompts = (_trace(rng, 6, 256, 2048, cfg.vocab_size)
+               + _trace(rng, 2, 4160, 4400, cfg.vocab_size))
+    cut = (f"{cfg.n_layers} of 32 layers: 32 would hold about 93 GB of "
+           f"bf16 weights, more than the card's 80 GB")
+    with record_moe() as calls:
+        res, ref, eng = serve_run(
+            "mixtral_paged_bf16", PagedServingEngine, cfg, kw, prompts, dev,
+            setup=lambda e: calls.clear() or {
+                "depth_cut": cut, "moe_weight_bytes": _moe_bytes(e.params)})
+    emit({"phase": "serve", "run": "mixtral_paged_bf16",
+          "moe_drop_frac": _drop_stats(calls, kw["max_rows"], MIXTRAL["C"],
+                                       cfg.n_layers)})
+    del calls
+    launches = {"mixtral_paged_bf16": res["launches"]}
+    profile_decode(cfg, eng.params, kw, dev, label="mixtral_paged_bf16",
+                   prompt_len=1100)
+    profile_prefill(cfg, eng.params, kw, dev, label="mixtral_paged_bf16",
+                    prompt_len=1153)
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "mixtral_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=max_len, prefill_chunk=MIXTRAL["C"],
+             decode_steps=16, seed=SEED, device=dev), prompts, dev, ref=ref,
+        params=params, setup=lambda e: {"depth_cut": cut})
+    launches["mixtral_dense_bf16"] = res["launches"]
+    del eng
+    moe_sync_check(cfg, params, dev)
+    return launches
+
+
 def serve_mamba(dev) -> dict:
     """falcon-mamba-7b at full width and depth (64 Mamba1 layers, about
     14.5 GB of bf16 weights drawn from the seed): 8 requests through
     ``PagedServingEngine`` and its decode and prefill-chunk profiles,
-    both again under the previous scan body and under the previous
-    rmsnorm, then the same 8 through
+    then the same 8 through
     ``ServingEngine`` on the same weights, with its share of tokens equal
     to the paged run's.  Returns each run's launch counts."""
     import gc
@@ -2267,16 +2626,6 @@ def serve_mamba(dev) -> dict:
     launches = {"mamba_paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="mamba_paged_bf16")
     profile_prefill(cfg, eng.params, kw, dev, label="mamba_paged_bf16")
-    with previous_body("selective_scan"):
-        profile_decode(cfg, eng.params, kw, dev,
-                       label="mamba_paged_bf16, previous scan body")
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="mamba_paged_bf16, previous scan body")
-    with previous_body("rmsnorm"):
-        profile_decode(cfg, eng.params, kw, dev,
-                       label="mamba_paged_bf16, previous rmsnorm")
-        profile_prefill(cfg, eng.params, kw, dev,
-                        label="mamba_paged_bf16, previous rmsnorm")
     params = eng.params
     del eng
     gc.collect()
@@ -2287,32 +2636,6 @@ def serve_mamba(dev) -> dict:
              seed=SEED, device=dev), prompts, dev, ref=ref, params=params)
     launches["mamba_dense_bf16"] = res["launches"]
     return launches
-
-
-@contextlib.contextmanager
-def previous_body(kernel: str):
-    """Within the block, the model's calls of ``kernel`` take its previous
-    (CUDA-core) body, through the wrapper's private ``_body`` argument:
-    the profile windows compare the two bodies in one call.  For rmsnorm
-    both of the model's wrappers switch: the fused add + norm becomes
-    torch's add and then the previous norm."""
-    from repro_torch.models import attention, layers, quantize, ssm
-    sites = {"paged_decode_attention": [(attention, kernel)],
-             "paged_prefill_attention": [(attention, kernel)],
-             "ring_chunk_attention": [(attention, kernel)],
-             "quant_matmul_int8": [(quantize, kernel)],
-             "quant_matmul_int4": [(quantize, kernel)],
-             "selective_scan": [(ssm, kernel)],
-             "rmsnorm": [(layers, "rmsnorm_kernel"),
-                         (layers, "add_rmsnorm_kernel")]}[kernel]
-    saved = [(module, name, getattr(module, name)) for module, name in sites]
-    for module, name, wrapper in saved:
-        setattr(module, name, functools.partial(wrapper, _body="cuda_core"))
-    try:
-        yield
-    finally:
-        for module, name, wrapper in saved:
-            setattr(module, name, wrapper)
 
 
 def _port_kernels(kernels) -> list:

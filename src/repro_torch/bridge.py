@@ -5,7 +5,8 @@ vocab table, also the head when embeddings are tied), ``lm_head.w`` (an
 untied head of the same layout), ``blocks.segments[i]`` stacked
 ``(n_layers, ...)`` per segment (a one-layer segment is stored
 unstacked) — attn blocks with ``ln1.scale``, ``attn.{wq,wk,wv,wo}``,
-``ln2.scale`` and ``mlp.{w_gate,w_up,w_down}``, Mamba1 blocks with
+``ln2.scale`` and ``mlp.{w_gate,w_up,w_down}`` (or, for a mixture of
+experts, ``moe.{router,we_gate,we_up,we_down}``), Mamba1 blocks with
 ``ln1.scale`` and ``mamba.{in_proj,conv_w,conv_b,x_proj,dt_proj,
 dt_bias,A_log,D,out_proj}`` — ``blocks.shared`` (None for these
 models) and ``final_norm.scale``.  :func:`params_from_numpy` takes that
@@ -14,9 +15,10 @@ arrays maps ``np.asarray`` over it first) and returns the port's
 parameters: the same tree of torch tensors, in the same ``(in, out)``
 orientation, so the bridge copies and never transposes.  Float leaves
 take the model dtype, except those the reference keeps in float32
-whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``),
-which stay float32.  Projection weights the reference packed
-(``quantize_params``) arrive as ``{"q", "s"}`` dicts and stay packed:
+whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``, and
+the MoE router, ``moe.F32_LEAVES``), which stay float32.  Projection
+weights the reference packed (``quantize_params``) arrive as
+``{"q", "s"}`` dicts and stay packed:
 ``q`` keeps its int8 / uint8 integers and ``s`` its f32 scales,
 whatever the model dtype.  :func:`params_to_numpy` is the reverse
 direction: port params as the reference's tree of numpy arrays (float
@@ -29,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.moe import F32_LEAVES as MOE_F32_LEAVES
 from repro_torch.models.quantize import is_quantized
 from repro_torch.models.ssm import F32_LEAVES
 from repro_torch.models.transformer import build_segments
@@ -69,7 +72,8 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
         if is_quantized(a):
             return _packed_to_torch(a, device)
         return _to_torch(a, device,
-                         torch.float32 if key in F32_LEAVES else dtype)
+                         torch.float32
+                         if key in F32_LEAVES | MOE_F32_LEAVES else dtype)
 
     def unsqueeze(a, key=None):
         if is_quantized(a):

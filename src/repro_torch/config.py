@@ -90,6 +90,10 @@ class ModelConfig:
         return self.d_inner if self.d_inner else 2 * self.d_model
 
     @property
+    def moe_d_ff_eff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff else self.d_ff
+
+    @property
     def vocab_padded(self) -> int:
         """Embedding rows: the vocab padded up to a multiple of 256,
         as the reference's ``layers.embed_init`` lays the table out."""
@@ -107,14 +111,21 @@ class ModelConfig:
     def _mlp_params(self) -> int:
         if self.mlp_kind == "none":
             return 0
-        if self.mlp_kind != "dense":
-            raise NotImplementedError(
-                f"{self.name}: mlp {self.mlp_kind!r} is not ported yet")
+        if self.mlp_kind == "moe":
+            ff = self.moe_d_ff_eff
+            return (self.n_experts * 3 * self.d_model * ff
+                    + self.d_model * self.n_experts)
         return 3 * self.d_model * self.d_ff
 
     def _mlp_active_params(self) -> int:
-        # a dense MLP is active whole (the reference differs for MoE only)
-        return self._mlp_params()
+        if self.mlp_kind == "none":
+            return 0
+        if self.mlp_kind == "moe":
+            # the top-k experts a token is routed to, and the router
+            ff = self.moe_d_ff_eff
+            return (self.experts_per_token * 3 * self.d_model * ff
+                    + self.d_model * self.n_experts)
+        return 3 * self.d_model * self.d_ff
 
     def _mamba_params(self, kind: str) -> int:
         if kind != "mamba1":
@@ -140,6 +151,27 @@ class ModelConfig:
         if kind in ("attn", "swa"):
             return self._attn_params(kind) + self._mlp_active_params()
         return self._mamba_params(kind)
+
+    def _count(self, per_layer) -> int:
+        if self.shared_block_kind or self.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.name}: weight-shared blocks / encoder-decoder are "
+                f"not ported yet")
+        n = self.vocab_size * self.d_model
+        if not self.tie_embeddings:
+            n += self.vocab_size * self.d_model
+        n += self.d_model  # final norm
+        return n + sum(per_layer(b) for b in self.block_pattern)
+
+    def num_params(self) -> int:
+        """Every parameter (the reference's ``num_params``, over the
+        logical vocab)."""
+        return self._count(self.layer_params)
+
+    def num_active_params(self) -> int:
+        """The parameters a token runs through (an MoE layer's top-k
+        experts only)."""
+        return self._count(self.layer_active_params)
 
 
 def uniform(kind: str, n: int) -> Tuple[str, ...]:

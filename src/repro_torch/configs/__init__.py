@@ -1,9 +1,11 @@
 """Architecture config registry of the port.
 
 It holds the architectures the port can serve so far: ``smollm-360m``
-(dense attention), ``falcon-mamba-7b`` (Mamba1) and ``gemma3-12b``
-(dense attention, 5 sliding-window layers to 1 global).  Other architectures
-join with their families.  ``get_config(arch_id)``
+(dense attention), ``falcon-mamba-7b`` (Mamba1), ``gemma3-12b``
+(dense attention, 5 sliding-window layers to 1 global), and the
+mixtures of experts ``mixtral-8x7b`` (sliding-window attention, 8
+experts, top-2) and ``kimi-k2-1t-a32b`` (384 experts, top-8).  Other
+architectures join with their families.  ``get_config(arch_id)``
 returns the production :class:`~repro_torch.config.ModelConfig`,
 ``get_smoke_config`` the reduced CPU-testable variant.
 """
@@ -17,6 +19,8 @@ _ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "gemma3-12b": "gemma3_12b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

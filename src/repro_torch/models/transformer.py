@@ -3,7 +3,10 @@
 Port of ``repro/models/transformer.py`` for ``attn``, ``swa``
 (sliding-window attention; the same leaves and MLP as ``attn``) and
 ``mamba1`` blocks in the ``decode`` and ``chunk`` modes, over paged pools
-(``paged`` given) or dense slot caches (``paged=None``).  A model is a
+(``paged`` given) or dense slot caches (``paged=None``).  The MLP after
+an attention block is SwiGLU (``mlp_kind="dense"``) or the
+capacity-routed mixture of experts of ``models/moe.py``
+(``mlp_kind="moe"``, serving modes only).  A model is a
 ``block_pattern``; contiguous runs of one kind are *segments*, whose
 parameters are stacked along a leading layer dim as in the reference.
 Where the reference scans a segment with ``lax.scan``, the port runs a
@@ -28,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
@@ -70,10 +74,13 @@ def check_supported(cfg, mode: Optional[str] = None) -> None:
                 f"{cfg.name}: block kind {seg.kind!r}"
                 f"{' (weight-shared)' if seg.shared else ''} is not "
                 f"ported yet; the port runs {KINDS} blocks")
-    if cfg.mlp_kind not in ("dense", "none") or cfg.is_encoder_decoder:
+    if mode == "train" and cfg.mlp_kind == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: mlp {cfg.mlp_kind!r} / encoder-decoder is not "
-            f"ported yet")
+            f"{cfg.name}: MoE training is not ported yet (ROADMAP Queue 1 "
+            f"item 9: the MoE aux loss in Model.forward)")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder is not ported yet")
 
 
 def segment_slices(cfg, lo: int, hi: int):
@@ -130,7 +137,10 @@ def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
         p["mamba"] = ssm_mod.mamba1_init(generator, cfg, dtype, device, n)
     else:
         raise NotImplementedError(kind)
-    if _has_mlp(kind, cfg):
+    if _has_mlp(kind, cfg) and cfg.mlp_kind == "moe":
+        p["ln2"] = {"scale": torch.ones((n, d), dtype=dtype, device=device)}
+        p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device, n)
+    elif _has_mlp(kind, cfg):
         p["ln2"] = {"scale": torch.ones((n, d), dtype=dtype, device=device)}
         p["mlp"] = {
             "w_gate": _dense_init(generator, (n, d, cfg.d_ff), dtype, device),
@@ -205,6 +215,10 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
     if not _has_mlp(kind, cfg):
         return x, a
     x, h2 = add_rmsnorm(params["ln2"], x, a, cfg.norm_eps)
+    if "moe" in params:
+        # the serving engines read no aux: the expert output is the
+        # pending delta, as the dense MLP's is
+        return x, moe_mod.moe_apply(params["moe"], h2, cfg)[0]
     return x, mlp(params["mlp"], h2)
 
 

@@ -209,7 +209,7 @@ def test_unported_kinds_keep_raising():
     with pytest.raises(NotImplementedError):
         tc.layer_params("cross")
     with pytest.raises(NotImplementedError):
-        dataclasses.replace(tc, mlp_kind="moe").layer_params("attn")
+        dataclasses.replace(tc, is_encoder_decoder=True).num_params()
 
 
 MEASURED = {"none": None,

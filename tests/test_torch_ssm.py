@@ -362,8 +362,8 @@ def test_fused_residual_adds_keep_the_unfused_bits(monkeypatch, name, mode):
 
 
 def test_untied_head_and_refusals():
-    """The port's own init draws an untied head; mamba2, MoE and
-    weight-shared configs still refuse."""
+    """The port's own init draws an untied head; mamba2,
+    encoder-decoder and weight-shared configs still refuse."""
     _, tc = config_pair("mamba")
     params = Model(tc, device="cpu").init(torch.Generator().manual_seed(0))
     assert params["lm_head"]["w"].shape == (tc.vocab_padded, tc.d_model)
@@ -373,7 +373,8 @@ def test_untied_head_and_refusals():
         torch.arange(1, tc.ssm_state + 1, dtype=torch.float32)))
     assert torch.all(m["dt_bias"] == -2.0)
     for bad in (dict(block_pattern=("mamba1", "mamba2")),
-                dict(block_pattern=("attn", "mamba1"), mlp_kind="moe"),
+                dict(block_pattern=("attn", "mamba1"),
+                     is_encoder_decoder=True),
                 dict(shared_block_kind="mamba1")):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(tc, **bad), device="cpu")
