@@ -75,7 +75,14 @@ one JSON line:
    8 of 128, a ring of 4096 slots) the window form (C 128 at pos 0, 2048
    and 4300) and both decode kernels over rings (B 8, pos 5-4470,
    clamped to w - 1; the dense kernel's bits the paged one's) run in
-   bfloat16 on ``mma`` beside plain, SDPA and the bound.  The
+   bfloat16 on ``mma`` beside plain, SDPA and the bound, and so do the
+   paged prefill (C 128 at pos 0, 1024 and 2048) and both decode
+   kernels (B 8 over linear rows of 2176 slots, pos 5-2175; the dense
+   kernel's bits the paged one's) at zamba2-7b's weight-shared attn
+   block (32 heads over 32 KV heads of 112, G 1).  The selective scan
+   also runs at zamba2-7b's d_state 64 (a decode step of 8 rows and a
+   chunk of 128 over d_inner 7168, B and C the halves of ``bc_proj``'s
+   output), state_lanes against cuda_core as at d_state 16.  The
    contiguous form of the flash kernel (``flash_attention``, the TPU
    kernel's own signature, the train
    path's) runs at smollm-360m's train shape (B 8, S 4096, 15 / 5 heads
@@ -125,7 +132,13 @@ one JSON line:
    slot engine and the paged pipeline, held as above; and the
    capacity-pressure trace of tests/test_paged.py (12 rows, staggered
    budgets) through the slot engine at K 8 and K 1: card = CPU at each
-   K, K 8 = K 1 on each side, and some claim of a decode step dropped;
+   K, K 8 = K 1 on each side, and some claim of a decode step dropped.
+   Last, zamba2-7b at full width (d_model 3584, d_inner 7168, d_state
+   64, 32 heads of 112) cut to 4 layers, float32: Mamba2, the shared
+   attn block, Mamba2, the shared attn block again; 4 prompts of 20-64
+   tokens, 8 new tokens each, through the paged engine (unquantized,
+   int8), the slot engine and the paged pipeline, whose boundary falls
+   between the two shared positions, held as above;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -191,19 +204,32 @@ one JSON line:
    decode step, first full chunk and over the run is printed, not
    gated; then ``moe_apply`` at full width at a decode step's and a
    chunk's shape under ``torch.cuda.set_sync_debug_mode("error")``.
+   Then zamba2-7b at full width and depth (81 layers: 68 Mamba2 and 13
+   positions of one weight-shared attn block) in bfloat16, about 11.4 GB
+   of weights drawn on the card: 8 requests of 256-2048 tokens, 64 new
+   tokens each, through ``PagedServingEngine`` (``zamba_paged_bf16``,
+   profiled in decode and prefill) and ``ServingEngine``
+   (``zamba_dense_bf16``), launches by kernel and body checked exactly
+   (a decode iteration: 95 norms, 13 decode attentions and 68 scans; a
+   chunk: 94 norms, 13 paged prefills and 68 scans), then the paged
+   run's requests through ``PagedPipelinedEngine`` in 2 stages
+   (``zamba_pipe_paged_bf16``, placed by the static tier), which must
+   emit the paged run's tokens and launches at a peak within 5% of its
+   memory, every stage on the one shared set, uncopied.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
-   falcon-mamba and gemma3 paged runs; two steady verify rounds after
-   ``paged_spec``):
+   falcon-mamba, gemma3, mixtral and zamba2 paged runs; two steady
+   verify rounds after ``paged_spec``):
    one steady decode macro-step (16 iterations) timed without
    the profiler, then the same window again under torch.profiler for
    the device's busy time, the top kernels and the port's own kernels
    by device time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run and the
-   falcon-mamba paged run, the same for a prefill window: 4 requests of
-   385 tokens admitted at once, 12 chunks of 128, with the device busy
-   time per chunk (gemma3 and mixtral-8x7b: 4 requests of 1153 tokens,
-   36 chunks).  No window reruns on a previous body: the kernels phase
-   times each redesigned kernel against its previous body in turns.
+   falcon-mamba and zamba2 paged runs, the same for a prefill window: 4
+   requests of 385 tokens admitted at once, 12 chunks of 128, with the
+   device busy time per chunk (gemma3 and mixtral-8x7b: 4 requests of
+   1153 tokens, 36 chunks).  No window reruns on a previous body: the
+   kernels phase times each redesigned kernel against its previous body
+   in turns.
 
 6. ``train``  — smollm-360m at full width, 2 layers, float32, on the
    card against the CPU from the same weights: the loss (1e-5 relative)
@@ -673,7 +699,7 @@ def kernel_cases(dev) -> list:
             if dname == "bfloat16" else None))
     launch_floor(dev)
     return (cases + scan_cases(dev) + gemma_cases(dev) + mixtral_cases(dev)
-            + flash_cases(dev))
+            + zamba_cases(dev) + flash_cases(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1406,115 @@ def mixtral_cases(dev) -> list:
     return cases
 
 
+#: zamba2-7b's shared attn block: 32 query heads over 32 KV heads (MHA,
+#: G 1) of 112, chunks of 128, rows of max_len 2176 (prompts up to 2048
+#: and 64 new tokens)
+ZAMBA = {"H": 32, "KV": 32, "hd": 112, "C": 128, "max_len": 2176}
+#: a decode batch's positions over the linear rows, 5-2175
+ZAMBA_DECODE_POS = [5, 300, 1023, 1024, 1500, 1777, 2000, 2175]
+
+
+def zamba_cases(dev) -> list:
+    """The attention kernels at zamba2-7b's shared block (hd 112, G 1),
+    bf16 on ``mma``, as its serve runs launch them: the paged prefill (C
+    128 at pos 0, 1024 and 2048) and the paged and dense decode over
+    linear rows of 2176 slots (B 8, pos 5-2175; the dense kernel's bits
+    the paged one's on the same rows), each against its plain version,
+    SDPA and both halves of the bound.  The scan at d_state 64 is in
+    ``scan_cases``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.flash_attention import (
+        paged_prefill_attention, paged_prefill_attention_plain)
+    rng = np.random.default_rng(SEED + 14)
+    H, KV, HD, C, L = (ZAMBA[k] for k in ("H", "KV", "hd", "C", "max_len"))
+    BS, dtype, es, cases = 16, torch.bfloat16, 2, []
+    model = {"model": "zamba2-7b", "body": "mma"}
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    nb = L // BS
+    kp, vp = (t(rng.standard_normal((nb + 1, BS, KV, HD))) for _ in range(2))
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(np.int32)).to(
+        dev)
+    q = t(rng.standard_normal((C, H, HD)))
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    for p0 in (0, 1024, 2048):
+        out = _on_body("paged_prefill_attention", "mma",
+                       lambda: paged_prefill_attention(q, kp, vp, table, p0))
+        n_slots = p0 + C
+        kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
+        vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
+        kc, vc = kc[None].contiguous(), vc[None].contiguous()
+        cmask = (torch.arange(n_slots, device=dev)[None, :]
+                 <= p0 + torch.arange(C, device=dev)[:, None])
+        nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                  + 4 * -(-n_slots // BS))
+        flops = 4 * H * HD * sum(p0 + i + 1 for i in range(C))
+        cases.append(_case(
+            "paged_prefill_attention", "bfloat16",
+            {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
+            out, paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: F.scaled_dot_product_attention(qs, kc, vc,
+                                                   attn_mask=cmask),
+            nbytes, flops, extra={**model, **_bounds(nbytes, flops,
+                                                     "bfloat16")}))
+
+    B = len(ZAMBA_DECODE_POS)
+    pos_np = np.asarray(ZAMBA_DECODE_POS, np.int32)
+    pos = torch.from_numpy(pos_np).to(dev)
+    qd = t(rng.standard_normal((B, H, HD)))
+    nbp = B * nb + 1
+    kpool, vpool = (t(rng.standard_normal((nbp, BS, KV, HD)))
+                    for _ in range(2))
+    tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(B, nb) + 1
+                               ).astype(np.int32)).to(dev)
+    kc = paged_gather(kpool, tables).contiguous()          # (B, L, KV, hd)
+    vc = paged_gather(vpool, tables).contiguous()
+    kt = kc.permute(0, 2, 1, 3).contiguous()
+    vt = vc.permute(0, 2, 1, 3).contiguous()
+    mask = (torch.arange(L, device=dev)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    paged = _on_body("paged_decode_attention", "mma",
+                     lambda: paged_decode_attention(qd, kpool, vpool, tables,
+                                                    pos))
+    dense = _on_body("dense_decode_attention", "mma",
+                     lambda: dense_decode_attention(qd, kc, vc, pos))
+    equal = torch.equal(paged, dense)
+    emit({"phase": "kernels", "kernel": "dense_decode_attention",
+          "check": "zamba2 hd 112: dense bit-equal to paged on the same rows",
+          "dtype": "bfloat16", "equal": equal})
+    if not equal:
+        raise AssertionError("decode at zamba2's hd 112: the dense kernel's "
+                             "bits differ from the paged kernel's")
+    n_keys = int(pos_np.sum() + B)
+    shape = {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS, "slots": L,
+             "pos": ZAMBA_DECODE_POS}
+    flops = 4 * H * HD * n_keys
+    for name, out, kernel, plain, args, nbytes in (
+            ("paged_decode_attention", paged, paged_decode_attention,
+             paged_decode_attention_plain, (qd, kpool, vpool, tables, pos),
+             2 * B * H * HD * es + 2 * n_keys * KV * HD * es
+             + 4 * (n_keys // BS + B) + 4 * B),
+            ("dense_decode_attention", dense, dense_decode_attention,
+             dense_decode_attention_plain, (qd, kc, vc, pos),
+             2 * B * H * HD * es + 2 * n_keys * KV * HD * es + 4 * B)):
+        cases.append(_case(
+            name, "bfloat16", shape, out, plain(*args),
+            functools.partial(kernel, *args), functools.partial(plain, *args),
+            lambda: F.scaled_dot_product_attention(qd[:, :, None], kt, vt,
+                                                   attn_mask=mask),
+            nbytes, flops, extra={**model, **_bounds(nbytes, flops,
+                                                     "bfloat16")}))
+    return cases
+
+
 def _on_body(kernel: str, body: str, fn):
     """``fn()``, which must launch ``kernel`` once, on ``body``."""
     from repro_torch.kernels import _build
@@ -1414,21 +1549,35 @@ def launch_floor(dev) -> list:
     return rows
 
 
+#: the selective scan's cases: (model, B, T, DI, DS, h updated in place,
+#: the columns before B in the projection B and C are sliced from, or
+#: None for contiguous B and C).  falcon-mamba-7b's decode step of 8 rows
+#: and prefill chunk of 128 steps; a ragged case (DI and T off the
+#: kernel's tiles, B and C column slices of x_proj's [dt_r | B | C]);
+#: zamba2-7b's decode step and chunk at d_state 64 (Mamba2's B and C,
+#: the two halves of bc_proj's output)
+SCAN_CASES = (("falcon-mamba-7b", 8, 1, 8192, 16, True, None),
+              ("falcon-mamba-7b", 1, 128, 8192, 16, True, None),
+              ("ragged", 2, 100, 300, 8, False, 5),
+              ("zamba2-7b", 8, 1, 7168, 64, True, 0),
+              ("zamba2-7b", 1, 128, 7168, 64, True, 0))
+
+
 def scan_cases(dev) -> list:
-    """The selective scan in float32 at falcon-mamba-7b's shapes: a decode
-    step of 8 rows and a prefill chunk of 128 steps, both with the state
-    updated in place as the model runs them, and a ragged case (DI and T
-    off the kernel's tiles, B and C as strided column slices).  The
-    model's body (``state_lanes``) is timed in turns with the previous
-    one (``cuda_core``), whose ``h_T`` it must equal bit for bit."""
+    """The selective scan in float32 at ``SCAN_CASES``' shapes, with the
+    state updated in place where the model updates it.  The model's body
+    (``state_lanes``) is timed in turns with the previous one
+    (``cuda_core``), whose ``h_T`` it must equal bit for bit (at
+    falcon-mamba-7b's d_state 16 the state_lanes launch is the code it
+    was before d_state 64 was added: the staged rows stay 16 wide)."""
     import torch
-    from repro_torch.kernels.selective_scan import (selective_scan,
+    from repro_torch.kernels.selective_scan import (scan_lanes,
+                                                    selective_scan,
                                                     selective_scan_plain)
     rng = np.random.default_rng(SEED + 4)
     cases = []
-    for b, t, di, ds, aliased, strided in ((8, 1, 8192, 16, True, False),
-                                           (1, 128, 8192, 16, True, False),
-                                           (2, 100, 300, 8, False, True)):
+    for model, b, t, di, ds, aliased, lead in SCAN_CASES:
+        strided = lead is not None
         def f32(shape):
             return torch.from_numpy(
                 rng.standard_normal(shape, dtype=np.float32)).to(dev)
@@ -1436,9 +1585,9 @@ def scan_cases(dev) -> list:
         x, h0 = f32((b, t, di)), f32((b, di, ds))
         bm, cm = f32((b, t, ds)), f32((b, t, ds))
         a_neg = -f32((di, ds)).abs()
-        if strided:       # x_proj's output layout: [dt_r | B | C]
-            proj = torch.cat([f32((b, t, 5)), bm, cm], dim=-1)
-            bm, cm = proj[..., 5:5 + ds], proj[..., 5 + ds:]
+        if strided:       # x_proj's [dt_r | B | C], bc_proj's [B | C]
+            proj = torch.cat([f32((b, t, lead)), bm, cm], dim=-1)
+            bm, cm = proj[..., lead:lead + ds], proj[..., lead + ds:]
         want_y, want_h = selective_scan_plain(dt, bm, cm, x, a_neg, h0)
         h, hp = h0.clone(), h0.clone()
         got_y, got_h = selective_scan(dt, bm, cm, x, a_neg, h,
@@ -1449,8 +1598,9 @@ def scan_cases(dev) -> list:
         prev_y, prev_h = selective_scan(dt, bm, cm, x, a_neg, hp,
                                         h_out=hp if aliased else None,
                                         _body="cuda_core")
-        shape = {"B": b, "T": t, "DI": di, "DS": ds, "h_in_place": aliased,
-                 "strided_bc": strided}
+        shape = {"model": model, "B": b, "T": t, "DI": di, "DS": ds,
+                 "h_in_place": aliased, "strided_bc": strided,
+                 "lanes": scan_lanes(b, di, ds)}
         h_equal = torch.equal(got_h, prev_h)
         emit({"phase": "kernels", "kernel": "selective_scan",
               "check": "h_T of state_lanes bit-equal to cuda_core's",
@@ -1750,7 +1900,38 @@ def parity(dev) -> list:
                              f"speculate, falcon-mamba and gemma3 runs "
                              f"{gated} must gate it off")
     return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm),
-            *mixtral_parity(dev)]
+            *mixtral_parity(dev), zamba_parity(dev)]
+
+
+#: zamba2-7b's parity cell: full width (d_model 3584, d_inner 7168,
+#: d_state 64, MHA 32 heads of 112), float32, cut to two Mamba2 layers and
+#: two positions of the weight-shared attn block, so that the 2-stage
+#: pipeline's boundary (layer 2) falls between the shared positions
+ZAMBA_PARITY = ("mamba2", "attn", "mamba2", "attn")
+
+
+def zamba_parity(dev) -> dict:
+    """zamba2-7b at ``ZAMBA_PARITY``'s cut, card against CPU on the same
+    CPU-drawn weights: 4 requests of at most 64 tokens, 8 new tokens
+    each, through the paged engine (unquantized and int8: the shared
+    block's seven projections packed, the Mamba2 blocks dense), the slot
+    engine and the paged pipeline (2 stages, round-robin, each stage on
+    the one shared set), as ``_parity_config`` holds them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_config("zamba2-7b"), dtype="float32",
+                              n_layers=len(ZAMBA_PARITY),
+                              block_pattern=ZAMBA_PARITY)
+    params = Model(cfg, device=torch.device("cpu")).init(
+        torch.Generator().manual_seed(SEED))
+    return _parity_config(
+        dev, cfg, "zamba2-7b, 4 layers (mamba2, shared attn, mamba2, "
+                  "shared attn), float32",
+        (("paged", None, None), ("slot", None, None),
+         ("paged", "int8", None), ("pipe_paged", None, None)),
+        _trace(np.random.default_rng(SEED + 15), 4, 20, 64, cfg.vocab_size),
+        128, n_new=8, params_cpu=params)
 
 
 #: mixtral-8x7b's parity cell: full width (d_model 4096, 32/8 heads of
@@ -2003,8 +2184,10 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     the paged prefill for the others) or one batched chunk attention a
     verify round and, packed, 7 quant matmuls (4 attention, 3 MLP; a
     mixture of experts packs only the 4 attention projections: its
-    router and experts stay dense); per Mamba1 layer one rmsnorm and one
-    scan; one final rmsnorm per decode iteration and per verify round.
+    router and experts stay dense); per Mamba1 or Mamba2 layer one
+    rmsnorm and one scan (zamba2-7b's 13 weight-shared attn positions
+    count as 13 attn layers: each launches its own kernels); one final
+    rmsnorm per decode iteration and per verify round.
     Every rmsnorm but the first of a stack takes its residual add as a
     delta (``add_norm``); the final norm takes the last block's.  The
     mixture of experts launches no kernel of the port (routing,
@@ -2014,7 +2197,8 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     n_swa = cfg.block_pattern.count("swa")
     n_ring = n_swa if cfg.window else 0
     n_attn = cfg.block_pattern.count("attn") + n_swa
-    n_mamba = cfg.block_pattern.count("mamba1")
+    n_mamba = (cfg.block_pattern.count("mamba1")
+               + cfg.block_pattern.count("mamba2"))
     n_mlp = n_attn if cfg.mlp_kind != "none" else 0
     n_packed_mlp = n_mlp if cfg.mlp_kind == "dense" else 0
     expect = dict.fromkeys(names, 0)
@@ -2251,8 +2435,12 @@ def serve(dev) -> dict:
     del res, streams, streams_8
     gc.collect()
     torch.cuda.empty_cache()
-    launches.update(serve_pipelined(cfg, kw, slot_kw, prompts[:8], dev,
-                                    mono))
+    from repro_torch.serving.pipeline import (PagedPipelinedEngine,
+                                              PipelinedEngine)
+    launches.update(serve_pipelined(
+        cfg, [(*PIPE_RUNS[0], PagedPipelinedEngine, kw),
+              (*PIPE_RUNS[1], PipelinedEngine, slot_kw)], prompts[:8], dev,
+        mono))
     del mono
     gc.collect()
     torch.cuda.empty_cache()
@@ -2267,6 +2455,9 @@ def serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_mixtral(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_zamba(dev))
     return launches
 
 
@@ -2301,34 +2492,35 @@ def _profile_and_place(eng) -> dict:
             "profile_place_s": time.perf_counter() - t0}
 
 
-def serve_pipelined(cfg, kw, slot_kw, prompts, dev, mono) -> dict:
-    """smollm-360m at full width and depth, bf16, split in 2 core stages
-    over a seeded edge network (``make_network``): ``pipe_paged_bf16``
-    (``PagedPipelinedEngine``) and ``pipe_dense_bf16``
-    (``PipelinedEngine``) on the 8 requests of ``paged_bf16_8`` /
-    ``dense_bf16`` (``mono``: their lines and streams), each after the
-    profile -> place step (``_profile_and_place``).  Each must emit its
-    monolithic run's tokens, launch every kernel as often a decode
-    iteration and a prefill chunk as the monolithic engine does (the
-    formula ``serve_run`` checks, by kernel and body) and peak within 5%
-    of its memory.  Prints each run's stage times, placement, simulated
-    transfer a token, tok/s, peak memory and launches beside the
-    monolithic run's.  Returns each run's launch counts."""
+def serve_pipelined(cfg, runs, prompts, dev, mono, setup=None) -> dict:
+    """A model at full width and depth, bf16, split in 2 core stages over
+    a seeded edge network (``make_network``): each of ``runs`` (name, the
+    monolithic run it must equal, engine class, engine kwargs; for
+    smollm-360m ``pipe_paged_bf16`` with ``PagedPipelinedEngine`` and
+    ``pipe_dense_bf16`` with ``PipelinedEngine``) on the requests of its
+    monolithic run (``mono``: their lines and streams), each after the
+    profile -> place step (``_profile_and_place``) and ``setup(engine)``
+    where given.  Each must emit its monolithic run's tokens, launch
+    every kernel as often a decode iteration and a prefill chunk as the
+    monolithic engine does (the formula ``serve_run`` checks, by kernel
+    and body) and peak within 5% of its memory.  Prints each run's stage
+    times, placement, simulated transfer a token, tok/s, peak memory and
+    launches beside the monolithic run's.  Returns each run's launch
+    counts."""
     import gc
     import torch
     from repro_torch.core.network import make_network
-    from repro_torch.serving.pipeline import (PagedPipelinedEngine,
-                                              PipelinedEngine)
     net = make_network(np.random.default_rng(SEED))
     launches = {}
-    for (name, mono_name), cls, run_kw in zip(
-            PIPE_RUNS, (PagedPipelinedEngine, PipelinedEngine),
-            (kw, slot_kw)):
+
+    def place(eng):
+        return {**_profile_and_place(eng), **(setup(eng) if setup else {})}
+    for name, mono_name, cls, run_kw in runs:
         gc.collect()
         torch.cuda.empty_cache()
         res, streams, eng = serve_run(
             name, cls, cfg, dict(run_kw, n_stages=2, net=net), prompts, dev,
-            setup=_profile_and_place)
+            setup=place)
         del eng
         launches[name] = res["launches"]
         mres, mstreams = mono[mono_name]
@@ -2635,6 +2827,81 @@ def serve_mamba(dev) -> dict:
         dict(max_batch=8, cache_len=1024, prefill_chunk=128, decode_steps=16,
              seed=SEED, device=dev), prompts, dev, ref=ref, params=params)
     launches["mamba_dense_bf16"] = res["launches"]
+    return launches
+
+
+def _shared_views(eng) -> dict:
+    """A pipelined engine's stages against the one weight-shared set of
+    its parameters: every stage's ``blocks["shared"]`` leaf must be the
+    engine's own tensor (no copy), and its bytes are counted once."""
+    shared = eng.params["blocks"]["shared"]
+    leaves = {k: v for k, v in shared["attn"].items()}
+    same = all(st.params["blocks"]["shared"]["attn"][k].data_ptr()
+               == v.data_ptr()
+               for st in eng.stages for k, v in leaves.items())
+    nbytes = sum(a.numel() * a.element_size() for part in shared.values()
+                 for a in part.values())
+    if not same:
+        raise AssertionError(f"{eng.cfg.name}: a pipeline stage holds a "
+                             f"copy of the weight-shared block")
+    return {"shared_set_views": same, "shared_set_bytes": nbytes,
+            "shared_positions_by_stage": [
+                sum(seg.shared for seg in st.segs) for st in eng.stages]}
+
+
+def serve_zamba(dev) -> dict:
+    """zamba2-7b at full width and depth (81 layers: 68 Mamba2 and 13
+    positions of the one weight-shared attn block; about 11.4 GB of bf16
+    weights drawn on the card from the seed): 8 requests of 256-2048
+    tokens, 64 new tokens each, through ``PagedServingEngine``
+    (``zamba_paged_bf16``, profiled in decode and prefill) and
+    ``ServingEngine`` (``zamba_dense_bf16``, its share of tokens equal to
+    the paged run's printed), launches by kernel and body checked
+    exactly (a decode iteration: 95 norms, 13 decode attentions, 68
+    scans; a chunk: 94 norms, 13 paged prefills, 68 scans; every
+    attention launch on ``mma`` at hd 112, every scan on
+    ``state_lanes`` at d_state 64); then ``zamba_pipe_paged_bf16``, the
+    paged run's requests through ``PagedPipelinedEngine`` in 2 stages
+    (layers 0-39 and 40-80, 6 and 7 shared positions), placed by the
+    static tier, which must emit the paged run's tokens and launches at a
+    peak within 5% of its memory, every stage on the engine's one shared
+    set (``_shared_views``).  Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    from repro_torch.serving.pipeline import PagedPipelinedEngine
+    cfg = get_config("zamba2-7b")
+    max_len = ZAMBA["max_len"]
+    kw = dict(max_rows=8, max_len=max_len, block_size=16,
+              prefill_chunk=ZAMBA["C"], decode_steps=16, seed=SEED,
+              device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 16), 8, 256, 2048,
+                     cfg.vocab_size)
+    res, ref, eng = serve_run("zamba_paged_bf16", PagedServingEngine, cfg,
+                              kw, prompts, dev)
+    launches = {"zamba_paged_bf16": res["launches"]}
+    mono = {"zamba_paged_bf16": (res, ref)}
+    profile_decode(cfg, eng.params, kw, dev, label="zamba_paged_bf16",
+                   prompt_len=1100)
+    # no ring to wrap: the 12 chunks of 385-token prompts, as for
+    # smollm-360m and falcon-mamba-7b
+    profile_prefill(cfg, eng.params, kw, dev, label="zamba_paged_bf16")
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "zamba_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=max_len, prefill_chunk=ZAMBA["C"],
+             decode_steps=16, seed=SEED, device=dev), prompts, dev, ref=ref,
+        params=params)
+    launches["zamba_dense_bf16"] = res["launches"]
+    del eng, params, res
+    launches.update(serve_pipelined(
+        cfg, [("zamba_pipe_paged_bf16", "zamba_paged_bf16",
+               PagedPipelinedEngine, kw)], prompts, dev, mono,
+        setup=_shared_views))
     return launches
 
 

@@ -8,15 +8,21 @@ unstacked) — attn blocks with ``ln1.scale``, ``attn.{wq,wk,wv,wo}``,
 ``ln2.scale`` and ``mlp.{w_gate,w_up,w_down}`` (or, for a mixture of
 experts, ``moe.{router,we_gate,we_up,we_down}``), Mamba1 blocks with
 ``ln1.scale`` and ``mamba.{in_proj,conv_w,conv_b,x_proj,dt_proj,
-dt_bias,A_log,D,out_proj}`` — ``blocks.shared`` (None for these
-models) and ``final_norm.scale``.  :func:`params_from_numpy` takes that
-tree as nested dicts and lists of numpy arrays (a caller holding JAX
-arrays maps ``np.asarray`` over it first) and returns the port's
+dt_bias,A_log,D,out_proj}``, Mamba2 blocks with ``ln1.scale`` and
+``mamba.{in_proj,conv_w,conv_b,bc_proj,dt_w,dt_bias,A_log,D,out_proj}`` —
+``blocks.shared`` (the one parameter set of zamba2's weight-shared attn
+block, unstacked, whose positions hold None in ``blocks.segments``; None
+for the other models) and ``final_norm.scale``.
+:func:`params_from_numpy` takes that tree as nested dicts and lists of
+numpy arrays (a caller holding JAX arrays maps ``np.asarray`` over it
+first) and returns the port's
 parameters: the same tree of torch tensors, in the same ``(in, out)``
 orientation, so the bridge copies and never transposes.  Float leaves
 take the model dtype, except those the reference keeps in float32
-whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``, and
-the MoE router, ``moe.F32_LEAVES``), which stay float32.  Projection
+whatever the model dtype (``A_log`` and ``D``, ``ssm.F32_LEAVES``, a
+Mamba2 block's ``dt_bias`` too, and the MoE router,
+``moe.F32_LEAVES``), which stay float32.  The shared set gains the
+port's leading layer dim of 1 and is carried once.  Projection
 weights the reference packed (``quantize_params``) arrive as
 ``{"q", "s"}`` dicts and stay packed:
 ``q`` keeps its int8 / uint8 integers and ``s`` its f32 scales,
@@ -33,7 +39,7 @@ import torch
 
 from repro_torch.models.moe import F32_LEAVES as MOE_F32_LEAVES
 from repro_torch.models.quantize import is_quantized
-from repro_torch.models.ssm import F32_LEAVES
+from repro_torch.models.ssm import F32_LEAVES, MAMBA2_F32_LEAVES
 from repro_torch.models.transformer import build_segments
 
 
@@ -62,32 +68,42 @@ def _map(tree, fn, key=None):
 def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
     """The reference's parameter tree (numpy leaves) as port params."""
     segs = build_segments(cfg)
-    if tree["blocks"].get("shared") is not None:
-        raise NotImplementedError("weight-shared blocks are not ported yet")
     if len(tree["blocks"]["segments"]) != len(segs):
         raise ValueError(f"{len(tree['blocks']['segments'])} segments in the "
                          f"tree, {len(segs)} in {cfg.name}")
 
-    def leaf(a, key=None):
-        if is_quantized(a):
-            return _packed_to_torch(a, device)
-        return _to_torch(a, device,
-                         torch.float32
-                         if key in F32_LEAVES | MOE_F32_LEAVES else dtype)
+    def leaf_as(f32):
+        def leaf(a, key=None):
+            if is_quantized(a):
+                return _packed_to_torch(a, device)
+            return _to_torch(a, device,
+                             torch.float32 if key in f32 else dtype)
+        return leaf
+    leaf = leaf_as(F32_LEAVES | MOE_F32_LEAVES)
 
     def unsqueeze(a, key=None):
         if is_quantized(a):
             return {k: np.asarray(v)[None] for k, v in a.items()}
         return np.asarray(a)[None]
 
-    segments = []
-    for seg, p in zip(segs, tree["blocks"]["segments"]):
-        # a one-layer segment is unstacked in the reference: add the
-        # layer dim so every segment indexes the same way
-        stacked = p if seg.length > 1 else _map(p, unsqueeze)
-        segments.append(_map(stacked, leaf))
+    def block(p, kind, stacked):
+        # a one-layer segment (and the shared set) is unstacked in the
+        # reference: add the layer dim so every segment indexes the
+        # same way
+        f32 = (MAMBA2_F32_LEAVES if kind == "mamba2"
+               else F32_LEAVES | MOE_F32_LEAVES)
+        return _map(p if stacked else _map(p, unsqueeze), leaf_as(f32))
+
+    segments = [None if seg.shared else block(p, seg.kind, seg.length > 1)
+                for seg, p in zip(segs, tree["blocks"]["segments"])]
+    shared = tree["blocks"].get("shared")
+    if (shared is None) != (cfg.shared_block_kind not in cfg.block_pattern):
+        raise ValueError(f"{cfg.name}: the tree's shared set does not fit "
+                         f"shared_block_kind {cfg.shared_block_kind!r}")
+    if shared is not None:
+        shared = block(shared, cfg.shared_block_kind, False)
     out = {"embed": {"w": leaf(tree["embed"]["w"])},
-           "blocks": {"segments": segments, "shared": None},
+           "blocks": {"segments": segments, "shared": shared},
            "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
     if "lm_head" in tree:
         out["lm_head"] = {"w": leaf(tree["lm_head"]["w"])}
@@ -98,7 +114,8 @@ def params_to_numpy(params: dict, cfg) -> dict:
     """Port params as the reference's parameter tree of numpy arrays:
     float leaves as float32 (numpy has no bfloat16; the values are
     exact), packed ``{"q","s"}`` leaves as they are, and a one-layer
-    segment unstacked, as the reference stores it."""
+    segment and the shared set unstacked, as the reference stores
+    them."""
     segs = build_segments(cfg)
 
     def leaf(a, key=None):
@@ -111,12 +128,17 @@ def params_to_numpy(params: dict, cfg) -> dict:
             return {k: v[0] for k, v in a.items()}
         return a[0]
 
-    segments = []
-    for seg, p in zip(segs, params["blocks"]["segments"]):
+    def block(p, stacked):
         tree = _map(p, leaf)
-        segments.append(tree if seg.length > 1 else _map(tree, unstack))
+        return tree if stacked else _map(tree, unstack)
+
+    segments = [None if seg.shared else block(p, seg.length > 1)
+                for seg, p in zip(segs, params["blocks"]["segments"])]
+    shared = params["blocks"]["shared"]
     out = {"embed": {"w": leaf(params["embed"]["w"])},
-           "blocks": {"segments": segments, "shared": None},
+           "blocks": {"segments": segments,
+                      "shared": None if shared is None
+                      else block(shared, False)},
            "final_norm": {"scale": leaf(params["final_norm"]["scale"])}}
     if "lm_head" in params:
         out["lm_head"] = {"w": leaf(params["lm_head"]["w"])}

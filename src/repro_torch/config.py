@@ -13,8 +13,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds understood by the reference model (the port runs "attn",
-# "swa" and "mamba1")
+# Block kinds understood by the reference model (the port runs all but
+# "cross")
 BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
 MLP_KINDS = ("dense", "moe", "none")
 
@@ -128,16 +128,21 @@ class ModelConfig:
         return 3 * self.d_model * self.d_ff
 
     def _mamba_params(self, kind: str) -> int:
-        if kind != "mamba1":
+        if kind not in ("mamba1", "mamba2"):
             raise NotImplementedError(
                 f"{self.name}: block kind {kind!r} is not ported yet")
         d, di, ds = self.d_model, self.d_inner_eff, self.ssm_state
         p = d * 2 * di  # in_proj (x, z)
         p += self.conv_width * di  # depthwise conv
-        dt_rank = max(1, d // 16)
-        p += di * (dt_rank + 2 * ds)  # x_proj -> (dt, B, C)
-        p += dt_rank * di  # dt_proj
-        p += di * ds  # A_log
+        if kind == "mamba1":
+            dt_rank = max(1, d // 16)
+            p += di * (dt_rank + 2 * ds)  # x_proj -> (dt, B, C)
+            p += dt_rank * di  # dt_proj
+            p += di * ds  # A_log
+        else:  # mamba2 (SSD): per-head A, dt; B,C projected from x
+            nh = max(1, di // self.mamba2_headdim)
+            p += d * 2 * ds  # B, C proj (state-space ins)
+            p += nh * 2  # A_log, dt_bias per head
         p += di  # D skip
         p += di * d  # out_proj
         return p + 2 * d  # norms
@@ -153,15 +158,19 @@ class ModelConfig:
         return self._mamba_params(kind)
 
     def _count(self, per_layer) -> int:
-        if self.shared_block_kind or self.is_encoder_decoder:
+        """The embedding, the untied head, the final norm and every
+        layer, the weight-shared block's parameters once."""
+        if self.is_encoder_decoder:
             raise NotImplementedError(
-                f"{self.name}: weight-shared blocks / encoder-decoder are "
-                f"not ported yet")
+                f"{self.name}: encoder-decoder is not ported yet")
         n = self.vocab_size * self.d_model
         if not self.tie_embeddings:
             n += self.vocab_size * self.d_model
         n += self.d_model  # final norm
-        return n + sum(per_layer(b) for b in self.block_pattern)
+        shared = self.shared_block_kind
+        kinds = [b for b in self.block_pattern if b != shared]
+        kinds += [shared] if shared in self.block_pattern else []
+        return n + sum(per_layer(b) for b in kinds)
 
     def num_params(self) -> int:
         """Every parameter (the reference's ``num_params``, over the
@@ -176,6 +185,11 @@ class ModelConfig:
 
 def uniform(kind: str, n: int) -> Tuple[str, ...]:
     return tuple([kind] * n)
+
+
+def every_kth(n: int, base: str, special: str, k: int) -> Tuple[str, ...]:
+    """`special` at layers k-1, 2k-1, ... (0-indexed), `base` elsewhere."""
+    return tuple(special if (i % k) == (k - 1) else base for i in range(n))
 
 
 def local_global(n: int, local: int = 5,

@@ -1,13 +1,15 @@
 """Architecture config registry of the port.
 
 It holds the architectures the port can serve so far: ``smollm-360m``
-(dense attention), ``falcon-mamba-7b`` (Mamba1), ``gemma3-12b``
-(dense attention, 5 sliding-window layers to 1 global), and the
-mixtures of experts ``mixtral-8x7b`` (sliding-window attention, 8
-experts, top-2) and ``kimi-k2-1t-a32b`` (384 experts, top-8).  Other
-architectures join with their families.  ``get_config(arch_id)``
-returns the production :class:`~repro_torch.config.ModelConfig`,
-``get_smoke_config`` the reduced CPU-testable variant.
+(dense attention), ``falcon-mamba-7b`` (Mamba1), ``gemma3-12b`` (dense
+attention, 5 sliding-window layers to 1 global), and the mixtures of
+experts ``mixtral-8x7b`` (sliding-window attention, 8 experts, top-2)
+and ``kimi-k2-1t-a32b`` (384 experts, top-8), and the hybrid
+``zamba2-7b`` (Mamba2 layers with one weight-shared attn block every
+sixth layer).  Other architectures join with their families.
+``get_config(arch_id)`` returns the production
+:class:`~repro_torch.config.ModelConfig`, ``get_smoke_config`` the
+reduced CPU-testable variant.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ _ARCH_MODULES = {
     "gemma3-12b": "gemma3_12b",
     "mixtral-8x7b": "mixtral_8x7b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

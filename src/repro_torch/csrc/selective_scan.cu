@@ -16,8 +16,12 @@
 // * state_lanes (every launch the model makes).  Each (b, d) channel's
 //   d_state values are split across G consecutive lanes of a warp
 //   (G = 4, 8 or 16, kernels/selective_scan.py::scan_lanes), each lane
-//   holding S = ceil(DS / G) consecutive states of h and a in registers
-//   across all T steps.  Lanes run in (b, d, s) order, so a warp's loads
+//   holding S consecutive states of h and a in registers across all T
+//   steps: S = ceil(DS / G), rounded up to one of the instantiated
+//   widths (up to 16 at G 4, 8 at G 8 and 4 at G 16, so d_state up to
+//   64; lanes past DS hold zeros).  B and C are staged in rows of W = 16
+//   floats where G * S <= 16 (every d_state up to 16, as falcon-mamba-7b
+//   runs them) and of 64 otherwise (zamba2-7b's d_state 64).  Lanes run in (b, d, s) order, so a warp's loads
 //   of h0 and a_neg and its store of h_out are whole contiguous segments
 //   (16- or 8-byte vectors when G * S = DS).  The grid covers B * DI * G
 //   threads in blocks of 128: a one-row prefill chunk (B 1, DI 8192) at
@@ -33,8 +37,9 @@
 //   read and written is most of them); instruction issue over a chunk
 //   (an accurate expf and five rounded products and adds per state
 //   element and step, and the staged loads).
-// * cuda_core (the previous body).  One thread per (b, d) channel with
-//   all d_state values of h and a in its registers; B and C staged a tile
+// * cuda_core (the previous body; d_state 1 to 16 and 64).  One thread
+//   per (b, d) channel with all d_state values of h and a in its
+//   registers; B and C staged a tile
 //   of 32 steps at a time in shared memory, with two barriers a tile.  A
 //   warp's state loads lie 64 bytes apart, and a one-row prefill chunk is
 //   64 blocks of 128 threads on 132 SMs.
@@ -133,17 +138,21 @@ cudaError_t launch(const void* dt, const void* bm, const void* cm,
 // ---------------------------------------------------------------------------
 constexpr int kLanesThreads = 128;   // threads per block: 128 / G channels
 constexpr int kLanesTileT = 32;      // steps of dt, x, B, C and y staged
-constexpr int kMaxState = 16;
+constexpr int kMaxState = 64;
 
-// A lane's S consecutive states from p (n of them live, n <= S): one
-// 16- or 8-byte vector when the caller found the rows whole and aligned.
+// A lane's S consecutive states from p (n of them live, n <= S): 16-byte
+// vectors (S a multiple of 4) or one 8-byte vector (S 2) when the caller
+// found the rows whole and aligned.
 template <int S>
 __device__ __forceinline__ void load_lane(float (&v)[S], const float* p,
                                           int n, bool vec) {
-  if constexpr (S == 4) {
+  if constexpr (S % 4 == 0) {
     if (vec) {
-      const float4 q = *reinterpret_cast<const float4*>(p);
-      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+#pragma unroll
+      for (int j = 0; j < S; j += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p + j);
+        v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
+      }
       return;
     }
   } else if constexpr (S == 2) {
@@ -160,9 +169,12 @@ __device__ __forceinline__ void load_lane(float (&v)[S], const float* p,
 template <int S>
 __device__ __forceinline__ void store_lane(float* p, const float (&v)[S],
                                            int n, bool vec) {
-  if constexpr (S == 4) {
+  if constexpr (S % 4 == 0) {
     if (vec) {
-      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+      for (int j = 0; j < S; j += 4)
+        *reinterpret_cast<float4*>(p + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
       return;
     }
   } else if constexpr (S == 2) {
@@ -204,12 +216,15 @@ __device__ __forceinline__ float lane_sum(float v) {
 }
 
 // A lane's S staged values of B or C at step tt (the staged rows are
-// zero past DS, and G * S <= 16, so every lane reads inside the row).
+// zero past DS, and G * S <= W, so every lane reads inside the row).
 template <int S>
 __device__ __forceinline__ void lane_row(float (&v)[S], const float* row) {
-  if constexpr (S == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(row);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  if constexpr (S % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < S; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + j);
+      v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
+    }
   } else if constexpr (S == 2) {
     const float2 q = *reinterpret_cast<const float2*>(row);
     v[0] = q.x; v[1] = q.y;
@@ -228,10 +243,10 @@ __device__ __forceinline__ void lane_row(float (&v)[S], const float* row) {
 // whole as well, with a guard on each step, it doubles the kernel's code,
 // and full 128-step chunks then ran slower between the model's other
 // kernels on the H100, though as fast alone.
-template <int G, int S, bool kFull>
+template <int G, int S, int W, bool kFull>
 __device__ __forceinline__ void tile_steps(
     float (&h)[S], const float (&a)[S], int nt, int c, int s0,
-    const float (*sb)[kMaxState], const float (*sc)[kMaxState],
+    const float (*sb)[W], const float (*sc)[W],
     const float (*sdt)[kLanesThreads / G], const float (*sx)[kLanesThreads / G],
     float (*sp)[kLanesThreads]) {
   if constexpr (kFull) {
@@ -306,10 +321,12 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
     // fetched into registers while this one is computed; each lane's
     // share of y goes to shared memory and is summed in lane order (so
     // in s order) after the tile, with no shuffle chain in the step loop
+    // B and C staged in rows of 16 floats for d_state up to 16, else 64
+    constexpr int kW = G * S <= 16 ? 16 : kMaxState;
     constexpr int kDX = kLanesTileT * kChannels / kLanesThreads;  // dt, x
-    constexpr int kBC = kLanesTileT * kMaxState / kLanesThreads;  // B, C
-    __shared__ __align__(16) float sb[kLanesTileT][kMaxState];
-    __shared__ __align__(16) float sc[kLanesTileT][kMaxState];
+    constexpr int kBC = kLanesTileT * kW / kLanesThreads;         // B, C
+    __shared__ __align__(16) float sb[kLanesTileT][kW];
+    __shared__ __align__(16) float sc[kLanesTileT][kW];
     __shared__ float sdt[kLanesTileT][kChannels];
     __shared__ float sx[kLanesTileT][kChannels];
     __shared__ __align__(16) float sp[kLanesTileT][kLanesThreads];
@@ -329,7 +346,7 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
 #pragma unroll
       for (int k = 0; k < kBC; ++k) {
         const int i = threadIdx.x + k * kLanesThreads;
-        const int tt = i / kMaxState, s = i - tt * kMaxState;
+        const int tt = i / kW, s = i - tt * kW;
         const bool ok = tt < nt && s < DS;
         pb[k] = ok ? bb[(t0 + tt) * bc_st + s] : 0.f;
         pc[k] = ok ? cb[(t0 + tt) * bc_st + s] : 0.f;
@@ -349,15 +366,15 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
 #pragma unroll
       for (int k = 0; k < kBC; ++k) {
         const int i = threadIdx.x + k * kLanesThreads;
-        sb[i / kMaxState][i % kMaxState] = pb[k];
-        sc[i / kMaxState][i % kMaxState] = pc[k];
+        sb[i / kW][i % kW] = pb[k];
+        sc[i / kW][i % kW] = pc[k];
       }
       __syncthreads();
       if (t0 + kLanesTileT < T) fetch(t0 + kLanesTileT);
       if (nt == kLanesTileT)
-        tile_steps<G, S, true>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
+        tile_steps<G, S, kW, true>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
       else
-        tile_steps<G, S, false>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
+        tile_steps<G, S, kW, false>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
       __syncthreads();
       for (int i = threadIdx.x; i < nt * kChannels; i += kLanesThreads) {
         const int tt = i / kChannels, cc = i - tt * kChannels;
@@ -383,12 +400,13 @@ cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
                          long long bc_sb, long long bc_st,
                          cudaStream_t stream) {
   constexpr int kChannels = kLanesThreads / G;
-  // whole rows of G * S states and S-vector-aligned bases: vector loads
+  // whole rows of G * S states and vector-aligned bases: vector loads
+  // (16 bytes for S a multiple of 4, 8 for S 2)
   const size_t bits = reinterpret_cast<size_t>(h0) |
                       reinterpret_cast<size_t>(h_out) |
                       reinterpret_cast<size_t>(a_neg);
-  const bool vec = (S == 2 || S == 4) && DS == G * S &&
-                   (bits & (4 * S - 1)) == 0;
+  const bool vec = (S == 2 || S % 4 == 0) && DS == G * S &&
+                   (bits & (S == 2 ? 7 : 15)) == 0;
   const dim3 grid((DI + kChannels - 1) / kChannels, B);
   auto kernel = T == 1 ? scan_lanes_kernel<G, S, true>
                        : scan_lanes_kernel<G, S, false>;
@@ -406,9 +424,9 @@ cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
 // dt, x, y: (B, T, DI) contiguous f32; B and C: (B, T, DS) f32 with unit
 // stride along DS and element strides bc_sb (batch) and bc_st (time), as a
 // column slice of x_proj's output has; a_neg: (DI, DS); h0, h_out:
-// (B, DI, DS), possibly the same buffer.  DS from 1 to 16.  body:
+// (B, DI, DS), possibly the same buffer.  DS from 1 to 64.  body:
 // rt::kBodyStateLanes with lanes G = 4, 8 or 16, or rt::kBodyCudaCore
-// (lanes unused).
+// (lanes unused; DS 1 to 16 and 64).
 extern "C" int rt_selective_scan(const void* dt, const void* bm,
                                  const void* cm, const void* x,
                                  const void* a_neg, const void* h0, void* y,
@@ -419,15 +437,19 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
   if (B <= 0 || DI <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == rt::kBodyStateLanes) {
-    const int per = (DS + lanes - 1) / lanes;   // states per lane
+    // states per lane: ceil(DS / G), up to the next instantiated width
+    // (a d_state up to 16 takes the widths it always took)
+    const int per = (DS + lanes - 1) / lanes;
 #define RT_LANES_CASE(G, S)                                                  \
-  if (lanes == G && per == S)                                                \
+  if (lanes == G && per <= S)                                                \
     return static_cast<int>(launch_lanes<G, S>(dt, bm, cm, x, a_neg, h0, y,  \
                                                h_out, B, T, DI, DS, bc_sb,   \
                                                bc_st, s));
     RT_LANES_CASE(4, 1) RT_LANES_CASE(4, 2) RT_LANES_CASE(4, 3)
-    RT_LANES_CASE(4, 4) RT_LANES_CASE(8, 1) RT_LANES_CASE(8, 2)
-    RT_LANES_CASE(16, 1)
+    RT_LANES_CASE(4, 4) RT_LANES_CASE(4, 8) RT_LANES_CASE(4, 16)
+    RT_LANES_CASE(8, 1) RT_LANES_CASE(8, 2) RT_LANES_CASE(8, 4)
+    RT_LANES_CASE(8, 8) RT_LANES_CASE(16, 1) RT_LANES_CASE(16, 2)
+    RT_LANES_CASE(16, 4)
 #undef RT_LANES_CASE
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -441,6 +463,7 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
     RT_SCAN_CASE(5) RT_SCAN_CASE(6) RT_SCAN_CASE(7) RT_SCAN_CASE(8)
     RT_SCAN_CASE(9) RT_SCAN_CASE(10) RT_SCAN_CASE(11) RT_SCAN_CASE(12)
     RT_SCAN_CASE(13) RT_SCAN_CASE(14) RT_SCAN_CASE(15) RT_SCAN_CASE(16)
+    RT_SCAN_CASE(64)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

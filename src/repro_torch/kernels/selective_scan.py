@@ -1,21 +1,25 @@
-"""Mamba1 selective scan: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The selective scan: the CUDA kernel's wrapper and its plain PyTorch
+version.
 
 Port of ``repro/kernels/selective_scan.py::selective_scan_pallas``: the
 recurrence ``h = exp(dt·A)·h + (dt·x)⊗B``, ``y_t = Σ_s h·C_t`` over T
 steps in float32, the reference model's ``_mamba1_scan_step`` scanned
 over a prefill chunk (``models/ssm.py::mamba1_seq``) or taken once for
-a decode step (``mamba1_step``, T = 1).  The kernel is
+a decode step (``mamba1_step``, T = 1); Mamba2's recurrence runs through
+it too, its per-head dt and A expanded over the channels
+(``models/ssm.py::_mamba2_scan``).  The kernel is
 ``csrc/selective_scan.cu``, with two bodies:
 
-* ``"state_lanes"`` (every launch the model makes; :func:`scan_body`):
+* ``"state_lanes"`` (every launch the model makes; :func:`scan_body`;
+  d_state 1 to 64):
   each (row, channel)'s d_state values split across G lanes of a warp
   (:func:`scan_lanes` picks G from 4, 8 and 16 so every SM has a
   block), the
   state in registers across the T steps, its loads and stores whole
   contiguous segments, y summed across the lanes by warp shuffles.
-* ``"cuda_core"`` (the previous body, kept to be timed against it): one
-  thread per (row, channel) with all its d_state values.
+* ``"cuda_core"`` (the previous body, kept to be timed against it;
+  d_state 1 to 16 and 64): one thread per (row, channel) with all its
+  d_state values.
 
 Both update each state element with the same operations in the same
 order, so their ``h_T`` are bit-equal; y may differ in its last bits
@@ -38,15 +42,20 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_STATE = 16          # d_state the kernel keeps in registers
+MAX_STATE = 64          # d_state the kernel keeps in registers
+#: the d_state values the previous body (``cuda_core``) was built for
+CUDA_CORE_STATES = frozenset(range(1, 17)) | {64}
 SM_COUNT = 132          # H100 SXM
 SCAN_LANES = (4, 8, 16)   # csrc/selective_scan.cu: G
 SCAN_THREADS = 128        # kLanesThreads: 128 / G channels a block
+#: states a lane holds at most above d_state 16 (where fewer lanes than
+#: that would hold more states each)
+LANE_STATES = 4
 
 
 def scan_body(ds: int) -> str:
     """The scan body a launch takes: ``"state_lanes"`` for every d_state
-    the kernel holds (1..16); any other d_state is refused."""
+    the kernel holds (1..64); any other d_state is refused."""
     if not 1 <= ds <= MAX_STATE:
         raise ValueError(f"selective_scan: d_state {ds} outside "
                          f"1..{MAX_STATE}")
@@ -66,10 +75,18 @@ def scan_lanes(b: int, di: int, ds: int) -> int:
     which takes fewer instructions per state (dt, x, B and C loaded once
     for S states, one y share per lane) and wider state loads: at
     falcon-mamba-7b's shapes G 4 is the fastest at decode (1, 4 and 8
-    rows) and over a chunk (tools/torch_scan_sweep.py).  Shapes only,
-    so the same shapes give the same bits."""
+    rows) and over a chunk (tools/torch_scan_sweep.py).  Above d_state
+    16 that trade turns: a lane of 16 states holds h, A, B and C in 64
+    registers and its tile's y shares besides, so there G is the fewest
+    lanes that hold at most ``LANE_STATES`` states each (zamba2-7b's
+    d_state 64: G 16, about twice as fast as G 4 at decode and 1.2x over
+    a chunk, tools/torch_scan_sweep.py).  Shapes only, so the same
+    shapes give the same bits."""
     cap = max(SCAN_LANES[0], 1 << (max(ds, 1) - 1).bit_length())
     fits = [g for g in SCAN_LANES if g <= cap]
+    if ds > 16:
+        return next((g for g in fits if -(-ds // g) <= LANE_STATES),
+                    fits[-1])
     return next((g for g in fits if scan_blocks(b, di, g) >= SM_COUNT),
                 fits[-1])
 
@@ -102,18 +119,21 @@ def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The selective scan of ``selective_scan_plain``'s signature; on the
     card every tensor is float32, ``dt``, ``x``, ``a_neg``, ``h0`` and
-    ``h_out`` contiguous, and d_state at most 16.  ``_body`` forces a
+    ``h_out`` contiguous, and d_state at most 64.  ``_body`` forces a
     kernel body over :func:`scan_body`'s choice, for timing the bodies
     against each other; the model never passes it."""
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0, h_out)
     bsz, t, di = dt.shape
     ds = a_neg.shape[-1]
-    default = scan_body(ds)       # refuses a d_state outside 1..16
+    default = scan_body(ds)       # refuses a d_state outside 1..64
     body = _body or default
     if body not in _build.bodies["selective_scan"]:
         raise ValueError(f"selective_scan: no kernel body {body!r}; the "
                          f"bodies are {sorted(_build.bodies['selective_scan'])}")
+    if body == "cuda_core" and ds not in CUDA_CORE_STATES:
+        raise ValueError(f"selective_scan: the cuda_core body takes d_state "
+                         f"1..16 and 64, not {ds}")
     if h_out is None:
         h_out = torch.empty_like(h0)
     named = {"dt": dt, "b_mat": b_mat, "c_mat": c_mat, "x": x,

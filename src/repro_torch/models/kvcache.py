@@ -2,20 +2,22 @@
 ledger with its torch pools.
 
 Port of ``repro/models/kvcache.py`` for the block kinds the port runs
-(``attn``, ``swa`` and ``mamba1``).  :func:`cache_struct` builds the
-slot engines' dense caches per segment: ``{"k","v"}`` of ``(n_layers,
-batch, seq_len, kv_heads, hd)`` for attn, ``min(window, seq_len)``
-slots instead of ``seq_len`` for a sliding-window ring, ``{"h","conv"}``
-of ``(n_layers, batch, d_inner, d_state)`` f32 and ``(n_layers, batch,
-W-1, d_inner)`` for Mamba1.  The host-side ledger :class:`PagedCache`
-is the reference's attn and swa groups (free lists, the attn group's
-refcounts and copy-on-write prefix index, ``check()``, and the
-versioned ``meta()`` snapshot, which here returns int32 tensors on the
-ledger's device); the reference's cross-KV blocks join with the
-families that have them.  :meth:`PagedCache.struct` builds torch pools
-``(n_layers, num_blocks + 1, block_size, kv_heads, hd)`` per attn
-segment, ``(n_layers, max_rows * nb_swa + 1, block_size, kv_heads,
-hd)`` per ring segment and ``max_rows`` state rows per Mamba1
+(``attn``, ``swa``, ``mamba1`` and ``mamba2``).  :func:`cache_struct`
+builds the slot engines' dense caches per segment: ``{"k","v"}`` of
+``(n_layers, batch, seq_len, kv_heads, hd)`` for attn, ``min(window,
+seq_len)`` slots instead of ``seq_len`` for a sliding-window ring,
+``{"h","conv"}`` of ``(n_layers, batch, d_inner, d_state)`` f32 (Mamba2:
+``(n_layers, batch, n_heads, headdim, d_state)``, the same elements by
+head) and ``(n_layers, batch, W-1, d_inner)`` for a Mamba layer; a
+weight-shared attn position is a segment of its own, with its own cache.
+The host-side ledger :class:`PagedCache` is the reference's attn and swa
+groups (free lists, the attn group's refcounts and copy-on-write prefix
+index, ``check()``, and the versioned ``meta()`` snapshot, which here
+returns int32 tensors on the ledger's device); the reference's cross-KV
+blocks join with the families that have them.  :meth:`PagedCache.struct`
+builds torch pools ``(n_layers, num_blocks + 1, block_size, kv_heads,
+hd)`` per attn segment, ``(n_layers, max_rows * nb_swa + 1, block_size,
+kv_heads, hd)`` per ring segment and ``max_rows`` state rows per Mamba
 segment.
 
 Caches and pools are **updated in place** — by the model's KV and
@@ -49,18 +51,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import (build_segments, check_supported,
-                                            segment_range)
+from repro_torch.models.transformer import (MAMBA_KINDS, build_segments,
+                                            check_supported, segment_range)
 
 
 def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
     """One segment's dense cache leaves for ``rows`` rows: name ->
-    (shape, dtype).  A Mamba1 layer's ``h`` is float32 whatever the
-    model dtype; a sliding-window ring keeps ``min(window, seq_len)``
-    slots."""
-    if seg.kind == "mamba1":
+    (shape, dtype).  A Mamba layer's ``h`` is float32 whatever the
+    model dtype (Mamba2's by head: ``(nh, headdim, d_state)``); a
+    sliding-window ring keeps ``min(window, seq_len)`` slots."""
+    if seg.kind in MAMBA_KINDS:
         di, ds = cfg.d_inner_eff, cfg.ssm_state
-        return {"h": ((seg.length, rows, di, ds), torch.float32),
+        state = ((di, ds) if seg.kind == "mamba1" else
+                 (di // cfg.mamba2_headdim, cfg.mamba2_headdim, ds))
+        return {"h": ((seg.length, rows, *state), torch.float32),
                 "conv": ((seg.length, rows, cfg.conv_width - 1, di), dtype)}
     if seg.kind == "swa" and cfg.window:
         seq_len = min(cfg.window, seq_len)
@@ -80,7 +84,7 @@ def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda",
     """Dense slot caches, one dict per segment (the reference's
     ``cache_struct``): ``{"k","v"}`` leaves ``(n_layers, batch,
     seq_len, kv_heads, hd)`` for attn (``min(window, seq_len)`` slots
-    for a ring), ``{"h","conv"}`` for Mamba1 (``h`` in float32),
+    for a ring), ``{"h","conv"}`` for Mamba (``h`` in float32),
     zero-filled on ``device``.  ``layers=(lo, hi)`` restricts them to
     that decoder layer range (a pipeline stage's slice, aligned with
     ``transformer.segment_range``).  The model writes them in place."""
@@ -177,7 +181,8 @@ class PagedCache:
         # prefix sharing: only the attn pool is content-addressed (SSM
         # state and the SWA ring are per-request state a skipped prefill
         # would not rebuild)
-        self.sharing_supported = not (self.has_swa or "mamba1" in kinds)
+        self.sharing_supported = not (self.has_swa
+                                      or kinds & set(MAMBA_KINDS))
         self.share_prefixes = bool(share_prefixes) and self.sharing_supported
         # per-block owner count; a block is free iff refcount 0
         self._ref = np.zeros(self.num_blocks + 1, np.int32)
@@ -220,7 +225,7 @@ class PagedCache:
         leaves ``{"k","v"}`` are ``(n_layers, num_blocks + 1,
         block_size, kv_heads, hd)`` pools (+1 for the scratch block),
         ring leaves the same with ``max_rows * nb_swa + 1`` blocks,
-        Mamba1 leaves ``{"h","conv"}`` keep ``max_rows`` state rows;
+        Mamba leaves ``{"h","conv"}`` keep ``max_rows`` state rows;
         zero-filled torch tensors, written in place by the model.
         ``device`` defaults to the ledger's own (``"cuda"`` unless
         given).
@@ -230,7 +235,7 @@ class PagedCache:
         block = (self.block_size, cfg.n_kv_heads, cfg.head_dim)
         caches = []
         for seg in _segments(cfg, layers):
-            if seg.kind == "mamba1":
+            if seg.kind in MAMBA_KINDS:
                 c = {name: torch.zeros(shape, dtype=dt, device=dev)
                      for name, (shape, dt)
                      in _leaves(cfg, seg, self.max_rows, 0, dtype).items()}
@@ -551,7 +556,7 @@ def paged_reset_row(caches, segs, row: int):
     family).  Attn and swa pools are untouched: stale KV is
     position-masked."""
     for seg, c in zip(segs, caches):
-        if seg.kind == "mamba1":
+        if seg.kind in MAMBA_KINDS:
             for a in c.values():
                 a[:, row] = 0
     return caches

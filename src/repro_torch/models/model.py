@@ -2,7 +2,7 @@
 head (tied, or an untied ``lm_head``).
 
 Port of the serving API of ``repro/models/model.py`` for attention
-decoders and Mamba1 models::
+decoders, Mamba1 models and the Mamba2 / weight-shared attn hybrid::
 
     m = Model(cfg, qformat=None, device="cuda")
     params = m.init(generator)                                  # or bridge
@@ -308,12 +308,12 @@ class Model:
 def row_views(caches, segs, row: int, *, paged: bool) -> list:
     """The caches one request's prefill chunk reads and writes: views of
     batch row ``row`` of every dense cache leaf (the reference's
-    ``row_isolated``), or, over paged pools (``paged``), of the Mamba1
+    ``row_isolated``), or, over paged pools (``paged``), of the Mamba
     state rows only (``ssm_row_isolated``; the pools are reached through
     the request's block tables).  Written in place, so every other row
     stays bit-untouched."""
     return [{name: a[:, row:row + 1] for name, a in c.items()}
-            if not paged or seg.kind == "mamba1" else c
+            if not paged or seg.kind in tfm.MAMBA_KINDS else c
             for seg, c in zip(segs, caches)]
 
 

@@ -1,14 +1,25 @@
-"""Mamba1 blocks.
+"""Mamba1 and Mamba2 blocks.
 
-Port of the Mamba1 half of ``repro/models/ssm.py`` for the serving
-modes: ``mamba1_seq`` runs a prefill chunk (resuming from a carried
-state), ``mamba1_step`` one decode step.  Both run their recurrence
-through the selective-scan kernel's wrapper
+Port of ``repro/models/ssm.py`` for the serving modes: ``mamba1_seq``
+/ ``mamba2_seq`` run a prefill chunk (resuming from a carried state),
+``mamba1_step`` / ``mamba2_step`` one decode step.  All four run their
+recurrence through the selective-scan kernel's wrapper
 (``kernels/selective_scan.py``); a decode step is the scan at T = 1,
-which computes exactly the reference's ``_mamba1_scan_step``.  Where
-the reference returns new states, the port writes them **in place**
-into the caller's ``h`` and ``conv`` tensors (the model's cache rows)
-and returns those.  Mamba2 is not ported yet.
+which computes exactly the reference's ``_mamba1_scan_step``.
+
+Mamba2's recurrence (the reference's ``_mamba2_scan_step``: a scalar
+``A`` and ``dt`` per head of ``mamba2_headdim`` channels, ``B`` and
+``C`` shared by every head) is Mamba1's under two expansions, which
+:func:`_mamba2_scan` makes before it calls the same kernel: ``dt``
+repeated over each head's channels, and ``A`` over the channels and
+d_state.  The decay ``exp(dt·a)``, the increment ``(dt·x)·B`` and
+``y = Σ_s h·C`` are then the same operations on the same values; the
+per-head ``D`` is expanded the same way.  Its state ``(B, nh, headdim,
+d_state)`` is the kernel's ``(B, d_inner, d_state)`` viewed by head.
+
+Where the reference returns new states, the port writes them **in
+place** into the caller's ``h`` and ``conv`` tensors (the model's cache
+rows) and returns those.
 """
 from __future__ import annotations
 
@@ -20,6 +31,8 @@ from repro_torch.models.layers import _dense_init
 
 #: leaves the reference keeps in float32 whatever the model dtype
 F32_LEAVES = frozenset({"A_log", "D"})
+#: the same for a Mamba2 block, whose per-head ``dt_bias`` is float32 too
+MAMBA2_F32_LEAVES = F32_LEAVES | {"dt_bias"}
 
 
 def _causal_conv(x, conv_w, conv_b, conv_state=None):
@@ -83,10 +96,11 @@ def _mamba1_inner(params, x_c, cfg):
     return dt, b_mat, c_mat
 
 
-def _gate_out(params, y, x32, z, dtype):
+def _gate_out(params, y, x32, z, dtype, d_skip=None):
     """``(y + D·x) · silu(z)`` in float32, cast to the model dtype, then
-    the output projection."""
-    y = y + params["D"] * x32
+    the output projection; ``d_skip`` replaces ``params["D"]`` (Mamba2's
+    per-head D expanded over the channels)."""
+    y = y + (params["D"] if d_skip is None else d_skip) * x32
     y = (y * F.silu(z.to(torch.float32))).to(dtype)
     return y @ params["out_proj"]
 
@@ -144,4 +158,96 @@ def mamba1_step(params, x, state, cfg):
     x32 = x_c.to(torch.float32)
     y, h = selective_scan(dt, b_mat, c_mat, x32, a_neg, h, h_out=h)
     out = _gate_out(params, y, x32, z[:, None, :], x.dtype)
+    return out, (h, conv_state)
+
+
+# ----------------------------------------------------------------------
+# Mamba 2 (SSD with scalar A per head)
+# ----------------------------------------------------------------------
+def mamba2_init(generator, cfg, dtype, device, n: int) -> dict:
+    """``n`` stacked Mamba2 layers (the reference's ``mamba2_init`` with
+    a leading layer dim): ``dt_bias`` (-2), ``A_log`` (0) and ``D`` (1)
+    per head, in float32."""
+    d, di, ds = cfg.d_model, cfg.d_inner_eff, cfg.ssm_state
+    nh = max(1, di // cfg.mamba2_headdim)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": _dense_init(generator, (n, d, 2 * di), dtype, device),
+        "conv_w": _dense_init(generator, (n, cfg.conv_width, di), dtype,
+                              device, scale=0.5),
+        "conv_b": torch.zeros((n, di), dtype=dtype, device=device),
+        "bc_proj": _dense_init(generator, (n, d, 2 * ds), dtype, device),
+        "dt_w": _dense_init(generator, (n, d, nh), dtype, device),
+        "dt_bias": torch.full((n, nh), -2.0, **f32),
+        "A_log": torch.zeros((n, nh), **f32),
+        "D": torch.ones((n, nh), **f32),
+        "out_proj": _dense_init(generator, (n, di, d), dtype, device),
+    }
+
+
+def _mamba2_inner(params, x, cfg):
+    """Per-step SSM inputs from the block input x (B,T,D): dt (B,T,nh)
+    float32 (the softplus in float32), and B and C (B,T,ds) float32,
+    column slices of one projection."""
+    ds = cfg.ssm_state
+    bc = (x @ params["bc_proj"]).to(torch.float32)
+    dt = F.softplus((x @ params["dt_w"]).to(torch.float32)
+                    + params["dt_bias"])
+    return dt, bc[..., :ds], bc[..., ds:]
+
+
+def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg):
+    """The Mamba2 recurrence through the selective-scan kernel: dt
+    (B,T,nh) repeated over each head's channels, ``-exp(A_log)`` over
+    the channels and d_state, and the state ``h`` (B,nh,headdim,ds)
+    viewed as (B,di,ds) and updated in place.  Returns (y (B,T,di) f32,
+    D expanded over the channels)."""
+    hd, ds = cfg.mamba2_headdim, cfg.ssm_state
+    bsz, _, nh = dt.shape
+    di = nh * hd
+    a_neg = -torch.exp(params["A_log"])
+    a_c = a_neg.repeat_interleave(hd)[:, None].expand(di, ds).contiguous()
+    h3 = h.view(bsz, di, ds)
+    y, _ = selective_scan(dt.repeat_interleave(hd, dim=-1), b_mat, c_mat,
+                          x32, a_c, h3, h_out=h3)
+    return y, params["D"].repeat_interleave(hd)
+
+
+def mamba2_seq(params, x, cfg, h0=None, conv_state=None):
+    """A chunk. x: (B,T,D) -> (out, (h_T, conv_state_T)).
+
+    ``h0`` (B,nh,headdim,ds) f32 and ``conv_state`` (B,W-1,di) resume
+    the recurrence and are updated in place, as in :func:`mamba1_seq`;
+    None means start-of-sequence zeros (fresh tensors are returned)."""
+    b = x.shape[0]
+    di, ds, hd = cfg.d_inner_eff, cfg.ssm_state, cfg.mamba2_headdim
+    xz = x @ params["in_proj"]
+    x_i, z = torch.split(xz, di, dim=-1)
+    x_c = F.silu(_causal_conv(x_i, params["conv_w"], params["conv_b"],
+                              conv_state))
+    dt, b_mat, c_mat = _mamba2_inner(params, x, cfg)
+    x32 = x_c.to(torch.float32)
+    if h0 is None:
+        h0 = torch.zeros((b, di // hd, hd, ds), dtype=torch.float32,
+                         device=x.device)
+    y, d_skip = _mamba2_scan(params, dt, b_mat, c_mat, x32, h0, cfg)
+    out = _gate_out(params, y, x32, z, x.dtype, d_skip)
+    return out, (h0, _next_conv_state(x_i, conv_state, cfg))
+
+
+def mamba2_step(params, x, state, cfg):
+    """A decode step. x: (B,1,D); state = (h (B,nh,headdim,ds) f32, conv
+    (B,W-1,di)), both updated in place.  Returns (out (B,1,D), state)."""
+    h, conv_state = state
+    di = cfg.d_inner_eff
+    xz = (x @ params["in_proj"])[:, 0]
+    x_i, z = torch.split(xz, di, dim=-1)                   # (B, di)
+    x_c, nxt = _conv_step(conv_state, x_i, params["conv_w"],
+                          params["conv_b"])
+    conv_state.copy_(nxt)
+    x_c = F.silu(x_c)[:, None, :]                          # (B, 1, di)
+    dt, b_mat, c_mat = _mamba2_inner(params, x, cfg)
+    x32 = x_c.to(torch.float32)
+    y, d_skip = _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg)
+    out = _gate_out(params, y, x32, z[:, None, :], x.dtype, d_skip)
     return out, (h, conv_state)

@@ -1,9 +1,10 @@
 """Blocks and segment stacking.
 
 Port of ``repro/models/transformer.py`` for ``attn``, ``swa``
-(sliding-window attention; the same leaves and MLP as ``attn``) and
-``mamba1`` blocks in the ``decode`` and ``chunk`` modes, over paged pools
-(``paged`` given) or dense slot caches (``paged=None``).  The MLP after
+(sliding-window attention; the same leaves and MLP as ``attn``),
+``mamba1`` and ``mamba2`` blocks in the ``decode`` and ``chunk`` modes,
+over paged pools (``paged`` given) or dense slot caches
+(``paged=None``).  The MLP after
 an attention block is SwiGLU (``mlp_kind="dense"``) or the
 capacity-routed mixture of experts of ``models/moe.py``
 (``mlp_kind="moe"``, serving modes only).  A model is a
@@ -13,7 +14,13 @@ Where the reference scans a segment with ``lax.scan``, the port runs a
 Python loop over its layers, handing each layer views of its weights
 (packed quant leaves included: ``_layer`` recurses into their
 ``{"q","s"}`` dicts) and of its slice of the in-place updated caches
-(KV pools or rows, or a Mamba1 layer's ``h`` / ``conv`` state).
+(KV pools or rows, or a Mamba layer's ``h`` / ``conv`` state).
+
+Weight-shared blocks (zamba2's ``shared_block_kind``): every position
+of that kind is a one-layer segment of its own, with its own cache, and
+all of them run the one parameter set ``blocks["shared"]`` (a leading
+layer dim of 1, as every port segment has), drawn once; its entry in
+``blocks["segments"]`` is None, as in the reference.
 
 In ``train`` mode (``attn`` and ``swa`` blocks over a whole sequence, no
 cache) each block runs under ``torch.utils.checkpoint`` (non-reentrant),
@@ -36,7 +43,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
 MODES = ("decode", "chunk", "train")
-KINDS = ("attn", "swa", "mamba1")   # block kinds the port runs
+KINDS = ("attn", "swa", "mamba1", "mamba2")   # block kinds the port runs
+MAMBA_KINDS = ("mamba1", "mamba2")
 
 
 @dataclass(frozen=True)
@@ -64,20 +72,19 @@ def _has_mlp(kind: str, cfg) -> bool:
 def check_supported(cfg, mode: Optional[str] = None) -> None:
     """Raise for configurations whose blocks the port cannot run yet (in
     ``mode``, where given)."""
-    if mode == "train" and "mamba1" in cfg.block_pattern:
+    if mode == "train" and any(k in MAMBA_KINDS for k in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: Mamba1 training is not ported yet (ROADMAP Queue "
-            f"1 item 9: the selective scan's gradient)")
+            f"{cfg.name}: training of Mamba blocks is not ported yet "
+            f"(ROADMAP Queue 1 item 5: the selective scan's gradient)")
     for seg in build_segments(cfg):
-        if seg.kind not in KINDS or seg.shared:
+        if seg.kind not in KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: block kind {seg.kind!r}"
-                f"{' (weight-shared)' if seg.shared else ''} is not "
-                f"ported yet; the port runs {KINDS} blocks")
+                f"{cfg.name}: block kind {seg.kind!r} is not ported yet; "
+                f"the port runs {KINDS} blocks")
     if mode == "train" and cfg.mlp_kind == "moe":
         raise NotImplementedError(
             f"{cfg.name}: MoE training is not ported yet (ROADMAP Queue 1 "
-            f"item 9: the MoE aux loss in Model.forward)")
+            f"item 5: the MoE aux loss in Model.forward)")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder is not ported yet")
@@ -118,10 +125,12 @@ def slice_blocks(blocks: dict, cfg, lo: int, hi: int) -> dict:
     The result aligns with :func:`segment_range` and holds *only* the
     stage's parameters, as views of the stacked tensors (a one-layer
     slice keeps its leading layer dim, as every segment of the port
-    does): a pipeline stage sliced this way owns nothing outside its
-    layer range, and the stages together hold no second copy of any
-    weight."""
-    return {"segments": [_layer(blocks["segments"][i], slice(a, b))
+    does), plus the shared set, the same tensors in every stage: a
+    pipeline stage sliced this way owns nothing outside its layer range,
+    and the stages together hold no second copy of any weight."""
+    segments = blocks["segments"]
+    return {"segments": [None if segments[i] is None
+                         else _layer(segments[i], slice(a, b))
                          for i, a, b in segment_slices(cfg, lo, hi)],
             "shared": blocks["shared"]}
 
@@ -135,6 +144,8 @@ def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
         p["attn"] = attn_mod.attention_init(generator, cfg, dtype, device, n)
     elif kind == "mamba1":
         p["mamba"] = ssm_mod.mamba1_init(generator, cfg, dtype, device, n)
+    elif kind == "mamba2":
+        p["mamba"] = ssm_mod.mamba2_init(generator, cfg, dtype, device, n)
     else:
         raise NotImplementedError(kind)
     if _has_mlp(kind, cfg) and cfg.mlp_kind == "moe":
@@ -151,30 +162,39 @@ def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
 
 
 def init_segments(generator, cfg, dtype, device) -> dict:
-    return {"segments": [block_init(generator, seg.kind, cfg, dtype, device,
-                                    seg.length)
-                         for seg in build_segments(cfg)],
-            "shared": None}
+    """Every segment's stacked layers, and the weight-shared block's one
+    layer, drawn once (None where no kind is shared)."""
+    segments, shared = [], None
+    for seg in build_segments(cfg):
+        if seg.shared:
+            if shared is None:
+                shared = block_init(generator, seg.kind, cfg, dtype, device,
+                                    1)
+            segments.append(None)
+        else:
+            segments.append(block_init(generator, seg.kind, cfg, dtype,
+                                       device, seg.length))
+    return {"segments": segments, "shared": shared}
 
 
 def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
                 pos=None, cache: Optional[dict] = None,
                 paged: Optional[dict] = None,
                 qformat: Optional[str] = None, positions=None):
-    """Apply one ``attn``, ``swa`` or ``mamba1`` block to the residual
-    stream ``x`` plus ``delta``, the previous block's output not yet added
-    to it (None before the first block).  ``pos`` is a (B,) int32 tensor in
-    decode mode; in chunk mode an ``int`` (one request's prefill chunk)
-    or a (B,) tensor (B rows at their own positions, the draft-verify
-    round), which the attention passes on to its kernels without reading
-    it on the host.  In train mode ``positions`` (B|1, S) are the
-    rotary positions of a whole sequence and there is no cache.
-    ``cache`` holds this layer's
-    pools (``paged`` given: the block tables) or dense cache rows
-    (``paged=None``), or a Mamba1 layer's ``h`` / ``conv`` state rows;
+    """Apply one ``attn``, ``swa``, ``mamba1`` or ``mamba2`` block to
+    the residual stream ``x`` plus ``delta``, the previous block's output
+    not yet added to it (None before the first block).  ``pos`` is a
+    (B,) int32 tensor in decode mode; in chunk mode an ``int`` (one
+    request's prefill chunk) or a (B,) tensor (B rows at their own
+    positions, the draft-verify round), which the attention passes on to
+    its kernels without reading it on the host.  In train mode
+    ``positions`` (B|1, S) are the rotary positions of a whole sequence
+    and there is no cache.  ``cache`` holds this layer's pools
+    (``paged`` given: the block tables) or dense cache rows
+    (``paged=None``), or a Mamba layer's ``h`` / ``conv`` state rows;
     each is written in place.  ``qformat`` tags the weight format the
     params were packed to; dispatch is structural (``qdot`` routes on
-    packed leaf or tensor, and Mamba1 weights are never packed), so the
+    packed leaf or tensor, and Mamba weights are never packed), so the
     tag only travels with the call, as in the reference.
 
     Each residual add the reference makes (``x + a``) is fused into the
@@ -188,14 +208,15 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
         h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     else:
         x, h = add_rmsnorm(params["ln1"], x, delta, cfg.norm_eps)
-    if kind == "mamba1":
+    if kind in MAMBA_KINDS:
+        step, seq = ((ssm_mod.mamba1_step, ssm_mod.mamba1_seq)
+                     if kind == "mamba1"
+                     else (ssm_mod.mamba2_step, ssm_mod.mamba2_seq))
         if mode == "decode":
-            a, _ = ssm_mod.mamba1_step(params["mamba"], h,
-                                       (cache["h"], cache["conv"]), cfg)
+            a, _ = step(params["mamba"], h, (cache["h"], cache["conv"]), cfg)
         else:
-            a, _ = ssm_mod.mamba1_seq(params["mamba"], h, cfg,
-                                      h0=cache["h"],
-                                      conv_state=cache["conv"])
+            a, _ = seq(params["mamba"], h, cfg, h0=cache["h"],
+                       conv_state=cache["conv"])
     elif mode == "train":
         a, _ = attn_mod.self_attention(params["attn"], h, positions, cfg,
                                        kind)
@@ -245,7 +266,8 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
                    paged: Optional[dict] = None,
                    qformat: Optional[str] = None, positions=None,
                    delta=None):
-    """Run every layer in order.  ``caches`` is the per-segment list of
+    """Run every layer in order, a weight-shared segment on
+    ``blocks["shared"]``.  ``caches`` is the per-segment list of
     ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
     with a leading layer dim; each layer writes its slice in place, so
     the list needs no rebuilding.  In train mode there are no caches:
@@ -256,8 +278,10 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
     Returns (x, delta): the residual stream and the last block's output,
     not yet added to it (the caller fuses that add into the final norm,
     or adds it, or hands the pair to the next stage)."""
+    seg_params = [blocks["shared"] if seg.shared else p
+                  for seg, p in zip(segs, blocks["segments"])]
     if mode == "train":
-        for seg, params in zip(segs, blocks["segments"]):
+        for seg, params in zip(segs, seg_params):
             block = functools.partial(block_apply, kind=seg.kind, cfg=cfg,
                                       mode=mode, positions=positions,
                                       qformat=qformat)
@@ -266,7 +290,7 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
                                       use_reentrant=False,
                                       preserve_rng_state=False)
         return x, delta
-    for seg, params, cache in zip(segs, blocks["segments"], caches):
+    for seg, params, cache in zip(segs, seg_params, caches):
         for j in range(seg.length):
             x, delta = block_apply(_layer(params, j), x, delta,
                                    kind=seg.kind, cfg=cfg, mode=mode,

@@ -16,7 +16,7 @@ engine iteration is then one verify round, in which every live row's
 next input and K drafts run through ``Model.verify_steps`` as one chunk
 of K + 1 tokens, and the row advances by its accepted length plus one.
 It is gated off, as in the reference, on models whose state cannot be
-rolled back by position (Mamba1), which then decode as usual.
+rolled back by position (Mamba), which then decode as usual.
 
 The decode hot loop is device-resident: every engine iteration runs one
 macro-step of up to ``decode_steps`` (K) greedy decode iterations

@@ -58,7 +58,7 @@ from repro_torch.models.kvcache import (PagedCache, paged_copy_blocks,
                                         paged_reset_row)
 from repro_torch.models.model import row_views
 from repro_torch.models.quantize import bytes_per_param
-from repro_torch.models.transformer import segment_range
+from repro_torch.models.transformer import MAMBA_KINDS, segment_range
 from repro_torch.serving.engine import (_PagedEngine, _SlotEngine, _batch,
                                         _build_model, _to_device,
                                         reset_cache_row)
@@ -167,9 +167,9 @@ class _CoreStage:
         request: the live KV pools (the profile's tables point at the
         scratch block) or dense caches (whose slot 0, the one a pos-0
         step writes, :meth:`_NetShimMixin.profile` restores), and fresh
-        zero state for each Mamba1 segment."""
+        zero state for each Mamba segment."""
         return [{n: torch.zeros_like(a) for n, a in c.items()}
-                if seg.kind == "mamba1" else c
+                if seg.kind in MAMBA_KINDS else c
                 for seg, c in zip(self.segs, self.caches)]
 
 
@@ -238,7 +238,7 @@ class _NetShimMixin:
         leaves every live request untouched: paged steps run on tables
         that point every row at the scratch block, dense steps write
         slot 0 of every row, which is saved first and restored after,
-        and Mamba1 segments step fresh zero state."""
+        and Mamba segments step fresh zero state."""
         out = {}
         b, d = self.batch_width, self.cfg.d_model
         dev, dtype = self.device, self.model.dtype

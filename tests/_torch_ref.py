@@ -3,7 +3,8 @@ matching smoke configs for the JAX package and the port, the JAX
 model's parameters carried into the port through numpy, and the pieces
 the wiring tests of the fused residual add need (a count of the model's
 norm calls, the block composed as it was before the fusion, and
-``chip_smoke.py``'s launch formula)."""
+``chip_smoke.py``'s launch formula).  Importing it caps torch's threads
+at ``TORCH_THREADS``."""
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -16,6 +17,12 @@ from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build_model
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config as torch_smoke
+
+#: torch's intra-op threads in a test process of the port: the suite runs
+#: in several xdist workers on one box, where torch's default of a thread
+#: per core in every worker oversubscribes the cores
+TORCH_THREADS = 1
+torch.set_num_threads(TORCH_THREADS)
 
 #: the smoke reduction makes smollm MHA (4 heads over 4 KV heads); the
 #: GQA variant keeps G = 3 query heads per KV head, as the full model has
@@ -83,12 +90,14 @@ def unfused_block_apply(params, x, delta=None, *, kind, cfg, mode, pos,
     from repro_torch.models.layers import mlp
     assert delta is None
     h = rmsnorm_plain(x, params["ln1"]["scale"], cfg.norm_eps)
-    if kind == "mamba1" and mode == "decode":
-        a, _ = ssm_mod.mamba1_step(params["mamba"], h,
-                                   (cache["h"], cache["conv"]), cfg)
-    elif kind == "mamba1":
-        a, _ = ssm_mod.mamba1_seq(params["mamba"], h, cfg, h0=cache["h"],
-                                  conv_state=cache["conv"])
+    if kind in ("mamba1", "mamba2"):
+        step, seq = ((ssm_mod.mamba1_step, ssm_mod.mamba1_seq)
+                     if kind == "mamba1"
+                     else (ssm_mod.mamba2_step, ssm_mod.mamba2_seq))
+        a, _ = (step(params["mamba"], h, (cache["h"], cache["conv"]), cfg)
+                if mode == "decode" else
+                seq(params["mamba"], h, cfg, h0=cache["h"],
+                    conv_state=cache["conv"]))
     elif mode == "decode" and paged is None:
         a, _ = attn_mod.decode_self_attention(params["attn"], h, cache, pos,
                                               cfg, kind)

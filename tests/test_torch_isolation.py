@@ -73,18 +73,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_architectures_refuse():
-    """Kinds the port does not run yet refuse at construction: a Mamba2
-    block (beside a Mamba1 one) and an encoder-decoder; MoE MLPs serve
-    but refuse to train."""
+    """Kinds the port does not run yet refuse at construction: a
+    cross-attention block (beside an attn one) and an encoder-decoder;
+    MoE MLPs and Mamba blocks serve but refuse to train."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import Model
-    mamba = get_smoke_config("falcon-mamba-7b")
     smollm = get_smoke_config("smollm-360m")
-    for cfg in (dataclasses.replace(mamba, block_pattern=("mamba1", "mamba2")),
+    for cfg in (dataclasses.replace(smollm, block_pattern=("attn", "cross")),
                 dataclasses.replace(smollm, is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):
             Model(cfg, device="cpu")
+    zamba = Model(get_smoke_config("zamba2-7b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="Mamba"):
+        zamba.forward(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
     moe = Model(dataclasses.replace(smollm, mlp_kind="moe", n_experts=4,
                                     experts_per_token=2), device="cpu")
     with pytest.raises(NotImplementedError):

@@ -55,7 +55,7 @@ from repro_torch.kernels.rmsnorm import (  # noqa: E402
     norm_lanes, norm_pack, rmsnorm, rmsnorm_plain)
 from repro_torch.kernels import selective_scan as scan_mod  # noqa: E402
 from repro_torch.kernels.selective_scan import (  # noqa: E402
-    MAX_STATE, SCAN_LANES, scan_blocks, scan_body, scan_lanes,
+    LANE_STATES, MAX_STATE, SCAN_LANES, scan_blocks, scan_body, scan_lanes,
     selective_scan, selective_scan_plain)
 from repro_torch.models.quantize import (  # noqa: E402
     int4_group, quantize_int4, quantize_int8)
@@ -688,31 +688,43 @@ def test_selective_scan_plain_reads_strided_b_and_c():
     (4, 8192, 16),
     (2, 300, 5), (2, 300, 8), (2, 300, 16),   # ragged d_inner and d_state
     (3, 256, 1), (1, 40, 3),
+    (8, 7168, 64),        # zamba2-7b decode, 8 rows
+    (1, 7168, 64),        # zamba2-7b prefill chunk
+    (1, 40, 64), (2, 300, 40),
 ])
 def test_scan_body_and_lanes_fill_the_card(b, di, ds):
-    """Every d_state of 1..16 takes the state_lanes body.  Its lane count
-    is one the kernel holds (at most 4 states a lane), no larger than
-    d_state rounded up to a power of two, and the smallest that gives
-    every SM a block, else the largest allowed."""
+    """Every d_state of 1..64 takes the state_lanes body.  Its lane count
+    is one the kernel holds, no larger than d_state rounded up to a
+    power of two.  Up to d_state 16 (at most 4 states a lane) it is the
+    smallest that gives every SM a block, else the largest allowed;
+    above, the smallest whose lanes hold at most ``LANE_STATES`` states
+    each."""
     assert scan_body(ds) == "state_lanes"
     g = scan_lanes(b, di, ds)
     cap = max(SCAN_LANES[0], 1 << (ds - 1).bit_length())
     allowed = [x for x in SCAN_LANES if x <= cap]
     assert g in allowed and -(-ds // g) <= 4
-    assert scan_blocks(b, di, g) >= SM_COUNT or g == allowed[-1]
-    assert all(scan_blocks(b, di, x) < SM_COUNT for x in allowed if x < g)
+    if ds > 16:
+        assert all(-(-ds // x) > LANE_STATES for x in allowed if x < g)
+    else:
+        assert scan_blocks(b, di, g) >= SM_COUNT or g == allowed[-1]
+        assert all(scan_blocks(b, di, x) < SM_COUNT
+                   for x in allowed if x < g)
     if di == 8192 and ds == 16:   # falcon-mamba-7b: 256 blocks a row
         assert g == 4 and scan_blocks(b, di, g) == 256 * b
+    if di == 7168 and ds == 64:   # zamba2-7b: 896 blocks a row
+        assert g == 16 and scan_blocks(b, di, g) == 896 * b
 
 
 @pytest.mark.parametrize("ds,body,match", [
-    (0, None, "d_state"), (17, None, "d_state"), (32, "cuda_core", "d_state"),
+    (0, None, "d_state"), (65, None, "d_state"), (32, "cuda_core", "d_state"),
     (16, "mma", "body"), (16, "lanes", "body"),
 ])
 def test_scan_refuses_d_state_and_unknown_body_without_a_launch(ds, body,
                                                                match):
-    """A d_state outside 1..16, or a body the kernel does not have, is
-    refused before any launch, whatever the device."""
+    """A d_state outside 1..64 (the previous body: outside 1..16 and
+    64), or a body the kernel does not have, is refused before any
+    launch, whatever the device."""
     _build.reset_launches()
     seq = torch.empty((2, 3, 64), device="meta")
     st = torch.empty((2, 3, ds), device="meta")
@@ -1180,6 +1192,7 @@ def test_cuda_add_rmsnorm_any_launch_shape(cuda_device, monkeypatch, rows,
     (8, 15, 5, 64, 16, 64),   # smollm-360m decode
     (3, 6, 2, 3, 8, 32),
     (2, 16, 2, 4, 16, 128),   # G = 8, hd 128: over 48 KB of shared memory
+    (8, 32, 32, 136, 16, 112),   # zamba2-7b decode: MHA, hd 112
 ])
 def test_cuda_paged_decode_matches_plain(cuda_device, dtype, b, h, kv, nb,
                                          bs, d):
@@ -1201,7 +1214,8 @@ def test_cuda_paged_decode_matches_plain(cuda_device, dtype, b, h, kv, nb,
                                      (1, 0, 64), (1, 200, 64),   # ragged C
                                      (77, 0, 64), (77, 300, 64),
                                      (100, 450, 64),  # pos + C > max_len
-                                     (5, 7, 72)])     # hd off the mma tiles
+                                     (5, 7, 72),      # hd off the mma tiles
+                                     (128, 300, 112)])   # zamba2-7b's hd
 def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
     rng = np.random.default_rng(10)
     h, kv, bs, nb = 15, 5, 16, 32
@@ -1375,6 +1389,7 @@ def test_cuda_paged_chunk_cuda_core_body_in_bf16(cuda_device):
     (8, 15, 5, 1024, 64),     # smollm-360m's slot engine
     (4, 6, 2, 24, 32),
     (2, 16, 2, 100, 128),     # G = 8, hd 128: over 48 KB of shared memory
+    (8, 32, 32, 2176, 112),   # zamba2-7b's slot engine: MHA, hd 112
 ])
 def test_cuda_dense_decode_matches_plain(cuda_device, dtype, b, h, kv, s, d):
     rng = np.random.default_rng(11)
@@ -1472,6 +1487,9 @@ SCAN_CARD_CASES = [
     (1, 128, 8192, 16, True, False),     # falcon-mamba-7b prefill chunk
     (2, 100, 300, 8, False, True),       # ragged DI and T, strided B / C
     (3, 37, 256, 5, True, True),
+    (8, 1, 7168, 64, True, True),        # zamba2-7b decode (B / C sliced)
+    (1, 128, 7168, 64, True, True),      # zamba2-7b prefill chunk
+    (2, 45, 300, 64, False, True),       # d_state 64, ragged DI and T
 ]
 # every body, and for state_lanes every lane count the rule can pick
 SCAN_BODIES = [("cuda_core", None)] + [("state_lanes", g) for g in SCAN_LANES]
@@ -2054,7 +2072,7 @@ def test_flash_body_rule(dtype, hd, aligned, want):
     assert WGMMA_HD == 64
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 def test_serving_forms_keep_their_bodies(hd):
     """The wgmma body is the contiguous form's alone: the paged-chunk,
     batched and window forms' rules still name ``mma`` in bf16 (hd 64,

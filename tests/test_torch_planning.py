@@ -40,7 +40,7 @@ from repro_torch.microservice import partition as tpart  # noqa: E402
 from repro_torch.models.quantize import bytes_per_param as tbpp  # noqa: E402
 
 SEEDS = [0, 7, 2024]
-ARCHS = ["smollm-360m", "falcon-mamba-7b", "gemma3-12b"]
+ARCHS = ["smollm-360m", "falcon-mamba-7b", "gemma3-12b", "zamba2-7b"]
 FORMATS = [None, "int8", "int4"]
 
 
@@ -202,10 +202,11 @@ def test_decompose_equal(arch, fmt):
 
 
 def test_unported_kinds_keep_raising():
-    """Counters of kinds the port refuses raise instead of guessing."""
+    """Counters of kinds the port refuses raise instead of guessing: a
+    cross-attention block and an encoder-decoder."""
     tc = get_config("smollm-360m")
     with pytest.raises(NotImplementedError):
-        tc.layer_params("mamba2")
+        tc.layer_active_params("cross")
     with pytest.raises(NotImplementedError):
         tc.layer_params("cross")
     with pytest.raises(NotImplementedError):

@@ -362,8 +362,9 @@ def test_fused_residual_adds_keep_the_unfused_bits(monkeypatch, name, mode):
 
 
 def test_untied_head_and_refusals():
-    """The port's own init draws an untied head; mamba2,
-    encoder-decoder and weight-shared configs still refuse."""
+    """The port's own init draws an untied head; a cross-attention
+    block and an encoder-decoder still refuse, and so does training
+    a Mamba1 model (and a Mamba1 layer shared by weight)."""
     _, tc = config_pair("mamba")
     params = Model(tc, device="cpu").init(torch.Generator().manual_seed(0))
     assert params["lm_head"]["w"].shape == (tc.vocab_padded, tc.d_model)
@@ -372,12 +373,16 @@ def test_untied_head_and_refusals():
     assert torch.equal(m["A_log"][0, 0], torch.log(
         torch.arange(1, tc.ssm_state + 1, dtype=torch.float32)))
     assert torch.all(m["dt_bias"] == -2.0)
-    for bad in (dict(block_pattern=("mamba1", "mamba2")),
+    for bad in (dict(block_pattern=("mamba1", "cross")),
                 dict(block_pattern=("attn", "mamba1"),
-                     is_encoder_decoder=True),
-                dict(shared_block_kind="mamba1")):
+                     is_encoder_decoder=True)):
         with pytest.raises(NotImplementedError):
             Model(dataclasses.replace(tc, **bad), device="cpu")
+    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    for ok in ({}, dict(shared_block_kind="mamba1")):
+        model = Model(dataclasses.replace(tc, **ok), device="cpu")
+        with pytest.raises(NotImplementedError, match="training of Mamba"):
+            model.forward(None, tokens)
 
 
 def _packed_paths(tree, prefix=()):

@@ -36,7 +36,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_ref import bridged, config_pair, jax_params  # noqa: E402
+from _torch_ref import (TORCH_THREADS, bridged, config_pair,  # noqa: E402
+                        jax_params)
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
@@ -429,7 +430,8 @@ def test_trainer_runs_on_the_cpu_and_its_ce_falls():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
          "--device", "cpu", "--steps", "20", "--log-every", "19"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                           OMP_NUM_THREADS=str(TORCH_THREADS)),
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     ces = [float(ln.split("ce=")[1].split()[0])
