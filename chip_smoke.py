@@ -79,7 +79,17 @@ one JSON line:
    paged prefill (C 128 at pos 0, 1024 and 2048) and both decode
    kernels (B 8 over linear rows of 2176 slots, pos 5-2175; the dense
    kernel's bits the paged one's) at zamba2-7b's weight-shared attn
-   block (32 heads over 32 KV heads of 112, G 1).  The selective scan
+   block (32 heads over 32 KV heads of 112, G 1).  The flash kernel's
+   cross form (``paged_cross_attention``: C 128 queries over every one of
+   src source slots, unmasked) runs at seamless-m4t-medium's enc_xattn
+   (16 / 16 heads of 64, src 1024) and llama-3.2-vision-90b's xattn (64 /
+   8 heads of 128, src 1601), B 1 through shuffled cross tables and B 8
+   through identity tables over dense rows (bit-equal to the paged
+   read), bf16 on ``mma`` and f32 on ``cuda_core``, beside plain, SDPA
+   and both halves of the bound; so do both decode kernels at those
+   cross shapes (B 8, pos src - 1; the dense kernel's bits the paged
+   one's) and the paged prefill at llama-3.2-vision-90b's attn layers
+   (hd 128, G 8; C 128 at pos 0 and 1024).  The selective scan
    also runs at zamba2-7b's d_state 64 (a decode step of 8 rows and a
    chunk of 128 over d_inner 7168, B and C the halves of ``bc_proj``'s
    output), state_lanes against cuda_core as at d_state 16.  The
@@ -89,7 +99,11 @@ one JSON line:
    of 64, causal, bf16 on ``wgmma``, timed in turns against ``mma``, which
    is gated too), the same heads at S 1024 in float32 (``cuda_core``),
    gemma3-12b's heads with its 1024 window (bf16 on ``mma``, the wide
-   tiles) and a non-causal ragged case (B 2, S 1000, with a window it
+   tiles), seamless-m4t-medium's encoder in ``Model.prefill`` (B 8, S
+   1024, 16 / 16 heads of 64, non-causal, ``wgmma`` against ``mma`` in
+   turns), ``Model.prefill``'s decoder self-attention over 8 prompts of
+   128 (hd 64 on ``wgmma``; llama-3.2-vision-90b's hd 128, G 8 on
+   ``mma``) and a non-causal ragged case (B 2, S 1000, with a window it
    must ignore) in both dtypes (bf16 on ``wgmma`` against ``mma`` in
    turns; on ``wgmma`` the model's ``(B, S, heads, hd)`` layout, passed
    as transposed views, must give the contiguous run's bits), its row
@@ -110,8 +124,9 @@ one JSON line:
    drafts through the paged engine (unquantized and int8) and the slot
    engine, and a model draft (2-layer smollm-360m on its own seed)
    through the paged engine; then falcon-mamba-7b and gemma3-12b (one
-   ``swa`` layer with the published window of 1024, one ``attn``; 3
-   prompts of 1040-1200 tokens, so every ring wraps) at full width, 2
+   ``swa`` layer with the published window of 1024, one ``attn``; 2
+   prompts of 1040-1200 tokens, so every ring wraps, 8 new tokens each)
+   at full width, 2
    layers, float32, through the paged and the slot engine, and with
    ``speculative=4``, which both must gate off.  The pipelined engines
    (``PagedPipelinedEngine`` and ``PipelinedEngine``, 2 stages) run the
@@ -138,7 +153,17 @@ one JSON line:
    attn block, Mamba2, the shared attn block again; 4 prompts of 20-64
    tokens, 8 new tokens each, through the paged engine (unquantized,
    int8), the slot engine and the paged pipeline, whose boundary falls
-   between the two shared positions, held as above;
+   between the two shared positions, held as above.  Then the
+   cross-attention families at full width, float32, 2 decoder layers:
+   seamless-m4t-medium (2 of its encoder layers) through the paged engine
+   (unquantized, int8), the slot engine and the paged pipeline, and
+   llama-3.2-vision-90b (one ``attn`` and one ``cross`` layer, d_ff cut
+   to 4096) through the paged and the slot engine, 4 prompts of 20-48
+   tokens, 8 new tokens each, held as above (requests carry no frontend:
+   the cross K/V are zeroed at admission, as in the reference); then for
+   each ``Model.prefill`` of 2 prompts of 32 tokens with a seeded
+   frontend and 8 tokens of ``decode_steps`` over the prefilled caches,
+   whose cross K/V are real: the streams card = CPU;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -179,23 +204,25 @@ one JSON line:
    through ``ServingEngine``, with the same checks (the slot run's share
    of tokens equal to the paged run's printed, and every scan launch on
    the ``state_lanes`` body).
-   Then gemma3-12b at full width and depth (48 layers, 40 ``swa`` with
-   the 1024-slot ring, 8 ``attn``) in bfloat16, about 23.5 GB of weights
-   drawn on the card: 8 requests of 256-2048 tokens (six past the
-   window), 64 new tokens each, through ``PagedServingEngine``
-   (``gemma_paged_bf16``, profiled in decode and prefill, with prompts
-   past the window) and ``ServingEngine`` (``gemma_dense_bf16``, its
-   share of tokens equal to the paged run's printed); a prefill chunk
-   launches the ring form 40 times and the paged prefill 8 times, a
-   decode iteration the decode kernel 48 times, checked exactly: the
+   Then gemma3-12b at full width and ``GEMMA_LAYERS`` = 24 of its 48
+   layers (20 ``swa`` with the 1024-slot ring, 4 ``attn``) in bfloat16,
+   about 12.7 GB of weights drawn on the card: 8 requests of 256-2048
+   tokens (six past the window), 64 new tokens each, through
+   ``PagedServingEngine`` (``gemma_paged_bf16``, profiled in decode and
+   prefill, with prompts past the window) and ``ServingEngine``
+   (``gemma_dense_bf16``, its share of tokens equal to the paged run's
+   printed); a prefill chunk launches the ring form 20 times and the
+   paged prefill 4 times, a decode iteration the decode kernel 24
+   times, checked exactly: the
    paged prefill, the ring form and the decode on the wide ``mma``
    bodies (hd 256).  Which body each attention kernel's launches take is
    fixed per config in ``ATTN_BODY`` (``mma`` for all five two-body
    attention kernels of smollm-360m and gemma3-12b), and the wrappers'
    rules must agree with it.
-   Then mixtral-8x7b at full width and 16 of its 32 layers (32 would
-   need about 93 GB of bf16 weights; the experts are never packed) in
-   bfloat16, about 47 GB drawn on the card: 8 requests (6 of 256-2048
+   Then mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` = 8 of its 32
+   layers (32 would need about 93 GB of bf16 weights; the experts are
+   never packed) in bfloat16, about 24 GB drawn on the card: 8 requests
+   (6 of 256-2048
    tokens, 2 of 4160-4400, past the 4096 window), 64 new tokens each,
    through ``PagedServingEngine`` (``mixtral_paged_bf16``, profiled in
    decode and prefill) and ``ServingEngine`` (``mixtral_dense_bf16``),
@@ -204,30 +231,51 @@ one JSON line:
    decode step, first full chunk and over the run is printed, not
    gated; then ``moe_apply`` at full width at a decode step's and a
    chunk's shape under ``torch.cuda.set_sync_debug_mode("error")``.
-   Then zamba2-7b at full width and depth (81 layers: 68 Mamba2 and 13
-   positions of one weight-shared attn block) in bfloat16, about 11.4 GB
-   of weights drawn on the card: 8 requests of 256-2048 tokens, 64 new
-   tokens each, through ``PagedServingEngine`` (``zamba_paged_bf16``,
-   profiled in decode and prefill) and ``ServingEngine``
-   (``zamba_dense_bf16``), launches by kernel and body checked exactly
-   (a decode iteration: 95 norms, 13 decode attentions and 68 scans; a
-   chunk: 94 norms, 13 paged prefills and 68 scans), then the paged
+   Then zamba2-7b at full width and ``ZAMBA_LAYERS`` = 41 of its 81
+   layers (35 Mamba2 and 6 positions of one weight-shared attn block)
+   in bfloat16, about 6.2 GB of weights drawn on the card: 8 requests of
+   256-2048 tokens, 64 new tokens each, through ``PagedServingEngine``
+   (``zamba_paged_bf16``, profiled in decode and prefill) and
+   ``ServingEngine`` (``zamba_dense_bf16``), launches by kernel and body
+   checked exactly (a decode iteration: 48 norms, 6 decode attentions
+   and 35 scans; a chunk: 47 norms, 6 paged prefills and 35 scans),
+   then the paged
    run's requests through ``PagedPipelinedEngine`` in 2 stages
    (``zamba_pipe_paged_bf16``, placed by the static tier), which must
    emit the paged run's tokens and launches at a peak within 5% of its
    memory, every stage on the one shared set, uncopied.
+   Then seamless-m4t-medium uncut (12 encoder and 12 decoder layers,
+   about 2 GB of bf16 weights): 8 requests of 32-512 tokens through
+   ``PagedServingEngine`` (``seamless_paged_bf16``) and
+   ``ServingEngine`` (``seamless_dense_bf16``), launches by kernel and
+   body checked exactly (a decoder block: three norms, a decode
+   attention and a cross decode read an iteration; a paged prefill and
+   a cross form a chunk), then ``seamless_prefill_bf16``:
+   ``Model.prefill`` of 8 prompts of 128 tokens with a seeded (8, 1024,
+   1024) frontend through the encoder, then 4 macro-steps of
+   ``decode_steps(k=16)`` on the dense caches (encoder ms, prefill ms,
+   decode tok/s; launches checked exactly).  Then llama-3.2-vision-90b at
+   full width and 30 of its 100 layers (24 ``attn``, 6 ``cross``; about
+   55.6 GB of bf16 weights drawn on the card): 8 requests of 256-1024
+   tokens through ``PagedServingEngine`` (``vision_paged_bf16``,
+   profiled over one decode macro-step and 4 prefill chunks) and
+   ``ServingEngine`` (``vision_dense_bf16``), launches checked exactly,
+   then ``vision_prefill_bf16`` as seamless's with an (8, 1601, 8192)
+   frontend.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
-   falcon-mamba, gemma3, mixtral and zamba2 paged runs; two steady
+   falcon-mamba, gemma3, mixtral, zamba2 and vision paged runs; two steady
    verify rounds after ``paged_spec``):
-   one steady decode macro-step (16 iterations) timed without
-   the profiler, then the same window again under torch.profiler for
+   one steady decode macro-step (``PROFILE_ITERS`` = 8 iterations)
+   timed without the profiler, then the same window again under
+   torch.profiler for
    the device's busy time, the top kernels and the port's own kernels
    by device time; the idle share is one minus busy over the
    unprofiled wall time.  After the bf16 smollm paged run and the
    falcon-mamba and zamba2 paged runs, the same for a prefill window: 4
    requests of 385 tokens admitted at once, 12 chunks of 128, with the
-   device busy time per chunk (gemma3 and mixtral-8x7b: 4 requests of
-   1153 tokens, 36 chunks).  No window reruns on a previous body: the
+   device busy time per chunk (mixtral-8x7b: 4 requests of 1153 tokens,
+   36 chunks; gemma3: 2 of them, 18 chunks; llama-3.2-vision: 4 of 129
+   tokens, 4 chunks).  No window reruns on a previous body: the
    kernels phase times each redesigned kernel against its previous body
    in turns.
 
@@ -280,6 +328,7 @@ REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
     "paged_prefill_attention": "src/repro/kernels/flash_attention.py:72",
     "paged_chunk_attention": "src/repro/kernels/flash_attention.py:72",
+    "paged_cross_attention": "src/repro/kernels/flash_attention.py:72",
     "ring_chunk_attention": "src/repro/kernels/flash_attention.py:72",
     "dense_decode_attention": "src/repro/kernels/decode_attention.py:76",
     "quant_matmul_int8": "src/repro/kernels/quant_matmul.py:54",
@@ -292,6 +341,7 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "paged_chunk_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "paged_cross_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "ring_chunk_attention": "src/repro_torch/csrc/ring_chunk_attention.cu",
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
@@ -303,6 +353,7 @@ SOURCES = {
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "paged_prefill_attention": "paged_bf16",
               "paged_chunk_attention": "paged_spec",
+              "paged_cross_attention": "vision_paged_bf16",
               "ring_chunk_attention": "gemma_paged_bf16",
               "dense_decode_attention": "dense_bf16",
               "quant_matmul_int8": "paged_int8",
@@ -319,6 +370,7 @@ MAIN_BODY = {"selective_scan": ("state_lanes",),
 #: the rule that names each two-body attention kernel's body
 ATTN_RULE = {"paged_prefill_attention": "prefill_body",
              "paged_chunk_attention": "prefill_body",
+             "paged_cross_attention": "prefill_body",
              "ring_chunk_attention": "ring_body",
              "paged_decode_attention": "decode_body",
              "dense_decode_attention": "decode_body"}
@@ -329,6 +381,7 @@ ATTN_RULE = {"paged_prefill_attention": "prefill_body",
 #: wrappers' rules agree.
 ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
                             "paged_chunk_attention": "mma",
+                            "paged_cross_attention": "mma",
                             "ring_chunk_attention": "mma",
                             "paged_decode_attention": "mma",
                             "dense_decode_attention": "mma"}}
@@ -369,7 +422,9 @@ def device_ms(fn, n: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     kernels it launches, from torch.profiler, over ``n`` calls (inputs
     warm in L2).  Host launch gaps are not counted.  A profile that
     recorded no device activity at all (torch.profiler drops a window
-    now and then) is taken again, up to ``attempts`` times."""
+    now and then) is taken again, up to ``attempts`` times; if every one
+    is empty, the time per back-to-back call by CUDA events stands in
+    (``call_ms``, launch cost included), and a line says so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -384,8 +439,10 @@ def device_ms(fn, n: int = 20, warmup: int = 3, attempts: int = 3) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / n
-    raise RuntimeError(f"torch.profiler recorded no device time in "
-                       f"{attempts} profiles")
+    emit({"phase": "kernels", "check": f"torch.profiler recorded no device "
+                                       f"time in {attempts} profiles: CUDA "
+                                       f"events stand in"})
+    return call_ms(fn, n=n, warmup=0)
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -699,7 +756,7 @@ def kernel_cases(dev) -> list:
             if dname == "bfloat16" else None))
     launch_floor(dev)
     return (cases + scan_cases(dev) + gemma_cases(dev) + mixtral_cases(dev)
-            + zamba_cases(dev) + flash_cases(dev))
+            + zamba_cases(dev) + cross_cases(dev) + flash_cases(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -711,12 +768,21 @@ def kernel_cases(dev) -> list:
 #: "train_f32": the same heads at S 1024 in float32, on cuda_core;
 #: "gemma": gemma3-12b's heads with its window (mma, the wide tiles);
 #: "encoder": non-causal and ragged, with a window the kernel must ignore
-#: (bf16: wgmma, mma in turns)
+#: (bf16: wgmma, mma in turns); "seamless_encoder": seamless-m4t-medium's
+#: encoder in Model.prefill (8 rows of its 1024 frames, 16 / 16 heads of
+#: 64, non-causal; wgmma, mma in turns); "seamless_prefill" and
+#: "vision_prefill": Model.prefill's decoder self-attention over 8
+#: prompts of 128 (hd 64 G 1 on wgmma; llama-3.2-vision-90b's hd 128 G 8
+#: on mma)
 FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
                ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
                ("encoder", "float32", 2, 1000, 6, 2, 64, False, 100),
-               ("encoder", "bfloat16", 2, 1000, 6, 2, 64, False, 100)]
+               ("encoder", "bfloat16", 2, 1000, 6, 2, 64, False, 100),
+               ("seamless_encoder", "bfloat16", 8, 1024, 16, 16, 64, False,
+                0),
+               ("seamless_prefill", "bfloat16", 8, 128, 16, 16, 64, True, 0),
+               ("vision_prefill", "bfloat16", 8, 128, 64, 8, 128, True, 0)]
 FLASH_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 
@@ -1515,6 +1581,178 @@ def zamba_cases(dev) -> list:
     return cases
 
 
+#: the cross reads of the two cross-attention families: seamless-m4t-medium's
+#: enc_xattn (16 / 16 heads of 64 over the encoder's 1024 frames) and
+#: llama-3.2-vision-90b's xattn (64 / 8 heads of 128 over 1601 image
+#: patches, 1601 = 100 x 16 + 1)
+CROSS_SHAPES = {"seamless-m4t-medium": {"H": 16, "KV": 16, "hd": 64,
+                                        "src": 1024},
+                "llama-3.2-vision-90b": {"H": 64, "KV": 8, "hd": 128,
+                                         "src": 1601}}
+#: llama-3.2-vision-90b's self-attention layers (hd 128, G 8): the first
+#: linear attn layers the port serves at hd 128
+VISION = {"H": 64, "KV": 8, "hd": 128, "C": 128, "max_len": 1152}
+
+
+def cross_cases(dev) -> list:
+    """The kernels of the cross-attention families' cross reads, bf16 on
+    ``mma`` (float32 on ``cuda_core`` at one shape each): the flash
+    kernel's cross form (``paged_cross_attention``: C 128 queries over
+    every source slot, a chunk's B 1 through shuffled cross tables and
+    ``Model.prefill``'s B 8 through identity tables over dense rows, whose
+    bits must equal the paged read's), and the paged and dense decode at
+    pos src - 1 (B 8; the dense kernel's bits the paged one's), each
+    against its plain version, SDPA over the gathered K/V and both
+    halves of the bound; then the paged prefill at llama-3.2-vision-90b's
+    attn layers (C 128, 64 / 8 heads of 128, pos 0 and 1024)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_plain,
+        paged_decode_attention, paged_decode_attention_plain, paged_gather)
+    from repro_torch.kernels.flash_attention import (
+        paged_cross_attention, paged_cross_attention_plain,
+        paged_prefill_attention, paged_prefill_attention_plain)
+    rng = np.random.default_rng(SEED + 17)
+    BS, C, cases = 16, 128, []
+
+    def t(a, dtype):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+    for model, sh in CROSS_SHAPES.items():
+        H, KV, HD, src = sh["H"], sh["KV"], sh["hd"], sh["src"]
+        nb = -(-src // BS)
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            es = torch.finfo(dtype).bits // 8
+            body = "mma" if dname == "bfloat16" else "cuda_core"
+            extra = {"model": model, "body": body}
+            for B in ((1, 8) if dname == "bfloat16" else (1,)):
+                nbp = B * nb + 1
+                kp, vp = (t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+                          for _ in range(2))
+                tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(
+                    B, nb) + 1).astype(np.int32)).to(dev)
+                q = t(rng.standard_normal((B, C, H, HD)), dtype)
+                kd = paged_gather(kp, tables)[:, :src].contiguous()
+                vd = paged_gather(vp, tables)[:, :src].contiguous()
+                out = _on_body("paged_cross_attention", body,
+                               lambda: paged_cross_attention(
+                                   q, kp, vp, tables, src))
+                ident = torch.arange(B, dtype=torch.int32,
+                                     device=dev)[:, None]
+                dense = paged_cross_attention(q, kd, vd, ident, src)
+                equal = torch.equal(dense, out)
+                emit({"phase": "kernels", "kernel": "paged_cross_attention",
+                      "check": "dense rows through identity tables "
+                               "bit-equal to the paged read",
+                      "model": model, "dtype": dname, "B": B,
+                      "equal": equal})
+                if not equal:
+                    raise AssertionError(f"cross form {model} {dname} B {B}: "
+                                         f"dense rows give other bits than "
+                                         f"the paged read")
+                qs = q.transpose(1, 2).contiguous()
+                kt = kd.transpose(1, 2).contiguous()
+                vt = vd.transpose(1, 2).contiguous()
+                nbytes = (2 * B * C * H * HD * es + 2 * B * src * KV * HD * es
+                          + 4 * B * nb)
+                flops = 4 * B * C * H * HD * src
+                cases.append(_case(
+                    "paged_cross_attention", dname,
+                    {"B": B, "C": C, "H": H, "KV": KV, "hd": HD, "bs": BS,
+                     "src": src}, out,
+                    paged_cross_attention_plain(q, kp, vp, tables, src),
+                    lambda: paged_cross_attention(q, kp, vp, tables, src),
+                    lambda: paged_cross_attention_plain(q, kp, vp, tables,
+                                                        src),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, kt, vt, enable_gqa=True),
+                    nbytes, flops, extra={**extra, **_bounds(
+                        nbytes, flops, dname)}))
+                del kp, vp, kd, vd, q, qs, kt, vt, out, dense
+        # the decode kernels at pos src - 1: every slot visible, the last
+        # block's tail masked
+        dtype, dname, es, B = torch.bfloat16, "bfloat16", 2, 8
+        nbp = B * nb + 1
+        kp, vp = (t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
+                  for _ in range(2))
+        tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(B, nb)
+                                   + 1).astype(np.int32)).to(dev)
+        kd = paged_gather(kp, tables)[:, :src].contiguous()
+        vd = paged_gather(vp, tables)[:, :src].contiguous()
+        pos = torch.full((B,), src - 1, dtype=torch.int32, device=dev)
+        qd = t(rng.standard_normal((B, H, HD)), dtype)
+        paged = _on_body("paged_decode_attention", "mma",
+                         lambda: paged_decode_attention(qd, kp, vp, tables,
+                                                        pos))
+        dense = _on_body("dense_decode_attention", "mma",
+                         lambda: dense_decode_attention(qd, kd, vd, pos))
+        equal = torch.equal(paged, dense)
+        emit({"phase": "kernels", "kernel": "dense_decode_attention",
+              "check": f"{model} cross read: dense bit-equal to paged",
+              "dtype": dname, "equal": equal})
+        if not equal:
+            raise AssertionError(f"cross decode at {model}: the dense "
+                                 f"kernel's bits differ from the paged one's")
+        kt = kd.transpose(1, 2).contiguous()
+        vt = vd.transpose(1, 2).contiguous()
+        shape = {"B": B, "H": H, "KV": KV, "hd": HD, "bs": BS, "src": src,
+                 "pos": src - 1, "cross": True}
+        flops = 4 * H * HD * B * src
+        for name, got, kernel, plain, args, nbytes in (
+                ("paged_decode_attention", paged, paged_decode_attention,
+                 paged_decode_attention_plain, (qd, kp, vp, tables, pos),
+                 2 * B * H * HD * es + 2 * B * src * KV * HD * es
+                 + 4 * B * nb + 4 * B),
+                ("dense_decode_attention", dense, dense_decode_attention,
+                 dense_decode_attention_plain, (qd, kd, vd, pos),
+                 2 * B * H * HD * es + 2 * B * src * KV * HD * es + 4 * B)):
+            cases.append(_case(
+                name, dname, shape, got, plain(*args),
+                functools.partial(kernel, *args),
+                functools.partial(plain, *args),
+                lambda: F.scaled_dot_product_attention(
+                    qd[:, :, None], kt, vt, enable_gqa=True),
+                nbytes, flops, extra={"model": model, "body": "mma",
+                                      **_bounds(nbytes, flops, dname)}))
+        del kp, vp, kd, vd, kt, vt, paged, dense
+    # the paged prefill at llama-3.2-vision-90b's attn layers: hd 128,
+    # G 8, C 128 at pos 0 and 1024 (prompts of 256-1024 tokens)
+    H, KV, HD, L = (VISION[k] for k in ("H", "KV", "hd", "max_len"))
+    dtype, es, nb = torch.bfloat16, 2, L // BS
+    kp, vp = (t(rng.standard_normal((nb + 1, BS, KV, HD)), dtype)
+              for _ in range(2))
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(np.int32)).to(
+        dev)
+    q = t(rng.standard_normal((C, H, HD)), dtype)
+    qs = q.permute(1, 0, 2)[None].contiguous()
+    for p0 in (0, 1024):
+        out = _on_body("paged_prefill_attention", "mma",
+                       lambda: paged_prefill_attention(q, kp, vp, table, p0))
+        n_slots = p0 + C
+        kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
+        vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
+        kc, vc = kc[None].contiguous(), vc[None].contiguous()
+        cmask = (torch.arange(n_slots, device=dev)[None, :]
+                 <= p0 + torch.arange(C, device=dev)[:, None])
+        nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                  + 4 * -(-n_slots // BS))
+        flops = 4 * H * HD * sum(p0 + i + 1 for i in range(C))
+        cases.append(_case(
+            "paged_prefill_attention", "bfloat16",
+            {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
+            out, paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention(q, kp, vp, table, p0),
+            lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
+            lambda: F.scaled_dot_product_attention(
+                qs, kc, vc, attn_mask=cmask, enable_gqa=True),
+            nbytes, flops, extra={"model": "llama-3.2-vision-90b",
+                                  "body": "mma",
+                                  **_bounds(nbytes, flops, "bfloat16")}))
+    return cases
+
+
 def _on_body(kernel: str, body: str, fn):
     """``fn()``, which must launch ``kernel`` once, on ``body``."""
     from repro_torch.kernels import _build
@@ -1654,6 +1892,18 @@ def _to(params, dev):
     if isinstance(params, list):
         return [_to(v, dev) for v in params]
     return params if params is None else params.to(dev)
+
+
+def _card_drawn(cfg, dev):
+    """``cfg``'s parameters drawn on the card from the seed and copied to
+    the CPU, where a parity cell's CPU side starts from them (the card's
+    side copies them back): the same weights on both devices, drawn in a
+    second where the CPU takes tens of seconds at full width."""
+    import torch
+    from repro_torch.models.model import Model
+    params = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED))
+    return _to(params, torch.device("cpu"))
 
 
 def _trace(rng, n, lo, hi, vocab):
@@ -1876,20 +2126,23 @@ def parity(dev) -> list:
          ("pipe_paged", "int8", None), ("pipe_slot", "int8", None),
          ("pipe_paged", None, 4), ("pipe_slot", None, 4)),
         _trace(np.random.default_rng(SEED + 1), 4, 20, 150,
-               smollm.vocab_size), 256)
+               smollm.vocab_size), 256, n_new=8)
     # prompts of at most 64 tokens keep the CPU's side short
     mamba_res = _parity_config(
         dev, mamba, "falcon-mamba-7b, 2 layers, float32",
         (("paged", None, None), ("slot", None, None), ("paged", None, 4),
          ("pipe_paged", None, None), ("pipe_slot", None, None)),
         _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
-               mamba.vocab_size), 128)
+               mamba.vocab_size), 128, n_new=8)
+    # two prompts and 8 new tokens keep the CPU's side short (its head
+    # over 262,144 rows in f32 is most of a decode step there)
     gemma_res = _parity_config(
         dev, gemma, "gemma3-12b, 2 layers (swa, attn), float32",
         (("paged", None, None), ("slot", None, None), ("paged", None, 4),
          ("pipe_paged", None, None), ("pipe_slot", None, None)),
-        _trace(np.random.default_rng(SEED + 10), 3, 1040, 1200,
-               gemma.vocab_size), 1280)
+        _trace(np.random.default_rng(SEED + 10), 2, 1030, 1100,
+               gemma.vocab_size), 1280, n_new=8,
+        params_cpu=_card_drawn(gemma, dev))
     spec_runs = [r for r in smollm_res["runs"] if r["speculative"]]
     gated = [r for res in (mamba_res, gemma_res) for r in res["runs"]
              if r["speculative"]]
@@ -1900,7 +2153,110 @@ def parity(dev) -> list:
                              f"speculate, falcon-mamba and gemma3 runs "
                              f"{gated} must gate it off")
     return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm),
-            *mixtral_parity(dev), zamba_parity(dev)]
+            *mixtral_parity(dev), zamba_parity(dev), *cross_parity(dev)]
+
+
+SEAMLESS, VISION_ARCH = "seamless-m4t-medium", "llama-3.2-vision-90b"
+#: the cross-attention families' parity cells: full width, float32, 2
+#: decoder layers; seamless-m4t-medium with 2 of its 12 encoder layers
+#: (the serving engines never run the encoder: requests carry no
+#: frontend), llama-3.2-vision-90b with one attn and one cross layer and
+#: d_ff cut from 28672 to 4096 so the CPU's side stays short
+CROSS_PARITY = {SEAMLESS: {"n_layers": 2, "block_pattern": ("attn", "attn"),
+                           "n_encoder_layers": 2},
+                VISION_ARCH: {"n_layers": 2,
+                              "block_pattern": ("attn", "cross"),
+                              "d_ff": 4096}}
+#: Model.prefill then decode_steps in the parity cells: 2 prompts of 32
+#: tokens with a seeded frontend, then 8 greedy tokens
+PREFILL_PARITY = {"rows": 2, "prompt": 32, "new": 8}
+
+
+def prefill_parity(dev, cfg, params_cpu, label) -> dict:
+    """``Model.prefill`` of ``PREFILL_PARITY``'s prompts with a seeded
+    frontend (image patches, or the encoder's frames) on the card and on
+    the CPU from the same f32 weights, then ``decode_steps`` over the
+    prefilled dense caches, whose cross K/V are real: the prefill's
+    greedy token and the decoded stream must be equal on both devices,
+    and the cross caches non-zero.  Prints the largest difference of the
+    prefill logits."""
+    import torch
+    from repro_torch.models.model import Model
+    cpu = torch.device("cpu")
+    rows, s, new = (PREFILL_PARITY[k] for k in ("rows", "prompt", "new"))
+    rng = np.random.default_rng(SEED + 21)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (rows, s))
+                              .astype(np.int32))
+    src = cfg.n_image_tokens or cfg.encoder_seq
+    frontend = torch.from_numpy(rng.standard_normal(
+        (rows, src, cfg.d_model), dtype=np.float32))
+    t0 = time.perf_counter()
+    out = {}
+    for name, d, p in (("cuda", dev, _to(params_cpu, dev)),
+                       ("cpu", cpu, params_cpu)):
+        model = Model(cfg, device=d)
+        logits, caches, _ = model.prefill(
+            p, {"tokens": tokens.to(d), "frontend": frontend.to(d)}, s + new)
+        first = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)
+        toks = model.decode_steps(model.one_stage(p, caches), {
+            "token": first[:, None],
+            "pos": torch.full((rows,), s, dtype=torch.int32, device=d),
+            "budget": torch.full((rows,), new, dtype=torch.int32,
+                                 device=d)}, k=new)
+        cross = sum(float(c[n].abs().sum()) for c in caches for n in c
+                    if n in ("xk", "xv"))
+        out[name] = (logits.float().cpu(), torch.cat(
+            [first[:, None], toks], 1).cpu().tolist(), cross)
+        del p, caches, logits
+    res = {"phase": "parity", "config": label,
+           "path": "Model.prefill with a seeded frontend, then decode_steps",
+           "rows": rows, "prompt": s, "new_tokens": new,
+           "streams_equal": out["cuda"][1] == out["cpu"][1],
+           "stream": out["cuda"][1],
+           "prefill_logits_max_abs_diff": float(
+               (out["cuda"][0] - out["cpu"][0]).abs().max()),
+           "cross_kv_abs_sum": out["cuda"][2],
+           "seconds": time.perf_counter() - t0}
+    res["equal"] = res["streams_equal"] and out["cuda"][2] > 0
+    emit(res)
+    if not res["equal"]:
+        raise AssertionError(f"{label}: Model.prefill then decode differs "
+                             f"between card and CPU, or the cross K/V "
+                             f"stayed zero")
+    return res
+
+
+def cross_parity(dev) -> list:
+    """seamless-m4t-medium and llama-3.2-vision-90b at ``CROSS_PARITY``'s
+    cut, card against CPU on the same CPU-drawn weights: 4 requests of
+    20-48 tokens, 8 new tokens each, through the paged and the slot
+    engine (seamless also paged int8, its projections and the
+    cross-attentions' packed, and the paged pipeline in 2 stages), as
+    ``_parity_config`` holds them (the cross K/V zeroed at admission);
+    then each through ``prefill_parity``, whose cross K/V are real."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch, runs in ((SEAMLESS, (("paged", None, None),
+                                   ("slot", None, None),
+                                   ("paged", "int8", None),
+                                   ("pipe_paged", None, None))),
+                       (VISION_ARCH, (("paged", None, None),
+                                      ("slot", None, None)))):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  **CROSS_PARITY[arch])
+        params = _card_drawn(cfg, dev)
+        label = (f"{arch}, {cfg.n_layers} layers {cfg.block_pattern}"
+                 + (f", {cfg.n_encoder_layers} encoder layers"
+                    if cfg.is_encoder_decoder else f", d_ff {cfg.d_ff}")
+                 + ", float32")
+        res = _parity_config(
+            dev, cfg, label, runs,
+            _trace(np.random.default_rng(SEED + 22), 4, 20, 48,
+                   cfg.vocab_size), 128, n_new=8, params_cpu=params)
+        out += [res, prefill_parity(dev, cfg, params, label)]
+        del params
+    return out
 
 
 #: zamba2-7b's parity cell: full width (d_model 3584, d_inner 7168,
@@ -1912,19 +2268,16 @@ ZAMBA_PARITY = ("mamba2", "attn", "mamba2", "attn")
 
 def zamba_parity(dev) -> dict:
     """zamba2-7b at ``ZAMBA_PARITY``'s cut, card against CPU on the same
-    CPU-drawn weights: 4 requests of at most 64 tokens, 8 new tokens
-    each, through the paged engine (unquantized and int8: the shared
-    block's seven projections packed, the Mamba2 blocks dense), the slot
-    engine and the paged pipeline (2 stages, round-robin, each stage on
-    the one shared set), as ``_parity_config`` holds them."""
-    import torch
+    weights (``_card_drawn``): 4 requests of at most 64 tokens, 8 new
+    tokens each, through the paged engine (unquantized and int8: the
+    shared block's seven projections packed, the Mamba2 blocks dense),
+    the slot engine and the paged pipeline (2 stages, round-robin, each
+    stage on the one shared set), as ``_parity_config`` holds them."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import Model
     cfg = dataclasses.replace(get_config("zamba2-7b"), dtype="float32",
                               n_layers=len(ZAMBA_PARITY),
                               block_pattern=ZAMBA_PARITY)
-    params = Model(cfg, device=torch.device("cpu")).init(
-        torch.Generator().manual_seed(SEED))
+    params = _card_drawn(cfg, dev)
     return _parity_config(
         dev, cfg, "zamba2-7b, 4 layers (mamba2, shared attn, mamba2, "
                   "shared attn), float32",
@@ -2176,46 +2529,70 @@ def projection_bytes(params) -> int:
 
 
 def expected_launches(cfg, slot: bool, qformat, iters: int,
-                      chunks: int, names, rounds: int = 0) -> tuple:
+                      chunks: int, names, rounds: int = 0,
+                      prefills: int = 0) -> tuple:
     """Kernel launches a run of ``iters`` decode iterations, ``chunks``
-    prefill chunks and ``rounds`` verify rounds implies: per attn or swa
-    layer two rmsnorms (one without an MLP), one decode attention, one
-    prefill attention a chunk (the ring form for a windowed swa layer,
-    the paged prefill for the others) or one batched chunk attention a
-    verify round and, packed, 7 quant matmuls (4 attention, 3 MLP; a
-    mixture of experts packs only the 4 attention projections: its
-    router and experts stay dense); per Mamba1 or Mamba2 layer one
-    rmsnorm and one scan (zamba2-7b's 13 weight-shared attn positions
-    count as 13 attn layers: each launches its own kernels); one final
-    rmsnorm per decode iteration and per verify round.
-    Every rmsnorm but the first of a stack takes its residual add as a
-    delta (``add_norm``); the final norm takes the last block's.  The
-    mixture of experts launches no kernel of the port (routing,
-    dispatch, the expert products and the combine are torch ops, as the
-    reference computes them outside any Pallas kernel); its norm is the
-    MLP's.  Returns (launches by kernel, rmsnorm's launches by body)."""
+    prefill chunks, ``rounds`` verify rounds and ``prefills`` calls of
+    ``Model.prefill`` implies: per attn or swa layer two rmsnorms (one
+    without an MLP), one decode attention, one prefill attention a chunk
+    (the ring form for a windowed swa layer, the paged prefill for the
+    others) or one batched chunk attention a verify round and, packed, 7
+    quant matmuls (4 attention, 3 MLP; a mixture of experts packs only
+    the 4 attention projections: its router and experts stay dense); per
+    Mamba1 or Mamba2 layer one rmsnorm and one scan (zamba2-7b's 13
+    weight-shared attn positions count as 13 attn layers: each launches
+    its own kernels); one final rmsnorm per decode iteration and per
+    verify round.  A cross read (a ``cross`` layer's, and an
+    encoder-decoder's ``enc_xattn`` in each decoder block) is one decode
+    attention at pos src - 1 a decode iteration and one launch of the
+    flash kernel's cross form a chunk, a verify round or a prefill; its
+    K/V come from the caches, so packed it runs 2 quant matmuls (q, o)
+    in serving.  A ``cross`` layer has two rmsnorms like an attn layer;
+    an encoder-decoder's decoder block one more (``ln_x``, with the
+    self-attention's output as its delta).  A ``Model.prefill`` runs the
+    contiguous flash form once an attn layer (and once an encoder
+    layer, non-causal), the cross form once a cross read, every norm of
+    the stack and the final one, and the encoder's two norms a layer and
+    its final norm.  Every rmsnorm but the first of a stack takes its
+    residual add as a delta (``add_norm``); the final norm takes the last
+    block's.  The mixture of experts launches no kernel of the port
+    (routing, dispatch, the expert products and the combine are torch
+    ops, as the reference computes them outside any Pallas kernel); its
+    norm is the MLP's.  Returns (launches by kernel, rmsnorm's launches
+    by body)."""
     n_swa = cfg.block_pattern.count("swa")
     n_ring = n_swa if cfg.window else 0
     n_attn = cfg.block_pattern.count("attn") + n_swa
+    n_cross = cfg.block_pattern.count("cross")
+    n_xread = n_cross + (n_attn if cfg.is_encoder_decoder else 0)
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
     n_mamba = (cfg.block_pattern.count("mamba1")
                + cfg.block_pattern.count("mamba2"))
-    n_mlp = n_attn if cfg.mlp_kind != "none" else 0
+    n_mlp = n_attn + n_cross if cfg.mlp_kind != "none" else 0
     n_packed_mlp = n_mlp if cfg.mlp_kind == "dense" else 0
     expect = dict.fromkeys(names, 0)
-    norms = n_attn + n_mamba + n_mlp
-    heads = iters + rounds        # forwards that end in the final norm
-    expect["rmsnorm"] = (norms + 1) * heads + norms * chunks
-    norm_bodies = {"add_norm": norms * heads + (norms - 1) * chunks,
-                   "norm": heads + chunks, "cuda_core": 0}
+    norms = (n_attn + n_cross + n_mamba + n_mlp
+             + (n_attn if cfg.is_encoder_decoder else 0))
+    heads = iters + rounds + prefills   # forwards ending in the final norm
+    enc_norms = 2 * n_enc * prefills    # all add_norm but the first
+    expect["rmsnorm"] = ((norms + 1) * heads + norms * chunks
+                         + enc_norms + (prefills if n_enc else 0))
+    norm_bodies = {"add_norm": norms * heads + (norms - 1) * chunks
+                   + enc_norms,
+                   "norm": heads + chunks + (prefills if n_enc else 0),
+                   "cuda_core": 0}
     expect["paged_prefill_attention"] = (n_attn - n_ring) * chunks
     expect["ring_chunk_attention"] = n_ring * chunks
     expect["paged_chunk_attention"] = n_attn * rounds
+    expect["paged_cross_attention"] = n_xread * (chunks + rounds + prefills)
+    expect["flash_attention"] = (n_attn + n_enc) * prefills
     expect["dense_decode_attention" if slot
-           else "paged_decode_attention"] = n_attn * iters
-    expect["selective_scan"] = n_mamba * (iters + chunks)
+           else "paged_decode_attention"] = (n_attn + n_xread) * iters
+    expect["selective_scan"] = n_mamba * (iters + chunks + prefills)
     if qformat:
         expect[f"quant_matmul_{qformat}"] = (
-            (4 * n_attn + 3 * n_packed_mlp) * (heads + chunks))
+            (4 * n_attn + 2 * n_xread + 3 * n_packed_mlp) * (heads + chunks)
+            + (2 * n_xread + 7 * n_enc) * prefills)
     return expect, {"rmsnorm": norm_bodies}
 
 
@@ -2341,17 +2718,19 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     return res, streams, eng
 
 
-def check_launches(name, cfg, launches, expect, bodies, expect_bodies):
+def check_launches(name, cfg, launches, expect, bodies, expect_bodies,
+                   more_main=None):
     """A bf16 serve run's launches against ``expected_launches``: every
     kernel's count, and each launch of a kernel with more than one body
     on its main body (the attention kernels' as ATTN_BODY fixes it, the
-    scan's state_lanes, rmsnorm's add_norm or norm), rmsnorm's split
-    between those two as the run implies."""
+    scan's state_lanes, rmsnorm's add_norm or norm, and ``more_main``'s
+    where given), rmsnorm's split between those two as the run
+    implies."""
     if launches != expect or any(launches[k] == 0
                                  for k, v in expect.items() if v):
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
                              f"expected {expect}")
-    bodies_main = main_bodies(cfg)
+    bodies_main = {**main_bodies(cfg), **(more_main or {})}
 
     def on_main(k, b):
         main = bodies_main.get(k, ("mma",))
@@ -2458,6 +2837,12 @@ def serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_zamba(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_seamless(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_vision(dev))
     return launches
 
 
@@ -2629,10 +3014,16 @@ def serve_policy(cfg, kw, prompts, dev, ref) -> dict:
     return launches
 
 
+#: gemma3-12b's serve runs: full width, 24 of its 48 layers (the 5:1
+#: pattern kept: 20 swa, 4 attn), so the whole script stays inside the
+#: time a run may take
+GEMMA_LAYERS = 24
+
+
 def serve_gemma(dev) -> dict:
-    """gemma3-12b at full width and depth (48 layers, 40 ``swa`` with the
-    1024-slot ring and 8 ``attn``; about 23.5 GB of bf16 weights drawn on
-    the card from the seed): 8 requests of 256-2048 tokens (six past the
+    """gemma3-12b at full width and ``GEMMA_LAYERS`` of its 48 layers (20
+    ``swa`` with the 1024-slot ring and 4 ``attn``; about 12.7 GB of bf16
+    weights drawn on the card from the seed): 8 requests of 256-2048 tokens (six past the
     window) through ``PagedServingEngine`` and its decode and prefill
     profiles (prompts past the window, so both windows run the wrapped
     ring), then the same 8 through
@@ -2642,9 +3033,12 @@ def serve_gemma(dev) -> dict:
     run's launch counts."""
     import gc
     import torch
+    from repro_torch.config import local_global
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import PagedServingEngine, ServingEngine
-    cfg = get_config("gemma3-12b")
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              n_layers=GEMMA_LAYERS,
+                              block_pattern=local_global(GEMMA_LAYERS, 5))
     max_len = GEMMA["max_len"]
     kw = dict(max_rows=8, max_len=max_len, block_size=16, prefill_chunk=128,
               decode_steps=16, seed=SEED, device=dev)
@@ -2657,9 +3051,9 @@ def serve_gemma(dev) -> dict:
                               kw, prompts, dev)
     launches = {"gemma_paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
-                   prompt_len=1100)
+                   prompt_len=1153)
     profile_prefill(cfg, eng.params, kw, dev, label="gemma_paged_bf16",
-                    prompt_len=1153)
+                    prompt_len=1153, requests=2)
     params = eng.params
     del eng
     gc.collect()
@@ -2673,13 +3067,14 @@ def serve_gemma(dev) -> dict:
     return launches
 
 
-#: mixtral-8x7b on one card: full width, 16 of its 32 layers.  All 32
+#: mixtral-8x7b on one card: full width, 8 of its 32 layers.  All 32
 #: would hold about 93 GB of bf16 weights (a layer's experts are 3 x 8 x
 #: 4096 x 14336 x 2 B = 2.82 GB, its attention 84 MB) against the card's
 #: 80 GB, and the reference never packs expert weights, so quantization
-#: cannot close the gap; 16 layers are about 46.4 GB of blocks plus 0.52
-#: GB of embedding and untied head
-MIXTRAL_LAYERS = 16
+#: cannot close the gap; 16 fit (about 46.4 GB of blocks), and 8 (about
+#: 23.2 GB, plus 0.52 GB of embedding and untied head) keep the whole
+#: script inside the time a run may take
+MIXTRAL_LAYERS = 8
 
 
 def _moe_bytes(params) -> int:
@@ -2737,15 +3132,15 @@ def moe_sync_check(cfg, params, dev) -> dict:
 def serve_mixtral(dev) -> dict:
     """mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` of its 32 layers
     (every layer ``swa`` on a ring of 4096 slots with 8 experts, top-2;
-    about 47 GB of bf16 weights drawn on the card from the seed): 8
+    about 24 GB of bf16 weights drawn on the card from the seed): 8
     requests, 6 of 256-2048 tokens and 2 of 4160-4400 (past the window),
     64 new tokens each, through ``PagedServingEngine``
     (``mixtral_paged_bf16``, profiled in decode and prefill) and
     ``ServingEngine`` on the same weights (``mixtral_dense_bf16``, its
     share of tokens equal to the paged run's printed).  Launches by
     kernel and body are checked exactly as in every serve run (a prefill
-    chunk launches the ring form 16 times, a decode iteration the decode
-    kernel 16 times, all on ``mma``; the experts launch no port kernel).
+    chunk launches the ring form 8 times, a decode iteration the decode
+    kernel 8 times, all on ``mma``; the experts launch no port kernel).
     Printed, not gated: the share of claims dropped in the paged run's
     first decode step and first full prefill chunk and over the run
     (capacity ranks claims over the co-batch, so the slot run may
@@ -2779,9 +3174,9 @@ def serve_mixtral(dev) -> dict:
     del calls
     launches = {"mixtral_paged_bf16": res["launches"]}
     profile_decode(cfg, eng.params, kw, dev, label="mixtral_paged_bf16",
-                   prompt_len=1100)
+                   prompt_len=1153)
     profile_prefill(cfg, eng.params, kw, dev, label="mixtral_paged_bf16",
-                    prompt_len=1153)
+                    prompt_len=1153, requests=2)
     params = eng.params
     del eng
     gc.collect()
@@ -2849,20 +3244,27 @@ def _shared_views(eng) -> dict:
                 sum(seg.shared for seg in st.segs) for st in eng.stages]}
 
 
+#: zamba2-7b's serve runs: full width, 41 of its 81 layers (35 Mamba2,
+#: 6 positions of the shared attn block), so the whole script stays
+#: inside the time a run may take
+ZAMBA_LAYERS = 41
+
+
 def serve_zamba(dev) -> dict:
-    """zamba2-7b at full width and depth (81 layers: 68 Mamba2 and 13
-    positions of the one weight-shared attn block; about 11.4 GB of bf16
-    weights drawn on the card from the seed): 8 requests of 256-2048
+    """zamba2-7b at full width and ``ZAMBA_LAYERS`` of its 81 layers (35
+    Mamba2 and 6 positions of the one weight-shared attn block; about 6.2
+    GB of bf16 weights drawn on the card from the seed): 8 requests of
+    256-2048
     tokens, 64 new tokens each, through ``PagedServingEngine``
     (``zamba_paged_bf16``, profiled in decode and prefill) and
     ``ServingEngine`` (``zamba_dense_bf16``, its share of tokens equal to
     the paged run's printed), launches by kernel and body checked
-    exactly (a decode iteration: 95 norms, 13 decode attentions, 68
-    scans; a chunk: 94 norms, 13 paged prefills, 68 scans; every
+    exactly (a decode iteration: 48 norms, 6 decode attentions, 35
+    scans; a chunk: 47 norms, 6 paged prefills, 35 scans; every
     attention launch on ``mma`` at hd 112, every scan on
     ``state_lanes`` at d_state 64); then ``zamba_pipe_paged_bf16``, the
     paged run's requests through ``PagedPipelinedEngine`` in 2 stages
-    (layers 0-39 and 40-80, 6 and 7 shared positions), placed by the
+    (layers 0-19 and 20-40, 3 shared positions each), placed by the
     static tier, which must emit the paged run's tokens and launches at a
     peak within 5% of its memory, every stage on the engine's one shared
     set (``_shared_views``).  Returns each run's launch counts."""
@@ -2870,8 +3272,11 @@ def serve_zamba(dev) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    from repro_torch.config import every_kth
     from repro_torch.serving.pipeline import PagedPipelinedEngine
-    cfg = get_config("zamba2-7b")
+    cfg = dataclasses.replace(
+        get_config("zamba2-7b"), n_layers=ZAMBA_LAYERS,
+        block_pattern=every_kth(ZAMBA_LAYERS, "mamba2", "attn", 6))
     max_len = ZAMBA["max_len"]
     kw = dict(max_rows=8, max_len=max_len, block_size=16,
               prefill_chunk=ZAMBA["C"], decode_steps=16, seed=SEED,
@@ -2882,10 +3287,9 @@ def serve_zamba(dev) -> dict:
                               kw, prompts, dev)
     launches = {"zamba_paged_bf16": res["launches"]}
     mono = {"zamba_paged_bf16": (res, ref)}
-    profile_decode(cfg, eng.params, kw, dev, label="zamba_paged_bf16",
-                   prompt_len=1100)
-    # no ring to wrap: the 12 chunks of 385-token prompts, as for
-    # smollm-360m and falcon-mamba-7b
+    # no ring to wrap: prompts of 256 tokens, and the 12 chunks of
+    # 385-token prompts, as for smollm-360m and falcon-mamba-7b
+    profile_decode(cfg, eng.params, kw, dev, label="zamba_paged_bf16")
     profile_prefill(cfg, eng.params, kw, dev, label="zamba_paged_bf16")
     params = eng.params
     del eng
@@ -2905,6 +3309,203 @@ def serve_zamba(dev) -> dict:
     return launches
 
 
+def prefill_run(name, cfg, params, dev, rows: int = 8, prompt: int = 128,
+                k: int = 16, macro_steps: int = 4) -> dict:
+    """``Model.prefill`` at full width and depth in bf16: ``rows`` prompts
+    of ``prompt`` tokens with a frontend of seeded patch or frame
+    embeddings (drawn on the card), into dense caches of ``prompt + k *
+    macro_steps`` slots, then ``macro_steps`` calls of
+    ``decode_steps(k=k)`` on them (the cross layers reading real cross
+    K/V).  A warm-up pass first (not counted).  Prints the encoder's
+    time alone (an encoder-decoder; CUDA events), the prefill's, the
+    decode tok/s and peak memory; the launches, reset just before the
+    prefill and read after the last macro-step, must be what
+    ``expected_launches`` says of one prefill and ``k * macro_steps``
+    dense decode iterations, by kernel and body (the contiguous flash
+    form on ``flash_body``'s), and every token in the vocab."""
+    import torch
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_body
+    from repro_torch.models.model import Model
+    t_call = time.perf_counter()
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    src = cfg.n_image_tokens or cfg.encoder_seq
+    tokens = torch.randint(1, cfg.vocab_size, (rows, prompt), generator=gen,
+                           device=dev, dtype=torch.int32)
+    frontend = torch.randn((rows, src, cfg.d_model), generator=gen,
+                           device=dev).to(model.dtype)
+    batch = {"tokens": tokens, "frontend": frontend}
+    cache_len = prompt + k * macro_steps
+
+    def run():
+        logits, caches, _ = model.prefill(params, batch, cache_len)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter()
+        tok = torch.argmax(logits[:, -1, :cfg.vocab_size], -1).to(
+            torch.int32)[:, None]
+        emits = []
+        for i in range(macro_steps):
+            emits.append(model.decode_steps(model.one_stage(params, caches), {
+                "token": tok,
+                "pos": torch.full((rows,), prompt + i * k, dtype=torch.int32,
+                                  device=dev),
+                "budget": torch.full((rows,), k, dtype=torch.int32,
+                                     device=dev)}, k=k))
+            tok = emits[-1][:, -1:]
+        out = torch.cat(emits, 1).cpu()
+        return logits, caches, out, time.perf_counter() - t_pre
+
+    run()                                            # warm-up
+    torch.cuda.synchronize()
+    enc_ms = None
+    if cfg.is_encoder_decoder:
+        enc_ms = call_ms(lambda: model._encode(params, frontend), n=5,
+                         warmup=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    logits, caches, toks, decode_s = run()
+    launches = dict(_build.launches)
+    bodies = {kk: dict(v) for kk, v in _build.bodies.items()}
+    # the prefill alone, timed again on its own
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    model.prefill(params, batch, cache_len)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    expect, expect_bodies = expected_launches(
+        cfg, True, None, k * macro_steps, 0, launches, prefills=1)
+    cross = sum(float(c[n].float().abs().sum()) for c in caches for n in c
+                if n in ("xk", "xv"))
+    res = {"phase": "serve", "run": name, "path": "Model.prefill, then "
+           "decode_steps on the dense caches",
+           "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}",
+           "rows": rows, "prompt": prompt, "frontend": [rows, src,
+                                                        cfg.d_model],
+           "encoder_ms": enc_ms, "prefill_ms": prefill_ms,
+           "prefill_tok_per_s": rows * prompt / prefill_ms * 1e3,
+           "decode_iters": k * macro_steps, "decode_s": decode_s,
+           "decode_tok_per_s": rows * k * macro_steps / decode_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "cross_kv_abs_sum": cross, "launches": launches,
+           "launches_expected": expect, "bodies": bodies,
+           "bodies_expected": expect_bodies,
+           "seconds": time.perf_counter() - t_call}
+    emit(res)
+    if (not res["logits_finite"] or not cross > 0 or toks.shape != (
+            rows, k * macro_steps) or not ((toks >= 0)
+                                           & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{name}: non-finite logits, zero cross K/V or "
+                             f"tokens out of the vocab")
+    check_launches(name, cfg, launches, expect, bodies, expect_bodies,
+                   {"flash_attention": (flash_body(torch_dtype(cfg.dtype),
+                                                   cfg.head_dim),)})
+    return {name: launches}
+
+
+def serve_seamless(dev) -> dict:
+    """seamless-m4t-medium uncut (12 encoder and 12 decoder layers,
+    d_model 1024, 16 / 16 heads of 64, vocab 256206, untied; about 0.98 B
+    parameters, 2 GB in bf16) from the seed: 8 requests of 32-512
+    tokens, 64 new each, through ``PagedServingEngine``
+    (``seamless_paged_bf16``) and ``ServingEngine``
+    (``seamless_dense_bf16``, its share of tokens equal to the paged
+    run's), the cross K/V zeroed at admission as in the reference, every
+    decoder block running its enc_xattn over them (launches by kernel and
+    body checked exactly: one more norm a block, one cross read a block);
+    then ``seamless_prefill_bf16`` (``prefill_run``: 8 prompts of 128
+    with a seeded (8, 1024, 1024) frontend through the encoder, 4
+    macro-steps of 16).  Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = get_config(SEAMLESS)
+    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 18), 8, 32, 512,
+                     cfg.vocab_size)
+    res, ref, eng = serve_run("seamless_paged_bf16", PagedServingEngine,
+                              cfg, kw, prompts, dev)
+    launches = {"seamless_paged_bf16": res["launches"]}
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "seamless_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=1024, prefill_chunk=128, decode_steps=16,
+             seed=SEED, device=dev), prompts, dev, ref=ref, params=params)
+    launches["seamless_dense_bf16"] = res["launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(prefill_run("seamless_prefill_bf16", cfg, params, dev))
+    return launches
+
+
+#: llama-3.2-vision-90b on one card: full width, 30 of its 100 layers (the
+#: every-fifth pattern kept: 24 attn and 6 cross).  A layer is 0.856 B
+#: parameters (attention 151 M, MLP 705 M), 1.71 GB in bf16: 30 layers are
+#: about 51.4 GB, with 4.2 GB of embedding and untied head; all 100 would
+#: need about 175 GB against the card's 80 GB
+VISION_LAYERS = 30
+
+
+def serve_vision(dev) -> dict:
+    """llama-3.2-vision-90b at full width and ``VISION_LAYERS`` layers in
+    bfloat16, about 55.6 GB of weights drawn on the card from the seed: 8
+    requests of 256-1024 tokens, 64 new each, through
+    ``PagedServingEngine`` (``vision_paged_bf16``, profiled over one
+    decode macro-step and 4 prefill chunks) and ``ServingEngine``
+    (``vision_dense_bf16``, its share of tokens equal to the paged
+    run's), launches by kernel and body checked exactly (per decode
+    iteration 24 self-attention and 6 cross decode reads at pos 1600 over
+    the zeroed cross K/V; per chunk 24 paged prefills and 6 cross forms);
+    then ``vision_prefill_bf16`` (``prefill_run``: 8 prompts of 128 with a
+    seeded (8, 1601, 8192) frontend, 4 macro-steps of 16).  Returns each
+    run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.config import every_kth
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import PagedServingEngine, ServingEngine
+    cfg = dataclasses.replace(
+        get_config(VISION_ARCH), n_layers=VISION_LAYERS,
+        block_pattern=every_kth(VISION_LAYERS, "attn", "cross", 5))
+    max_len = VISION["max_len"]
+    kw = dict(max_rows=8, max_len=max_len, block_size=16,
+              prefill_chunk=VISION["C"], decode_steps=16, seed=SEED,
+              device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 20), 8, 256, 1024,
+                     cfg.vocab_size)
+    res, ref, eng = serve_run("vision_paged_bf16", PagedServingEngine, cfg,
+                              kw, prompts, dev)
+    launches = {"vision_paged_bf16": res["launches"]}
+    profile_decode(cfg, eng.params, kw, dev, label="vision_paged_bf16")
+    profile_prefill(cfg, eng.params, kw, dev, label="vision_paged_bf16",
+                    prompt_len=VISION["C"] + 1)
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, eng = serve_run(
+        "vision_dense_bf16", ServingEngine, cfg,
+        dict(max_batch=8, cache_len=max_len, prefill_chunk=VISION["C"],
+             decode_steps=16, seed=SEED, device=dev), prompts, dev, ref=ref,
+        params=params)
+    launches["vision_dense_bf16"] = res["launches"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(prefill_run("vision_prefill_bf16", cfg, params, dev))
+    return launches
+
+
 def _port_kernels(kernels) -> list:
     """The port's own kernels of a profile (each in an anonymous
     namespace of ``csrc/``), by device time: the per-kernel split of a
@@ -2915,14 +3516,23 @@ def _port_kernels(kernels) -> list:
             if "anonymous namespace" in e.key]
 
 
+#: decode iterations in a decode profile window: one macro-step of 8, half
+#: the serve runs' K (the profiler's cost grows with the launches it
+#: records, and its windows were about half of the serve phase's time)
+PROFILE_ITERS = 8
+
+
 def profile_decode(cfg, params, kw, dev, label: str,
-                   prompt_len: int = 256) -> dict:
-    """Where decode time goes in one steady macro-step of 8 rows with
-    prompts of ``prompt_len`` tokens (admission, prefill and the first
-    macro-step happen before the window).  The window runs twice on identical engines: once timed
-    without the profiler (the wall time), once under torch.profiler
-    (the device's busy time and the kernels by time).  The idle share is
-    one minus busy over the unprofiled wall time."""
+                   prompt_len: int = 257) -> dict:
+    """Where decode time goes in one steady macro-step of
+    ``PROFILE_ITERS`` decode iterations of 8 rows with prompts of
+    ``prompt_len`` tokens (admission, prefill and the first macro-step
+    happen before the window; 257 and 1153 prefill whole chunks of 128,
+    where 256 would take 8 chunks a row, 128 and the powers of two of
+    127).  The window runs twice on identical
+    engines: once timed without the profiler (the wall time), once under
+    torch.profiler (the device's busy time and the kernels by time).
+    The idle share is one minus busy over the unprofiled wall time."""
     t_call = time.perf_counter()
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2931,9 +3541,10 @@ def profile_decode(cfg, params, kw, dev, label: str,
                      prompt_len, cfg.vocab_size)
 
     def warm_engine():
-        eng = PagedServingEngine(cfg, params, **kw)
+        eng = PagedServingEngine(cfg, params,
+                                 **dict(kw, decode_steps=PROFILE_ITERS))
         for i, pr in enumerate(prompts):
-            eng.submit(Request(i, pr, max_new_tokens=32))
+            eng.submit(Request(i, pr, max_new_tokens=2 * PROFILE_ITERS))
         eng.step()               # admit + prefill all 8, first macro-step
         torch.cuda.synchronize()
         return eng
@@ -2989,7 +3600,7 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import PagedServingEngine, Request
-    prompts = _trace(np.random.default_rng(SEED + 3), 8, 256, 256,
+    prompts = _trace(np.random.default_rng(SEED + 3), 8, 257, 257,
                      cfg.vocab_size)
     rounds = 2
 
@@ -3045,9 +3656,10 @@ def profile_verify(cfg, params, kw, dev, label: str) -> dict:
 
 
 def profile_prefill(cfg, params, kw, dev, label: str,
-                    prompt_len: int = 385) -> dict:
-    """Where prefill time goes: admission of 4 requests of ``prompt_len``
-    tokens (385: 12 chunks of 128 at pos 0, 128 and 256), with no decode.
+                    prompt_len: int = 385, requests: int = 4) -> dict:
+    """Where prefill time goes: admission of ``requests`` requests of
+    ``prompt_len`` tokens (4 of 385: 12 chunks of 128 at pos 0, 128 and
+    256), with no decode.
     As in ``profile_decode``, the window runs once timed without the
     profiler and once under it on an identical engine; the idle share is
     one minus busy over the unprofiled wall time."""
@@ -3056,7 +3668,7 @@ def profile_prefill(cfg, params, kw, dev, label: str,
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import (PagedServingEngine, Request,
                                             chunk_sizes)
-    prompts = _trace(np.random.default_rng(SEED + 6), 4, prompt_len,
+    prompts = _trace(np.random.default_rng(SEED + 6), requests, prompt_len,
                      prompt_len, cfg.vocab_size)
     # a row prefills all of its prompt but the last token
     chunks = sum(len(chunk_sizes(len(p) - 1, kw["prefill_chunk"]))
@@ -3430,13 +4042,17 @@ def kernel_line(cases, launches_by_run) -> dict:
     the ring form, the decode step for the scan), with the launches of the
     serve run that drives it (``LAUNCH_RUN``); every case in ``cases``,
     gemma3-12b's hd 256 rows among them."""
+    def self_attn_hd64(c):
+        return c["shape"]["hd"] == 64 and "cross" not in c["shape"]
     main = {"rmsnorm": lambda c: (c["shape"] == [8, 960]
                                   and c["body"] == "add_norm"),
-            "paged_decode_attention": lambda c: c["shape"]["hd"] == 64,
+            "paged_decode_attention": self_attn_hd64,
             "paged_prefill_attention": lambda c: c["shape"]["pos"] == 256,
             "paged_chunk_attention": lambda c: True,
+            "paged_cross_attention": lambda c: (c["shape"]["hd"] == 128
+                                                and c["shape"]["B"] == 1),
             "ring_chunk_attention": lambda c: c["shape"]["pos"] == 3000,
-            "dense_decode_attention": lambda c: c["shape"]["hd"] == 64,
+            "dense_decode_attention": self_attn_hd64,
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
             "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],
             "selective_scan": lambda c: c["shape"]["T"] == 1,

@@ -12,7 +12,12 @@ dt_bias,A_log,D,out_proj}``, Mamba2 blocks with ``ln1.scale`` and
 ``mamba.{in_proj,conv_w,conv_b,bc_proj,dt_w,dt_bias,A_log,D,out_proj}`` —
 ``blocks.shared`` (the one parameter set of zamba2's weight-shared attn
 block, unstacked, whose positions hold None in ``blocks.segments``; None
-for the other models) and ``final_norm.scale``.
+for the other models) and ``final_norm.scale``.  A ``cross`` block holds
+``ln1.scale``, ``xattn.{wq,wk,wv,wo}`` (no bias) and its MLP; an
+encoder-decoder's attn blocks also ``ln_x.scale`` and
+``enc_xattn.{wq,wk,wv,wo}``, and its ``encoder`` subtree holds the
+encoder's own ``blocks`` (one stacked attn segment) and
+``final_norm.scale``, carried both ways like the decoder's.
 :func:`params_from_numpy` takes that tree as nested dicts and lists of
 numpy arrays (a caller holding JAX arrays maps ``np.asarray`` over it
 first) and returns the port's
@@ -40,7 +45,7 @@ import torch
 from repro_torch.models.moe import F32_LEAVES as MOE_F32_LEAVES
 from repro_torch.models.quantize import is_quantized
 from repro_torch.models.ssm import F32_LEAVES, MAMBA2_F32_LEAVES
-from repro_torch.models.transformer import build_segments
+from repro_torch.models.transformer import build_segments, encoder_config
 
 
 def _to_torch(a, device, dtype) -> torch.Tensor:
@@ -107,6 +112,14 @@ def params_from_numpy(tree: dict, cfg, device, dtype) -> dict:
            "final_norm": {"scale": leaf(tree["final_norm"]["scale"])}}
     if "lm_head" in tree:
         out["lm_head"] = {"w": leaf(tree["lm_head"]["w"])}
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "blocks": {"segments": [
+                block(p, seg.kind, seg.length > 1) for seg, p in zip(
+                    build_segments(encoder_config(cfg)),
+                    enc["blocks"]["segments"])], "shared": None},
+            "final_norm": {"scale": leaf(enc["final_norm"]["scale"])}}
     return out
 
 
@@ -142,4 +155,12 @@ def params_to_numpy(params: dict, cfg) -> dict:
            "final_norm": {"scale": leaf(params["final_norm"]["scale"])}}
     if "lm_head" in params:
         out["lm_head"] = {"w": leaf(params["lm_head"]["w"])}
+    if cfg.is_encoder_decoder:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "blocks": {"segments": [
+                block(p, seg.length > 1) for seg, p in zip(
+                    build_segments(encoder_config(cfg)),
+                    enc["blocks"]["segments"])], "shared": None},
+            "final_norm": {"scale": leaf(enc["final_norm"]["scale"])}}
     return out

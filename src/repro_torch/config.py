@@ -13,8 +13,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
-# Block kinds understood by the reference model (the port runs all but
-# "cross")
+# Block kinds understood by the reference model (the port runs them all)
 BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
 MLP_KINDS = ("dense", "moe", "none")
 
@@ -100,12 +99,14 @@ class ModelConfig:
         return -(-self.vocab_size // 256) * 256
 
     # --- parameter counting (what microservice.partition.decompose reads;
-    # the reference's counters for the block and MLP kinds the port runs)
+    # the reference's counters, term for term)
     def _attn_params(self, kind: str) -> int:
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
         p = d * h * hd + 2 * d * kv * hd + h * hd * d  # q, k, v, o
         if self.qkv_bias:
             p += h * hd + 2 * kv * hd
+        if kind == "cross":
+            p += 2 * d  # extra norms
         return p + 2 * d  # norms
 
     def _mlp_params(self) -> int:
@@ -128,9 +129,6 @@ class ModelConfig:
         return 3 * self.d_model * self.d_ff
 
     def _mamba_params(self, kind: str) -> int:
-        if kind not in ("mamba1", "mamba2"):
-            raise NotImplementedError(
-                f"{self.name}: block kind {kind!r} is not ported yet")
         d, di, ds = self.d_model, self.d_inner_eff, self.ssm_state
         p = d * 2 * di  # in_proj (x, z)
         p += self.conv_width * di  # depthwise conv
@@ -148,21 +146,21 @@ class ModelConfig:
         return p + 2 * d  # norms
 
     def layer_params(self, kind: str) -> int:
-        if kind in ("attn", "swa"):
+        if kind in ("attn", "swa", "cross"):
             return self._attn_params(kind) + self._mlp_params()
         return self._mamba_params(kind)
 
     def layer_active_params(self, kind: str) -> int:
-        if kind in ("attn", "swa"):
+        if kind in ("attn", "swa", "cross"):
             return self._attn_params(kind) + self._mlp_active_params()
         return self._mamba_params(kind)
 
     def _count(self, per_layer) -> int:
         """The embedding, the untied head, the final norm and every
-        layer, the weight-shared block's parameters once."""
-        if self.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{self.name}: encoder-decoder is not ported yet")
+        layer, the weight-shared block's parameters once; for an
+        encoder-decoder also the encoder's attn layers (dense MLPs) and
+        one cross-attention per decoder layer, counted as the reference
+        counts them."""
         n = self.vocab_size * self.d_model
         if not self.tie_embeddings:
             n += self.vocab_size * self.d_model
@@ -170,7 +168,12 @@ class ModelConfig:
         shared = self.shared_block_kind
         kinds = [b for b in self.block_pattern if b != shared]
         kinds += [shared] if shared in self.block_pattern else []
-        return n + sum(per_layer(b) for b in kinds)
+        n += sum(per_layer(b) for b in kinds)
+        if self.is_encoder_decoder:
+            n += self.n_encoder_layers * (self._attn_params("attn")
+                                          + 3 * self.d_model * self.d_ff)
+            n += self.n_layers * self._attn_params("cross")
+        return n
 
     def num_params(self) -> int:
         """Every parameter (the reference's ``num_params``, over the

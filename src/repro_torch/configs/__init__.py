@@ -6,7 +6,12 @@ attention, 5 sliding-window layers to 1 global), and the mixtures of
 experts ``mixtral-8x7b`` (sliding-window attention, 8 experts, top-2)
 and ``kimi-k2-1t-a32b`` (384 experts, top-8), and the hybrid
 ``zamba2-7b`` (Mamba2 layers with one weight-shared attn block every
-sixth layer).  Other architectures join with their families.
+sixth layer), the vision-language decoder ``llama-3.2-vision-90b``
+(a ``cross`` layer every fifth layer over 1601 image patch embeddings)
+and the encoder-decoder ``seamless-m4t-medium`` (12 bidirectional
+encoder layers over 1024 frame embeddings, 12 decoder layers each
+cross-attending to the encoder's output).  Other architectures join
+with their families.
 ``get_config(arch_id)`` returns the production
 :class:`~repro_torch.config.ModelConfig`, ``get_smoke_config`` the
 reduced CPU-testable variant.
@@ -24,6 +29,8 @@ _ARCH_MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "zamba2-7b": "zamba2_7b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -4,7 +4,7 @@
 // block table, with an online softmax in f32.  Keys are clamped at
 // max_len - 1 = nb * bs - 1.
 //
-// Two entry points share the bodies below:
+// Three entry points share the bodies below:
 // * rt_paged_prefill_attention: one request's prefill chunk (B = 1), its
 //   pos a host int;
 // * rt_paged_chunk_attention: the batched form the draft-verify round
@@ -17,6 +17,19 @@
 //   its row's pos, as the one-row launch does from the host's.  Row b of
 //   a batched launch runs exactly the instructions a one-row launch at
 //   pos[b] runs, so its output is bit-equal to that launch's.
+// * rt_paged_cross_attention: the cross form.  C queries of each of B
+//   rows attend to all n_keys slots [0, n_keys) of the row's blocks, with
+//   no causal mask: cross-attention over a source (image patches, the
+//   encoder's output) whose K/V sit in the row's cross blocks (the paged
+//   engine's cross pools through cross_tables, or a dense cache as B
+//   blocks of src slots).  Every CTA's key range is [0, n_keys), and the
+//   only mask is the tail of the last tile past n_keys - 1 (1601 = 100 x
+//   16 + 1 slots at llama-3.2-vision's image).  Same bodies, same
+//   shape-only rule; pos plays no part.  The reference computes this in
+//   jnp (src/repro/models/attention.py::cross_attention), outside any
+//   Pallas kernel; the causal forms cannot give it, since any pos that
+//   made key n_keys - 1 visible to a chunk's first query would let its
+//   later queries read past n_keys.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:72, body _flash_kernel) in the
@@ -116,7 +129,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                      const T* __restrict__ vp, const int* __restrict__ table,
                      const int* __restrict__ pos_dev, T* __restrict__ out,
                      int C, int H, int KV, int hd, int bs, int nb,
-                     int pos_host, float scale) {
+                     int pos_host, int n_keys, float scale) {
   // row b of the batch: its queries, outputs, table and position
   const int b = blockIdx.z;
   const int pos = pos_dev != nullptr ? pos_dev[b] : pos_host;
@@ -152,8 +165,11 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();
 
   const int max_len = nb * bs;
+  // the cross form (n_keys > 0) reads [0, n_keys) for every query
+  const bool cross = n_keys > 0;
   const int last_q = pos + q0 + nq - 1;            // tile's last position
-  const int klast = last_q < max_len - 1 ? last_q : max_len - 1;
+  const int klast =
+      cross ? n_keys - 1 : (last_q < max_len - 1 ? last_q : max_len - 1);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -167,7 +183,7 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       const int ki = e - qi * kTileK;
       const int kpos = k0 + ki;
       float s = rt::kNegInf;
-      if (qi < nq && kpos <= pos + q0 + qi && kpos <= klast) {
+      if (qi < nq && (cross || kpos <= pos + q0 + qi) && kpos <= klast) {
         const float* qr = qs + qi * hd;
         const float* kr = ks + ki * (hd + 1);
         float dot = 0.f;
@@ -217,7 +233,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* pos_dev, void* out, int B,
                    int C, int H, int KV, int hd, int bs, int nb, int pos,
-                   float scale, cudaStream_t stream) {
+                   int n_keys, float scale, cudaStream_t stream) {
   const size_t floats = static_cast<size_t>(kTileQ) * hd * 2 +
                         static_cast<size_t>(kTileK) * (hd + 1) +
                         static_cast<size_t>(kTileK) * hd +
@@ -230,7 +246,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(pos_dev), static_cast<T*>(out), C, H, KV, hd,
-      bs, nb, pos, scale);
+      bs, nb, pos, n_keys, scale);
   return cudaGetLastError();
 }
 
@@ -273,7 +289,8 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const int* __restrict__ table,
                const int* __restrict__ pos_dev,
                __nv_bfloat16* __restrict__ out, int C, int H, int KV, int bs,
-               int nb, int pos_host, float scale_log2, int splits) {
+               int nb, int pos_host, int n_keys, float scale_log2,
+               int splits) {
   using T = Tiles<HD>;
   constexpr int kTileK = T::kTileK;
   constexpr int kSpan = T::kSpan;
@@ -300,7 +317,9 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.x % splits;
   const int r0 = blockIdx.x / splits * kRows;
   const int rlast = min(r0 + kRows, rows) - 1;
-  const int klast = min(pos + rlast / G, nb * bs - 1);
+  // the cross form (n_keys > 0): every row's last key is n_keys - 1
+  const bool cross = n_keys > 0;
+  const int klast = cross ? n_keys - 1 : min(pos + rlast / G, nb * bs - 1);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = (tid >> 5) % kRowWarps;   // this warp's 16 rows
@@ -355,11 +374,12 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int tig = lane & 3;
   const int wr0 = r0 + warp * 16;
   const bool live = wr0 <= rlast;
-  const int wq_first = pos + wr0 / G;
-  const int wq_last = pos + min(wr0 + 15, rlast) / G;
+  const int wq_first = cross ? klast : pos + wr0 / G;
+  const int wq_last = cross ? klast : pos + min(wr0 + 15, rlast) / G;
   const int ra = wr0 + grp;
-  const int qpa = min(pos + ra / G, klast);        // last key of row ra
-  const int qpb = min(pos + (ra + 8) / G, klast);  // and of row ra + 8
+  const int qpa = cross ? klast : min(pos + ra / G, klast);  // last key of ra
+  const int qpb =
+      cross ? klast : min(pos + (ra + 8) / G, klast);  // and of row ra + 8
 
   uint32_t qf[T::kWide ? 1 : kKSteps][4];   // Q in registers (not wide)
   float o[HD / 8][4];
@@ -608,8 +628,8 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
 template <int HD>
 cudaError_t launch(const void* q, const void* kp, const void* vp,
                    const void* table, const void* pos_dev, void* out, int B,
-                   int C, int H, int KV, int bs, int nb, int pos, float scale,
-                   int splits, cudaStream_t stream) {
+                   int C, int H, int KV, int bs, int nb, int pos, int n_keys,
+                   float scale, int splits, cudaStream_t stream) {
   const size_t bytes = smem_bytes<HD>();
   cudaError_t err = rt::allow_smem(prefill_kernel<HD>, bytes);
   if (err != cudaSuccess) return err;
@@ -633,7 +653,7 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
       static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), static_cast<const int*>(table),
       static_cast<const int*>(pos_dev), static_cast<__nv_bfloat16*>(out), C,
-      H, KV, bs, nb, pos, scale * kLog2e, splits);
+      H, KV, bs, nb, pos, n_keys, scale * kLog2e, splits);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -642,29 +662,31 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 template <int HD>
 cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
                      const void* table, const void* pos_dev, void* out, int B,
-                     int C, int H, int KV, int bs, int nb, int pos,
+                     int C, int H, int KV, int bs, int nb, int pos, int n_keys,
                      float scale, cudaStream_t s) {
   if (hd == HD)
     return launch<HD>(q, kp, vp, table, pos_dev, out, B, C, H, KV, bs, nb,
-                      pos, scale, 1, s);
+                      pos, n_keys, scale, 1, s);
   if constexpr (HD > 16)
     return dispatch<HD - 16>(hd, q, kp, vp, table, pos_dev, out, B, C, H, KV,
-                             bs, nb, pos, scale, s);
+                             bs, nb, pos, n_keys, scale, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace mma
 
-// Both entry points: B rows, each row's pos from pos_dev when it is not
-// null, else the host's pos.  splits (1 to 8) is read by the wide mma
-// body only; the others take 1.
+// Every entry point: B rows, each row's pos from pos_dev when it is not
+// null, else the host's pos; n_keys > 0 selects the cross form (keys
+// [0, n_keys), no causal mask, pos unused), 0 the causal one.  splits (1
+// to 8) is read by the wide mma body only; the others take 1.
 cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
                 const void* tables, const void* pos_dev, void* out, int B,
                 int C, int H, int KV, int hd, int bs, int nb, int pos,
-                float scale, int dtype, int body, int splits, cudaStream_t s) {
+                int n_keys, float scale, int dtype, int body, int splits,
+                cudaStream_t s) {
   if (B <= 0 || C <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0 ||
-      B > 65535)
+      B > 65535 || n_keys < 0 || n_keys > nb * bs)
     return cudaErrorInvalidValue;
   if (body == rt::kBodyMma) {
     const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
@@ -675,19 +697,19 @@ cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
     if (hd == 256) {
       if (splits < 1 || splits > mma::kMaxSplits) return cudaErrorInvalidValue;
       return mma::launch<256>(q, k_pool, v_pool, tables, pos_dev, out, B, C,
-                              H, KV, bs, nb, pos, scale, splits, s);
+                              H, KV, bs, nb, pos, n_keys, scale, splits, s);
     }
     if (hd % 16 != 0 || hd > 128 || splits != 1) return cudaErrorInvalidValue;
     return mma::dispatch<128>(hd, q, k_pool, v_pool, tables, pos_dev, out, B,
-                              C, H, KV, bs, nb, pos, scale, s);
+                              C, H, KV, bs, nb, pos, n_keys, scale, s);
   }
   if (body != rt::kBodyCudaCore) return cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k_pool, v_pool, tables, pos_dev, out, B, C, H, KV,
-                         hd, bs, nb, pos, scale, s);
+                         hd, bs, nb, pos, n_keys, scale, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, pos_dev, out, B,
-                                 C, H, KV, hd, bs, nb, pos, scale, s);
+                                 C, H, KV, hd, bs, nb, pos, n_keys, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -701,8 +723,8 @@ extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           int dtype, int body, int splits,
                                           void* stream) {
   return static_cast<int>(run(q, k_pool, v_pool, table, nullptr, out, 1, C, H,
-                              KV, hd, bs, nb, pos, scale, dtype, body, splits,
-                              static_cast<cudaStream_t>(stream)));
+                              KV, hd, bs, nb, pos, 0, scale, dtype, body,
+                              splits, static_cast<cudaStream_t>(stream)));
 }
 
 // q (B, C, H, hd), tables (B, nb), pos (B,) int32 on the device, out like q.
@@ -714,6 +736,21 @@ extern "C" int rt_paged_chunk_attention(const void* q, const void* k_pool,
                                         int body, int splits, void* stream) {
   if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(q, k_pool, v_pool, tables, pos, out, B, C, H,
-                              KV, hd, bs, nb, 0, scale, dtype, body, splits,
+                              KV, hd, bs, nb, 0, 0, scale, dtype, body, splits,
                               static_cast<cudaStream_t>(stream)));
+}
+
+// The cross form: q (B, C, H, hd), tables (B, nb), out like q; every
+// query attends to slots [0, n_keys) of its row's blocks, 1 <= n_keys <=
+// nb * bs.
+extern "C" int rt_paged_cross_attention(const void* q, const void* k_pool,
+                                        const void* v_pool, const void* tables,
+                                        void* out, int B, int C, int H, int KV,
+                                        int hd, int bs, int nb, int n_keys,
+                                        float scale, int dtype, int body,
+                                        int splits, void* stream) {
+  if (n_keys <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(run(q, k_pool, v_pool, tables, nullptr, out, B, C, H,
+                              KV, hd, bs, nb, 0, n_keys, scale, dtype, body,
+                              splits, static_cast<cudaStream_t>(stream)));
 }

@@ -43,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "paged_prefill_attention": 0,
                             "paged_chunk_attention": 0,
+                            "paged_cross_attention": 0,
                             "ring_chunk_attention": 0,
                             "flash_attention": 0,
                             "dense_decode_attention": 0,
@@ -61,7 +62,8 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
-                    "paged_chunk_attention", "ring_chunk_attention",
+                    "paged_chunk_attention", "paged_cross_attention",
+                    "ring_chunk_attention",
                     "dense_decode_attention", "quant_matmul_int8",
                     "quant_matmul_int4")},
     "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
@@ -174,6 +176,10 @@ _SIGNATURES = {
     # q, k_pool, v_pool, tables, pos (device), out, B, C, H, KV, hd, bs,
     # nb, scale, dtype, body, splits, stream
     "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _F, _I, _I, _I, _P),
+    # q, k_pool, v_pool, tables, out, B, C, H, KV, hd, bs, nb, n_keys,
+    # scale, dtype, body, splits, stream
+    "rt_paged_cross_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, k_new, v_new, pos (device, or null), out,
     # C, H, KV, hd, bs, nb, pos (host), w, scale, dtype, body, splits,

@@ -45,6 +45,17 @@ round).  The host never reads ``pos``, and the grid depends on B, C, H
 and KV only.  Row b's output is bit-equal to a one-row call at
 ``pos[b]``, since the kernel runs the same instructions for it.
 
+The cross form :func:`paged_cross_attention` runs the same kernel and
+bodies for cross-attention: C queries of each of B rows attend to every
+one of the first ``n_keys`` slots of the row's blocks, with no causal
+mask (the reference computes it in jnp, ``cross_attention``, over a
+source of image patches or encoder frames).  A cross layer's chunk
+reads the paged engine's cross pools through the row's ``cross_tables``
+(B = 1), and ``Model.prefill`` the dense cross caches of B rows through
+identity tables (B blocks of ``n_keys`` slots).  Every CTA's key range is
+``[0, n_keys)``; only the last tile's tail past ``n_keys - 1`` is
+masked; the body is :func:`prefill_body`'s.
+
 The windowed form :func:`ring_chunk_attention` (``window > 0`` in the
 TPU kernel) is the swa branch of the reference's chunk attention: C
 queries of one request attend to the w keys of its sliding-window ring
@@ -339,6 +350,79 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_chunk_attention")
+    return out
+
+
+def paged_cross_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, tables: torch.Tensor,
+                                n_keys: int,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """The cross form: gather each row's first ``n_keys`` slots, f32
+    scores, softmax over all of them (no mask), P V, as the reference's
+    ``cross_attention`` computes them (``_gqa_scores`` / ``_gqa_out``)
+    over the row's cross K/V.  q (B,C,H,hd); pools (NB,bs,KV,hd); tables
+    (B,nb) with nb * bs >= n_keys.  Returns (B,C,H,hd) in q.dtype."""
+    b, c, h, hd = q.shape
+    kv = k_pool.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    kg = paged_gather(k_pool, tables)[:, :n_keys].float()
+    vg = paged_gather(v_pool, tables)[:, :n_keys].float()
+    qg = q.reshape(b, c, kv, g, hd).float()
+    scores = torch.einsum("bqngh,bsnh->bngqs", qg, kg) * scale  # (B,KV,G,C,S)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngqs,bsnh->bqngh", probs, vg)
+    return out.reshape(b, c, h, hd).to(q.dtype)
+
+
+def paged_cross_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, tables: torch.Tensor,
+                          n_keys: int, scale: Optional[float] = None,
+                          _body: Optional[str] = None) -> torch.Tensor:
+    """Cross-attention of B rows of C queries over the first ``n_keys``
+    slots of each row's blocks, unmasked; see
+    :func:`paged_cross_attention_plain` for the contract and
+    :func:`paged_prefill_attention` for ``_body``.  The pools are read in
+    place."""
+    if q.device.type == "cpu":
+        return paged_cross_attention_plain(q, k_pool, v_pool, tables, n_keys,
+                                           scale)
+    b, c, h, hd = q.shape
+    nbp, bs, kv, hd_k = k_pool.shape
+    nb = tables.shape[-1]
+    n_keys = int(n_keys)
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_pool, v_pool, tables)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("paged_cross_attention: all tensors must lie on one "
+                         "CUDA device")
+    if (hd_k != hd or v_pool.shape != k_pool.shape or h % kv
+            or tables.shape != (b, nb) or b > 65535
+            or not 0 < n_keys <= nb * bs):
+        raise ValueError(
+            f"paged_cross_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+            f"{tuple(tables.shape)}, n_keys {n_keys} do not fit")
+    if (k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or tables.dtype != torch.int32):
+        raise TypeError("paged_cross_attention: q and pools must share a "
+                        "dtype; tables must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_cross_attention: the kernel takes contiguous "
+                         "tensors")
+    out = torch.empty_like(q)
+    body = _body or prefill_body(
+        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
+    splits = prefill_splits(c, h, kv, hd, n_keys) if body == "mma" else 1
+    lib = _build.library()
+    _build.launches["paged_cross_attention"] += 1
+    _build.bodies["paged_cross_attention"][body] += 1
+    _build.check(lib.rt_paged_cross_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        out.data_ptr(), b, c, h, kv, hd, bs, nb, n_keys, float(scale),
+        _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "paged_cross_attention")
     return out
 
 

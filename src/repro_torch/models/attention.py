@@ -47,12 +47,26 @@ contiguous form of the flash kernel through
 gradient is torch ops; the kernel reads the model's ``(B, S, heads,
 hd)`` projections in place, as transposed views.
 
+Cross-attention (``cross`` layers over image patches, an encoder-decoder's
+``enc_xattn`` over the encoder's output) has no rotary and no mask: a
+query attends to every one of the ``src`` source slots, whose K/V
+:func:`make_cross_kv` projects once (``Model.prefill``) into the cross
+caches, dense ``(B, src, KV, hd)`` rows or the paged engine's cross
+pools ``(NB, bs, KV, hd)`` read in place through ``cross_tables``
+(:func:`paged_cross_view`).  A decode step reads them with the decode
+kernels at ``pos = src - 1`` for every row (all slots valid, the tail of
+the last block masked); a chunk, and ``Model.prefill``, with the flash
+kernel's cross form (``kernels/flash_attention.py::paged_cross_attention``,
+keys ``[0, src)``, no causal mask), a dense cache taken as B blocks of
+``src`` slots through identity tables.
+
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
 which inactive decode rows may write and nobody reads unmasked.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -61,14 +75,17 @@ from repro_torch.kernels.decode_attention import (dense_decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  paged_chunk_attention,
+                                                 paged_cross_attention,
                                                  paged_prefill_attention,
                                                  ring_chunk_attention)
 from repro_torch.models.layers import _dense_init, rotary
 from repro_torch.models.quantize import qdot
 
 
-def attention_init(generator, cfg, dtype, device, n: int) -> dict:
-    """``n`` stacked layers of q/k/v/o projections, ``(n, in, out)``."""
+def attention_init(generator, cfg, dtype, device, n: int,
+                   cross: bool = False) -> dict:
+    """``n`` stacked layers of q/k/v/o projections, ``(n, in, out)``; a
+    cross-attention (``cross``) has no qkv bias, as in the reference."""
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": _dense_init(generator, (n, d, h * hd), dtype, device),
@@ -76,7 +93,7 @@ def attention_init(generator, cfg, dtype, device, n: int) -> dict:
         "wv": _dense_init(generator, (n, d, kv * hd), dtype, device),
         "wo": _dense_init(generator, (n, h * hd, d), dtype, device),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((n, h * hd), dtype=dtype, device=device)
         p["bk"] = torch.zeros((n, kv * hd), dtype=dtype, device=device)
         p["bv"] = torch.zeros((n, kv * hd), dtype=dtype, device=device)
@@ -141,6 +158,63 @@ def self_attention(params, x, positions, cfg, kind: str,
     o = FlashAttentionFn.apply(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2), causal, window, None)
     return _out(params, o.transpose(1, 2), cfg), {"k": k, "v": v}
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_at(b: int, value: int, device) -> torch.Tensor:
+    """A (b,) int32 tensor of ``value`` on ``device``, built once per
+    shape: the ``pos`` of a cross read (``src - 1``, every slot valid)."""
+    return torch.full((b,), value, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _identity_tables(b: int, device) -> torch.Tensor:
+    """Tables (b, 1) that take a dense cache (B, S, KV, hd) as a pool of B
+    blocks of S slots, row r's block being r; built once per shape."""
+    return torch.arange(b, dtype=torch.int32, device=device)[:, None]
+
+
+def make_cross_kv(params, src, cfg) -> dict:
+    """K/V (B, S, KV, hd) of a source (B, S, D) (image patches or the
+    encoder's output), no rotary: the reference's ``make_cross_kv``."""
+    k, v = _proj_kv(params, src, cfg)
+    return {"k": k, "v": v}
+
+
+def paged_cross_view(cache: dict, paged: dict, src: int) -> dict:
+    """The rows' cross K/V over paged pools: the layer's cross pools
+    ``xk`` / ``xv`` (NB, bs, KV, hd), the rows' ``cross_tables`` (B,
+    nb_cross) and the source length.  Where the reference's
+    ``paged_cross_view`` gathers each row's first ``src`` slots into
+    (B, src, KV, hd), the port's kernels read the pools in place through
+    the tables (``kernels.decode_attention.paged_gather`` gives the
+    reference's view)."""
+    return {"k": cache["xk"], "v": cache["xv"],
+            "tables": paged["cross_tables"], "len": src}
+
+
+def cross_attention(params, x, kv: dict, cfg,
+                    decode: bool = False) -> torch.Tensor:
+    """x (B,T,D) attends to precomputed source K/V (the reference's
+    ``cross_attention``): queries without rotary, no mask, every source
+    slot.  ``kv`` is dense {"k","v"} (B, S, KV, hd) or a
+    :func:`paged_cross_view`.  ``decode`` (T = 1, a decode step) reads
+    them with the decode kernels at pos ``S - 1``; otherwise the flash
+    kernel's cross form runs (a dense ``kv`` as B blocks of S slots).
+    Returns (B,T,D)."""
+    q = _proj_q(params, x, cfg)                # no rotary across modalities
+    b = x.shape[0]
+    k, v = kv["k"], kv["v"]
+    tables = kv.get("tables")
+    n = k.shape[1] if tables is None else kv["len"]
+    if decode:
+        pos = _rows_at(b, n - 1, x.device)
+        o = (dense_decode_attention(q[:, 0], k, v, pos) if tables is None
+             else paged_decode_attention(q[:, 0], k, v, tables, pos))
+        return _out(params, o[:, None], cfg)
+    if tables is None:
+        tables = _identity_tables(b, x.device)
+    return _out(params, paged_cross_attention(q, k, v, tables, n), cfg)
 
 
 def _ring_chunk(params, x, cache: dict, table, pos, w: int, cfg):
@@ -320,8 +394,8 @@ def chunk_self_attention(params, x, cache: dict, pos, cfg,
         bidx = torch.arange(b, device=x.device)[:, None]
         k_cache[bidx, slots] = k_new
         v_cache[bidx, slots] = v_new
-        tables = torch.arange(b, dtype=torch.int32, device=x.device)[:, None]
-        o = paged_chunk_attention(q, k_cache, v_cache, tables, pos)
+        o = paged_chunk_attention(q, k_cache, v_cache,
+                                  _identity_tables(b, x.device), pos)
         return _out(params, o, cfg), cache
     if b != 1:
         raise ValueError(f"dense chunk attention at a host pos prefills one "

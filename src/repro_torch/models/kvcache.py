@@ -1,24 +1,29 @@
 """KV caches and SSM state: dense slot caches, and the paged block
 ledger with its torch pools.
 
-Port of ``repro/models/kvcache.py`` for the block kinds the port runs
-(``attn``, ``swa``, ``mamba1`` and ``mamba2``).  :func:`cache_struct`
+Port of ``repro/models/kvcache.py`` for every block kind (``attn``,
+``swa``, ``cross``, ``mamba1`` and ``mamba2``).  :func:`cache_struct`
 builds the slot engines' dense caches per segment: ``{"k","v"}`` of
 ``(n_layers, batch, seq_len, kv_heads, hd)`` for attn, ``min(window,
 seq_len)`` slots instead of ``seq_len`` for a sliding-window ring,
+``{"xk","xv"}`` of ``(n_layers, batch, src, kv_heads, hd)`` for a
+``cross`` layer (``src`` = ``n_image_tokens``) and, beside ``k`` / ``v``,
+for each attn layer of an encoder-decoder (``src`` = ``encoder_seq``),
 ``{"h","conv"}`` of ``(n_layers, batch, d_inner, d_state)`` f32 (Mamba2:
 ``(n_layers, batch, n_heads, headdim, d_state)``, the same elements by
 head) and ``(n_layers, batch, W-1, d_inner)`` for a Mamba layer; a
 weight-shared attn position is a segment of its own, with its own cache.
-The host-side ledger :class:`PagedCache` is the reference's attn and swa
-groups (free lists, the attn group's refcounts and copy-on-write prefix
-index, ``check()``, and the versioned ``meta()`` snapshot, which here
-returns int32 tensors on the ledger's device); the reference's cross-KV
-blocks join with the families that have them.  :meth:`PagedCache.struct`
-builds torch pools ``(n_layers, num_blocks + 1, block_size, kv_heads,
-hd)`` per attn segment, ``(n_layers, max_rows * nb_swa + 1, block_size,
-kv_heads, hd)`` per ring segment and ``max_rows`` state rows per Mamba
-segment.
+The host-side ledger :class:`PagedCache` is the reference's attn, swa and
+cross groups (free lists, the attn group's refcounts and copy-on-write
+prefix index, ``check()``, and the versioned ``meta()`` snapshot, which
+here returns int32 tensors on the ledger's device).
+:meth:`PagedCache.struct` builds torch pools ``(n_layers, num_blocks + 1,
+block_size, kv_heads, hd)`` per attn segment, ``(n_layers, max_rows *
+nb_swa + 1, block_size, kv_heads, hd)`` per ring segment, cross pools
+``xk`` / ``xv`` of ``(n_layers, max_rows * nb_cross + 1, block_size,
+kv_heads, hd)`` per cross segment (and beside each attn segment's pools
+for an encoder-decoder), read in place by the kernels, and ``max_rows``
+state rows per Mamba segment.
 
 Caches and pools are **updated in place** — by the model's KV and
 state writes, by :func:`paged_copy_blocks`, :func:`paged_reset_row` and
@@ -33,14 +38,17 @@ Cache layout invariants (as in the reference):
   read through them is masked by position;
 * stale attn/swa KV needs no zeroing on block reuse — attention masks
   slots above ``pos`` (and ring slots not yet written by the request);
+* cross KV (``xk`` / ``xv``) is *not* position-masked, so a request's
+  cross blocks (dense: its row) are zeroed at admission (token requests
+  carry no frontend; only ``Model.prefill`` writes real cross K/V);
   SSM state rows carry no position, so a row is zeroed when a request
   is admitted to it (:func:`paged_reset_row`);
 * attn-pool blocks may be **shared** between requests under
   copy-on-write prefix sharing: a block's content is a pure function of
   the token-id prefix it caches, a per-block refcount tracks its owners,
   and any write to a block with refcount > 1 first copies it.  Sharing
-  is gated off for SSM models and sliding-window rings, whose
-  per-request state a skipped prefill would not rebuild.
+  is gated off for SSM models, sliding-window rings and cross-attention,
+  whose per-request state a skipped prefill would not rebuild.
 """
 from __future__ import annotations
 
@@ -55,11 +63,25 @@ from repro_torch.models.transformer import (MAMBA_KINDS, build_segments,
                                             check_supported, segment_range)
 
 
+def cross_source(cfg) -> int:
+    """Source slots of a ``cross`` layer's K/V: the image patches, or the
+    encoder's frames (0 for a model with no cross-attention)."""
+    if "cross" in cfg.block_pattern or cfg.is_encoder_decoder:
+        return cfg.n_image_tokens or cfg.encoder_seq
+    return 0
+
+
 def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
     """One segment's dense cache leaves for ``rows`` rows: name ->
     (shape, dtype).  A Mamba layer's ``h`` is float32 whatever the
     model dtype (Mamba2's by head: ``(nh, headdim, d_state)``); a
-    sliding-window ring keeps ``min(window, seq_len)`` slots."""
+    sliding-window ring keeps ``min(window, seq_len)`` slots; cross K/V
+    ``xk`` / ``xv`` keep the source's slots (a ``cross`` layer's alone,
+    an encoder-decoder's attn layer's beside its ``k`` / ``v``)."""
+    head = (cfg.n_kv_heads, cfg.head_dim)
+    if seg.kind == "cross":
+        shape = (seg.length, rows, cross_source(cfg), *head)
+        return {"xk": (shape, dtype), "xv": (shape, dtype)}
     if seg.kind in MAMBA_KINDS:
         di, ds = cfg.d_inner_eff, cfg.ssm_state
         state = ((di, ds) if seg.kind == "mamba1" else
@@ -68,8 +90,12 @@ def _leaves(cfg, seg, rows: int, seq_len: int, dtype) -> dict:
                 "conv": ((seg.length, rows, cfg.conv_width - 1, di), dtype)}
     if seg.kind == "swa" and cfg.window:
         seq_len = min(cfg.window, seq_len)
-    shape = (seg.length, rows, seq_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, dtype), "v": (shape, dtype)}
+    shape = (seg.length, rows, seq_len, *head)
+    out = {"k": (shape, dtype), "v": (shape, dtype)}
+    if cfg.is_encoder_decoder:
+        shape = (seg.length, rows, cfg.encoder_seq, *head)
+        out.update(xk=(shape, dtype), xv=(shape, dtype))
+    return out
 
 
 def _segments(cfg, layers) -> list:
@@ -84,7 +110,8 @@ def cache_struct(cfg, batch: int, seq_len: int, dtype, device="cuda",
     """Dense slot caches, one dict per segment (the reference's
     ``cache_struct``): ``{"k","v"}`` leaves ``(n_layers, batch,
     seq_len, kv_heads, hd)`` for attn (``min(window, seq_len)`` slots
-    for a ring), ``{"h","conv"}`` for Mamba (``h`` in float32),
+    for a ring), ``{"xk","xv"}`` of the source's slots for cross K/V
+    (:func:`_leaves`), ``{"h","conv"}`` for Mamba (``h`` in float32),
     zero-filled on ``device``.  ``layers=(lo, hi)`` restricts them to
     that decoder layer range (a pipeline stage's slice, aligned with
     ``transformer.segment_range``).  The model writes them in place."""
@@ -125,6 +152,15 @@ class PagedCache:
     :attr:`swa_tables` ``(max_rows, nb_swa)``; ``window_eff = min(window,
     max_len)`` is the ring's size.  Ring blocks are never shared and
     never grow.
+
+    **Cross K/V** (configs with ``cross`` layers or an encoder,
+    :attr:`cross_src` source slots).  Each request holds ``nb_cross =
+    ceil(cross_src / block_size)`` blocks of a ``cross`` group
+    (``max_rows * nb_cross`` blocks, its own free list and scratch block
+    0) from admission to release, mapped by :attr:`cross_tables`
+    ``(max_rows, nb_cross)``, allocated all-or-nothing with the rest of
+    an admission and zeroed by the engine then (cross reads are not
+    position-masked).  Never shared, never grown.
 
     The ledger is pure numpy/python — deterministic LIFO free lists,
     no device state.  Pool tensors are built separately by
@@ -174,14 +210,17 @@ class PagedCache:
         self.window_eff = min(cfg.window, max_len) if self.has_swa else 0
         self.nb_swa = (-(-self.window_eff // block_size)
                        if self.has_swa else 0)
+        self.cross_src = cross_source(cfg)
+        self.nb_cross = -(-self.cross_src // block_size)
         self.num_blocks = (max_rows * self.nb_logical
                            if num_blocks is None else num_blocks)
         self._groups = {"attn": self.num_blocks,
-                        "swa": max_rows * self.nb_swa}
+                        "swa": max_rows * self.nb_swa,
+                        "cross": max_rows * self.nb_cross}
         # prefix sharing: only the attn pool is content-addressed (SSM
-        # state and the SWA ring are per-request state a skipped prefill
-        # would not rebuild)
-        self.sharing_supported = not (self.has_swa
+        # state, the SWA ring and cross K/V are per-request state a
+        # skipped prefill would not rebuild)
+        self.sharing_supported = not (self.has_swa or self.nb_cross
                                       or kinds & set(MAMBA_KINDS))
         self.share_prefixes = bool(share_prefixes) and self.sharing_supported
         # per-block owner count; a block is free iff refcount 0
@@ -205,6 +244,8 @@ class PagedCache:
                       for g in self._groups}
         self.tables = np.zeros((max_rows, self.nb_logical), np.int32)
         self.swa_tables = np.zeros((max_rows, max(self.nb_swa, 1)), np.int32)
+        self.cross_tables = np.zeros((max_rows, max(self.nb_cross, 1)),
+                                     np.int32)
         # incremental device snapshot: the ledger version bumps on every
         # table mutation (admit/growth/release/preempt); meta() re-uploads
         # only when the version moved, so steady-state decode reuses one
@@ -224,7 +265,10 @@ class PagedCache:
         Mirrors the reference's ``struct`` segment-for-segment: attn
         leaves ``{"k","v"}`` are ``(n_layers, num_blocks + 1,
         block_size, kv_heads, hd)`` pools (+1 for the scratch block),
-        ring leaves the same with ``max_rows * nb_swa + 1`` blocks,
+        ring leaves the same with ``max_rows * nb_swa + 1`` blocks, cross
+        leaves ``{"xk","xv"}`` with ``max_rows * nb_cross + 1`` (a
+        ``cross`` segment's alone, an encoder-decoder's beside each attn
+        segment's ``k`` / ``v``),
         Mamba leaves ``{"h","conv"}`` keep ``max_rows`` state rows;
         zero-filled torch tensors, written in place by the model.
         ``device`` defaults to the ledger's own (``"cuda"`` unless
@@ -240,12 +284,19 @@ class PagedCache:
                      for name, (shape, dt)
                      in _leaves(cfg, seg, self.max_rows, 0, dtype).items()}
             else:
-                group = ("swa" if seg.kind == "swa" and cfg.window
-                         else "attn")
-                nb = self._groups[group] + 1
-                c = {name: torch.zeros((seg.length, nb, *block),
-                                       dtype=dtype, device=dev)
-                     for name in ("k", "v")}
+                c = {}
+                if seg.kind != "cross":
+                    group = ("swa" if seg.kind == "swa" and cfg.window
+                             else "attn")
+                    nb = self._groups[group] + 1
+                    c = {name: torch.zeros((seg.length, nb, *block),
+                                           dtype=dtype, device=dev)
+                         for name in ("k", "v")}
+                if seg.kind == "cross" or cfg.is_encoder_decoder:
+                    nb = self._groups["cross"] + 1
+                    c.update({name: torch.zeros((seg.length, nb, *block),
+                                                dtype=dtype, device=dev)
+                              for name in ("xk", "xv")})
             caches.append(c)
         return caches
 
@@ -279,7 +330,19 @@ class PagedCache:
         if self.has_swa:
             out["swa_tables"] = torch.from_numpy(
                 self.swa_tables[sel].copy()).to(self.device)
+        if self.nb_cross:
+            out["cross_tables"] = torch.from_numpy(
+                self.cross_tables[sel].copy()).to(self.device)
         return out
+
+    def cross_ids(self, row: int) -> Optional[torch.Tensor]:
+        """Row ``row``'s cross blocks (its cross-table entries) as an int64
+        tensor on the ledger's device, the ids :func:`paged_reset_row`
+        zeroes at admission; None for a model without cross K/V."""
+        if not self.nb_cross:
+            return None
+        return torch.from_numpy(self.cross_tables[row].astype(np.int64)).to(
+            self.device)
 
     # -------------------------------------------------------- accounting
     def blocks_needed(self, n_tokens: int) -> int:
@@ -362,7 +425,8 @@ class PagedCache:
         wm = self.watermark_blocks if watermark is None else watermark
         need = self.blocks_needed(n_tokens) - len(self._match_blocks(tokens))
         return (len(self._free["attn"]) - wm >= need
-                and len(self._free["swa"]) >= self.nb_swa)
+                and len(self._free["swa"]) >= self.nb_swa
+                and len(self._free["cross"]) >= self.nb_cross)
 
     def _alloc(self, group: str, row: int, table: np.ndarray,
                logical: int) -> bool:
@@ -389,7 +453,7 @@ class PagedCache:
     def admit(self, row: int, n_tokens: int,
               watermark: Optional[int] = None, tokens=None) -> bool:
         """Allocate row ``row``'s blocks for logical slots [0, n_tokens)
-        plus its full SWA ring.  All-or-nothing.
+        plus its full SWA ring and cross blocks.  All-or-nothing.
 
         With sharing enabled and ``tokens`` (the ids the engine is
         about to prefill, i.e. ``(prompt + out)[:-1]``), the longest
@@ -414,6 +478,8 @@ class PagedCache:
             self._alloc_or_die("attn", row, self.tables, j)
         for j in range(self.nb_swa):
             self._alloc_or_die("swa", row, self.swa_tables, j)
+        for j in range(self.nb_cross):
+            self._alloc_or_die("cross", row, self.cross_tables, j)
         if self.share_prefixes and tokens is not None:
             self._register_prefixes(row, tokens)
         hit = len(matched) * self.block_size
@@ -481,8 +547,8 @@ class PagedCache:
         preemption).  Attn blocks are refcounted: a block returns to the
         free list (and leaves the prefix index) only when its last owner
         releases it — a preempted request's shared prefix blocks stay
-        resident for their surviving sharers.  The row's ring blocks
-        return to the swa free list."""
+        resident for their surviving sharers.  The row's ring and cross
+        blocks return to their groups' free lists."""
         blocks, free = self._held["attn"][row], self._free["attn"]
         for b in reversed(blocks):  # LIFO order matches the old ledger
             if self._ref[b] <= 0:  # guard must survive ``python -O``
@@ -492,14 +558,17 @@ class PagedCache:
                 self._deindex(b)
                 free.append(b)
         blocks.clear()
-        blocks, free = self._held["swa"][row], self._free["swa"]
-        dup = set(blocks) & set(free)
-        if dup:  # guard must survive ``python -O``
-            raise RuntimeError(f"double free of swa blocks {sorted(dup)}")
-        free.extend(reversed(blocks))
-        blocks.clear()
+        for g in ("swa", "cross"):
+            blocks, free = self._held[g][row], self._free[g]
+            dup = set(blocks) & set(free)
+            if dup:  # guard must survive ``python -O``
+                raise RuntimeError(
+                    f"double free of {g} blocks {sorted(dup)}")
+            free.extend(reversed(blocks))
+            blocks.clear()
         self.tables[row] = 0
         self.swa_tables[row] = 0
+        self.cross_tables[row] = 0
         self._hit_tokens_row[row] = 0
         self._version += 1
 
@@ -507,9 +576,9 @@ class PagedCache:
         """Ledger invariants: every block is exactly one of
         {free, scratch, referenced}; attn refcounts equal both the
         held-list multiplicity and the table occupancy (sharing maps a
-        block into several rows' tables, once each); ring blocks are held
-        once; no leak, no double-book; index entries only on live attn
-        blocks."""
+        block into several rows' tables, once each); ring and cross
+        blocks are held once; no leak, no double-book; index entries
+        only on live attn blocks."""
         for g, n in self._groups.items():
             free = self._free[g]
             held = [b for row in self._held[g] for b in row]
@@ -543,22 +612,29 @@ class PagedCache:
             assert self._ref[blk] >= 1, f"index: freed block {blk} indexed"
         assert len(self._prefix_index) == len(self._block_key), \
             "index: forward/reverse maps out of sync"
-        for table, g in ((self.tables, "attn"), (self.swa_tables, "swa")):
+        for table, g in ((self.tables, "attn"), (self.swa_tables, "swa"),
+                         (self.cross_tables, "cross")):
             for row in range(self.max_rows):
                 ids = set(table[row].tolist()) - {0}
                 assert ids <= set(self._held[g][row]), \
                     f"{g}: row {row} maps unheld blocks"
 
 
-def paged_reset_row(caches, segs, row: int):
-    """Zero decode row ``row``'s SSM state rows in place (the
-    reference's ``paged_reset_row``; its cross-KV blocks join with that
-    family).  Attn and swa pools are untouched: stale KV is
+def paged_reset_row(caches, segs, row: int, cross_ids=None):
+    """Zero decode row ``row``'s per-request state in place (the
+    reference's ``paged_reset_row``): its SSM state rows, and its cross
+    blocks ``cross_ids`` (an int tensor of the row's cross-table
+    entries, None for a model without cross K/V) in every ``xk`` /
+    ``xv`` pool.  Attn and swa pools are untouched: stale KV is
     position-masked."""
     for seg, c in zip(segs, caches):
         if seg.kind in MAMBA_KINDS:
             for a in c.values():
                 a[:, row] = 0
+        elif cross_ids is not None:
+            for name in ("xk", "xv"):
+                if name in c:
+                    c[name][:, cross_ids] = 0
     return caches
 
 

@@ -2,7 +2,8 @@
 head (tied, or an untied ``lm_head``).
 
 Port of the serving API of ``repro/models/model.py`` for attention
-decoders, Mamba1 models and the Mamba2 / weight-shared attn hybrid::
+decoders, Mamba1 models, the Mamba2 / weight-shared attn hybrid, the
+vision decoder with ``cross`` layers and the encoder-decoder::
 
     m = Model(cfg, qformat=None, device="cuda")
     params = m.init(generator)                                  # or bridge
@@ -17,6 +18,8 @@ decoders, Mamba1 models and the Mamba2 / weight-shared attn hybrid::
     p = m.stage_params(params, lo, hi, entry=..., exit_head=...)  # stages
     out = m.run_stages(p, x, lo, hi, mode=..., pos=..., caches=...)
     logits, _, aux = m.forward(params, {"tokens": toks}, mode="train")
+    logits, caches, aux = m.prefill(params, {"tokens": toks,
+                                             "frontend": emb}, cache_len)
 
 Dense ``caches`` are :meth:`init_cache`'s, paged ones the pools and
 SSM state rows of :meth:`repro_torch.models.kvcache.PagedCache.struct`
@@ -28,7 +31,14 @@ JAX package's parameters); ``qformat`` tags the format their projection
 weights were packed to (``models/quantize.py::quantize_params``, which
 the engines call), and the model never packs them itself.
 :meth:`forward` is train mode (``training/train_step.py``): every block
-under a checkpoint, gradients through autograd.
+under a checkpoint, gradients through autograd; or, with
+``mode="prefill"``, a whole prompt through every block at once, seeding
+dense caches (:meth:`prefill`).  A ``cross`` layer's source is
+``batch["frontend"]`` (B, n_image_tokens, D) of image patch embeddings;
+an encoder-decoder's is its encoder's output over ``batch["frontend"]``
+(B, encoder_seq, D) of frame embeddings (:meth:`_encode`).  Only a
+prefill writes real cross K/V: the engines carry no frontend and zero a
+request's cross caches at admission, as the reference's do.
 """
 from __future__ import annotations
 
@@ -71,14 +81,35 @@ class Model:
                                      scale=cfg.d_model ** -0.5)}
         params = {
             "embed": table(),
-            "blocks": tfm.init_segments(generator, cfg, self.dtype,
-                                        self.device),
+            "blocks": tfm.init_segments(
+                generator, cfg, self.dtype, self.device,
+                has_enc_cross=cfg.is_encoder_decoder),
             "final_norm": {"scale": torch.ones(cfg.d_model, dtype=self.dtype,
                                                device=self.device)},
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = table()
+        if cfg.is_encoder_decoder:
+            params["encoder"] = {
+                "blocks": tfm.init_segments(generator, tfm.encoder_config(cfg),
+                                            self.dtype, self.device),
+                "final_norm": {"scale": torch.ones(
+                    cfg.d_model, dtype=self.dtype, device=self.device)}}
         return params
+
+    def _encode(self, params, frontend):
+        """The bidirectional encoder over frame embeddings (B, S, D): a
+        stack of ``n_encoder_layers`` attn blocks (rotary at 0 .. S - 1,
+        non-causal: the flash kernel's contiguous form), then its final
+        norm."""
+        enc = tfm.encoder_config(self.cfg)
+        b, s, _ = frontend.shape
+        positions = torch.arange(s, device=frontend.device).expand(b, s)
+        stream = tfm.apply_segments(
+            params["encoder"]["blocks"], frontend.to(self.dtype), cfg=enc,
+            mode="prefill", segs=tfm.build_segments(enc),
+            positions=positions, qformat=self.qformat, causal=False)
+        return self._final_norm(params["encoder"], stream)
 
     def _final_norm(self, params, stream):
         """The final norm of the stream's (x, delta): the last block's
@@ -104,34 +135,70 @@ class Model:
         return self._head_params(params)["w"]
 
     def forward(self, params, batch, mode: str = "train",
-                return_hidden: bool = False):
-        """Train-mode forward over batch {"tokens" (B,S) int}: the
-        embedding, every block (each under a checkpoint, the residual add
-        fused into the next norm) at positions 0 .. S - 1, the final norm
-        and, unless ``return_hidden``, the head over the padded vocab.
-        Returns (logits (B,S,V_pad) or hidden (B,S,D), None, aux), aux
-        the reference's ``_empty_aux`` for these dense models (zero MoE
-        terms).  The reference's ``mode="prefill"`` (a full prompt into
-        the caches) is not ported: the engines prefill in chunks."""
-        if mode != "train":
-            raise NotImplementedError(
-                f"Model.forward(mode={mode!r}) is not ported yet; the port "
-                f"runs mode='train' (the engines prefill in chunks)")
-        tfm.check_supported(self.cfg, mode)
+                caches: Optional[list] = None, return_hidden: bool = False):
+        """A whole-sequence forward over batch {"tokens" (B,S) int,
+        ["frontend" (B,T,D)]}: the embedding, every block (the residual
+        add fused into the next norm) at positions 0 .. S - 1, the final
+        norm and, unless ``return_hidden``, the head over the padded
+        vocab.
+
+        ``mode="train"``: each block under a checkpoint, no cache.
+        ``mode="prefill"``: ``caches`` (dense, :meth:`init_cache`) are
+        seeded in place as the reference's prefill does: each attn
+        layer's K/V of the prompt, each Mamba layer's state after it
+        (from zero), and the cross K/V of the frontend (``cross`` layers)
+        or of the encoder's output over it (an encoder-decoder's
+        ``enc_xattn``), so that :meth:`decode_step` / :meth:`decode_steps`
+        go on from the prompt.  Returns (logits (B,S,V_pad) or hidden
+        (B,S,D), None in train mode or the caches, aux), aux the
+        reference's ``_empty_aux`` (zero MoE terms)."""
+        if mode not in ("train", "prefill"):
+            raise ValueError(f"Model.forward(mode={mode!r}): the port's "
+                             f"whole-sequence modes are 'train' and "
+                             f"'prefill'")
+        if mode == "prefill" and caches is None:
+            raise ValueError("Model.forward(mode='prefill') seeds caches: "
+                             "pass init_cache's")
+        cfg = self.cfg
+        tfm.check_supported(cfg, mode)
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = embed(params["embed"], tokens).to(self.dtype)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
-        stream = tfm.apply_segments(params["blocks"], x, cfg=self.cfg,
-                                    mode=mode, segs=self.segments,
-                                    positions=positions,
-                                    qformat=self.qformat)
+        frontend = batch.get("frontend")
+        if mode == "train":
+            stream = tfm.apply_segments(params["blocks"], x, cfg=cfg,
+                                        mode=mode, segs=self.segments,
+                                        positions=positions,
+                                        qformat=self.qformat)
+        else:
+            enc_src = None
+            if cfg.is_encoder_decoder:
+                if frontend is None:
+                    raise ValueError(f"{cfg.name}: the encoder needs "
+                                     f"batch['frontend']")
+                enc_src, frontend = self._encode(params, frontend), None
+            stream = tfm.apply_segments(
+                params["blocks"], x, cfg=cfg, mode=mode, segs=self.segments,
+                positions=positions, caches=caches, qformat=self.qformat,
+                frontend=(None if frontend is None
+                          else frontend.to(self.dtype)),
+                enc_src=enc_src)
         zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
         aux = {"moe_aux_loss": zero, "moe_drop_frac": zero}
         hidden = self._final_norm(params, stream)
-        if return_hidden:
-            return hidden, None, aux
-        return unembed(self._head_params(params), hidden), None, aux
+        if not return_hidden:
+            hidden = unembed(self._head_params(params), hidden)
+        return hidden, caches, aux
+
+    def prefill(self, params, batch, cache_len: Optional[int] = None):
+        """A whole prompt batch into fresh dense caches of ``cache_len``
+        slots (S by default), the reference's ``Model.prefill``: returns
+        (logits (B,S,V_pad), caches, aux), the caches ready for
+        :meth:`decode_step` / :meth:`decode_steps` at pos S."""
+        b, s = batch["tokens"].shape
+        return self.forward(params, batch, mode="prefill",
+                            caches=self.init_cache(b, cache_len or s))
 
     def _hidden(self, params, caches, tokens, pos, paged):
         """A chunk's hidden state: it has no head, so the last pending

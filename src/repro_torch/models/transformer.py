@@ -2,9 +2,13 @@
 
 Port of ``repro/models/transformer.py`` for ``attn``, ``swa``
 (sliding-window attention; the same leaves and MLP as ``attn``),
+``cross`` (cross-attention to image patches, ``xattn``, and an MLP),
 ``mamba1`` and ``mamba2`` blocks in the ``decode`` and ``chunk`` modes,
 over paged pools (``paged`` given) or dense slot caches
-(``paged=None``).  The MLP after
+(``paged=None``), and in ``prefill`` mode (a whole prompt at once into
+dense caches).  A decoder block of an encoder-decoder model
+(``enc_xattn``, ``ln_x``) also cross-attends to the encoder's output
+after its self-attention.  The MLP after
 an attention block is SwiGLU (``mlp_kind="dense"``) or the
 capacity-routed mixture of experts of ``models/moe.py``
 (``mlp_kind="moe"``, serving modes only).  A model is a
@@ -30,6 +34,7 @@ launched again.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import List, Optional
@@ -42,8 +47,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
 
-MODES = ("decode", "chunk", "train")
-KINDS = ("attn", "swa", "mamba1", "mamba2")   # block kinds the port runs
+MODES = ("decode", "chunk", "train", "prefill")
+KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")   # all the reference's
 MAMBA_KINDS = ("mamba1", "mamba2")
 
 
@@ -63,6 +68,15 @@ def build_segments(cfg) -> List[Segment]:
         else:
             segs.append(Segment(b, 1, shared))
     return segs
+
+
+def encoder_config(cfg):
+    """The encoder stack's config: ``n_encoder_layers`` attn layers, no
+    cross-attention of its own (the reference's ``enc_cfg``)."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.n_encoder_layers,
+        block_pattern=tuple(["attn"] * cfg.n_encoder_layers),
+        is_encoder_decoder=False, shared_block_kind="")
 
 
 def _has_mlp(kind: str, cfg) -> bool:
@@ -85,9 +99,11 @@ def check_supported(cfg, mode: Optional[str] = None) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MoE training is not ported yet (ROADMAP Queue 1 "
             f"item 5: the MoE aux loss in Model.forward)")
-    if cfg.is_encoder_decoder:
+    if mode == "train" and ("cross" in cfg.block_pattern
+                            or cfg.is_encoder_decoder):
         raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder is not ported yet")
+            f"{cfg.name}: training of cross-attention and encoder-decoder "
+            f"models is not ported yet (ROADMAP Queue 1 item 5)")
 
 
 def segment_slices(cfg, lo: int, hi: int):
@@ -135,19 +151,28 @@ def slice_blocks(blocks: dict, cfg, lo: int, hi: int) -> dict:
             "shared": blocks["shared"]}
 
 
-def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
+def block_init(generator, kind: str, cfg, dtype, device, n: int,
+               has_enc_cross: bool = False) -> dict:
     """``n`` stacked layers of one block kind (the reference's
-    ``block_init`` vmapped over a segment)."""
+    ``block_init`` vmapped over a segment); ``has_enc_cross`` gives an
+    attn block an encoder-decoder's ``ln_x`` and ``enc_xattn``."""
     d = cfg.d_model
     p = {"ln1": {"scale": torch.ones((n, d), dtype=dtype, device=device)}}
     if kind in ("attn", "swa"):
         p["attn"] = attn_mod.attention_init(generator, cfg, dtype, device, n)
+    elif kind == "cross":
+        p["xattn"] = attn_mod.attention_init(generator, cfg, dtype, device, n,
+                                             cross=True)
     elif kind == "mamba1":
         p["mamba"] = ssm_mod.mamba1_init(generator, cfg, dtype, device, n)
     elif kind == "mamba2":
         p["mamba"] = ssm_mod.mamba2_init(generator, cfg, dtype, device, n)
     else:
         raise NotImplementedError(kind)
+    if has_enc_cross and kind in ("attn", "swa"):
+        p["ln_x"] = {"scale": torch.ones((n, d), dtype=dtype, device=device)}
+        p["enc_xattn"] = attn_mod.attention_init(generator, cfg, dtype,
+                                                 device, n, cross=True)
     if _has_mlp(kind, cfg) and cfg.mlp_kind == "moe":
         p["ln2"] = {"scale": torch.ones((n, d), dtype=dtype, device=device)}
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, device, n)
@@ -161,7 +186,8 @@ def block_init(generator, kind: str, cfg, dtype, device, n: int) -> dict:
     return p
 
 
-def init_segments(generator, cfg, dtype, device) -> dict:
+def init_segments(generator, cfg, dtype, device,
+                  has_enc_cross: bool = False) -> dict:
     """Every segment's stacked layers, and the weight-shared block's one
     layer, drawn once (None where no kind is shared)."""
     segments, shared = [], None
@@ -169,28 +195,72 @@ def init_segments(generator, cfg, dtype, device) -> dict:
         if seg.shared:
             if shared is None:
                 shared = block_init(generator, seg.kind, cfg, dtype, device,
-                                    1)
+                                    1, has_enc_cross)
             segments.append(None)
         else:
             segments.append(block_init(generator, seg.kind, cfg, dtype,
-                                       device, seg.length))
+                                       device, seg.length, has_enc_cross))
     return {"segments": segments, "shared": shared}
+
+
+def _cross_kv(params, cache, paged, source, *, mode: str, src: int, cfg):
+    """The source K/V a cross-attention reads.  Decode and chunk: the
+    cross caches (``paged``: the cross pools through the rows' cross
+    tables).  Prefill and train: projected from ``source`` (image
+    patches, or the encoder's output) and, in prefill, also written into
+    the cross caches in place (the reference's prefill ``cache_out``)."""
+    if mode in ("decode", "chunk"):
+        if paged is not None:
+            return attn_mod.paged_cross_view(cache, paged, src)
+        return {"k": cache["xk"], "v": cache["xv"]}
+    if source is None:
+        raise ValueError(f"{cfg.name}: a {mode} forward of a cross-attention "
+                         f"needs batch['frontend']")
+    kv = attn_mod.make_cross_kv(params, source, cfg)
+    if cache is not None:
+        cache["xk"].copy_(kv["k"])
+        cache["xv"].copy_(kv["v"])
+    return kv
+
+
+def _seed_attn_cache(kv: dict, cache: dict, kind: str) -> None:
+    """Write a prefill's K/V (B, S, KV, hd) into one layer's dense cache
+    of ``s_cache`` slots in place (the reference's ``_seed_attn_cache``):
+    a ``swa`` prompt longer than its ring keeps its last ``s_cache``
+    positions, rotated so that position p sits at slot ``p % s_cache``;
+    otherwise the last ``min(S, s_cache)`` positions from slot 0, the
+    rest zero."""
+    s_cache, s_new = cache["k"].shape[1], kv["k"].shape[1]
+    for name in ("k", "v"):
+        new, dst = kv[name], cache[name]
+        if kind == "swa" and s_new > s_cache:
+            start = s_new - s_cache
+            dst.copy_(torch.roll(new[:, start:], start % s_cache, dims=1))
+        else:
+            n = min(s_new, s_cache)
+            dst[:, :n] = new[:, s_new - n:]
+            dst[:, n:] = 0
 
 
 def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
                 pos=None, cache: Optional[dict] = None,
                 paged: Optional[dict] = None,
-                qformat: Optional[str] = None, positions=None):
-    """Apply one ``attn``, ``swa``, ``mamba1`` or ``mamba2`` block to
-    the residual stream ``x`` plus ``delta``, the previous block's output
-    not yet added to it (None before the first block).  ``pos`` is a
-    (B,) int32 tensor in decode mode; in chunk mode an ``int`` (one
-    request's prefill chunk) or a (B,) tensor (B rows at their own
-    positions, the draft-verify round), which the attention passes on to
-    its kernels without reading it on the host.  In train mode
-    ``positions`` (B|1, S) are the rotary positions of a whole sequence
-    and there is no cache.  ``cache`` holds this layer's pools
-    (``paged`` given: the block tables) or dense cache rows
+                qformat: Optional[str] = None, positions=None,
+                frontend=None, enc_src=None, causal: bool = True):
+    """Apply one ``attn``, ``swa``, ``cross``, ``mamba1`` or ``mamba2``
+    block to the residual stream ``x`` plus ``delta``, the previous
+    block's output not yet added to it (None before the first block).
+    ``pos`` is a (B,) int32 tensor in decode mode; in chunk mode an
+    ``int`` (one request's prefill chunk) or a (B,) tensor (B rows at
+    their own positions, the draft-verify round), which the attention
+    passes on to its kernels without reading it on the host.  In train
+    and prefill mode ``positions`` (B|1, S) are the rotary positions of
+    a whole sequence (``causal`` False for an encoder), and a prefill
+    seeds the layer's dense cache in place where one is given (its attn
+    K/V, the cross K/V of ``frontend`` (B, src, D) or of the encoder's
+    output ``enc_src``, its Mamba state from zero).  ``cache`` holds
+    this layer's pools (``paged`` given: the block tables) or dense
+    cache rows
     (``paged=None``), or a Mamba layer's ``h`` / ``conv`` state rows;
     each is written in place.  ``qformat`` tags the weight format the
     params were packed to; dispatch is structural (``qdot`` routes on
@@ -199,8 +269,10 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
 
     Each residual add the reference makes (``x + a``) is fused into the
     norm that reads its result: ``add_rmsnorm`` returns both, in one
-    kernel launch.  The block's own output is not added here; it is
-    returned as the next pending delta.  Returns (x, delta)."""
+    kernel launch (an encoder-decoder's self-attention output into
+    ``ln_x``, its cross-attention output into ``ln2``).  The block's own
+    output is not added here; it is returned as the next pending delta.
+    Returns (x, delta)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported yet; "
                          f"ported: {MODES}")
@@ -208,18 +280,28 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
         h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     else:
         x, h = add_rmsnorm(params["ln1"], x, delta, cfg.norm_eps)
-    if kind in MAMBA_KINDS:
+    if kind == "cross":
+        xkv = _cross_kv(params["xattn"], cache, paged, frontend, mode=mode,
+                        src=cfg.n_image_tokens or cfg.encoder_seq, cfg=cfg)
+        a = attn_mod.cross_attention(params["xattn"], h, xkv, cfg,
+                                     decode=mode == "decode")
+    elif kind in MAMBA_KINDS:
         step, seq = ((ssm_mod.mamba1_step, ssm_mod.mamba1_seq)
                      if kind == "mamba1"
                      else (ssm_mod.mamba2_step, ssm_mod.mamba2_seq))
         if mode == "decode":
             a, _ = step(params["mamba"], h, (cache["h"], cache["conv"]), cfg)
         else:
+            if mode == "prefill":      # a whole prompt starts from zero
+                cache["h"].zero_()
+                cache["conv"].zero_()
             a, _ = seq(params["mamba"], h, cfg, h0=cache["h"],
                        conv_state=cache["conv"])
-    elif mode == "train":
-        a, _ = attn_mod.self_attention(params["attn"], h, positions, cfg,
-                                       kind)
+    elif mode in ("train", "prefill"):
+        a, kv = attn_mod.self_attention(params["attn"], h, positions, cfg,
+                                        kind, causal=causal)
+        if cache is not None:
+            _seed_attn_cache(kv, cache, kind)
     elif mode == "decode":
         if paged is None:
             a, _ = attn_mod.decode_self_attention(
@@ -233,6 +315,12 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
     else:
         a, _ = attn_mod.paged_chunk_self_attention(
             params["attn"], h, cache, paged, pos, cfg, kind)
+    if "enc_xattn" in params:          # an encoder-decoder's decoder block
+        x, hx = add_rmsnorm(params["ln_x"], x, a, cfg.norm_eps)
+        xkv = _cross_kv(params["enc_xattn"], cache, paged, enc_src,
+                        mode=mode, src=cfg.encoder_seq, cfg=cfg)
+        a = attn_mod.cross_attention(params["enc_xattn"], hx, xkv, cfg,
+                                     decode=mode == "decode")
     if not _has_mlp(kind, cfg):
         return x, a
     x, h2 = add_rmsnorm(params["ln2"], x, a, cfg.norm_eps)
@@ -265,7 +353,8 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
                    caches: Optional[list] = None,
                    paged: Optional[dict] = None,
                    qformat: Optional[str] = None, positions=None,
-                   delta=None):
+                   delta=None, frontend=None, enc_src=None,
+                   causal: bool = True):
     """Run every layer in order, a weight-shared segment on
     ``blocks["shared"]``.  ``caches`` is the per-segment list of
     ``{"k","v"}`` pools or dense caches, or ``{"h","conv"}`` SSM state,
@@ -277,7 +366,12 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
     (a pipeline stage's input pair; None at the model's first block).
     Returns (x, delta): the residual stream and the last block's output,
     not yet added to it (the caller fuses that add into the final norm,
-    or adds it, or hands the pair to the next stage)."""
+    or adds it, or hands the pair to the next stage).  In prefill mode
+    each layer also seeds its slice of ``caches`` (None: nothing is
+    kept, as for an encoder, whose stack runs non-causal with ``causal``
+    False);
+    ``frontend`` and ``enc_src`` are the sources of the cross-attentions
+    (see :func:`block_apply`)."""
     seg_params = [blocks["shared"] if seg.shared else p
                   for seg, p in zip(segs, blocks["segments"])]
     if mode == "train":
@@ -290,10 +384,14 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
                                       use_reentrant=False,
                                       preserve_rng_state=False)
         return x, delta
-    for seg, params, cache in zip(segs, seg_params, caches):
+    whole = (dict(positions=positions, frontend=frontend, enc_src=enc_src,
+                  causal=causal) if mode == "prefill" else {})
+    for seg, params, cache in zip(segs, seg_params,
+                                  caches or [None] * len(segs)):
         for j in range(seg.length):
-            x, delta = block_apply(_layer(params, j), x, delta,
-                                   kind=seg.kind, cfg=cfg, mode=mode,
-                                   pos=pos, cache=_layer(cache, j),
-                                   paged=paged, qformat=qformat)
+            x, delta = block_apply(
+                _layer(params, j), x, delta, kind=seg.kind, cfg=cfg,
+                mode=mode, pos=pos,
+                cache=None if cache is None else _layer(cache, j),
+                paged=paged, qformat=qformat, **whole)
     return x, delta

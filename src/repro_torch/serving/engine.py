@@ -16,7 +16,11 @@ engine iteration is then one verify round, in which every live row's
 next input and K drafts run through ``Model.verify_steps`` as one chunk
 of K + 1 tokens, and the row advances by its accepted length plus one.
 It is gated off, as in the reference, on models whose state cannot be
-rolled back by position (Mamba), which then decode as usual.
+rolled back by position (Mamba), on cross-attention and encoder-decoder
+models and on mixtures of experts, which then decode as usual.  Requests
+carry no frontend: a cross-attention model's cross K/V (a slot's rows,
+or a request's cross blocks) are zeroed at admission, so its cross
+layers add exactly zero, as the reference's engines do.
 
 The decode hot loop is device-resident: every engine iteration runs one
 macro-step of up to ``decode_steps`` (K) greedy decode iterations
@@ -432,9 +436,9 @@ class _PagedEngine(_EngineBase):
     pool exhaustion by preempting the most recently admitted request
     (recompute on re-admission keeps greedy outputs token-identical).
     Subclasses supply ``_reset_row`` (zero a row's per-request state at
-    admission: SSM state; attn pools need none, stale KV is
-    position-masked), ``_prefill_row``, ``_forward_steps`` and
-    ``_apply_cow``."""
+    admission: SSM state and cross blocks; attn pools need none, stale
+    KV is position-masked), ``_prefill_row``,
+    ``_forward_steps`` and ``_apply_cow``."""
 
     MAX_STEPS = 4096  # preemption churn can stretch a busy run
 
@@ -755,7 +759,8 @@ class PagedServingEngine(_PagedEngine):
         paged_copy_blocks(self.caches, src, dst, has_swa=self.pc.has_swa)
 
     def _reset_row(self, row: int):
-        paged_reset_row(self.caches, self.model.segments, row)
+        paged_reset_row(self.caches, self.model.segments, row,
+                        self.pc.cross_ids(row))
 
     def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
         self.model.paged_prefill_chunk(

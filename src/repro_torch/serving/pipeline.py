@@ -36,9 +36,12 @@ same request identity — dense engines by batch slot, paged engines by
 the *engine-level* block tables (one :class:`PagedCache` ledger governs
 every stage's pools, so block id ``b`` addresses the same logical tokens
 in each stage's layer slice).  Admission zeroes the request's SSM state
-rows in **every** stage, and copy-on-write pool copies apply to every
-stage's pools.  Encoder-decoder configs raise, as the monolithic
-engines do.
+rows and cross blocks in **every** stage, and copy-on-write pool copies
+apply to every stage's pools.  Requests carry no frontend, so cross
+layers, and an encoder-decoder's decoder blocks, read their zeroed cross
+K/V in every stage, as in the monolithic engines; the ``encoder`` core
+service of ``decompose`` is planning-only, as in the reference (no stage
+runs it).
 """
 from __future__ import annotations
 
@@ -150,13 +153,14 @@ class _CoreStage:
                                      self.hi, mode="chunk", pos=int(pos0),
                                      caches=rows, paged=pmeta)
 
-    def reset_row(self, row: int):
+    def reset_row(self, row: int, cross_ids=None):
         """Zero this stage's per-request state of row ``row``: every
-        dense cache leaf, or the SSM state rows of the pools' engine."""
+        dense cache leaf, or the SSM state rows and the cross blocks
+        ``cross_ids`` of the pools' engine."""
         if self.paged is None:
             reset_cache_row(self.caches, row)
         else:
-            paged_reset_row(self.caches, self.segs, row)
+            paged_reset_row(self.caches, self.segs, row, cross_ids)
 
     def copy_blocks(self, src, dst):
         """Copy-on-write pool copies on this stage's slice of the pools."""
@@ -250,6 +254,9 @@ class _NetShimMixin:
             if pc.has_swa:
                 meta["swa_tables"] = torch.zeros(
                     pc.swa_tables.shape, dtype=torch.int32, device=dev)
+            if pc.nb_cross:
+                meta["cross_tables"] = torch.zeros(
+                    pc.cross_tables.shape, dtype=torch.int32, device=dev)
         for i, st in enumerate(self.stages):
             if i == 0:
                 x = torch.zeros((b, 1), dtype=torch.int32, device=dev)
@@ -291,8 +298,10 @@ class _NetShimMixin:
         return None if pc is None else pc.meta(**kw)
 
     def _reset_row(self, row: int):
+        pc = self.stages[0].paged
+        xids = None if pc is None else pc.cross_ids(row)
         for st in self.stages:
-            st.reset_row(row)
+            st.reset_row(row, xids)
 
     def _prefill_row(self, row: int, toks: np.ndarray, pos0: int):
         """One prefill chunk through every stage, its hops accounted."""

@@ -73,17 +73,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_architectures_refuse():
-    """Kinds the port does not run yet refuse at construction: a
-    cross-attention block (beside an attn one) and an encoder-decoder;
-    MoE MLPs and Mamba blocks serve but refuse to train."""
+    """What the port does not run yet refuses: a cross-attention block
+    (beside an attn one) and an encoder-decoder serve and prefill but
+    refuse to train, and so do MoE MLPs and Mamba blocks."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import Model
     smollm = get_smoke_config("smollm-360m")
     for cfg in (dataclasses.replace(smollm, block_pattern=("attn", "cross")),
                 dataclasses.replace(smollm, is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError):
-            Model(cfg, device="cpu")
+        model = Model(cfg, device="cpu")
+        with pytest.raises(NotImplementedError,
+                           match="cross-attention and encoder-decoder"):
+            model.forward(None, {"tokens": torch.zeros((1, 4),
+                                                       dtype=torch.int32)})
     zamba = Model(get_smoke_config("zamba2-7b"), device="cpu")
     with pytest.raises(NotImplementedError, match="Mamba"):
         zamba.forward(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})

@@ -41,7 +41,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
     flash_attention, flash_attention_plain, flash_body, paged_chunk_attention,
-    paged_chunk_attention_plain, paged_prefill_attention,
+    paged_chunk_attention_plain, paged_cross_attention,
+    paged_cross_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
     prefill_span, prefill_splits, ring_body, ring_chunk_attention,
     ring_chunk_attention_plain, ring_positions, ring_splits)
@@ -1381,6 +1382,81 @@ def test_cuda_paged_chunk_cuda_core_body_in_bf16(cuda_device):
     got = paged_chunk_attention(*args, _body="cuda_core")
     assert _build.bodies["paged_chunk_attention"]["cuda_core"] == n0 + 1
     _card_close(got, paged_chunk_attention_plain(*args), "bfloat16")
+
+
+#: the cross form's shapes (B, C, H, KV, hd, src): seamless-m4t-medium's
+#: enc_xattn (16 / 16 heads of 64 over the encoder's 1024 frames) and
+#: llama-3.2-vision-90b's xattn (64 / 8 heads of 128 over 1601 image
+#: patches, 1601 = 100 x 16 + 1: the last tile's tail masked), as a
+#: chunk (B 1, C 128) and as Model.prefill's rows (B 8); a ragged case
+#: off the tiles
+CROSS_CASES = [(1, 128, 16, 16, 64, 1024), (8, 128, 16, 16, 64, 1024),
+               (1, 128, 64, 8, 128, 1601), (8, 32, 64, 8, 128, 1601),
+               (3, 9, 6, 2, 32, 37)]
+
+
+def _cross_card_inputs(rng, b, c, h, kv, d, src, bs, dt, dev):
+    """q, pools of ceil(src / bs) blocks a row under shuffled tables, and
+    the same K/V as a dense cache (B, src, KV, hd), on the card."""
+    nb = -(-src // bs)
+    nbp = b * nb + 1
+    q = rng.standard_normal((b, c, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, src, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, src, kv, d), dtype=np.float32)
+    tables = (rng.permutation(nbp - 1)[:b * nb].reshape(b, nb) + 1
+              ).astype(np.int32)
+    pools = []
+    for a in (k, v):
+        rows = np.zeros((b, nb * bs, kv, d), np.float32)
+        rows[:, :src] = a
+        pool = np.zeros((nbp, bs, kv, d), np.float32)
+        pool[tables] = rows.reshape(b, nb, bs, kv, d)
+        pools.append(pool)
+
+    def card(a):
+        return t(a).to(dev, dt)
+    return (card(q), card(pools[0]), card(pools[1]), t(tables).to(dev),
+            card(k), card(v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,c,h,kv,d,src", CROSS_CASES)
+def test_cuda_paged_cross_matches_plain(cuda_device, dtype, b, c, h, kv, d,
+                                        src):
+    """The cross form against its plain version under the card's gates,
+    counted once under ``prefill_body``'s body; the same bits over the
+    K/V as a dense cache (B blocks of src slots through identity tables,
+    ``Model.prefill``'s layout) and in blocks of 32 as in blocks of 16."""
+    dt = getattr(torch, dtype)
+    q, kp, vp, tables, kd, vd = _cross_card_inputs(
+        np.random.default_rng(41), b, c, h, kv, d, src, 16, dt, cuda_device)
+    body = prefill_body(dt, d)
+    n0 = _build.bodies["paged_cross_attention"][body]
+    got = paged_cross_attention(q, kp, vp, tables, src)
+    assert _build.bodies["paged_cross_attention"][body] == n0 + 1
+    assert bool(torch.isfinite(got).all())
+    _card_close(got, paged_cross_attention_plain(q, kp, vp, tables, src),
+                dtype)
+    ident = torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None]
+    assert torch.equal(paged_cross_attention(q, kd, vd, ident, src), got)
+    _, kp32, vp32, tables32, _, _ = _cross_card_inputs(
+        np.random.default_rng(41), b, c, h, kv, d, src, 32, dt, cuda_device)
+    assert torch.equal(paged_cross_attention(q, kp32, vp32, tables32, src),
+                       got)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_cross_refuses_what_it_cannot_take(cuda_device):
+    """No fallback: the mma body forced on float32, and a source longer
+    than the row's blocks, raise on the card."""
+    q, kp, vp, tables, _, _ = _cross_card_inputs(
+        np.random.default_rng(42), 2, 8, 4, 2, 64, 40, 16, torch.float32,
+        cuda_device)
+    with pytest.raises(RuntimeError):
+        paged_cross_attention(q, kp, vp, tables, 40, _body="mma")
+    with pytest.raises(ValueError):
+        paged_cross_attention(q, kp, vp, tables, 49)
 
 
 @pytest.mark.cuda

@@ -342,6 +342,12 @@ def test_pipelined_engines_default_to_cuda_and_refuse_bad_stages(
             cls(tc)
         with pytest.raises(ValueError):
             cls(tc, tp, n_stages=tc.n_layers + 1, device="cpu")
-    enc = dataclasses.replace(tc, is_encoder_decoder=True)
-    with pytest.raises(NotImplementedError):
-        tpipe.PipelinedEngine(enc, device="cpu")
+    # an encoder-decoder pipelines its decoder: the plan's encoder core
+    # stage is planning-only, as in the reference, and no stage runs it
+    enc = dataclasses.replace(tc, is_encoder_decoder=True,
+                              n_encoder_layers=2, encoder_seq=8)
+    eng = tpipe.PipelinedEngine(enc, device="cpu")
+    assert "encoder" in [s.name for s in eng.stage_specs]
+    half = enc.n_layers // 2
+    assert [(st.name, st.lo, st.hi) for st in eng.stages] == [
+        ("stage0", 0, half), ("stage1", half, enc.n_layers)]

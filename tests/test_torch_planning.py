@@ -202,15 +202,18 @@ def test_decompose_equal(arch, fmt):
 
 
 def test_unported_kinds_keep_raising():
-    """Counters of kinds the port refuses raise instead of guessing: a
-    cross-attention block and an encoder-decoder."""
-    tc = get_config("smollm-360m")
-    with pytest.raises(NotImplementedError):
-        tc.layer_active_params("cross")
-    with pytest.raises(NotImplementedError):
-        tc.layer_params("cross")
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(tc, is_encoder_decoder=True).num_params()
+    """The counters of a cross-attention block and of an encoder-decoder,
+    which the port once refused, equal the reference's now that both are
+    ported; a block kind neither package knows still raises instead of
+    being guessed."""
+    tc, jc = get_config("smollm-360m"), jget_config("smollm-360m")
+    assert tc.layer_active_params("cross") == jc.layer_active_params("cross")
+    assert tc.layer_params("cross") == jc.layer_params("cross")
+    over = dict(is_encoder_decoder=True, n_encoder_layers=3, encoder_seq=64)
+    assert (dataclasses.replace(tc, **over).num_params()
+            == dataclasses.replace(jc, **over).num_params())
+    with pytest.raises(ValueError, match="unknown block kind"):
+        dataclasses.replace(tc, block_pattern=("attn",) * 31 + ("moe",))
 
 
 MEASURED = {"none": None,

@@ -362,9 +362,10 @@ def test_fused_residual_adds_keep_the_unfused_bits(monkeypatch, name, mode):
 
 
 def test_untied_head_and_refusals():
-    """The port's own init draws an untied head; a cross-attention
-    block and an encoder-decoder still refuse, and so does training
-    a Mamba1 model (and a Mamba1 layer shared by weight)."""
+    """The port's own init draws an untied head; a Mamba1 model beside
+    a cross-attention block or in an encoder-decoder builds but refuses
+    to train, and so does a Mamba1 model (and a Mamba1 layer shared by
+    weight)."""
     _, tc = config_pair("mamba")
     params = Model(tc, device="cpu").init(torch.Generator().manual_seed(0))
     assert params["lm_head"]["w"].shape == (tc.vocab_padded, tc.d_model)
@@ -376,8 +377,10 @@ def test_untied_head_and_refusals():
     for bad in (dict(block_pattern=("mamba1", "cross")),
                 dict(block_pattern=("attn", "mamba1"),
                      is_encoder_decoder=True)):
-        with pytest.raises(NotImplementedError):
-            Model(dataclasses.replace(tc, **bad), device="cpu")
+        model = Model(dataclasses.replace(tc, **bad), device="cpu")
+        with pytest.raises(NotImplementedError, match="training"):
+            model.forward(None, {"tokens": torch.zeros((1, 4),
+                                                       dtype=torch.int32)})
     tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     for ok in ({}, dict(shared_block_kind="mamba1")):
         model = Model(dataclasses.replace(tc, **ok), device="cpu")

@@ -448,7 +448,8 @@ def test_train_mode_refuses_mamba1_and_prefill():
         Model(mamba, device="cpu").forward(
             None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
     smollm = get_smoke_config("smollm-360m")
-    with pytest.raises(NotImplementedError, match="prefill"):
+    # a prefill is ported: it seeds caches, and refuses to run without
+    with pytest.raises(ValueError, match="prefill"):
         Model(smollm, device="cpu").forward(
             None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
             mode="prefill")
