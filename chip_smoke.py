@@ -15,12 +15,15 @@ one JSON line:
    clusters of 1-8 CTAs it holds at once at the wide bodies' shared
    memory (the paged prefill's, the ring form's and the decode's),
    against the constants the split rules read (``SM_COUNT`` of four
-   kernel modules, ``WIDE_CLUSTERS``), and the CTAs an SM holds of the
-   contiguous flash form's ``wgmma`` body at its dynamic shared memory
-   (the occupancy calculator on the kernel itself) against
+   kernel modules, ``WIDE_CLUSTERS``; for the cross form's ``wgmma``
+   body at hd 64 and 128, the occupancy calculator on the kernel
+   itself), and the CTAs an SM holds of the contiguous and the cross
+   flash forms' ``wgmma`` bodies at hd 64 and 128 at their dynamic
+   shared memory (the occupancy calculator on each kernel) against
    ``WGMMA_CTAS_PER_SM``: a mismatch fails by name before any kernel
-   phase.  The build line also prints ptxas's report of the ``wgmma``
-   body (registers at launch, spills) and fails if it spills;
+   phase.  The build line also prints ptxas's report of the four
+   ``wgmma`` entries (registers at launch, spills) and fails if one
+   spills;
 3. ``kernels`` — every kernel against its plain PyTorch version on the
    card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
    the quant matmuls, whose sums over K up to 2560 run in another order;
@@ -85,8 +88,9 @@ one JSON line:
    (16 / 16 heads of 64, src 1024) and llama-3.2-vision-90b's xattn (64 /
    8 heads of 128, src 1601), B 1 through shuffled cross tables and B 8
    through identity tables over dense rows (bit-equal to the paged
-   read), bf16 on ``mma`` and f32 on ``cuda_core``, beside plain, SDPA
-   and both halves of the bound; so do both decode kernels at those
+   read), bf16 on ``wgmma`` (the previous ``mma`` body gated and timed
+   in turns) and f32 on ``cuda_core``, beside plain, SDPA and both
+   halves of the bound; so do both decode kernels at those
    cross shapes (B 8, pos src - 1; the dense kernel's bits the paged
    one's) and the paged prefill at llama-3.2-vision-90b's attn layers
    (hd 128, G 8; C 128 at pos 0 and 1024).  The selective scan
@@ -103,7 +107,9 @@ one JSON line:
    1024, 16 / 16 heads of 64, non-causal, ``wgmma`` against ``mma`` in
    turns), ``Model.prefill``'s decoder self-attention over 8 prompts of
    128 (hd 64 on ``wgmma``; llama-3.2-vision-90b's hd 128, G 8 on
-   ``mma``) and a non-causal ragged case (B 2, S 1000, with a window it
+   ``wgmma`` too), a long row at hd 128 (B 1, S 4096, 32 / 8 heads,
+   causal; ``wgmma`` against ``mma`` in turns), and a non-causal ragged
+   case (B 2, S 1000, with a window it
    must ignore) in both dtypes (bf16 on ``wgmma`` against ``mma`` in
    turns; on ``wgmma`` the model's ``(B, S, heads, hd)`` layout, passed
    as transposed views, must give the contiguous run's bits), its row
@@ -341,7 +347,7 @@ SOURCES = {
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
     "paged_prefill_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
     "paged_chunk_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
-    "paged_cross_attention": "src/repro_torch/csrc/paged_prefill_attention.cu",
+    "paged_cross_attention": "src/repro_torch/csrc/paged_cross_attention.cu",
     "ring_chunk_attention": "src/repro_torch/csrc/ring_chunk_attention.cu",
     "dense_decode_attention": "src/repro_torch/csrc/dense_decode_attention.cu",
     "quant_matmul_int8": "src/repro_torch/csrc/quant_matmul.cu",
@@ -370,21 +376,26 @@ MAIN_BODY = {"selective_scan": ("state_lanes",),
 #: the rule that names each two-body attention kernel's body
 ATTN_RULE = {"paged_prefill_attention": "prefill_body",
              "paged_chunk_attention": "prefill_body",
-             "paged_cross_attention": "prefill_body",
+             "paged_cross_attention": "cross_body",
              "ring_chunk_attention": "ring_body",
              "paged_decode_attention": "decode_body",
              "dense_decode_attention": "decode_body"}
 #: the body of every launch of each attention kernel, per served config,
 #: fixed here (a config not named takes mma everywhere): gemma3-12b's hd
 #: 256 takes the wide mma bodies of the paged prefill, the batched chunk,
-#: the ring form and both decodes.  ``main_bodies`` checks that the
-#: wrappers' rules agree.
+#: the ring form and both decodes; the cross reads of seamless-m4t-medium
+#: (hd 64) and llama-3.2-vision-90b (hd 128) take the cross form's wgmma
+#: body.  ``main_bodies`` checks that the wrappers' rules agree.
 ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
                             "paged_chunk_attention": "mma",
-                            "paged_cross_attention": "mma",
                             "ring_chunk_attention": "mma",
                             "paged_decode_attention": "mma",
-                            "dense_decode_attention": "mma"}}
+                            "dense_decode_attention": "mma"},
+             "seamless-m4t-medium": {"paged_cross_attention": "wgmma"},
+             "llama-3.2-vision-90b": {"paged_cross_attention": "wgmma"}}
+#: the body of every contiguous flash launch of a ``Model.prefill`` in
+#: bf16 (seamless-m4t-medium's hd 64, llama-3.2-vision-90b's hd 128)
+PREFILL_FLASH_BODY = "wgmma"
 #: the scan's issue bound: the thread instructions one state update
 #: takes as the card compiles it (cuobjdump of csrc/selective_scan.cu:
 #: dt*a, the accurate expf's eight, decay*h, dx*B, their sum, h*C and
@@ -772,8 +783,9 @@ def kernel_cases(dev) -> list:
 #: encoder in Model.prefill (8 rows of its 1024 frames, 16 / 16 heads of
 #: 64, non-causal; wgmma, mma in turns); "seamless_prefill" and
 #: "vision_prefill": Model.prefill's decoder self-attention over 8
-#: prompts of 128 (hd 64 G 1 on wgmma; llama-3.2-vision-90b's hd 128 G 8
-#: on mma)
+#: prompts of 128 (hd 64 G 1 and llama-3.2-vision-90b's hd 128 G 8, on
+#: wgmma, mma in turns); "hd128_long": one row of 4096 at hd 128, where
+#: the tensor cores and not latency set the pace (wgmma, mma in turns)
 FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
                ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
@@ -782,7 +794,8 @@ FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("seamless_encoder", "bfloat16", 8, 1024, 16, 16, 64, False,
                 0),
                ("seamless_prefill", "bfloat16", 8, 128, 16, 16, 64, True, 0),
-               ("vision_prefill", "bfloat16", 8, 128, 64, 8, 128, True, 0)]
+               ("vision_prefill", "bfloat16", 8, 128, 64, 8, 128, True, 0),
+               ("hd128_long", "bfloat16", 1, 4096, 32, 8, 128, True, 0)]
 FLASH_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 
@@ -1596,11 +1609,14 @@ VISION = {"H": 64, "KV": 8, "hd": 128, "C": 128, "max_len": 1152}
 
 def cross_cases(dev) -> list:
     """The kernels of the cross-attention families' cross reads, bf16 on
-    ``mma`` (float32 on ``cuda_core`` at one shape each): the flash
-    kernel's cross form (``paged_cross_attention``: C 128 queries over
-    every source slot, a chunk's B 1 through shuffled cross tables and
-    ``Model.prefill``'s B 8 through identity tables over dense rows, whose
-    bits must equal the paged read's), and the paged and dense decode at
+    ``wgmma`` for the cross form and ``mma`` for the decodes (float32 on
+    ``cuda_core`` at one shape each): the flash kernel's cross form
+    (``paged_cross_attention``: C 128 queries over every source slot, a
+    chunk's B 1 through shuffled cross tables and ``Model.prefill``'s B 8
+    through identity tables over dense rows, whose bits must equal the
+    paged read's; the previous ``mma`` body gated and timed in turns, and
+    the split ``cross_splits`` names printed), and the paged and dense
+    decode at
     pos src - 1 (B 8; the dense kernel's bits the paged one's), each
     against its plain version, SDPA over the gathered K/V and both
     halves of the bound; then the paged prefill at llama-3.2-vision-90b's
@@ -1611,8 +1627,9 @@ def cross_cases(dev) -> list:
         dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
     from repro_torch.kernels.flash_attention import (
-        paged_cross_attention, paged_cross_attention_plain,
-        paged_prefill_attention, paged_prefill_attention_plain)
+        cross_body, cross_splits, paged_cross_attention,
+        paged_cross_attention_plain, paged_prefill_attention,
+        paged_prefill_attention_plain)
     rng = np.random.default_rng(SEED + 17)
     BS, C, cases = 16, 128, []
 
@@ -1625,8 +1642,15 @@ def cross_cases(dev) -> list:
         for dname in ("bfloat16", "float32"):
             dtype = getattr(torch, dname)
             es = torch.finfo(dtype).bits // 8
-            body = "mma" if dname == "bfloat16" else "cuda_core"
-            extra = {"model": model, "body": body}
+            body = "wgmma" if dname == "bfloat16" else "cuda_core"
+            if cross_body(dtype, HD) != body:
+                raise AssertionError(f"cross form {model} {dname}: "
+                                     f"cross_body names "
+                                     f"{cross_body(dtype, HD)}, expected "
+                                     f"{body}")
+            extra = {"model": model, "body": body,
+                     "splits": cross_splits(C, H, KV, HD, src)
+                     if body == "wgmma" else 1}
             for B in ((1, 8) if dname == "bfloat16" else (1,)):
                 nbp = B * nb + 1
                 kp, vp = (t(rng.standard_normal((nbp, BS, KV, HD)), dtype)
@@ -1658,6 +1682,17 @@ def cross_cases(dev) -> list:
                 nbytes = (2 * B * C * H * HD * es + 2 * B * src * KV * HD * es
                           + 4 * B * nb)
                 flops = 4 * B * C * H * HD * src
+                prev = prev_out = None
+                if body == "wgmma":
+                    # the previous body, gated and timed in turns
+                    prev_out = _on_body(
+                        "paged_cross_attention", "mma",
+                        lambda: paged_cross_attention(q, kp, vp, tables, src,
+                                                      _body="mma"))
+
+                    def prev():
+                        return paged_cross_attention(q, kp, vp, tables, src,
+                                                     _body="mma")
                 cases.append(_case(
                     "paged_cross_attention", dname,
                     {"B": B, "C": C, "H": H, "KV": KV, "hd": HD, "bs": BS,
@@ -1668,9 +1703,9 @@ def cross_cases(dev) -> list:
                                                         src),
                     lambda: F.scaled_dot_product_attention(
                         qs, kt, vt, enable_gqa=True),
-                    nbytes, flops, extra={**extra, **_bounds(
-                        nbytes, flops, dname)}))
-                del kp, vp, kd, vd, q, qs, kt, vt, out, dense
+                    nbytes, flops, prev=prev, prev_out=prev_out,
+                    extra={**extra, **_bounds(nbytes, flops, dname)}))
+                del kp, vp, kd, vd, q, qs, kt, vt, out, dense, prev, prev_out
         # the decode kernels at pos src - 1: every slot visible, the last
         # block's tail masked
         dtype, dname, es, B = torch.bfloat16, "bfloat16", 2, 8
@@ -2598,21 +2633,26 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
 
 def main_bodies(cfg) -> dict:
     """``MAIN_BODY`` with each of ``cfg``'s attention kernels on the body
-    ``ATTN_BODY`` fixes for it; raises if a wrapper's rule would send the
-    config's launches elsewhere."""
+    ``ATTN_BODY`` fixes for it (the cross form only for a config with
+    cross reads); raises if a wrapper's rule would send the config's
+    launches elsewhere."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.decode_attention import decode_body
-    from repro_torch.kernels.flash_attention import prefill_body, ring_body
+    from repro_torch.kernels.flash_attention import (cross_body, prefill_body,
+                                                     ring_body)
     if not cfg.n_kv_heads:
         return MAIN_BODY
     dtype = torch_dtype(cfg.dtype)
     rules = {"prefill_body": prefill_body(dtype, cfg.head_dim),
              "ring_body": ring_body(dtype, cfg.head_dim),
+             "cross_body": cross_body(dtype, cfg.head_dim),
              "decode_body": decode_body(dtype, cfg.head_dim,
                                         cfg.n_heads // cfg.n_kv_heads)}
     fixed = ATTN_BODY.get(cfg.name, {})
-    bodies = {k: fixed.get(k, "mma") for k in ATTN_RULE}
-    named = {k: rules[rule] for k, rule in ATTN_RULE.items()}
+    kernels = [k for k in ATTN_RULE if k != "paged_cross_attention"
+               or "cross" in cfg.block_pattern or cfg.is_encoder_decoder]
+    bodies = {k: fixed.get(k, "mma") for k in kernels}
+    named = {k: rules[ATTN_RULE[k]] for k in kernels}
     if named != bodies:
         raise AssertionError(f"{cfg.name}: the wrappers' rules name the "
                              f"bodies {named}, expected {bodies}")
@@ -3322,7 +3362,8 @@ def prefill_run(name, cfg, params, dev, rows: int = 8, prompt: int = 128,
     prefill and read after the last macro-step, must be what
     ``expected_launches`` says of one prefill and ``k * macro_steps``
     dense decode iterations, by kernel and body (the contiguous flash
-    form on ``flash_body``'s), and every token in the vocab."""
+    form on ``PREFILL_FLASH_BODY``, which ``flash_body`` must name), and
+    every token in the vocab."""
     import torch
     from repro_torch.device import torch_dtype
     from repro_torch.kernels import _build
@@ -3401,9 +3442,12 @@ def prefill_run(name, cfg, params, dev, rows: int = 8, prompt: int = 128,
                                            & (toks < cfg.vocab_size)).all()):
         raise AssertionError(f"{name}: non-finite logits, zero cross K/V or "
                              f"tokens out of the vocab")
+    rule = flash_body(torch_dtype(cfg.dtype), cfg.head_dim)
+    if rule != PREFILL_FLASH_BODY:
+        raise AssertionError(f"{name}: flash_body names {rule} at hd "
+                             f"{cfg.head_dim}, expected {PREFILL_FLASH_BODY}")
     check_launches(name, cfg, launches, expect, bodies, expect_bodies,
-                   {"flash_attention": (flash_body(torch_dtype(cfg.dtype),
-                                                   cfg.head_dim),)})
+                   {"flash_attention": (PREFILL_FLASH_BODY,)})
     return {name: launches}
 
 
@@ -3966,13 +4010,15 @@ def train(dev) -> dict:
 
 
 def wgmma_ptxas(report: str) -> list:
-    """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma body:
-    its name, the registers a thread has at launch and the bytes it
-    spills (stores and loads)."""
+    """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma bodies
+    (the contiguous form's and the cross form's, at hd 64 and 128): its
+    name, the registers a thread has at launch and the bytes it spills
+    (stores and loads)."""
     found, entry = {}, None
     for ln in report.splitlines():
         if "Compiling entry" in ln:
-            entry = ln.split("'")[1] if "flash_wgmma_kernel" in ln else None
+            entry = (ln.split("'")[1] if "flash_wgmma_kernel" in ln
+                     or "cross_wgmma_kernel" in ln else None)
         elif entry and "spill stores" in ln:
             _, stores, loads = (int(x) for x in
                                 re.findall(r"(\d+) bytes", ln)[:3])
@@ -3989,11 +4035,17 @@ def device_tables(dev) -> dict:
     selective scan) and ``cudaOccupancyMaxActiveClusters`` for clusters
     of 1-8 CTAs at the shared memory of the wide bodies (the paged
     prefill's, the ring form's, which takes the same tiles, and the
-    decode's at gemma3-12b's G 2) against ``WIDE_CLUSTERS``; the CTAs an
-    SM holds of the contiguous flash form's ``wgmma`` body, from the
-    occupancy calculator on the kernel at the dynamic shared memory it
-    launches with, against ``WGMMA_CTAS_PER_SM``.  Raises
-    naming each table, size, expected and measured value that differ."""
+    decode's at gemma3-12b's G 2, through the empty kernel; and the
+    cross form's ``wgmma`` body at hd 64 and 128 itself, whose clusters
+    ``cross_splits`` sizes) against
+    ``WIDE_CLUSTERS``; the CTAs an SM holds of the contiguous and the
+    cross flash forms' ``wgmma`` bodies at hd 64 and 128, from the
+    occupancy calculator on each kernel at the dynamic shared memory it
+    launches with, against ``WGMMA_CTAS_PER_SM``, and that shared memory
+    and the keys of a K/V tile against their Python mirrors
+    (``wgmma_smem_bytes``, ``wgmma_tile_keys``, which ``cross_splits``
+    reads).  Raises naming each table, size, expected and measured value
+    that differ."""
     import torch
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      quant_matmul, rmsnorm, selective_scan)
@@ -4009,24 +4061,46 @@ def device_tables(dev) -> dict:
             ("ring_chunk_attention", 256,
              flash_attention.prefill_smem_bytes(256)),
             ("paged_decode_attention", 128,
-             decode_attention.decode_smem_bytes(256, 2))):
-        got = {sp: max_active_clusters(sp, threads, smem)
+             decode_attention.decode_smem_bytes(256, 2)),
+            ("paged_cross_attention hd 64", 384,
+             flash_attention.wgmma_smem_bytes(64, "cross")),
+            ("paged_cross_attention hd 128", 384,
+             flash_attention.wgmma_smem_bytes(128, "cross"))):
+        # the cross body's own (its registers hold it to a CTA an SM);
+        # the others' through the empty kernel at their shared memory
+        got = {sp: (flash_attention.cross_wgmma_clusters(
+                        int(name.split()[-1]), sp)
+                    if name.startswith("paged_cross") else
+                    max_active_clusters(sp, threads, smem))
                for sp in range(1, 9)}
         clusters[name] = {"threads": threads, "smem": smem, "clusters": got}
         bad += [f"WIDE_CLUSTERS[{sp}] at {name}'s {smem} B: expected "
                 f"{decode_attention.WIDE_CLUSTERS[sp]}, got {n}"
                 for sp, n in got.items()
                 if n != decode_attention.WIDE_CLUSTERS[sp]]
-    ctas, smem = flash_attention.wgmma_occupancy()
-    if ctas != flash_attention.WGMMA_CTAS_PER_SM:
-        bad.append(f"WGMMA_CTAS_PER_SM at the wgmma body's {smem} B: "
-                   f"expected {flash_attention.WGMMA_CTAS_PER_SM}, got "
-                   f"{ctas}")
-    res = {"phase": "device", "check": "SM_COUNT, WIDE_CLUSTERS and "
-                                       "WGMMA_CTAS_PER_SM against this card",
+    occupancy = {}
+    for form in ("flash", "cross"):
+        for hd in flash_attention.WGMMA_HD:
+            ctas, smem, keys = flash_attention.wgmma_occupancy(hd, form)
+            occupancy[f"{form} hd {hd}"] = {"smem": smem, "ctas": ctas,
+                                            "tile_keys": keys}
+            if ctas != flash_attention.WGMMA_CTAS_PER_SM:
+                bad.append(f"WGMMA_CTAS_PER_SM at the wgmma body's {smem} "
+                           f"B: expected "
+                           f"{flash_attention.WGMMA_CTAS_PER_SM}, got {ctas} "
+                           f"({form} form, hd {hd})")
+            # the Python mirrors the split rule and the tests read
+            for mirror, got in (("wgmma_smem_bytes", smem),
+                                ("wgmma_tile_keys", keys)):
+                want = getattr(flash_attention, mirror)(hd, form)
+                if want != got:
+                    bad.append(f"{mirror}({hd}, {form!r}): expected "
+                               f"{want}, the kernel has {got}")
+    res = {"phase": "device", "check": "SM_COUNT, WIDE_CLUSTERS, "
+                                       "WGMMA_CTAS_PER_SM and the wgmma "
+                                       "mirrors against this card",
            "sm_count": sms, "max_active_clusters": clusters,
-           "wgmma_ctas_per_sm": {"smem": smem, "ctas": ctas},
-           "mismatches": bad}
+           "wgmma_ctas_per_sm": occupancy, "mismatches": bad}
     emit(res)
     if bad:
         raise AssertionError("the split rules' card tables do not match "
@@ -4123,10 +4197,11 @@ def main() -> int:
           "nvcc_seconds": _build.build_seconds, "key": _build.build_key(),
           "ptxas": report})
     wgmma = wgmma_ptxas(full_report)
-    emit({"phase": "build", "kernel": "flash_attention, wgmma body",
+    emit({"phase": "build", "kernel": "flash_attention and "
+                                       "paged_cross_attention, wgmma bodies",
           "ptxas": wgmma})
-    if not wgmma or any(e.get("spill_bytes", 1) for e in wgmma):
-        raise AssertionError(f"the wgmma body is missing from the build or "
+    if len(wgmma) != 4 or any(e.get("spill_bytes", 1) for e in wgmma):
+        raise AssertionError(f"a wgmma body is missing from the build or "
                              f"spills: {wgmma}")
 
     seconds = {}

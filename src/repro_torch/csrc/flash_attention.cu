@@ -30,30 +30,34 @@
 // (kernels/flash_attention.py::flash_body) and this entry point launches
 // it, refusing a body the shape cannot take:
 //
-// * wgmma (bf16, hd 64, 16-byte aligned pointers and strides: every
-//   launch of smollm-360m's train step), warp-specialised for Hopper.
-//   One producer warp issues every copy by TMA over the tensors' own
-//   strides (hopper.cuh): Q once an item, through a 5-D map (hd,
-//   head-in-group, query, KV head, batch) whose box is nq = 128 / G
-//   whole queries, so a CTA's 128 rows keep the (query, head) packing
-//   and each K/V tile serves all G heads; K and V as 128-key boxes of
-//   4-D maps into a 3-stage ring, with full / empty mbarriers, keys past
-//   S arriving as zeros, only the tiles some row of the CTA may see.
-//   Two consumer warpgroups (setmaxnreg 240; the producer 24) of 64 rows
-//   each run S = Q K^T as wgmma m64n128k16 from the 128-byte-swizzled
-//   tiles, the softmax in registers (the mask only on tiles that
-//   straddle the diagonal, the window's edge or S; a tile none of a
-//   warpgroup's rows may see is skipped), and O += (P_hi + P_lo) V as
-//   two wgmma m64n64k16 a k16 step, P from registers, V read MN-major.
-//   Each tile's S is issued beside the previous tile's PV, so its
-//   softmax runs while the tensor cores finish that PV, and the two
-//   warpgroups take turns issuing, so one's softmax runs beside the
-//   other's products.  A persistent grid of one CTA an SM walks the
-//   items (row tile, KV head, row b) at a stride of the grid, causal row
-//   tiles with the most keys first; the same shapes give the same bits
-//   (no atomics; a static schedule).  At the train shape it is 3.6x its
-//   operations bound: neither pipe is full, and each warpgroup's
-//   S -> softmax -> PV chain is exposed (PERF.md §6).
+// * wgmma (bf16, hd 64 and 128, 16-byte aligned pointers and strides:
+//   every launch of smollm-360m's train step and of Model.prefill's
+//   self-attention), warp-specialised for Hopper, the consumers shared
+//   with the cross form (wg_attention.cuh).  One producer warp issues
+//   every copy by TMA over the tensors' own strides (hopper.cuh): Q once
+//   an item, through a 5-D map (hd, head-in-group, query, KV head,
+//   batch) whose box is 64 columns of nq = 128 / G whole queries, so a
+//   CTA's 128 rows keep the (query, head) packing and each K/V tile
+//   serves all G heads; K and V as boxes of 4-D maps into a ring
+//   (hd 64: 128-key tiles, 3 stages; hd 128: each row two 64-column
+//   halves, 64-key tiles, 4 stages, 165,120 B), with full / empty
+//   mbarriers, keys past S arriving as zeros, only the tiles some row of
+//   the CTA may see.  Two consumer warpgroups (setmaxnreg 240; the
+//   producer 24) of 64 rows each run S = Q K^T as wgmma from the
+//   128-byte-swizzled tiles, the softmax in registers (the mask only on
+//   tiles that straddle the diagonal, the window's edge or S; a tile
+//   none of a warpgroup's rows may see is skipped), and
+//   O += (P_hi + P_lo) V, P from registers, V read MN-major (at hd 128
+//   one m64n128k16 over V's two halves a k16 step and P part).  Each
+//   tile's S is issued beside the previous tile's PV, so its softmax
+//   runs while the tensor cores finish that PV, and the two warpgroups
+//   take turns issuing, so one's softmax runs beside the other's
+//   products.  A persistent grid of one CTA an SM walks the items (row
+//   tile, KV head, row b) at a stride of the grid, causal row tiles with
+//   the most keys first; the same shapes give the same bits (no atomics;
+//   a static schedule).  At the train shape it is 3.6x its operations
+//   bound: neither pipe is full, and each warpgroup's S -> softmax -> PV
+//   chain is exposed (PERF.md §6).
 // * mma (bf16, hd % 16 == 0 up to 128 or hd 256, 16-byte aligned
 //   pointers and strides): the tensor-core tiles of the paged prefill and
 //   the window form (flash_tiles.cuh) over contiguous keys.  A CTA owns
@@ -87,6 +91,7 @@
 #include "core_tiles.cuh"
 #include "flash_tiles.cuh"
 #include "hopper.cuh"
+#include "wg_attention.cuh"
 
 namespace {
 
@@ -384,32 +389,13 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// wgmma body (bf16, hd 64): warp-specialised, Q / K / V by TMA
+// wgmma body (bf16, hd 64 and 128): warp-specialised, Q / K / V by TMA,
+// the consumers of wg_attention.cuh
 // ---------------------------------------------------------------------------
 namespace wg {
 
-constexpr int kHd = 64;                    // one 128-byte swizzled row
-constexpr int kRowBytes = kHd * 2;
-
-// The body's shape: kC consumer warpgroups of 64 rows, then one producer
-// warpgroup whose registers go to the consumers (setmaxnreg), and key
-// tiles of kTK keys in a ring of kStages.
-constexpr int kC = 2;
-constexpr int kTK = 128;
-constexpr int kStages = 3;
-constexpr int kRows = 64 * kC;
-constexpr int kThreads = 128 * (kC + 1);
-constexpr int kQBytes = kRows * kRowBytes;
-constexpr int kTileBytes = kTK * kRowBytes;
-constexpr int kConsumerRegs = 240;
-constexpr int kProducerRegs = 24;
-// Q, then the stages' K and V tiles (1024-byte aligned), then the
-// barriers; 1024 bytes of slack align the dynamic base
-constexpr int kBarOffset = kQBytes + 2 * kStages * kTileBytes;
-constexpr int kSmem = 1024 + kBarOffset + 256;
-static_assert(kC * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
-              "the warpgroups' registers fit the SM");
-static_assert((2 + 3 * kStages + kC) * 8 <= 256, "the barriers fit");
+using wgt::kRows;
+using wgt::kThreads;
 
 struct Params {
   __nv_bfloat16* out;
@@ -430,7 +416,9 @@ struct Item {
   int kvh, b, q0, t_lo, t_hi;   // first query; key tiles
 };
 
+template <int HD>
 __device__ __forceinline__ Item item_of(const Params& p, int w) {
+  constexpr int kTK = wgt::FlashCfg<HD>::kTK;
   const int rank = w / p.nbkv;
   const int r = w - rank * p.nbkv;
   Item it;
@@ -444,336 +432,115 @@ __device__ __forceinline__ Item item_of(const Params& p, int w) {
   return it;
 }
 
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
-  constexpr int kN = kTK / 8;       // n8 column tiles of S
-  constexpr int kK16 = kTK / 16;    // k16 steps of P V
+  using K = wgt::FlashCfg<HD>;
+  constexpr int kTK = K::kTK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* qs =
-      smem_raw + ((1024 - (rt::smem_addr(smem_raw) & 1023)) & 1023);
-  unsigned char* ks = qs + kQBytes;               // [kStages][kTileBytes]
-  unsigned char* vs = ks + kStages * kTileBytes;  // [kStages][kTileBytes]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(qs + kBarOffset);
-  uint64_t* q_empty = q_full + 1;
-  uint64_t* k_full = q_full + 2;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* kv_empty = v_full + kStages;
-  uint64_t* turn = kv_empty + kStages;            // [kC]
-  if (threadIdx.x == 0) {
-    hop::mbar_init(q_full, 1);
-    hop::mbar_init(q_empty, 4 * kC);          // lane 0 of each consumer warp
-    for (int s = 0; s < kStages; ++s) {
-      hop::mbar_init(&k_full[s], 1);
-      hop::mbar_init(&v_full[s], 1);
-      hop::mbar_init(&kv_empty[s], 4 * kC);
-    }
-    for (int c = 0; c < kC; ++c) hop::mbar_init(&turn[c], 4);
-    hop::fence_barrier_init();
-  }
-  __syncthreads();
+  const wgt::Ring<K> ring(smem_raw);
+  ring.init();
 
   // a persistent grid: each CTA walks the items at a stride of the grid
   const int first = blockIdx.x;
   const int stride = gridDim.x;
   const int wgi = threadIdx.x / 128;
 
-  if (wgi == kC) {
-    // producer: one thread issues every copy, Q once an item, then the
-    // item's key tiles into the ring as the consumers release it
-    hop::reg_dealloc<kProducerRegs>();
-    if (threadIdx.x == kC * 128) {
-      const uint32_t q_bytes = p.nq * p.G * kRowBytes;
+  if (wgi == wgt::kC) {
+    // producer: one thread issues every copy, Q once an item (its halves
+    // as boxes of 64 columns), then the item's key tiles into the ring as
+    // the consumers release it
+    hop::reg_dealloc<wgt::kProducerRegs>();
+    if (threadIdx.x == wgt::kC * 128) {
+      const uint32_t q_bytes = p.nq * p.G * wgt::kAtomRow * K::kHalves;
       int n = 0;                               // K / V tiles issued
       int j = 0;                               // items
       for (int w = first; w < p.items; w += stride, ++j) {
-        const Item it = item_of(p, w);
-        if (j > 0) hop::mbar_wait(q_empty, (j - 1) & 1);
-        hop::mbar_expect_tx(q_full, q_bytes);
-        hop::tma_load_5d(qs, &tq, q_full, 0, 0, it.q0, it.kvh, it.b);
+        const Item it = item_of<HD>(p, w);
+        if (j > 0) hop::mbar_wait(ring.q_empty, (j - 1) & 1);
+        hop::mbar_expect_tx(ring.q_full, q_bytes);
+        for (int h = 0; h < K::kHalves; ++h)
+          hop::tma_load_5d(ring.qs + h * K::kQHalf, &tq, ring.q_full, 64 * h,
+                           0, it.q0, it.kvh, it.b);
         for (int t = it.t_lo; t <= it.t_hi; ++t, ++n) {
-          const int s = n % kStages;
-          if (n >= kStages)
-            hop::mbar_wait(&kv_empty[s], (n / kStages - 1) & 1);
-          hop::mbar_expect_tx(&k_full[s], kTileBytes);
-          hop::tma_load_4d(ks + s * kTileBytes, &tk, &k_full[s], 0, t * kTK,
-                           it.kvh, it.b);
-          hop::mbar_expect_tx(&v_full[s], kTileBytes);
-          hop::tma_load_4d(vs + s * kTileBytes, &tv, &v_full[s], 0, t * kTK,
-                           it.kvh, it.b);
+          const int s = n % K::kStages;
+          if (n >= K::kStages)
+            hop::mbar_wait(&ring.kv_empty[s], (n / K::kStages - 1) & 1);
+          unsigned char* kd = ring.ks + s * K::kTileBytes;
+          unsigned char* vd = ring.vs + s * K::kTileBytes;
+          hop::mbar_expect_tx(&ring.k_full[s], K::kTileBytes);
+          for (int h = 0; h < K::kHalves; ++h)
+            hop::tma_load_4d(kd + h * K::kTileHalf, &tk, &ring.k_full[s],
+                             64 * h, t * kTK, it.kvh, it.b);
+          hop::mbar_expect_tx(&ring.v_full[s], K::kTileBytes);
+          for (int h = 0; h < K::kHalves; ++h)
+            hop::tma_load_4d(vd + h * K::kTileHalf, &tv, &ring.v_full[s],
+                             64 * h, t * kTK, it.kvh, it.b);
         }
       }
     }
   } else {
     // consumer warpgroup wgi: rows 64 wgi .. 64 wgi + 63 of the CTA's
     // nq * G, this thread's ra and ra + 8
-    hop::reg_alloc<kConsumerRegs>();
-    const int tid = threadIdx.x & 127;
-    const int lane = tid & 31;
-    const int grp = lane >> 2;
-    const int tig = lane & 3;
-    const int ra = 64 * wgi + 16 * (tid >> 5) + grp;
+    hop::reg_alloc<wgt::kConsumerRegs>();
+    wgt::Consumer<K> c(ring, wgi);
     const int rows = p.nq * p.G;
     const int rlo = 64 * wgi;
     const int rhi = min(rlo + 63, rows - 1);
     const bool win = p.causal && p.window > 0;
-    const float sl = p.scale_log2;
-    const uint32_t q_addr = rt::smem_addr(qs) + rlo * kRowBytes;
-    const uint32_t k_addr = rt::smem_addr(ks);
-    const uint32_t v_addr = rt::smem_addr(vs);
-    // the warpgroups issue their products in turns, round the ring of
-    // warpgroups (turn[wgi], one arrival a warp of the one before), so
-    // one's softmax runs beside another's products instead of all
-    // waiting on the same copies at once; a turn for every key tile and
-    // one for an item's last PV, skipped tiles included, so all count
-    // the same turns
-    uint32_t takes = 0;
-    auto turn_take = [&]() {
-      hop::mbar_wait(&turn[wgi], takes & 1);
-      ++takes;
-    };
-    auto turn_pass = [&]() {
-      if (lane == 0) hop::mbar_arrive(&turn[(wgi + 1) % kC]);
-    };
-    if (wgi == kC - 1) turn_pass();             // warpgroup 0 goes first
-
-    float sc[4 * kN];              // S, then P in f32, of the newest tile
-    uint32_t ph[kK16][4], pl[kK16][4];   // P_hi, P_lo of the tile PV runs on
-#pragma unroll
-    for (int i = 0; i < 4 * kN; ++i) sc[i] = 0.f;
-#pragma unroll
-    for (int s2 = 0; s2 < kK16; ++s2)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        ph[s2][r] = 0u;
-        pl[s2][r] = 0u;
-      }
-    int n = 0;                     // K / V tiles consumed: the ring's place
     int j = 0;
     for (int w = first; w < p.items; w += stride, ++j) {
-      const Item it = item_of(p, w);
+      const Item it = item_of<HD>(p, w);
       const int wq_first = it.q0 + rlo / p.G;
       const int wq_last = min(it.q0 + rhi / p.G, p.S - 1);
       const bool live = rlo <= rhi && wq_first < p.S;
-      const int qa = it.q0 + ra / p.G;
-      const int qb = it.q0 + (ra + 8) / p.G;
-      float o[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
-      float m_a = rt::kNegInf, m_b = rt::kNegInf;
-      float l_a = 0.f, l_b = 0.f;              // this thread's columns' share
-
-      // the key tiles some row of the warpgroup may see: one run of tiles
-      auto seen = [&](int t) {
-        const int k0 = t * kTK;
-        if (!p.causal) return live;
-        return live && k0 <= wq_last &&
-               (!win || k0 + kTK - 1 > wq_first - p.window);
-      };
-      // a tile the warpgroup skips: its turn, then wait for its copies
-      // (so no arrival runs a round ahead) and release it
-      auto skip = [&]() {
-        turn_take();
-        turn_pass();
-        const int s = n % kStages;
-        hop::mbar_wait(&k_full[s], (n / kStages) & 1);
-        hop::mbar_wait(&v_full[s], (n / kStages) & 1);
-        if (lane == 0) hop::mbar_arrive(&kv_empty[s]);
-      };
-      // S = Q K^T of stage s: 4 k16 steps of m64 n kTK k16, one group
-      auto issue_s = [&](int s) {
-#pragma unroll
-        for (int kk = 0; kk < kHd / 16; ++kk) {
-          const uint64_t dq = hop::desc_sw128(q_addr + 32 * kk);
-          const uint64_t dk =
-              hop::desc_sw128(k_addr + s * kTileBytes + 32 * kk);
-          hop::wgmma_m64n128k16_ss(sc, dq, dk, kk);
-        }
-        hop::wgmma_commit();
-      };
-      // O += (P_hi + P_lo) V of stage s: V the MN-major B operand, 16
-      // keys (2048 bytes) a k16 step, one group
-      auto issue_pv = [&](int s) {
-#pragma unroll
-        for (int s2 = 0; s2 < kK16; ++s2) {
-          const uint64_t dv = hop::desc_sw128(v_addr + s * kTileBytes +
-                                              s2 * 16 * kRowBytes);
-          hop::wgmma_m64n64k16_rs_tb(o, ph[s2], dv);
-          hop::wgmma_m64n64k16_rs_tb(o, pl[s2], dv);
-        }
-        hop::wgmma_commit();
-      };
-      auto pin_pv = [&]() {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) hop::pin(o[i]);
-#pragma unroll
-        for (int s2 = 0; s2 < kK16; ++s2)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            hop::pin(ph[s2][r]);
-            hop::pin(pl[s2][r]);
-          }
-      };
-      // the tile at key k0: S in the log2 domain, the mask where some row
-      // may not see some key (else the scale folded into exp2's FMA),
-      // the online softmax; sc becomes P, and O's rows owe al_a / al_b
-      auto softmax = [&](int k0, float& al_a, float& al_b) {
-        const bool masked =
-            p.causal ? k0 + kTK - 1 > wq_first ||
-                           (win && k0 <= wq_last - p.window)
-                     : k0 + kTK > p.S;
-        float mx_a = rt::kNegInf, mx_b = rt::kNegInf;
-        if (masked) {
-#pragma unroll
-          for (int jn = 0; jn < kN; ++jn)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int key = k0 + 8 * jn + 2 * tig + (e & 1);
-              const int qi = e < 2 ? qa : qb;
-              float x = sc[4 * jn + e] * sl;
-              if (p.causal ? key > qi || (win && key <= qi - p.window)
-                           : key >= p.S)
-                x = rt::kNegInf;
-              sc[4 * jn + e] = x;
-              if (e < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
-            }
-        } else {
-#pragma unroll
-          for (int jn = 0; jn < kN; ++jn) {
-            mx_a = fmaxf(mx_a, fmaxf(sc[4 * jn], sc[4 * jn + 1]));
-            mx_b = fmaxf(mx_b, fmaxf(sc[4 * jn + 2], sc[4 * jn + 3]));
-          }
-          mx_a *= sl;   // sl > 0: the max of the scaled scores
-          mx_b *= sl;
-        }
-#pragma unroll
-        for (int o2 = 1; o2 < 4; o2 <<= 1) {
-          mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
-          mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
-        }
-        const float mn_a = fmaxf(m_a, mx_a);
-        const float mn_b = fmaxf(m_b, mx_b);
-        al_a = hop::exp2_ftz(m_a - mn_a);
-        al_b = hop::exp2_ftz(m_b - mn_b);
-        m_a = mn_a;
-        m_b = mn_b;
-        const float f = masked ? 1.f : sl;
-        float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-        for (int jn = 0; jn < kN; ++jn) {
-          sc[4 * jn] = hop::exp2_ftz(fmaf(sc[4 * jn], f, -mn_a));
-          sc[4 * jn + 1] = hop::exp2_ftz(fmaf(sc[4 * jn + 1], f, -mn_a));
-          sc[4 * jn + 2] = hop::exp2_ftz(fmaf(sc[4 * jn + 2], f, -mn_b));
-          sc[4 * jn + 3] = hop::exp2_ftz(fmaf(sc[4 * jn + 3], f, -mn_b));
-          sum_a += sc[4 * jn] + sc[4 * jn + 1];
-          sum_b += sc[4 * jn + 2] + sc[4 * jn + 3];
-        }
-        l_a = l_a * al_a + sum_a;
-        l_b = l_b * al_b + sum_b;
-      };
-      // P = P_hi + P_lo as the A fragments of the k16 steps of keys
-      auto split = [&]() {
-#pragma unroll
-        for (int s2 = 0; s2 < kK16; ++s2) {
-          rt::split_bf16(sc[8 * s2], sc[8 * s2 + 1], ph[s2][0], pl[s2][0]);
-          rt::split_bf16(sc[8 * s2 + 2], sc[8 * s2 + 3], ph[s2][1],
-                         pl[s2][1]);
-          rt::split_bf16(sc[8 * s2 + 4], sc[8 * s2 + 5], ph[s2][2],
-                         pl[s2][2]);
-          rt::split_bf16(sc[8 * s2 + 6], sc[8 * s2 + 7], ph[s2][3],
-                         pl[s2][3]);
-        }
-      };
-
-      hop::mbar_wait(q_full, j & 1);
-      // the tiles some row of the warpgroup may see are one run: the
-      // first's S alone; then each tile's S goes out beside the PV of the
-      // one before (prev), and the tile's softmax runs while the tensor
-      // cores finish that PV; then the last PV.  A tile no row may see is
-      // only waited for and released, before the run and after it.
-      int t = it.t_lo;
-      for (; t <= it.t_hi && !seen(t); ++t, ++n) skip();
-      if (t <= it.t_hi) {
-        int s = n % kStages;
-        hop::mbar_wait(&k_full[s], (n / kStages) & 1);
-        turn_take();
-        hop::wgmma_fence();
-        issue_s(s);
-        turn_pass();
-        hop::wgmma_wait<0>();
-#pragma unroll
-        for (int i = 0; i < 4 * kN; ++i) hop::pin(sc[i]);
-        float al_a, al_b;
-        softmax(t * kTK, al_a, al_b);       // O is still zero
-        split();
-        int prev = s, prev_n = n;
-        for (++t, ++n; t <= it.t_hi && seen(t); ++t, ++n) {
-          s = n % kStages;
-          hop::mbar_wait(&k_full[s], (n / kStages) & 1);
-          hop::mbar_wait(&v_full[prev], (prev_n / kStages) & 1);
-          turn_take();
-          hop::wgmma_fence();
-          issue_s(s);
-          issue_pv(prev);
-          turn_pass();
-          hop::wgmma_wait<1>();                // S is in, PV may run on
-#pragma unroll
-          for (int i = 0; i < 4 * kN; ++i) hop::pin(sc[i]);
-          softmax(t * kTK, al_a, al_b);
-          hop::wgmma_wait<0>();
-          pin_pv();
-          if (lane == 0) hop::mbar_arrive(&kv_empty[prev]);
-#pragma unroll
-          for (int d = 0; d < 8; ++d) {
-            o[4 * d] *= al_a;
-            o[4 * d + 1] *= al_a;
-            o[4 * d + 2] *= al_b;
-            o[4 * d + 3] *= al_b;
-          }
-          split();
-          prev = s;
-          prev_n = n;
-        }
-        hop::mbar_wait(&v_full[prev], (prev_n / kStages) & 1);
-        turn_take();
-        hop::wgmma_fence();
-        issue_pv(prev);
-        turn_pass();
-        hop::wgmma_wait<0>();
-        pin_pv();
-        if (lane == 0) hop::mbar_arrive(&kv_empty[prev]);
-      } else {
-        turn_take();                           // the last PV's turn
-        turn_pass();
-      }
-      for (; t <= it.t_hi; ++t, ++n) skip();
-      if (lane == 0) hop::mbar_arrive(q_empty);   // Q is read no more
+      const int qa = it.q0 + c.ra / p.G;
+      const int qb = it.q0 + (c.ra + 8) / p.G;
+      c.start_item();
+      hop::mbar_wait(ring.q_full, j & 1);
+      // the key tiles some row of the warpgroup may see: one run of tiles;
+      // masked where some row may not see some key of the tile
+      c.run(
+          it.t_lo, it.t_hi, p.scale_log2,
+          [&](int t) {
+            const int k0 = t * kTK;
+            if (!p.causal) return live;
+            return live && k0 <= wq_last &&
+                   (!win || k0 + kTK - 1 > wq_first - p.window);
+          },
+          [&](int k0) {
+            return p.causal ? k0 + kTK - 1 > wq_first ||
+                                  (win && k0 <= wq_last - p.window)
+                            : k0 + kTK > p.S;
+          },
+          [&](int key, bool second) {
+            const int qi = second ? qb : qa;
+            return p.causal ? key > qi || (win && key <= qi - p.window)
+                            : key >= p.S;
+          });
+      if (c.lane == 0) hop::mbar_arrive(ring.q_empty);   // Q is read no more
 
       // divide by l in f32, round once, store through out's strides;
       // lse = (m + log2 l) ln 2
 #pragma unroll
-      for (int o2 = 1; o2 < 4; o2 <<= 1) {
-        l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
-        l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
-      }
-#pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int rho = ra + 8 * half;
+        const int rho = c.ra + 8 * half;
         const int qi = half ? qb : qa;
         if (!live || rho >= rows || qi >= p.S) continue;
         const int h = it.kvh * p.G + rho % p.G;
-        const float l = fmaxf(half ? l_b : l_a, 1e-30f);
+        const float l = fmaxf(half ? c.l_b : c.l_a, 1e-30f);
         __nv_bfloat16* dst = p.out + it.b * p.o[0] + h * p.o[1] +
-                             qi * p.o[2] + 2 * tig;
+                             qi * p.o[2] + 2 * c.tig;
 #pragma unroll
-        for (int d = 0; d < 8; ++d)
+        for (int d = 0; d < HD / 8; ++d)
           *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
-              __floats2bfloat162_rn(o[4 * d + 2 * half] / l,
-                                    o[4 * d + 2 * half + 1] / l);
-        if (tig == 0)
+              __floats2bfloat162_rn(c.o[4 * d + 2 * half] / l,
+                                    c.o[4 * d + 2 * half + 1] / l);
+        if (c.tig == 0)
           p.lse[(static_cast<size_t>(it.b) * p.H + h) * p.S + qi] =
-              ((half ? m_b : m_a) + log2f(l)) * kLn2;
+              ((half ? c.m_b : c.m_a) + log2f(l)) * kLn2;
       }
     }
   }
@@ -782,9 +549,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // Encode the three tensor maps over the tensors' own strides and launch
 // a persistent grid of one CTA an SM; a CUDA error, or
 // hop::kTensorMapError + the CUDA driver's CUresult.
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, const Layout& lay, int B, int S, int H, int KV,
            int causal, int window, float scale, cudaStream_t stream) {
+  using K = wgt::FlashCfg<HD>;
   Params p;
   p.G = H / KV;
   if (p.G > kRows) return static_cast<int>(cudaErrorInvalidValue);
@@ -803,38 +572,53 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (static_cast<long long>(p.tiles) * p.nbkv > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   p.items = p.tiles * p.nbkv;
-  // Q: (hd, head-in-group, query, KV head, batch), boxes of nq whole
-  // queries' G rows; K and V: (hd, position, KV head, batch), boxes of
-  // kTK keys (past S: zeros)
+  // Q: (hd, head-in-group, query, KV head, batch), boxes of 64 columns
+  // of nq whole queries' G rows; K and V: (hd, position, KV head, batch),
+  // boxes of 64 columns of kTK keys (past S: zeros)
   const cuuint64_t e = sizeof(__nv_bfloat16);
   CUtensorMap tq, tk, tv;
-  const cuuint64_t q_dims[5] = {kHd, static_cast<cuuint64_t>(p.G),
+  const cuuint64_t q_dims[5] = {HD, static_cast<cuuint64_t>(p.G),
                                 static_cast<cuuint64_t>(S),
                                 static_cast<cuuint64_t>(KV),
                                 static_cast<cuuint64_t>(B)};
   const cuuint64_t q_strides[4] = {
       lay.q[1] * e, lay.q[2] * e, p.G * lay.q[1] * e, lay.q[0] * e};
-  const cuuint32_t q_box[5] = {kHd, static_cast<cuuint32_t>(p.G),
+  const cuuint32_t q_box[5] = {64, static_cast<cuuint32_t>(p.G),
                                static_cast<cuuint32_t>(p.nq), 1, 1};
   int rc = hop::encode_bf16(&tq, q, 5, q_dims, q_strides, q_box);
-  const cuuint64_t kv_dims[4] = {kHd, static_cast<cuuint64_t>(S),
+  const cuuint64_t kv_dims[4] = {HD, static_cast<cuuint64_t>(S),
                                  static_cast<cuuint64_t>(KV),
                                  static_cast<cuuint64_t>(B)};
   const cuuint64_t kv_strides[3] = {lay.kv[2] * e, lay.kv[1] * e,
                                     lay.kv[0] * e};
-  const cuuint32_t kv_box[4] = {kHd, kTK, 1, 1};
+  const cuuint32_t kv_box[4] = {64, K::kTK, 1, 1};
   if (rc == 0) rc = hop::encode_bf16(&tk, k, 4, kv_dims, kv_strides, kv_box);
   if (rc == 0) rc = hop::encode_bf16(&tv, v, 4, kv_dims, kv_strides, kv_box);
   if (rc != 0) return rc;
-  cudaError_t err = rt::allow_smem(flash_wgmma_kernel, kSmem);
+  cudaError_t err = rt::allow_smem(flash_wgmma_kernel<HD>, K::kSmem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_wgmma_kernel<<<min(p.items, sms), kThreads, kSmem, stream>>>(
+  flash_wgmma_kernel<HD><<<min(p.items, sms), kThreads, K::kSmem, stream>>>(
       tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The CTAs of the body at head dim HD an SM of this card holds
+// (registers and shared memory), its dynamic shared memory, and the keys
+// a K/V tile holds.
+template <int HD>
+int occupancy(int* ctas, int* smem, int* tile_keys) {
+  using K = wgt::FlashCfg<HD>;
+  *smem = K::kSmem;
+  *tile_keys = K::kTK;
+  cudaError_t err = rt::allow_smem(flash_wgmma_kernel<HD>, K::kSmem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas, flash_wgmma_kernel<HD>, kThreads, K::kSmem);
+  return static_cast<int>(err);
 }
 
 }  // namespace wg
@@ -871,10 +655,12 @@ extern "C" int rt_flash_attention(
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
   if (body == rt::kBodyWgmma) {
-    if (dtype != 1 || !aligned || hd != wg::kHd)
+    if (dtype != 1 || !aligned || (hd != 64 && hd != 128))
       return static_cast<int>(cudaErrorInvalidValue);
-    return wg::launch(q, k, v, out, l, lay, B, S, H, KV, causal, window,
-                      scale, s);
+    return hd == 64 ? wg::launch<64>(q, k, v, out, l, lay, B, S, H, KV,
+                                     causal, window, scale, s)
+                    : wg::launch<128>(q, k, v, out, l, lay, B, S, H, KV,
+                                      causal, window, scale, s);
   }
   if (body == rt::kBodyMma) {
     if (dtype != 1 || !aligned)
@@ -901,14 +687,14 @@ extern "C" int rt_flash_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CTAs of the wgmma body an SM of this card holds
-// (registers and shared memory), into *ctas, and its dynamic shared
-// memory, into *smem.
-extern "C" int rt_flash_wgmma_occupancy(int* ctas, int* smem) {
-  *smem = wg::kSmem;
-  cudaError_t err = rt::allow_smem(wg::flash_wgmma_kernel, wg::kSmem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        ctas, wg::flash_wgmma_kernel, wg::kThreads, wg::kSmem);
-  return static_cast<int>(err);
+// The CTAs of the wgmma body at head dim hd (64 or 128) an SM of this
+// card holds (registers and shared memory), into *ctas, its dynamic
+// shared memory, into *smem, and the keys a K/V tile holds, into
+// *tile_keys (what kernels/flash_attention.py's wgmma_smem_bytes and
+// wgmma_tile_keys mirror; chip_smoke.py holds them to these).
+extern "C" int rt_flash_wgmma_occupancy(int hd, int* ctas, int* smem,
+                                        int* tile_keys) {
+  if (hd == 64) return wg::occupancy<64>(ctas, smem, tile_keys);
+  if (hd == 128) return wg::occupancy<128>(ctas, smem, tile_keys);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,10 +8,12 @@
 // by TMA with the 128-byte swizzle (the 16-byte chunk c of row r lands
 // at chunk c ^ (r % 8)) into 1024-byte aligned tiles, which is the
 // layout wgmma's 128-byte-swizzle descriptors name: 8-row atoms of
-// 1024 bytes, SBO 1024.  K-major (the row holds the reduction dim): the
-// k16 step kk starts 32 kk bytes in.  MN-major (the row holds 64 output
-// columns, transposed operand): the k16 step kk starts 16 rows, 2048
-// kk bytes, in.
+// 1024 bytes, SBO 1024.  A wider row (hd 128) is two such tiles, its
+// 64-column halves.  K-major (the row holds the reduction dim): the
+// k16 step kk starts 32 kk bytes in (of the half that holds it).
+// MN-major (the row holds 64 output columns, transposed operand): the
+// k16 step kk starts 16 rows, 2048 kk bytes, in; 128 output columns
+// are the two halves, the descriptor's LBO the bytes between them.
 //
 // wgmma accumulator layout (m64nN, f32; thread t of the warpgroup, warp
 // w = t / 32, grp = (t % 32) / 4, tig = t % 4): d[4 j + e] is row 16 w +
@@ -144,11 +146,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // A 128-byte-swizzle descriptor of the tile at shared address `addr`
 // (1024-byte aligned atoms, plus the k-step offset): start address, LBO
-// 16 bytes (unused: K-major swizzled tiles and MN-major ones one atom,
-// 64 columns, wide take none), SBO 1024 (the next 8-row atom), layout 1.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+// `lbo` bytes, SBO 1024 (the next 8-row atom), layout 1.  K-major
+// swizzled tiles take no LBO (16, unused), nor do MN-major ones one atom,
+// 64 columns, wide; an MN-major operand of 128 columns held as two
+// 64-column halves names the bytes from one half to the next.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr,
+                                               uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
 }
@@ -191,6 +196,32 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A B on m64n64k16, A and B from shared memory (K-major
+// descriptors); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
+                                                   uint64_t da, uint64_t db,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d += A B on m64n64k16, A from registers (the m16n8k16 A fragment
 // of each warp's 16 rows), B from shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
@@ -214,6 +245,46 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B on m64n128k16, A from registers (the m16n8k16 A fragment
+// of each warp's 16 rows), B from shared memory, MN-major (transposed):
+// 128 columns as two 64-column swizzled halves, the descriptor's LBO
+// the bytes between them.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

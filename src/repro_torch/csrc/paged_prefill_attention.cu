@@ -22,14 +22,17 @@
 //   no causal mask: cross-attention over a source (image patches, the
 //   encoder's output) whose K/V sit in the row's cross blocks (the paged
 //   engine's cross pools through cross_tables, or a dense cache as B
-//   blocks of src slots).  Every CTA's key range is [0, n_keys), and the
-//   only mask is the tail of the last tile past n_keys - 1 (1601 = 100 x
-//   16 + 1 slots at llama-3.2-vision's image).  Same bodies, same
-//   shape-only rule; pos plays no part.  The reference computes this in
-//   jnp (src/repro/models/attention.py::cross_attention), outside any
-//   Pallas kernel; the causal forms cannot give it, since any pos that
-//   made key n_keys - 1 visible to a chunk's first query would let its
-//   later queries read past n_keys.
+//   blocks of src slots).  Its bf16 body at hd 64 and 128 is wgmma
+//   (paged_cross_attention.cu: the contiguous form's warp-specialised
+//   body over the pools by TMA, split across a cluster); the bodies
+//   below run it elsewhere (mma, cuda_core) with every CTA's key range
+//   [0, n_keys), the only mask the tail of the last tile past n_keys - 1
+//   (1601 = 100 x 16 + 1 slots at llama-3.2-vision's image).  pos plays
+//   no part.  The reference computes this in jnp
+//   (src/repro/models/attention.py::cross_attention), outside any Pallas
+//   kernel; the causal forms cannot give it, since any pos that made key
+//   n_keys - 1 visible to a chunk's first query would let its later
+//   queries read past n_keys.
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attention.py:72, body _flash_kernel) in the
@@ -740,17 +743,37 @@ extern "C" int rt_paged_chunk_attention(const void* q, const void* k_pool,
                               static_cast<cudaStream_t>(stream)));
 }
 
-// The cross form: q (B, C, H, hd), tables (B, nb), out like q; every
-// query attends to slots [0, n_keys) of its row's blocks, 1 <= n_keys <=
-// nb * bs.
+// The cross form's wgmma body (paged_cross_attention.cu).
+int cross_wgmma_launch(const void* q, const void* k_pool, const void* v_pool,
+                       const void* tables, void* out, int B, int C, int H,
+                       int KV, int hd, int bs, int nb, int nbp, int n_keys,
+                       float scale, int splits, cudaStream_t stream);
+
+// The cross form: q (B, C, H, hd), pools (nbp, bs, KV, hd), tables (B,
+// nb), out like q; every query attends to slots [0, n_keys) of its row's
+// blocks, 1 <= n_keys <= nb * bs.  body wgmma (bf16, hd 64 or 128,
+// 16-byte aligned q / pools / out) launches paged_cross_attention.cu's
+// body, splits the CTAs of its cluster; the others run's.
 extern "C" int rt_paged_cross_attention(const void* q, const void* k_pool,
                                         const void* v_pool, const void* tables,
                                         void* out, int B, int C, int H, int KV,
-                                        int hd, int bs, int nb, int n_keys,
-                                        float scale, int dtype, int body,
-                                        int splits, void* stream) {
+                                        int hd, int bs, int nb, int nbp,
+                                        int n_keys, float scale, int dtype,
+                                        int body, int splits, void* stream) {
   if (n_keys <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(run(q, k_pool, v_pool, tables, nullptr, out, B, C, H,
-                              KV, hd, bs, nb, 0, n_keys, scale, dtype, body,
-                              splits, static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body != rt::kBodyWgmma)
+    return static_cast<int>(run(q, k_pool, v_pool, tables, nullptr, out, B,
+                                C, H, KV, hd, bs, nb, 0, n_keys, scale, dtype,
+                                body, splits, s));
+  if (B <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k_pool) |
+                         reinterpret_cast<uintptr_t>(v_pool) |
+                         reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if (dtype != 1 || !aligned || KV <= 0 || H % KV != 0 || nb <= 0 ||
+      bs <= 0 || B > 65535 || n_keys > nb * bs)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return cross_wgmma_launch(q, k_pool, v_pool, tables, out, B, C, H, KV, hd,
+                            bs, nb, nbp, n_keys, scale, splits, s);
 }

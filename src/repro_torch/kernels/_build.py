@@ -53,7 +53,7 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 
 #: kernel name -> body -> launches since the last reset, for the kernels
 #: with more than one body (the body names of csrc/*.cu: "mma", the bf16
-#: tensor-core body; "wgmma", the contiguous flash form's
+#: tensor-core body; "wgmma", the contiguous and the cross flash forms'
 #: warp-specialised bf16 body on Hopper's wgmma, fed by TMA;
 #: "state_lanes", the scan with d_state split across lanes; "add_norm"
 #: and "norm", rmsnorm with and without the residual add, the row in
@@ -62,11 +62,11 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
-                    "paged_chunk_attention", "paged_cross_attention",
-                    "ring_chunk_attention",
+                    "paged_chunk_attention", "ring_chunk_attention",
                     "dense_decode_attention", "quant_matmul_int8",
                     "quant_matmul_int4")},
     "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
+    "paged_cross_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -177,10 +177,10 @@ _SIGNATURES = {
     # nb, scale, dtype, body, splits, stream
     "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _I, _I, _I, _P),
-    # q, k_pool, v_pool, tables, out, B, C, H, KV, hd, bs, nb, n_keys,
-    # scale, dtype, body, splits, stream
+    # q, k_pool, v_pool, tables, out, B, C, H, KV, hd, bs, nb, pool
+    # blocks, n_keys, scale, dtype, body, splits, stream
     "rt_paged_cross_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _I, _I, _P),
+                                 _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, k_new, v_new, pos (device, or null), out,
     # C, H, KV, hd, bs, nb, pos (host), w, scale, dtype, body, splits,
     # stream
@@ -192,8 +192,11 @@ _SIGNATURES = {
     "rt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                            _L, _L, _L, _L, _L, _L, _L, _I, _I, _F, _I, _I,
                            _P),
-    # CTAs an SM (int*), dynamic shared memory (int*)
-    "rt_flash_wgmma_occupancy": (_P, _P),
+    # hd, CTAs an SM (int*), dynamic shared memory (int*)
+    "rt_flash_wgmma_occupancy": (_I, _P, _P, _P),
+    "rt_cross_wgmma_occupancy": (_I, _P, _P, _P),
+    # hd, cluster size, clusters the card holds at once (int*)
+    "rt_cross_wgmma_clusters": (_I, _I, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

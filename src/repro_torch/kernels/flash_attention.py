@@ -45,16 +45,22 @@ round).  The host never reads ``pos``, and the grid depends on B, C, H
 and KV only.  Row b's output is bit-equal to a one-row call at
 ``pos[b]``, since the kernel runs the same instructions for it.
 
-The cross form :func:`paged_cross_attention` runs the same kernel and
-bodies for cross-attention: C queries of each of B rows attend to every
-one of the first ``n_keys`` slots of the row's blocks, with no causal
-mask (the reference computes it in jnp, ``cross_attention``, over a
-source of image patches or encoder frames).  A cross layer's chunk
-reads the paged engine's cross pools through the row's ``cross_tables``
-(B = 1), and ``Model.prefill`` the dense cross caches of B rows through
-identity tables (B blocks of ``n_keys`` slots).  Every CTA's key range is
-``[0, n_keys)``; only the last tile's tail past ``n_keys - 1`` is
-masked; the body is :func:`prefill_body`'s.
+The cross form :func:`paged_cross_attention` computes cross-attention:
+C queries of each of B rows attend to every one of the first ``n_keys``
+slots of the row's blocks, with no causal mask (the reference computes
+it in jnp, ``cross_attention``, over a source of image patches or
+encoder frames).  A cross layer's chunk reads the paged engine's cross
+pools through the row's ``cross_tables`` (B = 1), and ``Model.prefill``
+the dense cross caches of B rows through identity tables (B blocks of
+``n_keys`` slots).  Every CTA's key range is ``[0, n_keys)``; only the
+last tile's tail past ``n_keys - 1`` is masked.  Its body is
+:func:`cross_body`'s: ``"wgmma"`` (bf16 at hd 64 and 128,
+``csrc/paged_cross_attention.cu``), the contiguous form's
+warp-specialised body over the pools read in place by TMA, one box a
+(block, tile) segment, the slots past ``n_keys - 1`` arriving as zeros,
+each row tile's key tiles split across a cluster of :func:`cross_splits`
+CTAs; else the paged-chunk form's ``"mma"`` or ``"cuda_core"`` body
+with the key range set to ``[0, n_keys)``.
 
 The windowed form :func:`ring_chunk_attention` (``window > 0`` in the
 TPU kernel) is the swa branch of the reference's chunk attention: C
@@ -81,9 +87,11 @@ recomputes P from that log-sum-exp in torch ops, in blocks of
 reads every tensor through its strides, so the model's ``(B, S, H, hd)``
 projections go in as transposed views without a copy.  Three bodies,
 named by :func:`flash_body` (the strides count in ``aligned``):
-``"wgmma"`` (bfloat16, hd 64, 16-byte aligned: every launch of
-smollm-360m's train step), a warp-specialised body for Hopper: one
-producer warp loads Q once and K / V tiles of 128 keys into a ring
+``"wgmma"`` (bfloat16, hd 64 and 128, 16-byte aligned: every launch of
+smollm-360m's train step and of ``Model.prefill``'s self-attention), a
+warp-specialised body for Hopper (``csrc/wg_attention.cuh``): one
+producer warp loads Q once and K / V tiles (128 keys at hd 64, 64 at
+hd 128, whose rows are two 128-byte swizzled halves) into a ring
 through TMA tensor maps over the tensors' own strides, and consumer
 warpgroups of 64 (query, head-in-group) rows run S = Q K^T and
 O += (P_hi + P_lo) V on ``wgmma`` (f32 accumulators), row tiles with the
@@ -122,38 +130,113 @@ def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     return "cuda_core"
 
 
-#: the contiguous form's wgmma body (csrc/flash_attention.cu, wg::): its
-#: head dim and (query, head-in-group) rows a CTA (two consumer
-#: warpgroups of 64)
-WGMMA_HD = 64
+#: the warp-specialised wgmma bodies (csrc/wg_attention.cuh: the
+#: contiguous form's, csrc/flash_attention.cu, and the cross form's,
+#: csrc/paged_cross_attention.cu): the head dims they take and the
+#: (query, head-in-group) rows a CTA holds (two consumer warpgroups of 64)
+WGMMA_HD = (64, 128)
 WGMMA_ROWS = 128
 
 
+def wgmma_tile_keys(hd: int, form: str = "flash") -> int:
+    """Keys a K/V tile of a wgmma body holds (``wgt::Cfg::kTK``): the
+    contiguous form's 128 at hd 64, 64 at hd 128 (the rows of 256 bytes,
+    two swizzled halves, take twice the shared memory and the O
+    accumulator twice the registers); the cross form's 64 at both.  A
+    mirror, so that :func:`cross_splits` is a rule the CPU can run too;
+    chip_smoke.py's device phase holds it to the value the library
+    reports (:func:`wgmma_occupancy`)."""
+    return 128 if hd == 64 and form == "flash" else 64
+
+
+def wgmma_smem_bytes(hd: int, form: str = "flash") -> int:
+    """Dynamic shared memory of a wgmma body (``wgt::Cfg::kSmem``): 1024
+    bytes of alignment slack, Q's WGMMA_ROWS rows of hd bf16, a ring of K
+    and V tiles (3 stages of the contiguous form's at hd 64, 4 stages
+    elsewhere), 256 bytes of barriers.  A mirror, held to the library's
+    value as :func:`wgmma_tile_keys` is."""
+    stages = 3 if (hd, form) == (64, "flash") else 4
+    return (1024 + WGMMA_ROWS * hd * 2
+            + 2 * stages * wgmma_tile_keys(hd, form) * hd * 2 + 256)
+
+
 def flash_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
-    """The contiguous form's body: ``"wgmma"`` for bfloat16 at hd 64 with
-    16-byte aligned tensors and strides (every launch of smollm-360m's
-    train step), else :func:`prefill_body`'s choice (``"mma"`` at the
-    other bf16 head dims it takes, hd 128 and 256 among them;
-    ``"cuda_core"`` for float32).  A group of more than WGMMA_ROWS heads
-    is refused by the kernel."""
-    if dtype == torch.bfloat16 and aligned and hd == WGMMA_HD:
+    """The contiguous form's body: ``"wgmma"`` for bfloat16 at hd 64 or
+    128 with 16-byte aligned tensors and strides (every launch of
+    smollm-360m's train step, and llama-3.2-vision-90b's and
+    seamless-m4t-medium's ``Model.prefill``), else :func:`prefill_body`'s
+    choice (``"mma"`` at the other bf16 head dims it takes, 256 among
+    them; ``"cuda_core"`` for float32).  A group of more than WGMMA_ROWS
+    heads is refused by the kernel."""
+    if dtype == torch.bfloat16 and aligned and hd in WGMMA_HD:
         return "wgmma"
     return prefill_body(dtype, hd, aligned)
 
 
-#: CTAs of the wgmma body an SM holds: one (its registers: 168 a thread
-#: at launch, 384 threads); chip_smoke.py checks it against the card
+#: the cross form's body: :func:`flash_body`'s rule, with the cross
+#: wrapper's ``aligned`` (16-byte aligned q and pools, and blocks of whole
+#: 8-slot swizzle atoms or one block a row: every cross read of
+#: seamless-m4t-medium and llama-3.2-vision-90b, chunk and
+#: ``Model.prefill``); float32 keeps ``cuda_core``, so the card's float32
+#: streams stay equal to the CPU's
+cross_body = flash_body
+
+
+#: key tiles (of 64 keys) a CTA of the cross form's split takes at
+#: least: a CTA's fixed cost (its start, first copies and the cluster
+#: merge) is several tiles' worth, so splitting finer buys a chunk's
+#: B 1 less than it costs ``Model.prefill``'s B 8
+#: (``tools/torch_split_sweep.py --cross``: at seamless-m4t-medium's
+#: shape 6 splits take 0.0115 ms at B 1 but 0.083 at B 8, 2 splits 0.020
+#: and 0.040, the mma body 0.025 and 0.051; PERF.md §6)
+CROSS_MIN_TILES = 8
+
+
+def cross_splits(c: int, h: int, kv: int, hd: int, n_keys: int) -> int:
+    """CTAs (one cluster) each (row tile, KV head) of the cross form's
+    wgmma body splits its ``ceil(n_keys / 64)`` key tiles across:
+    :func:`wide_splits` over one row's row tiles of WGMMA_ROWS rows x KV
+    heads (the body holds one CTA an SM as the wide bodies do), and no
+    more than leave each CTA CROSS_MIN_TILES tiles (2 at
+    llama-3.2-vision-90b's chunk: 8 x 8 units, 128 CTAs; 2 at
+    seamless-m4t-medium's: 16 units, 32 CTAs).  Shapes only, not B, bs
+    or the table: a row of a batched launch gets a one-row call's split
+    and bits."""
+    tiles = -(-c // (WGMMA_ROWS // (h // kv)))
+    nt = -(-n_keys // wgmma_tile_keys(hd, "cross"))
+    return min(wide_splits(tiles * kv, nt), max(1, nt // CROSS_MIN_TILES))
+
+
+#: CTAs of a wgmma body an SM holds: one (its registers: 168 a thread at
+#: launch, 384 threads); chip_smoke.py checks it against the card at
+#: each head dim, for both forms
 WGMMA_CTAS_PER_SM = 1
 
 
-def wgmma_occupancy() -> tuple:
-    """(CTAs an SM of this card holds, dynamic shared memory) of the wgmma
-    body, from the card's occupancy calculator on the kernel itself (card
-    only)."""
-    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
-    _build.check(_build.library().rt_flash_wgmma_occupancy(
-        ctypes.byref(ctas), ctypes.byref(smem)), "flash_attention")
-    return ctas.value, smem.value
+def cross_wgmma_clusters(hd: int, splits: int) -> int:
+    """Clusters of ``splits`` CTAs of the cross form's wgmma body at head
+    dim ``hd`` the card holds at once, from the occupancy calculator on
+    the kernel itself (card only): what :func:`cross_splits` reads from
+    ``WIDE_CLUSTERS``."""
+    out = ctypes.c_int(0)
+    _build.check(_build.library().rt_cross_wgmma_clusters(
+        hd, splits, ctypes.byref(out)), "cross wgmma clusters")
+    return out.value
+
+
+def wgmma_occupancy(hd: int = 64, form: str = "flash") -> tuple:
+    """(CTAs an SM of this card holds, dynamic shared memory, keys a K/V
+    tile) of the contiguous (``form="flash"``) or the cross (``"cross"``)
+    form's wgmma body at head dim ``hd``: the CTAs from the card's
+    occupancy calculator on the kernel itself, the others the kernel's
+    own constants (card only)."""
+    ctas, smem, keys = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    lib = _build.library()
+    fn = (lib.rt_flash_wgmma_occupancy if form == "flash"
+          else lib.rt_cross_wgmma_occupancy)
+    _build.check(fn(hd, ctypes.byref(ctas), ctypes.byref(smem),
+                    ctypes.byref(keys)), f"{form} wgmma occupancy")
+    return ctas.value, smem.value, keys.value
 
 
 def prefill_span(hd: int) -> int:
@@ -411,15 +494,19 @@ def paged_cross_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_cross_attention: the kernel takes contiguous "
                          "tensors")
     out = torch.empty_like(q)
-    body = _body or prefill_body(
-        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
-    splits = prefill_splits(c, h, kv, hd, n_keys) if body == "mma" else 1
+    body = _body or cross_body(
+        q.dtype, hd,
+        all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool))
+        and (nb == 1 or bs % 8 == 0))
+    splits = (cross_splits(c, h, kv, hd, n_keys) if body == "wgmma"
+              else prefill_splits(c, h, kv, hd, n_keys) if body == "mma"
+              else 1)
     lib = _build.library()
     _build.launches["paged_cross_attention"] += 1
     _build.bodies["paged_cross_attention"][body] += 1
     _build.check(lib.rt_paged_cross_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), b, c, h, kv, hd, bs, nb, n_keys, float(scale),
+        out.data_ptr(), b, c, h, kv, hd, bs, nb, nbp, n_keys, float(scale),
         _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_cross_attention")

@@ -39,8 +39,9 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention_plain, paged_decode_attention,
     paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
-    flash_attention, flash_attention_plain, flash_body, paged_chunk_attention,
+    CROSS_MIN_TILES, PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
+    cross_body, cross_splits, flash_attention, flash_attention_plain,
+    flash_body, paged_chunk_attention, wgmma_smem_bytes, wgmma_tile_keys,
     paged_chunk_attention_plain, paged_cross_attention,
     paged_cross_attention_plain, paged_prefill_attention,
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
@@ -1016,8 +1017,13 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
     monkeypatch.setattr(launch_floor, "max_active_clusters",
                         lambda sp, threads, smem: clusters.get(
                             sp, WIDE_CLUSTERS[sp]))
-    monkeypatch.setattr(flash_mod, "wgmma_occupancy", lambda: (
-        flash_mod.WGMMA_CTAS_PER_SM, 115968))
+    monkeypatch.setattr(flash_mod, "cross_wgmma_clusters",
+                        lambda hd, sp: clusters.get(sp, WIDE_CLUSTERS[sp]))
+    monkeypatch.setattr(flash_mod, "wgmma_occupancy",
+                        lambda hd=64, form="flash": (
+                            flash_mod.WGMMA_CTAS_PER_SM,
+                            flash_mod.wgmma_smem_bytes(hd, form),
+                            flash_mod.wgmma_tile_keys(hd, form)))
     monkeypatch.setattr(cs, "emit", lambda obj: None)
     if not named:
         assert cs.device_tables("cpu")["mismatches"] == []
@@ -1028,17 +1034,27 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
         assert text in str(err.value)
 
 
-@pytest.mark.parametrize("ctas,smem,named", [
-    (0, 115968, ["WGMMA_CTAS_PER_SM at the wgmma body's 115968 B: "
-                 "expected 1, got 0"]),
-    (2, 99328, ["WGMMA_CTAS_PER_SM at the wgmma body's 99328 B: "
-                "expected 1, got 2"]),
+@pytest.mark.parametrize("ctas,smem,keys,named", [
+    (0, 115968, 128, ["WGMMA_CTAS_PER_SM at the wgmma body's 115968 B: "
+                      "expected 1, got 0"]),
+    (2, 99328, 128, ["WGMMA_CTAS_PER_SM at the wgmma body's 99328 B: "
+                     "expected 1, got 2"]),
+    (1, 99328, 128, ["wgmma_smem_bytes(64, 'flash'): expected 115968, "
+                     "the kernel has 99328",
+                     "wgmma_smem_bytes(128, 'cross'): expected 165120"]),
+    (1, 115968, 32, ["wgmma_tile_keys(64, 'flash'): expected 128, the "
+                     "kernel has 32",
+                     "wgmma_tile_keys(64, 'cross'): expected 64, the "
+                     "kernel has 32"]),
 ])
-def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, named):
-    """The device phase holds the wgmma body's CTAs an SM (the occupancy
-    calculator on the kernel, at the shared memory the kernel reports)
-    against ``WGMMA_CTAS_PER_SM``, and fails naming the shared memory and
-    both values."""
+def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, keys,
+                                           named):
+    """The device phase holds the wgmma bodies' CTAs an SM (the occupancy
+    calculator on each kernel, contiguous and cross form at hd 64 and
+    128, at the shared memory the kernel reports) against
+    ``WGMMA_CTAS_PER_SM``, and that shared memory and the keys of a K/V
+    tile against their Python mirrors, and fails naming the mirror or
+    the shared memory and both values."""
     cs = _chip_smoke()
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import launch_floor
@@ -1046,7 +1062,10 @@ def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, named):
                         lambda dev: SimpleNamespace(multi_processor_count=132))
     monkeypatch.setattr(launch_floor, "max_active_clusters",
                         lambda sp, threads, smem: WIDE_CLUSTERS[sp])
-    monkeypatch.setattr(flash_mod, "wgmma_occupancy", lambda: (ctas, smem))
+    monkeypatch.setattr(flash_mod, "cross_wgmma_clusters",
+                        lambda hd, sp: WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "wgmma_occupancy",
+                        lambda hd=64, form="flash": (ctas, smem, keys))
     monkeypatch.setattr(cs, "emit", lambda obj: None)
     with pytest.raises(AssertionError) as err:
         cs.device_tables("cpu")
@@ -1425,13 +1444,16 @@ def _cross_card_inputs(rng, b, c, h, kv, d, src, bs, dt, dev):
 def test_cuda_paged_cross_matches_plain(cuda_device, dtype, b, c, h, kv, d,
                                         src):
     """The cross form against its plain version under the card's gates,
-    counted once under ``prefill_body``'s body; the same bits over the
+    counted once under ``cross_body``'s body (bf16: ``wgmma`` at the four
+    served shapes, ``mma`` at the ragged one); the same bits over the
     K/V as a dense cache (B blocks of src slots through identity tables,
     ``Model.prefill``'s layout) and in blocks of 32 as in blocks of 16."""
     dt = getattr(torch, dtype)
     q, kp, vp, tables, kd, vd = _cross_card_inputs(
         np.random.default_rng(41), b, c, h, kv, d, src, 16, dt, cuda_device)
-    body = prefill_body(dt, d)
+    body = cross_body(dt, d)
+    assert body == ("cuda_core" if dtype == "float32"
+                    else "wgmma" if d in (64, 128) else "mma")
     n0 = _build.bodies["paged_cross_attention"][body]
     got = paged_cross_attention(q, kp, vp, tables, src)
     assert _build.bodies["paged_cross_attention"][body] == n0 + 1
@@ -1447,9 +1469,41 @@ def test_cuda_paged_cross_matches_plain(cuda_device, dtype, b, c, h, kv, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,kv,d,src", CROSS_CASES[:4])
+def test_cuda_paged_cross_mma_body_matches_plain(cuda_device, b, c, h, kv, d,
+                                                 src):
+    """The previous body, ``mma`` forced through ``_body`` at each served
+    shape, against the plain version under the bf16 gate, over pools whose
+    slots past src hold non-finite values (neither body may read them
+    into P V), and the dense-cache bits equal to the paged read's."""
+    q, kp, vp, tables, kd, vd = _cross_card_inputs(
+        np.random.default_rng(43), b, c, h, kv, d, src, 16, torch.bfloat16,
+        cuda_device)
+    want = paged_cross_attention_plain(q, kp, vp, tables, src)
+    nb = tables.shape[1]
+    for pool in (kp, vp):                 # the last blocks' stale tails
+        tail = pool[tables[:, -1].long()]
+        tail[:, src - (nb - 1) * 16:] = float("nan")
+        pool[tables[:, -1].long()] = tail
+    for body in ("mma", "wgmma"):
+        n0 = _build.bodies["paged_cross_attention"][body]
+        got = paged_cross_attention(q, kp, vp, tables, src, _body=body)
+        assert _build.bodies["paged_cross_attention"][body] == n0 + 1
+        assert bool(torch.isfinite(got).all())
+        _card_close(got, want, "bfloat16")
+        ident = torch.arange(b, dtype=torch.int32,
+                             device=cuda_device)[:, None]
+        assert torch.equal(paged_cross_attention(q, kd, vd, ident, src,
+                                                 _body=body), got)
+
+
+@pytest.mark.cuda
 def test_cuda_paged_cross_refuses_what_it_cannot_take(cuda_device):
     """No fallback: the mma body forced on float32, and a source longer
-    than the row's blocks, raise on the card."""
+    than the row's blocks, raise on the card; so does the wgmma body
+    forced where it does not take the shape (float32; hd 32, 112, 256;
+    blocks of 4 slots, less than a swizzle atom), with no launch counted
+    on another body."""
     q, kp, vp, tables, _, _ = _cross_card_inputs(
         np.random.default_rng(42), 2, 8, 4, 2, 64, 40, 16, torch.float32,
         cuda_device)
@@ -1457,6 +1511,19 @@ def test_cuda_paged_cross_refuses_what_it_cannot_take(cuda_device):
         paged_cross_attention(q, kp, vp, tables, 40, _body="mma")
     with pytest.raises(ValueError):
         paged_cross_attention(q, kp, vp, tables, 49)
+    before = dict(_build.bodies["paged_cross_attention"])
+    for d, bs, dt in ((64, 16, torch.float32), (32, 16, torch.bfloat16),
+                      (112, 16, torch.bfloat16), (256, 16, torch.bfloat16),
+                      (64, 4, torch.bfloat16)):
+        q, kp, vp, tables, _, _ = _cross_card_inputs(
+            np.random.default_rng(42), 2, 8, 4, 2, d, 40, bs, dt,
+            cuda_device)
+        with pytest.raises(RuntimeError):
+            paged_cross_attention(q, kp, vp, tables, 40, _body="wgmma")
+    torch.cuda.synchronize()
+    after = _build.bodies["paged_cross_attention"]
+    assert {k: after[k] - before[k] for k in after} == {
+        "wgmma": 5, "mma": 0, "cuda_core": 0}
 
 
 @pytest.mark.cuda
@@ -2128,7 +2195,7 @@ def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
     ("bfloat16", 64, True, "wgmma"), ("bfloat16", 256, True, "mma"),
-    ("bfloat16", 128, True, "mma"), ("bfloat16", 16, True, "mma"),
+    ("bfloat16", 128, True, "wgmma"), ("bfloat16", 16, True, "mma"),
     ("bfloat16", 80, True, "mma"), ("bfloat16", 72, True, "cuda_core"),
     ("bfloat16", 192, True, "cuda_core"), ("bfloat16", 64, False,
                                            "cuda_core"),
@@ -2139,13 +2206,99 @@ def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
 def test_flash_body_rule(dtype, hd, aligned, want):
     """The contiguous form's wrapper names its body by ``flash_body``:
     the warp-specialised wgmma body for every bf16 launch of smollm-360m's
-    train step (hd 64, on the model's aligned projections), the
-    tensor-core ``mma`` tiles at the other bf16 head dims they take
-    (hd 128 and gemma3-12b's 256 among them), the CUDA-core body
-    elsewhere: float32 always, and unaligned tensors."""
+    train step (hd 64, on the model's aligned projections) and of
+    llama-3.2-vision-90b's ``Model.prefill`` (hd 128), the tensor-core
+    ``mma`` tiles at the other bf16 head dims they take (gemma3-12b's 256
+    among them), the CUDA-core body elsewhere: float32 always, and
+    unaligned tensors."""
     dt = getattr(torch, dtype)
     assert flash_body(dt, hd, aligned) == want
-    assert WGMMA_HD == 64
+    assert WGMMA_HD == (64, 128)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128, 256])
+def test_cross_body_rule(hd, dtype, aligned):
+    """The cross form's body by ``cross_body``: ``wgmma`` for bf16 at hd
+    64 and 128 (seamless-m4t-medium's and llama-3.2-vision-90b's cross
+    reads) on aligned tensors, else ``prefill_body``'s choice: ``mma`` at
+    the ragged test's hd 32 and at 112 and 256, ``cuda_core`` for float32
+    and unaligned tensors (the card's f32 streams stay the CPU's)."""
+    dt = getattr(torch, dtype)
+    got = cross_body(dt, hd, aligned)
+    if dtype == "bfloat16" and aligned and hd in (64, 128):
+        assert got == "wgmma"
+    else:
+        assert got == prefill_body(dt, hd, aligned)
+        assert got == ("mma" if dtype == "bfloat16" and aligned
+                       else "cuda_core")
+
+
+def _cross_shares(n_keys: int, splits: int) -> list:
+    """The key tiles [t0, t1) CTA r of a cross cluster takes
+    (csrc/paged_cross_attention.cu): [r nt / splits, (r + 1) nt / splits)
+    of nt = ceil(n_keys / 64)."""
+    nt = -(-n_keys // 64)
+    return [(r * nt // splits, (r + 1) * nt // splits)
+            for r in range(splits)]
+
+
+@pytest.mark.parametrize("c,h,kv,hd,n_keys", [
+    (128, 64, 8, 128, 1601),     # llama-3.2-vision-90b's chunk
+    (128, 16, 16, 64, 1024),     # seamless-m4t-medium's chunk
+    (32, 64, 8, 128, 1601), (9, 6, 2, 64, 37), (128, 16, 16, 64, 100),
+    (1, 8, 8, 128, 1), (128, 64, 8, 128, 64), (77, 12, 4, 64, 5000),
+])
+def test_cross_splits_cover_the_keys_and_fill_the_card(c, h, kv, hd,
+                                                       n_keys):
+    """The cross form's split across a cluster: a rule of (C, H, KV, hd,
+    n_keys) alone (no B, bs or table among its arguments, so a batched
+    row gets a one-row call's split and bits), at most one portable
+    cluster, its clusters all on the card in one wave, and the most
+    that leaves each CTA CROSS_MIN_TILES key tiles; its shares cover the
+    key tiles of [0, n_keys) in order with no gap, no overlap and none
+    empty.  At llama-3.2-vision-90b's chunk it fills the card (128 of 132
+    SMs); at seamless-m4t-medium's the tile floor holds it to 2 (32
+    CTAs), since the wave-filling 6 is slower than the mma body at
+    Model.prefill's B 8."""
+    import inspect
+    assert list(inspect.signature(cross_splits).parameters) == [
+        "c", "h", "kv", "hd", "n_keys"]
+    splits = cross_splits(c, h, kv, hd, n_keys)
+    nt = -(-n_keys // 64)
+    units = -(-c // (WGMMA_ROWS // (h // kv))) * kv
+    cap = max(s for s in range(1, min(DECODE_MAX_SPLITS, nt) + 1)
+              if units <= WIDE_CLUSTERS[s] or s == 1)
+    assert splits == min(cap, max(1, nt // CROSS_MIN_TILES))
+    assert units <= WIDE_CLUSTERS[splits] or splits == 1
+    assert splits == 1 or nt // splits >= CROSS_MIN_TILES
+    shares = _cross_shares(n_keys, splits)
+    assert all(t0 < t1 for t0, t1 in shares)
+    covered = [t for t0, t1 in shares for t in range(t0, t1)]
+    assert covered == list(range(nt))
+    assert covered[-1] * 64 < n_keys <= nt * 64
+    if (c, h, kv, hd, n_keys) == (128, 64, 8, 128, 1601):
+        assert (splits, units * splits) == (2, 128)
+    if (c, h, kv, hd, n_keys) == (128, 16, 16, 64, 1024):
+        assert (splits, units * splits) == (2, 32)
+
+
+@pytest.mark.parametrize("form", ["flash", "cross"])
+@pytest.mark.parametrize("hd", WGMMA_HD)
+def test_wgmma_bodies_fit_the_shared_memory_a_block_may_use(hd, form):
+    """The wgmma bodies' shared memory (``wgt::Cfg::kSmem``, mirrored by
+    ``wgmma_smem_bytes``) within the 232,448 bytes a block may use: Q's
+    128 rows, the K/V ring and the barriers; the cross form's f32
+    partial rows (O, m, l, 16-byte rows) fit its ring."""
+    smem = wgmma_smem_bytes(hd, form)
+    assert smem <= SMEM_PER_BLOCK
+    assert smem == {("flash", 64): 115968, ("flash", 128): 165120,
+                    ("cross", 64): 83200, ("cross", 128): 165120}[form, hd]
+    if form == "cross":                 # the partial rows reuse the ring
+        assert WGMMA_ROWS * (hd + 4) * 4 <= 2 * 4 * 64 * hd * 2
+    assert wgmma_tile_keys(hd, form) == (128 if (form, hd) == ("flash", 64)
+                                         else 64)
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
@@ -2245,23 +2398,62 @@ def test_cuda_flash_wgmma_matches_plain(cuda_device, b, h, kv, s, causal,
 
 @pytest.mark.cuda
 def test_cuda_flash_wgmma_refuses_what_it_cannot_take(cuda_device):
-    """Forced onto a shape the wgmma body does not take (hd 128, float32,
-    more heads a group than its rows), the launch raises; nothing runs
-    on another body."""
-    q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, 128,
-                                 torch.bfloat16)
-    with pytest.raises(RuntimeError):
-        flash_attention(q, k, v, _body="wgmma")
-    q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, 64,
-                                 torch.float32)
-    with pytest.raises(RuntimeError):
-        flash_attention(q, k, v, _body="wgmma")
+    """Forced onto a shape the wgmma body does not take (hd 32, 112 and
+    256, float32, more heads a group than its rows), the launch raises;
+    nothing runs on another body."""
+    before = dict(_build.bodies["flash_attention"])
+    for d in (32, 112, 256):
+        q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, d,
+                                     torch.bfloat16)
+        with pytest.raises(RuntimeError):
+            flash_attention(q, k, v, _body="wgmma")
+    for d in WGMMA_HD:
+        q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, d,
+                                     torch.float32)
+        with pytest.raises(RuntimeError):
+            flash_attention(q, k, v, _body="wgmma")
     g = WGMMA_ROWS + 1
     q, k, v = _flash_card_inputs(cuda_device, 95, 1, g, 1, 8, 64,
                                  torch.bfloat16)
     with pytest.raises(RuntimeError):
         flash_attention(q, k, v)
     torch.cuda.synchronize()
+    after = _build.bodies["flash_attention"]
+    assert {k: after[k] - before[k] for k in after} == {
+        "wgmma": 6, "mma": 0, "cuda_core": 0}
+
+
+# (B, H, KV, S, causal, window) at hd 128: G 1, 4 and 8 (whole queries
+# a CTA: 128, 32, 16); S 100 and 1000, off the 64-key tiles and the row
+# tiles; causal, non-causal and a window; llama-3.2-vision-90b's
+# Model.prefill shape (B 8, S 128, 64 / 8 heads)
+WGMMA128_CARD_CASES = [(2, 4, 4, 100, True, 0), (1, 8, 2, 1000, True, 0),
+                       (2, 16, 2, 1000, False, 0), (1, 8, 1, 100, False, 0),
+                       (1, 8, 2, 1000, True, 300), (2, 4, 1, 1000, True, 40),
+                       (8, 64, 8, 128, True, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv,s,causal,window", WGMMA128_CARD_CASES)
+def test_cuda_flash_wgmma_hd128_matches_plain(cuda_device, b, h, kv, s,
+                                              causal, window):
+    """The wgmma body at hd 128 (the rule's at bf16) and the ``mma`` body
+    forced through ``_body``, each against the plain version on the
+    card, out under the bf16 gate and the row log-sum-exp within
+    FLASH_LSE_TOL, each launch counted on its body."""
+    q, k, v = _flash_card_inputs(cuda_device, 96, b, h, kv, s, 128,
+                                 torch.bfloat16)
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+    assert flash_body(torch.bfloat16, 128) == "wgmma"
+    for body in ("wgmma", "mma"):
+        n0 = _build.bodies["flash_attention"][body]
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   _body=None if body == "wgmma" else body)
+        assert _build.bodies["flash_attention"][body] == n0 + 1
+        assert torch.isfinite(out.float()).all()
+        _card_close(out, want, "bfloat16")
+        assert _err(lse.cpu(), want_lse.cpu()) <= FLASH_LSE_TOL["bfloat16"]
 
 
 @pytest.mark.cuda

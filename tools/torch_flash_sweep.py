@@ -7,7 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU::
     python3 tools/torch_flash_sweep.py
 
 At smollm-360m's train shape (B 8, S 4096, 15 / 5 heads of 64, causal,
-bf16) and at the non-causal encoder case (B 2, S 1000, 6 / 2 heads) it
+bf16), at the non-causal encoder case (B 2, S 1000, 6 / 2 heads), at
+llama-3.2-vision-90b's ``Model.prefill`` (B 8, S 128, 64 / 8 heads of
+128, causal) and at a long hd-128 row (B 1, S 4096, 32 / 8 heads) it
 times, in turns (the list, then the list reversed, each time averaged
 over both), the ``wgmma`` body (the rule's), the ``mma`` body
 (``_body="mma"``) and ``F.scaled_dot_product_attention``.  Each body's
@@ -18,10 +20,10 @@ log-sum-exp within 1e-2.  One JSON line per shape: device ms per call
 TFLOP/s at 4 hd flops a (query head, key) pair, the errors, and the SM
 clock and power draw ``nvidia-smi`` read every 100 ms while the turns
 ran (median and range).  The first line is the card's name and power
-limit, then the ptxas report of the ``wgmma`` body, its CTAs an SM
-and shared memory (the occupancy calculator) and the instruction mix
-of its hot loop (``cuobjdump -sass``).  Without a CUDA device it exits
-with code 2.
+limit, then the ptxas report of the ``wgmma`` body, its CTAs an SM,
+shared memory and keys a K/V tile (``wgmma_occupancy``) and the
+instruction mix of its hot loop (``cuobjdump -sass``).  Without a CUDA
+device it exits with code 2.
 """
 from __future__ import annotations
 
@@ -36,14 +38,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-#: (label, B, S, H, KV, causal)
-SHAPES = [("train", 8, 4096, 15, 5, True),
-          ("encoder", 2, 1000, 6, 2, False)]
+#: (label, B, S, H, KV, hd, causal)
+SHAPES = [("train", 8, 4096, 15, 5, 64, True),
+          ("encoder", 2, 1000, 6, 2, 64, False),
+          ("vision_prefill", 8, 128, 64, 8, 128, True),
+          ("hd128_long", 1, 4096, 32, 8, 128, True)]
 
 
 def sass_counts(build) -> dict:
     """The instruction mix of the ``wgmma`` body's hot loop (``cuobjdump
     -sass`` of the build): the innermost loop of ``flash_wgmma_kernel``
+    at hd 64
     (a backward branch and its target)
     that issues a tile's S beside the previous tile's P V (20 HGMMA); it
     holds both softmax paths, masked and not.  Its instructions by
@@ -55,7 +60,7 @@ def sass_counts(build) -> dict:
     sass = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True,
                           text=True, check=True).stdout
     body = next(f for f in re.split(r"\n\s*Function : ", sass)
-                if "flash_wgmma_kernel" in f.split("\n", 1)[0])
+                if "flash_wgmma_kernelILi64E" in f.split("\n", 1)[0])
     ins = [(int(a, 16), x) for a, x in
            re.findall(r"/\*([0-9a-f]{4,5})\*/\s+([^;]*);", body)]
     where = {a: i for i, (a, _) in enumerate(ins)}
@@ -72,7 +77,7 @@ def sass_counts(build) -> dict:
     ops = collections.Counter(
         (x.split()[1] if x.startswith("@") else x.split()[0]).split(".")[0]
         for _, x in ins[lo:hi + 1])
-    return {"sass": "flash_wgmma_kernel, hot loop",
+    return {"sass": "flash_wgmma_kernel<64>, hot loop",
             "instructions": hi - lo + 1, "by_opcode": dict(ops.most_common())}
 
 
@@ -95,16 +100,17 @@ def main() -> int:
             print(json.dumps({"ptxas": [x.strip() for x in report[i:i + 4]
                                         if "spill" in x or "Used" in x
                                         or "Compiling" in x]}), flush=True)
-    print(json.dumps({"occupancy": fa.wgmma_occupancy()}), flush=True)
+    print(json.dumps({"occupancy": {hd: fa.wgmma_occupancy(hd)
+                                    for hd in fa.WGMMA_HD}}), flush=True)
     print(json.dumps(sass_counts(_build)), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for label, b, s, h, kv, causal in SHAPES:
-        q = torch.randn(b, h, s, 64, device=dev, generator=gen,
+    for label, b, s, h, kv, hd, causal in SHAPES:
+        q = torch.randn(b, h, s, hd, device=dev, generator=gen,
                         dtype=torch.bfloat16)
-        k = torch.randn(b, kv, s, 64, device=dev, generator=gen,
+        k = torch.randn(b, kv, s, hd, device=dev, generator=gen,
                         dtype=torch.bfloat16)
-        v = torch.randn(b, kv, s, 64, device=dev, generator=gen,
+        v = torch.randn(b, kv, s, hd, device=dev, generator=gen,
                         dtype=torch.bfloat16)
         ref, ref_lse = fa.flash_attention_plain(q, k, v, causal=causal)
         runs = {
@@ -141,13 +147,14 @@ def main() -> int:
         clocks = sorted(float(c) for c, _ in samples)
         watts = sorted(float(w) for _, w in samples)
         ms = {name: sum(t) / len(t) for name, t in turns.items()}
-        flops = 4 * 64 * b * h * flash_pairs(s, causal, 0)
+        flops = 4 * hd * b * h * flash_pairs(s, causal, 0)
         print(json.dumps({
             "shape": {"label": label, "B": b, "S": s, "H": h, "KV": kv,
-                      "hd": 64, "causal": causal},
+                      "hd": hd, "causal": causal},
             "ms": ms, "turns_ms": turns,
             "tflops": {n: flops / (t * 1e-3) / 1e12 for n, t in ms.items()},
             "mma_over_wgmma": ms["mma"] / ms["wgmma"],
+            "wgmma_over_sdpa": ms["wgmma"] / ms["sdpa"],
             "sm_clock_mhz": {"median": clocks[len(clocks) // 2],
                              "min": clocks[0], "max": clocks[-1]}
             if clocks else None,

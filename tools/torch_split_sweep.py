@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
-    python3 tools/torch_split_sweep.py
+    python3 tools/torch_split_sweep.py [--cross]
 
 For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
 projection shapes (8 decode rows and a 128-row prefill chunk), for the
@@ -20,6 +20,12 @@ three at hd 256) beside the count the rule picks.  Before the hd-256
 rows it prints how many clusters of each size the card holds at once at
 the wide bodies' shared memory, the table the wide split rule reads
 (``decode_attention.WIDE_CLUSTERS``).  The first line is the card's name and power limit.
+With ``--cross`` it times only the cross form's ``wgmma`` body
+(``paged_cross_attention``, C 128) at every split count its cluster may
+take, at seamless-m4t-medium's (16 / 16 heads of 64 over 1024 frames)
+and llama-3.2-vision-90b's (64 / 8 heads of 128 over 1601 patches)
+shapes, B 1 and 8, over blocks of 16 and over dense rows through
+identity tables, beside the count ``cross_splits`` picks.
 Without a CUDA device it exits with code 2.
 """
 from __future__ import annotations
@@ -38,6 +44,42 @@ sys.path.insert(0, ROOT)
 QMM_SHAPES = [(8, 960, 2560), (8, 960, 960), (8, 960, 320), (8, 2560, 960),
               (128, 2560, 960), (128, 960, 2560), (128, 960, 960),
               (128, 960, 320)]
+
+
+def cross_rows(dev, rng) -> None:
+    """The cross form's wgmma body at every split count (see the module
+    docstring)."""
+    import torch
+    from chip_smoke import device_ms
+    from repro_torch.kernels import flash_attention as fa
+    rule = fa.cross_splits
+    c, bs = 128, 16
+    for h, kv, hd, src in ((16, 16, 64, 1024), (64, 8, 128, 1601)):
+        nb = -(-src // bs)
+        nt = -(-src // fa.wgmma_tile_keys(hd, "cross"))
+        for b in (1, 8):
+            nbp = b * nb + 1
+            kp = torch.randn(nbp, bs, kv, hd, device=dev, dtype=torch.bfloat16)
+            vp = torch.randn_like(kp)
+            tables = torch.from_numpy((rng.permutation(nbp - 1).reshape(
+                b, nb) + 1).astype(np.int32)).to(dev)
+            kd = kp[tables.long()].reshape(b, nb * bs, kv, hd)[:, :src]
+            vd = vp[tables.long()].reshape(b, nb * bs, kv, hd)[:, :src]
+            kd, vd = kd.contiguous(), vd.contiguous()
+            ident = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+            q = torch.randn(b, c, h, hd, device=dev, dtype=torch.bfloat16)
+            for layout, args in (("blocks of 16", (q, kp, vp, tables, src)),
+                                 ("dense", (q, kd, vd, ident, src))):
+                row = {"kernel": "paged_cross_attention", "B": b, "C": c,
+                       "H": h, "KV": kv, "hd": hd, "src": src,
+                       "layout": layout, "rule": rule(c, h, kv, hd, src),
+                       "ms": {}}
+                for sp in range(1, min(8, nt) + 1):
+                    fa.cross_splits = lambda *a, sp=sp: sp
+                    row["ms"][sp] = device_ms(
+                        lambda: fa.paged_cross_attention(*args))
+                fa.cross_splits = rule
+                print(json.dumps(row), flush=True)
 
 
 def main() -> int:
@@ -64,6 +106,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     _build.library()
     rng = np.random.default_rng(0)
+    if sys.argv[1:] == ["--cross"]:
+        cross_rows(dev, rng)
+        return 0
     qmm_rule = qm.quant_splits
     for m, k, n in QMM_SHAPES:
         w = torch.from_numpy(
