@@ -23,7 +23,13 @@ one JSON line:
    ``WGMMA_CTAS_PER_SM``: a mismatch fails by name before any kernel
    phase.  The build line also prints ptxas's report of the four
    ``wgmma`` entries (registers at launch, spills) and fails if one
-   spills;
+   spills; then ``planning`` (host only, numpy): the paper's simulation
+   study, the four strategies (Algorithm 1's ``proposal``, ``prop_avg``,
+   ``lbrr``, ``ga``) on ``baseline`` over seeds 0-2 at the default
+   horizon of 100 slots, a line of on-time share, completed share, total
+   cost and wall seconds a trial and the grid's summary by strategy, and
+   the scalar engine held to the vectorised ``Simulator`` trial for
+   trial (lbrr and ga at 100 slots, proposal and prop_avg at 30);
 3. ``kernels`` — every kernel against its plain PyTorch version on the
    card at the main path's shapes, in float32 (tolerance 2e-5; 1e-4 for
    the quant matmuls, whose sums over K up to 2560 run in another order;
@@ -122,7 +128,11 @@ one JSON line:
    to autograd through the plain versions.  An empty kernel
    (``csrc/launch_floor.cu``; not a port of any TPU kernel, so not in
    the kernel list) gives the floor one launch costs, at 1 block and at
-   the decode scan's grid;
+   the decode scan's grid.  The speculation targets' new shapes run in
+   bf16 too: the batched chunk form at qwen2-72b's verify round (B 8,
+   C 5, 64 / 8 heads of 128, pos 32-600) and the int8 / int4 quant
+   matmul at qwen2-72b's MLP at decode (8 x 8192 -> 29568 and 8 x 29568
+   -> 8192, weights drawn on the card);
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -169,7 +179,12 @@ one JSON line:
    the cross K/V are zeroed at admission, as in the reference); then for
    each ``Model.prefill`` of 2 prompts of 32 tokens with a seeded
    frontend and 8 tokens of ``decode_steps`` over the prefilled caches,
-   whose cross K/V are real: the streams card = CPU;
+   whose cross K/V are real: the streams card = CPU.  Last, qwen2-72b
+   and command-r-35b at smoke size (2 layers of 128, vocab 512), float32,
+   4 prompts of 20-40 tokens, 16 new tokens each, through both engines
+   with no draft, n-gram drafts and the smoke smollm-360m as a model
+   draft (K 4): card = CPU, and every speculative stream the engine's
+   plain one;
 5. ``serve``   — smollm-360m at full width and depth in bfloat16 with
    random weights from a seed: 16 requests through
    ``PagedServingEngine``, then 8 of them through ``ServingEngine`` and
@@ -267,7 +282,21 @@ one JSON line:
    profiled over one decode macro-step and 4 prefill chunks) and
    ``ServingEngine`` (``vision_dense_bf16``), launches checked exactly,
    then ``vision_prefill_bf16`` as seamless's with an (8, 1601, 8192)
-   frontend.
+   frontend.  Then the speculation targets at full width, 8 layers,
+   bf16 (``serve_targets``): qwen2-72b (about 19 GB drawn on the card)
+   through ``PagedServingEngine`` plain (``qwen_paged_bf16``, profiled
+   over a decode macro-step), with K 4 and a model draft of
+   smollm-360m's widths at qwen2's vocabulary 152064
+   (``qwen_spec_bf16``, a verify round profiled; its streams equal the
+   plain run's but where the plain path's top two logits nearly tie,
+   ``check_spec_streams``) and with int8 and int4 weights
+   (``qwen_paged_int8``, ``qwen_paged_int4``, each profiled);
+   command-r-35b (``command_r_paged_bf16``, its head the tied
+   256000-row table read in place, profiled).  Every serve run prints
+   its dispatches by program name (``serving/instrument.py``), which
+   must match its macro-steps, verify rounds and prefill chunks, and a
+   model draft's decode iterations and prefill chunks join its expected
+   launches.
    ``profile`` (after the bf16, int8 and int4 smollm paged runs and the
    falcon-mamba, gemma3, mixtral, zamba2 and vision paged runs; two steady
    verify rounds after ``paged_spec``):
@@ -328,7 +357,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 1e-5   # two bf16 rounding steps
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM, 80 GB HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no sparsity
-QMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # sums over K <= 2560
+QMM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # f32 sums over K <= 2560
 REPLACES = {
     "rmsnorm": "src/repro/kernels/rmsnorm.py:20",
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:158",
@@ -392,7 +421,15 @@ ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
                             "paged_decode_attention": "mma",
                             "dense_decode_attention": "mma"},
              "seamless-m4t-medium": {"paged_cross_attention": "wgmma"},
-             "llama-3.2-vision-90b": {"paged_cross_attention": "wgmma"}}
+             "llama-3.2-vision-90b": {"paged_cross_attention": "wgmma"},
+             "qwen2-72b": {"paged_prefill_attention": "mma",
+                           "paged_chunk_attention": "mma",
+                           "paged_decode_attention": "mma",
+                           "dense_decode_attention": "mma"},
+             "command-r-35b": {"paged_prefill_attention": "mma",
+                               "paged_chunk_attention": "mma",
+                               "paged_decode_attention": "mma",
+                               "dense_decode_attention": "mma"}}
 #: the body of every contiguous flash launch of a ``Model.prefill`` in
 #: bf16 (seamless-m4t-medium's hd 64, llama-3.2-vision-90b's hd 128)
 PREFILL_FLASH_BODY = "wgmma"
@@ -766,8 +803,54 @@ def kernel_cases(dev) -> list:
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
     launch_floor(dev)
-    return (cases + scan_cases(dev) + gemma_cases(dev) + mixtral_cases(dev)
-            + zamba_cases(dev) + cross_cases(dev) + flash_cases(dev))
+    return (cases + target_cases(dev) + scan_cases(dev) + gemma_cases(dev)
+            + mixtral_cases(dev) + zamba_cases(dev) + cross_cases(dev)
+            + flash_cases(dev))
+
+
+#: qwen2-72b's MLP at decode: 8 rows through w_gate / w_up (8192 ->
+#: 29568) and w_down (29568 -> 8192)
+TARGET_QMM = ((8, 8192, 29568), (8, 29568, 8192))
+
+
+def target_cases(dev) -> list:
+    """The speculation targets' new shapes for ported kernels, in bf16:
+    the batched paged-chunk form at qwen2-72b's verify round (64 / 8
+    heads of 128, G 8; ``chunk_case``) and the int8 / int4 quant matmul at
+    qwen2-72b's MLP widths (``TARGET_QMM``), each against its plain
+    version (the chunk form also against its previous ``cuda_core`` body,
+    in turns), the library call (SDPA; ``torch.matmul`` on the dense bf16
+    weight) and its bound.  The weights are drawn on the card (a CPU draw
+    of 242 M values takes seconds)."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (
+        quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
+        quant_matmul_int8_plain)
+    from repro_torch.models.quantize import (dequantize, quantize_int4,
+                                             quantize_int8)
+    cases = [chunk_case(dev, "bfloat16", "qwen2-72b")]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    for m, k, n in TARGET_QMM:
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        for fmt in ("int8", "int4"):
+            packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
+            q, s = packed["q"], packed["s"]
+            w_dense = dequantize(packed).to(torch.bfloat16)
+            kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
+                             if fmt == "int8" else
+                             (quant_matmul_int4, quant_matmul_int4_plain))
+            cases.append(_case(
+                f"quant_matmul_{fmt}", "bfloat16", [m, k, n],
+                kernel(x, q, s), plain(x, q, s),
+                lambda: kernel(x, q, s), lambda: plain(x, q, s),
+                lambda: torch.matmul(x, w_dense),
+                m * k * 2 + q.numel() + 4 * s.numel() + m * n * 2,
+                2 * m * k * n, tol=QMM_TOL, extra={"config": "qwen2-72b"}))
+            del packed, q, s, w_dense
+        del w
+    torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -1009,13 +1092,16 @@ def flash_cases(dev) -> list:
 
 #: the verify round's rows: smollm-360m's 8 rows at positions 32-600
 VERIFY_POS = [32, 600, 117, 256, 75, 413, 519, 188]
+#: the verify round's attention heads: smollm-360m's (15 / 5 of 64) and
+#: the speculation target qwen2-72b's (64 / 8 of 128, G 8)
+VERIFY_HEADS = {"smollm-360m": (15, 5, 64), "qwen2-72b": (64, 8, 128)}
 
 
-def chunk_case(dev, dname) -> dict:
+def chunk_case(dev, dname, arch="smollm-360m") -> dict:
     """The batched paged-chunk form at a verify round's shapes (B 8, C = K
-    + 1 = 5, H 15, KV 5, hd 64, blocks of 16 of 1024-slot rows, each
-    row's pos on the device): against its plain version under the gates,
-    each row bit-equal to a one-row call at its pos, and the same data in
+    + 1 = 5, ``arch``'s heads, blocks of 16 of 1024-slot rows, each row's
+    pos on the device): against its plain version under the gates, each
+    row bit-equal to a one-row call at its pos, and the same data in
     blocks of 32 bit-equal; then timed (in bf16 against the ``cuda_core``
     body too), with ``F.scaled_dot_product_attention`` over the gathered
     KV and a per-row mask as the library call."""
@@ -1028,7 +1114,7 @@ def chunk_case(dev, dname) -> dict:
     rng = np.random.default_rng(SEED + 8)
     dtype = getattr(torch, dname)
     es = torch.finfo(dtype).bits // 8
-    B, C, H, KV, HD, S = 8, 5, 15, 5, 64, 1024
+    (H, KV, HD), B, C, S = VERIFY_HEADS[arch], 8, 5, 1024
     pos_np = np.asarray(VERIFY_POS, np.int32)
     k = rng.standard_normal((B, S, KV, HD)).astype(np.float32)
     v = rng.standard_normal((B, S, KV, HD)).astype(np.float32)
@@ -1055,7 +1141,7 @@ def chunk_case(dev, dname) -> dict:
                                                           pools[32][2], pos))
     emit({"phase": "kernels", "kernel": "paged_chunk_attention",
           "check": "rows bit-equal to one-row calls; blocks of 32 bit-equal "
-                   "to blocks of 16", "dtype": dname,
+                   "to blocks of 16", "dtype": dname, "heads": [H, KV, HD],
           "rows_equal": rows_equal, "blocks_equal": blocks_equal})
     if not (rows_equal and blocks_equal):
         raise AssertionError(f"paged_chunk_attention {dname}: rows equal to "
@@ -1073,7 +1159,7 @@ def chunk_case(dev, dname) -> dict:
     return _case(
         "paged_chunk_attention", dname,
         {"B": B, "C": C, "H": H, "KV": KV, "hd": HD, "bs": 16,
-         "pos": pos_np.tolist()},
+         "pos": pos_np.tolist(), "config": arch},
         out, paged_chunk_attention_plain(q, kp, vp, tables, pos),
         lambda: paged_chunk_attention(q, kp, vp, tables, pos),
         lambda: paged_chunk_attention_plain(q, kp, vp, tables, pos),
@@ -1947,7 +2033,8 @@ def _trace(rng, n, lo, hi, vocab):
 
 
 def _top2_gap(model, params, tokens, dev):
-    """Top-2 logit gap of the next token after ``tokens`` (plain path)."""
+    """Top-2 logit gap of the next token after ``tokens`` (plain path),
+    the two tokens and the top logit."""
     import torch
     from repro_torch.models.kvcache import PagedCache
     max_len = max(1024, -(-(len(tokens) + 1) // 16) * 16)
@@ -1963,7 +2050,8 @@ def _top2_gap(model, params, tokens, dev):
          "pos": torch.tensor([len(tokens) - 1], dtype=torch.int32,
                              device=dev)}, pc.meta())
     top = torch.topk(logits[0, -1, :model.cfg.vocab_size].float(), 2)
-    return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+    return ((top.values[0] - top.values[1]).item(), top.indices.tolist(),
+            top.values[0].item())
 
 
 def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
@@ -1978,7 +2066,7 @@ def _first_divergence(cfg, params_cpu, fmt, prompts, got_all, ref_all):
         if got != ref:
             i = next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
                      min(len(got), len(ref)))
-            gap, top = _top2_gap(Model(cfg, qformat=fmt, device=cpu),
+            gap, top, _ = _top2_gap(Model(cfg, qformat=fmt, device=cpu),
                                  quantize_params(params_cpu, fmt),
                                  prompts[rid] + ref[:i], cpu)
             return {"request": rid, "index": i, "cuda": got[i:i + 4],
@@ -1993,7 +2081,7 @@ PIPE_OF = {"pipe_paged": "paged", "pipe_slot": "slot"}
 
 
 def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
-                   params_cpu=None) -> dict:
+                   params_cpu=None, draft_cfg=None) -> dict:
     """One trace (``n_new`` new tokens a request) through each (engine,
     format, speculation) of ``runs`` on the card and on the CPU, from the
     same f32 weights (``params_cpu``, else drawn from the seed on the
@@ -2002,7 +2090,8 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
     ``PipelinedEngine``, 2 stages).  Speculation is None, an int K (n-gram
     drafts) or ``"model"`` (a 2-layer smollm-360m draft at full width,
     float32, with weights from its own seed, drawn on the CPU so both
-    devices hold the same).  Streams and ``t_*`` stamps must be equal.  A
+    devices hold the same; ``draft_cfg``, where given, in its place).
+    Streams and ``t_*`` stamps must be equal.  A
     speculative run's card stream must also equal the card's
     non-speculative stream of the same engine and format, and a
     pipelined run's card streams and stamps the card's monolithic ones
@@ -2027,9 +2116,11 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
         params_cpu = Model(cfg, device=cpu).init(
             torch.Generator().manual_seed(SEED))
     params_gpu = _to(params_cpu, dev)
-    draft_cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
-                                    block_pattern=uniform("attn", 2),
-                                    dtype="float32")
+    if draft_cfg is None:
+        draft_cfg = dataclasses.replace(get_config("smollm-360m"),
+                                        n_layers=2,
+                                        block_pattern=uniform("attn", 2),
+                                        dtype="float32")
 
     def speculative(spec, d):
         if spec == "model":
@@ -2188,7 +2279,42 @@ def parity(dev) -> list:
                              f"speculate, falcon-mamba and gemma3 runs "
                              f"{gated} must gate it off")
     return [smollm_res, mamba_res, gemma_res, policy_parity(dev, smollm),
-            *mixtral_parity(dev), zamba_parity(dev), *cross_parity(dev)]
+            *mixtral_parity(dev), zamba_parity(dev), *cross_parity(dev),
+            *target_parity(dev)]
+
+
+#: the speculation targets' parity runs: both engines with no draft, with
+#: n-gram drafts and with a model draft, K 4
+TARGET_RUNS = (("paged", None, None), ("slot", None, None),
+               ("paged", None, 4), ("slot", None, 4),
+               ("paged", None, "model"), ("slot", None, "model"))
+
+
+def target_parity(dev) -> list:
+    """qwen2-72b and command-r-35b at smoke size (2 layers of d_model 128,
+    4 heads of 32, vocab 512, qwen2's QKV bias and rope theta 1e6,
+    command-r's tied head and theta 8e6), float32: 4 prompts of 20-40
+    tokens, 16 new tokens each, through ``TARGET_RUNS`` on the card and
+    on the CPU; the model draft is the smoke smollm-360m (its own seed).
+    Streams and stamps card = CPU, every speculative stream the same
+    engine's plain one, and every speculative run speculates."""
+    from repro_torch.configs import get_smoke_config
+    out = []
+    for i, arch in enumerate(("qwen2-72b", "command-r-35b")):
+        cfg = get_smoke_config(arch)
+        res = _parity_config(
+            dev, cfg, f"{arch} smoke (2 layers, d_model 128), float32",
+            TARGET_RUNS, _trace(np.random.default_rng(SEED + 40 + i), 4, 20,
+                                40, cfg.vocab_size), 128,
+            draft_cfg=get_smoke_config("smollm-360m"))
+        idle = [r for r in res["runs"]
+                if r["speculative"] and (r["spec_gated_off"]
+                                         or r["spec_rounds"] == 0)]
+        if idle:
+            raise AssertionError(f"{arch}: speculative runs {idle} did not "
+                                 f"speculate")
+        out.append(res)
+    return out
 
 
 SEAMLESS, VISION_ARCH = "seamless-m4t-medium", "llama-3.2-vision-90b"
@@ -2670,12 +2796,18 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     profile -> place step) and returns fields for the run's line.  Launch
     counts are reset just before the run and read just after, and must
     equal what the run's decode iterations and prefill chunks (and
-    verify rounds) imply.  ``ref``: a reference run's streams on the same
-    requests, for the share of equal tokens, printed under ``ref_key``."""
+    verify rounds) imply, a model draft's decode iterations and prefill
+    chunks included (counted by ``serving/instrument.py``, whose
+    dispatch counts the line prints and which must match the engine's
+    own: a decode dispatch a macro-step, a verify dispatch a round, a
+    prefill dispatch a chunk, each stage's for a pipeline).  ``ref``: a
+    reference run's streams on the same requests, for the share of
+    equal tokens, printed under ``ref_key``."""
     import gc
     import torch
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import Request
+    from repro_torch.serving.instrument import instrument
     t_call = time.perf_counter()
     timed_cls = _timed(cls)
     warm = timed_cls(cfg, params, **kw)
@@ -2686,6 +2818,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     gc.collect()
     torch.cuda.empty_cache()
     extra = setup(eng) if setup is not None else {}
+    counts = instrument(eng)
     for i, pr in enumerate(prompts):
         eng.submit(Request(i, pr, max_new_tokens=n_new))
     torch.cuda.synchronize()
@@ -2702,6 +2835,25 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     expect, expect_bodies = expected_launches(
         cfg, not hasattr(eng, "pc"), eng.quantization, iters, chunks,
         launches, rounds)
+    dispatches = dict(counts.counts)
+    draft_iters = sum(int(key[len("draft.draft_step"):]) * n
+                      for key, n in dispatches.items()
+                      if key.startswith("draft.draft_step"))
+    draft_chunks = sum(n for key, n in dispatches.items()
+                       if key.startswith("draft.draft_fill"))
+    if draft_iters or draft_chunks:
+        # the model draft's own forwards: dense caches, as a slot engine's
+        more, more_bodies = expected_launches(
+            eng.spec.provider.cfg, True, None, draft_iters, draft_chunks,
+            launches)
+        expect = {k: expect[k] + more[k] for k in expect}
+        expect_bodies = {"rmsnorm": {
+            b: n + more_bodies["rmsnorm"][b]
+            for b, n in expect_bodies["rmsnorm"].items()}}
+    n_stages = len(getattr(eng, "stages", [])) or 1
+    dispatch_ok = (counts.decode_dispatches == eng.macro_steps
+                   and counts.verify_dispatches == rounds
+                   and counts.prefill_dispatches == chunks * n_stages)
     streams = {r.id: r.out_tokens for r in done}
     res = {"phase": "serve", "run": name,
            "engine": cls.__name__, "quantization": eng.quantization,
@@ -2723,7 +2875,8 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
            "projection_weight_bytes": projection_bytes(eng.params),
            "n_preemptions": getattr(eng, "n_preemptions", None),
            "launches": launches, "launches_expected": expect,
-           "bodies": bodies, "bodies_expected": expect_bodies, **extra}
+           "bodies": bodies, "bodies_expected": expect_bodies,
+           "dispatches": dispatches, **extra}
     if hasattr(eng, "stages"):
         res.update(
             stages=[(st.lo, st.hi) for st in eng.stages],
@@ -2754,6 +2907,10 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
         raise AssertionError(f"serve {name}: {len(done)}/{len(prompts)} "
                              f"finished, bad streams {bad}, rejected "
                              f"{[r.id for r in eng.rejected]}")
+    if not dispatch_ok:
+        raise AssertionError(f"serve {name}: dispatches {dispatches} against "
+                             f"{eng.macro_steps} macro-steps, {rounds} "
+                             f"verify rounds and {chunks} prefill chunks")
     check_launches(name, cfg, launches, expect, bodies, expect_bodies)
     return res, streams, eng
 
@@ -2883,6 +3040,9 @@ def serve(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     launches.update(serve_vision(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches.update(serve_targets(dev))
     return launches
 
 
@@ -3550,6 +3710,154 @@ def serve_vision(dev) -> dict:
     return launches
 
 
+#: layers of the speculation targets served at full width: 8 of
+#: qwen2-72b's 80 (about 14.0 GB of layers and 5.0 GB of embedding and
+#: head in bf16; all 80 would need 145 GB) and 8 of command-r-35b's 40
+#: (about 11.3 GB and its 4.19 GB tied table)
+QWEN_LAYERS = 8
+COMMAND_R_LAYERS = 8
+#: the model draft of ``qwen_spec_bf16``: smollm-360m's widths (15 / 5
+#: heads of 64, d_model 960) at qwen2-72b's vocabulary, so every target
+#: token indexes its table, at 4 of its 32 layers (a draft proposes a row
+#: at a time, a host loop of launches: at 8 layers it took 12,093
+#: launches and 206 ms a verify round, 0.81 of it idle, on an H100 80GB
+#: HBM3 at 700 W)
+DRAFT_LAYERS = 4
+#: new tokens a request of the targets' serve runs
+TARGET_NEW = 32
+
+
+def check_spec_streams(model, params, prompts, got, ref, dev) -> dict:
+    """``qwen_spec_bf16``'s streams against ``qwen_paged_bf16``'s.  Greedy
+    verification emits the target's own argmax, but in bf16 the verify
+    round's forward (a chunk of K + 1 tokens a row: the batched chunk
+    kernel, cuBLAS at 40 rows) rounds otherwise than a decode step's, and
+    over 152064 bf16 logits the top two often tie or nearly do.  So each
+    row's stream must equal the plain run's up to its end, or up to a
+    position where the plain path's top-2 logit gap (``_top2_gap``: the
+    prefix prefilled, then one decode step) is at most two bf16 rounding
+    steps of the top logit, the repo's bf16 gate; there the streams may
+    part.  Prints every row's first divergence and gap, and fails on a
+    divergence at a wider gap."""
+    parts = {}
+    for rid, s in sorted(got.items()):
+        i = next((j for j, (a, b) in enumerate(zip(s, ref[rid])) if a != b),
+                 None)
+        if i is None:
+            continue
+        gap, top2, top = _top2_gap(model, params, prompts[rid] + ref[rid][:i],
+                                   dev)
+        # a bf16 rounding step at the top logit: 2 ** (exponent - 7)
+        step = 2.0 ** (int(np.floor(np.log2(max(abs(top), 1e-30)))) - 7)
+        parts[rid] = {"index": i, "spec": s[i:i + 2],
+                      "plain": ref[rid][i:i + 2], "plain_top2": top2,
+                      "plain_top2_gap": gap, "two_bf16_steps": 2 * step,
+                      "near_tie": bool(gap <= 2 * step)}
+    res = {"phase": "serve", "run": "qwen_spec_bf16",
+           "check": "streams equal to qwen_paged_bf16's, or part only at a "
+                    "near-tie of the plain path's top-2 logits",
+           "rows_equal": len(got) - len(parts), "rows": len(got),
+           "divergences": parts,
+           "ok": all(p["near_tie"] for p in parts.values())}
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"qwen_spec_bf16: a stream parts from "
+                             f"qwen_paged_bf16's where the plain path's top "
+                             f"two logits are not a near-tie: {parts}")
+    return res
+
+
+def serve_targets(dev) -> dict:
+    """The speculation targets at full width, cut in depth, in bfloat16,
+    weights drawn on the card from the seed: 8 requests of 32-512 tokens,
+    ``TARGET_NEW`` new tokens each, through ``PagedServingEngine``.
+    qwen2-72b at ``QWEN_LAYERS`` layers: ``qwen_paged_bf16`` (profiled
+    over one decode macro-step), ``qwen_spec_bf16`` (K 4 with a model
+    draft of smollm-360m's widths at vocab 152064, ``DRAFT_LAYERS``
+    layers; a verify round profiled; its streams against
+    ``qwen_paged_bf16``'s by ``check_spec_streams``) and
+    ``qwen_paged_int8`` / ``qwen_paged_int4`` (each profiled, its share
+    of tokens equal to the bf16 run's printed); command-r-35b at
+    ``COMMAND_R_LAYERS`` layers: ``command_r_paged_bf16`` (profiled over
+    one decode macro-step), its head the tied 256000-row table read in
+    place.
+    Launches by kernel and body are checked exactly, the draft's too.
+    Returns each run's launch counts."""
+    import gc
+    import torch
+    from repro_torch.config import uniform
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serving.engine import PagedServingEngine
+    from repro_torch.serving.speculative import ModelDraft
+    launches = {}
+    qwen = dataclasses.replace(get_config("qwen2-72b"), n_layers=QWEN_LAYERS,
+                               block_pattern=uniform("attn", QWEN_LAYERS))
+    kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
+              decode_steps=16, seed=SEED, device=dev)
+    prompts = _trace(np.random.default_rng(SEED + 50), 8, 32, 512,
+                     qwen.vocab_size)
+    res, ref, eng = serve_run("qwen_paged_bf16", PagedServingEngine, qwen,
+                              kw, prompts, dev, n_new=TARGET_NEW)
+    launches["qwen_paged_bf16"] = res["launches"]
+    params = eng.params
+    del eng
+    profile_decode(qwen, params, kw, dev, label="qwen_paged_bf16")
+    draft_cfg = dataclasses.replace(
+        get_config("smollm-360m"), vocab_size=qwen.vocab_size,
+        n_layers=DRAFT_LAYERS, block_pattern=uniform("attn", DRAFT_LAYERS))
+    draft_params = Model(draft_cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(SEED + 7))
+    # one draft serves the warm-up engine and the measured one in turn: a
+    # proposal re-feeds whatever of a row's history the draft has not seen
+    spec_kw = dict(kw, speculative={"k": 4, "provider": ModelDraft(
+        draft_cfg, params=draft_params, device=dev)})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, spec_streams, eng = serve_run(
+        "qwen_spec_bf16", PagedServingEngine, qwen, spec_kw, prompts, dev,
+        ref=ref, n_new=TARGET_NEW, params=params,
+        ref_key="share_equal_to_qwen_paged_bf16")
+    launches["qwen_spec_bf16"] = res["launches"]
+    if res["verify_rounds"] == 0 or res["launches"][
+            "paged_chunk_attention"] != QWEN_LAYERS * res["verify_rounds"]:
+        raise AssertionError(f"serve qwen_spec_bf16: {res['verify_rounds']} "
+                             f"verify rounds, batched chunk attention "
+                             f"launched {res['launches']}")
+    check_spec_streams(eng.model, params, prompts, spec_streams, ref, dev)
+    del eng
+    profile_verify(qwen, params, spec_kw, dev, label="qwen_spec_bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fmt in ("int8", "int4"):
+        name, q_kw = f"qwen_paged_{fmt}", dict(kw, quantization=fmt)
+        res, _, eng = serve_run(name, PagedServingEngine, qwen, q_kw,
+                                prompts, dev, ref=ref, n_new=TARGET_NEW,
+                                params=params)
+        launches[name] = res["launches"]
+        del eng
+        profile_decode(qwen, params, q_kw, dev, label=name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params, draft_params, spec_kw
+    gc.collect()
+    torch.cuda.empty_cache()
+    command_r = dataclasses.replace(
+        get_config("command-r-35b"), n_layers=COMMAND_R_LAYERS,
+        block_pattern=uniform("attn", COMMAND_R_LAYERS))
+    res, _, eng = serve_run(
+        "command_r_paged_bf16", PagedServingEngine, command_r, kw,
+        _trace(np.random.default_rng(SEED + 51), 8, 32, 512,
+               command_r.vocab_size), dev, n_new=TARGET_NEW)
+    launches["command_r_paged_bf16"] = res["launches"]
+    profile_decode(command_r, eng.params, kw, dev,
+                   label="command_r_paged_bf16")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _port_kernels(kernels) -> list:
     """The port's own kernels of a profile (each in an anonymous
     namespace of ``csrc/``), by device time: the per-kernel split of a
@@ -4009,6 +4317,78 @@ def train(dev) -> dict:
     return {"train_bf16": train_full(dev)}
 
 
+#: the planning phase: (strategy, horizon) pairs both engines run (the
+#: scalar proposal loop is slow, so it runs at 30 slots), and the seeds
+#: of the study's grid on ``baseline`` at the default horizon
+PLANNING_PAIRS = (("lbrr", 100), ("ga", 100), ("proposal", 30),
+                  ("prop_avg", 30))
+PLANNING_SEEDS = (0, 1, 2)
+
+
+def planning() -> dict:
+    """The paper's simulation study on the host (numpy only; the machine
+    has no JAX, so the port is held against itself, as the reference's
+    ``benchmarks/sim_bench.py`` holds its engines): the four strategies
+    on ``baseline`` over ``PLANNING_SEEDS`` at the default horizon (100
+    slots, drain 400) with ``n_workers=1`` (on-time share, completed
+    share, total cost and wall seconds a trial, and the grid's summary by
+    strategy); then the scalar engine must return the vectorised
+    ``Simulator``'s trial dict for each of ``PLANNING_PAIRS`` (seed 0;
+    at the default horizon the grid's own trial), with each engine's
+    wall seconds."""
+    from repro_torch.core.simulator_scalar import run_one_scalar
+    from repro_torch.experiments.results import (metrics_equal,
+                                                 summarize_rows)
+    from repro_torch.experiments.runner import TrialSpec, run_grid, run_one
+    strategies = ("proposal", "prop_avg", "lbrr", "ga")
+    trials = []
+    for seed in PLANNING_SEEDS:
+        for strategy in strategies:
+            t0 = time.perf_counter()
+            row = run_grid([TrialSpec(seed=seed, strategy=strategy)],
+                           n_workers=1)[0]
+            trials.append(dict(row, wall_s=time.perf_counter() - t0))
+    emit({"phase": "planning", "scenario": "baseline",
+          "trials": [{k: r[k] for k in ("seed", "strategy", "on_time",
+                                        "completed", "total_cost",
+                                        "generated", "wall_s")}
+                     for r in trials]})
+    emit({"phase": "planning", "summary": summarize_rows(
+        trials, keys=("strategy",)), "wall_s_by_strategy": {
+        s: sum(r["wall_s"] for r in trials if r["strategy"] == s)
+        / len(PLANNING_SEEDS) for s in strategies}})
+    bad = [r for r in trials if not (r["generated"] > 0
+                                     and 0 < r["on_time"] <= 1)]
+    if bad:
+        raise AssertionError(f"planning: empty or malformed trials {bad}")
+    engines = []
+    for strategy, horizon in PLANNING_PAIRS:
+        spec = TrialSpec(seed=0, strategy=strategy, horizon_slots=horizon)
+        t0 = time.perf_counter()
+        vec = next((dict(r) for r in trials if r["seed"] == 0
+                    and r["strategy"] == strategy
+                    and r["horizon_slots"] == horizon), None)
+        if vec is None:
+            vec = run_one(spec)
+        else:
+            t0 -= vec.pop("wall_s")
+        t1 = time.perf_counter()
+        scalar = run_one_scalar(spec)
+        t2 = time.perf_counter()
+        engines.append({"strategy": strategy, "horizon_slots": horizon,
+                        "equal": metrics_equal(vec, scalar),
+                        "on_time": vec["on_time"],
+                        "vectorised_s": t1 - t0, "scalar_s": t2 - t1})
+    res = {"phase": "planning", "check": "vectorised Simulator = scalar "
+                                          "engine, trial for trial",
+           "runs": engines, "equal": all(e["equal"] for e in engines)}
+    emit(res)
+    if not res["equal"]:
+        raise AssertionError(f"planning: the two engines disagree: "
+                             f"{engines}")
+    return res
+
+
 def wgmma_ptxas(report: str) -> list:
     """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma bodies
     (the contiguous form's and the cross form's, at hd 64 and 128): its
@@ -4215,6 +4595,7 @@ def main() -> int:
         return out
 
     timed("device", lambda: device_tables(dev))
+    timed("planning", planning)
 
     cases = timed("kernels", lambda: kernel_cases(dev))
     timed("parity", lambda: parity(dev))

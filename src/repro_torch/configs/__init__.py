@@ -10,8 +10,10 @@ sixth layer), the vision-language decoder ``llama-3.2-vision-90b``
 (a ``cross`` layer every fifth layer over 1601 image patch embeddings)
 and the encoder-decoder ``seamless-m4t-medium`` (12 bidirectional
 encoder layers over 1024 frame embeddings, 12 decoder layers each
-cross-attending to the encoder's output).  Other architectures join
-with their families.
+cross-attending to the encoder's output), and the dense GQA decoders
+``qwen2-72b`` (QKV bias, rope theta 1e6) and ``command-r-35b`` (a head
+tied to its 256000-row embedding, rope theta 8e6), the speculation
+targets.  That is every architecture of the reference's registry.
 ``get_config(arch_id)`` returns the production
 :class:`~repro_torch.config.ModelConfig`, ``get_smoke_config`` the
 reduced CPU-testable variant.
@@ -31,6 +33,8 @@ _ARCH_MODULES = {
     "zamba2-7b": "zamba2_7b",
     "llama-3.2-vision-90b": "llama32_vision_90b",
     "seamless-m4t-medium": "seamless_m4t_medium",
+    "qwen2-72b": "qwen2_72b",
+    "command-r-35b": "command_r_35b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -7,6 +7,8 @@ take an explicit :class:`torch.Generator`.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
@@ -51,6 +53,22 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].T
 
 
+@functools.lru_cache(maxsize=64)
+def _rotary_freq(theta: float, half: int,
+                 device: torch.device) -> torch.Tensor:
+    """``theta ** (-arange(half) / half)`` as the reference forms it: the
+    exponent in f32, the power taken in f64 and rounded to f32.  An f32
+    ``pow`` is an ulp off XLA's at a few entries of every served head
+    size; this form equals it there, at qwen2-72b's theta 1e6 and
+    command-r-35b's 8e6 too (tests/test_torch_spec.py).  Made once per
+    (theta, half, device), outside inference mode so that training may
+    read it, and never written to."""
+    with torch.inference_mode(False):
+        exponent = -torch.arange(0, half, dtype=torch.float32) / half
+        freq = (theta ** exponent.double()).to(torch.float32)
+        return freq.to(device)
+
+
 def rotary(x: torch.Tensor, positions: torch.Tensor,
            theta: float) -> torch.Tensor:
     """Rotary embedding, computed in f32 and cast back to x.dtype.
@@ -60,8 +78,7 @@ def rotary(x: torch.Tensor, positions: torch.Tensor,
     """
     head_dim = x.shape[-1]
     half = head_dim // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = _rotary_freq(float(theta), half, x.device)
     angles = positions[..., None].to(torch.float32) * freq
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -816,8 +816,13 @@ def test_body_rule_off_the_tiles():
     assert int4_body(bf, 320, 64, aligned=False) == "cuda_core"
 
 
+#: qwen2-72b's and command-r-35b's MLP (w_gate / w_up, w_down)
+TARGET_SITES = [(8192, 29568), (29568, 8192), (8192, 22528), (22528, 8192)]
+
+
 @pytest.mark.parametrize("m", [1, 8, 37, 128])
-@pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (66, 7), (64, 16)])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (66, 7), (64, 16)]
+                         + TARGET_SITES)
 def test_int4_splits_cover_k_and_fill_the_card(m, k, n):
     """Every slice of K holds at least one stage, a tile's slices fit one
     portable cluster, and a decode-sized product has at least one CTA per
@@ -1326,7 +1331,9 @@ def _chunk_card_inputs(rng, b, c, h, kv, d, bs, nb, pos):
 #: and a head dim off the mma tiles
 CHUNK_CASES = [(8, 5, 15, 5, 64, [32, 600, 117, 256, 5, 1021, 400, 63]),
                (3, 9, 6, 2, 32, [0, 77, 300]),
-               (2, 5, 15, 5, 72, [40, 500])]
+               (2, 5, 15, 5, 72, [40, 500]),
+               # qwen2-72b's verify round: 64 / 8 heads of 128 (G 8)
+               (8, 5, 64, 8, 128, [32, 600, 117, 256, 75, 413, 519, 188])]
 
 
 @pytest.mark.cuda
@@ -1856,6 +1863,35 @@ def test_cuda_quant_matmul_int8_mma_body(cuda_device, k, n, m):
                 QMM_CARD_TOL)
     for _ in range(3):
         assert torch.equal(quant_matmul_int8(x, q, s), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("k,n", TARGET_SITES)
+def test_cuda_quant_matmul_at_the_speculation_targets_widths(cuda_device,
+                                                             fmt, k, n):
+    """qwen2-72b's and command-r-35b's MLP at decode (8 rows; w_gate /
+    w_up and w_down): the mma body, its K split (``quant_splits``) and
+    the bf16 gate of the plain version, and the same bits over repeated
+    calls."""
+    rng = np.random.default_rng(29)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
+    del w
+    q, s = packed["q"].to(cuda_device), packed["s"].to(cuda_device)
+    x = t(rng.standard_normal((8, k), dtype=np.float32)).to(
+        cuda_device, torch.bfloat16)
+    kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
+                     if fmt == "int8" else
+                     (quant_matmul_int4, quant_matmul_int4_plain))
+    name = f"quant_matmul_{fmt}"
+    n0 = _build.bodies[name]["mma"]
+    got = kernel(x, q, s)
+    assert _build.bodies[name]["mma"] == n0 + 1
+    assert 1 <= quant_splits(8, k, n) <= 8
+    assert got.shape == (8, n) and got.dtype == torch.bfloat16
+    _card_close(got, plain(x, q, s), "bfloat16", QMM_CARD_TOL)
+    assert torch.equal(kernel(x, q, s), got)
 
 
 @pytest.mark.cuda
