@@ -132,7 +132,19 @@ one JSON line:
    bf16 too: the batched chunk form at qwen2-72b's verify round (B 8,
    C 5, 64 / 8 heads of 128, pos 32-600) and the int8 / int4 quant
    matmul at qwen2-72b's MLP at decode (8 x 8192 -> 29568 and 8 x 29568
-   -> 8192, weights drawn on the card);
+   -> 8192, weights drawn on the card).  Training's scan kernels in
+   float32: falcon-mamba-7b's serving launches (8 x 1 and 1 x 128 over
+   8192 channels) with the checkpoint pointer give the bits of the
+   launches without it; at the train runs' shapes (B 2, T 2048:
+   falcon-mamba-7b's 8192 channels of d_state 16, zamba2-7b's 7168 of
+   64 with Mamba2's A) the forward is timed with and without
+   checkpoints in turns, and the backward kernel
+   (``selective_scan_backward``) from those checkpoints is held to its
+   plain version (2e-5 of max(1, |plain|)), launched twice with the
+   same bits, timed beside the plain version and its bound;
+   ``CrossAttentionFn``'s forward equals the cross form over identity
+   tables bit for bit at the cross train runs' reads (one ``wgmma``
+   launch), its torch-op backward timed beside it;
 4. ``parity``  — smollm-360m at full width, 2 layers, float32: one trace
    through the paged engine (unquantized, int8, int4) and the slot
    engine ``ServingEngine`` (unquantized, int8) on the card (kernels)
@@ -316,9 +328,9 @@ one JSON line:
 
 6. ``train``  — smollm-360m at full width, 2 layers, float32, on the
    card against the CPU from the same weights: the loss (1e-5 relative)
-   and every gradient leaf (1e-5 of max(1, |g|)) of one step, AdamW fed
-   the same gradients on both sides (1e-6), and the loss at each of three
-   ``make_train_step`` steps (1e-5 relative); then smollm-360m at full
+   at each of three steps of ``make_train_step``'s body, and at the
+   first every gradient leaf (1e-5 of max(1, |g|)) and AdamW fed the
+   same gradients on both sides (1e-6); then smollm-360m at full
    width and depth in bf16 with f32 AdamW state, 8 steps at B 8, S 4096
    through ``launch/train.py``'s setup, a line a step (ce, grad norm,
    lr, wall ms, tokens/s, peak memory): every ce finite and the last
@@ -327,6 +339,20 @@ one JSON line:
    forward and the checkpoint's recompute; 4n + 1 norms), no plain
    version run; then one more step under torch.profiler (busy ms, idle
    share, the flash kernel's, the torch-op backward's and cuBLAS's ms).
+   Every other family trains too (``TRAIN_FAMILY_PARITY``, float32, card
+   against CPU on card-drawn weights, the cross families with a seeded
+   frontend, learning rate ``family_lr``: mixtral-8x7b, falcon-mamba-7b,
+   zamba2-7b at four layers, llama-3.2-vision-90b's cross layer,
+   seamless-m4t-medium at 2 + 2 layers, each cut as its comment names:
+   the same checks), and
+   ``TRAIN_RUNS`` at full width in bf16 with f32 AdamW state, 4 steps
+   each (mixtral 1 of 32 layers, falcon-mamba 8 of 64, zamba2 four
+   layers, vision one attn and one cross layer, seamless uncut), gated
+   as train_bf16 is on ``expected_train_launches``' count for every
+   family (the scan forward twice and its backward once for each Mamba
+   layer, the cross form twice for each cross read), the falcon-mamba
+   and vision runs profiled (the scan kernels' ms, the torch-op
+   backwards' by label).
 
 Each phase ends with a line of its wall seconds, as each serve run's and
 each profile's line carries its own.  It then prints the kernel list,
@@ -370,6 +396,9 @@ REPLACES = {
     "quant_matmul_int4": "src/repro/kernels/quant_matmul.py:54",
     "selective_scan": "src/repro/kernels/selective_scan.py:61",
     "flash_attention": "src/repro/kernels/flash_attention.py:72",
+    # no TPU kernel: jax.grad of mamba1_seq's lax.scan (mamba2_seq's at
+    # :214), which the reference's train step differentiates
+    "selective_scan_backward": "src/repro/models/ssm.py:115",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -383,6 +412,7 @@ SOURCES = {
     "quant_matmul_int4": "src/repro_torch/csrc/quant_matmul.cu",
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "selective_scan_backward": "src/repro_torch/csrc/selective_scan.cu",
 }
 #: the serve run whose launches each kernel's line reports
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
@@ -394,9 +424,11 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "quant_matmul_int8": "paged_int8",
               "quant_matmul_int4": "paged_int4",
               "selective_scan": "mamba_paged_bf16",
-              "flash_attention": "train_bf16"}
+              "flash_attention": "train_bf16",
+              "selective_scan_backward": "mamba_train_bf16"}
 #: the dtype of each kernel's main-path case in the kernels line
-MAIN_DTYPE = {"selective_scan": "float32"}
+MAIN_DTYPE = {"selective_scan": "float32",
+              "selective_scan_backward": "float32"}
 #: the bodies every serve-run launch of a kernel with more than one body
 #: must take (rmsnorm: split as expected_launches says; the attention
 #: kernels as ``ATTN_BODY`` names them for the run's config)
@@ -519,14 +551,17 @@ def _errors(out, ref, dtype, tol, relative) -> tuple:
 
 def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
           tol=TOL, relative=False, library_note=None, prev=None,
-          prev_out=None, extra=None):
+          prev_out=None, extra=None, plain_calls=None):
     """One kernel case: ``out`` (kernel) against ``ref`` (plain) on the
     card, then the timings.  ``relative`` gates the error relative to
     max(1, |ref|) instead of the absolute one.  ``prev``: the kernel's
     previous (CUDA-core) body on the same inputs, gated the same way
     (on ``prev_out`` where given, else on what ``prev()`` returns) and
     timed in turns with the kernel (kernel, prev, prev, kernel).
-    ``extra``: more keys for the case's line."""
+    ``extra``: more keys for the case's line.  ``plain_calls``: time the
+    plain version by CUDA events over that many back-to-back calls
+    (``call_ms``, launch cost included: a plain version of thousands of
+    launches a call, which torch.profiler takes minutes to record)."""
     import torch
     torch.cuda.synchronize()
     err, rel, excess, ok = _errors(out, ref, dtype, tol, relative)
@@ -549,7 +584,8 @@ def _case(name, dtype, shape, out, ref, fn, plain, library, nbytes, flops,
             "tol": tol[dtype], "tol_on": "relative" if relative else "abs",
             "bf16_step_excess": excess, "ok": ok,
             "ms": ms, "prev_ms": None, **prev_case,
-            "plain_ms": device_ms(plain),
+            "plain_ms": (device_ms(plain) if plain_calls is None else
+                         call_ms(plain, n=plain_calls, warmup=0)),
             "library_ms": device_ms(library) if library else None,
             "call_ms": call_ms(fn),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -803,9 +839,10 @@ def kernel_cases(dev) -> list:
                                                  _body="cuda_core"))
             if dname == "bfloat16" else None))
     launch_floor(dev)
-    return (cases + target_cases(dev) + scan_cases(dev) + gemma_cases(dev)
+    return (cases + target_cases(dev) + scan_cases(dev)
+            + scan_backward_cases(dev) + gemma_cases(dev)
             + mixtral_cases(dev) + zamba_cases(dev) + cross_cases(dev)
-            + flash_cases(dev))
+            + cross_fn_cases(dev) + flash_cases(dev))
 
 
 #: qwen2-72b's MLP at decode: 8 rows through w_gate / w_up (8192 ->
@@ -2002,6 +2039,171 @@ def scan_cases(dev) -> list:
             extra={"issue_bound_ms": issue_ms,
                    "instr_per_update": SCAN_INSTR_PER_UPDATE}))
     return cases
+
+
+#: the scan's backward kernel at the train runs' shapes: (model, B, T,
+#: DI, d_state, Mamba2's A and B / C slices)
+SCAN_BWD_CASES = (("falcon-mamba-7b", 2, 2048, 8192, 16, False),
+                  ("zamba2-7b", 2, 2048, 7168, 64, True))
+#: operations a state element and step of the backward takes: the
+#: recomputed forward update (dt*a, exp, decay*h, dx*B, the add) and the
+#: backward's eighteen (dt*a, exp, C*dy, + the carried gradient, g*B and
+#: its add, h_{t-1}*a_t, *A, x*B, the add, g*(...) and its add, g*(dt x),
+#: h*dy, g*h_{t-1}*a_t, *dt and its add, a_t*g), an exp counted as one
+SCAN_BWD_OPS = 23
+
+
+def scan_train_inputs(dev, rng, b, t, di, ds, mamba2):
+    """Scan inputs in the model's range (dt a softplus around the
+    init's dt_bias of -2; A around Mamba1's -(1..d_state), or with
+    ``mamba2`` one value a channel around Mamba2's init of -1 over
+    d_state, B and C then column slices of one projection, as
+    ``_mamba2_scan`` passes them) and the cotangent of y, float32 on the
+    card."""
+    import torch
+
+    def f32(*shape):
+        return torch.from_numpy(rng.standard_normal(shape,
+                                                    dtype=np.float32)).to(dev)
+    dt = torch.nn.functional.softplus(f32(b, t, di) - 2)
+    if mamba2:
+        a_neg = -torch.exp(0.3 * f32(di, 1)).expand(di, ds).contiguous()
+    else:
+        a_neg = -torch.exp(torch.log(torch.arange(
+            1, ds + 1, device=dev, dtype=torch.float32)) + 0.3 * f32(di, ds))
+    strided = mamba2
+    bm, cm = f32(b, t, ds), f32(b, t, ds)
+    if strided:       # bc_proj's [B | C]
+        bc = torch.cat([bm, cm], dim=-1)
+        bm, cm = bc[..., :ds], bc[..., ds:]
+    return dt, bm, cm, f32(b, t, di), a_neg, f32(b, t, di)
+
+
+def scan_backward_cases(dev) -> list:
+    """The scan's training kernels in float32.  First the forward's
+    checkpoint pointer: at falcon-mamba-7b's serving shapes (a decode
+    step of 8 rows, a chunk of 128) the launch with checkpoints gives the
+    bits of the launch without (y and h_T), and at ``SCAN_BWD_CASES``'
+    train shapes both are timed in turns (without, with, with,
+    without).  Then the backward kernel from those checkpoints against
+    ``selective_scan_backward_plain`` (every gradient within 2e-5 of
+    max(1, |plain|)), launched twice with the same bits, timed beside the
+    plain version (one call: thousands of launches) and its bound; no
+    PyTorch call computes the scan's gradient."""
+    import torch
+    from repro_torch.kernels.selective_scan import (
+        scan_checkpoints, selective_scan, selective_scan_backward,
+        selective_scan_backward_plain)
+    rng = np.random.default_rng(SEED + 30)
+    for b, t, di, ds in ((8, 1, 8192, 16), (1, 128, 8192, 16)):
+        dt, bm, cm, x, a_neg, _ = scan_train_inputs(dev, rng, b, t, di, ds,
+                                                    False)
+        h0 = torch.from_numpy(rng.standard_normal(
+            (b, di, ds), dtype=np.float32)).to(dev)
+        ckpt = torch.empty((b, scan_checkpoints(t), di, ds), device=dev)
+        y0, h_0 = selective_scan(dt, bm, cm, x, a_neg, h0)
+        y1, h_1 = selective_scan(dt, bm, cm, x, a_neg, h0, checkpoints=ckpt)
+        equal = torch.equal(y0, y1) and torch.equal(h_0, h_1)
+        shape = {"model": "falcon-mamba-7b", "B": b, "T": t, "DI": di,
+                 "DS": ds}
+        emit({"phase": "kernels", "kernel": "selective_scan",
+              "check": "a serving launch with the checkpoint pointer: y "
+                       "and h_T bit-equal to the launch without",
+              "shape": shape, "equal": equal,
+              "ckpt_equal_h0": torch.equal(ckpt[:, 0], h0)})
+        if not (equal and torch.equal(ckpt[:, 0], h0)):
+            raise AssertionError(f"selective_scan {shape}: the checkpoint "
+                                 f"pointer changed the serving launch")
+    cases = []
+    for model, b, t, di, ds, mamba2 in SCAN_BWD_CASES:
+        dt, bm, cm, x, a_neg, dy = scan_train_inputs(dev, rng, b, t, di, ds,
+                                                     mamba2)
+        h0 = torch.zeros((b, di, ds), device=dev)
+        nc = scan_checkpoints(t)
+        ckpt = torch.empty((b, nc, di, ds), device=dev)
+        selective_scan(dt, bm, cm, x, a_neg, h0, checkpoints=ckpt)
+        turns = [device_ms(f) for f in (
+            lambda: selective_scan(dt, bm, cm, x, a_neg, h0),
+            lambda: selective_scan(dt, bm, cm, x, a_neg, h0,
+                                   checkpoints=ckpt),
+            lambda: selective_scan(dt, bm, cm, x, a_neg, h0,
+                                   checkpoints=ckpt),
+            lambda: selective_scan(dt, bm, cm, x, a_neg, h0))]
+        fwd = {"forward_ms": (turns[0] + turns[3]) / 2,
+               "forward_ckpt_ms": (turns[1] + turns[2]) / 2,
+               "forward_turns_ms": turns}
+        args = (dt, bm, cm, x, a_neg, ckpt, dy)
+        want = selective_scan_backward_plain(*args)
+        got = selective_scan_backward(*args)
+        again = selective_scan_backward(*args)
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        shape = {"model": model, "B": b, "T": t, "DI": di, "DS": ds,
+                 "mamba2": mamba2, "checkpoints": nc}
+        emit({"phase": "kernels", "kernel": "selective_scan_backward",
+              "check": "two launches, the same bits", "shape": shape,
+              "equal": same, **fwd})
+        if not same:
+            raise AssertionError(f"selective_scan_backward {shape}: two "
+                                 f"launches differ")
+        nbytes = 4 * (5 * b * t * di + 4 * b * t * ds + 2 * di * ds
+                      + b * nc * di * ds + b * di * ds)
+        cases.append(_case(
+            "selective_scan_backward", "float32", shape,
+            torch.cat([g.flatten() for g in got]),
+            torch.cat([w.flatten() for w in want]),
+            lambda args=args: selective_scan_backward(*args),
+            lambda args=args: selective_scan_backward_plain(*args), None,
+            nbytes, b * t * di * (3 + SCAN_BWD_OPS * ds), relative=True,
+            library_note="none: no PyTorch call computes the scan's "
+                         "gradient", extra=fwd, plain_calls=1))
+    return cases
+
+
+#: CrossAttentionFn's forward at the train runs' cross reads: (label, B,
+#: C queries, H, KV, hd, src)
+CROSS_FN_CASES = (("llama-3.2-vision-90b", 2, 512, 64, 8, 128, 1601),
+                  ("seamless-m4t-medium", 2, 512, 16, 16, 64, 1024))
+
+
+def cross_fn_cases(dev) -> list:
+    """``CrossAttentionFn``'s forward at the train runs' cross reads in
+    bf16: the cross form itself over identity tables (bit for bit, one
+    launch on the wgmma body), and the torch-op backward's device time
+    beside the forward's (it runs under the profiler label
+    ``cross_attention_backward`` in a train step)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (
+        CrossAttentionFn, cross_attention_backward, paged_cross_attention)
+    rng = np.random.default_rng(SEED + 31)
+    for label, b, c, h, kv, hd, src in CROSS_FN_CASES:
+        def bf(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(dev, torch.bfloat16)
+        q, k, v, dout = bf(b, c, h, hd), bf(b, src, kv, hd), bf(
+            b, src, kv, hd), bf(b, c, h, hd)
+        tables = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+        _build.reset_launches()
+        got = CrossAttentionFn.apply(q, k, v)
+        launched = dict(_build.bodies["paged_cross_attention"])
+        want = paged_cross_attention(q, k, v, tables, src)
+        equal = torch.equal(got, want)
+        res = {"phase": "kernels", "kernel": "paged_cross_attention",
+               "check": "CrossAttentionFn's forward = the cross form over "
+                        "identity tables, bit for bit",
+               "shape": {"model": label, "B": b, "C": c, "H": h, "KV": kv,
+                         "hd": hd, "src": src}, "dtype": "bfloat16",
+               "equal": equal, "bodies": launched,
+               "forward_ms": device_ms(
+                   lambda: paged_cross_attention(q, k, v, tables, src)),
+               "backward_torch_ops_ms": device_ms(
+                   lambda: cross_attention_backward(q, k, v, dout), n=3,
+                   warmup=1)}
+        emit(res)
+        if not equal or launched.get("wgmma") != 1:
+            raise AssertionError(f"CrossAttentionFn {res}: not the cross "
+                                 f"form's wgmma launch")
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -4085,35 +4287,93 @@ TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 256, "steps": 3}
 CUBLAS_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
 
+#: the body every bf16 train launch of the contiguous flash form takes,
+#: per config (``flash_body``'s rule; a config not named takes wgmma):
+#: zamba2-7b's hd 112 runs mma
+TRAIN_FLASH_BODY = {"zamba2-7b": "mma"}
+#: the body of every bf16 cross read in training: the cross form's wgmma
+#: (seamless-m4t-medium's hd 64, llama-3.2-vision-90b's hd 128)
+TRAIN_CROSS_BODY = "wgmma"
+
+
+def _block_norms(kind: str, cfg, enc_cross: bool) -> int:
+    """Norms a block runs: ln1, ln_x before an encoder-decoder's cross
+    read, ln2 before an MLP (attn, swa and cross blocks)."""
+    mlp = kind in ("attn", "swa", "cross") and cfg.mlp_kind != "none"
+    return 1 + int(enc_cross and kind in ("attn", "swa")) + int(mlp)
+
+
 def expected_train_launches(cfg, steps: int) -> tuple:
-    """Launches a train run of ``steps`` steps implies: each attn or swa
-    layer runs the contiguous flash kernel and its two norms in the
-    forward and again in its checkpoint's recompute in the backward pass,
-    and the final norm runs once (outside the checkpoints): 2n flash
-    launches and 4n + 1 norms a step for n layers.  Every norm but the
-    first of the stack takes its residual add (``add_norm``: 2n in the
-    forward with the final norm, 2n - 1 in the recompute); every flash
-    launch of a bf16 model at hd 64 takes ``wgmma``.  Returns (launches
-    by kernel, launches by body of the two)."""
+    """Launches a train run of ``steps`` steps implies.  Every block runs
+    its kernels in the forward and again in its checkpoint's recompute in
+    the backward pass: a contiguous flash launch for each attn or swa
+    block (an encoder's too), two cross-form launches for each cross
+    read (a ``cross`` block's, an encoder-decoder's ``enc_xattn``), two
+    scan forwards (with checkpoints) for each Mamba block and one scan
+    backward; and each block's norms twice, the final norm of each stack
+    (the decoder's, an encoder's) once, outside the checkpoints.  The
+    first norm of a stack takes no residual add (``norm``: twice a step a
+    stack), every other one does (``add_norm``).  Returns (launches by
+    kernel, launches by body of the flash form, the cross form, rmsnorm
+    and the scan), per ``TRAIN_FLASH_BODY`` / ``TRAIN_CROSS_BODY``."""
     from repro_torch.kernels import _build
-    n = sum(cfg.block_pattern.count(k) for k in ("attn", "swa"))
+    pat = cfg.block_pattern
+    enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    n_attn = sum(pat.count(k) for k in ("attn", "swa")) + enc
+    n_cross = pat.count("cross") + (
+        sum(pat.count(k) for k in ("attn", "swa"))
+        if cfg.is_encoder_decoder else 0)
+    n_scan = sum(pat.count(k) for k in ("mamba1", "mamba2"))
+    stacks = [sum(_block_norms(k, cfg, cfg.is_encoder_decoder)
+                  for k in pat)]
+    if enc:
+        stacks.append(enc * _block_norms("attn", cfg, False))
+    norm = 2 * len(stacks)
+    add_norm = sum(2 * n - 2 + 1 for n in stacks)
     expect = dict.fromkeys(_build.launches, 0)
-    expect["flash_attention"] = 2 * n * steps
-    expect["rmsnorm"] = (4 * n + 1) * steps
+    expect["flash_attention"] = 2 * n_attn * steps
+    expect["paged_cross_attention"] = 2 * n_cross * steps
+    expect["rmsnorm"] = (norm + add_norm) * steps
+    expect["selective_scan"] = 2 * n_scan * steps
+    expect["selective_scan_backward"] = n_scan * steps
+    flash = TRAIN_FLASH_BODY.get(cfg.name, "wgmma")
     return expect, {
-        "flash_attention": {"wgmma": 2 * n * steps, "mma": 0,
-                            "cuda_core": 0},
-        "rmsnorm": {"add_norm": (4 * n - 1) * steps, "norm": 2 * steps,
-                    "cuda_core": 0}}
+        "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0,
+                            flash: 2 * n_attn * steps},
+        "paged_cross_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0,
+                                  TRAIN_CROSS_BODY: 2 * n_cross * steps},
+        "rmsnorm": {"add_norm": add_norm * steps, "norm": norm * steps,
+                    "cuda_core": 0},
+        "selective_scan": {"state_lanes": 2 * n_scan * steps,
+                           "cuda_core": 0}}
+
+
+def train_bodies(cfg) -> None:
+    """Raise if the wrappers' rules would send ``cfg``'s bf16 train
+    launches to other bodies than ``TRAIN_FLASH_BODY`` /
+    ``TRAIN_CROSS_BODY`` name."""
+    import torch
+    from repro_torch.kernels.flash_attention import cross_body, flash_body
+    crosses = "cross" in cfg.block_pattern or cfg.is_encoder_decoder
+    want = (TRAIN_FLASH_BODY.get(cfg.name, "wgmma"),
+            TRAIN_CROSS_BODY if crosses else None)
+    named = (flash_body(torch.bfloat16, cfg.head_dim),
+             cross_body(torch.bfloat16, cfg.head_dim) if crosses else None)
+    if cfg.n_kv_heads and named != want:
+        raise AssertionError(f"{cfg.name}: the rules name the train bodies "
+                             f"{named}, expected {want}")
 
 
 @contextlib.contextmanager
 def count_plain_calls():
     """Count, within the block, the calls of the plain versions the train
     path's wrappers take for CPU tensors (none may run on the card)."""
-    from repro_torch.kernels import flash_attention, rmsnorm
+    from repro_torch.kernels import flash_attention, rmsnorm, selective_scan
     sites = [(flash_attention, "flash_attention_plain"),
-             (rmsnorm, "rmsnorm_plain"), (rmsnorm, "add_rmsnorm_plain")]
+             (flash_attention, "paged_cross_attention_plain"),
+             (rmsnorm, "rmsnorm_plain"), (rmsnorm, "add_rmsnorm_plain"),
+             (selective_scan, "selective_scan_plain"),
+             (selective_scan, "selective_scan_backward_plain")]
     calls = {name: 0 for _, name in sites}
     saved = [(module, name, getattr(module, name)) for module, name in sites]
 
@@ -4131,90 +4391,212 @@ def count_plain_calls():
             setattr(module, name, fn)
 
 
-def train_parity(dev) -> dict:
-    """Card against CPU in float32: smollm-360m at full width, 2 layers,
-    B 2, S 256, the same CPU-drawn weights on both (TF32 off).  The loss
-    and every gradient leaf of one ``value_and_grad``, ``adamw_update``
-    fed the same (CPU) gradients on both sides, then three steps of
-    ``make_train_step`` on each, whose loss is held at every step.  The
-    parameters after several steps are not held element-wise: AdamW's
-    first steps move each weight by about lr * sign(g), so a gradient
-    near zero that rounds to the other sign moves its weight by 2 lr."""
+def _frontend(cfg, b: int, dev, seed: int):
+    """A seeded frontend (B, src, d_model) in float32 for a config with a
+    cross or encoder source, else None: a zero one makes the cross K/V
+    and their gradients zero."""
     import torch
-    from repro_torch.configs import get_config
+    src = cfg.encoder_seq if cfg.is_encoder_decoder else cfg.n_image_tokens
+    if not src:
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (b, src, cfg.d_model), dtype=np.float32)).to(dev)
+
+
+#: the train phase's card-vs-CPU cells of the other families, float32 on
+#: the same card-drawn weights: (label, arch, overrides, B, S).  The
+#: kernels' widths are the published ones (d_model, heads, head dim,
+#: d_inner, d_state, the source lengths); depth is cut as the serve
+#: phase's parity cells cut it (mixtral's window 256 as that cell has
+#: it), and so that the CPU's side stays near 10 s the vocab to 1024, the
+#: MLPs' widths (cuBLAS's, no kernel's: mixtral's experts' moe_d_ff to
+#: 256, the dense d_ff to 2048 in zamba2's shared block and 1024 in
+#: vision) and vision's depth to its cross layer alone (its attn layer's
+#: d_model 8192 doubled the CPU's 19 s); one row (two rows took 108 s of
+#: the CPU's for the six cells and the script past 800 s); S 64 crosses
+#: a scan checkpoint
+TRAIN_FAMILY_PARITY = (
+    ("mixtral", "mixtral-8x7b",
+     dict(MIXTRAL_PARITY, block_pattern=("swa", "swa"), vocab_size=1024,
+          moe_d_ff=256), 1, 64),
+    ("falcon_mamba", "falcon-mamba-7b",
+     dict(n_layers=2, block_pattern=("mamba1", "mamba1"), vocab_size=1024),
+     1, 64),
+    ("zamba2", "zamba2-7b",
+     dict(n_layers=len(ZAMBA_PARITY), block_pattern=ZAMBA_PARITY,
+          vocab_size=1024, d_ff=2048), 1, 64),
+    ("vision", VISION_ARCH, dict(CROSS_PARITY[VISION_ARCH], n_layers=1,
+                                 block_pattern=("cross",), vocab_size=1024,
+                                 d_ff=1024), 1, 64),
+    ("seamless", SEAMLESS, dict(CROSS_PARITY[SEAMLESS], vocab_size=1024),
+     1, 64))
+def family_lr(cfg) -> float:
+    """The learning rate of the family cells' steps and of the
+    ``TRAIN_RUNS``: 0.1 / d_model (launch/train.py's 3e-3 at smollm's
+    d_model 960, scaled as AdamW's first steps need at width: each moves
+    every weight by about lr, and a product over d_model inputs then moves
+    by about d_model * lr of its size; at 3e-4 vision's d_model 8192 took
+    ce from 10.8 to 37 in one step on the H100, and zamba2's and
+    falcon-mamba's went back up after a first fall)."""
+    return 0.1 / cfg.d_model
+
+
+def _train_parity_cell(dev, cfg, label, p_cpu, b, s, frontend=None,
+                       lr=TRAIN["lr"]) -> dict:
+    """Card against CPU in float32 on the same weights ``p_cpu`` (TF32
+    off): three steps of ``make_train_step``'s body written out
+    (``value_and_grad``, ``cosine_lr`` with a warmup of 2 over 8 steps,
+    ``adamw_update``) on each device, the loss held at each step and
+    every gradient leaf at the first, where ``adamw_update`` is also fed
+    the CPU's gradients on the card (the same update on both devices);
+    the later steps' gradient differences are printed.  Neither the
+    parameters nor the gradients after a step are held element-wise:
+    AdamW's first steps move each weight by about lr * sign(g), so a
+    gradient near zero that rounds to the other sign moves its weight by
+    2 lr (smollm-360m's cell at lr 3e-3: 1e-6 at the first step's
+    gradients, 2.3e-5 at the second's, the losses within 3e-7)."""
+    import torch
     from repro_torch.models.model import Model
     from repro_torch.training.data import SyntheticLM
-    from repro_torch.training.optimizer import adamw_init, adamw_update
-    from repro_torch.training.train_step import (make_train_step,
-                                                 value_and_grad)
+    from repro_torch.training.optimizer import (adamw_init, adamw_update,
+                                                cosine_lr)
+    from repro_torch.training.train_step import value_and_grad
     from repro_torch.training.tree import leaves, tree_map
     t_call = time.perf_counter()
-    n, b, s = (TRAIN_PARITY[k] for k in ("layers", "batch", "seq"))
-    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=n,
-                              block_pattern=("attn",) * n, dtype="float32")
     cpu = Model(cfg, device="cpu")
     card = Model(cfg, device=dev)
-    p_cpu = cpu.init(torch.Generator().manual_seed(SEED))
     p_dev = tree_map(lambda a: a.to(dev), p_cpu)
     data = SyntheticLM(cfg.vocab_size, s, b, seed=SEED)
-    batches = [torch.from_numpy(data.batch_at(i)["tokens"])
-               for i in range(TRAIN_PARITY["steps"])]
-    l_cpu, _, g_cpu = value_and_grad(cpu, p_cpu, {"tokens": batches[0]})
-    l_dev, _, g_dev = value_and_grad(card, p_dev,
-                                     {"tokens": batches[0].to(dev)})
-    grad_err = _grad_err([g.cpu() for g in leaves(g_dev)], leaves(g_cpu))
-    loss_rel0 = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
-    new_cpu = adamw_update(g_cpu, adamw_init(p_cpu), p_cpu, lr=1.5e-3)
-    new_dev = adamw_update(tree_map(lambda a: a.to(dev), g_cpu),
-                           adamw_init(p_dev), p_dev, lr=1.5e-3)
-    upd_err = max((a.cpu().float() - c.float()).abs().max().item()
-                  for a, c in zip(leaves(new_dev[:2]), leaves(new_cpu[:2])))
-    del g_cpu, g_dev, new_cpu, new_dev
-    kw = dict(base_lr=TRAIN["lr"], warmup=2, total_steps=8)
-    step_cpu, step_dev = (make_train_step(m, **kw) for m in (cpu, card))
     o_cpu, o_dev = adamw_init(p_cpu), adamw_init(p_dev)
-    losses = []
-    for tok in batches:
-        p_cpu, o_cpu, m_cpu = step_cpu(p_cpu, o_cpu, {"tokens": tok})
-        p_dev, o_dev, m_dev = step_dev(p_dev, o_dev, {"tokens": tok.to(dev)})
-        losses.append([float(m_cpu["loss"]), float(m_dev["loss"])])
+    losses, grad_errs, aux, upd_err = [], [], {}, None
+    for i in range(TRAIN_PARITY["steps"]):
+        batch = {"tokens": torch.from_numpy(data.batch_at(i)["tokens"])}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        l_cpu, m_cpu, g_cpu = value_and_grad(cpu, p_cpu, batch)
+        l_dev, m_dev, g_dev = value_and_grad(
+            card, p_dev, {k: v.to(dev) for k, v in batch.items()})
+        losses.append([float(l_cpu), float(l_dev)])
+        grad_errs.append(_grad_err([g.cpu() for g in leaves(g_dev)],
+                                   leaves(g_cpu)))
+        aux = aux or {k: [float(m_cpu[k]), float(m_dev[k])]
+                      for k in ("moe_aux_loss", "moe_drop_frac")}
+        lr_i = cosine_lr(o_cpu.step, lr, 2, 8)
+        new_cpu = adamw_update(g_cpu, o_cpu, p_cpu, lr=lr_i)
+        if i == 0:
+            same = adamw_update(tree_map(lambda a: a.to(dev), g_cpu), o_dev,
+                                p_dev, lr=lr_i.to(dev))
+            upd_err = max((a.cpu().float() - c.float()).abs().max().item()
+                          for a, c in zip(leaves(same[:2]),
+                                          leaves(new_cpu[:2])))
+            del same
+        p_cpu, o_cpu, _ = new_cpu
+        p_dev, o_dev, _ = adamw_update(g_dev, o_dev, p_dev,
+                                       lr=cosine_lr(o_dev.step, lr, 2, 8))
+        del g_cpu, g_dev, new_cpu
     loss_rel = max(abs(d - c) / abs(c) for c, d in losses)
     res = {"phase": "train", "check": "card vs CPU, float32",
-           "config": f"{cfg.name}, {n} layers, float32, B {b}, S {s}",
-           "loss_rel_err_first": loss_rel0, "grad_max_rel_err": grad_err,
-           "adamw_same_grads_max_abs_err": upd_err,
+           "config": f"{label}, float32, B {b}, S {s}, lr {lr}",
+           "grad_max_rel_err_by_step": grad_errs,
+           "moe_aux_cpu_card": aux, "adamw_same_grads_max_abs_err": upd_err,
            "losses_cpu_card": losses, "loss_max_rel_err": loss_rel,
            "tol": {"loss": 1e-5, "grad": 1e-5, "adamw": 1e-6},
            "seconds": time.perf_counter() - t_call}
     emit(res)
-    if not (loss_rel0 <= 1e-5 and grad_err <= 1e-5 and upd_err <= 1e-6
-            and loss_rel <= 1e-5):
+    if not (loss_rel <= 1e-5 and grad_errs[0] <= 1e-5 and upd_err <= 1e-6):
         raise AssertionError(f"train parity: card and CPU disagree: {res}")
     return res
 
 
-def train_full(dev) -> dict:
-    """smollm-360m at full width and depth (32 layers) in bf16, f32 AdamW
-    state: ``TRAIN["steps"]`` steps at B 8, S 4096 through
-    ``launch/train.py``'s setup (weights from a card Generator seeded 0,
-    batches from ``SyntheticLM(seed=0)``), one JSON line a step (ce, grad
-    norm, lr, wall ms, tokens/s, peak memory).  Gates: every ce finite,
-    the last below the first; the launches exactly as
-    ``expected_train_launches`` says, every flash launch on ``wgmma``; no
-    plain version run.  Then one more step under torch.profiler: the
+def train_parity(dev) -> list:
+    """Card against CPU in float32 (``_train_parity_cell``): smollm-360m at
+    full width, 2 layers, B 2, S 256, weights drawn on the CPU, at
+    launch/train.py's learning rate; then each family of
+    ``TRAIN_FAMILY_PARITY`` on card-drawn weights (the cross families
+    with a seeded frontend) at ``family_lr``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    n, b, s = (TRAIN_PARITY[k] for k in ("layers", "batch", "seq"))
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=n,
+                              block_pattern=("attn",) * n, dtype="float32")
+    out = [_train_parity_cell(
+        dev, cfg, f"{cfg.name}, {n} layers", Model(cfg, device="cpu").init(
+            torch.Generator().manual_seed(SEED)), b, s)]
+    for i, (label, arch, over, b, s) in enumerate(TRAIN_FAMILY_PARITY):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
+        cuts = ", ".join(f"{k} {v}" for k, v in over.items()
+                         if k != "block_pattern")
+        out.append(_train_parity_cell(
+            dev, cfg, f"{arch}, {cfg.block_pattern}, {cuts}",
+            _card_drawn(cfg, dev), b, s,
+            _frontend(cfg, b, "cpu", SEED + 40 + i), family_lr(cfg)))
+    return out
+
+
+#: the bf16 full-width train runs beside smollm-360m's ``train_bf16``,
+#: with f32 AdamW state: (run, arch, overrides, B, S, profiled).  Widths
+#: are the published ones; depth (and vision's vocab) cut so weights,
+#: bf16 gradients and both AdamW states fit the card twice over while
+#: the functional update holds the old and the new state at once:
+#: mixtral 1 of 32 layers (1.7 B params; 2 layers would need about 88
+#: GB at the update), falcon-mamba 8 of 64, zamba2 four layers (two
+#: mamba2, two positions of the shared attn block), vision one attn and
+#: one cross layer with vocab 128256 cut to 32000 (3.8 B params uncut
+#: would need about 84 GB), seamless uncut
+TRAIN_RUNS = (
+    ("mixtral_train_bf16", "mixtral-8x7b",
+     dict(n_layers=1, block_pattern=("swa",)), 2, 2048, False),
+    ("mamba_train_bf16", "falcon-mamba-7b",
+     dict(n_layers=8, block_pattern=("mamba1",) * 8), 2, 2048, True),
+    ("zamba_train_bf16", "zamba2-7b",
+     dict(n_layers=len(ZAMBA_PARITY), block_pattern=ZAMBA_PARITY), 2, 2048,
+     False),
+    ("vision_train_bf16", VISION_ARCH,
+     dict(n_layers=2, block_pattern=("attn", "cross"), vocab_size=32000), 2,
+     512, True),
+    ("seamless_train_bf16", SEAMLESS, {}, 2, 512, False))
+#: steps of each of those runs
+TRAIN_RUN_STEPS = 4
+
+
+def train_run(dev, name, arch, overrides, b, s, steps, profiled,
+              lr=None) -> dict:
+    """``steps`` steps of ``arch`` at full width in its dtype (bf16), f32
+    AdamW state, at B ``b``, S ``s`` and learning rate ``lr`` (by default
+    ``family_lr``; warmup max(2, steps // 10)) through
+    ``launch/train.py``'s setup
+    (weights from a card Generator seeded 0, batches from
+    ``SyntheticLM(seed=0)``; a cross family's frontend seeded), one JSON
+    line a step (ce, grad norm, lr, wall ms, tokens/s, peak memory).
+    Gates: every ce finite, the last below the first; the launches and
+    bodies exactly as ``expected_train_launches`` says; no plain version
+    run.  ``profiled``: one more step under torch.profiler, with the
     device's busy ms (and idle share against the steady steps' median
-    wall time), the flash kernel's ms, the torch-op backward's
-    (``flash_attention_backward``), cuBLAS's and the top kernels."""
+    wall time), each port kernel's ms, the torch-op backwards' (the
+    flash form's, the cross form's), cuBLAS's and the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
+    from repro_torch.configs import get_config
     from repro_torch.launch.train import device_batch, setup
+    from repro_torch.training.tree import leaves
     t_call = time.perf_counter()
-    steps, b, s = TRAIN["steps"], TRAIN["batch"], TRAIN["seq"]
+    if lr is None:
+        lr = family_lr(dataclasses.replace(get_config(arch),
+                                           **(overrides or {})))
     cfg, model, params, opt, step, data = setup(
-        "smollm-360m", smoke=False, steps=steps, batch=b, seq=s,
-        lr=TRAIN["lr"], device=dev)
-    batches = [device_batch(data, i, dev) for i in range(steps + 1)]
+        arch, smoke=False, steps=steps, batch=b, seq=s, lr=lr, device=dev,
+        overrides=overrides)
+    train_bodies(cfg)
+    frontend = _frontend(cfg, b, dev, SEED + 50)
+    batches = []
+    for i in range(steps + 1):
+        batch = device_batch(data, i, dev)
+        if frontend is not None:
+            batch["frontend"] = frontend
+        batches.append(batch)
     torch.cuda.synchronize()
     rows = []
     _build.reset_launches()
@@ -4225,8 +4607,10 @@ def train_full(dev) -> dict:
             params, opt, m = step(params, opt, batches[i])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            rows.append({"phase": "train", "run": "train_bf16", "step": i,
+            rows.append({"phase": "train", "run": name, "step": i,
                          "ce": float(m["ce"]),
+                         "moe_aux_loss": float(m["moe_aux_loss"]),
+                         "moe_drop_frac": float(m["moe_drop_frac"]),
                          "grad_norm": float(m["grad_norm"]),
                          "lr": float(m["lr"]), "wall_ms": wall * 1e3,
                          "tok_per_s": b * s / wall,
@@ -4234,23 +4618,66 @@ def train_full(dev) -> dict:
                              torch.cuda.max_memory_allocated(dev)})
             emit(rows[-1])
     launches = dict(_build.launches)
-    bodies = {k: dict(_build.bodies[k]) for k in ("flash_attention",
-                                                  "rmsnorm")}
+    bodies = {k: dict(_build.bodies[k]) for k in (
+        "flash_attention", "paged_cross_attention", "rmsnorm",
+        "selective_scan")}
     expect, expect_bodies = expected_train_launches(cfg, steps)
     ces = [r["ce"] for r in rows]
     walls = sorted(r["wall_ms"] for r in rows[1:])
     wall_ref = walls[len(walls) // 2]
+    n_params = sum(p.numel() for p in leaves(params))
+    res = {"phase": "train", "run": name, "lr": lr,
+           "config": f"{cfg.name}, {cfg.n_layers} layers "
+                     f"{cfg.block_pattern if cfg.n_layers <= 4 else ''}, "
+                     f"{cfg.dtype}, vocab {cfg.vocab_size}, B {b}, S {s}, "
+                     f"f32 AdamW state",
+           "params": n_params, "steps": steps, "ce": ces,
+           "wall_ms_median": wall_ref,
+           "tok_per_s_median": b * s / (wall_ref / 1e3),
+           "max_memory_allocated": max(r["max_memory_allocated"]
+                                       for r in rows),
+           "launches": launches, "launches_expected": expect,
+           "bodies": bodies, "bodies_expected": expect_bodies,
+           "plain_calls": plain_calls}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batches[steps])
+            torch.cuda.synchronize()
+            wall_profiled = time.perf_counter() - t0
+        res["profile"] = train_profile(prof.key_averages(), wall_ref,
+                                       wall_profiled)
+    res["seconds"] = time.perf_counter() - t_call
+    emit(res)
+    del params, opt, step, model
+    if not (all(np.isfinite(ces)) and ces[-1] < ces[0]):
+        raise AssertionError(f"{name}: ce {ces}: not finite, or not "
+                             f"falling")
+    if launches != expect or bodies != expect_bodies:
+        raise AssertionError(f"{name}: launches {launches}, bodies "
+                             f"{bodies}; expected {expect}, "
+                             f"{expect_bodies}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{name}: plain versions ran on the card: "
+                             f"{plain_calls}")
+    return launches
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, batches[steps])
-        torch.cuda.synchronize()
-        wall_profiled = time.perf_counter() - t0
-    events = prof.key_averages()
+
+#: profiler labels of the torch-op backwards (record_function ranges:
+#: their device time is that of the kernels launched under them)
+TRAIN_BWD_LABELS = ("flash_attention_backward", "cross_attention_backward")
+
+
+def train_profile(events, wall_ref: float, wall_profiled: float) -> dict:
+    """A profiled train step: device busy ms and idle share (against the
+    steady steps' median wall ms), launches, each port kernel's ms, the
+    torch-op backwards' device ms by label, cuBLAS's ms, top kernels."""
+    import torch
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda
-               and e.key != "flash_attention_backward"]
+               and e.key not in TRAIN_BWD_LABELS
+               and e.key != "selective_scan_backward"]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
@@ -4258,63 +4685,58 @@ def train_full(dev) -> dict:
     def ms_of(pred):
         return sum(e.self_device_time_total for e in kernels
                    if pred(e.key)) / 1e3
-    bwd = [e for e in events if e.key == "flash_attention_backward"]
-    res = {"phase": "train", "run": "train_bf16",
-           "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.dtype}, "
-                     f"B {b}, S {s}, f32 AdamW state",
-           "steps": steps, "ce": ces, "wall_ms_median": wall_ref,
-           "tok_per_s_median": b * s / (wall_ref / 1e3),
-           "max_memory_allocated": max(r["max_memory_allocated"]
-                                       for r in rows),
-           "launches": launches, "launches_expected": expect,
-           "bodies": bodies, "bodies_expected": expect_bodies,
-           "plain_calls": plain_calls,
-           "profile": {
-               "wall_profiled_ms": wall_profiled * 1e3,
-               "device_busy_ms": busy_us / 1e3,
-               "device_idle_share": 1 - busy_us / 1e3 / wall_ref,
-               "device_launches": sum(e.count for e in kernels),
-               "flash_kernel_ms": ms_of(lambda k: "flash_wgmma_kernel" in k
-                                        or "flash_mma_kernel" in k
-                                        or "flash_core_kernel" in k),
-               "rmsnorm_kernel_ms": ms_of(lambda k: "add_norm_kernel" in k
-                                          or "rmsnorm" in k),
-               "flash_backward_ms": [e.device_time_total / 1e3
-                                     for e in bwd],
-               "flash_backward_note": "device time of the kernels launched "
-                                      "under the flash_attention_backward "
-                                      "label (torch ops), by event kind",
-               "cublas_ms": ms_of(lambda k: any(
-                   x in k.lower() for x in CUBLAS_KEYS)),
-               "top_kernels": [
-                   {"name": e.key[:70], "count": e.count,
-                    "ms": e.self_device_time_total / 1e3}
-                   for e in sorted(kernels,
-                                   key=lambda e: -e.self_device_time_total
-                                   )[:10]],
-               "port_kernels": _port_kernels(kernels)},
-           "seconds": time.perf_counter() - t_call}
-    emit(res)
-    if not (all(np.isfinite(ces)) and ces[-1] < ces[0]):
-        raise AssertionError(f"train: ce {ces}: not finite, or not falling")
-    if launches != expect or bodies != expect_bodies:
-        raise AssertionError(f"train: launches {launches}, bodies {bodies}; "
-                             f"expected {expect}, {expect_bodies}")
-    if any(plain_calls.values()):
-        raise AssertionError(f"train: plain versions ran on the card: "
-                             f"{plain_calls}")
-    return launches
+    return {
+        "wall_profiled_ms": wall_profiled * 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1 - busy_us / 1e3 / wall_ref,
+        "device_launches": sum(e.count for e in kernels),
+        "flash_kernel_ms": ms_of(lambda k: "flash_wgmma_kernel" in k
+                                 or "flash_mma_kernel" in k
+                                 or "flash_core_kernel" in k),
+        "cross_kernel_ms": ms_of(lambda k: "cross" in k and "kernel" in k),
+        "rmsnorm_kernel_ms": ms_of(lambda k: "add_norm_kernel" in k
+                                   or "rmsnorm" in k),
+        "scan_forward_ms": ms_of(lambda k: "scan_lanes_kernel" in k),
+        "scan_backward_ms": ms_of(lambda k: "scan_backward" in k),
+        "torch_op_backward_ms": {
+            label: [e.device_time_total / 1e3 for e in events
+                    if e.key == label] for label in TRAIN_BWD_LABELS},
+        "torch_op_backward_note": "device time of the kernels launched "
+                                  "under each label (torch ops), by "
+                                  "event kind",
+        "cublas_ms": ms_of(lambda k: any(x in k.lower()
+                                         for x in CUBLAS_KEYS)),
+        "top_kernels": [{"name": e.key[:70], "count": e.count,
+                         "ms": e.self_device_time_total / 1e3}
+                        for e in sorted(kernels, key=lambda e:
+                                        -e.self_device_time_total)[:10]],
+        "port_kernels": _port_kernels(kernels)}
+
+
+def train_full(dev) -> dict:
+    """smollm-360m at full width and depth (32 layers) in bf16, f32 AdamW
+    state: ``TRAIN["steps"]`` steps at B 8, S 4096 through
+    ``train_run``, profiled (every flash launch on ``wgmma``)."""
+    return train_run(dev, "train_bf16", "smollm-360m", None, TRAIN["batch"],
+                     TRAIN["seq"], TRAIN["steps"], True, lr=TRAIN["lr"])
 
 
 def train(dev) -> dict:
-    """The train phase: ``train_parity``, then ``train_full``.  Returns
-    the full run's launch counts, under ``train_bf16``."""
+    """The train phase: ``train_parity`` (smollm-360m and every family),
+    then ``train_full`` and the ``TRAIN_RUNS``.  Returns each full run's
+    launch counts by run name."""
     import gc
     import torch
     train_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"train_bf16": train_full(dev)}
+    out = {"train_bf16": train_full(dev)}
+    for name, arch, over, b, s, profiled in TRAIN_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = train_run(dev, name, arch, over, b, s, TRAIN_RUN_STEPS,
+                              profiled)
+    return out
 
 
 #: the planning phase: (strategy, horizon) pairs both engines run (the
@@ -4510,7 +4932,9 @@ def kernel_line(cases, launches_by_run) -> dict:
             "quant_matmul_int8": lambda c: c["shape"] == [8, 960, 2560],
             "quant_matmul_int4": lambda c: c["shape"] == [8, 960, 2560],
             "selective_scan": lambda c: c["shape"]["T"] == 1,
-            "flash_attention": lambda c: c["shape"]["label"] == "train"}
+            "flash_attention": lambda c: c["shape"]["label"] == "train",
+            "selective_scan_backward": lambda c: (c["shape"]["model"]
+                                                  == "falcon-mamba-7b")}
     out = []
     for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]

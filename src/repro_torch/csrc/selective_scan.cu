@@ -44,6 +44,42 @@
 //   warp's state loads lie 64 bytes apart, and a one-row prefill chunk is
 //   64 blocks of 128 threads on 132 SMs.
 //
+// Checkpoints (training: kernels/selective_scan.py::SelectiveScanFn).
+// With a non-null ck, the state_lanes body also writes the state before
+// every kCkptSteps = 32 steps, at the start of each staged tile (and
+// before a decode step's one step), to ck (B, ceil(T / 32), DI, DS):
+// one store of the lane's registers outside the step loop.  Serving
+// passes null and launches the code it launched before.
+//
+// The backward (rt_selective_scan_backward; no TPU kernel: the reference
+// differentiates its lax.scan with jax.grad).  For each (row b, channel
+// d, state s), with a_t = exp(dt_t * A), the state gradient runs in
+// reverse, g_t = C_t * dy_t + a_{t+1} * g_{t+1} from g = dh_T, and
+//   dx_t   = dt_t * sum_s g_t * B_t
+//   ddt_t  = sum_s g_t * (h_{t-1} * a_t * A + x_t * B_t)
+//   dB_t   = sum_d g_t * dt_t * x_t,   dC_t = sum_d h_t * dy_t
+//   dA     = sum_{b,t} g_t * h_{t-1} * a_t * dt_t,   dh0 = a_0 * g_0.
+// It keeps the forward's lane layout with 4 states a lane (G = 1 to 16
+// lanes a channel, 128 threads a block, a block 128 / G channels of one
+// row) and walks the checkpoints' chunks of 32 steps in reverse: each
+// chunk's states are recomputed from its checkpoint (the forward's
+// operations, so the forward's bits) into shared memory (128 threads x
+// 32 steps x 4 states x 4 B = 64 KB), then the chunk is stepped back
+// through.  The gradient algebra runs in double on the forward's float
+// states and decays (each gradient sums terms that cancel: d(dt) sixteen
+// to 64 states of g * (h * a * A + x * B), dB and dC thousands of
+// channels, dA thousands of steps; two float sums of them in different
+// orders differ by several 1e-5 of the result), and each gradient is
+// rounded to float once.  dx and ddt are summed over the G lanes of a
+// channel by shuffles; dB and dC over the channels of a warp by shuffles,
+// then over the block's 4 warps in shared memory, one partial a block
+// and step; dA stays in registers over t, one partial a row.  A second
+// kernel sums the partials in a fixed order (blocks, then rows): no
+// atomics, so the same inputs give the same bits.  Bound: instruction issue (the
+// forward's update is recomputed, and the backward's takes about twice
+// its operations, with warp shuffles for every state and step); the
+// partials of dB and dC are most of its bytes.
+//
 // The h update rounds each product and the sum separately (__fmul_rn,
 // __fadd_rn, no fused multiply-add), as the plain PyTorch version and the
 // reference do, and exp is the accurate expf, not __expf: the card's f32
@@ -282,7 +318,8 @@ __global__ void __launch_bounds__(kLanesThreads)
 scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                   const float* __restrict__ cm, const float* __restrict__ x,
                   const float* __restrict__ a_neg, const float* h0,
-                  float* __restrict__ y, float* h_out, int T, int DI, int DS,
+                  float* __restrict__ y, float* h_out,
+                  float* __restrict__ ck, int T, int DI, int DS,
                   long long bc_sb, long long bc_st, bool vec) {
   constexpr int kChannels = kLanesThreads / G;
   const int b = blockIdx.y;
@@ -302,8 +339,16 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const float* bb = bm + b * bc_sb;
   const float* cb = cm + b * bc_sb;
   const long long row0 = static_cast<long long>(b) * T;
+  const int n_ck = (T + kLanesTileT - 1) / kLanesTileT;
+  // the state before step t0 (a multiple of 32) into checkpoint t0 / 32
+  auto checkpoint = [&](int t0) {
+    store_lane<S>(ck + ((static_cast<long long>(b) * n_ck + t0 / kLanesTileT)
+                        * DI + d) * DS + s0,
+                  h, n, vec && n == S);
+  };
 
   if constexpr (kOneStep) {
+    if (ck != nullptr) checkpoint(0);
     // a decode step: no staging, no barrier; y by a shuffle tree
     float bv[S], cv[S];
 #pragma unroll
@@ -371,6 +416,7 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
       }
       __syncthreads();
       if (t0 + kLanesTileT < T) fetch(t0 + kLanesTileT);
+      if (ck != nullptr) checkpoint(t0);
       if (nt == kLanesTileT)
         tile_steps<G, S, kW, true>(h, a, nt, c, s0, sb, sc, sdt, sx, sp);
       else
@@ -396,15 +442,16 @@ scan_lanes_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
 template <int G, int S>
 cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
                          const void* x, const void* a_neg, const void* h0,
-                         void* y, void* h_out, int B, int T, int DI, int DS,
-                         long long bc_sb, long long bc_st,
+                         void* y, void* h_out, void* ck, int B, int T, int DI,
+                         int DS, long long bc_sb, long long bc_st,
                          cudaStream_t stream) {
   constexpr int kChannels = kLanesThreads / G;
   // whole rows of G * S states and vector-aligned bases: vector loads
-  // (16 bytes for S a multiple of 4, 8 for S 2)
+  // (16 bytes for S a multiple of 4, 8 for S 2); a null ck adds no bits
   const size_t bits = reinterpret_cast<size_t>(h0) |
                       reinterpret_cast<size_t>(h_out) |
-                      reinterpret_cast<size_t>(a_neg);
+                      reinterpret_cast<size_t>(a_neg) |
+                      reinterpret_cast<size_t>(ck);
   const bool vec = (S == 2 || S % 4 == 0) && DS == G * S &&
                    (bits & (S == 2 ? 7 : 15)) == 0;
   const dim3 grid((DI + kChannels - 1) / kChannels, B);
@@ -414,8 +461,252 @@ cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
       static_cast<const float*>(dt), static_cast<const float*>(bm),
       static_cast<const float*>(cm), static_cast<const float*>(x),
       static_cast<const float*>(a_neg), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(h_out), T, DI, DS, bc_sb,
-      bc_st, vec);
+      static_cast<float*>(y), static_cast<float*>(h_out),
+      static_cast<float*>(ck), T, DI, DS, bc_sb, bc_st, vec);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 128;   // a block: 128 / G channels of one row
+constexpr int kBwdS = 4;           // states a lane
+constexpr int kCkptSteps = kLanesTileT;   // steps between two checkpoints
+constexpr int kBwdWarps = kBwdThreads / 32;
+
+// dynamic shared memory of the backward kernel at G lanes a channel: the
+// chunk's states, and the warps' sums of dB and dC for each step
+template <int G>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * static_cast<size_t>(kCkptSteps) * kBwdS * kBwdThreads +
+         sizeof(double) * 2 * kCkptSteps * kBwdWarps * G * kBwdS;
+}
+
+// Grid (nblk = ceil(DI / (128 / G)), B); thread = channel * G + lane, the
+// lane holding states [lane * 4, lane * 4 + 4).  Lanes past DI or DS hold
+// zeros and take part in every shuffle.
+template <int G>
+__global__ void __launch_bounds__(kBwdThreads)
+scan_backward_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
+                     const float* __restrict__ cm, const float* __restrict__ x,
+                     const float* __restrict__ a_neg,
+                     const float* __restrict__ ck,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ dh_t,
+                     float* __restrict__ ddt, float* __restrict__ dx,
+                     float* __restrict__ dh0, double* __restrict__ part_b,
+                     double* __restrict__ part_c, double* __restrict__ part_a,
+                     int T, int DI, int DS, long long bc_sb, long long bc_st) {
+  constexpr int S = kBwdS, W = G * kBwdS, kChannels = kBwdThreads / G;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sh = reinterpret_cast<float*>(smem_raw);     // [32][S][128]
+  double* sdb = reinterpret_cast<double*>(            // [32][warps][W]
+      sh + kCkptSteps * S * kBwdThreads);
+  double* sdc = sdb + kCkptSteps * kBwdWarps * W;
+  const int b = blockIdx.y;
+  const int c = threadIdx.x / G;
+  const int lane = threadIdx.x - c * G;
+  const int d = blockIdx.x * kChannels + c;
+  const bool live = d < DI;
+  const int s0 = lane * S;
+  const int n = live ? max(0, min(S, DS - s0)) : 0;
+  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
+  const long long hrow = (static_cast<long long>(b) * DI + d) * DS + s0;
+
+  float a[S];
+  double gn[S], da[S];   // the state gradient and dA, carried over t
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    a[j] = j < n ? a_neg[static_cast<long long>(d) * DS + s0 + j] : 0.f;
+    gn[j] = (j < n && dh_t != nullptr) ? dh_t[hrow + j] : 0.0;
+    da[j] = 0.0;
+  }
+  const float* bb = bm + b * bc_sb;
+  const float* cb = cm + b * bc_sb;
+  const long long row0 = static_cast<long long>(b) * T;
+  const int n_ck = (T + kCkptSteps - 1) / kCkptSteps;
+
+  for (int ci = n_ck - 1; ci >= 0; --ci) {
+    const int t0 = ci * kCkptSteps;
+    const int nt = min(kCkptSteps, T - t0);
+    float hc[S], h[S];
+    const long long crow =
+        ((static_cast<long long>(b) * n_ck + ci) * DI + d) * DS + s0;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      hc[j] = j < n ? ck[crow + j] : 0.f;
+      h[j] = hc[j];
+    }
+    // the chunk's states, as the forward computes them
+    for (int tt = 0; tt < nt; ++tt) {
+      const long long off = (row0 + t0 + tt) * DI + d;
+      const float dt_t = live ? dt[off] : 0.f;
+      const float dxv = __fmul_rn(dt_t, live ? x[off] : 0.f);
+      const float* brow = bb + (t0 + tt) * bc_st + s0;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const float bv = j < n ? brow[j] : 0.f;
+        const float decay = expf(__fmul_rn(dt_t, a[j]));
+        h[j] = __fadd_rn(__fmul_rn(decay, h[j]), __fmul_rn(dxv, bv));
+        sh[(tt * S + j) * kBwdThreads + threadIdx.x] = h[j];
+      }
+    }
+    // back through the chunk, the gradient algebra in double on the
+    // forward's float states and decays
+    for (int tt = nt - 1; tt >= 0; --tt) {
+      const long long off = (row0 + t0 + tt) * DI + d;
+      const float dt_t = live ? dt[off] : 0.f;
+      const double dtv = dt_t;
+      const double xv = live ? x[off] : 0.f;
+      const double dyv = live ? dy[off] : 0.f;
+      const double dtx = dtv * xv;
+      const float* brow = bb + (t0 + tt) * bc_st + s0;
+      const float* crow_c = cb + (t0 + tt) * bc_st + s0;
+      double sgb = 0.0, sdt = 0.0, pb[S], pc[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const double bv = j < n ? brow[j] : 0.f;
+        const double cv = j < n ? crow_c[j] : 0.f;
+        const double hcur = sh[(tt * S + j) * kBwdThreads + threadIdx.x];
+        const double hprev =
+            tt > 0 ? sh[((tt - 1) * S + j) * kBwdThreads + threadIdx.x]
+                   : hc[j];
+        const double decay = expf(__fmul_rn(dt_t, a[j]));
+        const double g = cv * dyv + gn[j];
+        const double hda = hprev * decay;
+        sgb += g * bv;
+        sdt += g * (hda * a[j] + xv * bv);
+        pb[j] = g * dtx;
+        pc[j] = hcur * dyv;
+        da[j] += g * hda * dtv;
+        gn[j] = decay * g;
+      }
+      // over the G lanes of the channel
+#pragma unroll
+      for (int o = G / 2; o > 0; o >>= 1) {
+        sgb += __shfl_xor_sync(0xffffffffu, sgb, o);
+        sdt += __shfl_xor_sync(0xffffffffu, sdt, o);
+      }
+      if (live && lane == 0) {
+        dx[off] = static_cast<float>(dtv * sgb);
+        ddt[off] = static_cast<float>(sdt);
+      }
+      // over the channels of the warp: lanes 0..G-1 hold the warp's sums
+#pragma unroll
+      for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          pb[j] += __shfl_xor_sync(0xffffffffu, pb[j], o);
+          pc[j] += __shfl_xor_sync(0xffffffffu, pc[j], o);
+        }
+      }
+      if (wl < G) {
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          sdb[(tt * kBwdWarps + warp) * W + s0 + j] = pb[j];
+          sdc[(tt * kBwdWarps + warp) * W + s0 + j] = pc[j];
+        }
+      }
+    }
+    __syncthreads();
+    // the block's partial of each step's dB and dC: the warps in order
+    for (int i = threadIdx.x; i < nt * W; i += kBwdThreads) {
+      const int tt = i / W, s = i - tt * W;
+      if (s >= DS) continue;
+      double vb = 0.0, vc = 0.0;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) {
+        vb += sdb[(tt * kBwdWarps + w) * W + s];
+        vc += sdc[(tt * kBwdWarps + w) * W + s];
+      }
+      const long long o =
+          ((static_cast<long long>(b) * gridDim.x + blockIdx.x) * T + t0 + tt)
+              * DS + s;
+      part_b[o] = vb;
+      part_c[o] = vc;
+    }
+    __syncthreads();   // sh, sdb and sdc are free for the next chunk
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (j < n) {
+      dh0[hrow + j] = static_cast<float>(gn[j]);
+      part_a[hrow + j] = da[j];
+    }
+  }
+}
+
+// dB, dC (B, T, DS): the row's block partials summed in block order; dA
+// (DI, DS): the row partials summed in row order, in double, each rounded
+// to float once.
+__global__ void scan_backward_sum(const double* __restrict__ part_b,
+                                  const double* __restrict__ part_c,
+                                  const double* __restrict__ part_a,
+                                  float* __restrict__ db,
+                                  float* __restrict__ dc,
+                                  float* __restrict__ da, int B, int T,
+                                  int DI, int DS, int nblk) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const long long row = static_cast<long long>(T) * DS;
+  const long long n_bc = B * row;
+  if (i < n_bc) {
+    const long long b = i / row, r = i - b * row;
+    double vb = 0.0, vc = 0.0;
+    for (int k = 0; k < nblk; ++k) {
+      const long long o = (b * nblk + k) * row + r;
+      vb += part_b[o];
+      vc += part_c[o];
+    }
+    db[i] = static_cast<float>(vb);
+    dc[i] = static_cast<float>(vc);
+  } else if (i < n_bc + static_cast<long long>(DI) * DS) {
+    const long long j = i - n_bc;
+    double v = 0.0;
+    for (int b = 0; b < B; ++b)
+      v += part_a[b * static_cast<long long>(DI) * DS + j];
+    da[j] = static_cast<float>(v);
+  }
+}
+
+template <int G>
+cudaError_t launch_backward(const void* dt, const void* bm, const void* cm,
+                            const void* x, const void* a_neg, const void* ck,
+                            const void* dy, const void* dh_t, void* ddt,
+                            void* db, void* dc, void* dx, void* da, void* dh0,
+                            void* part_b, void* part_c, void* part_a, int B,
+                            int T, int DI, int DS, long long bc_sb,
+                            long long bc_st, int nblk, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<G>();
+  static bool opted = false;   // above 48 KB only by opting in
+  if (!opted) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        scan_backward_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    opted = true;
+  }
+  if (nblk != (DI + kBwdThreads / G - 1) / (kBwdThreads / G))
+    return cudaErrorInvalidValue;
+  scan_backward_kernel<G><<<dim3(nblk, B), kBwdThreads, smem, stream>>>(
+      static_cast<const float*>(dt), static_cast<const float*>(bm),
+      static_cast<const float*>(cm), static_cast<const float*>(x),
+      static_cast<const float*>(a_neg), static_cast<const float*>(ck),
+      static_cast<const float*>(dy), static_cast<const float*>(dh_t),
+      static_cast<float*>(ddt), static_cast<float*>(dx),
+      static_cast<float*>(dh0), static_cast<double*>(part_b),
+      static_cast<double*>(part_c), static_cast<double*>(part_a), T, DI, DS,
+      bc_sb, bc_st);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long total = static_cast<long long>(B) * T * DS +
+                          static_cast<long long>(DI) * DS;
+  const int threads = 256;
+  scan_backward_sum<<<static_cast<unsigned>((total + threads - 1) / threads),
+                      threads, 0, stream>>>(
+      static_cast<const double*>(part_b), static_cast<const double*>(part_c),
+      static_cast<const double*>(part_a), static_cast<float*>(db),
+      static_cast<float*>(dc), static_cast<float*>(da), B, T, DI, DS, nblk);
   return cudaGetLastError();
 }
 
@@ -424,15 +715,16 @@ cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
 // dt, x, y: (B, T, DI) contiguous f32; B and C: (B, T, DS) f32 with unit
 // stride along DS and element strides bc_sb (batch) and bc_st (time), as a
 // column slice of x_proj's output has; a_neg: (DI, DS); h0, h_out:
-// (B, DI, DS), possibly the same buffer.  DS from 1 to 64.  body:
+// (B, DI, DS), possibly the same buffer; ck (state_lanes only): null, or
+// (B, ceil(T / 32), DI, DS) for the checkpoints.  DS from 1 to 64.  body:
 // rt::kBodyStateLanes with lanes G = 4, 8 or 16, or rt::kBodyCudaCore
 // (lanes unused; DS 1 to 16 and 64).
 extern "C" int rt_selective_scan(const void* dt, const void* bm,
                                  const void* cm, const void* x,
                                  const void* a_neg, const void* h0, void* y,
-                                 void* h_out, int B, int T, int DI, int DS,
-                                 long long bc_sb, long long bc_st, int body,
-                                 int lanes, void* stream) {
+                                 void* h_out, void* ck, int B, int T, int DI,
+                                 int DS, long long bc_sb, long long bc_st,
+                                 int body, int lanes, void* stream) {
   if (DS < 1 || DS > kMaxState) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || DI <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -443,8 +735,8 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
 #define RT_LANES_CASE(G, S)                                                  \
   if (lanes == G && per <= S)                                                \
     return static_cast<int>(launch_lanes<G, S>(dt, bm, cm, x, a_neg, h0, y,  \
-                                               h_out, B, T, DI, DS, bc_sb,   \
-                                               bc_st, s));
+                                               h_out, ck, B, T, DI, DS,      \
+                                               bc_sb, bc_st, s));
     RT_LANES_CASE(4, 1) RT_LANES_CASE(4, 2) RT_LANES_CASE(4, 3)
     RT_LANES_CASE(4, 4) RT_LANES_CASE(4, 8) RT_LANES_CASE(4, 16)
     RT_LANES_CASE(8, 1) RT_LANES_CASE(8, 2) RT_LANES_CASE(8, 4)
@@ -453,7 +745,8 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
 #undef RT_LANES_CASE
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (body != rt::kBodyCudaCore) return static_cast<int>(cudaErrorInvalidValue);
+  if (body != rt::kBodyCudaCore || ck != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define RT_SCAN_CASE(N)                                                      \
   case N:                                                                    \
     return static_cast<int>(launch<N>(dt, bm, cm, x, a_neg, h0, y, h_out, B, \
@@ -468,4 +761,31 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef RT_SCAN_CASE
+}
+
+// The scan's gradient.  dt, x, dy, ddt, dx: (B, T, DI) contiguous f32; B
+// and C as the forward takes them (bc_sb, bc_st); a_neg, da: (DI, DS);
+// ck: (B, ceil(T / 32), DI, DS), the forward's checkpoints; dh_t (null
+// for zero) and dh0: (B, DI, DS); db, dc: (B, T, DS) contiguous; part_b,
+// part_c: (B, nblk, T, DS) and part_a (B, DI, DS), double scratch.  lanes G =
+// 1, 2, 4, 8 or 16 with G * 4 >= DS (kernels/selective_scan.py::
+// bwd_lanes), nblk = ceil(DI / (128 / G)).
+extern "C" int rt_selective_scan_backward(
+    const void* dt, const void* bm, const void* cm, const void* x,
+    const void* a_neg, const void* ck, const void* dy, const void* dh_t,
+    void* ddt, void* db, void* dc, void* dx, void* da, void* dh0,
+    void* part_b, void* part_c, void* part_a, int B, int T, int DI, int DS,
+    long long bc_sb, long long bc_st, int lanes, int nblk, void* stream) {
+  if (DS < 1 || DS > lanes * kBwdS || DS > kMaxState)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || DI <= 0 || T <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RT_BWD_CASE(G)                                                        \
+  if (lanes == G)                                                             \
+    return static_cast<int>(launch_backward<G>(                               \
+        dt, bm, cm, x, a_neg, ck, dy, dh_t, ddt, db, dc, dx, da, dh0, part_b, \
+        part_c, part_a, B, T, DI, DS, bc_sb, bc_st, nblk, s));
+  RT_BWD_CASE(1) RT_BWD_CASE(2) RT_BWD_CASE(4) RT_BWD_CASE(8) RT_BWD_CASE(16)
+#undef RT_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -49,6 +49,7 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "dense_decode_attention": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
                             "selective_scan": 0,
+                            "selective_scan_backward": 0,
                             "empty": 0}   # launch_floor.py's yardstick
 
 #: kernel name -> body -> launches since the last reset, for the kernels
@@ -207,10 +208,16 @@ _SIGNATURES = {
     # x, q, s, out, M, K, N, group, dtype, body, splits, stream
     "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
-    # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, B, T, DI, DS, B/C batch
-    # and time strides, body, lanes, stream
-    "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _L, _L, _I, _I, _P),
+    # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, checkpoints (or null),
+    # B, T, DI, DS, B/C batch and time strides, body, lanes, stream
+    "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                          _I, _L, _L, _I, _I, _P),
+    # dt, b_mat, c_mat, x, a_neg, checkpoints, dy, dh_T (or null), d_dt,
+    # dB, dC, dx, dA, dh0, the dB / dC / dA partials, B, T, DI, DS, B/C
+    # batch and time strides, lanes, blocks a row, stream
+    "rt_selective_scan_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _L, _L, _I, _I, _P),
     # blocks, threads, stream
     "rt_empty": (_I, _I, _P),
     # cluster size, threads, dynamic shared memory, out (int*)

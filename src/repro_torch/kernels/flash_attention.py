@@ -798,3 +798,60 @@ class FlashAttentionFn(torch.autograd.Function):
                 q, k, v, out, lse, dout, causal=causal, window=window,
                 scale=scale)
         return dq, dk, dv, None, None, None, None
+
+
+def cross_attention_backward(q, k, v, dout, scale: Optional[float] = None):
+    """Gradients (dq, dk, dv) of the cross form over dense K/V in torch
+    ops, the algebra of :func:`flash_attention_backward` in blocks of
+    :data:`FLASH_Q_BLOCK` queries over every key (no mask), the row's
+    probabilities recomputed in f32: P = softmax(s Q K^T), dV = P^T dO,
+    dP = dO V^T, dS = P (dP - rowsum(P dP)), dQ = s dS K and dK = s dS^T
+    Q, dK and dV summed over the G heads of a group.  q, dout (B,C,H,hd);
+    k, v (B,S,KV,hd).  Each gradient in its input's dtype."""
+    b, c, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = d ** -0.5 if scale is None else scale
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, c, FLASH_Q_BLOCK):
+        q1 = min(q0 + FLASH_Q_BLOCK, c)
+        qb = q[:, q0:q1].float().reshape(b, q1 - q0, kv, g, d)
+        dob = dout[:, q0:q1].float().reshape(b, q1 - q0, kv, g, d)
+        p = torch.softmax(torch.einsum("bqngd,bsnd->bngqs", qb, kf) * scale,
+                          dim=-1)
+        dv += torch.einsum("bngqs,bqngd->bsnd", p, dob)
+        dp = torch.einsum("bqngd,bsnd->bngqs", dob, vf)
+        ds = p.mul_(dp.sub_((p * dp).sum(dim=-1, keepdim=True)))
+        dq[:, q0:q1] = torch.einsum("bngqs,bsnd->bqngd", ds, kf).reshape(
+            b, q1 - q0, h, d) * scale
+        dk += torch.einsum("bngqs,bqngd->bsnd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class CrossAttentionFn(torch.autograd.Function):
+    """The cross form over dense K/V with a gradient (train mode's cross
+    reads: ``models/attention.py::cross_attention``).  ``apply(q, k, v)``
+    with q (B,C,H,hd) and k, v (B,S,KV,hd) returns (B,C,H,hd): the
+    forward is :func:`paged_cross_attention` over identity tables (the
+    dense K/V as B blocks of S slots; the kernel on a CUDA tensor, the
+    plain version on a CPU one), and saves q, k and v; the backward is
+    :func:`cross_attention_backward` (torch ops, as the flash kernel's
+    is: the reference differentiates its jnp ``cross_attention``) under
+    the profiler label ``cross_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        tables = torch.arange(q.shape[0], dtype=torch.int32,
+                              device=q.device)[:, None]
+        out = paged_cross_attention(q, k, v, tables, k.shape[1])
+        ctx.save_for_backward(q, k, v)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("cross_attention_backward"):
+            return cross_attention_backward(q, k, v, dout)

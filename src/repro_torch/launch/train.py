@@ -13,13 +13,18 @@ Full scale, on one card (the default ``--device cuda``)::
 The reference's flags, and ``--device``; no mesh and no ``--multi-pod``
 (one device).  The weights are drawn from a ``torch.Generator`` seeded
 0 (other draws than ``jax.random``'s: bridge the reference's weights to
-run them), the batches come from ``SyntheticLM(seed=0)``, and the step
-line is the reference's: ce, gradient norm, tokens/s.
+run them), the batches come from ``SyntheticLM(seed=0)`` with the
+reference's frontend (zeros of (batch, n_image_tokens, d_model) for a
+vision config, of (batch, encoder_seq, d_model) for an
+encoder-decoder), and the step line is the reference's: ce, gradient
+norm, tokens/s.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -35,12 +40,15 @@ from repro_torch.training.tree import leaves
 
 
 def setup(arch: str, *, smoke: bool, steps: int, batch: int, seq: int,
-          lr: float, device="cuda"):
+          lr: float, device="cuda", overrides: Optional[dict] = None):
     """(cfg, model, params, opt_state, train_step, data) as :func:`main`
     builds them: the schedule warms up over ``max(2, steps // 10)`` steps
-    and decays to the last."""
+    and decays to the last.  ``overrides`` replaces config fields (a cut
+    of depth or vocab: ``n_layers`` with its ``block_pattern``)."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     step = make_train_step(model, base_lr=lr, warmup=max(2, steps // 10),
@@ -49,9 +57,18 @@ def setup(arch: str, *, smoke: bool, steps: int, batch: int, seq: int,
     return cfg, model, params, adamw_init(params), step, data
 
 
-def device_batch(data: SyntheticLM, i: int, device) -> dict:
-    return {k: torch.from_numpy(v).to(device)
-            for k, v in data.batch_at(i).items()}
+def device_batch(data: SyntheticLM, i: int, device, cfg=None) -> dict:
+    """Batch ``i`` on ``device``; with ``cfg``, and a cross or encoder
+    source in it, the reference trainer's frontend: zeros of (batch,
+    n_image_tokens, d_model) or (batch, encoder_seq, d_model)."""
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(i).items()}
+    src = cfg and (cfg.encoder_seq if cfg.is_encoder_decoder
+                   else cfg.n_image_tokens)
+    if src:
+        batch["frontend"] = torch.zeros((data.batch, src, cfg.d_model),
+                                        device=device)
+    return batch
 
 
 def main(argv=None):
@@ -79,7 +96,7 @@ def main(argv=None):
     t0 = time.time()
     for i in range(args.steps):
         params, opt, metrics = step(params, opt,
-                                    device_batch(data, i, model.device))
+                                    device_batch(data, i, model.device, cfg))
         if i % args.log_every == 0 or i == args.steps - 1:
             toks = args.batch * args.seq * (i + 1)
             print(f"step {i:4d}  ce={float(metrics['ce']):.4f}  "

@@ -58,7 +58,10 @@ kernels at ``pos = src - 1`` for every row (all slots valid, the tail of
 the last block masked); a chunk, and ``Model.prefill``, with the flash
 kernel's cross form (``kernels/flash_attention.py::paged_cross_attention``,
 keys ``[0, src)``, no causal mask), a dense cache taken as B blocks of
-``src`` slots through identity tables.
+``src`` slots through identity tables; in train mode the same form
+through :class:`~repro_torch.kernels.flash_attention.CrossAttentionFn`,
+whose gradient (to the queries and to the projected source K/V) is torch
+ops.
 
 Invariants (``repro/models/kvcache.py``): stale KV is masked by
 position, and unallocated table entries point at the scratch block 0,
@@ -73,7 +76,8 @@ import torch
 
 from repro_torch.kernels.decode_attention import (dense_decode_attention,
                                                   paged_decode_attention)
-from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+from repro_torch.kernels.flash_attention import (CrossAttentionFn,
+                                                 FlashAttentionFn,
                                                  paged_chunk_attention,
                                                  paged_cross_attention,
                                                  paged_prefill_attention,
@@ -193,14 +197,15 @@ def paged_cross_view(cache: dict, paged: dict, src: int) -> dict:
             "tables": paged["cross_tables"], "len": src}
 
 
-def cross_attention(params, x, kv: dict, cfg,
-                    decode: bool = False) -> torch.Tensor:
+def cross_attention(params, x, kv: dict, cfg, decode: bool = False,
+                    train: bool = False) -> torch.Tensor:
     """x (B,T,D) attends to precomputed source K/V (the reference's
     ``cross_attention``): queries without rotary, no mask, every source
     slot.  ``kv`` is dense {"k","v"} (B, S, KV, hd) or a
     :func:`paged_cross_view`.  ``decode`` (T = 1, a decode step) reads
     them with the decode kernels at pos ``S - 1``; otherwise the flash
-    kernel's cross form runs (a dense ``kv`` as B blocks of S slots).
+    kernel's cross form runs (a dense ``kv`` as B blocks of S slots;
+    ``train``: through :class:`CrossAttentionFn`, dense ``kv`` only).
     Returns (B,T,D)."""
     q = _proj_q(params, x, cfg)                # no rotary across modalities
     b = x.shape[0]
@@ -212,6 +217,10 @@ def cross_attention(params, x, kv: dict, cfg,
         o = (dense_decode_attention(q[:, 0], k, v, pos) if tables is None
              else paged_decode_attention(q[:, 0], k, v, tables, pos))
         return _out(params, o[:, None], cfg)
+    if train:
+        if tables is not None:
+            raise ValueError("cross_attention: train mode reads dense K/V")
+        return _out(params, CrossAttentionFn.apply(q, k, v), cfg)
     if tables is None:
         tables = _identity_tables(b, x.device)
     return _out(params, paged_cross_attention(q, k, v, tables, n), cfg)

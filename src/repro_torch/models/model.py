@@ -97,19 +97,21 @@ class Model:
                     cfg.d_model, dtype=self.dtype, device=self.device)}}
         return params
 
-    def _encode(self, params, frontend):
+    def _encode(self, params, frontend, mode: str = "prefill"):
         """The bidirectional encoder over frame embeddings (B, S, D): a
         stack of ``n_encoder_layers`` attn blocks (rotary at 0 .. S - 1,
         non-causal: the flash kernel's contiguous form), then its final
-        norm."""
+        norm.  ``mode="train"`` runs each block under a checkpoint, as the
+        reference's ``_encode`` always does (its aux is dropped, as
+        there)."""
         enc = tfm.encoder_config(self.cfg)
         b, s, _ = frontend.shape
         positions = torch.arange(s, device=frontend.device).expand(b, s)
         stream = tfm.apply_segments(
             params["encoder"]["blocks"], frontend.to(self.dtype), cfg=enc,
-            mode="prefill", segs=tfm.build_segments(enc),
+            mode=mode, segs=tfm.build_segments(enc),
             positions=positions, qformat=self.qformat, causal=False)
-        return self._final_norm(params["encoder"], stream)
+        return self._final_norm(params["encoder"], stream[:2])
 
     def _final_norm(self, params, stream):
         """The final norm of the stream's (x, delta): the last block's
@@ -142,16 +144,17 @@ class Model:
         norm and, unless ``return_hidden``, the head over the padded
         vocab.
 
-        ``mode="train"``: each block under a checkpoint, no cache.
+        ``mode="train"``: each block under a checkpoint, no cache; aux
+        holds the MoE terms summed over the layers (zero without MoE).
         ``mode="prefill"``: ``caches`` (dense, :meth:`init_cache`) are
         seeded in place as the reference's prefill does: each attn
         layer's K/V of the prompt, each Mamba layer's state after it
         (from zero), and the cross K/V of the frontend (``cross`` layers)
         or of the encoder's output over it (an encoder-decoder's
         ``enc_xattn``), so that :meth:`decode_step` / :meth:`decode_steps`
-        go on from the prompt.  Returns (logits (B,S,V_pad) or hidden
-        (B,S,D), None in train mode or the caches, aux), aux the
-        reference's ``_empty_aux`` (zero MoE terms)."""
+        go on from the prompt (aux: zero MoE terms, the serving modes
+        discard them).  Returns (logits (B,S,V_pad) or hidden (B,S,D),
+        None in train mode or the caches, aux)."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"Model.forward(mode={mode!r}): the port's "
                              f"whole-sequence modes are 'train' and "
@@ -166,26 +169,22 @@ class Model:
         x = embed(params["embed"], tokens).to(self.dtype)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         frontend = batch.get("frontend")
+        enc_src = None
+        if cfg.is_encoder_decoder:
+            if frontend is None:
+                raise ValueError(f"{cfg.name}: the encoder needs "
+                                 f"batch['frontend']")
+            enc_src, frontend = self._encode(params, frontend, mode), None
+        stream = tfm.apply_segments(
+            params["blocks"], x, cfg=cfg, mode=mode, segs=self.segments,
+            positions=positions, caches=caches, qformat=self.qformat,
+            frontend=None if frontend is None else frontend.to(self.dtype),
+            enc_src=enc_src)
         if mode == "train":
-            stream = tfm.apply_segments(params["blocks"], x, cfg=cfg,
-                                        mode=mode, segs=self.segments,
-                                        positions=positions,
-                                        qformat=self.qformat)
+            aux, stream = stream[2], stream[:2]
         else:
-            enc_src = None
-            if cfg.is_encoder_decoder:
-                if frontend is None:
-                    raise ValueError(f"{cfg.name}: the encoder needs "
-                                     f"batch['frontend']")
-                enc_src, frontend = self._encode(params, frontend), None
-            stream = tfm.apply_segments(
-                params["blocks"], x, cfg=cfg, mode=mode, segs=self.segments,
-                positions=positions, caches=caches, qformat=self.qformat,
-                frontend=(None if frontend is None
-                          else frontend.to(self.dtype)),
-                enc_src=enc_src)
-        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        aux = {"moe_aux_loss": zero, "moe_drop_frac": zero}
+            zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            aux = {"moe_aux_loss": zero, "moe_drop_frac": zero}
         hidden = self._final_norm(params, stream)
         if not return_hidden:
             hidden = unembed(self._head_params(params), hidden)

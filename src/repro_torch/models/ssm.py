@@ -19,14 +19,20 @@ d_state)`` is the kernel's ``(B, d_inner, d_state)`` viewed by head.
 
 Where the reference returns new states, the port writes them **in
 place** into the caller's ``h`` and ``conv`` tensors (the model's cache
-rows) and returns those.
+rows) and returns those.  In train mode (``train=True``: a whole
+sequence from zero state, as the reference's train forward runs
+``mamba1_seq`` / ``mamba2_seq``) the scan runs through
+:class:`~repro_torch.kernels.selective_scan.SelectiveScanFn`, whose
+gradient is the backward kernel, on a fresh state that nothing writes in
+place (autograd refuses an in-place write of a saved tensor).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import (SelectiveScanFn,
+                                                selective_scan)
 from repro_torch.models.layers import _dense_init
 
 #: leaves the reference keeps in float32 whatever the model dtype
@@ -105,12 +111,13 @@ def _gate_out(params, y, x32, z, dtype, d_skip=None):
     return y @ params["out_proj"]
 
 
-def mamba1_seq(params, x, cfg, h0=None, conv_state=None):
+def mamba1_seq(params, x, cfg, h0=None, conv_state=None, train=False):
     """A chunk. x: (B,T,D) -> (out, (h_T, conv_state_T)).
 
     ``h0`` (B,di,ds) f32 and ``conv_state`` (B,W-1,di) resume the
     recurrence from a previous chunk and are updated in place; None
-    means start-of-sequence zeros (fresh tensors are then returned)."""
+    means start-of-sequence zeros (fresh tensors are then returned).
+    ``train``: from zero state, through :class:`SelectiveScanFn`."""
     b = x.shape[0]
     di, ds = cfg.d_inner_eff, cfg.ssm_state
     xz = x @ params["in_proj"]
@@ -122,7 +129,10 @@ def mamba1_seq(params, x, cfg, h0=None, conv_state=None):
     x32 = x_c.to(torch.float32)
     if h0 is None:
         h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    y, h_t = selective_scan(dt, b_mat, c_mat, x32, a_neg, h0, h_out=h0)
+    if train:
+        y, h_t = SelectiveScanFn.apply(dt, b_mat, c_mat, x32, a_neg, h0)
+    else:
+        y, h_t = selective_scan(dt, b_mat, c_mat, x32, a_neg, h0, h_out=h0)
     out = _gate_out(params, y, x32, z, x.dtype)
     return out, (h_t, _next_conv_state(x_i, conv_state, cfg))
 
@@ -196,29 +206,37 @@ def _mamba2_inner(params, x, cfg):
     return dt, bc[..., :ds], bc[..., ds:]
 
 
-def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg):
+def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg, train=False):
     """The Mamba2 recurrence through the selective-scan kernel: dt
     (B,T,nh) repeated over each head's channels, ``-exp(A_log)`` over
     the channels and d_state, and the state ``h`` (B,nh,headdim,ds)
-    viewed as (B,di,ds) and updated in place.  Returns (y (B,T,di) f32,
-    D expanded over the channels)."""
+    viewed as (B,di,ds) and updated in place (``train``: read, not
+    written, through :class:`SelectiveScanFn`, whose gradients of the
+    expanded dt and A autograd sums back over each head's channels).
+    Returns (y (B,T,di) f32, D expanded over the channels, h_T)."""
     hd, ds = cfg.mamba2_headdim, cfg.ssm_state
     bsz, _, nh = dt.shape
     di = nh * hd
     a_neg = -torch.exp(params["A_log"])
     a_c = a_neg.repeat_interleave(hd)[:, None].expand(di, ds).contiguous()
     h3 = h.view(bsz, di, ds)
-    y, _ = selective_scan(dt.repeat_interleave(hd, dim=-1), b_mat, c_mat,
-                          x32, a_c, h3, h_out=h3)
-    return y, params["D"].repeat_interleave(hd)
+    dt_c = dt.repeat_interleave(hd, dim=-1)
+    if train:
+        y, h_t = SelectiveScanFn.apply(dt_c, b_mat, c_mat, x32, a_c, h3)
+        h_t = h_t.view(h.shape)
+    else:
+        y, _ = selective_scan(dt_c, b_mat, c_mat, x32, a_c, h3, h_out=h3)
+        h_t = h
+    return y, params["D"].repeat_interleave(hd), h_t
 
 
-def mamba2_seq(params, x, cfg, h0=None, conv_state=None):
+def mamba2_seq(params, x, cfg, h0=None, conv_state=None, train=False):
     """A chunk. x: (B,T,D) -> (out, (h_T, conv_state_T)).
 
     ``h0`` (B,nh,headdim,ds) f32 and ``conv_state`` (B,W-1,di) resume
     the recurrence and are updated in place, as in :func:`mamba1_seq`;
-    None means start-of-sequence zeros (fresh tensors are returned)."""
+    None means start-of-sequence zeros (fresh tensors are returned).
+    ``train``: from zero state, through :class:`SelectiveScanFn`."""
     b = x.shape[0]
     di, ds, hd = cfg.d_inner_eff, cfg.ssm_state, cfg.mamba2_headdim
     xz = x @ params["in_proj"]
@@ -230,9 +248,10 @@ def mamba2_seq(params, x, cfg, h0=None, conv_state=None):
     if h0 is None:
         h0 = torch.zeros((b, di // hd, hd, ds), dtype=torch.float32,
                          device=x.device)
-    y, d_skip = _mamba2_scan(params, dt, b_mat, c_mat, x32, h0, cfg)
+    y, d_skip, h_t = _mamba2_scan(params, dt, b_mat, c_mat, x32, h0, cfg,
+                                  train)
     out = _gate_out(params, y, x32, z, x.dtype, d_skip)
-    return out, (h0, _next_conv_state(x_i, conv_state, cfg))
+    return out, (h_t, _next_conv_state(x_i, conv_state, cfg))
 
 
 def mamba2_step(params, x, state, cfg):
@@ -248,6 +267,6 @@ def mamba2_step(params, x, state, cfg):
     x_c = F.silu(x_c)[:, None, :]                          # (B, 1, di)
     dt, b_mat, c_mat = _mamba2_inner(params, x, cfg)
     x32 = x_c.to(torch.float32)
-    y, d_skip = _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg)
+    y, d_skip, _ = _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg)
     out = _gate_out(params, y, x32, z[:, None, :], x.dtype, d_skip)
     return out, (h, conv_state)

@@ -11,7 +11,7 @@ dense caches).  A decoder block of an encoder-decoder model
 after its self-attention.  The MLP after
 an attention block is SwiGLU (``mlp_kind="dense"``) or the
 capacity-routed mixture of experts of ``models/moe.py``
-(``mlp_kind="moe"``, serving modes only).  A model is a
+(``mlp_kind="moe"``).  A model is a
 ``block_pattern``; contiguous runs of one kind are *segments*, whose
 parameters are stacked along a leading layer dim as in the reference.
 Where the reference scans a segment with ``lax.scan``, the port runs a
@@ -26,11 +26,14 @@ all of them run the one parameter set ``blocks["shared"]`` (a leading
 layer dim of 1, as every port segment has), drawn once; its entry in
 ``blocks["segments"]`` is None, as in the reference.
 
-In ``train`` mode (``attn`` and ``swa`` blocks over a whole sequence, no
-cache) each block runs under ``torch.utils.checkpoint`` (non-reentrant),
-the counterpart of the reference's ``jax.checkpoint``: its activations
-are recomputed in the backward pass, the flash and RMSNorm kernels
-launched again.
+In ``train`` mode (every block kind over a whole sequence, no cache)
+each block runs under ``torch.utils.checkpoint`` (non-reentrant), the
+counterpart of the reference's ``jax.checkpoint``: its activations are
+recomputed in the backward pass, its kernels launched again (the flash
+and RMSNorm kernels, the cross form, the selective scan with its
+checkpoints).  A train-mode block also returns its MoE aux terms (the
+reference's per-block ``aux``), which :func:`apply_segments` sums over
+layers and segments; the serving modes discard them.
 """
 from __future__ import annotations
 
@@ -84,26 +87,14 @@ def _has_mlp(kind: str, cfg) -> bool:
 
 
 def check_supported(cfg, mode: Optional[str] = None) -> None:
-    """Raise for configurations whose blocks the port cannot run yet (in
-    ``mode``, where given)."""
-    if mode == "train" and any(k in MAMBA_KINDS for k in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training of Mamba blocks is not ported yet "
-            f"(ROADMAP Queue 1 item 5: the selective scan's gradient)")
+    """Raise for configurations whose blocks the port cannot run (in
+    ``mode``, where given: every block kind of :data:`KINDS` runs in
+    every mode of :data:`MODES`)."""
     for seg in build_segments(cfg):
         if seg.kind not in KINDS:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {seg.kind!r} is not ported yet; "
                 f"the port runs {KINDS} blocks")
-    if mode == "train" and cfg.mlp_kind == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training is not ported yet (ROADMAP Queue 1 "
-            f"item 5: the MoE aux loss in Model.forward)")
-    if mode == "train" and ("cross" in cfg.block_pattern
-                            or cfg.is_encoder_decoder):
-        raise NotImplementedError(
-            f"{cfg.name}: training of cross-attention and encoder-decoder "
-            f"models is not ported yet (ROADMAP Queue 1 item 5)")
 
 
 def segment_slices(cfg, lo: int, hi: int):
@@ -272,7 +263,8 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
     kernel launch (an encoder-decoder's self-attention output into
     ``ln_x``, its cross-attention output into ``ln2``).  The block's own
     output is not added here; it is returned as the next pending delta.
-    Returns (x, delta)."""
+    Returns (x, delta); in train mode (x, delta, aux), aux the MoE
+    layer's ``{"moe_aux_loss", "moe_drop_frac"}`` or None without one."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not ported yet; "
                          f"ported: {MODES}")
@@ -280,17 +272,20 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
         h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     else:
         x, h = add_rmsnorm(params["ln1"], x, delta, cfg.norm_eps)
+    train = mode == "train"
     if kind == "cross":
         xkv = _cross_kv(params["xattn"], cache, paged, frontend, mode=mode,
                         src=cfg.n_image_tokens or cfg.encoder_seq, cfg=cfg)
         a = attn_mod.cross_attention(params["xattn"], h, xkv, cfg,
-                                     decode=mode == "decode")
+                                     decode=mode == "decode", train=train)
     elif kind in MAMBA_KINDS:
         step, seq = ((ssm_mod.mamba1_step, ssm_mod.mamba1_seq)
                      if kind == "mamba1"
                      else (ssm_mod.mamba2_step, ssm_mod.mamba2_seq))
         if mode == "decode":
             a, _ = step(params["mamba"], h, (cache["h"], cache["conv"]), cfg)
+        elif train:                    # from zero state, no cache
+            a, _ = seq(params["mamba"], h, cfg, train=True)
         else:
             if mode == "prefill":      # a whole prompt starts from zero
                 cache["h"].zero_()
@@ -320,15 +315,17 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
         xkv = _cross_kv(params["enc_xattn"], cache, paged, enc_src,
                         mode=mode, src=cfg.encoder_seq, cfg=cfg)
         a = attn_mod.cross_attention(params["enc_xattn"], hx, xkv, cfg,
-                                     decode=mode == "decode")
-    if not _has_mlp(kind, cfg):
-        return x, a
-    x, h2 = add_rmsnorm(params["ln2"], x, a, cfg.norm_eps)
-    if "moe" in params:
-        # the serving engines read no aux: the expert output is the
-        # pending delta, as the dense MLP's is
-        return x, moe_mod.moe_apply(params["moe"], h2, cfg)[0]
-    return x, mlp(params["mlp"], h2)
+                                     decode=mode == "decode", train=train)
+    aux = None
+    if _has_mlp(kind, cfg):
+        x, h2 = add_rmsnorm(params["ln2"], x, a, cfg.norm_eps)
+        if "moe" in params:
+            # the expert output is the pending delta, as the dense MLP's
+            # is; the serving modes read no aux
+            a, aux = moe_mod.moe_apply(params["moe"], h2, cfg)
+        else:
+            a = mlp(params["mlp"], h2)
+    return (x, a, aux) if train else (x, a)
 
 
 def _layer(tree, j):
@@ -366,7 +363,10 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
     (a pipeline stage's input pair; None at the model's first block).
     Returns (x, delta): the residual stream and the last block's output,
     not yet added to it (the caller fuses that add into the final norm,
-    or adds it, or hands the pair to the next stage).  In prefill mode
+    or adds it, or hands the pair to the next stage); in train mode (x,
+    delta, aux), aux the MoE terms summed over the layers of each
+    segment and then over the segments, as the reference sums them (zero
+    without MoE layers).  In prefill mode
     each layer also seeds its slice of ``caches`` (None: nothing is
     kept, as for an encoder, whose stack runs non-causal with ``causal``
     False);
@@ -375,15 +375,24 @@ def apply_segments(blocks: dict, x, *, cfg, mode: str, segs, pos=None,
     seg_params = [blocks["shared"] if seg.shared else p
                   for seg, p in zip(segs, blocks["segments"])]
     if mode == "train":
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        total = {"moe_aux_loss": zero, "moe_drop_frac": zero}
         for seg, params in zip(segs, seg_params):
             block = functools.partial(block_apply, kind=seg.kind, cfg=cfg,
                                       mode=mode, positions=positions,
-                                      qformat=qformat)
+                                      qformat=qformat, frontend=frontend,
+                                      enc_src=enc_src, causal=causal)
+            seg_aux = None
             for layer in _unbind(params, seg.length):
-                x, delta = checkpoint(block, layer, x, delta,
-                                      use_reentrant=False,
-                                      preserve_rng_state=False)
-        return x, delta
+                x, delta, aux = checkpoint(block, layer, x, delta,
+                                           use_reentrant=False,
+                                           preserve_rng_state=False)
+                if aux is not None:
+                    seg_aux = aux if seg_aux is None else {
+                        k: seg_aux[k] + aux[k] for k in seg_aux}
+            if seg_aux is not None:
+                total = {k: total[k] + seg_aux[k] for k in total}
+        return x, delta, total
     whole = (dict(positions=positions, frontend=frontend, enc_src=enc_src,
                   causal=causal) if mode == "prefill" else {})
     for seg, params, cache in zip(segs, seg_params,

@@ -150,7 +150,8 @@ def test_configs_and_counters_match_the_reference(arch):
     """The full and smoke configs equal the reference's, and so do
     ``num_params``, the active count and the per-kind counters;
     ``decompose`` (its ``encoder`` stage for seamless) equals the
-    reference's; serving and prefill are supported, training refused."""
+    reference's; serving, prefill and training are supported (one train
+    forward of the smoke model runs with a frontend)."""
     full, jfull = get_config(arch), jget_config(arch)
     assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
     assert dataclasses.asdict(get_smoke_config(arch)) == dataclasses.asdict(
@@ -167,11 +168,15 @@ def test_configs_and_counters_match_the_reference(arch):
         assert [dataclasses.astuple(s) for s in got] == [
             dataclasses.astuple(s) for s in want]
         assert ("encoder" in [s.name for s in got]) == (arch == SEAMLESS)
-    for mode in (None, "decode", "chunk", "prefill"):
+    for mode in (None, "decode", "chunk", "prefill", "train"):
         ttfm.check_supported(full, mode)
-    with pytest.raises(NotImplementedError, match="cross-attention and "
-                                                  "encoder-decoder"):
-        ttfm.check_supported(full, "train")
+    smoke = get_smoke_config(arch)
+    model = Model(smoke, device="cpu")
+    logits, _, _ = model.forward(
+        model.init(torch.Generator().manual_seed(0)),
+        {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+         "frontend": torch.ones((1, _src(smoke), smoke.d_model))})
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.mark.parametrize("arch", CROSS_ARCHS)

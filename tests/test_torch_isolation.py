@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("torch_*.py"))
+    ROOT / "chip_smoke.py", ROOT / "examples" / "torch_quickstart.py"] + sorted(
+    (ROOT / "tools").glob("torch_*.py"))
 
 
 def _imported_modules(path):
@@ -101,24 +102,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_architectures_refuse():
-    """What the port does not run yet refuses: a cross-attention block
-    (beside an attn one) and an encoder-decoder serve and prefill but
-    refuse to train, and so do MoE MLPs and Mamba blocks."""
+    """Every family the port serves trains now: a cross-attention block
+    (beside an attn one), an encoder-decoder, the Mamba2 / shared-attn
+    hybrid and MoE MLPs pass ``check_supported(cfg, "train")`` and run
+    one train forward on the CPU (finite logits; the MoE terms live);
+    what the port does not run, an unknown block kind, still refuses."""
     import dataclasses
     from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as ttfm
     from repro_torch.models.model import Model
     smollm = get_smoke_config("smollm-360m")
-    for cfg in (dataclasses.replace(smollm, block_pattern=("attn", "cross")),
-                dataclasses.replace(smollm, is_encoder_decoder=True)):
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    frontend = torch.ones((1, 5, smollm.d_model))
+    for cfg, batch in (
+            (dataclasses.replace(smollm, block_pattern=("attn", "cross")),
+             {"tokens": tokens, "frontend": frontend}),
+            (dataclasses.replace(smollm, is_encoder_decoder=True,
+                                 n_encoder_layers=1),
+             {"tokens": tokens, "frontend": frontend}),
+            (get_smoke_config("zamba2-7b"), {"tokens": tokens}),
+            (dataclasses.replace(smollm, mlp_kind="moe", n_experts=4,
+                                 experts_per_token=2), {"tokens": tokens})):
+        ttfm.check_supported(cfg, "train")
         model = Model(cfg, device="cpu")
-        with pytest.raises(NotImplementedError,
-                           match="cross-attention and encoder-decoder"):
-            model.forward(None, {"tokens": torch.zeros((1, 4),
-                                                       dtype=torch.int32)})
-    zamba = Model(get_smoke_config("zamba2-7b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        zamba.forward(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
-    moe = Model(dataclasses.replace(smollm, mlp_kind="moe", n_experts=4,
-                                    experts_per_token=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        moe.forward(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        logits, _, aux = model.forward(
+            model.init(torch.Generator().manual_seed(0)), batch)
+        assert logits.shape == (1, 4, cfg.vocab_padded)
+        assert bool(torch.isfinite(logits).all())
+        assert (float(aux["moe_aux_loss"]) > 0) == (cfg.mlp_kind == "moe")
+    odd = dataclasses.replace(smollm)    # past the config's own check
+    object.__setattr__(odd, "block_pattern", ("attn", "rwkv"))
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        ttfm.check_supported(odd, "train")

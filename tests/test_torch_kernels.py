@@ -1703,6 +1703,84 @@ def test_cuda_selective_scan_state_lanes_h_equals_previous_body(
         assert torch.equal(y2, y) and torch.equal(h2, h)
 
 
+# the scan's backward kernel: smoke widths (d_state 16, 64 and a ragged 5;
+# T below, at and past a checkpoint's 32 steps; B / C column slices) and
+# full widths (falcon-mamba-7b's DI 8192, d_state 16; zamba2-7b's DI 7168,
+# d_state 64, A as Mamba2 expands it) over 256 steps
+SCAN_BWD_CARD_CASES = [(2, 48, 256, 16, True, False),
+                       (1, 32, 300, 64, True, False),
+                       (2, 20, 130, 5, False, False),
+                       (1, 70, 96, 8, False, True),
+                       (2, 256, 8192, 16, False, False),
+                       (2, 256, 7168, 64, True, True)]
+
+
+def _card_scan_grad_inputs(cuda_device, seed, b, t_, di, ds, strided,
+                           mamba2):
+    """Inputs in the model's range (dt a softplus around the init's
+    dt_bias of -2; A around Mamba1's -(1..d_state), or with ``mamba2``
+    one value a channel around Mamba2's init of -1, as ``_mamba2_scan``
+    expands it over d_state) and a cotangent of y and of h_T, on the
+    card.  (With Mamba1's A at d_state 64, d(dt) sums 64 terms of up to
+    |g h A| with A near -64 into a result that cancels, and two float32
+    sums of them differ by up to 5e-5 of it.)"""
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return rng.standard_normal(shape, dtype=np.float32)
+    dt = np.log1p(np.exp(f32(b, t_, di) - 2))
+    if mamba2:
+        a_neg = np.repeat(-np.exp(0.3 * f32(di, 1)), ds, axis=1)
+    else:
+        a_neg = -np.exp(np.log(np.arange(1, ds + 1, dtype=np.float32))
+                        + 0.3 * f32(di, ds))
+    dt, bm, cm, x, a_neg, dy, dh = (
+        t(a.astype(np.float32)).to(cuda_device)
+        for a in (dt, f32(b, t_, ds), f32(b, t_, ds), f32(b, t_, di), a_neg,
+                  f32(b, t_, di), f32(b, di, ds)))
+    if strided:
+        proj = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
+        bm, cm = proj[..., 3:3 + ds], proj[..., 3 + ds:]
+    return dt, bm, cm, x, a_neg, dy, dh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t_,di,ds,strided,mamba2", SCAN_BWD_CARD_CASES)
+def test_cuda_selective_scan_backward_matches_plain(cuda_device, b, t_, di,
+                                                    ds, strided, mamba2):
+    """The forward with checkpoints gives the bits of the forward without
+    (y and h_T) and the plain version's checkpoints within 2e-5 of max(1,
+    |plain|); the backward kernel, from those checkpoints, gives every
+    gradient within 2e-5 of max(1, |plain|) of
+    ``selective_scan_backward_plain`` on the card, one launch each, and
+    the same bits on a second launch (no float atomics)."""
+    from repro_torch.kernels.selective_scan import (
+        scan_checkpoints, selective_scan_backward,
+        selective_scan_backward_plain)
+    dt, bm, cm, x, a_neg, dy, dh = _card_scan_grad_inputs(
+        cuda_device, 21, b, t_, di, ds, strided, mamba2)
+    h0 = torch.zeros((b, di, ds), device=cuda_device)
+    ckpt = torch.empty((b, scan_checkpoints(t_), di, ds), device=cuda_device)
+    y0, h_0 = selective_scan(dt, bm, cm, x, a_neg, h0)
+    y1, h_1 = selective_scan(dt, bm, cm, x, a_neg, h0, checkpoints=ckpt)
+    assert torch.equal(y0, y1) and torch.equal(h_0, h_1)
+    want_ck = torch.empty_like(ckpt)
+    selective_scan_plain(dt, bm, cm, x, a_neg, h0, checkpoints=want_ck)
+    assert _rel_err(ckpt.cpu(), want_ck.cpu()) <= CARD_TOL["float32"]
+    want = selective_scan_backward_plain(dt, bm, cm, x, a_neg, want_ck, dy,
+                                         dh)
+    n0 = _build.launches["selective_scan_backward"]
+    got = selective_scan_backward(dt, bm, cm, x, a_neg, ckpt, dy, dh)
+    again = selective_scan_backward(dt, bm, cm, x, a_neg, ckpt, dy, dh)
+    torch.cuda.synchronize()
+    assert _build.launches["selective_scan_backward"] == n0 + 2
+    for name, g, w, g2 in zip(("dt", "B", "C", "x", "A", "h0"), got, want,
+                              again):
+        assert g.shape == w.shape, name
+        assert _rel_err(g.cpu(), w.cpu()) <= CARD_TOL["float32"], name
+        assert torch.equal(g, g2), name
+
+
 # gemma3-12b's shapes (C 128, H 16, KV 8, hd 256, w 1024) at pos 0, 512
 # (ring partly filled) and 3000 (wrapped), mixtral-8x7b's (H 32, KV 8,
 # hd 128, w 4096) wrapped, chunks longer than the ring (at hd 32, and at

@@ -121,7 +121,8 @@ def test_configs_and_counters_match_the_reference(J):
     """Both MoE configs equal the reference's, full and smoke; the
     counters equal its ``num_params`` / ``num_active_params`` (the
     published 46.7B and 1042B) and ``decompose`` sizes the same stages;
-    serving accepts MoE, training refuses it."""
+    serving and training accept MoE (one train forward runs, its MoE
+    terms live)."""
     for arch in ARCHS:
         full, jfull = get_config(arch), J.get_config(arch)
         assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
@@ -141,11 +142,13 @@ def test_configs_and_counters_match_the_reference(J):
             [dataclasses.astuple(s) for s in J.partition.decompose(jfull, 2)]
         ttfm.check_supported(full)
         ttfm.check_supported(full, "decode")
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            ttfm.check_supported(full, "train")
-        with pytest.raises(NotImplementedError, match="MoE training"):
-            Model(get_smoke_config(arch), device="cpu").forward(
-                None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        ttfm.check_supported(full, "train")
+        model = Model(get_smoke_config(arch), device="cpu")
+        logits, _, aux = model.forward(
+            model.init(torch.Generator().manual_seed(0)),
+            {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+        assert bool(torch.isfinite(logits).all())
+        assert float(aux["moe_aux_loss"]) > 0
 
 
 _MODELS = {}

@@ -362,11 +362,18 @@ def test_fused_residual_adds_keep_the_unfused_bits(monkeypatch, name, mode):
 
 
 def test_untied_head_and_refusals():
-    """The port's own init draws an untied head; a Mamba1 model beside
-    a cross-attention block or in an encoder-decoder builds but refuses
-    to train, and so does a Mamba1 model (and a Mamba1 layer shared by
-    weight)."""
-    _, tc = config_pair("mamba")
+    """The port's own init draws an untied head.  Training takes every
+    Mamba1 mix the JAX package trains: a Mamba1 model, a Mamba1 layer
+    shared by weight, a Mamba1 model beside a cross-attention block (with
+    a frontend) and in an encoder-decoder (the Mamba1 block has no
+    encoder cross-attention, as in the reference): the loss and every
+    gradient leaf equal ``jax.value_and_grad`` of the reference's loss on
+    the same weights, within 1e-5 (of max(1, |g|) for the gradients)."""
+    from repro.training.train_step import loss_fn as jloss_fn
+    from repro_torch.bridge import params_to_numpy
+    from repro_torch.training.train_step import value_and_grad
+    from repro_torch.training.tree import flatten
+    jc, tc = config_pair("mamba")
     params = Model(tc, device="cpu").init(torch.Generator().manual_seed(0))
     assert params["lm_head"]["w"].shape == (tc.vocab_padded, tc.d_model)
     m = params["blocks"]["segments"][0]["mamba"]
@@ -374,18 +381,32 @@ def test_untied_head_and_refusals():
     assert torch.equal(m["A_log"][0, 0], torch.log(
         torch.arange(1, tc.ssm_state + 1, dtype=torch.float32)))
     assert torch.all(m["dt_bias"] == -2.0)
-    for bad in (dict(block_pattern=("mamba1", "cross")),
-                dict(block_pattern=("attn", "mamba1"),
-                     is_encoder_decoder=True)):
-        model = Model(dataclasses.replace(tc, **bad), device="cpu")
-        with pytest.raises(NotImplementedError, match="training"):
-            model.forward(None, {"tokens": torch.zeros((1, 4),
-                                                       dtype=torch.int32)})
-    tokens = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    for ok in ({}, dict(shared_block_kind="mamba1")):
-        model = Model(dataclasses.replace(tc, **ok), device="cpu")
-        with pytest.raises(NotImplementedError, match="training of Mamba"):
-            model.forward(None, tokens)
+    rng = np.random.default_rng(23)
+    toks = rng.integers(0, tc.vocab_size, (2, 12)).astype(np.int32)
+    frontend = rng.standard_normal((2, 5, tc.d_model)).astype(np.float32)
+    for over, src in (({}, False), (dict(shared_block_kind="mamba1"), False),
+                      (dict(block_pattern=("mamba1", "cross")), True),
+                      (dict(block_pattern=("attn", "mamba1"),
+                            is_encoder_decoder=True, n_encoder_layers=1),
+                       True)):
+        jcfg, tcfg = (dataclasses.replace(c, **over) for c in (jc, tc))
+        ttfm.check_supported(tcfg, "train")
+        npp = jax_params(jcfg, seed=4)
+        batch = {"tokens": toks, **({"frontend": frontend} if src else {})}
+        jm = build_model(jcfg)
+        (jloss, _), jgrads = jax.value_and_grad(
+            lambda p: jloss_fn(jm, p, {k: jnp.asarray(v)
+                                       for k, v in batch.items()}),
+            has_aux=True)(jax.tree_util.tree_map(jnp.asarray, npp))
+        loss, _, grads = value_and_grad(
+            Model(tcfg, device="cpu"), bridged(npp, tcfg),
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+        assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+        want = dict(flatten(jax.tree_util.tree_map(np.asarray, jgrads)))
+        got = dict(flatten(params_to_numpy(grads, tcfg)))
+        assert got.keys() == want.keys()
+        for path, g in want.items():
+            assert _rel(got[path], g) <= 1e-5, (over, path)
 
 
 def _packed_paths(tree, prefix=()):

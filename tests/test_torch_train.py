@@ -12,8 +12,9 @@ take their plain versions.  Tolerances:
   the plain versions and ``jax.grad`` of the reference: 1e-5 of
   max(1, |g|);
 * train-mode logits: 1e-4 (test_torch_model.py's bound for a few layers
-  of f32 matmuls summed in another order); the loss 1e-5 relative and
-  every gradient leaf 1e-5 of max(1, |g|);
+  of f32 matmuls summed in another order); the MoE aux terms 1e-6 of
+  max(1e-3, |aux|) (f32 sums of the same terms in another order); the
+  loss 1e-5 relative and every gradient leaf 1e-5 of max(1, |g|);
 * three train steps against the jitted JAX step: ce, gradient norm and
   learning rate within 5e-5 relative at each step.  After the first
   step the two packages' parameters differ by the rounding of AdamW's
@@ -242,48 +243,85 @@ def test_rmsnorm_fns_backward_match_autograd_and_jax(shape):
 # ----------------------------------------------------------------------
 # Model.forward(mode="train"), loss_fn, the train step
 # ----------------------------------------------------------------------
-def _gemma_pair():
-    return jget_smoke("gemma3-12b"), get_smoke_config("gemma3-12b")
+def _smoke_pair(arch, **over):
+    return (dataclasses.replace(jget_smoke(arch), **over),
+            dataclasses.replace(get_smoke_config(arch), **over))
 
 
+#: every family the port serves: the attention decoders (MHA, GQA, the
+#: sliding-window gemma3), the MoE (mixtral: swa blocks, 4 experts of
+#: top-2, capacity drops at S 48), Mamba1 (falcon-mamba), the Mamba2 /
+#: weight-shared attn hybrid (zamba2 at two shared positions), the cross
+#: layer (llama-3.2-vision) and the encoder-decoder (seamless)
 PAIRS = {"mha": lambda: config_pair("mha"), "gqa": lambda: config_pair("gqa"),
-         "gemma3": _gemma_pair}
+         "gemma3": lambda: _smoke_pair("gemma3-12b"),
+         "mixtral": lambda: _smoke_pair("mixtral-8x7b"),
+         "falcon_mamba": lambda: _smoke_pair("falcon-mamba-7b"),
+         "zamba2": lambda: _smoke_pair(
+             "zamba2-7b", n_layers=4,
+             block_pattern=("mamba2", "attn", "mamba2", "attn")),
+         "vision": lambda: _smoke_pair("llama-3.2-vision-90b"),
+         "seamless": lambda: _smoke_pair("seamless-m4t-medium")}
+
+
+def source_len(cfg) -> int:
+    """The frontend's length: the encoder's frames, or the image tokens
+    a ``cross`` layer reads (0: no frontend)."""
+    return cfg.encoder_seq if cfg.is_encoder_decoder else cfg.n_image_tokens
 
 
 @pytest.fixture(scope="module", params=list(PAIRS))
 def setup(request):
     jc, tc = PAIRS[request.param]()
     npp = jax_params(jc, seed=1)
-    # gemma3's smoke window is 32: S = 48 reaches past it
-    toks = np.random.default_rng(6).integers(
-        0, jc.vocab_size, (2, 48)).astype(np.int32)
-    return jc, tc, npp, toks
+    rng = np.random.default_rng(6)
+    # gemma3's and mixtral's smoke windows are 32: S = 48 reaches past it
+    batch = {"tokens": rng.integers(0, jc.vocab_size, (2, 48)).astype(
+        np.int32)}
+    if source_len(jc):
+        # seeded: a zero frontend makes the cross K/V and their gradients
+        # zero
+        batch["frontend"] = rng.standard_normal(
+            (2, source_len(jc), jc.d_model)).astype(np.float32)
+    return jc, tc, npp, batch
+
+
+def _jbatch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _tbatch(batch):
+    return {k: t(v) for k, v in batch.items()}
 
 
 def test_train_logits_match_jax(setup):
-    jc, tc, npp, toks = setup
+    jc, tc, npp, batch = setup
     if jc.window:
-        assert toks.shape[1] > jc.window
+        assert batch["tokens"].shape[1] > jc.window
     jm = build_model(jc)
     want, _, jaux = jm.forward(jax.tree_util.tree_map(jnp.asarray, npp),
-                               {"tokens": jnp.asarray(toks)})
+                               _jbatch(batch))
     got, cache, aux = Model(tc, device="cpu").forward(
-        bridged(npp, tc), {"tokens": t(toks)})
+        bridged(npp, tc), _tbatch(batch))
     assert cache is None and set(aux) == set(jaux)
-    assert all(float(v) == 0.0 for v in aux.values())
+    for key, v in aux.items():
+        want_v = float(jaux[key])
+        assert v.dtype == torch.float32
+        assert abs(float(v) - want_v) <= 1e-6 * max(1e-3, abs(want_v)), key
+    if tc.mlp_kind == "moe":           # the MoE terms are live, not zero
+        assert float(aux["moe_aux_loss"]) > 0
     assert got.shape == want.shape
     assert _err(got.detach(), want) <= LOGIT_TOL
 
 
 def test_loss_and_every_gradient_leaf_match_jax(setup):
-    jc, tc, npp, toks = setup
+    jc, tc, npp, batch = setup
     jm = build_model(jc)
     (jloss, jmetrics), jgrads = jax.value_and_grad(
-        lambda p: jloss_fn(jm, p, {"tokens": jnp.asarray(toks)}),
+        lambda p: jloss_fn(jm, p, _jbatch(batch)),
         has_aux=True)(jax.tree_util.tree_map(jnp.asarray, npp))
     loss, metrics, grads = value_and_grad(Model(tc, device="cpu"),
-                                          bridged(npp, tc),
-                                          {"tokens": t(toks)})
+                                          bridged(npp, tc), _tbatch(batch))
     assert abs(float(loss) - float(jloss)) <= GRAD_TOL * abs(float(jloss))
     assert abs(float(metrics["ce"]) - float(jmetrics["ce"])) <= (
         GRAD_TOL * abs(float(jmetrics["ce"])))
@@ -295,7 +333,8 @@ def test_loss_and_every_gradient_leaf_match_jax(setup):
 
 
 def test_three_train_steps_match_the_jitted_jax_step(setup):
-    jc, tc, npp, toks = setup
+    jc, tc, npp, batch0 = setup
+    toks = batch0["tokens"]
     jm = build_model(jc)
     jstep = jax.jit(jmake_step(jm, base_lr=3e-3, warmup=2, total_steps=10))
     tstep = make_train_step(Model(tc, device="cpu"), base_lr=3e-3, warmup=2,
@@ -304,10 +343,10 @@ def test_three_train_steps_match_the_jitted_jax_step(setup):
     tp = bridged(npp, tc)
     jo, to = jadamw_init(jp), adamw_init(tp)
     for i in range(3):
-        batch = toks[:, ::-1].copy() if i == 1 else toks
-        jp, jo, jm_ = jstep(jp, jo, {"tokens": jnp.asarray(batch)})
-        tp, to, tm_ = tstep(tp, to, {"tokens": t(batch)})
-        for key in ("ce", "loss", "grad_norm", "lr"):
+        batch = dict(batch0, tokens=toks[:, ::-1].copy() if i == 1 else toks)
+        jp, jo, jm_ = jstep(jp, jo, _jbatch(batch))
+        tp, to, tm_ = tstep(tp, to, _tbatch(batch))
+        for key in ("ce", "loss", "grad_norm", "lr", "moe_aux_loss"):
             want = float(jm_[key])
             assert abs(float(tm_[key]) - want) <= STEP_RTOL * abs(want), (
                 i, key)
@@ -412,7 +451,7 @@ def test_a_jax_checkpoint_restores_through_the_bridge(tmp_path):
     JAX checkpoint restores into the reference's numpy tree
     (``params_to_numpy``'s) and from there into port params through the
     bridge; into the port's own stacked tree it is refused by shape."""
-    jc, tc = _gemma_pair()
+    jc, tc = PAIRS["gemma3"]()
     jp = build_model(jc).init(jax.random.PRNGKey(3))
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tc,
                            "cpu", torch.float32)
@@ -440,16 +479,29 @@ def test_trainer_runs_on_the_cpu_and_its_ce_falls():
 
 
 def test_train_mode_refuses_mamba1_and_prefill():
+    """Train mode takes Mamba1 blocks now: check_supported passes and one
+    train forward runs (finite logits, zero MoE terms); a prefill still
+    refuses to run without caches, and an unknown block kind still
+    refuses in train mode as in every other."""
     mamba = get_smoke_config("falcon-mamba-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.check_supported(mamba, "train")
+    ttfm.check_supported(mamba, "train")
     ttfm.check_supported(mamba)                  # serving it is ported
-    with pytest.raises(NotImplementedError):
-        Model(mamba, device="cpu").forward(
-            None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    model = Model(mamba, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    logits, cache, aux = model.forward(
+        params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert cache is None and logits.shape == (1, 4, mamba.vocab_padded)
+    assert bool(torch.isfinite(logits).all())
+    assert all(float(v) == 0.0 for v in aux.values())
     smollm = get_smoke_config("smollm-360m")
     # a prefill is ported: it seeds caches, and refuses to run without
     with pytest.raises(ValueError, match="prefill"):
         Model(smollm, device="cpu").forward(
             None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
             mode="prefill")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        dataclasses.replace(smollm, block_pattern=("attn", "rwkv"))
+    odd = dataclasses.replace(smollm)   # past the config's own check
+    object.__setattr__(odd, "block_pattern", ("attn", "rwkv"))
+    with pytest.raises(NotImplementedError, match="rwkv"):
+        ttfm.check_supported(odd, "train")

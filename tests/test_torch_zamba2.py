@@ -203,7 +203,8 @@ def test_scan_with_expansions_is_the_mamba2_recurrence(ds):
 def test_configs_and_counters_match_the_reference():
     """The full and smoke configs equal the reference's, and so do the
     counters: the shared block counted once in ``num_params``, a Mamba2
-    layer's ``layer_params``; serving is supported, training refused."""
+    layer's ``layer_params``; serving and training are supported (one
+    train forward of the smoke model runs)."""
     full, jfull = get_config(ARCH), jget_config(ARCH)
     assert dataclasses.asdict(full) == dataclasses.asdict(jfull)
     assert dataclasses.asdict(get_smoke_config(ARCH)) == dataclasses.asdict(
@@ -222,8 +223,12 @@ def test_configs_and_counters_match_the_reference():
         2 * full.vocab_size * full.d_model + full.d_model
         + 68 * full.layer_params("mamba2") + full.layer_params("attn"))
     ttfm.check_supported(full, "decode")
-    with pytest.raises(NotImplementedError, match="training of Mamba"):
-        ttfm.check_supported(full, "train")
+    ttfm.check_supported(full, "train")
+    model = Model(get_smoke_config(ARCH), device="cpu")
+    logits, _, _ = model.forward(
+        model.init(torch.Generator().manual_seed(0)),
+        {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert bool(torch.isfinite(logits).all())
 
 
 @pytest.fixture(scope="module")

@@ -97,9 +97,14 @@ def other_library(build, root: str):
                     "-o", str(lib), os.path.join(csrc, "selective_scan.cu")],
                    check=True, capture_output=True)
     fn = ctypes.CDLL(str(lib)).rt_selective_scan
-    fn.argtypes = list(build._SIGNATURES["rt_selective_scan"])
+    argtypes = list(build._SIGNATURES["rt_selective_scan"])
+    with open(os.path.join(csrc, "selective_scan.cu")) as f:
+        takes_ck = "void* h_out, void* ck," in f.read()
+    if not takes_ck:            # a checkout from before the checkpoints
+        del argtypes[8]
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    return fn
+    return fn, takes_ck
 
 
 def against(root: str, f32) -> None:
@@ -109,7 +114,7 @@ def against(root: str, f32) -> None:
     from chip_smoke import device_ms
     from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as ss
-    other = other_library(_build, root)
+    other, takes_ck = other_library(_build, root)
     for di, ds, b, t in SHAPES:
         if ds != 16:
             continue
@@ -124,6 +129,7 @@ def against(root: str, f32) -> None:
             _build.check(other(
                 dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
                 a_neg.data_ptr(), h.data_ptr(), y.data_ptr(), h.data_ptr(),
+                *((None,) if takes_ck else ()),
                 b, t, di, ds, bm.stride(0), bm.stride(1),
                 _build.BODY_CODES["state_lanes"], g,
                 torch.cuda.current_stream().cuda_stream), "other scan")
