@@ -232,29 +232,31 @@ one JSON line:
    round-robin in a pool of 96 blocks, printing goodput, per-class
    stats, rejections and preemptions, and for requests finished under
    both the share of tokens equal to ``paged_bf16``'s (not gated).
-   Then falcon-mamba-7b at full width and depth (64 Mamba1 layers) in
+   Then falcon-mamba-7b at full width and ``MAMBA_LAYERS`` = 32 of its
+   64 Mamba1 layers (halved, as gemma3's, mixtral's, zamba2's and
+   vision's depths were, to make room for the scale phase) in
    bfloat16: 8 requests through ``PagedServingEngine`` and the same 8
    through ``ServingEngine``, with the same checks (the slot run's share
    of tokens equal to the paged run's printed, and every scan launch on
    the ``state_lanes`` body).
-   Then gemma3-12b at full width and ``GEMMA_LAYERS`` = 24 of its 48
-   layers (20 ``swa`` with the 1024-slot ring, 4 ``attn``) in bfloat16,
-   about 12.7 GB of weights drawn on the card: 8 requests of 256-2048
+   Then gemma3-12b at full width and ``GEMMA_LAYERS`` = 12 of its 48
+   layers (10 ``swa`` with the 1024-slot ring, 2 ``attn``) in bfloat16,
+   about 7.3 GB of weights drawn on the card: 8 requests of 256-2048
    tokens (six past the window), 64 new tokens each, through
    ``PagedServingEngine`` (``gemma_paged_bf16``, profiled in decode and
    prefill, with prompts past the window) and ``ServingEngine``
    (``gemma_dense_bf16``, its share of tokens equal to the paged run's
-   printed); a prefill chunk launches the ring form 20 times and the
-   paged prefill 4 times, a decode iteration the decode kernel 24
+   printed); a prefill chunk launches the ring form 10 times and the
+   paged prefill 2 times, a decode iteration the decode kernel 12
    times, checked exactly: the
    paged prefill, the ring form and the decode on the wide ``mma``
    bodies (hd 256).  Which body each attention kernel's launches take is
    fixed per config in ``ATTN_BODY`` (``mma`` for all five two-body
    attention kernels of smollm-360m and gemma3-12b), and the wrappers'
    rules must agree with it.
-   Then mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` = 8 of its 32
+   Then mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` = 4 of its 32
    layers (32 would need about 93 GB of bf16 weights; the experts are
-   never packed) in bfloat16, about 24 GB drawn on the card: 8 requests
+   never packed) in bfloat16, about 12 GB drawn on the card: 8 requests
    (6 of 256-2048
    tokens, 2 of 4160-4400, past the 4096 window), 64 new tokens each,
    through ``PagedServingEngine`` (``mixtral_paged_bf16``, profiled in
@@ -264,14 +266,14 @@ one JSON line:
    decode step, first full chunk and over the run is printed, not
    gated; then ``moe_apply`` at full width at a decode step's and a
    chunk's shape under ``torch.cuda.set_sync_debug_mode("error")``.
-   Then zamba2-7b at full width and ``ZAMBA_LAYERS`` = 41 of its 81
-   layers (35 Mamba2 and 6 positions of one weight-shared attn block)
-   in bfloat16, about 6.2 GB of weights drawn on the card: 8 requests of
+   Then zamba2-7b at full width and ``ZAMBA_LAYERS`` = 21 of its 81
+   layers (18 Mamba2 and 3 positions of one weight-shared attn block)
+   in bfloat16, about 3.6 GB of weights drawn on the card: 8 requests of
    256-2048 tokens, 64 new tokens each, through ``PagedServingEngine``
    (``zamba_paged_bf16``, profiled in decode and prefill) and
    ``ServingEngine`` (``zamba_dense_bf16``), launches by kernel and body
-   checked exactly (a decode iteration: 48 norms, 6 decode attentions
-   and 35 scans; a chunk: 47 norms, 6 paged prefills and 35 scans),
+   checked exactly (a decode iteration: 25 norms, 3 decode attentions
+   and 18 scans; a chunk: 24 norms, 3 paged prefills and 18 scans),
    then the paged
    run's requests through ``PagedPipelinedEngine`` in 2 stages
    (``zamba_pipe_paged_bf16``, placed by the static tier), which must
@@ -288,8 +290,8 @@ one JSON line:
    1024) frontend through the encoder, then 4 macro-steps of
    ``decode_steps(k=16)`` on the dense caches (encoder ms, prefill ms,
    decode tok/s; launches checked exactly).  Then llama-3.2-vision-90b at
-   full width and 30 of its 100 layers (24 ``attn``, 6 ``cross``; about
-   55.6 GB of bf16 weights drawn on the card): 8 requests of 256-1024
+   full width and 15 of its 100 layers (12 ``attn``, 3 ``cross``; about
+   29.9 GB of bf16 weights drawn on the card): 8 requests of 256-1024
    tokens through ``PagedServingEngine`` (``vision_paged_bf16``,
    profiled over one decode macro-step and 4 prefill chunks) and
    ``ServingEngine`` (``vision_dense_bf16``), launches checked exactly,
@@ -354,6 +356,39 @@ one JSON line:
    and vision runs profiled (the scan kernels' ms, the torch-op
    backwards' by label).
 
+7. ``scale``  — the scale-out plane (``serving/decode.py``, the sharded
+   MoE forms, ``sharding/specs.py``): ``SCALE_WORLD`` = 4 ranks spawned
+   once (spawn: this process holds a CUDA context) as 4 processes on
+   cuda:0 over gloo (NCCL places no two ranks on one card; gloo
+   all-reduces CUDA tensors), rendezvous through a FileStore in a
+   temporary directory, the kernel library built here first so the
+   ranks only load it; one world carries a 2x2 and a 1x4 ``("data",
+   "model")`` mesh.  Each rank: the f32 cell (every form at the CPU
+   tests' widths on the card and on CPU tensors through the same
+   groups, card = CPU within 1e-5, drops exactly); the seq-parallel
+   decode at decode_32k's S 32768, B 8 (smollm-360m's 15/5 heads of 64
+   on the 2x2 mesh in f32 and bf16, rows that leave a model shard
+   empty; qwen2-72b's 64/8 of 128 on the 1x4 mesh in bf16), its output
+   gated against one-rank ``dense_decode_attention`` over the whole
+   cache and against the plain version (2e-5 f32; 2e-2 and two bf16
+   steps), its partials against the plain partials; the main path's
+   launches (every count reset just before the three distributed
+   calls, read just after): the partials form once a call, f32 on
+   ``cuda_core``, bf16 on ``mma``, no other kernel; the partials kernel
+   timed on rank 0 in turns with its library call and its plain
+   version, the combine's three all-reduces on every rank (printed, not
+   gated); then kimi-k2-1t-a32b's MoE layer at full width through
+   ``moe_apply_sharded`` on the 1x4 mesh, each rank drawing and holding
+   only its 96 of 384 experts (8.46 GB), and mixtral-8x7b's through
+   ``moe_apply_capsharded``, 1024 tokens each, each rank's local part
+   under ``set_sync_debug_mode("error")``, nvidia-smi's memory while
+   every rank holds its experts; each rank's peak memory.  After the
+   ranks exit, the single-process ``moe_apply`` over all the experts
+   (kimi-k2's 33.8 GB) on the same tokens: y within 2e-2 and two bf16
+   steps of every rank's, the drop fraction exactly.  Then ``python -m
+   repro_torch.launch.serve`` at its defaults on the card: exit 0, every
+   request done.
+
 Each phase ends with a line of its wall seconds, as each serve run's and
 each profile's line carries its own.  It then prints the kernel list,
 the card's name and power limit, and as its last line ``{"ok": true,
@@ -399,6 +434,10 @@ REPLACES = {
     # no TPU kernel: jax.grad of mamba1_seq's lax.scan (mamba2_seq's at
     # :214), which the reference's train step differentiates
     "selective_scan_backward": "src/repro/models/ssm.py:115",
+    # the partials form: _local_flash_decode
+    # (src/repro/serving/decode.py:26), whose on-device body is this TPU
+    # kernel
+    "dense_decode_attention_partial": "src/repro/kernels/decode_attention.py:76",
 }
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
@@ -413,6 +452,8 @@ SOURCES = {
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "selective_scan_backward": "src/repro_torch/csrc/selective_scan.cu",
+    "dense_decode_attention_partial":
+        "src/repro_torch/csrc/dense_decode_attention.cu",
 }
 #: the serve run whose launches each kernel's line reports
 LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
@@ -425,7 +466,8 @@ LAUNCH_RUN = {"rmsnorm": "paged_bf16", "paged_decode_attention": "paged_bf16",
               "quant_matmul_int4": "paged_int4",
               "selective_scan": "mamba_paged_bf16",
               "flash_attention": "train_bf16",
-              "selective_scan_backward": "mamba_train_bf16"}
+              "selective_scan_backward": "mamba_train_bf16",
+              "dense_decode_attention_partial": "scale"}
 #: the dtype of each kernel's main-path case in the kernels line
 MAIN_DTYPE = {"selective_scan": "float32",
               "selective_scan_backward": "float32"}
@@ -3416,15 +3458,15 @@ def serve_policy(cfg, kw, prompts, dev, ref) -> dict:
     return launches
 
 
-#: gemma3-12b's serve runs: full width, 24 of its 48 layers (the 5:1
-#: pattern kept: 20 swa, 4 attn), so the whole script stays inside the
-#: time a run may take
-GEMMA_LAYERS = 24
+#: gemma3-12b's serve runs: full width, 12 of its 48 layers (the 5:1
+#: pattern kept: 10 swa, 2 attn; 24 before the scale phase took its
+#: time), so the whole script stays inside the time a run may take
+GEMMA_LAYERS = 12
 
 
 def serve_gemma(dev) -> dict:
-    """gemma3-12b at full width and ``GEMMA_LAYERS`` of its 48 layers (20
-    ``swa`` with the 1024-slot ring and 4 ``attn``; about 12.7 GB of bf16
+    """gemma3-12b at full width and ``GEMMA_LAYERS`` of its 48 layers (10
+    ``swa`` with the 1024-slot ring and 2 ``attn``; about 7.3 GB of bf16
     weights drawn on the card from the seed): 8 requests of 256-2048 tokens (six past the
     window) through ``PagedServingEngine`` and its decode and prefill
     profiles (prompts past the window, so both windows run the wrapped
@@ -3475,8 +3517,9 @@ def serve_gemma(dev) -> dict:
 #: 80 GB, and the reference never packs expert weights, so quantization
 #: cannot close the gap; 16 fit (about 46.4 GB of blocks), and 8 (about
 #: 23.2 GB, plus 0.52 GB of embedding and untied head) keep the whole
-#: script inside the time a run may take
-MIXTRAL_LAYERS = 8
+#: script inside the time a run may take; 4 since the scale phase took
+#: its time
+MIXTRAL_LAYERS = 4
 
 
 def _moe_bytes(params) -> int:
@@ -3594,18 +3637,27 @@ def serve_mixtral(dev) -> dict:
     return launches
 
 
+#: falcon-mamba-7b's serve runs: full width, 32 of its 64 layers (all 64
+#: before the scale phase took its time)
+MAMBA_LAYERS = 32
+
+
 def serve_mamba(dev) -> dict:
-    """falcon-mamba-7b at full width and depth (64 Mamba1 layers, about
-    14.5 GB of bf16 weights drawn from the seed): 8 requests through
+    """falcon-mamba-7b at full width and ``MAMBA_LAYERS`` of its 64 Mamba1
+    layers (about 8.3 GB of bf16 weights drawn from the seed): 8 requests
+    through
     ``PagedServingEngine`` and its decode and prefill-chunk profiles,
     then the same 8 through
     ``ServingEngine`` on the same weights, with its share of tokens equal
     to the paged run's.  Returns each run's launch counts."""
     import gc
     import torch
+    from repro_torch.config import uniform
     from repro_torch.configs import get_config
     from repro_torch.serving.engine import PagedServingEngine, ServingEngine
-    cfg = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              n_layers=MAMBA_LAYERS,
+                              block_pattern=uniform("mamba1", MAMBA_LAYERS))
     kw = dict(max_rows=8, max_len=1024, block_size=16, prefill_chunk=128,
               decode_steps=16, seed=SEED, device=dev)
     prompts = _trace(np.random.default_rng(SEED + 2), 8, 32, 512,
@@ -3646,28 +3698,28 @@ def _shared_views(eng) -> dict:
                 sum(seg.shared for seg in st.segs) for st in eng.stages]}
 
 
-#: zamba2-7b's serve runs: full width, 41 of its 81 layers (35 Mamba2,
-#: 6 positions of the shared attn block), so the whole script stays
-#: inside the time a run may take
-ZAMBA_LAYERS = 41
+#: zamba2-7b's serve runs: full width, 21 of its 81 layers (18 Mamba2,
+#: 3 positions of the shared attn block; 41 before the scale phase took
+#: its time), so the whole script stays inside the time a run
+#: may take
+ZAMBA_LAYERS = 21
 
 
 def serve_zamba(dev) -> dict:
-    """zamba2-7b at full width and ``ZAMBA_LAYERS`` of its 81 layers (35
-    Mamba2 and 6 positions of the one weight-shared attn block; about 6.2
+    """zamba2-7b at full width and ``ZAMBA_LAYERS`` of its 81 layers (18
+    Mamba2 and 3 positions of the one weight-shared attn block; about 3.6
     GB of bf16 weights drawn on the card from the seed): 8 requests of
     256-2048
     tokens, 64 new tokens each, through ``PagedServingEngine``
     (``zamba_paged_bf16``, profiled in decode and prefill) and
     ``ServingEngine`` (``zamba_dense_bf16``, its share of tokens equal to
     the paged run's printed), launches by kernel and body checked
-    exactly (a decode iteration: 48 norms, 6 decode attentions, 35
-    scans; a chunk: 47 norms, 6 paged prefills, 35 scans; every
+    exactly (a decode iteration: 25 norms, 3 decode attentions, 18
+    scans; a chunk: 24 norms, 3 paged prefills, 18 scans; every
     attention launch on ``mma`` at hd 112, every scan on
     ``state_lanes`` at d_state 64); then ``zamba_pipe_paged_bf16``, the
     paged run's requests through ``PagedPipelinedEngine`` in 2 stages
-    (layers 0-19 and 20-40, 3 shared positions each), placed by the
-    static tier, which must emit the paged run's tokens and launches at a
+    placed by the static tier, which must emit the paged run's tokens and launches at a
     peak within 5% of its memory, every stage on the engine's one shared
     set (``_shared_views``).  Returns each run's launch counts."""
     import gc
@@ -3854,24 +3906,25 @@ def serve_seamless(dev) -> dict:
     return launches
 
 
-#: llama-3.2-vision-90b on one card: full width, 30 of its 100 layers (the
-#: every-fifth pattern kept: 24 attn and 6 cross).  A layer is 0.856 B
-#: parameters (attention 151 M, MLP 705 M), 1.71 GB in bf16: 30 layers are
-#: about 51.4 GB, with 4.2 GB of embedding and untied head; all 100 would
-#: need about 175 GB against the card's 80 GB
-VISION_LAYERS = 30
+#: llama-3.2-vision-90b on one card: full width, 15 of its 100 layers (the
+#: every-fifth pattern kept: 12 attn and 3 cross; 30 before the scale
+#: phase took its time).  A layer is 0.856 B parameters
+#: (attention 151 M, MLP 705 M), 1.71 GB in bf16: 15 layers are about
+#: 25.7 GB, with 4.2 GB of embedding and untied head; all 100 would need
+#: about 175 GB against the card's 80 GB
+VISION_LAYERS = 15
 
 
 def serve_vision(dev) -> dict:
     """llama-3.2-vision-90b at full width and ``VISION_LAYERS`` layers in
-    bfloat16, about 55.6 GB of weights drawn on the card from the seed: 8
+    bfloat16, about 29.9 GB of weights drawn on the card from the seed: 8
     requests of 256-1024 tokens, 64 new each, through
     ``PagedServingEngine`` (``vision_paged_bf16``, profiled over one
     decode macro-step and 4 prefill chunks) and ``ServingEngine``
     (``vision_dense_bf16``, its share of tokens equal to the paged
     run's), launches by kernel and body checked exactly (per decode
-    iteration 24 self-attention and 6 cross decode reads at pos 1600 over
-    the zeroed cross K/V; per chunk 24 paged prefills and 6 cross forms);
+    iteration 12 self-attention and 3 cross decode reads at pos 1600 over
+    the zeroed cross K/V; per chunk 12 paged prefills and 3 cross forms);
     then ``vision_prefill_bf16`` (``prefill_run``: 8 prompts of 128 with a
     seeded (8, 1601, 8192) frontend, 4 macro-steps of 16).  Returns each
     run's launch counts."""
@@ -4739,6 +4792,575 @@ def train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: scale -- the scale-out plane on four gloo ranks on the one card
+# ---------------------------------------------------------------------------
+#: ranks of the scale phase: four processes on cuda:0 over gloo (NCCL
+#: places no two ranks on one card; gloo all-reduces CUDA tensors)
+SCALE_WORLD = 4
+#: the seq-parallel decode at decode_32k's S (repro_torch/config.py) and
+#: 8 rows: (label, the config whose heads it takes, mesh, dtype)
+SCALE_S, SCALE_B = 32768, 8
+SCALE_DECODE = (("smollm_f32", "smollm-360m", "2x2", "float32"),
+                ("smollm_bf16", "smollm-360m", "2x2", "bfloat16"),
+                ("qwen_bf16", "qwen2-72b", "1x4", "bfloat16"))
+#: logical positions of the 8 rows: on the 2x2 mesh (S_loc 16384) rows
+#: 0, 1 and 5 leave the second model shard empty, rows 4 and 7 fill it
+#: (7 past the cache), row 2 puts one slot in it
+SCALE_POS = [100, 16383, 16384, 20000, 32767, 5000, 31000, 40000]
+#: the sharded MoE at full width over SCALE_TOKENS tokens on the 1x4
+#: mesh: (label, config, form)
+SCALE_TOKENS = 1024
+SCALE_MOE = (("kimi_sharded", "kimi-k2-1t-a32b", "sharded"),
+             ("mixtral_capsharded", "mixtral-8x7b", "capsharded"))
+#: the f32 cell at the CPU tests' widths (tests/test_torch_distributed.py):
+#: decode B 4, 8/2 heads of 64, S 256; the MoE at the mixtral smoke
+#: config's widths with E 4 (sharded) and E 3 (capsharded), capacity
+#: factor 0.5, 4 x 32 tokens
+SCALE_SMALL_DECODE = {"B": 4, "H": 8, "KV": 2, "S": 256, "hd": 64,
+                      "pos": [3, 100, 255, 17]}
+SCALE_SMALL_MOE = (("sharded", 4), ("capsharded", 3))
+SCALE_CARD_CPU_TOL = 1e-5
+#: device_ms calls a timing turn of the partials kernel takes
+SCALE_TIMED_CALLS = 10
+
+
+def _scale_meshes(device_type: str) -> dict:
+    from torch.distributed.device_mesh import init_device_mesh
+    return {name: init_device_mesh(device_type, shape,
+                                   mesh_dim_names=("data", "model"))
+            for name, shape in (("2x2", (2, 2)), ("1x4", (1, 4)))}
+
+
+def _scale_expert(cfg, e: int, dev) -> tuple:
+    """Expert ``e``'s (w_gate, w_up, w_down) in bf16, drawn from a
+    generator seeded by (SEED, e) alone, so a rank draws only its own
+    experts and the single-process oracle the same values; scaled as
+    ``moe_init`` scales them (E ** -0.5, the reference's fan-in of (E, in,
+    out))."""
+    import torch
+    from repro_torch.models.layers import _dense_init
+    gen = torch.Generator(device=dev).manual_seed((SEED << 20) + e)
+    d, f = cfg.d_model, cfg.moe_d_ff_eff
+    s = cfg.n_experts ** -0.5
+    return tuple(_dense_init(gen, shape, torch.bfloat16, dev, scale=s)
+                 for shape in ((d, f), (d, f), (f, d)))
+
+
+def _scale_moe_inputs(cfg, dev, experts) -> tuple:
+    """(params, x) of a full-width MoE layer: the f32 router and x (1,
+    SCALE_TOKENS, d_model) in bf16 from fixed seeds (the same on every
+    rank), the experts ``experts`` stacked."""
+    import torch
+    from repro_torch.models.layers import _dense_init
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    router = _dense_init(gen, (cfg.d_model, cfg.n_experts), torch.float32,
+                         dev)
+    x = torch.randn((1, SCALE_TOKENS, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    d, f, n = cfg.d_model, cfg.moe_d_ff_eff, len(experts)
+    params = {"router": router,
+              "we_gate": torch.empty((n, d, f), dtype=torch.bfloat16,
+                                     device=dev),
+              "we_up": torch.empty((n, d, f), dtype=torch.bfloat16,
+                                   device=dev),
+              "we_down": torch.empty((n, f, d), dtype=torch.bfloat16,
+                                     device=dev)}
+    for i, e in enumerate(experts):
+        for name, w in zip(("we_gate", "we_up", "we_down"),
+                           _scale_expert(cfg, e, dev)):
+            params[name][i] = w
+    return params, x
+
+
+def _partials_errors(got, want) -> dict:
+    """The partials gate (as tests/test_torch_kernels.py's cuda test): m
+    and l within SCALE tolerance of max(1, |value|), acc / l (the
+    output's scale) absolutely, an empty row exactly (acc 0, l 0, m
+    NEG_INF)."""
+    import torch
+    from repro_torch.kernels.decode_attention import NEG_INF
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    empty = l_p == 0
+    exact = (torch.equal(empty, l == 0)
+             and bool((m[empty] == NEG_INF).all())
+             and bool((acc[empty.expand_as(acc)] == 0).all()))
+    return {"m": ((m - m_p).abs() / m_p.abs().clamp(min=1)).max().item(),
+            "l": ((l - l_p).abs() / l_p.abs().clamp(min=1)).max().item(),
+            "acc_over_l": (acc / l.clamp(min=1e-30)
+                           - acc_p / l_p.clamp(min=1e-30)).abs().max().item(),
+            "empty_rows": int(empty[:, 0, 0].sum().item()),
+            "empty_exact": exact}
+
+
+def _scale_small(dev, meshes) -> dict:
+    """The f32 cell: every form at the CPU tests' widths on the card and
+    on CPU tensors through the same gloo groups; card = CPU within
+    SCALE_CARD_CPU_TOL (aux and drops too, drops exactly)."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import (moe_apply_capsharded,
+                                        moe_apply_sharded)
+    from repro_torch.serving.decode import (decode_specs,
+                                            distributed_decode_attention)
+    from repro_torch.sharding.specs import PartitionSpec as P
+    from repro_torch.sharding.specs import local_shard
+    rng = np.random.default_rng(SEED + 43)
+    c = SCALE_SMALL_DECODE
+    q = torch.from_numpy(rng.standard_normal((c["B"], c["H"], c["hd"]),
+                                             dtype=np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (c["B"], c["S"], c["KV"], c["hd"]), dtype=np.float32))
+        for _ in range(2))
+    pos = torch.tensor(c["pos"], dtype=torch.int32)
+    out = {}
+    for name, mesh in meshes.items():
+        specs = decode_specs(mesh)
+        got = {}
+        for where in ("cpu", dev):
+            args = [local_shard(a, s, mesh).contiguous().to(where)
+                    for a, s in zip((q, k, v, pos), (specs[0], specs[1],
+                                                     specs[1], specs[2]))]
+            got[str(where)] = distributed_decode_attention(*args, mesh)
+        out[f"decode_{name}"] = (got[str(dev)].cpu()
+                                 - got["cpu"]).abs().max().item()
+    base = get_smoke_config("mixtral-8x7b")
+    mesh = meshes["2x2"]
+    for form, e in SCALE_SMALL_MOE:
+        cfg = dataclasses.replace(base, n_experts=e, experts_per_token=2,
+                                  capacity_factor=0.5)
+        d, f = cfg.d_model, cfg.moe_d_ff_eff
+        params = {"router": rng.standard_normal((d, e)) * d ** -0.5,
+                  "we_gate": rng.standard_normal((e, d, f)) * d ** -0.5,
+                  "we_up": rng.standard_normal((e, d, f)) * d ** -0.5,
+                  "we_down": rng.standard_normal((e, f, d)) * f ** -0.5}
+        params = {n: torch.from_numpy(w.astype(np.float32))
+                  for n, w in params.items()}
+        if form == "sharded":
+            for n in ("we_gate", "we_up", "we_down"):
+                params[n] = local_shard(params[n], P("model", None, None),
+                                        mesh).contiguous()
+        x = local_shard(torch.from_numpy(rng.standard_normal(
+            (4, 32, d), dtype=np.float32)), P("data", None, None), mesh)
+        fn = moe_apply_sharded if form == "sharded" else moe_apply_capsharded
+        (y_c, aux_c), (y_g, aux_g) = (
+            fn({n: w.to(where) for n, w in params.items()},
+               x.to(where), cfg, mesh) for where in ("cpu", dev))
+        out[f"moe_{form}"] = max(
+            [(y_g.cpu() - y_c).abs().max().item()]
+            + [abs(float(aux_g[n]) - float(aux_c[n]))
+               for n in ("moe_aux_loss", "moe_drop_frac")])
+        out[f"moe_{form}_drop_equal"] = (float(aux_g["moe_drop_frac"])
+                                         == float(aux_c["moe_drop_frac"]))
+        out[f"moe_{form}_drop"] = float(aux_c["moe_drop_frac"])
+    return out
+
+
+def _scale_decode_inputs(dev, meshes) -> list:
+    """The full-width decode cases: the whole q, caches and pos drawn
+    from one seed on every rank, and this rank's slices of them."""
+    import torch
+    from repro_torch.serving.decode import decode_specs
+    from repro_torch.sharding.specs import PartitionSpec as P
+    from repro_torch.sharding.specs import local_shard
+    cases = []
+    for label, arch, mesh_name, dname in SCALE_DECODE:
+        mesh = meshes[mesh_name]
+        dtype = getattr(torch, dname)
+        h, kv, hd = VERIFY_HEADS[arch]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+        q, kc, vc = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((SCALE_B, h, hd), (SCALE_B, SCALE_S, kv, hd),
+                                   (SCALE_B, SCALE_S, kv, hd)))
+        pos = torch.tensor(SCALE_POS, dtype=torch.int32, device=dev)
+        qs, cs, ps = decode_specs(mesh)
+        rows = P(qs[0], None, None, None)     # this rank's rows, every slot
+        s_loc = SCALE_S // dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+        cases.append({
+            "label": label, "arch": arch, "mesh": mesh_name, "dtype": dname,
+            "H": h, "KV": kv, "hd": hd, "s_loc": s_loc,
+            "s_start": mesh.get_local_rank("model") * s_loc,
+            "local": [local_shard(a, s, mesh).contiguous() for a, s in
+                      ((q, qs), (kc, cs), (vc, cs), (pos, ps))],
+            "rows": [local_shard(a, s, mesh).contiguous() for a, s in
+                     ((q, qs), (kc, rows), (vc, rows), (pos, ps))]})
+        del q, kc, vc
+    return cases
+
+
+def _scale_decode(dev, meshes, rank: int) -> dict:
+    """The seq-parallel decode at full width.  The main path (every
+    count reset just before, read just after): ``distributed_decode_
+    attention`` on each of SCALE_DECODE's cases, the partials form once
+    a case (f32 on cuda_core, bf16 on mma).  Then the gates on this
+    rank's rows: the distributed output against one-rank
+    ``dense_decode_attention`` over the whole cache and against its
+    plain version (TOL, bf16 two steps too), the rank's partials
+    against the plain partials.  Then the timings: the partials kernel,
+    its library call and its plain version in turns on rank 0 alone (the
+    other ranks wait at a barrier), and the combine's three all-reduces
+    on every rank (host clock, gloo through the host: printed, not
+    gated)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_partial,
+        dense_decode_attention_partial_plain, dense_decode_attention_plain)
+    from repro_torch.serving.decode import distributed_decode_attention
+    cases = _scale_decode_inputs(dev, meshes)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    outs = [distributed_decode_attention(*c["local"], meshes[c["mesh"]])
+            for c in cases]
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    bodies = dict(_build.bodies["dense_decode_attention_partial"])
+    res = {"launches": launches, "bodies": bodies, "cases": []}
+    for c, out in zip(cases, outs):
+        ql, kl, vl, pl = c["local"]
+        qr, kr, vr, pr = c["rows"]
+        one = dense_decode_attention(qr, kr, vr, pr)
+        plain = dense_decode_attention_plain(qr, kr, vr, pr)
+        row = {"label": c["label"]}
+        for name, ref in (("one_rank", one), ("plain", plain)):
+            err, rel, excess, ok = _errors(out, ref, c["dtype"], TOL, False)
+            row[name] = {"max_abs_err": err, "bf16_step_excess": excess,
+                         "ok": ok}
+        got = dense_decode_attention_partial(ql, kl, vl, pl, c["s_start"])
+        want = dense_decode_attention_partial_plain(ql, kl, vl, pl,
+                                                    c["s_start"])
+        part = _partials_errors(got, want)
+        part["ok"] = (part["empty_exact"] and max(
+            part["m"], part["l"], part["acc_over_l"]) <= TOL["float32"])
+        row["partials"] = part
+        row["finite"] = bool(torch.isfinite(out).all())
+        res["cases"].append(row)
+    # the combine's collectives alone, on every rank
+    for c in cases:
+        b, h, hd = c["local"][0].shape
+        acc = torch.ones((b, h, hd), device=dev)
+        m, l = (torch.ones((b, h, 1), device=dev) for _ in range(2))
+        group = meshes[c["mesh"]].get_group("model")
+        for _ in range(2):
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SCALE_TIMED_CALLS):
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(acc, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(l, op=dist.ReduceOp.SUM, group=group)
+        torch.cuda.synchronize()
+        res.setdefault("combine_ms", {})[c["label"]] = (
+            (time.perf_counter() - t0) * 1e3 / SCALE_TIMED_CALLS)
+    dist.barrier()
+    if rank == 0:
+        res["timing"] = [_scale_decode_timing(c) for c in cases]
+    dist.barrier()
+    return res
+
+
+def _scale_decode_timing(c) -> dict:
+    """Rank 0's partials kernel on its slice in turns with the library
+    call (``_scaled_dot_product_efficient_attention`` with the log-sum-exp,
+    which returns the same partial; K/V repeated to every query head, a
+    float mask) and the plain version: kernel, library, plain, plain,
+    library, kernel; also SDPA with a boolean mask and ``enable_gqa``,
+    and the kernel per back-to-back call.  Bound: the bytes of the valid
+    slots' K and V (the kernel reads no other), q, the partials and pos;
+    4 * H * hd operations a valid slot."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention_partial, dense_decode_attention_partial_plain)
+    ql, kl, vl, pl = c["local"]
+    b, h, hd = ql.shape
+    s_loc, kv, s0 = c["s_loc"], c["KV"], c["s_start"]
+    es = ql.element_size()
+    valid = int((pl.long().cpu() - s0 + 1).clamp(0, s_loc).sum())
+    nbytes = (2 * valid * kv * hd * es + b * h * hd * es
+              + b * h * (hd + 2) * 4 + 4 * b)
+    flops = 4 * h * hd * valid
+    kg = kl.permute(0, 2, 1, 3).repeat_interleave(h // kv, dim=1).contiguous()
+    vg = vl.permute(0, 2, 1, 3).repeat_interleave(h // kv, dim=1).contiguous()
+    ok = (s0 + torch.arange(s_loc, device=ql.device)[None, :]
+          <= pl.long()[:, None])                               # (B, S_loc)
+    bias = torch.where(ok, 0.0, -1e30).to(ql.dtype)[:, None, None, :].expand(
+        b, h, 1, s_loc).contiguous()
+    q4 = ql[:, :, None, :]
+
+    def kernel():
+        return dense_decode_attention_partial(ql, kl, vl, pl, s0)
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            q4, kg, vg, bias, True)
+
+    def plain():
+        return dense_decode_attention_partial_plain(ql, kl, vl, pl, s0)
+    n = SCALE_TIMED_CALLS
+    turns = [device_ms(f, n=n) for f in (kernel, library, plain, plain,
+                                         library, kernel)]
+    b_ms, b_by = bound(nbytes, flops, c["dtype"])
+    got, want = kernel(), plain()
+    return {"label": c["label"], "kernel": "dense_decode_attention_partial",
+            "dtype": c["dtype"],
+            "shape": {"model": c["arch"], "mesh": c["mesh"], "B": b, "H": h,
+                      "KV": kv, "hd": hd, "S": SCALE_S, "S_loc": s_loc,
+                      "s_start": s0, "pos": SCALE_POS},
+            "body": "mma" if c["dtype"] == "bfloat16" else "cuda_core",
+            "max_abs_err": (got[0] / got[2].clamp(min=1e-30) - want[0]
+                            / want[2].clamp(min=1e-30)).abs().max().item(),
+            "ms": (turns[0] + turns[5]) / 2, "prev_ms": None,
+            "library_ms": (turns[1] + turns[4]) / 2,
+            "plain_ms": (turns[2] + turns[3]) / 2, "turns_ms": turns,
+            "library_note": "torch.ops.aten._scaled_dot_product_efficient_"
+                            "attention(compute_log_sumexp=True) over the "
+                            "slice, K/V repeated to the query heads",
+            "library_sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                q4, kl.permute(0, 2, 1, 3), vl.permute(0, 2, 1, 3),
+                attn_mask=ok[:, None, None, :], enable_gqa=True), n=n),
+            "call_ms": call_ms(kernel, n=2 * n),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bytes_whole_slice": 2 * b * kv * s_loc * hd * es,
+            "valid_slots": valid, "bytes": nbytes, "flops": flops}
+
+
+def _scale_moe(dev, meshes, rank: int, out_dir: str) -> dict:
+    """The sharded MoE at full width on the 1x4 mesh: kimi-k2's 384
+    experts through ``moe_apply_sharded`` (each rank draws and holds only
+    its 96, 8.46 GB), then mixtral-8x7b's 8 through
+    ``moe_apply_capsharded`` (every rank all 8, its quarter of each
+    one's places), SCALE_TOKENS tokens each.  Each rank's local part
+    (``moe_*_local``, no collective) runs once under
+    ``torch.cuda.set_sync_debug_mode("error")``; each form's y is saved
+    for the parent's single-process oracle; rank 0 reads nvidia-smi's
+    memory while every rank holds its experts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    mesh = meshes["1x4"]
+    n_model = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    r = mesh.get_local_rank("model")
+    res = {}
+    for label, arch, form in SCALE_MOE:
+        cfg = get_config(arch)
+        e_loc = cfg.n_experts // n_model if form == "sharded" else None
+        experts = (range(r * e_loc, (r + 1) * e_loc) if e_loc
+                   else range(cfg.n_experts))
+        params, x = _scale_moe_inputs(cfg, dev, experts)
+        local = moe.moe_sharded_local if e_loc else moe.moe_capsharded_local
+        apply = moe.moe_apply_sharded if e_loc else moe.moe_apply_capsharded
+        local(params, x, cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            local(params, x, cfg, mesh)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        dist.barrier()
+        smi = None
+        if rank == 0:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit,memory.used,"
+                 "memory.total", "--format=csv,noheader"],
+                capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]
+        dist.barrier()
+        t0 = time.perf_counter()
+        y, aux = apply(params, x, cfg, mesh)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        torch.save(y.cpu(), os.path.join(out_dir, f"{label}_rank{rank}.pt"))
+        res[label] = {"experts_held": len(experts),
+                      "expert_bytes": sum(params[n].numel()
+                                          * params[n].element_size()
+                                          for n in ("we_gate", "we_up",
+                                                    "we_down")),
+                      "moe_aux_loss": float(aux["moe_aux_loss"]),
+                      "moe_drop_frac": float(aux["moe_drop_frac"]),
+                      "finite": bool(torch.isfinite(y).all()),
+                      "wall_ms": wall_ms, "nvidia_smi": smi,
+                      "no_host_sync": True}
+        del params, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def scale_rank(rank: int, store_path: str, out_dir: str) -> None:
+    """One rank of the scale phase (spawned): a gloo world of SCALE_WORLD
+    through a FileStore, a 2x2 and a 1x4 mesh, the f32 cell, the decode
+    and the MoE; its record into ``out_dir/rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    from repro_torch.kernels import _build
+    _build.library()                 # the parent's build, loaded
+    dist.init_process_group("gloo", store=dist.FileStore(store_path,
+                                                         SCALE_WORLD),
+                            rank=rank, world_size=SCALE_WORLD)
+    meshes = _scale_meshes("cuda")
+    rec = {"rank": rank,
+           "coords": {k: list(m.get_coordinate()) for k, m in meshes.items()}}
+    rec["small"] = _scale_small(dev, meshes)
+    rec["decode"] = _scale_decode(dev, meshes, rank)
+    torch.cuda.empty_cache()
+    rec["moe"] = _scale_moe(dev, meshes, rank, out_dir)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _scale_oracle(dev, out_dir: str) -> list:
+    """After the ranks exit: the port's single-process ``moe_apply`` over
+    every expert of each SCALE_MOE layer (kimi-k2: all 384, 33.8 GB) on
+    the same tokens, against each rank's y (TOL in bf16, two bf16 steps)
+    and drop fraction (exactly)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_apply
+    rows = []
+    for label, arch, form in SCALE_MOE:
+        cfg = get_config(arch)
+        params, x = _scale_moe_inputs(cfg, dev, range(cfg.n_experts))
+        t0 = time.perf_counter()
+        y, aux = moe_apply(params, x, cfg)
+        torch.cuda.synchronize()
+        row = {"label": label, "form": form, "oracle_wall_ms":
+               (time.perf_counter() - t0) * 1e3,
+               "oracle_expert_bytes": sum(params[n].numel()
+                                          * params[n].element_size()
+                                          for n in ("we_gate", "we_up",
+                                                    "we_down")),
+               "moe_drop_frac": float(aux["moe_drop_frac"]),
+               "moe_aux_loss": float(aux["moe_aux_loss"]), "ranks": []}
+        for r in range(SCALE_WORLD):
+            got = torch.load(os.path.join(out_dir, f"{label}_rank{r}.pt")
+                             ).to(dev)
+            err, _, excess, ok = _errors(got, y, "bfloat16", TOL, False)
+            row["ranks"].append({"max_abs_err": err,
+                                 "bf16_step_excess": excess, "ok": ok})
+        rows.append(row)
+        del params, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scale(dev) -> dict:
+    """The scale phase: SCALE_WORLD ranks spawned once (spawn: this
+    process holds a CUDA context) on cuda:0 over gloo, the kernel library
+    built here first so they only load it.  Gates: the f32 cell card =
+    CPU; each decode case's output against one-rank
+    ``dense_decode_attention`` and the plain version, each rank's
+    partials against the plain partials, an empty model shard in the
+    2x2 cases; the partials form launched once a case on the main path,
+    f32 on cuda_core and bf16 on mma; the MoE forms free of host syncs,
+    finite, and equal to the single-process oracle (``_scale_oracle``).
+    Then ``python -m repro_torch.launch.serve`` at its defaults on the
+    card: exit 0, every request done.  Returns (the main path's
+    launches on rank 0, the timing cases)."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(scale_rank, args=(os.path.join(tmp, "store"), tmp),
+                           nprocs=SCALE_WORLD, join=True,
+                           start_method="spawn")
+        ranks_s = time.perf_counter() - t0
+        recs = []
+        for r in range(SCALE_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        oracle = _scale_oracle(dev, tmp)
+    bad = []
+    for rec in recs:
+        small = rec["small"]
+        emit({"phase": "scale", "check": "f32 cell, card = CPU",
+              "rank": rec["rank"], "coords": rec["coords"], **small})
+        if not all(small[k] <= SCALE_CARD_CPU_TOL for k in small
+                   if k.startswith(("decode_", "moe_"))
+                   and not k.endswith(("_drop_equal", "_drop"))) or not all(
+                small[f"moe_{f}_drop_equal"] for f, _ in SCALE_SMALL_MOE):
+            bad.append(f"rank {rec['rank']}: f32 cell card != CPU {small}")
+        dec = rec["decode"]
+        emit({"phase": "scale", "rank": rec["rank"],
+              "peak_gb": rec["peak_gb"], "launches": {
+                  "dense_decode_attention_partial":
+                      dec["launches"]["dense_decode_attention_partial"]},
+              "bodies": dec["bodies"], "combine_ms": dec["combine_ms"],
+              "cases": dec["cases"], "moe": rec["moe"]})
+        want_bodies = {"mma": 2, "cuda_core": 1}
+        others = {k: n for k, n in dec["launches"].items()
+                  if n and k != "dense_decode_attention_partial"}
+        if dec["bodies"] != want_bodies or others or dec["launches"][
+                "dense_decode_attention_partial"] != len(SCALE_DECODE):
+            bad.append(f"rank {rec['rank']}: main-path launches "
+                       f"{dec['launches']}, bodies {dec['bodies']}; want "
+                       f"{len(SCALE_DECODE)} partials launches, "
+                       f"{want_bodies}")
+        for row in dec["cases"]:
+            if not (row["one_rank"]["ok"] and row["plain"]["ok"]
+                    and row["partials"]["ok"] and row["finite"]):
+                bad.append(f"rank {rec['rank']} {row['label']}: {row}")
+        for label, m in rec["moe"].items():
+            if not m["finite"]:
+                bad.append(f"rank {rec['rank']} {label}: non-finite y")
+    for label, _, mesh, _ in SCALE_DECODE:
+        empty = [row["partials"]["empty_rows"] for rec in recs
+                 for row in rec["decode"]["cases"] if row["label"] == label]
+        if mesh == "2x2" and not any(empty):
+            bad.append(f"{label}: no model shard was empty for any row")
+    for row in oracle:
+        drops = [rec["moe"][row["label"]]["moe_drop_frac"] for rec in recs]
+        aux = [rec["moe"][row["label"]]["moe_aux_loss"] for rec in recs]
+        row["rank_drop_frac"], row["rank_aux_loss"] = drops, aux
+        emit({"phase": "scale", "check": "sharded MoE = single-process "
+                                         "moe_apply over every expert",
+              **row})
+        if (not all(r["ok"] for r in row["ranks"])
+                or any(d != row["moe_drop_frac"] for d in drops)
+                or any(abs(a - row["moe_aux_loss"])
+                       > 1e-6 * max(1.0, abs(row["moe_aux_loss"]))
+                       for a in aux)):
+            bad.append(f"{row['label']}: sharded != single-process {row}")
+    timing = recs[0]["decode"]["timing"]
+    for case in timing:
+        emit({"phase": "scale", **case})
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=
+                                               os.path.join(ROOT, "src")))
+    summary = next((ln for ln in cli.stdout.splitlines()
+                    if ln.startswith("[serve]")), None)
+    emit({"phase": "scale", "check": "python -m repro_torch.launch.serve "
+                                     "at its defaults on the card",
+          "returncode": cli.returncode, "summary": summary,
+          "seconds": time.perf_counter() - t0, "ranks_seconds": ranks_s,
+          "stderr_tail": cli.stderr[-2000:] if cli.returncode else ""})
+    if cli.returncode != 0 or not summary or " 16/16 requests" not in summary:
+        bad.append(f"launch.serve: exit {cli.returncode}, {summary}")
+    if bad:
+        raise AssertionError("scale phase: " + "; ".join(bad))
+    return {"scale": recs[0]["decode"]["launches"]}, timing
+
+
 #: the planning phase: (strategy, horizon) pairs both engines run (the
 #: scalar proposal loop is slow, so it runs at 30 slots), and the seeds
 #: of the study's grid on ``baseline`` at the default horizon
@@ -4934,7 +5556,9 @@ def kernel_line(cases, launches_by_run) -> dict:
             "selective_scan": lambda c: c["shape"]["T"] == 1,
             "flash_attention": lambda c: c["shape"]["label"] == "train",
             "selective_scan_backward": lambda c: (c["shape"]["model"]
-                                                  == "falcon-mamba-7b")}
+                                                  == "falcon-mamba-7b"),
+            "dense_decode_attention_partial": lambda c: (
+                c["shape"]["model"] == "smollm-360m")}
     out = []
     for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
@@ -5025,6 +5649,9 @@ def main() -> int:
     timed("parity", lambda: parity(dev))
     launches = timed("serve", lambda: serve(dev))
     launches.update(timed("train", lambda: train(dev)))
+    scale_launches, scale_cases = timed("scale", lambda: scale(dev))
+    launches.update(scale_launches)
+    cases = cases + scale_cases
     emit({"phase": "timing", "seconds": seconds,
           "total": time.perf_counter() - t_start})
     emit(kernel_line(cases, launches))

@@ -15,6 +15,14 @@
 //   must equal the CPU's, and tensor cores would round f32 inputs.
 // * decode_split, the mma body (bf16, 16-byte aligned tensors, and hd %
 //   16 == 0 up to 128 with G <= 16, or hd 256 with G <= 8): below.
+//
+// Either body writes, in place of the normalised output, the f32 softmax
+// partials of its slots when handed a Partials (the dense kernel's
+// partials form, the on-device body of the seq-parallel flash-decode,
+// serving/decode.py): acc (G * hd, unnormalised), m and l (G), m in the
+// natural units of the scores s * scale.  A row with no valid slot
+// writes acc = 0, l = 0 and m = kNegInf exactly, as the reference's
+// masked max gives (src/repro/serving/decode.py::_local_flash_decode).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -26,6 +34,15 @@ namespace rt {
 
 constexpr int kDecodeThreads = 128;
 constexpr int kDecodeTile = 64;   // logical KV slots per tile
+
+// Where a body writes its softmax partials instead of its output: acc at
+// the output's offset, m and l at the (row, head) offset.  A null acc
+// means the body writes the normalised output.
+struct Partials {
+  float* acc = nullptr;
+  float* m = nullptr;
+  float* l = nullptr;
+};
 
 // Floats of dynamic shared memory decode_row needs for G query heads.
 inline size_t decode_smem_floats(int G, int hd) {
@@ -44,7 +61,8 @@ __device__ __forceinline__ void decode_row(const T* __restrict__ q,
                                            const int* __restrict__ table,
                                            int klast, int bs, int KV, int kvh,
                                            int hd, int G, float scale,
-                                           T* __restrict__ out, float* smem) {
+                                           T* __restrict__ out, float* smem,
+                                           Partials part = {}) {
   float* qs = smem;                            // G * hd
   float* ks = qs + G * hd;                     // kDecodeTile * (hd + 1)
   float* vs = ks + kDecodeTile * (hd + 1);     // kDecodeTile * hd
@@ -118,6 +136,14 @@ __device__ __forceinline__ void decode_row(const T* __restrict__ q,
     __syncthreads();
   }
 
+  if (part.acc != nullptr) {
+    for (int e = threadIdx.x; e < G * hd; e += blockDim.x) part.acc[e] = acc[e];
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+      part.m[g] = m[g];
+      part.l[g] = l[g];
+    }
+    return;
+  }
   for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
     const int g = e / hd;
     out[e] = from_f32<T>(acc[e] / fmaxf(l[g], 1e-30f));
@@ -204,6 +230,7 @@ constexpr int kMaxDecodeSplits = 8;                      // portable cluster
 constexpr int kMaxSplitHeads = 16;                       // G on the m16 side
 constexpr int kMaxSplitHeadsWide = 8;                    // G on the n8 side
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of decode_split: the K/V ring, reused after the
 // walk for the warps' and the CTA's partials.
@@ -226,7 +253,8 @@ __device__ __forceinline__ void decode_split(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, const int* __restrict__ table,
     int klast, int bs, int KV, int kvh, int G, float scale_log2,
-    __nv_bfloat16* __restrict__ out, unsigned char* smem_raw) {
+    __nv_bfloat16* __restrict__ out, unsigned char* smem_raw,
+    Partials part = {}) {
   constexpr bool kWide = HD > 128;   // slots on m16, heads on n8
   constexpr int kStride = HD + 8;    // smem row, in bf16
   constexpr int kRowChunks = HD / 8; // 16-byte chunks per slot row
@@ -556,7 +584,17 @@ __device__ __forceinline__ void decode_split(
         l += pl[sp] * a;
         acc += po[sp] * a;
       }
-    out[e] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    if (part.acc != nullptr) {
+      // m from the log2 domain back to the scores' units; an empty row
+      // keeps the mask value itself
+      part.acc[e] = acc;
+      if (d == 0) {
+        part.m[g] = mx == kNegInf ? kNegInf : mx * kLn2;
+        part.l[g] = l;
+      }
+    } else {
+      out[e] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    }
   }
   cluster.sync();
 }

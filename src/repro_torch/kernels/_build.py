@@ -47,6 +47,7 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
                             "ring_chunk_attention": 0,
                             "flash_attention": 0,
                             "dense_decode_attention": 0,
+                            "dense_decode_attention_partial": 0,
                             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
                             "selective_scan": 0,
                             "selective_scan_backward": 0,
@@ -64,7 +65,8 @@ bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "paged_prefill_attention",
                     "paged_chunk_attention", "ring_chunk_attention",
-                    "dense_decode_attention", "quant_matmul_int8",
+                    "dense_decode_attention",
+                    "dense_decode_attention_partial", "quant_matmul_int8",
                     "quant_matmul_int4")},
     "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
     "paged_cross_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
@@ -202,6 +204,11 @@ _SIGNATURES = {
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _I, _I, _P),
+    # q, k_cache, v_cache, pos, acc, m, l, B, H, KV, hd, S, s_start,
+    # scale, dtype, body, splits, stream
+    "rt_dense_decode_attention_partial": (_P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _F, _I, _I,
+                                          _I, _P),
     # x, q, s, out, M, K, N, group (unused), dtype, body, splits, stream
     "rt_quant_matmul_int8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),

@@ -11,7 +11,12 @@ above ``pos``:
   (``csrc/paged_decode_attention.cu``);
 * ``decode_attention_pallas`` -> :func:`dense_decode_attention`, against
   the slot engines' dense caches ``(B, S, KV, hd)`` of one layer, read
-  in place (``csrc/dense_decode_attention.cu``).
+  in place (``csrc/dense_decode_attention.cu``);
+* the same kernel's partials form, :func:`dense_decode_attention_partial`:
+  one rank's slice of a sequence-sharded dense cache, slot j being
+  logical slot ``s_start + j``, returning the f32 softmax partials
+  ``(acc, m, l)`` of ``repro/serving/decode.py::_local_flash_decode``,
+  which ``serving/decode.py`` combines across the ranks.
 
 Both kernels share their bodies (``csrc/decode_attention.cuh``), named
 by one rule, :func:`decode_body`, so on the card a dense row and a paged
@@ -272,3 +277,82 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream),
         "dense_decode_attention")
     return out
+
+
+def dense_decode_attention_partial_plain(q: torch.Tensor,
+                                         k_cache: torch.Tensor,
+                                         v_cache: torch.Tensor,
+                                         pos: torch.Tensor, s_start: int,
+                                         scale: Optional[float] = None
+                                         ) -> tuple:
+    """``_local_flash_decode`` of ``repro/serving/decode.py`` over the
+    port's dense layout: q (B,H,hd); the rank's cache slice (B,S_loc,KV,
+    hd), slot j being logical slot ``s_start + j``, valid for ``s_start +
+    j <= pos``; pos (B,).  Returns float32 ``acc`` (B,H,hd), unnormalised,
+    and ``m``, ``l`` (B,H,1): a row with no valid slot has m = NEG_INF,
+    l = 0, acc = 0."""
+    b, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    g = h // kv
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(b, kv, g, hd).float()
+    scores = torch.einsum("bngh,bsnh->bngs", qg, k_cache.float()) * scale
+    kpos = s_start + torch.arange(s, device=q.device)
+    valid = (kpos[None, :] <= pos.long()[:, None])[:, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1, keepdim=True)                        # (B,KV,G,1)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bngs,bsnh->bngh", p, v_cache.float())
+    return acc.reshape(b, h, hd), m.reshape(b, h, 1), l.reshape(b, h, 1)
+
+
+def dense_decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, pos: torch.Tensor,
+                                   s_start: int,
+                                   scale: Optional[float] = None,
+                                   _body: Optional[str] = None) -> tuple:
+    """The partials form of :func:`dense_decode_attention`; see
+    :func:`dense_decode_attention_partial_plain` for the contract.  The
+    kernel reads ``pos`` on the device and cuts each row's last slot at
+    ``pos - s_start``; the body and split count are the dense kernel's
+    (:func:`decode_body`, :func:`decode_splits` over the slice's
+    ``S_loc``).  ``_body`` as for :func:`paged_decode_attention`."""
+    if q.device.type == "cpu":
+        return dense_decode_attention_partial_plain(q, k_cache, v_cache, pos,
+                                                    s_start, scale)
+    b, h, hd = q.shape
+    bc, s, kv, hd_k = k_cache.shape
+    scale = hd ** -0.5 if scale is None else scale
+    tensors = (q, k_cache, v_cache, pos)
+    if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
+        raise ValueError("dense_decode_attention_partial: all tensors must "
+                         "lie on one CUDA device")
+    if (hd_k != hd or bc != b or v_cache.shape != k_cache.shape or h % kv
+            or pos.shape != (b,) or s_start < 0):
+        raise ValueError(
+            f"dense_decode_attention_partial: shapes q {tuple(q.shape)}, "
+            f"caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)}, pos "
+            f"{tuple(pos.shape)}, s_start {s_start} do not fit")
+    if (k_cache.dtype != q.dtype or v_cache.dtype != q.dtype
+            or pos.dtype != torch.int32):
+        raise TypeError("dense_decode_attention_partial: q and caches must "
+                        "share a dtype; pos must be int32")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("dense_decode_attention_partial: the kernel takes "
+                         "contiguous tensors")
+    acc = torch.empty((b, h, hd), dtype=torch.float32, device=q.device)
+    m = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty((b, h, 1), dtype=torch.float32, device=q.device)
+    body, splits = _body_and_splits(q, k_cache, v_cache, acc, kv, s, _body)
+    lib = _build.library()
+    _build.launches["dense_decode_attention_partial"] += 1
+    _build.bodies["dense_decode_attention_partial"][body] += 1
+    _build.check(lib.rt_dense_decode_attention_partial(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), b, h, kv, hd, s,
+        int(s_start), float(scale), _build.dtype_code(q.dtype),
+        _build.BODY_CODES[body], splits,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "dense_decode_attention_partial")
+    return acc, m, l

@@ -37,7 +37,9 @@ def test_no_jax_or_reference_imports(path):
 def test_engine_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import repro_torch.serving.engine, repro_torch.bridge, "
-            "repro_torch.training, repro_torch.launch.train; "
+            "repro_torch.training, repro_torch.launch.train, "
+            "repro_torch.launch.serve, repro_torch.launch.mesh, "
+            "repro_torch.serving.decode, repro_torch.sharding.specs; "
             "bad = [m for m in sys.modules "
             "if sys.modules[m] is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "

@@ -35,9 +35,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     DECODE_CHUNK, DECODE_MAX_SPLITS, SMEM_PER_BLOCK, WIDE_CLUSTERS,
-    decode_body, decode_smem_bytes, decode_splits, dense_decode_attention,
-    dense_decode_attention_plain, paged_decode_attention,
-    paged_decode_attention_plain)
+    NEG_INF, decode_body, decode_smem_bytes, decode_splits,
+    dense_decode_attention, dense_decode_attention_partial,
+    dense_decode_attention_partial_plain, dense_decode_attention_plain,
+    paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     CROSS_MIN_TILES, PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
     cross_body, cross_splits, flash_attention, flash_attention_plain,
@@ -1556,6 +1557,67 @@ def test_cuda_dense_decode_matches_plain(cuda_device, dtype, b, h, kv, s, d):
     tables = torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None]
     assert torch.equal(got, paged_decode_attention(
         args[0], args[1], args[2], tables, args[3]))
+
+
+def _partial_pos(rng, b, s, s_start):
+    """Logical positions over a slice [s_start, s_start + s): a row
+    before it (an empty slice where s_start > 0), one on its first slot,
+    one on its last, one past it (every slot valid), the rest anywhere."""
+    pos = rng.integers(0, s_start + s + 8, size=b).astype(np.int32)
+    pos[:4] = [max(s_start - 1, 0), s_start, s_start + s - 1,
+               s_start + s + 5][:b]
+    return pos
+
+
+def _partials_close(got, want, tol) -> None:
+    """(acc, m, l) of the kernel against the plain version's: m within
+    ``tol`` of max(1, |m|), l likewise, and acc / l (the output's scale)
+    within ``tol``; an empty row exactly (acc 0, l 0, m NEG_INF)."""
+    (acc, m, l), (acc_p, m_p, l_p) = ([x.float().cpu() for x in y]
+                                      for y in (got, want))
+    empty = l_p == 0
+    assert torch.equal(empty, l == 0)
+    assert torch.equal(m[empty], torch.full_like(m[empty], NEG_INF))
+    assert torch.equal(acc[empty.expand_as(acc)],
+                       torch.zeros_like(acc[empty.expand_as(acc)]))
+    assert ((m - m_p).abs() / m_p.abs().clamp(min=1)).max() <= tol
+    assert ((l - l_p).abs() / l_p.abs().clamp(min=1)).max() <= tol
+    assert _err(acc / l.clamp(min=1e-30), acc_p / l_p.clamp(min=1e-30)) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s_start", [0, 300])
+@pytest.mark.parametrize("b,h,kv,s,d", [
+    (8, 15, 5, 512, 64),      # smollm-360m's heads
+    (4, 6, 2, 40, 32),
+    (4, 64, 8, 256, 128),     # qwen2-72b's heads: G 8, hd 128
+    (4, 4, 2, 48, 256),       # the wide layout
+])
+def test_cuda_dense_decode_partial_matches_plain(cuda_device, dtype, s_start,
+                                                 b, h, kv, s, d):
+    """The dense kernel's partials form over a slice starting at logical
+    slot ``s_start``: each row's (acc, m, l) within 2e-5 of the plain
+    version's (f32 arithmetic on both sides, in another order; m in the
+    scores' units, back from the mma body's log2 domain), an empty slice
+    exactly as the reference's masked max leaves it, and launched on the
+    body ``decode_body`` names, counted by the form's own counter."""
+    rng = np.random.default_rng(23)
+    q, kc, vc, _ = _dense_inputs(rng, b, h, kv, s, d)
+    dt = getattr(torch, dtype)
+    args = [t(a).to(cuda_device, dt) for a in (q, kc, vc)] + [
+        t(_partial_pos(rng, b, s, s_start)).to(cuda_device)]
+    name = "dense_decode_attention_partial"
+    body = decode_body(dt, d, h // kv)
+    n0, nb0 = _build.launches[name], _build.bodies[name][body]
+    got = dense_decode_attention_partial(*args, s_start)
+    assert _build.launches[name] == n0 + 1
+    assert _build.bodies[name][body] == nb0 + 1
+    assert [x.dtype for x in got] == [torch.float32] * 3
+    want = dense_decode_attention_partial_plain(*args, s_start)
+    _partials_close(got, want, CARD_TOL["float32"])
+    if s_start > 0:
+        assert bool((got[2][0] == 0).all())      # the row before the slice
 
 
 @pytest.mark.cuda
