@@ -330,7 +330,7 @@ one JSON line:
 
 6. ``train``  — smollm-360m at full width, 2 layers, float32, on the
    card against the CPU from the same weights: the loss (1e-5 relative)
-   at each of three steps of ``make_train_step``'s body, and at the
+   at each of two steps of ``make_train_step``'s body, and at the
    first every gradient leaf (1e-5 of max(1, |g|)) and AdamW fed the
    same gradients on both sides (1e-6); then smollm-360m at full
    width and depth in bf16 with f32 AdamW state, 8 steps at B 8, S 4096
@@ -388,6 +388,22 @@ one JSON line:
    steps of every rank's, the drop fraction exactly.  Then ``python -m
    repro_torch.launch.serve`` at its defaults on the card: exit 0, every
    request done.
+
+8. ``dryrun`` — the dry-run (``launch/dryrun.py``: one rank's
+   partitioned step as DTensors over a fake process group, fake tensors,
+   no memory used) in spawned worker processes
+   (the fake group never meets the scale phase's gloo ranks), one line a
+   cell of ``DRYRUN_CELLS``: smollm-360m prefill_32k / decode_32k on
+   16x16, mixtral-8x7b decode_32k on 2x16x16, falcon-mamba-7b
+   long_500k, and smollm-360m long_500k, which the reference's rule
+   skips (the train_4k cells of kimi-k2-1t-a32b and smollm-360m, the
+   costliest, run in the full sweep only).  Gates: each status as
+   listed, flops > 0 where it ran, and every collective kind torch's
+   ``CommDebugMode`` saw the cell's DTensors issue counted as often by
+   the dry-run's recorder.  Then one line, not gated: the dry-run's
+   peak bytes and flops of smollm-360m's train step on a 1x1 mesh at
+   the train phase's B 8, S 4096, beside that phase's measured peak and
+   a ``FlopCounterMode`` count of one of its real steps.
 
 Each phase ends with a line of its wall seconds, as each serve run's and
 each profile's line carries its own.  It then prints the kernel list,
@@ -947,7 +963,9 @@ def target_cases(dev) -> list:
 #: "vision_prefill": Model.prefill's decoder self-attention over 8
 #: prompts of 128 (hd 64 G 1 and llama-3.2-vision-90b's hd 128 G 8, on
 #: wgmma, mma in turns); "hd128_long": one row of 4096 at hd 128, where
-#: the tensor cores and not latency set the pace (wgmma, mma in turns)
+#: the tensor cores and not latency set the pace (wgmma, mma in turns);
+#: "zamba_train": zamba2-7b's train shape (its train run's B 2, S 2048,
+#: 32 / 32 heads of 112, causal), on mma (no wgmma body at hd 112)
 FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
                ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
@@ -957,7 +975,8 @@ FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                 0),
                ("seamless_prefill", "bfloat16", 8, 128, 16, 16, 64, True, 0),
                ("vision_prefill", "bfloat16", 8, 128, 64, 8, 128, True, 0),
-               ("hd128_long", "bfloat16", 1, 4096, 32, 8, 128, True, 0)]
+               ("hd128_long", "bfloat16", 1, 4096, 32, 8, 128, True, 0),
+               ("zamba_train", "bfloat16", 2, 2048, 32, 32, 112, True, 0)]
 FLASH_LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 
@@ -2325,7 +2344,8 @@ PIPE_OF = {"pipe_paged": "paged", "pipe_slot": "slot"}
 
 
 def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
-                   params_cpu=None, draft_cfg=None) -> dict:
+                   params_cpu=None, draft_cfg=None,
+                   cpu_all: bool = True) -> dict:
     """One trace (``n_new`` new tokens a request) through each (engine,
     format, speculation) of ``runs`` on the card and on the CPU, from the
     same f32 weights (``params_cpu``, else drawn from the seed on the
@@ -2343,7 +2363,12 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
     engine's stages are placed round-robin over a seeded edge network
     (``make_network``), so every stage boundary is a hop between two
     nodes: its simulated ``transfer_ms``, ``transfer_mb`` and hops must
-    be equal on both devices and not empty."""
+    be equal on both devices and not empty.  ``cpu_all`` False skips the
+    CPU's side of a run that the card already holds to a run checked
+    against the CPU: a pipelined run (streams and stamps equal to the
+    monolithic run's; its transfers then only held non-empty, each stage
+    on its own node) and a speculative run that the card's engine gated
+    off (streams and stamps equal to the plain run's)."""
     import torch
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
@@ -2391,8 +2416,13 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
     streams, stamps, transfer, results = {}, {}, {}, []
     t0 = time.perf_counter()
     for engine, fmt, spec in runs:
+        transfer = {}
         for name, d, p in (("cuda", dev, params_gpu),
                            ("cpu", cpu, params_cpu)):
+            if name == "cpu" and not cpu_all and (
+                    engine in PIPE_OF
+                    or (spec is not None and eng.spec_gated_off)):
+                break                       # held on the card (see above)
             eng = engines[engine](p, d, fmt, spec)
             if engine in PIPE_OF:
                 eng.set_placement(place_stages(
@@ -2411,19 +2441,26 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
                 r.id: (r.t_submit, r.t_admit, r.t_first, r.t_done)
                 for r in done}
         got = streams[engine, fmt, spec, "cuda"]
-        ref = streams[engine, fmt, spec, "cpu"]
         got_t = stamps[engine, fmt, spec, "cuda"]
+        held = (engine, fmt, spec, "cpu") not in streams
+        ref = got if held else streams[engine, fmt, spec, "cpu"]
         run = {"engine": engine, "quantization": fmt, "speculative": spec,
-               "equal": got == ref and got_t == stamps[engine, fmt, spec,
-                                                       "cpu"],
+               "cpu_side": not held,
+               "equal": held or (got == ref and got_t == stamps[
+                   engine, fmt, spec, "cpu"]),
                "tokens": sum(len(x) for x in ref.values())}
         if spec is not None:
+            plain = (engine, fmt, None, "cuda")
             run.update(
-                equal_to_plain=got == streams[engine, fmt, None, "cuda"],
+                equal_to_plain=got == streams[plain],
                 spec_gated_off=eng.spec_gated_off,
                 spec_rounds=eng.spec_rounds,
                 acceptance_rate=eng.acceptance_rate,
                 spec_accept_mean=eng.spec_accept_mean())
+            if held:
+                run["stamps_equal_to_plain"] = got_t == stamps[plain]
+                run["equal_to_plain"] = (run["equal_to_plain"]
+                                         and run["stamps_equal_to_plain"])
             run["equal"] = run["equal"] and run["equal_to_plain"]
         if engine in PIPE_OF:
             mono = (PIPE_OF[engine], fmt, spec, "cuda")
@@ -2432,7 +2469,8 @@ def _parity_config(dev, cfg, label, runs, prompts, max_len, n_new=16,
                        transfer_ms=transfer["cuda"][0],
                        transfer_mb=transfer["cuda"][1],
                        hops=transfer["cuda"][2],
-                       transfer_equal=(transfer["cuda"] == transfer["cpu"]
+                       transfer_equal=(transfer["cuda"] == transfer.get(
+                                           "cpu", transfer["cuda"])
                                        and len(transfer["cuda"][2]) > 0
                                        and len(set(eng.placement.values()))
                                        == len(eng.stages)),
@@ -2473,8 +2511,11 @@ def parity(dev) -> list:
     ``attn``) through both engines and once with ``speculative=4``, which
     they must gate off; each at full width and 2 layers in float32, on
     the card and on the CPU.  gemma3's prompts (1040-1200 tokens) all
-    wrap the ring before their first decode step.  Then mixtral-8x7b
-    (``mixtral_parity``)."""
+    wrap the ring before their first decode step.  Beyond smollm's cell,
+    whose every run has its CPU side, the cells skip the CPU's side of
+    the runs the card holds to another (``_parity_config``'s
+    ``cpu_all``): the pipelined runs and the gated-off speculation.
+    Then mixtral-8x7b (``mixtral_parity``)."""
     from repro_torch.config import uniform
     from repro_torch.configs import get_config
     smollm = dataclasses.replace(get_config("smollm-360m"), n_layers=2,
@@ -2503,7 +2544,7 @@ def parity(dev) -> list:
         (("paged", None, None), ("slot", None, None), ("paged", None, 4),
          ("pipe_paged", None, None), ("pipe_slot", None, None)),
         _trace(np.random.default_rng(SEED + 5), 4, 20, 64,
-               mamba.vocab_size), 128, n_new=8)
+               mamba.vocab_size), 128, n_new=8, cpu_all=False)
     # two prompts and 8 new tokens keep the CPU's side short (its head
     # over 262,144 rows in f32 is most of a decode step there)
     gemma_res = _parity_config(
@@ -2512,7 +2553,7 @@ def parity(dev) -> list:
          ("pipe_paged", None, None), ("pipe_slot", None, None)),
         _trace(np.random.default_rng(SEED + 10), 2, 1030, 1100,
                gemma.vocab_size), 1280, n_new=8,
-        params_cpu=_card_drawn(gemma, dev))
+        params_cpu=_card_drawn(gemma, dev), cpu_all=False)
     spec_runs = [r for r in smollm_res["runs"] if r["speculative"]]
     gated = [r for res in (mamba_res, gemma_res) for r in res["runs"]
              if r["speculative"]]
@@ -2689,7 +2730,7 @@ def zamba_parity(dev) -> dict:
         (("paged", None, None), ("slot", None, None),
          ("paged", "int8", None), ("pipe_paged", None, None)),
         _trace(np.random.default_rng(SEED + 15), 4, 20, 64, cfg.vocab_size),
-        128, n_new=8, params_cpu=params)
+        128, n_new=8, params_cpu=params, cpu_all=False)
 
 
 #: mixtral-8x7b's parity cell: full width (d_model 4096, 32/8 heads of
@@ -2722,7 +2763,8 @@ def mixtral_parity(dev) -> list:
         (("paged", None, None), ("slot", None, None),
          ("paged", "int8", None), ("pipe_paged", None, None)),
         _trace(np.random.default_rng(SEED + 11), 3, 300, 400,
-               cfg.vocab_size), 512, n_new=8, params_cpu=params)
+               cfg.vocab_size), 512, n_new=8, params_cpu=params,
+        cpu_all=False)
     return [res, moe_pressure(dev, cfg, params)]
 
 
@@ -3296,8 +3338,12 @@ PIPE_RUNS = (("pipe_paged_bf16", "paged_bf16_8"),
 #: peak memory of a pipelined run over its monolithic run's, at most
 PIPE_PEAK_RATIO = 1.05
 #: the edf_ec run's pool: 96 blocks of 16 (1536 tokens) against 16
-#: requests of 96-576 tokens through 8 rows, so admissions wait
+#: requests of 64-544 tokens through 8 rows, so admissions wait
 EDF_POOL_BLOCKS = 96
+#: new tokens a request of the policy runs (``paged_bf16``'s 64 halved
+#: to keep the script inside its time; the share equal to
+#: ``paged_bf16``'s compares their first 32)
+POLICY_NEW_TOKENS = 32
 
 
 def _profile_and_place(eng) -> dict:
@@ -3382,7 +3428,8 @@ def serve_pipelined(cfg, runs, prompts, dev, mono, setup=None) -> dict:
 
 def serve_policy(cfg, kw, prompts, dev, ref) -> dict:
     """``edf_ec_paged``: the 16 requests of ``paged_bf16`` with QoS
-    classes assigned round-robin from ``QOS_CLASSES``, through the paged
+    classes assigned round-robin from ``QOS_CLASSES`` and
+    ``POLICY_NEW_TOKENS`` new tokens each, through the paged
     engine in a pool of ``EDF_POOL_BLOCKS`` blocks (requests wait for
     blocks), under FIFO and then under ``edf_ec``, on the same weights.
     Every kernel's launches, by kernel and body, are checked as in
@@ -3407,7 +3454,7 @@ def serve_policy(cfg, kw, prompts, dev, ref) -> dict:
         eng = timed_cls(cfg, params, num_blocks=EDF_POOL_BLOCKS,
                         policy=policy, **kw)
         params = eng.params
-        reqs = [Request(i, pr, max_new_tokens=64,
+        reqs = [Request(i, pr, max_new_tokens=POLICY_NEW_TOKENS,
                         qos=classes[i % len(classes)])
                 for i, pr in enumerate(prompts)]
         for r in reqs:
@@ -4335,7 +4382,10 @@ TRAIN = {"batch": 8, "seq": 4096, "steps": 8, "lr": 3e-3}
 #: rmsnorm there)
 TRAIN_ROWS = TRAIN["batch"] * TRAIN["seq"]
 #: card-vs-CPU parity in float32: full width, 2 layers
-TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 256, "steps": 3}
+#: the card-vs-CPU train cells (smollm's and ``TRAIN_FAMILY_PARITY``'s):
+#: 2 steps, each gated on its loss, the first on every gradient and the
+#: update (a third step was cut to keep the script inside its time)
+TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 256, "steps": 2}
 #: cuBLAS's kernels, by name, in a profile
 CUBLAS_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
@@ -4498,8 +4548,8 @@ def family_lr(cfg) -> float:
 def _train_parity_cell(dev, cfg, label, p_cpu, b, s, frontend=None,
                        lr=TRAIN["lr"]) -> dict:
     """Card against CPU in float32 on the same weights ``p_cpu`` (TF32
-    off): three steps of ``make_train_step``'s body written out
-    (``value_and_grad``, ``cosine_lr`` with a warmup of 2 over 8 steps,
+    off): ``TRAIN_PARITY["steps"]`` steps of ``make_train_step``'s body
+    written out (``value_and_grad``, ``cosine_lr`` with a warmup of 2 over 8 steps,
     ``adamw_update``) on each device, the loss held at each step and
     every gradient leaf at the first, where ``adamw_update`` is also fed
     the CPU's gradients on the card (the same update on both devices);
@@ -4614,8 +4664,13 @@ TRAIN_RUNS = (
 TRAIN_RUN_STEPS = 4
 
 
+#: what the train phase measured that a later phase reads: run name ->
+#: {"max_memory_allocated", "flop_counter"}
+MEASURED: dict = {}
+
+
 def train_run(dev, name, arch, overrides, b, s, steps, profiled,
-              lr=None) -> dict:
+              lr=None, count_flops: bool = False) -> dict:
     """``steps`` steps of ``arch`` at full width in its dtype (bf16), f32
     AdamW state, at B ``b``, S ``s`` and learning rate ``lr`` (by default
     ``family_lr``; warmup max(2, steps // 10)) through
@@ -4701,6 +4756,16 @@ def train_run(dev, name, arch, overrides, b, s, steps, profiled,
             wall_profiled = time.perf_counter() - t0
         res["profile"] = train_profile(prof.key_averages(), wall_ref,
                                        wall_profiled)
+    if count_flops:
+        # one more step under FlopCounterMode: torch's matrix products
+        # only (the kernels launch through ctypes, which it cannot see)
+        from torch.utils.flop_counter import FlopCounterMode
+        with FlopCounterMode(display=False) as fc:
+            params, opt, m = step(params, opt, batches[steps])
+            torch.cuda.synchronize()
+        res["flop_counter"] = fc.get_total_flops()
+    MEASURED[name] = {k: res.get(k) for k in ("max_memory_allocated",
+                                              "flop_counter")}
     res["seconds"] = time.perf_counter() - t_call
     emit(res)
     del params, opt, step, model
@@ -4771,7 +4836,8 @@ def train_full(dev) -> dict:
     state: ``TRAIN["steps"]`` steps at B 8, S 4096 through
     ``train_run``, profiled (every flash launch on ``wgmma``)."""
     return train_run(dev, "train_bf16", "smollm-360m", None, TRAIN["batch"],
-                     TRAIN["seq"], TRAIN["steps"], True, lr=TRAIN["lr"])
+                     TRAIN["seq"], TRAIN["steps"], True, lr=TRAIN["lr"],
+                     count_flops=True)
 
 
 def train(dev) -> dict:
@@ -5361,6 +5427,160 @@ def scale(dev) -> dict:
     return {"scale": recs[0]["decode"]["launches"]}, timing
 
 
+# ---------------------------------------------------------------------------
+# phase 8: dryrun -- one rank's partitioned step on a fake process group
+# ---------------------------------------------------------------------------
+#: (arch, shape, 2x16x16?, expected status) of the dry-run phase; the
+#: two costliest cells are left to the full sweep: kimi-k2-1t-a32b
+#: train_4k on 2x16x16 (61.4 s alone on the card's host) and smollm-360m
+#: train_4k on 16x16 (30.2 s, and the phase 64.9 s with it); the 1x1
+#: train step runs the train path
+DRYRUN_CELLS = (("smollm-360m", "prefill_32k", False, "ok"),
+                ("smollm-360m", "decode_32k", False, "ok"),
+                ("mixtral-8x7b", "decode_32k", True, "ok"),
+                ("falcon-mamba-7b", "long_500k", False, "ok"),
+                ("smollm-360m", "long_500k", False,
+                 "skipped(DESIGN.md rule)"))
+#: the phase's wall-seconds budget, from the tasks' submission at the
+#: script's start to the last one's end (in the background, beside the
+#: card's first phases)
+DRYRUN_S = 60
+#: worker processes of the host-only phases (planning, dryrun): the
+#: card's host has 8 cores, and the parent drives the card meanwhile
+HOST_WORKERS = 5
+#: CommDebugMode's functional collectives -> the recorder's kinds
+DRYRUN_KINDS = {"all_gather_into_tensor": "all-gather",
+                "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+
+
+def dryrun_worker(task):
+    """One dry-run task in a spawned worker: ("cell", arch, shape,
+    multi_pod) -> the record, with ``comm_debug`` (CommDebugMode's
+    counts of the functional collectives by recorder kind); ("card", B,
+    S) -> smollm-360m's train step at B, S on a 1x1 mesh."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.config import ShapeConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    dryrun.fake_world()
+    t0 = time.perf_counter()
+    if task[0] == "card":
+        _, b, s = task
+        rec = dryrun.measure(get_config("smollm-360m"),
+                             ShapeConfig("train_card", s, b, "train"),
+                             make_host_mesh(dryrun.DEVICE))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["t_end"] = time.time()
+        return rec
+    _, arch, shape, multi = task
+    with CommDebugMode() as comm:
+        rec = dryrun.dryrun_one(arch, shape, multi, verbose=False)
+    counts = {}
+    for op, n in comm.get_comm_counts().items():
+        kind = DRYRUN_KINDS.get(getattr(op, "__name__", str(op)).split(
+            ".")[-1], str(op))
+        counts[kind] = counts.get(kind, 0) + n
+    rec["comm_debug"] = counts
+    rec["seconds"] = time.perf_counter() - t0
+    rec["t_end"] = time.time()
+    return rec
+
+
+def planning_worker() -> tuple:
+    """The planning phase in a spawned worker: (its lines, the traceback
+    of its failure or None, the wall clock at its end).  The parent
+    prints the lines."""
+    import traceback
+    lines = []
+    globals()["emit"] = lines.append
+    try:
+        planning()
+        err = None
+    except Exception:  # noqa: BLE001 -- the parent raises it
+        err = traceback.format_exc()
+    return lines, err, time.time()
+
+
+def start_host_work() -> dict:
+    """Start the host-only phases in ``HOST_WORKERS`` spawned processes
+    (no CUDA in them; the fake process group never meets the scale
+    phase's gloo ranks): the planning phase, the dry-run's 1x1 train
+    step (the longest task, first), then its cells.  The card's phases
+    run meanwhile; :func:`planning_phase` and :func:`dryrun_phase` read
+    the results.  The caller shuts the pool down."""
+    import concurrent.futures as cf
+    import multiprocessing
+    pool = cf.ProcessPoolExecutor(
+        HOST_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    t0 = time.time()
+    planning_f = pool.submit(planning_worker)
+    card_f = pool.submit(dryrun_worker,
+                         ("card", TRAIN["batch"], TRAIN["seq"]))
+    cells = [pool.submit(dryrun_worker, ("cell", a, sh, m))
+             for a, sh, m, _ in DRYRUN_CELLS]
+    return {"pool": pool, "t0": t0, "planning": planning_f,
+            "dryrun": cells + [card_f]}
+
+
+def planning_phase(host) -> float:
+    """Print the planning worker's lines; raise its failure.  Returns its
+    wall seconds from the start of the host work."""
+    lines, err, t_end = host["planning"].result()
+    for line in lines:
+        emit(line)
+    if err:
+        raise AssertionError(f"planning phase failed in its worker:\n{err}")
+    return t_end - host["t0"]
+
+
+def dryrun_phase(host) -> float:
+    """The dry-run phase (see the module docstring, phase 8): the cells
+    and the 1x1 train step, each a task of the host workers
+    (:func:`start_host_work`).  Gates: each cell's status as
+    ``DRYRUN_CELLS`` lists, flops > 0 where it ran, and every kind
+    ``comm_debug`` saw counted as often by the recorder.  The 1x1 line
+    is printed, not gated.  Returns the tasks' wall seconds, from their
+    submission to the last one's end."""
+    recs = [f.result() for f in host["dryrun"]]
+    wall = max(r["t_end"] for r in recs) - host["t0"]
+    bad = []
+    for (arch, shape, multi, want), rec in zip(DRYRUN_CELLS, recs):
+        row = {k: v for k, v in rec.items() if k != "traceback"}
+        emit({"phase": "dryrun", **row})
+        if rec["status"] != want:
+            bad.append(f"{arch} {shape} {rec['mesh']}: {rec['status']} "
+                       f"{rec.get('traceback', '')[-600:]}")
+            continue
+        if want != "ok":
+            continue
+        if not rec["flops"] > 0:
+            bad.append(f"{arch} {shape}: flops {rec['flops']}")
+        for kind, n in rec["comm_debug"].items():
+            if rec.get(f"{kind}_count") != n:
+                bad.append(f"{arch} {shape}: CommDebugMode saw {n} {kind}, "
+                           f"the recorder {rec.get(f'{kind}_count')}")
+    card = recs[-1]
+    real = MEASURED.get("train_bf16", {})
+    emit({"phase": "dryrun", "check": "smollm-360m's train step on a 1x1 "
+                                      "mesh against the train phase's",
+          "B": TRAIN["batch"], "S": TRAIN["seq"],
+          "dryrun_peak_bytes": card["peak_bytes"],
+          "dryrun_flops": card["flops"],
+          "dryrun_seconds": card["seconds"],
+          "train_max_memory_allocated": real.get("max_memory_allocated"),
+          "train_flop_counter": real.get("flop_counter"),
+          "peak_ratio": (card["peak_bytes"] / real["max_memory_allocated"]
+                         if real.get("max_memory_allocated") else None),
+          "flops_ratio": (card["flops"] / real["flop_counter"]
+                          if real.get("flop_counter") else None)})
+    if bad:
+        raise AssertionError("dryrun phase: " + "; ".join(bad))
+    return wall
+
+
 #: the planning phase: (strategy, horizon) pairs both engines run (the
 #: scalar proposal loop is slow, so it runs at 30 slots), and the seeds
 #: of the study's grid on ``baseline`` at the default horizon
@@ -5642,16 +5862,29 @@ def main() -> int:
         emit({"phase": name, "seconds": seconds[name]})
         return out
 
-    timed("device", lambda: device_tables(dev))
-    timed("planning", planning)
-
-    cases = timed("kernels", lambda: kernel_cases(dev))
-    timed("parity", lambda: parity(dev))
-    launches = timed("serve", lambda: serve(dev))
-    launches.update(timed("train", lambda: train(dev)))
-    scale_launches, scale_cases = timed("scale", lambda: scale(dev))
-    launches.update(scale_launches)
-    cases = cases + scale_cases
+    host = start_host_work()
+    try:
+        timed("device", lambda: device_tables(dev))
+        cases = timed("kernels", lambda: kernel_cases(dev))
+        # the host-only phases ran beside the kernels phase: each line
+        # of seconds is the parent's wait, ``*_background`` the phase's
+        # wall time in its workers
+        seconds["planning_background"] = timed(
+            "planning", lambda: planning_phase(host))
+        timed("parity", lambda: parity(dev))
+        launches = timed("serve", lambda: serve(dev))
+        launches.update(timed("train", lambda: train(dev)))
+        scale_launches, scale_cases = timed("scale", lambda: scale(dev))
+        launches.update(scale_launches)
+        cases = cases + scale_cases
+        seconds["dryrun_background"] = timed(
+            "dryrun", lambda: dryrun_phase(host))
+    finally:
+        host["pool"].shutdown(cancel_futures=True)
+    if seconds["dryrun_background"] > DRYRUN_S:
+        raise AssertionError(f"dryrun phase: "
+                             f"{seconds['dryrun_background']:.1f} s, over "
+                             f"its {DRYRUN_S} s")
     emit({"phase": "timing", "seconds": seconds,
           "total": time.perf_counter() - t_start})
     emit(kernel_line(cases, launches))

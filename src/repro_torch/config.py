@@ -3,7 +3,9 @@
 :class:`ModelConfig` keeps every field and ``__post_init__`` check of
 the reference, so a config built here describes the same model as its
 JAX twin and the two packages can be held against each other field by
-field.  :func:`reduce_config` shrinks a production config to the CPU
+field.  :class:`ShapeConfig` and :data:`SHAPES` are the reference's four
+assigned input shapes, and ``ModelConfig.supports_shape`` its rule of
+which shapes an architecture runs (the dry-run's skip rule).  :func:`reduce_config` shrinks a production config to the CPU
 smoke size exactly as the reference does.  Configs are frozen
 dataclasses, so they hash.
 """
@@ -16,6 +18,28 @@ from typing import Tuple
 # Block kinds understood by the reference model (the port runs them all)
 BLOCK_KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")
 MLP_KINDS = ("dense", "moe", "none")
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -91,6 +115,28 @@ class ModelConfig:
     @property
     def moe_d_ff_eff(self) -> int:
         return self.moe_d_ff if self.moe_d_ff else self.d_ff
+
+    @property
+    def has_attention(self) -> bool:
+        return any(b in ("attn", "swa", "cross") for b in self.block_pattern)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if no block requires a full-length KV cache at decode."""
+        return all(b in ("mamba1", "mamba2", "swa") for b in self.block_pattern)
+
+    def supports_shape(self, shape: ShapeConfig) -> bool:
+        """Decode-shape applicability rules (see DESIGN.md)."""
+        if shape.name != "long_500k":
+            return True
+        # long_500k: SSM / hybrid / windowed archs only.  gemma3's 5:1
+        # local:global still qualifies (global layers are linear per decoded
+        # token with a seq-sharded cache; local layers are O(window)).
+        if self.family in ("ssm", "hybrid"):
+            return True
+        if self.name.startswith("gemma3") or self.name.startswith("mixtral"):
+            return True
+        return False
 
     @property
     def vocab_padded(self) -> int:

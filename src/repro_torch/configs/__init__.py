@@ -16,13 +16,14 @@ tied to its 256000-row embedding, rope theta 8e6), the speculation
 targets.  That is every architecture of the reference's registry.
 ``get_config(arch_id)`` returns the production
 :class:`~repro_torch.config.ModelConfig`, ``get_smoke_config`` the
-reduced CPU-testable variant.
+reduced CPU-testable variant, ``get_shape`` one of the four assigned
+input shapes and ``all_pairs`` every (arch, shape) the skip rule keeps.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.config import ModelConfig, reduce_config
+from repro_torch.config import SHAPES, ModelConfig, ShapeConfig, reduce_config
 
 _ARCH_MODULES = {
     "smollm-360m": "smollm_360m",
@@ -51,3 +52,18 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return reduce_config(get_config(arch_id))
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def all_pairs():
+    """All (arch, shape) pairs that are applicable per DESIGN.md rules."""
+    out = []
+    for a in ARCH_IDS:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if cfg.supports_shape(s):
+                out.append((a, s.name))
+    return out

@@ -51,7 +51,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 NEG_INF = -1e30
 SM_COUNT = 132            # H100 SXM
@@ -175,6 +175,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     for the contract.  Pools are read in place, never transposed.
     ``_body`` forces a kernel body over :func:`decode_body`'s choice, for
     timing the bodies against each other; the model never passes it."""
+    if fake.is_abstract(q):
+        return fake.paged_decode(q, k_pool, v_pool, tables)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             scale)
@@ -243,6 +245,8 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Dense decode attention; see :func:`dense_decode_attention_plain`
     for the contract.  Caches are read in place, never transposed.
     ``_body`` as for :func:`paged_decode_attention`."""
+    if fake.is_abstract(q):
+        return fake.dense_decode(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return dense_decode_attention_plain(q, k_cache, v_cache, pos, scale)
     b, h, hd = q.shape
@@ -318,6 +322,8 @@ def dense_decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
     ``pos - s_start``; the body and split count are the dense kernel's
     (:func:`decode_body`, :func:`decode_splits` over the slice's
     ``S_loc``).  ``_body`` as for :func:`paged_decode_attention`."""
+    if fake.is_abstract(q):
+        return fake.dense_decode_partial(q, k_cache, v_cache)
     if q.device.type == "cpu":
         return dense_decode_attention_partial_plain(q, k_cache, v_cache, pos,
                                                     s_start, scale)

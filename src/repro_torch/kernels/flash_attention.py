@@ -111,7 +111,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 from repro_torch.kernels.decode_attention import (NEG_INF, paged_gather,
                                                   wide_splits)
 
@@ -347,6 +347,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`paged_prefill_attention_plain` for the contract.  ``_body``
     forces a kernel body over :func:`prefill_body`'s choice, for timing
     the bodies against each other; the model never passes it."""
+    if fake.is_abstract(q):
+        return fake.paged_prefill(q, k_pool, v_pool, table)
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, table, pos,
                                              scale)
@@ -395,6 +397,8 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Batched paged causal chunk attention, each row's ``pos`` read on
     the device; see :func:`paged_chunk_attention_plain` for the contract
     and :func:`paged_prefill_attention` for ``_body``."""
+    if fake.is_abstract(q):
+        return fake.paged_chunk(q, k_pool, v_pool, tables)
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(q, k_pool, v_pool, tables, pos,
                                            scale)
@@ -467,6 +471,8 @@ def paged_cross_attention(q: torch.Tensor, k_pool: torch.Tensor,
     :func:`paged_cross_attention_plain` for the contract and
     :func:`paged_prefill_attention` for ``_body``.  The pools are read in
     place."""
+    if fake.is_abstract(q):
+        return fake.paged_cross(q, k_pool, v_pool, tables, int(n_keys))
     if q.device.type == "cpu":
         return paged_cross_attention_plain(q, k_pool, v_pool, tables, n_keys,
                                            scale)
@@ -566,6 +572,8 @@ def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
     reads there (the host never does).  The ring is read in place and
     not written: the caller writes the chunk's keys into it afterwards.
     ``_body`` as in :func:`paged_prefill_attention`."""
+    if fake.is_abstract(q):
+        return fake.ring_chunk(q, k_pool, v_pool, table, k_new, v_new, int(w))
     if q.device.type == "cpu":
         return ring_chunk_attention_plain(q, k_pool, v_pool, table, k_new,
                                           v_new, pos, w, scale)
@@ -694,6 +702,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out takes q's layout; the body is :func:`flash_body`'s.  ``_body`` as
     in :func:`paged_prefill_attention`; a shape the body cannot take
     raises."""
+    if fake.is_abstract(q):
+        return fake.flash(q, k, v, bool(causal), int(window))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)

@@ -45,7 +45,7 @@ import torch
 
 from typing import Optional
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 SM_COUNT = 132            # H100 SXM
 MMA_TILE_N = 64           # csrc/quant_matmul.cu: mma::kTileN
@@ -206,6 +206,8 @@ def quant_matmul_int8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     docstring for the layout.  ``_body`` forces a kernel body over
     :func:`int8_body`'s choice, for timing the bodies against each other;
     the model never passes it."""
+    if fake.is_abstract(x):
+        return fake.quant_matmul(x, q, s, q.shape[0])
     if x.device.type == "cpu":
         return quant_matmul_int8_plain(x, q, s)
     return _launch("int8", x, q, s, _body)
@@ -216,6 +218,8 @@ def quant_matmul_int4(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     """x (..., K) @ dequant(q, s) for a packed int4 leaf.  ``_body``
     forces a kernel body over :func:`int4_body`'s choice, as for int8;
     the model never passes it."""
+    if fake.is_abstract(x):
+        return fake.quant_matmul(x, q, s, 2 * q.shape[0])
     if x.device.type == "cpu":
         return quant_matmul_int4_plain(x, q, s)
     return _launch("int4", x, q, s, _body)

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 SM_COUNT = 132            # H100 SXM
 NORM_MAX_WARPS = 8        # csrc/rmsnorm.cu: kMaxWarps, warps a block
@@ -157,6 +157,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
 
 
 def _rmsnorm(x, scale, eps, _body):
+    if fake.is_abstract(x):
+        return fake.rmsnorm(x, scale)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     body = _body or "norm"
@@ -181,6 +183,8 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
 
 
 def _add_rmsnorm(x, delta, scale, eps, _body):
+    if fake.is_abstract(x):
+        return fake.add_rmsnorm(x, delta, scale)
     if x.device.type == "cpu":
         return add_rmsnorm_plain(x, delta, scale, eps)
     body = _body or "add_norm"

@@ -52,7 +52,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, fake
 
 MAX_STATE = 64          # d_state the kernel keeps in registers
 #: the d_state values the previous body (``cuda_core``) was built for
@@ -156,6 +156,9 @@ def selective_scan(dt, b_mat, c_mat, x, a_neg, h0,
     every :data:`SCAN_CKPT_STEPS` steps, for :func:`selective_scan_backward`.
     ``_body`` forces a kernel body over :func:`scan_body`'s choice, for
     timing the bodies against each other; the model never passes it."""
+    if fake.is_abstract(dt):
+        y, h_t = fake.scan(dt, b_mat, c_mat, x, a_neg, h0)
+        return y, (h_t if h_out is None else h_out)
     if dt.device.type == "cpu":
         return selective_scan_plain(dt, b_mat, c_mat, x, a_neg, h0, h_out,
                                     checkpoints)
@@ -298,6 +301,9 @@ def selective_scan_backward(dt, b_mat, c_mat, x, a_neg, checkpoints, dy,
     strides) or raises.  The kernel adds no atomics: dB and dC are summed
     over a row's blocks, and dA over the rows, in a fixed order, so the
     same inputs give the same bits."""
+    if fake.is_abstract(dt):
+        return fake.scan_backward(dt, b_mat, c_mat, x, a_neg, checkpoints,
+                                  dy)
     if dt.device.type == "cpu":
         return selective_scan_backward_plain(dt, b_mat, c_mat, x, a_neg,
                                              checkpoints, dy, dh_t)

@@ -84,6 +84,8 @@ from repro_torch.kernels.flash_attention import (CrossAttentionFn,
                                                  ring_chunk_attention)
 from repro_torch.models.layers import _dense_init, rotary
 from repro_torch.models.quantize import qdot
+from repro_torch.sharding.specs import (is_dtensor, local_call,
+                                        reshape_constrain, reshape_merged)
 
 
 def attention_init(generator, cfg, dtype, device, n: int,
@@ -104,11 +106,86 @@ def attention_init(generator, cfg, dtype, device, n: int,
     return p
 
 
+def _kv_range(n_heads: int, n_kv: int, rank: int, size: int):
+    """The KV heads (first, count) that query heads ``[rank * H / size,
+    (rank + 1) * H / size)`` read, or None where they do not map onto a
+    contiguous run of whole groups, or of one group."""
+    if n_heads % size:
+        return None
+    h_l, g = n_heads // size, n_heads // n_kv
+    if h_l % g == 0:
+        return rank * h_l // g, h_l // g
+    if g % h_l == 0:
+        return rank * h_l // g, 1
+    return None
+
+
+def _head_placements(q, n_kv: int, qh: int, kvh: int, cache=None):
+    """Placements (q's, K/V's) and the sliced mesh dim for a kernel that
+    reads q (heads on dim ``qh``) against K/V (KV heads on ``kvh``) on
+    each rank: the rows (dim 0) where q shards them, q's heads where q
+    shards them, K/V's heads with them where the KV heads divide (else K
+    / V whole and each rank reads the KV heads its query heads map to:
+    :func:`_kv_range`), anything else whole.  ``cache`` (a DTensor K/V
+    cache, whose placements stay as they are) fixes K/V's instead: its
+    rows and KV heads where it shards them, its slots (dim 1) sharded
+    sequence-parallel (q whole along that mesh dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    qp, kp, sliced, seq = [], [], None, None
+    for i, p in enumerate(q.placements):
+        size = mesh.size(i)
+        cp = None if cache is None else cache.placements[i]
+        rows = isinstance(p, Shard) and p.dim == 0
+        heads = isinstance(p, Shard) and p.dim == qh
+        if cache is not None and isinstance(cp, Shard) and cp.dim == 1:
+            qp.append(Replicate()), kp.append(cp)
+            seq = i
+        elif cache is not None and isinstance(cp, Shard):
+            qp.append(Shard(0) if cp.dim == 0 else Shard(qh)), kp.append(cp)
+        elif cache is None and rows:
+            qp.append(Shard(0)), kp.append(Shard(0))
+        elif heads and n_kv % size == 0 and cache is None:
+            qp.append(Shard(qh)), kp.append(Shard(kvh))
+        elif heads and sliced is None and _kv_range(
+                q.shape[qh], n_kv, 0, size) is not None:
+            qp.append(Shard(qh)), kp.append(Replicate())
+            sliced = i
+        else:
+            qp.append(Replicate()), kp.append(Replicate())
+    return qp, kp, sliced, seq
+
+
+def _narrow_kv(mesh, sliced, n_heads: int, n_kv: int, kvh: int, *kv):
+    """This rank's KV heads of whole K/V (:func:`_kv_range`)."""
+    if sliced is None:
+        return kv
+    lo, n = _kv_range(n_heads, n_kv, mesh.get_local_rank(sliced),
+                      mesh.size(sliced))
+    return tuple(t.narrow(kvh, lo, n) for t in kv)
+
+
+def _attend(fn, q, k, v, qh: int, kvh: int):
+    """``fn(q, k, v)``, a kernel's wrapper (or autograd function) whose
+    output has q's layout; on DTensors, on each rank's rows and heads
+    (:func:`_head_placements`)."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    n_heads, n_kv = q.shape[qh], k.shape[kvh]
+    qp, kp, sliced, _ = _head_placements(q, n_kv, qh, kvh)
+    mesh = q.device_mesh
+
+    def run(q, k, v):
+        return fn(q, *_narrow_kv(mesh, sliced, n_heads, n_kv, kvh, k, v))
+    return local_call(run, (q, k, v), (qp, kp, kp), qp)
+
+
 def _proj_q(params, x, cfg):
     q = qdot(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    return q.reshape(*x.shape[:-1], cfg.n_heads, cfg.head_dim)
+    return reshape_constrain(q, (*x.shape[:-1], cfg.n_heads, cfg.head_dim),
+                             "act_bthd")
 
 
 def _proj_kv(params, x, cfg):
@@ -117,9 +194,9 @@ def _proj_kv(params, x, cfg):
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    k = k.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
-    return k, v
+    shape = (*x.shape[:-1], cfg.n_kv_heads, cfg.head_dim)
+    return (reshape_constrain(k, shape, "act_btkv"),
+            reshape_constrain(v, shape, "act_btkv"))
 
 
 def _qkv(params, x, positions, cfg):
@@ -134,7 +211,8 @@ def _qkv(params, x, positions, cfg):
 def _out(params, o, cfg):
     """The attention output (B,T,H,hd) through ``wo`` (``_gqa_out``)."""
     b, t = o.shape[:2]
-    return qdot(o.reshape(b, t, cfg.n_heads * cfg.head_dim), params["wo"])
+    return qdot(reshape_merged(o, (b, t, cfg.n_heads * cfg.head_dim)),
+                params["wo"])
 
 
 def _is_ring(kind, cfg) -> bool:
@@ -159,23 +237,31 @@ def self_attention(params, x, positions, cfg, kind: str,
     _is_ring(kind, cfg)              # refuses kinds other than attn / swa
     q, k, v = _qkv(params, x, positions, cfg)
     window = cfg.window if kind == "swa" else 0
-    o = FlashAttentionFn.apply(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal, window, None)
-    return _out(params, o.transpose(1, 2), cfg), {"k": k, "v": v}
+    def flash(q, k, v):        # (B,S,heads,hd) in, q's layout out
+        return FlashAttentionFn.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal, window,
+                                      None).transpose(1, 2)
+    return _out(params, _attend(flash, q, k, v, 2, 2), cfg), {"k": k, "v": v}
 
 
 @functools.lru_cache(maxsize=None)
 def _rows_at(b: int, value: int, device) -> torch.Tensor:
     """A (b,) int32 tensor of ``value`` on ``device``, built once per
-    shape: the ``pos`` of a cross read (``src - 1``, every slot valid)."""
-    return torch.full((b,), value, dtype=torch.int32, device=device)
+    shape: the ``pos`` of a cross read (``src - 1``, every slot valid);
+    real even under the dry-run's fake mode (:func:`layers._rotary_freq`)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return torch.full((b,), value, dtype=torch.int32, device=device)
 
 
 @functools.lru_cache(maxsize=None)
 def _identity_tables(b: int, device) -> torch.Tensor:
     """Tables (b, 1) that take a dense cache (B, S, KV, hd) as a pool of B
-    blocks of S slots, row r's block being r; built once per shape."""
-    return torch.arange(b, dtype=torch.int32, device=device)[:, None]
+    blocks of S slots, row r's block being r; built once per shape (and
+    real under a fake mode, as :func:`_rows_at`)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():
+        return torch.arange(b, dtype=torch.int32, device=device)[:, None]
 
 
 def make_cross_kv(params, src, cfg) -> dict:
@@ -213,16 +299,23 @@ def cross_attention(params, x, kv: dict, cfg, decode: bool = False,
     tables = kv.get("tables")
     n = k.shape[1] if tables is None else kv["len"]
     if decode:
-        pos = _rows_at(b, n - 1, x.device)
-        o = (dense_decode_attention(q[:, 0], k, v, pos) if tables is None
-             else paged_decode_attention(q[:, 0], k, v, tables, pos))
+        if tables is None:
+            o = _attend(lambda q, k, v: dense_decode_attention(
+                q, k, v, _rows_at(q.shape[0], n - 1, q.device)),
+                q[:, 0], k, v, 1, 2)
+        else:
+            o = paged_decode_attention(q[:, 0], k, v, tables,
+                                       _rows_at(b, n - 1, x.device))
         return _out(params, o[:, None], cfg)
     if train:
         if tables is not None:
             raise ValueError("cross_attention: train mode reads dense K/V")
-        return _out(params, CrossAttentionFn.apply(q, k, v), cfg)
+        return _out(params, _attend(CrossAttentionFn.apply, q, k, v, 2, 2),
+                    cfg)
     if tables is None:
-        tables = _identity_tables(b, x.device)
+        return _out(params, _attend(lambda q, k, v: paged_cross_attention(
+            q, k, v, _identity_tables(q.shape[0], q.device), n),
+            q, k, v, 2, 2), cfg)
     return _out(params, paged_cross_attention(q, k, v, tables, n), cfg)
 
 
@@ -364,6 +457,10 @@ def decode_self_attention(params, x, cache: dict, pos, cfg,
     k_cache, v_cache = cache["k"], cache["v"]
     s = k_cache.shape[1]
     q, k_new, v_new = _qkv(params, x, pos[:, None], cfg)
+    if is_dtensor(k_cache):
+        return _out(params, _decode_sharded(q[:, 0], k_new[:, 0],
+                                            v_new[:, 0], k_cache, v_cache,
+                                            pos, ring)[:, None], cfg), cache
     slot = (torch.remainder(pos.long(), s) if ring
             else torch.clamp(pos.long(), max=s - 1))
     bidx = torch.arange(b, device=x.device)
@@ -372,6 +469,46 @@ def decode_self_attention(params, x, cache: dict, pos, cfg,
     kpos = torch.clamp(pos, max=s - 1) if ring else pos
     o = dense_decode_attention(q[:, 0], k_cache, v_cache, kpos)
     return _out(params, o[:, None], cfg), cache
+
+
+def _decode_sharded(q, k_new, v_new, k_cache, v_cache, pos, ring: bool):
+    """:func:`decode_self_attention`'s write and read on each rank's
+    slice of a DTensor cache (B, S, KV, hd), whose placements stay as
+    they are (:func:`_head_placements` with the cache): q (B,H,hd),
+    k_new / v_new (B,KV,hd) and pos (B,) follow its rows and KV heads.
+    A cache sharded along its slots (the ``seq`` layout) takes the new
+    K/V on the rank that holds the slot and combines the ranks' softmax
+    partials (``serving/decode.py::distributed_decode_attention``).
+    Returns (B,H,hd)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = k_cache.device_mesh
+    n_heads, n_kv, s = q.shape[1], k_cache.shape[2], k_cache.shape[1]
+    qp, kp, sliced, seq = _head_placements(q, n_kv, 1, 2, cache=k_cache)
+    newp = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else
+            Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in kp]
+    posp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+            for p in kp]
+
+    def run(q, k_new, v_new, kc, vc, pos):
+        s_loc = kc.shape[1]
+        start = 0 if seq is None else mesh.get_local_rank(seq) * s_loc
+        slot = (torch.remainder(pos.long(), s) if ring
+                else torch.clamp(pos.long(), max=s - 1)) - start
+        bidx = torch.arange(q.shape[0], device=q.device)
+        mine = ((slot >= 0) & (slot < s_loc))[:, None, None]
+        slot = torch.clamp(slot, 0, s_loc - 1)
+        for c, new in ((kc, k_new), (vc, v_new)):
+            c[bidx, slot] = torch.where(mine, new, c[bidx, slot])
+        kpos = torch.clamp(pos, max=s - 1) if ring else pos
+        kc, vc = _narrow_kv(mesh, sliced, n_heads, n_kv, 2, kc, vc)
+        if seq is None:
+            return dense_decode_attention(q, kc, vc, kpos)
+        from repro_torch.serving.decode import distributed_decode_attention
+        return distributed_decode_attention(
+            q, kc, vc, kpos, mesh, axis=mesh.mesh_dim_names[seq])
+    return local_call(run, (q, k_new, v_new, k_cache, v_cache, pos),
+                      (qp, newp, newp, kp, kp, posp), qp)
 
 
 def chunk_self_attention(params, x, cache: dict, pos, cfg,

@@ -14,6 +14,9 @@ import torch
 from repro_torch.kernels.rmsnorm import add_rmsnorm as add_rmsnorm_kernel
 from repro_torch.kernels.rmsnorm import rmsnorm as rmsnorm_kernel
 from repro_torch.models.quantize import qdot
+from repro_torch.sharding.specs import (constrain, is_dtensor,
+                                        keep_placements, local_call,
+                                        replicated)
 
 
 def _dense_init(generator: torch.Generator, shape, dtype, device,
@@ -28,7 +31,13 @@ def _dense_init(generator: torch.Generator, shape, dtype, device,
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """``layers.rmsnorm`` through the RMSNorm kernel's wrapper."""
+    """``layers.rmsnorm`` through the RMSNorm kernel's wrapper (a
+    DTensor's rows on each rank, the normed dim whole)."""
+    if is_dtensor(x):
+        pl = keep_placements(x, (-1,))
+        return local_call(lambda a, s: rmsnorm_kernel(a, s, eps),
+                          (x, params["scale"]),
+                          (pl, replicated(params["scale"])), pl)
     return rmsnorm_kernel(x, params["scale"], eps)
 
 
@@ -37,6 +46,11 @@ def add_rmsnorm(params: dict, x: torch.Tensor, delta: torch.Tensor,
     """The residual add ``x + delta`` and ``layers.rmsnorm`` of its
     result, in one launch of the RMSNorm kernel.  Returns (x + delta,
     the normed row)."""
+    if is_dtensor(x):
+        pl = keep_placements(x, (-1,))
+        return local_call(lambda a, d, s: add_rmsnorm_kernel(a, d, s, eps),
+                          (x, delta, params["scale"]),
+                          (pl, pl, replicated(params["scale"])), [pl, pl])
     return add_rmsnorm_kernel(x, delta, params["scale"], eps)
 
 
@@ -44,13 +58,14 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the table: a gather, whose gradient (train mode) sums each
     row's contributions in f32 on the card where an indexing gradient
     would add them into a bf16 table one by one."""
-    return torch.nn.functional.embedding(tokens.long(), params["w"])
+    return constrain(torch.nn.functional.embedding(tokens.long(),
+                                                   params["w"]), "act_btd")
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """LM head (the tied embedding table or an untied ``lm_head`` of the
     same layout): logits over the padded vocab (``x @ w.T``)."""
-    return x @ params["w"].T
+    return constrain(x @ params["w"].T, "act_btv")
 
 
 @functools.lru_cache(maxsize=64)
@@ -62,8 +77,11 @@ def _rotary_freq(theta: float, half: int,
     size; this form equals it there, at qwen2-72b's theta 1e6 and
     command-r-35b's 8e6 too (tests/test_torch_spec.py).  Made once per
     (theta, half, device), outside inference mode so that training may
-    read it, and never written to."""
-    with torch.inference_mode(False):
+    read it, and never written to; a real tensor even under a fake mode
+    (the dry-run's), which takes real inputs beside its fakes, so that
+    the cache never holds a fake one."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with torch.inference_mode(False), unset_fake_temporarily():
         exponent = -torch.arange(0, half, dtype=torch.float32) / half
         freq = (theta ** exponent.double()).to(torch.float32)
         return freq.to(device)
@@ -94,4 +112,5 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     through ``qdot`` (packed weights take the quant-matmul kernel)."""
     g = qdot(x, params["w_gate"])
     u = qdot(x, params["w_up"])
-    return qdot(torch.nn.functional.silu(g) * u, params["w_down"])
+    h = constrain(torch.nn.functional.silu(g) * u, "act_btf")
+    return qdot(h, params["w_down"])

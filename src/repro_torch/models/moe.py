@@ -37,7 +37,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dense_init
-from repro_torch.sharding.specs import axis_names, axis_sizes, current_mesh
+from repro_torch.sharding.specs import (_batch_axes, axis_names, axis_sizes,
+                                        constrain, current_mesh, is_dtensor,
+                                        local_call)
 
 #: leaves the reference keeps in float32 whatever the model dtype
 F32_LEAVES = frozenset({"router"})
@@ -163,32 +165,127 @@ def moe_apply(params: dict, x: torch.Tensor,
     together: rows of one batch share it.  Under ``REPRO_MOE_SHARDMAP``
     and a mesh, one of the sharded forms (:func:`_sharded_form`)."""
     form = _sharded_form(cfg, x)
+    if form is not None and is_dtensor(x):
+        return _form_on_dtensors(form, params, x, cfg)
     if form is not None:
         return form(params, x, cfg, current_mesh())
-    shape = x.shape
-    d = shape[-1]
-    xt = x.reshape(-1, d)
-    t = xt.shape[0]
+    if is_dtensor(x):
+        return _moe_on_dtensors(params, x, cfg)
+    y, aux = _moe_tokens(params, x.reshape(-1, x.shape[-1]), cfg)
+    return y.reshape(x.shape).to(x.dtype), aux
+
+
+def _in_window(keep, place, cap: int, window: Tuple[int, int]):
+    """(the claims of window ``r`` of ``n`` of every expert's capacity,
+    its width ``ceil(cap / n)``, each claim's place in it) for ``window
+    = (n, r)``; (1, 0) is the whole capacity and adds no operation."""
+    n, r = window
+    if n == 1:
+        return keep, cap, place
+    width = -(-cap // n)
+    lo = r * width
+    return (keep & (place >= lo) & (place < lo + width), width,
+            place - lo)
+
+
+def _moe_tokens(params: dict, xt: torch.Tensor, cfg, dtype=None,
+                window=(1, 0)) -> Tuple[torch.Tensor, dict]:
+    """Route the tokens xt (T, D), dispatch the claims in ``window`` of
+    every expert's capacity (:func:`_in_window`) into the (E, C, D)
+    buffer, run every expert whose weights ``params`` hold (whole, or
+    each expert's slice of the hidden dim) and combine: (y (T, D), its
+    sum over k in ``dtype`` where given, and the aux terms)."""
+    t, d = xt.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     cap = _capacity(t, cfg)
     probs, gate, expert, flat_e, place = _route(params["router"], xt, cfg)
     keep = place < cap
-    slot = torch.where(keep, flat_e * cap + place,
+    mine, cap, at = _in_window(keep, place, cap, window)
+    slot = torch.where(mine, flat_e * cap + at,
                        torch.full_like(place, e * cap))  # dropped: sentinel
-    buf = _dispatch(xt, slot, e * cap, k).view(e, cap, d)
+    buf = constrain(_dispatch(xt, slot, e * cap, k).view(e, cap, d),
+                    "moe_buf")
     out = _experts(buf, params["we_gate"], params["we_up"], params["we_down"])
-    y = _combine(out, slot, gate, t, k)
-    return y.reshape(shape).to(x.dtype), _aux(probs, expert, keep, cfg)
+    y = _combine(constrain(out, "moe_buf"), slot, gate, t, k, dtype)
+    return y, _aux(probs, expert, keep, cfg)
+
+
+def _moe_on_dtensors(params: dict, x, cfg) -> Tuple[torch.Tensor, dict]:
+    """:func:`moe_apply` of a DTensor x under a mesh, with the
+    reference's capacity over every token of x: each rank gathers the
+    tokens (x whole), routes them all, and runs the experts its weights
+    hold: its range of experts where they are sharded by expert (the
+    ``moe_buf`` rule's expert-parallel layout), else every expert on its
+    slice of the hidden dim.  Under ``REPRO_MOE_LAYOUT=ep_dp`` (the rule
+    that also shards the capacity over the data axes) each data rank
+    takes its window of every expert's capacity, as
+    :func:`moe_apply_capsharded` does over ``model``.  Its share of y is
+    a partial sum over the axes that split the work, reduced as y is
+    laid out like x again."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    names = list(mesh.mesh_dim_names)
+    i = names.index("model") if "model" in names else None
+    wp = params["we_gate"].placements
+    sharded = i is not None and isinstance(wp[i], Shard)
+    data = ([j for j, n in enumerate(names) if n in _batch_axes(mesh)]
+            if os.environ.get("REPRO_MOE_LAYOUT") == "ep_dp" else [])
+    yp = [Partial() if (sharded and j == i) or j in data else Replicate()
+          for j in range(mesh.ndim)]
+    d = x.shape[-1]
+
+    def run(router, wg, wu, wd, xs):
+        p = {"router": router, "we_gate": wg, "we_up": wu, "we_down": wd}
+        xt = xs.reshape(-1, d)
+        n, r = 1, 0                            # my window of capacity
+        for j in data:
+            n, r = n * mesh.size(j), r * mesh.size(j) + mesh.get_local_rank(j)
+        if wg.shape[0] != cfg.n_experts:       # my experts, all tokens
+            y, aux = moe_sharded_local(p, xt, cfg, mesh, (n, r))
+        else:
+            y, aux = _moe_tokens(p, xt, cfg, torch.float32
+                                 if sharded or data else None, (n, r))
+        return y.reshape(xs.shape), aux["moe_aux_loss"], aux["moe_drop_frac"]
+    y, loss, drop = local_call(
+        run, (params["router"], params["we_gate"], params["we_up"],
+              params["we_down"], x), (rep, None, None, None, rep),
+        [yp, rep, rep])
+    y = y.redistribute(mesh, x.placements).to(x.dtype)
+    return y, {"moe_aux_loss": loss, "moe_drop_frac": drop}
+
+
+def _form_on_dtensors(form, params: dict, x, cfg) -> Tuple[torch.Tensor,
+                                                           dict]:
+    """A sharded form (:func:`moe_apply_sharded`,
+    :func:`moe_apply_capsharded`) on DTensors: each rank's local tokens
+    and weights, as the reference's ``shard_map`` hands them (x by rows,
+    the router whole, the expert weights as they are laid out); y comes
+    back laid out as x, the aux values as every rank's own."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def run(router, wg, wu, wd, xs):
+        y, aux = form({"router": router, "we_gate": wg, "we_up": wu,
+                       "we_down": wd}, xs, cfg, mesh)
+        return y, aux["moe_aux_loss"], aux["moe_drop_frac"]
+    y, loss, drop = local_call(
+        run, (params["router"], params["we_gate"], params["we_up"],
+              params["we_down"], x), (rep, None, None, None, None),
+        [list(x.placements), rep, rep])
+    return y, {"moe_aux_loss": loss, "moe_drop_frac": drop}
 
 
 def _model_rank(mesh) -> tuple:
     return axis_sizes(mesh)["model"], mesh.get_local_rank("model")
 
 
-def moe_sharded_local(params: dict, x: torch.Tensor, cfg,
-                      mesh) -> Tuple[torch.Tensor, dict]:
+def moe_sharded_local(params: dict, x: torch.Tensor, cfg, mesh,
+                      window=(1, 0)) -> Tuple[torch.Tensor, dict]:
     """:func:`moe_apply_sharded` before its all-reduce: this rank's
-    experts' share of y, summed in float32, and the local aux (no
+    experts' share of y (of the claims in ``window`` of their capacity,
+    :func:`_in_window`), summed in float32, and the local aux (no
     communication)."""
     n_model, r = _model_rank(mesh)
     e, k = cfg.n_experts, cfg.experts_per_token
@@ -201,8 +298,9 @@ def moe_sharded_local(params: dict, x: torch.Tensor, cfg,
     probs, gate, expert, flat_e, place = _route(params["router"], xt, cfg)
     keep = place < cap
     lo = r * e_loc
-    mine = keep & (flat_e >= lo) & (flat_e < lo + e_loc)
-    slot = torch.where(mine, (flat_e - lo) * cap + place,
+    mine, cap, at = _in_window(keep, place, cap, window)
+    mine = mine & (flat_e >= lo) & (flat_e < lo + e_loc)
+    slot = torch.where(mine, (flat_e - lo) * cap + at,
                        torch.full_like(place, e_loc * cap))
     w = [params[n] for n in ("we_gate", "we_up", "we_down")]
     if w[0].shape[0] == e and e_loc != e:   # whole experts: take my range

@@ -34,6 +34,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.selective_scan import (SelectiveScanFn,
                                                 selective_scan)
 from repro_torch.models.layers import _dense_init
+from repro_torch.sharding.specs import (constrain, is_dtensor,
+                                        keep_placements, local_call)
 
 #: leaves the reference keeps in float32 whatever the model dtype
 F32_LEAVES = frozenset({"A_log", "D"})
@@ -45,7 +47,18 @@ def _causal_conv(x, conv_w, conv_b, conv_state=None):
     """Depthwise causal conv. x: (B,T,C), conv_w: (W,C) -> (B,T,C).
     ``conv_state`` (B, W-1, C) carries the last inputs of a previous
     chunk; None is zeros (start of sequence).  The taps are summed as
-    the reference sums them: a Python ``sum`` over W, then ``+ conv_b``."""
+    the reference sums them: a Python ``sum`` over W, then ``+ conv_b``.
+    A DTensor x runs on each rank's rows and channels (the conv is
+    depthwise: no rank needs another's channels)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+        xp = keep_placements(x, (1,))
+        chan = [Shard(0) if isinstance(p, Shard) and p.dim == 2
+                else Replicate() for p in xp]
+        wp = [Shard(1) if isinstance(p, Shard) else p for p in chan]
+        return local_call(_causal_conv, (x, conv_w, conv_b) + (
+            () if conv_state is None else (conv_state,)),
+            (xp, wp, chan, xp), xp)
     w = conv_w.shape[0]
     if conv_state is None:
         pad = F.pad(x, (0, 0, w - 1, 0))
@@ -63,6 +76,43 @@ def _conv_step(conv_state, x_t, conv_w, conv_b):
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B,W,C)
     out = torch.einsum("bwc,wc->bc", window, conv_w).contiguous() + conv_b
     return out, window[:, 1:, :]
+
+
+def _scan_placements(h):
+    """Placements of the scan's operands from its state ``h`` (B, di |
+    nh, ...) DTensor: the rows where h shards its rows, the channels
+    (dt, x (B,T,di) on dim 2; a_neg, A_log, D on dim 0) where h shards
+    its channel dim, B and C (B,T,ds) whole along it; the recurrence is
+    elementwise in the channels, so no rank needs another's.  Returns
+    (dt / x / y, B / C, per-channel params, h)."""
+    from torch.distributed.tensor import Replicate, Shard
+    seq, bc, chan = [], [], []
+    for p in h.placements:
+        if isinstance(p, Shard) and p.dim == 0:
+            seq.append(Shard(0)), bc.append(Shard(0)), chan.append(Replicate())
+        elif isinstance(p, Shard) and p.dim == 1:
+            seq.append(Shard(2)), bc.append(Replicate()), chan.append(Shard(0))
+        else:
+            seq.append(Replicate()), bc.append(Replicate()), chan.append(
+                Replicate())
+    return seq, bc, chan, list(h.placements)
+
+
+def _scan(dt, b_mat, c_mat, x32, a_neg, h0, train: bool, in_place: bool):
+    """The selective scan from ``h0``: through :class:`SelectiveScanFn`
+    (``train``), or the wrapper writing h_T into ``h0`` (``in_place``) or
+    a fresh state; a DTensor state runs on each rank's rows and
+    channels (:func:`_scan_placements`)."""
+    def run(dt, b_mat, c_mat, x32, a_neg, h0):
+        if train:
+            return SelectiveScanFn.apply(dt, b_mat, c_mat, x32, a_neg, h0)
+        return selective_scan(dt, b_mat, c_mat, x32, a_neg, h0,
+                              h_out=h0 if in_place else None)
+    if not is_dtensor(h0):
+        return run(dt, b_mat, c_mat, x32, a_neg, h0)
+    seq, bc, chan, hp = _scan_placements(h0)
+    return local_call(run, (dt, b_mat, c_mat, x32, a_neg, h0),
+                      (seq, bc, bc, seq, chan, hp), [seq, hp])
 
 
 def mamba1_init(generator, cfg, dtype, device, n: int) -> dict:
@@ -94,6 +144,9 @@ def _mamba1_inner(params, x_c, cfg):
     ds = cfg.ssm_state
     dt_rank = max(1, cfg.d_model // 16)
     proj = x_c @ params["x_proj"]
+    if is_dtensor(proj):         # its columns whole before they are cut
+        proj = proj.redistribute(proj.device_mesh,
+                                 keep_placements(proj, (-1,)))
     dt_r = proj[..., :dt_rank]
     b_mat = proj[..., dt_rank:dt_rank + ds].to(torch.float32)
     c_mat = proj[..., dt_rank + ds:].to(torch.float32)
@@ -128,11 +181,9 @@ def mamba1_seq(params, x, cfg, h0=None, conv_state=None, train=False):
     a_neg = -torch.exp(params["A_log"])
     x32 = x_c.to(torch.float32)
     if h0 is None:
-        h0 = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
-    if train:
-        y, h_t = SelectiveScanFn.apply(dt, b_mat, c_mat, x32, a_neg, h0)
-    else:
-        y, h_t = selective_scan(dt, b_mat, c_mat, x32, a_neg, h0, h_out=h0)
+        h0 = x.new_zeros((b, di, ds), dtype=torch.float32)
+    h0 = constrain(h0, "ssm_state")
+    y, h_t = _scan(dt, b_mat, c_mat, x32, a_neg, h0, train, not train)
     out = _gate_out(params, y, x32, z, x.dtype)
     return out, (h_t, _next_conv_state(x_i, conv_state, cfg))
 
@@ -166,7 +217,7 @@ def mamba1_step(params, x, state, cfg):
     dt, b_mat, c_mat = _mamba1_inner(params, x_c, cfg)
     a_neg = -torch.exp(params["A_log"])
     x32 = x_c.to(torch.float32)
-    y, h = selective_scan(dt, b_mat, c_mat, x32, a_neg, h, h_out=h)
+    y, h = _scan(dt, b_mat, c_mat, x32, a_neg, h, False, True)
     out = _gate_out(params, y, x32, z[:, None, :], x.dtype)
     return out, (h, conv_state)
 
@@ -207,6 +258,20 @@ def _mamba2_inner(params, x, cfg):
 
 
 def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg, train=False):
+    """:func:`_mamba2_local` on each rank's rows and heads where ``h``
+    is a DTensor (its placements as :func:`_scan_placements` reads
+    them: the heads dim is h's dim 1), else itself."""
+    if not is_dtensor(h):
+        return _mamba2_local(params["A_log"], params["D"], dt, b_mat, c_mat,
+                             x32, h, cfg, train)
+    seq, bc, chan, hp = _scan_placements(h)
+    return local_call(
+        lambda a_log, d, *rest: _mamba2_local(a_log, d, *rest, cfg, train),
+        (params["A_log"], params["D"], dt, b_mat, c_mat, x32, h),
+        (chan, chan, seq, bc, bc, seq, hp), [seq, chan, hp])
+
+
+def _mamba2_local(a_log, d_skip, dt, b_mat, c_mat, x32, h, cfg, train):
     """The Mamba2 recurrence through the selective-scan kernel: dt
     (B,T,nh) repeated over each head's channels, ``-exp(A_log)`` over
     the channels and d_state, and the state ``h`` (B,nh,headdim,ds)
@@ -217,7 +282,7 @@ def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg, train=False):
     hd, ds = cfg.mamba2_headdim, cfg.ssm_state
     bsz, _, nh = dt.shape
     di = nh * hd
-    a_neg = -torch.exp(params["A_log"])
+    a_neg = -torch.exp(a_log)
     a_c = a_neg.repeat_interleave(hd)[:, None].expand(di, ds).contiguous()
     h3 = h.view(bsz, di, ds)
     dt_c = dt.repeat_interleave(hd, dim=-1)
@@ -227,7 +292,7 @@ def _mamba2_scan(params, dt, b_mat, c_mat, x32, h, cfg, train=False):
     else:
         y, _ = selective_scan(dt_c, b_mat, c_mat, x32, a_c, h3, h_out=h3)
         h_t = h
-    return y, params["D"].repeat_interleave(hd), h_t
+    return y, d_skip.repeat_interleave(hd), h_t
 
 
 def mamba2_seq(params, x, cfg, h0=None, conv_state=None, train=False):
@@ -246,8 +311,8 @@ def mamba2_seq(params, x, cfg, h0=None, conv_state=None, train=False):
     dt, b_mat, c_mat = _mamba2_inner(params, x, cfg)
     x32 = x_c.to(torch.float32)
     if h0 is None:
-        h0 = torch.zeros((b, di // hd, hd, ds), dtype=torch.float32,
-                         device=x.device)
+        h0 = x.new_zeros((b, di // hd, hd, ds), dtype=torch.float32)
+    h0 = constrain(h0, "ssm_state")
     y, d_skip, h_t = _mamba2_scan(params, dt, b_mat, c_mat, x32, h0, cfg,
                                   train)
     out = _gate_out(params, y, x32, z, x.dtype, d_skip)

@@ -49,6 +49,7 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import _dense_init, add_rmsnorm, mlp, rmsnorm
+from repro_torch.sharding.specs import constrain, is_dtensor, local_call
 
 MODES = ("decode", "chunk", "train", "prefill")
 KINDS = ("attn", "swa", "cross", "mamba1", "mamba2")   # all the reference's
@@ -220,7 +221,10 @@ def _seed_attn_cache(kv: dict, cache: dict, kind: str) -> None:
     a ``swa`` prompt longer than its ring keeps its last ``s_cache``
     positions, rotated so that position p sits at slot ``p % s_cache``;
     otherwise the last ``min(S, s_cache)`` positions from slot 0, the
-    rest zero."""
+    rest zero.  A DTensor cache is seeded on each rank's slice
+    (:func:`_seed_sharded`)."""
+    if is_dtensor(cache["k"]):
+        return _seed_sharded(kv, cache, kind)
     s_cache, s_new = cache["k"].shape[1], kv["k"].shape[1]
     for name in ("k", "v"):
         new, dst = kv[name], cache[name]
@@ -231,6 +235,24 @@ def _seed_attn_cache(kv: dict, cache: dict, kind: str) -> None:
             n = min(s_new, s_cache)
             dst[:, :n] = new[:, s_new - n:]
             dst[:, n:] = 0
+
+
+def _seed_sharded(kv: dict, cache: dict, kind: str) -> None:
+    """:func:`_seed_attn_cache` of DTensors: the prompt's K/V laid out
+    as the cache, each rank seeding its rows and heads.  A prefill
+    seeds caches laid out by heads (its slots whole on every rank)."""
+    from torch.distributed.tensor import Shard
+    dst = cache["k"]
+    if any(isinstance(p, Shard) and p.dim == 1 for p in dst.placements):
+        raise ValueError("a prefill seeds caches laid out by heads, not "
+                         "sharded along their slots")
+
+    def run(k, v, kc, vc):
+        _seed_attn_cache({"k": k, "v": v}, {"k": kc, "v": vc}, kind)
+        return kc
+    local_call(run, (kv["k"], kv["v"], cache["k"], cache["v"]),
+               (dst.placements, dst.placements, None, None),
+               list(dst.placements))
 
 
 def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
@@ -325,6 +347,9 @@ def block_apply(params: dict, x, delta=None, *, kind: str, cfg, mode: str,
             a, aux = moe_mod.moe_apply(params["moe"], h2, cfg)
         else:
             a = mlp(params["mlp"], h2)
+    # the block's output x + a, laid out as the reference's (both terms:
+    # the add is fused into the next block's norm)
+    x, a = constrain(x, "act_btd"), constrain(a, "act_btd")
     return (x, a, aux) if train else (x, a)
 
 

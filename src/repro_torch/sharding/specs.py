@@ -13,7 +13,13 @@ Model code calls :func:`constrain` with a *logical* name.  Outside
 redistributed to the rule's placements (:func:`to_placements`, the
 counterpart of ``NamedSharding``), non-dividing axes dropped, and a plain
 tensor is returned as it is: it is already the rank's local shard, as
-inside a ``shard_map`` body.
+inside a ``shard_map`` body.  :func:`reshape_constrain` is a reshape
+that splits a sharded last dim followed by :func:`constrain`: DTensor
+refuses to split a dim sharded unevenly over the new dims, so the flat
+tensor is first laid out as the rule wants the split one (the step
+GSPMD takes implicitly).  :func:`local_call` runs a function on each
+rank's local tensors of DTensor arguments (a kernel, or a region whose
+operations DTensor has no rule for) and wraps its outputs back.
 
 Logical axes:
   * data axes ("data", and "pod" when multi-pod) shard the batch;
@@ -226,13 +232,15 @@ def to_placements(spec, mesh) -> list:
     """The DTensor placements of ``spec`` on a DeviceMesh: each mesh dim
     shards the tensor dim whose entry names it (``Shard``), else
     ``Replicate``; a dim sharded over several axes is split over them in
-    mesh order."""
+    mesh order.  A mesh dim of size 1 replicates (a shard of everything
+    is the whole, and DTensor would refuse to flatten such a dim)."""
     from torch.distributed.tensor import Replicate, Shard
     out = []
-    for name in axis_names(mesh):
-        dims = [i for i, ax in enumerate(spec)
+    for i, name in enumerate(axis_names(mesh)):
+        dims = [d for d, ax in enumerate(spec)
                 if ax == name or (isinstance(ax, tuple) and name in ax)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and mesh.size(i) > 1
+                   else Replicate())
     return out
 
 
@@ -250,6 +258,155 @@ def constrain(x, name: str):
     if spec is None:
         return x
     return x.redistribute(x.device_mesh, to_placements(spec, x.device_mesh))
+
+
+def is_dtensor(x) -> bool:
+    """Is ``x`` a DTensor (under a mesh: the only time one can be)?"""
+    if getattr(_state, "mesh", None) is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def reshape_constrain(x, shape: tuple, name: str):
+    """``constrain(x.reshape(shape), name)`` where ``shape`` splits x's
+    last dim in two (a projection into heads).  A DTensor is first
+    redistributed to the placements of the rule's spec for ``shape``
+    with the two split dims merged: sharded as the first of them where
+    the rule shards it, else replicated, so that the split is local."""
+    if not is_dtensor(x):
+        return constrain(x.reshape(shape), name)
+    mesh = x.device_mesh
+    spec = _rule_spec(tuple(shape), name, mesh) or P(*([None] * len(shape)))
+    flat = list(spec[:-2]) + [spec[-2] if spec[-1] is None else None]
+    x = x.redistribute(mesh, to_placements(flat, mesh))
+    return constrain(x.reshape(shape), name)
+
+
+def reshape_merged(x, shape: tuple):
+    """``x.reshape(shape)`` where ``shape`` merges x's last two dims
+    (heads back into one projection).  A DTensor's merged dim is then
+    sharded over ``model`` where that divides it, as the projection that
+    reads it shards its input: the gradient that comes back sharded so
+    is laid out whole again before the reshape's gradient splits it
+    (DTensor refuses to split a dim sharded unevenly over the heads)."""
+    y = x.reshape(shape)
+    if not is_dtensor(y):
+        return y
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = y.device_mesh
+    names = axis_names(mesh)
+    if "model" not in names:
+        return y
+    i = names.index("model")
+    pl = list(y.placements)
+    if not isinstance(pl[i], Replicate) or shape[-1] % mesh.size(i):
+        return y
+    pl[i] = Shard(len(shape) - 1)
+    return y.redistribute(mesh, pl)
+
+
+def keep_placements(x, whole=()) -> list:
+    """x's placements with every dim of ``whole`` (a dim a function
+    needs whole on each rank) made replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    whole = {d % x.ndim for d in whole}
+    return [Replicate() if isinstance(p, Shard) and p.dim in whole else p
+            for p in x.placements]
+
+
+def replicated(x) -> list:
+    """Replicated on every dim of x's mesh."""
+    from torch.distributed.tensor import Replicate
+    return [Replicate()] * x.device_mesh.ndim
+
+
+def local_call(fn, args: tuple, placements: tuple, out_placements):
+    """``fn(*locals)``: each DTensor of ``args`` redistributed to its
+    entry of ``placements`` (None: as it is) and taken local; other args
+    passed as they are.  Each tensor output is wrapped as a DTensor on
+    the first DTensor arg's mesh with its entry of ``out_placements``
+    (one list of placements a tensor output, in order; a single output
+    takes the list itself), non-tensors as they are.  The sharded dims
+    must divide evenly (the rules' ``fit_spec`` sees to that).
+
+    Gradients: a mesh dim on which some output is sharded or partial
+    splits the work, so an input replicated on it gets only this rank's
+    share of its gradient: a ``Partial`` there.  An output replicated on
+    such a dim is the same on every rank of it, so the gradient it
+    passes back is divided by the dim's size, and those partial shares
+    sum to it once.  Elsewhere a gradient takes its input's
+    placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    single = not out_placements or not isinstance(out_placements[0],
+                                                  (list, tuple))
+    outs = [out_placements] if single else out_placements
+    split = {j for pl in outs for j, p in enumerate(pl)
+             if not isinstance(p, Replicate)}
+    local = []
+    for a, pl in zip(args, placements):
+        if isinstance(a, DTensor):
+            pl = list(a.placements) if pl is None else list(pl)
+            if list(a.placements) != pl:
+                a = a.redistribute(mesh, pl)
+            a = a.to_local(grad_placements=[
+                Partial() if j in split and isinstance(p, Replicate) else p
+                for j, p in enumerate(pl)])
+        local.append(a)
+    out = fn(*local)
+
+    def wrap(o, pl):
+        if o.requires_grad and torch.is_grad_enabled():
+            n = 1
+            for j in split:
+                if isinstance(pl[j], Replicate):
+                    n *= mesh.size(j)
+            if n > 1:
+                o = _ScaleGrad.apply(o, 1.0 / n)
+        return _from_local(o, mesh, pl)
+    if torch.is_tensor(out):
+        return wrap(out, out_placements)
+    wrapped, i = [], 0
+    for o in out:
+        if torch.is_tensor(o):
+            o = wrap(o, out_placements[i])
+            i += 1
+        wrapped.append(o)
+    return type(out)(wrapped)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _from_local(t, mesh, placements):
+    """``DTensor.from_local`` of an evenly sharded local; a contiguous
+    local makes a contiguous DTensor (from_local's own strides scale a
+    size-1 dim's stride, which stops matmul from folding the batch dims
+    and sends it through an expanded weight)."""
+    from torch.distributed.tensor import DTensor, Shard
+    shape = list(t.shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.size(i)
+    stride = None
+    if t.is_contiguous():
+        stride = [1] * len(shape)
+        for d in range(len(shape) - 2, -1, -1):
+            stride[d] = stride[d + 1] * shape[d + 1]
+        stride = tuple(stride)
+    return DTensor.from_local(t, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def local_shard(t: torch.Tensor, spec, mesh) -> torch.Tensor:

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.specs import is_dtensor, local_call
 from repro_torch.training.optimizer import adamw_update, cosine_lr
 from repro_torch.training.tree import leaves, tree_map, unflatten
 
@@ -20,8 +21,37 @@ def _chunk_nll(xx, head_w, tt, mm):
     ``einsum(...).astype(f32)``."""
     lg = (xx @ head_w.T).to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, tt.long()[..., None])[..., 0]
+    gold = _gold(lg, tt.long())
     return torch.sum((logz - gold) * mm), torch.sum(mm)
+
+
+def _gold(lg, tt):
+    """The logits of the targets ``tt`` (B, C) in ``lg`` (B, C, V); a
+    DTensor's vocab shards each read the targets they hold (the rest
+    zero) and the shards' values sum (a ``Partial``), as GSPMD gathers
+    from a vocab-sharded table."""
+    if not is_dtensor(lg):
+        return torch.gather(lg, -1, tt[..., None])[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = lg.device_mesh
+    vocab = [i for i, p in enumerate(lg.placements)
+             if isinstance(p, Shard) and p.dim == 2]
+    lp = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in lg.placements]
+    tp = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+          for p in lp]
+    outp = [Partial() if i in vocab else p for i, p in enumerate(tp)]
+
+    def run(lg, tt):
+        v = lg.shape[-1]
+        off = 0
+        for i in vocab:        # the shard's first row, axes in mesh order
+            off = off * mesh.size(i) + mesh.get_local_rank(i)
+        idx = tt - off * v
+        mine = (idx >= 0) & (idx < v)
+        g = torch.gather(lg, -1, idx.clamp(0, v - 1)[..., None])[..., 0]
+        return torch.where(mine, g, torch.zeros_like(g))
+    return local_call(run, (lg, tt), (lp, tp), outp)
 
 
 def chunked_ce(x, head_w, targets, mask, chunk: int = 512):

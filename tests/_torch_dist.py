@@ -6,8 +6,9 @@ the CPU, one spawn for every case.
 Rank r writes ``OUT_DIR/rank{r}.pt``: its mesh coordinates, its outputs
 of each distributed case (its own slice), its aux values, the form
 ``moe_apply`` chose under ``REPRO_MOE_SHARDMAP``, the specs
-``param_specs`` gives its smoke models and the placements ``constrain``
-gives a DTensor.  Inputs come from the npz the test wrote with numpy.
+``param_specs`` gives its smoke models, the placements ``constrain``
+gives a DTensor, and, where ``MODELS.pt`` lies beside the inputs, the
+models of ``MODEL_CASES`` run on DTensor params (logits gathered).  Inputs come from the npz the test wrote with numpy.
 Imports torch and the port only.
 """
 import os
@@ -50,6 +51,109 @@ def _flat_specs(tree, prefix="", out=None):
             _flat_specs(v, f"{prefix}{i}/", out)
     elif tree is not None:
         out[prefix[:-1]] = tuple(tree)
+    return out
+
+
+#: the models on DTensors (``MODELS.pt`` beside the inputs, which the test
+#: writes): name -> (arch, config overrides, env)
+MODEL_CASES = ("smollm_h3", "mixtral", "mixtral_shardmap", "mixtral_ep_dp",
+               "mamba")
+#: the model cases that also take one train step on the mesh
+TRAIN_CASES = ("smollm_h3", "mixtral")
+#: the train step's schedule: the first step at a visible rate
+TRAIN_LR = dict(base_lr=1e-2, warmup=1)
+
+
+def train_state(params):
+    """The AdamW state the train step starts from: zero moments, but
+    nu at 1e-2, so the update is close to g / sqrt(nu), linear in the
+    gradient.  From nu = 0 it would be g / (|g| + eps), a sign, which a
+    gradient near eps flips on the order of its sums."""
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.tree import tree_map
+    state = adamw_init(params)
+    return state._replace(nu=tree_map(lambda v: v + 1e-2, state.nu))
+
+
+def _model_runs(meshes, models_path):
+    """Each model case's train-mode forward logits and a decode step's
+    logits after a prefill, on DTensor params on the 2x2 mesh under its
+    rules (the whole tensors, gathered); for :data:`TRAIN_CASES` also
+    one train step's loss, gradients, gradient norm and updated
+    params."""
+    import dataclasses
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import cache_spec
+    from repro_torch.models.model import Model
+    from repro_torch.sharding.specs import (PartitionSpec as P, fit_spec,
+                                            param_specs, to_placements,
+                                            use_mesh_rules)
+    from repro_torch.training.train_step import (make_train_step,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves
+    mesh = meshes["2x2"]
+    data = torch.load(models_path, weights_only=False)
+    out = {}
+
+    def dt(t, spec):
+        spec = fit_spec(tuple(t.shape), spec, mesh)
+        return distribute_tensor(t, mesh, to_placements(spec, mesh))
+
+    def tree(params, specs):
+        if isinstance(params, dict):
+            return {k: tree(v, specs[k]) for k, v in params.items()}
+        if isinstance(params, list):
+            return [tree(v, s_) for v, s_ in zip(params, specs)]
+        return None if params is None else dt(params, specs)
+
+    for name in MODEL_CASES:
+        arch, over, env = data[name]["case"]
+        cfg = dataclasses.replace(get_smoke_config(arch), **over)
+        model = Model(cfg, device="cpu")
+        params = tree(data[name]["params"],
+                      param_specs(data[name]["params"], mesh))
+        tokens = data[name]["tokens"]
+        b, s = tokens.shape
+        for k, v in env.items():
+            os.environ[k] = v
+        with torch.no_grad(), use_mesh_rules(mesh), implicit_replication():
+            logits, _, _ = model.forward(
+                params, {"tokens": dt(tokens, P("data", None))}, mode="train")
+            out[f"model/{name}/train"] = logits.full_tensor()
+            caches = [{k: dt(v, cache_spec(k, v.ndim, mesh))
+                       for k, v in c.items()}
+                      for c in model.init_cache(b, s + 4)]
+            model.forward(params, {"tokens": dt(tokens[:, :-1],
+                                                P("data", None))},
+                          mode="prefill", caches=caches)
+            # the same caches laid out along their slots (the seq layout)
+            seq = [{k: v.clone().redistribute(mesh, to_placements(fit_spec(
+                tuple(v.shape), cache_spec(k, v.ndim, mesh, "seq"), mesh),
+                mesh)) for k, v in c.items()} for c in caches]
+            batch = {"token": dt(tokens[:, -1:], P("data", None)),
+                     "pos": dt(torch.full((b,), s - 1, dtype=torch.int32),
+                               P("data"))}
+            logits, _ = model.decode_step(params, caches, batch)
+            out[f"model/{name}/decode"] = logits.full_tensor()
+            logits, _ = model.decode_step(params, seq, batch)
+            out[f"model/{name}/decode_seq"] = logits.full_tensor()
+        if name in TRAIN_CASES:
+            batch = {"tokens": dt(tokens, P("data", None))}
+            with use_mesh_rules(mesh), implicit_replication():
+                _, _, grads = value_and_grad(model, params, batch)
+                opt = train_state(params)
+                opt = opt._replace(step=dt(opt.step, P()))
+                new, _, metrics = make_train_step(model, **TRAIN_LR)(
+                    params, opt, batch)
+            out[f"model/{name}/train_step"] = {
+                "loss": metrics["loss"].full_tensor(),
+                "grad_norm": metrics["grad_norm"].full_tensor(),
+                "grads": [g.full_tensor() for g in leaves(grads)],
+                "params": [p.full_tensor() for p in leaves(new)]}
+        for k in env:
+            os.environ.pop(k)
     return out
 
 
@@ -108,6 +212,8 @@ def rank_main(rank: int, store_path: str, inputs_path: str, out_dir: str):
     # moe_apply's selection under REPRO_MOE_SHARDMAP (whole experts: the
     # sharded form takes its range)
     chosen = {}
+    reals = {form: getattr(moe, form)
+             for form in ("moe_apply_sharded", "moe_apply_capsharded")}
     for form in ("moe_apply_sharded", "moe_apply_capsharded"):
         real = getattr(moe, form)
 
@@ -130,6 +236,8 @@ def rank_main(rank: int, store_path: str, inputs_path: str, out_dir: str):
         out[f"{case}/selected_y"] = y
         os.environ.pop("REPRO_MOE_SHARDMAP")
     out["selection"] = chosen
+    for form, real in reals.items():      # the spies end here
+        setattr(moe, form, real)
 
     # param_specs of the smoke models on the real 2x2 mesh
     if rank == 0:
@@ -156,6 +264,9 @@ def rank_main(rank: int, store_path: str, inputs_path: str, out_dir: str):
                         "act_btf_local": list(btf.to_local().shape),
                         "act_btf_value": btf.full_tensor(),
                         "act_btd_odd": _sharded_dims(btd.placements)}
+    models = os.path.join(os.path.dirname(inputs_path), "MODELS.pt")
+    if os.path.exists(models):
+        out.update(_model_runs(meshes, models))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()

@@ -177,12 +177,54 @@ def _moe_config(case: str):
                                capacity_factor=cf)
 
 
+#: models run on DTensor params on the 2x2 mesh (tests/_torch_dist.py):
+#: name -> (arch, config overrides, environment).  smollm at 3 query heads
+#: over 1 KV head: neither divides the model axis of 2 (the uneven
+#: reshape of the flat projection, as 15 heads on 16); mixtral's 4
+#: experts with room for every claim (no drops: capacity counted over
+#: the whole batch and over a rank's rows agree), as DTensors and
+#: through the sharded forms; falcon-mamba's Mamba1 layers
+MODELS = {"smollm_h3": ("smollm-360m",
+                        dict(n_heads=3, n_kv_heads=1, head_dim=32), {}),
+          "mixtral": ("mixtral-8x7b", dict(capacity_factor=4.0), {}),
+          "mixtral_shardmap": ("mixtral-8x7b", dict(capacity_factor=4.0),
+                               {"REPRO_MOE_SHARDMAP": "1"}),
+          "mixtral_ep_dp": ("mixtral-8x7b", dict(capacity_factor=4.0),
+                            {"REPRO_MOE_LAYOUT": "ep_dp"}),
+          "mamba": ("falcon-mamba-7b", {}, {})}
+
+
+def _model_inputs(path: Path) -> dict:
+    """Each model's weights (the reference's init, bridged) and tokens,
+    saved where the ranks read them."""
+    import dataclasses
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import build_model
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_smoke_config
+    rng = np.random.default_rng(32)
+    out = {}
+    for name, (arch, over, env) in MODELS.items():
+        jc = dataclasses.replace(jax_smoke(arch), **over)
+        tc = dataclasses.replace(get_smoke_config(arch), **over)
+        jp = jax.tree_util.tree_map(
+            np.asarray, build_model(jc).init(jax.random.PRNGKey(3)))
+        out[name] = {"case": (arch, over, env),
+                     "params": params_from_numpy(jp, tc, "cpu",
+                                                 torch.float32),
+                     "tokens": torch.from_numpy(rng.integers(
+                         0, tc.vocab_size, (4, 16)).astype(np.int64))}
+    torch.save(out, path)
+    return out
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both subprocesses, started together: (inputs, the reference's
     arrays, its selection and specs, the port's per-rank records)."""
     tmp = tmp_path_factory.mktemp("dist")
     inputs = _inputs(tmp / "inputs.npz")
+    inputs["models"] = _model_inputs(tmp / "MODELS.pt")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                OMP_NUM_THREADS="1")
     (tmp / "port").mkdir()
@@ -372,3 +414,86 @@ def test_plain_partials_equal_local_flash_decode(s_start):
         assert bool((m[0] == np.float32(NEG_INF)).all())
         assert bool((l[0] == 0).all()) and bool((acc[0] == 0).all())
     assert bool((l[1:] > 0).all())
+
+
+def _single_process(name, data):
+    """The port's train-mode forward logits and the decode step's after
+    a prefill, in one process on plain tensors."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    arch, over, _ = data["case"]
+    model = Model(dataclasses.replace(get_smoke_config(arch), **over),
+                  device="cpu")
+    params, tokens = data["params"], data["tokens"]
+    b, s = tokens.shape
+    with torch.no_grad():
+        train, _, _ = model.forward(params, {"tokens": tokens}, mode="train")
+        caches = model.init_cache(b, s + 4)
+        model.forward(params, {"tokens": tokens[:, :-1]}, mode="prefill",
+                      caches=caches)
+        decode, _ = model.decode_step(params, caches, {
+            "token": tokens[:, -1:],
+            "pos": torch.full((b,), s - 1, dtype=torch.int32)})
+    return {"train": train, "decode": decode}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_models_on_dtensors_equal_single_process(runs, name):
+    """DTensor params on the 2x2 mesh under its rules (the ``constrain``
+    calls, the heads' uneven reshape, the attention, norm and scan
+    kernels' wrappers on each rank's rows and heads, the MoE on
+    DTensors and its sharded forms): the train-mode forward's logits and
+    a decode step's after a prefill, over caches laid out by heads and
+    along their slots (the seq-parallel flash-decode), equal the
+    single-process port's on the same weights (the reference's, bridged)
+    within 1e-5 on every rank."""
+    inputs, *_, port = runs
+    want = _single_process(name, inputs["models"][name])
+    want["decode_seq"] = want["decode"]
+    for rec in port:
+        for kind in ("train", "decode", "decode_seq"):
+            got = rec[f"model/{name}/{kind}"]
+            assert got.shape == want[kind].shape
+            err = (got - want[kind]).abs().max().item()
+            assert err < TOL, (name, kind, err)
+
+
+@pytest.mark.parametrize("name", ["smollm_h3", "mixtral"])
+def test_train_step_on_dtensors_equals_single_process(runs, name):
+    """One train step (``make_train_step``) on DTensor params on the 2x2
+    mesh under its rules: the loss (the cross entropy's target logits
+    read from a vocab-sharded head), every gradient (through the
+    kernels' islands and their gradient placements), the gradient norm
+    and the updated params, gathered, equal the single-process step's
+    on the same weights within 1e-5 on every rank.  The step starts from
+    ``train_state``'s nu, where the update is linear in the gradient."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_step import (make_train_step,
+                                                 value_and_grad)
+    from repro_torch.training.tree import leaves
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_dist import TRAIN_LR, train_state
+    inputs, *_, port = runs
+    data = inputs["models"][name]
+    arch, over, _ = data["case"]
+    model = Model(dataclasses.replace(get_smoke_config(arch), **over),
+                  device="cpu")
+    params, batch = data["params"], {"tokens": data["tokens"]}
+    _, _, grads = value_and_grad(model, params, batch)
+    new, _, metrics = make_train_step(model, **TRAIN_LR)(
+        params, train_state(params), batch)
+    want = {"loss": [metrics["loss"]], "grad_norm": [metrics["grad_norm"]],
+            "grads": leaves(grads), "params": leaves(new)}
+    assert max(float(g.abs().max()) for g in want["grads"]) > 1e-3
+    for rec in port:
+        got = rec[f"model/{name}/train_step"]
+        for kind, w in want.items():
+            g = got[kind] if isinstance(got[kind], list) else [got[kind]]
+            assert len(g) == len(w), (name, kind)
+            for a, b in zip(g, w):
+                assert a.shape == b.shape, (name, kind)
+                err = (a - b).abs().max().item()
+                assert err < TOL, (name, kind, err)

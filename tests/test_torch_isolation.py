@@ -39,7 +39,9 @@ def test_engine_imports_without_jax():
             "import repro_torch.serving.engine, repro_torch.bridge, "
             "repro_torch.training, repro_torch.launch.train, "
             "repro_torch.launch.serve, repro_torch.launch.mesh, "
-            "repro_torch.serving.decode, repro_torch.sharding.specs; "
+            "repro_torch.serving.decode, repro_torch.sharding.specs, "
+            "repro_torch.launch.steps, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hlo_analysis, repro_torch.kernels.fake; "
             "bad = [m for m in sys.modules "
             "if sys.modules[m] is not None and "
             "(m == 'repro' or m.startswith(('repro.', 'jax')))]; "
