@@ -114,7 +114,9 @@ one JSON line:
    turns), ``Model.prefill``'s decoder self-attention over 8 prompts of
    128 (hd 64 on ``wgmma``; llama-3.2-vision-90b's hd 128, G 8 on
    ``wgmma`` too), a long row at hd 128 (B 1, S 4096, 32 / 8 heads,
-   causal; ``wgmma`` against ``mma`` in turns), and a non-causal ragged
+   causal; ``wgmma`` against ``mma`` in turns), zamba2-7b's train shape
+   (B 2, S 2048, 32 / 32 heads of 112, causal; ``wgmma`` on the hd-128
+   body against ``mma`` in turns), and a non-causal ragged
    case (B 2, S 1000, with a window it
    must ignore) in both dtypes (bf16 on ``wgmma`` against ``mma`` in
    turns; on ``wgmma`` the model's ``(B, S, heads, hd)`` layout, passed
@@ -965,7 +967,7 @@ def target_cases(dev) -> list:
 #: wgmma, mma in turns); "hd128_long": one row of 4096 at hd 128, where
 #: the tensor cores and not latency set the pace (wgmma, mma in turns);
 #: "zamba_train": zamba2-7b's train shape (its train run's B 2, S 2048,
-#: 32 / 32 heads of 112, causal), on mma (no wgmma body at hd 112)
+#: 32 / 32 heads of 112, causal; wgmma on the hd-128 body, mma in turns)
 FLASH_CASES = [("train", "bfloat16", 8, 4096, 15, 5, 64, True, 0),
                ("train_f32", "float32", 8, 1024, 15, 5, 64, True, 0),
                ("gemma", "bfloat16", 1, 4096, 16, 8, 256, True, 1024),
@@ -2149,12 +2151,14 @@ def scan_backward_cases(dev) -> list:
     without).  Then the backward kernel from those checkpoints against
     ``selective_scan_backward_plain`` (every gradient within 2e-5 of
     max(1, |plain|)), launched twice with the same bits, timed beside the
-    plain version (one call: thousands of launches) and its bound; no
-    PyTorch call computes the scan's gradient."""
+    plain version (one call: thousands of launches) and its bound, with
+    its blocks an SM and shared memory from the occupancy calculator; no
+    PyTorch call computes the scan's gradient (``tools/torch_scan_sweep.py
+    --backward`` times it against the previous kernel)."""
     import torch
     from repro_torch.kernels.selective_scan import (
-        scan_checkpoints, selective_scan, selective_scan_backward,
-        selective_scan_backward_plain)
+        bwd_occupancy, scan_checkpoints, selective_scan,
+        selective_scan_backward, selective_scan_backward_plain)
     rng = np.random.default_rng(SEED + 30)
     for b, t, di, ds in ((8, 1, 8192, 16), (1, 128, 8192, 16)):
         dt, bm, cm, x, a_neg, _ = scan_train_inputs(dev, rng, b, t, di, ds,
@@ -2190,9 +2194,11 @@ def scan_backward_cases(dev) -> list:
             lambda: selective_scan(dt, bm, cm, x, a_neg, h0,
                                    checkpoints=ckpt),
             lambda: selective_scan(dt, bm, cm, x, a_neg, h0))]
+        blocks, smem = bwd_occupancy(ds)
         fwd = {"forward_ms": (turns[0] + turns[3]) / 2,
                "forward_ckpt_ms": (turns[1] + turns[2]) / 2,
-               "forward_turns_ms": turns}
+               "forward_turns_ms": turns, "backward_blocks_per_sm": blocks,
+               "backward_smem": smem}
         args = (dt, bm, cm, x, a_neg, ckpt, dy)
         want = selective_scan_backward_plain(*args)
         got = selective_scan_backward(*args)
@@ -4390,10 +4396,10 @@ TRAIN_PARITY = {"layers": 2, "batch": 2, "seq": 256, "steps": 2}
 CUBLAS_KEYS = ("gemm", "nvjet", "cutlass", "xmma", "cublas")
 
 
-#: the body every bf16 train launch of the contiguous flash form takes,
-#: per config (``flash_body``'s rule; a config not named takes wgmma):
-#: zamba2-7b's hd 112 runs mma
-TRAIN_FLASH_BODY = {"zamba2-7b": "mma"}
+#: the body every bf16 train launch of the contiguous flash form takes
+#: (``flash_body``'s rule: smollm-360m's and seamless-m4t-medium's hd 64,
+#: mixtral-8x7b's and llama-3.2-vision-90b's 128, zamba2-7b's 112)
+TRAIN_FLASH_BODY = "wgmma"
 #: the body of every bf16 cross read in training: the cross form's wgmma
 #: (seamless-m4t-medium's hd 64, llama-3.2-vision-90b's hd 128)
 TRAIN_CROSS_BODY = "wgmma"
@@ -4439,10 +4445,9 @@ def expected_train_launches(cfg, steps: int) -> tuple:
     expect["rmsnorm"] = (norm + add_norm) * steps
     expect["selective_scan"] = 2 * n_scan * steps
     expect["selective_scan_backward"] = n_scan * steps
-    flash = TRAIN_FLASH_BODY.get(cfg.name, "wgmma")
     return expect, {
         "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0,
-                            flash: 2 * n_attn * steps},
+                            TRAIN_FLASH_BODY: 2 * n_attn * steps},
         "paged_cross_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0,
                                   TRAIN_CROSS_BODY: 2 * n_cross * steps},
         "rmsnorm": {"add_norm": add_norm * steps, "norm": norm * steps,
@@ -4458,8 +4463,7 @@ def train_bodies(cfg) -> None:
     import torch
     from repro_torch.kernels.flash_attention import cross_body, flash_body
     crosses = "cross" in cfg.block_pattern or cfg.is_encoder_decoder
-    want = (TRAIN_FLASH_BODY.get(cfg.name, "wgmma"),
-            TRAIN_CROSS_BODY if crosses else None)
+    want = (TRAIN_FLASH_BODY, TRAIN_CROSS_BODY if crosses else None)
     named = (flash_body(torch.bfloat16, cfg.head_dim),
              cross_body(torch.bfloat16, cfg.head_dim) if crosses else None)
     if cfg.n_kv_heads and named != want:
@@ -5682,8 +5686,9 @@ def device_tables(dev) -> dict:
     decode's at gemma3-12b's G 2, through the empty kernel; and the
     cross form's ``wgmma`` body at hd 64 and 128 itself, whose clusters
     ``cross_splits`` sizes) against
-    ``WIDE_CLUSTERS``; the CTAs an SM holds of the contiguous and the
-    cross flash forms' ``wgmma`` bodies at hd 64 and 128, from the
+    ``WIDE_CLUSTERS``; the CTAs an SM holds of the contiguous flash
+    form's ``wgmma`` body at hd 64, 112 and 128 (``WGMMA_HD``) and the
+    cross form's at hd 64 and 128 (``CROSS_WGMMA_HD``), from the
     occupancy calculator on each kernel at the dynamic shared memory it
     launches with, against ``WGMMA_CTAS_PER_SM``, and that shared memory
     and the keys of a K/V tile against their Python mirrors
@@ -5723,8 +5728,9 @@ def device_tables(dev) -> dict:
                 for sp, n in got.items()
                 if n != decode_attention.WIDE_CLUSTERS[sp]]
     occupancy = {}
-    for form in ("flash", "cross"):
-        for hd in flash_attention.WGMMA_HD:
+    for form, hds in (("flash", flash_attention.WGMMA_HD),
+                      ("cross", flash_attention.CROSS_WGMMA_HD)):
+        for hd in hds:
             ctas, smem, keys = flash_attention.wgmma_occupancy(hd, form)
             occupancy[f"{form} hd {hd}"] = {"smem": smem, "ctas": ctas,
                                             "tile_keys": keys}

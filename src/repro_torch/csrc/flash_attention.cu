@@ -30,9 +30,10 @@
 // (kernels/flash_attention.py::flash_body) and this entry point launches
 // it, refusing a body the shape cannot take:
 //
-// * wgmma (bf16, hd 64 and 128, 16-byte aligned pointers and strides:
-//   every launch of smollm-360m's train step and of Model.prefill's
-//   self-attention), warp-specialised for Hopper, the consumers shared
+// * wgmma (bf16, hd 64, 112 and 128, 16-byte aligned pointers and
+//   strides: every launch of smollm-360m's and zamba2-7b's train steps and
+//   of Model.prefill's self-attention), warp-specialised for Hopper, the
+//   consumers shared
 //   with the cross form (wg_attention.cuh).  One producer warp issues
 //   every copy by TMA over the tensors' own strides (hopper.cuh): Q once
 //   an item, through a 5-D map (hd, head-in-group, query, KV head,
@@ -40,7 +41,11 @@
 //   CTA's 128 rows keep the (query, head) packing and each K/V tile
 //   serves all G heads; K and V as boxes of 4-D maps into a ring
 //   (hd 64: 128-key tiles, 3 stages; hd 128: each row two 64-column
-//   halves, 64-key tiles, 4 stages, 165,120 B), with full / empty
+//   halves, 64-key tiles, 4 stages, 165,120 B; hd 112 runs the hd-128
+//   body, its maps over the tensors' 112 columns, so the second half's
+//   boxes read columns 64-111 and TMA fills 112-127 with zeros: S sums
+//   the same products, P V's last 16 columns are zeros and never
+//   stored), with full / empty
 //   mbarriers, keys past S arriving as zeros, only the tiles some row of
 //   the CTA may see.  Two consumer warpgroups (setmaxnreg 240; the
 //   producer 24) of 64 rows each run S = Q K^T as wgmma from the
@@ -389,8 +394,8 @@ cudaError_t dispatch(int hd, const void* q, const void* k, const void* v,
 }  // namespace mma
 
 // ---------------------------------------------------------------------------
-// wgmma body (bf16, hd 64 and 128): warp-specialised, Q / K / V by TMA,
-// the consumers of wg_attention.cuh
+// wgmma body (bf16, hd 64, 112 and 128): warp-specialised, Q / K / V by
+// TMA, the consumers of wg_attention.cuh; hd 112 on the hd-128 body
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -401,6 +406,7 @@ struct Params {
   __nv_bfloat16* out;
   float* lse;
   long long o[3];   // out's element strides (batch, head, position)
+  int hd;           // the tensors' head dim: HD, or 112 on the hd-128 body
   int S, H, KV, G;
   int nq;           // whole queries of a CTA's rows: kRows / G
   int tiles;        // row tiles, ceil(S / nq)
@@ -522,7 +528,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           });
       if (c.lane == 0) hop::mbar_arrive(ring.q_empty);   // Q is read no more
 
-      // divide by l in f32, round once, store through out's strides;
+      // divide by l in f32, round once, store through out's strides
+      // (the launch's hd columns: the zero-filled ones are not stored);
       // lse = (m + log2 l) ln 2
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -535,9 +542,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              qi * p.o[2] + 2 * c.tig;
 #pragma unroll
         for (int d = 0; d < HD / 8; ++d)
-          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
-              __floats2bfloat162_rn(c.o[4 * d + 2 * half] / l,
-                                    c.o[4 * d + 2 * half + 1] / l);
+          if (8 * d < p.hd)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+                __floats2bfloat162_rn(c.o[4 * d + 2 * half] / l,
+                                      c.o[4 * d + 2 * half + 1] / l);
         if (c.tig == 0)
           p.lse[(static_cast<size_t>(it.b) * p.H + h) * p.S + qi] =
               ((half ? c.m_b : c.m_a) + log2f(l)) * kLn2;
@@ -546,15 +554,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Encode the three tensor maps over the tensors' own strides and launch
-// a persistent grid of one CTA an SM; a CUDA error, or
+// Encode the three tensor maps over the tensors' own strides and head
+// dim hd (HD, or 112 on the hd-128 body: columns past hd arrive as
+// zeros) and launch a persistent grid of one CTA an SM; a CUDA error, or
 // hop::kTensorMapError + the CUDA driver's CUresult.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, const Layout& lay, int B, int S, int H, int KV,
-           int causal, int window, float scale, cudaStream_t stream) {
+           int hd, int causal, int window, float scale,
+           cudaStream_t stream) {
   using K = wgt::FlashCfg<HD>;
   Params p;
+  p.hd = hd;
   p.G = H / KV;
   if (p.G > kRows) return static_cast<int>(cudaErrorInvalidValue);
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -574,10 +585,12 @@ int launch(const void* q, const void* k, const void* v, void* out,
   p.items = p.tiles * p.nbkv;
   // Q: (hd, head-in-group, query, KV head, batch), boxes of 64 columns
   // of nq whole queries' G rows; K and V: (hd, position, KV head, batch),
-  // boxes of 64 columns of kTK keys (past S: zeros)
+  // boxes of 64 columns of kTK keys (past S and past hd: zeros; the
+  // barriers count whole boxes)
   const cuuint64_t e = sizeof(__nv_bfloat16);
   CUtensorMap tq, tk, tv;
-  const cuuint64_t q_dims[5] = {HD, static_cast<cuuint64_t>(p.G),
+  const cuuint64_t q_dims[5] = {static_cast<cuuint64_t>(hd),
+                                static_cast<cuuint64_t>(p.G),
                                 static_cast<cuuint64_t>(S),
                                 static_cast<cuuint64_t>(KV),
                                 static_cast<cuuint64_t>(B)};
@@ -586,7 +599,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const cuuint32_t q_box[5] = {64, static_cast<cuuint32_t>(p.G),
                                static_cast<cuuint32_t>(p.nq), 1, 1};
   int rc = hop::encode_bf16(&tq, q, 5, q_dims, q_strides, q_box);
-  const cuuint64_t kv_dims[4] = {HD, static_cast<cuuint64_t>(S),
+  const cuuint64_t kv_dims[4] = {static_cast<cuuint64_t>(hd),
+                                 static_cast<cuuint64_t>(S),
                                  static_cast<cuuint64_t>(KV),
                                  static_cast<cuuint64_t>(B)};
   const cuuint64_t kv_strides[3] = {lay.kv[2] * e, lay.kv[1] * e,
@@ -655,11 +669,11 @@ extern "C" int rt_flash_attention(
                          reinterpret_cast<uintptr_t>(v) |
                          reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
   if (body == rt::kBodyWgmma) {
-    if (dtype != 1 || !aligned || (hd != 64 && hd != 128))
+    if (dtype != 1 || !aligned || (hd != 64 && hd != 112 && hd != 128))
       return static_cast<int>(cudaErrorInvalidValue);
-    return hd == 64 ? wg::launch<64>(q, k, v, out, l, lay, B, S, H, KV,
+    return hd == 64 ? wg::launch<64>(q, k, v, out, l, lay, B, S, H, KV, hd,
                                      causal, window, scale, s)
-                    : wg::launch<128>(q, k, v, out, l, lay, B, S, H, KV,
+                    : wg::launch<128>(q, k, v, out, l, lay, B, S, H, KV, hd,
                                       causal, window, scale, s);
   }
   if (body == rt::kBodyMma) {
@@ -687,14 +701,16 @@ extern "C" int rt_flash_attention(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The CTAs of the wgmma body at head dim hd (64 or 128) an SM of this
-// card holds (registers and shared memory), into *ctas, its dynamic
-// shared memory, into *smem, and the keys a K/V tile holds, into
-// *tile_keys (what kernels/flash_attention.py's wgmma_smem_bytes and
-// wgmma_tile_keys mirror; chip_smoke.py holds them to these).
+// The CTAs of the wgmma body at head dim hd (64, or 112 and 128, which
+// share a body) an SM of this card holds (registers and shared memory),
+// into *ctas, its dynamic shared memory, into *smem, and the keys a K/V
+// tile holds, into *tile_keys (what kernels/flash_attention.py's
+// wgmma_smem_bytes and wgmma_tile_keys mirror; chip_smoke.py holds them
+// to these).
 extern "C" int rt_flash_wgmma_occupancy(int hd, int* ctas, int* smem,
                                         int* tile_keys) {
   if (hd == 64) return wg::occupancy<64>(ctas, smem, tile_keys);
-  if (hd == 128) return wg::occupancy<128>(ctas, smem, tile_keys);
+  if (hd == 112 || hd == 128)
+    return wg::occupancy<128>(ctas, smem, tile_keys);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -60,25 +60,34 @@
 //   dB_t   = sum_d g_t * dt_t * x_t,   dC_t = sum_d h_t * dy_t
 //   dA     = sum_{b,t} g_t * h_{t-1} * a_t * dt_t,   dh0 = a_0 * g_0.
 // It keeps the forward's lane layout with 4 states a lane (G = 1 to 16
-// lanes a channel, 128 threads a block, a block 128 / G channels of one
-// row) and walks the checkpoints' chunks of 32 steps in reverse: each
-// chunk's states are recomputed from its checkpoint (the forward's
-// operations, so the forward's bits) into shared memory (128 threads x
-// 32 steps x 4 states x 4 B = 64 KB), then the chunk is stepped back
-// through.  The gradient algebra runs in double on the forward's float
-// states and decays (each gradient sums terms that cancel: d(dt) sixteen
-// to 64 states of g * (h * a * A + x * B), dB and dC thousands of
-// channels, dA thousands of steps; two float sums of them in different
-// orders differ by several 1e-5 of the result), and each gradient is
-// rounded to float once.  dx and ddt are summed over the G lanes of a
-// channel by shuffles; dB and dC over the channels of a warp by shuffles,
-// then over the block's 4 warps in shared memory, one partial a block
-// and step; dA stays in registers over t, one partial a row.  A second
-// kernel sums the partials in a fixed order (blocks, then rows): no
-// atomics, so the same inputs give the same bits.  Bound: instruction issue (the
-// forward's update is recomputed, and the backward's takes about twice
-// its operations, with warp shuffles for every state and step); the
-// partials of dB and dC are most of its bytes.
+// lanes a channel, 256 threads a block, a block 256 / G channels of one
+// row) and walks the checkpoints' chunks of 32 steps in reverse.  A
+// chunk's rows of B and C are staged in shared memory, coalesced, once
+// for the block's channels (B as float for the recompute, B and C as
+// double for the algebra, so no step converts them); its states are
+// recomputed from the checkpoint (the forward's operations, so the
+// forward's bits) once forward, keeping the first state of each
+// sub-chunk of 4 steps (32 KB), then each sub-chunk's 4 states and decays
+// again, into registers, and the sub-chunk is stepped back through, its
+// dt, x and dy loaded up front.  The gradient algebra runs in double on
+// the forward's float states and decays (each gradient sums terms that
+// cancel: d(dt) sixteen to 64 states of g * (h * a * A + x * B), dB and
+// dC thousands of channels, dA thousands of steps; two float sums of
+// them in different orders differ by several 1e-5 of the result), and
+// each gradient is rounded to float once.  dx and ddt are summed over the
+// G lanes of a channel, and dB and dC over the channels of a warp, by
+// shuffles that halve the values a lane holds each round (LaneSum: 8
+// shuffles of doubles a step at G 16 where whole sums took 16), then dB
+// and dC over the block's 8 warps in shared memory a sub-chunk at a time,
+// one partial a block and step; dA stays in registers over t, one
+// partial a row.  104 KB of shared
+// memory a block at G 16, so two blocks (16 warps) an SM.  A second
+// kernel sums the partials in double in a fixed order (blocks, then
+// rows): no atomics, so the same inputs give the same bits.  Bound: the
+// instructions issued (the forward's update is recomputed twice, and the
+// backward's takes about twice its operations in double, with warp
+// shuffles for every state and step); the partials of dB and dC are most
+// of its bytes (PERF.md §6).
 //
 // The h update rounds each product and the sum separately (__fmul_rn,
 // __fadd_rn, no fused multiply-add), as the plain PyTorch version and the
@@ -469,24 +478,85 @@ cudaError_t launch_lanes(const void* dt, const void* bm, const void* cm,
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
-constexpr int kBwdThreads = 128;   // a block: 128 / G channels of one row
+// tools/torch_scan_sweep.py --backward builds variants of the kernel by
+// these macros, to time what sets its pace; the library takes the defaults.
+#ifndef RT_BWD_REAL
+#define RT_BWD_REAL double   // the gradient algebra's type
+#endif
+#ifndef RT_BWD_PART
+#define RT_BWD_PART double   // the type of a block's partial of dB and dC
+#endif
+#ifndef RT_BWD_SMEM_PAD
+#define RT_BWD_SMEM_PAD 0    // shared memory a block takes beyond its own
+#endif
+#ifndef RT_BWD_MIN_BLOCKS
+#define RT_BWD_MIN_BLOCKS 2  // blocks an SM the registers are capped for
+#endif
+using BwdReal = RT_BWD_REAL;
+using BwdPart = RT_BWD_PART;
+
+constexpr int kBwdThreads = 256;   // a block: 256 / G channels of one row
+constexpr int kBwdMinBlocks = RT_BWD_MIN_BLOCKS;
 constexpr int kBwdS = 4;           // states a lane
 constexpr int kCkptSteps = kLanesTileT;   // steps between two checkpoints
+constexpr int kBwdSub = 4;         // steps a sub-chunk, held in registers
+constexpr int kBwdSubs = kCkptSteps / kBwdSub;
 constexpr int kBwdWarps = kBwdThreads / 32;
 
-// dynamic shared memory of the backward kernel at G lanes a channel: the
-// chunk's states, and the warps' sums of dB and dC for each step
+// A block's shared memory at G lanes a channel: the chunk's rows of B (as
+// the recompute reads them) and of B and C (as the algebra does), each
+// sub-chunk's first state, and the warps' sums of dB and dC for a
+// sub-chunk's steps (104 KB at G 16, so two blocks an SM).
+template <int G>
+struct BwdSmem {
+  static constexpr int W = G * kBwdS;
+  float bf[kCkptSteps][W];
+  BwdReal br[kCkptSteps][W];
+  BwdReal cr[kCkptSteps][W];
+  float hs[kBwdSubs][kBwdS][kBwdThreads];
+  BwdReal red[kBwdSub][2][kBwdWarps][W];
+};
+
 template <int G>
 constexpr size_t bwd_smem_bytes() {
-  return sizeof(float) * static_cast<size_t>(kCkptSteps) * kBwdS * kBwdThreads +
-         sizeof(double) * 2 * kCkptSteps * kBwdWarps * G * kBwdS;
+  return sizeof(BwdSmem<G>) + RT_BWD_SMEM_PAD;
 }
 
-// Grid (nblk = ceil(DI / (128 / G)), B); thread = channel * G + lane, the
+// Sums each of a lane's first N of V values over the lanes whose warp
+// index differs from its own in bit O, then 2 O, .. up to E (exclusive),
+// in a fixed order.  While a lane holds more than one value, a round
+// halves them: the lane with the round's bit set keeps the upper half and
+// sends the lower, its partner the reverse, each adding what it gets to
+// what it keeps; with one value left, a round adds the partner's.  first
+// counts the values below the ones the lane ends with.
+template <int V, int N, int O, int E>
+struct LaneSum {
+  template <typename T>
+  static __device__ __forceinline__ void run(T (&v)[V], int wl, int& first) {
+    if constexpr (O < E) {
+      constexpr int H = N > 1 ? N / 2 : 1;
+      if constexpr (N > 1) {
+        const bool hi = (wl & O) != 0;
+#pragma unroll
+        for (int k = 0; k < H; ++k) {
+          const T send = hi ? v[k] : v[k + H];
+          const T keep = hi ? v[k + H] : v[k];
+          v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+        }
+        if (hi) first += H;
+      } else {
+        v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      }
+      LaneSum<V, H, 2 * O, E>::run(v, wl, first);
+    }
+  }
+};
+
+// Grid (nblk = ceil(DI / (256 / G)), B); thread = channel * G + lane, the
 // lane holding states [lane * 4, lane * 4 + 4).  Lanes past DI or DS hold
 // zeros and take part in every shuffle.
 template <int G>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
 scan_backward_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                      const float* __restrict__ cm, const float* __restrict__ x,
                      const float* __restrict__ a_neg,
@@ -494,15 +564,13 @@ scan_backward_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                      const float* __restrict__ dy,
                      const float* __restrict__ dh_t,
                      float* __restrict__ ddt, float* __restrict__ dx,
-                     float* __restrict__ dh0, double* __restrict__ part_b,
-                     double* __restrict__ part_c, double* __restrict__ part_a,
+                     float* __restrict__ dh0, BwdPart* __restrict__ part_b,
+                     BwdPart* __restrict__ part_c, double* __restrict__ part_a,
                      int T, int DI, int DS, long long bc_sb, long long bc_st) {
+  using R = BwdReal;
   constexpr int S = kBwdS, W = G * kBwdS, kChannels = kBwdThreads / G;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sh = reinterpret_cast<float*>(smem_raw);     // [32][S][128]
-  double* sdb = reinterpret_cast<double*>(            // [32][warps][W]
-      sh + kCkptSteps * S * kBwdThreads);
-  double* sdc = sdb + kCkptSteps * kBwdWarps * W;
+  BwdSmem<G>& sm = *reinterpret_cast<BwdSmem<G>*>(smem_raw);
   const int b = blockIdx.y;
   const int c = threadIdx.x / G;
   const int lane = threadIdx.x - c * G;
@@ -514,118 +582,154 @@ scan_backward_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
   const long long hrow = (static_cast<long long>(b) * DI + d) * DS + s0;
 
   float a[S];
-  double gn[S], da[S];   // the state gradient and dA, carried over t
+  R ar[S], gn[S];   // A; the state gradient, carried over t
+  double da[S];     // dA, summed over t
 #pragma unroll
   for (int j = 0; j < S; ++j) {
     a[j] = j < n ? a_neg[static_cast<long long>(d) * DS + s0 + j] : 0.f;
-    gn[j] = (j < n && dh_t != nullptr) ? dh_t[hrow + j] : 0.0;
+    ar[j] = a[j];
+    gn[j] = (j < n && dh_t != nullptr) ? dh_t[hrow + j] : 0.f;
     da[j] = 0.0;
   }
   const float* bb = bm + b * bc_sb;
   const float* cb = cm + b * bc_sb;
   const long long row0 = static_cast<long long>(b) * T;
+  const long long prow = (static_cast<long long>(b) * gridDim.x + blockIdx.x)
+                         * T;
   const int n_ck = (T + kCkptSteps - 1) / kCkptSteps;
 
   for (int ci = n_ck - 1; ci >= 0; --ci) {
     const int t0 = ci * kCkptSteps;
     const int nt = min(kCkptSteps, T - t0);
-    float hc[S], h[S];
+    const int nsub = (nt + kBwdSub - 1) / kBwdSub;
+    // the chunk's rows of B and C, coalesced (zeros past nt and DS)
+    __syncthreads();   // the previous chunk's rows are read
+    for (int i = threadIdx.x; i < kCkptSteps * W; i += kBwdThreads) {
+      const int tt = i / W, s = i - tt * W;
+      const bool ok = tt < nt && s < DS;
+      const float bv = ok ? bb[(t0 + tt) * bc_st + s] : 0.f;
+      const float cv = ok ? cb[(t0 + tt) * bc_st + s] : 0.f;
+      sm.bf[tt][s] = bv;
+      sm.br[tt][s] = bv;
+      sm.cr[tt][s] = cv;
+    }
+    __syncthreads();
+    // the chunk's states forward from its checkpoint, as the forward
+    // computes them, keeping each sub-chunk's first (every sub-chunk but
+    // the last is whole)
+    float h[S];
     const long long crow =
         ((static_cast<long long>(b) * n_ck + ci) * DI + d) * DS + s0;
 #pragma unroll
-    for (int j = 0; j < S; ++j) {
-      hc[j] = j < n ? ck[crow + j] : 0.f;
-      h[j] = hc[j];
-    }
-    // the chunk's states, as the forward computes them
-    for (int tt = 0; tt < nt; ++tt) {
-      const long long off = (row0 + t0 + tt) * DI + d;
-      const float dt_t = live ? dt[off] : 0.f;
-      const float dxv = __fmul_rn(dt_t, live ? x[off] : 0.f);
-      const float* brow = bb + (t0 + tt) * bc_st + s0;
+    for (int j = 0; j < S; ++j) h[j] = j < n ? ck[crow + j] : 0.f;
+    for (int k = 0; k < nsub; ++k) {
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const float bv = j < n ? brow[j] : 0.f;
-        const float decay = expf(__fmul_rn(dt_t, a[j]));
-        h[j] = __fadd_rn(__fmul_rn(decay, h[j]), __fmul_rn(dxv, bv));
-        sh[(tt * S + j) * kBwdThreads + threadIdx.x] = h[j];
-      }
-    }
-    // back through the chunk, the gradient algebra in double on the
-    // forward's float states and decays
-    for (int tt = nt - 1; tt >= 0; --tt) {
-      const long long off = (row0 + t0 + tt) * DI + d;
-      const float dt_t = live ? dt[off] : 0.f;
-      const double dtv = dt_t;
-      const double xv = live ? x[off] : 0.f;
-      const double dyv = live ? dy[off] : 0.f;
-      const double dtx = dtv * xv;
-      const float* brow = bb + (t0 + tt) * bc_st + s0;
-      const float* crow_c = cb + (t0 + tt) * bc_st + s0;
-      double sgb = 0.0, sdt = 0.0, pb[S], pc[S];
+      for (int j = 0; j < S; ++j) sm.hs[k][j][threadIdx.x] = h[j];
+      if (k == nsub - 1) break;
 #pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const double bv = j < n ? brow[j] : 0.f;
-        const double cv = j < n ? crow_c[j] : 0.f;
-        const double hcur = sh[(tt * S + j) * kBwdThreads + threadIdx.x];
-        const double hprev =
-            tt > 0 ? sh[((tt - 1) * S + j) * kBwdThreads + threadIdx.x]
-                   : hc[j];
-        const double decay = expf(__fmul_rn(dt_t, a[j]));
-        const double g = cv * dyv + gn[j];
-        const double hda = hprev * decay;
-        sgb += g * bv;
-        sdt += g * (hda * a[j] + xv * bv);
-        pb[j] = g * dtx;
-        pc[j] = hcur * dyv;
-        da[j] += g * hda * dtv;
-        gn[j] = decay * g;
-      }
-      // over the G lanes of the channel
-#pragma unroll
-      for (int o = G / 2; o > 0; o >>= 1) {
-        sgb += __shfl_xor_sync(0xffffffffu, sgb, o);
-        sdt += __shfl_xor_sync(0xffffffffu, sdt, o);
-      }
-      if (live && lane == 0) {
-        dx[off] = static_cast<float>(dtv * sgb);
-        ddt[off] = static_cast<float>(sdt);
-      }
-      // over the channels of the warp: lanes 0..G-1 hold the warp's sums
-#pragma unroll
-      for (int o = G; o < 32; o <<= 1) {
+      for (int i = 0; i < kBwdSub; ++i) {
+        const int tt = k * kBwdSub + i;
+        const long long off = (row0 + t0 + tt) * DI + d;
+        const float dt_t = live ? dt[off] : 0.f;
+        const float dxv = __fmul_rn(dt_t, live ? x[off] : 0.f);
 #pragma unroll
         for (int j = 0; j < S; ++j) {
-          pb[j] += __shfl_xor_sync(0xffffffffu, pb[j], o);
-          pc[j] += __shfl_xor_sync(0xffffffffu, pc[j], o);
-        }
-      }
-      if (wl < G) {
-#pragma unroll
-        for (int j = 0; j < S; ++j) {
-          sdb[(tt * kBwdWarps + warp) * W + s0 + j] = pb[j];
-          sdc[(tt * kBwdWarps + warp) * W + s0 + j] = pc[j];
+          const float decay = expf(__fmul_rn(dt_t, a[j]));
+          h[j] = __fadd_rn(__fmul_rn(decay, h[j]),
+                           __fmul_rn(dxv, sm.bf[tt][s0 + j]));
         }
       }
     }
-    __syncthreads();
-    // the block's partial of each step's dB and dC: the warps in order
-    for (int i = threadIdx.x; i < nt * W; i += kBwdThreads) {
-      const int tt = i / W, s = i - tt * W;
-      if (s >= DS) continue;
-      double vb = 0.0, vc = 0.0;
+    // the sub-chunks in reverse: each one's states and decays recomputed
+    // into registers, then stepped back through, the gradient algebra in
+    // R on the forward's float states and decays
+    for (int k = nsub - 1; k >= 0; --k) {
+      const int tb = k * kBwdSub;
+      const int ns = min(kBwdSub, nt - tb);
+      float dtv[kBwdSub], xv[kBwdSub], dyv[kBwdSub];
 #pragma unroll
-      for (int w = 0; w < kBwdWarps; ++w) {
-        vb += sdb[(tt * kBwdWarps + w) * W + s];
-        vc += sdc[(tt * kBwdWarps + w) * W + s];
+      for (int i = 0; i < kBwdSub; ++i) {
+        const bool ok = live && i < ns;
+        const long long off = (row0 + t0 + tb + i) * DI + d;
+        dtv[i] = ok ? dt[off] : 0.f;
+        xv[i] = ok ? x[off] : 0.f;
+        dyv[i] = ok ? dy[off] : 0.f;
       }
-      const long long o =
-          ((static_cast<long long>(b) * gridDim.x + blockIdx.x) * T + t0 + tt)
-              * DS + s;
-      part_b[o] = vb;
-      part_c[o] = vc;
+      float hv[kBwdSub + 1][S], dec[kBwdSub][S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) hv[0][j] = sm.hs[k][j][threadIdx.x];
+#pragma unroll
+      for (int i = 0; i < kBwdSub; ++i) {
+        const float dxv = __fmul_rn(dtv[i], xv[i]);
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          dec[i][j] = expf(__fmul_rn(dtv[i], a[j]));
+          hv[i + 1][j] = __fadd_rn(__fmul_rn(dec[i][j], hv[i][j]),
+                                   __fmul_rn(dxv, sm.bf[tb + i][s0 + j]));
+        }
+      }
+#pragma unroll
+      for (int i = kBwdSub - 1; i >= 0; --i) {
+        if (i >= ns) continue;
+        const int tt = tb + i;
+        const R dtr = dtv[i], xr = xv[i], dyr = dyv[i];
+        const R dtx = dtr * xr;
+        R u[2] = {0, 0}, v[2 * S];   // (sum_s g B, ddt); (dB, dC) terms
+#pragma unroll
+        for (int j = 0; j < S; ++j) {
+          const R bv = sm.br[tt][s0 + j], cv = sm.cr[tt][s0 + j];
+          const R decay = dec[i][j];
+          const R g = cv * dyr + gn[j];
+          const R hda = static_cast<R>(hv[i][j]) * decay;
+          u[0] += g * bv;
+          u[1] += g * (hda * ar[j] + xr * bv);
+          v[j] = g * dtx;
+          v[S + j] = static_cast<R>(hv[i + 1][j]) * dyr;
+          da[j] += g * hda * dtr;
+          gn[j] = decay * g;
+        }
+        // over the G lanes of the channel: lane 0 ends with sum_s g B,
+        // lane 1 with ddt (lane 0 with both at G 1)
+        int fu = 0;
+        LaneSum<2, 2, 1, G>::run(u, wl, fu);
+        if (live && lane < 2) {
+          const long long off = (row0 + t0 + tt) * DI + d;
+#pragma unroll
+          for (int k = 0; k < (G > 1 ? 1 : 2); ++k) {
+            if (fu + k == 0)
+              dx[off] = static_cast<float>(dtr * u[k]);
+            else
+              ddt[off] = static_cast<float>(u[k]);
+          }
+        }
+        // over the channels of the warp: each lane ends with the warp's
+        // sums of (2 S) >> rounds of the dB and dC terms of its states
+        int fv = 0;
+        LaneSum<2 * S, 2 * S, G, 32>::run(v, wl, fv);
+        constexpr int kHeld = (2 * S * G) / 32 > 0 ? (2 * S * G) / 32 : 1;
+        constexpr int kCopies = 32 - 8 * G > 0 ? 32 - 8 * G : 0;
+        if ((wl & kCopies) == 0) {
+#pragma unroll
+          for (int k = 0; k < kHeld; ++k) {
+            const int e = fv + k;
+            sm.red[i][e / S][warp][s0 + e % S] = v[k];
+          }
+        }
+      }
+      __syncthreads();
+      // the block's partial of each step's dB and dC: its warps in order
+      for (int e = threadIdx.x; e < ns * 2 * W; e += kBwdThreads) {
+        const int i = e / (2 * W), r = e - i * 2 * W;
+        const int which = r / W, s = r - which * W;
+        if (s >= DS) continue;
+        R v = 0;
+#pragma unroll
+        for (int w = 0; w < kBwdWarps; ++w) v += sm.red[i][which][w][s];
+        (which ? part_c : part_b)[(prow + t0 + tb + i) * DS + s] =
+            static_cast<BwdPart>(v);
+      }
+      __syncthreads();   // red is free for the next sub-chunk
     }
-    __syncthreads();   // sh, sdb and sdc are free for the next chunk
   }
 #pragma unroll
   for (int j = 0; j < S; ++j) {
@@ -639,8 +743,8 @@ scan_backward_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
 // dB, dC (B, T, DS): the row's block partials summed in block order; dA
 // (DI, DS): the row partials summed in row order, in double, each rounded
 // to float once.
-__global__ void scan_backward_sum(const double* __restrict__ part_b,
-                                  const double* __restrict__ part_c,
+__global__ void scan_backward_sum(const BwdPart* __restrict__ part_b,
+                                  const BwdPart* __restrict__ part_c,
                                   const double* __restrict__ part_a,
                                   float* __restrict__ db,
                                   float* __restrict__ dc,
@@ -678,14 +782,9 @@ cudaError_t launch_backward(const void* dt, const void* bm, const void* cm,
                             int T, int DI, int DS, long long bc_sb,
                             long long bc_st, int nblk, cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<G>();
-  static bool opted = false;   // above 48 KB only by opting in
-  if (!opted) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        scan_backward_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted = true;
-  }
+  static const cudaError_t opted =   // above 48 KB only by opting in
+      rt::allow_smem(scan_backward_kernel<G>, smem);
+  if (opted != cudaSuccess) return opted;
   if (nblk != (DI + kBwdThreads / G - 1) / (kBwdThreads / G))
     return cudaErrorInvalidValue;
   scan_backward_kernel<G><<<dim3(nblk, B), kBwdThreads, smem, stream>>>(
@@ -694,8 +793,8 @@ cudaError_t launch_backward(const void* dt, const void* bm, const void* cm,
       static_cast<const float*>(a_neg), static_cast<const float*>(ck),
       static_cast<const float*>(dy), static_cast<const float*>(dh_t),
       static_cast<float*>(ddt), static_cast<float*>(dx),
-      static_cast<float*>(dh0), static_cast<double*>(part_b),
-      static_cast<double*>(part_c), static_cast<double*>(part_a), T, DI, DS,
+      static_cast<float*>(dh0), static_cast<BwdPart*>(part_b),
+      static_cast<BwdPart*>(part_c), static_cast<double*>(part_a), T, DI, DS,
       bc_sb, bc_st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -704,7 +803,7 @@ cudaError_t launch_backward(const void* dt, const void* bm, const void* cm,
   const int threads = 256;
   scan_backward_sum<<<static_cast<unsigned>((total + threads - 1) / threads),
                       threads, 0, stream>>>(
-      static_cast<const double*>(part_b), static_cast<const double*>(part_c),
+      static_cast<const BwdPart*>(part_b), static_cast<const BwdPart*>(part_c),
       static_cast<const double*>(part_a), static_cast<float*>(db),
       static_cast<float*>(dc), static_cast<float*>(da), B, T, DI, DS, nblk);
   return cudaGetLastError();
@@ -767,9 +866,9 @@ extern "C" int rt_selective_scan(const void* dt, const void* bm,
 // and C as the forward takes them (bc_sb, bc_st); a_neg, da: (DI, DS);
 // ck: (B, ceil(T / 32), DI, DS), the forward's checkpoints; dh_t (null
 // for zero) and dh0: (B, DI, DS); db, dc: (B, T, DS) contiguous; part_b,
-// part_c: (B, nblk, T, DS) and part_a (B, DI, DS), double scratch.  lanes G =
-// 1, 2, 4, 8 or 16 with G * 4 >= DS (kernels/selective_scan.py::
-// bwd_lanes), nblk = ceil(DI / (128 / G)).
+// part_c: (B, nblk, T, DS) and part_a (B, DI, DS), double scratch.
+// lanes G = 1, 2, 4, 8 or 16 with G * 4 >= DS (kernels/selective_scan.py::
+// bwd_lanes), nblk = ceil(DI / (256 / G)).
 extern "C" int rt_selective_scan_backward(
     const void* dt, const void* bm, const void* cm, const void* x,
     const void* a_neg, const void* ck, const void* dy, const void* dh_t,
@@ -787,5 +886,25 @@ extern "C" int rt_selective_scan_backward(
         part_c, part_a, B, T, DI, DS, bc_sb, bc_st, nblk, s));
   RT_BWD_CASE(1) RT_BWD_CASE(2) RT_BWD_CASE(4) RT_BWD_CASE(8) RT_BWD_CASE(16)
 #undef RT_BWD_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The blocks of the backward kernel at lanes G a channel an SM of this
+// card holds (registers and shared memory, from the occupancy calculator
+// on the kernel itself), into *blocks, and its dynamic shared memory,
+// into *smem.
+extern "C" int rt_selective_scan_backward_occupancy(int lanes, int* blocks,
+                                                    int* smem) {
+#define RT_BWD_OCC(G)                                                        \
+  if (lanes == G) {                                                          \
+    *smem = static_cast<int>(bwd_smem_bytes<G>());                           \
+    cudaError_t e = rt::allow_smem(scan_backward_kernel<G>, *smem);          \
+    if (e == cudaSuccess)                                                    \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
+          blocks, scan_backward_kernel<G>, kBwdThreads, *smem);              \
+    return static_cast<int>(e);                                              \
+  }
+  RT_BWD_OCC(1) RT_BWD_OCC(2) RT_BWD_OCC(4) RT_BWD_OCC(8) RT_BWD_OCC(16)
+#undef RT_BWD_OCC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -17,6 +17,8 @@
 //   form        HD   halves  keys a tile  stages  Q       ring    smem
 //   contiguous  64   1       128          3       16 KB   96 KB   115,968
 //   contiguous  128  2       64           4       32 KB   128 KB  165,120
+//   (contiguous 112 runs the hd-128 body: its tensor maps stop at column
+//   112 and TMA fills 112-127 with zeros; flash_attention.cu)
 //   cross       64   1       64           4       16 KB   64 KB   83,200
 //   cross       128  2       64           4       32 KB   128 KB  165,120
 //

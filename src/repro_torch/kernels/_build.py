@@ -225,6 +225,8 @@ _SIGNATURES = {
     "rt_selective_scan_backward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _L, _L, _I, _I, _P),
+    # lanes, blocks an SM (int*), dynamic shared memory (int*)
+    "rt_selective_scan_backward_occupancy": (_I, _P, _P),
     # blocks, threads, stream
     "rt_empty": (_I, _I, _P),
     # cluster size, threads, dynamic shared memory, out (int*)

@@ -87,11 +87,13 @@ recomputes P from that log-sum-exp in torch ops, in blocks of
 reads every tensor through its strides, so the model's ``(B, S, H, hd)``
 projections go in as transposed views without a copy.  Three bodies,
 named by :func:`flash_body` (the strides count in ``aligned``):
-``"wgmma"`` (bfloat16, hd 64 and 128, 16-byte aligned: every launch of
-smollm-360m's train step and of ``Model.prefill``'s self-attention), a
-warp-specialised body for Hopper (``csrc/wg_attention.cuh``): one
-producer warp loads Q once and K / V tiles (128 keys at hd 64, 64 at
-hd 128, whose rows are two 128-byte swizzled halves) into a ring
+``"wgmma"`` (bfloat16, hd 64, 112 and 128, 16-byte aligned: every launch
+of smollm-360m's and zamba2-7b's train steps and of ``Model.prefill``'s
+self-attention), a warp-specialised body for Hopper
+(``csrc/wg_attention.cuh``): one producer warp loads Q once and K / V
+tiles (128 keys at hd 64, 64 at hd 128, whose rows are two 128-byte
+swizzled halves; hd 112 runs the hd-128 body, TMA filling columns 112-127
+with zeros) into a ring
 through TMA tensor maps over the tensors' own strides, and consumer
 warpgroups of 64 (query, head-in-group) rows run S = Q K^T and
 O += (P_hi + P_lo) V on ``wgmma`` (f32 accumulators), row tiles with the
@@ -130,18 +132,26 @@ def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     return "cuda_core"
 
 
-#: the warp-specialised wgmma bodies (csrc/wg_attention.cuh: the
-#: contiguous form's, csrc/flash_attention.cu, and the cross form's,
-#: csrc/paged_cross_attention.cu): the head dims they take and the
+#: the warp-specialised wgmma bodies (csrc/wg_attention.cuh): the head
+#: dims the contiguous form's takes (csrc/flash_attention.cu; hd 112 on
+#: the hd-128 body, its last 16 columns zero-filled by TMA), the head dims
+#: the cross form's takes (csrc/paged_cross_attention.cu), and the
 #: (query, head-in-group) rows a CTA holds (two consumer warpgroups of 64)
-WGMMA_HD = (64, 128)
+WGMMA_HD = (64, 112, 128)
+CROSS_WGMMA_HD = (64, 128)
 WGMMA_ROWS = 128
+
+
+def wgmma_body_hd(hd: int) -> int:
+    """The head dim of the wgmma body a launch at ``hd`` runs: whole
+    64-column halves (112 runs the body of 128)."""
+    return -(-hd // 64) * 64
 
 
 def wgmma_tile_keys(hd: int, form: str = "flash") -> int:
     """Keys a K/V tile of a wgmma body holds (``wgt::Cfg::kTK``): the
-    contiguous form's 128 at hd 64, 64 at hd 128 (the rows of 256 bytes,
-    two swizzled halves, take twice the shared memory and the O
+    contiguous form's 128 at hd 64, 64 at hd 112 and 128 (the rows of 256
+    bytes, two swizzled halves, take twice the shared memory and the O
     accumulator twice the registers); the cross form's 64 at both.  A
     mirror, so that :func:`cross_splits` is a rule the CPU can run too;
     chip_smoke.py's device phase holds it to the value the library
@@ -151,35 +161,42 @@ def wgmma_tile_keys(hd: int, form: str = "flash") -> int:
 
 def wgmma_smem_bytes(hd: int, form: str = "flash") -> int:
     """Dynamic shared memory of a wgmma body (``wgt::Cfg::kSmem``): 1024
-    bytes of alignment slack, Q's WGMMA_ROWS rows of hd bf16, a ring of K
-    and V tiles (3 stages of the contiguous form's at hd 64, 4 stages
-    elsewhere), 256 bytes of barriers.  A mirror, held to the library's
-    value as :func:`wgmma_tile_keys` is."""
+    bytes of alignment slack, Q's WGMMA_ROWS rows of the body's head dim
+    (:func:`wgmma_body_hd`: hd 112 takes the hd-128 body's) in bf16, a
+    ring of K and V tiles (3 stages of the contiguous form's at hd 64, 4
+    stages elsewhere), 256 bytes of barriers.  A mirror, held to the
+    library's value as :func:`wgmma_tile_keys` is."""
     stages = 3 if (hd, form) == (64, "flash") else 4
-    return (1024 + WGMMA_ROWS * hd * 2
-            + 2 * stages * wgmma_tile_keys(hd, form) * hd * 2 + 256)
+    width = wgmma_body_hd(hd)
+    return (1024 + WGMMA_ROWS * width * 2
+            + 2 * stages * wgmma_tile_keys(hd, form) * width * 2 + 256)
 
 
 def flash_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
-    """The contiguous form's body: ``"wgmma"`` for bfloat16 at hd 64 or
-    128 with 16-byte aligned tensors and strides (every launch of
-    smollm-360m's train step, and llama-3.2-vision-90b's and
-    seamless-m4t-medium's ``Model.prefill``), else :func:`prefill_body`'s
-    choice (``"mma"`` at the other bf16 head dims it takes, 256 among
-    them; ``"cuda_core"`` for float32).  A group of more than WGMMA_ROWS
-    heads is refused by the kernel."""
+    """The contiguous form's body: ``"wgmma"`` for bfloat16 at a head dim
+    of :data:`WGMMA_HD` with 16-byte aligned tensors and strides (every
+    launch of smollm-360m's and zamba2-7b's train steps, and
+    llama-3.2-vision-90b's and seamless-m4t-medium's ``Model.prefill``),
+    else :func:`prefill_body`'s choice (``"mma"`` at the other bf16 head
+    dims it takes, 256 among them; ``"cuda_core"`` for float32).  A group
+    of more than WGMMA_ROWS heads is refused by the kernel."""
     if dtype == torch.bfloat16 and aligned and hd in WGMMA_HD:
         return "wgmma"
     return prefill_body(dtype, hd, aligned)
 
 
-#: the cross form's body: :func:`flash_body`'s rule, with the cross
-#: wrapper's ``aligned`` (16-byte aligned q and pools, and blocks of whole
-#: 8-slot swizzle atoms or one block a row: every cross read of
-#: seamless-m4t-medium and llama-3.2-vision-90b, chunk and
-#: ``Model.prefill``); float32 keeps ``cuda_core``, so the card's float32
-#: streams stay equal to the CPU's
-cross_body = flash_body
+def cross_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
+    """The cross form's body: ``"wgmma"`` for bfloat16 at a head dim of
+    :data:`CROSS_WGMMA_HD` with the cross wrapper's ``aligned`` (16-byte
+    aligned q and pools, and blocks of whole 8-slot swizzle atoms or one
+    block a row: every cross read of seamless-m4t-medium and
+    llama-3.2-vision-90b, chunk and ``Model.prefill``), else
+    :func:`prefill_body`'s choice (hd 112 among them: the cross kernel
+    has no hd-112 body); float32 keeps ``cuda_core``, so the card's
+    float32 streams stay equal to the CPU's."""
+    if dtype == torch.bfloat16 and aligned and hd in CROSS_WGMMA_HD:
+        return "wgmma"
+    return prefill_body(dtype, hd, aligned)
 
 
 #: key tiles (of 64 keys) a CTA of the cross form's split takes at

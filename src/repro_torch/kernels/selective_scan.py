@@ -48,6 +48,7 @@ launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -66,9 +67,10 @@ LANE_STATES = 4
 #: steps between two checkpoints of the state (csrc/selective_scan.cu:
 #: kLanesTileT, the forward's staged tile, and kCkptSteps)
 SCAN_CKPT_STEPS = 32
-#: the backward kernel: states a lane, threads a block
+#: the backward kernel: states a lane, threads a block (csrc/
+#: selective_scan.cu: kBwdS, kBwdThreads)
 BWD_LANE_STATES = 4
-BWD_THREADS = 128
+BWD_THREADS = 256
 
 
 def scan_body(ds: int) -> str:
@@ -232,8 +234,20 @@ def bwd_lanes(ds: int) -> int:
 
 def bwd_blocks(di: int, ds: int) -> int:
     """Blocks of the backward grid along a row: :data:`BWD_THREADS` / G
-    channels each; each writes one partial of dB and dC a step."""
+    channels each (16 at zamba2-7b's d_state 64, 64 at falcon-mamba-7b's
+    16); each writes one partial of dB and dC a step."""
     return -(-di // (BWD_THREADS // bwd_lanes(ds)))
+
+
+def bwd_occupancy(ds: int) -> tuple:
+    """(blocks an SM of this card holds, dynamic shared memory) of the
+    backward kernel at d_state ``ds``'s lanes, from the occupancy
+    calculator on the kernel itself (card only)."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(_build.library().rt_selective_scan_backward_occupancy(
+        bwd_lanes(ds), ctypes.byref(blocks), ctypes.byref(smem)),
+        "selective_scan_backward occupancy")
+    return blocks.value, smem.value
 
 
 def selective_scan_backward_plain(dt, b_mat, c_mat, x, a_neg, checkpoints,

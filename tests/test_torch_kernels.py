@@ -40,7 +40,8 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention_partial_plain, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    CROSS_MIN_TILES, PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS, FlashAttentionFn,
+    CROSS_MIN_TILES, CROSS_WGMMA_HD, PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS,
+    FlashAttentionFn,
     cross_body, cross_splits, flash_attention, flash_attention_plain,
     flash_body, paged_chunk_attention, wgmma_smem_bytes, wgmma_tile_keys,
     paged_chunk_attention_plain, paged_cross_attention,
@@ -1047,8 +1048,11 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
                      "expected 1, got 2"]),
     (1, 99328, 128, ["wgmma_smem_bytes(64, 'flash'): expected 115968, "
                      "the kernel has 99328",
+                     "wgmma_smem_bytes(112, 'flash'): expected 165120",
                      "wgmma_smem_bytes(128, 'cross'): expected 165120"]),
     (1, 115968, 32, ["wgmma_tile_keys(64, 'flash'): expected 128, the "
+                     "kernel has 32",
+                     "wgmma_tile_keys(112, 'flash'): expected 64, the "
                      "kernel has 32",
                      "wgmma_tile_keys(64, 'cross'): expected 64, the "
                      "kernel has 32"]),
@@ -1056,8 +1060,9 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
 def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, keys,
                                            named):
     """The device phase holds the wgmma bodies' CTAs an SM (the occupancy
-    calculator on each kernel, contiguous and cross form at hd 64 and
-    128, at the shared memory the kernel reports) against
+    calculator on each kernel, the contiguous form at hd 64, 112 and 128
+    and the cross form at 64 and 128, at the shared memory the kernel
+    reports) against
     ``WGMMA_CTAS_PER_SM``, and that shared memory and the keys of a K/V
     tile against their Python mirrors, and fails naming the mirror or
     the shared memory and both values."""
@@ -1766,12 +1771,14 @@ def test_cuda_selective_scan_state_lanes_h_equals_previous_body(
 
 
 # the scan's backward kernel: smoke widths (d_state 16, 64 and a ragged 5;
-# T below, at and past a checkpoint's 32 steps; B / C column slices) and
+# T below, at and past a checkpoint's 32 steps, and off a sub-chunk's 4;
+# DI off a block's 256 / G channels; B / C column slices) and
 # full widths (falcon-mamba-7b's DI 8192, d_state 16; zamba2-7b's DI 7168,
 # d_state 64, A as Mamba2 expands it) over 256 steps
 SCAN_BWD_CARD_CASES = [(2, 48, 256, 16, True, False),
                        (1, 32, 300, 64, True, False),
                        (2, 20, 130, 5, False, False),
+                       (1, 75, 200, 5, True, True),
                        (1, 70, 96, 8, False, True),
                        (2, 256, 8192, 16, False, False),
                        (2, 256, 7168, 64, True, True)]
@@ -2378,18 +2385,22 @@ def test_cuda_wide_cuda_core_bodies_in_bf16(cuda_device, kernel):
     ("float32", 64, True, "cuda_core"), ("float32", 256, True, "cuda_core"),
     ("bfloat16", 32, True, "mma"), ("bfloat16", 256, False, "cuda_core"),
     ("float32", 64, False, "cuda_core"), ("float32", 128, True, "cuda_core"),
+    ("bfloat16", 112, True, "wgmma"), ("bfloat16", 112, False, "cuda_core"),
+    ("float32", 112, True, "cuda_core"),
 ])
 def test_flash_body_rule(dtype, hd, aligned, want):
     """The contiguous form's wrapper names its body by ``flash_body``:
     the warp-specialised wgmma body for every bf16 launch of smollm-360m's
-    train step (hd 64, on the model's aligned projections) and of
-    llama-3.2-vision-90b's ``Model.prefill`` (hd 128), the tensor-core
-    ``mma`` tiles at the other bf16 head dims they take (gemma3-12b's 256
-    among them), the CUDA-core body elsewhere: float32 always, and
-    unaligned tensors."""
+    train step (hd 64, on the model's aligned projections), of zamba2-7b's
+    (hd 112, on the hd-128 body) and of llama-3.2-vision-90b's
+    ``Model.prefill`` (hd 128), the tensor-core ``mma`` tiles at the other
+    bf16 head dims they take (gemma3-12b's 256 among them), the CUDA-core
+    body elsewhere: float32 always, and unaligned tensors.  The cross
+    form's head dims stay 64 and 128."""
     dt = getattr(torch, dtype)
     assert flash_body(dt, hd, aligned) == want
-    assert WGMMA_HD == (64, 128)
+    assert WGMMA_HD == (64, 112, 128)
+    assert CROSS_WGMMA_HD == (64, 128)
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -2399,8 +2410,10 @@ def test_cross_body_rule(hd, dtype, aligned):
     """The cross form's body by ``cross_body``: ``wgmma`` for bf16 at hd
     64 and 128 (seamless-m4t-medium's and llama-3.2-vision-90b's cross
     reads) on aligned tensors, else ``prefill_body``'s choice: ``mma`` at
-    the ragged test's hd 32 and at 112 and 256, ``cuda_core`` for float32
-    and unaligned tensors (the card's f32 streams stay the CPU's)."""
+    the ragged test's hd 32 and at 112 (which the contiguous form's rule
+    sends to ``wgmma``: the cross kernel has no hd-112 body) and 256,
+    ``cuda_core`` for float32 and unaligned tensors (the card's f32
+    streams stay the CPU's)."""
     dt = getattr(torch, dtype)
     got = cross_body(dt, hd, aligned)
     if dtype == "bfloat16" and aligned and hd in (64, 128):
@@ -2466,11 +2479,18 @@ def test_wgmma_bodies_fit_the_shared_memory_a_block_may_use(hd, form):
     """The wgmma bodies' shared memory (``wgt::Cfg::kSmem``, mirrored by
     ``wgmma_smem_bytes``) within the 232,448 bytes a block may use: Q's
     128 rows, the K/V ring and the barriers; the cross form's f32
-    partial rows (O, m, l, 16-byte rows) fit its ring."""
+    partial rows (O, m, l, 16-byte rows) fit its ring.  hd 112 is the
+    contiguous form's alone, on the hd-128 body's shared memory and key
+    tiles; the cross form's rule never names wgmma there."""
+    if (form, hd) == ("cross", 112):
+        assert hd not in CROSS_WGMMA_HD
+        assert cross_body(torch.bfloat16, hd) == "mma"
+        return
     smem = wgmma_smem_bytes(hd, form)
     assert smem <= SMEM_PER_BLOCK
-    assert smem == {("flash", 64): 115968, ("flash", 128): 165120,
-                    ("cross", 64): 83200, ("cross", 128): 165120}[form, hd]
+    assert smem == {("flash", 64): 115968, ("flash", 112): 165120,
+                    ("flash", 128): 165120, ("cross", 64): 83200,
+                    ("cross", 128): 165120}[form, hd]
     if form == "cross":                 # the partial rows reuse the ring
         assert WGMMA_ROWS * (hd + 4) * 4 <= 2 * 4 * 64 * hd * 2
     assert wgmma_tile_keys(hd, form) == (128 if (form, hd) == ("flash", 64)
@@ -2574,11 +2594,11 @@ def test_cuda_flash_wgmma_matches_plain(cuda_device, b, h, kv, s, causal,
 
 @pytest.mark.cuda
 def test_cuda_flash_wgmma_refuses_what_it_cannot_take(cuda_device):
-    """Forced onto a shape the wgmma body does not take (hd 32, 112 and
-    256, float32, more heads a group than its rows), the launch raises;
-    nothing runs on another body."""
+    """Forced onto a shape the wgmma body does not take (hd 32 and 256,
+    float32 at every hd it takes, 112 among them, more heads a group than
+    its rows), the launch raises; nothing runs on another body."""
     before = dict(_build.bodies["flash_attention"])
-    for d in (32, 112, 256):
+    for d in (32, 256):
         q, k, v = _flash_card_inputs(cuda_device, 95, 1, 4, 2, 64, d,
                                      torch.bfloat16)
         with pytest.raises(RuntimeError):
@@ -2599,29 +2619,32 @@ def test_cuda_flash_wgmma_refuses_what_it_cannot_take(cuda_device):
         "wgmma": 6, "mma": 0, "cuda_core": 0}
 
 
-# (B, H, KV, S, causal, window) at hd 128: G 1, 4 and 8 (whole queries
-# a CTA: 128, 32, 16); S 100 and 1000, off the 64-key tiles and the row
-# tiles; causal, non-causal and a window; llama-3.2-vision-90b's
-# Model.prefill shape (B 8, S 128, 64 / 8 heads)
+# (B, H, KV, S, causal, window) at hd 128 and 112: G 1, 4 and 8 (whole
+# queries a CTA: 128, 32, 16); S 100 and 1000, off the 64-key tiles and
+# the row tiles; causal, non-causal and a window; llama-3.2-vision-90b's
+# Model.prefill shape (B 8, S 128, 64 / 8 heads); zamba2-7b's heads (32 /
+# 32, G 1) at S 700
 WGMMA128_CARD_CASES = [(2, 4, 4, 100, True, 0), (1, 8, 2, 1000, True, 0),
                        (2, 16, 2, 1000, False, 0), (1, 8, 1, 100, False, 0),
                        (1, 8, 2, 1000, True, 300), (2, 4, 1, 1000, True, 40),
-                       (8, 64, 8, 128, True, 0)]
+                       (8, 64, 8, 128, True, 0), (2, 32, 32, 700, True, 0)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 112])
 @pytest.mark.parametrize("b,h,kv,s,causal,window", WGMMA128_CARD_CASES)
 def test_cuda_flash_wgmma_hd128_matches_plain(cuda_device, b, h, kv, s,
-                                              causal, window):
-    """The wgmma body at hd 128 (the rule's at bf16) and the ``mma`` body
-    forced through ``_body``, each against the plain version on the
-    card, out under the bf16 gate and the row log-sum-exp within
-    FLASH_LSE_TOL, each launch counted on its body."""
-    q, k, v = _flash_card_inputs(cuda_device, 96, b, h, kv, s, 128,
+                                              causal, window, d):
+    """The wgmma body at hd 128, and at 112 on the same body (the last 16
+    columns zero-filled by TMA, never stored), the rule's at bf16, and
+    the ``mma`` body forced through ``_body``, each against the plain
+    version on the card, out under the bf16 gate and the row
+    log-sum-exp within FLASH_LSE_TOL, each launch counted on its body."""
+    q, k, v = _flash_card_inputs(cuda_device, 96, b, h, kv, s, d,
                                  torch.bfloat16)
     want, want_lse = flash_attention_plain(q, k, v, causal=causal,
                                            window=window)
-    assert flash_body(torch.bfloat16, 128) == "wgmma"
+    assert flash_body(torch.bfloat16, d) == "wgmma"
     for body in ("wgmma", "mma"):
         n0 = _build.bodies["flash_attention"][body]
         out, lse = flash_attention(q, k, v, causal=causal, window=window,
@@ -2633,15 +2656,17 @@ def test_cuda_flash_wgmma_hd128_matches_plain(cuda_device, b, h, kv, s,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype):
+def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype, d):
     """The model's (B, S, heads, hd) projections, passed as transposed
     views, give the bits of contiguous (B, heads, S, hd) copies, and the
     output takes q's layout (so the O product reads it without a copy):
-    on the rule's body (bf16: wgmma) and, in bf16, on ``mma`` too."""
+    on the rule's body (bf16: wgmma, at hd 112 through tensor maps over
+    224-byte rows) and, in bf16, on ``mma`` too."""
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(91)
-    b, s, h, kv, d = 2, 333, 15, 5, 64
+    b, s, h, kv = 2, 333, 15, 5
     q = t(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(
         cuda_device, dt)
     k, v = (t(rng.standard_normal((b, s, kv, d), dtype=np.float32)).to(
@@ -2656,29 +2681,30 @@ def test_cuda_flash_reads_the_model_layout_in_place(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 112])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
                                            (False, 0)])
-def test_cuda_flash_fn_gradients(cuda_device, dtype, causal, window):
+def test_cuda_flash_fn_gradients(cuda_device, dtype, causal, window, d):
     """FlashAttentionFn's dq, dk, dv on the card (the kernel's forward,
     the torch-op backward) against autograd through the plain version on
-    the card, at B 2, S 512, smollm-360m's heads: float32 within 2e-5 of
-    max(1, |g|), bfloat16 within 2e-2 of it (the two forwards' outputs
-    round once each): on the rule's body (bf16: wgmma) and, in bf16, on
-    ``mma`` too."""
+    the card, at B 2, S 512, smollm-360m's heads at hd 64 and at
+    zamba2-7b's 112: float32 within 2e-5 of max(1, |g|), bfloat16 within
+    2e-2 of it (the two forwards' outputs round once each): on the rule's
+    body (bf16: wgmma) and, in bf16, on ``mma`` too."""
     dt = getattr(torch, dtype)
-    q, k, v = _flash_card_inputs(cuda_device, 92, 2, 15, 5, 512, 64, dt)
-    w = _flash_card_inputs(cuda_device, 93, 2, 15, 5, 512, 64, dt)[0]
+    q, k, v = _flash_card_inputs(cuda_device, 92, 2, 15, 5, 512, d, dt)
+    w = _flash_card_inputs(cuda_device, 93, 2, 15, 5, 512, d, dt)[0]
     p = [x.clone().requires_grad_(True) for x in (q, k, v)]
     want = torch.autograd.grad((flash_attention_plain(
         *p, causal=causal, window=window)[0].float() * w.float()).sum(), p)
     for body in ((None, "mma") if dtype == "bfloat16" else (None,)):
-        n0 = _build.bodies["flash_attention"][body or flash_body(dt, 64)]
+        n0 = _build.bodies["flash_attention"][body or flash_body(dt, d)]
         a = [x.clone().requires_grad_(True) for x in (q, k, v)]
         got = torch.autograd.grad((FlashAttentionFn.apply(
             *a, causal, window, None, body).float() * w.float()).sum(), a)
         assert _build.bodies["flash_attention"][
-            body or flash_body(dt, 64)] == n0 + 1
+            body or flash_body(dt, d)] == n0 + 1
         for g, r in zip(got, want):
             assert g.dtype == dt
             diff = (g.float() - r.float()).abs() / r.float().abs().clamp(

@@ -389,3 +389,46 @@ def test_train_launch_formula_counts_the_wrappers(monkeypatch, arch):
     assert calls["norm"] + calls["add_norm"] == expect["rmsnorm"]
     assert calls["norm"] == bodies["rmsnorm"]["norm"]
     assert calls["add_norm"] == bodies["rmsnorm"]["add_norm"]
+
+
+@pytest.mark.parametrize("arch", list(LAUNCH_PAIRS))
+def test_train_flash_launches_expect_wgmma(arch):
+    """Every family's bf16 train launches of the contiguous flash form
+    take ``wgmma`` at its full-size head dim (zamba2-7b's 112 on the
+    hd-128 body since it took one): ``flash_body`` names it,
+    ``chip_smoke.train_bodies`` agrees, and ``expected_train_launches``
+    puts all of them on it."""
+    from repro_torch.configs import get_config
+    cs = _chip_smoke()
+    cfg = get_config(arch)
+    cs.train_bodies(cfg)
+    steps = 3
+    expect, bodies = cs.expected_train_launches(cfg, steps)
+    assert bodies["flash_attention"] == {
+        "wgmma": expect["flash_attention"], "mma": 0, "cuda_core": 0}
+    if expect["flash_attention"]:
+        assert flash_mod.flash_body(torch.bfloat16, cfg.head_dim) == "wgmma"
+    if arch == "zamba2-7b":
+        assert cfg.head_dim == 112
+        assert expect["flash_attention"] == 2 * steps * sum(
+            cfg.block_pattern.count(k) for k in ("attn", "swa"))
+
+
+# (DI, d_state, lanes, blocks a row): 256 threads a block, 256 / G
+# channels each; zamba2-7b's and falcon-mamba-7b's widths, and ragged ones
+SCAN_BWD_GRIDS = [(7168, 64, 16, 448), (8192, 16, 4, 128),
+                  (130, 5, 2, 2), (300, 64, 16, 19), (1, 1, 1, 1),
+                  (96, 8, 2, 1)]
+
+
+@pytest.mark.parametrize("di,ds,lanes,blocks", SCAN_BWD_GRIDS)
+def test_scan_backward_grid(di, ds, lanes, blocks):
+    """The backward kernel's grid mirrors (csrc/selective_scan.cu): G
+    lanes of 4 states a channel, ``BWD_THREADS`` = 256 threads a block,
+    so ``bwd_blocks`` = ceil(DI / (256 / G)) blocks a row, each writing
+    one partial of dB and dC a step."""
+    assert scan_mod.BWD_THREADS == 256 and scan_mod.BWD_LANE_STATES == 4
+    assert scan_mod.bwd_lanes(ds) == lanes
+    assert scan_mod.bwd_blocks(di, ds) == blocks
+    assert blocks * (scan_mod.BWD_THREADS // lanes) >= di > (
+        blocks - 1) * (scan_mod.BWD_THREADS // lanes)
