@@ -15,15 +15,16 @@ one JSON line:
    clusters of 1-8 CTAs it holds at once at the wide bodies' shared
    memory (the paged prefill's, the ring form's and the decode's),
    against the constants the split rules read (``SM_COUNT`` of four
-   kernel modules, ``WIDE_CLUSTERS``; for the cross form's ``wgmma``
-   body at hd 64 and 128, the occupancy calculator on the kernel
-   itself), and the CTAs an SM holds of the contiguous and the cross
-   flash forms' ``wgmma`` bodies at hd 64 and 128 at their dynamic
-   shared memory (the occupancy calculator on each kernel) against
-   ``WGMMA_CTAS_PER_SM``: a mismatch fails by name before any kernel
-   phase.  The build line also prints ptxas's report of the four
-   ``wgmma`` entries (registers at launch, spills) and fails if one
-   spills; then ``planning`` (host only, numpy): the paper's simulation
+   kernel modules, ``WIDE_CLUSTERS``; for the ``wgmma`` bodies of the
+   cross form, the paged chunk and the window form at hd 64 and 128,
+   the occupancy calculator on each kernel itself), and the CTAs an SM
+   holds of the contiguous, cross, paged-chunk and window forms'
+   ``wgmma`` bodies at their dynamic shared memory (the occupancy
+   calculator on each kernel) against ``WGMMA_CTAS_PER_SM``, their
+   shared memory and key tiles against the Python mirrors: a mismatch
+   fails by name before any kernel phase.  The build line also prints
+   ptxas's report of the eight ``wgmma`` entries (registers at launch,
+   spills) and fails if one spills; then ``planning`` (host only, numpy): the paper's simulation
    study, the four strategies (Algorithm 1's ``proposal``, ``prop_avg``,
    ``lbrr``, ``ga``) on ``baseline`` over seeds 0-2 at the default
    horizon of 100 slots, a line of on-time share, completed share, total
@@ -82,13 +83,17 @@ one JSON line:
    the same rows; and in float32 on ``cuda_core`` (prefill at pos 1024,
    decode over linear rows).  At mixtral-8x7b's attention (32 heads over
    8 of 128, a ring of 4096 slots) the window form (C 128 at pos 0, 2048
-   and 4300) and both decode kernels over rings (B 8, pos 5-4470,
-   clamped to w - 1; the dense kernel's bits the paged one's) run in
-   bfloat16 on ``mma`` beside plain, SDPA and the bound, and so do the
-   paged prefill (C 128 at pos 0, 1024 and 2048) and both decode
-   kernels (B 8 over linear rows of 2176 slots, pos 5-2175; the dense
-   kernel's bits the paged one's) at zamba2-7b's weight-shared attn
-   block (32 heads over 32 KV heads of 112, G 1).  The flash kernel's
+   and 4300; bf16 on its ``wgmma`` body, the ``mma`` body in turns, its
+   bits the same in blocks of 32, as a dense ring and at a device pos)
+   and both decode kernels over rings (B 8, pos 5-4470, clamped to
+   w - 1; the dense kernel's bits the paged one's; ``mma``) run beside
+   plain, SDPA and the bound, and so do the paged prefill (C 128 at pos
+   0, 1024 and 2048; ``wgmma`` on the hd-128 body, ``mma`` in turns, its
+   bits the same in blocks of 32, one dense block and a batched launch
+   at a device pos) and both decode kernels (B 8 over linear rows of
+   2176 slots, pos 5-2175; the dense kernel's bits the paged one's) at
+   zamba2-7b's weight-shared attn block (32 heads over 32 KV heads of
+   112, G 1).  The flash kernel's
    cross form (``paged_cross_attention``: C 128 queries over every one of
    src source slots, unmasked) runs at seamless-m4t-medium's enc_xattn
    (16 / 16 heads of 64, src 1024) and llama-3.2-vision-90b's xattn (64 /
@@ -99,7 +104,8 @@ one JSON line:
    halves of the bound; so do both decode kernels at those
    cross shapes (B 8, pos src - 1; the dense kernel's bits the paged
    one's) and the paged prefill at llama-3.2-vision-90b's attn layers
-   (hd 128, G 8; C 128 at pos 0 and 1024).  The selective scan
+   (hd 128, G 8; C 128 at pos 0 and 1024; ``wgmma``, ``mma`` in turns,
+   the same bit checks).  The selective scan
    also runs at zamba2-7b's d_state 64 (a decode step of 8 rows and a
    chunk of 128 over d_inner 7168, B and C the halves of ``bc_proj``'s
    output), state_lanes against cuda_core as at d_state 16.  The
@@ -217,7 +223,7 @@ one JSON line:
    engine on those 8 requests (``paged_spec``, ``dense_spec``): rounds,
    acceptance, host syncs per token, the share of tokens equal to the
    repeated bf16 paged run's (not gated), and exactly one batched chunk
-   attention a layer a round, every launch on ``mma``.
+   attention a layer a round, every launch on ``wgmma``.
    Then the paper's static tier: ``pipe_paged_bf16``
    (``PagedPipelinedEngine``) and ``pipe_dense_bf16``
    (``PipelinedEngine``), smollm-360m in 2 core stages over a seeded
@@ -254,8 +260,9 @@ one JSON line:
    paged prefill, the ring form and the decode on the wide ``mma``
    bodies (hd 256).  Which body each attention kernel's launches take is
    fixed per config in ``ATTN_BODY`` (``mma`` for all five two-body
-   attention kernels of smollm-360m and gemma3-12b), and the wrappers'
-   rules must agree with it.
+   attention kernels of gemma3-12b; at hd 64, 112 and 128 the paged
+   chunk, the batched chunk and the window form on ``wgmma``, the
+   decodes on ``mma``), and the wrappers' rules must agree with it.
    Then mixtral-8x7b at full width and ``MIXTRAL_LAYERS`` = 4 of its 32
    layers (32 would need about 93 GB of bf16 weights; the experts are
    never packed) in bfloat16, about 12 GB drawn on the card: 8 requests
@@ -457,6 +464,10 @@ REPLACES = {
     # kernel
     "dense_decode_attention_partial": "src/repro/kernels/decode_attention.py:76",
 }
+#: the file of a body that lives apart from its kernel's entry points
+BODY_SOURCES = {(k, "wgmma"): "src/repro_torch/csrc/chunk_wgmma.cu"
+                for k in ("paged_prefill_attention", "paged_chunk_attention",
+                          "ring_chunk_attention")}
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -495,31 +506,40 @@ MAIN_DTYPE = {"selective_scan": "float32",
 MAIN_BODY = {"selective_scan": ("state_lanes",),
              "rmsnorm": ("add_norm", "norm")}   # the others: ("mma",)
 #: the rule that names each two-body attention kernel's body
-ATTN_RULE = {"paged_prefill_attention": "prefill_body",
-             "paged_chunk_attention": "prefill_body",
+ATTN_RULE = {"paged_prefill_attention": "chunk_body",
+             "paged_chunk_attention": "chunk_body",
              "paged_cross_attention": "cross_body",
              "ring_chunk_attention": "ring_body",
              "paged_decode_attention": "decode_body",
              "dense_decode_attention": "decode_body"}
 #: the body of every launch of each attention kernel, per served config,
-#: fixed here (a config not named takes mma everywhere): gemma3-12b's hd
-#: 256 takes the wide mma bodies of the paged prefill, the batched chunk,
-#: the ring form and both decodes; the cross reads of seamless-m4t-medium
-#: (hd 64) and llama-3.2-vision-90b (hd 128) take the cross form's wgmma
-#: body.  ``main_bodies`` checks that the wrappers' rules agree.
+#: fixed here (a config not named takes mma everywhere): the paged chunk
+#: (one-row and batched) and the window form take their wgmma body
+#: (``csrc/chunk_wgmma.cu``) at hd 64, 112 and 128, every served
+#: config but gemma3-12b, whose hd 256 takes the wide mma bodies of the
+#: paged prefill, the batched chunk, the ring form and both decodes; the
+#: cross reads of seamless-m4t-medium (hd 64) and llama-3.2-vision-90b (hd
+#: 128) take the cross form's wgmma body.  ``main_bodies`` checks that the
+#: wrappers' rules agree.
+CHUNK_WGMMA = {"paged_prefill_attention": "wgmma",
+               "paged_chunk_attention": "wgmma",
+               "ring_chunk_attention": "wgmma"}
 ATTN_BODY = {"gemma3-12b": {"paged_prefill_attention": "mma",
                             "paged_chunk_attention": "mma",
                             "ring_chunk_attention": "mma",
                             "paged_decode_attention": "mma",
                             "dense_decode_attention": "mma"},
-             "seamless-m4t-medium": {"paged_cross_attention": "wgmma"},
-             "llama-3.2-vision-90b": {"paged_cross_attention": "wgmma"},
-             "qwen2-72b": {"paged_prefill_attention": "mma",
-                           "paged_chunk_attention": "mma",
+             "smollm-360m": CHUNK_WGMMA,
+             "mixtral-8x7b": CHUNK_WGMMA,
+             "zamba2-7b": CHUNK_WGMMA,
+             "seamless-m4t-medium": {**CHUNK_WGMMA,
+                                     "paged_cross_attention": "wgmma"},
+             "llama-3.2-vision-90b": {**CHUNK_WGMMA,
+                                      "paged_cross_attention": "wgmma"},
+             "qwen2-72b": {**CHUNK_WGMMA,
                            "paged_decode_attention": "mma",
                            "dense_decode_attention": "mma"},
-             "command-r-35b": {"paged_prefill_attention": "mma",
-                               "paged_chunk_attention": "mma",
+             "command-r-35b": {**CHUNK_WGMMA,
                                "paged_decode_attention": "mma",
                                "dense_decode_attention": "mma"}}
 #: the body of every contiguous flash launch of a ``Model.prefill`` in
@@ -676,7 +696,8 @@ def kernel_cases(dev) -> list:
     from repro_torch.models.quantize import (dequantize, quantize_int4,
                                              quantize_int8)
     from repro_torch.kernels.flash_attention import (
-        paged_prefill_attention, paged_prefill_attention_plain)
+        chunk_body, chunk_splits, paged_prefill_attention,
+        paged_prefill_attention_plain)
     from repro_torch.kernels.rmsnorm import (add_rmsnorm, add_rmsnorm_plain,
                                              rmsnorm, rmsnorm_plain)
 
@@ -799,7 +820,10 @@ def kernel_cases(dev) -> list:
             qs = q.permute(1, 0, 2)[None].contiguous()
             cmask = (torch.arange(n_slots, device=dev)[None, :]
                      <= p0 + torch.arange(C, device=dev)[:, None])
-            out = paged_prefill_attention(q, kp, vp, table, p0)
+            body = chunk_body(dtype, HD)
+            out = (chunk_bits(dev, "smollm-360m", q, kp, vp, table, p0)
+                   if dname == "bfloat16" else
+                   paged_prefill_attention(q, kp, vp, table, p0))
             if p0 == 0:
                 # what flash_attention_pallas(causal=True) computes for
                 # contiguous K/V, written out in f32
@@ -820,6 +844,9 @@ def kernel_cases(dev) -> list:
                         f"prefill at pos 0 disagrees with contiguous causal "
                         f"attention ({flash_err})")
             n_pairs = sum(p0 + i + 1 for i in range(C))
+            nbytes = (2 * C * H * HD * es + 2 * n_slots * KV * HD * es
+                      + 4 * (-(-n_slots // BS)))
+            flops = 4 * H * HD * n_pairs
             cases.append(_case(
                 "paged_prefill_attention", dname,
                 {"C": C, "H": H, "KV": KV, "hd": HD, "bs": BS, "pos": p0},
@@ -831,12 +858,15 @@ def kernel_cases(dev) -> list:
                 if p0 == 0 else
                 (lambda: F.scaled_dot_product_attention(
                     qs, kc, vc, attn_mask=cmask, enable_gqa=True)),
-                2 * C * H * HD * es + 2 * n_slots * KV * HD * es
-                + 4 * (-(-n_slots // BS)),
-                4 * H * HD * n_pairs,
+                nbytes, flops,
                 prev=(lambda: paged_prefill_attention(
-                    q, kp, vp, table, p0, _body="cuda_core"))
-                if dname == "bfloat16" else None))
+                    q, kp, vp, table, p0, _body=_turn_body(body)))
+                if dname == "bfloat16" else None,
+                extra={"model": "smollm-360m", "body": body,
+                       **({"prev_body": _turn_body(body),
+                           "splits": chunk_splits(C, H, KV, HD, nb * BS)}
+                          if dname == "bfloat16" else {}),
+                       **_bounds(nbytes, flops, dname)}))
 
         cases.append(chunk_case(dev, dname))
 
@@ -1202,15 +1232,16 @@ def chunk_case(dev, dname, arch="smollm-360m") -> dict:
     + 1 = 5, ``arch``'s heads, blocks of 16 of 1024-slot rows, each row's
     pos on the device): against its plain version under the gates, each
     row bit-equal to a one-row call at its pos, and the same data in
-    blocks of 32 bit-equal; then timed (in bf16 against the ``cuda_core``
-    body too), with ``F.scaled_dot_product_attention`` over the gathered
-    KV and a per-row mask as the library call."""
+    blocks of 32 bit-equal; then timed (in bf16 on ``chunk_body``'s body,
+    against the other of ``wgmma`` and ``mma`` in turns), with
+    ``F.scaled_dot_product_attention`` over the gathered KV and a per-row
+    mask as the library call."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import paged_gather
     from repro_torch.kernels.flash_attention import (
-        paged_chunk_attention, paged_chunk_attention_plain,
-        paged_prefill_attention)
+        chunk_body, chunk_splits, paged_chunk_attention,
+        paged_chunk_attention_plain, paged_prefill_attention)
     rng = np.random.default_rng(SEED + 8)
     dtype = getattr(torch, dname)
     es = torch.finfo(dtype).bits // 8
@@ -1233,7 +1264,9 @@ def chunk_case(dev, dname, arch="smollm-360m") -> dict:
         pools[bs] = [torch.from_numpy(a).to(dev, dtype) for a in (kp, vp)] + [
             torch.from_numpy(tables_np).to(dev)]
     kp, vp, tables = pools[16]
-    out = paged_chunk_attention(q, kp, vp, tables, pos)
+    body = chunk_body(dtype, HD)
+    out = _on_body("paged_chunk_attention", body,
+                   lambda: paged_chunk_attention(q, kp, vp, tables, pos))
     rows_equal = all(torch.equal(out[b], paged_prefill_attention(
         q[b].contiguous(), kp, vp, tables[b].contiguous(), int(pos_np[b])))
         for b in range(B))
@@ -1256,6 +1289,11 @@ def chunk_case(dev, dname, arch="smollm-360m") -> dict:
     n_slots = int((pos_np + C).sum())
     n_entries = sum(-(-(int(p) + C) // 16) for p in pos_np)
     n_pairs = int(sum(p + i + 1 for p in pos_np for i in range(C)))
+    # q read, out written; each row's pos + C slots of K and V; its table
+    # entries and pos
+    nbytes = (2 * B * C * H * HD * es + 2 * n_slots * KV * HD * es
+              + 4 * n_entries + 4 * B)
+    flops = 4 * H * HD * n_pairs
     return _case(
         "paged_chunk_attention", dname,
         {"B": B, "C": C, "H": H, "KV": KV, "hd": HD, "bs": 16,
@@ -1265,14 +1303,15 @@ def chunk_case(dev, dname, arch="smollm-360m") -> dict:
         lambda: paged_chunk_attention_plain(q, kp, vp, tables, pos),
         lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=mask,
                                                enable_gqa=True),
-        # q read, out written; each row's pos + C slots of K and V; its
-        # table entries and pos
-        2 * B * C * H * HD * es + 2 * n_slots * KV * HD * es
-        + 4 * n_entries + 4 * B,
-        4 * H * HD * n_pairs,
+        nbytes, flops,
         prev=(lambda: paged_chunk_attention(q, kp, vp, tables, pos,
-                                            _body="cuda_core"))
-        if dname == "bfloat16" else None)
+                                            _body=_turn_body(body)))
+        if dname == "bfloat16" else None,
+        extra={"body": body,
+               **({"prev_body": _turn_body(body),
+                   "splits": chunk_splits(C, H, KV, HD, S)}
+                  if dname == "bfloat16" else {}),
+               **_bounds(nbytes, flops, dname)})
 
 
 #: gemma3-12b's attention: 16 query heads over 8 KV heads of 256, a ring
@@ -1563,10 +1602,12 @@ MIXTRAL_DECODE_POS = [5, 1000, 2047, 4094, 4095, 4096, 4300, 4470]
 
 
 def mixtral_cases(dev) -> list:
-    """The attention kernels at mixtral-8x7b's shapes, bf16 on ``mma``, as
-    its serve runs launch them: the window form (C 128 queries over the
-    ring of 4096 slots plus the chunk's keys) at pos 0, 2048 and 4300
-    (wrapped), and the paged and dense decode over rings of 4096 slots
+    """The attention kernels at mixtral-8x7b's shapes, bf16, as its serve
+    runs launch them: the window form (C 128 queries over the ring of 4096
+    slots plus the chunk's keys) at pos 0, 2048 and 4300 (wrapped) on
+    ``ring_body``'s ``wgmma`` (its bits the same in blocks of 32, as a
+    dense ring and at a device pos; the ``mma`` body in turns), and the
+    paged and dense decode on ``mma`` over rings of 4096 slots
     (B 8, pos 5-4470, at the pos the model clamps to w - 1; the dense
     kernel bit-equal to the paged one on the same rows), each against
     its plain version, SDPA and the bound.  rmsnorm's 8 and 128 rows of
@@ -1577,11 +1618,13 @@ def mixtral_cases(dev) -> list:
         dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
     from repro_torch.kernels.flash_attention import (
-        ring_chunk_attention, ring_chunk_attention_plain, ring_positions)
+        ring_body, ring_chunk_attention, ring_chunk_attention_plain,
+        ring_positions, ring_splits)
     rng = np.random.default_rng(SEED + 13)
     H, KV, HD, W, C = (MIXTRAL[k] for k in ("H", "KV", "hd", "w", "C"))
     BS, dtype, es, cases = 16, torch.bfloat16, 2, []
     model = {"model": "mixtral-8x7b", "body": "mma"}
+    body = ring_body(dtype, HD)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
@@ -1594,9 +1637,8 @@ def mixtral_cases(dev) -> list:
         table = torch.from_numpy(table_np).to(dev)
         q = t(rng.standard_normal((C, H, HD)))
         kn, vn = (t(rng.standard_normal((C, KV, HD))) for _ in range(2))
-        out = _on_body("ring_chunk_attention", "mma",
-                       lambda: ring_chunk_attention(q, kp, vp, table, kn, vn,
-                                                    pos, W))
+        out = ring_bits(dev, "mixtral-8x7b", q, kp, vp, table, kn, vn, pos,
+                        W)
         kpos = ring_positions(pos, W, C, dev)[None, :]
         qpos = pos + torch.arange(C, device=dev)[:, None]
         valid = (kpos >= 0) & (kpos <= qpos) & (kpos > qpos - W)
@@ -1619,8 +1661,12 @@ def mixtral_cases(dev) -> list:
                                                W),
             lambda: F.scaled_dot_product_attention(
                 qs, k_all, v_all, attn_mask=valid, enable_gqa=True),
-            nbytes, flops, extra={**model, **_bounds(nbytes, flops,
-                                                     "bfloat16")}))
+            nbytes, flops,
+            prev=lambda: ring_chunk_attention(q, kp, vp, table, kn, vn, pos,
+                                              W, _body=_turn_body(body)),
+            extra={**model, "body": body, "prev_body": _turn_body(body),
+                   "splits": ring_splits(C, H, KV, HD, W, body),
+                   **_bounds(nbytes, flops, "bfloat16")}))
 
     B = len(MIXTRAL_DECODE_POS)
     pos_np = np.minimum(np.asarray(MIXTRAL_DECODE_POS, np.int32), W - 1)
@@ -1681,8 +1727,10 @@ ZAMBA_DECODE_POS = [5, 300, 1023, 1024, 1500, 1777, 2000, 2175]
 
 def zamba_cases(dev) -> list:
     """The attention kernels at zamba2-7b's shared block (hd 112, G 1),
-    bf16 on ``mma``, as its serve runs launch them: the paged prefill (C
-    128 at pos 0, 1024 and 2048) and the paged and dense decode over
+    bf16, as its serve runs launch them: the paged prefill (C 128 at pos
+    0, 1024 and 2048) on ``chunk_body``'s ``wgmma`` (its bits the same in
+    blocks of 32, one dense block and a batched launch at a device pos;
+    the ``mma`` body in turns), and on ``mma`` the paged and dense decode over
     linear rows of 2176 slots (B 8, pos 5-2175; the dense kernel's bits
     the paged one's on the same rows), each against its plain version,
     SDPA and both halves of the bound.  The scan at d_state 64 is in
@@ -1693,11 +1741,13 @@ def zamba_cases(dev) -> list:
         dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
     from repro_torch.kernels.flash_attention import (
-        paged_prefill_attention, paged_prefill_attention_plain)
+        chunk_body, chunk_splits, paged_prefill_attention,
+        paged_prefill_attention_plain)
     rng = np.random.default_rng(SEED + 14)
     H, KV, HD, C, L = (ZAMBA[k] for k in ("H", "KV", "hd", "C", "max_len"))
     BS, dtype, es, cases = 16, torch.bfloat16, 2, []
     model = {"model": "zamba2-7b", "body": "mma"}
+    body = chunk_body(dtype, HD)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
@@ -1709,8 +1759,7 @@ def zamba_cases(dev) -> list:
     q = t(rng.standard_normal((C, H, HD)))
     qs = q.permute(1, 0, 2)[None].contiguous()
     for p0 in (0, 1024, 2048):
-        out = _on_body("paged_prefill_attention", "mma",
-                       lambda: paged_prefill_attention(q, kp, vp, table, p0))
+        out = chunk_bits(dev, "zamba2-7b", q, kp, vp, table, p0)
         n_slots = p0 + C
         kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
         vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
@@ -1728,8 +1777,12 @@ def zamba_cases(dev) -> list:
             lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
             lambda: F.scaled_dot_product_attention(qs, kc, vc,
                                                    attn_mask=cmask),
-            nbytes, flops, extra={**model, **_bounds(nbytes, flops,
-                                                     "bfloat16")}))
+            nbytes, flops,
+            prev=lambda: paged_prefill_attention(q, kp, vp, table, p0,
+                                                 _body=_turn_body(body)),
+            extra={**model, "body": body, "prev_body": _turn_body(body),
+                   "splits": chunk_splits(C, H, KV, HD, L),
+                   **_bounds(nbytes, flops, "bfloat16")}))
 
     B = len(ZAMBA_DECODE_POS)
     pos_np = np.asarray(ZAMBA_DECODE_POS, np.int32)
@@ -1806,16 +1859,19 @@ def cross_cases(dev) -> list:
     pos src - 1 (B 8; the dense kernel's bits the paged one's), each
     against its plain version, SDPA over the gathered K/V and both
     halves of the bound; then the paged prefill at llama-3.2-vision-90b's
-    attn layers (C 128, 64 / 8 heads of 128, pos 0 and 1024)."""
+    attn layers (C 128, 64 / 8 heads of 128, pos 0 and 1024) on
+    ``chunk_body``'s ``wgmma`` (its bits the same in blocks of 32, one
+    dense block and a batched launch at a device pos; ``mma`` in
+    turns)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (
         dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
     from repro_torch.kernels.flash_attention import (
-        cross_body, cross_splits, paged_cross_attention,
-        paged_cross_attention_plain, paged_prefill_attention,
-        paged_prefill_attention_plain)
+        chunk_body, chunk_splits, cross_body, cross_splits,
+        paged_cross_attention, paged_cross_attention_plain,
+        paged_prefill_attention, paged_prefill_attention_plain)
     rng = np.random.default_rng(SEED + 17)
     BS, C, cases = 16, 128, []
 
@@ -1948,9 +2004,9 @@ def cross_cases(dev) -> list:
         dev)
     q = t(rng.standard_normal((C, H, HD)), dtype)
     qs = q.permute(1, 0, 2)[None].contiguous()
+    body = chunk_body(dtype, HD)
     for p0 in (0, 1024):
-        out = _on_body("paged_prefill_attention", "mma",
-                       lambda: paged_prefill_attention(q, kp, vp, table, p0))
+        out = chunk_bits(dev, "llama-3.2-vision-90b", q, kp, vp, table, p0)
         n_slots = p0 + C
         kc = paged_gather(kp, table[None])[0, :n_slots].permute(1, 0, 2)
         vc = paged_gather(vp, table[None])[0, :n_slots].permute(1, 0, 2)
@@ -1968,9 +2024,13 @@ def cross_cases(dev) -> list:
             lambda: paged_prefill_attention_plain(q, kp, vp, table, p0),
             lambda: F.scaled_dot_product_attention(
                 qs, kc, vc, attn_mask=cmask, enable_gqa=True),
-            nbytes, flops, extra={"model": "llama-3.2-vision-90b",
-                                  "body": "mma",
-                                  **_bounds(nbytes, flops, "bfloat16")}))
+            nbytes, flops,
+            prev=lambda: paged_prefill_attention(q, kp, vp, table, p0,
+                                                 _body=_turn_body(body)),
+            extra={"model": "llama-3.2-vision-90b", "body": body,
+                   "prev_body": _turn_body(body),
+                   "splits": chunk_splits(C, H, KV, HD, L),
+                   **_bounds(nbytes, flops, "bfloat16")}))
     return cases
 
 
@@ -1984,6 +2044,81 @@ def _on_body(kernel: str, body: str, fn):
         raise AssertionError(f"{kernel}: launches by body went from "
                              f"{before} to {_build.bodies[kernel]}, expected "
                              f"one on {body}")
+    return out
+
+
+def _turn_body(body: str) -> str:
+    """The body a chunk form's case times in turns against the rule's: the
+    previous ``mma`` where the rule names ``wgmma``, else ``wgmma``."""
+    return "mma" if body == "wgmma" else "wgmma"
+
+
+def chunk_bits(dev, label, q, kp, vp, table, pos):
+    """The one-row paged chunk at host ``pos`` on its rule's body, whose
+    bits the same logical rows in blocks of 32 and as one dense block must
+    give, and so must a batched launch of the row with its pos read on
+    the device; a line says which held.  Returns the output."""
+    import torch
+    from repro_torch.kernels.decode_attention import paged_gather
+    from repro_torch.kernels.flash_attention import (chunk_body,
+                                                     paged_chunk_attention,
+                                                     paged_prefill_attention)
+    body = chunk_body(q.dtype, q.shape[-1])
+    out = _on_body("paged_prefill_attention", body,
+                   lambda: paged_prefill_attention(q, kp, vp, table, pos))
+    kr, vr = (paged_gather(pl, table[None])[0] for pl in (kp, vp))
+    n, kv, hd = kr.shape
+    t32 = torch.arange(n // 32, dtype=torch.int32, device=dev)
+    eq = {"blocks_32": torch.equal(out, paged_prefill_attention(
+              q, kr.reshape(-1, 32, kv, hd), vr.reshape(-1, 32, kv, hd),
+              t32, pos)),
+          "dense": torch.equal(out, paged_prefill_attention(
+              q, kr[None], vr[None], t32[:1], pos)),
+          "batched_device_pos": torch.equal(out, paged_chunk_attention(
+              q[None], kp, vp, table[None],
+              torch.tensor([pos], dtype=torch.int32, device=dev))[0])}
+    emit({"phase": "kernels", "kernel": "paged_prefill_attention",
+          "check": "blocks of 32, one dense block and a batched launch "
+                   "(pos on the device) bit-equal to blocks of 16",
+          "model": label, "body": body, "pos": pos, **eq})
+    if not all(eq.values()):
+        raise AssertionError(f"paged chunk {label} pos {pos} on {body}: "
+                             f"bit-equality {eq}")
+    return out
+
+
+def ring_bits(dev, label, q, kp, vp, table, kn, vn, pos, w):
+    """The window form at host ``pos`` on its rule's body, whose bits the
+    same ring in blocks of 32 and as one dense block of ``w`` slots must
+    give, and so must pos as a (1,) int32 tensor on the card; a line says
+    which held.  Returns the output."""
+    import torch
+    from repro_torch.kernels.decode_attention import paged_gather
+    from repro_torch.kernels.flash_attention import (ring_body,
+                                                     ring_chunk_attention)
+    body = ring_body(q.dtype, q.shape[-1])
+    out = _on_body("ring_chunk_attention", body,
+                   lambda: ring_chunk_attention(q, kp, vp, table, kn, vn,
+                                                pos, w))
+    kr, vr = (paged_gather(pl, table[None])[0, :w] for pl in (kp, vp))
+    kv, hd = kr.shape[1:]
+    t32 = torch.arange(w // 32, dtype=torch.int32, device=dev)
+    eq = {"blocks_32": torch.equal(out, ring_chunk_attention(
+              q, kr.reshape(-1, 32, kv, hd), vr.reshape(-1, 32, kv, hd),
+              t32, kn, vn, pos, w)),
+          "dense": torch.equal(out, ring_chunk_attention(
+              q, kr[None].contiguous(), vr[None].contiguous(), t32[:1], kn,
+              vn, pos, w)),
+          "device_pos": torch.equal(out, ring_chunk_attention(
+              q, kp, vp, table, kn, vn,
+              torch.tensor([pos], dtype=torch.int32, device=dev), w))}
+    emit({"phase": "kernels", "kernel": "ring_chunk_attention",
+          "check": "blocks of 32, a dense one-block ring and device pos "
+                   "bit-equal to blocks of 16 at host pos",
+          "model": label, "body": body, "pos": pos, **eq})
+    if not all(eq.values()):
+        raise AssertionError(f"window form {label} pos {pos} on {body}: "
+                             f"bit-equality {eq}")
     return out
 
 
@@ -3056,12 +3191,12 @@ def main_bodies(cfg) -> dict:
     launches elsewhere."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.decode_attention import decode_body
-    from repro_torch.kernels.flash_attention import (cross_body, prefill_body,
+    from repro_torch.kernels.flash_attention import (chunk_body, cross_body,
                                                      ring_body)
     if not cfg.n_kv_heads:
         return MAIN_BODY
     dtype = torch_dtype(cfg.dtype)
-    rules = {"prefill_body": prefill_body(dtype, cfg.head_dim),
+    rules = {"chunk_body": chunk_body(dtype, cfg.head_dim),
              "ring_body": ring_body(dtype, cfg.head_dim),
              "cross_body": cross_body(dtype, cfg.head_dim),
              "decode_body": decode_body(dtype, cfg.head_dim,
@@ -3638,7 +3773,8 @@ def serve_mixtral(dev) -> dict:
     share of tokens equal to the paged run's printed).  Launches by
     kernel and body are checked exactly as in every serve run (a prefill
     chunk launches the ring form 8 times, a decode iteration the decode
-    kernel 8 times, all on ``mma``; the experts launch no port kernel).
+    kernel 8 times, the ring form on ``wgmma`` and the decode on
+    ``mma``; the experts launch no port kernel).
     Printed, not gated: the share of claims dropped in the paged run's
     first decode step and first full prefill chunk and over the run
     (capacity ranks claims over the co-batch, so the slot run may
@@ -3769,7 +3905,7 @@ def serve_zamba(dev) -> dict:
     the paged run's printed), launches by kernel and body checked
     exactly (a decode iteration: 25 norms, 3 decode attentions, 18
     scans; a chunk: 24 norms, 3 paged prefills, 18 scans; every
-    attention launch on ``mma`` at hd 112, every scan on
+    paged prefill on ``wgmma`` and decode on ``mma`` at hd 112, every scan on
     ``state_lanes`` at d_state 64); then ``zamba_pipe_paged_bf16``, the
     paged run's requests through ``PagedPipelinedEngine`` in 2 stages
     placed by the static tier, which must emit the paged run's tokens and launches at a
@@ -5659,14 +5795,16 @@ def planning() -> dict:
 
 def wgmma_ptxas(report: str) -> list:
     """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma bodies
-    (the contiguous form's and the cross form's, at hd 64 and 128): its
+    (the contiguous form's and the cross form's, at hd 64 and 128, and
+    the paged chunk's and the window form's, ``chunk_wgmma_kernel``): its
     name, the registers a thread has at launch and the bytes it spills
     (stores and loads)."""
     found, entry = {}, None
     for ln in report.splitlines():
         if "Compiling entry" in ln:
-            entry = (ln.split("'")[1] if "flash_wgmma_kernel" in ln
-                     or "cross_wgmma_kernel" in ln else None)
+            entry = (ln.split("'")[1] if any(
+                k in ln for k in ("flash_wgmma_kernel", "cross_wgmma_kernel",
+                                  "chunk_wgmma_kernel")) else None)
         elif entry and "spill stores" in ln:
             _, stores, loads = (int(x) for x in
                                 re.findall(r"(\d+) bytes", ln)[:3])
@@ -5684,17 +5822,20 @@ def device_tables(dev) -> dict:
     of 1-8 CTAs at the shared memory of the wide bodies (the paged
     prefill's, the ring form's, which takes the same tiles, and the
     decode's at gemma3-12b's G 2, through the empty kernel; and the
-    cross form's ``wgmma`` body at hd 64 and 128 itself, whose clusters
-    ``cross_splits`` sizes) against
-    ``WIDE_CLUSTERS``; the CTAs an SM holds of the contiguous flash
-    form's ``wgmma`` body at hd 64, 112 and 128 (``WGMMA_HD``) and the
-    cross form's at hd 64 and 128 (``CROSS_WGMMA_HD``), from the
-    occupancy calculator on each kernel at the dynamic shared memory it
-    launches with, against ``WGMMA_CTAS_PER_SM``, and that shared memory
-    and the keys of a K/V tile against their Python mirrors
-    (``wgmma_smem_bytes``, ``wgmma_tile_keys``, which ``cross_splits``
-    reads).  Raises naming each table, size, expected and measured value
-    that differ."""
+    ``wgmma`` bodies themselves at hd 64 and 128: the cross form's, whose
+    clusters ``cross_splits`` sizes, and the paged chunk's and the window
+    form's, whose clusters ``chunk_splits`` and ``ring_splits`` size)
+    against ``WIDE_CLUSTERS``; the CTAs an SM holds of the contiguous flash
+    form's ``wgmma`` body at hd 64, 112 and 128 (``WGMMA_HD``), the
+    cross form's at hd 64 and 128 (``CROSS_WGMMA_HD``) and the paged
+    chunk's and the window form's at hd 64, 112 and 128
+    (``CHUNK_WGMMA_HD``, ``RING_WGMMA_HD``), from the occupancy calculator
+    on each kernel at the dynamic shared memory it launches with, against
+    ``WGMMA_CTAS_PER_SM``, and that shared memory and the keys of a K/V
+    tile against their Python mirrors (``wgmma_smem_bytes``,
+    ``wgmma_tile_keys``, which the split rules read).  Raises naming each
+    table, size, expected and measured value that differ; it runs before
+    any kernel phase."""
     import torch
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      quant_matmul, rmsnorm, selective_scan)
@@ -5714,12 +5855,20 @@ def device_tables(dev) -> dict:
             ("paged_cross_attention hd 64", 384,
              flash_attention.wgmma_smem_bytes(64, "cross")),
             ("paged_cross_attention hd 128", 384,
-             flash_attention.wgmma_smem_bytes(128, "cross"))):
-        # the cross body's own (its registers hold it to a CTA an SM);
-        # the others' through the empty kernel at their shared memory
-        got = {sp: (flash_attention.cross_wgmma_clusters(
-                        int(name.split()[-1]), sp)
+             flash_attention.wgmma_smem_bytes(128, "cross")),
+            *((f"{kernel} wgmma hd {hd}", 384,
+               flash_attention.wgmma_smem_bytes(hd, form))
+              for kernel, form in (("paged_prefill_attention", "chunk"),
+                                   ("ring_chunk_attention", "ring"))
+              for hd in (64, 128))):
+        # the wgmma bodies' own (their registers hold them to a CTA an
+        # SM); the others' through the empty kernel at their shared memory
+        hd = int(name.split()[-1]) if "hd" in name else None
+        got = {sp: (flash_attention.cross_wgmma_clusters(hd, sp)
                     if name.startswith("paged_cross") else
+                    flash_attention.chunk_wgmma_clusters(
+                        hd, sp, "ring" if name.startswith("ring") else
+                        "chunk") if "wgmma" in name else
                     max_active_clusters(sp, threads, smem))
                for sp in range(1, 9)}
         clusters[name] = {"threads": threads, "smem": smem, "clusters": got}
@@ -5729,7 +5878,9 @@ def device_tables(dev) -> dict:
                 if n != decode_attention.WIDE_CLUSTERS[sp]]
     occupancy = {}
     for form, hds in (("flash", flash_attention.WGMMA_HD),
-                      ("cross", flash_attention.CROSS_WGMMA_HD)):
+                      ("cross", flash_attention.CROSS_WGMMA_HD),
+                      ("chunk", flash_attention.CHUNK_WGMMA_HD),
+                      ("ring", flash_attention.RING_WGMMA_HD)):
         for hd in hds:
             ctas, smem, keys = flash_attention.wgmma_occupancy(hd, form)
             occupancy[f"{form} hd {hd}"] = {"smem": smem, "ctas": ctas,
@@ -5791,7 +5942,9 @@ def kernel_line(cases, launches_by_run) -> dict:
         c = next(c for c in mine
                  if c["dtype"] == MAIN_DTYPE.get(name, "bfloat16")
                  and main[name](c))
-        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
+        out.append({"name": name, "route": "cuda",
+                    "source": BODY_SOURCES.get((name, c.get("body")),
+                                               SOURCES[name]),
                     "replaces": REPLACES[name],
                     "launches": launches_by_run[LAUNCH_RUN[name]][name],
                     "launch_run": LAUNCH_RUN[name],
@@ -5851,10 +6004,13 @@ def main() -> int:
           "nvcc_seconds": _build.build_seconds, "key": _build.build_key(),
           "ptxas": report})
     wgmma = wgmma_ptxas(full_report)
-    emit({"phase": "build", "kernel": "flash_attention and "
-                                       "paged_cross_attention, wgmma bodies",
+    emit({"phase": "build", "kernel": "flash_attention, "
+                                       "paged_cross_attention and the chunk "
+                                       "forms, wgmma bodies",
           "ptxas": wgmma})
-    if len(wgmma) != 4 or any(e.get("spill_bytes", 1) for e in wgmma):
+    # the contiguous and the cross form at hd 64 and 128, the chunk body
+    # at hd 64 and 128 for each of the paged chunk and the window form
+    if len(wgmma) != 8 or any(e.get("spill_bytes", 1) for e in wgmma):
         raise AssertionError(f"a wgmma body is missing from the build or "
                              f"spills: {wgmma}")
 

@@ -77,6 +77,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // TMA: a box of a tensor map into shared memory, completing on `bar`
 // (coordinates innermost first, in elements; out-of-range ones read 0)
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(rt::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(rt::smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {

@@ -46,13 +46,10 @@
 //   n_keys) alone), CTA r taking tiles [r nt / splits, (r + 1) nt /
 //   splits) of nt = ceil(n_keys / 64).  The producer's first warp finds
 //   a tile's segments in the table a lane each, a tile ahead of the
-//   copies.  Each CTA's rows (O, m, l) go to its K/V ring, and after a
-//   cluster barrier every CTA merges a share of the tile's rows, four
-//   columns at a time, over the cluster's partials in split order, read
-//   through distributed shared memory, divides by l and rounds once; a
-//   second barrier keeps each partial alive until its readers are done.
-//   Equal shapes take equal splits, so equal bits (a batched row = a
-//   one-row call).
+//   copies.  The partials merge in split order through distributed shared
+//   memory (wg_attention.cuh::store_rows, the epilogue the chunk forms of
+//   chunk_wgmma.cu share).  Equal shapes take equal splits, so equal bits
+//   (a batched row = a one-row call).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -61,10 +58,9 @@
 
 namespace {
 
+using wgt::kMaxSplits;
 using wgt::kRows;
 using wgt::kThreads;
-
-constexpr int kMaxSplits = 8;   // a portable cluster
 
 // The cross form's shape: 64-key tiles in a ring of 4 at both head dims
 // (at hd 64, 128-key tiles left the consumer's S and P registers to
@@ -104,9 +100,6 @@ cross_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const Params p) {
   using K = CrossCfg<HD>;
   constexpr int kTK = K::kTK;
-  constexpr int kPRow = HD + 4;   // a partial row: O, m, l (16-byte rows)
-  static_assert(kRows * kPRow * 4 <= 2 * K::kStages * K::kTileBytes,
-                "the partial fits the K/V ring");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const wgt::Ring<K> ring(smem_raw);
   ring.init();
@@ -207,91 +200,11 @@ cross_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       t_lo, t_hi, p.scale_log2, [&](int) { return live; },
       [&](int k0) { return k0 + kTK - 1 > klast; },
       [&](int key, bool) { return key > klast; });
-  if (p.splits == 1) {
-    // divide by l in f32, round once, store pairs
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rho = c.ra + 8 * half;
-      if (rho >= rows) continue;
-      const int h = kvh * p.G + rho % p.G;
-      const float l = fmaxf(half ? c.l_b : c.l_a, 1e-30f);
-      __nv_bfloat16* dst =
-          p.out + ((static_cast<size_t>(b) * p.C + q0 + rho / p.G) * p.H +
-                   h) * HD + 2 * c.tig;
-#pragma unroll
-      for (int d = 0; d < HD / 8; ++d)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
-            __floats2bfloat162_rn(c.o[4 * d + 2 * half] / l,
-                                  c.o[4 * d + 2 * half + 1] / l);
-    }
-    return;
-  }
-  // both consumer warpgroups are done with the ring (a named barrier of
-  // their 256 threads; every copy has landed, since each waited for every
-  // tile): the CTA's partial rows (O, then m and l) into it
-  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * wgt::kC) : "memory");
-  float* cpart = reinterpret_cast<float*>(ring.ks);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float* row = cpart + (c.ra + 8 * half) * kPRow;
-#pragma unroll
-    for (int d = 0; d < HD / 8; ++d)
-      *reinterpret_cast<float2*>(row + 8 * d + 2 * c.tig) =
-          make_float2(c.o[4 * d + 2 * half], c.o[4 * d + 2 * half + 1]);
-    if (c.tig == 0) {
-      row[HD] = half ? c.m_b : c.m_a;
-      row[HD + 1] = half ? c.l_b : c.l_a;
-    }
-  }
-  // every CTA's partial is in place: merge a share of the tile's rows x
-  // HD outputs, four columns at a time, over the cluster's partials in
-  // split order; each unit's reads of every split go out together, so a
-  // unit waits for distributed shared memory once
-  cooperative_groups::cluster_group cluster =
-      cooperative_groups::this_cluster();
-  cluster.sync();
-  constexpr int kUnits = HD / 4;           // float4 units a row
-#pragma unroll 2
-  for (int u = split * 128 * wgt::kC + threadIdx.x; u < rows * kUnits;
-       u += p.splits * 128 * wgt::kC) {
-    const int r = u / kUnits;
-    const int d = (u - r * kUnits) * 4;
-    float2 ml[kMaxSplits];
-    float4 po[kMaxSplits];
-#pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp)
-      if (sp < p.splits) {
-        const float* row = cluster.map_shared_rank(cpart, sp) + r * kPRow;
-        ml[sp] = *reinterpret_cast<const float2*>(row + HD);
-        po[sp] = *reinterpret_cast<const float4*>(row + d);
-      }
-    float mx = rt::kNegInf;
-#pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp)
-      if (sp < p.splits) mx = fmaxf(mx, ml[sp].x);
-    float l = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int sp = 0; sp < kMaxSplits; ++sp)
-      if (sp < p.splits) {
-        const float a = exp2f(ml[sp].x - mx);
-        l += ml[sp].y * a;
-        acc.x += po[sp].x * a;
-        acc.y += po[sp].y * a;
-        acc.z += po[sp].z * a;
-        acc.w += po[sp].w * a;
-      }
-    l = fmaxf(l, 1e-30f);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        p.out + ((static_cast<size_t>(b) * p.C + q0 + r / p.G) * p.H +
-                 kvh * p.G + r % p.G) * HD + d);
-    dst[0] = __floats2bfloat162_rn(acc.x / l, acc.y / l);
-    dst[1] = __floats2bfloat162_rn(acc.z / l, acc.w / l);
-  }
-  cluster.sync();               // each partial lives until its readers end
+  wgt::store_rows(c, ring, rows, HD, split, p.splits, [&](int r) {
+    return p.out + ((static_cast<size_t>(b) * p.C + q0 + r / p.G) * p.H +
+                    kvh * p.G + r % p.G) * HD;
+  });
 }
-
-int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 template <int HD>
 int launch(const void* q, const void* k_pool, const void* v_pool,
@@ -305,8 +218,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   if (p.G > kRows || splits < 1 || splits > kMaxSplits || splits > p.nt ||
       nbp <= 0 || KV > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  p.seg = bs % K::kTK == 0 || nb == 1 ? K::kTK : gcd(bs, K::kTK);
-  if (p.seg < 8) return static_cast<int>(cudaErrorInvalidValue);
+  p.seg = wgt::pool_segment(bs, nb, K::kTK);
+  if (p.seg == 0) return static_cast<int>(cudaErrorInvalidValue);
   p.tables = static_cast<const int*>(tables);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.C = C;

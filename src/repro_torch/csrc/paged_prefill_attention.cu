@@ -51,10 +51,18 @@
 // bytes); in practice latency and SM fill, since a chunk is a few tens
 // of row tiles.
 //
-// Two bodies; the wrapper names one by its rule
-// (kernels/flash_attention.py::prefill_body) and this entry point
+// Three bodies for the causal forms; the wrapper names one by its rule
+// (kernels/flash_attention.py::chunk_body) and this entry point
 // launches it, refusing a body the shape cannot take:
 //
+// * wgmma (bf16 at hd 64, 112 and 128, 16-byte aligned q / pools / out,
+//   blocks of a multiple of 8 slots or one dense block): the
+//   warp-specialised body of chunk_wgmma.cu, 128 (query, head-in-group)
+//   rows a CTA on wgmma, the pools read by TMA through the table, each
+//   (row tile, KV head, row)'s key tiles split across a cluster of
+//   `splits` CTAs (the wrapper's chunk_splits, shape only).  The one-row
+//   and the batched form share it, so a batched row keeps a one-row
+//   call's bits.
 // * mma (bf16, hd % 16 == 0 up to 128 or hd 256, 16-byte aligned q /
 //   pools / out).  A CTA owns one KV head and 64 rows, a row being a (query,
 //   head-in-group) pair of that KV head's G query heads, so each K/V tile
@@ -678,19 +686,45 @@ cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
 
 }  // namespace mma
 
+}  // namespace
+
+// The paged chunk's wgmma body (chunk_wgmma.cu).
+int chunk_wgmma_launch(const void* q, const void* k_pool, const void* v_pool,
+                       const void* tables, const void* pos_dev, void* out,
+                       int B, int C, int H, int KV, int hd, int bs, int nb,
+                       int nbp, int pos, float scale, int splits,
+                       cudaStream_t stream);
+
+namespace {
+
 // Every entry point: B rows, each row's pos from pos_dev when it is not
 // null, else the host's pos; n_keys > 0 selects the cross form (keys
 // [0, n_keys), no causal mask, pos unused), 0 the causal one.  splits (1
-// to 8) is read by the wide mma body only; the others take 1.
+// to 8) is read by the causal form's wgmma body (chunk_wgmma.cu; hd 64,
+// 112 and 128, nbp the pool's blocks, the extent of its maps) and the
+// wide mma body; the others take 1.
 cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
                 const void* tables, const void* pos_dev, void* out, int B,
-                int C, int H, int KV, int hd, int bs, int nb, int pos,
-                int n_keys, float scale, int dtype, int body, int splits,
-                cudaStream_t s) {
+                int C, int H, int KV, int hd, int bs, int nb, int nbp,
+                int pos, int n_keys, float scale, int dtype, int body,
+                int splits, cudaStream_t s) {
   if (B <= 0 || C <= 0) return cudaSuccess;
   if (KV <= 0 || H % KV != 0 || nb <= 0 || bs <= 0 || hd <= 0 || pos < 0 ||
       B > 65535 || n_keys < 0 || n_keys > nb * bs)
     return cudaErrorInvalidValue;
+  if (body == rt::kBodyWgmma) {
+    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                           reinterpret_cast<uintptr_t>(k_pool) |
+                           reinterpret_cast<uintptr_t>(v_pool) |
+                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+    if (dtype != 1 || !aligned || n_keys != 0 ||
+        (hd != 64 && hd != 112 && hd != 128))
+      return cudaErrorInvalidValue;
+    const int rc = chunk_wgmma_launch(q, k_pool, v_pool, tables, pos_dev,
+                                      out, B, C, H, KV, hd, bs, nb, nbp, pos,
+                                      scale, splits, s);
+    return static_cast<cudaError_t>(rc);
+  }
   if (body == rt::kBodyMma) {
     const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k_pool) |
@@ -718,29 +752,32 @@ cudaError_t run(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
+// q (C, H, hd), pools (nbp, bs, KV, hd), table (nb,), out like q.
 extern "C" int rt_paged_prefill_attention(const void* q, const void* k_pool,
                                           const void* v_pool,
                                           const void* table, void* out, int C,
                                           int H, int KV, int hd, int bs,
-                                          int nb, int pos, float scale,
-                                          int dtype, int body, int splits,
-                                          void* stream) {
+                                          int nb, int nbp, int pos,
+                                          float scale, int dtype, int body,
+                                          int splits, void* stream) {
   return static_cast<int>(run(q, k_pool, v_pool, table, nullptr, out, 1, C, H,
-                              KV, hd, bs, nb, pos, 0, scale, dtype, body,
+                              KV, hd, bs, nb, nbp, pos, 0, scale, dtype, body,
                               splits, static_cast<cudaStream_t>(stream)));
 }
 
-// q (B, C, H, hd), tables (B, nb), pos (B,) int32 on the device, out like q.
+// q (B, C, H, hd), pools (nbp, bs, KV, hd), tables (B, nb), pos (B,)
+// int32 on the device, out like q.
 extern "C" int rt_paged_chunk_attention(const void* q, const void* k_pool,
                                         const void* v_pool, const void* tables,
                                         const void* pos, void* out, int B,
                                         int C, int H, int KV, int hd, int bs,
-                                        int nb, float scale, int dtype,
-                                        int body, int splits, void* stream) {
+                                        int nb, int nbp, float scale,
+                                        int dtype, int body, int splits,
+                                        void* stream) {
   if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(run(q, k_pool, v_pool, tables, pos, out, B, C, H,
-                              KV, hd, bs, nb, 0, 0, scale, dtype, body, splits,
-                              static_cast<cudaStream_t>(stream)));
+                              KV, hd, bs, nb, nbp, 0, 0, scale, dtype, body,
+                              splits, static_cast<cudaStream_t>(stream)));
 }
 
 // The cross form's wgmma body (paged_cross_attention.cu).
@@ -764,8 +801,8 @@ extern "C" int rt_paged_cross_attention(const void* q, const void* k_pool,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body != rt::kBodyWgmma)
     return static_cast<int>(run(q, k_pool, v_pool, tables, nullptr, out, B,
-                                C, H, KV, hd, bs, nb, 0, n_keys, scale, dtype,
-                                body, splits, s));
+                                C, H, KV, hd, bs, nb, nbp, 0, n_keys, scale,
+                                dtype, body, splits, s));
   if (B <= 0 || C <= 0) return static_cast<int>(cudaSuccess);
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                          reinterpret_cast<uintptr_t>(k_pool) |

@@ -41,10 +41,17 @@
 // and SM fill: a chunk is 4 row tiles of 64 x 8 KV heads, 32 units of
 // work for 132 SMs.
 //
-// Two bodies; the wrapper names one by its rule
+// Three bodies; the wrapper names one by its rule
 // (kernels/flash_attention.py::ring_body) and this entry point launches
 // it, refusing a body the shape cannot take:
 //
+// * wgmma (bf16 at hd 64, 112 and 128, 16-byte aligned q / pools / chunk
+//   K/V / out, blocks of a multiple of 8 slots or one dense block): the
+//   warp-specialised body of chunk_wgmma.cu, 128 (query, head-in-group)
+//   rows a CTA on wgmma, ring tiles through a TMA map over the pools and
+//   the table, chunk tiles through a map over the chunk's K/V, each
+//   (row tile, KV head)'s tiles split across a cluster of `splits` CTAs
+//   (ring_splits' wgmma branch: 3 at mixtral-8x7b's chunk).
 // * mma (bf16, hd % 16 == 0 up to 128 or hd 256, 16-byte aligned q /
 //   pools / chunk K/V / out): a copy of the paged prefill's tensor-core
 //   tiles (flash_tiles.cuh) over the ring's key numbering.  A CTA owns one KV
@@ -67,7 +74,8 @@
 //   per) of the n_old / kSpan (rounded up) + q_last / kSpan + 1 it
 //   derives from pos, and the partials merge in split order through
 //   distributed shared memory.  Below hd 256 the split is 1, as the
-//   prefill's is (a split there spilled registers).
+//   prefill's is (a split there spilled registers; the wgmma body splits
+//   instead).
 // * cuda_core (float32 at every shape, bf16 at the others, hd <= 256):
 //   the f32 CUDA-core body of the first port (core_tiles.cuh, which the
 //   contiguous form shares): 16 rows a CTA, 4 row warps of 4 rows times
@@ -380,30 +388,47 @@ cudaError_t dispatch(int hd, const void* q, const void* kp, const void* vp,
 }  // namespace mma
 }  // namespace
 
-// q (C, H, hd); pools (NB, bs, KV, hd); table (nb,) int32 covering ring
+// The window form's wgmma body (chunk_wgmma.cu).
+int ring_wgmma_launch(const void* q, const void* k_pool, const void* v_pool,
+                      const void* table, const void* k_new,
+                      const void* v_new, const void* pos_dev, void* out,
+                      int C, int H, int KV, int hd, int bs, int nb, int nbp,
+                      int pos, int w, float scale, int splits,
+                      cudaStream_t stream);
+
+// q (C, H, hd); pools (nbp, bs, KV, hd); table (nb,) int32 covering ring
 // slots [0, w); k_new / v_new (C, KV, hd); out like q.  The position of
 // the chunk's first query is *pos_dev, an int32 on the device, where
 // pos_dev is not null, else pos (>= 0); w is the ring size.  splits (1
-// to 8) is read by the wide mma body only; the others take 1.
+// to 8) is read by the wgmma body (hd 64, 112 and 128; nbp the extent of
+// its pool maps) and the wide mma body; the others take 1.
 extern "C" int rt_ring_chunk_attention(const void* q, const void* k_pool,
                                        const void* v_pool, const void* table,
                                        const void* k_new, const void* v_new,
                                        const void* pos_dev, void* out, int C,
                                        int H, int KV, int hd, int bs, int nb,
-                                       int pos, int w, float scale, int dtype,
-                                       int body, int splits, void* stream) {
+                                       int nbp, int pos, int w, float scale,
+                                       int dtype, int body, int splits,
+                                       void* stream) {
   if (C <= 0) return static_cast<int>(cudaSuccess);
   if (KV <= 0 || H % KV != 0 || bs <= 0 || hd <= 0 ||
       (pos_dev == nullptr && pos < 0) || w <= 0 || nb * bs < w)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k_pool) |
+                         reinterpret_cast<uintptr_t>(v_pool) |
+                         reinterpret_cast<uintptr_t>(k_new) |
+                         reinterpret_cast<uintptr_t>(v_new) |
+                         reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+  if (body == rt::kBodyWgmma) {
+    if (dtype != 1 || !aligned || (hd != 64 && hd != 112 && hd != 128))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return ring_wgmma_launch(q, k_pool, v_pool, table, k_new, v_new, pos_dev,
+                             out, C, H, KV, hd, bs, nb, nbp, pos, w, scale,
+                             splits, s);
+  }
   if (body == rt::kBodyMma) {
-    const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
-                           reinterpret_cast<uintptr_t>(k_pool) |
-                           reinterpret_cast<uintptr_t>(v_pool) |
-                           reinterpret_cast<uintptr_t>(k_new) |
-                           reinterpret_cast<uintptr_t>(v_new) |
-                           reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
     if (dtype != 1 || !aligned)
       return static_cast<int>(cudaErrorInvalidValue);
     if (hd == 256) {

@@ -1,11 +1,13 @@
 // The consumer side of the port's warp-specialised attention bodies on
 // Hopper (wgmma, fed by TMA), shared by the contiguous flash form
-// (flash_attention.cu, flash_wgmma_kernel) and the cross form
-// (paged_cross_attention.cu, cross_wgmma_kernel): the shared-memory ring,
-// its barriers, and a consumer warpgroup's walk over an item's key tiles
-// (S = Q K^T, the online softmax, O += (P_hi + P_lo) V).  Each kernel
-// brings its own producer (which tiles, through which tensor maps) and
-// its own epilogue.
+// (flash_attention.cu, flash_wgmma_kernel), the cross form
+// (paged_cross_attention.cu, cross_wgmma_kernel) and the paged chunk's and
+// the window form's body (chunk_wgmma.cu, chunk_wgmma_kernel): the
+// shared-memory ring, its barriers, and a consumer warpgroup's walk over
+// an item's key tiles (S = Q K^T, the online softmax, O += (P_hi + P_lo)
+// V).  Each kernel brings its own producer (which tiles, through which
+// tensor maps); the three forms whose key tiles split across a cluster
+// share their epilogue (store_rows).
 //
 // A CTA holds kRows = 128 (query, head-in-group) rows: kC = 2 consumer
 // warpgroups of 64 rows (setmaxnreg 240), then one producer warpgroup
@@ -21,6 +23,10 @@
 //   112 and TMA fills 112-127 with zeros; flash_attention.cu)
 //   cross       64   1       64           4       16 KB   64 KB   83,200
 //   cross       128  2       64           4       32 KB   128 KB  165,120
+//   chunk       64   1       64           4       16 KB   64 KB   83,200
+//   chunk       128  2       64           4       32 KB   128 KB  165,120
+//   (chunk: the paged chunk's and the window form's body; hd 112 on the
+//   hd-128 body, as the contiguous form's)
 //
 // hd 64 is the contiguous body as first built, unchanged; hd 128 halves
 // the key tile so that a consumer thread holds S (32 f32), P_hi and P_lo
@@ -44,6 +50,8 @@
 // masked scores are -1e30 (the reference's NEG_INF).
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
 #include "common.cuh"
@@ -58,8 +66,22 @@ constexpr int kConsumerRegs = 240;
 constexpr int kProducerRegs = 24;
 constexpr int kAtomRow = 128;              // a swizzled row: 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSplits = 8;              // a portable cluster
 static_assert(kC * 128 * kConsumerRegs + 128 * kProducerRegs <= 65536,
               "the warpgroups' registers fit the SM");
+
+// Slots a TMA box of a paged body's key tile holds (the cross form's and
+// the chunk forms'): the whole tile of tk slots where no tile straddles a
+// block (bs a multiple of tk, or one block a row), else the largest power
+// of two dividing bs and tk; 0 below 8 slots (one swizzle atom), which
+// the bodies refuse (kernels/flash_attention.py's rules send such pools
+// to mma).  tk is a power of two.
+inline int pool_segment(int bs, int nb, int tk) {
+  if (bs % tk == 0 || nb == 1) return tk;
+  int seg = tk;
+  while (bs % seg != 0) seg /= 2;
+  return seg >= 8 ? seg : 0;
+}
 
 // A body's shape: head dim HD, key tiles of TK keys in a ring of STAGES.
 template <int HD, int TK, int STAGES>
@@ -392,5 +414,103 @@ struct Consumer {
     }
   }
 };
+
+// The epilogue of a body whose item's key tiles may be split across a
+// cluster of `splits` CTAs (this CTA its `split`-th; 1: no cluster):
+// rows [0, rows) of the consumers' O, m and l into the output, row_out(r)
+// the first of row r's `cols` columns (cols <= HD: columns the maps
+// zero-filled past it are not stored).  Unsplit, each thread divides its
+// own rows by l in f32, rounds once and stores pairs.  Split, both
+// consumer warpgroups first finish with the ring (a named barrier of
+// their 256 threads; every copy has landed, since each waited for every
+// tile), and the CTA's partial rows (O, then m and l) go into its K/V
+// ring; after a cluster barrier every CTA merges a share of the tile's
+// rows x cols outputs, four columns at a time, over the cluster's
+// partials in split order, read through distributed shared memory (each
+// unit's reads of every split go out together, so a unit waits for
+// distributed shared memory once), divides by l and rounds once; a
+// second barrier keeps each partial alive until its readers are done.
+// The producer warpgroup meets the two cluster barriers itself.
+template <class K, class RowOut>
+__device__ __forceinline__ void store_rows(const Consumer<K>& c,
+                                           const Ring<K>& ring, int rows,
+                                           int cols, int split, int splits,
+                                           RowOut row_out) {
+  constexpr int HD = K::kHd;
+  constexpr int kPRow = HD + 4;   // a partial row: O, m, l (16-byte rows)
+  static_assert(kRows * kPRow * 4 <= 2 * K::kStages * K::kTileBytes,
+                "the partial fits the K/V ring");
+  if (splits == 1) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rho = c.ra + 8 * half;
+      if (rho >= rows) continue;
+      const float l = fmaxf(half ? c.l_b : c.l_a, 1e-30f);
+      __nv_bfloat16* dst = row_out(rho) + 2 * c.tig;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        if (8 * d < cols)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+              __floats2bfloat162_rn(c.o[4 * d + 2 * half] / l,
+                                    c.o[4 * d + 2 * half + 1] / l);
+    }
+    return;
+  }
+  asm volatile("bar.sync 1, %0;\n" :: "n"(128 * kC) : "memory");
+  float* cpart = reinterpret_cast<float*>(ring.ks);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float* row = cpart + (c.ra + 8 * half) * kPRow;
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+      *reinterpret_cast<float2*>(row + 8 * d + 2 * c.tig) =
+          make_float2(c.o[4 * d + 2 * half], c.o[4 * d + 2 * half + 1]);
+    if (c.tig == 0) {
+      row[HD] = half ? c.m_b : c.m_a;
+      row[HD + 1] = half ? c.l_b : c.l_a;
+    }
+  }
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  constexpr int kUnits = HD / 4;           // float4 units a row
+#pragma unroll 2
+  for (int u = split * 128 * kC + threadIdx.x; u < rows * kUnits;
+       u += splits * 128 * kC) {
+    const int r = u / kUnits;
+    const int d = (u - r * kUnits) * 4;
+    if (d >= cols) continue;
+    float2 ml[kMaxSplits];
+    float4 po[kMaxSplits];
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits) {
+        const float* row = cluster.map_shared_rank(cpart, sp) + r * kPRow;
+        ml[sp] = *reinterpret_cast<const float2*>(row + HD);
+        po[sp] = *reinterpret_cast<const float4*>(row + d);
+      }
+    float mx = rt::kNegInf;
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits) mx = fmaxf(mx, ml[sp].x);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int sp = 0; sp < kMaxSplits; ++sp)
+      if (sp < splits) {
+        const float a = exp2f(ml[sp].x - mx);
+        l += ml[sp].y * a;
+        acc.x += po[sp].x * a;
+        acc.y += po[sp].y * a;
+        acc.z += po[sp].z * a;
+        acc.w += po[sp].w * a;
+      }
+    l = fmaxf(l, 1e-30f);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(row_out(r) + d);
+    dst[0] = __floats2bfloat162_rn(acc.x / l, acc.y / l);
+    dst[1] = __floats2bfloat162_rn(acc.z / l, acc.w / l);
+  }
+  cluster.sync();               // each partial lives until its readers end
+}
 
 }  // namespace wgt

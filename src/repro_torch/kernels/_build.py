@@ -55,21 +55,22 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 
 #: kernel name -> body -> launches since the last reset, for the kernels
 #: with more than one body (the body names of csrc/*.cu: "mma", the bf16
-#: tensor-core body; "wgmma", the contiguous and the cross flash forms'
-#: warp-specialised bf16 body on Hopper's wgmma, fed by TMA;
+#: tensor-core body; "wgmma", the flash kernel's warp-specialised bf16
+#: bodies on Hopper's wgmma, fed by TMA (the contiguous, cross, paged
+#: chunk and window forms);
 #: "state_lanes", the scan with d_state split across lanes; "add_norm"
 #: and "norm", rmsnorm with and without the residual add, the row in
 #: registers; "cuda_core", the f32 CUDA-core body, the previous one where
 #: a kernel was redesigned)
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
-       for name in ("paged_decode_attention", "paged_prefill_attention",
-                    "paged_chunk_attention", "ring_chunk_attention",
-                    "dense_decode_attention",
+       for name in ("paged_decode_attention", "dense_decode_attention",
                     "dense_decode_attention_partial", "quant_matmul_int8",
                     "quant_matmul_int4")},
-    "flash_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
-    "paged_cross_attention": {"wgmma": 0, "mma": 0, "cuda_core": 0},
+    **{name: {"wgmma": 0, "mma": 0, "cuda_core": 0}
+       for name in ("flash_attention", "paged_cross_attention",
+                    "paged_prefill_attention", "paged_chunk_attention",
+                    "ring_chunk_attention")},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -172,23 +173,23 @@ _SIGNATURES = {
     # dtype, body, splits, stream
     "rt_paged_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _F, _I, _I, _I, _P),
-    # q, k_pool, v_pool, table, out, C, H, KV, hd, bs, nb, pos, scale,
-    # dtype, body, splits, stream
+    # q, k_pool, v_pool, table, out, C, H, KV, hd, bs, nb, pool blocks,
+    # pos, scale, dtype, body, splits, stream
     "rt_paged_prefill_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _I, _I, _F, _I, _I, _I, _P),
+                                   _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, pos (device), out, B, C, H, KV, hd, bs,
-    # nb, scale, dtype, body, splits, stream
+    # nb, pool blocks, scale, dtype, body, splits, stream
     "rt_paged_chunk_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _I, _F, _I, _I, _I, _P),
+                                 _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, tables, out, B, C, H, KV, hd, bs, nb, pool
     # blocks, n_keys, scale, dtype, body, splits, stream
     "rt_paged_cross_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k_pool, v_pool, table, k_new, v_new, pos (device, or null), out,
-    # C, H, KV, hd, bs, nb, pos (host), w, scale, dtype, body, splits,
-    # stream
+    # C, H, KV, hd, bs, nb, pool blocks, pos (host), w, scale, dtype,
+    # body, splits, stream
     "rt_ring_chunk_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+                                _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
     # q, k, v, out, lse, B, H, KV, S, hd, the element strides of q, of
     # k and v, and of out (batch, head, position), causal, window, scale,
     # dtype, body, stream
@@ -200,6 +201,9 @@ _SIGNATURES = {
     "rt_cross_wgmma_occupancy": (_I, _P, _P, _P),
     # hd, cluster size, clusters the card holds at once (int*)
     "rt_cross_wgmma_clusters": (_I, _I, _P),
+    # hd, the window form (0 / 1), then as the cross form's
+    "rt_chunk_wgmma_occupancy": (_I, _I, _P, _P, _P),
+    "rt_chunk_wgmma_clusters": (_I, _I, _I, _P),
     # q, k_cache, v_cache, pos, out, B, H, KV, hd, S, scale, dtype, body,
     # splits, stream
     "rt_dense_decode_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

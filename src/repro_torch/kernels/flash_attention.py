@@ -14,10 +14,19 @@ the TPU kernel it replaces is ``src/repro/kernels/flash_attention.py:72``.
 Bound on the H100: bytes at the main path's chunks (C = 128 against a
 prefix of a few hundred keys; at gemma3's hd 256, 1,152-2,176 keys of 8
 KV heads), and in practice latency and SM fill.
-The kernel has two bodies, named by :func:`prefill_body`:
+The kernel has three bodies, named by :func:`chunk_body` (whose base,
+:func:`prefill_body`, names the last two):
 
+* ``"wgmma"`` (bfloat16 at hd 64, 112 and 128, 16-byte aligned tensors,
+  blocks that cut into 8-slot TMA segments; every bf16 launch of the
+  served models but gemma3-12b's): the cross form's warp-specialised body
+  (``csrc/chunk_wgmma.cu``) with a causal mask, 128 (query, head) rows a
+  CTA on ``wgmma``, the pools read in place by TMA through the table, each
+  (row tile, KV head)'s key tiles split across a cluster of
+  :func:`chunk_splits` CTAs, cut from each row's pos on the device and
+  merged in split order through distributed shared memory.
 * ``"mma"`` (bfloat16, ``hd % 16 == 0`` up to 128 or ``hd == 256``,
-  16-byte aligned tensors; every bf16 launch the served models make):
+  16-byte aligned tensors; gemma3-12b's hd 256, and ``_body="mma"``):
   Q K^T and P V on the tensor cores (``mma.sync`` m16n8k16, f32
   accumulators), one CTA per KV head and 64 (query, head) rows, so the
   G heads of a group share each K/V tile; P enters the PV product as
@@ -69,12 +78,17 @@ queries of one request attend to the w keys of its sliding-window ring
 own C keys, under the causal and the window mask
 (``csrc/ring_chunk_attention.cu``).  Its ``pos`` is a host int or a
 ``(1,)`` int32 tensor on the device, which the CTAs read themselves: the
-grid depends on C, H, KV, hd and w only.  Two bodies, named by
-:func:`ring_body` where :func:`prefill_body` names them: ``"mma"``, the
-prefill's tensor-core tiles over the ring's key numbering (at hd 256
-each row tile's steps split across a cluster of :func:`ring_splits`
-CTAs), and ``"cuda_core"``, the f32 CUDA-core body (float32 at every
-shape, bfloat16 at the others, hd up to 256).
+grid depends on C, H, KV, hd and w only.  Three bodies, named by
+:func:`ring_body`: ``"wgmma"`` (bfloat16 at hd 64, 112 and 128), the
+paged chunk's ``csrc/chunk_wgmma.cu`` body with the window mask, ring
+tiles through the pool map and table and chunk tiles through a map over
+the chunk's K/V, each (row tile, KV head)'s tiles split across a
+cluster of :func:`ring_splits` CTAs; ``"mma"`` where
+:func:`prefill_body` names it otherwise, the prefill's tensor-core
+tiles over the ring's key numbering (at hd 256 each row tile's steps
+split across a cluster of :func:`ring_splits` CTAs); and
+``"cuda_core"``, the f32 CUDA-core body (float32 at every shape,
+bfloat16 at the others, hd up to 256).
 
 The contiguous form :func:`flash_attention` is the TPU kernel's own
 signature: Q ``(B, H, S, hd)`` over K / V ``(B, KV, S, hd)`` of the same
@@ -135,10 +149,14 @@ def prefill_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
 #: the warp-specialised wgmma bodies (csrc/wg_attention.cuh): the head
 #: dims the contiguous form's takes (csrc/flash_attention.cu; hd 112 on
 #: the hd-128 body, its last 16 columns zero-filled by TMA), the head dims
-#: the cross form's takes (csrc/paged_cross_attention.cu), and the
-#: (query, head-in-group) rows a CTA holds (two consumer warpgroups of 64)
+#: the cross form's takes (csrc/paged_cross_attention.cu), those the paged
+#: chunk's and the window form's take (csrc/chunk_wgmma.cu; hd 112 as the
+#: contiguous form's), and the (query, head-in-group) rows a CTA holds
+#: (two consumer warpgroups of 64)
 WGMMA_HD = (64, 112, 128)
 CROSS_WGMMA_HD = (64, 128)
+CHUNK_WGMMA_HD = (64, 112, 128)
+RING_WGMMA_HD = (64, 112, 128)
 WGMMA_ROWS = 128
 
 
@@ -152,10 +170,12 @@ def wgmma_tile_keys(hd: int, form: str = "flash") -> int:
     """Keys a K/V tile of a wgmma body holds (``wgt::Cfg::kTK``): the
     contiguous form's 128 at hd 64, 64 at hd 112 and 128 (the rows of 256
     bytes, two swizzled halves, take twice the shared memory and the O
-    accumulator twice the registers); the cross form's 64 at both.  A
-    mirror, so that :func:`cross_splits` is a rule the CPU can run too;
-    chip_smoke.py's device phase holds it to the value the library
-    reports (:func:`wgmma_occupancy`)."""
+    accumulator twice the registers); the cross form's (``"cross"``),
+    the paged chunk's (``"chunk"``) and the window form's (``"ring"``)
+    64 at every head dim.  A mirror, so that the split rules
+    (:func:`cross_splits`, :func:`chunk_splits`, :func:`ring_splits`) run
+    on the CPU too; chip_smoke.py's device phase holds it to the value
+    the library reports (:func:`wgmma_occupancy`)."""
     return 128 if hd == 64 and form == "flash" else 64
 
 
@@ -164,8 +184,9 @@ def wgmma_smem_bytes(hd: int, form: str = "flash") -> int:
     bytes of alignment slack, Q's WGMMA_ROWS rows of the body's head dim
     (:func:`wgmma_body_hd`: hd 112 takes the hd-128 body's) in bf16, a
     ring of K and V tiles (3 stages of the contiguous form's at hd 64, 4
-    stages elsewhere), 256 bytes of barriers.  A mirror, held to the
-    library's value as :func:`wgmma_tile_keys` is."""
+    stages elsewhere: 83,200 bytes at hd 64 and 165,120 at 112 and 128
+    for the cross, chunk and ring forms), 256 bytes of barriers.  A
+    mirror, held to the library's value as :func:`wgmma_tile_keys` is."""
     stages = 3 if (hd, form) == (64, "flash") else 4
     width = wgmma_body_hd(hd)
     return (1024 + WGMMA_ROWS * width * 2
@@ -199,6 +220,29 @@ def cross_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
     return prefill_body(dtype, hd, aligned)
 
 
+def chunk_body(dtype: torch.dtype, hd: int, aligned: bool = True,
+               segments: bool = True) -> str:
+    """The paged chunk's body (the one-row prefill and the batched form
+    share it, so a batched row keeps a one-row call's bits): ``"wgmma"``
+    (``csrc/chunk_wgmma.cu``) for bfloat16 at a head dim of
+    :data:`CHUNK_WGMMA_HD` with 16-byte aligned q, pools and out and
+    pools whose blocks cut into whole 8-slot TMA segments (``segments``:
+    bs a multiple of 8, or one block a row); else :func:`prefill_body`'s
+    choice (``"mma"`` at the other bf16 shapes it takes, hd 256 among
+    them; ``"cuda_core"`` for float32, so the card's float32 streams stay
+    equal to the CPU's).  Not the chunk's length: on the H100 the wgmma
+    body beat ``mma`` in turns at every C from 1 to 64 over 512 slots
+    and at C 128 over 256 to 2048 (smollm-360m, zamba2-7b, the hd-128
+    G-8 chunk, seamless-m4t-medium) and at the verify round's B 8 x C 5
+    (``tools/torch_split_sweep.py --chunk``, PERF.md §6); only a
+    prompt's first chunk (pos 0) takes it longer, 1.2x.  Never the batch,
+    pos or the table."""
+    if (dtype == torch.bfloat16 and aligned and segments
+            and hd in CHUNK_WGMMA_HD):
+        return "wgmma"
+    return prefill_body(dtype, hd, aligned)
+
+
 #: key tiles (of 64 keys) a CTA of the cross form's split takes at
 #: least: a CTA's fixed cost (its start, first copies and the cluster
 #: merge) is several tiles' worth, so splitting finer buys a chunk's
@@ -224,9 +268,47 @@ def cross_splits(c: int, h: int, kv: int, hd: int, n_keys: int) -> int:
     return min(wide_splits(tiles * kv, nt), max(1, nt // CROSS_MIN_TILES))
 
 
+#: key tiles (of 64 keys) a CTA of the chunk forms' wgmma split takes at
+#: least, at capacity: a CTA's fixed cost (its start, Q, the first
+#: copies and the cluster merge) is a few tiles' worth
+CHUNK_MIN_TILES = 4
+#: a chunk of at most CHUNK_SHORT_C queries (a verify round's K + 1, a
+#: prompt's last few tokens) splits at most CHUNK_SHORT_SPLITS ways: the
+#: batched form's B rows fill the card beside it (B 8 x C 5 at
+#: smollm-360m's and qwen2-72b's heads took 0.0103 / 0.0142 ms on 2
+#: splits, 0.0137 / 0.0217 on 4 on the H100; a one-row chunk of 1-8
+#: queries, a prompt's rare tail, takes up to 1.34x its 4-split time on
+#: 2 there; PERF.md §6)
+CHUNK_SHORT_C = 8
+CHUNK_SHORT_SPLITS = 2
+
+
+def _wgmma_row_tiles(c: int, h: int, kv: int) -> int:
+    """Row tiles of one row: WGMMA_ROWS // G whole queries a CTA."""
+    return -(-c // max(1, WGMMA_ROWS // (h // kv)))
+
+
+def chunk_splits(c: int, h: int, kv: int, hd: int, capacity: int) -> int:
+    """CTAs (one cluster) each (row tile, KV head) of the paged chunk's
+    wgmma body splits its key tiles across: :func:`wide_splits` over one
+    row's row tiles x KV heads (the body holds one CTA an SM) and the
+    ``ceil(capacity / 64)`` tiles of a full row (``capacity`` = nb * bs),
+    and no more than leave each CTA CHUNK_MIN_TILES of them (4 at
+    smollm-360m's chunk: 20 units; 3 at zamba2-7b's: 32 units, 96 CTAs; 2
+    at llama-3.2-vision-90b's attn layers: 64 units), nor more than
+    CHUNK_SHORT_SPLITS for a chunk of at most CHUNK_SHORT_C queries.
+    Shapes only: each CTA cuts its share from the tiles it derives from
+    pos on the device, so a row of a batched launch gets a one-row call's
+    split and bits."""
+    nt = -(-capacity // wgmma_tile_keys(hd, "chunk"))
+    splits = min(wide_splits(_wgmma_row_tiles(c, h, kv) * kv, nt),
+                 max(1, nt // CHUNK_MIN_TILES))
+    return min(splits, CHUNK_SHORT_SPLITS) if c <= CHUNK_SHORT_C else splits
+
+
 #: CTAs of a wgmma body an SM holds: one (its registers: 168 a thread at
 #: launch, 384 threads); chip_smoke.py checks it against the card at
-#: each head dim, for both forms
+#: each head dim, for every form
 WGMMA_CTAS_PER_SM = 1
 
 
@@ -241,18 +323,35 @@ def cross_wgmma_clusters(hd: int, splits: int) -> int:
     return out.value
 
 
+def chunk_wgmma_clusters(hd: int, splits: int, form: str = "chunk") -> int:
+    """Clusters of ``splits`` CTAs of the paged chunk's (``"chunk"``) or
+    the window form's (``"ring"``) wgmma body at head dim ``hd`` the card
+    holds at once, from the occupancy calculator on the kernel itself
+    (card only): what :func:`chunk_splits` and :func:`ring_splits` read
+    from ``WIDE_CLUSTERS``."""
+    out = ctypes.c_int(0)
+    _build.check(_build.library().rt_chunk_wgmma_clusters(
+        hd, int(form == "ring"), splits, ctypes.byref(out)),
+        f"{form} wgmma clusters")
+    return out.value
+
+
 def wgmma_occupancy(hd: int = 64, form: str = "flash") -> tuple:
     """(CTAs an SM of this card holds, dynamic shared memory, keys a K/V
-    tile) of the contiguous (``form="flash"``) or the cross (``"cross"``)
-    form's wgmma body at head dim ``hd``: the CTAs from the card's
-    occupancy calculator on the kernel itself, the others the kernel's
-    own constants (card only)."""
+    tile) of a wgmma body at head dim ``hd``: the contiguous
+    (``form="flash"``), the cross (``"cross"``), the paged chunk's
+    (``"chunk"``) or the window form's (``"ring"``); the CTAs from the
+    card's occupancy calculator on the kernel itself, the others the
+    kernel's own constants (card only)."""
     ctas, smem, keys = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _build.library()
-    fn = (lib.rt_flash_wgmma_occupancy if form == "flash"
-          else lib.rt_cross_wgmma_occupancy)
-    _build.check(fn(hd, ctypes.byref(ctas), ctypes.byref(smem),
-                    ctypes.byref(keys)), f"{form} wgmma occupancy")
+    out = (ctypes.byref(ctas), ctypes.byref(smem), ctypes.byref(keys))
+    if form in ("chunk", "ring"):
+        rc = lib.rt_chunk_wgmma_occupancy(hd, int(form == "ring"), *out)
+    else:
+        rc = (lib.rt_flash_wgmma_occupancy if form == "flash"
+              else lib.rt_cross_wgmma_occupancy)(hd, *out)
+    _build.check(rc, f"{form} wgmma occupancy")
     return ctas.value, smem.value, keys.value
 
 
@@ -269,21 +368,38 @@ def prefill_smem_bytes(hd: int) -> int:
     return (PREFILL_ROWS + 4 * prefill_span(hd)) * (hd + 8) * 2
 
 
-def ring_body(dtype: torch.dtype, hd: int, aligned: bool = True) -> str:
-    """The window form's body: ``"mma"`` exactly where :func:`prefill_body`
-    names it (bfloat16, 16-byte aligned q, pools, chunk K/V and out, hd of
-    whole k16 steps up to 128 or 256), else ``"cuda_core"``, so float32
-    keeps the card's streams equal to the CPU's."""
+def ring_body(dtype: torch.dtype, hd: int, aligned: bool = True,
+              segments: bool = True) -> str:
+    """The window form's body: ``"wgmma"`` (``csrc/chunk_wgmma.cu``) for
+    bfloat16 at a head dim of :data:`RING_WGMMA_HD` with 16-byte aligned
+    q, pools, chunk K/V and out and a ring whose blocks cut into whole
+    8-slot TMA segments (``segments``: bs a multiple of 8, or one dense
+    block); else ``"mma"`` where :func:`prefill_body` names it (the other
+    bf16 head dims of whole k16 steps up to 128, and 256), else
+    ``"cuda_core"``, so float32 keeps the card's streams equal to the
+    CPU's."""
+    if (dtype == torch.bfloat16 and aligned and segments
+            and hd in RING_WGMMA_HD):
+        return "wgmma"
     return prefill_body(dtype, hd, aligned)
 
 
-def ring_splits(c: int, h: int, kv: int, hd: int, w: int) -> int:
-    """CTAs (one cluster) each row tile's steps of the window form's
-    ``mma`` body are split across: 1 up to hd 128; at hd 256,
-    :func:`wide_splits` over the row tiles x KV heads and the steps of a
-    full ring plus a whole chunk.  Shapes only: the steps each CTA takes
-    are cut from ``pos`` on the device (3 at gemma3's chunk: 32 units over
-    16 + 2 steps)."""
+def ring_splits(c: int, h: int, kv: int, hd: int, w: int,
+                body: str = "mma") -> int:
+    """CTAs (one cluster) each row tile's key tiles of the window form are
+    split across.  On ``"wgmma"``: :func:`wide_splits` over one chunk's
+    row tiles of WGMMA_ROWS rows x KV heads and the 64-key tiles of a full
+    ring plus a whole chunk, leaving each CTA at least CHUNK_MIN_TILES of
+    them (3 at mixtral-8x7b's chunk: 4 x 8 units over 64 + 2 tiles).  On
+    ``"mma"``: 1 up to hd 128; at hd 256, :func:`wide_splits` over the
+    row tiles x KV heads and the steps of a full ring plus a whole chunk
+    (3 at gemma3's chunk: 32 units over 16 + 2 steps).  Shapes only: the
+    tiles each CTA takes are cut from ``pos`` on the device."""
+    if body == "wgmma":
+        tk = wgmma_tile_keys(hd, "ring")
+        nt = -(-w // tk) + -(-c // tk)
+        return min(wide_splits(_wgmma_row_tiles(c, h, kv) * kv, nt),
+                   max(1, nt // CHUNK_MIN_TILES))
     if hd <= 128:
         return 1
     span = prefill_span(hd)
@@ -362,7 +478,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                             _body: Optional[str] = None) -> torch.Tensor:
     """Paged causal prefill attention; see
     :func:`paged_prefill_attention_plain` for the contract.  ``_body``
-    forces a kernel body over :func:`prefill_body`'s choice, for timing
+    forces a kernel body over :func:`chunk_body`'s choice, for timing
     the bodies against each other; the model never passes it."""
     if fake.is_abstract(q):
         return fake.paged_prefill(q, k_pool, v_pool, table)
@@ -392,19 +508,32 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_prefill_attention: the kernel takes "
                          "contiguous tensors")
     out = torch.empty_like(q)
-    body = _body or prefill_body(
-        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
-    splits = prefill_splits(c, h, kv, hd, nb * bs) if body == "mma" else 1
+    body, splits = _chunk_body_and_splits(q, k_pool, v_pool, out, c, h, kv,
+                                          hd, bs, nb, _body)
     lib = _build.library()
     _build.launches["paged_prefill_attention"] += 1
     _build.bodies["paged_prefill_attention"][body] += 1
     _build.check(lib.rt_paged_prefill_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
-        out.data_ptr(), c, h, kv, hd, bs, nb, pos, float(scale),
+        out.data_ptr(), c, h, kv, hd, bs, nb, nbp, pos, float(scale),
         _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_prefill_attention")
     return out
+
+
+def _chunk_body_and_splits(q, k_pool, v_pool, out, c, h, kv, hd, bs, nb,
+                           body):
+    """The paged chunk's body (``body``, else :func:`chunk_body`'s) and
+    the split of the body it launches."""
+    body = body or chunk_body(
+        q.dtype, hd,
+        all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool, out)),
+        nb == 1 or bs % 8 == 0)
+    splits = (chunk_splits(c, h, kv, hd, nb * bs) if body == "wgmma"
+              else prefill_splits(c, h, kv, hd, nb * bs) if body == "mma"
+              else 1)
+    return body, splits
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -441,16 +570,15 @@ def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_chunk_attention: the kernel takes contiguous "
                          "tensors")
     out = torch.empty_like(q)
-    body = _body or prefill_body(
-        q.dtype, hd, all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)))
-    splits = prefill_splits(c, h, kv, hd, nb * bs) if body == "mma" else 1
+    body, splits = _chunk_body_and_splits(q, k_pool, v_pool, out, c, h, kv,
+                                          hd, bs, nb, _body)
     lib = _build.library()
     _build.launches["paged_chunk_attention"] += 1
     _build.bodies["paged_chunk_attention"][body] += 1
     _build.check(lib.rt_paged_chunk_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), out.data_ptr(), b, c, h, kv, hd,
-        bs, nb, float(scale), _build.dtype_code(q.dtype),
+        bs, nb, nbp, float(scale), _build.dtype_code(q.dtype),
         _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "paged_chunk_attention")
@@ -627,10 +755,12 @@ def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("ring_chunk_attention: the kernel takes contiguous "
                          "tensors")
     out = torch.empty_like(q)
-    body = _body or ring_body(q.dtype, hd, all(
-        t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool, k_new, v_new,
-                                         out)))
-    splits = ring_splits(c, h, kv, hd, w) if body == "mma" else 1
+    body = _body or ring_body(
+        q.dtype, hd,
+        all(t.data_ptr() % 16 == 0
+            for t in (q, k_pool, v_pool, k_new, v_new, out)),
+        nb == 1 or bs % 8 == 0)
+    splits = ring_splits(c, h, kv, hd, w, body) if body != "cuda_core" else 1
     lib = _build.library()
     _build.launches["ring_chunk_attention"] += 1
     _build.bodies["ring_chunk_attention"][body] += 1
@@ -638,7 +768,7 @@ def ring_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), table.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(),
         pos_dev.data_ptr() if pos_dev is not None else None, out.data_ptr(),
-        c, h, kv, hd, bs, nb, pos, w, float(scale),
+        c, h, kv, hd, bs, nb, nbp, pos, w, float(scale),
         _build.dtype_code(q.dtype), _build.BODY_CODES[body], splits,
         torch.cuda.current_stream(q.device).cuda_stream),
         "ring_chunk_attention")

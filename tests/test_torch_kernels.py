@@ -40,8 +40,10 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     dense_decode_attention_partial_plain, dense_decode_attention_plain,
     paged_decode_attention, paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    CROSS_MIN_TILES, CROSS_WGMMA_HD, PREFILL_ROWS, WGMMA_HD, WGMMA_ROWS,
-    FlashAttentionFn,
+    CHUNK_MIN_TILES, CHUNK_SHORT_C, CHUNK_SHORT_SPLITS, CHUNK_WGMMA_HD,
+    CROSS_MIN_TILES,
+    CROSS_WGMMA_HD, PREFILL_ROWS, RING_WGMMA_HD, WGMMA_HD, WGMMA_ROWS,
+    FlashAttentionFn, chunk_body, chunk_splits,
     cross_body, cross_splits, flash_attention, flash_attention_plain,
     flash_body, paged_chunk_attention, wgmma_smem_bytes, wgmma_tile_keys,
     paged_chunk_attention_plain, paged_cross_attention,
@@ -518,22 +520,30 @@ def test_ring_plain_takes_a_device_pos_tensor(pos, c):
 
 @pytest.mark.parametrize("dtype,hd,aligned,want", [
     ("bfloat16", 256, True, "mma"),     # gemma3-12b: the wide tiles
-    ("bfloat16", 128, True, "mma"),     # mixtral-8x7b
-    ("bfloat16", 64, True, "mma"), ("bfloat16", 32, True, "mma"),
-    ("bfloat16", 16, True, "mma"),
+    ("bfloat16", 128, True, "wgmma"),   # mixtral-8x7b
+    ("bfloat16", 64, True, "wgmma"), ("bfloat16", 32, True, "mma"),
+    ("bfloat16", 16, True, "mma"), ("bfloat16", 112, True, "wgmma"),
     ("bfloat16", 30, True, "cuda_core"), ("bfloat16", 144, True, "cuda_core"),
     ("bfloat16", 240, True, "cuda_core"), ("bfloat16", 512, True, "cuda_core"),
     ("bfloat16", 256, False, "cuda_core"), ("bfloat16", 64, False, "cuda_core"),
     ("float32", 256, True, "cuda_core"), ("float32", 64, True, "cuda_core"),
+    ("float32", 128, True, "cuda_core"),
 ])
 def test_ring_body_rule(dtype, hd, aligned, want):
-    """The window form takes the tensor-core body exactly where the paged
-    prefill does (bf16, aligned, whole k16 steps up to 128 or 256), and
-    the CUDA-core body elsewhere: float32 always, so the card's f32
-    streams stay equal to the CPU's."""
+    """The window form takes the wgmma body for bf16 at hd 64, 112 and
+    128 (``RING_WGMMA_HD``: mixtral-8x7b's 128 among them) on aligned
+    tensors, else the tensor-core ``mma`` body exactly where the paged
+    prefill's base rule names it (bf16, aligned, whole k16 steps up to
+    128, or 256), and the CUDA-core body elsewhere: float32 always, so
+    the card's f32 streams stay equal to the CPU's.  A ring in blocks
+    that do not cut into 8-slot TMA segments keeps ``mma``."""
     dt = getattr(torch, dtype)
     assert ring_body(dt, hd, aligned) == want
-    assert ring_body(dt, hd, aligned) == prefill_body(dt, hd, aligned)
+    if want != "wgmma":
+        assert ring_body(dt, hd, aligned) == prefill_body(dt, hd, aligned)
+    else:
+        assert hd in RING_WGMMA_HD
+        assert ring_body(dt, hd, aligned, segments=False) == "mma"
 
 
 def _ring_tiles(pos, w, c, g, r0, hd, splits):
@@ -1009,7 +1019,10 @@ def _chip_smoke():
     (132, {3: 33, 8: 16}, [
         "WIDE_CLUSTERS[3] at paged_prefill_attention's 168960 B: "
         "expected 39, got 33", "WIDE_CLUSTERS[8] at ring_chunk_attention's",
-        "WIDE_CLUSTERS[3] at paged_decode_attention's 202752 B"]),
+        "WIDE_CLUSTERS[3] at paged_decode_attention's 202752 B",
+        "WIDE_CLUSTERS[3] at paged_prefill_attention wgmma hd 128's "
+        "165120 B: expected 39, got 33",
+        "WIDE_CLUSTERS[8] at ring_chunk_attention wgmma hd 64's 83200 B"]),
 ])
 def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
     """``chip_smoke.py``'s device phase holds the card's SM count and
@@ -1026,6 +1039,9 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
                             sp, WIDE_CLUSTERS[sp]))
     monkeypatch.setattr(flash_mod, "cross_wgmma_clusters",
                         lambda hd, sp: clusters.get(sp, WIDE_CLUSTERS[sp]))
+    monkeypatch.setattr(flash_mod, "chunk_wgmma_clusters",
+                        lambda hd, sp, form="chunk": clusters.get(
+                            sp, WIDE_CLUSTERS[sp]))
     monkeypatch.setattr(flash_mod, "wgmma_occupancy",
                         lambda hd=64, form="flash": (
                             flash_mod.WGMMA_CTAS_PER_SM,
@@ -1049,20 +1065,25 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
     (1, 99328, 128, ["wgmma_smem_bytes(64, 'flash'): expected 115968, "
                      "the kernel has 99328",
                      "wgmma_smem_bytes(112, 'flash'): expected 165120",
-                     "wgmma_smem_bytes(128, 'cross'): expected 165120"]),
+                     "wgmma_smem_bytes(128, 'cross'): expected 165120",
+                     "wgmma_smem_bytes(112, 'chunk'): expected 165120",
+                     "wgmma_smem_bytes(64, 'ring'): expected 83200"]),
     (1, 115968, 32, ["wgmma_tile_keys(64, 'flash'): expected 128, the "
                      "kernel has 32",
                      "wgmma_tile_keys(112, 'flash'): expected 64, the "
                      "kernel has 32",
                      "wgmma_tile_keys(64, 'cross'): expected 64, the "
+                     "kernel has 32",
+                     "wgmma_tile_keys(112, 'ring'): expected 64, the "
                      "kernel has 32"]),
 ])
 def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, keys,
                                            named):
     """The device phase holds the wgmma bodies' CTAs an SM (the occupancy
-    calculator on each kernel, the contiguous form at hd 64, 112 and 128
-    and the cross form at 64 and 128, at the shared memory the kernel
-    reports) against
+    calculator on each kernel, the contiguous form at hd 64, 112 and 128,
+    the cross form at 64 and 128 and the paged chunk's and the window
+    form's at 64, 112 and 128, at the shared memory the kernel reports)
+    against
     ``WGMMA_CTAS_PER_SM``, and that shared memory and the keys of a K/V
     tile against their Python mirrors, and fails naming the mirror or
     the shared memory and both values."""
@@ -1075,6 +1096,8 @@ def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, keys,
                         lambda sp, threads, smem: WIDE_CLUSTERS[sp])
     monkeypatch.setattr(flash_mod, "cross_wgmma_clusters",
                         lambda hd, sp: WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "chunk_wgmma_clusters",
+                        lambda hd, sp, form="chunk": WIDE_CLUSTERS[sp])
     monkeypatch.setattr(flash_mod, "wgmma_occupancy",
                         lambda hd=64, form="flash": (ctas, smem, keys))
     monkeypatch.setattr(cs, "emit", lambda obj: None)
@@ -1257,7 +1280,7 @@ def test_cuda_paged_prefill_matches_plain(cuda_device, dtype, c, pos, d):
     dt = getattr(torch, dtype)
     args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
         t(table).to(cuda_device)]
-    body = prefill_body(dt, d)
+    body = chunk_body(dt, d)
     n0 = _build.bodies["paged_prefill_attention"][body]
     got = paged_prefill_attention(*args, pos)
     assert _build.bodies["paged_prefill_attention"][body] == n0 + 1
@@ -1356,7 +1379,7 @@ def test_cuda_paged_chunk_matches_plain_and_one_row_calls(
     dt = getattr(torch, dtype)
     args = [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
         t(a).to(cuda_device) for a in (tables, pos)]
-    body = prefill_body(dt, d)
+    body = chunk_body(dt, d)
     n0 = _build.bodies["paged_chunk_attention"][body]
     got = paged_chunk_attention(*args)
     assert _build.bodies["paged_chunk_attention"][body] == n0 + 1
@@ -1414,6 +1437,175 @@ def test_cuda_paged_chunk_cuda_core_body_in_bf16(cuda_device):
     got = paged_chunk_attention(*args, _body="cuda_core")
     assert _build.bodies["paged_chunk_attention"]["cuda_core"] == n0 + 1
     _card_close(got, paged_chunk_attention_plain(*args), "bfloat16")
+
+
+#: the paged chunk's wgmma body on the card (C, H, KV, hd, pos, capacity):
+#: smollm-360m's chunk (G 3, hd 64), zamba2-7b's (hd 112, G 1), the hd-128
+#: G-8 chunk, a ragged chunk at hd 112, one query, a chunk whose last
+#: queries pass the capacity (the clamp), a chunk at pos 0 of G 1
+CHUNK_WGMMA_CASES = [(128, 15, 5, 64, 256, 1024),
+                     (128, 32, 32, 112, 2048, 2176),
+                     (128, 64, 8, 128, 1024, 1152),
+                     (77, 6, 2, 112, 300, 512), (1, 15, 5, 64, 200, 512),
+                     (100, 15, 5, 64, 450, 512), (128, 16, 16, 64, 0, 1024)]
+
+
+def _chunk_wgmma_inputs(rng, c, h, kv, d, capacity, bs=16):
+    """q (C,H,D); the capacity's K and V in logical order; pools of blocks
+    of ``bs`` through a shuffled table over blocks 1.. (block 0 the
+    scratch block)."""
+    nb = -(-capacity // bs)
+    q = rng.standard_normal((c, h, d), dtype=np.float32)
+    k = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    v = rng.standard_normal((nb * bs, kv, d), dtype=np.float32)
+    table = (rng.permutation(nb) + 1).astype(np.int32)
+    kp = np.zeros((nb + 1, bs, kv, d), np.float32)
+    vp = np.zeros((nb + 1, bs, kv, d), np.float32)
+    kp[table] = k.reshape(nb, bs, kv, d)
+    vp[table] = v.reshape(nb, bs, kv, d)
+    return q, k, v, kp, vp, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,kv,d,pos,capacity", CHUNK_WGMMA_CASES)
+def test_cuda_chunk_wgmma_matches_plain_and_mma(cuda_device, c, h, kv, d,
+                                                pos, capacity):
+    """The paged chunk's wgmma body (bf16; the rule's at these shapes)
+    against its plain version under the card's gates, and against the
+    ``mma`` body forced on the same inputs (as chip_smoke.py times them
+    in turns); one launch counted on each."""
+    rng = np.random.default_rng(40 + d)
+    q, _, _, kp, vp, table = _chunk_wgmma_inputs(rng, c, h, kv, d, capacity)
+    bf = torch.bfloat16
+    args = [t(a).to(cuda_device, bf) for a in (q, kp, vp)] + [
+        t(table).to(cuda_device)]
+    assert chunk_body(bf, d) == "wgmma"
+    n0 = dict(_build.bodies["paged_prefill_attention"])
+    got = paged_prefill_attention(*args, pos)
+    mma = paged_prefill_attention(*args, pos, _body="mma")
+    assert _build.bodies["paged_prefill_attention"] == {
+        "wgmma": n0["wgmma"] + 1, "mma": n0["mma"] + 1,
+        "cuda_core": n0["cuda_core"]}
+    assert bool(torch.isfinite(got.float()).all())
+    _card_close(got, paged_prefill_attention_plain(*args, pos), "bfloat16")
+    _card_close(got, mma, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", CHUNK_WGMMA_HD)
+def test_cuda_chunk_wgmma_bits(cuda_device, d):
+    """On the paged chunk's wgmma body the same logical K/V in blocks of
+    16, of 32 and as one dense block gives the same bits; so do each row
+    of a batched launch (pos on the device) and a one-row call at its
+    pos, and a batched launch of one row against the host-pos call."""
+    rng = np.random.default_rng(50 + d)
+    b, c, h, kv, s = 4, 128, 16, 4, 1024
+    pos = np.array([0, 300, 896, 517], np.int32)
+    q = rng.standard_normal((b, c, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    v = rng.standard_normal((b, s, kv, d), dtype=np.float32)
+    bf = torch.bfloat16
+    qd = t(q).to(cuda_device, bf)
+    pos_d = t(pos).to(cuda_device)
+    outs = []
+    for bs in (16, 32):
+        nb = s // bs
+        tables = (rng.permutation(b * nb).reshape(b, nb) + 1).astype(np.int32)
+        kp = np.zeros((b * nb + 1, bs, kv, d), np.float32)
+        vp = np.zeros((b * nb + 1, bs, kv, d), np.float32)
+        kp[tables] = k.reshape(b, nb, bs, kv, d)
+        vp[tables] = v.reshape(b, nb, bs, kv, d)
+        pools = [t(a).to(cuda_device, bf) for a in (kp, vp)]
+        tables_d = t(tables).to(cuda_device)
+        outs.append(paged_chunk_attention(qd, *pools, tables_d, pos_d))
+        if bs == 16:
+            for row in range(b):
+                one = paged_prefill_attention(
+                    qd[row].contiguous(), *pools,
+                    tables_d[row].contiguous(), int(pos[row]))
+                assert torch.equal(outs[0][row], one)
+                one_dev = paged_chunk_attention(
+                    qd[row:row + 1].contiguous(), *pools,
+                    tables_d[row:row + 1].contiguous(), pos_d[row:row + 1])
+                assert torch.equal(one_dev[0], one)
+    outs.append(paged_chunk_attention(
+        qd, *[t(a).to(cuda_device, bf) for a in (k, v)],
+        torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None],
+        pos_d))
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    _card_close(outs[0], paged_chunk_attention_plain(
+        qd, *[t(a).to(cuda_device, bf) for a in (k, v)],
+        torch.arange(b, dtype=torch.int32, device=cuda_device)[:, None],
+        pos_d), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_wgmma_refuses_what_it_cannot_take(cuda_device):
+    """The wgmma body forced at a head dim it has no body for, in float32,
+    or over blocks that do not cut into 8-slot segments raises; no
+    fallback runs."""
+    rng = np.random.default_rng(60)
+
+    def args(d, dt, bs=16):
+        q, _, _, kp, vp, table = _chunk_wgmma_inputs(rng, 8, 4, 2, d, 64, bs)
+        return [t(a).to(cuda_device, dt) for a in (q, kp, vp)] + [
+            t(table).to(cuda_device)]
+    for a in (args(96, torch.bfloat16), args(64, torch.float32),
+              args(64, torch.bfloat16, bs=4)):
+        with pytest.raises(RuntimeError):
+            paged_prefill_attention(*a, 5, _body="wgmma")
+    q, kp, vp, table = args(96, torch.bfloat16)
+    kn = torch.zeros((8, 2, 96), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        ring_chunk_attention(q, kp, vp, table, kn, kn, 5, 32, _body="wgmma")
+
+
+#: the window form's wgmma body on the card (pos, C, H, KV, hd, w):
+#: mixtral-8x7b's chunk before, inside and past the wrap of its 4096-slot
+#: ring; a chunk longer than the ring; hd 112 on a ragged ring; a short
+#: chunk; a chunk longer than a small ring at hd 128
+RING_WGMMA_CASES = [(0, 128, 32, 8, 128, 4096), (2048, 128, 32, 8, 128, 4096),
+                    (4300, 128, 32, 8, 128, 4096), (45, 64, 6, 2, 64, 32),
+                    (100, 33, 4, 4, 112, 48), (7, 5, 6, 2, 64, 32),
+                    (300, 160, 16, 8, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos,c,h,kv,d,w", RING_WGMMA_CASES)
+def test_cuda_ring_wgmma_matches_plain_and_mma(cuda_device, pos, c, h, kv,
+                                               d, w):
+    """The window form's wgmma body (bf16; ``ring_body``'s at these
+    shapes) against its plain version under the card's gates and against
+    the ``mma`` body forced on the same inputs; the same ring in blocks
+    of 32 and as one dense block of w slots gives the bits of blocks of
+    16, and so does pos as a (1,) int32 tensor on the card."""
+    bf = torch.bfloat16
+    args, ring = _ring_card_args(cuda_device, bf, pos, c, h, kv, d, w)
+    assert ring_body(bf, d) == "wgmma"
+    n0 = dict(_build.bodies["ring_chunk_attention"])
+    got = ring_chunk_attention(*args)
+    mma = ring_chunk_attention(*args, _body="mma")
+    assert _build.bodies["ring_chunk_attention"] == {
+        "wgmma": n0["wgmma"] + 1, "mma": n0["mma"] + 1,
+        "cuda_core": n0["cuda_core"]}
+    assert bool(torch.isfinite(got.float()).all())
+    _card_close(got, ring_chunk_attention_plain(*args), "bfloat16")
+    _card_close(got, mma, "bfloat16")
+    nb32 = -(-w // 32)
+    pools32 = []
+    for r in ring:
+        pool = torch.zeros((nb32 + 1, 32, kv, d))
+        pool[1:].reshape(-1, kv, d)[:w] = r
+        pools32.append(pool.to(cuda_device, bf))
+    table32 = torch.arange(1, nb32 + 1, dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got, ring_chunk_attention(
+        args[0], *pools32, table32, *args[4:]))
+    dense = [r[None].to(cuda_device, bf) for r in ring]
+    assert torch.equal(got, ring_chunk_attention(
+        args[0], *dense, torch.zeros(1, dtype=torch.int32,
+                                     device=cuda_device), *args[4:]))
+    pos_t = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(got, ring_chunk_attention(*args[:6], pos_t, w))
 
 
 #: the cross form's shapes (B, C, H, KV, hd, src): seamless-m4t-medium's
@@ -1912,19 +2104,22 @@ def _ring_card_args(cuda_device, dt, pos, c, h, kv, d, w):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pos,c,h,kv,d,w", [
-    case for case in RING_CASES if ring_body(torch.bfloat16, case[4]) == "mma"])
+    case for case in RING_CASES
+    if prefill_body(torch.bfloat16, case[4]) == "mma"])
 def test_cuda_ring_mma_within_the_gate_of_cuda_core(cuda_device, pos, c, h,
                                                     kv, d, w):
-    """In bf16 the tensor-core body and the previous CUDA-core body, on
-    the same inputs, agree within the card's bf16 gate (both compute in
-    f32 and round once)."""
+    """In bf16 the tensor-core ``mma`` body (forced where the rule names
+    ``wgmma``, as chip_smoke.py times it in turns) and the previous
+    CUDA-core body, on the same inputs, agree within the card's bf16 gate
+    (both compute in f32 and round once)."""
     args, _ = _ring_card_args(cuda_device, torch.bfloat16, pos, c, h, kv, d,
                               w)
     n0 = dict(_build.bodies["ring_chunk_attention"])
-    got = ring_chunk_attention(*args)
+    got = ring_chunk_attention(*args, _body="mma")
     prev = ring_chunk_attention(*args, _body="cuda_core")
     assert _build.bodies["ring_chunk_attention"] == {
-        "mma": n0["mma"] + 1, "cuda_core": n0["cuda_core"] + 1}
+        "wgmma": n0["wgmma"], "mma": n0["mma"] + 1,
+        "cuda_core": n0["cuda_core"] + 1}
     _card_close(got, prev, "bfloat16")
 
 
@@ -2473,39 +2668,281 @@ def test_cross_splits_cover_the_keys_and_fill_the_card(c, h, kv, hd,
         assert (splits, units * splits) == (2, 32)
 
 
-@pytest.mark.parametrize("form", ["flash", "cross"])
+@pytest.mark.parametrize("form", ["flash", "cross", "chunk", "ring"])
 @pytest.mark.parametrize("hd", WGMMA_HD)
 def test_wgmma_bodies_fit_the_shared_memory_a_block_may_use(hd, form):
     """The wgmma bodies' shared memory (``wgt::Cfg::kSmem``, mirrored by
     ``wgmma_smem_bytes``) within the 232,448 bytes a block may use: Q's
-    128 rows, the K/V ring and the barriers; the cross form's f32
-    partial rows (O, m, l, 16-byte rows) fit its ring.  hd 112 is the
-    contiguous form's alone, on the hd-128 body's shared memory and key
-    tiles; the cross form's rule never names wgmma there."""
+    128 rows of the body's head dim, the K/V ring (4 stages of 64-key
+    tiles but the contiguous form's 3 of 128 at hd 64) and the barriers;
+    the split forms' f32 partial rows (O, m, l, 16-byte rows) fit their
+    ring.  hd 112 runs on the hd-128 body's shared memory and key tiles in
+    the contiguous form and the chunk forms (the paged chunk, ``chunk``,
+    and the window form, ``ring``); the cross form's rule never names
+    wgmma there."""
     if (form, hd) == ("cross", 112):
         assert hd not in CROSS_WGMMA_HD
         assert cross_body(torch.bfloat16, hd) == "mma"
         return
+    width = 64 if hd == 64 else 128
     smem = wgmma_smem_bytes(hd, form)
     assert smem <= SMEM_PER_BLOCK
-    assert smem == {("flash", 64): 115968, ("flash", 112): 165120,
-                    ("flash", 128): 165120, ("cross", 64): 83200,
-                    ("cross", 128): 165120}[form, hd]
-    if form == "cross":                 # the partial rows reuse the ring
-        assert WGMMA_ROWS * (hd + 4) * 4 <= 2 * 4 * 64 * hd * 2
+    assert smem == {("flash", 64): 115968}.get(
+        (form, hd), {64: 83200, 128: 165120}[width])
+    if form != "flash":                 # the partial rows reuse the ring
+        assert smem == 1024 + 128 * width * 2 + 2 * 4 * 64 * width * 2 + 256
+        assert WGMMA_ROWS * (width + 4) * 4 <= 2 * 4 * 64 * width * 2
     assert wgmma_tile_keys(hd, form) == (128 if (form, hd) == ("flash", 64)
                                          else 64)
 
 
 @pytest.mark.parametrize("hd", [16, 32, 64, 112, 128, 256])
 def test_serving_forms_keep_their_bodies(hd):
-    """The wgmma body is the contiguous form's alone: the paged-chunk,
-    batched and window forms' rules still name ``mma`` in bf16 (hd 64,
-    smollm-360m's serving heads, among them) and ``cuda_core`` in f32."""
-    assert prefill_body(torch.bfloat16, hd) == "mma"
-    assert ring_body(torch.bfloat16, hd) == "mma"
-    assert prefill_body(torch.float32, hd) == "cuda_core"
-    assert ring_body(torch.float32, hd) == "cuda_core"
+    """The serving forms' rules each name only bodies their kernels take:
+    the paged chunk (one-row and batched, ``chunk_body``) and the window
+    form (``ring_body``) take ``wgmma`` in bf16 at hd 64, 112 and 128 and
+    keep ``mma`` at the other head dims the tensor-core tiles take (16,
+    32, gemma3-12b's 256), ``cuda_core`` in f32; ``prefill_body``, the
+    base of every rule, never names ``wgmma``, so ``cross_body`` keeps
+    ``mma`` at hd 112, which the cross kernel has no body for."""
+    bf, f32 = torch.bfloat16, torch.float32
+    wg = hd in (64, 112, 128)
+    assert prefill_body(bf, hd) == "mma"
+    assert chunk_body(bf, hd) == ("wgmma" if wg else "mma")
+    assert ring_body(bf, hd) == ("wgmma" if wg else "mma")
+    assert cross_body(bf, hd) == ("wgmma" if hd in (64, 128) else "mma")
+    for rule in (prefill_body, ring_body, cross_body):
+        assert rule(f32, hd) == "cuda_core"
+    assert chunk_body(f32, hd) == "cuda_core"
+    assert CHUNK_WGMMA_HD == RING_WGMMA_HD == WGMMA_HD == (64, 112, 128)
+
+
+#: the served chunk shapes of the two chunk forms (C, H, KV, hd, capacity
+#: or w) and the split each takes: smollm-360m's prefill (G 3: 4 row
+#: tiles x 5 KV heads), zamba2-7b's hd-112 chunk (G 1), the hd-128 G-8
+#: chunk of llama-3.2-vision-90b / qwen2-72b / command-r-35b,
+#: seamless-m4t-medium's decoder self-attention (G 1 of 64), the verify
+#: rounds (C 5) of smollm-360m and qwen2-72b; mixtral-8x7b's window form
+SERVED_CHUNKS = [("chunk", 128, 15, 5, 64, 1024, 4),
+                 ("chunk", 128, 32, 32, 112, 2176, 3),
+                 ("chunk", 128, 64, 8, 128, 1152, 2),
+                 ("chunk", 128, 16, 16, 64, 1024, 4),
+                 ("chunk", 5, 15, 5, 64, 1024, 2),
+                 ("chunk", 5, 64, 8, 128, 1024, 2),
+                 ("ring", 128, 32, 8, 128, 4096, 3)]
+
+
+@pytest.mark.parametrize("form,c,h,kv,hd,span,want", SERVED_CHUNKS + [
+    ("chunk", 1, 15, 5, 64, 1024, None), ("chunk", 77, 6, 2, 112, 48, None),
+    ("chunk", 128, 64, 8, 128, 64, None), ("ring", 33, 4, 4, 64, 48, None),
+    ("ring", 160, 16, 8, 128, 128, None), ("ring", 5, 6, 2, 112, 32, None),
+    ("chunk", 128, 200, 1, 64, 1024, None)])
+def test_chunk_splits_cover_the_keys_and_fill_the_card(form, c, h, kv, hd,
+                                                       span, want):
+    """The chunk forms' wgmma split (``chunk_splits`` over the capacity,
+    ``ring_splits``' wgmma branch over a full ring plus a whole chunk): a
+    rule of shapes alone (no B, pos, bs or table among its arguments, so a
+    batched row gets a one-row call's split and bits), at most one
+    portable cluster, its clusters all on the card in one wave
+    (``WIDE_CLUSTERS``), and the most that leaves each CTA
+    CHUNK_MIN_TILES key tiles (a paged chunk of at most CHUNK_SHORT_C
+    queries, the verify round's, at most CHUNK_SHORT_SPLITS); the shares
+    a CTA cuts from the tiles it derives from pos cover them in order with
+    no gap or overlap at every count of tiles."""
+    import inspect
+    if form == "chunk":
+        assert list(inspect.signature(chunk_splits).parameters) == [
+            "c", "h", "kv", "hd", "capacity"]
+        splits = chunk_splits(c, h, kv, hd, span)
+        nt = -(-span // 64)
+    else:
+        assert list(inspect.signature(ring_splits).parameters) == [
+            "c", "h", "kv", "hd", "w", "body"]
+        splits = ring_splits(c, h, kv, hd, span, "wgmma")
+        nt = -(-span // 64) + -(-c // 64)
+    units = -(-c // max(1, WGMMA_ROWS // (h // kv))) * kv
+    cap = max(s for s in range(1, min(DECODE_MAX_SPLITS, nt) + 1)
+              if units <= WIDE_CLUSTERS[s] or s == 1)
+    most = min(cap, max(1, nt // CHUNK_MIN_TILES))
+    if form == "chunk" and c <= CHUNK_SHORT_C:   # B rows fill the card
+        most = min(most, CHUNK_SHORT_SPLITS)
+    assert splits == most
+    assert units <= WIDE_CLUSTERS[splits] or splits == 1
+    assert splits == 1 or nt // splits >= CHUNK_MIN_TILES
+    if want is not None:
+        assert splits == want
+    for n in range(1, nt + 1):
+        shares = [(r * n // splits, (r + 1) * n // splits)
+                  for r in range(splits)]
+        assert [t for t0, t1 in shares for t in range(t0, t1)] == list(
+            range(n))
+
+
+def _wgmma_cta_tiles(form, pos, c, g, q0, nq, cap, w):
+    """A CTA's key tiles in csrc/chunk_wgmma.cu (the kernel's arithmetic,
+    mirrored): (tiles nt, ring tiles nrt, chunk key offset koff, slots
+    read) for the CTA whose first query is q0."""
+    rows = min(nq, c - q0) * g
+    q_last = q0 + (rows - 1) // g
+    if form == "ring":
+        slots = min(pos, w)
+        nrt = -(-slots // 64) if q0 < w else 0
+        c_lo = max(0, q0 - w + 1) // 64
+        return nrt + q_last // 64 - c_lo + 1, nrt, (nrt - c_lo) * 64, slots
+    slots = min(pos + q_last, cap) + 1
+    nt = -(-slots // 64)
+    return nt, nt, 0, slots
+
+
+def _wgmma_decisions(form, pos, q0, g, rows, nrt, koff, slots, cap, w,
+                     wgi):
+    """Warpgroup wgi's seen(t), masked(k0) and hidden(key, qi) in
+    csrc/chunk_wgmma.cu, mirrored, and its live rows' queries."""
+    rlo = 64 * wgi
+    live = rlo < rows
+    wq_first = q0 + rlo // g
+    wq_last = q0 + min(rlo + 63, rows - 1) // g
+    queries = sorted({q0 + r // g for r in range(rlo, min(rlo + 64, rows))})
+    if form == "ring":
+        pos_mod, ring_keys = pos % w, nrt * 64
+
+        def seen(t):
+            if not live:
+                return False
+            if t < nrt:
+                return wq_first < w
+            i0 = t * 64 - koff
+            return i0 <= wq_last and i0 + 63 > wq_first - w
+
+        def masked(k0):
+            if k0 < ring_keys:
+                n = min(64, slots - k0)
+                d0 = (k0 - pos_mod) % w
+                return n < 64 or d0 + n - 1 >= w or d0 <= wq_last
+            i0 = k0 - koff
+            return i0 + 63 > wq_first or i0 <= wq_last - w
+
+        def hidden(key, qi):
+            if key < ring_keys:
+                return key >= slots or (key - pos_mod) % w <= qi
+            i = key - koff
+            return i > qi or i <= qi - w
+
+        def visible(key, qi):            # the plain version's mask
+            if key < ring_keys:
+                return key < slots and (key - pos) % w > qi
+            i = key - koff
+            return qi - w < i <= qi
+    else:
+        k_first, k_last = min(pos + wq_first, cap), min(pos + wq_last, cap)
+
+        def seen(t):
+            return live and t * 64 <= k_last
+
+        def masked(k0):
+            return k0 + 63 > k_first
+
+        def hidden(key, qi):
+            return key > min(pos + qi, cap)
+
+        def visible(key, qi):
+            return key <= min(pos + qi, cap)
+    return seen, masked, hidden, visible, queries
+
+
+@pytest.mark.parametrize("form,c,h,kv,span", [
+    ("chunk", 128, 15, 5, 1024), ("chunk", 128, 32, 32, 2176),
+    ("chunk", 128, 64, 8, 1152), ("chunk", 5, 64, 8, 1024),
+    ("chunk", 100, 15, 5, 512), ("chunk", 77, 6, 2, 48),
+    ("ring", 128, 32, 8, 4096), ("ring", 64, 6, 2, 32),
+    ("ring", 33, 4, 4, 48), ("ring", 160, 16, 8, 128),
+    ("ring", 200, 4, 4, 96), ("ring", 5, 6, 2, 32)])
+def test_chunk_wgmma_tiles_hand_every_key_to_one_cta(form, c, h, kv, span):
+    """The chunk forms' wgmma body, its tile arithmetic mirrored: at every
+    pos (0, inside the first lap, w - 1, w and far past it for the window
+    form; past the capacity's clamp for the paged chunk), each key a row
+    of a row tile sees lies in exactly one CTA's share of the cluster;
+    each consumer warpgroup's seen tiles are one run (``Consumer::run``
+    computes one run); a tile it skips holds no key any of its rows sees;
+    a tile it leaves unmasked holds only keys all its rows see; on a
+    masked tile the mask is the plain version's."""
+    g = h // kv
+    nq = WGMMA_ROWS // g
+    hd = 64
+    splits = (chunk_splits(c, h, kv, hd, span) if form == "chunk"
+              else ring_splits(c, h, kv, hd, span, "wgmma"))
+    cap, w = span - 1, span
+    poss = ((0, 1, span // 2, span - c, span - 1, span + 37)
+            if form == "chunk" else
+            (0, 5, span // 2, span - 1, span, span + 7, 3 * span + 100))
+    for pos in poss:
+        pos = max(0, pos)
+        for q0 in range(0, c, nq):
+            rows = min(nq, c - q0) * g
+            nt, nrt, koff, slots = _wgmma_cta_tiles(form, pos, c, g, q0, nq,
+                                                    cap, w)
+            shares = [range(r * nt // splits, (r + 1) * nt // splits)
+                      for r in range(splits)]
+            assert [t for sh in shares for t in sh] == list(range(nt))
+            for wgi in range(2):
+                seen, masked, hidden, visible, queries = _wgmma_decisions(
+                    form, pos, q0, g, rows, nrt, koff, slots, cap, w, wgi)
+                for sh in shares:
+                    flags = [seen(t) for t in sh]
+                    runs = sum(1 for i, f in enumerate(flags)
+                               if f and (i == 0 or not flags[i - 1]))
+                    assert runs <= 1
+                    for t in sh:
+                        keys = range(t * 64, t * 64 + 64)
+                        vis = [[visible(k, qi) for k in keys]
+                               for qi in queries]
+                        if not seen(t):
+                            assert not any(map(any, vis))
+                        elif not masked(t * 64):
+                            assert all(map(all, vis))
+                        else:
+                            assert vis == [[not hidden(k, qi) for k in keys]
+                                           for qi in queries]
+            # every key a row sees lies in a tile of [0, nt)
+            for qi in range(q0, q0 + rows // g):
+                if form == "ring":
+                    need = ([j for j in range(slots) if (j - pos) % w > qi]
+                            if nrt else [])
+                    assert all(j < nrt * 64 for j in need)
+                    assert all(0 <= i + koff < nt * 64
+                               for i in range(max(0, qi - w + 1), qi + 1))
+                else:
+                    assert min(pos + qi, cap) < nt * 64
+
+
+@pytest.mark.parametrize("dtype,hd,aligned,segments,want", [
+    ("bfloat16", 64, True, True, "wgmma"),    # smollm-360m, seamless
+    ("bfloat16", 112, True, True, "wgmma"),   # zamba2-7b
+    ("bfloat16", 128, True, True, "wgmma"),   # vision / qwen2 / command-r
+    ("bfloat16", 64, True, False, "mma"),     # blocks of 5 slots
+    ("bfloat16", 128, True, False, "mma"),
+    ("bfloat16", 64, False, True, "cuda_core"),
+    ("bfloat16", 256, True, True, "mma"),     # gemma3-12b
+    ("bfloat16", 96, True, True, "mma"),      # off the wgmma bodies
+    ("bfloat16", 32, True, True, "mma"),
+    ("bfloat16", 72, True, True, "cuda_core"),
+    ("float32", 64, True, True, "cuda_core"),
+    ("float32", 112, True, True, "cuda_core"),
+    ("float32", 256, True, True, "cuda_core"),
+])
+def test_chunk_body_rule(dtype, hd, aligned, segments, want):
+    """The paged chunk's body by ``chunk_body`` (the one-row prefill's
+    and the batched form's, so a batched row keeps a one-row call's
+    bits): ``wgmma`` in bf16 at hd 64, 112 and 128 on aligned tensors
+    whose blocks cut into 8-slot TMA segments, at every chunk length
+    (the verify round's C 5 too), else ``prefill_body``'s choice."""
+    import inspect
+    assert list(inspect.signature(chunk_body).parameters) == [
+        "dtype", "hd", "aligned", "segments"]
+    dt = getattr(torch, dtype)
+    assert chunk_body(dt, hd, aligned, segments) == want
+    if want != "wgmma":
+        assert want == prefill_body(dt, hd, aligned)
 
 
 # (B, H, KV, S, hd, causal, window): smollm-360m's heads, causal and

@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
-    python3 tools/torch_split_sweep.py [--cross]
+    python3 tools/torch_split_sweep.py [--cross | --chunk]
 
 For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
 projection shapes (8 decode rows and a 128-row prefill chunk), for the
@@ -26,6 +26,19 @@ take, at seamless-m4t-medium's (16 / 16 heads of 64 over 1024 frames)
 and llama-3.2-vision-90b's (64 / 8 heads of 128 over 1601 patches)
 shapes, B 1 and 8, over blocks of 16 and over dense rows through
 identity tables, beside the count ``cross_splits`` picks.
+With ``--chunk`` it times only serving's chunk forms on their ``wgmma``
+body (``csrc/chunk_wgmma.cu``): the one-row paged chunk (C 128, blocks
+of 16) at smollm-360m's (15 / 5 heads of 64, 1024 slots),
+zamba2-7b's (32 / 32 of 112, 2176), the hd-128 G-8 chunk (64 / 8 of
+128, 1152) and seamless-m4t-medium's decoder (16 / 16 of 64, 1024)
+shapes at each pos, every split count beside the count ``chunk_splits``
+picks and the ``mma`` body; the same shapes' shorter chunks (C 1 to 64
+at pos 512) and the verify round (B 8, C 5, smollm-360m's and
+qwen2-72b's heads, pos 32-600 on the device) at every split count and
+on both bodies in turns (``wgmma``, ``mma``, ``mma``, ``wgmma``); and
+the window form at mixtral-8x7b's shape (C 128, 32 / 8 heads of 128,
+w 4096) at pos 0, 2048 and 4300, every split count beside
+``ring_splits``' and ``mma``.
 Without a CUDA device it exits with code 2.
 """
 from __future__ import annotations
@@ -82,6 +95,123 @@ def cross_rows(dev, rng) -> None:
                 print(json.dumps(row), flush=True)
 
 
+def _turns(fns: dict) -> dict:
+    """Device ms of each callable, taken in turns forward and back; the
+    mean of its two."""
+    from chip_smoke import device_ms
+    names = list(fns)
+    got = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            got[k].append(device_ms(fns[k]))
+    return {k: sum(v) / 2 for k, v in got.items()}
+
+
+def _split_ms(module, rule_name: str, fn, counts) -> dict:
+    """Device ms of ``fn`` with ``module.<rule_name>`` forced to each
+    split count in turn (the rule restored after)."""
+    from chip_smoke import device_ms
+    rule = getattr(module, rule_name)
+    out = {}
+    try:
+        for sp in counts:
+            setattr(module, rule_name, lambda *a, sp=sp: sp)
+            out[sp] = device_ms(fn)
+    finally:
+        setattr(module, rule_name, rule)
+    return out
+
+
+def chunk_rows(dev, rng) -> None:
+    """The chunk forms' wgmma body at every split count (see the module
+    docstring)."""
+    import torch
+    from chip_smoke import MIXTRAL, VERIFY_HEADS, VERIFY_POS
+    from repro_torch.kernels import flash_attention as fa
+    bf, bs = torch.bfloat16, 16
+
+    def pools(n_blocks, kv, hd):
+        kp = torch.randn(n_blocks + 1, bs, kv, hd, device=dev, dtype=bf)
+        return kp, torch.randn_like(kp)
+
+    for model, (h, kv, hd, cap, poss) in {
+            "smollm-360m": (15, 5, 64, 1024, (0, 256, 896)),
+            "zamba2-7b": (32, 32, 112, 2176, (0, 1024, 2048)),
+            "hd-128 G-8": (64, 8, 128, 1152, (0, 1024)),
+            "seamless-m4t-medium": (16, 16, 64, 1024, (0, 512))}.items():
+        nb = cap // bs
+        kp, vp = pools(nb, kv, hd)
+        table = torch.from_numpy((rng.permutation(nb) + 1).astype(
+            np.int32)).to(dev)
+        q = torch.randn(128, h, hd, device=dev, dtype=bf)
+        for p0 in poss:
+            def one(body=None, p0=p0):
+                return fa.paged_prefill_attention(q, kp, vp, table, p0,
+                                                  _body=body)
+            print(json.dumps({
+                "kernel": "paged_prefill_attention", "model": model,
+                "C": 128, "H": h, "KV": kv, "hd": hd, "pos": p0,
+                "rule": fa.chunk_splits(128, h, kv, hd, cap),
+                "ms": _split_ms(fa, "chunk_splits", lambda: one("wgmma"),
+                                range(1, 9)),
+                **_turns({"wgmma": lambda: one("wgmma"),
+                          "mma": lambda: one("mma")})}), flush=True)
+        for c in (1, 2, 5, 8, 16, 32, 64):
+            qc = q[:c].contiguous()
+
+            def short(body, qc=qc):
+                return fa.paged_prefill_attention(qc, kp, vp, table, 512,
+                                                  _body=body)
+            print(json.dumps({
+                "kernel": "paged_prefill_attention", "model": model, "C": c,
+                "hd": hd, "pos": 512,
+                "rule": fa.chunk_splits(c, h, kv, hd, cap),
+                "ms": _split_ms(fa, "chunk_splits",
+                                lambda: short("wgmma"), (1, 2, 4)),
+                **_turns({"wgmma": lambda: short("wgmma"),
+                          "mma": lambda: short("mma")})}), flush=True)
+    b, c, s = 8, 5, 1024
+    pos = torch.tensor(VERIFY_POS, dtype=torch.int32, device=dev)
+    for model, (h, kv, hd) in VERIFY_HEADS.items():
+        nb = s // bs
+        kp, vp = pools(b * nb, kv, hd)
+        tables = torch.from_numpy((rng.permutation(b * nb).reshape(
+            b, nb) + 1).astype(np.int32)).to(dev)
+        q = torch.randn(b, c, h, hd, device=dev, dtype=bf)
+
+        def batched(body=None):
+            return fa.paged_chunk_attention(q, kp, vp, tables, pos,
+                                            _body=body)
+        print(json.dumps({
+            "kernel": "paged_chunk_attention", "model": model, "B": b,
+            "C": c, "H": h, "KV": kv, "hd": hd,
+            "rule": fa.chunk_splits(c, h, kv, hd, s),
+            "ms": _split_ms(fa, "chunk_splits", lambda: batched("wgmma"),
+                            range(1, 9)),
+            **_turns({"wgmma": lambda: batched("wgmma"),
+                      "mma": lambda: batched("mma")})}), flush=True)
+    h, kv, hd, w, c = (MIXTRAL[k] for k in ("H", "KV", "hd", "w", "C"))
+    nb = w // bs
+    kp, vp = pools(nb, kv, hd)
+    table = torch.from_numpy((rng.permutation(nb) + 1).astype(
+        np.int32)).to(dev)
+    q = torch.randn(c, h, hd, device=dev, dtype=bf)
+    kn = torch.randn(c, kv, hd, device=dev, dtype=bf)
+    vn = torch.randn_like(kn)
+    for p0 in (0, 2048, 4300):
+        def ring(body=None, p0=p0):
+            return fa.ring_chunk_attention(q, kp, vp, table, kn, vn, p0, w,
+                                           _body=body)
+        print(json.dumps({
+            "kernel": "ring_chunk_attention", "model": "mixtral-8x7b",
+            "C": c, "H": h, "KV": kv, "hd": hd, "w": w, "pos": p0,
+            "rule": fa.ring_splits(c, h, kv, hd, w, "wgmma"),
+            "ms": _split_ms(fa, "ring_splits", lambda: ring("wgmma"),
+                            range(1, 9)),
+            **_turns({"wgmma": lambda: ring("wgmma"),
+                      "mma": lambda: ring("mma")})}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -108,6 +238,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if sys.argv[1:] == ["--cross"]:
         cross_rows(dev, rng)
+        return 0
+    if sys.argv[1:] == ["--chunk"]:
+        chunk_rows(dev, rng)
         return 0
     qmm_rule = qm.quant_splits
     for m, k, n in QMM_SHAPES:
@@ -209,7 +342,8 @@ def main() -> int:
     ring_rule = fa.ring_splits
     for p0 in (0, 512, 3000):
         row = {"kernel": "ring_chunk_attention", "C": c, "hd": hd, "w": w,
-               "pos": p0, "rule": ring_rule(c, h, kv, hd, w), "ms": {}}
+               "pos": p0, "rule": ring_rule(c, h, kv, hd, w, "mma"),
+               "ms": {}}
         for sp in range(1, 9):
             fa.ring_splits = lambda *a, sp=sp: sp
             row["ms"][sp] = median_ms(lambda: fa.ring_chunk_attention(
