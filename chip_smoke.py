@@ -23,8 +23,8 @@ one JSON line:
    calculator on each kernel) against ``WGMMA_CTAS_PER_SM``, their
    shared memory and key tiles against the Python mirrors: a mismatch
    fails by name before any kernel phase.  The build line also prints
-   ptxas's report of the eight ``wgmma`` entries (registers at launch,
-   spills) and fails if one spills; then ``planning`` (host only, numpy): the paper's simulation
+   ptxas's report of the twenty-three ``wgmma`` entries (``WGMMA_ENTRIES``:
+   registers at launch, spills) and fails if one is missing or spills; then ``planning`` (host only, numpy): the paper's simulation
    study, the four strategies (Algorithm 1's ``proposal``, ``prop_avg``,
    ``lbrr``, ``ga``) on ``baseline`` over seeds 0-2 at the default
    horizon of 100 slots, a line of on-time share, completed share, total
@@ -42,11 +42,20 @@ one JSON line:
    (torch.profiler; no single PyTorch call computes the scan's
    recurrence, so it has none), the kernel's time per back-to-back call
    (CUDA events, launch cost included), and the least time the card
-   could take.  For the five kernels with a tensor-core body (paged
-   prefill, int8 and int4 quant matmul, paged and dense decode) the
+   could take.  For the three kernels with a tensor-core body besides
+   their CUDA-core one (paged prefill, paged and dense decode) the
    bf16 cases also time the previous CUDA-core body on the same inputs,
    in turns with the new one (new, old, old, new), as ``prev_ms``, and
-   gate its output too; so do the selective scan's cases for its
+   gate its output too; the int8 and int4 quant matmul (``qmm_case``)
+   time their rule's body against the other tensor-core body so
+   (``wgmma`` against ``mma``; ``mma`` against ``wgmma`` for int8 at
+   smollm-360m's sites), each also bit-equal over repeated launches, and beside ``torch.matmul`` on
+   the dense weight the weight-only call (``torch._weight_int8pack_mm``,
+   ``torch._weight_int4pack_mm``; gated against the plain version within
+   ``QMM_LIB_TOL`` first, or its refusal in ``library_note``), and at
+   smollm-360m's shapes the kernel, the other body and ``torch.matmul`` with
+   their weights cold in L2 (``cold_ms``: a distinct copy a launch over
+   100 MB); so do the selective scan's cases for its
    previous body (``cuda_core``, against ``state_lanes``), whose
    ``h_T`` must also equal the new body's bit for bit, and which print
    the scan's instruction-issue bound beside the bytes bound.  rmsnorm
@@ -140,7 +149,8 @@ one JSON line:
    bf16 too: the batched chunk form at qwen2-72b's verify round (B 8,
    C 5, 64 / 8 heads of 128, pos 32-600) and the int8 / int4 quant
    matmul at qwen2-72b's MLP at decode (8 x 8192 -> 29568 and 8 x 29568
-   -> 8192, weights drawn on the card).  Training's scan kernels in
+   -> 8192) and at a prefill chunk (128 rows), weights drawn on the
+   card.  Training's scan kernels in
    float32: falcon-mamba-7b's serving launches (8 x 1 and 1 x 128 over
    8192 channels) with the checkpoint pointer give the bits of the
    launches without it; at the train runs' shapes (B 2, T 2048:
@@ -213,8 +223,11 @@ one JSON line:
    have been launched the number of times each run's shapes imply (the
    counts are reset before and read after each run), every launch
    of the six two-body kernels must have taken its tensor-core body
-   (all serve runs are bf16), and rmsnorm's launches must split between
-   its ``add_norm`` and ``norm`` bodies as the run implies; each
+   (all serve runs are bf16), the quant matmul's must split between
+   ``wgmma`` and ``mma`` as its rule names them at the rows of each
+   forward (``quant_bodies``: smollm-360m's int4 attention projections
+   take ``mma`` at a 128-row chunk), and rmsnorm's launches must split
+   between its ``add_norm`` and ``norm`` bodies as the run implies; each
    quantized or
    slot run prints the share of its tokens equal to the bf16 paged
    run's on the same requests (not gated: random 32-layer weights);
@@ -423,6 +436,7 @@ code 2 before printing anything.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -465,9 +479,12 @@ REPLACES = {
     "dense_decode_attention_partial": "src/repro/kernels/decode_attention.py:76",
 }
 #: the file of a body that lives apart from its kernel's entry points
-BODY_SOURCES = {(k, "wgmma"): "src/repro_torch/csrc/chunk_wgmma.cu"
-                for k in ("paged_prefill_attention", "paged_chunk_attention",
-                          "ring_chunk_attention")}
+BODY_SOURCES = {**{(k, "wgmma"): "src/repro_torch/csrc/chunk_wgmma.cu"
+                   for k in ("paged_prefill_attention",
+                             "paged_chunk_attention",
+                             "ring_chunk_attention")},
+                **{(k, "wgmma"): "src/repro_torch/csrc/quant_wgmma.cu"
+                   for k in ("quant_matmul_int8", "quant_matmul_int4")}}
 SOURCES = {
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
     "paged_decode_attention": "src/repro_torch/csrc/paged_decode_attention.cu",
@@ -505,6 +522,20 @@ MAIN_DTYPE = {"selective_scan": "float32",
 #: kernels as ``ATTN_BODY`` names them for the run's config)
 MAIN_BODY = {"selective_scan": ("state_lanes",),
              "rmsnorm": ("add_norm", "norm")}   # the others: ("mma",)
+#: the bodies the bf16 quant launches of the configs served packed in
+#: bf16 take, over their projection sites at a decode row and a full
+#: chunk (``main_bodies`` checks that the rules agree; ``quant_bodies``
+#: counts a run's launches by body): smollm-360m's int8 sites keep mma
+#: (their weights are below ``WGMMA_INT8_MIN_BYTES``), and so do its
+#: int4 attention projections at a 128-row chunk (below
+#: ``WGMMA_INT4_CHUNK_MIN``); every other on wgmma
+QUANT_BODY = {"smollm-360m": {"quant_matmul_int8": ("mma",),
+                              "quant_matmul_int4": ("mma", "wgmma")},
+              "qwen2-72b": {"quant_matmul_int8": ("wgmma",),
+                            "quant_matmul_int4": ("wgmma",)}}
+#: rows of x the quant rules are read at by ``main_bodies``: a decode
+#: row and a full prefill chunk (the serve runs' chunks are 128 rows)
+QUANT_ROWS = (1, 128)
 #: the rule that names each two-body attention kernel's body
 ATTN_RULE = {"paged_prefill_attention": "chunk_body",
              "paged_chunk_attention": "chunk_body",
@@ -690,11 +721,6 @@ def kernel_cases(dev) -> list:
     from repro_torch.kernels.decode_attention import (
         dense_decode_attention, dense_decode_attention_plain,
         paged_decode_attention, paged_decode_attention_plain, paged_gather)
-    from repro_torch.kernels.quant_matmul import (
-        quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
-        quant_matmul_int8_plain)
-    from repro_torch.models.quantize import (dequantize, quantize_int4,
-                                             quantize_int8)
     from repro_torch.kernels.flash_attention import (
         chunk_body, chunk_splits, paged_prefill_attention,
         paged_prefill_attention_plain)
@@ -876,28 +902,13 @@ def kernel_cases(dev) -> list:
         es = torch.finfo(dtype).bits // 8
 
         # quant matmul at a decode site (8 rows, w_gate / w_up) and a
-        # prefill one (a chunk of 128 rows, w_down); the library call is
-        # the dense matmul the unquantized model runs there
+        # prefill one (a chunk of 128 rows, w_down): qmm_case
         for m, k, n in ((8, 960, 2560), (128, 2560, 960)):
             w = t(rng.standard_normal((k, n)) * k ** -0.5, torch.float32)
             x = t(rng.standard_normal((m, k)), dtype)
             for fmt in ("int8", "int4"):
-                packed = (quantize_int8 if fmt == "int8"
-                          else quantize_int4)(w)
-                q, s = packed["q"], packed["s"]
-                w_dense = dequantize(packed).to(dtype)
-                kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
-                                 if fmt == "int8" else
-                                 (quant_matmul_int4, quant_matmul_int4_plain))
-                cases.append(_case(
-                    f"quant_matmul_{fmt}", dname, [m, k, n],
-                    kernel(x, q, s), plain(x, q, s),
-                    lambda: kernel(x, q, s), lambda: plain(x, q, s),
-                    lambda: torch.matmul(x, w_dense),
-                    m * k * es + q.numel() + 4 * s.numel() + m * n * es,
-                    2 * m * k * n, tol=QMM_TOL,
-                    prev=(lambda: kernel(x, q, s, _body="cuda_core"))
-                    if dname == "bfloat16" else None))
+                cases.append(qmm_case(fmt, x, w, {"model": "smollm-360m"},
+                                      cold=dname == "bfloat16"))
 
         # dense decode: the slot engine's 8 rows of S = 1024 slots,
         # positions up to ~600, one row frozen at pos 5 (budget run out)
@@ -936,45 +947,198 @@ def kernel_cases(dev) -> list:
 
 
 #: qwen2-72b's MLP at decode: 8 rows through w_gate / w_up (8192 ->
-#: 29568) and w_down (29568 -> 8192)
-TARGET_QMM = ((8, 8192, 29568), (8, 29568, 8192))
+#: 29568) and w_down (29568 -> 8192); then at a prefill chunk of 128 rows
+TARGET_QMM = ((8, 8192, 29568), (8, 29568, 8192), (128, 8192, 29568),
+              (128, 29568, 8192))
+#: the weight-only library calls' gate against the plain version: their
+#: scales are bf16, which moves each scale by up to 2^-9 of itself, an
+#: output of a few units by up to about 1e-2; a wrong layout moves it by
+#: its own size
+QMM_LIB_TOL = 5e-2
+#: bytes of distinct weight copies a cold-L2 timing streams through, one
+#: copy a launch: twice the H100's 50 MB L2
+COLD_BYTES = 100e6
+
+
+def weight_only_call(fmt, x, q, s):
+    """One PyTorch call that computes the weight-only product itself, on
+    the card, timed beside the kernel and never called by the port:
+    ``torch._weight_int8pack_mm(x, q^T, s)`` (scales in x's dtype) for
+    int8; ``torch._weight_int4pack_mm`` on
+    ``torch._convert_weight_to_int4pack``'s packing of the nibbles for
+    int4 (the group of s, zero point 0, scales in bf16).  Returns (fn,
+    its output, the call's name), or (None, the reason, the name) where
+    this card's torch refuses it."""
+    import torch
+    from repro_torch.kernels.quant_matmul import unpack_int4
+    k, n = x.shape[-1], q.shape[-1]
+    try:
+        if fmt == "int8":
+            name = "torch._weight_int8pack_mm"
+            qt = q.t().contiguous()                       # (N, K) int8
+            sc = s.reshape(n).to(x.dtype).contiguous()
+
+            def fn():
+                return torch._weight_int8pack_mm(x, qt, sc)
+        else:
+            name = "torch._weight_int4pack_mm"
+            group = k // s.shape[0]
+            nib = (unpack_int4(q).to(torch.int32) + 8).t().contiguous()
+            packed = ((nib[:, ::2] << 4) | nib[:, 1::2]).to(torch.uint8)
+            del nib
+            tiles = next(t for t in (8, 4, 2) if k % (16 * t) == 0)
+            w4 = torch._convert_weight_to_int4pack(packed, tiles)
+            del packed
+            sz = torch.stack([s, torch.zeros_like(s)], dim=-1).to(
+                x.dtype).contiguous()                     # (K/G, N, 2)
+
+            def fn():
+                return torch._weight_int4pack_mm(x, w4, group, sz)
+        out = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, AttributeError, NotImplementedError,
+            StopIteration) as e:
+        return None, (f"{type(e).__name__}: {str(e)[:300]}"), (
+            "torch._weight_int8pack_mm" if fmt == "int8"
+            else "torch._weight_int4pack_mm")
+    return fn, out, name
+
+
+def cold_ms(launch, copies) -> dict:
+    """Time per launch with the weights cold in L2: ``launch(c)`` on each
+    of ``copies`` in turn (distinct weights, together past the 50 MB
+    L2), so no launch finds its weights warm: the device time summed over
+    the launches' kernels (torch.profiler, as ``device_ms``) and the CUDA
+    events' time over the back-to-back launches (host launch cost
+    included where it is the longer)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for c in copies:
+        launch(c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in copies:
+            launch(c)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for c in copies:
+        launch(c)
+    end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": us / 1e3 / len(copies),
+            "event_ms": start.elapsed_time(end) / len(copies),
+            "copies": len(copies)}
+
+
+def qmm_case(fmt, x, w, extra, cold=False) -> dict:
+    """The int8 / int4 quant matmul of x (M, K) on w (K, N), packed here:
+    the rule's body against the plain version, and in bf16 against the
+    other tensor-core body (``mma`` where the rule names ``wgmma``, else
+    ``wgmma``) on the same inputs, in turns (``prev``), bit-equal over
+    repeated launches; the library calls ``torch.matmul`` on the dense
+    weight (``library_ms``) and, in bf16, the weight-only call
+    (``weight_only_call``: gated against the plain version within
+    ``QMM_LIB_TOL`` before it is timed, or its refusal in
+    ``library_note``); both halves of the bound; with ``cold``, the
+    kernel's, the other body's and ``torch.matmul``'s times with their
+    weights cold in L2 (``cold_ms``)."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.quantize import (dequantize, quantize_int4,
+                                             quantize_int8)
+    m, k = x.shape
+    n = w.shape[1]
+    dname = str(x.dtype).split(".")[-1]
+    es = x.element_size()
+    packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
+    q, s = packed["q"], packed["s"]
+    w_dense = dequantize(packed).to(x.dtype)
+    kernel, plain = ((qm.quant_matmul_int8, qm.quant_matmul_int8_plain)
+                     if fmt == "int8" else
+                     (qm.quant_matmul_int4, qm.quant_matmul_int4_plain))
+    name = f"quant_matmul_{fmt}"
+    group = k // s.shape[0]
+    body = (qm.int8_body(x.dtype, k, n) if fmt == "int8"
+            else qm.int4_body(x.dtype, m, k, n, group))
+    out = _on_body(name, body, lambda: kernel(x, q, s))
+    ref = plain(x, q, s)
+    bits = all(torch.equal(kernel(x, q, s), out) for _ in range(3))
+    nbytes = m * k * es + q.numel() + 4 * s.numel() + m * n * es
+    flops = 2 * m * k * n
+    more = {"body": body, "bits_equal_over_launches": bits, **extra,
+            **_bounds(nbytes, flops, dname)}
+    bf16 = dname == "bfloat16"
+    note = None
+    prev_body = _turn_body(body)
+
+    def split_of(b):
+        return (qm.wgmma_splits(fmt, m, k, n) if b == "wgmma"
+                else qm.quant_splits(m, k, n))
+    if bf16:
+        more.update(prev_body=prev_body, splits=split_of(body),
+                    prev_splits=split_of(prev_body))
+        fn, lib_out, lib_name = weight_only_call(fmt, x, q, s)
+        more["library_weight_only"] = lib_name
+        if fn is None:
+            note = f"{lib_name} refused on this card: {lib_out}"
+        else:
+            lib_err = (lib_out.float() - ref.float()).abs().max().item()
+            more.update(library_weight_only_max_abs_err=lib_err,
+                        library_weight_only_tol=QMM_LIB_TOL)
+            if lib_err <= QMM_LIB_TOL:
+                more["library_weight_only_ms"] = device_ms(fn)
+            else:
+                note = (f"{lib_name} disagrees with the plain version by "
+                        f"{lib_err} (> {QMM_LIB_TOL}): not timed")
+            del fn, lib_out
+    if cold:
+        ncopy = int(-(-COLD_BYTES // (q.numel() + 4 * s.numel())))
+        qs = [(q.clone(), s.clone()) for _ in range(ncopy)]
+        ws = [w_dense.clone() for _ in range(
+            int(-(-COLD_BYTES // (w_dense.numel() * es))))]
+        more["cold"] = {
+            "kernel": cold_ms(lambda c: kernel(x, *c), qs),
+            prev_body: cold_ms(lambda c: kernel(x, *c, _body=prev_body), qs),
+            "torch_matmul": cold_ms(lambda c: torch.matmul(x, c), ws)}
+        more["cold_ms"] = more["cold"]["kernel"]["device_ms"]
+        del qs, ws
+    case = _case(name, dname, [m, k, n], out, ref,
+                 lambda: kernel(x, q, s), lambda: plain(x, q, s),
+                 lambda: torch.matmul(x, w_dense), nbytes, flops,
+                 tol=QMM_TOL, library_note=note,
+                 prev=((lambda: kernel(x, q, s, _body=prev_body)) if bf16
+                       else None),
+                 extra=more)
+    if not bits:
+        raise AssertionError(f"{name} {[m, k, n]} on {body}: repeated "
+                             f"launches differ")
+    return case
 
 
 def target_cases(dev) -> list:
     """The speculation targets' new shapes for ported kernels, in bf16:
     the batched paged-chunk form at qwen2-72b's verify round (64 / 8
-    heads of 128, G 8; ``chunk_case``) and the int8 / int4 quant matmul at
-    qwen2-72b's MLP widths (``TARGET_QMM``), each against its plain
-    version (the chunk form also against its previous ``cuda_core`` body,
-    in turns), the library call (SDPA; ``torch.matmul`` on the dense bf16
-    weight) and its bound.  The weights are drawn on the card (a CPU draw
-    of 242 M values takes seconds)."""
+    heads of 128, G 8; ``chunk_case``: its ``wgmma`` body against the
+    previous ``mma`` in turns) and the int8 / int4 quant matmul at
+    qwen2-72b's MLP widths, decode and a prefill chunk (``TARGET_QMM``;
+    ``qmm_case``: the rule's body against the ``mma`` body in turns),
+    each against its plain version, the library calls (SDPA;
+    ``torch.matmul`` on the dense bf16 weight and the weight-only call)
+    and its bound.  The weights are drawn on the card (a CPU draw of
+    242 M values takes seconds)."""
     import torch
-    from repro_torch.kernels.quant_matmul import (
-        quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
-        quant_matmul_int8_plain)
-    from repro_torch.models.quantize import (dequantize, quantize_int4,
-                                             quantize_int8)
     cases = [chunk_case(dev, "bfloat16", "qwen2-72b")]
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     for m, k, n in TARGET_QMM:
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         for fmt in ("int8", "int4"):
-            packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
-            q, s = packed["q"], packed["s"]
-            w_dense = dequantize(packed).to(torch.bfloat16)
-            kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
-                             if fmt == "int8" else
-                             (quant_matmul_int4, quant_matmul_int4_plain))
-            cases.append(_case(
-                f"quant_matmul_{fmt}", "bfloat16", [m, k, n],
-                kernel(x, q, s), plain(x, q, s),
-                lambda: kernel(x, q, s), lambda: plain(x, q, s),
-                lambda: torch.matmul(x, w_dense),
-                m * k * 2 + q.numel() + 4 * s.numel() + m * n * 2,
-                2 * m * k * n, tol=QMM_TOL, extra={"config": "qwen2-72b"}))
-            del packed, q, s, w_dense
+            cases.append(qmm_case(fmt, x, w, {"config": "qwen2-72b"}))
+            torch.cuda.empty_cache()
         del w
     torch.cuda.empty_cache()
     return cases
@@ -2048,8 +2212,9 @@ def _on_body(kernel: str, body: str, fn):
 
 
 def _turn_body(body: str) -> str:
-    """The body a chunk form's case times in turns against the rule's: the
-    previous ``mma`` where the rule names ``wgmma``, else ``wgmma``."""
+    """The body a two-tensor-core-body case (a chunk form's, a quant
+    matmul's) times in turns against the rule's: the previous ``mma``
+    where the rule names ``wgmma``, else ``wgmma``."""
     return "mma" if body == "wgmma" else "wgmma"
 
 
@@ -3068,12 +3233,20 @@ def _timed(base):
         prefill_s = decode_s = round_s = 0.0
         macro_steps = decode_iters = prefill_calls = verify_rounds = 0
 
+        def __init__(self, *args, **kw):
+            #: rows of x a forward (a chunk's tokens, a decode
+            #: iteration's rows, a verify round's rows x its chunk) ->
+            #: forwards: what the quant rules read
+            self.forward_rows = collections.Counter()
+            super().__init__(*args, **kw)
+
         def _prefill_row(self, row, toks, pos0):
             t0 = time.perf_counter()
             super()._prefill_row(row, toks, pos0)
             torch.cuda.synchronize()
             self.prefill_s += time.perf_counter() - t0
             self.prefill_calls += 1
+            self.forward_rows[len(toks)] += 1
 
         def _forward_steps(self, tokens, pos, budgets, k):
             t0 = time.perf_counter()
@@ -3081,6 +3254,7 @@ def _timed(base):
             self.decode_s += time.perf_counter() - t0
             self.macro_steps += 1
             self.decode_iters += k
+            self.forward_rows[len(tokens)] += k
             return out
 
         def _forward_verify(self, tokens, pos, budgets):
@@ -3088,6 +3262,7 @@ def _timed(base):
             out = super()._forward_verify(tokens, pos, budgets)
             self.decode_s += time.perf_counter() - t0
             self.verify_rounds += 1
+            self.forward_rows[int(np.size(tokens))] += 1
             return out
 
         def _spec_tail(self, *args):
@@ -3118,7 +3293,7 @@ def projection_bytes(params) -> int:
 
 def expected_launches(cfg, slot: bool, qformat, iters: int,
                       chunks: int, names, rounds: int = 0,
-                      prefills: int = 0) -> tuple:
+                      prefills: int = 0, rows=None) -> tuple:
     """Kernel launches a run of ``iters`` decode iterations, ``chunks``
     prefill chunks, ``rounds`` verify rounds and ``prefills`` calls of
     ``Model.prefill`` implies: per attn or swa layer two rmsnorms (one
@@ -3146,8 +3321,11 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     block's.  The mixture of experts launches no kernel of the port
     (routing, dispatch, the expert products and the combine are torch
     ops, as the reference computes them outside any Pallas kernel); its
-    norm is the MLP's.  Returns (launches by kernel, rmsnorm's launches
-    by body)."""
+    norm is the MLP's.  ``rows`` (rows of x a forward -> forwards, the
+    run's decode iterations, chunks and verify rounds) gives a packed
+    run's quant launches by body too (``quant_bodies``).  Returns
+    (launches by kernel, launches by body of rmsnorm and, with ``rows``,
+    of the quant kernel)."""
     n_swa = cfg.block_pattern.count("swa")
     n_ring = n_swa if cfg.window else 0
     n_attn = cfg.block_pattern.count("attn") + n_swa
@@ -3177,25 +3355,88 @@ def expected_launches(cfg, slot: bool, qformat, iters: int,
     expect["dense_decode_attention" if slot
            else "paged_decode_attention"] = (n_attn + n_xread) * iters
     expect["selective_scan"] = n_mamba * (iters + chunks + prefills)
+    by_body = {"rmsnorm": norm_bodies}
     if qformat:
         expect[f"quant_matmul_{qformat}"] = (
             (4 * n_attn + 2 * n_xread + 3 * n_packed_mlp) * (heads + chunks)
             + (2 * n_xread + 7 * n_enc) * prefills)
-    return expect, {"rmsnorm": norm_bodies}
+        if rows is not None:
+            if sum(rows.values()) != heads + chunks or prefills:
+                raise AssertionError(f"{cfg.name}: forwards by rows {rows} "
+                                     f"against {heads} heads, {chunks} "
+                                     f"chunks and {prefills} prefills")
+            d, q_w, kv_w = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                            cfg.n_kv_heads * cfg.head_dim)
+            # a forward's launches at each (K, N): wq and wo an attn
+            # layer and a cross read, wk and wv an attn layer, the MLP's
+            sites = [((d, q_w), n_attn + n_xread), ((d, kv_w), 2 * n_attn),
+                     ((q_w, d), n_attn + n_xread),
+                     ((d, cfg.d_ff), 2 * n_packed_mlp),
+                     ((cfg.d_ff, d), n_packed_mlp)]
+            by_body[f"quant_matmul_{qformat}"] = quant_bodies(
+                cfg, qformat, sites, rows)
+    return expect, by_body
+
+
+def quant_bodies(cfg, qformat, sites, rows) -> dict:
+    """Launches of ``cfg``'s quant kernel by body over forwards of
+    ``rows`` (rows of x -> forwards), each of ``sites`` ((K, N),
+    launches a forward) on the body its rule names at those rows (int4
+    at the packer's group)."""
+    from repro_torch.device import torch_dtype
+    from repro_torch.kernels.quant_matmul import int4_body, int8_body
+    from repro_torch.models.quantize import int4_group
+    dtype = torch_dtype(cfg.dtype)
+    out = {"cuda_core": 0, "mma": 0, "wgmma": 0}
+    for (k, n), per in sites:
+        for m, forwards in (rows.items() if per else ()):
+            body = (int8_body(dtype, k, n) if qformat == "int8"
+                    else int4_body(dtype, m, k, n, int4_group(k)))
+            out[body] += per * forwards
+    return out
+
+
+def quant_sites(cfg) -> list:
+    """The (K, N) of ``cfg``'s packed projections (``QUANT_KEYS``): wq,
+    wk / wv, wo and, with a dense MLP, w_gate / w_up and w_down (a cross
+    read's q and o are wq's and wo's)."""
+    d, q_w, kv_w = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                    cfg.n_kv_heads * cfg.head_dim)
+    sites = [(d, q_w), (d, kv_w), (q_w, d)]
+    if cfg.mlp_kind == "dense":
+        sites += [(d, cfg.d_ff), (cfg.d_ff, d)]
+    return sites
 
 
 def main_bodies(cfg) -> dict:
     """``MAIN_BODY`` with each of ``cfg``'s attention kernels on the body
     ``ATTN_BODY`` fixes for it (the cross form only for a config with
-    cross reads); raises if a wrapper's rule would send the config's
-    launches elsewhere."""
+    cross reads) and its quant matmuls on the bodies the rules name at
+    its projection sites (``quant_sites``; int4 at the packer's group,
+    at ``QUANT_ROWS``); raises if a wrapper's rule would send the
+    config's launches elsewhere, the quant matmuls' than ``QUANT_BODY``
+    fixes for the configs served packed in bf16."""
     from repro_torch.device import torch_dtype
     from repro_torch.kernels.decode_attention import decode_body
     from repro_torch.kernels.flash_attention import (chunk_body, cross_body,
                                                      ring_body)
+    from repro_torch.kernels.quant_matmul import int4_body, int8_body
+    from repro_torch.models.quantize import int4_group
     if not cfg.n_kv_heads:
         return MAIN_BODY
     dtype = torch_dtype(cfg.dtype)
+    named_q = {"quant_matmul_int8": {int8_body(dtype, k, n)
+                                     for k, n in quant_sites(cfg)},
+               "quant_matmul_int4": {int4_body(dtype, m, k, n,
+                                               int4_group(k))
+                                     for k, n in quant_sites(cfg)
+                                     for m in QUANT_ROWS}}
+    fixed_q = QUANT_BODY.get(cfg.name)
+    if fixed_q and dtype == torch_dtype("bfloat16") and any(
+            named != set(fixed_q[k]) for k, named in named_q.items()):
+        raise AssertionError(f"{cfg.name}: the quant rules name {named_q} "
+                             f"at the sites {quant_sites(cfg)}, expected "
+                             f"{fixed_q}")
     rules = {"chunk_body": chunk_body(dtype, cfg.head_dim),
              "ring_body": ring_body(dtype, cfg.head_dim),
              "cross_body": cross_body(dtype, cfg.head_dim),
@@ -3209,7 +3450,8 @@ def main_bodies(cfg) -> dict:
     if named != bodies:
         raise AssertionError(f"{cfg.name}: the wrappers' rules name the "
                              f"bodies {named}, expected {bodies}")
-    return {**MAIN_BODY, **{k: (b,) for k, b in bodies.items()}}
+    return {**MAIN_BODY, **{k: tuple(sorted(v)) for k, v in named_q.items()},
+            **{k: (b,) for k, b in bodies.items()}}
 
 
 def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
@@ -3261,7 +3503,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
     rounds = eng.verify_rounds
     expect, expect_bodies = expected_launches(
         cfg, not hasattr(eng, "pc"), eng.quantization, iters, chunks,
-        launches, rounds)
+        launches, rounds, rows=eng.forward_rows)
     dispatches = dict(counts.counts)
     draft_iters = sum(int(key[len("draft.draft_step"):]) * n
                       for key, n in dispatches.items()
@@ -3274,7 +3516,7 @@ def serve_run(name, cls, cfg, kw, prompts, dev, ref=None, n_new=64,
             eng.spec.provider.cfg, True, None, draft_iters, draft_chunks,
             launches)
         expect = {k: expect[k] + more[k] for k in expect}
-        expect_bodies = {"rmsnorm": {
+        expect_bodies = {**expect_bodies, "rmsnorm": {
             b: n + more_bodies["rmsnorm"][b]
             for b, n in expect_bodies["rmsnorm"].items()}}
     n_stages = len(getattr(eng, "stages", [])) or 1
@@ -3348,8 +3590,8 @@ def check_launches(name, cfg, launches, expect, bodies, expect_bodies,
     kernel's count, and each launch of a kernel with more than one body
     on its main body (the attention kernels' as ATTN_BODY fixes it, the
     scan's state_lanes, rmsnorm's add_norm or norm, and ``more_main``'s
-    where given), rmsnorm's split between those two as the run
-    implies."""
+    where given), rmsnorm's split between those two and a packed run's
+    quant launches' between its bodies as the run implies."""
     if launches != expect or any(launches[k] == 0
                                  for k, v in expect.items() if v):
         raise AssertionError(f"serve {name}: kernel launches {launches}, "
@@ -5793,18 +6035,23 @@ def planning() -> dict:
     return res
 
 
+#: the wgmma bodies' kernel entries the build must hold: the contiguous
+#: and the cross form at hd 64 and 128, the chunk body at hd 64 and 128
+#: for each of the paged chunk and the window form, and the quant
+#: matmul's at n8 to n128 (int8, and each of int4's two group paths)
+WGMMA_ENTRIES = {"flash_wgmma_kernel": 2, "cross_wgmma_kernel": 2,
+                 "chunk_wgmma_kernel": 4, "quant_wgmma_kernel": 15}
+
+
 def wgmma_ptxas(report: str) -> list:
     """ptxas's report (``-Xptxas=-v``) of each entry of the wgmma bodies
-    (the contiguous form's and the cross form's, at hd 64 and 128, and
-    the paged chunk's and the window form's, ``chunk_wgmma_kernel``): its
-    name, the registers a thread has at launch and the bytes it spills
-    (stores and loads)."""
+    (``WGMMA_ENTRIES``): its name, the registers a thread has at launch
+    and the bytes it spills (stores and loads)."""
     found, entry = {}, None
     for ln in report.splitlines():
         if "Compiling entry" in ln:
             entry = (ln.split("'")[1] if any(
-                k in ln for k in ("flash_wgmma_kernel", "cross_wgmma_kernel",
-                                  "chunk_wgmma_kernel")) else None)
+                k in ln for k in WGMMA_ENTRIES) else None)
         elif entry and "spill stores" in ln:
             _, stores, loads = (int(x) for x in
                                 re.findall(r"(\d+) bytes", ln)[:3])
@@ -5818,7 +6065,11 @@ def wgmma_ptxas(report: str) -> list:
 def device_tables(dev) -> dict:
     """The card against the constants the split rules read: its SM count
     against ``SM_COUNT`` (decode attention, quant matmul, rmsnorm,
-    selective scan) and ``cudaOccupancyMaxActiveClusters`` for clusters
+    selective scan); the quant matmul's ``wgmma`` body at each rows of x
+    it takes: its CTAs an SM, shared memory and stages against
+    ``wgmma_ctas_per_sm``, ``wgmma_smem_bytes`` and ``wgmma_stages``, and
+    its clusters of 1-8 CTAs against ``WGMMA_CLUSTERS``, the tables
+    ``wgmma_splits`` reads; and ``cudaOccupancyMaxActiveClusters`` for clusters
     of 1-8 CTAs at the shared memory of the wide bodies (the paged
     prefill's, the ring form's, which takes the same tiles, and the
     decode's at gemma3-12b's G 2, through the empty kernel; and the
@@ -5897,11 +6148,39 @@ def device_tables(dev) -> dict:
                 if want != got:
                     bad.append(f"{mirror}({hd}, {form!r}): expected "
                                f"{want}, the kernel has {got}")
+    # the quant matmul's wgmma body at every rows of x a CTA it takes:
+    # CTAs an SM, shared memory and stages against the mirrors
+    # wgmma_splits reads, and its clusters against WGMMA_CLUSTERS
+    quant = {}
+    for fmt in ("int8", "int4"):
+        for rows in (8, 16, 32, 64, 128):
+            ctas, smem, stages = quant_matmul.wgmma_occupancy(fmt, rows)
+            got = {sp: quant_matmul.wgmma_clusters(fmt, rows, sp)
+                   for sp in range(1, 9)}
+            quant[f"{fmt} rows {rows}"] = {"ctas": ctas, "smem": smem,
+                                           "stages": stages,
+                                           "clusters": got}
+            want_ctas = quant_matmul.wgmma_ctas_per_sm(rows)
+            for mirror, want, have in (
+                    ("wgmma_ctas_per_sm", want_ctas, ctas),
+                    ("wgmma_smem_bytes", quant_matmul.wgmma_smem_bytes(
+                        fmt, rows), smem),
+                    ("wgmma_stages", quant_matmul.wgmma_stages(fmt, rows),
+                     stages)):
+                if want != have:
+                    bad.append(f"quant_matmul.{mirror}({fmt!r}, {rows}): "
+                               f"expected {want}, the kernel has {have}")
+            table = quant_matmul.WGMMA_CLUSTERS.get(want_ctas, {})
+            bad += [f"quant_matmul.WGMMA_CLUSTERS[{want_ctas}][{sp}] at "
+                    f"{fmt} rows {rows}: expected {table.get(sp)}, got {n}"
+                    for sp, n in got.items() if n != table.get(sp)]
     res = {"phase": "device", "check": "SM_COUNT, WIDE_CLUSTERS, "
-                                       "WGMMA_CTAS_PER_SM and the wgmma "
-                                       "mirrors against this card",
+                                       "WGMMA_CTAS_PER_SM, the wgmma "
+                                       "mirrors and the quant matmul's "
+                                       "wgmma mirrors against this card",
            "sm_count": sms, "max_active_clusters": clusters,
-           "wgmma_ctas_per_sm": occupancy, "mismatches": bad}
+           "wgmma_ctas_per_sm": occupancy, "quant_wgmma": quant,
+           "mismatches": bad}
     emit(res)
     if bad:
         raise AssertionError("the split rules' card tables do not match "
@@ -5964,6 +6243,8 @@ def kernel_line(cases, launches_by_run) -> dict:
                                                  "call_ms", "plain_ms",
                                                  "library_ms",
                                                  "library_pair_ms",
+                                                 "library_weight_only_ms",
+                                                 "library_note", "cold_ms",
                                                  "bound_ms", "bound_by",
                                                  "bytes_bound_ms",
                                                  "flops_bound_ms",
@@ -6005,14 +6286,16 @@ def main() -> int:
           "ptxas": report})
     wgmma = wgmma_ptxas(full_report)
     emit({"phase": "build", "kernel": "flash_attention, "
-                                       "paged_cross_attention and the chunk "
-                                       "forms, wgmma bodies",
+                                       "paged_cross_attention, the chunk "
+                                       "forms and the quant matmul, wgmma "
+                                       "bodies",
           "ptxas": wgmma})
-    # the contiguous and the cross form at hd 64 and 128, the chunk body
-    # at hd 64 and 128 for each of the paged chunk and the window form
-    if len(wgmma) != 8 or any(e.get("spill_bytes", 1) for e in wgmma):
+    counts = {k: sum(k in e["entry"] for e in wgmma) for k in WGMMA_ENTRIES}
+    if counts != WGMMA_ENTRIES or any(e.get("spill_bytes", 1)
+                                      for e in wgmma):
         raise AssertionError(f"a wgmma body is missing from the build or "
-                             f"spills: {wgmma}")
+                             f"spills: {counts} entries of "
+                             f"{WGMMA_ENTRIES}; {wgmma}")
 
     seconds = {}
 

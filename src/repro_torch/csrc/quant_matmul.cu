@@ -23,6 +23,14 @@
 // kernels/quant_matmul.py::int8_body / int4_body, and the entry point
 // launches it, refusing a body the shape cannot take):
 //
+// * wgmma (bf16, both formats; every bf16 launch of the served models
+//   but smollm-360m's int8 sites, under WGMMA_INT8_MIN_BYTES of weight,
+//   and its int4 attention projections above 64 rows of x, under
+//   WGMMA_INT4_CHUNK_MIN values): the warp-specialised Hopper body of quant_wgmma.cu, entered below for
+//   body code kBodyWgmma: one producer warp feeding K stages of weight, x
+//   and scale rows by TMA, two consumer warpgroups turning the weight
+//   bytes into the register A operand of wgmma (its header has the
+//   design).
 // * cuda_core (float32 at every shape, as the card's float32 streams
 //   must equal the CPU's and TF32 tensor cores would round x; bf16 where
 //   N % 16 != 0, K % 16 != 0, int4's G % 16 != 0 or x / q are not 16-byte
@@ -33,7 +41,10 @@
 //   shared memory as f32, FMAs on the f32 CUDA cores; the 8 per-warp
 //   partial sums of every output are added in warp order, so the result
 //   does not depend on timing.
-// * mma (bf16, both formats; one body templated on the weight format).
+// * mma (bf16, both formats; one body templated on the weight format;
+//   the main path's body before wgmma, kept where the rules name it
+//   (the sites above, and int4 whose s is not 16-byte aligned) and for
+//   timing in turns).
 //   Replaces _qmm_int8_kernel (src/repro/kernels/quant_matmul.py:38) and
 //   _qmm_int4_kernel.  The transposed product out^T (N x M) = W^T (N x K)
 //   . x^T (K x M) on mma.sync m16n8k16 with f32 accumulators: the
@@ -613,8 +624,14 @@ bool takes(const void* x, const void* q, int M, int K, int N, int dtype,
 
 }  // namespace
 
-// body: kBodyCudaCore or kBodyMma; splits (1 to kMaxSplits) is read by
-// the mma body only; group is unused (int8 scales are per column).
+// The wgmma body (quant_wgmma.cu).
+int quant_wgmma_launch(const void* x, const void* q, const void* s,
+                       void* out, int M, int K, int N, int G, bool int4,
+                       int splits, cudaStream_t stream);
+
+// body: kBodyCudaCore, kBodyMma or kBodyWgmma; splits (1 to 8) is read by
+// the mma and wgmma bodies only, each its own rule's; group is unused
+// (int8 scales are per column).
 extern "C" int rt_quant_matmul_int8(const void* x, const void* q,
                                     const void* s, void* out, int M, int K,
                                     int N, int group, int dtype, int body,
@@ -622,6 +639,12 @@ extern "C" int rt_quant_matmul_int8(const void* x, const void* q,
   (void)group;
   if (body == rt::kBodyCudaCore)
     return dispatch<false>(x, q, s, out, M, K, N, 0, dtype, stream);
+  if (body == rt::kBodyWgmma) {
+    if (M <= 0 || N <= 0) return 0;
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return quant_wgmma_launch(x, q, s, out, M, K, N, 0, false, splits,
+                              static_cast<cudaStream_t>(stream));
+  }
   if (body != rt::kBodyMma) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   if (!mma::takes(x, q, M, K, N, dtype, splits))
@@ -637,6 +660,12 @@ extern "C" int rt_quant_matmul_int4(const void* x, const void* q,
                                     int splits, void* stream) {
   if (body == rt::kBodyCudaCore)
     return dispatch<true>(x, q, s, out, M, K, N, group, dtype, stream);
+  if (body == rt::kBodyWgmma) {
+    if (M <= 0 || N <= 0) return 0;
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return quant_wgmma_launch(x, q, s, out, M, K, N, group, true, splits,
+                              static_cast<cudaStream_t>(stream));
+  }
   if (body != rt::kBodyMma) return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0) return 0;
   if (group <= 0 || group % 16 != 0 || K % group != 0 ||

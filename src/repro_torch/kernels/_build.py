@@ -55,9 +55,9 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 
 #: kernel name -> body -> launches since the last reset, for the kernels
 #: with more than one body (the body names of csrc/*.cu: "mma", the bf16
-#: tensor-core body; "wgmma", the flash kernel's warp-specialised bf16
-#: bodies on Hopper's wgmma, fed by TMA (the contiguous, cross, paged
-#: chunk and window forms);
+#: tensor-core body; "wgmma", the warp-specialised bf16 bodies on
+#: Hopper's wgmma, fed by TMA (the flash kernel's contiguous, cross,
+#: paged chunk and window forms, and the int8 / int4 quant matmul);
 #: "state_lanes", the scan with d_state split across lanes; "add_norm"
 #: and "norm", rmsnorm with and without the residual add, the row in
 #: registers; "cuda_core", the f32 CUDA-core body, the previous one where
@@ -65,12 +65,12 @@ launches: Dict[str, int] = {"rmsnorm": 0, "paged_decode_attention": 0,
 bodies: Dict[str, Dict[str, int]] = {
     **{name: {"mma": 0, "cuda_core": 0}
        for name in ("paged_decode_attention", "dense_decode_attention",
-                    "dense_decode_attention_partial", "quant_matmul_int8",
-                    "quant_matmul_int4")},
+                    "dense_decode_attention_partial")},
     **{name: {"wgmma": 0, "mma": 0, "cuda_core": 0}
        for name in ("flash_attention", "paged_cross_attention",
                     "paged_prefill_attention", "paged_chunk_attention",
-                    "ring_chunk_attention")},
+                    "ring_chunk_attention", "quant_matmul_int8",
+                    "quant_matmul_int4")},
     "selective_scan": {"state_lanes": 0, "cuda_core": 0},
     "rmsnorm": {"add_norm": 0, "norm": 0, "cuda_core": 0}}
 BODY_CODES = {"cuda_core": 0, "mma": 1, "state_lanes": 2,   # csrc/common.cuh
@@ -219,6 +219,11 @@ _SIGNATURES = {
     # x, q, s, out, M, K, N, group, dtype, body, splits, stream
     "rt_quant_matmul_int4": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _P),
+    # int4 (0 / 1), rows of x a CTA, CTAs an SM (int*), dynamic shared
+    # memory (int*), stages (int*)
+    "rt_quant_wgmma_occupancy": (_I, _I, _P, _P, _P),
+    # int4, rows, cluster size, clusters the card holds at once (int*)
+    "rt_quant_wgmma_clusters": (_I, _I, _I, _P),
     # dt, b_mat, c_mat, x, a_neg, h0, y, h_out, checkpoints (or null),
     # B, T, DI, DS, B/C batch and time strides, body, lanes, stream
     "rt_selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

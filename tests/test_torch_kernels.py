@@ -23,6 +23,7 @@ steps (2**-6 * |plain| + 1e-5 for values near zero), and the largest
 difference within 2e-2.  A lost key tile or a wrong lane moves an
 output by a sizeable share of its value and fails the first bound.
 """
+import collections
 import importlib.util
 from pathlib import Path
 from types import SimpleNamespace
@@ -51,10 +52,14 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     paged_prefill_attention_plain, prefill_body, prefill_smem_bytes,
     prefill_span, prefill_splits, ring_body, ring_chunk_attention,
     ring_chunk_attention_plain, ring_positions, ring_splits)
+from repro_torch.kernels import quant_matmul as qmm_mod  # noqa: E402
 from repro_torch.kernels.quant_matmul import (  # noqa: E402
-    MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, int4_body, int8_body,
-    quant_matmul_int4, quant_matmul_int4_plain, quant_matmul_int8,
-    quant_matmul_int8_plain, quant_splits)
+    MMA_MAX_SPLITS, MMA_STAGE_K, MMA_TILE_N, SM_COUNT, WGMMA_BUDGET,
+    WGMMA_CLUSTERS, WGMMA_MAX_SPLITS, WGMMA_STAGE_K, WGMMA_TILE_N,
+    int4_body, int8_body, quant_matmul_int4, quant_matmul_int4_plain,
+    quant_matmul_int8, quant_matmul_int8_plain, quant_splits,
+    wgmma_ctas_per_sm, wgmma_rows, wgmma_splits, wgmma_stage_bytes,
+    wgmma_stages, wgmma_takes)
 from repro_torch.kernels import rmsnorm as norm_mod  # noqa: E402
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
     NORM_MAX_WARPS, NORM_VECS, add_rmsnorm, add_rmsnorm_plain,
@@ -804,13 +809,19 @@ def test_wrappers_refuse_other_devices_and_count_no_cpu_launches():
 @pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"),
                                         ("float32", "cuda_core")])
 def test_body_rule_on_the_main_path(dtype, want):
-    """Every launch smollm-360m makes takes the tensor-core body in
-    bfloat16 (hd 64; int4 groups of 64 at every projection site) and the
-    CUDA-core body in float32."""
+    """Every launch smollm-360m makes takes a tensor-core body in
+    bfloat16 (hd 64 on ``mma`` for the prefill rule; int4 groups of 64 at
+    every projection site on ``wgmma`` at decode, and at a 128-row chunk
+    on ``mma`` at the attention projections, below
+    ``WGMMA_INT4_CHUNK_MIN``) and the CUDA-core body in float32."""
     dt = getattr(torch, dtype)
     assert prefill_body(dt, 64) == want
     for k, n in SMOLLM_SITES:
-        assert int4_body(dt, n, int4_group(k)) == want
+        assert int4_body(dt, 8, k, n, int4_group(k)) == (
+            "wgmma" if want == "mma" else want)
+        assert int4_body(dt, 128, k, n, int4_group(k)) == (
+            want if want == "cuda_core"
+            else "mma" if n < 2560 and k < 2560 else "wgmma")
 
 
 def test_body_rule_off_the_tiles():
@@ -822,10 +833,11 @@ def test_body_rule_off_the_tiles():
     for hd in (8, 72, 100, 144, 240, 512):
         assert prefill_body(bf, hd) == "cuda_core"
     assert prefill_body(bf, 64, aligned=False) == "cuda_core"
-    assert int4_body(bf, 48, 32) == "mma"
-    for n, g in ((7, 2), (300, 64), (320, 8), (320, 24)):
-        assert int4_body(bf, n, g) == "cuda_core"
-    assert int4_body(bf, 320, 64, aligned=False) == "cuda_core"
+    assert int4_body(bf, 8, 64, 48, 32) == "wgmma"
+    for k, n, g in ((64, 7, 2), (960, 300, 64), (960, 320, 8),
+                    (960, 320, 24), (960, 320, 100)):
+        assert int4_body(bf, 8, k, n, g) == "cuda_core"
+    assert int4_body(bf, 8, 960, 320, 64, aligned=False) == "cuda_core"
 
 
 #: qwen2-72b's and command-r-35b's MLP (w_gate / w_up, w_down)
@@ -849,11 +861,121 @@ def test_int4_splits_cover_k_and_fill_the_card(m, k, n):
                 or splits == min(stages, MMA_MAX_SPLITS))
 
 
+#: qwen2-72b's attention projections (wq / wo, wk / wv), the sites of
+#: its packed layers beside TARGET_SITES' MLP
+QWEN_ATTN_SITES = [(8192, 8192), (8192, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES + TARGET_SITES
+                         + QWEN_ATTN_SITES)
+def test_quant_wgmma_rule_on_the_served_sites(dtype, k, n):
+    """Every projection site of smollm-360m, qwen2-72b and command-r-35b
+    takes the wgmma body in bfloat16, int4 at the group the packer
+    picks at up to 64 rows, and above 64 from ``WGMMA_INT4_CHUNK_MIN``
+    values up (smollm-360m's attention projections keep mma), int8 from
+    ``WGMMA_INT8_MIN_BYTES`` of weight up at any rows (qwen2-72b's and
+    command-r-35b's sites; smollm-360m's keep mma); the CUDA-core body
+    in float32; unaligned x or q take the CUDA-core body, an unaligned
+    int4 s the mma body."""
+    dt = getattr(torch, dtype)
+    want = "wgmma" if dtype == "bfloat16" else "cuda_core"
+    g = int4_group(k)
+    assert wgmma_takes(k, n) and wgmma_takes(k, n, g)
+    small = k * n < qmm_mod.WGMMA_INT8_MIN_BYTES
+    assert small == ((k, n) in SMOLLM_SITES)
+    small4 = k * n < qmm_mod.WGMMA_INT4_CHUNK_MIN
+    assert small4 == ((k, n) in SMOLLM_SITES[:2])
+    assert int8_body(dt, k, n) == ("mma" if small and want == "wgmma"
+                                   else want)
+    for m in (1, 8, 37, 64):
+        assert int4_body(dt, m, k, n, g) == want
+    for m in (65, 128, 4096):
+        assert int4_body(dt, m, k, n, g) == (
+            "mma" if small4 and want == "wgmma" else want)
+    assert int8_body(dt, k, n, aligned=False) == "cuda_core"
+    assert int4_body(dt, 8, k, n, g, aligned=False) == "cuda_core"
+    assert int4_body(dt, 8, k, n, g, s_aligned=False) == (
+        "mma" if want == "wgmma" else want)
+
+
+@pytest.mark.parametrize("k,n,group", [(960, 8, 64), (962, 960, None),
+                                       (40, 32, None), (960, 300, 64),
+                                       (960, 320, 24), (960, 320, 8),
+                                       (66, 7, 2)])
+def test_quant_wgmma_rule_off_its_shapes(k, n, group):
+    """Shapes the wgmma body does not take (N or K off 16, int4 groups
+    off whole k16 steps) keep the CUDA-core body in bfloat16."""
+    bf = torch.bfloat16
+    assert not wgmma_takes(k, n, group)
+    if group is None:
+        assert int8_body(bf, k, n) == "cuda_core"
+    else:
+        assert int4_body(bf, 8, k, n, group) == "cuda_core"
+
+
+def _largest_split(stages: int) -> int:
+    """The most slices of ``stages`` whole stages a portable cluster
+    takes with none empty."""
+    return max(sp for sp in range(1, min(stages, WGMMA_MAX_SPLITS) + 1)
+               if (sp - 1) * -(-stages // sp) < stages)
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("m", [1, 8, 37, 128])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (64, 16),
+                                                (160, 208)]
+                         + TARGET_SITES + QWEN_ATTN_SITES)
+def test_wgmma_splits_cover_k_and_fill_the_card(fmt, m, k, n):
+    """The wgmma body's split: every slice of K holds at least one whole
+    stage, a tile's slices fit one portable cluster, and a decode-sized
+    product's CTAs fill at least three quarters of the SMs unless K ran
+    out of stages or the cluster out of room (int8 at smollm-360m's 8 x
+    960 -> 2560 runs fastest on 100 CTAs, PERF.md); the rows a CTA takes
+    are wgmma's N."""
+    rows = wgmma_rows(fmt, m)
+    assert rows in (8, 16, 32, 64, 128)
+    assert rows >= min(m, 128)
+    stages = -(-k // WGMMA_STAGE_K)
+    splits = wgmma_splits(fmt, m, k, n)
+    per = -(-stages // splits)
+    assert 1 <= splits <= min(stages, WGMMA_MAX_SPLITS)
+    assert (splits - 1) * per < stages
+    if m <= 16:
+        assert (-(-n // WGMMA_TILE_N) * splits >= 3 * SM_COUNT // 4
+                or splits == _largest_split(stages))
+    # shapes alone: the same shapes give the same split
+    assert wgmma_splits(fmt, m, k, n) == splits
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("rows", [8, 16, 32, 64, 128])
+def test_wgmma_ring_fits_and_keeps_bytes_in_flight(fmt, rows):
+    """The mirrored ring of the wgmma body: a block's shared memory fits
+    227 KB, the body's CTAs an SM fit the SM's 228 KB (1 KB reserved a
+    block), the partial tile of a split fits the ring, and at decode
+    rows a CTA keeps at least 32 KB of weight in flight (all stages but
+    the one being read)."""
+    smem = qmm_mod.wgmma_smem_bytes(fmt, rows)
+    stages = wgmma_stages(fmt, rows)
+    ctas = wgmma_ctas_per_sm(rows)
+    assert smem <= 232448
+    assert ctas * (smem + 1024) <= 233472
+    assert stages * wgmma_stage_bytes(fmt, rows) <= WGMMA_BUDGET[ctas]
+    assert rows * (WGMMA_TILE_N + 4) * 4 <= stages * wgmma_stage_bytes(
+        fmt, rows)
+    w_stage = (WGMMA_STAGE_K // (2 if fmt == "int4" else 1)) * WGMMA_TILE_N
+    if rows <= 16:
+        assert (stages - 1) * w_stage >= 32 * 1024
+    assert set(WGMMA_CLUSTERS[ctas]) == set(range(1, 9))
+
+
 @pytest.mark.parametrize("dtype,want", [("bfloat16", "mma"),
                                         ("float32", "cuda_core")])
 def test_int8_and_decode_body_rules_on_the_main_path(dtype, want):
     """Every int8 projection and every decode attention smollm-360m runs
-    takes the tensor-core body in bfloat16 (hd 64, G = 3) and the
+    takes the tensor-core body in bfloat16 (hd 64, G = 3; int8's weights
+    there are below ``WGMMA_INT8_MIN_BYTES``, so ``mma``) and the
     CUDA-core body in float32, paged and dense alike."""
     dt = getattr(torch, dtype)
     for k, n in SMOLLM_SITES:
@@ -1012,6 +1134,65 @@ def _chip_smoke():
     return module
 
 
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("model", ["smollm-360m", "qwen2-72b"])
+def test_quant_launches_by_body_follow_the_rows_of_each_forward(fmt, model):
+    """``chip_smoke.py``'s count of a packed bf16 serve run's quant
+    launches by body: at smollm-360m's int4, each 128-row chunk sends
+    the four attention projections of every layer to mma and the rest
+    to wgmma, decode iterations and shorter chunks everything to wgmma;
+    its int8 is all mma, qwen2-72b's all wgmma.  The bodies sum to the
+    run's launches, and forwards that do not add up are refused."""
+    from repro_torch.configs import get_config
+    cs = _chip_smoke()
+    cfg = get_config(model)
+    layers = cfg.block_pattern.count("attn")
+    rows = collections.Counter({8: 40, 3: 4, 128: 5, 64: 2, 16: 1})
+    expect, by_body = cs.expected_launches(
+        cfg, False, fmt, 44, 8, _build.launches, rows=rows)
+    total = expect[f"quant_matmul_{fmt}"]
+    assert total == 7 * layers * 52
+    got = by_body[f"quant_matmul_{fmt}"]
+    assert sum(got.values()) == total and got["cuda_core"] == 0
+    want_mma = (total if (model, fmt) == ("smollm-360m", "int8")
+                else 4 * layers * 5 if model == "smollm-360m" else 0)
+    assert got["mma"] == want_mma and got["wgmma"] == total - want_mma
+    assert set(cs.main_bodies(cfg)[f"quant_matmul_{fmt}"]) == set(
+        cs.QUANT_BODY[model][f"quant_matmul_{fmt}"])
+    with pytest.raises(AssertionError):
+        cs.expected_launches(cfg, False, fmt, 44, 9, _build.launches,
+                             rows=rows)
+
+
+def test_timed_engine_counts_the_rows_of_each_forward(monkeypatch):
+    """``chip_smoke.py``'s timed engine records the rows of x of every
+    forward, which the quant count by body reads: each prefill chunk's
+    tokens (``chunk_sizes``' pieces) and each decode iteration's rows,
+    as many forwards as the engine ran (a small paged engine on the
+    CPU)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.engine import (PagedServingEngine, Request,
+                                            chunk_sizes)
+    cs = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = get_smoke_config("smollm-360m")
+    eng = cs._timed(PagedServingEngine)(
+        cfg, seed=3, max_rows=3, max_len=64, block_size=8, prefill_chunk=8,
+        decode_steps=2, device="cpu")
+    prompts = [[1 + i % 50 for i in range(n)] for n in (19, 8, 5)]
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new_tokens=5))
+    eng.run()
+    rows = eng.forward_rows
+    assert sum(rows.values()) == eng.decode_iters + eng.prefill_calls
+    chunks = collections.Counter(c for p in prompts
+                                 for c in chunk_sizes(len(p) - 1, 8))
+    assert eng.prefill_calls == sum(chunks.values())
+    for c, n in chunks.items():
+        assert rows[c] >= n
+    assert rows[3] >= eng.decode_iters        # every row of the batch
+
+
 @pytest.mark.parametrize("sms,clusters,named", [
     (132, {}, []),                                   # the H100 SXM
     (114, {}, ["decode_attention.SM_COUNT: expected 132, got 114",
@@ -1047,6 +1228,7 @@ def test_device_tables_fail_by_name(monkeypatch, sms, clusters, named):
                             flash_mod.WGMMA_CTAS_PER_SM,
                             flash_mod.wgmma_smem_bytes(hd, form),
                             flash_mod.wgmma_tile_keys(hd, form)))
+    _quant_tables_as_mirrored(monkeypatch)
     monkeypatch.setattr(cs, "emit", lambda obj: None)
     if not named:
         assert cs.device_tables("cpu")["mismatches"] == []
@@ -1100,7 +1282,71 @@ def test_device_tables_name_the_wgmma_body(monkeypatch, ctas, smem, keys,
                         lambda hd, sp, form="chunk": WIDE_CLUSTERS[sp])
     monkeypatch.setattr(flash_mod, "wgmma_occupancy",
                         lambda hd=64, form="flash": (ctas, smem, keys))
+    _quant_tables_as_mirrored(monkeypatch)
     monkeypatch.setattr(cs, "emit", lambda obj: None)
+    with pytest.raises(AssertionError) as err:
+        cs.device_tables("cpu")
+    for text in named:
+        assert text in str(err.value)
+
+
+def _quant_tables_as_mirrored(monkeypatch, ctas=None, smem_off=0,
+                              stages_off=0, clusters=None):
+    """The card's answers for the quant matmul's wgmma body stood in by
+    its Python mirrors (``ctas`` CTAs an SM, the shared memory and stages
+    moved by the offsets, ``clusters`` replacing table entries where
+    given)."""
+    monkeypatch.setattr(qmm_mod, "wgmma_occupancy", lambda fmt, rows: (
+        qmm_mod.wgmma_ctas_per_sm(rows) if ctas is None else ctas,
+        qmm_mod.wgmma_smem_bytes(fmt, rows) + smem_off,
+        wgmma_stages(fmt, rows) + stages_off))
+    monkeypatch.setattr(qmm_mod, "wgmma_clusters", lambda fmt, rows, sp: (
+        clusters or {}).get(sp, WGMMA_CLUSTERS[wgmma_ctas_per_sm(rows)][sp]))
+
+
+@pytest.mark.parametrize("kw,named", [
+    ({}, []),
+    ({"ctas": 1}, ["quant_matmul.wgmma_ctas_per_sm('int8', 8): expected 2, "
+                   "the kernel has 1",
+                   "quant_matmul.wgmma_ctas_per_sm('int4', 16)"]),
+    ({"smem_off": 1024}, ["quant_matmul.wgmma_smem_bytes('int4', 128): "
+                          "expected 226560, the kernel has 227584"]),
+    ({"stages_off": -1}, ["quant_matmul.wgmma_stages('int8', 128): expected "
+                          "9, the kernel has 8"]),
+    ({"clusters": {5: 40}}, ["quant_matmul.WGMMA_CLUSTERS[2][5] at int8 rows "
+                             "8: expected 47, got 40",
+                             "quant_matmul.WGMMA_CLUSTERS[1][5] at int4 rows "
+                             "128: expected 22, got 40"]),
+])
+def test_device_tables_hold_the_quant_wgmma_mirrors(monkeypatch, kw, named):
+    """The device phase holds the quant matmul's wgmma body at every rows
+    of x it takes (both formats): its CTAs an SM, shared memory and
+    stages against the mirrors the split rule reads, and its clusters of
+    1-8 CTAs against ``WGMMA_CLUSTERS``, and fails naming the mirror, the
+    shape and both values before any kernel phase."""
+    cs = _chip_smoke()
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import launch_floor
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(launch_floor, "max_active_clusters",
+                        lambda sp, threads, smem: WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "cross_wgmma_clusters",
+                        lambda hd, sp: WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "chunk_wgmma_clusters",
+                        lambda hd, sp, form="chunk": WIDE_CLUSTERS[sp])
+    monkeypatch.setattr(flash_mod, "wgmma_occupancy",
+                        lambda hd=64, form="flash": (
+                            flash_mod.WGMMA_CTAS_PER_SM,
+                            flash_mod.wgmma_smem_bytes(hd, form),
+                            flash_mod.wgmma_tile_keys(hd, form)))
+    _quant_tables_as_mirrored(monkeypatch, **kw)
+    monkeypatch.setattr(cs, "emit", lambda obj: None)
+    if not named:
+        res = cs.device_tables("cpu")
+        assert res["mismatches"] == []
+        assert len(res["quant_wgmma"]) == 10
+        return
     with pytest.raises(AssertionError) as err:
         cs.device_tables("cpu")
     for text in named:
@@ -1848,10 +2094,11 @@ def test_cuda_quant_matmul_matches_plain(cuda_device, dtype, fmt, m, k, n):
 @pytest.mark.parametrize("m", [1, 8, 37, 128])
 @pytest.mark.parametrize("k,n", SMOLLM_SITES)
 def test_cuda_quant_matmul_int4_mma_body(cuda_device, k, n, m, group):
-    """The int4 tensor-core body at every smollm-360m site, decode and
-    chunk row counts and two group sizes: within the bf16 gate of the
-    plain version, and bit-equal over repeated calls (the split-K
-    partials are summed in a fixed order)."""
+    """The int4 mma body (forced, as chip_smoke.py times it against the
+    rule's wgmma body) at every smollm-360m site, decode and chunk row
+    counts and two group sizes: within the bf16 gate of the plain
+    version, and bit-equal over repeated calls (the split-K partials are
+    summed in a fixed order)."""
     rng = np.random.default_rng(21)
     w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
     # reprolint: disable-next=quant-static-weights -- a kernel test packs
@@ -1862,12 +2109,12 @@ def test_cuda_quant_matmul_int4_mma_body(cuda_device, k, n, m, group):
     x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
         cuda_device, torch.bfloat16)
     n0 = _build.bodies["quant_matmul_int4"]["mma"]
-    got = quant_matmul_int4(x, q, s)
+    got = quant_matmul_int4(x, q, s, _body="mma")
     assert _build.bodies["quant_matmul_int4"]["mma"] == n0 + 1
     _card_close(got, quant_matmul_int4_plain(x, q, s), "bfloat16",
                 QMM_CARD_TOL)
     for _ in range(3):
-        assert torch.equal(quant_matmul_int4(x, q, s), got)
+        assert torch.equal(quant_matmul_int4(x, q, s, _body="mma"), got)
 
 
 @pytest.mark.cuda
@@ -2184,7 +2431,7 @@ def test_cuda_ring_decode_at_mixtral_heads(cuda_device, dtype, kernel):
 @pytest.mark.parametrize("m", [1, 8, 37, 128])
 @pytest.mark.parametrize("k,n", SMOLLM_SITES + [(96, 48), (48, 16)])
 def test_cuda_quant_matmul_int8_mma_body(cuda_device, k, n, m):
-    """The int8 tensor-core body at every smollm-360m site (wq / wo,
+    """The int8 mma body (forced) at every smollm-360m site (wq / wo,
     wk / wv, w_gate / w_up, w_down), decode and chunk row counts, and
     two K that end inside a stage (96, and 48 with a single warp's N):
     within the bf16 gate of the plain version, and bit-equal over
@@ -2198,13 +2445,13 @@ def test_cuda_quant_matmul_int8_mma_body(cuda_device, k, n, m):
     x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
         cuda_device, torch.bfloat16)
     n0 = _build.bodies["quant_matmul_int8"]["mma"]
-    got = quant_matmul_int8(x, q, s)
+    got = quant_matmul_int8(x, q, s, _body="mma")
     assert _build.bodies["quant_matmul_int8"]["mma"] == n0 + 1
     assert got.shape == (m, n) and got.dtype == torch.bfloat16
     _card_close(got, quant_matmul_int8_plain(x, q, s), "bfloat16",
                 QMM_CARD_TOL)
     for _ in range(3):
-        assert torch.equal(quant_matmul_int8(x, q, s), got)
+        assert torch.equal(quant_matmul_int8(x, q, s, _body="mma"), got)
 
 
 @pytest.mark.cuda
@@ -2213,9 +2460,9 @@ def test_cuda_quant_matmul_int8_mma_body(cuda_device, k, n, m):
 def test_cuda_quant_matmul_at_the_speculation_targets_widths(cuda_device,
                                                              fmt, k, n):
     """qwen2-72b's and command-r-35b's MLP at decode (8 rows; w_gate /
-    w_up and w_down): the mma body, its K split (``quant_splits``) and
-    the bf16 gate of the plain version, and the same bits over repeated
-    calls."""
+    w_up and w_down): the mma body (forced), its K split
+    (``quant_splits``) and the bf16 gate of the plain version, and the
+    same bits over repeated calls."""
     rng = np.random.default_rng(29)
     w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
     packed = (quantize_int8 if fmt == "int8" else quantize_int4)(w)
@@ -2228,12 +2475,118 @@ def test_cuda_quant_matmul_at_the_speculation_targets_widths(cuda_device,
                      (quant_matmul_int4, quant_matmul_int4_plain))
     name = f"quant_matmul_{fmt}"
     n0 = _build.bodies[name]["mma"]
-    got = kernel(x, q, s)
+    got = kernel(x, q, s, _body="mma")
     assert _build.bodies[name]["mma"] == n0 + 1
     assert 1 <= quant_splits(8, k, n) <= 8
     assert got.shape == (8, n) and got.dtype == torch.bfloat16
     _card_close(got, plain(x, q, s), "bfloat16", QMM_CARD_TOL)
-    assert torch.equal(kernel(x, q, s), got)
+    assert torch.equal(kernel(x, q, s, _body="mma"), got)
+
+
+def _wgmma_case(device, fmt, m, k, n, group, seed):
+    """Packed weights (int4 at ``group``), bf16 x and the kernels of a
+    wgmma card test, on the card."""
+    rng = np.random.default_rng(seed)
+    w = t(rng.standard_normal((k, n), dtype=np.float32) * k ** -0.5)
+    if fmt == "int8":
+        # reprolint: disable-next=quant-static-weights -- a kernel test
+        # packs one leaf, as the mma body's tests do
+        packed = quantize_int8(w)
+    else:
+        # reprolint: disable-next=quant-static-weights -- a kernel test
+        # packs one leaf at a chosen group, as the mma body's tests do
+        packed = quantize_int4(w, group=group)
+    del w
+    q, s = packed["q"].to(device), packed["s"].to(device)
+    x = t(rng.standard_normal((m, k), dtype=np.float32)).to(
+        device, torch.bfloat16)
+    kernel, plain = ((quant_matmul_int8, quant_matmul_int8_plain)
+                     if fmt == "int8" else
+                     (quant_matmul_int4, quant_matmul_int4_plain))
+    return x, q, s, kernel, plain
+
+
+def _check_wgmma(fmt, x, q, s, kernel, plain):
+    """The wgmma body (forced: int8 below ``WGMMA_INT8_MIN_BYTES`` is the
+    mma body's by the rule): one launch counted on it, within the bf16
+    gate of the plain version and of the mma body on the same inputs,
+    and the same bits over repeated calls."""
+    name = f"quant_matmul_{fmt}"
+    m, n = x.shape[0], q.shape[1]
+    n0 = _build.bodies[name]["wgmma"]
+    got = kernel(x, q, s, _body="wgmma")
+    assert _build.bodies[name]["wgmma"] == n0 + 1
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    _card_close(got, plain(x, q, s), "bfloat16", QMM_CARD_TOL)
+    _card_close(got, kernel(x, q, s, _body="mma"), "bfloat16", QMM_CARD_TOL)
+    for _ in range(3):
+        assert torch.equal(kernel(x, q, s, _body="wgmma"), got)
+
+
+# ----------------------------------------------------------------------
+# on the card: the int8 / int4 wgmma body
+# ----------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,group", [("int8", None), ("int4", 32),
+                                       ("int4", 64)])
+@pytest.mark.parametrize("m", [1, 8, 37, 128])
+@pytest.mark.parametrize("k,n", SMOLLM_SITES)
+def test_cuda_quant_matmul_wgmma_body(cuda_device, fmt, group, m, k, n):
+    """The wgmma body at every smollm-360m site (wq / wo, wk / wv,
+    w_gate / w_up, w_down), decode and chunk row counts and, for int4,
+    groups of 32 (folded as each ends) and 64 (two accumulators in
+    turns): within the bf16 gate of the plain version and of the mma
+    body, bit-equal over repeated calls."""
+    x, q, s, kernel, plain = _wgmma_case(cuda_device, fmt, m, k, n, group,
+                                         31)
+    _check_wgmma(fmt, x, q, s, kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [3, 8, 70])
+@pytest.mark.parametrize("fmt,group,k,n", [
+    ("int8", None, 96, 48), ("int8", None, 48, 16), ("int8", None, 160, 208),
+    ("int8", None, 1008, 400), ("int4", 16, 96, 48), ("int4", 48, 48, 16),
+    ("int4", 32, 160, 208), ("int4", 48, 1008, 400), ("int4", 128, 1024,
+                                                       400)])
+def test_cuda_quant_matmul_wgmma_ragged(cuda_device, fmt, group, m, k, n):
+    """K ending inside a stage (48, 96, 160, 1008: TMA zero-fills past
+    it), N not a multiple of the 128-column tile (16, 48, 208, 400),
+    groups that end inside a stage (16, 32, 48) and a group of two whole
+    stages (128): within the gates, bit-equal."""
+    x, q, s, kernel, plain = _wgmma_case(cuda_device, fmt, m, k, n, group,
+                                         32)
+    _check_wgmma(fmt, x, q, s, kernel, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("k,n", TARGET_SITES[:2])
+def test_cuda_quant_matmul_wgmma_at_qwen2_mlp(cuda_device, fmt, m, k, n):
+    """qwen2-72b's MLP (w_gate / w_up 8192 -> 29568, w_down 29568 ->
+    8192) at decode (M 8) and at a prefill chunk (M 128), int4 at its
+    packer's group of 64: the wgmma body within the gates, bit-equal."""
+    x, q, s, kernel, plain = _wgmma_case(cuda_device, fmt, m, k, n,
+                                         int4_group(k), 33)
+    assert (int8_body(x.dtype, k, n) if fmt == "int8"
+            else int4_body(x.dtype, m, k, n, int4_group(k))) == "wgmma"
+    _check_wgmma(fmt, x, q, s, kernel, plain)
+
+
+@pytest.mark.cuda
+def test_cuda_quant_wgmma_refuses_without_a_launch(cuda_device):
+    """A forced wgmma launch on a shape or dtype the body does not take
+    raises before any launch: no fallback to another body."""
+    _build.reset_launches()
+    q = torch.zeros((64, 40), dtype=torch.int8, device=cuda_device)
+    s = torch.ones((1, 40), device=cuda_device)
+    for x in (torch.zeros((8, 64), device=cuda_device),
+              torch.zeros((8, 64), dtype=torch.bfloat16,
+                          device=cuda_device)):
+        with pytest.raises(ValueError):
+            quant_matmul_int8(x, q, s, _body="wgmma")
+    assert _build.launches["quant_matmul_int8"] == 0
 
 
 @pytest.mark.cuda

@@ -3,12 +3,24 @@
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
-    python3 tools/torch_split_sweep.py [--cross | --chunk]
+    python3 tools/torch_split_sweep.py [--quant | --cross | --chunk | --mma]
 
-For the int8 and int4 quant matmuls' ``mma`` body at smollm-360m's
-projection shapes (8 decode rows and a 128-row prefill chunk), for the
-split decode attention at 1, 4 and 8 rows of smollm-360m and at
-gemma3-12b's 8 rows of hd 256 (linear rows of 2176 slots and rings of
+For the int8 and int4 quant matmuls' ``wgmma`` body (the rule's body in
+bf16, ``csrc/quant_wgmma.cu``) at every projection site of smollm-360m
+(wq / wo 960 -> 960, wk / wv 960 -> 320, w_gate / w_up 960 -> 2560,
+w_down 2560 -> 960) and qwen2-72b (wq / wo 8192 -> 8192, wk / wv 8192 ->
+1024, w_gate / w_up 8192 -> 29568, w_down 29568 -> 8192; weights drawn
+on the card) at M 8 (decode) and 128 (a prefill chunk), it times every
+split count ``wgmma_splits`` may take (1 to 8 slices of whole stages)
+beside the count it picks; at those M, at M 16 and, at smollm-360m's
+sites, at M 32 and 64 too, it times the ``wgmma`` body at its rule's
+split against the ``mma`` body at its own rule's split in turns
+(``wgmma``, ``mma``, ``mma``, ``wgmma``), and at M 8 and 16 against the
+body's variants (``QMM_VARIANTS``: the library built again with
+``csrc/quant_wgmma.cu``'s macros set, e.g. one CTA an SM at n8 / n16
+where the body runs two), one JSON line a site, format and M
+(``QMM_SITES``).  ``--quant`` stops there.  Without it, for the split
+decode attention at 1, 4 and 8 rows of smollm-360m and at gemma3-12b's 8 rows of hd 256 (linear rows of 2176 slots and rings of
 1024, the wide layout), for the paged prefill's wide body at
 gemma3-12b's chunk (C 128 at pos 0, 512, 1024 and 2048) and for the
 window form's (``ring_chunk_attention``: C 128 over a ring of w = 1024
@@ -26,6 +38,9 @@ take, at seamless-m4t-medium's (16 / 16 heads of 64 over 1024 frames)
 and llama-3.2-vision-90b's (64 / 8 heads of 128 over 1601 patches)
 shapes, B 1 and 8, over blocks of 16 and over dense rows through
 identity tables, beside the count ``cross_splits`` picks.
+With ``--mma`` it times only the quant matmuls' previous ``mma`` body
+at every split count at smollm-360m's shapes (``QMM_SHAPES``), beside
+``quant_splits``' pick.
 With ``--chunk`` it times only serving's chunk forms on their ``wgmma``
 body (``csrc/chunk_wgmma.cu``): the one-row paged chunk (C 128, blocks
 of 16) at smollm-360m's (15 / 5 heads of 64, 1024 slots),
@@ -57,6 +72,102 @@ sys.path.insert(0, ROOT)
 QMM_SHAPES = [(8, 960, 2560), (8, 960, 960), (8, 960, 320), (8, 2560, 960),
               (128, 2560, 960), (128, 960, 2560), (128, 960, 960),
               (128, 960, 320)]
+#: the quant matmul's sites (model, K, N) the wgmma sweep times at M 8
+#: and 128
+QMM_SITES = [("smollm-360m", 960, 960), ("smollm-360m", 960, 320),
+             ("smollm-360m", 960, 2560), ("smollm-360m", 2560, 960),
+             ("qwen2-72b", 8192, 8192), ("qwen2-72b", 8192, 1024),
+             ("qwen2-72b", 8192, 29568), ("qwen2-72b", 29568, 8192)]
+
+
+#: rows of x the wgmma and mma bodies are also timed at, in turns, at
+#: smollm-360m's sites (the serve runs' ragged chunks and decode batches)
+QMM_MID_ROWS = (16, 32, 64)
+#: variants of the quant wgmma body (``--quant``): the macros of
+#: csrc/quant_wgmma.cu each sets, and the rows of x it is timed at
+QMM_VARIANTS = {"one_cta_an_sm": (("-DRT_QW_SMALL_CTAS=1",), (8, 16))}
+
+
+def variant_library(build, name: str, defines):
+    """This tree's kernel library compiled with ``defines`` (every
+    source at once, as ``_build.build`` does) into a directory of its own
+    under the build directory, loaded with the entries' signatures."""
+    import ctypes
+    out = build.BUILD_ROOT / "variant" / name
+    out.mkdir(parents=True, exist_ok=True)
+    procs = [(src, subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, *defines, "-I", str(build.CSRC),
+         "-c", str(src), "-o", str(out / (src.stem + ".o"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sorted(build.CSRC.glob("*.cu"))]
+    for src, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({name}):\n{log}")
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS[:4], "-shared", "-o",
+                    str(out / build.LIB_NAME),
+                    *[str(out / (src.stem + ".o")) for src, _ in procs]],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out / build.LIB_NAME))
+    for entry, argtypes in build._SIGNATURES.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on(build, lib, fn):
+    """``fn`` run with the wrappers launching from ``lib``."""
+    def run():
+        tree = build._lib
+        build._lib = lib
+        try:
+            return fn()
+        finally:
+            build._lib = tree
+    return run
+
+
+def quant_rows(dev) -> None:
+    """The quant matmul's wgmma body at every split count, against the
+    mma body and its variants (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.models.quantize import quantize_int4, quantize_int8
+    variants = {name: (variant_library(_build, name, defines), rows)
+                for name, (defines, rows) in QMM_VARIANTS.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for model, k, n in QMM_SITES:
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        for fmt, pack, fn in (("int8", quantize_int8, qm.quant_matmul_int8),
+                              ("int4", quantize_int4, qm.quant_matmul_int4)):
+            packed = pack(w)
+            q, s = packed["q"], packed["s"]
+            rows_m = (8, 16, 32, 64, 128) if model == "smollm-360m" else (
+                8, 16, 128)
+            for m in rows_m:
+                x = torch.randn((m, k), generator=gen, device=dev).to(
+                    torch.bfloat16)
+                stages = -(-k // qm.WGMMA_STAGE_K)
+                counts = [sp for sp in range(1, min(8, stages) + 1)
+                          if (sp - 1) * -(-stages // sp) < stages]
+                bodies = {"wgmma": lambda: fn(x, q, s, _body="wgmma"),
+                          "mma": lambda: fn(x, q, s, _body="mma")}
+                for name, (lib, at) in variants.items():
+                    if m in at:
+                        bodies[name] = _on(_build, lib, bodies["wgmma"])
+                row = {"kernel": f"quant_matmul_{fmt}", "model": model,
+                       "shape": [m, k, n], "rows": qm.wgmma_rows(fmt, m),
+                       "rule": qm.wgmma_splits(fmt, m, k, n),
+                       "mma_rule": qm.quant_splits(m, k, n)}
+                if m in (8, 128):
+                    row["ms"] = _split_ms(qm, "wgmma_splits",
+                                          bodies["wgmma"], counts)
+                print(json.dumps({**row, **_turns(bodies)}), flush=True)
+            del packed, q, s
+        del w
+        torch.cuda.empty_cache()
 
 
 def cross_rows(dev, rng) -> None:
@@ -242,8 +353,13 @@ def main() -> int:
     if sys.argv[1:] == ["--chunk"]:
         chunk_rows(dev, rng)
         return 0
+    if sys.argv[1:] == ["--quant"]:
+        quant_rows(dev)
+        return 0
+    if sys.argv[1:] != ["--mma"]:
+        quant_rows(dev)
     qmm_rule = qm.quant_splits
-    for m, k, n in QMM_SHAPES:
+    for m, k, n in (QMM_SHAPES if sys.argv[1:] == ["--mma"] else ()):
         w = torch.from_numpy(
             rng.standard_normal((k, n)).astype(np.float32) * k ** -0.5)
         x = torch.from_numpy(rng.standard_normal((m, k)).astype(
@@ -256,9 +372,11 @@ def main() -> int:
                    "rule": qmm_rule(m, k, n), "ms": {}}
             for sp in range(1, min(8, -(-k // 64)) + 1):
                 qm.quant_splits = lambda *a, sp=sp: sp
-                row["ms"][sp] = device_ms(lambda: fn(x, q, s))
+                row["ms"][sp] = device_ms(lambda: fn(x, q, s, _body="mma"))
             qm.quant_splits = qmm_rule
             print(json.dumps(row), flush=True)
+    if sys.argv[1:] == ["--mma"]:
+        return 0
 
     h, kv, hd, bs, nb = 15, 5, 64, 16, 64          # smollm-360m's pool
     decode_rule = da.decode_splits
